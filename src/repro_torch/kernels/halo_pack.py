@@ -1,0 +1,252 @@
+"""Hopper kernels of the Faces halo path: wrappers and launch counters.
+
+Four hand-written CUDA kernels (``csrc/halo_pack.cu``, built for
+``sm_90a`` at first use by :mod:`.build`) replace the Pallas kernels of
+``repro.kernels.halo_pack`` on this path:
+
+===================  ==============================================
+wrapper              replaces (src/repro/kernels/halo_pack.py)
+===================  ==============================================
+``halo_pack``        ``halo_pack_call`` (line 67)
+``halo_unpack_add``  ``halo_unpack_add_call`` (line 84)
+``pack_segments``    ``pack_segments_call`` (line 163)
+``unpack_segments``  ``unpack_segments_call`` (line 202)
+===================  ==============================================
+
+Each launch covers every rank of a buffer in the global layout.  All
+four are copies at static offsets (plus one float add for the unpack):
+bound by the bytes moved against the card's memory rate and, at Faces
+slab sizes, by launch latency.  They allocate nothing but their
+outputs, launch on ``torch.cuda.current_stream()`` and raise if the
+launch is refused.
+
+A wrapper runs the plain version of :mod:`.ref` for a CPU tensor, and
+only then; for a CUDA tensor it launches its kernel or raises.  Each
+wrapper's ``launches`` attribute counts the kernel launches it made
+(a launch recorded into a CUDA graph counts once, at capture).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from . import ref
+from .build import load_library
+
+MAX_SEGMENTS = 64       # members of one fused transfer (csrc kMaxSegments)
+MAX_RANKS = 65535       # ranks of one segment launch (grid z)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _use_plain(*tensors: torch.Tensor) -> bool:
+    """True for CPU tensors; False for tensors on one CUDA device."""
+    kinds = {t.device for t in tensors}
+    if all(d.type == "cpu" for d in kinds):
+        return True
+    if len(kinds) == 1 and next(iter(kinds)).type == "cuda":
+        return False
+    raise ValueError(f"halo kernels take tensors on the CPU or on one CUDA "
+                     f"device, got {sorted(map(str, kinds))}")
+
+
+def _dtype_code(*tensors: torch.Tensor, contiguous: bool = True) -> int:
+    for t in tensors:
+        if t.dtype not in _DTYPE_CODE:
+            raise TypeError(f"halo kernels take float32 or bfloat16, got {t.dtype}")
+        if contiguous and not t.is_contiguous():
+            raise ValueError("halo kernels take contiguous tensors")
+    return _DTYPE_CODE[tensors[0].dtype]
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _raise_on(code: int) -> None:
+    if code:
+        msg = load_library().rt_error_string(code).decode()
+        raise RuntimeError(f"CUDA kernel launch failed: {msg} (error {code})")
+
+
+def _box(u: torch.Tensor, region) -> Tuple[int, ...]:
+    """(n_ranks, px, py, pz, x0, y0, z0, rx, ry, rz) of a region launch."""
+    if u.dim() < 3:
+        raise ValueError(f"halo kernels take (..., px, py, pz) blocks, got {tuple(u.shape)}")
+    block = tuple(u.shape[-3:])
+    if any(s.stop > n for s, n in zip(region, block)):
+        raise ValueError(f"region {region!r} exceeds block {block}")
+    n_block = block[0] * block[1] * block[2]
+    n_ranks = u.numel() // n_block if n_block else 0
+    return (n_ranks, *block, *(s.start for s in region), *ref.region_shape(region))
+
+
+def halo_pack(u: torch.Tensor, region: Sequence[slice]) -> torch.Tensor:
+    """Copy one static face/edge/corner region of every rank's block into
+    a new contiguous ``(*ranks, *region)`` slab.
+
+    Bound: reads and writes the slab once (a 128x128 face of 8 ranks is
+    1 MiB of traffic, well under a microsecond at 3.35 TB/s), so launch
+    latency dominates; one thread per element, coalesced along ``pz``.
+    """
+    region = ref.region3(region)
+    if _use_plain(u):
+        return ref.halo_pack(u, region)
+    code = _dtype_code(u)
+    box = _box(u, region)
+    out = torch.empty(tuple(u.shape[:-3]) + ref.region_shape(region),
+                      dtype=u.dtype, device=u.device)
+    err = load_library().rt_halo_pack(code, u.data_ptr(), out.data_ptr(), *box,
+                                      _stream(u))
+    _raise_on(err)
+    halo_pack.launches += 1
+    return out
+
+
+def halo_unpack_add(u: torch.Tensor, msg: torch.Tensor,
+                    region: Sequence[slice]) -> torch.Tensor:
+    """Add ``msg`` into every rank's ``region`` of ``u`` **in place** and
+    return ``u``.
+
+    The reference kernel returns a new block (``out_ref[...] =
+    u_ref[...]``); on a 128^3 float32 field of 8 ranks that copy would
+    move 67 MB per unpack, 26 times an iteration.  Here the kernel
+    touches the region only: it reads ``msg`` and the region once and
+    writes the region once (bytes-bound; launch latency dominates at
+    slab sizes).  A bfloat16 add is done in float32 and rounded once.
+    """
+    region = ref.region3(region)
+    want = tuple(u.shape[:-3]) + ref.region_shape(region)
+    if tuple(msg.shape) != want:
+        raise ValueError(f"message shape {tuple(msg.shape)} != region {want}")
+    if msg.dtype != u.dtype:
+        msg = msg.to(u.dtype)
+    if _use_plain(u, msg):
+        return ref.halo_unpack_add(u, msg, region)
+    code = _dtype_code(u, msg)
+    box = _box(u, region)
+    err = load_library().rt_halo_unpack_add(code, u.data_ptr(), msg.data_ptr(),
+                                            *box, _stream(u))
+    _raise_on(err)
+    halo_unpack_add.launches += 1
+    return u
+
+
+def _check_members(n_ranks: int, widths, cols, sizes) -> None:
+    """Shared checks of the segment kernels' member tables."""
+    if not sizes:
+        raise ValueError("segment kernels need at least one member")
+    if len(sizes) > MAX_SEGMENTS or n_ranks > MAX_RANKS:
+        raise ValueError(f"one launch takes at most {MAX_SEGMENTS} members "
+                         f"and {MAX_RANKS} ranks")
+    for w, col, n in zip(widths, cols, sizes):
+        if col < 0 or n < 0 or col + n > w:
+            raise ValueError(f"segment [{col}, {col + n}) does not fit "
+                             f"{w} columns")
+
+
+def pack_segments(sources: Sequence[Tuple[torch.Tensor, int]],
+                  sizes: Sequence[int]) -> torch.Tensor:
+    """Pack N members into one ``(R, sum(sizes))`` staging buffer.
+
+    ``sources[j] = (tensor, col)``: member ``j`` is columns ``[col, col
+    + sizes[j])`` of the 2-D ``(R, W)`` tensor — a slab flattened per
+    rank, or a segment of an earlier hop's received buffer.  The offsets
+    and sizes of all members travel in one by-value argument table, so
+    the whole fused transfer is ONE launch.  Bound: each member byte
+    read once and written once; at Faces sizes (a face and eight
+    edges/corners, ~66 KiB a rank) launch latency dominates.
+    """
+    sources = list(sources)
+    sizes = [int(n) for n in sizes]
+    if len(sources) != len(sizes):
+        raise ValueError("one size per member")
+    tensors = [t for t, _ in sources]
+    if any(t.dim() != 2 or t.stride(1) != 1 for t in tensors):
+        raise ValueError("segment sources are 2-D (ranks, columns) with unit "
+                         "column stride")
+    n_ranks = tensors[0].shape[0] if tensors else 0
+    if any(t.shape[0] != n_ranks for t in tensors):
+        raise ValueError("segment sources must share their rank count")
+    if len({t.dtype for t in tensors}) > 1:
+        raise ValueError("coalesced segments must share a dtype")
+    _check_members(n_ranks, [t.shape[1] for t in tensors],
+                   [c for _, c in sources], sizes)
+    if _use_plain(*tensors):
+        return ref.pack_segments(sources, sizes)
+    code = _dtype_code(*tensors, contiguous=False)
+    total = sum(sizes)
+    out = torch.empty((n_ranks, total), dtype=tensors[0].dtype,
+                      device=tensors[0].device)
+    rows, off = [], 0
+    for (t, col), n in zip(sources, sizes):
+        rows += [t.data_ptr(), t.stride(0), col, off, n]
+        off += n
+    table = (ctypes.c_int64 * len(rows))(*rows)
+    err = load_library().rt_pack_segments(code, table, len(sizes), out.data_ptr(),
+                                          n_ranks, total, _stream(out))
+    _raise_on(err)
+    pack_segments.launches += 1
+    return out
+
+
+def unpack_segments(buf: torch.Tensor, outs: Sequence[torch.Tensor],
+                    offsets: Sequence[int],
+                    masks: Optional[torch.Tensor] = None) -> None:
+    """Split a received ``(R, S)`` staging buffer into N slabs, in place.
+
+    ``outs[j]`` is a contiguous tensor of ``R * n_j`` elements (rank
+    major) that takes columns ``[offsets[j], offsets[j] + n_j)`` of
+    every rank whose byte in ``masks[j]`` is set (every rank when
+    ``masks`` is None).  The engines pass the deposit destinations
+    themselves, so a replace deposit costs this one launch per fused
+    transfer.  Bound: bytes moved, launch latency at Faces sizes.
+    """
+    outs = list(outs)
+    offsets = [int(o) for o in offsets]
+    if buf.dim() != 2 or len(outs) != len(offsets):
+        raise ValueError("unpack_segments takes a 2-D buffer and one offset "
+                         "per slab")
+    n_ranks = buf.shape[0]
+    if any(o.numel() % max(n_ranks, 1) for o in outs):
+        raise ValueError(f"every slab must hold a whole row per rank ({n_ranks})")
+    sizes = [o.numel() // max(n_ranks, 1) for o in outs]
+    _check_members(n_ranks, [buf.shape[1]] * len(outs), offsets, sizes)
+    if any(o.dtype != buf.dtype for o in outs):
+        raise ValueError("coalesced segments must share a dtype")
+    if masks is not None and (masks.dtype != torch.bool
+                              or tuple(masks.shape) != (len(outs), n_ranks)):
+        raise ValueError(f"masks must be bool of shape {(len(outs), n_ranks)}")
+    extra = [] if masks is None else [masks]
+    if _use_plain(buf, *outs, *extra):
+        ref.unpack_segments(buf, outs, offsets, masks)
+        return
+    code = _dtype_code(buf, *outs)
+    rows = []
+    for o, off, n in zip(outs, offsets, sizes):
+        rows += [o.data_ptr(), off, n]
+    table = (ctypes.c_int64 * len(rows))(*rows)
+    if masks is not None and not masks.is_contiguous():
+        raise ValueError("halo kernels take contiguous tensors")
+    err = load_library().rt_unpack_segments(
+        code, buf.data_ptr(), n_ranks, buf.shape[1], table, len(outs),
+        None if masks is None else masks.data_ptr(), _stream(buf))
+    _raise_on(err)
+    unpack_segments.launches += 1
+
+
+KERNELS = (halo_pack, halo_unpack_add, pack_segments, unpack_segments)
+for _k in KERNELS:
+    _k.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches made by each wrapper since the last reset."""
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
