@@ -34,22 +34,20 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from . import ref
-from .build import load_library
+from .build import check_launch, load_library, stream_arg, use_plain
 
 MAX_SEGMENTS = 64       # members of one fused transfer (csrc kMaxSegments)
 MAX_RANKS = 65535       # ranks of one segment launch (grid z)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-
-def _use_plain(*tensors: torch.Tensor) -> bool:
-    """True for CPU tensors; False for tensors on one CUDA device."""
-    kinds = {t.device for t in tensors}
-    if all(d.type == "cpu" for d in kinds):
-        return True
-    if len(kinds) == 1 and next(iter(kinds)).type == "cuda":
-        return False
-    raise ValueError(f"halo kernels take tensors on the CPU or on one CUDA "
-                     f"device, got {sorted(map(str, kinds))}")
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+#: the C entry points of ``csrc/halo_pack.cu`` and their argument types
+SIGNATURES = {
+    "rt_halo_pack": [_I, _P, _P, _I64] + [_I] * 9 + [_P],
+    "rt_halo_unpack_add": [_I, _P, _P, _I64] + [_I] * 9 + [_P],
+    "rt_pack_segments": [_I, _P, _I, _P, _I64, _I64, _P],
+    "rt_unpack_segments": [_I, _P, _I64, _I64, _P, _I, _P, _P],
+}
 
 
 def _dtype_code(*tensors: torch.Tensor, contiguous: bool = True) -> int:
@@ -61,14 +59,8 @@ def _dtype_code(*tensors: torch.Tensor, contiguous: bool = True) -> int:
     return _DTYPE_CODE[tensors[0].dtype]
 
 
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _raise_on(code: int) -> None:
-    if code:
-        msg = load_library().rt_error_string(code).decode()
-        raise RuntimeError(f"CUDA kernel launch failed: {msg} (error {code})")
+def _lib():
+    return load_library("halo_pack", SIGNATURES)
 
 
 def _box(u: torch.Tensor, region) -> Tuple[int, ...]:
@@ -92,15 +84,14 @@ def halo_pack(u: torch.Tensor, region: Sequence[slice]) -> torch.Tensor:
     latency dominates; one thread per element, coalesced along ``pz``.
     """
     region = ref.region3(region)
-    if _use_plain(u):
+    if use_plain(u):
         return ref.halo_pack(u, region)
     code = _dtype_code(u)
     box = _box(u, region)
     out = torch.empty(tuple(u.shape[:-3]) + ref.region_shape(region),
                       dtype=u.dtype, device=u.device)
-    err = load_library().rt_halo_pack(code, u.data_ptr(), out.data_ptr(), *box,
-                                      _stream(u))
-    _raise_on(err)
+    err = _lib().rt_halo_pack(code, u.data_ptr(), out.data_ptr(), *box, stream_arg(u))
+    check_launch("halo_pack", err)
     halo_pack.launches += 1
     return out
 
@@ -123,13 +114,13 @@ def halo_unpack_add(u: torch.Tensor, msg: torch.Tensor,
         raise ValueError(f"message shape {tuple(msg.shape)} != region {want}")
     if msg.dtype != u.dtype:
         msg = msg.to(u.dtype)
-    if _use_plain(u, msg):
+    if use_plain(u, msg):
         return ref.halo_unpack_add(u, msg, region)
     code = _dtype_code(u, msg)
     box = _box(u, region)
-    err = load_library().rt_halo_unpack_add(code, u.data_ptr(), msg.data_ptr(),
-                                            *box, _stream(u))
-    _raise_on(err)
+    err = _lib().rt_halo_unpack_add(code, u.data_ptr(), msg.data_ptr(), *box,
+                                    stream_arg(u))
+    check_launch("halo_pack", err)
     halo_unpack_add.launches += 1
     return u
 
@@ -174,7 +165,7 @@ def pack_segments(sources: Sequence[Tuple[torch.Tensor, int]],
         raise ValueError("coalesced segments must share a dtype")
     _check_members(n_ranks, [t.shape[1] for t in tensors],
                    [c for _, c in sources], sizes)
-    if _use_plain(*tensors):
+    if use_plain(*tensors):
         return ref.pack_segments(sources, sizes)
     code = _dtype_code(*tensors, contiguous=False)
     total = sum(sizes)
@@ -185,9 +176,9 @@ def pack_segments(sources: Sequence[Tuple[torch.Tensor, int]],
         rows += [t.data_ptr(), t.stride(0), col, off, n]
         off += n
     table = (ctypes.c_int64 * len(rows))(*rows)
-    err = load_library().rt_pack_segments(code, table, len(sizes), out.data_ptr(),
-                                          n_ranks, total, _stream(out))
-    _raise_on(err)
+    err = _lib().rt_pack_segments(code, table, len(sizes), out.data_ptr(),
+                                  n_ranks, total, stream_arg(out))
+    check_launch("halo_pack", err)
     pack_segments.launches += 1
     return out
 
@@ -220,7 +211,7 @@ def unpack_segments(buf: torch.Tensor, outs: Sequence[torch.Tensor],
                               or tuple(masks.shape) != (len(outs), n_ranks)):
         raise ValueError(f"masks must be bool of shape {(len(outs), n_ranks)}")
     extra = [] if masks is None else [masks]
-    if _use_plain(buf, *outs, *extra):
+    if use_plain(buf, *outs, *extra):
         ref.unpack_segments(buf, outs, offsets, masks)
         return
     code = _dtype_code(buf, *outs)
@@ -230,10 +221,10 @@ def unpack_segments(buf: torch.Tensor, outs: Sequence[torch.Tensor],
     table = (ctypes.c_int64 * len(rows))(*rows)
     if masks is not None and not masks.is_contiguous():
         raise ValueError("halo kernels take contiguous tensors")
-    err = load_library().rt_unpack_segments(
+    err = _lib().rt_unpack_segments(
         code, buf.data_ptr(), n_ranks, buf.shape[1], table, len(outs),
-        None if masks is None else masks.data_ptr(), _stream(buf))
-    _raise_on(err)
+        None if masks is None else masks.data_ptr(), stream_arg(buf))
+    check_launch("halo_pack", err)
     unpack_segments.launches += 1
 
 

@@ -1,11 +1,12 @@
-"""Plain PyTorch versions of the halo kernels, over the global layout.
+"""Plain PyTorch versions of the hand-written kernels.
 
-Port of the halo part of ``repro.kernels.ref``.  Each function here is
-the semantic ground truth of one hand-written CUDA kernel in
-:mod:`.halo_pack`: the wrappers there call it for CPU tensors, and
-``chip_smoke.py`` holds each kernel against it on the card, bit for
-bit.  Tensors carry every rank: leading dimensions are rank axes, the
-last three (for the halo pack family) the local ``(px, py, pz)`` block.
+Port of the halo and SSD parts of ``repro.kernels.ref``.  Each function
+here is the semantic ground truth of one hand-written CUDA kernel: the
+wrappers of :mod:`.halo_pack` and :mod:`.ssd_scan` call it for CPU
+tensors, and ``chip_smoke.py`` holds each kernel against it on the card
+(the halo kernels bit for bit, the SSD scan within a stated bound).
+For the halo kernels, tensors carry every rank: leading dimensions are
+rank axes, the last three the local ``(px, py, pz)`` block.
 """
 
 from __future__ import annotations
@@ -82,3 +83,36 @@ def unpack_segments(buf: torch.Tensor, outs: Sequence[torch.Tensor],
         if masks is not None:
             piece = torch.where(masks[j].view(n_ranks, 1), piece, view)
         view.copy_(piece)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, C: torch.Tensor, *,
+             init_state: Optional[torch.Tensor] = None,
+             return_state: bool = False):
+    """Sequential Mamba2 SSD scan in float32 (``repro.kernels.ref.ssd_scan``).
+
+    ``h_t = exp(A dt_t) h_{t-1} + dt_t (x_t ⊗ B_t)``, ``y_t = h_t · C_t``
+    per head; x ``[B,S,H,P]``, dt ``[B,S,H]``, A ``[H]``, Bm and C
+    ``[B,S,G,N]``, and head ``h`` reads group ``h // (H/G)``.  The
+    increment ``x ⊗ B`` is formed in the inputs' dtype before it meets
+    ``dt``, as the reference does.  One step at a time, so no
+    ``[B,S,H,P,N]`` tensor is held.  Returns y in x's dtype (and the
+    final float32 state ``[B,H,P,N]`` when ``return_state``).
+    """
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if H % G:
+        raise ValueError(f"{H} heads do not split into {G} groups")
+    rep = H // G
+    Bh = Bm.repeat_interleave(rep, dim=2)
+    Ch = C.repeat_interleave(rep, dim=2).float()
+    h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+         if init_state is None else init_state.float())
+    decay = torch.exp(A[None, None, :] * dt)
+    ys = []
+    for t in range(S):
+        inc = dt[:, t, :, None, None] * (x[:, t, :, :, None] * Bh[:, t, :, None, :])
+        h = decay[:, t, :, None, None] * h + inc.float()
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Ch[:, t]))
+    y = torch.stack(ys, dim=1).to(x.dtype)
+    return (y, h) if return_state else y

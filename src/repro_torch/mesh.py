@@ -81,10 +81,16 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
         raise ValueError(f"mesh shape {shape} and axes {axes} must align")
     if any(s < 1 for s in shape):
         raise ValueError(f"mesh axis sizes must be >= 1, got {shape}")
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "make_mesh: no CUDA device is available; pass device='cpu' "
-                "to run the port's plain PyTorch path on the host")
-        device = torch.device("cuda", torch.cuda.current_device())
-    return Mesh(axes, shape, torch.device(device))
+    return Mesh(axes, shape, resolve_device(device, "make_mesh"))
+
+
+def resolve_device(device, who: str) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means the current CUDA
+    device, and raises without a GPU instead of sliding to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}: no CUDA device is available; pass device='cpu' "
+            f"to run the port's plain PyTorch path on the host")
+    return torch.device("cuda", torch.cuda.current_device())

@@ -1,0 +1,146 @@
+"""Model facade — port of ``repro.models.model.Model`` for the SSM path.
+
+``init``, ``forward_logits``, ``init_caches``, ``prefill`` and
+``decode_step`` give the reference's outputs and cache tree: params
+``{"embed": {"table"}, "decoder": {"segments": [...]}, "ln_final":
+{"scale"}, "unembed": {}}`` and caches ``{"segments": [{"ssm": {"conv",
+"state"}}], "pos"}``.  The functions are pure (new caches out, inputs
+untouched), as in the reference.  ``select_slots``, ``loss`` and the
+frontends are not ported yet (``ROADMAP.md``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.mesh import resolve_device
+from . import transformer as tfm
+from .nn import (
+    apply_embedding,
+    apply_rmsnorm,
+    apply_unembed,
+    dtype_of,
+    init_embedding,
+    init_rmsnorm,
+)
+
+
+#: weights the forward casts to ``cfg.dtype`` at each use (``ssm.py``,
+#: ``nn.py``)
+_COMPUTE_DTYPE_WEIGHTS = ("in_proj", "out_proj", "table")
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig):
+        tfm.plan_segments(cfg)  # raises for what is not ported
+        if not cfg.tie_embeddings or cfg.embed_scale:
+            raise NotImplementedError(f"{cfg.name}: only a tied, unscaled embedding "
+                                      f"is ported to repro_torch yet")
+        if not cfg.use_ssd_kernel:
+            raise NotImplementedError(f"{cfg.name}: use_ssd_kernel=False (the plain "
+                                      f"SSD forward) is not ported; the port's scan "
+                                      f"always takes the kernel wrapper")
+        self.cfg = cfg
+
+    # -- params ---------------------------------------------------------------
+
+    def init(self, seed: int = 0, *, device=None) -> Dict[str, Any]:
+        """Random parameters from ``torch.Generator(seed)`` with the
+        reference's distributions (not its numbers: carry the reference's
+        own with :func:`repro_torch.models.convert.from_reference_params`).
+        ``device=None`` means the current CUDA device; ``"meta"`` gives
+        shapes without memory."""
+        cfg = self.cfg
+        device = resolve_device(device, "Model.init")
+        gen = None
+        if device.type != "meta":
+            gen = torch.Generator(device=device).manual_seed(int(seed))
+        return {
+            "embed": init_embedding(gen, cfg, device=device),
+            "decoder": tfm.init_stack(gen, cfg, device=device),
+            "ln_final": init_rmsnorm(cfg.d_model, dtype_of(cfg.param_dtype),
+                                     device=device),
+            "unembed": {},  # tied to the embedding table
+        }
+
+    def abstract_init(self) -> Dict[str, Any]:
+        """Parameters on the ``meta`` device: shapes and dtypes, no memory."""
+        return self.init(device="meta")
+
+    def compute_params(self, params) -> Dict[str, Any]:
+        """``params`` with the weights the forward casts to ``cfg.dtype``
+        at every use (the projections and the embedding table) cast once,
+        as XLA hoists the reference's casts; the other leaves are the
+        same tensors.  The values the forward sees are unchanged."""
+        dt = dtype_of(self.cfg.dtype)
+
+        def cast(tree):
+            if isinstance(tree, dict):
+                return {k: (v.to(dt) if k in _COMPUTE_DTYPE_WEIGHTS else cast(v))
+                        for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [cast(v) for v in tree]
+            return tree
+
+        return cast(params)
+
+    # -- forward ----------------------------------------------------------------
+
+    def forward_logits(self, params, batch) -> torch.Tensor:
+        """Full-sequence logits (no cache): every layer's scan takes the
+        SSD kernel, as the reference's ``cache is None`` path does."""
+        cfg = self.cfg
+        x = apply_embedding(params["embed"], batch["tokens"], cfg)
+        x, _ = tfm.apply_stack(params["decoder"], x, cfg)
+        h = apply_rmsnorm(params["ln_final"], x, cfg)
+        return apply_unembed(params["embed"], h)
+
+    # -- serving ------------------------------------------------------------------
+
+    def init_caches(self, batch: int, max_len: int, per_sequence: bool = False, *,
+                    device=None) -> Dict[str, Any]:
+        """Zeroed decode caches; ``per_sequence=True`` makes ``pos`` a
+        [batch] vector (every slot at its own depth).  An SSM cache does
+        not grow with ``max_len``."""
+        device = resolve_device(device, "Model.init_caches")
+        pos_shape = (batch,) if per_sequence else ()
+        return {"segments": tfm.init_caches(self.cfg, batch, device=device),
+                "pos": torch.zeros(pos_shape, dtype=torch.int32, device=device)}
+
+    def prefill(self, params, batch, caches):
+        """Write the prompt into the caches; returns (last_logits, caches)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = apply_embedding(params["embed"], tokens, cfg)
+        x, new_segs = tfm.apply_stack(params["decoder"], x, cfg,
+                                      caches=caches["segments"])
+        h = apply_rmsnorm(params["ln_final"], x, cfg)
+        logits = apply_unembed(params["embed"], h[:, -1:])[:, 0]
+        return logits, {"segments": _merge_caches(caches["segments"], new_segs),
+                        "pos": caches["pos"] + tokens.shape[1]}
+
+    def decode_step(self, params, caches, token):
+        """One-token decode against the cache.  token: [B] int32;
+        ``caches["pos"]`` is a scalar or a [B] vector."""
+        cfg = self.cfg
+        x = apply_embedding(params["embed"], token[:, None], cfg)
+        x, new_segs = tfm.apply_stack(params["decoder"], x, cfg,
+                                      caches=caches["segments"])
+        h = apply_rmsnorm(params["ln_final"], x, cfg)
+        logits = apply_unembed(params["embed"], h)[:, 0]
+        out = dict(caches)
+        out["segments"] = _merge_caches(caches["segments"], new_segs)
+        out["pos"] = caches["pos"] + 1
+        return logits, out
+
+
+def _merge_caches(old_segs: List, new_segs: List) -> List:
+    out = []
+    for o, n in zip(old_segs, new_segs):
+        merged = dict(o)
+        merged.update(n or {})
+        out.append(merged)
+    return out

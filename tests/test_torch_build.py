@@ -1,9 +1,16 @@
-"""Build layer of the port against the JAX package, on the same configs.
+"""Build layer of the port against the JAX package, on the same configs,
+and the build of the port's CUDA sources.
 
 The JAX package builds the Faces program on an abstract mesh (no
 devices needed), so 8-rank grids compare in-process.  Counts, batches,
 coalescing plans, effect sets and the program digest must be equal.
+The CUDA sources are compiled on the card only; here the source list,
+the entry-point table and the content hash of the library names are
+checked, without ``nvcc``.
 """
+
+import importlib
+import re
 
 import numpy as np
 import pytest
@@ -21,6 +28,7 @@ from repro_torch.core import (
 from repro_torch.core import halo as thalo
 from repro_torch.core.descriptors import dtype_str
 from repro_torch.core.effects import program_digest
+from repro_torch.kernels import build
 
 GRIDS = [((1, 1, 1), True), ((2, 2, 2), False), ((8, 1, 1), False)]
 
@@ -142,3 +150,45 @@ def test_freed_queue_rejects_use():
     q.free()
     with pytest.raises(QueueError, match="freed"):
         q.enqueue_start()
+
+
+def test_every_cuda_source_is_built_and_declared():
+    """Every source has a wrapper module of its name that declares the C
+    types of exactly the entry points the source exports."""
+    names = set(build.sources())
+    assert names == {"halo_pack", "ssd_scan"}
+    for name in names:
+        wrapper = importlib.import_module(f"repro_torch.kernels.{name}")
+        text = build.sources()[name].read_text()
+        exported = set(re.findall(r"^int (rt_\w+)\(", text, flags=re.M))
+        assert exported and set(wrapper.SIGNATURES) == exported
+    paths = {build.library_path(n) for n in names}
+    assert len(paths) == len(names)
+    assert all(p.parent == build.BUILD_DIR for p in paths)
+
+
+def test_library_name_hashes_its_source(tmp_path, monkeypatch):
+    """An edited source gets a new library; an unchanged one is reused
+    without calling nvcc."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for name, path in build.sources().items():
+        (src / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(build, "CSRC", src)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    before = {n: build.library_path(n) for n in build.sources()}
+    (src / "ssd_scan.cu").write_text((src / "ssd_scan.cu").read_text() + "\n// edit\n")
+    after = {n: build.library_path(n) for n in build.sources()}
+    assert after["halo_pack"] == before["halo_pack"]
+    assert after["ssd_scan"] != before["ssd_scan"]
+
+    def no_nvcc():
+        raise AssertionError("nvcc must not run for a library that exists")
+
+    monkeypatch.setattr(build, "nvcc_path", no_nvcc)
+    build.BUILD_DIR.mkdir()
+    for path in after.values():
+        path.touch()
+    infos = build.build_all()
+    assert {n: i.path for n, i in infos.items()} == after
+    assert all(i.seconds is None for i in infos.values())

@@ -29,7 +29,10 @@ def _forbidden(module: str) -> bool:
 
 def test_import_leaves_out_jax_and_repro(subproc):
     code = ("import sys, repro_torch, repro_torch.core, "
-            "repro_torch.kernels.halo_pack, repro_torch.kernels.build\n"
+            "repro_torch.kernels.halo_pack, repro_torch.kernels.build, "
+            "repro_torch.kernels.ssd_scan, repro_torch.configs, "
+            "repro_torch.models, repro_torch.models.convert, "
+            "repro_torch.launch.serve\n"
             "assert 'jax' not in sys.modules\n"
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), sorted(sys.modules)\n")
