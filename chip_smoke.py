@@ -8,7 +8,7 @@ Needs one CUDA device and ``nvcc`` (``$CUDA_HOME`` or
 a checkout of the repository.  Phases, each of which must pass:
 
 1. build the hand-written CUDA kernels from ``src/repro_torch/kernels/
-   csrc`` (timed);
+   csrc`` (timed; one nvcc per source, all started together);
 2. drive the main path, the stream-triggered Faces loop, at full size —
    a (2,2,2) rank grid of 128^3 float32 blocks (2.1 M points a rank,
    67 MB of field), direct26, batched, coalesced, ``pack="kernel"``,
@@ -18,28 +18,53 @@ a checkout of the repository.  Phases, each of which must pass:
 3. check the results: the engines agree bit for bit, the
    ``pack="torch"`` run agrees bit for bit, one iteration agrees with
    the NumPy ``faces_oracle`` within 1e-4, dispatch counts are
-   ``dispatch_count_host() x 10`` / 10 / 1, every kernel launched;
-4. hold each halo kernel against its plain PyTorch version on the main
-   path's shapes, bit for bit, and time kernel, plain version and one
-   PyTorch call for the same function (CUDA events, median);
-5. serve mamba2-2.7b at full width and depth (64 layers, d_model 2560,
+   ``dispatch_count_host() x 10`` / 10 / 1, the four Faces kernels
+   launched;
+4. drive the same 10 iterations the paper's other way, through ONE
+   contiguous buffer per rank (``faces_step_contiguous``:
+   ``ops.pack_boundary`` and ``ops.unpack_boundary_add``, counters set
+   to 0 just before), and require the first iteration and the tenth
+   equal to the host engine's bit for bit;
+5. hold each halo and boundary kernel against its plain PyTorch version
+   on the main path's shapes, bit for bit (the boundary pair on each of
+   the 8 rank blocks and on a bf16 block), and time kernel, plain
+   version and one PyTorch call for the same function (CUDA events,
+   median);
+6. serve mamba2-2.7b at full width and depth (64 layers, d_model 2560,
    80 SSD heads of 64, state 128, vocab 50 280, bf16 compute, float32
    parameters from ``torch.Generator(seed)``): 4 slots, 512-token
    prompts, 32 tokens each, first device-resident (decode = one CUDA
    graph launch) then host-stepped (one launch per token), with the SSD
-   kernel's launch counter set to 0 just before each serve and read
-   just after; a ``torch.profiler`` window over one prefill and one
-   decode step;
-6. check the serving results: both modes emit the same tokens,
+   and rmsnorm kernels' counters set to 0 just before each serve and
+   read just after; a ``torch.profiler`` window over one prefill and
+   one decode step;
+7. check the serving results: both modes emit the same tokens,
    ``forward_logits`` (the reference's no-cache kernel path) equals the
    prefill's last-position logits bit for bit, and the logits are
    finite;
-7. hold the SSD kernel against its plain version: at the served shapes
+8. hold the SSD kernel against its plain version: at the served shapes
    in bf16 within a bound derived from bf16 rounding, and on the
    float32 cases of ``tests/test_kernels.py`` (plus a tail and an
-   ``init_state`` case) at the repo's rtol 2e-4 / atol 3e-5; time both.
+   ``init_state`` case) at the repo's rtol 2e-4 / atol 3e-5; time both;
+9. serve gemma3-1b at full width and depth (26 layers, d_model 1152, 4
+   query heads and 1 kv head of 256, 22 local layers with a 512-token
+   window and 4 global ones, vocab 262 144, bf16 compute over float32
+   parameters from ``torch.Generator(seed)``): 4 slots, 1024-token
+   prompts (twice the window, so the local layers skip kv tiles), 32
+   tokens each, resident then host-stepped, with the flash-attention
+   and rmsnorm counters set to 0 just before each serve and read just
+   after (26 flash launches and at least 105 norms per prefill); the
+   checks of phase 7; profiles of one prefill and one decode step;
+10. hold flash attention against its plain version on the q, k, v of the
+   served prefill's first local layer (0) and first global layer (5),
+   taken by calling the layers' functions, in bf16 within one rounding
+   of the output, and on float32 cases (softcap, one query at an
+   offset, ragged kv, head_dim 64/128/256) at the repo's rtol 2e-4 /
+   atol 3e-5; rmsnorm on the served layer-0 input and at d 1152, 256
+   and 2560 with a ragged row count at ``weight_offset`` 0 and 1; time
+   both against ``F.scaled_dot_product_attention`` and ``F.rms_norm``.
 
-The last lines are a ``{"kernels": [...]}`` JSON line (five rows), the
+The last lines are a ``{"kernels": [...]}`` JSON line (nine rows), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -56,17 +81,24 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 rate outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
 N_ITERS = 10
 
 
 REPLACES = {
     "halo_pack": "src/repro/kernels/halo_pack.py:67",
     "halo_unpack_add": "src/repro/kernels/halo_pack.py:84",
+    "pack_boundary": "src/repro/kernels/halo_pack.py:112",
+    "unpack_boundary_add": "src/repro/kernels/halo_pack.py:134",
     "pack_segments": "src/repro/kernels/halo_pack.py:163",
     "unpack_segments": "src/repro/kernels/halo_pack.py:202",
+    "rmsnorm": "src/repro/kernels/rmsnorm.py:28",
+    "flash_attention": "src/repro/kernels/flash_attention.py:96",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:80",
 }
-SERVE = dict(batch=4, prompt_len=512, gen_len=32)
+FACES_KERNELS = ("halo_pack", "halo_unpack_add", "pack_segments", "unpack_segments")
+SERVE = dict(batch=4, prompt_len=512, gen_len=32)          # mamba2-2.7b
+DENSE_SERVE = dict(batch=4, prompt_len=1024, gen_len=32)   # gemma3-1b
 
 
 def gpu_line() -> str:
@@ -205,11 +237,61 @@ def run_engines(torch, cfg, mesh, u0):
     return prog, fields, first, dispatches, ms, trace_engine
 
 
+def kernel_row(torch, name, source, err, fn, plain, library, n_bytes, n_ops, ops_rate,
+               plain_reps=(15, 20)):
+    """A row of the kernels line: times of the kernel, its plain version
+    and the library call, and the bound from this run's bytes and
+    operations (``ops_rate``: the peak of the operations' type)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_rate
+    return {
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{source}",
+        "replaces": REPLACES[name], "max_abs_err": err,
+        "ms": median_ms(torch, fn), "plain_ms": median_ms(torch, plain, *plain_reps),
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None if library is None else median_ms(torch, library),
+    }
+
+
+def run_contiguous(torch, cfg, u0, first, last, hk):
+    """Phase 4: the same iterations through one contiguous buffer per rank
+    (``faces_step_contiguous``), counters set to 0 just before and read
+    just after; the first and the last iteration must equal the host
+    engine's bit for bit."""
+    from repro_torch.core import faces_step_contiguous
+
+    u = torch.from_numpy(u0).cuda()
+    torch.cuda.synchronize()
+    hk.reset_launches()
+    events = []
+    for i in range(N_ITERS):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        u = faces_step_contiguous(u, cfg)
+        b.record()
+        events.append((a, b))
+        if i == 0:
+            one = u.clone()
+    torch.cuda.synchronize()
+    launches = hk.launch_counts()
+    require(launches["pack_boundary"] == N_ITERS and launches["unpack_boundary_add"] == N_ITERS,
+            f"the one-buffer path did not take the boundary kernels: {launches}")
+    require(torch.equal(one, first), "one-buffer iteration 1 differs from the host engine's")
+    require(torch.equal(u, last), f"one-buffer iteration {N_ITERS} differs from the host "
+            "engine's")
+    return {"iterations": N_ITERS,
+            "median_ms_per_iter": statistics.median(a.elapsed_time(b) for a, b in events),
+            "equal_to_host_engine": True, "launches": launches}
+
+
 def check_kernels(torch, prog, u, hk, ref):
     """Phase 4: each kernel against its plain version at the main path's
     shapes (bit for bit), its timings, and its bound from this input."""
+    import numpy as np
+
     from repro_torch.core.engine_fused import Lowering
-    from repro_torch.core.halo import _region_for
+    from repro_torch.core.halo import DIRECTIONS, _region_for
 
     points = tuple(u.shape[-3:])
     n_ranks = u.numel() // (points[0] * points[1] * points[2])
@@ -222,16 +304,8 @@ def check_kernels(torch, prog, u, hk, ref):
             require(torch.equal(g, w), f"{name} != plain on {what}")
 
     def row(name, fn, plain, library, n_bytes, n_ops=0):
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
-        return {
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/halo_pack.cu",
-            "replaces": REPLACES[name], "max_abs_err": errs[name],
-            "ms": median_ms(torch, fn), "plain_ms": median_ms(torch, plain),
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None if library is None else median_ms(torch, library),
-        }
+        return kernel_row(torch, name, "halo_pack.cu", errs[name], fn, plain, library,
+                          n_bytes, n_ops, FP32_OPS_PER_S)
 
     # halo_pack / halo_unpack_add: a face, an edge and a corner, bit for
     # bit; timed on a face (the largest region the path packs)
@@ -256,6 +330,33 @@ def check_kernels(torch, prog, u, hk, ref):
                     lambda: ref.halo_unpack_add(acc, slab, face),
                     lambda: acc_view.add_(slab), 3 * slab.numel() * itemsize,
                     n_ops=slab.numel()))
+
+    # pack_boundary / unpack_boundary_add: each of the 8 rank blocks of the
+    # field and a bf16 block, bit for bit (the received buffer: the packed
+    # one reversed); timed on the whole field, all ranks in one launch, as
+    # the one-buffer path calls them
+    send = [_region_for(d, points) for d in DIRECTIONS]
+    back = [_region_for(tuple(-x for x in d), points) for d in DIRECTIONS]
+    blocks = [u[g] for g in np.ndindex(*u.shape[:-3])] + [u[(0,) * (u.dim() - 3)].bfloat16()]
+    for i, blk in enumerate(blocks):
+        buf = hk.pack_boundary(blk, send)
+        same("pack_boundary", [buf], [ref.pack_boundary(blk, send)], f"block {i}")
+        msg = torch.flip(buf, [-1])
+        same("unpack_boundary_add", [hk.unpack_boundary_add(blk.clone(), msg, back)],
+             [ref.unpack_boundary_add(blk.clone(), msg, back)], f"block {i}")
+    sent = hk.pack_boundary(u, send)
+    flats = [u[(..., *r)].flatten(-3) for r in send]
+    shell = torch.zeros(points, dtype=torch.bool)
+    for r in send:
+        shell[r] = True
+    total, union = sent.shape[-1], int(shell.sum())
+    rows.append(row("pack_boundary", lambda: hk.pack_boundary(u, send),
+                    lambda: ref.pack_boundary(u, send),
+                    lambda: torch.cat(flats, dim=-1), 2 * n_ranks * total * itemsize))
+    acc = u.clone()
+    rows.append(row("unpack_boundary_add", lambda: hk.unpack_boundary_add(acc, sent, back),
+                    lambda: ref.unpack_boundary_add(acc, sent, back), None,
+                    n_ranks * (total + 2 * union) * itemsize, n_ops=n_ranks * total))
 
     # pack_segments / unpack_segments: replay the coalescing plan of the
     # path's batch with both versions, transfer by transfer
@@ -307,45 +408,68 @@ def check_kernels(torch, prog, u, hk, ref):
     return rows
 
 
-def run_serve(torch, seed: int):
-    """Phase 5: serve mamba2-2.7b at full size in both decode modes.
+def run_serve(torch, seed: int, arch: str, shape: dict, counters):
+    """Serve ``arch`` at full size in both decode modes (phases 6 and 9).
 
     One untimed serve per mode first captures the decode graphs (set-up,
-    as a server does once).  Then each mode serves once with the SSD
-    kernel's counter set to 0 just before and read just after."""
+    as a server does once).  Then each mode serves once with the
+    ``counters`` (kernel modules) set to 0 just before and read just
+    after."""
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.launch.serve import ServeEngine, serve, synthetic_batch
 
-    cfg = get_config("mamba2-2.7b")
-    eng = ServeEngine(cfg, slots=SERVE["batch"], prompt_len=SERVE["prompt_len"],
-                      max_new=SERVE["gen_len"], chunk=SERVE["gen_len"] - 1)
+    cfg = get_config(arch)
+    eng = ServeEngine(cfg, slots=shape["batch"], prompt_len=shape["prompt_len"],
+                      max_new=shape["gen_len"], chunk=shape["gen_len"] - 1)
     params = eng.model.init(seed)
-    batch_in = synthetic_batch(cfg, np.random.RandomState(seed), SERVE["batch"],
-                               SERVE["prompt_len"])
+    batch_in = synthetic_batch(cfg, np.random.RandomState(seed), shape["batch"],
+                               shape["prompt_len"])
     t0 = time.perf_counter()
     for resident in (True, False):
         serve(cfg, params=params, batch_in=batch_in, engine=eng,
-              device_resident=resident, **SERVE)
+              device_resident=resident, **shape)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     runs = {}
     for resident in (True, False):
-        ssd.reset_launches()
-        gen, stats = serve(cfg, params=params, batch_in=batch_in, engine=eng,
-                           device_resident=resident, **SERVE)
         torch.cuda.synchronize()
-        runs["resident" if resident else "host_stepped"] = (gen, stats, ssd.launch_counts())
+        for c in counters:
+            c.reset_launches()
+        gen, stats = serve(cfg, params=params, batch_in=batch_in, engine=eng,
+                           device_resident=resident, **shape)
+        torch.cuda.synchronize()
+        counts = {}
+        for c in counters:
+            counts.update(c.launch_counts())
+        runs["resident" if resident else "host_stepped"] = (gen, stats, counts)
     return cfg, eng, params, batch_in, runs, setup_s
 
 
-def check_serving(torch, eng, params, batch_in, runs) -> dict:
-    """Phase 6: equal tokens in both modes; ``forward_logits`` equal to the
-    prefill's last-position logits; finite logits."""
+def serve_report(torch, cfg, shape, runs, setup_s) -> dict:
+    """The serve line of phases 6 and 9; requires the dispatch counts."""
+    line = {"model": cfg.name, **shape, "setup_s": setup_s}
+    for mode, (gen, stats, counts) in runs.items():
+        line[mode] = {
+            "prefill_ms": stats["prefill_s"] * 1e3, "decode_ms": stats["decode_s"] * 1e3,
+            "decode_ms_per_token": stats["decode_s"] * 1e3 / (shape["gen_len"] - 1),
+            "tok_per_s": stats["tok_per_s"], "decode_tokens": stats["decode_tokens"],
+            "dispatches": stats["dispatches"],
+            "decode_dispatches": stats["decode_dispatches"], "launches": counts}
+    require((line["resident"]["dispatches"], line["resident"]["decode_dispatches"]) == (2, 1),
+            f"resident dispatches {line['resident']}")
+    require(line["host_stepped"]["decode_dispatches"] == shape["gen_len"] - 1,
+            f"host-stepped dispatches {line['host_stepped']}")
+    line["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return line
+
+
+def check_serving(torch, eng, params, batch_in, runs, shape) -> dict:
+    """Phases 7 and 9: equal tokens in both modes; ``forward_logits`` equal
+    to the prefill's last-position logits; finite logits."""
     res, host = runs["resident"][0], runs["host_stepped"][0]
-    require(res.shape == (SERVE["batch"], SERVE["gen_len"]), f"tokens of shape {res.shape}")
+    require(res.shape == (shape["batch"], shape["gen_len"]), f"tokens of shape {res.shape}")
     require(bool((res == host).all()), "resident and host-stepped tokens differ")
     require(bool(((res >= 0) & (res < eng.cfg.vocab)).all()), "tokens out of the vocabulary")
     cast = eng.cast_params(params)
@@ -356,13 +480,27 @@ def check_serving(torch, eng, params, batch_in, runs) -> dict:
     torch.cuda.synchronize()
     require(bool(torch.isfinite(pre).all()) and bool(torch.isfinite(full).all()),
             "non-finite logits")
-    # With a zero state and a zero conv pad, prefill and forward_logits run
-    # the same kernels on the same inputs: equal bit for bit
+    # With empty caches, prefill and forward_logits run the same kernels on
+    # the same inputs: equal bit for bit
     require(torch.equal(pre, last), "forward_logits differs from the prefill's logits "
             f"(max abs diff {float((pre.float() - last.float()).abs().max())})")
     return {"tokens_equal": True, "logits_finite": True,
             "forward_vs_prefill_bitwise": True,
             "last_logit_abs_max": float(pre.float().abs().max())}
+
+
+def print_profiles(torch, eng, params, batch_in, tag: str) -> None:
+    """Where the time of one prefill and one decode step goes."""
+    cast = eng.cast_params(params)
+    caches, tok, _, _ = eng.init_state()
+    pre_caches = eng.model.prefill(cast, batch_in, caches)[1]
+    print(json.dumps({f"profile_prefill{tag}": profile_calls(
+        torch, lambda: eng.model.prefill(cast, batch_in, caches))}), flush=True)
+    print(json.dumps({f"profile_decode_step{tag}": profile_calls(
+        torch, lambda: eng.model.decode_step(cast, pre_caches, tok))}), flush=True)
+    graph_caches = eng.decode_one(params, pre_caches, tok)[1]  # the graph's own buffers
+    print(json.dumps({f"profile_decode_graph{tag}": profile_calls(
+        torch, lambda: eng.decode_one(params, graph_caches, tok))}), flush=True)
 
 
 def ssd_flops_bytes(B, S, H, P, G, N, chunk, itemsize, h0: bool):
@@ -457,6 +595,145 @@ def check_ssd(torch, ssd, ref, seed: int):
     return row, detail
 
 
+def bf16_close(torch, got, want):
+    """(within the bound, share of the bound used): both sides are float32
+    results rounded to bf16, so they may land one ulp apart, at most 2^-8
+    of their magnitudes, where the float32 values straddle a rounding
+    boundary; 1e-6 absolute covers float32 reassociation near zero."""
+    g, w = got.float(), want.float()
+    d, tol = (g - w).abs(), 2.0 ** -8 * (g.abs() + w.abs()) + 1e-6
+    return bool((d <= tol).all()), float((d / tol).max())
+
+
+def attention_pairs(Sq: int, Skv: int, q_offset: int, window) -> int:
+    """(query, key) pairs a causal attention with this window computes."""
+    total = 0
+    for i in range(Sq):
+        hi = min(Skv, q_offset + i + 1)
+        lo = 0 if window is None else max(0, q_offset + i - window + 1)
+        total += max(0, hi - lo)
+    return total
+
+
+def check_dense_kernels(torch, eng, params, batch_in, fk, rk, ref, seed: int):
+    """Phase 10: flash attention and rmsnorm against their plain versions;
+    returns their kernel-table rows and the details of the checks."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import nn, transformer as tfm
+
+    cfg = eng.model.cfg
+    cast = eng.cast_params(params)
+    seg = cast["decoder"]["segments"][0]
+    tokens = batch_in["tokens"]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = nn.apply_embedding(cast["embed"], tokens, cfg)
+    x0 = x
+    detail, flash_err, layers = {}, 0.0, {}
+    for li in range(6):   # layer 0 is local, layer 5 the first global one
+        p = tfm.layer_params(seg, li)
+        window, theta = tfm.layer_window_theta(cfg, li)
+        if li in (0, 5):
+            h = nn.apply_rmsnorm(p["ln_attn"], x, cfg)
+            q, k, v = nn.attention_qkv(p["attn"], h, cfg, rope_theta=theta,
+                                       positions=positions)
+            layers[li] = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                          window or None)
+        x, _ = tfm.apply_block(p, x, cfg, "attn_mlp", window=window, rope_theta=theta,
+                               positions=positions)
+    for li, (q, k, v, window) in layers.items():
+        got = fk.flash_attention(q, k, v, window=window)
+        want = ref.attention(q, k, v, window=window)
+        ok, used = bf16_close(torch, got, want)
+        err = float((got.float() - want.float()).abs().max())
+        flash_err = max(flash_err, err)
+        require(ok, f"flash_attention != plain on the served layer {li} beyond one bf16 "
+                f"rounding (max abs err {err})")
+        detail[f"layer{li}"] = {"window": window, "max_abs_err": err, "bound_used": used,
+                                "out_abs_max": float(want.float().abs().max())}
+
+    # float32: the cases of tests/test_kernels.py (softcap, one query at an
+    # offset, a window, ragged kv) and head_dim 128 and 256; the repo's
+    # kernel-vs-reference bound, rtol 2e-4 / atol 3e-5
+    gen = torch.Generator("cuda").manual_seed(seed)
+    fp32_err = 0.0
+    for B, Hq, Hkv, Sq, Skv, D, kw in [
+            (1, 2, 1, 64, 64, 32, dict()),
+            (2, 4, 4, 48, 48, 16, dict(causal=False)),
+            (1, 2, 2, 64, 64, 32, dict(window=19)),
+            (1, 2, 1, 64, 64, 32, dict(logit_softcap=15.0)),
+            (2, 4, 1, 1, 80, 32, dict(q_offset=79)),
+            (1, 8, 2, 32, 96, 64, dict(q_offset=64)),
+            (1, 2, 1, 50, 70, 32, dict(causal=False)),
+            (1, 4, 2, 100, 100, 128, dict(window=7)),
+            (2, 4, 1, 70, 200, 256, dict(q_offset=130, window=40)),
+            (1, 4, 1, 300, 300, 256, dict())]:
+        qf = torch.randn(B, Hq, Sq, D, device="cuda", generator=gen)
+        kf = torch.randn(B, Hkv, Skv, D, device="cuda", generator=gen)
+        vf = torch.randn(B, Hkv, Skv, D, device="cuda", generator=gen)
+        got, want = fk.flash_attention(qf, kf, vf, **kw), ref.attention(qf, kf, vf, **kw)
+        fp32_err = max(fp32_err, float((got - want).abs().max()))
+        require(torch.allclose(got, want, rtol=2e-4, atol=3e-5),
+                f"flash_attention != plain on float32 case {(B, Hq, Hkv, Sq, Skv, D, kw)}")
+    detail["fp32_cases_max_abs_err"] = fp32_err
+
+    # timed at the served global layer; bound: the pairs this input needs
+    # in bf16 products summed in float32 (what the tensor cores compute)
+    q, k, v, _ = layers[5]
+    B, Hq, S, D = q.shape
+    flops = {li: 4 * B * Hq * D * attention_pairs(S, S, 0, w)
+             for li, (_, _, _, w) in layers.items()}
+    n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    ql, kl, vl, wl = layers[0]
+    pos = torch.arange(S, device="cuda")
+    local_mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - wl)
+    detail["flops"] = flops
+    detail["bytes"] = n_bytes
+    detail["local_layer0"] = {
+        "ms": median_ms(torch, lambda: fk.flash_attention(ql, kl, vl, window=wl)),
+        "sdpa_window_mask_ms": median_ms(torch, lambda: F.scaled_dot_product_attention(
+            ql, kl, vl, attn_mask=local_mask, enable_gqa=True)),
+        "bound_ms": max(flops[0] / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3}
+    rows = [kernel_row(
+        torch, "flash_attention", "flash_attention.cu", flash_err,
+        lambda: fk.flash_attention(q, k, v), lambda: ref.attention(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+        n_bytes, flops[5], BF16_OPS_PER_S, plain_reps=(5, 4))]
+
+    # rmsnorm: the served layer-0 input and sweeps of d, rows, offset
+    norm_err = 0.0
+    w = tfm.layer_params(seg, 0)["ln_attn"]["scale"]
+    cases = [(x0, w, 1.0)]
+    for rows_, d in [(37, 1152), (1001, 256), (7, 2560)]:
+        for off in (0.0, 1.0):
+            for dt in (torch.bfloat16, torch.float32):
+                xs = torch.randn(rows_, d, device="cuda", generator=gen).to(dt)
+                ws = torch.randn(d, device="cuda", generator=gen)
+                cases.append((xs, ws, off))
+    for xs, ws, off in cases:
+        got = rk.rmsnorm(xs, ws, eps=cfg.norm_eps, weight_offset=off)
+        want = ref.rmsnorm(xs, ws, eps=cfg.norm_eps, weight_offset=off)
+        err = float((got.float() - want.float()).abs().max())
+        norm_err = max(norm_err, err)
+        if xs.dtype == torch.float32:
+            require(torch.allclose(got, want, rtol=2e-5, atol=1e-5),
+                    f"rmsnorm != plain at {tuple(xs.shape)} float32")
+        else:
+            require(bf16_close(torch, got, want)[0],
+                    f"rmsnorm != plain at {tuple(xs.shape)} bf16 beyond one rounding")
+    detail["rmsnorm_max_abs_err"] = norm_err
+    w1 = (w.float() + 1.0).to(x0.dtype)
+    rows.append(kernel_row(
+        torch, "rmsnorm", "rmsnorm.cu", norm_err,
+        lambda: rk.rmsnorm(x0, w, eps=cfg.norm_eps, weight_offset=1.0),
+        lambda: ref.rmsnorm(x0, w, eps=cfg.norm_eps, weight_offset=1.0),
+        lambda: F.rms_norm(x0, (x0.shape[-1],), weight=w1, eps=cfg.norm_eps),
+        2 * x0.numel() * x0.element_size() + w.numel() * w.element_size(), 0,
+        FP32_OPS_PER_S))
+    detail["rmsnorm_shape"] = list(x0.shape)
+    return rows, detail
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -503,7 +780,7 @@ def main() -> int:
             "fused_stream": N_ITERS, "fused_dataflow": N_ITERS,
             "persistent_stream": 1, "persistent_dataflow": 1}
     require(dispatches == want, f"dispatch counts {dispatches} != {want}")
-    require(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
+    require(all(launches[n] > 0 for n in FACES_KERNELS), f"a kernel never launched: {launches}")
     base = fields["host"]
     require(bool(torch.isfinite(base).all()), "non-finite field after 10 iterations")
     for name, f in fields.items():
@@ -519,63 +796,82 @@ def main() -> int:
     print(json.dumps({"faces": {
         "grid": cfg.grid, "points": cfg.points, "iterations": N_ITERS,
         "dispatches": dispatches, "median_ms_per_iter": ms,
-        "oracle_max_abs_err": err, "launches": launches}}), flush=True)
+        "oracle_max_abs_err": err,
+        "launches": {n: launches[n] for n in FACES_KERNELS}}}), flush=True)
 
     # where the time of fused (stream) iterations goes
     print(json.dumps({"profile_fused_stream": profile_iterations(
         torch, fused, fused.init_buffers({"u": u0}))}), flush=True)
 
-    # phase 4: kernels against their plain versions
+    # phase 4: the one-buffer path
+    contiguous = run_contiguous(torch, cfg, u0, first, base, hk)
+    print(json.dumps({"faces_contiguous": contiguous}), flush=True)
+    launches.update({n: contiguous["launches"][n]
+                     for n in ("pack_boundary", "unpack_boundary_add")})
+
+    # phase 5: halo and boundary kernels against their plain versions
     rows = check_kernels(torch, prog, base, hk, ref)
     for r in rows:
         r["launches"] = launches[r["name"]]
     del prog, fields, first, fused, base, plain
 
-    # phase 5: serve mamba2-2.7b at full width and depth
+    # phase 6: serve mamba2-2.7b at full width and depth
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import rmsnorm as rk
     from repro_torch.kernels import ssd_scan as ssd
     torch.cuda.reset_peak_memory_stats()
-    model_cfg, eng, params, batch_in, runs, setup_s = run_serve(torch, args.seed)
-    serve_line = {"model": model_cfg.name, **SERVE, "setup_s": setup_s}
-    for mode, (gen, stats, counts) in runs.items():
+    model_cfg, eng, params, batch_in, runs, setup_s = run_serve(
+        torch, args.seed, "mamba2-2.7b", SERVE, (ssd, rk))
+    for mode, (_, _, counts) in runs.items():
         require(counts["ssd_scan"] > 0, f"ssd_scan never launched serving {mode}")
-        serve_line[mode] = {
-            "prefill_ms": stats["prefill_s"] * 1e3, "decode_ms": stats["decode_s"] * 1e3,
-            "decode_ms_per_token": stats["decode_s"] * 1e3 / (SERVE["gen_len"] - 1),
-            "tok_per_s": stats["tok_per_s"], "decode_tokens": stats["decode_tokens"],
-            "dispatches": stats["dispatches"],
-            "decode_dispatches": stats["decode_dispatches"],
-            "ssd_scan_launches": counts["ssd_scan"]}
-    require((serve_line["resident"]["dispatches"],
-             serve_line["resident"]["decode_dispatches"]) == (2, 1),
-            f"resident dispatches {serve_line['resident']}")
-    require(serve_line["host_stepped"]["decode_dispatches"] == SERVE["gen_len"] - 1,
-            f"host-stepped dispatches {serve_line['host_stepped']}")
-    serve_line["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    ssd_launches = sum(counts["ssd_scan"] for _, _, counts in runs.values())
-    print(json.dumps({"serve": serve_line}), flush=True)
-
-    # phase 6: serving results
-    print(json.dumps({"serve_checks": check_serving(torch, eng, params, batch_in, runs)}),
+        require(counts["rmsnorm"] > 0, f"rmsnorm never launched serving {mode}")
+    print(json.dumps({"serve": serve_report(torch, model_cfg, SERVE, runs, setup_s)}),
           flush=True)
+    ssd_launches = sum(counts["ssd_scan"] for _, _, counts in runs.values())
+    norm_launches = sum(counts["rmsnorm"] for _, _, counts in runs.values())
 
-    # where the time of one prefill and one decode step goes
-    cast = eng.cast_params(params)
-    caches, tok, _, _ = eng.init_state()
-    pre_caches = eng.model.prefill(cast, batch_in, caches)[1]
-    print(json.dumps({"profile_prefill": profile_calls(
-        torch, lambda: eng.model.prefill(cast, batch_in, caches))}), flush=True)
-    print(json.dumps({"profile_decode_step": profile_calls(
-        torch, lambda: eng.model.decode_step(cast, pre_caches, tok))}), flush=True)
-    graph_caches = eng.decode_one(params, pre_caches, tok)[1]  # the graph's own buffers
-    print(json.dumps({"profile_decode_graph": profile_calls(
-        torch, lambda: eng.decode_one(params, graph_caches, tok))}), flush=True)
-    del eng, params, cast, caches, pre_caches, graph_caches, runs
+    # phase 7: serving results, and where the time goes
+    print(json.dumps({"serve_checks": check_serving(torch, eng, params, batch_in, runs,
+                                                    SERVE)}), flush=True)
+    print_profiles(torch, eng, params, batch_in, "")
+    del eng, params, runs
 
-    # phase 7: the SSD kernel against its plain version
+    # phase 8: the SSD kernel against its plain version
     row, detail = check_ssd(torch, ssd, ref, args.seed)
     row["launches"] = ssd_launches
-    rows.append(row)
     print(json.dumps({"ssd_scan_check": detail}), flush=True)
+    ssd_row = row
+
+    # phase 9: serve gemma3-1b at full width and depth
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model_cfg, eng, params, batch_in, runs, setup_s = run_serve(
+        torch, args.seed, "gemma3-1b", DENSE_SERVE, (fk, rk))
+    for mode, (_, _, counts) in runs.items():
+        require(counts["flash_attention"] == model_cfg.n_layers,
+                f"flash_attention launched {counts['flash_attention']} times in the "
+                f"{mode} serve's prefill, not once per layer ({model_cfg.n_layers})")
+        require(counts["rmsnorm"] >= 4 * model_cfg.n_layers + 1,
+                f"rmsnorm launched {counts['rmsnorm']} times serving {mode}: not on "
+                "every norm")
+    print(json.dumps({"serve_dense": serve_report(torch, model_cfg, DENSE_SERVE, runs,
+                                                  setup_s)}), flush=True)
+    flash_launches = sum(counts["flash_attention"] for _, _, counts in runs.values())
+    norm_launches += sum(counts["rmsnorm"] for _, _, counts in runs.values())
+    print(json.dumps({"serve_dense_checks": check_serving(
+        torch, eng, params, batch_in, runs, DENSE_SERVE)}), flush=True)
+    print_profiles(torch, eng, params, batch_in, "_dense")
+
+    # phase 10: flash attention and rmsnorm against their plain versions
+    dense_rows, detail = check_dense_kernels(torch, eng, params, batch_in, fk, rk, ref,
+                                             args.seed)
+    dense_rows[0]["launches"], dense_rows[1]["launches"] = flash_launches, norm_launches
+    print(json.dumps({"dense_kernel_checks": detail}), flush=True)
+    del eng, params, runs
+
+    rows = rows + dense_rows + [ssd_row]
+    require(sorted(r["name"] for r in rows) == sorted(REPLACES), "a kernel row is missing")
+    require(all(r["launches"] > 0 for r in rows), "a kernel was not launched on its path")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in order} for r in rows]}))

@@ -179,7 +179,7 @@ ARCH_IDS = (
 )
 
 #: architectures the port runs; the rest are queued in ROADMAP.md
-PORTED = ("mamba2-2.7b",)
+PORTED = ("mamba2-2.7b", "gemma3-1b")
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -22,6 +22,7 @@ from .halo import (
     FacesConfig,
     build_faces_program,
     faces_oracle,
+    faces_step_contiguous,
     run_faces_persistent,
 )
 from .matching import Batch, Channel, CoalescedChannel, CoalescePlan, MatchError
@@ -33,7 +34,8 @@ __all__ = [
     "RecvDesc", "SendDesc", "StartDesc", "WaitDesc", "hop_decomposition",
     "perm_for", "program_digest", "FusedEngine", "HostEngine", "HostStats",
     "PersistentEngine", "slot_buffers", "DIRECTIONS", "FacesConfig",
-    "build_faces_program", "faces_oracle", "run_faces_persistent", "Batch",
+    "build_faces_program", "faces_oracle", "faces_step_contiguous",
+    "run_faces_persistent", "Batch",
     "Channel", "CoalescedChannel", "CoalescePlan", "MatchError", "QueueError",
     "STProgram", "STQueue", "create_queue", "from_reference", "init_buffers",
     "to_numpy",

@@ -21,6 +21,11 @@ launch.  Variants: ``granularity`` (``direct26`` or ``staged3``),
 (:mod:`repro_torch.kernels.halo_pack`, the reference's ``"pallas"``),
 ``"torch"`` the plain slicing (the reference's ``"jnp"``).
 
+:func:`faces_step_contiguous` runs one iteration the paper's other way,
+through ONE contiguous buffer per rank (``ops.pack_boundary`` and
+``ops.unpack_boundary_add``, the Hopper kernels of the reference's
+``pack_boundary_call`` / ``unpack_boundary_add_call``); it equals one
+``direct26`` iteration of the engines bit for bit.
 :func:`faces_oracle` is a copy of the reference's NumPy oracle.
 """
 
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 
 from ..kernels import halo_pack as hk
+from ..kernels import ops
 from ..kernels import ref as kref
 from .descriptors import GridOffsetPeer
 from .queue import STProgram, STQueue
@@ -206,6 +212,49 @@ def _emit_damping(q: STQueue, cfg: FacesConfig):
     if cfg.damping:
         scale = float(cfg.damping)
         q.enqueue_kernel(lambda u: u * scale, ["u"], ["u"], name="damp")
+
+
+def faces_step_contiguous(u: torch.Tensor, cfg: FacesConfig) -> torch.Tensor:
+    """One Faces iteration on the global field ``u (gx, gy, gz, px, py,
+    pz)`` through one contiguous buffer per rank, the paper's "one MPI
+    buffer" (steps 2 and 6), returning the new field (``u`` is kept).
+
+    Every rank packs its 26 boundary regions, in DIRECTIONS order (faces,
+    edges, corners), into one buffer (``ops.pack_boundary``: one launch
+    for all ranks); the interior stencil runs; rank ``g`` receives, for
+    each direction ``d``, segment ``d`` of rank ``g - d``'s buffer (zeros
+    where there is no such rank); and ONE ``ops.unpack_boundary_add``
+    adds the received buffer into the ``-d`` regions in DIRECTIONS order,
+    rounding after each add — the engines' order of unpacks, so the
+    result equals one ``direct26`` iteration bit for bit.
+    """
+    if tuple(u.shape[:3]) != tuple(cfg.grid) or tuple(u.shape[3:]) != tuple(cfg.points):
+        raise ValueError(f"field of shape {tuple(u.shape)} does not match grid "
+                         f"{cfg.grid} x points {cfg.points}")
+    send = [_region_for(d, cfg.points) for d in DIRECTIONS]
+    recv_regions = [_region_for(tuple(-x for x in d), cfg.points) for d in DIRECTIONS]
+    sent = ops.pack_boundary(u, send)
+    out = _interior_fn(u) if cfg.interior_compute else u.clone()
+    recv = torch.zeros_like(sent)
+    off = 0
+    for d, region in zip(DIRECTIONS, send):
+        n = kref.region_size(region)
+        seg = sent[..., off:off + n]
+        if cfg.periodic:
+            recv[..., off:off + n] = torch.roll(seg, shifts=d, dims=(0, 1, 2))
+        else:
+            src, dst = [slice(None)] * 3, [slice(None)] * 3
+            for ax, delta, g in zip(range(3), d, cfg.grid):
+                if delta > 0:
+                    src[ax], dst[ax] = slice(0, g - delta), slice(delta, g)
+                elif delta < 0:
+                    src[ax], dst[ax] = slice(-delta, g), slice(0, g + delta)
+            recv[(*dst, slice(off, off + n))] = seg[(*src, slice(None))]
+        off += n
+    ops.unpack_boundary_add(out, recv, recv_regions)
+    if cfg.damping:
+        out = out * float(cfg.damping)
+    return out
 
 
 def run_faces_persistent(cfg: FacesConfig, mesh, u0, n_iters: int,

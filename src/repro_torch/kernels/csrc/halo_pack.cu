@@ -5,6 +5,8 @@
 //   halo_unpack_add  <- halo_unpack_add_call (halo_pack.py:84)
 //   pack_segments    <- pack_segments_call   (halo_pack.py:163)
 //   unpack_segments  <- unpack_segments_call (halo_pack.py:202)
+//   pack_boundary        <- pack_boundary_call       (halo_pack.py:112)
+//   unpack_boundary_add  <- unpack_boundary_add_call (halo_pack.py:134)
 //
 // One GPU holds every rank: each launch covers all ranks of a buffer laid
 // out as (ranks..., px, py, pz) or (ranks, columns).  Each kernel is a
@@ -22,6 +24,21 @@
 // A bfloat16 add is done in float32 and rounded once (round to nearest
 // even), as PyTorch's own elementwise add does, so kernel and plain version
 // agree bit for bit.
+//
+// The boundary pair moves all regions of a block (the 26 faces, edges and
+// corners, in DIRECTIONS order) to and from ONE buffer at static offsets,
+// every rank in one launch: grid x over a region's elements, y = region,
+// z = rank, the regions' boxes and offsets by value in a table.  The
+// unpack's regions overlap (a face holds its edges and corners), and the
+// reference adds them in region order, rounding to the block's dtype after
+// each add.  A parallel scatter of the segments would race and reorder
+// those adds, so each element of the union is OWNED by the thread of the
+// first region that covers it: that thread walks the later regions that
+// cover the element, in order, and adds each one's value, rounding after
+// each add -- the reference's sequence, bit for bit, with no atomics.  A
+// thread whose element an earlier region covers does nothing.  Bound:
+// bytes (each region element read once and written once, ~0.8 MB a rank
+// for a 128^3 float32 block), so launch latency at these sizes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -144,6 +161,67 @@ __global__ void unpack_segments_kernel(const T* __restrict__ buf, int64_t total,
   }
 }
 
+// Region j of a boundary buffer: the box [x0, x0+rx) x [y0, y0+ry) x
+// [z0, z0+rz) of a (px, py, pz) block, at element offset `off` of the
+// rank's buffer.
+struct Region {
+  int x0, y0, z0, rx, ry, rz, off, size;
+};
+struct RegionTable {
+  Region r[kMaxSegments];
+};
+
+__device__ __forceinline__ bool covers(const Region& g, int x, int y, int z) {
+  return x >= g.x0 && x < g.x0 + g.rx && y >= g.y0 && y < g.y0 + g.ry && z >= g.z0 &&
+         z < g.z0 + g.rz;
+}
+
+// grid: x over region y's elements, y = region, z = rank.
+template <typename T>
+__global__ void pack_boundary_kernel(const T* __restrict__ u, T* __restrict__ out,
+                                     RegionTable tab, int px, int py, int pz, int total) {
+  const Region& g = tab.r[blockIdx.y];
+  const int64_t rank = blockIdx.z;
+  const T* blk = u + rank * static_cast<int64_t>(px) * py * pz;
+  T* dst = out + rank * static_cast<int64_t>(total) + g.off;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < g.size; i += gridDim.x * blockDim.x) {
+    const int c = i % g.rz;
+    const int e = i / g.rz;
+    const int y = e % g.ry;
+    const int x = e / g.ry;
+    dst[i] = blk[(static_cast<int64_t>(g.x0 + x) * py + (g.y0 + y)) * pz + (g.z0 + c)];
+  }
+}
+
+template <typename T>
+__global__ void unpack_boundary_add_kernel(T* __restrict__ u, const T* __restrict__ buf,
+                                           RegionTable tab, int nreg, int px, int py, int pz,
+                                           int total) {
+  const int j0 = blockIdx.y;
+  const Region& g = tab.r[j0];
+  const int64_t rank = blockIdx.z;
+  T* blk = u + rank * static_cast<int64_t>(px) * py * pz;
+  const T* src = buf + rank * static_cast<int64_t>(total);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < g.size; i += gridDim.x * blockDim.x) {
+    const int z = g.z0 + i % g.rz;
+    const int e = i / g.rz;
+    const int y = g.y0 + e % g.ry;
+    const int x = g.x0 + e / g.ry;
+    bool owned = true;
+    for (int j = 0; j < j0; ++j) owned = owned && !covers(tab.r[j], x, y, z);
+    if (!owned) continue;  // an earlier region's thread adds this element
+    const int64_t o = (static_cast<int64_t>(x) * py + y) * pz + z;
+    T acc = blk[o];
+    for (int j = j0; j < nreg; ++j) {
+      const Region& h = tab.r[j];
+      if (!covers(h, x, y, z)) continue;
+      const int li = ((x - h.x0) * h.ry + (y - h.y0)) * h.rz + (z - h.z0);
+      acc = from_float<T>(to_float(acc) + to_float(src[h.off + li]));
+    }
+    blk[o] = acc;
+  }
+}
+
 int blocks_for(int64_t n) {
   return static_cast<int>(std::min(std::max((n + kThreads - 1) / kThreads, int64_t{1}),
                                    kMaxBlocks));
@@ -151,6 +229,47 @@ int blocks_for(int64_t n) {
 
 bool valid_grid(int nseg, long long n_ranks) {
   return nseg >= 1 && nseg <= kMaxSegments && n_ranks >= 1 && n_ranks <= 65535;
+}
+
+// table: nreg rows of (x0, y0, z0, rx, ry, rz, offset, size); every box
+// lies inside the (px, py, pz) block and the offsets are consecutive.
+int boundary_launch(bool unpack, int dtype, void* u, void* buf, long long n_ranks, int px,
+                    int py, int pz, const int* table, int nreg, int total, void* stream) {
+  if (!valid_grid(nreg, n_ranks)) return static_cast<int>(cudaErrorInvalidValue);
+  RegionTable tab{};
+  int max_size = 0;
+  for (int j = 0; j < nreg; ++j) {
+    const int* row = table + 8 * j;
+    tab.r[j] = Region{row[0], row[1], row[2], row[3], row[4], row[5], row[6], row[7]};
+    max_size = std::max(max_size, row[7]);
+  }
+  if (max_size == 0) return 0;
+  const dim3 grid(std::min((max_size + kThreads - 1) / kThreads, 1024), nreg,
+                  static_cast<unsigned>(n_ranks));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat32:
+      if (unpack)
+        unpack_boundary_add_kernel<float><<<grid, kThreads, 0, s>>>(
+            static_cast<float*>(u), static_cast<const float*>(buf), tab, nreg, px, py, pz, total);
+      else
+        pack_boundary_kernel<float><<<grid, kThreads, 0, s>>>(
+            static_cast<const float*>(u), static_cast<float*>(buf), tab, px, py, pz, total);
+      break;
+    case kBFloat16:
+      if (unpack)
+        unpack_boundary_add_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+            static_cast<__nv_bfloat16*>(u), static_cast<const __nv_bfloat16*>(buf), tab, nreg,
+            px, py, pz, total);
+      else
+        pack_boundary_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+            static_cast<const __nv_bfloat16*>(u), static_cast<__nv_bfloat16*>(buf), tab, px,
+            py, pz, total);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -264,6 +383,19 @@ int rt_unpack_segments(int dtype, const void* buf, long long n_ranks, long long 
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+int rt_pack_boundary(int dtype, const void* u, void* out, long long n_ranks, int px, int py,
+                     int pz, const int* table, int nreg, int total, void* stream) {
+  return boundary_launch(false, dtype, const_cast<void*>(u), out, n_ranks, px, py, pz, table,
+                         nreg, total, stream);
+}
+
+int rt_unpack_boundary_add(int dtype, void* u, const void* buf, long long n_ranks, int px,
+                           int py, int pz, const int* table, int nreg, int total,
+                           void* stream) {
+  return boundary_launch(true, dtype, u, const_cast<void*>(buf), n_ranks, px, py, pz, table,
+                         nreg, total, stream);
 }
 
 }  // extern "C"

@@ -1,20 +1,22 @@
 """Hopper kernels of the Faces halo path: wrappers and launch counters.
 
-Four hand-written CUDA kernels (``csrc/halo_pack.cu``, built for
+Six hand-written CUDA kernels (``csrc/halo_pack.cu``, built for
 ``sm_90a`` at first use by :mod:`.build`) replace the Pallas kernels of
-``repro.kernels.halo_pack`` on this path:
+``repro.kernels.halo_pack``:
 
-===================  ==============================================
-wrapper              replaces (src/repro/kernels/halo_pack.py)
-===================  ==============================================
-``halo_pack``        ``halo_pack_call`` (line 67)
-``halo_unpack_add``  ``halo_unpack_add_call`` (line 84)
-``pack_segments``    ``pack_segments_call`` (line 163)
-``unpack_segments``  ``unpack_segments_call`` (line 202)
-===================  ==============================================
+=======================  ==============================================
+wrapper                  replaces (src/repro/kernels/halo_pack.py)
+=======================  ==============================================
+``halo_pack``            ``halo_pack_call`` (line 67)
+``halo_unpack_add``      ``halo_unpack_add_call`` (line 84)
+``pack_boundary``        ``pack_boundary_call`` (line 112)
+``unpack_boundary_add``  ``unpack_boundary_add_call`` (line 134)
+``pack_segments``        ``pack_segments_call`` (line 163)
+``unpack_segments``      ``unpack_segments_call`` (line 202)
+=======================  ==============================================
 
 Each launch covers every rank of a buffer in the global layout.  All
-four are copies at static offsets (plus one float add for the unpack):
+six are copies at static offsets (plus one float add for the unpacks):
 bound by the bytes moved against the card's memory rate and, at Faces
 slab sizes, by launch latency.  They allocate nothing but their
 outputs, launch on ``torch.cuda.current_stream()`` and raise if the
@@ -47,6 +49,8 @@ SIGNATURES = {
     "rt_halo_unpack_add": [_I, _P, _P, _I64] + [_I] * 9 + [_P],
     "rt_pack_segments": [_I, _P, _I, _P, _I64, _I64, _P],
     "rt_unpack_segments": [_I, _P, _I64, _I64, _P, _I, _P, _P],
+    "rt_pack_boundary": [_I, _P, _P, _I64, _I, _I, _I, _P, _I, _I, _P],
+    "rt_unpack_boundary_add": [_I, _P, _P, _I64, _I, _I, _I, _P, _I, _I, _P],
 }
 
 
@@ -122,6 +126,89 @@ def halo_unpack_add(u: torch.Tensor, msg: torch.Tensor,
                                     stream_arg(u))
     check_launch("halo_pack", err)
     halo_unpack_add.launches += 1
+    return u
+
+
+def _region_table(u: torch.Tensor, regions):
+    """The boundary kernels' region table, a C array of ``(x0, y0, z0,
+    rx, ry, rz, offset, size)`` per region in the block of ``u``; and the
+    buffer's size a rank."""
+    if not regions or len(regions) > MAX_SEGMENTS:
+        raise ValueError(f"the boundary kernels take 1 to {MAX_SEGMENTS} regions, "
+                         f"got {len(regions)}")
+    rows, off = [], 0
+    for r in regions:
+        r = ref.region3(r)
+        _box(u, r)  # validates the region against the block
+        n = ref.region_size(r)
+        rows += [*(s.start for s in r), *ref.region_shape(r), off, n]
+        off += n
+    if off >= 2 ** 31:
+        raise ValueError("a boundary buffer holds fewer than 2^31 elements a rank")
+    return (ctypes.c_int * len(rows))(*rows), off
+
+
+def pack_boundary(u: torch.Tensor, regions: Sequence[Sequence[slice]]) -> torch.Tensor:
+    """Copy the static ``regions`` of every rank's block into ONE
+    contiguous ``(*ranks, total)`` buffer, region after region (the
+    paper's step 2; DIRECTIONS order gives faces, edges, corners).
+
+    One launch for all regions and ranks, the regions' boxes and offsets
+    by value.  Bound: each region element read once and written once
+    (~0.8 MB a rank for the 26 regions of a 128^3 float32 block), so
+    launch latency at Faces sizes.
+    """
+    table, total = _region_table(u, regions)
+    if use_plain(u):
+        return ref.pack_boundary(u, regions)
+    code = _dtype_code(u)
+    n_ranks = u.numel() // max(1, u.shape[-3] * u.shape[-2] * u.shape[-1])
+    if n_ranks > MAX_RANKS:
+        raise ValueError(f"one launch takes at most {MAX_RANKS} ranks")
+    out = torch.empty(tuple(u.shape[:-3]) + (total,), dtype=u.dtype, device=u.device)
+    if out.numel() == 0:
+        return out
+    err = _lib().rt_pack_boundary(code, u.data_ptr(), out.data_ptr(), n_ranks,
+                                  *u.shape[-3:], table, len(regions), total, stream_arg(u))
+    check_launch("halo_pack", err)
+    pack_boundary.launches += 1
+    return out
+
+
+def unpack_boundary_add(u: torch.Tensor, buf: torch.Tensor,
+                        regions: Sequence[Sequence[slice]]) -> torch.Tensor:
+    """Add the segments of ``buf (*ranks, total)`` into their regions of
+    every rank's block, **in place**, and return ``u`` (the paper's step
+    6).
+
+    Regions overlap (a face holds its edges and corners); the adds go in
+    region order, each rounded to ``u``'s dtype, as the reference's do.
+    The kernel keeps that order without atomics: the thread of the first
+    region that covers an element adds every later region's value to it
+    in turn (``csrc/halo_pack.cu``), so it equals the plain version bit
+    for bit.  The reference returns a new block; in place, the launch
+    touches the boundary shell only.  Bound: bytes, launch latency at
+    Faces sizes.
+    """
+    table, total = _region_table(u, regions)
+    want = tuple(u.shape[:-3]) + (total,)
+    if tuple(buf.shape) != want:
+        raise ValueError(f"buffer shape {tuple(buf.shape)} != {want}")
+    if buf.dtype != u.dtype:
+        buf = buf.to(u.dtype)
+    if use_plain(u, buf):
+        return ref.unpack_boundary_add(u, buf, regions)
+    code = _dtype_code(u, buf)
+    n_ranks = u.numel() // max(1, u.shape[-3] * u.shape[-2] * u.shape[-1])
+    if n_ranks > MAX_RANKS:
+        raise ValueError(f"one launch takes at most {MAX_RANKS} ranks")
+    if u.numel() == 0:
+        return u
+    err = _lib().rt_unpack_boundary_add(code, u.data_ptr(), buf.data_ptr(), n_ranks,
+                                        *u.shape[-3:], table, len(regions), total,
+                                        stream_arg(u))
+    check_launch("halo_pack", err)
+    unpack_boundary_add.launches += 1
     return u
 
 
@@ -228,7 +315,8 @@ def unpack_segments(buf: torch.Tensor, outs: Sequence[torch.Tensor],
     unpack_segments.launches += 1
 
 
-KERNELS = (halo_pack, halo_unpack_add, pack_segments, unpack_segments)
+KERNELS = (halo_pack, halo_unpack_add, pack_boundary, unpack_boundary_add,
+           pack_segments, unpack_segments)
 for _k in KERNELS:
     _k.launches = 0
 

@@ -1,12 +1,13 @@
 """Plain PyTorch versions of the hand-written kernels.
 
-Port of the halo and SSD parts of ``repro.kernels.ref``.  Each function
-here is the semantic ground truth of one hand-written CUDA kernel: the
-wrappers of :mod:`.halo_pack` and :mod:`.ssd_scan` call it for CPU
-tensors, and ``chip_smoke.py`` holds each kernel against it on the card
-(the halo kernels bit for bit, the SSD scan within a stated bound).
-For the halo kernels, tensors carry every rank: leading dimensions are
-rank axes, the last three the local ``(px, py, pz)`` block.
+Port of ``repro.kernels.ref``.  Each function here is the semantic
+ground truth of one hand-written CUDA kernel: the wrappers of
+:mod:`.halo_pack`, :mod:`.rmsnorm`, :mod:`.flash_attention` and
+:mod:`.ssd_scan` call it for CPU tensors, and ``chip_smoke.py`` holds
+each kernel against it on the card (the halo and boundary kernels bit
+for bit, the others within a stated bound).  For the halo and boundary
+kernels, tensors carry every rank: leading dimensions are rank axes,
+the last three the local ``(px, py, pz)`` block.
 """
 
 from __future__ import annotations
@@ -45,6 +46,83 @@ def halo_unpack_add(u: torch.Tensor, msg: torch.Tensor,
     to ``u``'s dtype (one float add, rounded once); returns ``u``."""
     u[(..., *region3(region))] += msg.to(u.dtype)
     return u
+
+
+def region_size(region: Sequence[slice]) -> int:
+    n = 1
+    for s in region:
+        n *= s.stop - s.start
+    return n
+
+
+def pack_boundary(u: torch.Tensor, regions: Sequence[Sequence[slice]]) -> torch.Tensor:
+    """Copy the static regions of every rank's block into ONE contiguous
+    buffer ``(*ranks, total)``, region after region (the paper's step 2;
+    ``regions`` in DIRECTIONS order gives faces, edges, corners)."""
+    lead = tuple(u.shape[:-3])
+    return torch.cat([u[(..., *region3(r))].reshape(*lead, -1) for r in regions],
+                     dim=-1)
+
+
+def unpack_boundary_add(u: torch.Tensor, buf: torch.Tensor,
+                        regions: Sequence[Sequence[slice]]) -> torch.Tensor:
+    """Add the segments of ``buf (*ranks, total)`` into their regions of
+    ``u``, in place and in region order (the paper's step 6); regions
+    overlap (a face holds its edges and corners), and every add is
+    rounded to ``u``'s dtype before the next.  Returns ``u``."""
+    off = 0
+    for r in regions:
+        r = region3(r)
+        n = region_size(r)
+        seg = buf[..., off:off + n].reshape(*u.shape[:-3], *region_shape(r))
+        u[(..., *r)] += seg.to(u.dtype)
+        off += n
+    return u
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
+            weight_offset: float = 0.0) -> torch.Tensor:
+    """``x · rsqrt(mean(x²) + eps) · (w + weight_offset)`` over the last
+    dimension, statistics in float32, returned in x's dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (w.float() + weight_offset)).to(x.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, scale: Optional[float] = None,
+              window: Optional[int] = None,
+              logit_softcap: Optional[float] = None,
+              q_offset: int = 0) -> torch.Tensor:
+    """GQA attention in float32 (``repro.kernels.ref.attention``): q
+    ``[B,Hq,Sq,D]``, k and v ``[B,Hkv,Skv,D]``, query ``i`` at global
+    position ``q_offset + i``; causal and a sliding ``window`` (tokens
+    of lookback) mask keys; a fully masked row gives zeros.  Returns
+    q's dtype."""
+    Hq, Sq, D = q.shape[1], q.shape[2], q.shape[3]
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"{Hq} query heads do not split into {Hkv} kv heads")
+    group = Hq // Hkv
+    scale = D ** -0.5 if scale is None else scale
+    kr = k.repeat_interleave(group, dim=1).float()
+    vr = v.repeat_interleave(group, dim=1).float()
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) * scale
+    if logit_softcap is not None:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
+    qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    # fully masked rows (possible with windows) give zeros, not NaNs
+    probs = torch.where(mask.any(-1)[:, None], probs, 0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, vr).to(q.dtype)
 
 
 def pack_segments(sources: Sequence[Tuple[torch.Tensor, int]],

@@ -5,7 +5,10 @@ steps captured into ONE CUDA graph, with the reference's per-slot
 masking (EOS, the ``rem`` token budget and cache capacity stop a slot;
 a stopped slot's ``pos`` freezes and it emits ``PAD_TOKEN``).  The
 host-stepped baseline replays a one-step graph once per token.  Prefill
-is one eager call whose SSD scans take the hand-written kernel.  On one
+is one eager call whose SSD scans, flash attention and norms take the
+hand-written kernels.  Attention caches hold ``prompt_len + max_new``
+entries.  ``serve_window`` narrows the attention windows as the
+reference's does (``transformer.layer_window_theta``).  On one
 GPU there is no mesh or sharding bundle: the engine calls the model
 directly.  ``admit_decode`` and ``serve_continuous`` are not ported yet
 (``ROADMAP.md``).
@@ -77,18 +80,19 @@ class _Graph:
 
 
 class ServeEngine:
-    """Serve programs over one slot-set of SSM caches on one device.
+    """Serve programs over one slot-set of caches on one device.
 
-    * ``prefill(params, batch_in, caches)`` — one call; its SSD scans go
-      through the hand-written kernel.
+    * ``prefill(params, batch_in, caches)`` — one call; its SSD scans,
+      attention and norms go through the hand-written kernels.
     * ``decode(params, caches, tok, active, rem)`` — up to ``chunk``
       greedy tokens for every active slot in ONE CUDA-graph launch.
       The reference's ``while_loop`` leaves early once every slot has
       stopped; a fixed graph runs all ``chunk`` steps.  The emitted
       tokens and counts are the same either way; only the SSM and conv
       state of stopped slots moves further (the reference already lets
-      it drift while other slots run, since it freezes ``pos`` only), so
-      compare final caches only in runs without EOS.
+      it drift while other slots run, since it freezes ``pos`` only),
+      and a stopped slot rewrites its K/V at its frozen ``pos``, behind
+      its mask, so compare final caches only in runs without EOS.
     * ``decode_one(params, caches, tok)`` — one decode step as one graph
       launch: the host-stepped baseline.
 
@@ -101,13 +105,10 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, *, slots: int, prompt_len: int,
                  max_new: int, chunk: Optional[int] = None, eos_id: int = -1,
                  serve_window: int = 0, device=None):
-        if serve_window:
-            raise ValueError("serve_window must be 0: the ported mamba2 path "
-                             "has no attention to window")
         self.device = resolve_device(device, "ServeEngine")
         self.cfg = cfg
         self.slots, self.prompt_len, self.max_new = slots, prompt_len, max_new
-        self.eos_id = int(eos_id)
+        self.eos_id, self.serve_window = int(eos_id), int(serve_window)
         self.model = Model(cfg)
         self.capacity = prompt_len + max_new
         self.chunk = int(chunk) if chunk else max(max_new - 1, 1)
@@ -154,7 +155,8 @@ class ServeEngine:
     # -- the three dispatch kinds -------------------------------------------------
 
     def _prefill_fn(self, params, batch_in, caches):
-        return self.model.prefill(self.cast_params(params), batch_in, caches)
+        return self.model.prefill(self.cast_params(params), batch_in, caches,
+                                  serve_window=self.serve_window)
 
     def _decode_fn(self, params, caches, tok, active, rem):
         (caches, tok, active, rem), (out, n) = self._graphed(
@@ -164,7 +166,8 @@ class ServeEngine:
 
     def _decode_one_fn(self, params, caches, tok):
         def step(p, caches, tok):
-            logits, caches = self.model.decode_step(p, caches, tok)
+            logits, caches = self.model.decode_step(p, caches, tok,
+                                                    serve_window=self.serve_window)
             return (caches, tok), logits
 
         (caches, _), logits = self._graphed("decode_one", step, self.cast_params(params),
@@ -178,7 +181,8 @@ class ServeEngine:
         out = torch.full((B, chunk), PAD_TOKEN, dtype=torch.int32, device=tok.device)
         n = torch.zeros((B,), dtype=torch.int32, device=tok.device)
         for i in range(chunk):
-            logits, new_caches = self.model.decode_step(params, caches, tok)
+            logits, new_caches = self.model.decode_step(params, caches, tok,
+                                                        serve_window=self.serve_window)
             nxt = _argmax_tok(logits)
             out[:, i] = torch.where(active, nxt, PAD_TOKEN)
             n = n + active.to(torch.int32)
@@ -216,9 +220,9 @@ def _sync(device: torch.device) -> None:
 
 
 def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen_len: int,
-          seed: int = 0, eos_id: int = -1, device_resident: bool = True,
-          params=None, batch_in=None, engine: Optional[ServeEngine] = None,
-          device=None):
+          seed: int = 0, serve_window: int = 0, eos_id: int = -1,
+          device_resident: bool = True, params=None, batch_in=None,
+          engine: Optional[ServeEngine] = None, device=None):
     """Batched prefill + greedy decode for one fixed batch.
 
     ``device_resident=True``: the decode loop is ONE graph launch
@@ -228,11 +232,12 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen_len: int,
     ``stats`` has ``prefill_s``, ``decode_s``, ``decode_tokens``,
     ``tok_per_s``, ``dispatches``, ``decode_dispatches`` and
     ``sync_points``.  ``params=None`` draws the port's own random
-    weights from ``seed``.
+    weights from ``seed``; ``serve_window`` narrows attention windows
+    (the engine's own, when ``engine`` is given).
     """
     eng = engine or ServeEngine(cfg, slots=batch, prompt_len=prompt_len,
                                 max_new=gen_len, chunk=gen_len - 1, eos_id=eos_id,
-                                device=device)
+                                serve_window=serve_window, device=device)
     if (eng.slots, eng.chunk, eng.eos_id) != (batch, gen_len - 1, int(eos_id)):
         raise ValueError("serve: the engine's slots, chunk and eos_id do not match "
                          "batch, gen_len - 1 and eos_id")

@@ -1,12 +1,15 @@
-"""Model facade — port of ``repro.models.model.Model`` for the SSM path.
+"""Model facade — port of ``repro.models.model.Model`` for the dense
+(gemma3) and SSM (mamba2) paths.
 
 ``init``, ``forward_logits``, ``init_caches``, ``prefill`` and
 ``decode_step`` give the reference's outputs and cache tree: params
 ``{"embed": {"table"}, "decoder": {"segments": [...]}, "ln_final":
-{"scale"}, "unembed": {}}`` and caches ``{"segments": [{"ssm": {"conv",
-"state"}}], "pos"}``.  The functions are pure (new caches out, inputs
-untouched), as in the reference.  ``select_slots``, ``loss`` and the
-frontends are not ported yet (``ROADMAP.md``).
+{"scale"}, "unembed": {}}`` and caches ``{"segments": [{"attn": {"k",
+"v"}} or {"ssm": {"conv", "state"}}], "pos"}``.  The SSM caches are new
+tensors out, as in the reference; the attention caches are written in
+place and returned (the reference's functional update, without copying
+the cache at every step).  ``select_slots``, ``loss`` and the frontends
+are not ported yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -30,20 +33,25 @@ from .nn import (
 
 #: weights the forward casts to ``cfg.dtype`` at each use (``ssm.py``,
 #: ``nn.py``)
-_COMPUTE_DTYPE_WEIGHTS = ("in_proj", "out_proj", "table")
+_COMPUTE_DTYPE_WEIGHTS = ("in_proj", "out_proj", "table", "wq", "wk", "wv", "wo",
+                          "bq", "bk", "bv", "wi", "wg")
 
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        tfm.plan_segments(cfg)  # raises for what is not ported
-        if not cfg.tie_embeddings or cfg.embed_scale:
-            raise NotImplementedError(f"{cfg.name}: only a tied, unscaled embedding "
-                                      f"is ported to repro_torch yet")
-        if not cfg.use_ssd_kernel:
+        segs = tfm.plan_segments(cfg)  # raises for what is not ported
+        if not cfg.tie_embeddings:
+            raise NotImplementedError(f"{cfg.name}: only a tied embedding is ported "
+                                      f"to repro_torch yet")
+        if cfg.frontend != "none" or cfg.n_meta_tokens or cfg.pos_embedding != "rope":
+            raise NotImplementedError(f"{cfg.name}: frontends, meta tokens and "
+                                      f"non-rope positions are not ported yet")
+        if segs[0].kind == "ssm" and not cfg.use_ssd_kernel:
             raise NotImplementedError(f"{cfg.name}: use_ssd_kernel=False (the plain "
                                       f"SSD forward) is not ported; the port's scan "
                                       f"always takes the kernel wrapper")
         self.cfg = cfg
+        self._attention = any(s.kind == "attn_mlp" for s in segs)
 
     # -- params ---------------------------------------------------------------
 
@@ -91,10 +99,12 @@ class Model:
 
     def forward_logits(self, params, batch) -> torch.Tensor:
         """Full-sequence logits (no cache): every layer's scan takes the
-        SSD kernel, as the reference's ``cache is None`` path does."""
+        SSD kernel, as the reference's ``cache is None`` path does, and
+        every attention layer the flash kernel."""
         cfg = self.cfg
         x = apply_embedding(params["embed"], batch["tokens"], cfg)
-        x, _ = tfm.apply_stack(params["decoder"], x, cfg)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, _ = tfm.apply_stack(params["decoder"], x, cfg, positions=positions)
         h = apply_rmsnorm(params["ln_final"], x, cfg)
         return apply_unembed(params["embed"], h)
 
@@ -103,38 +113,59 @@ class Model:
     def init_caches(self, batch: int, max_len: int, per_sequence: bool = False, *,
                     device=None) -> Dict[str, Any]:
         """Zeroed decode caches; ``per_sequence=True`` makes ``pos`` a
-        [batch] vector (every slot at its own depth).  An SSM cache does
-        not grow with ``max_len``."""
+        [batch] vector (every slot at its own depth).  Attention caches
+        hold ``max_len`` entries; an SSM cache does not grow with it."""
         device = resolve_device(device, "Model.init_caches")
         pos_shape = (batch,) if per_sequence else ()
-        return {"segments": tfm.init_caches(self.cfg, batch, device=device),
+        return {"segments": tfm.init_caches(self.cfg, batch, max_len, device=device),
                 "pos": torch.zeros(pos_shape, dtype=torch.int32, device=device)}
 
-    def prefill(self, params, batch, caches):
-        """Write the prompt into the caches; returns (last_logits, caches)."""
+    def prefill(self, params, batch, caches, *, serve_window: int = 0):
+        """Write the prompt into the caches; returns (last_logits, caches).
+
+        With attention layers, every slot must sit at one depth (read once
+        on the host: the flash kernel's ``q_offset`` is a host int); slots
+        at different depths are continuous batching, which is not
+        ported."""
         cfg = self.cfg
         tokens = batch["tokens"]
+        depth = _common_depth(caches["pos"]) if self._attention else None
         x = apply_embedding(params["embed"], tokens, cfg)
-        x, new_segs = tfm.apply_stack(params["decoder"], x, cfg,
-                                      caches=caches["segments"])
+        positions = torch.arange(tokens.shape[1], device=x.device) + (depth or 0)
+        x, new_segs = tfm.apply_stack(params["decoder"], x, cfg, positions=positions,
+                                      caches=caches["segments"], cache_pos=caches["pos"],
+                                      depth=depth, serve_window=serve_window)
         h = apply_rmsnorm(params["ln_final"], x, cfg)
         logits = apply_unembed(params["embed"], h[:, -1:])[:, 0]
         return logits, {"segments": _merge_caches(caches["segments"], new_segs),
                         "pos": caches["pos"] + tokens.shape[1]}
 
-    def decode_step(self, params, caches, token):
+    def decode_step(self, params, caches, token, *, serve_window: int = 0):
         """One-token decode against the cache.  token: [B] int32;
         ``caches["pos"]`` is a scalar or a [B] vector."""
         cfg = self.cfg
+        pos = caches["pos"]
         x = apply_embedding(params["embed"], token[:, None], cfg)
-        x, new_segs = tfm.apply_stack(params["decoder"], x, cfg,
-                                      caches=caches["segments"])
+        positions = pos[None] if pos.dim() == 0 else pos[:, None]
+        x, new_segs = tfm.apply_stack(params["decoder"], x, cfg, positions=positions,
+                                      caches=caches["segments"], cache_pos=pos,
+                                      serve_window=serve_window)
         h = apply_rmsnorm(params["ln_final"], x, cfg)
         logits = apply_unembed(params["embed"], h)[:, 0]
         out = dict(caches)
         out["segments"] = _merge_caches(caches["segments"], new_segs)
         out["pos"] = caches["pos"] + 1
         return logits, out
+
+
+def _common_depth(pos: torch.Tensor) -> int:
+    """The one depth of every slot, as a host int (a device sync)."""
+    values = pos.reshape(-1).tolist()
+    if not values or any(v != values[0] for v in values):
+        raise NotImplementedError(
+            f"prefill with the slots at different depths {values} is continuous "
+            f"batching, which is not ported yet (ROADMAP.md)")
+    return int(values[0])
 
 
 def _merge_caches(old_segs: List, new_segs: List) -> List:

@@ -1,22 +1,36 @@
-"""Core NN building blocks of the port: the subset the SSM path uses.
+"""Core NN building blocks of the port: the dense and SSM paths.
 
 Port of ``repro.models.nn``: parameter init, RMSNorm, token embedding
-and the (tied) unembedding, as plain functions on dicts of tensors, in
-the reference's layout.  Weights are stored in ``cfg.param_dtype`` and
-cast to the compute dtype at each use, as the reference does; the cast
-is free when a caller has cast them once already (``launch.serve``).
-RMSNorm is plain torch here because the reference's models call the jnp
-form too, not ``rmsnorm_call``.  The unembedding is tied to the
-embedding table, as in mamba2-2.7b.
+(with gemma's ``sqrt(d_model)`` scale), the (tied) unembedding, the MLP
+(gated silu or plain tanh-gelu), NeoX RoPE and GQA attention with qkv
+bias, qk-norm, sliding windows, soft-capping and a KV cache, as plain
+functions on dicts of tensors in the reference's layout.  Weights are
+stored in ``cfg.param_dtype`` and cast to the compute dtype at each use,
+as the reference does; the cast is free when a caller has cast them once
+already (``Model.compute_params``).
+
+Every RMSNorm, the qk-norm included, is ``ops.rmsnorm`` (the Hopper
+kernel on the card).  Attention over more than one query — the no-cache
+forward and the prefill — is ``ops.flash_attention``; the reference's
+models compute both with jnp, and in the port the Hopper kernel is the
+GPU lowering wherever the function is the kernel's.  The one-token decode
+step keeps the reference's plain ``_sdpa`` over the full-capacity cache
+with a per-slot mask, because the kernel's ``q_offset`` is a host integer
+and per-slot depths change at every replay of a CUDA graph.  The KV cache
+is written in place (the reference's functional update, without a copy
+of the cache per step).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
+import math
+from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:
@@ -62,10 +76,8 @@ def init_rmsnorm(d: int, dtype, *, device):
 
 
 def apply_rmsnorm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + cfg.norm_eps)
-    return (y * (p["scale"].float() + 1.0)).to(x.dtype)
+    # stored scale is centred at 0: the effective weight is scale + 1
+    return ops.rmsnorm(x, p["scale"], eps=cfg.norm_eps, weight_offset=1.0)
 
 
 def init_embedding(gen, cfg: ModelConfig, *, device):
@@ -75,9 +87,236 @@ def init_embedding(gen, cfg: ModelConfig, *, device):
 
 def apply_embedding(p, ids: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     table = p["table"].to(dtype_of(cfg.dtype))
-    return torch.index_select(table, 0, ids.reshape(-1)).reshape(*ids.shape, -1)
+    x = torch.index_select(table, 0, ids.reshape(-1)).reshape(*ids.shape, -1)
+    if cfg.embed_scale:
+        # sqrt(d_model) rounded to the activation dtype first, as the
+        # reference does (in bf16, sqrt(1152) is 34.0)
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype).item()
+    return x
 
 
 def apply_unembed(p_embed, x: torch.Tensor) -> torch.Tensor:
     """Tied unembedding: logits against the embedding table."""
     return x @ p_embed["table"].to(x.dtype).t()
+
+
+def init_mlp(gen, cfg: ModelConfig, *, device, d_ff: Optional[int] = None):
+    d, f = cfg.d_model, (d_ff or cfg.d_ff)
+    dt = dtype_of(cfg.param_dtype)
+    out_scale = 0.02 / math.sqrt(2 * max(cfg.n_layers, 1))
+    p = {"wi": param(gen, (d, f), dt, device=device)}
+    if cfg.act == "silu":  # gated (swiglu)
+        p["wg"] = param(gen, (d, f), dt, device=device)
+    p["wo"] = param(gen, (f, d), dt, device=device, scale=out_scale)
+    return p
+
+
+def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    dt = x.dtype
+    h = x @ p["wi"].to(dt)
+    if "wg" in p:
+        h = F.silu(x @ p["wg"].to(dt)) * h
+    else:
+        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+    return h @ p["wo"].to(dt)
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               rotary_dim: int) -> torch.Tensor:
+    """x: [..., S, H, D] (positions [..., S] broadcastable); NeoX halves.
+
+    As in the reference, the exponents ``i / half`` and the angles are
+    float32.  Each inverse frequency ``theta ** -e`` is the float32 power
+    rounded once (a float64 power of the float32 exponent, then cast),
+    which is what the reference's float32 ``jnp.power`` gives; PyTorch's
+    own float32 power is 1 ulp off for some ``i``, and at positions near
+    1000 that moves the angles by ~1e-4."""
+    if rotary_dim <= 0:
+        return x
+    half = rotary_dim // 2
+    exps = torch.arange(half, dtype=torch.float32, device=x.device) / half
+    base = torch.full((), theta, dtype=torch.float64, device=x.device)
+    inv_freq = torch.pow(base, -exps.double()).float()
+    ang = positions[..., None].float() * inv_freq              # [..., S, half]
+    sin = torch.sin(ang)[..., None, :]
+    cos = torch.cos(ang)[..., None, :]
+    x1 = x[..., :half].float()
+    x2 = x[..., half:rotary_dim].float()
+    rot = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+    if rotary_dim == x.shape[-1]:
+        return rot
+    return torch.cat([rot, x[..., rotary_dim:]], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# attention (GQA)
+# --------------------------------------------------------------------------
+
+
+def init_attention(gen, cfg: ModelConfig, *, device):
+    d = cfg.d_model
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
+    dt = dtype_of(cfg.param_dtype)
+    kw = dict(device=device)
+    p = {
+        "wq": param(gen, (d, hq, hd), dt, **kw),
+        "wk": param(gen, (d, hkv, hd), dt, **kw),
+        "wv": param(gen, (d, hkv, hd), dt, **kw),
+        "wo": param(gen, (hq, hd, d), dt, scale=0.02 / math.sqrt(2 * max(cfg.n_layers, 1)),
+                    **kw),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = param(None, (hq, hd), dt, init="zeros", **kw)
+        p["bk"] = param(None, (hkv, hd), dt, init="zeros", **kw)
+        p["bv"] = param(None, (hkv, hd), dt, init="zeros", **kw)
+    if cfg.qk_norm:
+        p["q_norm"] = param(None, (hd,), dt, init="zeros", **kw)
+        p["k_norm"] = param(None, (hd,), dt, init="zeros", **kw)
+    return p
+
+
+def _headwise_rms(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    return ops.rmsnorm(x, scale, eps=eps, weight_offset=1.0)
+
+
+def _attn_mask(*, T: int, window: int, q_pos: torch.Tensor,
+               k_valid: torch.Tensor) -> torch.Tensor:
+    """Validity x causal x window mask, batch-aware: ``q_pos`` [S] or
+    [B,S], ``k_valid`` scalar or [B]; returns [b?,S,T], b? in {1,B}."""
+    qp = q_pos if q_pos.dim() == 2 else q_pos[None]              # [b?,S]
+    kv = k_valid if k_valid.dim() == 1 else k_valid[None]        # [b?]
+    kpos = torch.arange(T, device=qp.device)
+    mask = kpos[None, None, :] < kv[:, None, None]               # [b?,1,T]
+    mask = mask & (kpos[None, None, :] <= qp[:, :, None])
+    if window > 0:
+        mask = mask & (kpos[None, None, :] > qp[:, :, None] - window)
+    return mask
+
+
+def _sdpa(q, k, v, *, scale: float, window: int, softcap: float,
+          q_pos: torch.Tensor, k_valid: torch.Tensor) -> torch.Tensor:
+    """Causal attention of q [B,S,Hq,D] over a cache k, v [B,T,Hkv,D] in
+    float32 with the per-slot mask (the reference's ``_sdpa``); the kv
+    heads are grouped, not repeated in memory."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    qf = q.float().mul(scale).view(B, S, Hkv, group, D)
+    logits = torch.einsum("bskgd,btkd->bkgst", qf, k.float())
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    mask = _attn_mask(T=T, window=window, q_pos=q_pos, k_valid=k_valid)
+    logits = logits.masked_fill(~mask[:, None, None], -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    return out.reshape(B, S, Hq, D).to(q.dtype)
+
+
+def _cache_write_step(buf: torch.Tensor, val: torch.Tensor, pos: torch.Tensor) -> None:
+    """Write one step's ``val`` [B,1,...] into ``buf`` [B,T,...] in place
+    at ``pos``: a scalar (one depth for the batch) or [B] (every slot at
+    its own depth).  Indices past the end clamp to the last entry, as the
+    reference's ``dynamic_update_slice`` does (a frozen slot's discarded
+    write)."""
+    idx = pos.long().clamp(0, buf.shape[1] - 1)
+    if idx.dim() == 1:
+        rows = torch.arange(buf.shape[0], device=buf.device)
+        buf.index_put_((rows, idx), val[:, 0])
+    else:
+        buf.index_copy_(1, idx.view(1), val)
+
+
+def attention_qkv(p, x: torch.Tensor, cfg: ModelConfig, *,
+                  rope_theta: Optional[float], positions: torch.Tensor,
+                  k_positions: Optional[torch.Tensor] = None):
+    """q ``[B,S,Hq,hd]``, k and v ``[B,S,Hkv,hd]`` of ``x [B,S,d]``: the
+    projections, qkv bias, qk-norm and RoPE (q at ``positions``, k at
+    ``k_positions``, by default ``0..S-1`` as the reference's no-cache
+    path has it)."""
+    B, S, d = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
+    dt = x.dtype
+    q = (x @ p["wq"].to(dt).reshape(d, hq * hd)).view(B, S, hq, hd)
+    k = (x @ p["wk"].to(dt).reshape(d, hkv * hd)).view(B, S, hkv, hd)
+    v = (x @ p["wv"].to(dt).reshape(d, hkv * hd)).view(B, S, hkv, hd)
+    if "bq" in p:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    if "q_norm" in p:
+        q = _headwise_rms(q, p["q_norm"], cfg.norm_eps)
+        k = _headwise_rms(k, p["k_norm"], cfg.norm_eps)
+    theta = cfg.rope_theta if rope_theta is None else rope_theta
+    rotary_dim = int(hd * cfg.rotary_frac)
+    if rotary_dim:
+        q = apply_rope(q, positions, theta, rotary_dim)
+        k = apply_rope(k, torch.arange(S, device=x.device) if k_positions is None
+                       else k_positions, theta, rotary_dim)
+    return q, k, v
+
+
+def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *, window: int = 0,
+                    rope_theta: Optional[float] = None,
+                    positions: Optional[torch.Tensor] = None,
+                    cache: Optional[Dict] = None):
+    """Causal self-attention; returns ``(y, new_cache_or_None)``.
+
+    ``cache = {"k", "v", "pos", "depth"}``: k, v ``[B,T,Hkv,hd]``, written
+    in place; ``pos`` the write position, a scalar or [B] tensor.  With
+    ``depth`` (a host int, every slot at that depth: the prefill) the S
+    new entries land at ``depth`` and attention is ``ops.flash_attention``
+    over the cache's first ``depth + S`` entries at ``q_offset = depth``;
+    without it (``depth=None``: one decode step, S = 1) attention is the
+    plain ``_sdpa`` over the whole cache, masked per slot.  With no cache,
+    ``ops.flash_attention`` over the S new entries.  ``window`` 0 is full
+    attention.
+    """
+    B, S, _ = x.shape
+    hq, hd = cfg.n_heads, cfg.resolved_head_dim()
+    dt = x.dtype
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    q, k, v = attention_qkv(p, x, cfg, rope_theta=rope_theta, positions=positions,
+                            k_positions=None if cache is None else positions)
+
+    scale = cfg.attn_output_multiplier or hd ** -0.5
+    softcap = cfg.attn_softcap
+    new_cache = None
+    if cache is None:
+        out = ops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+            scale=scale, window=window or None, logit_softcap=softcap or None)
+        out = out.transpose(1, 2)
+    elif cache.get("depth") is not None:
+        depth, T = cache["depth"], cache["k"].shape[1]
+        if depth + S > T:
+            raise ValueError(f"prefill of {S} tokens at depth {depth} exceeds the "
+                             f"cache's {T} entries")
+        ck, cv = cache["k"], cache["v"]
+        ck[:, depth:depth + S] = k.to(ck.dtype)
+        cv[:, depth:depth + S] = v.to(cv.dtype)
+        new_cache = {"k": ck, "v": cv}
+        kc = ck[:, :depth + S].to(dt)
+        vc = cv[:, :depth + S].to(dt)
+        out = ops.flash_attention(
+            q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2), causal=True,
+            scale=scale, window=window or None, logit_softcap=softcap or None,
+            q_offset=depth).transpose(1, 2)
+    else:
+        if S != 1:
+            raise NotImplementedError(
+                "attention over a cache whose slots sit at different depths takes one "
+                "token at a time (continuous batching is not ported; ROADMAP.md)")
+        ck, cv, pos = cache["k"], cache["v"], cache["pos"]
+        _cache_write_step(ck, k.to(ck.dtype), pos)
+        _cache_write_step(cv, v.to(cv.dtype), pos)
+        new_cache = {"k": ck, "v": cv}
+        out = _sdpa(q, ck.to(dt), cv.to(dt), scale=scale, window=window,
+                    softcap=softcap, q_pos=positions, k_valid=pos + S)
+    y = out.reshape(B, S, hq * hd) @ p["wo"].to(dt).reshape(hq * hd, -1)
+    return y, new_cache

@@ -1,10 +1,11 @@
 """Mamba2 (SSD) block — port of ``repro.models.ssm``.
 
 in_proj → [z | x | B | C | dt]; short causal depthwise conv on (x,B,C);
-SSD scan; gated RMSNorm; out_proj.  Whenever the scan covers more than
+SSD scan; gated RMSNorm (``ops.rmsnorm`` of ``x · silu(z)``, the
+reference's formula); out_proj.  Whenever the scan covers more than
 one token — ``forward_logits`` (no cache) and prefill (with the cache's
 state as the initial state) — it goes through the hand-written kernel
-wrapper :func:`repro_torch.kernels.ssd_scan.ssd_scan`.  The reference
+wrapper ``ops.ssd_scan``.  The reference
 runs its prefill through the sequential oracle ``kref.ssd_scan`` with
 ``init_state``, which computes the same function
 (``tests/test_kernels.py:test_ssd_with_initial_state``); on the card
@@ -23,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels import ops
 from .nn import dtype_of, param
 
 
@@ -86,9 +87,8 @@ def _causal_conv(xbc, w, b, *, state: Optional[torch.Tensor] = None):
 
 
 def _gated_norm(x, z, scale, eps):
-    xf = (x * F.silu(z.float()).to(x.dtype)).float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * (scale.float() + 1.0)).to(x.dtype)
+    return ops.rmsnorm(x * F.silu(z.float()).to(x.dtype), scale, eps=eps,
+                       weight_offset=1.0)
 
 
 def _ssd_step(x, dt, A, Bm, C, state):
@@ -135,7 +135,7 @@ def apply_ssm(p, xin: torch.Tensor, cfg: ModelConfig, *,
         yh, last = _ssd_step(xh[:, 0], dt_v[:, 0], A, Bg[:, 0], Cg[:, 0], cache["state"])
         y = yh[:, None]
     else:
-        y, last = ssd_scan(xh, dt_v, A, Bg, Cg, chunk=cfg.ssm_chunk, return_state=True,
+        y, last = ops.ssd_scan(xh, dt_v, A, Bg, Cg, chunk=cfg.ssm_chunk, return_state=True,
                            init_state=cache["state"] if cache is not None else None)
 
     y = y + xh * p["D"][None, None, :, None].to(y.dtype)

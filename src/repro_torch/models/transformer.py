@@ -1,25 +1,39 @@
-"""Layer stacks — port of the ``ssm`` segment of ``repro.models.transformer``.
+"""Layer stacks — port of the ``attn_mlp`` and ``ssm`` segments of
+``repro.models.transformer``.
 
 A trunk is a list of segments, runs of structurally identical layers.
-The port has the ``ssm`` kind only (mamba2); the other kinds raise
-``NotImplementedError`` until ``ROADMAP.md`` brings them.  Parameters
-keep the reference's layout — stacked with a leading ``layers`` axis
-when ``cfg.scan_layers``, a list of per-layer dicts when not — and the
-layers run as a Python loop over views of them.  Caches are stacked per
-segment: ``conv [L,B,K-1,conv_dim]`` in ``cfg.dtype`` and ``state
-[L,B,H,P,N]`` in float32.
+The port has the ``attn_mlp`` kind (dense models such as gemma3) and
+the ``ssm`` kind (mamba2); the other kinds raise ``NotImplementedError``
+until ``ROADMAP.md`` brings them.  Parameters keep the reference's
+layout — stacked with a leading ``layers`` axis when
+``cfg.scan_layers``, a list of per-layer dicts when not — and the layers
+run as a Python loop over views of them, each with its own static
+window and rope theta (``layer_window_theta``).  Caches are stacked per
+segment: attention ``k``, ``v`` ``[L,B,T,Hkv,hd]`` in ``cfg.dtype``
+(written in place, so the stacked tensors are the new caches too), ssm
+``conv [L,B,K-1,conv_dim]`` in ``cfg.dtype`` and ``state [L,B,H,P,N]``
+in float32.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from . import ssm as ssm_lib
-from .nn import apply_rmsnorm, dtype_of, init_rmsnorm, tree_map
+from .nn import (
+    apply_attention,
+    apply_mlp,
+    apply_rmsnorm,
+    dtype_of,
+    init_attention,
+    init_mlp,
+    init_rmsnorm,
+    tree_map,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,30 +43,76 @@ class Segment:
 
 
 def plan_segments(cfg: ModelConfig) -> List[Segment]:
-    if cfg.arch_type == "ssm" and not cfg.enc_dec:
+    if cfg.enc_dec or cfg.hybrid or cfg.n_experts > 0 or cfg.use_mla:
+        raise NotImplementedError(
+            f"{cfg.name}: only the attn_mlp (dense) and ssm (mamba2) segments are "
+            f"ported to repro_torch; see ROADMAP.md")
+    if cfg.arch_type == "ssm":
         return [Segment("ssm", cfg.n_layers)]
-    raise NotImplementedError(
-        f"{cfg.name}: only the ssm segment (mamba2) is ported to repro_torch; "
-        f"see ROADMAP.md")
+    return [Segment("attn_mlp", cfg.n_layers)]
+
+
+def layer_window_theta(cfg: ModelConfig, layer_idx: int,
+                       serve_window: int = 0) -> Tuple[int, float]:
+    """Static per-layer (window, rope_theta); window 0 is full attention.
+    gemma3: every ``global_every``-th layer (1-based) is global, with
+    ``rope_theta_global``; the others slide a ``sliding_window``.  A
+    ``serve_window`` narrows every attention layer's window."""
+    is_global = bool(cfg.global_every) and ((layer_idx + 1) % cfg.global_every == 0)
+    if cfg.global_every and not is_global:
+        window, theta = cfg.sliding_window, cfg.rope_theta
+    elif cfg.sliding_window and not cfg.global_every:
+        window, theta = cfg.sliding_window, cfg.rope_theta
+    else:
+        window, theta = 0, cfg.rope_theta_global or cfg.rope_theta
+    if serve_window:
+        window = serve_window if window == 0 else min(window, serve_window)
+    return window, theta
 
 
 def init_block(gen, cfg: ModelConfig, kind: str, *, device):
-    if kind != "ssm":
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    return {
-        "ln_ssm": init_rmsnorm(cfg.d_model, dtype_of(cfg.param_dtype), device=device),
-        "ssm": ssm_lib.init_ssm(gen, cfg, device=device),
-    }
+    pdt = dtype_of(cfg.param_dtype)
+    if kind == "attn_mlp":
+        return {
+            "ln_attn": init_rmsnorm(cfg.d_model, pdt, device=device),
+            "attn": init_attention(gen, cfg, device=device),
+            "ln_mlp": init_rmsnorm(cfg.d_model, pdt, device=device),
+            "mlp": init_mlp(gen, cfg, device=device),
+        }
+    if kind == "ssm":
+        return {
+            "ln_ssm": init_rmsnorm(cfg.d_model, pdt, device=device),
+            "ssm": ssm_lib.init_ssm(gen, cfg, device=device),
+        }
+    raise NotImplementedError(f"block kind {kind!r} is not ported yet")
 
 
-def apply_block(p, x, cfg: ModelConfig, kind: str, *, cache: Optional[Dict] = None):
+def _attn_cache(cache, cache_pos, depth):
+    if cache is None or "attn" not in cache:
+        return None
+    return {**cache["attn"], "pos": cache_pos, "depth": depth}
+
+
+def apply_block(p, x, cfg: ModelConfig, kind: str, *, window: int = 0,
+                rope_theta: Optional[float] = None, positions=None,
+                cache: Optional[Dict] = None, cache_pos=None,
+                depth: Optional[int] = None):
     """Returns (y, new_cache)."""
-    if kind != "ssm":
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    h = apply_rmsnorm(p["ln_ssm"], x, cfg)
-    s, sc = ssm_lib.apply_ssm(p["ssm"], h, cfg,
-                              cache=cache.get("ssm") if cache else None)
-    return x + s, ({"ssm": sc} if sc is not None else {})
+    if kind == "attn_mlp":
+        h = apply_rmsnorm(p["ln_attn"], x, cfg)
+        a, kv = apply_attention(p["attn"], h, cfg, window=window, rope_theta=rope_theta,
+                                positions=positions,
+                                cache=_attn_cache(cache, cache_pos, depth))
+        x = x + a
+        h = apply_rmsnorm(p["ln_mlp"], x, cfg)
+        x = x + apply_mlp(p["mlp"], h, cfg)
+        return x, ({"attn": kv} if kv is not None else {})
+    if kind == "ssm":
+        h = apply_rmsnorm(p["ln_ssm"], x, cfg)
+        s, sc = ssm_lib.apply_ssm(p["ssm"], h, cfg,
+                                  cache=cache.get("ssm") if cache else None)
+        return x + s, ({"ssm": sc} if sc is not None else {})
+    raise NotImplementedError(f"block kind {kind!r} is not ported yet")
 
 
 def init_stack(gen, cfg: ModelConfig, *, device):
@@ -72,7 +132,7 @@ def _stack(layers: List[Dict]) -> Dict:
     return torch.stack(layers)
 
 
-def _layer(seg_params, i: int):
+def layer_params(seg_params, i: int):
     """Layer ``i``'s parameters: an entry of the list, or views into the
     stacked tensors."""
     if isinstance(seg_params, list):
@@ -80,34 +140,58 @@ def _layer(seg_params, i: int):
     return tree_map(lambda a: a[i], seg_params)
 
 
-def apply_stack(params, x, cfg: ModelConfig, *, caches: Optional[List] = None):
-    """Run all segments.  Returns (y, new_caches): per segment, the
-    stacked new caches (``None`` without caches)."""
+def apply_stack(params, x, cfg: ModelConfig, *, positions=None,
+                caches: Optional[List] = None, cache_pos=None,
+                depth: Optional[int] = None, serve_window: int = 0):
+    """Run all segments.  Returns (y, new_caches): per segment, the new
+    caches (``None`` without caches).  ``depth``: the host int every
+    slot's cache sits at (the prefill), or None (a decode step)."""
     new_caches = []
     for si, seg in enumerate(plan_segments(cfg)):
         seg_cache = caches[si] if caches is not None else None
         seg_new = []
         for i in range(seg.n_layers):
+            window, theta = layer_window_theta(cfg, i, serve_window)
             layer_cache = (tree_map(lambda c, _i=i: c[_i], seg_cache)
                            if seg_cache is not None else None)
-            x, nc = apply_block(_layer(params["segments"][si], i), x, cfg, seg.kind,
-                                cache=layer_cache)
+            x, nc = apply_block(layer_params(params["segments"][si], i), x, cfg, seg.kind,
+                                window=window, rope_theta=theta, positions=positions,
+                                cache=layer_cache, cache_pos=cache_pos, depth=depth)
             seg_new.append(nc)
-        new_caches.append(_stack(seg_new) if seg_new and seg_new[0] else None)
+        if not seg_new or not seg_new[0]:
+            new_caches.append(None)
+            continue
+        merged = {}
+        for key in seg_new[0]:
+            # the attention caches were written in place into the stacked
+            # tensors; the ssm caches are new tensors per layer
+            merged[key] = (seg_cache[key] if key == "attn"
+                           else _stack([n[key] for n in seg_new]))
+        new_caches.append(merged)
     return x, new_caches
 
 
-def init_caches(cfg: ModelConfig, batch: int, *, device) -> List[Dict[str, Any]]:
-    """Per-segment stacked decode caches (zeros): ssm ``conv [L,B,K-1,
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
+                device) -> List[Dict[str, Any]]:
+    """Per-segment stacked decode caches (zeros): attention ``k``, ``v``
+    ``[L,B,max_len,Hkv,hd]`` in ``cfg.dtype``; ssm ``conv [L,B,K-1,
     conv_dim]`` in ``cfg.dtype`` and ``state [L,B,H,P,N]`` in float32."""
+    dt = dtype_of(cfg.dtype)
     caches = []
     for seg in plan_segments(cfg):
         L = seg.n_layers
-        _, H, conv_dim = ssm_lib.ssm_dims(cfg)
-        caches.append({"ssm": {
-            "conv": torch.zeros((L, batch, cfg.ssm_conv - 1, conv_dim),
-                                dtype=dtype_of(cfg.dtype), device=device),
-            "state": torch.zeros((L, batch, H, cfg.ssm_head_dim, cfg.ssm_state),
-                                 dtype=torch.float32, device=device),
-        }})
+        if seg.kind == "attn_mlp":
+            shape = (L, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim())
+            caches.append({"attn": {
+                "k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device),
+            }})
+        else:
+            _, H, conv_dim = ssm_lib.ssm_dims(cfg)
+            caches.append({"ssm": {
+                "conv": torch.zeros((L, batch, cfg.ssm_conv - 1, conv_dim), dtype=dt,
+                                    device=device),
+                "state": torch.zeros((L, batch, H, cfg.ssm_head_dim, cfg.ssm_state),
+                                     dtype=torch.float32, device=device),
+            }})
     return caches

@@ -1,0 +1,237 @@
+"""The port's dense path (gemma3-1b) against the JAX package, on the CPU.
+
+Two sizes of the smoke model: ``gemma3-1b`` ``.smoke()`` (2 layers, both
+local with a window of 32) and the same with 6 layers, so that layer 6
+is global (``rope_theta_global``, full attention); prompts of 40 tokens
+are longer than the window, so the local layers mask.  Weights are the
+reference's own (``from_reference_params``), with the decoder's matrices
+scaled by 8 in both packages: at the init scale the scaled embedding
+dominates the residual stream and every slot repeats its last prompt
+token, so the served tokens would not depend on attention at all.  Both
+packages compute in float32 here: the port's prefill and ``forward_logits`` run the plain
+versions of the flash and rmsnorm kernels (``kernels/ref.py``), the
+reference its jnp ``_sdpa`` and norms, so the two differ by float32
+rounding only.  Asserted: logits of ``forward_logits`` within rtol =
+atol = 2e-5, prefill and decode logits and caches within 1e-5 (tighter
+than the repo's own bounds between its paths, 2e-3 for prefill against
+forward and 5e-3 for decode, ``tests/test_models.py``), and served
+tokens equal.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.launch.serve import ServeEngine as JaxServeEngine
+from repro.launch.serve import serve as jax_serve
+from repro.launch.serve import synthetic_batch as jax_synthetic_batch
+from repro.models import Model as JaxModel
+from repro.models import nn as jnn
+from repro.models import transformer as jtfm
+from repro.parallel import make_mesh as jax_make_mesh
+from repro_torch.configs import get_config
+from repro_torch.launch.serve import ServeEngine, serve, synthetic_batch
+from repro_torch.models import Model
+from repro_torch.models import nn
+from repro_torch.models import transformer as tfm
+from repro_torch.models.convert import caches_to_numpy, from_reference_params
+from repro_torch.models.nn import tree_leaves
+
+PROMPT, GEN, SLOTS = 40, 6, 4
+TIGHT = dict(rtol=1e-5, atol=1e-5)
+LAYERS = [2, 6]
+
+
+def _configs(n_layers):
+    """The smoke config of both packages, with ``n_layers`` layers."""
+    return (dataclasses.replace(jax_get_config("gemma3-1b").smoke(), n_layers=n_layers),
+            dataclasses.replace(get_config("gemma3-1b").smoke(), n_layers=n_layers))
+
+
+def _boost(tree, factor, name=""):
+    """The decoder's matrices (``w*`` leaves) times ``factor``."""
+    if isinstance(tree, dict):
+        return {k: _boost(v, factor, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_boost(v, factor, name) for v in tree]
+    return tree * np.float32(factor) if name.startswith("w") else tree
+
+
+@pytest.fixture(scope="module", params=LAYERS, ids=lambda n: f"{n}layers")
+def pair(request):
+    """(jax model, jax params, port model, port params)."""
+    jcfg, cfg = _configs(request.param)
+    jm = JaxModel(jcfg)
+    jp, _ = jm.init(jax.random.PRNGKey(request.param))
+    jp = jax.tree.map(np.asarray, jp)
+    jp = {**jp, "decoder": _boost(jp["decoder"], 8)}
+    return jm, jax.tree.map(jnp.asarray, jp), Model(cfg), from_reference_params(jp, cfg,
+                                                                               "cpu")
+
+
+def test_layer_windows_and_thetas_equal_the_reference():
+    for cfg, jcfg in [(get_config("gemma3-1b"), jax_get_config("gemma3-1b")),
+                      (get_config("mamba2-2.7b"), jax_get_config("mamba2-2.7b"))]:
+        for sw in (0, 100, 4096):
+            got = [tfm.layer_window_theta(cfg, i, sw) for i in range(cfg.n_layers)]
+            assert got == [jtfm.layer_window_theta(jcfg, i, sw)
+                           for i in range(cfg.n_layers)]
+    windows = [tfm.layer_window_theta(get_config("gemma3-1b"), i)[0] for i in range(26)]
+    assert [i + 1 for i, w in enumerate(windows) if w == 0] == [6, 12, 18, 24]
+
+
+def test_full_size_parameter_shapes_equal_the_reference():
+    cfg = get_config("gemma3-1b")
+    ours = Model(cfg).abstract_init()
+    theirs, _ = JaxModel(jax_get_config("gemma3-1b")).abstract_init()
+    assert jax.tree.structure(jax.tree.map(lambda t: 0, ours)) == \
+        jax.tree.structure(jax.tree.map(lambda a: 0, theirs))
+    for o, t in zip(jax.tree.leaves(ours), jax.tree.leaves(theirs)):
+        assert o.device.type == "meta"
+        assert tuple(o.shape) == tuple(t.shape)
+        assert str(o.dtype).split(".")[1] == str(t.dtype)
+    total = sum(o.numel() for o in tree_leaves(ours))
+    assert 7.9e8 <= total <= 8.0e8, total  # 302 M embedding + 26 x 18.9 M
+
+
+def test_compute_params_cast_the_matmul_weights_once():
+    model = Model(get_config("gemma3-1b"))
+    params = model.abstract_init()
+    cast = model.compute_params(params)
+    assert cast["embed"]["table"].dtype == torch.bfloat16
+    seg, seg_cast = params["decoder"]["segments"][0], cast["decoder"]["segments"][0]
+    for block in ("attn", "mlp"):
+        for name, leaf in seg_cast[block].items():
+            if name.startswith("w"):
+                assert leaf.dtype == torch.bfloat16, name
+            else:  # q_norm, k_norm: the rmsnorm kernel reads float32
+                assert leaf is seg[block][name], name
+    assert seg_cast["ln_attn"]["scale"] is seg["ln_attn"]["scale"]
+
+
+def test_embed_scale_is_rounded_to_the_activation_dtype():
+    """In bf16 the reference multiplies by sqrt(1152) rounded to 34.0."""
+    cfg = dataclasses.replace(get_config("gemma3-1b").smoke(), d_model=1152,
+                              dtype="bfloat16")
+    table = np.random.RandomState(0).randn(8, 1152).astype(np.float32)
+    ids = np.array([[1, 5, 7]], np.int32)
+    got = nn.apply_embedding({"table": torch.from_numpy(table)}, torch.from_numpy(ids), cfg)
+    want = jnn.apply_embedding({"table": jnp.asarray(table)}, jnp.asarray(ids),
+                               dataclasses.replace(jax_get_config("gemma3-1b").smoke(),
+                                                   d_model=1152, dtype="bfloat16"))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+    np.testing.assert_array_equal(
+        got.float().numpy(),
+        (torch.from_numpy(table).bfloat16()[ids].float() * 34.0).bfloat16().float().numpy())
+
+
+@pytest.mark.parametrize("theta", [10_000.0, 1_000_000.0])
+def test_rope_equals_the_reference_near_position_1000(theta):
+    rng = np.random.RandomState(1)
+    x = rng.randn(2, 24, 1, 256).astype(np.float32)
+    pos = np.arange(990, 1014, dtype=np.int32)
+    got = nn.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), theta, 256)
+    want = jnn.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta, 256)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_forward_logits_match_jax(pair):
+    jm, jp, m, params = pair
+    toks = np.random.RandomState(2).randint(0, m.cfg.vocab, (2, PROMPT)).astype(np.int32)
+    got = m.forward_logits(params, {"tokens": torch.from_numpy(toks)})
+    want = jm.forward_logits(jp, {"tokens": jnp.asarray(toks)})
+    assert tuple(got.shape) == (2, PROMPT, m.cfg.vocab)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("per_sequence", [False, True])
+def test_prefill_and_decode_match_jax(pair, per_sequence):
+    jm, jp, m, params = pair
+    rng = np.random.RandomState(3 + int(per_sequence))
+    toks = rng.randint(0, m.cfg.vocab, (2, PROMPT)).astype(np.int32)
+    T = PROMPT + 3
+    jc = jm.init_caches(2, T, per_sequence=per_sequence)
+    jlog, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, jc)
+    caches = m.init_caches(2, T, per_sequence=per_sequence, device="cpu")
+    logits, caches = m.prefill(params, {"tokens": torch.from_numpy(toks)}, caches)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlog), **TIGHT)
+    for _ in range(3):
+        nxt = rng.randint(0, m.cfg.vocab, (2,)).astype(np.int32)
+        jd, jc = jm.decode_step(jp, jc, jnp.asarray(nxt))
+        d, caches = m.decode_step(params, caches, torch.from_numpy(nxt))
+        np.testing.assert_allclose(d.numpy(), np.asarray(jd), **TIGHT)
+    jax.tree.map(lambda a, b: np.testing.assert_allclose(a, b, **TIGHT),
+                 caches_to_numpy(caches), jax.tree.map(np.asarray, jc))
+
+
+def test_prefill_refuses_slots_at_different_depths(pair):
+    _, _, m, params = pair
+    caches = m.init_caches(2, 8, per_sequence=True, device="cpu")
+    caches["pos"] = torch.tensor([0, 3], dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="continuous batching"):
+        m.prefill(params, {"tokens": torch.zeros((2, 4), dtype=torch.int32)}, caches)
+
+
+def _serve_both(pair, serve_window=0):
+    """Tokens and stats of both packages' ``serve`` in both modes."""
+    jm, jp, m, params = pair
+    mesh = jax_make_mesh((1, 1), ("data", "model"))
+    jeng = JaxServeEngine(jm.cfg, mesh, slots=SLOTS, prompt_len=PROMPT, max_new=GEN,
+                          chunk=GEN - 1, serve_window=serve_window)
+    with mesh:
+        jparams = jax.device_put(jp, jeng.pre.in_shardings[0])
+    eng = ServeEngine(m.cfg, slots=SLOTS, prompt_len=PROMPT, max_new=GEN, chunk=GEN - 1,
+                      serve_window=serve_window, device="cpu")
+    jbatch = jax_synthetic_batch(jm.cfg, np.random.RandomState(0), SLOTS, PROMPT)
+    batch = synthetic_batch(m.cfg, np.random.RandomState(0), SLOTS, PROMPT, device="cpu")
+    out = {}
+    for mode in (True, False):
+        out["jax", mode] = jax_serve(jm.cfg, mesh, batch=SLOTS, prompt_len=PROMPT,
+                                     gen_len=GEN, params=jparams, batch_in=jbatch,
+                                     engine=jeng, device_resident=mode)
+        out["torch", mode] = serve(m.cfg, batch=SLOTS, prompt_len=PROMPT, gen_len=GEN,
+                                   params=params, batch_in=batch, engine=eng,
+                                   device_resident=mode)
+    return out
+
+
+@pytest.fixture(scope="module")
+def served(pair):
+    return _serve_both(pair)
+
+
+@pytest.mark.parametrize("resident", [True, False])
+def test_serve_tokens_equal_jax(served, resident):
+    gen, stats = served["torch", resident]
+    jgen, jstats = served["jax", resident]
+    assert gen.shape == (SLOTS, GEN) and gen.dtype == np.int32
+    np.testing.assert_array_equal(gen, jgen)
+    last = synthetic_batch(get_config("gemma3-1b").smoke(), np.random.RandomState(0),
+                           SLOTS, PROMPT, device="cpu")["tokens"][:, -1].numpy()
+    assert (gen != last[:, None]).any(), "every slot repeats its last prompt token"
+    for k in ("decode_tokens", "dispatches", "decode_dispatches"):
+        assert stats[k] == jstats[k], k
+
+
+def test_resident_is_one_dispatch(served):
+    res, host = served["torch", True][1], served["torch", False][1]
+    assert (res["dispatches"], res["decode_dispatches"]) == (2, 1)
+    assert (host["dispatches"], host["decode_dispatches"]) == (GEN, GEN - 1)
+    np.testing.assert_array_equal(served["torch", True][0], served["torch", False][0])
+
+
+def test_serve_window_tokens_equal_jax(pair, served):
+    """A serve window of 8 narrows the local layers (32) and the global
+    one (full); the port's tokens equal the JAX engine's with the same
+    window, in both modes."""
+    out = _serve_both(pair, serve_window=8)
+    for mode in (True, False):
+        np.testing.assert_array_equal(out["torch", mode][0], out["jax", mode][0])
+    unwindowed = served["torch", True][0]
+    assert (out["torch", True][0] != unwindowed).any(), "the window changed nothing"

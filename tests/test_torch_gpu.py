@@ -1,10 +1,13 @@
 """Tests that need the card (marker ``gpu``; they skip without CUDA).
 
 Each hand-written CUDA kernel is held against its plain PyTorch version
-on the same device inputs: the halo kernels bit for bit, the SSD scan
-within the repo's chunked-vs-sequential bound (rtol 2e-4, atol 3e-5).
-The engines' CUDA graphs and the serve engine are held against the CPU
-run of the same program.  This file imports no JAX, so it runs on a GPU
+on the same device inputs: the halo and boundary kernels bit for bit,
+the SSD scan, flash attention and RMSNorm in float32 within the repo's
+kernel-vs-reference bounds (rtol 2e-4 / atol 3e-5; RMSNorm 2e-5 /
+1e-5), and in bfloat16 within one rounding of the output (2^-8 of the
+two results' magnitudes).  The engines' CUDA graphs and the serve
+engines (mamba2 and gemma3 smoke models) are held against the CPU run
+of the same program.  This file imports no JAX, so it runs on a GPU
 machine without it::
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -21,12 +24,15 @@ from repro_torch.core import (
     HostEngine,
     PersistentEngine,
     build_faces_program,
+    faces_step_contiguous,
     to_numpy,
 )
 from repro_torch.configs import get_config
-from repro_torch.core.halo import AXES3
+from repro_torch.core.halo import AXES3, DIRECTIONS, _region_for
+from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import halo_pack as hk
 from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as rk
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.launch.serve import ServeEngine, serve, synthetic_batch
 from repro_torch.models import Model
@@ -230,3 +236,192 @@ def test_smoke_serve_on_card_equals_cpu(cuda, resident):
     assert stats["decode_dispatches"] == (1 if resident else 5)
     eng = ServeEngine(cfg, slots=4, prompt_len=40, max_new=6)
     assert eng.device.type == "cuda"
+
+
+# --------------------------------------------------------------------------
+# boundary pack / unpack, RMSNorm, flash attention
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_boundary_kernels_equal_plain(cuda, dtype):
+    regions = [_region_for(d, (5, 4, 6)) for d in DIRECTIONS]
+    u = _randn((2, 3, 5, 4, 6), dtype, cuda, 4)
+    before = hk.launch_counts()
+    buf = hk.pack_boundary(u, regions)
+    assert torch.equal(buf, ref.pack_boundary(u, regions))
+    msg = _randn(tuple(buf.shape), dtype, cuda, 5)
+    got = hk.unpack_boundary_add(u.clone(), msg, regions)
+    assert torch.equal(got, ref.unpack_boundary_add(u.clone(), msg, regions))
+    after = hk.launch_counts()
+    assert after["pack_boundary"] == before["pack_boundary"] + 1
+    assert after["unpack_boundary_add"] == before["unpack_boundary_add"] + 1
+
+
+def test_boundary_unpack_keeps_the_bf16_rounding_order(cuda):
+    """Every segment adds 2^-8 to a block of ones.  Added one region at a
+    time and rounded to bf16 after each add, as the reference does, each
+    add is half an ulp of 1.0 and rounds back to 1.0 (ties to even); a
+    sum of the segments first would give 1 + 7 x 2^-8 at a corner, which
+    rounds to 1.0234375."""
+    regions = [_region_for(d, (4, 4, 4)) for d in DIRECTIONS]
+    u = torch.ones((2, 4, 4, 4), dtype=torch.bfloat16, device=cuda)
+    buf = torch.full((2, 6 * 16 + 12 * 4 + 8), 2.0 ** -8, dtype=torch.bfloat16,
+                     device=cuda)
+    got = hk.unpack_boundary_add(u.clone(), buf, regions)
+    assert torch.equal(got, ref.unpack_boundary_add(u.clone(), buf, regions))
+    assert bool((got == 1.0).all())
+
+
+def test_faces_step_contiguous_on_card_equals_the_host_engine(cuda):
+    cfg = FacesConfig(grid=(2, 2, 2), points=(8, 8, 8), damping=0.12, pack="kernel")
+    u0 = np.random.RandomState(6).randn(2, 2, 2, 8, 8, 8).astype(np.float32)
+    mesh = make_mesh(cfg.grid, AXES3, device=cuda)
+    host = HostEngine(build_faces_program(cfg, mesh))
+    want = host(host.init_buffers({"u": u0}))["u"]
+    before = hk.launch_counts()
+    got = faces_step_contiguous(torch.from_numpy(u0).to(cuda), cfg)
+    after = hk.launch_counts()
+    assert torch.equal(got, want)
+    assert after["pack_boundary"] == before["pack_boundary"] + 1
+    assert after["unpack_boundary_add"] == before["unpack_boundary_add"] + 1
+
+
+def _bf16_close(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Within one bf16 rounding of the output: both sides are float32
+    results rounded to bf16, so they may land one ulp apart (at most
+    2^-8 of their magnitudes) when the float32 values straddle a
+    rounding boundary."""
+    g, w = got.float(), want.float()
+    return bool(((g - w).abs() <= 2.0 ** -8 * (g.abs() + w.abs()) + 1e-6).all())
+
+
+@pytest.mark.parametrize("offset", [0.0, 1.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(37, 1152), (101, 256), (7, 2560), (3, 1000)])
+def test_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype, offset):
+    x = _randn((rows, d), dtype, cuda, 7)
+    w = _randn((d,), torch.float32, cuda, 8)
+    before = rk.rmsnorm.launches
+    got = rk.rmsnorm(x, w, eps=1e-6, weight_offset=offset)
+    want = ref.rmsnorm(x, w, eps=1e-6, weight_offset=offset)
+    assert rk.rmsnorm.launches == before + 1 and got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-5)
+    else:
+        assert _bf16_close(got, want)
+
+
+def test_rmsnorm_kernel_reads_strided_rows_and_leading_dims(cuda):
+    wide = _randn((2, 3, 40, 264), torch.bfloat16, cuda, 9)
+    x = wide[..., :256]            # row stride 264: read in place
+    w = _randn((256,), torch.bfloat16, cuda, 10)
+    got = rk.rmsnorm(x, w, weight_offset=1.0)
+    assert tuple(got.shape) == (2, 3, 40, 256) and got.is_contiguous()
+    assert _bf16_close(got, ref.rmsnorm(x, w, weight_offset=1.0))
+
+
+FLASH_CASES = [
+    # fully masked kv tiles: a window of 5 skips most tiles of a row block
+    dict(B=1, Hq=2, Hkv=1, Sq=200, Skv=200, D=64, window=5),
+    # rows that see no key at all: zeros
+    dict(B=1, Hq=2, Hkv=1, Sq=40, Skv=40, D=32, window=0),
+    # one query at the end of the cache
+    dict(B=2, Hq=4, Hkv=1, Sq=1, Skv=300, D=128, q_offset=299),
+    # window with GQA
+    dict(B=2, Hq=8, Hkv=2, Sq=130, Skv=130, D=64, window=33),
+    dict(B=1, Hq=2, Hkv=1, Sq=64, Skv=64, D=32, logit_softcap=15.0),
+    dict(B=1, Hq=4, Hkv=1, Sq=150, Skv=150, D=256),
+    dict(B=2, Hq=4, Hkv=1, Sq=70, Skv=200, D=256, q_offset=130, window=40),
+    dict(B=1, Hq=2, Hkv=1, Sq=50, Skv=70, D=32, causal=False),
+    dict(B=2, Hq=4, Hkv=4, Sq=48, Skv=48, D=16, causal=False),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(
+    f"{k}{v}" for k, v in c.items()))
+def test_flash_kernel_matches_plain(cuda, case):
+    case = dict(case)
+    B, Hq, Hkv, Sq, Skv, D = (case.pop(k) for k in ("B", "Hq", "Hkv", "Sq", "Skv", "D"))
+    q = _randn((B, Hq, Sq, D), torch.float32, cuda, 11)
+    k = _randn((B, Hkv, Skv, D), torch.float32, cuda, 12)
+    v = _randn((B, Hkv, Skv, D), torch.float32, cuda, 13)
+    before = fk.flash_attention.launches
+    got = fk.flash_attention(q, k, v, **case)
+    want = ref.attention(q, k, v, **case)
+    assert fk.flash_attention.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=3e-5)
+    if case.get("window") == 0:
+        assert bool((got == 0).all())
+
+
+def test_flash_kernel_reads_the_model_layout_in_bf16(cuda):
+    """gemma3's layout: q, k, v are [B,S,H,D] bf16 tensors passed as
+    transposed views (no copy); the result is laid out [B,S,Hq,D]."""
+    B, S, D = 2, 300, 256
+    q = _randn((B, S, 4, D), torch.bfloat16, cuda, 14).transpose(1, 2)
+    k = _randn((B, S, 1, D), torch.bfloat16, cuda, 15).transpose(1, 2)
+    v = _randn((B, S, 1, D), torch.bfloat16, cuda, 16).transpose(1, 2)
+    for window in (None, 64):
+        got = fk.flash_attention(q, k, v, window=window)
+        assert got.transpose(1, 2).is_contiguous() and got.dtype == torch.bfloat16
+        assert _bf16_close(got, ref.attention(q, k, v, window=window))
+
+
+def test_new_kernels_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros(1, 2, 8, 48, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fk.flash_attention(q, q[:, :1], q[:, :1])
+    q = torch.zeros(1, 2, 8, 64, device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fk.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="unit stride"):
+        kt = torch.zeros(1, 2, 64, 8, device=cuda).transpose(2, 3)
+        fk.flash_attention(q, kt, kt)
+    x = torch.zeros(4, 64, device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rk.rmsnorm(x.half(), torch.zeros(64, device=cuda))
+    with pytest.raises(ValueError, match="merge"):
+        rk.rmsnorm(torch.zeros(4, 6, 64, device=cuda).transpose(0, 1),
+                   torch.zeros(64, device=cuda))
+    regions = [_region_for(d, (4, 4, 4)) for d in DIRECTIONS]
+    u = torch.zeros(2, 4, 4, 4, device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        hk.pack_boundary(u.double(), regions)
+    with pytest.raises(ValueError, match="contiguous"):
+        hk.pack_boundary(u.transpose(1, 2), regions)
+
+
+def _boosted_dense_params(cfg):
+    """gemma3 smoke weights with the decoder's matrices scaled by 8, so
+    that the served tokens depend on attention (``test_torch_dense.py``)."""
+    params = Model(cfg).init(0, device="cpu")
+
+    def boost(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: boost(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [boost(v, name) for v in tree]
+        return tree * 8 if name.startswith("w") else tree
+
+    return {**params, "decoder": boost(params["decoder"])}
+
+
+@pytest.mark.parametrize("resident", [True, False])
+def test_dense_smoke_serve_on_card_equals_cpu(cuda, resident):
+    cfg = get_config("gemma3-1b").smoke()
+    params = _boosted_dense_params(cfg)
+    kw = dict(batch=4, prompt_len=40, gen_len=6, device_resident=resident)
+    want, _ = serve(cfg, params=params, device="cpu",
+                    batch_in=synthetic_batch(cfg, np.random.RandomState(0), 4, 40,
+                                             device="cpu"), **kw)
+    before = (fk.flash_attention.launches, rk.rmsnorm.launches)
+    got, stats = serve(cfg, params=tree_map(lambda t: t.to(cuda), params),
+                       batch_in=synthetic_batch(cfg, np.random.RandomState(0), 4, 40),
+                       **kw)
+    np.testing.assert_array_equal(got, want)
+    # one prefill: a flash launch per layer; four norms per layer and the
+    # final one (the decode graphs' launches are counted at capture)
+    assert fk.flash_attention.launches >= before[0] + cfg.n_layers
+    assert rk.rmsnorm.launches >= before[1] + 4 * cfg.n_layers + 1
+    assert stats["decode_dispatches"] == (1 if resident else 5)

@@ -129,8 +129,10 @@ def test_wrappers_count_no_launch_on_cpu():
     hk.halo_unpack_add(u, hk.halo_pack(u, region), region)
     staged = hk.pack_segments([(u.view(2, -1), 0)], [27])
     hk.unpack_segments(staged, [u], [0])
+    hk.unpack_boundary_add(u, hk.pack_boundary(u, [region]), [region])
     assert hk.launch_counts() == dict.fromkeys(
-        ("halo_pack", "halo_unpack_add", "pack_segments", "unpack_segments"), 0)
+        ("halo_pack", "halo_unpack_add", "pack_boundary", "unpack_boundary_add",
+         "pack_segments", "unpack_segments"), 0)
 
 
 def test_segment_validation():

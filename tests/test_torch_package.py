@@ -30,7 +30,9 @@ def _forbidden(module: str) -> bool:
 def test_import_leaves_out_jax_and_repro(subproc):
     code = ("import sys, repro_torch, repro_torch.core, "
             "repro_torch.kernels.halo_pack, repro_torch.kernels.build, "
-            "repro_torch.kernels.ssd_scan, repro_torch.configs, "
+            "repro_torch.kernels.ssd_scan, repro_torch.kernels.rmsnorm, "
+            "repro_torch.kernels.flash_attention, repro_torch.kernels.ops, "
+            "repro_torch.configs, "
             "repro_torch.models, repro_torch.models.convert, "
             "repro_torch.launch.serve\n"
             "assert 'jax' not in sys.modules\n"

@@ -176,10 +176,16 @@ def test_entry_points_run_on_the_card():
         Model(cfg).init(0)
 
 
-def test_serve_window_is_refused():
-    with pytest.raises(ValueError, match="serve_window"):
-        ServeEngine(get_config("mamba2-2.7b").smoke(), slots=1, prompt_len=2,
-                    max_new=2, serve_window=4, device="cpu")
+def test_serve_window_leaves_mamba2_unchanged(pair, served):
+    """``serve_window`` narrows attention windows only: mamba2 has none,
+    so its tokens are those of the unwindowed serve (and of the JAX
+    package's)."""
+    _, _, m, params = pair
+    batch = synthetic_batch(m.cfg, np.random.RandomState(0), SLOTS, PROMPT, device="cpu")
+    gen, _ = serve(m.cfg, batch=SLOTS, prompt_len=PROMPT, gen_len=GEN, params=params,
+                   batch_in=batch, serve_window=4, device="cpu")
+    np.testing.assert_array_equal(gen, served["torch", True][0])
+    np.testing.assert_array_equal(gen, served["jax", True][0])
 
 
 def test_unported_config_options_are_refused():
