@@ -34,14 +34,18 @@ a checkout of the repository.  Phases, each of which must pass:
    80 SSD heads of 64, state 128, vocab 50 280, bf16 compute, float32
    parameters from ``torch.Generator(seed)``): 4 slots, 512-token
    prompts, 32 tokens each, first device-resident (decode = one CUDA
-   graph launch) then host-stepped (one launch per token), with the SSD
-   and rmsnorm kernels' counters set to 0 just before each serve and
-   read just after; a ``torch.profiler`` window over one prefill and
-   one decode step;
-7. check the serving results: both modes emit the same tokens,
-   ``forward_logits`` (the reference's no-cache kernel path) equals the
-   prefill's last-position logits bit for bit, and the logits are
-   finite;
+   graph launch) then host-stepped (one launch per token); the prefill
+   is one CUDA-graph launch in both.  A set-up serve in each mode
+   captures the graphs; the kernels' counters are set to 0 just before
+   it and read after the two served runs, which must launch no kernel
+   eagerly and each launch the prefill graph once; the prefill graph
+   must hold the SSD and rmsnorm kernels; ``torch.profiler`` windows
+   over an eager and a graphed prefill and a decode step;
+7. check the serving results: both modes emit the same tokens, the
+   graphed prefill equals an eager ``Model.prefill`` bit for bit
+   (logits and caches), ``forward_logits`` (the reference's no-cache
+   kernel path) equals the prefill's last-position logits bit for bit,
+   and the logits are finite;
 8. hold the SSD kernel against its plain version: at the served shapes
    in bf16 within a bound derived from bf16 rounding, and on the
    float32 cases of ``tests/test_kernels.py`` (plus a tail and an
@@ -51,21 +55,28 @@ a checkout of the repository.  Phases, each of which must pass:
    window and 4 global ones, vocab 262 144, bf16 compute over float32
    parameters from ``torch.Generator(seed)``): 4 slots, 1024-token
    prompts (twice the window, so the local layers skip kv tiles), 32
-   tokens each, resident then host-stepped, with the flash-attention
-   and rmsnorm counters set to 0 just before each serve and read just
-   after (26 flash launches and at least 105 norms per prefill); the
-   checks of phase 7; profiles of one prefill and one decode step;
+   tokens each, resident then host-stepped, counted as in phase 6; the
+   prefill graph must hold 26 flash launches on the tensor-core route
+   and none on the CUDA-core route, and at least 105 norms; the checks
+   of phase 7 (the eager prefill takes the same routes); profiles as in
+   phase 6;
 10. hold flash attention against its plain version on the q, k, v of the
    served prefill's first local layer (0) and first global layer (5),
    taken by calling the layers' functions, in bf16 within one rounding
-   of the output, and on float32 cases (softcap, one query at an
-   offset, ragged kv, head_dim 64/128/256) at the repo's rtol 2e-4 /
-   atol 3e-5; rmsnorm on the served layer-0 input and at d 1152, 256
-   and 2560 with a ragged row count at ``weight_offset`` 0 and 1; time
-   both against ``F.scaled_dot_product_attention`` and ``F.rms_norm``.
+   of the output (the tensor-core route), on bf16 cases at head_dim 64,
+   128 and 256 at the same bound, and on float32 cases (softcap, one
+   query at an offset, ragged kv, head_dim 32/64/128/256) at the repo's
+   rtol 2e-4 / atol 3e-5 (the CUDA-core route); rmsnorm on the served
+   layer-0 input and at d 1152, 256 and 2560 with a ragged row count at
+   ``weight_offset`` 0 and 1; time both, flash on the global and the
+   local layer, against ``F.scaled_dot_product_attention`` and
+   ``F.rms_norm``.
 
-The last lines are a ``{"kernels": [...]}`` JSON line (nine rows), the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
+The last lines are a ``{"kernels": [...]}`` JSON line (nine rows; the
+flash row also gives ``earlier_ms``: the CUDA-core kernel, the port's
+flash kernel before the tensor-core one, on the same input in this
+run), the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -408,16 +419,21 @@ def check_kernels(torch, prog, u, hk, ref):
     return rows
 
 
-def run_serve(torch, seed: int, arch: str, shape: dict, counters):
+def run_serve(torch, seed: int, arch: str, shape: dict):
     """Serve ``arch`` at full size in both decode modes (phases 6 and 9).
 
-    One untimed serve per mode first captures the decode graphs (set-up,
-    as a server does once).  Then each mode serves once with the
-    ``counters`` (kernel modules) set to 0 just before and read just
-    after."""
+    One serve per mode first captures the prefill and decode graphs
+    (set-up, as a server does once); then each mode serves once more.
+    Every kernel counter is set to 0 just before the set-up and read
+    after the last serve (the launches of the main path: the graphs'
+    eager warm-up passes and their captures), and read around each
+    served run too, which replays graphs only and so launches no kernel
+    eagerly.  Returns the runs as (tokens, stats, kernel launches, graph
+    launches by dispatch kind), and the whole window's launches."""
     import numpy as np
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
     from repro_torch.launch.serve import ServeEngine, serve, synthetic_batch
 
     cfg = get_config(arch)
@@ -426,6 +442,8 @@ def run_serve(torch, seed: int, arch: str, shape: dict, counters):
     params = eng.model.init(seed)
     batch_in = synthetic_batch(cfg, np.random.RandomState(seed), shape["batch"],
                                shape["prompt_len"])
+    torch.cuda.synchronize()
+    reset_all_launches()
     t0 = time.perf_counter()
     for resident in (True, False):
         serve(cfg, params=params, batch_in=batch_in, engine=eng,
@@ -435,67 +453,101 @@ def run_serve(torch, seed: int, arch: str, shape: dict, counters):
     runs = {}
     for resident in (True, False):
         torch.cuda.synchronize()
-        for c in counters:
-            c.reset_launches()
+        counts, graphs = ops.launch_counts(), eng.graph_launches
         gen, stats = serve(cfg, params=params, batch_in=batch_in, engine=eng,
                            device_resident=resident, **shape)
         torch.cuda.synchronize()
-        counts = {}
-        for c in counters:
-            counts.update(c.launch_counts())
-        runs["resident" if resident else "host_stepped"] = (gen, stats, counts)
-    return cfg, eng, params, batch_in, runs, setup_s
+        counts = {k: n - counts[k] for k, n in ops.launch_counts().items()}
+        graphs = {k: n - graphs[k] for k, n in eng.graph_launches.items()}
+        runs["resident" if resident else "host_stepped"] = (gen, stats, counts, graphs)
+    return cfg, eng, params, batch_in, runs, setup_s, ops.launch_counts()
 
 
-def serve_report(torch, cfg, shape, runs, setup_s) -> dict:
-    """The serve line of phases 6 and 9; requires the dispatch counts."""
-    line = {"model": cfg.name, **shape, "setup_s": setup_s}
-    for mode, (gen, stats, counts) in runs.items():
+def reset_all_launches() -> None:
+    from repro_torch.kernels import flash_attention, halo_pack, rmsnorm, ssd_scan
+
+    for module in (flash_attention, halo_pack, rmsnorm, ssd_scan):
+        module.reset_launches()
+
+
+def serve_report(torch, cfg, eng, shape, runs, setup_s, launches) -> dict:
+    """The serve line of phases 6 and 9; requires the dispatch counts,
+    one prefill graph launch and no eager kernel launch per served run."""
+    steps = shape["gen_len"] - 1
+    line = {"model": cfg.name, **shape, "setup_s": setup_s, "launches": launches,
+            "prefill_graph_holds": eng.captured_launches("prefill")}
+    for mode, (gen, stats, counts, graphs) in runs.items():
         line[mode] = {
             "prefill_ms": stats["prefill_s"] * 1e3, "decode_ms": stats["decode_s"] * 1e3,
-            "decode_ms_per_token": stats["decode_s"] * 1e3 / (shape["gen_len"] - 1),
+            "decode_ms_per_token": stats["decode_s"] * 1e3 / steps,
             "tok_per_s": stats["tok_per_s"], "decode_tokens": stats["decode_tokens"],
             "dispatches": stats["dispatches"],
-            "decode_dispatches": stats["decode_dispatches"], "launches": counts}
+            "decode_dispatches": stats["decode_dispatches"], "graph_launches": graphs,
+            "eager_kernel_launches": sum(counts.values())}
     require((line["resident"]["dispatches"], line["resident"]["decode_dispatches"]) == (2, 1),
             f"resident dispatches {line['resident']}")
-    require(line["host_stepped"]["decode_dispatches"] == shape["gen_len"] - 1,
+    require(line["host_stepped"]["decode_dispatches"] == steps,
             f"host-stepped dispatches {line['host_stepped']}")
+    want = {"resident": {"prefill": 1, "decode": 1, "decode_one": 0},
+            "host_stepped": {"prefill": 1, "decode": 0, "decode_one": steps}}
+    for mode, w in want.items():
+        require(line[mode]["graph_launches"] == w,
+                f"{mode}: graph launches {line[mode]['graph_launches']} != {w} (the "
+                "prefill must be one graph launch after set-up)")
+        require(line[mode]["eager_kernel_launches"] == 0,
+                f"{mode}: a served run launched kernels eagerly: {runs[mode][2]}")
     line["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return line
 
 
 def check_serving(torch, eng, params, batch_in, runs, shape) -> dict:
-    """Phases 7 and 9: equal tokens in both modes; ``forward_logits`` equal
-    to the prefill's last-position logits; finite logits."""
+    """Phases 7 and 9: equal tokens in both modes; the graphed prefill
+    equal to an eager ``Model.prefill`` (logits and caches) and
+    ``forward_logits`` to the prefill's last-position logits, bit for
+    bit; finite logits.  Returns the eager prefill's kernel launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.nn import tree_leaves
+
     res, host = runs["resident"][0], runs["host_stepped"][0]
     require(res.shape == (shape["batch"], shape["gen_len"]), f"tokens of shape {res.shape}")
     require(bool((res == host).all()), "resident and host-stepped tokens differ")
     require(bool(((res >= 0) & (res < eng.cfg.vocab)).all()), "tokens out of the vocabulary")
     cast = eng.cast_params(params)
-    caches = eng.init_state()[0]
-    pre, _ = eng.model.prefill(cast, batch_in, caches)
+    graphed, graphed_caches = eng.prefill(params, batch_in, eng.init_state()[0])
+    torch.cuda.synchronize()
+    before = ops.launch_counts()
+    pre, pre_caches = eng.model.prefill(cast, batch_in, eng.init_state()[0])
+    torch.cuda.synchronize()
+    eager = {k: n - before[k] for k, n in ops.launch_counts().items() if n > before[k]}
     full = eng.model.forward_logits(cast, batch_in)
     last = full[:, -1]
     torch.cuda.synchronize()
     require(bool(torch.isfinite(pre).all()) and bool(torch.isfinite(full).all()),
             "non-finite logits")
+    require(torch.equal(graphed, pre) and all(
+        torch.equal(g, e) for g, e in zip(tree_leaves(graphed_caches), tree_leaves(pre_caches))),
+        "the graphed prefill differs from the eager one")
     # With empty caches, prefill and forward_logits run the same kernels on
     # the same inputs: equal bit for bit
     require(torch.equal(pre, last), "forward_logits differs from the prefill's logits "
             f"(max abs diff {float((pre.float() - last.float()).abs().max())})")
     return {"tokens_equal": True, "logits_finite": True,
-            "forward_vs_prefill_bitwise": True,
+            "graphed_vs_eager_prefill_bitwise": True,
+            "forward_vs_prefill_bitwise": True, "eager_prefill_launches": eager,
             "last_logit_abs_max": float(pre.float().abs().max())}
 
 
 def print_profiles(torch, eng, params, batch_in, tag: str) -> None:
-    """Where the time of one prefill and one decode step goes."""
+    """Where the time of one prefill (eager, and the served graph) and one
+    decode step goes."""
     cast = eng.cast_params(params)
     caches, tok, _, _ = eng.init_state()
     pre_caches = eng.model.prefill(cast, batch_in, caches)[1]
     print(json.dumps({f"profile_prefill{tag}": profile_calls(
         torch, lambda: eng.model.prefill(cast, batch_in, caches))}), flush=True)
+    fresh = eng.init_state()[0]   # the graph copies these in; they stay empty
+    print(json.dumps({f"profile_prefill_graph{tag}": profile_calls(
+        torch, lambda: eng.prefill(params, batch_in, fresh), calls=3)}), flush=True)
     print(json.dumps({f"profile_decode_step{tag}": profile_calls(
         torch, lambda: eng.model.decode_step(cast, pre_caches, tok))}), flush=True)
     graph_caches = eng.decode_one(params, pre_caches, tok)[1]  # the graph's own buffers
@@ -615,6 +667,24 @@ def attention_pairs(Sq: int, Skv: int, q_offset: int, window) -> int:
     return total
 
 
+def cuda_core_flash(torch, q, k, v, window):
+    """The CUDA-core flash kernel (the port's kernel before the tensor-core
+    one; the route rule now gives it float32 and head_dims 16 and 32) on
+    bf16 q, k, v, called through its C entry point: its time on the
+    served layers is the flash row's ``earlier_ms``."""
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels.build import check_launch, load_library, stream_arg
+
+    B, Hq, Sq, D = q.shape
+    out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    err = load_library("flash_attention", fk.SIGNATURES).rt_flash_attention(
+        1, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, k.shape[1], Sq,
+        k.shape[2], D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        D ** -0.5, 0.0, 1, -1 if window is None else int(window), 0, stream_arg(q))
+    check_launch("flash_attention", err)
+    return out
+
+
 def check_dense_kernels(torch, eng, params, batch_in, fk, rk, ref, seed: int):
     """Phase 10: flash attention and rmsnorm against their plain versions;
     returns their kernel-table rows and the details of the checks."""
@@ -641,8 +711,19 @@ def check_dense_kernels(torch, eng, params, batch_in, fk, rk, ref, seed: int):
                           window or None)
         x, _ = tfm.apply_block(p, x, cfg, "attn_mlp", window=window, rope_theta=theta,
                                positions=positions)
+
+    def on_route(route, fn):
+        """``fn()``, required to launch flash once, on ``route``."""
+        before = fk.launch_counts()
+        out = fn()
+        after = fk.launch_counts()
+        moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        require(moved == {"flash_attention": 1, f"flash_attention_{route}": 1},
+                f"flash_attention took {moved}, not one launch on the {route} route")
+        return out
+
     for li, (q, k, v, window) in layers.items():
-        got = fk.flash_attention(q, k, v, window=window)
+        got = on_route("wgmma", lambda: fk.flash_attention(q, k, v, window=window))
         want = ref.attention(q, k, v, window=window)
         ok, used = bf16_close(torch, got, want)
         err = float((got.float() - want.float()).abs().max())
@@ -651,11 +732,31 @@ def check_dense_kernels(torch, eng, params, batch_in, fk, rk, ref, seed: int):
                 f"rounding (max abs err {err})")
         detail[f"layer{li}"] = {"window": window, "max_abs_err": err, "bound_used": used,
                                 "out_abs_max": float(want.float().abs().max())}
+        if window is None:   # the library call on the same input, for comparison only
+            lib = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+            detail[f"layer{li}"]["sdpa_bound_used"] = bf16_close(torch, lib, want)[1]
+
+    # bf16 at head_dim 64 / 128 / 256 (GQA, ragged, an offset, a window, a
+    # softcap), at the served layers' bound
+    gen = torch.Generator("cuda").manual_seed(seed)
+    used_max = 0.0
+    for B, Hq, Hkv, Sq, Skv, D, kw in [
+            (2, 4, 4, 100, 100, 64, dict()),
+            (1, 8, 2, 130, 130, 128, dict(window=7)),
+            (1, 8, 1, 200, 333, 256, dict(q_offset=133)),
+            (1, 2, 1, 96, 96, 64, dict(logit_softcap=15.0)),
+            (2, 4, 2, 1, 300, 256, dict(q_offset=299))]:
+        qb, kb, vb = (torch.randn(B, H, S, D, device="cuda", generator=gen).bfloat16()
+                      for H, S in ((Hq, Sq), (Hkv, Skv), (Hkv, Skv)))
+        got = on_route("wgmma", lambda: fk.flash_attention(qb, kb, vb, **kw))
+        ok, used = bf16_close(torch, got, ref.attention(qb, kb, vb, **kw))
+        used_max = max(used_max, used)
+        require(ok, f"flash_attention != plain on bf16 case {(B, Hq, Hkv, Sq, Skv, D, kw)}")
+    detail["bf16_cases_bound_used"] = used_max
 
     # float32: the cases of tests/test_kernels.py (softcap, one query at an
     # offset, a window, ragged kv) and head_dim 128 and 256; the repo's
     # kernel-vs-reference bound, rtol 2e-4 / atol 3e-5
-    gen = torch.Generator("cuda").manual_seed(seed)
     fp32_err = 0.0
     for B, Hq, Hkv, Sq, Skv, D, kw in [
             (1, 2, 1, 64, 64, 32, dict()),
@@ -671,11 +772,14 @@ def check_dense_kernels(torch, eng, params, batch_in, fk, rk, ref, seed: int):
         qf = torch.randn(B, Hq, Sq, D, device="cuda", generator=gen)
         kf = torch.randn(B, Hkv, Skv, D, device="cuda", generator=gen)
         vf = torch.randn(B, Hkv, Skv, D, device="cuda", generator=gen)
-        got, want = fk.flash_attention(qf, kf, vf, **kw), ref.attention(qf, kf, vf, **kw)
+        got = on_route("cuda_core", lambda: fk.flash_attention(qf, kf, vf, **kw))
+        want = ref.attention(qf, kf, vf, **kw)
         fp32_err = max(fp32_err, float((got - want).abs().max()))
         require(torch.allclose(got, want, rtol=2e-4, atol=3e-5),
                 f"flash_attention != plain on float32 case {(B, Hq, Hkv, Sq, Skv, D, kw)}")
     detail["fp32_cases_max_abs_err"] = fp32_err
+    detail["fp32_b1_h4_s300_d256_cuda_core_ms"] = median_ms(
+        torch, lambda: fk.flash_attention(qf, kf, vf))
 
     # timed at the served global layer; bound: the pairs this input needs
     # in bf16 products summed in float32 (what the tensor cores compute)
@@ -691,6 +795,7 @@ def check_dense_kernels(torch, eng, params, batch_in, fk, rk, ref, seed: int):
     detail["bytes"] = n_bytes
     detail["local_layer0"] = {
         "ms": median_ms(torch, lambda: fk.flash_attention(ql, kl, vl, window=wl)),
+        "earlier_ms": median_ms(torch, lambda: cuda_core_flash(torch, ql, kl, vl, wl)),
         "sdpa_window_mask_ms": median_ms(torch, lambda: F.scaled_dot_product_attention(
             ql, kl, vl, attn_mask=local_mask, enable_gqa=True)),
         "bound_ms": max(flops[0] / BF16_OPS_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3}
@@ -699,6 +804,9 @@ def check_dense_kernels(torch, eng, params, batch_in, fk, rk, ref, seed: int):
         lambda: fk.flash_attention(q, k, v), lambda: ref.attention(q, k, v),
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
         n_bytes, flops[5], BF16_OPS_PER_S, plain_reps=(5, 4))]
+    rows[0]["earlier_ms"] = median_ms(torch, lambda: cuda_core_flash(torch, q, k, v, None))
+    require(bf16_close(torch, cuda_core_flash(torch, q, k, v, None), ref.attention(q, k, v))[0],
+            "the CUDA-core kernel != plain on the served global layer")
 
     # rmsnorm: the served layer-0 input and sweeps of d, rows, offset
     norm_err = 0.0
@@ -820,15 +928,16 @@ def main() -> int:
     from repro_torch.kernels import rmsnorm as rk
     from repro_torch.kernels import ssd_scan as ssd
     torch.cuda.reset_peak_memory_stats()
-    model_cfg, eng, params, batch_in, runs, setup_s = run_serve(
-        torch, args.seed, "mamba2-2.7b", SERVE, (ssd, rk))
-    for mode, (_, _, counts) in runs.items():
-        require(counts["ssd_scan"] > 0, f"ssd_scan never launched serving {mode}")
-        require(counts["rmsnorm"] > 0, f"rmsnorm never launched serving {mode}")
-    print(json.dumps({"serve": serve_report(torch, model_cfg, SERVE, runs, setup_s)}),
-          flush=True)
-    ssd_launches = sum(counts["ssd_scan"] for _, _, counts in runs.values())
-    norm_launches = sum(counts["rmsnorm"] for _, _, counts in runs.values())
+    model_cfg, eng, params, batch_in, runs, setup_s, served = run_serve(
+        torch, args.seed, "mamba2-2.7b", SERVE)
+    held = eng.captured_launches("prefill")
+    require(held["ssd_scan"] == model_cfg.n_layers and held["rmsnorm"] > 0,
+            f"the mamba2 prefill graph does not hold the SSD and rmsnorm kernels: {held}")
+    require(served["ssd_scan"] > 0 and served["rmsnorm"] > 0,
+            f"a kernel never launched serving mamba2: {served}")
+    print(json.dumps({"serve": serve_report(torch, model_cfg, eng, SERVE, runs, setup_s,
+                                            served)}), flush=True)
+    ssd_launches, norm_launches = served["ssd_scan"], served["rmsnorm"]
 
     # phase 7: serving results, and where the time goes
     print(json.dumps({"serve_checks": check_serving(torch, eng, params, batch_in, runs,
@@ -845,21 +954,27 @@ def main() -> int:
     # phase 9: serve gemma3-1b at full width and depth
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    model_cfg, eng, params, batch_in, runs, setup_s = run_serve(
-        torch, args.seed, "gemma3-1b", DENSE_SERVE, (fk, rk))
-    for mode, (_, _, counts) in runs.items():
-        require(counts["flash_attention"] == model_cfg.n_layers,
-                f"flash_attention launched {counts['flash_attention']} times in the "
-                f"{mode} serve's prefill, not once per layer ({model_cfg.n_layers})")
-        require(counts["rmsnorm"] >= 4 * model_cfg.n_layers + 1,
-                f"rmsnorm launched {counts['rmsnorm']} times serving {mode}: not on "
-                "every norm")
-    print(json.dumps({"serve_dense": serve_report(torch, model_cfg, DENSE_SERVE, runs,
-                                                  setup_s)}), flush=True)
-    flash_launches = sum(counts["flash_attention"] for _, _, counts in runs.values())
-    norm_launches += sum(counts["rmsnorm"] for _, _, counts in runs.values())
-    print(json.dumps({"serve_dense_checks": check_serving(
-        torch, eng, params, batch_in, runs, DENSE_SERVE)}), flush=True)
+    model_cfg, eng, params, batch_in, runs, setup_s, served = run_serve(
+        torch, args.seed, "gemma3-1b", DENSE_SERVE)
+    n = model_cfg.n_layers
+    held = eng.captured_launches("prefill")
+    routes = {"flash_attention_wgmma": n, "flash_attention_cuda_core": 0}
+    require({k: held[k] for k in routes} == routes,
+            f"the gemma3 prefill graph holds flash launches {held}, not {n} on the "
+            "tensor-core route and none on the CUDA-core route")
+    require(held["rmsnorm"] >= 4 * n + 1, f"the gemma3 prefill graph holds "
+            f"{held['rmsnorm']} rmsnorm launches: not one on every norm")
+    require(served["flash_attention"] > 0 and served["rmsnorm"] > 0,
+            f"a kernel never launched serving gemma3: {served}")
+    print(json.dumps({"serve_dense": serve_report(torch, model_cfg, eng, DENSE_SERVE, runs,
+                                                  setup_s, served)}), flush=True)
+    flash_launches = served["flash_attention"]
+    norm_launches += served["rmsnorm"]
+    checks = check_serving(torch, eng, params, batch_in, runs, DENSE_SERVE)
+    eager = checks["eager_prefill_launches"]
+    require({k: eager.get(k, 0) for k in routes} == routes,
+            f"the eager gemma3 prefill took flash routes {eager}, not {routes}")
+    print(json.dumps({"serve_dense_checks": checks}), flush=True)
     print_profiles(torch, eng, params, batch_in, "_dense")
 
     # phase 10: flash attention and rmsnorm against their plain versions
@@ -873,8 +988,8 @@ def main() -> int:
     require(sorted(r["name"] for r in rows) == sorted(REPLACES), "a kernel row is missing")
     require(all(r["launches"] > 0 for r in rows), "a kernel was not launched on its path")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in order} for r in rows]}))
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "earlier_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in order if k in r} for r in rows]}))
     print(f"card: {gpu_line()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,45 +4,90 @@
 // online-softmax attention of q [B,Hq,Sq,D] against k, v [B,Hkv,Skv,D] with
 // GQA (query head h reads kv head h / (Hq/Hkv), the TPU kernel's index map
 // (bh % Hq) // group: K and V are never repeated in memory), causal masking
-// at a global q_offset, an optional sliding window and logit soft-cap,
-// float32 accumulation, fully masked kv tiles skipped, a zero-row guard
-// (a row that sees no key gives zeros) and ragged Sq / Skv.
+// at a global q_offset, an optional sliding window and logit soft-cap (tanh
+// before the mask), float32 softmax statistics and accumulation, fully
+// masked kv tiles skipped, a zero-row guard (a row that sees no key gives
+// zeros) and ragged Sq / Skv.
 //
 // Translation.  The TPU kernel carries acc, m and l in VMEM scratch across
 // a sequential ("arbitrary") kv grid axis; Hopper blocks run in no order, so
-// ONE BLOCK per (batch, q head, 64-row q tile) loops over the kv tiles
-// itself, with acc in registers and m, l per row.  The TPU's block skip
+// one block per (batch, q head, q tile) loops over the kv tiles itself, with
+// acc in registers and m, l per row.  The TPU's block skip
 // (flash_attention.py:47-53) becomes the loop's bounds, computed from
-// q_offset, the window and kv_valid; the wrapper's padding (:116-124)
-// becomes masked loads (rows past Sq or Skv read as zeros) and a bounded
-// store.  q, k, v and the output are addressed through (b, h, s) strides
-// with unit stride along D, so the model's [B,S,H,D] tensors are passed as
-// views with no transpose copy.
+// q_offset, the window and Skv; the wrapper's padding (:116-124) becomes
+// zero-filled loads and a bounded store.  q, k, v and the output are
+// addressed through (b, h, s) strides with unit stride along D, so the
+// model's [B,S,H,D] tensors are passed as views with no transpose copy.
 //
-// Bound.  At gemma3-1b's prefill (B 4, Hq 4, Hkv 1, S 1024, D 256, bf16)
-// the function needs 8.6 GFLOP on a global layer (the causal triangle) and
-// 6.45 GFLOP on a local one (window 512), and moves 21 MB: operations
-// bound it, 8.7 us at the bf16 tensor-core peak of 989 TFLOP/s.  This
-// first design computes on CUDA cores in float32 (the redesign with
-// wgmma and TMA is later work), so it is expected tens of times above
-// that bound.
+// Two kernels, one rule (the wrapper enforces it): bfloat16 at head_dim 64,
+// 128 or 256 runs flash_wgmma_kernel on the tensor cores; float32, and
+// head_dim 16 or 32, run flash_fwd_kernel on CUDA cores.  wgmma in TF32
+// would not hold float32's bound against the plain version (rtol 2e-4).
 //
-// Tiles, and why.  head_dim 256 sizes everything: a 64 x 256 float32
-// accumulator is 64 KB, so 256 threads hold 64 values each in registers
-// (4 rows x 16 columns); q, k and v tiles are staged in shared memory as
-// float32 (converted once, when loaded), q 64 x 256 (65 KB), k and v 32 x
-// 256 each (33 KB each), plus the 64 x 32 probabilities (9 KB): 139 KB at
-// D = 256, one block per SM.  A kv tile of 32 rows keeps that under the
-// 227 KB a block may use; 64 q rows keep the accumulator's registers under
-// the 255-per-thread limit.  Rows are padded by 4 floats so that 16-byte
-// reads of different rows fall in different banks.  Each thread computes a
-// 4 x 2 block of the scores with 16-byte reads along D, reduces a row's max
-// and sum over the 16 threads that share it with shuffles, and adds
-// P V into its 4 x 16 accumulator.
+// Bound, on an NVIDIA H100 80GB HBM3 at its 700 W limit (989 TFLOP/s of
+// bf16 tensor-core products, 3.35 TB/s).  At gemma3-1b's prefill (B 4, Hq
+// 4, Hkv 1, S 1024, D 256, bf16) the function needs 8.60 GFLOP on a global
+// layer (the causal triangle) and 6.45 GFLOP on a local one (window 512),
+// and moves 21 MB (6.3 us): operations bound it, 8.69 us and 6.52 us.
+//
+// flash_wgmma_kernel: warp-specialised, one block of 384 threads per
+// (batch, q head, 128-row q tile).
+// - Warpgroup 2 is the producer.  It gives most of its registers to the
+//   consumers (setmaxnreg), and one of its threads loads the block's q rows
+//   once and then K and V tiles of 64 rows into a ring of 2 stages with the
+//   Tensor Memory Accelerator (TMA), each completing on an mbarrier; the
+//   consumers free a stage through a third.  The tensor maps are 4-D over
+//   (D, S, H, B) with the views' strides, boxes of 64 x 64 (a
+//   128-byte-swizzled box is at most 128 bytes wide, so a 256-wide row is 4
+//   boxes), encoded on the host per call.  Rows past Sq or Skv are
+//   zero-filled by TMA; the store skips rows past Sq.
+// - Warpgroups 0 and 1 are the consumers, 64 q rows each (wgmma's M).  Per
+//   kv tile: S = Q K^T as D/16 wgmma m64n64k16 from shared memory (Q and K
+//   K-major), the online softmax in registers (scale * log2 e folded, exp2;
+//   a row's 64 columns live on the 4 threads of a quad), then O += P V as
+//   wgmma m64nDk16 with P from registers and V from shared memory as an
+//   MN-major operand (the transpose bit of the descriptor: no transposed
+//   copy of V).  Only tiles that cross Skv, the causal diagonal or the
+//   window's edge compute the mask; the others skip its arithmetic.
+// - P goes to the tensor cores as three bf16 parts, P = p0 + p1 + p2 (each
+//   rounding what the ones before left: P to 2^-26), each multiplied by V
+//   into the same accumulator.  P rounded once to bf16 (2^-9 of each term)
+//   puts about one output in ten more than one bf16 rounding away from the
+//   float32 plain version, and two parts (2^-18) still a few per million:
+//   outputs near zero whose row attends to few keys
+//   (scripts/flash_p_rounding.py).  A tile thus costs twice the products
+//   of a one-pass kernel: Q K^T once, P V three times.
+// - Registers: 168 a thread at launch; setmaxnreg moves them to 24 in the
+//   producer and 240 in the consumers, which hold a 64 x D float32
+//   accumulator (D / 2 a thread: 128 at D = 256), S (32) and the P parts
+//   (48).  Shared memory at D = 256: q 64 KB, 2 stages of K and V 128 KB,
+//   one block an SM.
+// - Causal q tiles differ up to 16x in work; blocks take the q tiles
+//   heaviest first (the tile index reversed in blockIdx.x).  At the served
+//   shape there are B Hq Sq / 128 = 128 blocks on 132 SMs, one wave, so a
+//   global layer takes as long as its heaviest block (16 kv tiles against a
+//   mean of 8.5).  64-row tiles (256 blocks of one consumer warpgroup,
+//   one block an SM) balance the wave better but measured slower on both
+//   the global and the local layer (scripts/flash_tile_rows.py): a lone
+//   warpgroup leaves the tensor cores idle while it runs its softmax, and
+//   each K/V tile is loaded for 64 q rows instead of 128.
+// What holds it back from the bound: within a warpgroup the softmax waits
+// for S and the next S waits for P V (no intra-warpgroup pipelining), the
+// three-part P V, the O rescale every tile, and the global layers'
+// one-wave imbalance.
+//
+// flash_fwd_kernel (CUDA cores, float32 and small head_dims): one block of
+// 256 threads per (batch, q head, 64-row q tile) loops over 32-row kv tiles
+// staged in shared memory as float32 (rows padded by 4 floats against bank
+// conflicts), acc 64 x D in registers (4 rows x D/16 columns a thread);
+// each thread computes a 4 x 2 block of the scores, and a row's max and sum
+// are reduced over the 16 threads that share it with shuffles.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstdint>
 #include <initializer_list>
 
@@ -301,7 +346,466 @@ cudaError_t launch_t(const Params& p, int B, int D, bool vec, cudaStream_t s) {
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// tensor-core route: bf16, head_dim 64 / 128 / 256
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kRows = 64;                 // q rows of a consumer warpgroup
+constexpr int kWG = 2;                    // consumer warpgroups
+constexpr int kBM = kRows * kWG;          // q rows of a block
+constexpr int kBN = 64;                   // kv rows of a tile
+constexpr int kStages = 2;                // K/V ring
+constexpr int kThreads = 128 * (kWG + 1);  // + the producer warpgroup
+constexpr int kProducerRegs = 24;          // setmaxnreg: 24 x 128 + 240 x 256 =
+constexpr int kConsumerRegs = 240;         // the 168 x 384 of the launch
+constexpr int kBox = 64 * 64 * 2;         // bytes of one 64 x 64 bf16 TMA box
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct Params {
+  CUtensorMap tq, tk, tv;  // (D, S, H, B), boxes of 64 x 64 x 1 x 1, 128-byte swizzle
+  __nv_bfloat16* o;
+  long long osb, osh, oss;
+  int Sq, Skv, group, q_offset;
+  int causal, window;                     // window < 0: none
+  float scale_log2;                       // scale * log2 e
+  float cap_in, cap_out;                  // softcap: cap_out tanh(s cap_in); cap_in 0: off
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 64 x 64 box of a 4-D tensor map at (d, s, h, b) into shared memory.
+__device__ __forceinline__ void tma_load(const CUtensorMap* map, void* dst, uint64_t* bar, int d,
+                                         int s, int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(d), "r"(s), "r"(h), "r"(b)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start address,
+// leading and stride byte offsets (16-byte units), layout 1 = 128B swizzle.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving accumulator reads and writes across the
+// asynchronous products (CUTLASS's warpgroup_fence_operand).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define TC_D8(i)                                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define TC_D32(i) TC_D8(i), TC_D8(i + 8), TC_D8(i + 16), TC_D8(i + 24)
+
+// d[32] += A (64 x 16, K-major, shared) * B (64 x 16, K-major, shared)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : TC_D32(0)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d[32] += A (64 x 16, bf16 registers) * B (16 x 64, MN-major, shared)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : TC_D32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64] += A (64 x 16, bf16 registers) * B (16 x 128, MN-major, shared)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : TC_D32(0), TC_D32(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[128] += A (64 x 16, bf16 registers) * B (16 x 256, MN-major, shared)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+      "%124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : TC_D32(0), TC_D32(32), TC_D32(64), TC_D32(96)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef TC_D32
+#undef TC_D8
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 64) wgmma_rs_n64(o, a, b);
+  else if constexpr (D == 128) wgmma_rs_n128(o, a, b);
+  else wgmma_rs_n256(o, a, b);
+}
+
+// kv tiles [t_lo, t_hi) that q rows [row, row + rows) of a head can see
+__device__ __forceinline__ void kv_tiles(const Params& p, int row, int rows, int& t_lo,
+                                         int& t_hi) {
+  t_lo = t_hi = 0;
+  if (rows <= 0) return;
+  const int first = p.q_offset + row, last = first + rows - 1;
+  const int lo = p.window >= 0 ? max(0, first - p.window + 1) : 0;
+  const int hi = p.causal ? min(p.Skv, last + 1) : p.Skv;
+  if (lo >= hi) return;
+  t_lo = lo / kBN;
+  t_hi = (hi + kBN - 1) / kBN;
+}
+
+// The consumer warpgroups' part of flash_wgmma_kernel.
+template <int D>
+__device__ __forceinline__ void consume(const Params& p, uint8_t* sq, uint8_t* sk, uint8_t* sv,
+                                        uint64_t* full_q, uint64_t* full_k, uint64_t* full_v,
+                                        uint64_t* empty, int q0, int t_lo, int t_hi) {
+  constexpr int kTile = 64 * D * 2;
+  const int h = blockIdx.y, b = blockIdx.z;
+  // warpgroup wg owns q rows [row_w, row_w + 64); in wgmma's
+  // accumulator layout this thread holds rows r0 and r0 + 8 and, in each
+  // 8-column chunk j of a row, columns 8 j + c0 and 8 j + c0 + 1
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int row_w = q0 + wg * kRows;
+  const int r0 = (tid / 32) * 16 + (tid % 32) / 4, c0 = 2 * (tid % 4);
+  const int first = p.q_offset + row_w, last = first + kRows - 1;
+  const int qpos[2] = {first + r0, first + r0 + 8};
+  int w_lo, w_hi;
+  kv_tiles(p, row_w, min(kRows, p.Sq - row_w), w_lo, w_hi);
+
+  float o[D / 2];
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const uint32_t qa = smem_u32(sq + wg * kTile);
+  mbar_wait(full_q, 0);
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int i = t - t_lo, s = i % kStages;
+    const uint32_t par = (i / kStages) & 1;
+    if (t < w_lo || t >= w_hi) {  // no row of this warpgroup sees the tile
+      mbar_wait(&full_k[s], par);
+      mbar_wait(&full_v[s], par);
+      mbar_arrive(&empty[s]);
+      continue;
+    }
+
+    // S = Q K^T over D / 16 steps of 16 (32 bytes within a 128-byte row)
+    float sc[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sc[j] = 0.f;
+    const uint32_t ka = smem_u32(sk + s * kTile);
+    mbar_wait(&full_k[s], par);
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+      wgmma_ss_n64(sc, desc(qa + off, 16, 1024), desc(ka + off, 16, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // logits in log2 units; the mask only on tiles that cross Skv, the
+    // causal diagonal or the window's edge
+    if (p.cap_in != 0.f) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) sc[j] = p.cap_out * tanhf(sc[j] * p.cap_in);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) sc[j] *= p.scale_log2;
+    }
+    const int k0 = t * kBN;
+    if (k0 + kBN > p.Skv || (p.causal && k0 + kBN - 1 > first) ||
+        (p.window >= 0 && k0 <= last - p.window)) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int col = k0 + 8 * (j / 4) + c0 + (j % 2);
+        const int qp = qpos[(j / 2) % 2];
+        const bool ok = col < p.Skv && (!p.causal || col <= qp) &&
+                        (p.window < 0 || col > qp - p.window);
+        if (!ok) sc[j] = -INFINITY;
+      }
+    }
+
+    // online softmax: a row's max and sum over the 4 threads of its quad
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 32; ++j) mx[(j / 2) % 2] = fmaxf(mx[(j / 2) % 2], sc[j]);
+    float base[2], alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      base[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // a row that saw no key yet
+      alpha[r] = exp2f(m[r] - base[r]);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      sc[j] = exp2f(sc[j] - base[(j / 2) % 2]);
+      rs[(j / 2) % 2] += sc[j];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) o[j] *= alpha[(j / 2) % 2];
+
+    // P as wgmma A fragments in three bf16 parts, P = p0 + p1 + p2 to 2^-26
+    // (each part rounds what the ones before left).  Step ks covers kv
+    // columns 16 ks .. 16 ks + 15.
+    uint32_t pa[3][4][4];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float x = sc[8 * ks + 2 * r], y = sc[8 * ks + 2 * r + 1];
+#pragma unroll
+        for (int part = 0; part < 3; ++part) {
+          const __nv_bfloat162 v2 = __floats2bfloat162_rn(x, y);
+          const float2 f = __bfloat1622float2(v2);
+          x -= f.x;
+          y -= f.y;
+          pa[part][ks][r] = *reinterpret_cast<const uint32_t*>(&v2);
+        }
+      }
+    }
+
+    // O += P V: V's 16 kv rows of a step are 16 x 128 bytes further on;
+    // the D columns span D / 64 boxes of 64 rows (leading offset kBox)
+    const uint32_t va = smem_u32(sv + s * kTile);
+    mbar_wait(&full_v[s], par);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint64_t vd = desc(va + ks * 16 * 128, kBox, 1024);
+#pragma unroll
+      for (int part = 0; part < 3; ++part) wgmma_pv<D>(o, pa[part][ks], vd);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    mbar_arrive(&empty[s]);
+  }
+
+  // normalise (a row that saw no key keeps zeros) and store rows < Sq
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  __nv_bfloat16* out = p.o + b * p.osb + h * p.osh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = row_w + r0 + 8 * r;
+    if (q >= p.Sq) continue;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    __nv_bfloat16* orow = out + q * p.oss + c0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_wgmma_kernel(const __grid_constant__ Params p) {
+  constexpr int kTile = 64 * D * 2;  // bytes of 64 rows: D / 64 boxes side by side
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte swizzle repeats every 1024 bytes: tiles start on that boundary
+  uint8_t* sq = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sk = sq + kWG * kTile;
+  uint8_t* sv = sk + kStages * kTile;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(sv + kStages * kTile);
+  uint64_t* full_k = full_q + 1;
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty = full_v + kStages;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBM;  // heaviest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  int t_lo, t_hi;
+  kv_tiles(p, q0, min(kBM, p.Sq - q0), t_lo, t_hi);
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], kWG * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kWG * 128) {
+    // producer warpgroup: it gives its registers to the consumers, and one
+    // thread issues every load of the block
+    if constexpr (kWG > 1)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kWG * 128) {
+      const int hk = h / p.group;
+      const int q_wgs = min(kWG, (p.Sq - q0 + kRows - 1) / kRows);  // with rows < Sq
+      mbar_expect_tx(full_q, q_wgs * kTile);
+      for (int w = 0; w < q_wgs; ++w)
+        for (int c = 0; c < D / 64; ++c)
+          tma_load(&p.tq, sq + w * kTile + c * kBox, full_q, c * 64, q0 + w * kRows, h, b);
+      for (int t = t_lo; t < t_hi; ++t) {
+        const int i = t - t_lo, s = i % kStages;
+        if (i >= kStages) mbar_wait(&empty[s], (i / kStages - 1) & 1);
+        mbar_expect_tx(&full_k[s], kTile);
+        for (int c = 0; c < D / 64; ++c)
+          tma_load(&p.tk, sk + s * kTile + c * kBox, &full_k[s], c * 64, t * kBN, hk, b);
+        mbar_expect_tx(&full_v[s], kTile);
+        for (int c = 0; c < D / 64; ++c)
+          tma_load(&p.tv, sv + s * kTile + c * kBox, &full_v[s], c * 64, t * kBN, hk, b);
+      }
+    }
+  } else {
+    if constexpr (kWG > 1)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    consume<D>(p, sq, sk, sv, full_q, full_k, full_v, empty, q0, t_lo, t_hi);
+  }
+}
+
+template <int D>
+constexpr int smem_bytes() {
+  return (kWG + 2 * kStages) * 64 * D * 2 + (1 + 3 * kStages) * 8 + 1024;
+}
+
+template <int D>
+cudaError_t launch(const Params& p, int B, int Hq, cudaStream_t s) {
+  auto kernel = flash_wgmma_kernel<D>;
+  static const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
+  if (set != cudaSuccess) return set;
+  const dim3 grid((p.Sq + kBM - 1) / kBM, Hq, B);
+  kernel<<<grid, kThreads, smem_bytes<D>(), s>>>(p);
+  return cudaGetLastError();
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, found through the runtime's entry-point
+// query, so that the library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map over (D, S, H, B) of a bf16 tensor with element strides (s, h, b).
+bool encode(CUtensorMap* map, const void* ptr, int D, int S, int H, int B, long long ss,
+            long long sh, long long sb) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+            box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace tc
+
 }  // namespace
+
 
 extern "C" {
 
@@ -336,6 +840,47 @@ int rt_flash_attention(int dtype, const void* q, const void* k, const void* v, v
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
+}
+
+// The tensor-core kernel: bf16 q, k, v, o with element strides (batch, head,
+// seq) each, unit stride along D in {64, 128, 256}, 16-byte aligned base
+// pointers and strides (TMA); arguments as rt_flash_attention's.
+int rt_flash_attention_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+                             int Hq, int Hkv, int Sq, int Skv, int D, long long qsb,
+                             long long qsh, long long qss, long long ksb, long long ksh,
+                             long long kss, long long vsb, long long vsh, long long vss,
+                             long long osb, long long osh, long long oss, float scale,
+                             float softcap, int causal, int window, int q_offset,
+                             void* stream) {
+  if (B <= 0 || Sq <= 0) return 0;
+  if (Hq <= 0 || Hkv <= 0 || Hq % Hkv || Hq > 65535 || B > 65535 || Skv < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  tc::Params p{};
+  const int kv_rows = Skv > 0 ? Skv : 1;  // a map needs one row; none is read
+  if (!tc::encode(&p.tq, q, D, Sq, Hq, B, qss, qsh, qsb) ||
+      !tc::encode(&p.tk, k, D, kv_rows, Hkv, B, kss, ksh, ksb) ||
+      !tc::encode(&p.tv, v, D, kv_rows, Hkv, B, vss, vsh, vsb))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.osb = osb;
+  p.osh = osh;
+  p.oss = oss;
+  p.Sq = Sq;
+  p.Skv = Skv;
+  p.group = Hq / Hkv;
+  p.q_offset = q_offset;
+  p.causal = causal;
+  p.window = window;
+  p.scale_log2 = scale * tc::kLog2e;
+  p.cap_in = softcap != 0.f ? scale / softcap : 0.f;
+  p.cap_out = softcap * tc::kLog2e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return static_cast<int>(tc::launch<64>(p, B, Hq, s));
+    case 128: return static_cast<int>(tc::launch<128>(p, B, Hq, s));
+    case 256: return static_cast<int>(tc::launch<256>(p, B, Hq, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

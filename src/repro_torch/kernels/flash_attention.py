@@ -1,18 +1,25 @@
-"""Hopper kernel of flash-attention (forward): wrapper and launch counter.
+"""Hopper kernels of flash-attention (forward): wrapper and launch counters.
 
-The hand-written CUDA kernel ``csrc/flash_attention.cu`` (built for
-``sm_90a`` at first use by :mod:`.build`) replaces
-``flash_attention_call`` (``src/repro/kernels/flash_attention.py:96``),
-which the JAX package reaches through ``kernels/ops.py:flash_attention``.
-It is bound by operations (bf16 products summed in float32); the source
-says how its first design meets that and why its tiles are sized as
-they are.
+The hand-written CUDA source ``csrc/flash_attention.cu`` (built for
+``sm_90a`` at first use by :mod:`.build`) replaces ``flash_attention_call``
+(``src/repro/kernels/flash_attention.py:96``), which the JAX package
+reaches through ``kernels/ops.py:flash_attention``.  It is bound by
+operations (bf16 products summed in float32); the source says how each
+of its two kernels meets that and why its tiles are sized as they are.
 
-For CPU tensors the wrapper runs the plain version
-(:func:`.ref.attention`), and only then; for CUDA tensors it launches the
-kernel or raises.  ``flash_attention.launches`` counts the kernel
-launches it made (a launch recorded into a CUDA graph counts once, at
-capture).
+The route rule, fixed by dtype and head_dim alone:
+
+* ``bfloat16`` with head_dim in :data:`WGMMA_HEAD_DIMS` (64, 128, 256)
+  takes the tensor-core kernel (``wgmma`` products, TMA loads);
+* ``float32`` at any head_dim of :data:`HEAD_DIMS`, and ``bfloat16`` at
+  head_dim 16 or 32, take the CUDA-core kernel.  wgmma in TF32 would not
+  hold float32's bound against the plain version (rtol 2e-4 / atol 3e-5).
+
+For CPU tensors the wrapper runs the plain version (:func:`.ref.attention`),
+and only then; for CUDA tensors it launches its route's kernel or raises.
+``flash_attention.launches_wgmma`` and ``launches_cuda_core`` count each
+route's launches, ``flash_attention.launches`` their sum (a launch
+recorded into a CUDA graph counts once, at capture).
 """
 
 from __future__ import annotations
@@ -25,12 +32,18 @@ import torch
 from . import ref
 from .build import check_launch, load_library, stream_arg, use_plain
 
-HEAD_DIMS = (16, 32, 64, 128, 256)   # csrc launch_t
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the CUDA-core kernel (csrc launch_t)
+WGMMA_HEAD_DIMS = (64, 128, 256)     # the tensor-core kernel, bf16 (csrc tc::launch)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-#: the C entry point of ``csrc/flash_attention.cu`` and its argument types
-SIGNATURES = {"rt_flash_attention": [_I] + [_P] * 4 + [_I] * 6 + [_I64] * 12
-              + [_F, _F, _I, _I, _I, _P]}
+_ARGS = [_P] * 4 + [_I] * 6 + [_I64] * 12 + [_F, _F, _I, _I, _I, _P]
+#: the C entry points of ``csrc/flash_attention.cu`` and their argument types
+SIGNATURES = {"rt_flash_attention": [_I] + _ARGS, "rt_flash_attention_wgmma": _ARGS}
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """``"wgmma"`` or ``"cuda_core"``: which kernel a CUDA call takes."""
+    return "wgmma" if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS else "cuda_core"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -44,10 +57,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``logit_softcap`` caps the scaled logits with ``tanh``, and a row that
     sees no key gives zeros.  Returns ``[B,Hq,Sq,D]`` in q's dtype.
 
-    On the card, one launch; q, k and v may be strided views (unit stride
-    along D), as the model's ``[B,S,H,D]`` tensors transposed are, and the
-    result is a ``[B,Hq,Sq,D]`` view of memory laid out ``[B,Sq,Hq,D]``,
-    so that the model's transpose back is free too.
+    On the card, one launch of the route's kernel (:func:`route`); q, k
+    and v may be strided views (unit stride along D), as the model's
+    ``[B,S,H,D]`` tensors transposed are, and the result is a
+    ``[B,Hq,Sq,D]`` view of memory laid out ``[B,Sq,Hq,D]``, so that the
+    model's transpose back is free too.  The tensor-core route loads
+    through TMA, so it also takes 16-byte aligned data and strides.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes q [B,Hq,Sq,D], k and v [B,Hkv,Skv,D]")
@@ -63,36 +78,64 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.attention(q, k, v, causal=causal, scale=scale, window=window,
                              logit_softcap=logit_softcap, q_offset=q_offset)
     if D not in HEAD_DIMS:
-        raise ValueError(f"the flash_attention kernel takes head_dim in {HEAD_DIMS}, "
+        raise ValueError(f"the flash_attention kernels take head_dim in {HEAD_DIMS}, "
                          f"got {D}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"the flash_attention kernel takes q, k, v of one dtype, "
+        raise TypeError(f"the flash_attention kernels take q, k, v of one dtype, "
                         f"float32 or bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
-        raise ValueError("the flash_attention kernel takes unit stride along D")
+        raise ValueError("the flash_attention kernels take unit stride along D")
     if max(B, Hq) > 65535 or max(Sq, Skv, abs(q_offset) + Sq + Skv) >= 2 ** 31:
-        raise ValueError("flash_attention: shape beyond the kernel's grid")
+        raise ValueError("flash_attention: shape beyond the kernels' grid")
     scale = D ** -0.5 if scale is None else float(scale)
     softcap = 0.0 if logit_softcap is None else float(logit_softcap)
     if window is not None and int(window) < 0:
         raise ValueError(f"flash_attention: window must be >= 0, got {window}")
+    which = route(q.dtype, D)
+    if which == "wgmma":
+        strides = [_tma_strides(t) for t in (q, k, v)]
+    else:
+        strides = [t.stride()[:3] for t in (q, k, v)]
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device).transpose(1, 2)
-    err = load_library("flash_attention", SIGNATURES).rt_flash_attention(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, Hq, Hkv, Sq, Skv, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], scale, softcap, int(bool(causal)),
-        -1 if window is None else int(window), int(q_offset), stream_arg(q))
-    check_launch("flash_attention", err)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, Hkv, Sq, Skv,
+            D, *strides[0], *strides[1], *strides[2], *out.stride()[:3], scale, softcap,
+            int(bool(causal)), -1 if window is None else int(window), int(q_offset),
+            stream_arg(q))
+    lib = load_library("flash_attention", SIGNATURES)
+    if which == "wgmma":
+        check_launch("flash_attention", lib.rt_flash_attention_wgmma(*args))
+        flash_attention.launches_wgmma += 1
+    else:
+        check_launch("flash_attention", lib.rt_flash_attention(_DTYPE_CODE[q.dtype], *args))
+        flash_attention.launches_cuda_core += 1
     flash_attention.launches += 1
     return out
 
 
+def _tma_strides(t: torch.Tensor):
+    """(batch, head, seq) element strides of a bf16 view for a TMA map:
+    16-byte aligned data and strides (a dimension of size 1 is never
+    stepped, so its stride is replaced by D)."""
+    strides = [s if n > 1 else t.shape[3] for n, s in zip(t.shape[:3], t.stride()[:3])]
+    if t.data_ptr() % 16 or any(s <= 0 or s % 8 for s in strides):
+        raise ValueError("the flash_attention tensor-core route takes 16-byte aligned "
+                         f"bf16 views with strides in multiples of 8; got strides "
+                         f"{tuple(t.stride())}")
+    return strides
+
+
 flash_attention.launches = 0
+flash_attention.launches_wgmma = 0
+flash_attention.launches_cuda_core = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {"flash_attention": flash_attention.launches}
+    return {"flash_attention": flash_attention.launches,
+            "flash_attention_wgmma": flash_attention.launches_wgmma,
+            "flash_attention_cuda_core": flash_attention.launches_cuda_core}
 
 
 def reset_launches() -> None:
     flash_attention.launches = 0
+    flash_attention.launches_wgmma = 0
+    flash_attention.launches_cuda_core = 0

@@ -5,10 +5,13 @@ steps captured into ONE CUDA graph, with the reference's per-slot
 masking (EOS, the ``rem`` token budget and cache capacity stop a slot;
 a stopped slot's ``pos`` freezes and it emits ``PAD_TOKEN``).  The
 host-stepped baseline replays a one-step graph once per token.  Prefill
-is one eager call whose SSD scans, flash attention and norms take the
-hand-written kernels.  Attention caches hold ``prompt_len + max_new``
-entries.  ``serve_window`` narrows the attention windows as the
-reference's does (``transformer.layer_window_theta``).  On one
+is ONE graph launch too, one graph per (slots, prompt length, cache
+depth): the depth is read on the host before the graph is looked up,
+and its SSD scans, flash attention and norms take the hand-written
+kernels.  On the CPU the same functions run eagerly.  Attention caches
+hold ``prompt_len + max_new`` entries.  ``serve_window`` narrows the
+attention windows as the reference's does
+(``transformer.layer_window_theta``).  On one
 GPU there is no mesh or sharding bundle: the engine calls the model
 directly.  ``admit_decode`` and ``serve_continuous`` are not ported yet
 (``ROADMAP.md``).
@@ -23,12 +26,15 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.mesh import resolve_device
 from repro_torch.models import Model
 from repro_torch.models.nn import tree_leaves, tree_map
 
 #: emission marker for a slot that was not active at a given decode step
 PAD_TOKEN = -1
+#: the engine's dispatch kinds, each a CUDA-graph launch on the card
+DISPATCH_KINDS = ("prefill", "decode", "decode_one")
 
 
 class _Counted:
@@ -54,36 +60,45 @@ class _Graph:
     only the state it is given that is not those buffers already, replays
     (ONE launch) and returns ``(state buffers, extras)``.  The returned
     tensors are the graph's own, overwritten by the next call, as the
-    reference's donated buffers are."""
+    reference's donated buffers are.  ``replays`` counts the launches;
+    ``kernel_launches`` holds the hand-written kernels' launches recorded
+    into the graph (each replay runs them again)."""
 
     def __init__(self, fn: Callable, params, state):
         self.params = params
         self.state = tree_map(torch.clone, state)
+        self.replays = 0
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):   # warm-up on scratch copies
             fn(params, *tree_map(torch.clone, state))
         torch.cuda.current_stream().wait_stream(stream)
         self.graph = torch.cuda.CUDAGraph()
+        before = ops.launch_counts()
         with torch.cuda.graph(self.graph):
             new_state, self.extras = fn(params, *self.state)
             for dst, src in zip(tree_leaves(self.state), tree_leaves(new_state)):
                 if dst is not src:
                     dst.copy_(src)
+        self.kernel_launches = {k: n - before[k] for k, n in ops.launch_counts().items()}
 
     def __call__(self, state):
         for dst, src in zip(tree_leaves(self.state), tree_leaves(state)):
             if dst.data_ptr() != src.data_ptr():
                 dst.copy_(src)
         self.graph.replay()
+        self.replays += 1
         return self.state, self.extras
 
 
 class ServeEngine:
     """Serve programs over one slot-set of caches on one device.
 
-    * ``prefill(params, batch_in, caches)`` — one call; its SSD scans,
-      attention and norms go through the hand-written kernels.
+    * ``prefill(params, batch_in, caches)`` — ONE CUDA-graph launch, one
+      graph per (slots, prompt length, cache depth); the depth is read on
+      the host first (``Model.prefill_depth``, a sync that cannot happen
+      inside a capture).  Its SSD scans, attention and norms go through
+      the hand-written kernels.
     * ``decode(params, caches, tok, active, rem)`` — up to ``chunk``
       greedy tokens for every active slot in ONE CUDA-graph launch.
       The reference's ``while_loop`` leaves early once every slot has
@@ -97,9 +112,12 @@ class ServeEngine:
       launch: the host-stepped baseline.
 
     ``device=None`` means the current CUDA device and raises without a
-    GPU; on ``device="cpu"`` the same functions run eagerly.  The
-    engine casts the large weights to ``cfg.dtype`` once per params
-    tree it is given.
+    GPU; on ``device="cpu"`` the same functions run eagerly.  The first
+    call of each graph is set-up: one eager warm-up pass, the capture,
+    then the launch.  ``dispatches`` counts calls (a resident serve: 2,
+    one of them decode); ``graph_launches`` counts graph replays per
+    dispatch kind.  The engine casts the large weights to ``cfg.dtype``
+    once per params tree it is given.
     """
 
     def __init__(self, cfg: ModelConfig, *, slots: int, prompt_len: int,
@@ -114,7 +132,8 @@ class ServeEngine:
         self.chunk = int(chunk) if chunk else max(max_new - 1, 1)
         self.sync_points = 0
         self._cast = None      # (params, params with cast weights)
-        self._graphs: Dict[str, _Graph] = {}
+        self._graphs: Dict[tuple, _Graph] = {}   # by (kind, key...)
+        self._retired = dict.fromkeys(DISPATCH_KINDS, 0)  # replays of dropped graphs
         self.prefill = _Counted(self._prefill_fn)
         self.decode = _Counted(self._decode_fn)
         self.decode_one = _Counted(self._decode_one_fn)
@@ -134,33 +153,65 @@ class ServeEngine:
     def dispatches(self) -> int:
         return self.prefill.calls + self.decode.calls + self.decode_one.calls
 
+    @property
+    def graph_launches(self) -> Dict[str, int]:
+        """CUDA-graph launches per dispatch kind (``prefill``, ``decode``,
+        ``decode_one``) since the engine was made; all 0 on the CPU."""
+        out = dict(self._retired)
+        for key, g in self._graphs.items():
+            out[key[0]] += g.replays
+        return out
+
+    def captured_launches(self, kind: str) -> Dict[str, int]:
+        """The hand-written kernels' launches recorded into the live graphs
+        of dispatch ``kind``: what one launch of each runs."""
+        out: Dict[str, int] = {}
+        for key, g in self._graphs.items():
+            if key[0] == kind:
+                for name, n in g.kernel_launches.items():
+                    out[name] = out.get(name, 0) + n
+        return out
+
     def cast_params(self, params):
         """``Model.compute_params(params)``, made once per params tree;
         the float32 master stays the caller's."""
         if self._cast is None or self._cast[0] is not params:
             self._cast = (params, self.model.compute_params(params))
+            for key, g in self._graphs.items():
+                self._retired[key[0]] += g.replays
             self._graphs.clear()
         return self._cast[1]
 
-    def _graphed(self, name: str, fn: Callable, params, state):
-        """``fn(params, *state)`` as one graph launch on the card, or
-        eagerly on the CPU; returns ``(new_state, extras)``."""
+    def _graphed(self, key: tuple, fn: Callable, params, state):
+        """``fn(params, *state)`` as one launch of the graph for ``key``
+        (``(kind, ...)``) on the card, or eagerly on the CPU; returns
+        ``(new_state, extras)``."""
         if self.device.type != "cuda":
             return fn(params, *state)
-        g = self._graphs.get(name)
+        g = self._graphs.get(key)
         if g is None or g.params is not params:
-            g = self._graphs[name] = _Graph(fn, params, state)
+            g = self._graphs[key] = _Graph(fn, params, state)
         return g(state)
 
     # -- the three dispatch kinds -------------------------------------------------
 
     def _prefill_fn(self, params, batch_in, caches):
-        return self.model.prefill(self.cast_params(params), batch_in, caches,
-                                  serve_window=self.serve_window)
+        depth = self.model.prefill_depth(caches)   # host sync: before any capture
+        tokens = batch_in["tokens"]
+
+        def step(p, tokens, caches):
+            logits, caches = self.model.prefill(p, {"tokens": tokens}, caches,
+                                                serve_window=self.serve_window,
+                                                depth=depth)
+            return (tokens, caches), logits
+
+        (_, caches), logits = self._graphed(("prefill", tuple(tokens.shape), depth), step,
+                                            self.cast_params(params), (tokens, caches))
+        return logits, caches
 
     def _decode_fn(self, params, caches, tok, active, rem):
         (caches, tok, active, rem), (out, n) = self._graphed(
-            "decode", self._decode_loop, self.cast_params(params),
+            ("decode",), self._decode_loop, self.cast_params(params),
             (caches, tok, active, rem))
         return caches, tok, active, rem, out, n
 
@@ -170,8 +221,8 @@ class ServeEngine:
                                                     serve_window=self.serve_window)
             return (caches, tok), logits
 
-        (caches, _), logits = self._graphed("decode_one", step, self.cast_params(params),
-                                            (caches, tok))
+        (caches, _), logits = self._graphed(("decode_one",), step,
+                                            self.cast_params(params), (caches, tok))
         return logits, caches
 
     def _decode_loop(self, params, caches, tok, active, rem):

@@ -14,7 +14,7 @@ are not ported yet (``ROADMAP.md``).
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -120,16 +120,25 @@ class Model:
         return {"segments": tfm.init_caches(self.cfg, batch, max_len, device=device),
                 "pos": torch.zeros(pos_shape, dtype=torch.int32, device=device)}
 
-    def prefill(self, params, batch, caches, *, serve_window: int = 0):
+    def prefill_depth(self, caches) -> Optional[int]:
+        """The depth every slot's cache sits at, read on the host (a device
+        sync), for a model with attention layers (the flash kernel's
+        ``q_offset`` is a host int); None without them.  Slots at
+        different depths are continuous batching, which is not ported:
+        ``NotImplementedError``."""
+        return _common_depth(caches["pos"]) if self._attention else None
+
+    def prefill(self, params, batch, caches, *, serve_window: int = 0,
+                depth: Optional[int] = None):
         """Write the prompt into the caches; returns (last_logits, caches).
 
-        With attention layers, every slot must sit at one depth (read once
-        on the host: the flash kernel's ``q_offset`` is a host int); slots
-        at different depths are continuous batching, which is not
-        ported."""
+        ``depth``: :meth:`prefill_depth` of ``caches``, read by the caller
+        before a CUDA-graph capture (where a host sync is illegal); None
+        reads it here."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        depth = _common_depth(caches["pos"]) if self._attention else None
+        if depth is None:
+            depth = self.prefill_depth(caches)
         x = apply_embedding(params["embed"], tokens, cfg)
         positions = torch.arange(tokens.shape[1], device=x.device) + (depth or 0)
         x, new_segs = tfm.apply_stack(params["decoder"], x, cfg, positions=positions,

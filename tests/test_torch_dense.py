@@ -15,10 +15,14 @@ rounding only.  Asserted: logits of ``forward_logits`` within rtol =
 atol = 2e-5, prefill and decode logits and caches within 1e-5 (tighter
 than the repo's own bounds between its paths, 2e-3 for prefill against
 forward and 5e-3 for decode, ``tests/test_models.py``), and served
-tokens equal.
+tokens equal.  A prompt prefilled in two chunks (the second at depth
+24, the key of the prefill graph on the card) through the serve engine,
+then decoded, is held for both sizes and the mamba2 smoke model at 32
+float32 ulps of each tensor's largest value.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -62,16 +66,28 @@ def _boost(tree, factor, name=""):
     return tree * np.float32(factor) if name.startswith("w") else tree
 
 
+@functools.lru_cache(maxsize=None)
+def _make_pair(arch, n_layers):
+    """(jax model, jax params, port model, port params): gemma3 smoke with
+    ``n_layers`` layers and boosted matrices, or mamba2 smoke as
+    ``tests/test_torch_serve.py`` has it."""
+    if arch == "mamba2-2.7b":
+        jcfg, cfg = jax_get_config(arch).smoke(), get_config(arch).smoke()
+        jm = JaxModel(jcfg)
+        jp = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0))[0])
+    else:
+        jcfg, cfg = _configs(n_layers)
+        jm = JaxModel(jcfg)
+        jp = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(n_layers))[0])
+        jp = {**jp, "decoder": _boost(jp["decoder"], 8)}
+    return jm, jax.tree.map(jnp.asarray, jp), Model(cfg), from_reference_params(jp, cfg,
+                                                                               "cpu")
+
+
 @pytest.fixture(scope="module", params=LAYERS, ids=lambda n: f"{n}layers")
 def pair(request):
     """(jax model, jax params, port model, port params)."""
-    jcfg, cfg = _configs(request.param)
-    jm = JaxModel(jcfg)
-    jp, _ = jm.init(jax.random.PRNGKey(request.param))
-    jp = jax.tree.map(np.asarray, jp)
-    jp = {**jp, "decoder": _boost(jp["decoder"], 8)}
-    return jm, jax.tree.map(jnp.asarray, jp), Model(cfg), from_reference_params(jp, cfg,
-                                                                               "cpu")
+    return _make_pair("gemma3-1b", request.param)
 
 
 def test_layer_windows_and_thetas_equal_the_reference():
@@ -176,6 +192,58 @@ def test_prefill_refuses_slots_at_different_depths(pair):
     caches["pos"] = torch.tensor([0, 3], dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="continuous batching"):
         m.prefill(params, {"tokens": torch.zeros((2, 4), dtype=torch.int32)}, caches)
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over max |want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+#: the port against JAX through a second prefill and decode, relative to
+#: each tensor's largest value: both sides compute in float32 and differ
+#: by reassociation only, about 10 ulps of that value through these
+#: layers (more or less with the CPU's threading), so 32 ulps
+CHUNKED_REL = 32 * 2.0 ** -23
+
+
+@pytest.mark.parametrize("serve_window", [0, 8])
+@pytest.mark.parametrize("per_sequence", [False, True])
+@pytest.mark.parametrize("arch,n_layers", [("gemma3-1b", 2), ("gemma3-1b", 6),
+                                           ("mamba2-2.7b", None)],
+                         ids=["gemma3-2layers", "gemma3-6layers", "mamba2"])
+def test_chunked_prefill_matches_jax(arch, n_layers, per_sequence, serve_window):
+    """A prompt in two prefills (24 then 20 tokens, the second at depth 24)
+    and two decode steps through the serve engine's dispatch functions,
+    which read the depth on the host and pass it to ``Model.prefill`` as
+    the key of the prefill graph on the card (here they run eagerly)."""
+    jm, jp, m, params = _make_pair(arch, n_layers)
+    rng = np.random.RandomState(7 + 2 * int(per_sequence) + serve_window)
+    chunks = [rng.randint(0, m.cfg.vocab, (2, n)).astype(np.int32) for n in (24, 20)]
+    T = 24 + 20 + 2
+    eng = ServeEngine(m.cfg, slots=2, prompt_len=44, max_new=2,
+                      serve_window=serve_window, device="cpu")
+    jc = jm.init_caches(2, T, per_sequence=per_sequence)
+    caches = m.init_caches(2, T, per_sequence=per_sequence, device="cpu")
+    for depth, toks in zip((0, 24), chunks):
+        assert m.prefill_depth(caches) == (depth if arch == "gemma3-1b" else None)
+        jlog, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, jc,
+                              serve_window=serve_window)
+        logits, caches = eng.prefill(params, {"tokens": torch.from_numpy(toks)}, caches)
+        assert _rel(logits.numpy(), jlog) <= CHUNKED_REL
+    for _ in range(2):
+        nxt = rng.randint(0, m.cfg.vocab, (2,)).astype(np.int32)
+        jd, jc = jm.decode_step(jp, jc, jnp.asarray(nxt), serve_window=serve_window)
+        d, caches = eng.decode_one(params, caches, torch.from_numpy(nxt))
+        assert _rel(d.numpy(), jd) <= CHUNKED_REL
+    got, want = caches_to_numpy(caches), jax.tree.map(np.asarray, jc)
+    np.testing.assert_array_equal(got["pos"], want["pos"])
+    assert int(np.max(got["pos"])) == T
+    for g, w in zip(jax.tree.leaves(got["segments"]), jax.tree.leaves(want["segments"])):
+        assert _rel(g, w) <= CHUNKED_REL
+    # on the CPU the dispatches run eagerly: no graph was launched
+    assert eng.dispatches == 4
+    assert eng.graph_launches == {"prefill": 0, "decode": 0, "decode_one": 0}
 
 
 def _serve_both(pair, serve_window=0):

@@ -5,9 +5,11 @@ on the same device inputs: the halo and boundary kernels bit for bit,
 the SSD scan, flash attention and RMSNorm in float32 within the repo's
 kernel-vs-reference bounds (rtol 2e-4 / atol 3e-5; RMSNorm 2e-5 /
 1e-5), and in bfloat16 within one rounding of the output (2^-8 of the
-two results' magnitudes).  The engines' CUDA graphs and the serve
-engines (mamba2 and gemma3 smoke models) are held against the CPU run
-of the same program.  This file imports no JAX, so it runs on a GPU
+two results' magnitudes); flash attention's cases say which of its two
+kernels (routes) each must take.  The engines' CUDA graphs and the
+serve engines (mamba2 and gemma3 smoke models) are held against the CPU
+run of the same program, and a warm serve prefill must be one graph
+launch equal to the eager prefill bit for bit.  This file imports no JAX, so it runs on a GPU
 machine without it::
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -36,7 +38,7 @@ from repro_torch.kernels import rmsnorm as rk
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.launch.serve import ServeEngine, serve, synthetic_batch
 from repro_torch.models import Model
-from repro_torch.models.nn import tree_map
+from repro_torch.models.nn import tree_leaves, tree_map
 
 pytestmark = pytest.mark.gpu
 
@@ -232,7 +234,9 @@ def test_smoke_serve_on_card_equals_cpu(cuda, resident):
                        batch_in=synthetic_batch(cfg, np.random.RandomState(0), 4, 40),
                        **kw)
     np.testing.assert_array_equal(got, want)
-    assert ssd.ssd_scan.launches == before + cfg.n_layers
+    # a new engine's prefill graph: one eager warm-up pass, one captured
+    # pass (counted at capture), then the launch, which counts nothing
+    assert ssd.ssd_scan.launches == before + 2 * cfg.n_layers
     assert stats["decode_dispatches"] == (1 if resident else 5)
     eng = ServeEngine(cfg, slots=4, prompt_len=40, max_new=6)
     assert eng.device.type == "cuda"
@@ -321,7 +325,9 @@ def test_rmsnorm_kernel_reads_strided_rows_and_leading_dims(cuda):
     assert _bf16_close(got, ref.rmsnorm(x, w, weight_offset=1.0))
 
 
+BF16 = torch.bfloat16
 FLASH_CASES = [
+    # float32: the CUDA-core route, at the repo's bound
     # fully masked kv tiles: a window of 5 skips most tiles of a row block
     dict(B=1, Hq=2, Hkv=1, Sq=200, Skv=200, D=64, window=5),
     # rows that see no key at all: zeros
@@ -335,24 +341,61 @@ FLASH_CASES = [
     dict(B=2, Hq=4, Hkv=1, Sq=70, Skv=200, D=256, q_offset=130, window=40),
     dict(B=1, Hq=2, Hkv=1, Sq=50, Skv=70, D=32, causal=False),
     dict(B=2, Hq=4, Hkv=4, Sq=48, Skv=48, D=16, causal=False),
+    # bfloat16 at head_dim 64 / 128 / 256: the tensor-core route, within one
+    # rounding of the output.  GQA groups 1, 4 and 8; ragged Sq and Skv
+    dict(dtype=BF16, B=2, Hq=4, Hkv=4, Sq=100, Skv=100, D=64),
+    dict(dtype=BF16, B=1, Hq=8, Hkv=2, Sq=130, Skv=130, D=128, window=7),
+    dict(dtype=BF16, B=1, Hq=8, Hkv=1, Sq=200, Skv=333, D=256, q_offset=133),
+    # the served layout ([B,S,H,D] views) with gemma3's window
+    dict(dtype=BF16, B=2, Hq=4, Hkv=1, Sq=700, Skv=700, D=256, window=512, bshd=True),
+    dict(dtype=BF16, B=1, Hq=2, Hkv=1, Sq=96, Skv=96, D=64, logit_softcap=15.0),
+    # every row fully masked, and the first 10 rows (before any key)
+    dict(dtype=BF16, B=1, Hq=2, Hkv=1, Sq=40, Skv=40, D=128, window=0),
+    dict(dtype=BF16, B=1, Hq=4, Hkv=2, Sq=80, Skv=80, D=128, q_offset=-10),
+    # one query at the end of a cache; a key-padding-free non-causal case
+    dict(dtype=BF16, B=2, Hq=4, Hkv=2, Sq=1, Skv=300, D=256, q_offset=299),
+    dict(dtype=BF16, B=1, Hq=2, Hkv=1, Sq=50, Skv=77, D=64, causal=False),
+    # bfloat16 at head_dim 32: the CUDA-core route
+    dict(dtype=BF16, B=1, Hq=2, Hkv=1, Sq=64, Skv=64, D=32, window=19),
 ]
 
 
-@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(
-    f"{k}{v}" for k, v in c.items()))
+def _case_id(case):
+    return "-".join(f"{k}{'bf16' if v is BF16 else v}" for k, v in case.items())
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=_case_id)
 def test_flash_kernel_matches_plain(cuda, case):
     case = dict(case)
     B, Hq, Hkv, Sq, Skv, D = (case.pop(k) for k in ("B", "Hq", "Hkv", "Sq", "Skv", "D"))
-    q = _randn((B, Hq, Sq, D), torch.float32, cuda, 11)
-    k = _randn((B, Hkv, Skv, D), torch.float32, cuda, 12)
-    v = _randn((B, Hkv, Skv, D), torch.float32, cuda, 13)
-    before = fk.flash_attention.launches
+    dtype, bshd = case.pop("dtype", torch.float32), case.pop("bshd", False)
+    if bshd:   # [B,S,H,D] tensors passed as transposed views
+        q = _randn((B, Sq, Hq, D), dtype, cuda, 11).transpose(1, 2)
+        k = _randn((B, Skv, Hkv, D), dtype, cuda, 12).transpose(1, 2)
+        v = _randn((B, Skv, Hkv, D), dtype, cuda, 13).transpose(1, 2)
+    else:
+        q = _randn((B, Hq, Sq, D), dtype, cuda, 11)
+        k = _randn((B, Hkv, Skv, D), dtype, cuda, 12)
+        v = _randn((B, Hkv, Skv, D), dtype, cuda, 13)
+    route = "wgmma" if dtype == BF16 and D in (64, 128, 256) else "cuda_core"
+    assert fk.route(dtype, D) == route
+    before = fk.launch_counts()
     got = fk.flash_attention(q, k, v, **case)
     want = ref.attention(q, k, v, **case)
-    assert fk.flash_attention.launches == before + 1
-    torch.testing.assert_close(got, want, rtol=2e-4, atol=3e-5)
+    after = fk.launch_counts()
+    other = "cuda_core" if route == "wgmma" else "wgmma"
+    assert after[f"flash_attention_{route}"] == before[f"flash_attention_{route}"] + 1
+    assert after[f"flash_attention_{other}"] == before[f"flash_attention_{other}"]
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert got.dtype == dtype and got.transpose(1, 2).is_contiguous()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=3e-5)
+    else:
+        assert _bf16_close(got, want)
     if case.get("window") == 0:
         assert bool((got == 0).all())
+    if case.get("q_offset", 0) < 0:
+        assert bool((got[:, :, :-case["q_offset"]] == 0).all())
 
 
 def test_flash_kernel_reads_the_model_layout_in_bf16(cuda):
@@ -371,6 +414,13 @@ def test_flash_kernel_reads_the_model_layout_in_bf16(cuda):
 def test_new_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros(1, 2, 8, 48, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
+        fk.flash_attention(q, q[:, :1], q[:, :1])
+    q = torch.zeros(1, 2, 8, 96, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fk.flash_attention(q, q[:, :1], q[:, :1])
+    # the tensor-core route loads through TMA: strides in multiples of 16 bytes
+    q = torch.zeros(1, 2, 8, 68, device=cuda, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
         fk.flash_attention(q, q[:, :1], q[:, :1])
     q = torch.zeros(1, 2, 8, 64, device=cuda)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -425,3 +475,43 @@ def test_dense_smoke_serve_on_card_equals_cpu(cuda, resident):
     assert fk.flash_attention.launches >= before[0] + cfg.n_layers
     assert rk.rmsnorm.launches >= before[1] + 4 * cfg.n_layers + 1
     assert stats["decode_dispatches"] == (1 if resident else 5)
+
+
+@pytest.mark.parametrize("arch,dtype", [("mamba2-2.7b", "float32"), ("gemma3-1b", "float32"),
+                                        ("gemma3-1b", "bfloat16")])
+def test_warm_prefill_is_one_graph_launch_equal_to_eager(cuda, arch, dtype):
+    """After set-up, ``eng.prefill`` is ONE CUDA-graph launch and launches
+    no kernel eagerly; its logits and caches equal an eager
+    ``Model.prefill`` bit for bit.  The graph holds a flash launch per
+    attention layer, on the route of the compute dtype."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype=dtype)
+    params = (_boosted_dense_params(cfg) if arch == "gemma3-1b"
+              else Model(cfg).init(0, device="cpu"))
+    params = tree_map(lambda t: t.to(cuda), params)
+    eng = ServeEngine(cfg, slots=4, prompt_len=40, max_new=6)
+    batch = synthetic_batch(cfg, np.random.RandomState(0), 4, 40)
+    eng.prefill(params, batch, eng.init_state()[0])      # set-up
+    caches = eng.init_state()[0]
+    torch.cuda.synchronize()
+    launches, counts = eng.graph_launches, ops.launch_counts()
+    logits, got = eng.prefill(params, batch, caches)
+    torch.cuda.synchronize()
+    assert eng.graph_launches == {**launches, "prefill": launches["prefill"] + 1}
+    assert ops.launch_counts() == counts
+    assert eng.dispatches == 2
+    want_logits, want = eng.model.prefill(eng.cast_params(params), batch,
+                                          eng.init_state()[0])
+    assert torch.equal(logits, want_logits)
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(g, w)
+    captured = eng.captured_launches("prefill")
+    if arch == "gemma3-1b":
+        route = "wgmma" if dtype == "bfloat16" else "cuda_core"
+        assert captured["flash_attention"] == cfg.n_layers
+        assert captured[f"flash_attention_{route}"] == cfg.n_layers
+    else:
+        assert captured["ssd_scan"] == cfg.n_layers

@@ -21,6 +21,7 @@ import torch
 from repro.core.halo import DIRECTIONS as JAX_DIRECTIONS
 from repro.kernels import ops as jops
 from repro_torch.core.halo import DIRECTIONS, _region_for
+from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import ops
 
 REGION_CASES = [
@@ -188,6 +189,32 @@ def test_flash_attention_fully_masked_rows_are_zero():
     want = jops.flash_attention(*jqkv, window=0, block_q=8, block_k=8)
     np.testing.assert_array_equal(got.numpy(), np.zeros((1, 2, 8, 16), np.float32))
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 16, "cuda_core"),
+    (torch.bfloat16, 32, "cuda_core"), (torch.float32, 16, "cuda_core"),
+    (torch.float32, 64, "cuda_core"), (torch.float32, 256, "cuda_core")])
+def test_flash_route_rule(dtype, D, want):
+    """The CUDA kernel a call on the card takes depends on dtype and
+    head_dim alone; CPU tensors run the plain version and launch none."""
+    assert fk.route(dtype, D) == want
+    q = torch.zeros(1, 2, 4, D, dtype=dtype)
+    before = fk.launch_counts()
+    ops.flash_attention(q, q[:, :1], q[:, :1])
+    assert fk.launch_counts() == before
+
+
+def test_flash_tensor_core_route_takes_16_byte_strides():
+    """TMA's rule: 16-byte aligned data and strides; a dimension of size
+    1 is never stepped, so its stride does not matter."""
+    view = torch.zeros(2, 10, 4, 64, dtype=torch.bfloat16).transpose(1, 2)
+    assert fk._tma_strides(view) == [10 * 4 * 64, 64, 4 * 64]
+    one = torch.zeros(1, 10, 1, 128, dtype=torch.bfloat16).transpose(1, 2)
+    assert fk._tma_strides(one) == [128, 128, 128]
+    with pytest.raises(ValueError, match="16-byte"):
+        fk._tma_strides(torch.zeros(1, 2, 8, 68, dtype=torch.bfloat16)[..., :64])
 
 
 def test_ssd_scan_equals_pallas():
