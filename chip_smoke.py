@@ -27,9 +27,10 @@ a checkout of the repository.  Phases, each of which must pass:
    equal to the host engine's bit for bit;
 5. hold each halo and boundary kernel against its plain PyTorch version
    on the main path's shapes, bit for bit (the boundary pair on each of
-   the 8 rank blocks and on a bf16 block), and time kernel, plain
-   version and one PyTorch call for the same function (CUDA events,
-   median);
+   the 8 rank blocks and on a bf16 block; ``pack_segments`` also on a
+   relay-heavy bf16 member set at unaligned columns), and time kernel,
+   plain version and one PyTorch call for the same function (CUDA
+   events, median);
 6. serve mamba2-2.7b at full width and depth (64 layers, d_model 2560,
    80 SSD heads of 64, state 128, vocab 50 280, bf16 compute, float32
    parameters from ``torch.Generator(seed)``): 4 slots, 512-token
@@ -68,14 +69,18 @@ a checkout of the repository.  Phases, each of which must pass:
    query at an offset, ragged kv, head_dim 32/64/128/256) at the repo's
    rtol 2e-4 / atol 3e-5 (the CUDA-core route); rmsnorm on the served
    layer-0 input and at d 1152, 256 and 2560 with a ragged row count at
-   ``weight_offset`` 0 and 1; time both, flash on the global and the
-   local layer, against ``F.scaled_dot_product_attention`` and
-   ``F.rms_norm``.
+   ``weight_offset`` 0 and 1, and at the decode shapes (4 x 2560, 4 x
+   5120, 4 x 1152, 16 x 256 bf16); require the served input's first 4
+   rows, normalised alone, equal to the same rows of the whole input
+   bit for bit (two routes of the kernel); time both, flash on the
+   global and the local layer, rmsnorm also at the decode shapes,
+   against ``F.scaled_dot_product_attention`` and ``F.rms_norm``.
 
 The last lines are a ``{"kernels": [...]}`` JSON line (nine rows; the
 flash row also gives ``earlier_ms``: the CUDA-core kernel, the port's
 flash kernel before the tensor-core one, on the same input in this
-run), the card's name and power limit, and ``{"ok": true, "device":
+run; the rmsnorm row gives ``decode``: its times at the decode
+shapes), the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -401,6 +406,20 @@ def check_kernels(torch, prog, u, hk, ref):
         ref.unpack_segments(received[ti], want, offs, masks)
         same("unpack_segments", got, want, f"transfer {ti}")
         unpacks.append((received[ti], got, offs, masks))
+
+    # a relay-heavy bf16 member set at columns that break 16-byte
+    # alignment (sizes 1, 3, 127, 16384; relays through strided views),
+    # one launch, bit for bit
+    recv = torch.randn(n_ranks, 2 * 16384 + 301, device=u.device, generator=gen).bfloat16()
+    slab = torch.randn(n_ranks, 127, device=u.device, generator=gen).bfloat16()
+    relays = [(recv, 1), (recv, 5), (recv[:, 3:], 17), (recv, 301), (slab, 0),
+              (recv[:, 1:], 16601), (recv, 0)]
+    relay_sizes = [1, 3, 127, 16384, 127, 16384, 3]
+    before = hk.pack_segments.launches
+    staged = hk.pack_segments(relays, relay_sizes)
+    require(hk.pack_segments.launches == before + 1, "pack_segments: not one launch")
+    same("pack_segments", [staged], [ref.pack_segments(relays, relay_sizes)],
+         "the bf16 relay set")
 
     # timed: the first transfer (a face and its eight edge/corner
     # members) and the unpack with the most members
@@ -830,6 +849,34 @@ def check_dense_kernels(torch, eng, params, batch_in, fk, rk, ref, seed: int):
             require(bf16_close(torch, got, want)[0],
                     f"rmsnorm != plain at {tuple(xs.shape)} bf16 beyond one rounding")
     detail["rmsnorm_max_abs_err"] = norm_err
+    # a row's output does not depend on the rows launched with it: the
+    # served input's 4096 rows (the rows route) and its first 4 (the team
+    # route) give the same first rows, bit for bit
+    flat = x0.reshape(-1, x0.shape[-1])
+    head = rk.rmsnorm(flat[:4], w, eps=cfg.norm_eps, weight_offset=1.0)
+    full = rk.rmsnorm(flat, w, eps=cfg.norm_eps, weight_offset=1.0)
+    require(torch.equal(head, full[:4]), "rmsnorm: the first 4 rows alone differ from the "
+            "same rows of the served input")
+    detail["rmsnorm_routes"] = {"served": rk.route(*flat.shape, flat.dtype),
+                                "first_4_rows": rk.route(4, flat.shape[1], flat.dtype),
+                                "rows_independent_bitwise": True}
+    # the decode shapes: mamba2 (4 x 2560, 4 x 5120), gemma3 (4 x 1152 and
+    # the qk-norm's 16 x 256), bf16 over a float32 weight, as served
+    decode = []
+    for rows_, d in [(4, 2560), (4, 5120), (4, 1152), (16, 256)]:
+        xs = torch.randn(rows_, d, device="cuda", generator=gen).bfloat16()
+        ws = torch.randn(d, device="cuda", generator=gen)
+        ws1 = (ws + 1.0).bfloat16()
+        require(bf16_close(torch, rk.rmsnorm(xs, ws, eps=cfg.norm_eps, weight_offset=1.0),
+                           ref.rmsnorm(xs, ws, eps=cfg.norm_eps, weight_offset=1.0))[0],
+                f"rmsnorm != plain at the decode shape {(rows_, d)} beyond one rounding")
+        decode.append({
+            "rows": rows_, "d": d, "route": rk.route(rows_, d, xs.dtype),
+            "ms": median_ms(torch, lambda: rk.rmsnorm(xs, ws, eps=cfg.norm_eps,
+                                                      weight_offset=1.0)),
+            "library_ms": median_ms(torch, lambda: F.rms_norm(xs, (d,), weight=ws1,
+                                                               eps=cfg.norm_eps)),
+            "bound_ms": (2 * xs.numel() * 2 + d * 4) / HBM_BYTES_PER_S * 1e3})
     w1 = (w.float() + 1.0).to(x0.dtype)
     rows.append(kernel_row(
         torch, "rmsnorm", "rmsnorm.cu", norm_err,
@@ -838,6 +885,7 @@ def check_dense_kernels(torch, eng, params, batch_in, fk, rk, ref, seed: int):
         lambda: F.rms_norm(x0, (x0.shape[-1],), weight=w1, eps=cfg.norm_eps),
         2 * x0.numel() * x0.element_size() + w.numel() * w.element_size(), 0,
         FP32_OPS_PER_S))
+    rows[-1]["decode"] = decode
     detail["rmsnorm_shape"] = list(x0.shape)
     return rows, detail
 
@@ -988,7 +1036,7 @@ def main() -> int:
     require(sorted(r["name"] for r in rows) == sorted(REPLACES), "a kernel row is missing")
     require(all(r["launches"] > 0 for r in rows), "a kernel was not launched on its path")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "earlier_ms")
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "earlier_ms", "decode")
     print(json.dumps({"kernels": [{k: r[k] for k in order if k in r} for r in rows]}))
     print(f"card: {gpu_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -17,9 +17,10 @@
 // answers both simply: one thread per element with the fastest index along
 // pz (coalesced), a grid-stride loop, and ONE launch for all ranks and, for
 // the segment kernels, all members of a fused transfer, whose offsets and
-// sizes travel by value in a small argument table.  Nothing is allocated;
-// every kernel runs on the caller's stream, and each entry point returns
-// cudaGetLastError() so the Python wrapper raises on a refused launch.
+// sizes travel by value in a small argument table (pack_segments instead
+// launches a flat list of 16-byte-a-thread tiles, below).  Nothing is
+// allocated; every kernel runs on the caller's stream, and each entry point
+// returns cudaGetLastError() so the Python wrapper raises on a refused launch.
 //
 // A bfloat16 add is done in float32 and rounded once (round to nearest
 // even), as PyTorch's own elementwise add does, so kernel and plain version
@@ -107,30 +108,74 @@ __global__ void halo_unpack_add_kernel(T* __restrict__ u, const T* __restrict__ 
   }
 }
 
-// Member j of a fused transfer: columns [src_col, src_col + size) of every
-// row of a (ranks, src_stride) source go to columns [dst_col, dst_col + size)
-// of the (ranks, total) staging buffer.
-struct PackSeg {
-  const void* src;
-  int64_t src_stride;
-  int64_t src_col;
-  int64_t dst_col;
-  int64_t size;
+// pack_segments: member j of a fused transfer, columns [col_j, col_j + n_j)
+// of every rank's row of a (ranks, W_j) source, goes to columns [off_j,
+// off_j + n_j) of the (ranks, total) staging buffer.  The wrapper cuts each
+// member's row into tiles of kTileBytes (one 16-byte access per thread) and
+// lists them flat: member j owns CTAs [first_j, first_j + tiles_j * ranks),
+// rank-major, and members without columns own none, so the grid is exactly
+// sum_j ceil(n_j / tile) * ranks CTAs, none of them idle (a 128^2 float32
+// face and eight edges and corners of 8 ranks: 192 CTAs, one wave; the old
+// grid of max_size x members x ranks was 4608, 4030 of them empty).  A CTA
+// finds its member by a binary search of `first` (uniform, in the parameter
+// bank).  A member whose source address, row stride and staging column, and
+// the staging row, keep 16-byte alignment copies 16 bytes a thread; any
+// other (a corner, a relay at an odd column) copies element by element in
+// the same kernel.  The copy moves raw 32- or 16-bit words, so it equals the
+// plain version bit for bit whatever the values.
+constexpr int kPackThreads = 256;
+constexpr int kTileBytes = kPackThreads * 16;
+
+struct PackMember {
+  const void* src;  // the member's first column in rank 0's row
+  int src_stride;   // elements between two ranks' rows
+  int dst_col;      // the member's first column in the staging row
+  int size;         // columns
+  int tiles;        // tiles a rank
+  int vec;          // 1: 16-byte accesses keep alignment
+  int pad_;
 };
+// CAP: the members a launch can take; a transfer of up to 16 members takes
+// the 16-member table, 576 bytes of parameters (64 members: 2304).
+template <int CAP>
 struct PackTable {
-  PackSeg seg[kMaxSegments];
+  int first[CAP];  // member j's first CTA, increasing
+  PackMember m[CAP];
 };
 
-// grid: x over a member's columns, y = member, z = rank.
-template <typename T>
-__global__ void pack_segments_kernel(PackTable tab, T* __restrict__ out, int64_t total) {
-  const PackSeg& s = tab.seg[blockIdx.y];
-  const int64_t r = blockIdx.z;
-  const T* src = static_cast<const T*>(s.src) + r * s.src_stride + s.src_col;
-  T* dst = out + r * total + s.dst_col;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < s.size; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    dst[i] = src[i];
+// E: a 32- or 16-bit word (float32 or bfloat16 bits).
+template <typename E, int CAP>
+__global__ void __launch_bounds__(kPackThreads)
+    pack_segments_kernel(const __grid_constant__ PackTable<CAP> tab, int nseg,
+                         E* __restrict__ out, int total) {
+  constexpr int kTile = kTileBytes / sizeof(E);
+  constexpr int V = 16 / sizeof(E);
+  const int b = blockIdx.x;
+  int lo = 0, hi = nseg - 1;  // the last member whose first CTA is <= b
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (tab.first[mid] <= b)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  const PackMember& m = tab.m[lo];
+  const int local = b - tab.first[lo];
+  const int r = local / m.tiles;
+  const int begin = (local - r * m.tiles) * kTile;
+  const int end = min(begin + kTile, m.size);
+  const E* src = static_cast<const E*>(m.src) + static_cast<int64_t>(r) * m.src_stride;
+  E* dst = out + static_cast<int64_t>(r) * total + m.dst_col;
+  if (m.vec) {
+    const int i = begin + static_cast<int>(threadIdx.x) * V;
+    if (i + V <= end) {
+      *reinterpret_cast<uint4*>(dst + i) = __ldg(reinterpret_cast<const uint4*>(src + i));
+    } else {
+      for (int e = i; e < end; ++e) dst[e] = src[e];
+    }
+  } else {
+    for (int i = begin + static_cast<int>(threadIdx.x); i < end; i += kPackThreads)
+      dst[i] = src[i];
   }
 }
 
@@ -220,6 +265,38 @@ __global__ void unpack_boundary_add_kernel(T* __restrict__ u, const T* __restric
     }
     blk[o] = acc;
   }
+}
+
+// pack_segments' launch with a table of CAP members (the wrapper's plan; see
+// rt_pack_segments).
+template <int CAP>
+int pack_launch(int dtype, const long long* table, int nseg, void* out, long long n_ctas,
+                long long total, void* stream) {
+  constexpr long long kMax = 0x7fffffffLL;
+  if ((dtype != kFloat32 && dtype != kBFloat16) || nseg < 1 || nseg > CAP || n_ctas < 1 ||
+      n_ctas > kMax || total > kMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  PackTable<CAP> tab{};
+  for (int j = 0; j < nseg; ++j) {
+    const long long* row = table + 7 * j;
+    for (int f = 1; f < 7; ++f)
+      if (row[f] < 0 || row[f] > kMax) return static_cast<int>(cudaErrorInvalidValue);
+    if (row[4] < 1 || row[5] >= n_ctas || (j > 0 && row[5] <= tab.first[j - 1]))
+      return static_cast<int>(cudaErrorInvalidValue);
+    tab.first[j] = static_cast<int>(row[5]);
+    tab.m[j] = PackMember{reinterpret_cast<const void*>(row[0]), static_cast<int>(row[1]),
+                          static_cast<int>(row[2]), static_cast<int>(row[3]),
+                          static_cast<int>(row[4]), row[6] != 0, 0};
+  }
+  const unsigned grid = static_cast<unsigned>(n_ctas);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    pack_segments_kernel<uint32_t, CAP><<<grid, kPackThreads, 0, s>>>(
+        tab, nseg, static_cast<uint32_t*>(out), static_cast<int>(total));
+  else
+    pack_segments_kernel<uint16_t, CAP><<<grid, kPackThreads, 0, s>>>(
+        tab, nseg, static_cast<uint16_t*>(out), static_cast<int>(total));
+  return static_cast<int>(cudaGetLastError());
 }
 
 int blocks_for(int64_t n) {
@@ -323,34 +400,14 @@ int rt_halo_unpack_add(int dtype, void* u, const void* msg, long long n_ranks, i
   return static_cast<int>(cudaGetLastError());
 }
 
-// table: nseg rows of (src pointer, src row stride, src column, dst column,
-// size), all in elements.
+// table: nseg rows of (source address of the member's first column, source
+// row stride, staging column, size, tiles a rank, first CTA, vector flag),
+// int64 each: the wrapper's plan, every member with columns, first CTAs
+// increasing; n_ctas: the CTAs of the flat tile list.
 int rt_pack_segments(int dtype, const long long* table, int nseg, void* out,
-                     long long n_ranks, long long total, void* stream) {
-  if (!valid_grid(nseg, n_ranks)) return static_cast<int>(cudaErrorInvalidValue);
-  PackTable tab{};
-  int64_t max_size = 0;
-  for (int j = 0; j < nseg; ++j) {
-    const long long* row = table + 5 * j;
-    tab.seg[j] = PackSeg{reinterpret_cast<const void*>(row[0]), row[1], row[2], row[3], row[4]};
-    max_size = std::max<int64_t>(max_size, row[4]);
-  }
-  if (max_size == 0) return 0;
-  const dim3 grid(std::min<int64_t>((max_size + kThreads - 1) / kThreads, 1024), nseg,
-                  static_cast<unsigned>(n_ranks));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32:
-      pack_segments_kernel<float><<<grid, kThreads, 0, s>>>(tab, static_cast<float*>(out), total);
-      break;
-    case kBFloat16:
-      pack_segments_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-          tab, static_cast<__nv_bfloat16*>(out), total);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+                     long long n_ctas, long long total, void* stream) {
+  if (nseg > 16) return pack_launch<kMaxSegments>(dtype, table, nseg, out, n_ctas, total, stream);
+  return pack_launch<16>(dtype, table, nseg, out, n_ctas, total, stream);
 }
 
 // table: nseg rows of (dst pointer, src column, size); mask: nseg x n_ranks

@@ -8,31 +8,58 @@
 // Bound: bytes.  A row is read and written once (plus w, which stays in L1
 // and L2): at gemma3-1b's prefill (4096 rows of 1152 bf16) that is 18.9 MB,
 // 5.6 us at 3.35 TB/s; the few flops per element are far below the card's
-// rate.  Design: ONE WARP PER ROW, eight rows per 256-thread block, so a
-// row's sum of squares is a register sum and five shuffles with no shared
-// memory or block barrier, and the grid covers any row count without
-// padding (the TPU wrapper pads rows to a block multiple; this kernel
-// bounds them instead and copies nothing).  A lane reads 16 bytes at a
-// time (8 bf16 or 4 float32) when the row start and d allow it, so a warp
-// moves 512 contiguous bytes per load; the second pass re-reads the row,
-// which a 2-5 KB row keeps in L1.  d is any size (1152 and 2560 are not
-// powers of two; the qk-norm's 256 is).
+// rate.  What keeps a norm from that bound is bytes in flight: an SM needs
+// tens of KB of loads outstanding to cover the memory latency, and at decode
+// (4 rows) the whole launch is a few rows on a few SMs.
 //
-// The products are formed in the reference's order, (x * r) * (w + offset),
-// each rounded to float32; only the order of the sum of squares differs
-// from the plain version.
+// The row partition (fixed by d alone).  A row is cut into groups of 8
+// elements (16 bytes of bf16), G = ceil(d / 8), and the groups are dealt to
+// L = 32 K slots, K = min(32, pow2ceil(ceil(G / 64))): group g goes to slot
+// g mod L.  A slot sums the squares of its groups' elements in column order
+// (one float32 fma each); lane l of the tree adds the slots l, 32 + l, ...,
+// 32 (K - 1) + l in that order, and a five-step xor butterfly adds the 32
+// lanes.  Then r = rsqrt(ss / d + eps) and y = (x * r) * (w + offset), each
+// product rounded to float32 (the reference's order).  Every step is an
+// explicit _rn intrinsic, so no contraction differs between the routes: a
+// row's output depends on that row, w, eps, offset and d only -- not on the
+// route, the row count, the row stride or the alignment -- and a row of a
+// 4-row decode launch equals, bit for bit, the same row of a 4096-row one.
+//
+// Two routes, chosen by the wrapper from (rows, d, dtype):
+// * rows (many rows, d up to 2048 bf16 / 1024 float32): one warp walks
+//   rows, lane l holding groups l, l + 32, ... of a row in registers (K
+//   slot sums a lane), all of its 16-byte loads issued before the first
+//   use; w + offset is loaded once per warp, as 16-byte vectors, and kept in
+//   registers across the warp's rows; the grid is a few CTAs per SM, sized
+//   to the card by the occupancy calculator, not one warp per row.
+// * team (few rows, or wider rows): a CTA of K warps per row, thread t
+//   holding groups t, t + L, ... (one or two 16-byte loads a thread at the
+//   served widths); the slot sums meet in shared memory.  4 rows fill 4
+//   SMs, not 4 warps of one.  With many rows a CTA normalises 2 rows a
+//   pass (their loads all in flight together) and holds its w.
+// A layout that keeps 16-byte alignment (x, y, w pointers, x's row stride,
+// d % 8 == 0) loads and stores whole groups as 16-byte accesses; any other
+// takes element accesses into the same registers, with the same arithmetic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
 
-constexpr int kRowsPerBlock = 8;
-constexpr int kThreads = 32 * kRowsPerBlock;
+constexpr int kGroup = 8;       // elements of a group: 16 bytes of bf16
+constexpr int kRowsWarps = 8;   // warps of a CTA of the rows route
+constexpr int kMaxTeamGroups = 4;  // groups a thread holds on the team route
+// Rows a team CTA normalises at once when there are many, in bf16 (half as
+// many in float32): the bytes an SM has in flight.  2 measured best of 1,
+// 2 and 4 (scripts/rmsnorm_team_variants.py).
+constexpr int kTeamRows = 2;
+constexpr long long kTeamManyRows = 1024;  // rows from which a CTA takes kTeamRows
 
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+enum Route : int { kRows = 0, kTeam = 1 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -46,90 +73,298 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// V elements of T, loaded or stored as one 16-byte access when V * sizeof(T)
-// is 16.
-template <typename T, int V>
-struct Pack {
-  T v[V];
+// A group of 8 elements in registers (one or two 16-byte vectors).
+template <typename T>
+struct alignas(16) Group {
+  T v[kGroup];
 };
 
-template <typename T, int V>
-__device__ __forceinline__ Pack<T, V> load(const T* p) {
-  Pack<T, V> out;
-  if constexpr (V * sizeof(T) == 16) {
-    *reinterpret_cast<uint4*>(out.v) = *reinterpret_cast<const uint4*>(p);
+// Elements [8 g, 8 g + n) of a row, n <= 8; the rest are zero.  VEC: the
+// group is whole and 16-byte aligned.
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_group(Group<T>& out, const T* __restrict__ p, int n) {
+  if constexpr (VEC) {
+    constexpr int kVecs = sizeof(Group<T>) / 16;
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i)
+      reinterpret_cast<uint4*>(out.v)[i] = reinterpret_cast<const uint4*>(p)[i];
   } else {
 #pragma unroll
-    for (int e = 0; e < V; ++e) out.v[e] = p[e];
-  }
-  return out;
-}
-
-template <typename T, int V>
-__device__ __forceinline__ void store(T* p, const Pack<T, V>& x) {
-  if constexpr (V * sizeof(T) == 16) {
-    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(x.v);
-  } else {
-#pragma unroll
-    for (int e = 0; e < V; ++e) p[e] = x.v[e];
+    for (int e = 0; e < kGroup; ++e) out.v[e] = e < n ? p[e] : from_float<T>(0.f);
   }
 }
 
-// V: elements per lane access (16 bytes, or 1 when the layout does not
-// allow it); TW: the weight's type.
-template <typename T, typename TW, int V>
-__global__ void __launch_bounds__(kThreads)
-    rmsnorm_kernel(const T* __restrict__ x, const TW* __restrict__ w, T* __restrict__ y,
-                   int64_t rows, int d, int64_t x_row_stride, float eps, float offset) {
+template <typename T, bool VEC>
+__device__ __forceinline__ void store_group(T* __restrict__ p, const Group<T>& g, int n) {
+  if constexpr (VEC) {
+    constexpr int kVecs = sizeof(Group<T>) / 16;
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i)
+      reinterpret_cast<uint4*>(p)[i] = reinterpret_cast<const uint4*>(g.v)[i];
+  } else {
+#pragma unroll
+    for (int e = 0; e < kGroup; ++e)
+      if (e < n) p[e] = g.v[e];
+  }
+}
+
+// w + offset of group g, in float32.
+template <bool VEC>
+__device__ __forceinline__ void load_weight(Group<float>& out, const void* w, bool w_bf16,
+                                            int g, int d, float offset) {
+  const int n = min(kGroup, d - g * kGroup);
+  if (w_bf16) {
+    Group<__nv_bfloat16> raw;
+    load_group<__nv_bfloat16, VEC>(raw, static_cast<const __nv_bfloat16*>(w) + g * kGroup, n);
+#pragma unroll
+    for (int e = 0; e < kGroup; ++e) out.v[e] = __fadd_rn(to_float(raw.v[e]), offset);
+  } else {
+    Group<float> raw;
+    load_group<float, VEC>(raw, static_cast<const float*>(w) + g * kGroup, n);
+#pragma unroll
+    for (int e = 0; e < kGroup; ++e) out.v[e] = __fadd_rn(raw.v[e], offset);
+  }
+}
+
+// A slot's running sum of squares over one more group, in column order.
+template <typename T>
+__device__ __forceinline__ float add_squares(float acc, const Group<T>& g) {
+#pragma unroll
+  for (int e = 0; e < kGroup; ++e) {
+    const float f = to_float(g.v[e]);
+    acc = __fmaf_rn(f, f, acc);
+  }
+  return acc;
+}
+
+// The lanes' sums added by the fixed butterfly; every lane gets the total.
+__device__ __forceinline__ float warp_total(float t) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) t = __fadd_rn(t, __shfl_xor_sync(0xffffffffu, t, m));
+  return t;
+}
+
+__device__ __forceinline__ float inv_rms(float ss, int d, float eps) {
+  return rsqrtf(__fadd_rn(__fdiv_rn(ss, static_cast<float>(d)), eps));
+}
+
+template <typename T>
+__device__ __forceinline__ Group<T> normed(const Group<T>& x, const Group<float>& w, float r) {
+  Group<T> o;
+#pragma unroll
+  for (int e = 0; e < kGroup; ++e)
+    o.v[e] = from_float<T>(__fmul_rn(__fmul_rn(to_float(x.v[e]), r), w.v[e]));
+  return o;
+}
+
+// The rows route.  NG: groups a lane holds (pow2ceil(ceil(G / 32))); the
+// partition's K for these d is NG / 2 (1 for NG = 1): lane l's group i
+// (g = l + 32 i) goes to slot l + 32 (i mod K).
+template <typename T, bool VEC, int NG>
+__global__ void __launch_bounds__(32 * kRowsWarps, 2)
+    rmsnorm_rows_kernel(const T* __restrict__ x, const void* __restrict__ w, bool w_bf16,
+                        T* __restrict__ y, int64_t rows, int d, int64_t x_row_stride, float eps,
+                        float offset) {
+  constexpr int K = NG > 1 ? NG / 2 : 1;
   const int lane = threadIdx.x & 31;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + (threadIdx.x >> 5);
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kRowsWarps;
+  int64_t row = static_cast<int64_t>(blockIdx.x) * kRowsWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
-  const T* xr = x + row * x_row_stride;
-  T* yr = y + row * static_cast<int64_t>(d);
+  const int G = (d + kGroup - 1) / kGroup;
 
-  float ss = 0.f;
-  for (int i = lane * V; i < d; i += 32 * V) {
-    const Pack<T, V> a = load<T, V>(xr + i);
+  Group<float> wf[NG];
 #pragma unroll
-    for (int e = 0; e < V; ++e) {
-      const float f = to_float(a.v[e]);
-      ss += f * f;
-    }
+  for (int i = 0; i < NG; ++i) {
+    const int g = lane + 32 * i;
+    if (g < G) load_weight<VEC>(wf[i], w, w_bf16, g, d, offset);
   }
+  for (; row < rows; row += step) {
+    const T* xr = x + row * x_row_stride;
+    Group<T> xv[NG];
 #pragma unroll
-  for (int m = 16; m > 0; m >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, m);
-  const float r = rsqrtf(ss / static_cast<float>(d) + eps);
-
-  for (int i = lane * V; i < d; i += 32 * V) {
-    const Pack<T, V> a = load<T, V>(xr + i);
-    Pack<T, V> o;
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      const float wf = to_float(w[i + e]) + offset;
-      o.v[e] = from_float<T>((to_float(a.v[e]) * r) * wf);
+    for (int i = 0; i < NG; ++i) {
+      const int g = lane + 32 * i;
+      if (g < G) load_group<T, VEC>(xv[i], xr + g * kGroup, d - g * kGroup);
     }
-    store<T, V>(yr + i, o);
+    float acc[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc[k] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NG; ++i)
+      if (lane + 32 * i < G) acc[i % K] = add_squares(acc[i % K], xv[i]);
+    float t = acc[0];
+#pragma unroll
+    for (int k = 1; k < K; ++k) t = __fadd_rn(t, acc[k]);
+    const float r = inv_rms(warp_total(t), d, eps);
+    T* yr = y + row * static_cast<int64_t>(d);
+#pragma unroll
+    for (int i = 0; i < NG; ++i) {
+      const int g = lane + 32 * i;
+      if (g < G) store_group<T, VEC>(yr + g * kGroup, normed(xv[i], wf[i], r), d - g * kGroup);
+    }
   }
 }
 
-template <typename T, typename TW>
-cudaError_t launch(const void* x, const void* w, void* y, long long rows, int d,
-                   long long x_row_stride, float eps, float offset, cudaStream_t s) {
-  constexpr int kVec = 16 / sizeof(T);
-  const dim3 grid(static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock));
-  const bool vec = d % kVec == 0 && x_row_stride % kVec == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(y) % 16 == 0;
-  if (vec)
-    rmsnorm_kernel<T, TW, kVec><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(x), static_cast<const TW*>(w), static_cast<T*>(y), rows, d,
-        x_row_stride, eps, offset);
-  else
-    rmsnorm_kernel<T, TW, 1><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(x), static_cast<const TW*>(w), static_cast<T*>(y), rows, d,
-        x_row_stride, eps, offset);
+// The team route: CTAs of 32 K threads (K = blockDim.x / 32) that take R
+// rows at a time, gridDim.x * R rows apart (R = 1 and one row a CTA when
+// there are few).  NG: groups a thread holds of a row (pow2ceil(ceil(G /
+// 32 K))); thread t's groups t, t + L, ... all go to slot t.  They are the
+// same columns in every row, so a thread holds its w + offset across rows
+// where the registers allow (NG <= 2).
+template <typename T, bool VEC, int NG, int R>
+__global__ void __launch_bounds__(R == 1 ? 1024 : 512, R == 1 ? 1 : 2)
+    rmsnorm_team_kernel(const T* __restrict__ x, const void* __restrict__ w, bool w_bf16,
+                        T* __restrict__ y, int64_t rows, int d, int64_t x_row_stride,
+                        float eps, float offset) {
+  __shared__ float part[2][R][32][32];   // [pass parity][row][warp][lane]: slot sums
+  constexpr bool kHoldW = NG <= 2;
+  const int tid = threadIdx.x, lane = tid & 31, L = blockDim.x;
+  const int G = (d + kGroup - 1) / kGroup;
+
+  Group<float> wf[kHoldW ? NG : 1];
+  if constexpr (kHoldW) {
+#pragma unroll
+    for (int i = 0; i < NG; ++i) {
+      const int g = tid + L * i;
+      if (g < G) load_weight<VEC>(wf[i], w, w_bf16, g, d, offset);
+    }
+  }
+  const int64_t step = static_cast<int64_t>(gridDim.x) * R;
+  int parity = 0;
+  for (int64_t row0 = static_cast<int64_t>(blockIdx.x) * R; row0 < rows;
+       row0 += step, parity ^= 1) {
+    Group<T> xv[R][NG];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (row0 + j >= rows) break;
+#pragma unroll
+      for (int i = 0; i < NG; ++i) {
+        const int g = tid + L * i;
+        if (g < G)
+          load_group<T, VEC>(xv[j][i], x + (row0 + j) * x_row_stride + g * kGroup,
+                             d - g * kGroup);
+      }
+    }
+    // two buffers: a warp writes pass p + 1's sums only after every warp
+    // passed pass p + 1's barrier, so pass p - 1's buffer is free by then
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      float acc = 0.f;
+      if (row0 + j < rows) {
+#pragma unroll
+        for (int i = 0; i < NG; ++i)
+          if (tid + L * i < G) acc = add_squares(acc, xv[j][i]);
+      }
+      part[parity][j][tid >> 5][lane] = acc;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (row0 + j >= rows) break;
+      float t = part[parity][j][0][lane];
+      for (int k = 1; k < (L >> 5); ++k) t = __fadd_rn(t, part[parity][j][k][lane]);
+      const float r = inv_rms(warp_total(t), d, eps);
+      T* yr = y + (row0 + j) * static_cast<int64_t>(d);
+#pragma unroll
+      for (int i = 0; i < NG; ++i) {
+        const int g = tid + L * i;
+        if (g >= G) continue;
+        if constexpr (!kHoldW) load_weight<VEC>(wf[0], w, w_bf16, g, d, offset);
+        store_group<T, VEC>(yr + g * kGroup, normed(xv[j][i], wf[kHoldW ? i : 0], r),
+                            d - g * kGroup);
+      }
+    }
+  }
+}
+
+int pow2ceil(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// CTAs of `threads` threads of `kernel` the card holds at once.
+template <typename Kernel>
+int capacity(Kernel kernel, int threads) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  return std::max(sms, 1) * std::max(per_sm, 1);
+}
+
+struct Args {
+  const void* x;
+  const void* w;
+  bool w_bf16;
+  void* y;
+  long long rows;
+  int d;
+  long long x_row_stride;
+  float eps, offset;
+  cudaStream_t s;
+};
+
+// The grids are a few CTAs per SM at most (the occupancy calculator's,
+// cached per instance and team size): CTAs walk the rows beyond that.
+template <typename T, bool VEC, int NG>
+cudaError_t launch_rows(const Args& a) {
+  static const int cap = capacity(rmsnorm_rows_kernel<T, VEC, NG>, 32 * kRowsWarps);
+  const long long want = (a.rows + kRowsWarps - 1) / kRowsWarps;
+  rmsnorm_rows_kernel<T, VEC, NG><<<static_cast<int>(std::min<long long>(want, cap)),
+                                    32 * kRowsWarps, 0, a.s>>>(
+      static_cast<const T*>(a.x), a.w, a.w_bf16, static_cast<T*>(a.y), a.rows, a.d,
+      a.x_row_stride, a.eps, a.offset);
   return cudaGetLastError();
 }
+
+template <typename T, bool VEC, int NG, int R>
+cudaError_t launch_team(const Args& a, int warps) {
+  static int cap[6] = {};   // by log2(warps)
+  int& c = cap[__builtin_ctz(warps)];
+  if (c == 0) c = capacity(rmsnorm_team_kernel<T, VEC, NG, R>, 32 * warps);
+  rmsnorm_team_kernel<T, VEC, NG, R>
+      <<<static_cast<int>(std::min<long long>((a.rows + R - 1) / R, c)), 32 * warps, 0, a.s>>>(
+          static_cast<const T*>(a.x), a.w, a.w_bf16, static_cast<T*>(a.y), a.rows, a.d,
+          a.x_row_stride, a.eps, a.offset);
+  return cudaGetLastError();
+}
+
+template <typename T, bool VEC>
+cudaError_t launch(const Args& a, int route) {
+  const int G = (a.d + kGroup - 1) / kGroup;
+  const int warps = std::min(32, pow2ceil((G + 63) / 64));   // the partition's K
+  if (route == kRows) {
+    // the groups a lane holds; float32 x takes twice the registers
+    const int ng = pow2ceil((G + 31) / 32);
+    constexpr int kMax = sizeof(T) == 2 ? 8 : 4;
+    if (ng > kMax) return cudaErrorInvalidValue;
+    switch (ng) {
+      case 1: return launch_rows<T, VEC, 1>(a);
+      case 2: return launch_rows<T, VEC, 2>(a);
+      case 4: return launch_rows<T, VEC, 4>(a);
+      default:
+        if constexpr (kMax >= 8) return launch_rows<T, VEC, 8>(a);
+        return cudaErrorInvalidValue;
+    }
+  }
+  if (route != kTeam) return cudaErrorInvalidValue;
+  const int ng = pow2ceil((G + 32 * warps - 1) / (32 * warps));
+  // several rows a pass where there are many and a CTA of up to 512
+  // threads has the registers (R x NG groups a thread, two CTAs an SM;
+  // float32 takes half the rows)
+  constexpr int R = sizeof(T) == 2 ? kTeamRows : std::max(1, kTeamRows / 2);
+  if (a.rows >= kTeamManyRows && warps <= 16 && ng <= 2)
+    return ng == 1 ? launch_team<T, VEC, 1, R>(a, warps) : launch_team<T, VEC, 2, R>(a, warps);
+  switch (ng) {
+    case 1: return launch_team<T, VEC, 1, 1>(a, warps);
+    case 2: return launch_team<T, VEC, 2, 1>(a, warps);
+    case kMaxTeamGroups: return launch_team<T, VEC, kMaxTeamGroups, 1>(a, warps);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
@@ -141,26 +376,25 @@ const char* rt_error_string(int code) {
 
 // x: [rows, d] of x_dtype with row stride x_row_stride (elements) and unit
 // stride along d; w: [d] of w_dtype, contiguous; y: [rows, d] contiguous, of
-// x_dtype.
+// x_dtype; route: 0 rows, 1 team (the wrapper's choice; the output is the
+// same bits either way).
 int rt_rmsnorm(int x_dtype, int w_dtype, const void* x, const void* w, void* y,
                long long rows, int d, long long x_row_stride, float eps, float offset,
-               void* stream) {
+               int route, void* stream) {
   if (rows <= 0 || d <= 0) return 0;
-  if ((rows + kRowsPerBlock - 1) / kRowsPerBlock > 0x7fffffffLL)
+  if ((x_dtype != kFloat32 && x_dtype != kBFloat16) ||
+      (w_dtype != kFloat32 && w_dtype != kBFloat16))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Args a{x, w, w_dtype == kBFloat16, y, rows, d, x_row_stride, eps, offset,
+               static_cast<cudaStream_t>(stream)};
+  const long long esize = x_dtype == kFloat32 ? 4 : 2;
+  const bool vec = d % kGroup == 0 && (x_row_stride * esize) % 16 == 0 && aligned16(x) &&
+                   aligned16(y) && aligned16(w);
   cudaError_t err;
-  if (x_dtype == kFloat32 && w_dtype == kFloat32)
-    err = launch<float, float>(x, w, y, rows, d, x_row_stride, eps, offset, s);
-  else if (x_dtype == kFloat32 && w_dtype == kBFloat16)
-    err = launch<float, __nv_bfloat16>(x, w, y, rows, d, x_row_stride, eps, offset, s);
-  else if (x_dtype == kBFloat16 && w_dtype == kFloat32)
-    err = launch<__nv_bfloat16, float>(x, w, y, rows, d, x_row_stride, eps, offset, s);
-  else if (x_dtype == kBFloat16 && w_dtype == kBFloat16)
-    err = launch<__nv_bfloat16, __nv_bfloat16>(x, w, y, rows, d, x_row_stride, eps, offset,
-                                               s);
+  if (x_dtype == kFloat32)
+    err = vec ? launch<float, true>(a, route) : launch<float, false>(a, route);
   else
-    return static_cast<int>(cudaErrorInvalidValue);
+    err = vec ? launch<__nv_bfloat16, true>(a, route) : launch<__nv_bfloat16, false>(a, route);
   return static_cast<int>(err);
 }
 

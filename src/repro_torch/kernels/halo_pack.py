@@ -31,7 +31,8 @@ wrapper's ``launches`` attribute counts the kernel launches it made
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence, Tuple
+import itertools
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -40,6 +41,8 @@ from .build import check_launch, load_library, stream_arg, use_plain
 
 MAX_SEGMENTS = 64       # members of one fused transfer (csrc kMaxSegments)
 MAX_RANKS = 65535       # ranks of one segment launch (grid z)
+TILE_BYTES = 4096       # a pack_segments tile: 256 threads x 16 bytes (csrc kTileBytes)
+_INT32_MAX = 2 ** 31 - 1
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -225,24 +228,78 @@ def _check_members(n_ranks: int, widths, cols, sizes) -> None:
                              f"{w} columns")
 
 
+def segment_tiles(sizes: Sequence[int], n_ranks: int,
+                  tile: int) -> Tuple[List[Tuple[int, int, int]], int]:
+    """The flat tile list of a segment launch.
+
+    Each member's row is cut into ``ceil(n_j / tile)`` tiles of ``tile``
+    columns; member j owns the CTAs ``[first_j, first_j + tiles_j *
+    n_ranks)``, rank-major, and a member without columns owns none.
+    Returns ``[(member index, tiles a rank, first CTA), ...]`` for the
+    members with columns, and the CTA count ``sum_j ceil(n_j / tile) *
+    n_ranks`` -- every CTA has columns to copy.
+    """
+    out, first = [], 0
+    for j, n in enumerate(sizes):
+        tiles = -(-n // tile)
+        if tiles and n_ranks:
+            out.append((j, tiles, first))
+            first += tiles * n_ranks
+    return out, first
+
+
+def vector_ok(src_addr: int, row_stride: int, dst_col: int, total: int,
+              out_addr: int, itemsize: int) -> bool:
+    """Whether a member may copy 16 bytes a thread: its source address
+    (at its first column), its source row stride, its staging column,
+    the staging row (``total`` columns) and the staging buffer's address
+    all keep 16-byte alignment.  Layout alone decides."""
+    return all(v % 16 == 0 for v in (src_addr, row_stride * itemsize, dst_col * itemsize,
+                                     total * itemsize, out_addr))
+
+
+def pack_plan(members: Sequence[Tuple[int, int, int]], n_ranks: int, itemsize: int,
+              out_addr: int) -> Tuple[List[Tuple[int, ...]], int]:
+    """The ``pack_segments`` launch: ``members[j] = (source address of
+    its first column, source row stride, size)``, addresses in bytes and
+    the rest in elements; members land at consecutive staging columns.
+    Returns the C table's rows ``(source address, row stride, staging
+    column, size, tiles a rank, first CTA, vector flag)`` of the members
+    with columns, and the CTA count (0: nothing to launch)."""
+    sizes = [n for _, _, n in members]
+    total = sum(sizes)
+    offsets = [0, *itertools.accumulate(sizes)][:-1]
+    tiles, n_ctas = segment_tiles(sizes, n_ranks, TILE_BYTES // itemsize)
+    if max([total, n_ctas] + [members[j][1] for j, _, _ in tiles]) > _INT32_MAX:
+        raise ValueError("a segment launch takes fewer than 2^31 CTAs, staging "
+                         "columns and source row strides")
+    rows = []
+    for j, n_tiles, first in tiles:
+        addr, stride, n = members[j]
+        rows.append((addr, stride, offsets[j], n, n_tiles, first,
+                     int(vector_ok(addr, stride, offsets[j], total, out_addr, itemsize))))
+    return rows, n_ctas
+
+
 def pack_segments(sources: Sequence[Tuple[torch.Tensor, int]],
                   sizes: Sequence[int]) -> torch.Tensor:
     """Pack N members into one ``(R, sum(sizes))`` staging buffer.
 
     ``sources[j] = (tensor, col)``: member ``j`` is columns ``[col, col
     + sizes[j])`` of the 2-D ``(R, W)`` tensor — a slab flattened per
-    rank, or a segment of an earlier hop's received buffer.  The offsets
-    and sizes of all members travel in one by-value argument table, so
-    the whole fused transfer is ONE launch.  Bound: each member byte
-    read once and written once; at Faces sizes (a face and eight
-    edges/corners, ~66 KiB a rank) launch latency dominates.
+    rank, or a segment of an earlier hop's received buffer.  The whole
+    fused transfer is ONE launch over the flat tile list of
+    :func:`pack_plan` (no idle CTA; 16-byte copies where
+    :func:`vector_ok` allows), its member table by value.  Bound: each
+    member byte read once and written once; at Faces sizes (a face and
+    eight edges/corners, ~66 KiB a rank) launch latency dominates.
     """
     sources = list(sources)
     sizes = [int(n) for n in sizes]
     if len(sources) != len(sizes):
         raise ValueError("one size per member")
     tensors = [t for t, _ in sources]
-    if any(t.dim() != 2 or t.stride(1) != 1 for t in tensors):
+    if any(t.dim() != 2 or t.stride(1) != 1 and t.shape[1] > 1 for t in tensors):
         raise ValueError("segment sources are 2-D (ranks, columns) with unit "
                          "column stride")
     n_ranks = tensors[0].shape[0] if tensors else 0
@@ -255,16 +312,17 @@ def pack_segments(sources: Sequence[Tuple[torch.Tensor, int]],
     if use_plain(*tensors):
         return ref.pack_segments(sources, sizes)
     code = _dtype_code(*tensors, contiguous=False)
-    total = sum(sizes)
-    out = torch.empty((n_ranks, total), dtype=tensors[0].dtype,
+    out = torch.empty((n_ranks, sum(sizes)), dtype=tensors[0].dtype,
                       device=tensors[0].device)
-    rows, off = [], 0
-    for (t, col), n in zip(sources, sizes):
-        rows += [t.data_ptr(), t.stride(0), col, off, n]
-        off += n
-    table = (ctypes.c_int64 * len(rows))(*rows)
-    err = _lib().rt_pack_segments(code, table, len(sizes), out.data_ptr(),
-                                  n_ranks, total, stream_arg(out))
+    itemsize = out.element_size()
+    rows, n_ctas = pack_plan([(t.data_ptr() + col * itemsize, t.stride(0), n)
+                              for (t, col), n in zip(sources, sizes)],
+                             n_ranks, itemsize, out.data_ptr())
+    if n_ctas == 0:
+        return out
+    table = (ctypes.c_int64 * (7 * len(rows)))(*(v for r in rows for v in r))
+    err = _lib().rt_pack_segments(code, table, len(rows), out.data_ptr(), n_ctas,
+                                  out.shape[1], stream_arg(out))
     check_launch("halo_pack", err)
     pack_segments.launches += 1
     return out

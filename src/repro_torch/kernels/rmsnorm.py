@@ -1,10 +1,17 @@
-"""Hopper kernel of RMSNorm: wrapper and launch counter.
+"""Hopper kernel of RMSNorm: wrapper, route rule and launch counter.
 
 The hand-written CUDA kernel ``csrc/rmsnorm.cu`` (built for ``sm_90a``
 at first use by :mod:`.build`) replaces ``rmsnorm_call``
 (``src/repro/kernels/rmsnorm.py:28``), which the JAX package reaches
 through ``kernels/ops.py:rmsnorm``.  It is bound by bytes (each row read
 and written once); the source says how its design meets that.
+
+It has two routes, which :func:`route` picks from ``(rows, d, dtype)``
+alone: ``"rows"`` (many rows: a warp walks rows, w held in registers)
+and ``"team"`` (few rows, or wide ones: a CTA of several warps per
+row).  Both add a row's squares in the order :func:`partition` fixes
+from d alone, so a row's output is the same bits whatever route, row
+count or row stride it was launched with.
 
 For CPU tensors the wrapper runs the plain version (:func:`.ref.rmsnorm`),
 and only then; for CUDA tensors it launches the kernel or raises.
@@ -15,7 +22,7 @@ recorded into a CUDA graph counts once, at capture).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -25,7 +32,38 @@ from .build import check_launch, load_library, stream_arg, use_plain
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 #: the C entry point of ``csrc/rmsnorm.cu`` and its argument types
-SIGNATURES = {"rt_rmsnorm": [_I, _I, _P, _P, _P, _I64, _I, _I64, _F, _F, _P]}
+SIGNATURES = {"rt_rmsnorm": [_I, _I, _P, _P, _P, _I64, _I, _I64, _F, _F, _I, _P]}
+
+GROUP = 8                 # elements of a group (csrc kGroup)
+ROUTES = ("rows", "team")  # the C route codes 0 and 1
+ROWS_ROUTE_MIN_ROWS = 1024
+#: the most groups a lane of the rows route holds (csrc ``launch``)
+ROWS_ROUTE_MAX_LANE_GROUPS = {torch.bfloat16: 8, torch.float32: 4}
+MAX_D = 32 * 32 * 4 * GROUP   # 32 warps of a team, 4 groups a thread
+
+
+def _pow2ceil(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def partition(d: int) -> Tuple[int, int]:
+    """``(groups, slots)`` of a row of width d: the row is cut into
+    ``groups = ceil(d / 8)`` groups of 8 columns, and group g adds its
+    squares to slot ``g mod slots``, ``slots = 32 K`` with ``K =
+    min(32, pow2ceil(ceil(groups / 64)))``.  The kernel's sum of squares
+    follows it on both routes (``csrc/rmsnorm.cu`` says the tree)."""
+    groups = -(-d // GROUP)
+    return groups, 32 * min(32, _pow2ceil(-(-groups // 64)))
+
+
+def route(rows: int, d: int, dtype: torch.dtype) -> str:
+    """``"rows"`` when there are enough rows to give every SM several
+    warps and a lane can hold its share of a row (d up to 2048 in bf16,
+    1024 in float32); ``"team"`` otherwise."""
+    lane_groups = _pow2ceil(-(-partition(d)[0] // 32))
+    if rows >= ROWS_ROUTE_MIN_ROWS and lane_groups <= ROWS_ROUTE_MAX_LANE_GROUPS[dtype]:
+        return "rows"
+    return "team"
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
@@ -34,9 +72,10 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
     dimension of ``x`` (any leading dimensions), statistics in float32,
     returned in x's dtype as a new contiguous tensor.
 
-    On the card, ONE launch normalises every row, a warp per row.  x may
-    be a strided view whose leading dimensions merge into one row axis
-    (unit stride in the last); the kernel reads it in place.
+    On the card, ONE launch normalises every row, on the route of
+    :func:`route`.  x may be a strided view whose leading dimensions
+    merge into one row axis (unit stride in the last); the kernel reads
+    it in place.
     """
     d = x.shape[-1] if x.dim() else 0
     if x.dim() == 0 or tuple(w.shape) != (d,):
@@ -47,8 +86,8 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
     if x.dtype not in _DTYPE_CODE or w.dtype not in _DTYPE_CODE:
         raise TypeError(f"the rmsnorm kernel takes float32 or bfloat16, got x "
                         f"{x.dtype} and w {w.dtype}")
-    if d >= 2 ** 31:
-        raise ValueError(f"the rmsnorm kernel takes d < 2^31, got {d}")
+    if d > MAX_D:
+        raise ValueError(f"the rmsnorm kernel takes d <= {MAX_D}, got {d}")
     try:
         x2 = x.view(-1, d)
     except RuntimeError:
@@ -58,10 +97,13 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
         raise ValueError("the rmsnorm kernel takes unit stride along d and a "
                          "contiguous w")
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    rows = x2.shape[0]
+    if rows == 0:
+        return y
     err = load_library("rmsnorm", SIGNATURES).rt_rmsnorm(
         _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], x2.data_ptr(), w.data_ptr(),
-        y.data_ptr(), x2.shape[0], d, x2.stride(0), float(eps), float(weight_offset),
-        stream_arg(x))
+        y.data_ptr(), rows, d, x2.stride(0), float(eps), float(weight_offset),
+        ROUTES.index(route(rows, d, x.dtype)), stream_arg(x))
     check_launch("rmsnorm", err)
     rmsnorm.launches += 1
     return y

@@ -6,7 +6,9 @@ the SSD scan, flash attention and RMSNorm in float32 within the repo's
 kernel-vs-reference bounds (rtol 2e-4 / atol 3e-5; RMSNorm 2e-5 /
 1e-5), and in bfloat16 within one rounding of the output (2^-8 of the
 two results' magnitudes); flash attention's cases say which of its two
-kernels (routes) each must take.  The engines' CUDA graphs and the
+kernels (routes) each must take.  An RMSNorm row must come out the
+same bits whatever rows, row stride and alignment it is launched with.
+The engines' CUDA graphs and the
 serve engines (mamba2 and gemma3 smoke models) are held against the CPU
 run of the same program, and a warm serve prefill must be one graph
 launch equal to the eager prefill bit for bit.  This file imports no JAX, so it runs on a GPU
@@ -76,20 +78,45 @@ def test_halo_kernels_equal_plain(cuda, region, dtype):
     assert after["halo_unpack_add"] == before["halo_unpack_add"] + 1
 
 
+SEG_SIZES = (16384, 127, 3, 1, 0)
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("n_ranks", [1, 8])
+@pytest.mark.parametrize("n_members", [1, 9, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_segment_kernels_equal_plain(cuda, dtype):
-    recv = _randn((4, 40), dtype, cuda, 2)
-    slab = _randn((4, 3, 5), dtype, cuda, 3).view(4, -1)
-    sources, sizes = [(slab, 0), (recv, 7), (recv, 0), (slab, 14)], [15, 9, 1, 1]
+def test_segment_kernels_equal_plain(cuda, dtype, n_members, n_ranks, aligned):
+    """Even members are slabs (read from column 0, 1 or 2), odd ones
+    relays: column ranges of a received buffer read through a strided
+    view, at columns that keep 16-byte alignment or not; member sizes
+    cycle through SEG_SIZES.  The unpack reads the staged buffer back at
+    arbitrary offsets (gaps and overlaps), with and without masks."""
+    sizes = [SEG_SIZES[j % len(SEG_SIZES)] for j in range(n_members)]
+    step, lead, pad = (8, 0, 8) if aligned else (8, 1, 3)
+    relays = [j for j in range(n_members) if j % 2]
+    cols, col = {}, lead
+    for j in relays:
+        cols[j] = col
+        col += -(-sizes[j] // step) * step + step
+    width = col + step
+    recv = _randn((n_ranks, width + pad), dtype, cuda, 2)[:, :width]
+    sources = [(recv, cols[j]) if j % 2 else
+               (_randn((n_ranks, sizes[j] + j % 3), dtype, cuda, 3 + j), j % 3)
+               for j in range(n_members)]
+    before = hk.pack_segments.launches
     staged = hk.pack_segments(sources, sizes)
+    assert hk.pack_segments.launches == before + 1
     assert torch.equal(staged, ref.pack_segments(sources, sizes))
-    masks = torch.tensor([[True, False, True, True], [False] * 4,
-                          [True] * 4], device=cuda)
+
+    total = sum(sizes)
+    offsets = [(37 * j) % (total - n + 1) for j, n in enumerate(sizes)]
+    gen = torch.Generator().manual_seed(n_members)
+    masks = (torch.rand(n_members, n_ranks, generator=gen) < 0.5).to(cuda)
     for m in (None, masks):
-        got = [torch.full((4, n), -1.0, dtype=dtype, device=cuda) for n in (5, 3, 2)]
+        got = [torch.full((n_ranks, n), -1.0, dtype=dtype, device=cuda) for n in sizes]
         want = [t.clone() for t in got]
-        hk.unpack_segments(staged, got, [0, 5, 20], m)
-        ref.unpack_segments(staged, want, [0, 5, 20], m)
+        hk.unpack_segments(staged, got, offsets, m)
+        ref.unpack_segments(staged, want, offsets, m)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
 
@@ -300,9 +327,13 @@ def _bf16_close(got: torch.Tensor, want: torch.Tensor) -> bool:
     return bool(((g - w).abs() <= 2.0 ** -8 * (g.abs() + w.abs()) + 1e-6).all())
 
 
+NORM_SHAPES = [(37, 1152), (101, 256), (7, 2560), (3, 1000)] + [
+    (rows, d) for rows in (1, 4, 16, 4097) for d in (256, 1152, 2560, 5120)]
+
+
 @pytest.mark.parametrize("offset", [0.0, 1.0])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,d", [(37, 1152), (101, 256), (7, 2560), (3, 1000)])
+@pytest.mark.parametrize("rows,d", NORM_SHAPES)
 def test_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype, offset):
     x = _randn((rows, d), dtype, cuda, 7)
     w = _randn((d,), torch.float32, cuda, 8)
@@ -314,6 +345,24 @@ def test_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype, offset):
         torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-5)
     else:
         assert _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "stride+24", "stride+3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [256, 1000, 1152, 2560, 5120])
+def test_rmsnorm_rows_are_independent(cuda, d, dtype, layout):
+    """A row's output is the same bits whatever rows are launched with it
+    (4097 rows take the rows route up to d 2048 in bf16, 1024 in float32;
+    1, 4 and 16 the team route) and whatever its row stride and
+    alignment (an odd stride takes element loads)."""
+    extra = {"contiguous": 0, "stride+24": 24, "stride+3": 3}[layout]
+    x = _randn((4097, d + extra), dtype, cuda, 11)[:, :d]
+    w = _randn((d,), torch.float32, cuda, 12)
+    full = rk.rmsnorm(x, w, weight_offset=1.0)
+    for k in (1, 4, 16, 1500):
+        assert torch.equal(rk.rmsnorm(x[:k], w, weight_offset=1.0), full[:k])
+    assert torch.equal(rk.rmsnorm(x.contiguous(), w, weight_offset=1.0), full)
+    assert torch.equal(rk.rmsnorm(x[1:], w, weight_offset=1.0), full[1:])
 
 
 def test_rmsnorm_kernel_reads_strided_rows_and_leading_dims(cuda):
@@ -434,6 +483,9 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="merge"):
         rk.rmsnorm(torch.zeros(4, 6, 64, device=cuda).transpose(0, 1),
                    torch.zeros(64, device=cuda))
+    with pytest.raises(ValueError, match="d <="):
+        rk.rmsnorm(torch.zeros(2, rk.MAX_D + 1, device=cuda),
+                   torch.zeros(rk.MAX_D + 1, device=cuda))
     regions = [_region_for(d, (4, 4, 4)) for d in DIRECTIONS]
     u = torch.zeros(2, 4, 4, 4, device=cuda)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
