@@ -26,11 +26,17 @@ a checkout of the repository.  Phases, each of which must pass:
    to 0 just before), and require the first iteration and the tenth
    equal to the host engine's bit for bit;
 5. hold each halo and boundary kernel against its plain PyTorch version
-   on the main path's shapes, bit for bit (the boundary pair on each of
-   the 8 rank blocks and on a bf16 block; ``pack_segments`` also on a
-   relay-heavy bf16 member set at unaligned columns), and time kernel,
-   plain version and one PyTorch call for the same function (CUDA
-   events, median);
+   on the main path's shapes, bit for bit (``halo_pack`` and
+   ``halo_unpack_add`` on all 26 regions, the unpack in float32 and
+   bf16; the boundary pair on each of the 8 rank blocks and on a bf16
+   block, ``pack_boundary`` also on the whole field in both dtypes;
+   ``pack_segments`` also on a relay-heavy bf16 member set at unaligned
+   columns), and time kernel, plain version and one PyTorch call for
+   the same function (CUDA events, median); ``halo_unpack_add`` also on
+   one region of each class (x-, y- and z-face, edges along x, y and z,
+   corner) against a slice ``add_``, with two bounds: the useful bytes
+   and the 32-byte sectors the region touches (``sector_bound_ms``, also
+   in the unpack's and ``pack_boundary``'s rows of the kernels line);
 6. serve mamba2-2.7b at full width and depth (64 layers, d_model 2560,
    80 SSD heads of 64, state 128, vocab 50 280, bf16 compute, float32
    parameters from ``torch.Generator(seed)``): 4 slots, 512-token
@@ -113,6 +119,10 @@ REPLACES = {
     "ssd_scan": "src/repro/kernels/ssd_scan.py:80",
 }
 FACES_KERNELS = ("halo_pack", "halo_unpack_add", "pack_segments", "unpack_segments")
+# one region of each class the Faces loop unpacks, by its DIRECTIONS entry
+UNPACK_CLASSES = {"face_x": (1, 0, 0), "face_y": (0, 1, 0), "face_z": (0, 0, 1),
+                  "edge_along_x": (0, 1, 1), "edge_along_y": (1, 0, 1),
+                  "edge_along_z": (1, 1, 0), "corner": (1, 1, 1)}
 SERVE = dict(batch=4, prompt_len=512, gen_len=32)          # mamba2-2.7b
 DENSE_SERVE = dict(batch=4, prompt_len=1024, gen_len=32)   # gemma3-1b
 
@@ -270,6 +280,19 @@ def kernel_row(torch, name, source, err, fn, plain, library, n_bytes, n_ops, ops
     }
 
 
+def sector_bound_ms(torch, u, regions, passes, packed_bytes) -> float:
+    """The least time for a kernel that moves ``regions`` of ``u`` in
+    whole 32-byte sectors: the distinct sectors of ``u`` the regions
+    touch, each moved ``passes`` times (read, or read and written), and
+    ``packed_bytes`` of a contiguous packed buffer, over the memory
+    rate.  A strided region touches a sector for each element (a z-face
+    of 4-byte elements: 8 times its useful bytes)."""
+    index = torch.arange(u.numel(), device=u.device).view(u.shape)
+    addrs = torch.cat([index[(..., *r)].flatten() for r in regions])
+    sectors = torch.unique((u.data_ptr() + addrs * u.element_size()) // 32).numel()
+    return (passes * 32 * sectors + packed_bytes) / HBM_BYTES_PER_S * 1e3
+
+
 def run_contiguous(torch, cfg, u0, first, last, hk):
     """Phase 4: the same iterations through one contiguous buffer per rank
     (``faces_step_contiguous``), counters set to 0 just before and read
@@ -323,15 +346,19 @@ def check_kernels(torch, prog, u, hk, ref):
         return kernel_row(torch, name, "halo_pack.cu", errs[name], fn, plain, library,
                           n_bytes, n_ops, FP32_OPS_PER_S)
 
-    # halo_pack / halo_unpack_add: a face, an edge and a corner, bit for
-    # bit; timed on a face (the largest region the path packs)
-    for d in [(1, 0, 0), (0, -1, 1), (1, 1, -1), (-1, 0, 0)]:
+    # halo_pack / halo_unpack_add: all 26 regions, bit for bit (the
+    # unpack also on the field in bf16); timed on a face (the largest
+    # region the path packs), the unpack also on one region of each class
+    ub = u.bfloat16()
+    for d in DIRECTIONS:
         region = _region_for(d, points)
         same("halo_pack", [hk.halo_pack(u, region)], [ref.halo_pack(u, region)],
              f"direction {d}")
-        msg = ref.halo_pack(torch.roll(u, 1, 0), region)
-        same("halo_unpack_add", [hk.halo_unpack_add(u.clone(), msg, region)],
-             [ref.halo_unpack_add(u.clone(), msg, region)], f"direction {d}")
+        for field in (u, ub):
+            msg = ref.halo_pack(torch.roll(field, 1, 0), region)
+            same("halo_unpack_add", [hk.halo_unpack_add(field.clone(), msg, region)],
+                 [ref.halo_unpack_add(field.clone(), msg, region)],
+                 f"direction {d}, {field.dtype}")
     rows = []
     face = _region_for((1, 0, 0), points)
     slab = ref.halo_pack(u, face)
@@ -346,11 +373,26 @@ def check_kernels(torch, prog, u, hk, ref):
                     lambda: ref.halo_unpack_add(acc, slab, face),
                     lambda: acc_view.add_(slab), 3 * slab.numel() * itemsize,
                     n_ops=slab.numel()))
+    rows[-1]["sector_bound_ms"] = sector_bound_ms(torch, u, [face], 2, slab.numel() * itemsize)
+    by_class = {}
+    for name, d in UNPACK_CLASSES.items():
+        region = _region_for(d, points)
+        msg = ref.halo_pack(u, region)
+        part = acc[(..., *region)]
+        by_class[name] = {
+            "elements": msg.numel(),
+            "ms": median_ms(torch, lambda: hk.halo_unpack_add(acc, msg, region)),
+            "library_ms": median_ms(torch, lambda: part.add_(msg)),
+            "bound_ms": 3 * msg.numel() * itemsize / HBM_BYTES_PER_S * 1e3,
+            "sector_bound_ms": sector_bound_ms(torch, u, [region], 2,
+                                               msg.numel() * itemsize)}
+    print(json.dumps({"halo_unpack_add_by_class": by_class}), flush=True)
 
     # pack_boundary / unpack_boundary_add: each of the 8 rank blocks of the
     # field and a bf16 block, bit for bit (the received buffer: the packed
-    # one reversed); timed on the whole field, all ranks in one launch, as
-    # the one-buffer path calls them
+    # one reversed), and pack_boundary on the whole field in float32 and
+    # bf16; timed on the whole field, all ranks in one launch, as the
+    # one-buffer path calls them
     send = [_region_for(d, points) for d in DIRECTIONS]
     back = [_region_for(tuple(-x for x in d), points) for d in DIRECTIONS]
     blocks = [u[g] for g in np.ndindex(*u.shape[:-3])] + [u[(0,) * (u.dim() - 3)].bfloat16()]
@@ -360,6 +402,10 @@ def check_kernels(torch, prog, u, hk, ref):
         msg = torch.flip(buf, [-1])
         same("unpack_boundary_add", [hk.unpack_boundary_add(blk.clone(), msg, back)],
              [ref.unpack_boundary_add(blk.clone(), msg, back)], f"block {i}")
+    for field in (u, ub):
+        same("pack_boundary", [hk.pack_boundary(field, send)],
+             [ref.pack_boundary(field, send)], f"the field in {field.dtype}")
+    del ub
     sent = hk.pack_boundary(u, send)
     flats = [u[(..., *r)].flatten(-3) for r in send]
     shell = torch.zeros(points, dtype=torch.bool)
@@ -369,6 +415,7 @@ def check_kernels(torch, prog, u, hk, ref):
     rows.append(row("pack_boundary", lambda: hk.pack_boundary(u, send),
                     lambda: ref.pack_boundary(u, send),
                     lambda: torch.cat(flats, dim=-1), 2 * n_ranks * total * itemsize))
+    rows[-1]["sector_bound_ms"] = sector_bound_ms(torch, u, send, 1, sent.numel() * itemsize)
     acc = u.clone()
     rows.append(row("unpack_boundary_add", lambda: hk.unpack_boundary_add(acc, sent, back),
                     lambda: ref.unpack_boundary_add(acc, sent, back), None,
@@ -1036,7 +1083,8 @@ def main() -> int:
     require(sorted(r["name"] for r in rows) == sorted(REPLACES), "a kernel row is missing")
     require(all(r["launches"] > 0 for r in rows), "a kernel was not launched on its path")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "earlier_ms", "decode")
+             "ms", "plain_ms", "bound_ms", "bound_by", "sector_bound_ms", "library_ms",
+             "earlier_ms", "decode")
     print(json.dumps({"kernels": [{k: r[k] for k in order if k in r} for r in rows]}))
     print(f"card: {gpu_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -10,15 +10,18 @@
 //
 // One GPU holds every rank: each launch covers all ranks of a buffer laid
 // out as (ranks..., px, py, pz) or (ranks, columns).  Each kernel is a
-// strided copy (plus one float add for the unpack) at static offsets, so it
+// strided copy (plus one float add for the unpacks) at static offsets, so it
 // is bound by the bytes it moves -- each element read once and written once
-// against 3.35 TB/s on an H100 SXM -- and, at Faces slab sizes (a 128^2 face
-// is 64 KiB a rank), by launch latency of a few microseconds.  The design
-// answers both simply: one thread per element with the fastest index along
-// pz (coalesced), a grid-stride loop, and ONE launch for all ranks and, for
-// the segment kernels, all members of a fused transfer, whose offsets and
-// sizes travel by value in a small argument table (pack_segments instead
-// launches a flat list of 16-byte-a-thread tiles, below).  Nothing is
+// against 3.35 TB/s on an H100 SXM -- or, where a region is strided in the
+// block, by the 32-byte sectors it touches (a z-face touches one sector per
+// 4-byte element); and, at Faces slab sizes (a 128^2 face is 64 KiB a rank),
+// by launch latency of a few microseconds.  Every kernel makes ONE launch
+// for all ranks and, for the segment and boundary kernels, all members or
+// regions of a call, whose offsets and sizes travel by value in a small
+// argument table.  halo_pack, unpack_segments and unpack_boundary_add take
+// one thread per element over a grid-stride loop.  pack_segments launches a
+// flat list of 16-byte-a-thread tiles over columns, and halo_unpack_add and
+// pack_boundary a flat list of such tiles over boxes (below).  Nothing is
 // allocated; every kernel runs on the caller's stream, and each entry point
 // returns cudaGetLastError() so the Python wrapper raises on a refused launch.
 //
@@ -28,18 +31,17 @@
 //
 // The boundary pair moves all regions of a block (the 26 faces, edges and
 // corners, in DIRECTIONS order) to and from ONE buffer at static offsets,
-// every rank in one launch: grid x over a region's elements, y = region,
-// z = rank, the regions' boxes and offsets by value in a table.  The
-// unpack's regions overlap (a face holds its edges and corners), and the
-// reference adds them in region order, rounding to the block's dtype after
-// each add.  A parallel scatter of the segments would race and reorder
-// those adds, so each element of the union is OWNED by the thread of the
-// first region that covers it: that thread walks the later regions that
-// cover the element, in order, and adds each one's value, rounding after
-// each add -- the reference's sequence, bit for bit, with no atomics.  A
-// thread whose element an earlier region covers does nothing.  Bound:
-// bytes (each region element read once and written once, ~0.8 MB a rank
-// for a 128^3 float32 block), so launch latency at these sizes.
+// every rank in one launch.  The pack is a box launch (below).  The
+// unpack's grid is x over a region's elements, y = region, z = rank, the
+// regions' boxes and offsets by value in a table.  Its regions overlap (a
+// face holds its edges and corners), and the reference adds them in region
+// order, rounding to the block's dtype after each add.  A parallel scatter
+// of the segments would race and reorder those adds, so each element of the
+// union is OWNED by the thread of the first region that covers it: that
+// thread walks the later regions that cover the element, in order, and adds
+// each one's value, rounding after each add -- the reference's sequence, bit
+// for bit, with no atomics.  A thread whose element an earlier region covers
+// does nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,16 +97,6 @@ __global__ void halo_pack_kernel(const T* __restrict__ u, T* __restrict__ out,
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
     out[i] = u[box_offset(b, i)];
-  }
-}
-
-template <typename T>
-__global__ void halo_unpack_add_kernel(T* __restrict__ u, const T* __restrict__ msg,
-                                       int64_t n, Box b) {
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t o = box_offset(b, i);
-    u[o] = from_float<T>(to_float(u[o]) + to_float(msg[i]));
   }
 }
 
@@ -221,21 +213,233 @@ __device__ __forceinline__ bool covers(const Region& g, int x, int y, int z) {
          z < g.z0 + g.rz;
 }
 
-// grid: x over region y's elements, y = region, z = rank.
-template <typename T>
-__global__ void pack_boundary_kernel(const T* __restrict__ u, T* __restrict__ out,
-                                     RegionTable tab, int px, int py, int pz, int total) {
-  const Region& g = tab.r[blockIdx.y];
-  const int64_t rank = blockIdx.z;
-  const T* blk = u + rank * static_cast<int64_t>(px) * py * pz;
-  T* dst = out + rank * static_cast<int64_t>(total) + g.off;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < g.size; i += gridDim.x * blockDim.x) {
-    const int c = i % g.rz;
-    const int e = i / g.rz;
-    const int y = e % g.ry;
-    const int x = e / g.ry;
-    dst[i] = blk[(static_cast<int64_t>(g.x0 + x) * py + (g.y0 + y)) * pz + (g.z0 + c)];
+// Box launches (halo_unpack_add, pack_boundary): a region of every rank's
+// block and its packed copy (msg, or the region's segment of the boundary
+// buffer), planned by the wrapper (kernels/halo_pack.py: box_plan,
+// boundary_plan).  The region's box is in (outer, run) form: element c of
+// run b of slab a lies at base + a * slab_stride + b * run_stride + c of a
+// rank's block, and at (a * runs + b) * run + c of the rank's packed copy.
+// The plan merges dimensions wherever the box is contiguous (an x-face is
+// one run of py * pz; a y-face px runs of pz; a z-face, the edges along x
+// and y and the corners runs of 1 at a stride).  Each slab is cut into
+// tiles of kTileBytes and listed flat: the grid is (CTAs a rank, ranks), and
+// CTA k of a row is tile k % tiles of slab k / tiles, so the grid is exactly
+// the tile count and no CTA is idle (the old grids gave one thread per
+// element, or max region x regions x ranks CTAs: 13 312 for the 26 regions
+// of a 128^3 block of 8 ranks, 3 232 of them with elements; now 116 x 8 =
+// 928, all with elements).  A CTA decodes its slab and tile once (a division
+// only for a box of several slabs, which no Faces region is); an element's
+// run comes from the plan's multiplier for `run` (one 64-bit multiply and a
+// shift): no division by a runtime value on the path of the Faces regions,
+// none per element.  A tile is 256 threads x 16 bytes.  Where both flags
+// hold (kPackedVec: the packed side keeps 16-byte alignment; kBoxVec: so
+// does the box side, and runs are whole 16-byte words -- x- and y-faces,
+// edges along z), a thread moves 16 consecutive bytes with one load and one
+// store on each side.  Elsewhere:
+//   - halo_unpack_add gives a thread the elements start + threadIdx.x +
+//     e * 256 (e < V), coalesced on msg, and issues all of its loads of msg
+//     and u before the first add: on a z-face, V independent sector loads
+//     of u in flight a thread;
+//   - pack_boundary gives a thread V consecutive packed elements, gathers
+//     them with V independent loads and stores them with one 16-byte store
+//     where kPackedVec holds (a z-face, edges along x and y).
+// Both take raw 32- or 16-bit words, so a copy is exact whatever the values.
+constexpr int kPackedVec = 1;
+constexpr int kBoxVec = 2;
+
+struct BoxRow {
+  int base;            // the box's first element in a rank's block
+  int run;             // contiguous elements of a run
+  int runs;            // runs a slab
+  int run_stride;      // elements between two runs in the block
+  int slabs;           // slabs a rank
+  int slab_stride;     // elements between two slabs in the block
+  int offset;          // the box's first element in a rank's packed row
+  int tiles;           // tiles a slab
+  int flags;           // kPackedVec | kBoxVec
+  unsigned run_magic;  // p / run == (p * run_magic) >> run_shift, p < 2^31
+  int run_shift;
+};
+constexpr int kBoxFields = 11;
+
+// A CTA's tile: the first element of its slab in the block and in the
+// packed buffer, the tile's first packed element in the slab, and the
+// slab's packed elements.
+struct Tile {
+  int64_t box, packed;
+  int start, n;
+};
+
+template <int V>
+__device__ __forceinline__ Tile tile_of(const BoxRow& g, int local, int block,
+                                        int packed_stride) {
+  const int rank = blockIdx.y;
+  int a = 0;
+  if (g.slabs > 1) {
+    a = local / g.tiles;
+    local -= a * g.tiles;
   }
+  Tile t;
+  t.n = g.runs * g.run;
+  t.box = static_cast<int64_t>(rank) * block + g.base + a * g.slab_stride;
+  t.packed = static_cast<int64_t>(rank) * packed_stride + g.offset + a * t.n;
+  t.start = local * (kTileBytes / 16 * V);
+  return t;
+}
+
+// Packed element p of a slab, in the block (from the slab's first element):
+// its run by the plan's multiplier, then its column.
+__device__ __forceinline__ int box_index(const BoxRow& g, int p) {
+  const int b = static_cast<int>((static_cast<uint64_t>(p) * g.run_magic) >> g.run_shift);
+  return b * g.run_stride + (p - b * g.run);
+}
+
+// V raw words (float32 or bfloat16 bits) as one 16-byte access.
+template <typename E>
+constexpr int kVec = 16 / sizeof(E);
+template <typename E>
+union Words {
+  uint4 v;
+  E e[kVec<E>];
+};
+
+// a + b on raw words: float32, or bfloat16 added in float32 and rounded once.
+__device__ __forceinline__ uint32_t add_words(uint32_t a, uint32_t b) {
+  return __float_as_uint(__fadd_rn(__uint_as_float(a), __uint_as_float(b)));
+}
+__device__ __forceinline__ uint16_t add_words(uint16_t a, uint16_t b) {
+  const float x = __fadd_rn(__bfloat162float(__ushort_as_bfloat16(a)),
+                            __bfloat162float(__ushort_as_bfloat16(b)));
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+constexpr int kBothVec = kPackedVec | kBoxVec;
+
+// u[region] += msg, msg a (ranks, *region) slab of msg_stride elements a rank.
+template <typename E>
+__global__ void __launch_bounds__(kPackThreads)
+    halo_unpack_add_kernel(E* __restrict__ u, const E* __restrict__ msg, const BoxRow g,
+                           int block, int msg_stride) {
+  constexpr int V = kVec<E>;
+  const Tile t = tile_of<V>(g, blockIdx.x, block, msg_stride);
+  if (g.flags == kBothVec) {  // 16 bytes a thread on both sides (n % V == 0)
+    const int p = t.start + static_cast<int>(threadIdx.x) * V;
+    if (p >= t.n) return;
+    uint4* x = reinterpret_cast<uint4*>(u + t.box + box_index(g, p));
+    Words<E> a, b;
+    b.v = __ldg(reinterpret_cast<const uint4*>(msg + t.packed + p));
+    a.v = *x;
+#pragma unroll
+    for (int e = 0; e < V; ++e) a.e[e] = add_words(a.e[e], b.e[e]);
+    *x = a.v;
+    return;
+  }
+  // element by element: element e of a thread is packed element start +
+  // threadIdx.x + e * kPackThreads (coalesced on the packed side); every
+  // load issued before the first add
+  int o[V];
+  E x[V] = {}, m[V] = {};
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    const int p = t.start + static_cast<int>(threadIdx.x) + e * kPackThreads;
+    o[e] = p < t.n ? box_index(g, p) : -1;
+    if (o[e] >= 0) {
+      m[e] = __ldg(msg + t.packed + p);
+      x[e] = u[t.box + o[e]];
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < V; ++e)
+    if (o[e] >= 0) u[t.box + o[e]] = add_words(x[e], m[e]);
+}
+
+// pack_boundary: the rows of the regions with elements, first CTAs
+// increasing; a CTA finds its row by a binary search of `first` (uniform, in
+// the parameter bank).  CAP: the rows a launch can take (32: 1 536 bytes of
+// parameters; 64: 3 072).
+template <int CAP>
+struct BoxTable {
+  int first[CAP];
+  BoxRow g[CAP];
+};
+
+template <typename E, int CAP>
+__global__ void __launch_bounds__(kPackThreads)
+    pack_boundary_kernel(const __grid_constant__ BoxTable<CAP> tab, int nrows,
+                         const E* __restrict__ u, E* __restrict__ out, int block, int total) {
+  constexpr int V = kVec<E>;
+  const int k = blockIdx.x;
+  int lo = 0, hi = nrows - 1;  // the last row whose first CTA is <= k
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (tab.first[mid] <= k)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  const BoxRow& g = tab.g[lo];
+  const Tile t = tile_of<V>(g, k - tab.first[lo], block, total);
+  const int p = t.start + static_cast<int>(threadIdx.x) * V;
+  if (p >= t.n) return;
+  if (g.flags == kBothVec) {  // 16 bytes a thread on both sides (n % V == 0)
+    *reinterpret_cast<uint4*>(out + t.packed + p) =
+        __ldg(reinterpret_cast<const uint4*>(u + t.box + box_index(g, p)));
+    return;
+  }
+  // gather: V independent loads, then one 16-byte store where the packed
+  // row keeps alignment (a z-face, the edges along x and y)
+  const int count = min(V, t.n - p);
+  Words<E> w{};
+#pragma unroll
+  for (int e = 0; e < V; ++e)
+    if (e < count) w.e[e] = __ldg(u + t.box + box_index(g, p + e));
+  E* dst = out + t.packed + p;
+  if (count == V && (g.flags & kPackedVec)) {
+    *reinterpret_cast<uint4*>(dst) = w.v;
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      if (e < count) dst[e] = w.e[e];
+  }
+}
+
+// A row of the wrapper's plan, checked: every field in range, the counts
+// positive.
+bool read_row(const long long* row, BoxRow& g) {
+  for (int f = 0; f < kBoxFields; ++f)
+    if (row[f] < 0 || row[f] > (f == 9 ? 0xffffffffLL : 0x7fffffffLL)) return false;
+  g = BoxRow{static_cast<int>(row[0]), static_cast<int>(row[1]), static_cast<int>(row[2]),
+             static_cast<int>(row[3]), static_cast<int>(row[4]), static_cast<int>(row[5]),
+             static_cast<int>(row[6]), static_cast<int>(row[7]), static_cast<int>(row[8]),
+             static_cast<unsigned>(row[9]), static_cast<int>(row[10])};
+  return g.run >= 1 && g.runs >= 1 && g.slabs >= 1 && g.tiles >= 1 && g.flags <= 3 &&
+         g.run_shift >= 31 && g.run_shift <= 62;
+}
+
+template <int CAP>
+int pack_boundary_launch(int dtype, const void* u, void* out, const long long* table,
+                         int nrows, int block, int total, int n_ctas, int n_ranks,
+                         void* stream) {
+  if ((dtype != kFloat32 && dtype != kBFloat16) || nrows < 1 || nrows > CAP || n_ctas < 1 ||
+      n_ranks < 1 || n_ranks > 65535 || block < 1 || total < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BoxTable<CAP> tab{};
+  for (int j = 0; j < nrows; ++j) {
+    const long long* row = table + (kBoxFields + 1) * j;
+    if (!read_row(row + 1, tab.g[j]) || row[0] < 0 || row[0] >= n_ctas ||
+        (j > 0 && row[0] <= tab.first[j - 1]) || (j == 0 && row[0] != 0))
+      return static_cast<int>(cudaErrorInvalidValue);
+    tab.first[j] = static_cast<int>(row[0]);
+  }
+  const dim3 grid(static_cast<unsigned>(n_ctas), static_cast<unsigned>(n_ranks));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    pack_boundary_kernel<uint32_t, CAP><<<grid, kPackThreads, 0, s>>>(
+        tab, nrows, static_cast<const uint32_t*>(u), static_cast<uint32_t*>(out), block, total);
+  else
+    pack_boundary_kernel<uint16_t, CAP><<<grid, kPackThreads, 0, s>>>(
+        tab, nrows, static_cast<const uint16_t*>(u), static_cast<uint16_t*>(out), block, total);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -310,8 +514,9 @@ bool valid_grid(int nseg, long long n_ranks) {
 
 // table: nreg rows of (x0, y0, z0, rx, ry, rz, offset, size); every box
 // lies inside the (px, py, pz) block and the offsets are consecutive.
-int boundary_launch(bool unpack, int dtype, void* u, void* buf, long long n_ranks, int px,
-                    int py, int pz, const int* table, int nreg, int total, void* stream) {
+int unpack_boundary_launch(int dtype, void* u, const void* buf, long long n_ranks, int px,
+                           int py, int pz, const int* table, int nreg, int total,
+                           void* stream) {
   if (!valid_grid(nreg, n_ranks)) return static_cast<int>(cudaErrorInvalidValue);
   RegionTable tab{};
   int max_size = 0;
@@ -326,22 +531,13 @@ int boundary_launch(bool unpack, int dtype, void* u, void* buf, long long n_rank
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
-      if (unpack)
-        unpack_boundary_add_kernel<float><<<grid, kThreads, 0, s>>>(
-            static_cast<float*>(u), static_cast<const float*>(buf), tab, nreg, px, py, pz, total);
-      else
-        pack_boundary_kernel<float><<<grid, kThreads, 0, s>>>(
-            static_cast<const float*>(u), static_cast<float*>(buf), tab, px, py, pz, total);
+      unpack_boundary_add_kernel<float><<<grid, kThreads, 0, s>>>(
+          static_cast<float*>(u), static_cast<const float*>(buf), tab, nreg, px, py, pz, total);
       break;
     case kBFloat16:
-      if (unpack)
-        unpack_boundary_add_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-            static_cast<__nv_bfloat16*>(u), static_cast<const __nv_bfloat16*>(buf), tab, nreg,
-            px, py, pz, total);
-      else
-        pack_boundary_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-            static_cast<const __nv_bfloat16*>(u), static_cast<__nv_bfloat16*>(buf), tab, px,
-            py, pz, total);
+      unpack_boundary_add_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+          static_cast<__nv_bfloat16*>(u), static_cast<const __nv_bfloat16*>(buf), tab, nreg,
+          px, py, pz, total);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -378,21 +574,26 @@ int rt_halo_pack(int dtype, const void* u, void* out, long long n_ranks, int px,
   return static_cast<int>(cudaGetLastError());
 }
 
-int rt_halo_unpack_add(int dtype, void* u, const void* msg, long long n_ranks, int px,
-                       int py, int pz, int x0, int y0, int z0, int rx, int ry, int rz,
-                       void* stream) {
-  const Box b{px, py, pz, x0, y0, z0, rx, ry, rz};
-  const int64_t n = static_cast<int64_t>(n_ranks) * rx * ry * rz;
-  if (n == 0) return 0;
+// row: the wrapper's box plan (base, run, runs, run_stride, slabs,
+// slab_stride, offset 0, tiles, flags, run_magic, run_shift), int64 each;
+// block: elements of a rank's block; msg_stride: elements of a rank's slab;
+// n_ctas: tiles x slabs, the CTAs a rank.
+int rt_halo_unpack_add(int dtype, void* u, const void* msg, const long long* row, int block,
+                       int msg_stride, int n_ctas, int n_ranks, void* stream) {
+  BoxRow g;
+  if (!read_row(row, g) || n_ctas < 1 || n_ranks < 1 || n_ranks > 65535 || block < 1 ||
+      msg_stride < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(n_ctas), static_cast<unsigned>(n_ranks));
   switch (dtype) {
     case kFloat32:
-      halo_unpack_add_kernel<float><<<blocks_for(n), kThreads, 0, s>>>(
-          static_cast<float*>(u), static_cast<const float*>(msg), n, b);
+      halo_unpack_add_kernel<uint32_t><<<grid, kPackThreads, 0, s>>>(
+          static_cast<uint32_t*>(u), static_cast<const uint32_t*>(msg), g, block, msg_stride);
       break;
     case kBFloat16:
-      halo_unpack_add_kernel<__nv_bfloat16><<<blocks_for(n), kThreads, 0, s>>>(
-          static_cast<__nv_bfloat16*>(u), static_cast<const __nv_bfloat16*>(msg), n, b);
+      halo_unpack_add_kernel<uint16_t><<<grid, kPackThreads, 0, s>>>(
+          static_cast<uint16_t*>(u), static_cast<const uint16_t*>(msg), g, block, msg_stride);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -442,17 +643,24 @@ int rt_unpack_segments(int dtype, const void* buf, long long n_ranks, long long 
   return static_cast<int>(cudaGetLastError());
 }
 
-int rt_pack_boundary(int dtype, const void* u, void* out, long long n_ranks, int px, int py,
-                     int pz, const int* table, int nreg, int total, void* stream) {
-  return boundary_launch(false, dtype, const_cast<void*>(u), out, n_ranks, px, py, pz, table,
-                         nreg, total, stream);
+// table: nrows rows of (first CTA, *box row), int64 each, of the wrapper's
+// boundary plan, the regions with elements, first CTAs increasing from 0;
+// block: elements of a rank's block; total: of a rank's packed row; n_ctas:
+// the CTAs a rank.
+int rt_pack_boundary(int dtype, const void* u, void* out, const long long* table, int nrows,
+                     int block, int total, int n_ctas, int n_ranks, void* stream) {
+  if (nrows > 32)
+    return pack_boundary_launch<kMaxSegments>(dtype, u, out, table, nrows, block, total,
+                                              n_ctas, n_ranks, stream);
+  return pack_boundary_launch<32>(dtype, u, out, table, nrows, block, total, n_ctas, n_ranks,
+                                  stream);
 }
 
 int rt_unpack_boundary_add(int dtype, void* u, const void* buf, long long n_ranks, int px,
                            int py, int pz, const int* table, int nreg, int total,
                            void* stream) {
-  return boundary_launch(true, dtype, u, const_cast<void*>(buf), n_ranks, px, py, pz, table,
-                         nreg, total, stream);
+  return unpack_boundary_launch(dtype, u, buf, n_ranks, px, py, pz, table, nreg, total,
+                                stream);
 }
 
 }  // extern "C"

@@ -31,6 +31,7 @@ wrapper's ``launches`` attribute counts the kernel launches it made
 from __future__ import annotations
 
 import ctypes
+import functools
 import itertools
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -40,8 +41,8 @@ from . import ref
 from .build import check_launch, load_library, stream_arg, use_plain
 
 MAX_SEGMENTS = 64       # members of one fused transfer (csrc kMaxSegments)
-MAX_RANKS = 65535       # ranks of one segment launch (grid z)
-TILE_BYTES = 4096       # a pack_segments tile: 256 threads x 16 bytes (csrc kTileBytes)
+MAX_RANKS = 65535       # ranks of one segment or box launch (grid z or y)
+TILE_BYTES = 4096       # a segment or box tile: 256 threads x 16 bytes (csrc kTileBytes)
 _INT32_MAX = 2 ** 31 - 1
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -49,10 +50,10 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #: the C entry points of ``csrc/halo_pack.cu`` and their argument types
 SIGNATURES = {
     "rt_halo_pack": [_I, _P, _P, _I64] + [_I] * 9 + [_P],
-    "rt_halo_unpack_add": [_I, _P, _P, _I64] + [_I] * 9 + [_P],
+    "rt_halo_unpack_add": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     "rt_pack_segments": [_I, _P, _I, _P, _I64, _I64, _P],
     "rt_unpack_segments": [_I, _P, _I64, _I64, _P, _I, _P, _P],
-    "rt_pack_boundary": [_I, _P, _P, _I64, _I, _I, _I, _P, _I, _I, _P],
+    "rt_pack_boundary": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rt_unpack_boundary_add": [_I, _P, _P, _I64, _I, _I, _I, _P, _I, _I, _P],
 }
 
@@ -111,9 +112,16 @@ def halo_unpack_add(u: torch.Tensor, msg: torch.Tensor,
     The reference kernel returns a new block (``out_ref[...] =
     u_ref[...]``); on a 128^3 float32 field of 8 ranks that copy would
     move 67 MB per unpack, 26 times an iteration.  Here the kernel
-    touches the region only: it reads ``msg`` and the region once and
-    writes the region once (bytes-bound; launch latency dominates at
-    slab sizes).  A bfloat16 add is done in float32 and rounded once.
+    touches the region only, in one launch of the tiles of
+    :func:`box_plan` (no idle CTA, no division per element).  Where the
+    region's runs and the layout allow (x- and y-faces, edges along z),
+    a thread adds 16 bytes of ``msg`` into 16 bytes of ``u`` with one
+    access each; elsewhere (a z-face, edges along x and y, corners) it
+    takes every 256th element of its tile and issues all its strided
+    loads of ``u`` and ``msg`` before its first add.  A bfloat16 add is
+    done in float32 and rounded once.  Bound: bytes, or the 32-byte
+    sectors a strided region touches (a z-face reads and writes one
+    sector of ``u`` per element); at slab sizes, launch latency.
     """
     region = ref.region3(region)
     want = tuple(u.shape[:-3]) + ref.region_shape(region)
@@ -124,31 +132,68 @@ def halo_unpack_add(u: torch.Tensor, msg: torch.Tensor,
     if use_plain(u, msg):
         return ref.halo_unpack_add(u, msg, region)
     code = _dtype_code(u, msg)
-    box = _box(u, region)
-    err = _lib().rt_halo_unpack_add(code, u.data_ptr(), msg.data_ptr(), *box,
-                                    stream_arg(u))
+    n_ranks, *block = _box(u, region)[:4]
+    row, n_ctas = _unpack_launch(tuple(block), _region_key(region), n_ranks,
+                                 u.element_size(), u.data_ptr() % 16, msg.data_ptr() % 16)
+    if n_ctas == 0:
+        return u
+    err = _lib().rt_halo_unpack_add(code, u.data_ptr(), msg.data_ptr(), row,
+                                    block[0] * block[1] * block[2],
+                                    msg.numel() // n_ranks, n_ctas, n_ranks, stream_arg(u))
     check_launch("halo_pack", err)
     halo_unpack_add.launches += 1
     return u
 
 
-def _region_table(u: torch.Tensor, regions):
-    """The boundary kernels' region table, a C array of ``(x0, y0, z0,
-    rx, ry, rz, offset, size)`` per region in the block of ``u``; and the
-    buffer's size a rank."""
+def _region_key(region) -> Tuple[Tuple[int, int], ...]:
+    return tuple((s.start, s.stop) for s in region)
+
+
+def _slices(key) -> Tuple[slice, ...]:
+    return tuple(slice(a, b) for a, b in key)
+
+
+@functools.lru_cache(maxsize=4096)
+def _unpack_launch(block, region, n_ranks, itemsize, u_align, msg_align):
+    """``halo_unpack_add``'s row as a C array, and its CTAs a rank (the
+    plan depends on the addresses only modulo 16, so it is cached)."""
+    row, n_ctas = box_plan(block, _slices(region), n_ranks, itemsize, u_align, msg_align)
+    return (None if row is None else (ctypes.c_int64 * len(row))(*row)), n_ctas
+
+
+@functools.lru_cache(maxsize=1024)
+def _pack_boundary_launch(block, regions, n_ranks, itemsize, u_align, out_align):
+    """``pack_boundary``'s table as a C array, its rows and CTAs a rank."""
+    rows, n_ctas, _ = boundary_plan(block, [_slices(r) for r in regions], n_ranks,
+                                    itemsize, u_align, out_align)
+    return ((ctypes.c_int64 * (len(BOX_FIELDS) * len(rows)))(*(v for r in rows for v in r)),
+            len(rows), n_ctas)
+
+
+def _boundary_regions(u: torch.Tensor, regions):
+    """The boundary kernels' regions, validated against the block of
+    ``u``, and the buffer's size a rank."""
     if not regions or len(regions) > MAX_SEGMENTS:
         raise ValueError(f"the boundary kernels take 1 to {MAX_SEGMENTS} regions, "
                          f"got {len(regions)}")
+    regions = [ref.region3(r) for r in regions]
+    for r in regions:
+        _box(u, r)  # validates the region against the block
+    total = sum(ref.region_size(r) for r in regions)
+    if total >= 2 ** 31:
+        raise ValueError("a boundary buffer holds fewer than 2^31 elements a rank")
+    return regions, total
+
+
+def _region_table(regions):
+    """``unpack_boundary_add``'s region table, a C array of ``(x0, y0,
+    z0, rx, ry, rz, offset, size)`` per region."""
     rows, off = [], 0
     for r in regions:
-        r = ref.region3(r)
-        _box(u, r)  # validates the region against the block
         n = ref.region_size(r)
         rows += [*(s.start for s in r), *ref.region_shape(r), off, n]
         off += n
-    if off >= 2 ** 31:
-        raise ValueError("a boundary buffer holds fewer than 2^31 elements a rank")
-    return (ctypes.c_int * len(rows))(*rows), off
+    return (ctypes.c_int * len(rows))(*rows)
 
 
 def pack_boundary(u: torch.Tensor, regions: Sequence[Sequence[slice]]) -> torch.Tensor:
@@ -156,23 +201,31 @@ def pack_boundary(u: torch.Tensor, regions: Sequence[Sequence[slice]]) -> torch.
     contiguous ``(*ranks, total)`` buffer, region after region (the
     paper's step 2; DIRECTIONS order gives faces, edges, corners).
 
-    One launch for all regions and ranks, the regions' boxes and offsets
-    by value.  Bound: each region element read once and written once
-    (~0.8 MB a rank for the 26 regions of a 128^3 float32 block), so
-    launch latency at Faces sizes.
+    One launch for all regions and ranks: the flat tile list of
+    :func:`boundary_plan`, one :func:`box_plan` row per region in a
+    table passed by value; a CTA finds its region by a binary search of
+    the rows' first CTAs.  No CTA is idle; every store into the packed
+    row is 16 bytes where its layout allows, and loads are 16 bytes on
+    contiguous runs (x- and y-faces, edges along z).  Bound: each
+    region element read once and written once (~0.4 MB a rank for the
+    26 regions of a 128^3 float32 block), or the 32-byte sectors the
+    strided regions touch; at Faces sizes, launch latency.
     """
-    table, total = _region_table(u, regions)
+    regions, total = _boundary_regions(u, regions)
     if use_plain(u):
         return ref.pack_boundary(u, regions)
     code = _dtype_code(u)
-    n_ranks = u.numel() // max(1, u.shape[-3] * u.shape[-2] * u.shape[-1])
-    if n_ranks > MAX_RANKS:
-        raise ValueError(f"one launch takes at most {MAX_RANKS} ranks")
+    block = tuple(u.shape[-3:])
+    n_ranks = u.numel() // max(1, block[0] * block[1] * block[2])
     out = torch.empty(tuple(u.shape[:-3]) + (total,), dtype=u.dtype, device=u.device)
     if out.numel() == 0:
         return out
-    err = _lib().rt_pack_boundary(code, u.data_ptr(), out.data_ptr(), n_ranks,
-                                  *u.shape[-3:], table, len(regions), total, stream_arg(u))
+    table, n_rows, n_ctas = _pack_boundary_launch(
+        block, tuple(_region_key(r) for r in regions), n_ranks, u.element_size(),
+        u.data_ptr() % 16, out.data_ptr() % 16)
+    err = _lib().rt_pack_boundary(code, u.data_ptr(), out.data_ptr(), table, n_rows,
+                                  block[0] * block[1] * block[2], total, n_ctas, n_ranks,
+                                  stream_arg(u))
     check_launch("halo_pack", err)
     pack_boundary.launches += 1
     return out
@@ -193,7 +246,7 @@ def unpack_boundary_add(u: torch.Tensor, buf: torch.Tensor,
     touches the boundary shell only.  Bound: bytes, launch latency at
     Faces sizes.
     """
-    table, total = _region_table(u, regions)
+    regions, total = _boundary_regions(u, regions)
     want = tuple(u.shape[:-3]) + (total,)
     if tuple(buf.shape) != want:
         raise ValueError(f"buffer shape {tuple(buf.shape)} != {want}")
@@ -208,7 +261,8 @@ def unpack_boundary_add(u: torch.Tensor, buf: torch.Tensor,
     if u.numel() == 0:
         return u
     err = _lib().rt_unpack_boundary_add(code, u.data_ptr(), buf.data_ptr(), n_ranks,
-                                        *u.shape[-3:], table, len(regions), total,
+                                        *u.shape[-3:], _region_table(regions),
+                                        len(regions), total,
                                         stream_arg(u))
     check_launch("halo_pack", err)
     unpack_boundary_add.launches += 1
@@ -279,6 +333,122 @@ def pack_plan(members: Sequence[Tuple[int, int, int]], n_ranks: int, itemsize: i
         rows.append((addr, stride, offsets[j], n, n_tiles, first,
                      int(vector_ok(addr, stride, offsets[j], total, out_addr, itemsize))))
     return rows, n_ctas
+
+
+PACKED_VEC, BOX_VEC = 1, 2   # box plan flags (csrc kPackedVec, kBoxVec)
+#: a box launch's C table row (``csrc/halo_pack.cu`` BoxRow, after ``first``)
+BOX_FIELDS = ("first", "base", "run", "runs", "run_stride", "slabs", "slab_stride",
+              "offset", "tiles", "flags", "run_magic", "run_shift")
+
+
+def divider(d: int) -> Tuple[int, int]:
+    """``(m, s)`` with ``n // d == (n * m) >> s`` for every ``0 <= n <
+    2^31`` and ``m < 2^32``: the round-up multiplier of Granlund and
+    Montgomery for 31-bit dividends (``m = ceil(2^(31 + l) / d)``, ``l
+    = ceil(log2 d)``), so a kernel divides by a runtime ``d`` with one
+    64-bit multiply and a shift."""
+    s = 31 + (d - 1).bit_length()
+    return -(-(1 << s) // d), s
+
+
+def collapse_box(block: Sequence[int],
+                 region: Sequence[slice]) -> Tuple[int, int, int, int, int, int]:
+    """A region's box in ``(outer, run)`` form: ``(base, run, runs,
+    run_stride, slabs, slab_stride)`` in elements of a ``(px, py, pz)``
+    block.  Element ``c`` of run ``b`` of slab ``a`` lies at ``base + a
+    * slab_stride + b * run_stride + c`` and is element ``(a * runs +
+    b) * run + c`` of the region in row-major order.  Dimensions merge
+    wherever the box is contiguous in the block: an x-face is one run of
+    ``py * pz``, a y-face ``px`` runs of ``pz``, an edge along z one run
+    of ``rz``; a z-face, edges along x or y and corners are runs of 1
+    at a stride (``pz`` or ``py * pz``).  A stride whose count is 1 is
+    0; only a box that is none of these (say 2 x 2 x 2 inside a block)
+    has more than one slab."""
+    _, py, pz = block
+    x0, y0, z0 = (s.start for s in region)
+    dims = []                        # (count, stride), outer to inner
+    for n, stride in zip(ref.region_shape(region), (py * pz, pz, 1)):
+        if n == 1:
+            continue
+        if dims and dims[-1][1] == n * stride:
+            dims[-1] = (dims[-1][0] * n, stride)
+        else:
+            dims.append((n, stride))
+    run = dims.pop()[0] if dims and dims[-1][1] == 1 else 1
+    (slabs, slab_stride), (runs, run_stride) = ([(1, 0)] * 2 + dims)[-2:]
+    return (x0 * py + y0) * pz + z0, run, runs, run_stride, slabs, slab_stride
+
+
+def aligned16(addr: int, counts: Sequence[int], itemsize: int) -> bool:
+    """Whether ``addr`` and every element count in ``counts`` keep
+    16-byte alignment."""
+    return addr % 16 == 0 and all(n * itemsize % 16 == 0 for n in counts)
+
+
+def box_plan(block: Sequence[int], region: Sequence[slice], n_ranks: int, itemsize: int,
+             box_addr: int, packed_addr: int, offset: int = 0,
+             packed_stride: Optional[int] = None) -> Tuple[Optional[Tuple[int, ...]], int]:
+    """The tiles of one region's launch between the ``(ranks, px, py,
+    pz)`` block at ``box_addr`` and a packed buffer at ``packed_addr``
+    that holds rank r's copy of the region, in row-major order, at
+    element ``r * packed_stride + offset`` (``packed_stride`` defaults
+    to the region's size: a ``(ranks, *region)`` slab).
+
+    The region's box is taken in :func:`collapse_box` form; each slab
+    (``runs * run`` packed elements) is cut into tiles of
+    ``TILE_BYTES`` (256 threads of 16 bytes).  The grid is (CTAs a
+    rank, ranks): CTA ``k`` of a rank is tile ``k % tiles`` of slab ``k
+    // tiles``, so there are exactly ``tiles * slabs`` a rank, each with
+    elements.  An element's run comes from the :func:`divider` of
+    ``run``.  The flags say, from layout alone, whether 16 consecutive
+    bytes of a tile are one aligned access on the packed side
+    (``PACKED_VEC``: address, offset, slab and rank strides aligned) and
+    on the box side (``BOX_VEC``: also the run length, so 16 bytes never
+    leave a run).
+    Returns the row ``(base, run, runs, run_stride, slabs, slab_stride,
+    offset, tiles, flags, run_magic, run_shift)`` and the CTAs a rank,
+    or ``(None, 0)`` when the region is empty."""
+    base, run, runs, run_stride, slabs, slab_stride = collapse_box(block, region)
+    n = runs * run                   # packed elements a slab
+    if n == 0 or n_ranks == 0:
+        return None, 0
+    if packed_stride is None:
+        packed_stride = n * slabs
+    block_size = block[0] * block[1] * block[2]
+    tiles = -(-n // (TILE_BYTES // itemsize))
+    n_ctas = tiles * slabs
+    if max(block_size, packed_stride, n_ctas * TILE_BYTES // itemsize) > _INT32_MAX:
+        raise ValueError("a box launch takes blocks and packed rows of fewer than 2^31 "
+                         "elements")
+    if n_ranks > MAX_RANKS:
+        raise ValueError(f"one launch takes at most {MAX_RANKS} ranks")
+    # strides a launch never steps (one slab, one rank) impose nothing
+    slab_packed = n if slabs > 1 else 0
+    rank_packed, rank_box = (packed_stride, block_size) if n_ranks > 1 else (0, 0)
+    flags = (PACKED_VEC * aligned16(packed_addr, (offset, slab_packed, rank_packed), itemsize)
+             | BOX_VEC * aligned16(box_addr, (run, base, run_stride, slab_stride, rank_box),
+                                   itemsize))
+    return (base, run, runs, run_stride, slabs, slab_stride, offset, tiles, flags,
+            *divider(run)), n_ctas
+
+
+def boundary_plan(block: Sequence[int], regions: Sequence[Sequence[slice]], n_ranks: int,
+                  itemsize: int, u_addr: int,
+                  out_addr: int) -> Tuple[List[Tuple[int, ...]], int, int]:
+    """The ``pack_boundary`` launch: the regions packed one after another
+    into a row of ``total`` elements a rank, each with its
+    :func:`box_plan` row and first CTA of a rank.  Returns the C table's
+    rows ``(first CTA, *box row)`` of the regions with elements (first
+    CTAs increasing), the CTAs a rank and ``total``."""
+    total = sum(ref.region_size(r) for r in regions)
+    rows, first, offset = [], 0, 0
+    for r in regions:
+        row, ctas = box_plan(block, r, n_ranks, itemsize, u_addr, out_addr, offset, total)
+        if ctas:
+            rows.append((first, *row))
+            first += ctas
+        offset += ref.region_size(r)
+    return rows, first, total
 
 
 def pack_segments(sources: Sequence[Tuple[torch.Tensor, int]],

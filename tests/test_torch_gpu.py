@@ -64,13 +64,26 @@ def _randn(shape, dtype, device, seed):
     return torch.from_numpy(x).to(device=device, dtype=dtype)
 
 
+def _field(shape, dtype, device, seed):
+    gen = torch.Generator(device).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+# (ranks, block, region): four regions of a (6,5,7) block, then all 26
+# DIRECTIONS regions of a 128^3 block of 8 ranks (the Faces field) and of a
+# (9,5,7) block, whose pz breaks 16-byte alignment
+HALO_CASES = ([((2, 3), (6, 5, 7), r) for r in REGIONS]
+              + [((8,), (128, 128, 128), _region_for(d, (128, 128, 128))) for d in DIRECTIONS]
+              + [((3,), (9, 5, 7), _region_for(d, (9, 5, 7))) for d in DIRECTIONS])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("region", REGIONS)
-def test_halo_kernels_equal_plain(cuda, region, dtype):
-    u = _randn((2, 3, 6, 5, 7), dtype, cuda, 0)
+@pytest.mark.parametrize("ranks,block,region", HALO_CASES)
+def test_halo_kernels_equal_plain(cuda, ranks, block, region, dtype):
+    u = _field((*ranks, *block), dtype, cuda, 0)
     before = dict(hk.launch_counts())
     assert torch.equal(hk.halo_pack(u, region), ref.halo_pack(u, region))
-    msg = _randn((2, 3, *ref.region_shape(region)), dtype, cuda, 1)
+    msg = _field((*ranks, *ref.region_shape(region)), dtype, cuda, 1)
     got = hk.halo_unpack_add(u.clone(), msg, region)
     assert torch.equal(got, ref.halo_unpack_add(u.clone(), msg, region))
     after = hk.launch_counts()
@@ -275,13 +288,15 @@ def test_smoke_serve_on_card_equals_cpu(cuda, resident):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_boundary_kernels_equal_plain(cuda, dtype):
-    regions = [_region_for(d, (5, 4, 6)) for d in DIRECTIONS]
-    u = _randn((2, 3, 5, 4, 6), dtype, cuda, 4)
+@pytest.mark.parametrize("ranks,block", [((2, 3), (5, 4, 6)), ((8,), (128, 128, 128)),
+                                         ((3,), (9, 5, 7))])
+def test_boundary_kernels_equal_plain(cuda, ranks, block, dtype):
+    regions = [_region_for(d, block) for d in DIRECTIONS]
+    u = _field((*ranks, *block), dtype, cuda, 4)
     before = hk.launch_counts()
     buf = hk.pack_boundary(u, regions)
     assert torch.equal(buf, ref.pack_boundary(u, regions))
-    msg = _randn(tuple(buf.shape), dtype, cuda, 5)
+    msg = _field(tuple(buf.shape), dtype, cuda, 5)
     got = hk.unpack_boundary_add(u.clone(), msg, regions)
     assert torch.equal(got, ref.unpack_boundary_add(u.clone(), msg, regions))
     after = hk.launch_counts()

@@ -1,23 +1,30 @@
 """The host-side plans of the port's redesigned kernels, on the CPU.
 
 ``pack_segments`` launches a flat list of tiles planned in Python
-(``halo_pack.segment_tiles`` / ``pack_plan``), and ``rmsnorm`` picks
-its route and its row partition in Python (``rmsnorm.route`` /
-``partition``).  These tests hold the plans to what the CUDA kernels
-rely on: the tiles cover every (member, rank, column) exactly once with
-no idle CTA, the 16-byte flag is set only where every alignment
-condition holds, and the norm's route is a function of (rows, d, dtype)
-and its partition of d alone -- one that both routes' thread layouts
-follow.  The kernels themselves run in ``tests/test_torch_gpu.py``.
+(``halo_pack.segment_tiles`` / ``pack_plan``), ``halo_unpack_add`` and
+``pack_boundary`` a flat list of tiles over boxes (``halo_pack.
+box_plan`` / ``boundary_plan``), and ``rmsnorm`` picks its route and
+its row partition in Python (``rmsnorm.route`` / ``partition``).  These
+tests hold the plans to what the CUDA kernels rely on: the tiles cover
+every (member, rank, column), or every element of a region, exactly
+once with no idle CTA, the 16-byte flags are set only where every
+alignment condition holds, a box plan decoded as the kernels decode it
+gathers and scatters exactly what the plain versions do, bit for bit,
+and the norm's route is a function of (rows, d, dtype) and its
+partition of d alone -- one that both routes' thread layouts follow.
+The kernels themselves run in ``tests/test_torch_gpu.py``.
 """
 
 import inspect
 import itertools
 
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.halo import DIRECTIONS, _region_for
 from repro_torch.kernels import halo_pack as hk
+from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as rk
 
 
@@ -135,3 +142,209 @@ def test_both_routes_deal_groups_to_the_partitions_slots(d):
     team_slot = {t + slots * i: t for t in range(slots) for i in range(-(-groups // slots))}
     assert all(team_slot[g] == g % slots for g in range(groups))
     assert slots * 4 >= groups and slots <= 1024   # at most 4 groups a thread, 32 warps
+
+
+# --------------------------------------------------------------------------
+# box plans: halo_unpack_add and pack_boundary
+# --------------------------------------------------------------------------
+
+BOX_BLOCKS = [(5, 4, 6), (128, 128, 128), (1, 7, 3), (4, 4, 4)]
+BOX_DTYPES = [torch.float32, torch.bfloat16]
+_BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def _decode_boxes(kernel, rows, n_ctas, n_ranks, block, packed_stride, itemsize, box_addr,
+                  packed_addr):
+    """Every (block element, packed element) pair a box launch of
+    ``kernel`` ("unpack" or "pack") moves, decoding each CTA and thread
+    of the (``n_ctas``, ``n_ranks``) grid as ``csrc/halo_pack.cu`` does:
+    the row by the last first CTA at or below the CTA (``rows`` lead
+    with it), the slab and tile once a CTA, an element's run by the
+    row's multiplier.  A thread of a row with both flags takes ``V = 16
+    / itemsize`` consecutive packed elements; elsewhere the unpack's
+    takes every 256th from its own, the pack's again ``V`` consecutive.
+    Asserts that no CTA is idle and that every access a flag makes 16
+    bytes wide is aligned and, on the block side, contiguous.  Returns
+    the block and packed element indices in packed order."""
+    v = 16 // itemsize
+    tile = hk.TILE_BYTES // itemsize
+    threads = tile // v
+    table = np.array(rows, dtype=np.int64).reshape(-1, len(hk.BOX_FIELDS))
+    cta = np.tile(np.arange(n_ctas), n_ranks)
+    rank = np.repeat(np.arange(n_ranks), n_ctas)[:, None, None]
+    g = table[np.searchsorted(table[:, 0], cta, side="right") - 1]
+    (first, base, run, runs, run_stride, slabs, slab_stride, offset, tiles, flags, magic,
+     shift) = (g[:, f, None, None] for f in range(len(hk.BOX_FIELDS)))
+    local = cta[:, None, None] - first
+    a = np.where(slabs > 1, local // tiles, 0)
+    n = runs * run
+    start = (local - a * tiles) * tile
+    t, e = np.arange(threads)[None, :, None], np.arange(v)[None, None, :]
+    both = flags == hk.PACKED_VEC | hk.BOX_VEC
+    strided = ~both if kernel == "unpack" else np.zeros_like(both)
+    p = start + np.where(strided, t + e * threads, t * v + e)
+    b = (p * magic) >> shift
+    assert (b == p // run).all()
+    box = rank * (block[0] * block[1] * block[2]) + base + a * slab_stride + b * run_stride \
+        + (p - b * run)
+    packed = rank * packed_stride + offset + a * n + p
+    valid = p < n
+    assert valid.reshape(len(cta), -1).any(axis=1).all(), "a CTA has nothing to move"
+    full = valid.all(axis=2) & ~strided[..., 0]
+    packed_vec = full & (both | (flags & hk.PACKED_VEC > 0))[..., 0]
+    box_vec = full & both[..., 0]
+    assert ((packed_addr + packed[..., 0] * itemsize) % 16 == 0)[packed_vec].all()
+    assert ((box_addr + box[..., 0] * itemsize) % 16 == 0)[box_vec].all()
+    assert (box - box[..., :1] == np.arange(v))[box_vec].all()
+    box, packed = box[valid], packed[valid]
+    order = np.argsort(packed, kind="stable")
+    return box[order], packed[order]
+
+
+def _field(lead, block, dtype, seed):
+    n = int(np.prod(lead)) * int(np.prod(block))
+    x = np.random.RandomState(seed).standard_normal(n).astype(np.float32)
+    return torch.from_numpy(x).to(dtype).view(*lead, *block)
+
+
+def _flat_index(lead, block) -> torch.Tensor:
+    return torch.arange(int(np.prod(lead)) * int(np.prod(block))).view(*lead, *block)
+
+
+@pytest.mark.parametrize("n_ranks", [1, 8])
+@pytest.mark.parametrize("dtype", BOX_DTYPES)
+@pytest.mark.parametrize("block", BOX_BLOCKS)
+def test_unpack_box_plans_scatter_as_the_plain_version(block, dtype, n_ranks):
+    """The 26 regions of a block, each one ``halo_unpack_add`` launch:
+    every element of the region is added once, from its own message
+    element, and the emulated scatter equals ``ref.halo_unpack_add`` bit
+    for bit (a bfloat16 add in float32, rounded once)."""
+    lead, itemsize = (n_ranks,), torch.empty((), dtype=dtype).element_size()
+    u = _field(lead, block, dtype, 0)
+    index = _flat_index(lead, block)
+    for direction in DIRECTIONS:
+        region = _region_for(direction, block)
+        row, n_ctas = hk.box_plan(block, region, n_ranks, itemsize, 0, 0)
+        size = ref.region_size(region)
+        assert n_ctas == -(-size // (hk.TILE_BYTES // itemsize))   # one slab a rank
+        box, packed = _decode_boxes("unpack", [(0, *row)], n_ctas, n_ranks, block, size,
+                                    itemsize, 0, 0)
+        assert torch.equal(torch.from_numpy(packed), torch.arange(n_ranks * size))
+        assert torch.equal(torch.from_numpy(box), index[(..., *region)].flatten())
+        msg = _field(lead, ref.region_shape(region), dtype, 1)
+        flat = u.clone().view(-1)
+        got = (flat[box].float() + msg.view(-1)[packed].float()).to(dtype)
+        want = ref.halo_unpack_add(u.clone(), msg, region)[(..., *region)].flatten()
+        assert torch.equal(got.view(_BITS[dtype]), want.view(_BITS[dtype]))
+
+
+@pytest.mark.parametrize("n_ranks", [1, 8])
+@pytest.mark.parametrize("dtype", BOX_DTYPES)
+@pytest.mark.parametrize("block", BOX_BLOCKS)
+def test_boundary_plan_gathers_as_the_plain_version(block, dtype, n_ranks):
+    """All 26 regions in one ``pack_boundary`` launch: the CTAs cover
+    every element of the packed buffer exactly once, and the emulated
+    gather equals ``ref.pack_boundary`` bit for bit."""
+    lead, itemsize = (n_ranks,), torch.empty((), dtype=dtype).element_size()
+    regions = [_region_for(d, block) for d in DIRECTIONS]
+    rows, n_ctas, total = hk.boundary_plan(block, regions, n_ranks, itemsize, 0, 0)
+    firsts = [r[0] for r in rows]
+    assert firsts == sorted(set(firsts)) and firsts[0] == 0
+    box, packed = _decode_boxes("pack", rows, n_ctas, n_ranks, block, total, itemsize, 0, 0)
+    assert torch.equal(torch.from_numpy(packed), torch.arange(n_ranks * total))
+    u = _field(lead, block, dtype, 2)
+    got = u.view(-1)[box].view(n_ranks, total)
+    assert torch.equal(got.view(_BITS[dtype]), ref.pack_boundary(u, regions).view(_BITS[dtype]))
+
+
+def test_boundary_plan_of_the_faces_field_has_no_idle_cta():
+    """The 26 regions of a 128^3 float32 block of 8 ranks: 6 faces of 16
+    tiles, 12 edges and 8 corners of one, on each of 8 ranks -- 116 x 8 =
+    928 CTAs, all with elements (the old grid launched 13 312, 3 232
+    with elements)."""
+    block = (128, 128, 128)
+    regions = [_region_for(d, block) for d in DIRECTIONS]
+    rows, n_ctas, total = hk.boundary_plan(block, regions, 8, 4, 0, 0)
+    assert (len(rows), n_ctas, total) == (26, 6 * 16 + 12 + 8, 99848)
+
+
+@pytest.mark.parametrize("direction,form", [
+    ((1, 0, 0), (1, 16384, 1, 0)),       # x-face: one run of py * pz
+    ((0, 1, 0), (1, 128, 128, 16384)),   # y-face: px runs of pz
+    ((0, 0, 1), (1, 1, 16384, 128)),     # z-face: runs of 1 at stride pz
+    ((0, 1, 1), (1, 1, 128, 16384)),     # edge along x: stride py * pz
+    ((1, 0, 1), (1, 1, 128, 128)),       # edge along y: stride pz
+    ((1, 1, 0), (1, 128, 1, 0)),         # edge along z: one run of rz
+    ((1, 1, 1), (1, 1, 1, 0)),           # corner
+])
+def test_collapse_box_merges_what_is_contiguous(direction, form):
+    """(slabs, run, runs, run_stride) of each region class of a 128^3
+    block; a box contiguous in no dimension pair keeps two levels."""
+    base, run, runs, run_stride, slabs, slab_stride = hk.collapse_box(
+        (128, 128, 128), _region_for(direction, (128, 128, 128)))
+    assert (slabs, run, runs, run_stride) == form and slab_stride == 0
+    assert hk.collapse_box((4, 5, 6), (slice(1, 3), slice(1, 3), slice(2, 5))) == (
+        (1 * 5 + 1) * 6 + 2, 3, 2, 6, 2, 30)
+
+
+def test_box_flags_fall_exactly_when_an_alignment_breaks():
+    """A y-face whose runs are 16 bytes or longer keeps both flags; each
+    condition in turn is broken by one element (or by one byte of
+    address), and the flag of its side falls exactly when any of that
+    side's conditions is."""
+    for itemsize in (4, 2):
+        el, v = itemsize, 16 // itemsize
+        for pz, box_addr, packed_addr, offset, pad, n_ranks in itertools.product(
+                (4 * v, 4 * v + 1), (0, el), (0, el), (0, 1), (0, 1), (1, 2)):
+            block = (3, 5, pz)
+            region = (slice(0, 3), slice(1, 2), slice(0, pz))
+            size = 3 * pz
+            stride = -(-(size + 1) // v) * v + pad
+            row, _ = hk.box_plan(block, region, n_ranks, itemsize, box_addr, packed_addr,
+                                 offset, stride)
+            packed = (packed_addr % 16 == 0 and offset * el % 16 == 0
+                      and (n_ranks == 1 or stride * el % 16 == 0))
+            boxed = (box_addr % 16 == 0 and pz * el % 16 == 0
+                     and (n_ranks == 1 or 3 * 5 * pz * el % 16 == 0))
+            assert row[8] == hk.PACKED_VEC * packed + hk.BOX_VEC * boxed
+
+
+def test_box_plans_of_the_main_path_take_16_byte_accesses():
+    """At the Faces field's layout (aligned buffers, a 128^3 block of 8
+    ranks) the message of every face and edge is 16 bytes a thread in
+    both dtypes (a corner's, one element a rank, is not), and so is the
+    block side of the regions that span z: the x- and y-faces and the
+    edges along z.  In the boundary buffer every face and edge stores 16
+    bytes a thread (a corner is one element)."""
+    block = (128, 128, 128)
+    regions = [_region_for(d, block) for d in DIRECTIONS]
+    for itemsize in (4, 2):
+        for d, region in zip(DIRECTIONS, regions):
+            row, _ = hk.box_plan(block, region, 8, itemsize, 0, 0)
+            packed = sum(map(abs, d)) < 3
+            assert row[8] == hk.PACKED_VEC * packed + hk.BOX_VEC * (d[2] == 0), d
+        rows, _, _ = hk.boundary_plan(block, regions, 8, itemsize, 0, 0)
+        assert all(r[9] & hk.PACKED_VEC for r in rows[:18])
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 127, 128, 129, 16384, 16385, 99848,
+                               2 ** 30 + 1, 2 ** 31 - 1])
+def test_divider_divides_every_31_bit_dividend(d):
+    """The kernels' run divider against ``//`` on dividends at the ends of
+    the 31-bit range and around multiples of ``d``."""
+    m, s = hk.divider(d)
+    assert 0 < m < 2 ** 32
+    near = [k * d + e for k in (1, 2, 3, (2 ** 31 - 1) // d) for e in (-1, 0, 1)]
+    ns = np.array([0, 1, 2, 2 ** 31 - 2, 2 ** 31 - 1] + [n for n in near if 0 <= n < 2 ** 31]
+                  + list(np.random.RandomState(d % 1000).randint(0, 2 ** 31 - 1, 2000)),
+                  dtype=np.uint64)
+    assert ((ns * np.uint64(m)) >> np.uint64(s) == ns // np.uint64(d)).all()
+
+
+def test_box_plan_refuses_what_the_kernel_cannot_index():
+    with pytest.raises(ValueError, match="2\\^31"):
+        hk.box_plan((1024, 1024, 2048), (slice(0, 1), slice(0, 1), slice(0, 1)), 2, 4, 0, 0)
+    with pytest.raises(ValueError, match="ranks"):
+        hk.box_plan((4, 4, 4), (slice(0, 1), slice(0, 4), slice(0, 4)), 65536, 4, 0, 0)
+    assert hk.box_plan((4, 4, 4), (slice(0, 0), slice(0, 4), slice(0, 4)), 8, 4, 0, 0) == (
+        None, 0)
