@@ -1,5 +1,6 @@
-"""Times of the port's ``halo_unpack_add`` and ``pack_boundary`` kernels on
-the card, beside a slice ``add_`` and ``torch.cat`` on the same inputs.
+"""Times of the port's ``halo_pack``, ``halo_unpack_add`` and ``pack_boundary``
+kernels on the card, beside a slice ``copy_``, a slice ``add_`` and
+``torch.cat`` on the same inputs.
 
     PYTHONPATH=src python3 scripts/halo_boundary_times.py [--tag NAME]
 
@@ -8,17 +9,19 @@ wrappers' public functions, so the same script times two trees of the
 package in one run (an older tree unpacked beside this one, then
 this one; compare only within one call, on one card).  Shapes: the
 Faces field, a 128^3 float32 block on each of 8 ranks.
-``halo_unpack_add`` on one region of each class the Faces loop unpacks
-(x-, y- and z-face, edges along x, y and z, corner; a message of the
-region's shape); ``pack_boundary`` on the 26 regions in DIRECTIONS
-order, all ranks in one launch, as the one-buffer path calls it.  Each
+``halo_pack`` and ``halo_unpack_add`` on one region of each class the
+Faces loop packs and unpacks (x-, y- and z-face, edges along x, y and
+z, corner; a message of the region's shape); ``pack_boundary`` on the
+26 regions in DIRECTIONS order, all ranks in one launch, as the
+one-buffer path calls it.  Each
 is checked first, bit for bit against its plain version, and then
 timed: the median of 15 replays of a CUDA graph of 20 calls, so the
 sectors a call touches (at most 14 MB) stay in the 50 MB L2.  Two
 bounds at 3.35 TB/s: the useful bytes (each element read once and
 written once), and the 32-byte sectors the call touches (a strided
-region touches one sector of the block per element).  Prints one JSON
-line and the card's name and power limit.
+region touches one sector of the block per element; the pack reads
+them once, the unpack reads and writes them).  Prints one JSON line and
+the card's name and power limit.
 """
 
 import argparse
@@ -88,6 +91,24 @@ def unpack_times(u):
     return out
 
 
+def halo_pack_times(u):
+    out = {}
+    itemsize = u.element_size()
+    for name, d in CLASSES.items():
+        region = _region_for(d, POINTS)
+        want = ref.halo_pack(u, region)
+        assert torch.equal(hk.halo_pack(u, region), want), name
+        part, slab = u[(..., *region)], torch.empty_like(want)
+        n_bytes = want.numel() * itemsize
+        out[name] = {
+            "elements": want.numel(),
+            "kernel_us": median_us(lambda: hk.halo_pack(u, region)),
+            "copy_us": median_us(lambda: slab.copy_(part)),
+            "bound_us": 2 * n_bytes / HBM_BYTES_PER_S * 1e6,
+            "sector_bound_us": (32 * sectors(u, [region]) + n_bytes) / HBM_BYTES_PER_S * 1e6}
+    return out
+
+
 def pack_times(u):
     regions = [_region_for(d, POINTS) for d in DIRECTIONS]
     sent = hk.pack_boundary(u, regions)
@@ -109,8 +130,8 @@ def main() -> None:
         raise SystemExit("halo_boundary_times: needs a CUDA device")
     gen = torch.Generator("cuda").manual_seed(0)
     u = torch.randn((N_RANKS, *POINTS), device="cuda", generator=gen)
-    result = {"tag": args.tag, "halo_unpack_add": unpack_times(u),
-              "pack_boundary": pack_times(u)}
+    result = {"tag": args.tag, "halo_pack": halo_pack_times(u),
+              "halo_unpack_add": unpack_times(u), "pack_boundary": pack_times(u)}
     print(json.dumps(result), flush=True)
     print("card: " + subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

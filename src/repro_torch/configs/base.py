@@ -5,9 +5,9 @@ field for field, with the same defaults, so a config built here equals
 the reference's (``tests/test_torch_serve.py`` compares them).  The
 port imports nothing of ``repro``, so it keeps this copy.
 
-Only ``mamba2-2.7b`` is served by the port so far; :func:`get_config`
-raises ``NotImplementedError`` for the other architectures, which
-``ROADMAP.md`` queues.
+The port serves the architectures of :data:`PORTED` (``mamba2-2.7b``
+and ``gemma3-1b``); :func:`get_config` raises ``NotImplementedError``
+for the others, which ``ROADMAP.md`` queues.
 """
 
 from __future__ import annotations

@@ -18,9 +18,9 @@
 // by launch latency of a few microseconds.  Every kernel makes ONE launch
 // for all ranks and, for the segment and boundary kernels, all members or
 // regions of a call, whose offsets and sizes travel by value in a small
-// argument table.  halo_pack, unpack_segments and unpack_boundary_add take
-// one thread per element over a grid-stride loop.  pack_segments launches a
-// flat list of 16-byte-a-thread tiles over columns, and halo_unpack_add and
+// argument table.  unpack_segments and unpack_boundary_add take one thread
+// per element over a grid-stride loop.  pack_segments launches a flat list of
+// 16-byte-a-thread tiles over columns, and halo_pack, halo_unpack_add and
 // pack_boundary a flat list of such tiles over boxes (below).  Nothing is
 // allocated; every kernel runs on the caller's stream, and each entry point
 // returns cudaGetLastError() so the Python wrapper raises on a refused launch.
@@ -53,7 +53,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxSegments = 64;  // members of one fused transfer
-constexpr int64_t kMaxBlocks = 1 << 16;
 
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 
@@ -67,37 +66,6 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
-}
-
-// A static region [x0, x0+rx) x [y0, y0+ry) x [z0, z0+rz) of a (px, py, pz)
-// block; the same region on every rank.
-struct Box {
-  int px, py, pz;
-  int x0, y0, z0;
-  int rx, ry, rz;
-};
-
-// Element offset in the (ranks, px, py, pz) block of the i-th element of the
-// packed (ranks, rx, ry, rz) region.
-__device__ __forceinline__ int64_t box_offset(const Box& b, int64_t i) {
-  const int64_t slab = static_cast<int64_t>(b.rx) * b.ry * b.rz;
-  const int64_t block = static_cast<int64_t>(b.px) * b.py * b.pz;
-  const int64_t r = i / slab;
-  int64_t e = i - r * slab;
-  const int64_t c = e % b.rz;
-  e /= b.rz;
-  const int64_t y = e % b.ry;
-  const int64_t x = e / b.ry;
-  return r * block + ((b.x0 + x) * b.py + (b.y0 + y)) * b.pz + (b.z0 + c);
-}
-
-template <typename T>
-__global__ void halo_pack_kernel(const T* __restrict__ u, T* __restrict__ out,
-                                 int64_t n, Box b) {
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    out[i] = u[box_offset(b, i)];
-  }
 }
 
 // pack_segments: member j of a fused transfer, columns [col_j, col_j + n_j)
@@ -213,9 +181,9 @@ __device__ __forceinline__ bool covers(const Region& g, int x, int y, int z) {
          z < g.z0 + g.rz;
 }
 
-// Box launches (halo_unpack_add, pack_boundary): a region of every rank's
-// block and its packed copy (msg, or the region's segment of the boundary
-// buffer), planned by the wrapper (kernels/halo_pack.py: box_plan,
+// Box launches (halo_pack, halo_unpack_add, pack_boundary): a region of
+// every rank's block and its packed copy (the slab, msg, or the region's
+// segment of the boundary buffer), planned by the wrapper (kernels/halo_pack.py: box_plan,
 // boundary_plan).  The region's box is in (outer, run) form: element c of
 // run b of slab a lies at base + a * slab_stride + b * run_stride + c of a
 // rank's block, and at (a * runs + b) * run + c of the rank's packed copy.
@@ -240,10 +208,13 @@ __device__ __forceinline__ bool covers(const Region& g, int x, int y, int z) {
 //     e * 256 (e < V), coalesced on msg, and issues all of its loads of msg
 //     and u before the first add: on a z-face, V independent sector loads
 //     of u in flight a thread;
-//   - pack_boundary gives a thread V consecutive packed elements, gathers
-//     them with V independent loads and stores them with one 16-byte store
-//     where kPackedVec holds (a z-face, edges along x and y).
-// Both take raw 32- or 16-bit words, so a copy is exact whatever the values.
+//   - halo_pack and pack_boundary (one gather, gather_tile) give a thread V
+//     consecutive packed elements, gather them with V independent loads
+//     and store them with one 16-byte store where kPackedVec holds (a
+//     z-face, edges along x and y).  halo_pack is pack_boundary with one
+//     region, whose slab is the whole packed row: the same tiles, without
+//     the table search.
+// All take raw 32- or 16-bit words, so a copy is exact whatever the values.
 constexpr int kPackedVec = 1;
 constexpr int kBoxVec = 2;
 
@@ -353,6 +324,46 @@ __global__ void __launch_bounds__(kPackThreads)
     if (o[e] >= 0) u[t.box + o[e]] = add_words(x[e], m[e]);
 }
 
+// The gather of a box tile, shared by halo_pack and pack_boundary: a thread
+// takes V consecutive packed elements of the tile.  Where both flags hold
+// (x- and y-faces, edges along z) it moves them as 16 bytes with one load
+// and one store; elsewhere it gathers them with V independent loads and
+// stores them with one 16-byte store where the packed row keeps alignment
+// (a z-face, the edges along x and y), element by element otherwise.
+template <typename E>
+__device__ __forceinline__ void gather_tile(const BoxRow& g, const Tile& t,
+                                            const E* __restrict__ u, E* __restrict__ out) {
+  constexpr int V = kVec<E>;
+  const int p = t.start + static_cast<int>(threadIdx.x) * V;
+  if (p >= t.n) return;
+  if (g.flags == kBothVec) {  // 16 bytes a thread on both sides (n % V == 0)
+    *reinterpret_cast<uint4*>(out + t.packed + p) =
+        __ldg(reinterpret_cast<const uint4*>(u + t.box + box_index(g, p)));
+    return;
+  }
+  const int count = min(V, t.n - p);
+  Words<E> w{};
+#pragma unroll
+  for (int e = 0; e < V; ++e)
+    if (e < count) w.e[e] = __ldg(u + t.box + box_index(g, p + e));
+  E* dst = out + t.packed + p;
+  if (count == V && (g.flags & kPackedVec)) {
+    *reinterpret_cast<uint4*>(dst) = w.v;
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      if (e < count) dst[e] = w.e[e];
+  }
+}
+
+// out = u[region], out a (ranks, *region) slab of out_stride elements a rank.
+template <typename E>
+__global__ void __launch_bounds__(kPackThreads)
+    halo_pack_kernel(const E* __restrict__ u, E* __restrict__ out, const BoxRow g, int block,
+                     int out_stride) {
+  gather_tile(g, tile_of<kVec<E>>(g, blockIdx.x, block, out_stride), u, out);
+}
+
 // pack_boundary: the rows of the regions with elements, first CTAs
 // increasing; a CTA finds its row by a binary search of `first` (uniform, in
 // the parameter bank).  CAP: the rows a launch can take (32: 1 536 bytes of
@@ -367,7 +378,6 @@ template <typename E, int CAP>
 __global__ void __launch_bounds__(kPackThreads)
     pack_boundary_kernel(const __grid_constant__ BoxTable<CAP> tab, int nrows,
                          const E* __restrict__ u, E* __restrict__ out, int block, int total) {
-  constexpr int V = kVec<E>;
   const int k = blockIdx.x;
   int lo = 0, hi = nrows - 1;  // the last row whose first CTA is <= k
   while (lo < hi) {
@@ -378,29 +388,7 @@ __global__ void __launch_bounds__(kPackThreads)
       hi = mid - 1;
   }
   const BoxRow& g = tab.g[lo];
-  const Tile t = tile_of<V>(g, k - tab.first[lo], block, total);
-  const int p = t.start + static_cast<int>(threadIdx.x) * V;
-  if (p >= t.n) return;
-  if (g.flags == kBothVec) {  // 16 bytes a thread on both sides (n % V == 0)
-    *reinterpret_cast<uint4*>(out + t.packed + p) =
-        __ldg(reinterpret_cast<const uint4*>(u + t.box + box_index(g, p)));
-    return;
-  }
-  // gather: V independent loads, then one 16-byte store where the packed
-  // row keeps alignment (a z-face, the edges along x and y)
-  const int count = min(V, t.n - p);
-  Words<E> w{};
-#pragma unroll
-  for (int e = 0; e < V; ++e)
-    if (e < count) w.e[e] = __ldg(u + t.box + box_index(g, p + e));
-  E* dst = out + t.packed + p;
-  if (count == V && (g.flags & kPackedVec)) {
-    *reinterpret_cast<uint4*>(dst) = w.v;
-  } else {
-#pragma unroll
-    for (int e = 0; e < V; ++e)
-      if (e < count) dst[e] = w.e[e];
-  }
+  gather_tile(g, tile_of<kVec<E>>(g, k - tab.first[lo], block, total), u, out);
 }
 
 // A row of the wrapper's plan, checked: every field in range, the counts
@@ -503,11 +491,6 @@ int pack_launch(int dtype, const long long* table, int nseg, void* out, long lon
   return static_cast<int>(cudaGetLastError());
 }
 
-int blocks_for(int64_t n) {
-  return static_cast<int>(std::min(std::max((n + kThreads - 1) / kThreads, int64_t{1}),
-                                   kMaxBlocks));
-}
-
 bool valid_grid(int nseg, long long n_ranks) {
   return nseg >= 1 && nseg <= kMaxSegments && n_ranks >= 1 && n_ranks <= 65535;
 }
@@ -553,20 +536,26 @@ const char* rt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int rt_halo_pack(int dtype, const void* u, void* out, long long n_ranks, int px, int py,
-                 int pz, int x0, int y0, int z0, int rx, int ry, int rz, void* stream) {
-  const Box b{px, py, pz, x0, y0, z0, rx, ry, rz};
-  const int64_t n = static_cast<int64_t>(n_ranks) * rx * ry * rz;
-  if (n == 0) return 0;
+// row: the wrapper's box plan (base, run, runs, run_stride, slabs,
+// slab_stride, offset 0, tiles, flags, run_magic, run_shift), int64 each;
+// block: elements of a rank's block; out_stride: elements of a rank's slab;
+// n_ctas: tiles x slabs, the CTAs a rank.
+int rt_halo_pack(int dtype, const void* u, void* out, const long long* row, int block,
+                 int out_stride, int n_ctas, int n_ranks, void* stream) {
+  BoxRow g;
+  if (!read_row(row, g) || n_ctas < 1 || n_ranks < 1 || n_ranks > 65535 || block < 1 ||
+      out_stride < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(n_ctas), static_cast<unsigned>(n_ranks));
   switch (dtype) {
     case kFloat32:
-      halo_pack_kernel<float><<<blocks_for(n), kThreads, 0, s>>>(
-          static_cast<const float*>(u), static_cast<float*>(out), n, b);
+      halo_pack_kernel<uint32_t><<<grid, kPackThreads, 0, s>>>(
+          static_cast<const uint32_t*>(u), static_cast<uint32_t*>(out), g, block, out_stride);
       break;
     case kBFloat16:
-      halo_pack_kernel<__nv_bfloat16><<<blocks_for(n), kThreads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(u), static_cast<__nv_bfloat16*>(out), n, b);
+      halo_pack_kernel<uint16_t><<<grid, kPackThreads, 0, s>>>(
+          static_cast<const uint16_t*>(u), static_cast<uint16_t*>(out), g, block, out_stride);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -16,33 +16,77 @@
 // the exponent is positive and reaches hundreds at chunk 128, and a 0/1 mask
 // multiplied after the exp would turn inf * 0 into NaN.
 //
-// What bounds it: per chunk of 128 rows at P = 64, N = 128 the four products
-// need ~7.4 MFLOP (C B^T and G x over the causal triangle only) against
-// ~50 KB of input, so the kernel is bound by operations (float32, outside
-// the tensor cores) and not by bytes.  This
-// first design is plain CUDA-core float32 FMA:
+// Two kernels, one rule (the wrapper's route, kernels/ssd_scan.py:route):
+// bf16 x, B and C at P 64, N 128 and chunk 128 -- the served mamba2 shapes
+// -- run ssd_wgmma_kernel on the tensor cores; float32, and every other
+// shape, run ssd_scan_kernel on CUDA cores.
+//
+// ssd_scan_kernel (CUDA cores).  Per chunk of 128 rows at P = 64, N = 128
+// the four products need ~7.4 MFLOP (C B^T and G x over the causal
+// triangle only) against ~50 KB of input, so in float32 outside the tensor
+// cores it is bound by operations, not by bytes.  Plain float32 FMA:
 //   * one CTA of 256 threads per (head, batch) walks the chunks in order --
 //     the sequential grid axis of the TPU kernel becomes a loop, and the
 //     state h stays in shared memory for the whole sequence;
 //   * a chunk's x, B (all rows) and C (one 32-row tile at a time) are staged
-//     in shared memory in the input dtype (bf16 on the served path), h and a
-//     32-row tile of G in float32.  At chunk 128, P 64, N 128 that is 108 KB
-//     for bf16 inputs (two CTAs an SM) and 165 KB for float32;
+//     in shared memory in the input dtype, h and a 32-row tile of G in
+//     float32.  At chunk 128, P 64, N 128 that is 108 KB for bf16 inputs
+//     (two CTAs an SM) and 165 KB for float32;
 //   * G is built one 32-row tile at a time, only for columns u below the
 //     tile's end (causal: 10/16 of the full C B^T at four tiles), and each
 //     tile's y rows are finished before the next tile overwrites it;
 //   * each thread keeps a 4x4 (G), 4x2 (y) or 8x4 (h) register tile; shared
 //     rows that lanes read across are padded to an odd word stride.
-// Tensor cores (wgmma), TMA and warp specialisation are for a later PR.
 //
-// The tail is handled with bounds: the last chunk holds min(chunk, S - c0)
-// rows, which gives the y and final h of the reference's call padded with
-// dt = 0.  x, B and C are read through strides (x is a slice of the conv
-// output); y is written contiguous [B, S, H, P], h0 / h as [B, H, P, N].
-// Nothing is allocated; the kernel runs on the caller's stream and the entry
-// point returns cudaGetLastError() so the Python wrapper raises on a refused
-// launch.
+// ssd_wgmma_kernel (tensor cores) is the chunked "state passing" form of
+// arXiv 2405.21060: chunk outputs and chunk-end increments are computed in
+// parallel, then the states are combined across chunks.  With bf16 inputs
+// every product of the chunk is exact in float32, which is what wgmma does;
+// so at the served shapes (B 4, S 512, H 80) the call is bound by its ~64.6
+// MB of bytes (19.3 us at 3.35 TB/s), not by its 9.42 GFLOP (9.5 us at 989
+// TFLOP/s).  Its design:
+//   * one CTA of two warpgroups per chunk; the CTAs of a (batch, head) form
+//     a thread-block cluster along the chunk axis, and a sequence of more
+//     chunks than the cluster holds walks it over groups of chunks;
+//   * one thread loads the chunk's x (128 x 64), B and C (128 x 128 each)
+//     with TMA into 128-byte-swizzled boxes of 64 columns x 128 rows: 80 KB
+//     of shared memory, two CTAs an SM.  Rows past S are zero-filled, and
+//     dt is read as 0 there, which is the reference's call padded with dt 0;
+//   * warpgroup w owns rows 64 w .. 64 w + 63 of the chunk.  For each
+//     causal 32-column slice (2 or 4): S = C B^T on wgmma (both operands from
+//     shared memory), G = S o L o dt in registers with exp(cum_t - cum_u)
+//     taken only where t >= u and 0 selected elsewhere, then y_intra += G x
+//     on wgmma with G from registers (as flash's P V).  Slices of 32 keep
+//     the live accumulators within the 128 registers two CTAs an SM allow;
+//   * warpgroup w also forms columns 64 w .. 64 w + 63 of the chunk-end
+//     increment h_inc = (x o w)^T B (w_u = exp(cum_last - cum_u) dt_u) on
+//     wgmma, (x o w)^T from registers (x^T's fragments by ldmatrix.trans)
+//     and B from shared memory, and publishes h_inc in its B boxes;
+//   * one cluster barrier, then each CTA forms its incoming state by prefix
+//     combination, h_{c-1} = (prod d) carry + sum_j (prod d) h_inc_j, reading
+//     the earlier ranks' increments through distributed shared memory (d_i
+//     = exp(cum_last_i); carry is init_state, or the previous group's last
+//     state in hout).  No CTA waits for another's result: a chain that
+//     passed h from CTA to CTA, one cluster barrier a step, took most of
+//     the kernel's time.  A second barrier frees the B boxes, and the CTA
+//     of a group's last chunk writes h_c = d_c h_{c-1} + h_inc_c to hout;
+//   * y_state = (C h_{c-1}^T) o exp(cum_t) on wgmma, C from shared memory and
+//     h_{c-1} as bf16 parts; y = y_intra + y_state goes through shared
+//     memory to one TMA store, which leaves out rows past S.
+// The float32 state is carried in float32; only the copies of G, x o w and
+// h that feed a wgmma are cut into bf16 parts (each part rounds what the
+// ones before left).  How many parts each takes is a template argument,
+// measured by scripts/ssd_scan_times.py against the checks' bounds; the
+// wrapper's PARTS and cluster size are the served choice.
+//
+// Both kernels give the last, short chunk min(chunk, S - c0) rows: the y
+// and final h of the reference's call padded with dt = 0.  x, B and C are
+// read through strides (x is a slice of the conv output); y is written
+// contiguous [B, S, H, P], h0 / h as [B, H, P, N].  Nothing is allocated;
+// the kernels run on the caller's stream and each entry point returns
+// cudaGetLastError() so the Python wrapper raises on a refused launch.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -343,6 +387,606 @@ int launch(const Args& a, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// tensor-core route: bf16 x, B and C at P 64, N 128, chunk 128
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kL = 128;            // rows of a chunk
+constexpr int kP = 64;             // head dim
+constexpr int kN = 128;            // state dim
+constexpr int kThreads = 256;      // two warpgroups
+constexpr int kMaxCluster = 8;
+constexpr int kBox = 64 * kL * 2;  // a TMA box: 64 bf16 columns (128 bytes) x 128 rows
+constexpr int kHalf = kBox / 2;    // 64 rows of a box
+// Shared memory, in bytes from a 1024-aligned base (128-byte swizzle
+// repeats every 1024 bytes).  After the chunk's products, B's boxes hold
+// the CTA's h_inc (float32, 32 KB, in its threads' register order) for the
+// later ranks of the cluster to read; then x's box and B's take h_{c-1} as
+// bf16 parts for y_state, each part two boxes (N columns 0-63, 64-127) of
+// 64 p rows; and C's first box takes y for its store.
+constexpr int kOffC = 0;           // C: boxes of N columns 0-63 and 64-127
+constexpr int kOffB = 2 * kBox;    // B: the same
+constexpr int kOffX = 4 * kBox;    // x
+constexpr int kOffVec = 5 * kBox;  // float cum, dt, exp(cum), w: kL each
+constexpr int kOffBar = kOffVec + 4 * kL * 4;  // the loads' mbarrier, then cum_last
+constexpr int kSmem = kOffBar + 16 + 1024;    // + the base's alignment
+
+__host__ __device__ constexpr int part_offset(int part) {
+  return part == 0 ? kOffX : kOffB + (part - 1) * kBox;
+}
+
+struct Params {
+  CUtensorMap tx, tb, tc;  // (64 or 128, S, H or G, B) bf16; boxes of 64 x 128 x 1 x 1
+  CUtensorMap ty;          // y's (64, S, H, B), the same boxes
+  const float* dt;         // [B, S, H], strides dt_sb, dt_ss, 1
+  const float* A;          // [H]
+  const float* h0;         // [B, H, P, N] or null (zero state)
+  float* hout;             // [B, H, P, N], contiguous; also the carry between groups
+  long long dt_sb, dt_ss;
+  int S, H, G, chunks, groups;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 64 x 128 box of a 4-D tensor map at (col, s, h, b) into shared memory.
+__device__ __forceinline__ void tma_load(const CUtensorMap* map, void* dst, uint64_t* bar,
+                                         int col, int s, int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(s), "r"(h),
+      "r"(b)
+      : "memory");
+}
+
+// Order this thread's generic-proxy accesses of shared memory before later
+// async-proxy ones (wgmma operand reads, TMA writes).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Every thread of every CTA of the cluster: writes before it (shared and
+// global) are seen by reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of the same shared-memory location in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start address,
+// leading and stride byte offsets (16-byte units), layout 1 = 128B swizzle.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_one() {  // all but the last group
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+// Keep the compiler from moving accumulator reads and writes across the
+// asynchronous products (CUTLASS's warpgroup_fence_operand).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define TC_D8(i)                                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define TC_D32(i) TC_D8(i), TC_D8(i + 8), TC_D8(i + 16), TC_D8(i + 24)
+
+// d[32] += A (64 x 16, K-major, shared) * B (16 x 64, K-major, shared)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : TC_D32(0)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d[16] += A (64 x 16, K-major, shared) * B (16 x 32, K-major, shared)
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : TC_D8(0), TC_D8(8)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d[32] += A (64 x 16, bf16 registers) * B (16 x 64, MN-major, shared)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : TC_D32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef TC_D32
+#undef TC_D8
+
+// Four 8 x 8 bf16 matrices from shared memory, transposed: lane l gives
+// the address of row l % 8 of matrix l / 8, and register i receives, of
+// matrix i, the pair (rows 2 (l % 4) and 2 (l % 4) + 1, column l / 4).
+__device__ __forceinline__ void ldmatrix_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// One 64 x 128 box of shared memory to a 4-D tensor map at (col, s, h, b);
+// rows past the map's S are not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int col,
+                                          int s, int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(col), "r"(s), "r"(h), "r"(b)
+      : "memory");
+}
+// Wait until the stores issued so far have read their shared memory.
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// The bf16 pair (a, b) as one wgmma register, and what its rounding left in
+// a and b (exact): called once a part.
+__device__ __forceinline__ uint32_t take_part(float& a, float& b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(v);
+  a -= f.x;
+  b -= f.y;
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Byte offset of element (row, col < 64) in a 128-byte-swizzled bf16 box,
+// as TMA lays it out.
+__device__ __forceinline__ int swizzled(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ (row & 7)) << 4) | ((col & 7) << 1));
+}
+
+// cum = inclusive cumsum of A dt over the chunk: one warp, four rows a lane.
+__device__ __forceinline__ void chunk_cumsum(float* cum, const float* dts, float A, int lane) {
+  float v[4];
+  float run = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    run += A * dts[4 * lane + k];
+    v[k] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += o;
+  }
+  float before = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) before = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) cum[4 * lane + k] = before + v[k];
+}
+
+// yi += G x over the 64 x 32 slice of rows 64 wg.. and columns v0 = 32 k..
+// of the chunk: S = C B^T on wgmma, G = S o L o dt in registers, then G
+// (NP bf16 parts, from registers) times x's rows v0.. (MN-major, shared).
+// Slices of 32 columns keep S and G's fragments to 16 registers each.
+template <int NP>
+__device__ __forceinline__ void intra_slice(float (&yi)[32], uint32_t sC, uint32_t sB,
+                                            uint32_t sX, const float* cum, const float* dts,
+                                            int wg, int v0, int r0, int c0) {
+  float s[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) s[j] = 0.f;
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kN / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+    wgmma_ss_n32(s, desc(sC + off + wg * kHalf, 16, 1024), desc(sB + off + v0 * 128, 16, 1024));
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(s);
+
+  // exp(cum_t - cum_u) only where t >= u; 0 is selected elsewhere
+  const int t0 = wg * 64 + r0;
+  const float ct[2] = {cum[t0], cum[t0 + 8]};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int t = t0 + 8 * ((j / 2) % 2);
+    const int u = v0 + 8 * (j / 4) + c0 + (j % 2);
+    s[j] = u <= t ? s[j] * expf(ct[(j / 2) % 2] - cum[u]) * dts[u] : 0.f;
+  }
+  // step ks covers columns v0 + 16 ks .. v0 + 16 ks + 15
+  uint32_t ga[NP][2][4];
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float a = s[8 * ks + 2 * r], b = s[8 * ks + 2 * r + 1];
+#pragma unroll
+      for (int part = 0; part < NP; ++part) ga[part][ks][r] = take_part(a, b);
+    }
+  fence_regs(yi);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    const uint64_t xd = desc(sX + (v0 + 16 * ks) * 128, kHalf, 1024);
+#pragma unroll
+    for (int part = 0; part < NP; ++part) wgmma_rs_n64(yi, ga[part][ks], xd);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(yi);
+}
+
+// hi = columns 64 wg .. 64 wg + 63 of the chunk-end increment (x o w)^T B:
+// rows p, summed over the chunk's rows u.  x o w goes
+// to wgmma from registers in NP bf16 parts, x^T's fragments read from its
+// swizzled box by ldmatrix.trans; B from shared memory as an MN-major
+// operand.
+template <int NP>
+__device__ __forceinline__ void chunk_increment(float (&hi)[32], uint32_t sB, uint32_t sX,
+                                                const float* wts, int wg, int c0) {
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  // this lane's row of the ldmatrix: u = 16 ks + 8 (m / 2) + lane % 8 of
+  // matrix m = lane / 8, columns p = 16 warp + 8 (m % 2) ..
+  const int m = lane / 8;
+  const int lu = 8 * (m / 2) + lane % 8, lp = 16 * warp + 8 * (m % 2);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) hi[j] = 0.f;
+  // one k-step at a time, its fragments double-buffered: the products of
+  // step ks run while step ks + 1's fragments are built
+  uint32_t wa[2][NP][4];
+  fence_regs(hi);
+#pragma unroll
+  for (int ks = 0; ks < kL / 16; ++ks) {
+    uint32_t xr[4];
+    ldmatrix_t(xr, sX + swizzled(16 * ks + lu, lp));
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int u = 16 * ks + c0 + 8 * (r / 2);  // columns u, u + 1
+      const float2 x2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xr[r]));
+      const float2 w2 = *reinterpret_cast<const float2*>(wts + u);
+      float a = x2.x * w2.x, b = x2.y * w2.y;
+#pragma unroll
+      for (int part = 0; part < NP; ++part) wa[ks % 2][part][r] = take_part(a, b);
+    }
+    wgmma_fence();
+    const uint64_t bd = desc(sB + wg * kBox + ks * 16 * 128, kHalf, 1024);
+#pragma unroll
+    for (int part = 0; part < NP; ++part) wgmma_rs_n64(hi, wa[ks % 2][part], bd);
+    wgmma_commit();
+    wgmma_wait_one();
+  }
+  wgmma_wait_all();
+  fence_regs(hi);
+}
+
+// PG, PW, PH: bf16 parts of G, x o w and h_{c-1}.
+template <int PG, int PW, int PH>
+__global__ void __launch_bounds__(kThreads, 2)
+    ssd_wgmma_kernel(const __grid_constant__ Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* cum = reinterpret_cast<float*>(sm + kOffVec);
+  float* dts = cum + kL;
+  float* ecum = dts + kL;  // exp(cum_t)
+  float* wts = ecum + kL;  // exp(cum_last - cum_u) dt_u
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + kOffBar);
+  float* clast = reinterpret_cast<float*>(sm + kOffBar + 8);  // cum_last, for the cluster
+  const uint32_t sC = smem_u32(sm + kOffC), sB = smem_u32(sm + kOffB), sX = smem_u32(sm + kOffX);
+
+  const int rank = blockIdx.x, K = gridDim.x;  // the cluster spans grid x
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (p.H / p.G);
+  const int tid = threadIdx.x, wg = tid / 128;
+  // wgmma's accumulator layout: this thread holds rows r0 and r0 + 8 of its
+  // warpgroup's 64 and, in each 8-column chunk j, columns 8 j + c0 and
+  // 8 j + c0 + 1
+  const int r0 = ((tid % 128) / 32) * 16 + (tid % 32) / 4, c0 = 2 * (tid % 4);
+  const float A = p.A[h];
+  const size_t state0 = (static_cast<size_t>(b) * p.H + h) * kP * kN;
+  // element (p, n) of a [P, N] state that accumulator pair q of this thread holds
+  auto at = [&](int q) { return (r0 + 8 * (q % 2)) * kN + wg * 64 + 8 * (q / 2) + c0; };
+
+  if (tid == 0) {
+    mbar_init(full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  for (int grp = 0; grp < p.groups; ++grp) {
+    const int c = grp * K + rank;
+    const bool active = c < p.chunks;  // uniform over the CTA
+    const int row0 = c * kL;
+    const int len = active ? min(kL, p.S - row0) : 0;
+    float yi[32], hp[32];
+    if (active) {
+      if (tid == 0) {
+        tma_store_wait_read();  // the previous group's y has left C's box
+        mbar_expect_tx(full, 5 * kBox);
+        tma_load(&p.tc, sm + kOffC, full, 0, row0, g, b);
+        tma_load(&p.tc, sm + kOffC + kBox, full, 64, row0, g, b);
+        tma_load(&p.tb, sm + kOffB, full, 0, row0, g, b);
+        tma_load(&p.tb, sm + kOffB + kBox, full, 64, row0, g, b);
+        tma_load(&p.tx, sm + kOffX, full, 0, row0, h, b);
+      }
+      const float* dtg = p.dt + b * p.dt_sb + h;
+      for (int t = tid; t < kL; t += kThreads) dts[t] = t < len ? dtg[(row0 + t) * p.dt_ss] : 0.f;
+      __syncthreads();
+      if (tid < 32) chunk_cumsum(cum, dts, A, tid);
+      __syncthreads();
+      const float cum_last = cum[kL - 1];
+      for (int t = tid; t < kL; t += kThreads) {
+        ecum[t] = expf(cum[t]);
+        wts[t] = expf(cum_last - cum[t]) * dts[t];
+      }
+      __syncthreads();
+      mbar_wait(full, grp & 1);
+
+#pragma unroll
+      for (int j = 0; j < 32; ++j) yi[j] = 0.f;
+      // the causal 32-column slices of the warpgroup's rows: 2 or 4
+      for (int k = 0; k < 2 * (wg + 1); ++k)
+        intra_slice<PG>(yi, sC, sB, sX, cum, dts, wg, 32 * k, r0, c0);
+      float hi[32];
+      chunk_increment<PW>(hi, sB, sX, wts, wg, c0);
+      // publish h_inc in this CTA's B boxes, in the threads' order (float4 q
+      // of thread t at 16 (256 q + t) bytes), and cum_last beside it
+      __syncthreads();  // both warpgroups are done reading B
+      float4* mine = reinterpret_cast<float4*>(sm + kOffB);
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        mine[q * kThreads + tid] = make_float4(hi[4 * q], hi[4 * q + 1], hi[4 * q + 2],
+                                               hi[4 * q + 3]);
+      if (tid == 0) *clast = cum_last;
+    }
+    cluster_sync();  // every increment of the group is published
+
+    // The states, by prefix combination: with d_i = exp(cum_last_i),
+    //   h_{c-1} = (prod_{i<r} d_i) carry + sum_{j<r} (prod_{j<i<r} d_i) h_inc_j
+    // over the ranks i, j < r of the group; carry is init_state (or zeros)
+    // for the first group, else the previous group's last state in hout.
+    // A thread reads the 32 elements it holds of each earlier rank's
+    // increment through distributed shared memory, each product of decays
+    // taken as exp of a sum of cum_last; no CTA waits for another's result.
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) hp[j] = 0.f;
+      float run = 0.f;  // sum of cum_last_i over j < i < r
+      for (int j = rank - 1; j >= 0; --j) {
+        const float e = expf(run);
+        const uint32_t inc = map_rank(sB, j);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const float4 v = ld_cluster4(inc + 16 * (q * kThreads + tid));
+          hp[4 * q] = fmaf(e, v.x, hp[4 * q]);
+          hp[4 * q + 1] = fmaf(e, v.y, hp[4 * q + 1]);
+          hp[4 * q + 2] = fmaf(e, v.z, hp[4 * q + 2]);
+          hp[4 * q + 3] = fmaf(e, v.w, hp[4 * q + 3]);
+        }
+        run += ld_cluster(map_rank(smem_u32(clast), j));
+      }
+      const float* carry = grp == 0 ? p.h0 : p.hout;
+      if (carry != nullptr) {
+        const float e = expf(run);
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          const float2 v = __ldcg(reinterpret_cast<const float2*>(carry + state0 + at(q)));
+          hp[2 * q] = fmaf(e, v.x, hp[2 * q]);
+          hp[2 * q + 1] = fmaf(e, v.y, hp[2 * q + 1]);
+        }
+      }
+    }
+    cluster_sync();  // every read of the group's increments and carry is done
+
+    if (active) {
+      // the end of the sequence or of the group: h_c = d_c h_{c-1} + h_inc_c
+      // to hout (the final state, or the next group's carry)
+      if (c == p.chunks - 1 || rank == K - 1) {
+        const float decay = expf(cum[kL - 1]);
+        const float* mine = reinterpret_cast<const float*>(sm + kOffB);
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          const int j = 2 * q, o = 4 * ((j / 4) * kThreads + tid) + j % 4;
+          __stcg(reinterpret_cast<float2*>(p.hout + state0 + at(q)),
+                 make_float2(fmaf(decay, hp[j], mine[o]), fmaf(decay, hp[j + 1], mine[o + 1])));
+        }
+      }
+      __syncthreads();  // B's boxes are free for h's parts
+      // h_{c-1} in PH bf16 parts, laid out as B^T's K-major boxes:
+      // (N column box, p row, n) swizzled as TMA would
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const int off = wg * kHalf + swizzled(r0 + 8 * (q % 2), 8 * (q / 2) + c0);
+        float a = hp[2 * q], b2 = hp[2 * q + 1];
+#pragma unroll
+        for (int part = 0; part < PH; ++part)
+          *reinterpret_cast<uint32_t*>(sm + part_offset(part) + off) = take_part(a, b2);
+      }
+      fence_proxy_async();  // the parts are read by wgmma
+    }
+    __syncthreads();
+    if (active) {
+      // y_state = (C h_{c-1}^T) o exp(cum_t), and y = y_intra + y_state
+      float ys[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) ys[j] = 0.f;
+      fence_regs(ys);
+      wgmma_fence();
+#pragma unroll
+      for (int part = 0; part < PH; ++part) {
+        const uint32_t hb = smem_u32(sm + part_offset(part));
+#pragma unroll
+        for (int kk = 0; kk < kN / 16; ++kk)
+          wgmma_ss_n64(ys, desc(sC + (kk / 4) * kBox + wg * kHalf + (kk % 4) * 32, 16, 1024),
+                       desc(hb + (kk / 4) * kHalf + (kk % 4) * 32, 16, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(ys);
+      // y through C's first box (free once both warpgroups' products are
+      // done) to one TMA store, which leaves out rows past S
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const int t = wg * 64 + r0 + 8 * (q % 2);
+        const float e = ecum[t];
+        *reinterpret_cast<__nv_bfloat162*>(sm + kOffC + swizzled(t, 8 * (q / 2) + c0)) =
+            __floats2bfloat162_rn(fmaf(e, ys[2 * q], yi[2 * q]),
+                                  fmaf(e, ys[2 * q + 1], yi[2 * q + 1]));
+      }
+      fence_proxy_async();
+      __syncthreads();
+      if (tid == 0) tma_store(&p.ty, sm + kOffC, 0, row0, h, b);
+    }
+    fence_proxy_async();
+    __syncthreads();  // shared memory is free for the next group's loads
+  }
+  if (tid == 0) tma_store_wait();
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, found through the runtime's entry-point
+// query, so that the library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map over (cols, S, H, B) of a bf16 tensor with element strides
+// (s, h, b), boxes of 64 columns x 128 rows, 128-byte swizzle; rows past S
+// read as zeros.
+bool encode(CUtensorMap* map, const void* ptr, int cols, int S, int H, int B, long long ss,
+            long long sh, long long sb) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, kL, 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+            box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int PG, int PW, int PH>
+cudaError_t launch(const Params& p, int cluster, int B, cudaStream_t s) {
+  auto kernel = ssd_wgmma_kernel<PG, PW, PH>;
+  static const cudaError_t set =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (set != cudaSuccess) return set;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, p.H, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" {
@@ -366,6 +1010,50 @@ int rt_ssd_scan(int dtype, const void* x, const void* dt, const void* A, const v
   switch (dtype) {
     case kFloat32: return launch<float>(a, batch, s);
     case kBFloat16: return launch<__nv_bfloat16>(a, batch, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The tensor-core kernel: bf16 x [B,S,H,64] and B, C [B,S,G,128], element
+// strides (batch, seq, head or group) and unit last stride, base pointers
+// and strides 16-byte aligned (TMA); dt, A, h0, y, hout as rt_ssd_scan's,
+// chunk 128.  cluster: the CTAs of a (batch, head), 1 to min(chunks, 8);
+// parts: 100 (G parts) + 10 (x o w parts) + (h parts), an instantiated
+// variant (kernels/ssd_scan.py: PARTS_VARIANTS).
+int rt_ssd_scan_wgmma(const void* x, const void* dt, const void* A, const void* Bm,
+                      const void* C, const void* h0, void* y, void* hout, int batch, int S,
+                      int H, int G, int cluster, int parts, long long x_sb, long long x_ss,
+                      long long x_sh, long long dt_sb, long long dt_ss, long long b_sb,
+                      long long b_ss, long long b_sg, long long c_sb, long long c_ss,
+                      long long c_sg, void* stream) {
+  const int chunks = S > 0 ? (S + tc::kL - 1) / tc::kL : 0;
+  if (batch <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G || batch > 65535 || H > 65535 ||
+      cluster < 1 || cluster > tc::kMaxCluster || cluster > chunks)
+    return cudaErrorInvalidValue;
+  tc::Params p{};
+  if (!tc::encode(&p.tx, x, tc::kP, S, H, batch, x_ss, x_sh, x_sb) ||
+      !tc::encode(&p.tb, Bm, tc::kN, S, G, batch, b_ss, b_sg, b_sb) ||
+      !tc::encode(&p.tc, C, tc::kN, S, G, batch, c_ss, c_sg, c_sb) ||
+      !tc::encode(&p.ty, y, tc::kP, S, H, batch, static_cast<long long>(H) * tc::kP, tc::kP,
+                  static_cast<long long>(S) * H * tc::kP))
+    return cudaErrorInvalidValue;
+  p.dt = static_cast<const float*>(dt);
+  p.A = static_cast<const float*>(A);
+  p.h0 = static_cast<const float*>(h0);
+  p.hout = static_cast<float*>(hout);
+  p.dt_sb = dt_sb;
+  p.dt_ss = dt_ss;
+  p.S = S;
+  p.H = H;
+  p.G = G;
+  p.chunks = chunks;
+  p.groups = (chunks + cluster - 1) / cluster;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (parts) {
+    case 111: return tc::launch<1, 1, 1>(p, cluster, batch, s);
+    case 121: return tc::launch<1, 2, 1>(p, cluster, batch, s);
+    case 222: return tc::launch<2, 2, 2>(p, cluster, batch, s);
+    case 333: return tc::launch<3, 3, 3>(p, cluster, batch, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -49,7 +49,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #: the C entry points of ``csrc/halo_pack.cu`` and their argument types
 SIGNATURES = {
-    "rt_halo_pack": [_I, _P, _P, _I64] + [_I] * 9 + [_P],
+    "rt_halo_pack": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     "rt_halo_unpack_add": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     "rt_pack_segments": [_I, _P, _I, _P, _I64, _I64, _P],
     "rt_unpack_segments": [_I, _P, _I64, _I64, _P, _I, _P, _P],
@@ -87,18 +87,32 @@ def halo_pack(u: torch.Tensor, region: Sequence[slice]) -> torch.Tensor:
     """Copy one static face/edge/corner region of every rank's block into
     a new contiguous ``(*ranks, *region)`` slab.
 
-    Bound: reads and writes the slab once (a 128x128 face of 8 ranks is
-    1 MiB of traffic, well under a microsecond at 3.35 TB/s), so launch
-    latency dominates; one thread per element, coalesced along ``pz``.
+    ``pack_boundary`` with one region whose segment is the whole row: one
+    launch of the tiles of :func:`box_plan` (4 KB a CTA, grid (CTAs a
+    rank, ranks), no idle CTA, no division per element), the same gather
+    as ``pack_boundary``'s.  Where the region's runs and the layout allow
+    (x- and y-faces, edges along z) a thread copies 16 bytes with one
+    load and one store; elsewhere (a z-face, edges along x and y) it
+    gathers 16 bytes of the slab with independent loads and stores them
+    at once.  Bound: reads and writes the slab once (a 128x128 float32
+    face of 8 ranks is 1 MiB of traffic, 0.31 us at 3.35 TB/s), or the
+    32-byte sectors a strided region touches; at slab sizes, launch
+    latency.
     """
     region = ref.region3(region)
     if use_plain(u):
         return ref.halo_pack(u, region)
     code = _dtype_code(u)
-    box = _box(u, region)
+    n_ranks, *block = _box(u, region)[:4]
     out = torch.empty(tuple(u.shape[:-3]) + ref.region_shape(region),
                       dtype=u.dtype, device=u.device)
-    err = _lib().rt_halo_pack(code, u.data_ptr(), out.data_ptr(), *box, stream_arg(u))
+    row, n_ctas = _box_launch(tuple(block), _region_key(region), n_ranks,
+                              u.element_size(), u.data_ptr() % 16, out.data_ptr() % 16)
+    if n_ctas == 0:
+        return out
+    err = _lib().rt_halo_pack(code, u.data_ptr(), out.data_ptr(), row,
+                              block[0] * block[1] * block[2], out.numel() // n_ranks,
+                              n_ctas, n_ranks, stream_arg(u))
     check_launch("halo_pack", err)
     halo_pack.launches += 1
     return out
@@ -133,8 +147,8 @@ def halo_unpack_add(u: torch.Tensor, msg: torch.Tensor,
         return ref.halo_unpack_add(u, msg, region)
     code = _dtype_code(u, msg)
     n_ranks, *block = _box(u, region)[:4]
-    row, n_ctas = _unpack_launch(tuple(block), _region_key(region), n_ranks,
-                                 u.element_size(), u.data_ptr() % 16, msg.data_ptr() % 16)
+    row, n_ctas = _box_launch(tuple(block), _region_key(region), n_ranks,
+                              u.element_size(), u.data_ptr() % 16, msg.data_ptr() % 16)
     if n_ctas == 0:
         return u
     err = _lib().rt_halo_unpack_add(code, u.data_ptr(), msg.data_ptr(), row,
@@ -154,10 +168,11 @@ def _slices(key) -> Tuple[slice, ...]:
 
 
 @functools.lru_cache(maxsize=4096)
-def _unpack_launch(block, region, n_ranks, itemsize, u_align, msg_align):
-    """``halo_unpack_add``'s row as a C array, and its CTAs a rank (the
-    plan depends on the addresses only modulo 16, so it is cached)."""
-    row, n_ctas = box_plan(block, _slices(region), n_ranks, itemsize, u_align, msg_align)
+def _box_launch(block, region, n_ranks, itemsize, u_align, packed_align):
+    """The row of a one-region box launch (``halo_pack``,
+    ``halo_unpack_add``) as a C array, and its CTAs a rank (the plan
+    depends on the addresses only modulo 16, so it is cached)."""
+    row, n_ctas = box_plan(block, _slices(region), n_ranks, itemsize, u_align, packed_align)
     return (None if row is None else (ctypes.c_int64 * len(row))(*row)), n_ctas
 
 

@@ -1,23 +1,32 @@
-"""Hopper kernel of the Mamba2 SSD chunked scan: wrapper and launch counter.
+"""Hopper kernels of the Mamba2 SSD chunked scan: wrapper and launch counters.
 
-The hand-written CUDA kernel ``csrc/ssd_scan.cu`` (built for ``sm_90a``
+The hand-written CUDA source ``csrc/ssd_scan.cu`` (built for ``sm_90a``
 at first use by :mod:`.build`) replaces ``ssd_scan_call``
 (``src/repro/kernels/ssd_scan.py:80``), which the JAX package reaches
-through ``kernels/ops.py:ssd_scan``.  It is bound by float32 operations
-(the chunk's small matrix products), not by bytes; the source says how
-its first design meets that.
+through ``kernels/ops.py:ssd_scan``.  The route rule, fixed by dtype,
+head dim, state dim and chunk alone (:func:`route`):
+
+* ``bfloat16`` x, B and C at P 64, N 128 and chunk 128 (mamba2's served
+  shapes) take the tensor-core kernel: one CTA per chunk on ``wgmma``,
+  the CTAs of a (batch, head) in a thread-block cluster that carries the
+  float32 state from chunk to chunk through distributed shared memory.
+  Bound by bytes;
+* ``float32``, and every other shape, take the CUDA-core kernel: one CTA
+  per (batch, head) walking its chunks in float32 FMA.  Bound by
+  float32 operations.
 
 For a CPU tensor the wrapper runs the plain version
 (:func:`.ref.ssd_scan`, the sequential float32 scan), and only then;
-for CUDA tensors it launches the kernel or raises.  ``ssd_scan.
-launches`` counts the kernel launches it made (a launch recorded into a
-CUDA graph counts once, at capture).
+for CUDA tensors it launches its route's kernel or raises.
+``ssd_scan.launches_wgmma`` and ``launches_cuda_core`` count each
+route's launches, ``ssd_scan.launches`` their sum (a launch recorded
+into a CUDA graph counts once, at capture).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -25,10 +34,44 @@ from . import ref
 from .build import check_launch, load_library, stream_arg, use_plain
 
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128  # csrc kMaxChunk, kMaxP, kMaxN
+WGMMA_CHUNK, WGMMA_HEAD_DIM, WGMMA_STATE = 128, 64, 128  # csrc tc::kL, kP, kN
+MAX_CLUSTER = 8  # csrc tc::kMaxCluster: CTAs of a (batch, head)
+#: bf16 parts of (G, x o w, h) the tensor-core kernel takes on the served
+#: path: the fewest that meet the checks' bounds (scripts/ssd_scan_times.py)
+PARTS = (1, 2, 1)
+#: the variants ``csrc/ssd_scan.cu`` instantiates (rt_ssd_scan_wgmma)
+PARTS_VARIANTS = ((1, 1, 1), (1, 2, 1), (2, 2, 2), (3, 3, 3))
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-#: the C entry point of ``csrc/ssd_scan.cu`` and its argument types
-SIGNATURES = {"rt_ssd_scan": [_I] + [_P] * 8 + [_I] * 7 + [_I64] * 11 + [_P]}
+#: the C entry points of ``csrc/ssd_scan.cu`` and their argument types
+SIGNATURES = {"rt_ssd_scan": [_I] + [_P] * 8 + [_I] * 7 + [_I64] * 11 + [_P],
+              "rt_ssd_scan_wgmma": [_P] * 8 + [_I] * 6 + [_I64] * 11 + [_P]}
+
+
+def route(dtype: torch.dtype, head_dim: int, state_dim: int, chunk: int) -> str:
+    """``"wgmma"`` or ``"cuda_core"``: which kernel a CUDA call of this
+    dtype (x's), head dim P, state dim N and requested chunk takes."""
+    if (dtype == torch.bfloat16 and head_dim == WGMMA_HEAD_DIM and state_dim == WGMMA_STATE
+            and chunk == WGMMA_CHUNK):
+        return "wgmma"
+    return "cuda_core"
+
+
+def max_cluster(seq_len: int) -> int:
+    """The most CTAs a (batch, head) can take on the tensor-core route:
+    one a chunk, at most :data:`MAX_CLUSTER`."""
+    return min(-(-seq_len // WGMMA_CHUNK), MAX_CLUSTER)
+
+
+def default_cluster(seq_len: int) -> int:
+    """CTAs of a (batch, head) on the tensor-core route: one for every two
+    chunks, at most :data:`MAX_CLUSTER`; each CTA walks the cluster's
+    groups of chunks.  At the served S 512 (4 chunks, 1 280 CTAs of one
+    chunk or 640 of two) two chunks a CTA measured faster than one or
+    four (``scripts/ssd_scan_times.py``): the second chunk's set-up and
+    loads overlap the other CTA of its SM, with half the CTAs to place
+    in clusters."""
+    return min(-(-seq_len // (2 * WGMMA_CHUNK)), MAX_CLUSTER)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -40,12 +83,32 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``init_state [B,H,P,N]``.  Returns y ``[B,S,H,P]`` in x's dtype (and
     the final float32 state ``[B,H,P,N]`` when ``return_state``).
 
-    On the card, one launch runs every (batch, head) over chunks of
-    ``min(chunk, S)`` rows, the last one short when ``S % chunk``: the
-    result of the reference's call padded with ``dt = 0``.  x, Bm and C
-    may be strided views (unit stride in the last dimension): the kernel
-    reads them in place, with no copy.
+    On the card, one launch of the route's kernel (:func:`route`) runs
+    every (batch, head) over chunks of ``min(chunk, S)`` rows, the last
+    one short when ``S % chunk``: the result of the reference's call
+    padded with ``dt = 0``.  x, Bm and C may be strided views (unit
+    stride in the last dimension): the kernels read them in place.  The
+    tensor-core route loads them with TMA, which takes 16-byte aligned
+    data and strides; a view that breaks that (none on the served path)
+    is copied to a contiguous tensor first.
     """
+    return _scan(x, dt, A, Bm, C, init_state, chunk, return_state, None, None)
+
+
+def ssd_scan_variant(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                     Bm: torch.Tensor, C: torch.Tensor, *,
+                     init_state: Optional[torch.Tensor] = None, cluster: int,
+                     parts: Tuple[int, int, int]):
+    """:func:`ssd_scan` at chunk 128 on the tensor-core route with another
+    cluster size (1 to :func:`max_cluster`) or bf16 parts (one of
+    :data:`PARTS_VARIANTS`), for measurements
+    (``scripts/ssd_scan_times.py``); returns (y, final state)."""
+    if route(x.dtype, x.shape[-1], Bm.shape[-1], 128) != "wgmma":
+        raise ValueError("ssd_scan_variant takes the tensor-core route's inputs")
+    return _scan(x, dt, A, Bm, C, init_state, 128, True, cluster, parts)
+
+
+def _scan(x, dt, A, Bm, C, init_state, chunk, return_state, cluster, parts):
     if x.dim() != 4 or Bm.dim() != 4:
         raise ValueError("ssd_scan takes x [B,S,H,P] and Bm, C [B,S,G,N]")
     Bsz, S, H, P = x.shape
@@ -63,6 +126,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ref.ssd_scan(x, dt, A, Bm, C, init_state=init_state,
                             return_state=return_state)
 
+    which = route(x.dtype, P, N, int(chunk))
     chunk = min(int(chunk), S)
     if not (0 < chunk <= MAX_CHUNK and P <= MAX_HEAD_DIM and N <= MAX_STATE):
         raise ValueError(f"the ssd_scan kernel takes chunk <= {MAX_CHUNK}, P <= "
@@ -80,23 +144,58 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          "Bm and C, and contiguous A and init_state")
     y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
     h = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
-    err = load_library("ssd_scan", SIGNATURES).rt_ssd_scan(
-        _DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        C.data_ptr(), None if init_state is None else init_state.data_ptr(),
-        y.data_ptr(), h.data_ptr(), Bsz, S, H, P, G, N, chunk,
-        *x.stride()[:3], *dt.stride()[:2], *Bm.stride()[:3], *C.stride()[:3],
-        stream_arg(x))
-    check_launch("ssd_scan", err)
+    lib = load_library("ssd_scan", SIGNATURES)
+    h0 = None if init_state is None else init_state.data_ptr()
+    if which == "wgmma":
+        x, Bm, C = (t if _tma_ok(t) else t.contiguous() for t in (x, Bm, C))
+        cluster = default_cluster(S) if cluster is None else int(cluster)
+        parts = PARTS if parts is None else tuple(parts)
+        if parts not in PARTS_VARIANTS or not 1 <= cluster <= max_cluster(S):
+            raise ValueError(f"ssd_scan: parts {parts} not in {PARTS_VARIANTS}, or cluster "
+                             f"{cluster} outside 1..{max_cluster(S)}")
+        err = lib.rt_ssd_scan_wgmma(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), C.data_ptr(), h0,
+            y.data_ptr(), h.data_ptr(), Bsz, S, H, G, cluster,
+            100 * parts[0] + 10 * parts[1] + parts[2], *_tma_strides(x), *dt.stride()[:2],
+            *_tma_strides(Bm), *_tma_strides(C), stream_arg(x))
+        check_launch("ssd_scan", err)
+        ssd_scan.launches_wgmma += 1
+    else:
+        err = lib.rt_ssd_scan(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            C.data_ptr(), h0, y.data_ptr(), h.data_ptr(), Bsz, S, H, P, G, N, chunk,
+            *x.stride()[:3], *dt.stride()[:2], *Bm.stride()[:3], *C.stride()[:3],
+            stream_arg(x))
+        check_launch("ssd_scan", err)
+        ssd_scan.launches_cuda_core += 1
     ssd_scan.launches += 1
     return (y, h) if return_state else y
 
 
+def _tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
+    """(batch, seq, head or group) element strides of a view for a TMA
+    map: a dimension of size 1 is never stepped, so its stride is
+    replaced by the row's length (a multiple of 16 bytes)."""
+    return tuple(s if n > 1 else t.shape[3] for n, s in zip(t.shape[:3], t.stride()[:3]))
+
+
+def _tma_ok(t: torch.Tensor) -> bool:
+    """Whether TMA can read the bf16 view in place: 16-byte aligned data
+    and strides."""
+    return t.data_ptr() % 16 == 0 and all(s > 0 and s % 8 == 0 for s in _tma_strides(t))
+
+
 ssd_scan.launches = 0
+ssd_scan.launches_wgmma = 0
+ssd_scan.launches_cuda_core = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {"ssd_scan": ssd_scan.launches}
+    return {"ssd_scan": ssd_scan.launches, "ssd_scan_wgmma": ssd_scan.launches_wgmma,
+            "ssd_scan_cuda_core": ssd_scan.launches_cuda_core}
 
 
 def reset_launches() -> None:
     ssd_scan.launches = 0
+    ssd_scan.launches_wgmma = 0
+    ssd_scan.launches_cuda_core = 0

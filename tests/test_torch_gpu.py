@@ -5,8 +5,9 @@ on the same device inputs: the halo and boundary kernels bit for bit,
 the SSD scan, flash attention and RMSNorm in float32 within the repo's
 kernel-vs-reference bounds (rtol 2e-4 / atol 3e-5; RMSNorm 2e-5 /
 1e-5), and in bfloat16 within one rounding of the output (2^-8 of the
-two results' magnitudes); flash attention's cases say which of its two
-kernels (routes) each must take.  An RMSNorm row must come out the
+two results' magnitudes; the SSD scan within ``chip_smoke.py``'s served
+bf16 bound); flash attention's and the SSD scan's cases say which of
+their two kernels (routes) each must take.  An RMSNorm row must come out the
 same bits whatever rows, row stride and alignment it is launched with.
 The engines' CUDA graphs and the
 serve engines (mamba2 and gemma3 smoke models) are held against the CPU
@@ -248,6 +249,97 @@ def test_ssd_kernel_never_forms_the_upper_exponent(cuda):
     yabs, habs = ref.ssd_scan(x.abs(), dt, A, Bm.abs(), C.abs(), return_state=True)
     assert bool(((y - yr).abs() <= 2e-4 * yr.abs() + 3e-5 + 1e-4 * yabs).all())
     assert bool(((h - hr).abs() <= 2e-4 * hr.abs() + 3e-5 + 1e-4 * habs).all())
+
+
+def _served_ssd(cuda, B, S, H, G, kind, h0, seed):
+    """bf16 x, B, C as views of one conv output (row stride H P + 2 G N),
+    at the served widths P 64, N 128: ``"served"`` draws dt and A as the
+    mamba2 prefill does, ``"extreme"`` the extreme decay above (dt ~ 1,
+    A = -e)."""
+    P, N = 64, 128
+    gen = torch.Generator(cuda).manual_seed(seed)
+    wide = torch.randn(B, S, H * P + 2 * G * N, device=cuda, generator=gen).bfloat16()
+    x = wide[..., :H * P].reshape(B, S, H, P)
+    Bm = wide[..., H * P:H * P + G * N].reshape(B, S, G, N)
+    C = wide[..., H * P + G * N:].reshape(B, S, G, N)
+    if kind == "served":
+        dt = torch.nn.functional.softplus(torch.randn(B, S, H, device=cuda, generator=gen))
+    else:
+        dt = 1.0 + 0.01 * torch.rand(B, S, H, device=cuda, generator=gen)
+    A = torch.full((H,), -float(np.e), device=cuda)
+    h = torch.randn(B, H, P, N, device=cuda, generator=gen) if h0 else None
+    return x, dt, A, Bm, C, h
+
+
+def _within_served_bound(y, h, x, dt, A, Bm, C, h0):
+    """``chip_smoke.py``'s served bf16 bound against the plain version:
+    y within one bf16 rounding of each side plus (2^-8 + 2^-10) of the
+    terms' magnitudes (the scan of |x|, |B|, |C|, |h0|), h within the
+    latter; the plain version rounds each x*B product to bf16."""
+    yp, hp = ref.ssd_scan(x, dt, A, Bm, C, init_state=h0, return_state=True)
+    yabs, habs = ref.ssd_scan(x.float().abs(), dt, A, Bm.float().abs(), C.float().abs(),
+                              init_state=None if h0 is None else h0.abs(), return_state=True)
+    tol_y = 2.0 ** -8 * (y.float().abs() + yp.float().abs()) + (2.0 ** -8 + 2.0 ** -10) * yabs
+    tol_h = (2.0 ** -8 + 2.0 ** -10) * habs
+    return (bool(((y.float() - yp.float()).abs() <= tol_y).all())
+            and bool(((h - hp).abs() <= tol_h).all()))
+
+
+# bf16 at the served widths: the tensor-core route.  A short last chunk
+# with init_state and 2 groups; one short chunk; the served prefill's 4
+# chunks (one cluster); 11 chunks (a cluster of 8 walks two groups); the
+# extreme decay
+WGMMA_CASES = [dict(B=2, S=300, H=8, G=2, kind="served", h0=True),
+               dict(B=1, S=100, H=4, G=1, kind="served", h0=False),
+               dict(B=2, S=512, H=4, G=1, kind="served", h0=True),
+               dict(B=1, S=1300, H=2, G=1, kind="served", h0=True),
+               dict(B=1, S=256, H=2, G=1, kind="extreme", h0=False)]
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES,
+                         ids=lambda c: f"S{c['S']}H{c['H']}G{c['G']}{c['kind']}")
+def test_ssd_wgmma_route_meets_the_served_bound(cuda, case):
+    x, dt, A, Bm, C, h0 = _served_ssd(cuda, **case, seed=case["S"])
+    assert ssd.route(x.dtype, x.shape[3], Bm.shape[3], 128) == "wgmma"
+    before = ssd.launch_counts()
+    y, h = ssd.ssd_scan(x, dt, A, Bm, C, init_state=h0, chunk=128, return_state=True)
+    torch.cuda.synchronize()
+    after = ssd.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "ssd_scan": 1, "ssd_scan_wgmma": 1, "ssd_scan_cuda_core": 0}
+    assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(h).all())
+    assert _within_served_bound(y, h, x, dt, A, Bm, C, h0)
+    if case["kind"] == "extreme":
+        # the state also meets the float32 extreme-decay bound above,
+        # against the plain version of the same values in float32
+        _, hf = ref.ssd_scan(x.float(), dt, A, Bm.float(), C.float(), return_state=True)
+        _, habs = ref.ssd_scan(x.float().abs(), dt, A, Bm.float().abs(), C.float().abs(),
+                               return_state=True)
+        assert bool(((h - hf).abs() <= 2e-4 * hf.abs() + 3e-5 + 1e-4 * habs).all())
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3])
+def test_ssd_wgmma_cluster_size_keeps_the_bound(cuda, cluster):
+    """Three chunks in groups of 1, 2 or 3 CTAs (a group's last state
+    carried on through hout): each meets the served bound."""
+    x, dt, A, Bm, C, h0 = _served_ssd(cuda, 2, 300, 8, 2, "served", True, seed=3)
+    y, h = ssd.ssd_scan_variant(x, dt, A, Bm, C, init_state=h0, cluster=cluster,
+                                parts=ssd.PARTS)
+    assert _within_served_bound(y, h, x, dt, A, Bm, C, h0)
+
+
+def test_ssd_wgmma_route_copies_an_unaligned_view(cuda):
+    """A view whose row stride breaks TMA's 16-byte rule (none on the
+    served path) is copied first, and gives the result of its copy."""
+    x, dt, A, Bm, C, h0 = _served_ssd(cuda, 1, 200, 2, 1, "served", True, seed=4)
+    odd = torch.zeros(1, 200, 2 * 64 + 1, device=cuda, dtype=torch.bfloat16)
+    odd[..., :128] = x.reshape(1, 200, 128)
+    xv = odd[..., :128].reshape(1, 200, 2, 64)
+    assert xv.stride(1) % 8
+    got = ssd.ssd_scan(xv, dt, A, Bm, C, init_state=h0, chunk=128, return_state=True)
+    want = ssd.ssd_scan(x.contiguous(), dt, A, Bm, C, init_state=h0, chunk=128,
+                        return_state=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_ssd_kernel_refuses_what_it_does_not_take(cuda):

@@ -1,9 +1,10 @@
 """The host-side plans of the port's redesigned kernels, on the CPU.
 
 ``pack_segments`` launches a flat list of tiles planned in Python
-(``halo_pack.segment_tiles`` / ``pack_plan``), ``halo_unpack_add`` and
-``pack_boundary`` a flat list of tiles over boxes (``halo_pack.
-box_plan`` / ``boundary_plan``), and ``rmsnorm`` picks its route and
+(``halo_pack.segment_tiles`` / ``pack_plan``), ``halo_pack``,
+``halo_unpack_add`` and ``pack_boundary`` a flat list of tiles over
+boxes (``halo_pack.box_plan`` / ``boundary_plan``), and ``rmsnorm``
+picks its route and
 its row partition in Python (``rmsnorm.route`` / ``partition``).  These
 tests hold the plans to what the CUDA kernels rely on: the tiles cover
 every (member, rank, column), or every element of a region, exactly
@@ -145,7 +146,7 @@ def test_both_routes_deal_groups_to_the_partitions_slots(d):
 
 
 # --------------------------------------------------------------------------
-# box plans: halo_unpack_add and pack_boundary
+# box plans: halo_pack, halo_unpack_add and pack_boundary
 # --------------------------------------------------------------------------
 
 BOX_BLOCKS = [(5, 4, 6), (128, 128, 128), (1, 7, 3), (4, 4, 4)]
@@ -235,6 +236,36 @@ def test_unpack_box_plans_scatter_as_the_plain_version(block, dtype, n_ranks):
         flat = u.clone().view(-1)
         got = (flat[box].float() + msg.view(-1)[packed].float()).to(dtype)
         want = ref.halo_unpack_add(u.clone(), msg, region)[(..., *region)].flatten()
+        assert torch.equal(got.view(_BITS[dtype]), want.view(_BITS[dtype]))
+
+
+@pytest.mark.parametrize("base", ["aligned", "unaligned"])
+@pytest.mark.parametrize("n_ranks", [1, 8])
+@pytest.mark.parametrize("dtype", BOX_DTYPES)
+@pytest.mark.parametrize("block", [(128, 128, 128), (9, 5, 7)])
+def test_halo_pack_plans_gather_as_the_plain_version(block, dtype, n_ranks, base):
+    """The 26 regions of a block, each one ``halo_pack`` launch: a
+    ``pack_boundary`` of one region whose segment is the slab's whole
+    row, decoded as the gather does (V consecutive packed elements a
+    thread).  Every slab element is copied once, from its own block
+    element, and the emulated gather equals ``ref.halo_pack`` bit for
+    bit; on an unaligned block (one element off 16 bytes) the block side
+    takes no 16-byte access."""
+    lead, itemsize = (n_ranks,), torch.empty((), dtype=dtype).element_size()
+    u_addr = 0 if base == "aligned" else itemsize
+    u = _field(lead, block, dtype, 3)
+    for direction in DIRECTIONS:
+        region = _region_for(direction, block)
+        row, n_ctas = hk.box_plan(block, region, n_ranks, itemsize, u_addr, 0)
+        size = ref.region_size(region)
+        assert n_ctas == -(-size // (hk.TILE_BYTES // itemsize))   # one slab a rank
+        if base == "unaligned":
+            assert not row[8] & hk.BOX_VEC
+        box, packed = _decode_boxes("pack", [(0, *row)], n_ctas, n_ranks, block, size,
+                                    itemsize, u_addr, 0)
+        assert torch.equal(torch.from_numpy(packed), torch.arange(n_ranks * size))
+        got = u.view(-1)[box].view(n_ranks, *ref.region_shape(region))
+        want = ref.halo_pack(u, region)
         assert torch.equal(got.view(_BITS[dtype]), want.view(_BITS[dtype]))
 
 
