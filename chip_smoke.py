@@ -36,9 +36,13 @@ a checkout of the repository.  Phases, each of which must pass:
    one region of each class (x-, y- and z-face, edges along x, y and z,
    corner) against a slice ``add_``, with two bounds: the useful bytes
    and the 32-byte sectors the region touches (``sector_bound_ms``, also
-   in the pack's, the unpack's and ``pack_boundary``'s rows of the
+   in the pack's, the unpack's and both boundary kernels' rows of the
    kernels line), and ``halo_pack`` on the same regions against a slice
-   ``copy_`` with the same two bounds;
+   ``copy_`` with the same two bounds; ``unpack_boundary_add`` is timed
+   beside one ``index_add_`` of the buffer at the regions' flat indices
+   (which adds overlapping regions in another order: timed, not
+   compared), ``unpack_segments`` beside no library call (no single
+   PyTorch call writes N separate tensors);
 6. serve mamba2-2.7b at full width and depth (64 layers, d_model 2560,
    80 SSD heads of 64, state 128, vocab 50 280, bf16 compute, float32
    parameters from ``torch.Generator(seed)``): 4 slots, 512-token
@@ -440,9 +444,20 @@ def check_kernels(torch, prog, u, hk, ref):
                     lambda: torch.cat(flats, dim=-1), 2 * n_ranks * total * itemsize))
     rows[-1]["sector_bound_ms"] = sector_bound_ms(torch, u, send, 1, sent.numel() * itemsize)
     acc = u.clone()
+    # the library call: one index_add_ of the whole buffer at the blocks'
+    # flat indices (built here, outside the timed window); it adds the
+    # overlapping regions in another order at edges and corners, so it is
+    # timed, not compared
+    index = torch.arange(points[0] * points[1] * points[2], device=u.device).view(points)
+    idx = torch.cat([index[r].flatten() for r in back])
+    acc_rows, sent_rows = acc.view(n_ranks, -1), sent.view(n_ranks, -1)
     rows.append(row("unpack_boundary_add", lambda: hk.unpack_boundary_add(acc, sent, back),
-                    lambda: ref.unpack_boundary_add(acc, sent, back), None,
+                    lambda: ref.unpack_boundary_add(acc, sent, back),
+                    lambda: acc_rows.index_add_(1, idx, sent_rows),
                     n_ranks * (total + 2 * union) * itemsize, n_ops=n_ranks * total))
+    rows[-1]["sector_bound_ms"] = sector_bound_ms(torch, u, back, 2, sent.numel() * itemsize)
+    rows[-1]["library_call"] = ("index_add_ at the regions' flat indices (adds in another "
+                                "order where regions overlap: timed, not compared)")
 
     # pack_segments / unpack_segments: replay the coalescing plan of the
     # path's batch with both versions, transfer by transfer
@@ -1194,7 +1209,7 @@ def main() -> int:
     require(all(r["launches"] > 0 for r in rows), "a kernel was not launched on its path")
     order = ("name", "route", "kernel_route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "sector_bound_ms",
-             "library_ms", "earlier_ms", "decode")
+             "library_ms", "library_call", "earlier_ms", "decode")
     print(json.dumps({"kernels": [{k: r[k] for k in order if k in r} for r in rows]}))
     print(f"card: {gpu_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -18,12 +18,15 @@
 // by launch latency of a few microseconds.  Every kernel makes ONE launch
 // for all ranks and, for the segment and boundary kernels, all members or
 // regions of a call, whose offsets and sizes travel by value in a small
-// argument table.  unpack_segments and unpack_boundary_add take one thread
-// per element over a grid-stride loop.  pack_segments launches a flat list of
-// 16-byte-a-thread tiles over columns, and halo_pack, halo_unpack_add and
-// pack_boundary a flat list of such tiles over boxes (below).  Nothing is
-// allocated; every kernel runs on the caller's stream, and each entry point
-// returns cudaGetLastError() so the Python wrapper raises on a refused launch.
+// argument table.  Every kernel launches a flat list of tiles planned on the
+// host (kernels/halo_pack.py), 256 threads x 16 bytes a tile, with no idle
+// CTA: pack_segments and unpack_segments over the columns of each member
+// (segment_tiles), halo_pack, halo_unpack_add and pack_boundary over boxes
+// (box_plan), unpack_boundary_add over the ordered cells of its regions
+// (unpack_boundary_plan).  A CTA finds its row by a binary search of the
+// rows' first CTAs (find_row).  Nothing is allocated; every kernel runs on
+// the caller's stream, and each entry point returns cudaGetLastError() so
+// the Python wrapper raises on a refused launch.
 //
 // A bfloat16 add is done in float32 and rounded once (round to nearest
 // even), as PyTorch's own elementwise add does, so kernel and plain version
@@ -32,41 +35,24 @@
 // The boundary pair moves all regions of a block (the 26 faces, edges and
 // corners, in DIRECTIONS order) to and from ONE buffer at static offsets,
 // every rank in one launch.  The pack is a box launch (below).  The
-// unpack's grid is x over a region's elements, y = region, z = rank, the
-// regions' boxes and offsets by value in a table.  Its regions overlap (a
-// face holds its edges and corners), and the reference adds them in region
-// order, rounding to the block's dtype after each add.  A parallel scatter
-// of the segments would race and reorder those adds, so each element of the
-// union is OWNED by the thread of the first region that covers it: that
-// thread walks the later regions that cover the element, in order, and adds
-// each one's value, rounding after each add -- the reference's sequence, bit
-// for bit, with no atomics.  A thread whose element an earlier region covers
-// does nothing.
+// unpack's regions overlap (a face holds its edges and corners), and the
+// reference adds them in region order, rounding to the block's dtype after
+// each add; a parallel scatter of the segments would race and reorder those
+// adds.  So the unpack walks the disjoint cells of the regions' union, each
+// with the ordered list of the regions that cover it: one thread an element
+// makes the reference's sequence of adds, bit for bit, with no atomics
+// (unpack_boundary_add_kernel, below).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <algorithm>
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxSegments = 64;  // members of one fused transfer
 
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // pack_segments: member j of a fused transfer, columns [col_j, col_j + n_j)
 // of every rank's row of a (ranks, W_j) source, goes to columns [off_j,
@@ -103,30 +89,29 @@ struct PackTable {
   PackMember m[CAP];
 };
 
-// E: a 32- or 16-bit word (float32 or bfloat16 bits).
-template <typename E, int CAP>
-__global__ void __launch_bounds__(kPackThreads)
-    pack_segments_kernel(const __grid_constant__ PackTable<CAP> tab, int nseg,
-                         E* __restrict__ out, int total) {
-  constexpr int kTile = kTileBytes / sizeof(E);
-  constexpr int V = 16 / sizeof(E);
-  const int b = blockIdx.x;
-  int lo = 0, hi = nseg - 1;  // the last member whose first CTA is <= b
+// The last entry of first[0, n) at or below b: the row of a flat tile list
+// that owns CTA b (first[0] == 0, increasing; uniform, in the parameter bank).
+__device__ __forceinline__ int find_row(const int* first, int n, int b) {
+  int lo = 0, hi = n - 1;
   while (lo < hi) {
     const int mid = (lo + hi + 1) >> 1;
-    if (tab.first[mid] <= b)
+    if (first[mid] <= b)
       lo = mid;
     else
       hi = mid - 1;
   }
-  const PackMember& m = tab.m[lo];
-  const int local = b - tab.first[lo];
-  const int r = local / m.tiles;
-  const int begin = (local - r * m.tiles) * kTile;
-  const int end = min(begin + kTile, m.size);
-  const E* src = static_cast<const E*>(m.src) + static_cast<int64_t>(r) * m.src_stride;
-  E* dst = out + static_cast<int64_t>(r) * total + m.dst_col;
-  if (m.vec) {
+  return lo;
+}
+
+// Columns [begin, end) of one row of a segment tile: 16 bytes a thread where
+// vec holds (thread t takes columns begin + t * V ...), element by element at
+// the CTA's stride otherwise.  Raw 32- or 16-bit words, exact whatever the
+// values.
+template <typename E>
+__device__ __forceinline__ void copy_tile(const E* __restrict__ src, E* __restrict__ dst,
+                                          int begin, int end, bool vec) {
+  constexpr int V = 16 / sizeof(E);
+  if (vec) {
     const int i = begin + static_cast<int>(threadIdx.x) * V;
     if (i + V <= end) {
       *reinterpret_cast<uint4*>(dst + i) = __ldg(reinterpret_cast<const uint4*>(src + i));
@@ -139,46 +124,68 @@ __global__ void __launch_bounds__(kPackThreads)
   }
 }
 
-// Member j of a received buffer: columns [src_col, src_col + size) of every
-// row go to the contiguous (ranks, size) slab dst, for the ranks whose mask
-// byte is set (all ranks when mask is null).
-struct UnpackSeg {
-  void* dst;
-  int64_t src_col;
-  int64_t size;
-};
-struct UnpackTable {
-  UnpackSeg seg[kMaxSegments];
-};
-
-template <typename T>
-__global__ void unpack_segments_kernel(const T* __restrict__ buf, int64_t total,
-                                       UnpackTable tab, const uint8_t* __restrict__ mask,
-                                       int64_t n_ranks) {
-  const int64_t r = blockIdx.z;
-  if (mask != nullptr && !mask[blockIdx.y * n_ranks + r]) return;
-  const UnpackSeg& s = tab.seg[blockIdx.y];
-  const T* src = buf + r * total + s.src_col;
-  T* dst = static_cast<T*>(s.dst) + r * s.size;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < s.size; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    dst[i] = src[i];
-  }
+// E: a 32- or 16-bit word (float32 or bfloat16 bits).
+template <typename E, int CAP>
+__global__ void __launch_bounds__(kPackThreads)
+    pack_segments_kernel(const __grid_constant__ PackTable<CAP> tab, int nseg,
+                         E* __restrict__ out, int total) {
+  constexpr int kTile = kTileBytes / sizeof(E);
+  const int b = blockIdx.x;
+  const int j = find_row(tab.first, nseg, b);
+  const PackMember& m = tab.m[j];
+  const int local = b - tab.first[j];
+  const int r = local / m.tiles;
+  const int begin = (local - r * m.tiles) * kTile;
+  copy_tile(static_cast<const E*>(m.src) + static_cast<int64_t>(r) * m.src_stride,
+            out + static_cast<int64_t>(r) * total + m.dst_col, begin,
+            min(begin + kTile, m.size), m.vec != 0);
 }
 
-// Region j of a boundary buffer: the box [x0, x0+rx) x [y0, y0+ry) x
-// [z0, z0+rz) of a (px, py, pz) block, at element offset `off` of the
-// rank's buffer.
-struct Region {
-  int x0, y0, z0, rx, ry, rz, off, size;
+// unpack_segments: pack_segments turned round.  Member j, columns [src_col_j,
+// src_col_j + n_j) of every row of the (ranks, total) received buffer, goes to
+// the contiguous (ranks, n_j) slab dst_j, for the ranks whose mask byte is set
+// (all when mask is null); the others keep their values.  The same flat tile
+// list (kernels/halo_pack.py: unpack_plan): member j owns CTAs [first_j,
+// first_j + tiles_j * ranks), rank-major, so the grid is exactly sum_j
+// ceil(n_j / tile) * ranks CTAs (a Faces transfer, a 128^2 face and eight
+// edges and corners of 8 ranks: 192 CTAs, one wave; the old grid of
+// max_size x members x ranks launched 4608, ~90 % of them empty).  The mask
+// stays on the device (the engines capture this launch into CUDA graphs): a
+// CTA reads its rank's byte, uniform across the CTA, and returns at once
+// when it is 0.  16 bytes a thread where the buffer at the member's column,
+// its row stride, the slab and the slab's row keep alignment; element by
+// element otherwise (a corner).
+struct UnpackMember {
+  void* dst;    // the member's slab: rank r's row at dst + r * size
+  int src_col;  // the member's first column in the buffer's row
+  int size;     // columns
+  int tiles;    // tiles a rank
+  int vec;      // 1: 16-byte accesses keep alignment
+  int member;   // the member's row of the masks
+  int pad_;
 };
-struct RegionTable {
-  Region r[kMaxSegments];
+template <int CAP>
+struct UnpackTable {
+  int first[CAP];  // member j's first CTA, increasing
+  UnpackMember m[CAP];
 };
 
-__device__ __forceinline__ bool covers(const Region& g, int x, int y, int z) {
-  return x >= g.x0 && x < g.x0 + g.rx && y >= g.y0 && y < g.y0 + g.ry && z >= g.z0 &&
-         z < g.z0 + g.rz;
+template <typename E, int CAP>
+__global__ void __launch_bounds__(kPackThreads)
+    unpack_segments_kernel(const __grid_constant__ UnpackTable<CAP> tab, int nseg,
+                           const E* __restrict__ buf, int total,
+                           const uint8_t* __restrict__ mask, int n_ranks) {
+  constexpr int kTile = kTileBytes / sizeof(E);
+  const int b = blockIdx.x;
+  const int j = find_row(tab.first, nseg, b);
+  const UnpackMember& m = tab.m[j];
+  const int local = b - tab.first[j];
+  const int r = local / m.tiles;
+  if (mask != nullptr && !mask[static_cast<int64_t>(m.member) * n_ranks + r]) return;
+  const int begin = (local - r * m.tiles) * kTile;
+  copy_tile(buf + static_cast<int64_t>(r) * total + m.src_col,
+            static_cast<E*>(m.dst) + static_cast<int64_t>(r) * m.size, begin,
+            min(begin + kTile, m.size), m.vec != 0);
 }
 
 // Box launches (halo_pack, halo_unpack_add, pack_boundary): a region of
@@ -379,16 +386,9 @@ __global__ void __launch_bounds__(kPackThreads)
     pack_boundary_kernel(const __grid_constant__ BoxTable<CAP> tab, int nrows,
                          const E* __restrict__ u, E* __restrict__ out, int block, int total) {
   const int k = blockIdx.x;
-  int lo = 0, hi = nrows - 1;  // the last row whose first CTA is <= k
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (tab.first[mid] <= k)
-      lo = mid;
-    else
-      hi = mid - 1;
-  }
-  const BoxRow& g = tab.g[lo];
-  gather_tile(g, tile_of<kVec<E>>(g, k - tab.first[lo], block, total), u, out);
+  const int j = find_row(tab.first, nrows, k);
+  const BoxRow& g = tab.g[j];
+  gather_tile(g, tile_of<kVec<E>>(g, k - tab.first[j], block, total), u, out);
 }
 
 // A row of the wrapper's plan, checked: every field in range, the counts
@@ -430,33 +430,142 @@ int pack_boundary_launch(int dtype, const void* u, void* out, const long long* t
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-__global__ void unpack_boundary_add_kernel(T* __restrict__ u, const T* __restrict__ buf,
-                                           RegionTable tab, int nreg, int px, int py, int pz,
-                                           int total) {
-  const int j0 = blockIdx.y;
-  const Region& g = tab.r[j0];
-  const int64_t rank = blockIdx.z;
-  T* blk = u + rank * static_cast<int64_t>(px) * py * pz;
-  const T* src = buf + rank * static_cast<int64_t>(total);
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < g.size; i += gridDim.x * blockDim.x) {
-    const int z = g.z0 + i % g.rz;
-    const int e = i / g.rz;
-    const int y = g.y0 + e % g.ry;
-    const int x = g.x0 + e / g.ry;
-    bool owned = true;
-    for (int j = 0; j < j0; ++j) owned = owned && !covers(tab.r[j], x, y, z);
-    if (!owned) continue;  // an earlier region's thread adds this element
-    const int64_t o = (static_cast<int64_t>(x) * py + y) * pz + z;
-    T acc = blk[o];
-    for (int j = j0; j < nreg; ++j) {
-      const Region& h = tab.r[j];
-      if (!covers(h, x, y, z)) continue;
-      const int li = ((x - h.x0) * h.ry + (y - h.y0)) * h.rz + (z - h.z0);
-      acc = from_float<T>(to_float(acc) + to_float(src[h.off + li]));
+// unpack_boundary_add: an ordered cell plan (kernels/halo_pack.py:
+// unpack_boundary_plan).  The host cuts each axis of the block at every
+// region's start and stop; the boxes of that cut that some region covers
+// are the cells, disjoint, and each has ONE ordered list of the regions that
+// cover it (a Faces shell: 26 cells, a face's interior covered by 1 region,
+// an edge's by 3, a corner by 7).  A cell is a box in (outer, run) form, as
+// a box row's, cut into tiles of kTileBytes over all its elements (slabs x
+// runs x run) and listed flat: the grid is (CTAs a rank, ranks), no CTA idle.
+// An element's run and slab come from the plan's multipliers for `run` and
+// `runs`, and its element in covering region k's segment is affine in them
+// (start_k + slab * slab_step_k + run * run_step_k + column), so a thread
+// makes no box test and no division.  Each element of the union belongs to
+// one thread, which loads it once, issues the loads of all its covers (up to
+// kCoverLoads at once), adds them in region order, rounding after each add,
+// and stores it once: the reference's sequence bit for bit, with no atomics.
+// Where the cell's flag holds (runs of whole 16-byte words, every start,
+// step and stride aligned on u and on each segment: the interiors of the x-
+// and y-faces, which the plan cuts at 16-byte bounds), a thread adds 16
+// bytes at a time; elsewhere it takes the elements start + threadIdx.x +
+// e * 256 (e < V), coalesced on the segments.  Bound: the 32-byte sectors of
+// the shell, read and written (a z-face element touches one), and the buffer
+// read once; at Faces sizes, launch latency.
+constexpr int kMaxCells = 40;    // cells of one launch (the wrapper's MAX_CELLS)
+constexpr int kMaxCovers = 112;  // covers of all its cells (MAX_COVERS)
+
+struct CellRow {
+  int base;            // the cell's first element in a rank's block
+  int run;             // contiguous elements of a run
+  int runs;            // runs a slab
+  int run_stride;      // elements between two runs in the block
+  int slabs;           // slabs
+  int slab_stride;     // elements between two slabs in the block
+  int tiles;           // CTAs a rank
+  int vec;             // 1: 16-byte accesses on u and on every cover
+  unsigned run_magic;  // p / run == (p * run_magic) >> run_shift, p < 2^31
+  int run_shift;
+  unsigned runs_magic;  // the same for runs
+  int runs_shift;
+  int cover;           // the cell's first cover in the table
+  int n_covers;        // the regions covering the cell, in region order
+};
+constexpr int kCellFields = 14;
+// A region covering a cell: the segment element of the cell's first element
+// in a rank's buffer row, and the segment's steps between two of the cell's
+// runs and two of its slabs.
+struct Cover {
+  int start, run_step, slab_step;
+};
+struct CellTable {  // 3 744 bytes of parameters
+  int first[kMaxCells];
+  CellRow c[kMaxCells];
+  Cover k[kMaxCovers];
+};
+
+// Element p of a cell in row-major order: its slab, its run in the slab and
+// its column, by the plan's two multipliers.
+struct CellIndex {
+  int slab, run, col;
+};
+__device__ __forceinline__ CellIndex cell_index(const CellRow& g, int p) {
+  const int r = static_cast<int>((static_cast<uint64_t>(p) * g.run_magic) >> g.run_shift);
+  const int a = static_cast<int>((static_cast<uint64_t>(r) * g.runs_magic) >> g.runs_shift);
+  return {a, r - a * g.runs, p - r * g.run};
+}
+__device__ __forceinline__ int box_at(const CellRow& g, const CellIndex& i) {
+  return i.slab * g.slab_stride + i.run * g.run_stride + i.col;
+}
+__device__ __forceinline__ int seg_at(const Cover& h, const CellIndex& i) {
+  return h.start + i.slab * h.slab_step + i.run * h.run_step + i.col;
+}
+
+template <typename E>
+__global__ void __launch_bounds__(kPackThreads)
+    unpack_boundary_add_kernel(const __grid_constant__ CellTable tab, int ncells,
+                               E* __restrict__ u, const E* __restrict__ buf, int block,
+                               int total) {
+  constexpr int V = kVec<E>;
+  constexpr int kCoverLoads = 32 / V;  // covers whose loads a thread has in flight
+  const int i = find_row(tab.first, ncells, blockIdx.x);
+  const CellRow& g = tab.c[i];
+  const Cover* cov = tab.k + g.cover;
+  const int n = g.slabs * g.runs * g.run;
+  const int start = (static_cast<int>(blockIdx.x) - tab.first[i]) * (kTileBytes / sizeof(E));
+  E* blk = u + static_cast<int64_t>(blockIdx.y) * block + g.base;
+  const E* seg = buf + static_cast<int64_t>(blockIdx.y) * total;
+  if (g.vec) {  // 16 bytes a thread on u and on every cover (run % V == 0)
+    const int p = start + static_cast<int>(threadIdx.x) * V;
+    if (p >= n) return;
+    const CellIndex at = cell_index(g, p);
+    uint4* x = reinterpret_cast<uint4*>(blk + box_at(g, at));
+    Words<E> acc;
+    acc.v = *x;
+    for (int k0 = 0; k0 < g.n_covers; k0 += kCoverLoads) {
+      Words<E> m[kCoverLoads];
+#pragma unroll
+      for (int j = 0; j < kCoverLoads; ++j)
+        if (k0 + j < g.n_covers)
+          m[j].v = __ldg(reinterpret_cast<const uint4*>(seg + seg_at(cov[k0 + j], at)));
+#pragma unroll
+      for (int j = 0; j < kCoverLoads; ++j)
+        if (k0 + j < g.n_covers) {
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc.e[e] = add_words(acc.e[e], m[j].e[e]);
+        }
     }
-    blk[o] = acc;
+    *x = acc.v;
+    return;
   }
+  // element by element: element e of a thread is the cell's element start +
+  // threadIdx.x + e * kPackThreads (coalesced on the segments)
+  CellIndex at[V];
+  bool ok[V];
+  E x[V] = {};
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    const int p = start + static_cast<int>(threadIdx.x) + e * kPackThreads;
+    ok[e] = p < n;
+    at[e] = cell_index(g, ok[e] ? p : 0);
+    if (ok[e]) x[e] = blk[box_at(g, at[e])];
+  }
+  for (int k0 = 0; k0 < g.n_covers; k0 += kCoverLoads) {
+    E m[kCoverLoads][V] = {};
+#pragma unroll
+    for (int j = 0; j < kCoverLoads; ++j)
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        if (k0 + j < g.n_covers && ok[e]) m[j][e] = __ldg(seg + seg_at(cov[k0 + j], at[e]));
+#pragma unroll
+    for (int j = 0; j < kCoverLoads; ++j)
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        if (k0 + j < g.n_covers) x[e] = add_words(x[e], m[j][e]);
+  }
+#pragma unroll
+  for (int e = 0; e < V; ++e)
+    if (ok[e]) blk[box_at(g, at[e])] = x[e];
 }
 
 // pack_segments' launch with a table of CAP members (the wrapper's plan; see
@@ -491,41 +600,56 @@ int pack_launch(int dtype, const long long* table, int nseg, void* out, long lon
   return static_cast<int>(cudaGetLastError());
 }
 
-bool valid_grid(int nseg, long long n_ranks) {
-  return nseg >= 1 && nseg <= kMaxSegments && n_ranks >= 1 && n_ranks <= 65535;
+// unpack_segments' launch with a table of CAP members (the wrapper's plan; see
+// rt_unpack_segments).
+template <int CAP>
+int unpack_launch(int dtype, const long long* table, int nseg, const void* buf,
+                  long long n_ctas, long long total, const void* mask, int n_ranks,
+                  void* stream) {
+  constexpr long long kMax = 0x7fffffffLL;
+  if ((dtype != kFloat32 && dtype != kBFloat16) || nseg < 1 || nseg > CAP || n_ctas < 1 ||
+      n_ctas > kMax || total < 1 || total > kMax || n_ranks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  UnpackTable<CAP> tab{};
+  for (int j = 0; j < nseg; ++j) {
+    const long long* row = table + 7 * j;
+    for (int f = 1; f < 7; ++f)
+      if (row[f] < 0 || row[f] > kMax) return static_cast<int>(cudaErrorInvalidValue);
+    if (row[3] < 1 || row[1] + row[2] > total || row[4] >= n_ctas ||
+        (j > 0 && row[4] <= tab.first[j - 1]) || (j == 0 && row[4] != 0))
+      return static_cast<int>(cudaErrorInvalidValue);
+    tab.first[j] = static_cast<int>(row[4]);
+    tab.m[j] = UnpackMember{reinterpret_cast<void*>(row[0]), static_cast<int>(row[1]),
+                            static_cast<int>(row[2]), static_cast<int>(row[3]), row[5] != 0,
+                            static_cast<int>(row[6]), 0};
+  }
+  const unsigned grid = static_cast<unsigned>(n_ctas);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    unpack_segments_kernel<uint32_t, CAP><<<grid, kPackThreads, 0, s>>>(
+        tab, nseg, static_cast<const uint32_t*>(buf), static_cast<int>(total), m, n_ranks);
+  else
+    unpack_segments_kernel<uint16_t, CAP><<<grid, kPackThreads, 0, s>>>(
+        tab, nseg, static_cast<const uint16_t*>(buf), static_cast<int>(total), m, n_ranks);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// table: nreg rows of (x0, y0, z0, rx, ry, rz, offset, size); every box
-// lies inside the (px, py, pz) block and the offsets are consecutive.
-int unpack_boundary_launch(int dtype, void* u, const void* buf, long long n_ranks, int px,
-                           int py, int pz, const int* table, int nreg, int total,
-                           void* stream) {
-  if (!valid_grid(nreg, n_ranks)) return static_cast<int>(cudaErrorInvalidValue);
-  RegionTable tab{};
-  int max_size = 0;
-  for (int j = 0; j < nreg; ++j) {
-    const int* row = table + 8 * j;
-    tab.r[j] = Region{row[0], row[1], row[2], row[3], row[4], row[5], row[6], row[7]};
-    max_size = std::max(max_size, row[7]);
-  }
-  if (max_size == 0) return 0;
-  const dim3 grid(std::min((max_size + kThreads - 1) / kThreads, 1024), nreg,
-                  static_cast<unsigned>(n_ranks));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32:
-      unpack_boundary_add_kernel<float><<<grid, kThreads, 0, s>>>(
-          static_cast<float*>(u), static_cast<const float*>(buf), tab, nreg, px, py, pz, total);
-      break;
-    case kBFloat16:
-      unpack_boundary_add_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-          static_cast<__nv_bfloat16*>(u), static_cast<const __nv_bfloat16*>(buf), tab, nreg,
-          px, py, pz, total);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+// A cell row of the wrapper's plan, after its first CTA, checked: every
+// field in range, the counts positive, the covers inside the table.
+bool read_cell(const long long* row, int ncovers, CellRow& g) {
+  for (int f = 0; f < kCellFields; ++f)
+    if (row[f] < 0 || row[f] > (f == 8 || f == 10 ? 0xffffffffLL : 0x7fffffffLL)) return false;
+  g = CellRow{static_cast<int>(row[0]),       static_cast<int>(row[1]),
+              static_cast<int>(row[2]),       static_cast<int>(row[3]),
+              static_cast<int>(row[4]),       static_cast<int>(row[5]),
+              static_cast<int>(row[6]),       static_cast<int>(row[7]),
+              static_cast<unsigned>(row[8]),  static_cast<int>(row[9]),
+              static_cast<unsigned>(row[10]), static_cast<int>(row[11]),
+              static_cast<int>(row[12]),      static_cast<int>(row[13])};
+  return g.run >= 1 && g.runs >= 1 && g.slabs >= 1 && g.tiles >= 1 && g.vec <= 1 &&
+         g.run_shift >= 31 && g.run_shift <= 62 && g.runs_shift >= 31 && g.runs_shift <= 62 &&
+         g.n_covers >= 1 && g.cover + g.n_covers <= ncovers;
 }
 
 }  // namespace
@@ -600,36 +724,18 @@ int rt_pack_segments(int dtype, const long long* table, int nseg, void* out,
   return pack_launch<16>(dtype, table, nseg, out, n_ctas, total, stream);
 }
 
-// table: nseg rows of (dst pointer, src column, size); mask: nseg x n_ranks
-// bytes on the device, or null.
-int rt_unpack_segments(int dtype, const void* buf, long long n_ranks, long long total,
-                       const long long* table, int nseg, const void* mask, void* stream) {
-  if (!valid_grid(nseg, n_ranks)) return static_cast<int>(cudaErrorInvalidValue);
-  UnpackTable tab{};
-  int64_t max_size = 0;
-  for (int j = 0; j < nseg; ++j) {
-    const long long* row = table + 3 * j;
-    tab.seg[j] = UnpackSeg{reinterpret_cast<void*>(row[0]), row[1], row[2]};
-    max_size = std::max<int64_t>(max_size, row[2]);
-  }
-  if (max_size == 0) return 0;
-  const dim3 grid(std::min<int64_t>((max_size + kThreads - 1) / kThreads, 1024), nseg,
-                  static_cast<unsigned>(n_ranks));
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kFloat32:
-      unpack_segments_kernel<float><<<grid, kThreads, 0, s>>>(
-          static_cast<const float*>(buf), total, tab, m, n_ranks);
-      break;
-    case kBFloat16:
-      unpack_segments_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(buf), total, tab, m, n_ranks);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+// table: nseg rows of (destination address, buffer column, size, tiles a
+// rank, first CTA, vector flag, member index), int64 each: the wrapper's
+// plan, every member with columns, first CTAs increasing from 0; n_ctas: the
+// CTAs of the flat tile list; total: columns of a buffer row; mask: members x
+// n_ranks bytes on the device, or null.
+int rt_unpack_segments(int dtype, const long long* table, int nseg, const void* buf,
+                       long long n_ctas, long long total, const void* mask, int n_ranks,
+                       void* stream) {
+  if (nseg > 16)
+    return unpack_launch<kMaxSegments>(dtype, table, nseg, buf, n_ctas, total, mask, n_ranks,
+                                       stream);
+  return unpack_launch<16>(dtype, table, nseg, buf, n_ctas, total, mask, n_ranks, stream);
 }
 
 // table: nrows rows of (first CTA, *box row), int64 each, of the wrapper's
@@ -645,11 +751,43 @@ int rt_pack_boundary(int dtype, const void* u, void* out, const long long* table
                                   stream);
 }
 
-int rt_unpack_boundary_add(int dtype, void* u, const void* buf, long long n_ranks, int px,
-                           int py, int pz, const int* table, int nreg, int total,
-                           void* stream) {
-  return unpack_boundary_launch(dtype, u, buf, n_ranks, px, py, pz, table, nreg, total,
-                                stream);
+// cells: ncells rows of (first CTA, base, run, runs, run_stride, slabs,
+// slab_stride, tiles, vec, run_magic, run_shift, runs_magic, runs_shift,
+// first cover, covers), covers: ncovers rows of (start, run_step,
+// slab_step), int64 each: the wrapper's cell plan, first CTAs increasing
+// from 0; block: elements of a rank's block; total: of a rank's buffer row;
+// n_ctas: the CTAs a rank.
+int rt_unpack_boundary_add(int dtype, void* u, const void* buf, const long long* cells,
+                           int ncells, const long long* covers, int ncovers, int block,
+                           int total, int n_ctas, int n_ranks, void* stream) {
+  if ((dtype != kFloat32 && dtype != kBFloat16) || ncells < 1 || ncells > kMaxCells ||
+      ncovers < 1 || ncovers > kMaxCovers || n_ctas < 1 || n_ranks < 1 || n_ranks > 65535 ||
+      block < 1 || total < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CellTable tab{};
+  for (int j = 0; j < ncells; ++j) {
+    const long long* row = cells + (kCellFields + 1) * j;
+    if (!read_cell(row + 1, ncovers, tab.c[j]) || row[0] >= n_ctas ||
+        (j > 0 && row[0] <= tab.first[j - 1]) || (j == 0 && row[0] != 0))
+      return static_cast<int>(cudaErrorInvalidValue);
+    tab.first[j] = static_cast<int>(row[0]);
+  }
+  for (int j = 0; j < ncovers; ++j) {
+    const long long* row = covers + 3 * j;
+    for (int f = 0; f < 3; ++f)
+      if (row[f] < 0 || row[f] >= total) return static_cast<int>(cudaErrorInvalidValue);
+    tab.k[j] = Cover{static_cast<int>(row[0]), static_cast<int>(row[1]),
+                     static_cast<int>(row[2])};
+  }
+  const dim3 grid(static_cast<unsigned>(n_ctas), static_cast<unsigned>(n_ranks));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    unpack_boundary_add_kernel<uint32_t><<<grid, kPackThreads, 0, s>>>(
+        tab, ncells, static_cast<uint32_t*>(u), static_cast<const uint32_t*>(buf), block, total);
+  else
+    unpack_boundary_add_kernel<uint16_t><<<grid, kPackThreads, 0, s>>>(
+        tab, ncells, static_cast<uint16_t*>(u), static_cast<const uint16_t*>(buf), block, total);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

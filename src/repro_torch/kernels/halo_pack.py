@@ -17,10 +17,16 @@ wrapper                  replaces (src/repro/kernels/halo_pack.py)
 
 Each launch covers every rank of a buffer in the global layout.  All
 six are copies at static offsets (plus one float add for the unpacks):
-bound by the bytes moved against the card's memory rate and, at Faces
-slab sizes, by launch latency.  They allocate nothing but their
-outputs, launch on ``torch.cuda.current_stream()`` and raise if the
-launch is refused.
+bound by the bytes moved against the card's memory rate (or the 32-byte
+sectors a strided region touches) and, at Faces slab sizes, by launch
+latency.  Each launches a flat list of 4 KB tiles planned here, on the
+host, with no idle CTA: the segment kernels over their members' columns
+(:func:`pack_plan`, :func:`unpack_plan`), ``halo_pack``,
+``halo_unpack_add`` and ``pack_boundary`` over boxes (:func:`box_plan`,
+:func:`boundary_plan`), ``unpack_boundary_add`` over the ordered cells
+of its regions (:func:`unpack_boundary_plan`).  They allocate nothing
+but their outputs, launch on ``torch.cuda.current_stream()`` and raise
+if the launch is refused.
 
 A wrapper runs the plain version of :mod:`.ref` for a CPU tensor, and
 only then; for a CUDA tensor it launches its kernel or raises.  Each
@@ -52,9 +58,9 @@ SIGNATURES = {
     "rt_halo_pack": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     "rt_halo_unpack_add": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     "rt_pack_segments": [_I, _P, _I, _P, _I64, _I64, _P],
-    "rt_unpack_segments": [_I, _P, _I64, _I64, _P, _I, _P, _P],
+    "rt_unpack_segments": [_I, _P, _I, _P, _I64, _I64, _P, _I, _P],
     "rt_pack_boundary": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "rt_unpack_boundary_add": [_I, _P, _P, _I64, _I, _I, _I, _P, _I, _I, _P],
+    "rt_unpack_boundary_add": [_I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -200,15 +206,16 @@ def _boundary_regions(u: torch.Tensor, regions):
     return regions, total
 
 
-def _region_table(regions):
-    """``unpack_boundary_add``'s region table, a C array of ``(x0, y0,
-    z0, rx, ry, rz, offset, size)`` per region."""
-    rows, off = [], 0
-    for r in regions:
-        n = ref.region_size(r)
-        rows += [*(s.start for s in r), *ref.region_shape(r), off, n]
-        off += n
-    return (ctypes.c_int * len(rows))(*rows)
+@functools.lru_cache(maxsize=1024)
+def _unpack_boundary_launch(block, regions, n_ranks, itemsize, u_align, buf_align):
+    """``unpack_boundary_add``'s cell and cover tables as C arrays, their
+    rows and the CTAs a rank."""
+    cells, covers, n_ctas, _ = unpack_boundary_plan(block, [_slices(r) for r in regions],
+                                                    n_ranks, itemsize, u_align, buf_align)
+    return ((ctypes.c_int64 * (len(CELL_FIELDS) * len(cells)))(*(v for r in cells for v in r)),
+            len(cells),
+            (ctypes.c_int64 * (len(COVER_FIELDS) * len(covers)))(*(v for r in covers for v in r)),
+            len(covers), n_ctas)
 
 
 def pack_boundary(u: torch.Tensor, regions: Sequence[Sequence[slice]]) -> torch.Tensor:
@@ -254,12 +261,21 @@ def unpack_boundary_add(u: torch.Tensor, buf: torch.Tensor,
 
     Regions overlap (a face holds its edges and corners); the adds go in
     region order, each rounded to ``u``'s dtype, as the reference's do.
-    The kernel keeps that order without atomics: the thread of the first
-    region that covers an element adds every later region's value to it
-    in turn (``csrc/halo_pack.cu``), so it equals the plain version bit
-    for bit.  The reference returns a new block; in place, the launch
-    touches the boundary shell only.  Bound: bytes, launch latency at
-    Faces sizes.
+    One launch over the ordered cells of :func:`unpack_boundary_plan`:
+    the disjoint boxes of the regions' union, each with the ordered list
+    of the regions that cover it, so a thread loads an element of ``u``
+    once, adds each covering region's segment element in turn (all its
+    loads issued first), rounding after each add, and stores it once --
+    the reference's sequence bit for bit, with no atomics, no box test
+    and no division per element.  Cells whose runs and layout allow
+    take 16 bytes a thread on ``u`` and on every segment (the interiors
+    of the x- and y-faces, cut at 16-byte bounds).  The reference
+    returns a new block; in place, the launch touches the boundary shell
+    only.  Raises ``ValueError`` for a region set whose cell table does
+    not fit the kernel's (every shell of 26 faces, edges and corners
+    does).  Bound: the 32-byte sectors of the shell (a z-face element
+    reads and writes one) and the buffer read once; at Faces sizes,
+    launch latency.
     """
     regions, total = _boundary_regions(u, regions)
     want = tuple(u.shape[:-3]) + (total,)
@@ -270,15 +286,16 @@ def unpack_boundary_add(u: torch.Tensor, buf: torch.Tensor,
     if use_plain(u, buf):
         return ref.unpack_boundary_add(u, buf, regions)
     code = _dtype_code(u, buf)
-    n_ranks = u.numel() // max(1, u.shape[-3] * u.shape[-2] * u.shape[-1])
-    if n_ranks > MAX_RANKS:
-        raise ValueError(f"one launch takes at most {MAX_RANKS} ranks")
+    block = tuple(u.shape[-3:])
+    n_ranks = u.numel() // max(1, block[0] * block[1] * block[2])
     if u.numel() == 0:
         return u
-    err = _lib().rt_unpack_boundary_add(code, u.data_ptr(), buf.data_ptr(), n_ranks,
-                                        *u.shape[-3:], _region_table(regions),
-                                        len(regions), total,
-                                        stream_arg(u))
+    cells, n_cells, covers, n_covers, n_ctas = _unpack_boundary_launch(
+        block, tuple(_region_key(r) for r in regions), n_ranks, u.element_size(),
+        u.data_ptr() % 16, buf.data_ptr() % 16)
+    err = _lib().rt_unpack_boundary_add(code, u.data_ptr(), buf.data_ptr(), cells, n_cells,
+                                        covers, n_covers, block[0] * block[1] * block[2],
+                                        total, n_ctas, n_ranks, stream_arg(u))
     check_launch("halo_pack", err)
     unpack_boundary_add.launches += 1
     return u
@@ -466,6 +483,157 @@ def boundary_plan(block: Sequence[int], regions: Sequence[Sequence[slice]], n_ra
     return rows, first, total
 
 
+def unpack_plan(members: Sequence[Tuple[int, int, int]], n_ranks: int, itemsize: int,
+                buf_addr: int, total: int) -> Tuple[List[Tuple[int, ...]], int]:
+    """The ``unpack_segments`` launch, :func:`pack_plan` turned round:
+    ``members[j] = (destination address, buffer column, size)``, the
+    address in bytes and the rest in elements; rank r's row of member j
+    is columns ``[col_j, col_j + n_j)`` of row r of the ``(ranks,
+    total)`` buffer at ``buf_addr``, and goes to ``n_j`` elements at
+    ``dst_j + r * n_j * itemsize``.  The tiles are
+    :func:`segment_tiles`' (member j owns ``tiles_j * n_ranks`` CTAs,
+    rank-major; a member without columns owns none).  Returns the C
+    table's rows ``(destination address, buffer column, size, tiles a
+    rank, first CTA, vector flag, member index)`` of the members with
+    columns (the index picks the member's row of the masks), and the
+    CTA count (0: nothing to launch)."""
+    sizes = [n for _, _, n in members]
+    tiles, n_ctas = segment_tiles(sizes, n_ranks, TILE_BYTES // itemsize)
+    if max(total, n_ctas) > _INT32_MAX:
+        raise ValueError("a segment launch takes fewer than 2^31 CTAs and buffer columns")
+    rows = []
+    for j, n_tiles, first in tiles:
+        dst, col, n = members[j]
+        rows.append((dst, col, n, n_tiles, first,
+                     int(vector_ok(buf_addr + col * itemsize, total, 0, n, dst, itemsize)), j))
+    return rows, n_ctas
+
+
+#: an ordered cell plan's cell row (``csrc/halo_pack.cu`` CellRow, after
+#: ``first``), and the row of one region covering a cell (Cover)
+CELL_FIELDS = ("first", "base", "run", "runs", "run_stride", "slabs", "slab_stride", "tiles",
+               "vec", "run_magic", "run_shift", "runs_magic", "runs_shift", "cover",
+               "n_covers")
+COVER_FIELDS = ("start", "run_step", "slab_step")
+MAX_CELLS, MAX_COVERS = 40, 112   # the kernel's table (csrc kMaxCells, kMaxCovers)
+
+
+def cell_boxes(regions: Sequence[Sequence[slice]],
+               ) -> List[Tuple[Tuple[slice, ...], Tuple[int, ...]]]:
+    """The ordered cells of a region set: each axis cut at every
+    region's start and stop, and the boxes of that cut that at least one
+    region covers -- the disjoint boxes of the regions' union, in
+    row-major order -- each with the indices of the regions that cover
+    it, in region order.  A region either holds a box of the cut or
+    misses it, so every element of a cell has the same cover list.  The
+    26 regions of a Faces shell cut each axis into three intervals: 26
+    cells, a face's interior covered by 1 region, an edge's by 3, a
+    corner by 7."""
+    full = [tuple(r) for r in regions if ref.region_size(r)]
+    axes = []
+    for d in range(3):
+        cuts = sorted({b for r in full for b in (r[d].start, r[d].stop)})
+        axes.append([slice(a, b) for a, b in zip(cuts, cuts[1:])])
+    out = []
+    for box in itertools.product(*axes):
+        covers = tuple(k for k, r in enumerate(regions)
+                       if all(r[d].start <= box[d].start and box[d].stop <= r[d].stop
+                              for d in range(3)))
+        if covers:
+            out.append((box, covers))
+    return out
+
+
+def unpack_boundary_plan(block: Sequence[int], regions: Sequence[Sequence[slice]],
+                         n_ranks: int, itemsize: int, u_addr: int, buf_addr: int,
+                         ) -> Tuple[List[Tuple[int, ...]], List[Tuple[int, int, int]], int, int]:
+    """The ``unpack_boundary_add`` launch: the :func:`cell_boxes` of the
+    regions, each a box in :func:`collapse_box` form cut into tiles of
+    ``TILE_BYTES`` over all its elements (``slabs * runs * run``), with
+    the ordered list of the regions that cover it.
+
+    The grid is (CTAs a rank, ranks): cell i owns CTAs ``[first_i,
+    first_i + tiles_i)`` of a rank, each with elements.  An element's
+    run and slab come from the :func:`divider` of ``run`` and of
+    ``runs``; its segment element in covering region k is affine in
+    them: ``start_k + slab * slab_step_k + run * run_step_k + column``
+    (region k's segment is row-major over its box, and a dimension the
+    cell's box merges spans the whole block, so every region holding
+    the cell spans it too).  No box test and no division per element.
+    A cell's ``vec`` flag says, from layout alone, that 16 consecutive
+    bytes of a tile are one aligned access on ``u`` and on every
+    covering segment (run, strides, steps, starts, rank strides and both
+    addresses aligned).  A cell whose z-run starts or ends off a 16-byte
+    bound is cut there when the aligned middle then takes the flag and
+    holds at least a tile (the interiors of the x- and y-faces of a
+    128^3 block: z in [1, 4), [4, 124), [124, 127) for float32).
+    Returns the C tables' cell rows ``(first CTA, base, run, runs,
+    run_stride, slabs, slab_stride, tiles, vec, run_magic, run_shift,
+    runs_magic, runs_shift, first cover, covers)`` and cover rows
+    ``(start, run_step, slab_step)``, the CTAs a rank and ``total``.
+    Raises ``ValueError`` where the tables exceed the kernel's
+    (``MAX_CELLS``, ``MAX_COVERS``)."""
+    regions = [tuple(r) for r in regions]
+    sizes = [ref.region_size(r) for r in regions]
+    total = sum(sizes)
+    offsets = [0, *itertools.accumulate(sizes)][:-1]
+    block_size = block[0] * block[1] * block[2]
+    v, tile = 16 // itemsize, TILE_BYTES // itemsize
+    rank_u, rank_buf = (block_size, total) if n_ranks > 1 else (0, 0)
+
+    def seg_index(k, offset):
+        """Element ``offset`` of a rank's block in region k's segment."""
+        x, rest = divmod(offset, block[1] * block[2])
+        y, z = divmod(rest, block[2])
+        r = regions[k]
+        ry, rz = r[1].stop - r[1].start, r[2].stop - r[2].start
+        return (offsets[k] + ((x - r[0].start) * ry + (y - r[1].start)) * rz
+                + (z - r[2].start))
+
+    def cell(box, covers):
+        base, run, runs, run_stride, slabs, slab_stride = collapse_box(block, box)
+        rows = []
+        for k in covers:
+            start = seg_index(k, base)
+            rows.append((start, seg_index(k, base + run_stride) - start if runs > 1 else 0,
+                         seg_index(k, base + slab_stride) - start if slabs > 1 else 0))
+        vec = (run % v == 0 and aligned16(u_addr, (base, run_stride, slab_stride, rank_u),
+                                          itemsize)
+               and all(aligned16(buf_addr, (*c, rank_buf), itemsize) for c in rows))
+        return (base, run, runs, run_stride, slabs, slab_stride, int(vec)), rows
+
+    pieces = []
+    for box, covers in cell_boxes(regions):
+        z0, z1 = box[2].start, box[2].stop
+        za, zb = -(-z0 // v) * v, z1 // v * v
+        cut = [slice(z0, z1)]
+        if (za > z0 or zb < z1) and zb > za and not cell(box, covers)[0][-1]:
+            middle = (box[0], box[1], slice(za, zb))
+            if cell(middle, covers)[0][-1] and ref.region_size(middle) >= tile:
+                cut = [s for s in (slice(z0, za), slice(za, zb), slice(zb, z1))
+                       if s.stop > s.start]
+        pieces += [((box[0], box[1], s), covers) for s in cut]
+
+    cells, cover_rows, first = [], [], 0
+    for box, covers in pieces:
+        (base, run, runs, run_stride, slabs, slab_stride, vec), rows = cell(box, covers)
+        tiles = -(-ref.region_size(box) // tile)
+        cells.append((first, base, run, runs, run_stride, slabs, slab_stride, tiles, vec,
+                      *divider(run), *divider(runs), len(cover_rows), len(rows)))
+        cover_rows += rows
+        first += tiles
+    if len(cells) > MAX_CELLS or len(cover_rows) > MAX_COVERS:
+        raise ValueError(f"the regions cut the block into {len(cells)} cells with "
+                         f"{len(cover_rows)} covers; the kernel's table holds "
+                         f"{MAX_CELLS} and {MAX_COVERS}")
+    if max(block_size, total, first * tile) > _INT32_MAX:
+        raise ValueError("a cell launch takes blocks and buffers of fewer than 2^31 "
+                         "elements")
+    if n_ranks > MAX_RANKS:
+        raise ValueError(f"one launch takes at most {MAX_RANKS} ranks")
+    return cells, cover_rows, first, total
+
+
 def pack_segments(sources: Sequence[Tuple[torch.Tensor, int]],
                   sizes: Sequence[int]) -> torch.Tensor:
     """Pack N members into one ``(R, sum(sizes))`` staging buffer.
@@ -521,9 +689,15 @@ def unpack_segments(buf: torch.Tensor, outs: Sequence[torch.Tensor],
     ``outs[j]`` is a contiguous tensor of ``R * n_j`` elements (rank
     major) that takes columns ``[offsets[j], offsets[j] + n_j)`` of
     every rank whose byte in ``masks[j]`` is set (every rank when
-    ``masks`` is None).  The engines pass the deposit destinations
-    themselves, so a replace deposit costs this one launch per fused
-    transfer.  Bound: bytes moved, launch latency at Faces sizes.
+    ``masks`` is None); the other ranks keep their values.  The engines
+    pass the deposit destinations themselves, so a replace deposit costs
+    this one launch per fused transfer: the flat tile list of
+    :func:`unpack_plan` (no idle CTA; 16-byte copies where
+    :func:`vector_ok` allows), its member table by value.  ``masks``
+    stays on the device (the engines capture this launch into CUDA
+    graphs): a CTA reads its rank's byte and returns at once when it is
+    0.  Bound: each delivered byte read once and written once; at Faces
+    sizes, launch latency.
     """
     outs = list(outs)
     offsets = [int(o) for o in offsets]
@@ -545,17 +719,26 @@ def unpack_segments(buf: torch.Tensor, outs: Sequence[torch.Tensor],
         ref.unpack_segments(buf, outs, offsets, masks)
         return
     code = _dtype_code(buf, *outs)
-    rows = []
-    for o, off, n in zip(outs, offsets, sizes):
-        rows += [o.data_ptr(), off, n]
-    table = (ctypes.c_int64 * len(rows))(*rows)
     if masks is not None and not masks.is_contiguous():
         raise ValueError("halo kernels take contiguous tensors")
-    err = _lib().rt_unpack_segments(
-        code, buf.data_ptr(), n_ranks, buf.shape[1], table, len(outs),
-        None if masks is None else masks.data_ptr(), stream_arg(buf))
+    table, n_rows, n_ctas = _unpack_launch(
+        tuple((o.data_ptr(), off, n) for o, off, n in zip(outs, offsets, sizes)),
+        n_ranks, buf.element_size(), buf.data_ptr() % 16, buf.shape[1])
+    if n_ctas == 0:
+        return
+    err = _lib().rt_unpack_segments(code, table, n_rows, buf.data_ptr(), n_ctas,
+                                    buf.shape[1], None if masks is None else masks.data_ptr(),
+                                    n_ranks, stream_arg(buf))
     check_launch("halo_pack", err)
     unpack_segments.launches += 1
+
+
+@functools.lru_cache(maxsize=1024)
+def _unpack_launch(members, n_ranks, itemsize, buf_align, total):
+    """``unpack_segments``' member table as a C array, its rows and CTAs
+    (the plan depends on the buffer's address only modulo 16)."""
+    rows, n_ctas = unpack_plan(members, n_ranks, itemsize, buf_align, total)
+    return (ctypes.c_int64 * (7 * len(rows)))(*(v for r in rows for v in r)), len(rows), n_ctas
 
 
 KERNELS = (halo_pack, halo_unpack_add, pack_boundary, unpack_boundary_add,

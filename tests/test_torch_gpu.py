@@ -104,7 +104,8 @@ def test_segment_kernels_equal_plain(cuda, dtype, n_members, n_ranks, aligned):
     relays: column ranges of a received buffer read through a strided
     view, at columns that keep 16-byte alignment or not; member sizes
     cycle through SEG_SIZES.  The unpack reads the staged buffer back at
-    arbitrary offsets (gaps and overlaps), with and without masks."""
+    arbitrary offsets (gaps and overlaps), without masks, with random
+    ones, and with the first member masked out for every rank."""
     sizes = [SEG_SIZES[j % len(SEG_SIZES)] for j in range(n_members)]
     step, lead, pad = (8, 0, 8) if aligned else (8, 1, 3)
     relays = [j for j in range(n_members) if j % 2]
@@ -126,7 +127,9 @@ def test_segment_kernels_equal_plain(cuda, dtype, n_members, n_ranks, aligned):
     offsets = [(37 * j) % (total - n + 1) for j, n in enumerate(sizes)]
     gen = torch.Generator().manual_seed(n_members)
     masks = (torch.rand(n_members, n_ranks, generator=gen) < 0.5).to(cuda)
-    for m in (None, masks):
+    whole = masks.clone()
+    whole[0] = False   # a whole member masked out for every rank keeps its values
+    for m in (None, masks, whole):
         got = [torch.full((n_ranks, n), -1.0, dtype=dtype, device=cuda) for n in sizes]
         want = [t.clone() for t in got]
         hk.unpack_segments(staged, got, offsets, m)
@@ -381,7 +384,8 @@ def test_smoke_serve_on_card_equals_cpu(cuda, resident):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("ranks,block", [((2, 3), (5, 4, 6)), ((8,), (128, 128, 128)),
-                                         ((3,), (9, 5, 7))])
+                                         ((3,), (9, 5, 7)), ((8,), (1, 1, 1)),
+                                         ((8,), (2, 1, 3))])
 def test_boundary_kernels_equal_plain(cuda, ranks, block, dtype):
     regions = [_region_for(d, block) for d in DIRECTIONS]
     u = _field((*ranks, *block), dtype, cuda, 4)
@@ -394,6 +398,20 @@ def test_boundary_kernels_equal_plain(cuda, ranks, block, dtype):
     after = hk.launch_counts()
     assert after["pack_boundary"] == before["pack_boundary"] + 1
     assert after["unpack_boundary_add"] == before["unpack_boundary_add"] + 1
+
+
+def test_boundary_unpack_refuses_a_cell_table_it_cannot_hold(cuda):
+    """Eight x-planes and eight y-planes cut a 16^3 block into more cells
+    than the kernel's table holds: a ValueError and no launch, never the
+    plain version."""
+    regions = ([(slice(i, i + 1), slice(0, 16), slice(0, 16)) for i in range(8)]
+               + [(slice(0, 16), slice(i, i + 1), slice(0, 16)) for i in range(8)])
+    u = torch.zeros((2, 16, 16, 16), device=cuda)
+    buf = torch.ones((2, 16 * 256), device=cuda)
+    before = hk.unpack_boundary_add.launches
+    with pytest.raises(ValueError, match="cells"):
+        hk.unpack_boundary_add(u, buf, regions)
+    assert hk.unpack_boundary_add.launches == before and not bool(u.any())
 
 
 def test_boundary_unpack_keeps_the_bf16_rounding_order(cuda):

@@ -1,18 +1,23 @@
 """The host-side plans of the port's redesigned kernels, on the CPU.
 
-``pack_segments`` launches a flat list of tiles planned in Python
-(``halo_pack.segment_tiles`` / ``pack_plan``), ``halo_pack``,
-``halo_unpack_add`` and ``pack_boundary`` a flat list of tiles over
-boxes (``halo_pack.box_plan`` / ``boundary_plan``), and ``rmsnorm``
-picks its route and
-its row partition in Python (``rmsnorm.route`` / ``partition``).  These
-tests hold the plans to what the CUDA kernels rely on: the tiles cover
-every (member, rank, column), or every element of a region, exactly
-once with no idle CTA, the 16-byte flags are set only where every
-alignment condition holds, a box plan decoded as the kernels decode it
-gathers and scatters exactly what the plain versions do, bit for bit,
-and the norm's route is a function of (rows, d, dtype) and its
-partition of d alone -- one that both routes' thread layouts follow.
+``pack_segments`` and ``unpack_segments`` launch a flat list of tiles
+planned in Python (``halo_pack.segment_tiles`` / ``pack_plan`` /
+``unpack_plan``), ``halo_pack``, ``halo_unpack_add`` and
+``pack_boundary`` a flat list of tiles over boxes (``halo_pack.box_plan``
+/ ``boundary_plan``), ``unpack_boundary_add`` one over the ordered cells
+of its regions (``halo_pack.cell_boxes`` / ``unpack_boundary_plan``),
+and ``rmsnorm`` picks its route and its row partition in Python
+(``rmsnorm.route`` / ``partition``).  These tests hold the plans to
+what the CUDA kernels rely on: the tiles cover every (member, rank,
+column), every element of a region, or every element of the regions'
+union, exactly once with no idle CTA, the 16-byte flags are set only
+where every alignment condition holds, a plan decoded as the kernels
+decode it copies, gathers, scatters and adds exactly what the plain
+versions do, bit for bit (masked-out ranks keep their values; the cell
+plan adds a cell's covers in region order, rounding after each add, as
+the JAX kernel does), and the norm's route is a function of (rows, d,
+dtype) and its partition of d alone -- one that both routes' thread
+layouts follow.
 The kernels themselves run in ``tests/test_torch_gpu.py``.
 """
 
@@ -379,3 +384,312 @@ def test_box_plan_refuses_what_the_kernel_cannot_index():
         hk.box_plan((4, 4, 4), (slice(0, 1), slice(0, 4), slice(0, 4)), 65536, 4, 0, 0)
     assert hk.box_plan((4, 4, 4), (slice(0, 0), slice(0, 4), slice(0, 4)), 8, 4, 0, 0) == (
         None, 0)
+
+
+# --------------------------------------------------------------------------
+# unpack_segments: the flat tile plan turned round
+# --------------------------------------------------------------------------
+
+
+def _unpack_tiles(members, n_ranks, itemsize, buf_addr, total):
+    """Every CTA of an ``unpack_plan`` launch decoded as
+    ``unpack_segments_kernel`` does (the last member whose first CTA is
+    at or below it; rank-major tiles): ``(member, rank, plan row,
+    columns)`` each, asserting that no CTA is without columns."""
+    tile = hk.TILE_BYTES // itemsize
+    rows, n_ctas = hk.unpack_plan(members, n_ranks, itemsize, buf_addr, total)
+    firsts = [r[4] for r in rows]
+    assert firsts == sorted(set(firsts)) and firsts[:1] in ([], [0])
+    out = []
+    for b in range(n_ctas):
+        row = rows[max(i for i, f in enumerate(firsts) if f <= b)]
+        rank, t = divmod(b - row[4], row[3])
+        cols = range(t * tile, min(t * tile + tile, row[2]))
+        assert len(cols) > 0, f"CTA {b} has nothing to copy"
+        out.append((row[6], rank, row, cols))
+    return out, n_ctas, rows
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("n_ranks", [1, 3, 8])
+@pytest.mark.parametrize("sizes", [
+    [16384, 128, 128, 128, 128, 1, 1, 1, 1],   # a Faces transfer: face, edges, corners
+    [0, 1, 3, 127, 1024, 1025, 2048, 2049, 0],
+    [5] * 64,
+    [0, 7],
+    [0, 0],
+])
+def test_unpack_tiles_write_every_column_once(sizes, n_ranks, itemsize):
+    """The grid is exactly sum_j ceil(n_j / tile) x ranks CTAs, and they
+    write every (member, rank, column) once; a member without columns
+    owns no CTA."""
+    total = sum(sizes) + 3
+    offsets = [(37 * j) % (total - n + 1) for j, n in enumerate(sizes)]
+    members = [(4096 * (j + 1), off, n) for j, (off, n) in enumerate(zip(offsets, sizes))]
+    tiles, n_ctas, rows = _unpack_tiles(members, n_ranks, itemsize, 0, total)
+    tile = hk.TILE_BYTES // itemsize
+    assert n_ctas == sum(-(-n // tile) for n in sizes) * n_ranks
+    written = [(j, rank, c) for j, rank, _, cols in tiles for c in cols]
+    assert sorted(written) == sorted((j, r, c) for j, n in enumerate(sizes)
+                                     for r in range(n_ranks) for c in range(n))
+    assert [r[6] for r in rows] == [j for j, n in enumerate(sizes) if n]
+
+
+@pytest.mark.parametrize("dtype", BOX_DTYPES)
+@pytest.mark.parametrize("n_ranks", [1, 8])
+def test_unpack_plan_copies_as_the_plain_version(dtype, n_ranks):
+    """The plan's copies, emulated CTA by CTA with the masks read as the
+    kernel reads them (a CTA of a masked-out rank returns at once),
+    equal ``ref.unpack_segments`` bit for bit: without masks, with
+    random ones, and with a whole member masked out for every rank,
+    whose slab keeps its values."""
+    sizes = [16384, 127, 3, 1, 0, 128, 1025]
+    total = sum(sizes) + 5
+    offsets = [(37 * j) % (total - n + 1) for j, n in enumerate(sizes)]
+    buf = _field((n_ranks,), (total, 1, 1), dtype, 7).view(n_ranks, total)
+    rand = torch.from_numpy(np.random.RandomState(n_ranks).rand(len(sizes), n_ranks) < 0.5)
+    whole = rand.clone()
+    whole[0] = False
+    itemsize = buf.element_size()
+    for masks in (None, rand, whole):
+        want = [torch.full((n_ranks, n), -1.0, dtype=dtype) for n in sizes]
+        got = [t.clone() for t in want]
+        ref.unpack_segments(buf, want, offsets, masks)
+        members = [(g.data_ptr(), off, n) for g, off, n in zip(got, offsets, sizes)]
+        by_addr = {g.data_ptr(): g for g in got}
+        tiles, _, _ = _unpack_tiles(members, n_ranks, itemsize, buf.data_ptr(), total)
+        for j, rank, (dst, col, *_), cols in tiles:
+            if masks is not None and not masks[j, rank]:
+                continue
+            cols = torch.tensor(cols)
+            by_addr[dst][rank, cols] = buf[rank, col + cols]
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(_BITS[dtype]), w.view(_BITS[dtype]))
+        if masks is whole:
+            assert bool((got[0] == -1.0).all())
+
+
+def test_unpack_vector_flag_falls_exactly_when_an_alignment_breaks():
+    """The five conditions -- the buffer's address, its row stride, the
+    member's column, the slab's address and its row -- each broken by one
+    element in turn: the flag is set exactly when none is."""
+    for el in (4, 2):
+        for buf, total, col, n, dst in itertools.product(
+                (4096, 4096 + el), (2048, 2049), (8, 9), (1024, 1025), (1 << 20, (1 << 20) + el)):
+            rows, _ = hk.unpack_plan([(dst, col, n)], 8, el, buf, total)
+            want = (buf % 16 == 0 and total * el % 16 == 0 and col * el % 16 == 0
+                    and dst % 16 == 0 and n * el % 16 == 0)
+            assert rows[0][5] == want
+
+
+def test_unpack_faces_transfer_is_one_wave():
+    """A 128^2 float32 face and eight edges and corners of 8 ranks: (16 +
+    8) x 8 = 192 CTAs, under one wave of 132 SMs' 8 resident CTAs of 256
+    threads; the face and the edges copy 16 bytes a thread, the corners
+    do not (their rows are one element)."""
+    sizes = [16384] + [128] * 4 + [1] * 4
+    offsets = [0, *itertools.accumulate(sizes)][:-1]
+    members = [(4096 * (j + 1), off, n) for j, (off, n) in enumerate(zip(offsets, sizes))]
+    _, n_ctas, rows = _unpack_tiles(members, 8, 4, 0, sum(sizes))
+    assert n_ctas == 192 <= 132 * 8
+    assert [r[5] for r in rows] == [1] * 5 + [0] * 4
+
+
+# --------------------------------------------------------------------------
+# unpack_boundary_add: the ordered cell plan
+# --------------------------------------------------------------------------
+
+CELL_BLOCKS = [(128, 128, 128), (9, 5, 7), (5, 4, 6), (4, 4, 4), (2, 1, 3), (1, 1, 1)]
+
+
+def _shell(block, mirrored=False):
+    """The 26 regions of a block in DIRECTIONS order (``mirrored``: the
+    ``-d`` regions the one-buffer path unpacks into)."""
+    return [_region_for(tuple(-x for x in d) if mirrored else d, block) for d in DIRECTIONS]
+
+
+@pytest.mark.parametrize("block", CELL_BLOCKS)
+def test_cells_cover_the_union_once_with_ordered_covers(block):
+    """The cells are disjoint and cover exactly the union of the
+    regions, and each cell's cover list is the regions that hold every
+    one of its elements, in region order (those that hold any of them
+    hold all)."""
+    regions = _shell(block)
+    count = np.zeros(block, dtype=np.int64)
+    union = np.zeros(block, dtype=bool)
+    masks = []
+    for r in regions:
+        m = np.zeros(block, dtype=bool)
+        m[r] = True
+        masks.append(m)
+        union |= m
+    for box, covers in hk.cell_boxes(regions):
+        count[box] += 1
+        held = [k for k, m in enumerate(masks) if m[box].all()]
+        assert [k for k, m in enumerate(masks) if m[box].any()] == held
+        assert list(covers) == held
+    assert ((count == 1) == union).all() and (count <= 1).all()
+
+
+def test_cells_of_a_faces_shell():
+    """26 cells on a block of at least 3 points a side: 6 face interiors
+    covered by 1 region, 12 edge interiors by 3, 8 corners by 7."""
+    cells = hk.cell_boxes(_shell((128, 128, 128)))
+    assert sorted(len(c) for _, c in cells) == [1] * 6 + [3] * 12 + [7] * 8
+
+
+def _decode_cells(cells, covers, n_ctas, n_ranks, block, total, itemsize, u_addr, buf_addr):
+    """Every element of an ``unpack_boundary_plan`` launch decoded as
+    ``unpack_boundary_add_kernel`` does, cell by cell: a CTA's cell by
+    the last first CTA at or below it, an element's run and slab by the
+    row's two multipliers, its segment element in each cover as the
+    cover's start plus the steps.  A thread of a ``vec`` cell takes ``V
+    = 16 / itemsize`` consecutive elements, any other every 256th from
+    its own.  Asserts that no CTA is idle and that every 16-byte access
+    is aligned and contiguous on ``u`` and on every segment.  Returns
+    ``[(u indices, segment indices per cover)]`` a cell."""
+    v, tile = 16 // itemsize, hk.TILE_BYTES // itemsize
+    threads = tile // v
+    table = np.array(cells, dtype=np.int64).reshape(-1, len(hk.CELL_FIELDS))
+    cov = np.array(covers, dtype=np.int64).reshape(-1, len(hk.COVER_FIELDS))
+    firsts = table[:, 0]
+    assert firsts[0] == 0 and (np.diff(firsts) > 0).all()
+    assert (np.append(firsts[1:], n_ctas) - firsts == table[:, 7]).all()
+    block_size = block[0] * block[1] * block[2]
+    out = []
+    for i, (first, base, run, runs, run_stride, slabs, slab_stride, tiles, vec, magic, shift,
+            runs_magic, runs_shift, c0, nc) in enumerate(table):
+        cta = np.arange(first, first + tiles)
+        assert (np.searchsorted(firsts, cta, side="right") - 1 == i).all()
+        rank = np.arange(n_ranks)[:, None, None, None]
+        start = ((cta - first) * tile)[None, :, None, None]
+        t, e = np.arange(threads)[None, None, :, None], np.arange(v)[None, None, None, :]
+        p = start + (t * v + e if vec else t + e * threads)
+        n = slabs * runs * run
+        valid = np.broadcast_to(p < n, (n_ranks, *p.shape[1:]))
+        assert valid.reshape(n_ranks, len(cta), -1).any(axis=2).all(), "a CTA is idle"
+        r = (p * magic) >> shift
+        a = (r * runs_magic) >> runs_shift
+        assert (r == p // run).all() and (a == r // runs).all()
+        b, c = r - a * runs, p - r * run
+        u_idx = rank * block_size + base + a * slab_stride + b * run_stride + c
+        seg_idx = [rank * total + start_k + a * slab_k + b * run_k + c
+                   for start_k, run_k, slab_k in cov[c0:c0 + nc]]
+        if vec:
+            assert run % v == 0 and (valid.all(axis=3) == valid[..., 0]).all()
+            for idx, addr in [(u_idx, u_addr)] + [(s, buf_addr) for s in seg_idx]:
+                idx = np.broadcast_to(idx, valid.shape)
+                assert ((addr + idx[..., 0] * itemsize) % 16 == 0)[valid[..., 0]].all()
+                assert (idx - idx[..., :1] == np.arange(v))[valid].all()
+        out.append((np.broadcast_to(u_idx, valid.shape)[valid],
+                     [np.broadcast_to(s, valid.shape)[valid] for s in seg_idx]))
+    return out
+
+
+def _cell_adds(u, buf, regions, u_addr=0, buf_addr=0):
+    """``u`` after the adds of the cell plan, emulated as the kernel makes
+    them (one add a cover, in order, each rounded to the dtype), and
+    the u indices written."""
+    block, itemsize = tuple(u.shape[-3:]), u.element_size()
+    n_ranks = u.numel() // int(np.prod(block))
+    cells, covers, n_ctas, total = hk.unpack_boundary_plan(block, regions, n_ranks, itemsize,
+                                                           u_addr, buf_addr)
+    flat, src = u.clone().view(-1), buf.reshape(-1)
+    written = []
+    for u_idx, seg_idx in _decode_cells(cells, covers, n_ctas, n_ranks, block, total,
+                                        itemsize, u_addr, buf_addr):
+        u_idx = torch.from_numpy(np.ascontiguousarray(u_idx))
+        acc = flat[u_idx]
+        for s in seg_idx:
+            acc = (acc.float() + src[torch.from_numpy(np.ascontiguousarray(s))].float()
+                   ).to(u.dtype)
+        flat[u_idx] = acc
+        written.append(u_idx)
+    return flat.view(u.shape), torch.cat(written)
+
+
+@pytest.mark.parametrize("n_ranks", [1, 8])
+@pytest.mark.parametrize("dtype", BOX_DTYPES)
+@pytest.mark.parametrize("block", CELL_BLOCKS)
+def test_cell_plan_adds_as_the_plain_version(block, dtype, n_ranks):
+    """The 26 regions of a block (as sent, and mirrored as the one-buffer
+    path unpacks them) in one ``unpack_boundary_add`` launch: every
+    element of the union is written once, by one thread, and the
+    emulated adds equal ``ref.unpack_boundary_add`` bit for bit."""
+    lead = (n_ranks,)
+    u = _field(lead, block, dtype, 8)
+    index = _flat_index(lead, block)
+    for regions in (_shell(block), _shell(block, mirrored=True)):
+        total = sum(ref.region_size(r) for r in regions)
+        buf = _field(lead, (total, 1, 1), dtype, 9).view(n_ranks, total)
+        got, written = _cell_adds(u, buf, regions)
+        union = torch.zeros(block, dtype=torch.bool)
+        for r in regions:
+            union[r] = True
+        assert torch.equal(written.sort().values, index[:, union].flatten().sort().values)
+        want = ref.unpack_boundary_add(u.clone(), buf, regions)
+        assert torch.equal(got.view(_BITS[dtype]), want.view(_BITS[dtype]))
+
+
+def test_cell_plan_keeps_the_bf16_rounding_order():
+    """Every segment adds 2^-8 to a block of ones: added one region at a
+    time and rounded after each add, each add is half an ulp of 1.0 and
+    rounds back to 1.0 (a sum of a corner's 7 segments first would give
+    1.0234375)."""
+    regions = _shell((4, 4, 4))
+    u = torch.ones((2, 4, 4, 4), dtype=torch.bfloat16)
+    buf = torch.full((2, 6 * 16 + 12 * 4 + 8), 2.0 ** -8, dtype=torch.bfloat16)
+    got, _ = _cell_adds(u, buf, regions)
+    assert torch.equal(got, ref.unpack_boundary_add(u.clone(), buf, regions))
+    assert bool((got == 1.0).all())
+
+
+def test_cell_plan_equals_the_jax_kernel():
+    """On one (5, 4, 6) block, the emulated cell plan equals the JAX
+    package's ``unpack_boundary_add_call`` in interpret mode."""
+    import jax.numpy as jnp
+
+    from repro.kernels.halo_pack import unpack_boundary_add_call
+
+    block = (5, 4, 6)
+    regions = _shell(block, mirrored=True)
+    total = sum(ref.region_size(r) for r in regions)
+    rs = np.random.RandomState(10)
+    u = rs.standard_normal(block).astype(np.float32)
+    buf = rs.standard_normal(total).astype(np.float32)
+    got, _ = _cell_adds(torch.from_numpy(u)[None], torch.from_numpy(buf)[None], regions)
+    want = unpack_boundary_add_call(jnp.asarray(u), jnp.asarray(buf), regions, interpret=True)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_cell_plan_of_the_faces_field(itemsize):
+    """The 26 mirrored regions of a 128^3 block of 8 ranks at aligned
+    addresses: 34 cells, the interiors of the x- and y-faces cut in z at
+    16-byte bounds, each middle taking 16 bytes a thread; 120 CTAs a
+    rank for float32 (the old grid launched 13 312 for 8 ranks).  At an
+    address one element off 16 bytes no cell takes the flag."""
+    block = (128, 128, 128)
+    regions = _shell(block, mirrored=True)
+    v = 16 // itemsize
+    cells, covers, n_ctas, total = hk.unpack_boundary_plan(block, regions, 8, itemsize, 0, 0)
+    assert (len(cells), len(covers), total) == (34, 106, 99848)
+    if itemsize == 4:
+        assert n_ctas == 120
+    vec = [c for c in cells if c[8]]
+    assert len(vec) == 4
+    assert all((c[2], c[1] % 128) == (128 - 2 * v, v) for c in vec)
+    for u_addr, buf_addr in ((itemsize, 0), (0, itemsize)):
+        cells, *_ = hk.unpack_boundary_plan(block, regions, 8, itemsize, u_addr, buf_addr)
+        assert len(cells) == 26 and not any(c[8] for c in cells)
+
+
+def test_cell_plan_refuses_what_the_table_cannot_hold():
+    """Eight x-planes and eight y-planes of a 16^3 block cut it into 80
+    cells, more than the kernel's table holds: a ``ValueError``, never
+    a fallback."""
+    regions = ([(slice(i, i + 1), slice(0, 16), slice(0, 16)) for i in range(8)]
+               + [(slice(0, 16), slice(i, i + 1), slice(0, 16)) for i in range(8)])
+    assert len(hk.cell_boxes(regions)) == 80
+    with pytest.raises(ValueError, match="cells"):
+        hk.unpack_boundary_plan((16, 16, 16), regions, 1, 4, 0, 0)
