@@ -93,9 +93,26 @@ a checkout of the repository.  Phases, each of which must pass:
    rows, normalised alone, equal to the same rows of the whole input
    bit for bit (two routes of the kernel); time both, flash on the
    global and the local layer, rmsnorm also at the decode shapes,
-   against ``F.scaled_dot_product_attention`` and ``F.rms_norm``.
+   against ``F.scaled_dot_product_attention`` and ``F.rms_norm``;
+11. convergence on the Faces configuration of phase 2: for tol 1e-1,
+   1e-2 and 1e-3 (``max_iters`` 64), ``run_faces_until_converged`` in
+   ``dataflow`` mode (ONE launch of a CUDA graph whose conditional WHILE
+   node repeats two passes, set by the step kernel of
+   ``csrc/graph_loop.cu``; double buffered) against host-polled
+   ``FusedEngine`` (one call and one host read of the residual an
+   iteration): equal ``n_done``, residual trace and buffers bit for
+   bit, dispatches 1 against ``n_done``, sync points 0 against
+   ``n_done``, wall times (the counters are set to 0 just before these
+   runs and read after them); tol 0 with ``max_iters`` 20 in both modes
+   must stop at 20 and equal ``PersistentEngine(n_iters=20)`` bit for
+   bit, with ms per iteration beside it (with and without the residual)
+   and the times of one field copy and one residual; the step kernel
+   against the plain step on known traces (the bound, and both
+   parities of the last pass), and its time per iteration.
 
-The last lines are a ``{"kernels": [...]}`` JSON line (nine rows; the
+The last lines are a ``{"kernels": [...]}`` JSON line (ten rows: the nine
+Pallas kernels' and the step kernel's, which has no Pallas counterpart
+(``"pallas_counterpart": false``); the
 flash and SSD rows also give ``earlier_ms``: the CUDA-core kernel, the
 port's kernel before the tensor-core one, on the same input in this
 run, and the SSD row its ``kernel_route``; the rmsnorm row gives
@@ -130,6 +147,8 @@ REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm.py:28",
     "flash_attention": "src/repro/kernels/flash_attention.py:96",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:80",
+    # no Pallas counterpart: the lax.while_loop of _run_persistent_while
+    "graph_loop_step": "src/repro/core/engine_persistent.py:495",
 }
 FACES_KERNELS = ("halo_pack", "halo_unpack_add", "pack_segments", "unpack_segments")
 # one region of each class the Faces loop unpacks, by its DIRECTIONS entry
@@ -138,6 +157,13 @@ UNPACK_CLASSES = {"face_x": (1, 0, 0), "face_y": (0, 1, 0), "face_z": (0, 0, 1),
                   "edge_along_z": (1, 1, 0), "corner": (1, 1, 1)}
 SERVE = dict(batch=4, prompt_len=512, gen_len=32)          # mamba2-2.7b
 DENSE_SERVE = dict(batch=4, prompt_len=1024, gen_len=32)   # gemma3-1b
+CONV_TOLS = (1e-1, 1e-2, 1e-3)     # the reference's faces_convergence rows
+CONV_MAX_ITERS = 64
+BOUND_ITERS = 20                   # the loop's own cost: tol 0 runs to the bound
+STEP_ITERS = 4096                  # iterations of the step kernel's timing loop
+# (tol, max_iters) of the step kernel's known-trace checks: n_done 14 and 17
+# by the tolerance, 16, 7 and 1 by the bound, 1 by a first value below tol
+STEP_CASES = ((0.6, 32), (0.5, 32), (-1.0, 16), (-1.0, 7), (-1.0, 1), (2.0, 16))
 
 
 def gpu_line() -> str:
@@ -1059,6 +1085,182 @@ def check_dense_kernels(torch, eng, params, batch_in, fk, rk, ref, seed: int):
     return rows, detail
 
 
+def events_ms(torch, fn, calls: int = 3) -> float:
+    """Median device time of ``calls`` calls of ``fn`` (CUDA events)."""
+    fn()
+    windows = []
+    for _ in range(calls):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        windows.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in windows)
+
+
+def host_polled(torch, fused, residual, init, tol: float, max_iters: int):
+    """The loop the device-resident one replaces: one FusedEngine call and
+    one host read of the residual an iteration.  Returns the final
+    buffers, the residual trace, the dispatches, the host reads and the
+    wall time (ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mem, trace, reads = init, [], 0
+    dispatches = fused.stats.dispatches
+    while True:
+        mem = fused(mem)
+        trace.append(float(residual(mem)))
+        reads += 1
+        if not (trace[-1] >= tol and len(trace) < max_iters):
+            break
+    wall = (time.perf_counter() - t0) * 1e3
+    return mem, trace, fused.stats.dispatches - dispatches, reads, wall
+
+
+def check_step_kernel(torch, graph_loop):
+    """Phase 11, part 3: the step kernel against the plain step on known
+    traces (the bound, and both parities of the last pass, whose select
+    must leave the last iteration's index), and its kernels-line row: one
+    iteration of a loop whose passes replay a trace, against the same
+    feed and the plain step in a plain graph."""
+    trace = torch.linspace(1.0, 0.0, 32, device="cuda")
+    err, cases = 0.0, []
+    for tol, max_iters in STEP_CASES:
+        want_red, want_n = graph_loop.trace_plain(trace, tol, max_iters)
+        loop, red, n_done, last = graph_loop.trace_loop(trace, tol, max_iters)
+        loop.launch()
+        torch.cuda.synchronize()
+        err = max(err, float((red.cpu() - want_red).abs().max()))
+        require(int(n_done) == int(want_n) and torch.equal(red.cpu(), want_red),
+                f"step kernel != plain step at tol {tol}, max_iters {max_iters}: "
+                f"n_done {int(n_done)} vs {int(want_n)}")
+        require(int(last) == int(want_n) - 1, f"the parity select kept iteration {int(last)}, "
+                f"not the last ({int(want_n) - 1}), at n_done {int(want_n)}")
+        cases.append({"tol": tol, "max_iters": max_iters, "n_done": int(n_done)})
+    long_trace = torch.rand(STEP_ITERS, device="cuda")
+    loop, _, n_done, _ = graph_loop.trace_loop(long_trace, -1.0, STEP_ITERS)
+    iter_ms = events_ms(torch, loop.launch) / STEP_ITERS
+    require(int(n_done) == STEP_ITERS, f"the timing loop ran {int(n_done)} iterations")
+    reductions = torch.zeros(STEP_ITERS, device="cuda")
+    count = torch.zeros((), dtype=torch.int32, device="cuda")
+
+    def plain_iter():
+        r = long_trace.index_select(0, count.reshape(1).long()).reshape(())
+        graph_loop.step_plain(reductions, count, r, r >= -1.0, STEP_ITERS)
+
+    # bytes of one step: the reduction, the predicate and n_done read, the
+    # trace entry, n_done and the decision written
+    t_bytes, t_ops = 21 / HBM_BYTES_PER_S, 2 / FP32_OPS_PER_S
+    row = {"name": "graph_loop_step", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/graph_loop.cu",
+           "replaces": REPLACES["graph_loop_step"], "pallas_counterpart": False,
+           "max_abs_err": err, "ms": iter_ms,
+           "plain_ms": median_ms(torch, plain_iter, reps=5, inner=20),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+    return row, cases
+
+
+def run_convergence(torch, cfg, mesh, u0, card: str, hk, graph_loop):
+    """Phase 11: Faces until the residual falls below each tolerance, device-
+    resident (``run_faces_until_converged``, dataflow: one graph launch of
+    a conditional WHILE node) against host-polled (``FusedEngine``, one
+    call and one host read an iteration); then the loop's own cost at
+    its bound beside the fixed-count graph, and the step kernel against
+    its plain version.  Counters are set to 0 just before the device-
+    resident runs and read just after them."""
+    from repro_torch.core import (FusedEngine, PersistentEngine, build_faces_program,
+                                  global_residual_fn, run_faces_until_converged)
+
+    residual = global_residual_fn(cfg)
+    prog = build_faces_program(cfg, mesh)
+    fused = FusedEngine(prog, mode="dataflow", donate=True)
+    fused.compile()
+    rows = []
+    torch.cuda.synchronize()
+    hk.reset_launches()
+    graph_loop.reset_launches()
+    for tol in CONV_TOLS:
+        t0 = time.perf_counter()
+        mem, res, n_done, stats = run_faces_until_converged(
+            cfg, mesh, u0, tol=tol, max_iters=CONV_MAX_ITERS, mode="dataflow")
+        first_wall = (time.perf_counter() - t0) * 1e3
+        require((stats.dispatches, stats.sync_points) == (1, 0),
+                f"tol {tol}: the device-resident loop took {stats}")
+        eng = PersistentEngine(prog.persistent(CONV_MAX_ITERS, until=lambda r, t=tol: r >= t),
+                               mode="dataflow", reduce_fn=residual, donate=True)
+        init = eng.init_buffers({"u": u0})
+        eng.compile()
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, warm_n = eng(init)
+            warm_n = int(warm_n)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        require(warm_n == n_done, f"tol {tol}: a warm call ran {warm_n} passes, not {n_done}")
+        polled = [host_polled(torch, fused, residual, fused.init_buffers({"u": u0}), tol,
+                              CONV_MAX_ITERS) for _ in range(3)]
+        want, trace, dispatches, reads, _ = polled[-1]  # want: the fused engine's buffers
+        require(len(trace) == n_done, f"tol {tol}: host-polled ran {len(trace)} "
+                f"iterations, device-resident {n_done}")
+        require(res.tolist() == trace, f"tol {tol}: residual traces differ")
+        for name, t in want.items():
+            require(torch.equal(mem[name], t), f"tol {tol}: {name} differs from the "
+                    "host-polled run's")
+        require(bool(torch.isfinite(mem["u"]).all()), f"tol {tol}: non-finite field")
+        rows.append({"tol": tol, "n_done": n_done, "final_residual": trace[-1],
+                     "device_resident": {"wall_ms": statistics.median(walls),
+                                         "first_call_wall_ms": first_wall,
+                                         "dispatches": stats.dispatches,
+                                         "sync_points": stats.sync_points},
+                     "host_polled": {"wall_ms": statistics.median(p[4] for p in polled),
+                                     "dispatches": dispatches, "sync_points": reads},
+                     "equal_bitwise": True})
+        del eng, mem, want, polled
+    torch.cuda.synchronize()
+    launches = {**hk.launch_counts(), **graph_loop.launch_counts()}
+    require(all(launches[n] > 0 for n in FACES_KERNELS + ("graph_loop_step",)),
+            f"a kernel of the convergence path never launched: {launches}")
+    del fused
+
+    # the loop's own cost: tol 0 runs to the bound, beside the fixed-count graph
+    bound = {}
+    for mode in ("stream", "dataflow"):
+        loop = PersistentEngine(prog.persistent(BOUND_ITERS, until=lambda r: r >= 0.0),
+                                mode=mode, reduce_fn=residual, donate=True)
+        fixed = PersistentEngine(prog.persistent(BOUND_ITERS), mode=mode, donate=True)
+        reduced = PersistentEngine(prog.persistent(BOUND_ITERS), mode=mode,
+                                   reduce_fn=residual, donate=True)
+        init = loop.init_buffers({"u": u0})
+        for e in (loop, fixed, reduced):
+            e.compile()
+        mem, red, n_done = loop(init)
+        require(int(n_done) == BOUND_ITERS, f"{mode}: tol 0 stopped at {int(n_done)}, "
+                f"not at max_iters {BOUND_ITERS}")
+        want, want_red = reduced(init)
+        require(torch.equal(mem["u"], fixed(init)["u"]) and torch.equal(mem["u"], want["u"])
+                and torch.equal(red, want_red), f"{mode}: the loop at its bound differs "
+                "from the fixed-count graph")
+        bound[mode] = {"n_done": int(n_done),
+                       "loop_ms_per_iter": events_ms(torch, lambda: loop(init)) / BOUND_ITERS,
+                       "fixed_ms_per_iter": events_ms(torch, lambda: fixed(init)) / BOUND_ITERS,
+                       "fixed_with_residual_ms_per_iter":
+                           events_ms(torch, lambda: reduced(init)) / BOUND_ITERS}
+        del loop, fixed, reduced, mem, want
+    u = torch.from_numpy(u0).cuda()
+    dst = torch.empty_like(u)
+    costs = {"field_copy_ms": median_ms(torch, lambda: dst.copy_(u)),
+             "residual_ms": median_ms(torch, lambda: residual({"u": u}))}
+    row, cases = check_step_kernel(torch, graph_loop)
+    row["launches"] = launches["graph_loop_step"]
+    return {"card": card, "grid": cfg.grid, "points": cfg.points,
+            "max_iters": CONV_MAX_ITERS, "rows": rows,
+            "bound": {"max_iters": BOUND_ITERS, "card": card, **bound, **costs},
+            "step_cases": cases, "launches": launches}, row
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1204,12 +1406,18 @@ def main() -> int:
     print(json.dumps({"dense_kernel_checks": detail}), flush=True)
     del eng, params, runs
 
-    rows = rows + dense_rows + [ssd_row]
+    # phase 11: convergence loops, device-resident against host-polled
+    from repro_torch.kernels import graph_loop
+    torch.cuda.empty_cache()
+    conv, step_row = run_convergence(torch, cfg, mesh, u0, gpu_line(), hk, graph_loop)
+    print(json.dumps({"convergence": conv}), flush=True)
+
+    rows = rows + dense_rows + [ssd_row, step_row]
     require(sorted(r["name"] for r in rows) == sorted(REPLACES), "a kernel row is missing")
     require(all(r["launches"] > 0 for r in rows), "a kernel was not launched on its path")
-    order = ("name", "route", "kernel_route", "source", "replaces", "launches",
-             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "sector_bound_ms",
-             "library_ms", "library_call", "earlier_ms", "decode")
+    order = ("name", "route", "kernel_route", "source", "replaces", "pallas_counterpart",
+             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "sector_bound_ms", "library_ms", "library_call", "earlier_ms", "decode")
     print(json.dumps({"kernels": [{k: r[k] for k in order if k in r} for r in rows]}))
     print(f"card: {gpu_line()}")
     print(json.dumps({"ok": True, "device": {

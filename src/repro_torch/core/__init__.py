@@ -23,7 +23,9 @@ from .halo import (
     build_faces_program,
     faces_oracle,
     faces_step_contiguous,
+    global_residual_fn,
     run_faces_persistent,
+    run_faces_until_converged,
 )
 from .matching import Batch, Channel, CoalescedChannel, CoalescePlan, MatchError
 from .queue import QueueError, STProgram, STQueue, create_queue
@@ -35,7 +37,8 @@ __all__ = [
     "perm_for", "program_digest", "FusedEngine", "HostEngine", "HostStats",
     "PersistentEngine", "slot_buffers", "DIRECTIONS", "FacesConfig",
     "build_faces_program", "faces_oracle", "faces_step_contiguous",
-    "run_faces_persistent", "Batch",
+    "global_residual_fn", "run_faces_persistent", "run_faces_until_converged",
+    "Batch",
     "Channel", "CoalescedChannel", "CoalescePlan", "MatchError", "QueueError",
     "STProgram", "STQueue", "create_queue", "from_reference", "init_buffers",
     "to_numpy",

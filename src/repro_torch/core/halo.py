@@ -71,6 +71,15 @@ class FacesConfig:
     # (0 → off); 0 < damping < ~0.3 keeps the field from growing.
     damping: float = 0.0
 
+    @property
+    def n_ranks(self) -> int:
+        gx, gy, gz = self.grid
+        return gx * gy * gz
+
+    @property
+    def n_points(self) -> int:
+        return self.n_ranks * int(np.prod(self.points))
+
 
 def _slab_index(side: int, n: int) -> slice:
     """-1 → first plane, +1 → last plane, 0 → everything."""
@@ -255,6 +264,45 @@ def faces_step_contiguous(u: torch.Tensor, cfg: FacesConfig) -> torch.Tensor:
     if cfg.damping:
         out = out * float(cfg.damping)
     return out
+
+
+def global_residual_fn(cfg: FacesConfig, buf: str = "u"):
+    """A ``reduce_fn(mem) -> 0-d tensor``: the global RMS norm of ``buf``,
+    ``sqrt(sum(buf**2) / cfg.n_points)`` in float32.  Every rank lives in
+    one tensor, so the reference's ``psum`` of per-rank sums is the sum
+    over the whole tensor.  Inside the loop it is the convergence
+    residual, computed with no host sync."""
+    n_total = float(cfg.n_points)
+
+    def residual(mem):
+        return torch.sqrt(torch.sum(torch.square(mem[buf].float())) / n_total)
+
+    return residual
+
+
+def run_faces_until_converged(cfg: FacesConfig, mesh, u0, tol: float,
+                              max_iters: int, mode: str = "dataflow",
+                              double_buffer: Optional[bool] = None,
+                              donate: bool = True):
+    """Iterate Faces until the global residual falls below ``tol``, at
+    most ``max_iters`` times, with the device deciding when to stop: ONE
+    graph launch on the card, and the only host read is ``n_done``, after
+    it.
+
+    Returns ``(mem, residuals, n_done, stats)``: the final buffers, the
+    residual trace cut to the realized length (a tensor on the mesh's
+    device), the realized count and the engine's stats
+    (``stats.dispatches == 1``, ``stats.sync_points == 0``).
+    """
+    from .engine_persistent import PersistentEngine
+
+    prog = build_faces_program(cfg, mesh).persistent(
+        max_iters, until=lambda r: r >= tol)
+    eng = PersistentEngine(prog, mode=mode, double_buffer=double_buffer,
+                           reduce_fn=global_residual_fn(cfg), donate=donate)
+    mem, residuals, n_done = eng(eng.init_buffers({"u": u0}))
+    n_done = int(n_done)
+    return mem, residuals[:n_done], n_done, eng.stats
 
 
 def run_faces_persistent(cfg: FacesConfig, mesh, u0, n_iters: int,

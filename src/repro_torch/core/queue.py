@@ -76,6 +76,10 @@ class STProgram:
     name: str = "st_program"
     # How many passes one PersistentEngine dispatch runs (see persistent).
     n_iters: int = 1
+    # Optional termination predicate ``until(reduction) -> bool`` on the
+    # per-iteration scalar reduction: the loop runs while it holds,
+    # ``n_iters`` becoming the max-iteration bound (see persistent).
+    until: Optional[Callable[[Any], Any]] = None
 
     @property
     def n_channels(self) -> int:
@@ -106,18 +110,21 @@ class STProgram:
         """Buffer names per program id (one program: pid 0 owns all)."""
         return {0: tuple(self.buffers)}
 
-    def persistent(self, n_iters: int, until: Optional[Callable] = None) -> "STProgram":
+    def persistent(self, n_iters: int,
+                   until: Optional[Callable[[Any], Any]] = None) -> "STProgram":
         """A copy marked for ``n_iters`` device-resident passes.
+
+        With ``until`` the count becomes dynamic: the engine re-runs the
+        program while ``until(reduction)`` holds (e.g. ``lambda r: r >=
+        tol``), ``n_iters`` being the max-iteration bound, and the device
+        decides when to stop.
 
         Re-execution needs a *quiescent* queue: a wait must follow the
         final start, or iteration i+1 would trigger against iteration
-        i's in-flight completions.  ``until=`` (convergence) is not
-        ported yet.
+        i's in-flight completions.  A predicate-terminated loop may
+        always run more than one pass, so ``until`` triggers the guard
+        even when the bound is 1.
         """
-        if until is not None:
-            raise NotImplementedError(
-                "persistent(until=...) comes with the convergence slice "
-                "of the port")
         if n_iters < 1:
             raise QueueError(f"persistent n_iters must be >= 1, got {n_iters}")
         last_start = last_wait = -1
@@ -126,12 +133,13 @@ class STProgram:
                 last_start = i
             elif isinstance(d, WaitDesc):
                 last_wait = i
-        if n_iters > 1 and last_start >= 0 and last_wait < last_start:
+        if ((n_iters > 1 or until is not None)
+                and last_start >= 0 and last_wait < last_start):
             raise QueueError(
                 "persistent reuse of a non-quiescent queue: the final "
                 "enqueue_start has no following enqueue_wait; counters "
                 "would not agree across iterations")
-        return dataclasses.replace(self, n_iters=n_iters)
+        return dataclasses.replace(self, n_iters=n_iters, until=until)
 
     def dispatch_count_host(self) -> int:
         """Separate dispatches of the host-orchestrated engine per pass:

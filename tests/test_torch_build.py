@@ -140,8 +140,9 @@ def test_persistent_guards():
     prog = q.build()
     with pytest.raises(QueueError, match="non-quiescent"):
         prog.persistent(2)
-    with pytest.raises(NotImplementedError, match="until"):
-        prog.persistent(2, until=lambda r: r > 0)
+    # a predicate may always run more than one pass: the guard holds at 1
+    with pytest.raises(QueueError, match="non-quiescent"):
+        prog.persistent(1, until=lambda r: r > 0)
     assert prog.persistent(1).n_iters == 1
 
 
@@ -156,7 +157,7 @@ def test_every_cuda_source_is_built_and_declared():
     """Every source has a wrapper module of its name that declares the C
     types of exactly the entry points the source exports."""
     names = set(build.sources())
-    assert names == {"halo_pack", "ssd_scan", "rmsnorm", "flash_attention"}
+    assert names == {"halo_pack", "ssd_scan", "rmsnorm", "flash_attention", "graph_loop"}
     for name in names:
         wrapper = importlib.import_module(f"repro_torch.kernels.{name}")
         text = build.sources()[name].read_text()

@@ -240,7 +240,7 @@ def test_persistent_reductions_and_double_buffer():
         ref = faces_oracle(ref, cfg)
         np.testing.assert_allclose(float(red[i]), float(np.square(ref).sum()),
                                    rtol=1e-4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="requires reduce_fn"):
         PersistentEngine(prog, cond_fn=lambda r: r > 0)
 
 

@@ -12,7 +12,11 @@ same bits whatever rows, row stride and alignment it is launched with.
 The engines' CUDA graphs and the
 serve engines (mamba2 and gemma3 smoke models) are held against the CPU
 run of the same program, and a warm serve prefill must be one graph
-launch equal to the eager prefill bit for bit.  This file imports no JAX, so it runs on a GPU
+launch equal to the eager prefill bit for bit.  The convergence loop
+(a graph conditional WHILE node set by the step kernel) is held against
+the eager CPU loop, against ``FusedEngine`` called ``n_done`` times
+(bit for bit), and its step kernel against the plain step on known
+traces.  This file imports no JAX, so it runs on a GPU
 machine without it::
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -30,11 +34,14 @@ from repro_torch.core import (
     PersistentEngine,
     build_faces_program,
     faces_step_contiguous,
+    global_residual_fn,
+    run_faces_until_converged,
     to_numpy,
 )
 from repro_torch.configs import get_config
 from repro_torch.core.halo import AXES3, DIRECTIONS, _region_for
 from repro_torch.kernels import flash_attention as fk
+from repro_torch.kernels import graph_loop
 from repro_torch.kernels import halo_pack as hk
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as rk
@@ -692,3 +699,149 @@ def test_warm_prefill_is_one_graph_launch_equal_to_eager(cuda, arch, dtype):
         assert captured[f"flash_attention_{route}"] == cfg.n_layers
     else:
         assert captured["ssd_scan"] == cfg.n_layers
+
+
+# -- the convergence loop: a conditional WHILE node set by the step kernel ---
+
+CONV_CFG = FacesConfig(grid=(2, 2, 2), points=(6, 5, 4), pack="kernel", damping=0.12)
+
+
+def _conv_u0():
+    return np.random.RandomState(4).randn(*CONV_CFG.grid, *CONV_CFG.points).astype(np.float32)
+
+
+@pytest.mark.parametrize("double_buffer", [False, True])
+@pytest.mark.parametrize("mode", ["stream", "dataflow"])
+def test_graph_loop_equals_eager_cpu_loop(cuda, mode, double_buffer):
+    """The graph loop stops where the eager CPU loop does, with the same
+    field bit for bit (the same elementwise ops) and the residual trace
+    within rtol 1e-5 (the sum of squares adds in another order)."""
+    u0, tol = _conv_u0(), 3e-3
+    runs = [run_faces_until_converged(CONV_CFG, make_mesh(CONV_CFG.grid, AXES3, device=d),
+                                      u0, tol=tol, max_iters=40, mode=mode,
+                                      double_buffer=double_buffer)
+            for d in ("cpu", cuda)]
+    (cpu_mem, cpu_res, cpu_n, _), (mem, res, n_done, stats) = runs
+    assert n_done == cpu_n and 1 < n_done < 40
+    assert (stats.dispatches, stats.sync_points) == (1, 0)
+    np.testing.assert_allclose(res.cpu().numpy(), cpu_res.numpy(), rtol=1e-5)
+    got, want = to_numpy(mem), to_numpy(cpu_mem)
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+def _host_polled(prog, u0, tol, max_iters, mode):
+    """FusedEngine called until the residual, read on the host after each
+    call, falls below ``tol``: the loop the device-resident one replaces."""
+    fused = FusedEngine(prog, mode=mode, donate=True)
+    residual = global_residual_fn(CONV_CFG)
+    mem, trace = fused.init_buffers({"u": u0}), []
+    while True:
+        mem = fused(mem)
+        trace.append(residual(mem).reshape(1))
+        if not (float(trace[-1]) >= tol and len(trace) < max_iters):
+            break
+    return mem, torch.cat(trace), fused
+
+
+@pytest.mark.parametrize("mode", ["stream", "dataflow"])
+def test_graph_loop_equals_fused_engine_bitwise(cuda, mode):
+    """The loop runs the fused engine's pass ``n_done`` times: the fields,
+    the slots and the residual trace equal a host-polled FusedEngine
+    run bit for bit, in one dispatch against ``n_done``."""
+    u0, tol = _conv_u0(), 3e-3
+    prog = build_faces_program(CONV_CFG, make_mesh(CONV_CFG.grid, AXES3))
+    want, trace, fused = _host_polled(prog, u0, tol, 40, mode)
+    mem, res, n_done, stats = run_faces_until_converged(
+        CONV_CFG, make_mesh(CONV_CFG.grid, AXES3), u0, tol=tol, max_iters=40, mode=mode)
+    assert n_done == fused.stats.dispatches == len(trace) and stats.dispatches == 1
+    assert torch.equal(res, trace)
+    for name in want:
+        assert torch.equal(mem[name], want[name]), name
+
+
+@pytest.mark.parametrize("tol", [3e-2, 1e-2])  # n_done 3 and 10: odd and even
+def test_graph_loop_double_buffer_parity(cuda, tol):
+    """With double buffering the last pass is B's when ``n_done`` is even:
+    every buffer, the slots included, equals the single-buffered loop's
+    for odd and even counts."""
+    u0 = _conv_u0()
+    mesh = make_mesh(CONV_CFG.grid, AXES3)
+    runs = {db: run_faces_until_converged(CONV_CFG, mesh, u0, tol=tol, max_iters=40,
+                                          double_buffer=db) for db in (False, True)}
+    assert runs[True][2] == runs[False][2] == {3e-2: 3, 1e-2: 10}[tol]
+    assert torch.equal(runs[True][1], runs[False][1])
+    for name, t in runs[False][0].items():
+        assert torch.equal(runs[True][0][name], t), name
+
+
+@pytest.mark.parametrize("double_buffer", [False, True])
+def test_graph_loop_call_resets_and_launches_once(cuda, double_buffer):
+    """Each call is ONE graph launch, launches no kernel eagerly, and
+    starts from ``n_done == 0`` and zeroed reductions: a second call of
+    the same engine on a smaller field stops earlier and pads with
+    zeros, and a third on the first field repeats the first."""
+    tol, u0 = 3e-3, _conv_u0()
+    prog = build_faces_program(CONV_CFG, make_mesh(CONV_CFG.grid, AXES3)).persistent(
+        40, until=lambda r: r >= tol)
+    eng = PersistentEngine(prog, mode="dataflow", double_buffer=double_buffer,
+                           reduce_fn=global_residual_fn(CONV_CFG))
+    eng.compile()
+    torch.cuda.synchronize()
+    counts = {**hk.launch_counts(), **graph_loop.launch_counts()}
+    runs = []
+    for scale in (1.0, 0.05, 1.0):
+        mem, red, n_done = eng(eng.init_buffers({"u": u0 * scale}))
+        runs.append((to_numpy(mem)["u"], red.cpu().numpy(), int(n_done)))
+    assert {**hk.launch_counts(), **graph_loop.launch_counts()} == counts
+    assert eng._loop.graph_launches == eng.stats.dispatches == 3
+    (u_a, red_a, n_a), (_, red_b, n_b), (u_c, red_c, n_c) = runs
+    assert 1 <= n_b < n_a == n_c
+    assert not red_b[n_b:].any() and red_b[:n_b].all()
+    np.testing.assert_array_equal(u_c, u_a)
+    np.testing.assert_array_equal(red_c, red_a)
+
+
+# n_done 14 and 17 by the tolerance, 16, 7 and 1 by the bound, 1 by a first
+# residual below the tolerance
+@pytest.mark.parametrize("tol,max_iters", [(0.6, 32), (0.5, 32), (-1.0, 16), (-1.0, 7),
+                                           (-1.0, 1), (2.0, 16)])
+def test_step_kernel_equals_plain_step(cuda, tol, max_iters):
+    """On a known trace the loop records the same reductions and stops at
+    the same count as the plain step (the max_iters bound too), and the
+    select of the last pass's parity leaves the last iteration's index."""
+    trace = torch.linspace(1.0, 0.0, 32, device=cuda)
+    loop, red, n_done, last = graph_loop.trace_loop(trace, tol, max_iters)
+    want_red, want_n = graph_loop.trace_plain(trace, tol, max_iters)
+    for _ in range(2):  # a second launch starts from n_done 0 again
+        loop.launch()
+        torch.cuda.synchronize()
+        assert int(n_done) == int(want_n)
+        assert torch.equal(red.cpu(), want_red)
+        assert int(last) == int(want_n) - 1
+
+
+def test_loop_body_holds_only_what_a_conditional_body_may(cuda):
+    """The dataflow pass forks a comm stream: its capture must join it by
+    edges, with no event, host or allocation node in the body."""
+    prog = build_faces_program(CONV_CFG, make_mesh(CONV_CFG.grid, AXES3)).persistent(
+        4, until=lambda r: r >= 0)
+    eng = PersistentEngine(prog, mode="dataflow", reduce_fn=global_residual_fn(CONV_CFG))
+    eng.compile()
+    for graph in eng._loop.passes:
+        kinds = graph_loop.node_types(graph)
+        assert not set(kinds) & set(graph_loop.NOT_IN_A_BODY), kinds
+    assert graph_loop.node_types(eng._loop.passes[0])["kernel"] > 0
+
+
+def test_graph_loop_refuses_what_it_does_not_take(cuda):
+    trace = torch.zeros(4, device=cuda)
+    loop, red, n_done, _ = graph_loop.trace_loop(trace, 0.0, 4)
+    pass_a, pass_b = loop.passes[:2]
+    keep = torch.zeros((), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="n_done"):
+        graph_loop.GraphLoop(pass_a, pass_b, red.sum(), keep, red, n_done.long(), 4)
+    with pytest.raises(ValueError, match="reductions"):
+        graph_loop.GraphLoop(pass_a, pass_b, red.sum(), keep, red, n_done, 5)
+    with pytest.raises(ValueError, match="keep"):
+        graph_loop.GraphLoop(pass_a, pass_b, red.sum(), keep.int(), red, n_done, 4)
