@@ -42,7 +42,10 @@ a checkout of the repository.  Phases, each of which must pass:
    beside one ``index_add_`` of the buffer at the regions' flat indices
    (which adds overlapping regions in another order: timed, not
    compared), ``unpack_segments`` beside no library call (no single
-   PyTorch call writes N separate tensors);
+   PyTorch call writes N separate tensors); and, untimed, the four Faces
+   kernels bit for bit at the part shapes of phase 12 (64- and 32-plane
+   blocks: all 26 regions, and every coalescing plan of the 2- and
+   4-part linked schedules, ghost planes and cross payloads included);
 6. serve mamba2-2.7b at full width and depth (64 layers, d_model 2560,
    80 SSD heads of 64, state 128, vocab 50 280, bf16 compute, float32
    parameters from ``torch.Generator(seed)``): 4 slots, 512-token
@@ -108,7 +111,35 @@ a checkout of the repository.  Phases, each of which must pass:
    bit, with ms per iteration beside it (with and without the residual)
    and the times of one field copy and one residual; the step kernel
    against the plain step on known traces (the bound, and both
-   parities of the last pass), and its time per iteration.
+   parities of the last pass), and its time per iteration;
+12. composition on the Faces configuration of phase 2: the domain split
+   into 2 and 4 x-parts, one queue each, linked by cross-program
+   channels and composed (``run_faces_pipelined``, 10 iterations, ONE
+   graph launch with one CUDA stream a program), in ``stream`` and
+   ``dataflow``: the merged field equal to the full-domain
+   ``PersistentEngine`` bit for bit, dispatches and graph launches 1,
+   the captured pass one stream wide a program (``graph_loop.
+   graph_edges``: the kernel nodes' largest unordered set is 1 for the
+   plain program and N for N parts in ``stream``, at most 2N in
+   ``dataflow``), ms per iteration beside the full-domain run's and a
+   ``torch.profiler`` window of each (one call, 10 iterations); with
+   ``exchange=False`` each part equal to its own ``run_faces_persistent``
+   bit for bit; one pass of the 2-part schedule on the host and fused
+   engines equal to the full program's.  The counters are set to 0
+   just before each composed run (``run_faces_pipelined``; the
+   ``PersistentEngine`` of the schedule, compiled and called) and read
+   just after it, before any other run: each such run must launch all
+   four Faces kernels, and its counts are printed per mode and parts;
+13. the verifier and the sanitizer: ``verify_program`` finds nothing on
+   every program and schedule this script builds (count, and host ms of
+   the largest); ``FusedEngine`` and ``PersistentEngine`` with
+   ``sanitize=True`` equal ``sanitize=False`` bit for bit on the Faces
+   program and the 2-part linked schedule in both modes, ms per
+   iteration for both (and a profile of the persistent Faces call with
+   and without); the racy mutation of ``tests/test_verify.py``
+   (an unpack kernel moved ahead of its wait) at full width raises
+   ``SanitizeError`` in every engine's constructor with no kernel
+   launched, while the unsanitized engine runs it.
 
 The last lines are a ``{"kernels": [...]}`` JSON line (ten rows: the nine
 Pallas kernels' and the step kernel's, which has no Pallas counterpart
@@ -161,6 +192,7 @@ CONV_TOLS = (1e-1, 1e-2, 1e-3)     # the reference's faces_convergence rows
 CONV_MAX_ITERS = 64
 BOUND_ITERS = 20                   # the loop's own cost: tol 0 runs to the bound
 STEP_ITERS = 4096                  # iterations of the step kernel's timing loop
+PARTS = (2, 4)                     # x-parts of the composed runs (phase 12)
 # (tol, max_iters) of the step kernel's known-trace checks: n_done 14 and 17
 # by the tolerance, 16, 7 and 1 by the bound, 1 by a first value below tol
 STEP_CASES = ((0.6, 32), (0.5, 32), (-1.0, 16), (-1.0, 7), (-1.0, 1), (2.0, 16))
@@ -488,35 +520,10 @@ def check_kernels(torch, prog, u, hk, ref):
     # pack_segments / unpack_segments: replay the coalescing plan of the
     # path's batch with both versions, transfer by transfer
     low = Lowering(prog)
-    batch = prog.batches[0]
-    plan, consts = batch.plan, low.plans[batch.index]
     gen = torch.Generator(u.device).manual_seed(1)
     mem = {n: torch.randn(s.shape, dtype=s.dtype, device=u.device, generator=gen)
            for n, s in prog.buffers.items()}
-    received, packs = [], []
-    for ti, (t, route) in enumerate(zip(plan.transfers, consts.routes)):
-        sources = []
-        for seg in t.segments:
-            if seg.hop == 0:
-                ch = plan.channels[seg.channel]
-                sources.append((low.ranks(mem[ch.src_buf]).reshape(n_ranks, -1), 0))
-            else:
-                pt, po = plan.routes[seg.channel][seg.hop - 1]
-                sources.append((received[pt], po))
-        sizes = [s.size for s in t.segments]
-        staged = hk.pack_segments(sources, sizes)
-        same("pack_segments", [staged], [ref.pack_segments(sources, sizes)],
-             f"transfer {ti}")
-        received.append(low.permute(staged, route))
-        packs.append((sources, sizes))
-    unpacks = []
-    for ti, (chans, offs, masks) in consts.direct.items():
-        outs = [mem[plan.channels[ci].dst_buf] for ci in chans]
-        got, want = [o.clone() for o in outs], [o.clone() for o in outs]
-        hk.unpack_segments(received[ti], got, offs, masks)
-        ref.unpack_segments(received[ti], want, offs, masks)
-        same("unpack_segments", got, want, f"transfer {ti}")
-        unpacks.append((received[ti], got, offs, masks))
+    packs, unpacks = replay_plan(low, prog.batches[0], mem, hk, ref, same)
 
     # a relay-heavy bf16 member set at columns that break 16-byte
     # alignment (sizes 1, 3, 127, 16384; relays through strided views),
@@ -547,6 +554,280 @@ def check_kernels(torch, prog, u, hk, ref):
                     lambda: ref.unpack_segments(buf, outs, offs, masks),
                     None, 2 * written * itemsize))
     return rows
+
+
+def replay_plan(low, batch, mem, hk, ref, same, what: str = ""):
+    """Replay one batch's coalescing plan transfer by transfer, as
+    ``_run_coalesced_batch`` runs it, through ``pack_segments`` and
+    ``unpack_segments`` and their plain versions, held equal by
+    ``same(name, got, want, what)``.  Returns each pack's ``(sources,
+    sizes)`` and each unpack's ``(received, outs, offsets, masks)``."""
+    plan, consts, n = batch.plan, low.plans[batch.index], low.n_ranks
+    received, packs, unpacks = [], [], []
+    for ti, (t, route) in enumerate(zip(plan.transfers, consts.routes)):
+        sources = []
+        for seg in t.segments:
+            if seg.hop == 0:
+                ch = plan.channels[seg.channel]
+                src = low.ranks(mem[ch.src_buf])
+                if ch.send_region is not None:
+                    src = src[low.local_region(ch.send_region)]
+                sources.append((src.reshape(n, -1), 0))
+            else:
+                pt, po = plan.routes[seg.channel][seg.hop - 1]
+                sources.append((received[pt], po))
+        sizes = [seg.size for seg in t.segments]
+        staged = hk.pack_segments(sources, sizes)
+        same("pack_segments", [staged], [ref.pack_segments(sources, sizes)],
+             f"{what}batch {batch.index}, transfer {ti}")
+        received.append(low.permute(staged, route))
+        packs.append((sources, sizes))
+    for ti, (chans, offs, masks) in consts.direct.items():
+        outs = [mem[plan.channels[ci].dst_buf] for ci in chans]
+        got, want = [o.clone() for o in outs], [o.clone() for o in outs]
+        hk.unpack_segments(received[ti], got, offs, masks)
+        ref.unpack_segments(received[ti], want, offs, masks)
+        same("unpack_segments", got, want, f"{what}batch {batch.index}, transfer {ti}")
+        unpacks.append((received[ti], got, offs, masks))
+    return packs, unpacks
+
+
+def check_part_shapes(torch, cfg, mesh, hk, ref):
+    """Phase 5, part shapes: the four Faces kernels against their plain
+    versions, bit for bit, on the blocks of the 2- and 4-part splits (all
+    26 regions, the unpack in float32 and bf16) and on every coalescing
+    plan of the linked schedules (ghost-plane batches with their send
+    regions, cross payloads), replayed transfer by transfer as
+    ``_run_coalesced_batch`` runs them."""
+    from repro_torch.core import build_faces_pipeline, part_configs
+    from repro_torch.core.engine_fused import Lowering
+    from repro_torch.core.halo import DIRECTIONS, _region_for
+
+    def same(name, got, want, what):
+        require(all(torch.equal(g, w) for g, w in zip(got, want)), f"{name} != plain: {what}")
+
+    gen = torch.Generator("cuda").manual_seed(2)
+    out = {}
+    for n_parts in PARTS:
+        points = part_configs(cfg, n_parts)[0].points
+        u = torch.randn(*cfg.grid, *points, device="cuda", generator=gen)
+        for d in DIRECTIONS:
+            region = _region_for(d, points)
+            require(torch.equal(hk.halo_pack(u, region), ref.halo_pack(u, region)),
+                    f"halo_pack != plain at part points {points}, direction {d}")
+            for field in (u, u.bfloat16()):
+                msg = ref.halo_pack(torch.roll(field, 1, 0), region)
+                require(torch.equal(hk.halo_unpack_add(field.clone(), msg, region),
+                                    ref.halo_unpack_add(field.clone(), msg, region)),
+                        f"halo_unpack_add != plain at {points}, {d}, {field.dtype}")
+        sched = build_faces_pipeline(cfg, mesh, n_parts)
+        low = Lowering(sched)
+        mem = {name: torch.randn(spec.shape, device="cuda", generator=gen)
+               for name, spec in sched.buffers.items()}
+        transfers = unpacks = 0
+        for b in sched.batches:
+            if b.plan is not None:
+                packs, done = replay_plan(low, b, mem, hk, ref, same, f"{n_parts} parts, ")
+                transfers, unpacks = transfers + len(packs), unpacks + len(done)
+        out[f"parts{n_parts}"] = {"points": points, "regions": len(DIRECTIONS),
+                                  "transfers": transfers, "unpacks": unpacks,
+                                  "equal_bitwise": True}
+    return out
+
+
+def graph_shape(torch, graph_loop, eng) -> dict:
+    """One pass of ``eng`` captured again with its graph kept: node counts
+    by type and the largest set of kernel nodes no edge path orders (one
+    stream's work is a chain: width 1 a stream)."""
+    eng.compile()
+    graph, _ = graph_loop.capture(lambda: eng._run_into(eng._bufs))
+    names, edges = graph_loop.graph_edges(graph)
+    kernels = [i for i, t in enumerate(names) if t == "kernel"]
+    return {"nodes": len(names), "kernel_nodes": len(kernels), "edges": len(edges),
+            "width": graph_loop.dag_width(len(names), edges, kernels),
+            "node_types": graph_loop.node_types(graph)}
+
+
+def run_pipeline(torch, cfg, mesh, u0, card: str, hk, graph_loop):
+    """Phase 12: the linked N-part pipeline at full width against the
+    full-domain persistent run; returns the phase's line and every
+    program it built (for phase 13)."""
+    from repro_torch.core import (FusedEngine, HostEngine, PersistentEngine,
+                                  build_faces_pipeline, build_faces_program, merge_parts,
+                                  part_configs, part_names, run_faces_persistent,
+                                  run_faces_pipelined, split_parts)
+
+    def parts_init(n_parts):
+        return dict(zip([f"{n}/u" for n in part_names(n_parts)], split_parts(u0, n_parts)))
+
+    def merged(mem, n_parts):
+        return merge_parts([mem[f"{n}/u"] for n in part_names(n_parts)])
+
+    def counted(what, fn):
+        # the counts of one composed run alone: set to 0 just before it, read
+        # just after, and every Faces kernel must have launched in it
+        torch.cuda.synchronize()
+        hk.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {n: hk.launch_counts()[n] for n in FACES_KERNELS}
+        require(all(counts.values()), f"{what}: a kernel of the composed path never "
+                f"launched: {counts}")
+        return out, counts
+
+    prog = build_faces_program(cfg, mesh)
+    built, modes = [prog], {}
+    launches = dict.fromkeys(FACES_KERNELS, 0)
+    for mode in ("stream", "dataflow"):
+        full = PersistentEngine(prog.persistent(N_ITERS), mode=mode, donate=True)
+        full_init = full.init_buffers({"u": u0})
+        full.compile()
+        want = full(full_init)["u"].clone()
+        row = {"full_ms_per_iter": events_ms(torch, lambda: full(full_init)) / N_ITERS,
+               "full_graph": graph_shape(torch, graph_loop, FusedEngine(prog, mode=mode)),
+               "full_profile": profile_calls(torch, lambda: full(full_init))}
+        require(row["full_graph"]["width"] == (1 if mode == "stream" else 2),
+                f"{mode}: the plain program's pass is {row['full_graph']['width']} wide")
+        for n_parts in PARTS:
+            what = f"{mode}, {n_parts} parts"
+            t0 = time.perf_counter()
+            (mem, stats), pipelined_counts = counted(what, lambda: run_faces_pipelined(
+                cfg, mesh, u0, n_iters=N_ITERS, n_parts=n_parts, mode=mode))
+            first_wall = (time.perf_counter() - t0) * 1e3
+            require((stats.dispatches, stats.sync_points) == (1, 0),
+                    f"{mode}, {n_parts} parts: run_faces_pipelined took {stats}")
+            require(torch.equal(merged(mem, n_parts), want), f"{mode}, {n_parts} parts: "
+                    "the linked pipeline differs from the full domain")
+            del mem
+            sched = build_faces_pipeline(cfg, mesh, n_parts, N_ITERS)
+            built.append(sched)
+            eng = PersistentEngine(sched, mode=mode, donate=True)
+            init = eng.init_buffers(parts_init(n_parts))
+
+            def engine_run():
+                eng.compile()
+                return merged(eng(init), n_parts)
+
+            got, engine_counts = counted(what, engine_run)
+            require(torch.equal(got, want),
+                    f"{mode}, {n_parts} parts: the engine differs from the full domain")
+            for n in FACES_KERNELS:
+                launches[n] += pipelined_counts[n] + engine_counts[n]
+            require(eng.stats.dispatches == eng.graph_launches == 1,
+                    f"{mode}, {n_parts} parts: {eng.stats.dispatches} dispatches, "
+                    f"{eng.graph_launches} graph launches")
+            ms = events_ms(torch, lambda: eng(init)) / N_ITERS
+            profile = profile_calls(torch, lambda: eng(init))
+            one_pass = build_faces_pipeline(cfg, mesh, n_parts)
+            built.append(one_pass)
+            shape = graph_shape(torch, graph_loop, FusedEngine(one_pass, mode=mode))
+            wide = (shape["width"] == n_parts if mode == "stream"
+                    else n_parts < shape["width"] <= 2 * n_parts)
+            require(wide, f"{mode}, {n_parts} parts: the pass is {shape['width']} wide")
+            del eng, init, got
+            unlinked, _ = run_faces_pipelined(cfg, mesh, u0, n_iters=N_ITERS, n_parts=n_parts,
+                                              mode=mode, exchange=False)
+            for name, pcfg, part in zip(part_names(n_parts), part_configs(cfg, n_parts),
+                                        split_parts(u0, n_parts)):
+                alone, _ = run_faces_persistent(pcfg, mesh, part, n_iters=N_ITERS, mode=mode)
+                require(torch.equal(unlinked[f"{name}/u"], alone["u"]),
+                        f"{mode}: unlinked part {name} differs from its own run")
+            del unlinked, alone
+            built.append(build_faces_pipeline(cfg, mesh, n_parts, N_ITERS, exchange=False))
+            row[f"parts{n_parts}"] = {
+                "ms_per_iter": ms, "vs_full": ms / row["full_ms_per_iter"],
+                "first_call_wall_ms": first_wall, "dispatches": 1, "graph_launches": 1,
+                "links": len(sched.links), "graph": shape, "profile": profile,
+                "launches": {"run_faces_pipelined": pipelined_counts,
+                             "PersistentEngine": engine_counts},
+                "equal_to_full_bitwise": True,
+                "unlinked_equal_to_parts_bitwise": True}
+        modes[mode] = row
+        del full, full_init, want
+    one = build_faces_pipeline(cfg, mesh, 2)
+    for cls, kw in ((HostEngine, {}), (FusedEngine, {"mode": "stream"}),
+                    (FusedEngine, {"mode": "dataflow"})):
+        split, whole = cls(one, **kw), cls(prog, **kw)
+        got = merged(split(split.init_buffers(parts_init(2))), 2)
+        require(torch.equal(got, whole(whole.init_buffers({"u": u0}))["u"]),
+                f"{cls.__name__} {kw}: one pass of the 2-part schedule differs")
+    return {"card": card, "grid": cfg.grid, "points": cfg.points, "iterations": N_ITERS,
+            "modes": modes, "one_pass_host_and_fused_equal": True,
+            "launches": launches}, built
+
+
+def run_verifier(torch, cfg, mesh, u0, card: str, hk, built):
+    """Phase 13: the verifier on every program built, the sanitizer's
+    parity and cost, and the racy mutation refused before any launch."""
+    from repro_torch.core import (FusedEngine, HostEngine, PersistentEngine, SanitizeError,
+                                  build_faces_pipeline, part_names, split_parts,
+                                  verify_program)
+    from repro_torch.core.descriptors import KernelDesc, WaitDesc
+
+    for p in built:
+        diags = verify_program(p)
+        require(diags == [], f"verify_program({p.name}): {[str(d) for d in diags[:3]]}")
+    largest = max(built, key=lambda p: len(p.descriptors))
+    host_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        verify_program(largest)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+
+    prog = built[0]
+    parts = dict(zip([f"{n}/u" for n in part_names(2)], split_parts(u0, 2)))
+    cases = {"faces": (prog, prog.persistent(N_ITERS), {"u": u0}),
+             "parts2": (build_faces_pipeline(cfg, mesh, 2),
+                        build_faces_pipeline(cfg, mesh, 2, N_ITERS), parts)}
+    sanitizer = {}
+    for mode in ("stream", "dataflow"):
+        for name, (one_pass, loop, init) in cases.items():
+            for cls, p, per in ((FusedEngine, one_pass, 1), (PersistentEngine, loop, N_ITERS)):
+                row = {}
+                outs = []
+                for sanitize in (False, True):
+                    eng = cls(p, mode=mode, donate=True, sanitize=sanitize)
+                    own = eng(eng.init_buffers(init))  # the engine's own buffers
+                    outs.append({k: t.clone() for k, t in own.items()})
+                    # calls on the engine's own buffers: no copy-in, the graph alone
+                    row["sanitized_ms_per_iter" if sanitize else "ms_per_iter"] = \
+                        events_ms(torch, lambda: eng(own)) / per
+                    if cls is PersistentEngine and name == "faces" and mode == "stream":
+                        row["sanitized_profile" if sanitize else "profile"] = \
+                            profile_calls(torch, lambda: eng(own))
+                    del eng, own
+                require(all(torch.equal(outs[0][k], outs[1][k]) for k in outs[0]),
+                        f"{cls.__name__} {mode} {name}: sanitize=True changed the result")
+                row["equal_bitwise"] = True
+                sanitizer[f"{cls.__name__}/{name}/{mode}"] = row
+                del outs
+
+    descs = list(prog.descriptors)
+    wi = max(i for i, d in enumerate(descs) if isinstance(d, WaitDesc))
+    ki = next(i for i, d in enumerate(descs) if i > wi and isinstance(d, KernelDesc))
+    descs.insert(wi, descs.pop(ki))
+    bad = dataclasses.replace(prog, descriptors=tuple(descs))
+    torch.cuda.synchronize()
+    hk.reset_launches()
+    refused = []
+    for cls in (FusedEngine, PersistentEngine, HostEngine):
+        try:
+            cls(bad, sanitize=True)
+        except SanitizeError as e:
+            refused.append((cls.__name__, str(e)[:160]))
+    launched = hk.launch_counts()
+    require(len(refused) == 3, f"the racy program was accepted: refused only by {refused}")
+    require(not any(launched.values()), f"a refused engine launched kernels: {launched}")
+    silent = FusedEngine(bad)
+    silent(silent.init_buffers({"u": u0}))
+    torch.cuda.synchronize()
+    require(silent.stats.dispatches == 1, "the unsanitized engine did not run the racy program")
+    return {"card": card, "verified": len(built), "diagnostics": 0,
+            "largest": {"name": largest.name, "descriptors": len(largest.descriptors),
+                        "verify_host_ms": statistics.median(host_ms)},
+            "sanitizer": sanitizer,
+            "race": {"refused": refused, "launches_when_refused": launched,
+                     "unsanitized_dispatches": silent.stats.dispatches}}
 
 
 def run_serve(torch, seed: int, arch: str, shape: dict):
@@ -1338,6 +1619,8 @@ def main() -> int:
 
     # phase 5: halo and boundary kernels against their plain versions
     rows = check_kernels(torch, prog, base, hk, ref)
+    print(json.dumps({"part_shapes": check_part_shapes(torch, cfg, mesh, hk, ref)}),
+          flush=True)
     for r in rows:
         r["launches"] = launches[r["name"]]
     del prog, fields, first, fused, base, plain
@@ -1411,6 +1694,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     conv, step_row = run_convergence(torch, cfg, mesh, u0, gpu_line(), hk, graph_loop)
     print(json.dumps({"convergence": conv}), flush=True)
+
+    # phase 12: the linked N-part pipeline, one stream a program
+    torch.cuda.empty_cache()
+    pipeline, built = run_pipeline(torch, cfg, mesh, u0, gpu_line(), hk, graph_loop)
+    print(json.dumps({"pipeline": pipeline}), flush=True)
+
+    # phase 13: the verifier and the sanitizer
+    print(json.dumps({"verifier": run_verifier(torch, cfg, mesh, u0, gpu_line(), hk, built)}),
+          flush=True)
+    del built
 
     rows = rows + dense_rows + [ssd_row, step_row]
     require(sorted(r["name"] for r in rows) == sorted(REPLACES), "a kernel row is missing")

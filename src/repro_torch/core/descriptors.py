@@ -13,9 +13,19 @@ engine executes the built program later.
 
 Peers are relational, as in the reference: ``OffsetPeer(axis, delta)``,
 ``GridOffsetPeer(axes, deltas)`` (the 26-neighbour Faces pattern) and
-``PairListPeer(axis, pairs)``.  Deferred collectives (``CollDesc``) and
-cross-program ``remote=`` channels wait for the collectives and
-composition slices of the port.
+``PairListPeer(axis, pairs)``.  Deferred collectives (``CollDesc``)
+wait for the collectives slice of the port.
+
+Every descriptor carries a ``pid`` (program id): 0 in a program built by
+one :class:`~.queue.STQueue`; :func:`~.schedule.compose` gives each
+composed program its own, and the engines keep one counter bank, and
+on the card one CUDA stream, per pid.
+
+``SendDesc`` / ``RecvDesc`` may name a peer *program* in ``remote``:
+the matching side lives in another queue, the queue's build leaves the
+descriptor open, and ``compose`` matches it into a cross-program
+channel — triggered by the sender, deposited into the receiver's
+memory, completed on the receiver's counter bank.
 """
 
 from __future__ import annotations
@@ -194,6 +204,10 @@ class KernelDesc:
     pid: int = 0
     # Enqueue-site provenance ("file:line").
     site: Optional[str] = None
+    # True when the caller declared no effects and the queue assumed the
+    # kernel reads every buffer (``enqueue_compute`` without ``reads=``):
+    # the ST019 warning.
+    implicit_effects: bool = False
 
 
 @dataclasses.dataclass
@@ -206,6 +220,9 @@ class SendDesc:
     # Optional slice of the buffer's local view to send.
     region: Optional[Tuple[slice, ...]] = None
     pid: int = 0
+    # Cross-program channel: the peer program holding the matching
+    # receive (None: matched within this program's own batch).
+    remote: Optional[str] = None
     site: Optional[str] = None
 
 
@@ -219,6 +236,8 @@ class RecvDesc:
     # "replace" or "add" (the Faces gather-scatter sum deposit).
     mode: str = "replace"
     pid: int = 0
+    # Cross-program channel: the peer program holding the matching send.
+    remote: Optional[str] = None
     site: Optional[str] = None
 
 

@@ -38,11 +38,46 @@ Both modes give the same bits: the ops and their order per buffer are
 the same.  A kernel that updates a buffer in place (the halo unpack-add)
 must not target a buffer that a pending batch sends from; Faces unpacks
 after its wait.
+
+Composed schedules: one CUDA stream per program
+-----------------------------------------------
+A composed :class:`~.schedule.STSchedule` runs each program on its own
+stream (and, in ``dataflow`` mode, its own communication stream): every
+side stream forks from the capture stream when the graph's work begins
+and joins it at the end, so passes of a persistent loop pipeline across
+programs.  Streams meet only where the schedule says:
+
+* a cross-program channel completes on the *receiver's* bank: its
+  transfer records an event, and the receiver's gating wait (resolved
+  through :func:`~.effects.cross_gate_map`, as the verifier resolves
+  it) makes the receiver's stream wait on it.  The interleave keeps
+  every trigger ahead of its consumer's wait, so the event is always
+  recorded before a wait on it is enqueued;
+* a start makes its transfer stream wait on its own program's stream
+  and on the stream of every program it deposits into, as far as each
+  has been enqueued.  Receive slots are written in place, so without
+  this a deposit of iteration i+1 could overwrite a slot the receiver
+  is still reading in iteration i.
+
+A plain program keeps one stream (and one comm stream): its graph is
+the one it had before schedules existed.
+
+Sanitizer (``sanitize=True``)
+-----------------------------
+:func:`~.verify.check_deposit_order` runs in the constructor, so a racy
+program raises :class:`~.verify.SanitizeError` before any launch.  At
+the start of every pass each :func:`~.verify.canary_buffers` buffer is
+saved and filled with NaN (two multi-tensor launches a program); the
+first replace deposit into it restores the saved copy on the deposit's
+stream first, which equals the reference's ``where(is_receiver,
+received, original)``.  Race-free programs give the same bits.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+from collections import defaultdict
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -50,6 +85,7 @@ import torch
 
 from ..kernels.halo_pack import pack_segments, unpack_segments
 from .descriptors import KernelDesc, StartDesc, WaitDesc
+from .effects import cross_gate_map, resolve_gate
 from .matching import Channel
 from .queue import STProgram
 from .state import init_buffers
@@ -92,7 +128,9 @@ class PlanConsts:
     # the deposits one unpack_segments launch makes
     direct: Dict[int, Tuple[List[int], List[int], Optional[torch.Tensor]]]
     ordered: List[int]                       # other deposits, channel order
-    n_results: int                           # transfers carrying final segments
+    # per destination program: the transfers carrying its final segments
+    # (a cross channel completes on the receiver's bank)
+    n_results: Dict[int, int]
 
 
 class Lowering:
@@ -126,7 +164,7 @@ class Lowering:
             for ch in b.channels:
                 self.route(_axes_tuple(ch.axis), ch.perm(self.mesh_shape))
             if b.plan is not None:
-                self.plans[b.index] = self._plan_consts(b.plan, prog)
+                self.plans[b.index] = self._plan_consts(b.plan, prog, b.pid)
 
     def route(self, axes: Tuple[str, ...], perm) -> Route:
         key = (axes, tuple(map(tuple, perm)))
@@ -142,7 +180,7 @@ class Lowering:
                 n_receivers=int((src >= 0).sum()))
         return self._routes[key]
 
-    def _plan_consts(self, plan, prog) -> PlanConsts:
+    def _plan_consts(self, plan, prog, pid: int) -> PlanConsts:
         routes = [self.route(_axes_tuple(t.axis), t.perm) for t in plan.transfers]
         dst_count: Dict[str, int] = {}
         for ch in plan.channels:
@@ -173,9 +211,12 @@ class Lowering:
             everyone = all(r.n_receivers == self.n_ranks for r in receivers)
             packed[ti] = (chans, offs, None if everyone else
                           torch.stack([r.receivers for r in receivers]))
-        finals = {hops[-1][0] for hops in plan.routes if hops}
+        finals: Dict[int, set] = defaultdict(set)
+        for ch, hops in zip(plan.channels, plan.routes):
+            if hops:
+                finals[pid if ch.dst_pid is None else ch.dst_pid].add(hops[-1][0])
         return PlanConsts(routes=routes, direct=packed, ordered=ordered,
-                          n_results=len(finals))
+                          n_results={q: len(ts) for q, ts in finals.items()})
 
     def ranks(self, t: torch.Tensor) -> torch.Tensor:
         """View a global buffer as ``(R, *local)``."""
@@ -210,12 +251,141 @@ def fresh_token_banks(prog: STProgram):
     return {pid: 0 for pid in pids}, {pid: 0 for pid in pids}
 
 
+@dataclasses.dataclass
+class Lane:
+    """The streams of one program on the card: ``stream`` runs its
+    descriptors (None: the stream current when the work begins) and
+    ``comm`` its transfers in ``dataflow`` mode (None: inline)."""
+
+    stream: Optional[torch.cuda.Stream]
+    comm: Optional[torch.cuda.Stream]
+
+
+def make_lanes(prog: STProgram, mode: str, device) -> Optional[Dict[int, Lane]]:
+    """A lane per program on a CUDA device (None on a CPU device).  A
+    plain program runs on the current stream; each program of a
+    schedule gets a stream of its own."""
+    if device.type != "cuda":
+        return None
+    pids = tuple(prog.buffers_by_pid())
+    comm = (lambda: torch.cuda.Stream(device)) if mode == "dataflow" else (lambda: None)
+    if len(pids) == 1:
+        return {pids[0]: Lane(None, comm())}
+    return {pid: Lane(torch.cuda.Stream(device), comm()) for pid in pids}
+
+
+class PassStreams:
+    """Stream order of the work between :meth:`__init__` (the side streams
+    fork from the current stream) and :meth:`join` (it waits on all of
+    them); one pass, or every pass of a persistent loop.  On a CPU
+    device (``lanes`` None) everything runs inline and it orders nothing.
+
+    ``held`` keeps tensors that another stream still reads or writes
+    referenced until a join orders that stream's work before any reuse
+    of their memory: sources of a comm stream until the program's wait
+    joins it, cross-deposit destinations until the receiver's gating
+    wait, canary copies until the end.
+    """
+
+    def __init__(self, lanes: Optional[Dict[int, Lane]], device):
+        self.lanes = lanes
+        if lanes is None:
+            return
+        self.home = torch.cuda.current_stream(device)
+        self.own = {pid: lane.stream or self.home for pid, lane in lanes.items()}
+        self.held: Dict[Any, List[torch.Tensor]] = defaultdict(list)
+        self.signals: Dict[Tuple[int, int], List[torch.cuda.Event]] = defaultdict(list)
+        for lane in lanes.values():
+            if lane.stream is not None:
+                lane.stream.wait_stream(self.home)
+
+    def stream_of(self, pid: int):
+        """The stream of program ``pid``'s kernels (None on a CPU)."""
+        return None if self.lanes is None else self.own[pid]
+
+    def trigger(self, pid: int, receivers, sources: List[torch.Tensor]):
+        """The stream a start of ``pid`` fires its batch on, after it waits
+        on ``pid``'s stream and on each receiver's stream."""
+        if self.lanes is None:
+            return None
+        comm = self.lanes[pid].comm
+        t = comm or self.own[pid]
+        for q in sorted({pid, *receivers}):
+            if self.own[q] is not t:
+                t.wait_stream(self.own[q])
+        if comm is not None:
+            self.held[pid].extend(sources)
+        return t
+
+    def signal(self, t, gate: Tuple[int, int], held: List[torch.Tensor]) -> None:
+        """A cross-program deposit fired on ``t``, observed by ``gate``'s wait."""
+        if self.lanes is None:
+            return
+        event = torch.cuda.Event()
+        event.record(t)
+        self.signals[gate].append(event)
+        self.held[gate].extend(held)
+
+    def wait(self, pid: int, batch: int) -> None:
+        """A wait of ``pid`` on ``batch``: join its comm stream and every
+        cross deposit gated at or before ``batch`` (completion counters
+        are cumulative)."""
+        if self.lanes is None:
+            return
+        s, comm = self.own[pid], self.lanes[pid].comm
+        if comm is not None:
+            s.wait_stream(comm)
+            self.held.pop(pid, None)
+        for gate in [g for g in self.signals if g[0] == pid and g[1] <= batch]:
+            for event in self.signals.pop(gate):
+                s.wait_event(event)
+            self.held.pop(gate, None)
+
+    def join(self) -> None:
+        """The current stream waits on every side stream (a capture must
+        end with all of them joined)."""
+        if self.lanes is None:
+            return
+        for lane in self.lanes.values():
+            for s in (lane.stream, lane.comm):
+                if s is not None:
+                    self.home.wait_stream(s)
+        self.held.clear()
+        self.signals.clear()
+
+
+def _on(stream):
+    """Run what follows on ``stream`` (None: where it would run anyway)."""
+    return contextlib.nullcontext() if stream is None else torch.cuda.stream(stream)
+
+
 def _as_buffer(o: torch.Tensor, spec) -> torch.Tensor:
     o = o.to(spec.dtype)
     if tuple(o.shape) != tuple(spec.shape):
         raise ValueError(f"kernel wrote shape {tuple(o.shape)} into buffer "
                          f"{spec.name!r} of shape {spec.shape}")
     return o if o.is_contiguous() else o.contiguous()
+
+
+def _plant_canaries(mem, prog: STProgram, streams: PassStreams) -> Dict[str, torch.Tensor]:
+    """Save each canary buffer and fill it with NaN, a program's buffers
+    on its own stream in two multi-tensor launches; returns the copies."""
+    from .verify import canary_buffers
+
+    names = set(canary_buffers(prog))
+    saved: Dict[str, torch.Tensor] = {}
+    for pid, owned in prog.buffers_by_pid().items():
+        group = [n for n in owned if n in names and n in mem]
+        if not group:
+            continue
+        with _on(streams.stream_of(pid)):
+            copies = [torch.empty_like(mem[n]) for n in group]
+            torch._foreach_copy_(copies, [mem[n] for n in group])
+            torch._foreach_mul_([mem[n] for n in group], float("nan"))
+        saved.update(zip(group, copies))
+        if streams.lanes is not None:
+            streams.held["canary"].extend(copies)
+    return saved
 
 
 def _interpret_program(
@@ -227,31 +397,36 @@ def _interpret_program(
     tokens: Optional[Dict[int, int]] = None,
     comp_tokens: Optional[Dict[int, int]] = None,
     coalesce: bool = True,
-    comm: Optional[torch.cuda.Stream] = None,
+    lanes: Optional[Dict[int, Lane]] = None,
+    streams: Optional[PassStreams] = None,
+    sanitize: bool = False,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[int, int], Dict[int, int]]:
     """Interpret one pass over ``prog``'s descriptors.
 
     Shared by :class:`FusedEngine` (one pass per call) and
     :class:`~.engine_persistent.PersistentEngine` (N passes per call).
     ``tokens``/``comp_tokens`` are the counter banks of a previous pass.
-    ``comm`` is the communication stream of ``dataflow`` mode (None runs
-    every transfer inline, in stream order).  Receive buffers are written
-    in place; kernels may rebind any buffer to a new tensor.
+    ``streams`` orders the work on the card (see :class:`PassStreams`;
+    the persistent loop keeps one across its passes); without it the
+    pass makes its own from ``lanes`` and joins it at the end.  Receive
+    buffers are written in place; kernels may rebind any buffer to a new
+    tensor.  ``sanitize`` plants NaN canaries (module docstring).
     """
     mem = dict(mem)
+    own_streams = streams is None
+    if own_streams:
+        streams = PassStreams(lanes, low.device)
     if tokens is None or comp_tokens is None:
         tokens, comp_tokens = fresh_token_banks(prog)
     tokens, comp_tokens = dict(tokens), dict(comp_tokens)
     batches = {b.index: b for b in prog.batches}
-    in_flight: List[torch.Tensor] = []  # what the comm stream reads
-
-    def join():
-        torch.cuda.current_stream(low.device).wait_stream(comm)
-        in_flight.clear()
+    gates, cursor = cross_gate_map(prog), defaultdict(int)
+    saved = _plant_canaries(mem, prog, streams) if sanitize else {}
 
     for d in prog.descriptors:
         if isinstance(d, KernelDesc):
-            outs = d.fn(*[mem[r] for r in d.reads])
+            with _on(streams.stream_of(d.pid)):
+                outs = d.fn(*[mem[r] for r in d.reads])
             if not isinstance(outs, (tuple, list)):
                 outs = (outs,)
             if len(outs) != len(d.writes):
@@ -259,35 +434,45 @@ def _interpret_program(
                                  f"values for {len(d.writes)} write buffers")
             for w, o in zip(d.writes, outs):
                 mem[w] = _as_buffer(o, prog.buffers[w])
+                saved.pop(w, None)  # a whole-buffer rewrite
         elif isinstance(d, StartDesc):
             batch = batches[d.batch]
             tokens[d.pid] += 1  # writeValue
-            if comm is None:
-                n = _run_batch(mem, batch, low, coalesce)
-            else:
-                # the trigger: comm runs after everything enqueued so far;
-                # sources stay referenced until the wait joins comm back
-                comm.wait_stream(torch.cuda.current_stream(low.device))
-                in_flight.extend(mem[ch.src_buf] for ch in batch.channels)
-                with torch.cuda.stream(comm):
-                    n = _run_batch(mem, batch, low, coalesce)
-            comp_tokens[d.pid] += n
+            cross = [(ch, resolve_gate(gates, cursor, d.pid, d.batch, ch))
+                     for ch in batch.channels if ch.dst_pid not in (None, d.pid)]
+            t = streams.trigger(d.pid, {ch.dst_pid for ch, _ in cross},
+                                [mem[ch.src_buf] for ch in batch.channels])
+            with _on(t):
+                restore = list(dict.fromkeys(
+                    ch.dst_buf for ch in batch.channels
+                    if ch.mode == "replace" and ch.dst_buf in saved))
+                if restore:
+                    torch._foreach_copy_([mem[n] for n in restore],
+                                         [saved.pop(n) for n in restore])
+                done = _run_batch(mem, batch, low, coalesce)
+            for ch, gate in cross:
+                streams.signal(t, gate, [mem[ch.dst_buf]])
+            for pid, n in done.items():
+                comp_tokens[pid] += n
         elif isinstance(d, WaitDesc):
-            if comm is not None:
-                join()  # waitValue
-    if comm is not None:
-        join()  # a capture must end with every side stream joined
+            streams.wait(d.pid, d.batch)  # waitValue
+    if own_streams:
+        streams.join()
     return mem, tokens, comp_tokens
 
 
-def _run_batch(mem, batch, low: Lowering, coalesce: bool) -> int:
-    """Fire one batch; returns how many results complete it."""
+def _run_batch(mem, batch, low: Lowering, coalesce: bool) -> Dict[int, int]:
+    """Fire one batch; returns how many results complete it on each
+    destination program's bank (a cross channel counts on the receiver's)."""
     if coalesce and batch.plan is not None:
-        _run_coalesced_batch(mem, batch.plan, low.plans[batch.index], low)
-        return low.plans[batch.index].n_results
+        consts = low.plans[batch.index]
+        _run_coalesced_batch(mem, batch.plan, consts, low)
+        return consts.n_results
+    done: Dict[int, int] = defaultdict(int)
     for ch in batch.channels:
         _run_channel(mem, ch, low)
-    return len(batch.channels)
+        done[batch.pid if ch.dst_pid is None else ch.dst_pid] += 1
+    return done
 
 
 def _deposit_channel(mem, ch: Channel, received: torch.Tensor, low: Lowering):
@@ -379,27 +564,35 @@ class FusedEngine:
     On a GPU, :meth:`compile` runs one eager warm-up pass on scratch
     copies (it builds and loads every kernel before capture) and then
     captures one pass; on a CPU device every call runs the pass eagerly.
-    ``stats.dispatches`` counts calls: one graph launch each.
+    ``stats.dispatches`` counts calls, ``graph_launches`` the graph
+    replays among them (one a call on the card).  A composed
+    :class:`~.schedule.STSchedule` runs each program on its own stream
+    (module docstring).  ``sanitize=True`` adds the runtime sanitizer.
     """
 
     def __init__(self, program: STProgram, mode: str = "stream",
-                 donate: bool = False, coalesce: bool = True):
+                 donate: bool = False, coalesce: bool = True,
+                 sanitize: bool = False):
         if mode not in ("stream", "dataflow"):
             raise ValueError("mode must be 'stream' or 'dataflow'")
+        program.require_closed()
+        if sanitize:
+            from .verify import check_deposit_order
+            check_deposit_order(program)
         from .engine_host import HostStats
         self.program = program
         self.mode = mode
         self.donate = donate
         self.coalesce = coalesce
+        self.sanitize = sanitize
         self.mesh = program.mesh
         self.device = self.mesh.device
         self.stats = HostStats()
         self._lowering = Lowering(program)
-        self._comm = (torch.cuda.Stream(self.device)
-                      if mode == "dataflow" and self.device.type == "cuda"
-                      else None)
+        self._lanes = make_lanes(program, mode, self.device)
         self._bufs: Optional[Dict[str, torch.Tensor]] = None
         self._graph: Optional[Any] = None
+        self.graph_launches = 0
 
     def init_buffers(self, init: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
         """Zeros (or ``init`` values) for every buffer, on the mesh device."""
@@ -408,7 +601,7 @@ class FusedEngine:
     def _pass(self, mem: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         return _interpret_program(mem, prog=self.program, mode=self.mode,
                                   low=self._lowering, coalesce=self.coalesce,
-                                  comm=self._comm)[0]
+                                  lanes=self._lanes, sanitize=self.sanitize)[0]
 
     def _run_into(self, bufs: Dict[str, torch.Tensor]) -> None:
         out = self._pass(bufs)
@@ -439,6 +632,7 @@ class FusedEngine:
                 t.copy_(mem[name])
         if self._graph is not None:
             self._graph.replay()
+            self.graph_launches += 1
         else:
             self._run_into(self._bufs)
         self.stats.dispatches += 1

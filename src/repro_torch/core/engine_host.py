@@ -17,6 +17,12 @@ points: ``program.dispatch_count_host()`` per pass (79 for the direct26
 Faces program; one more with damping).  Results equal the fused
 engine's bit for bit (same ops, same order per buffer).  A call copies
 the given buffers first, so the caller's tensors are never written.
+
+A composed :class:`~.schedule.STSchedule` runs in its interleaved
+descriptor order, each cross-program channel deposited when its sender
+triggers.  ``sanitize=True`` is the static deposit-before-wait check of
+:func:`~.verify.check_deposit_order` in the constructor: the host syncs
+at descriptor boundaries, so there is no canary to plant.
 """
 
 from __future__ import annotations
@@ -41,9 +47,14 @@ class HostStats:
 class HostEngine:
     """Per-descriptor, host-driven execution of an STProgram."""
 
-    def __init__(self, program: STProgram, sync: str = "every_op"):
+    def __init__(self, program: STProgram, sync: str = "every_op",
+                 sanitize: bool = False):
         if sync not in ("every_op", "batch"):
             raise ValueError("sync must be 'every_op' or 'batch'")
+        program.require_closed()
+        if sanitize:
+            from .verify import check_deposit_order
+            check_deposit_order(program)
         self.program = program
         self.sync = sync
         self.mesh = program.mesh

@@ -37,7 +37,17 @@ After the loop the last pass is A's or B's by the parity of
 returns them.
 
 ``stats.dispatches`` counts one per call, however many iterations it
-runs.  Composed schedules wait for a later slice of the port.
+runs.
+
+A composed :class:`~.schedule.STSchedule` whose programs share one fixed
+count runs here as N passes in one graph, each program on its own
+stream (:mod:`.engine_fused`), with the streams forked once before the
+first pass and joined after the last, so the programs pipeline across
+iterations; double-buffered slots (:func:`slot_buffers`) are the
+schedule's namespaced message buffers.  Different counts, predicates or
+``reduce_fns`` need the reference's masked multi-queue loop, which is
+not ported: the constructor raises ``NotImplementedError``.
+``sanitize=True`` adds the runtime sanitizer, as in the fused engine.
 """
 
 from __future__ import annotations
@@ -48,8 +58,14 @@ import torch
 
 from ..kernels import graph_loop
 from .descriptors import KernelDesc, StartDesc
-from .engine_fused import FusedEngine, Lowering, _interpret_program, fresh_token_banks
+from .engine_fused import (FusedEngine, Lowering, PassStreams, _interpret_program,
+                           fresh_token_banks)
 from .queue import STProgram
+from .schedule import STSchedule
+
+MASKED_LOOP = ("the masked multi-queue loop (per-program counts, until "
+               "predicates, reduce_fns) is not ported yet: see ROADMAP.md, "
+               "'Masked schedule loop'")
 
 
 def slot_buffers(prog: STProgram) -> Tuple[str, ...]:
@@ -104,6 +120,13 @@ class PersistentEngine(FusedEngine):
     numbers.  The fixed-count graph here already holds every pass, as a
     loop unrolled all the way would, and the convergence body holds two
     passes whatever its value, so it changes nothing.
+
+    A composed :class:`~.schedule.STSchedule` takes its count from its
+    programs (``program.persistent(n)`` on each before ``compose``):
+    ``n_iters``, ``reduce_fn``, ``cond_fn`` and ``max_iters`` do not apply
+    (``ValueError``, as in the reference), and ``reduce_fns`` is checked
+    as the reference checks it; programs of different counts, with
+    predicates, or with ``reduce_fns`` raise ``NotImplementedError``.
     """
 
     def __init__(self, program: STProgram, n_iters: Optional[int] = None,
@@ -111,23 +134,32 @@ class PersistentEngine(FusedEngine):
                  reduce_fn: Optional[Callable[[Dict[str, torch.Tensor]], torch.Tensor]] = None,
                  cond_fn: Optional[Callable[[torch.Tensor], object]] = None,
                  max_iters: Optional[int] = None,
+                 reduce_fns: Optional[Dict[str, Callable]] = None,
                  donate: bool = False, coalesce: bool = True,
-                 unroll: Optional[int] = None):
-        super().__init__(program, mode=mode, donate=donate, coalesce=coalesce)
-        self.cond_fn = cond_fn if cond_fn is not None else program.until
-        if max_iters is not None and self.cond_fn is None:
-            raise ValueError("max_iters is only meaningful with cond_fn/until")
-        if max_iters is None:
-            max_iters = program.n_iters if n_iters is None else n_iters
-        self.n_iters = self.max_iters = int(max_iters)
-        if self.n_iters < 1:
-            raise ValueError(f"n_iters must be >= 1, got {self.n_iters}")
-        if self.cond_fn is not None and reduce_fn is None:
-            raise ValueError(
-                "cond_fn requires reduce_fn: the termination predicate "
-                "is evaluated on the per-iteration scalar reduction")
-        program.persistent(self.n_iters, until=self.cond_fn)  # quiescence guard
-        self.reduce_fn = reduce_fn
+                 sanitize: bool = False, unroll: Optional[int] = None):
+        super().__init__(program, mode=mode, donate=donate, coalesce=coalesce,
+                         sanitize=sanitize)
+        self.reduce_fns = dict(reduce_fns or {})
+        if isinstance(program, STSchedule):
+            self._init_schedule(program, n_iters, reduce_fn, cond_fn, max_iters)
+        else:
+            if self.reduce_fns:
+                raise ValueError("reduce_fns is for composed STSchedules; a plain "
+                                 "program takes the single reduce_fn")
+            self.cond_fn = cond_fn if cond_fn is not None else program.until
+            if max_iters is not None and self.cond_fn is None:
+                raise ValueError("max_iters is only meaningful with cond_fn/until")
+            if max_iters is None:
+                max_iters = program.n_iters if n_iters is None else n_iters
+            self.n_iters = self.max_iters = int(max_iters)
+            if self.n_iters < 1:
+                raise ValueError(f"n_iters must be >= 1, got {self.n_iters}")
+            if self.cond_fn is not None and reduce_fn is None:
+                raise ValueError(
+                    "cond_fn requires reduce_fn: the termination predicate "
+                    "is evaluated on the per-iteration scalar reduction")
+            program.persistent(self.n_iters, until=self.cond_fn)  # quiescence guard
+            self.reduce_fn = reduce_fn
         self.double_buffer = (mode == "dataflow") if double_buffer is None \
             else bool(double_buffer)
         self._slots = slot_buffers(program) if self.double_buffer else ()
@@ -141,6 +173,32 @@ class PersistentEngine(FusedEngine):
         self._loop_out: Dict[str, torch.Tensor] = {}
         self._alt: Dict[str, torch.Tensor] = {}
 
+    def _init_schedule(self, sched: STSchedule, n_iters, reduce_fn, cond_fn,
+                       max_iters) -> None:
+        for arg, name in ((n_iters, "n_iters"), (reduce_fn, "reduce_fn"),
+                          (cond_fn, "cond_fn"), (max_iters, "max_iters")):
+            if arg is not None:
+                raise ValueError(
+                    f"{name} does not apply to a composed STSchedule: "
+                    "iteration counts/predicates are per-program "
+                    "(program.persistent(...) before compose) and "
+                    "reductions go through reduce_fns={name: fn}")
+        names = {s.name for s in sched.subs}
+        for name in self.reduce_fns:
+            if name not in names:
+                raise ValueError(f"reduce_fns names unknown sub-program {name!r} "
+                                 f"(have {sorted(names)})")
+        for s in sched.subs:
+            if s.until is not None and s.name not in self.reduce_fns:
+                raise ValueError(
+                    f"sub-program {s.name!r} has an until-predicate "
+                    f"but no reduce_fns[{s.name!r}] to evaluate it on")
+        if (self.reduce_fns or any(s.until is not None for s in sched.subs)
+                or len({s.n_iters for s in sched.subs}) > 1):
+            raise NotImplementedError(MASKED_LOOP)
+        self.cond_fn = self.reduce_fn = None
+        self.n_iters = self.max_iters = max(s.n_iters for s in sched.subs)
+
     def _allocate(self) -> None:
         super()._allocate()
         if self.reduce_fn is not None:
@@ -153,8 +211,8 @@ class PersistentEngine(FusedEngine):
         return _run_persistent(mem, prog=self.program, mode=self.mode,
                                low=self._lowering, n_iters=self.n_iters,
                                slots=self._slots, reduce_fn=self.reduce_fn,
-                               reductions=self._reductions,
-                               coalesce=self.coalesce, comm=self._comm)
+                               reductions=self._reductions, coalesce=self.coalesce,
+                               lanes=self._lanes, sanitize=self.sanitize)
 
     def compile(self):
         """Allocate the buffers and, on a GPU, capture the graph: all
@@ -178,7 +236,7 @@ class PersistentEngine(FusedEngine):
         each buffer ended."""
         out = _interpret_program(bufs, prog=self.program, mode=self.mode,
                                  low=self._lowering, coalesce=self.coalesce,
-                                 comm=self._comm)[0]
+                                 lanes=self._lanes, sanitize=self.sanitize)[0]
         val = self.reduce_fn(out).to(torch.float32).reshape(())
         red.copy_(val)
         go = self.cond_fn(val)
@@ -240,6 +298,7 @@ class PersistentEngine(FusedEngine):
                 torch._foreach_copy_(list(self._alt.values()),
                                      [self._bufs[n] for n in self._alt])
             self._loop.launch()
+            self.graph_launches += 1
             out = dict(self._loop_out)
         else:
             out = _run_persistent_while(
@@ -247,7 +306,7 @@ class PersistentEngine(FusedEngine):
                 low=self._lowering, max_iters=self.max_iters, slots=self._slots,
                 reduce_fn=self.reduce_fn, cond_fn=self.cond_fn,
                 reductions=self._reductions, n_done=self._n_done,
-                coalesce=self.coalesce, comm=self._comm)
+                coalesce=self.coalesce, lanes=self._lanes, sanitize=self.sanitize)
             for name, t in self._bufs.items():
                 if out[name] is not t:
                     t.copy_(out[name])
@@ -272,29 +331,33 @@ class PersistentEngine(FusedEngine):
 def _run_persistent(mem, *, prog: STProgram, mode: str, low: Lowering,
                     n_iters: int, slots: Tuple[str, ...], reduce_fn,
                     reductions: Optional[torch.Tensor], coalesce: bool = True,
-                    comm=None):
+                    lanes=None, sanitize: bool = False):
     """``n_iters`` passes with ``(cur, alt)`` slot rotation.
 
     Pass i writes its slots into ``cur`` and they become the next pass's
     ``alt``; both copies start equal (a replace deposit keeps a rank
     without a sender, so the copies must agree there).  After the loop
-    the last pass's writes sit in ``alt``.
+    the last pass's writes sit in ``alt``.  The programs' streams fork
+    once before the first pass and join after the last.
     """
     mem = dict(mem)
     cur = {n: mem.pop(n) for n in slots}
     alt = {n: t.clone() for n, t in cur.items()}
     tokens, comps = fresh_token_banks(prog)
+    streams = PassStreams(lanes, low.device)
     for i in range(n_iters):
         step = dict(mem)
         step.update(cur)
         step, tokens, comps = _interpret_program(
             step, prog=prog, mode=mode, low=low, tokens=tokens,
-            comp_tokens=comps, coalesce=coalesce, comm=comm)
+            comp_tokens=comps, coalesce=coalesce, streams=streams,
+            sanitize=sanitize)
         if reduce_fn is not None:
             reductions[i].copy_(reduce_fn(step).reshape(()))
         written = {n: step.pop(n) for n in slots}
         mem = step
         cur, alt = alt, written
+    streams.join()
     mem.update(alt)
     return mem
 
@@ -302,7 +365,7 @@ def _run_persistent(mem, *, prog: STProgram, mode: str, low: Lowering,
 def _run_persistent_while(mem, *, prog: STProgram, mode: str, low: Lowering,
                           max_iters: int, slots: Tuple[str, ...], reduce_fn, cond_fn,
                           reductions: torch.Tensor, n_done: torch.Tensor,
-                          coalesce: bool = True, comm=None):
+                          coalesce: bool = True, lanes=None, sanitize: bool = False):
     """Eager loop of the reference's ``lax.while_loop``: passes while
     ``cond_fn(reduction)`` holds, at most ``max_iters``, the first always.
 
@@ -323,7 +386,7 @@ def _run_persistent_while(mem, *, prog: STProgram, mode: str, low: Lowering,
         step.update(cur)
         step, tokens, comps = _interpret_program(
             step, prog=prog, mode=mode, low=low, tokens=tokens,
-            comp_tokens=comps, coalesce=coalesce, comm=comm)
+            comp_tokens=comps, coalesce=coalesce, lanes=lanes, sanitize=sanitize)
         val = reduce_fn(step).to(torch.float32).reshape(())
         keep = bool(graph_loop.step_plain(reductions, n_done, val, cond_fn(val),
                                           max_iters))

@@ -27,6 +27,15 @@ through ONE contiguous buffer per rank (``ops.pack_boundary`` and
 ``pack_boundary_call`` / ``unpack_boundary_add_call``); it equals one
 ``direct26`` iteration of the engines bit for bit.
 :func:`faces_oracle` is a copy of the reference's NumPy oracle.
+
+:func:`run_faces_pipelined` splits the domain into N x-parts on the same
+mesh, one queue each, composed (:mod:`.schedule`) into one persistent
+graph launch in which every part runs on its own CUDA stream.  Linked
+(``exchange=True``, :func:`build_faces_part_program`), the parts trade
+their x-crossing halo messages and the stencil's ghost planes through
+cross-program channels every iteration, and the merged field equals the
+full-domain run bit for bit in both trigger modes; with
+``exchange=False`` the parts iterate independently.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from ..kernels import ops
 from ..kernels import ref as kref
 from .descriptors import GridOffsetPeer
 from .queue import STProgram, STQueue
+from .schedule import STSchedule, compose
 
 AXES3 = ("gx", "gy", "gz")
 
@@ -321,6 +331,238 @@ def run_faces_persistent(cfg: FacesConfig, mesh, u0, n_iters: int,
                            double_buffer=double_buffer, donate=donate)
     out = eng(eng.init_buffers({"u": u0}))
     return out, eng.stats
+
+
+# --------------------------------------------------------------------------
+# The domain split into N x-parts, one queue each
+# --------------------------------------------------------------------------
+
+
+def part_points(px: int, n: int) -> Tuple[int, ...]:
+    """Sizes of an N-way split of ``px`` planes; the first ``px % n``
+    parts take one extra (``numpy.array_split``'s convention)."""
+    if not 1 <= n <= px:
+        raise ValueError(
+            f"cannot split {px} x-planes into {n} part(s): need "
+            f"1 <= n_parts <= points[0]")
+    base, extra = divmod(px, n)
+    return tuple(base + (1 if k < extra else 0) for k in range(n))
+
+
+def part_configs(cfg: FacesConfig, n: int) -> Tuple[FacesConfig, ...]:
+    """The FacesConfig of each part of an N-way x-split (same grid)."""
+    px, py, pz = cfg.points
+    return tuple(dataclasses.replace(cfg, points=(p, py, pz))
+                 for p in part_points(px, n))
+
+
+def split_parts(u0, n: int):
+    """Split a (gx,gy,gz,px,py,pz) field (array or tensor) into N x-parts."""
+    offs = np.concatenate([[0], np.cumsum(part_points(u0.shape[3], n))])
+    return [u0[:, :, :, offs[k]:offs[k + 1]] for k in range(n)]
+
+
+def merge_parts(parts) -> torch.Tensor:
+    """Inverse of :func:`split_parts`."""
+    return torch.cat([torch.as_tensor(p) for p in parts], dim=3)
+
+
+def half_config(cfg: FacesConfig, part: int = 0) -> FacesConfig:
+    """A part's FacesConfig of a 2-way split (``part`` picks which when
+    ``points[0]`` is odd)."""
+    return part_configs(cfg, 2)[part]
+
+
+def split_halves(u0):
+    return tuple(split_parts(u0, 2))
+
+
+def merge_halves(ua, ub) -> torch.Tensor:
+    return merge_parts([ua, ub])
+
+
+PIPELINE_NAMES = ("facesA", "facesB")
+
+
+def part_names(n: int) -> Tuple[str, ...]:
+    """Program names of an N-way split (2-way: ``PIPELINE_NAMES``)."""
+    if n == 2:
+        return PIPELINE_NAMES
+    return tuple(f"faces{k}" for k in range(n))
+
+
+# Ghost-plane tags (cross-program, peer offset (0,0,0)): _GHOST_TAG_LO
+# carries part k's last plane into part k+1's "glo", _GHOST_TAG_HI its
+# first plane into part k-1's "ghi" (a ring, as the block's own wrap).
+_GHOST_TAG_LO, _GHOST_TAG_HI = 0, 1
+
+
+def _part_interior_fn(u: torch.Tensor, glo: torch.Tensor, ghi: torch.Tensor) -> torch.Tensor:
+    """:func:`_interior_fn` of one x-part, the neighbour parts' planes in
+    place of the x-rolls' wrap: the same additions in the same order, so
+    a split field equals the unsplit one bit for bit."""
+    xm = torch.cat([glo, u[..., :-1, :, :]], dim=-3)  # == roll(full, 1, -3)
+    xp = torch.cat([u[..., 1:, :, :], ghi], dim=-3)   # == roll(full, -1, -3)
+    return u + 0.125 * (
+        xm + xp
+        + torch.roll(u, 1, -2) + torch.roll(u, -1, -2)
+        + torch.roll(u, 1, -1) + torch.roll(u, -1, -1)
+        - 6.0 * u
+    )
+
+
+def build_faces_part_program(cfg: FacesConfig, mesh, part: int, n_parts: int,
+                             names: Optional[Tuple[str, ...]] = None,
+                             coalesce: bool = True) -> STProgram:
+    """Part ``part`` of an N-way x-split of the domain ``cfg`` describes,
+    with the cross-program links that make the composed parts the
+    full-domain iteration, bit for bit:
+
+    * ghost planes: each part's stencil reads its ring neighbours'
+      boundary planes, fetched in a start/wait batch of their own;
+    * x-crossing halo messages: the 18 directions with an x component
+      pack at one end of the split (part 0 for ``-x``, part N-1 for
+      ``+x``) and deposit into the other end's in-slots; the 8
+      x-neutral ones stay in each part.  Unpack-adds replay in global
+      direction order.
+
+    Compose it with its sibling parts; engines refuse the open program.
+    Needs ``direct26`` and batched triggering.  The emission mirrors
+    :func:`_emit_direct26` filtered by direction ownership, as the
+    reference's does.
+    """
+    if cfg.granularity != "direct26":
+        raise ValueError(
+            f"linked domain split supports granularity='direct26' only "
+            f"(got {cfg.granularity!r})")
+    if not cfg.batched:
+        raise ValueError("linked domain split requires batched triggering")
+    if n_parts < 2:
+        raise ValueError("a linked split needs n_parts >= 2 "
+                         "(use build_faces_program for the unsplit domain)")
+    names = tuple(names) if names is not None else part_names(n_parts)
+    if len(names) != n_parts:
+        raise ValueError(f"need {n_parts} names, got {len(names)}")
+    cfgp = part_configs(cfg, n_parts)[part]
+    gx, gy, gz = cfg.grid
+    px, py, pz = cfgp.points
+    prev_name = names[(part - 1) % n_parts]
+    next_name = names[(part + 1) % n_parts]
+
+    own = [d for d in DIRECTIONS if d[0] == 0]
+    cross_out = [d for d in DIRECTIONS
+                 if (d[0] == 1 and part == n_parts - 1) or (d[0] == -1 and part == 0)]
+    cross_in = [d for d in DIRECTIONS
+                if (d[0] == 1 and part == 0) or (d[0] == -1 and part == n_parts - 1)]
+    out_dst = {d: (names[0] if d[0] == 1 else names[n_parts - 1]) for d in cross_out}
+    in_src = {d: (names[n_parts - 1] if d[0] == 1 else names[0]) for d in cross_in}
+
+    q = STQueue(mesh, name=names[part])
+    q.buffer("u", (gx, gy, gz, px, py, pz), cfg.dtype, pspec=AXES3)
+    msg_in, msg_out = {}, {}
+    for i, d in enumerate(DIRECTIONS):
+        sshape = _slab_shape(d, cfgp.points)
+        if d in own or d in cross_out:
+            msg_out[d] = q.buffer(f"out{i}", (gx, gy, gz, *sshape), cfg.dtype, pspec=AXES3)
+        if d in own or d in cross_in:
+            msg_in[d] = q.buffer(f"in{i}", (gx, gy, gz, *sshape), cfg.dtype, pspec=AXES3)
+
+    here = GridOffsetPeer(AXES3, (0, 0, 0))  # same-rank hop between parts
+    if cfg.interior_compute:
+        # the stencil needs the planes before the overlap kernel: a batch
+        # of their own, waited at once
+        q.buffer("glo", (gx, gy, gz, 1, py, pz), cfg.dtype, pspec=AXES3)
+        q.buffer("ghi", (gx, gy, gz, 1, py, pz), cfg.dtype, pspec=AXES3)
+        q.enqueue_recv("glo", here, tag=_GHOST_TAG_LO, remote=prev_name)
+        q.enqueue_recv("ghi", here, tag=_GHOST_TAG_HI, remote=next_name)
+        q.enqueue_send("u", here, tag=_GHOST_TAG_LO, remote=next_name,
+                       region=(slice(0, 1),) * 3
+                       + (slice(px - 1, px), slice(0, py), slice(0, pz)))
+        q.enqueue_send("u", here, tag=_GHOST_TAG_HI, remote=prev_name,
+                       region=(slice(0, 1),) * 3
+                       + (slice(0, 1), slice(0, py), slice(0, pz)))
+        q.enqueue_start()
+        q.enqueue_wait()
+
+    for i, d in enumerate(DIRECTIONS):
+        if d in msg_out:
+            q.enqueue_kernel(_make_pack_fn(_region_for(d, cfgp.points), cfg.pack),
+                             ["u"], [msg_out[d]], name=f"pack{i}")
+    for i, d in enumerate(DIRECTIONS):
+        if d in msg_in:
+            peer = GridOffsetPeer(AXES3, tuple(-x for x in d), cfg.periodic)
+            q.enqueue_recv(msg_in[d], peer, tag=i, remote=in_src.get(d))
+    for i, d in enumerate(DIRECTIONS):
+        if d in msg_out:
+            q.enqueue_send(msg_out[d], GridOffsetPeer(AXES3, d, cfg.periodic),
+                           tag=i, remote=out_dst.get(d))
+    q.enqueue_start()
+    if cfg.interior_compute:
+        q.enqueue_kernel(_part_interior_fn, ["u", "glo", "ghi"], ["u"], name="interior")
+    q.enqueue_wait()
+    for i, d in enumerate(DIRECTIONS):
+        if d in msg_in:
+            region = _region_for(tuple(-x for x in d), cfgp.points)
+            q.enqueue_kernel(_make_unpack_fn(region, cfg.pack),
+                             ["u", msg_in[d]], ["u"], name=f"unpack{i}")
+    _emit_damping(q, cfg)
+    return q.build(name=names[part], coalesce=coalesce)
+
+
+def build_faces_pipeline(cfg: FacesConfig, mesh, n_parts: int = 2, n_iters: int = 1,
+                         exchange: bool = True, coalesce: bool = True) -> STSchedule:
+    """The N x-parts of ``cfg``'s domain, each marked for ``n_iters``
+    passes, composed into one schedule: linked
+    (:func:`build_faces_part_program`: the x-crossing halo links tie the
+    split's two ends, the ghost-plane ring every adjacent pair) or, with
+    ``exchange=False``, independent (:func:`build_faces_program` of each
+    part's config)."""
+    names = part_names(n_parts)
+    if exchange:
+        links = [(names[0], names[-1]), (names[-1], names[0])]
+        if cfg.interior_compute:
+            ring = [(names[k], names[(k + 1) % n_parts]) for k in range(n_parts)]
+            links += ring + [(b, a) for a, b in ring]
+        progs = [build_faces_part_program(cfg, mesh, k, n_parts, names=names,
+                                          coalesce=coalesce) for k in range(n_parts)]
+        links = sorted(set(links))
+    else:
+        links = None
+        progs = [build_faces_program(c, mesh, name=nm, coalesce=coalesce)
+                 for c, nm in zip(part_configs(cfg, n_parts), names)]
+    return compose(*[p.persistent(n_iters) for p in progs], links=links)
+
+
+def run_faces_pipelined(cfg: FacesConfig, mesh, u0, *, n_iters: Optional[int] = None,
+                        tols=None, max_iters: Optional[int] = None,
+                        mode: str = "dataflow", double_buffer: Optional[bool] = None,
+                        donate: bool = True, n_parts: int = 2, exchange: bool = True,
+                        tune: bool = False):
+    """N x-split Faces queues, composed, ``n_iters`` iterations in ONE
+    graph launch, each part on its own CUDA stream.
+
+    Returns ``(mem, stats)``; part k's field is
+    ``mem[f"{part_names(n_parts)[k]}/u"]`` (:func:`merge_parts` joins
+    them).  Linked (default), the merged field is the full-domain
+    :func:`run_faces_persistent` result bit for bit; with
+    ``exchange=False`` each part is an independent solve.  ``tols=`` (per
+    part convergence, the reference's masked multi-queue loop) and
+    ``tune=`` (the cost model) are not ported yet and raise
+    ``NotImplementedError``.
+    """
+    from .engine_persistent import MASKED_LOOP, PersistentEngine
+
+    if tune:
+        raise NotImplementedError("tune=: the cost model and tuner are not ported "
+                                  "yet: see ROADMAP.md, 'Cost model and tuner'")
+    if tols is not None or max_iters is not None:
+        raise NotImplementedError(f"tols=/max_iters=: {MASKED_LOOP}")
+    if n_iters is None:
+        raise ValueError("pass exactly one of n_iters= or tols=")
+    sched = build_faces_pipeline(cfg, mesh, n_parts, n_iters, exchange)
+    eng = PersistentEngine(sched, mode=mode, double_buffer=double_buffer, donate=donate)
+    init = {f"{nm}/u": p for nm, p in zip(part_names(n_parts), split_parts(u0, n_parts))}
+    return eng(eng.init_buffers(init)), eng.stats
 
 
 # --------------------------------------------------------------------------

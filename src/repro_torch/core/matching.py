@@ -11,7 +11,12 @@ along the rank axes.
 * a send to ``OffsetPeer(axis, +d)`` matches a recv from
   ``OffsetPeer(axis, -d)`` (the receiver names where data comes from);
 * ``PairListPeer`` sends and recvs match on identical pair sets;
-* an unmatched descriptor is a build error (at run time it would hang).
+* an unmatched descriptor is a build error (at run time it would hang);
+* sends/recvs marked ``remote=<program>`` are cross-program: the queue's
+  build leaves them open and :func:`~.schedule.compose` matches them
+  across the composed programs (:func:`match_cross_program`) into
+  channels whose deposit lands in the peer program's memory and
+  completes on the peer's counter bank.
 
 :func:`coalesce_batch` is the paper's §V-A contiguous-buffer step: each
 channel's offset is split into single-axis hops, channels are grouped by
@@ -58,6 +63,9 @@ class Channel:
     send_region: Optional[Tuple[slice, ...]]
     recv_region: Optional[Tuple[slice, ...]]
     mode: str  # replace | add
+    # Cross-program channel: the pid whose buffer the deposit lands in and
+    # whose completion counter it bumps (None: the batch's own program).
+    dst_pid: Optional[int] = None
     send_site: Optional[str] = None
     recv_site: Optional[str] = None
 
@@ -93,37 +101,65 @@ def _recv_key_as_send(peer) -> Tuple:
     return _peer_key(peer)
 
 
-def _channel_for(s: SendDesc, r: RecvDesc) -> Channel:
+def _match_fifo(sends, recvs, make_channel, kind: str) -> List:
+    """Pair each send with the first queued recv under its (direction,
+    tag) key and build ``make_channel(send, recv)``; raise on leftovers.
+    Elements are descriptors or ``(descriptor, extra)`` pairs."""
+    desc = lambda x: x[0] if isinstance(x, tuple) else x
+    recv_queues: dict = defaultdict(list)
+    for r in recvs:
+        recv_queues[(_recv_key_as_send(desc(r).peer), desc(r).tag)].append(r)
+    out: List = []
+    for s in sends:
+        d = desc(s)
+        q = recv_queues.get((_peer_key(d.peer), d.tag))
+        if not q:
+            raise MatchError(
+                f"unmatched {kind} send: buf={d.buf!r} tag={d.tag} peer={d.peer}"
+                + (f" remote={d.remote!r}" if d.remote else "")
+                + " (no matching posted receive; ST forbids wildcards so "
+                  "this would hang at runtime)" + _site_of(d))
+        out.append(make_channel(s, q.pop(0)))
+    leftovers = [desc(r) for q in recv_queues.values() for r in q]
+    if leftovers:
+        r = leftovers[0]
+        raise MatchError(
+            f"unmatched {kind} recv: buf={r.buf!r} tag={r.tag} peer={r.peer}"
+            + (f" remote={r.remote!r}" if r.remote else "")
+            + f" ({len(leftovers)} receive(s) never matched by a send)"
+            + _site_of(r))
+    return out
+
+
+def _channel_for(s: SendDesc, r: RecvDesc,
+                 dst_pid: Optional[int] = None) -> Channel:
     axis = (s.peer.axis if isinstance(s.peer, (OffsetPeer, PairListPeer))
             else s.peer.axes)
     return Channel(src_buf=s.buf, dst_buf=r.buf, axis=axis, peer=s.peer,
                    tag=s.tag, send_region=s.region, recv_region=r.region,
-                   mode=r.mode, send_site=s.site, recv_site=r.site)
+                   mode=r.mode, dst_pid=dst_pid, send_site=s.site,
+                   recv_site=r.site)
 
 
 def match_batch(sends: Sequence[SendDesc],
                 recvs: Sequence[RecvDesc]) -> List[Channel]:
     """Match one trigger batch's sends against its recvs (FIFO per key)."""
-    recv_queues: dict = defaultdict(list)
-    for r in recvs:
-        recv_queues[(_recv_key_as_send(r.peer), r.tag)].append(r)
-    out: List[Channel] = []
-    for s in sends:
-        q = recv_queues.get((_peer_key(s.peer), s.tag))
-        if not q:
-            raise MatchError(
-                f"unmatched ST send: buf={s.buf!r} tag={s.tag} peer={s.peer}"
-                " (no matching posted receive; ST forbids wildcards so "
-                "this would hang at runtime)" + _site_of(s))
-        out.append(_channel_for(s, q.pop(0)))
-    leftovers = [r for q in recv_queues.values() for r in q]
-    if leftovers:
-        r = leftovers[0]
-        raise MatchError(
-            f"unmatched ST recv: buf={r.buf!r} tag={r.tag} peer={r.peer} "
-            f"({len(leftovers)} receive(s) never matched by a send)"
-            + _site_of(r))
-    return out
+    return _match_fifo(sends, recvs, _channel_for, "ST")
+
+
+def match_cross_program(sends: Sequence[Tuple[SendDesc, int]],
+                        recvs: Sequence[Tuple[RecvDesc, int]],
+                        dst_pid: int) -> List[Tuple[Channel, int, int]]:
+    """Match one program's open (``remote=``) sends against a peer
+    program's open recvs, FIFO per key as :func:`match_batch`, pooled
+    across the programs' batches.  Elements are ``(descriptor, global
+    batch index)``; returns ``[(channel, src_batch, dst_batch), ...]``,
+    each channel carrying ``dst_pid``.  Raises :class:`MatchError` on any
+    unmatched open descriptor."""
+    return _match_fifo(
+        sends, recvs,
+        lambda s, r: (_channel_for(s[0], r[0], dst_pid=dst_pid), s[1], r[1]),
+        "cross-program")
 
 
 @dataclasses.dataclass
@@ -137,6 +173,17 @@ class Batch:
     pid: int = 0
     # Build-time coalescing plan; None when coalescing is off or declined.
     plan: Optional["CoalescePlan"] = None
+    # Whether coalescing was requested (compose re-derives plans once
+    # cross channels join the batch; a None plan cannot tell "declined"
+    # from "off").
+    coalesce: bool = False
+    # Unresolved remote= sends/recvs: recorded by the queue's build,
+    # consumed by compose.  A program holding any cannot run.
+    open_sends: List[Any] = dataclasses.field(default_factory=list)
+    open_recvs: List[Any] = dataclasses.field(default_factory=list)
+    # Buffers another program deposits into that this batch's wait gates
+    # (filled by compose).
+    cross_recv_bufs: Tuple[str, ...] = ()
     # Declared effect set (effects.batch_effects).
     effects: Tuple[Any, ...] = ()
 

@@ -23,9 +23,11 @@ matches them into an immutable :class:`STProgram` that the engines
 run.  FIFO order per queue, one start per batch, stream-only waits, no
 wildcards and queue reuse across iterations hold as in the reference.
 
-The static verifier (``verify="warn"|"error"``) is not ported yet:
-``build`` accepts ``verify="off"`` only and raises
-``NotImplementedError`` otherwise.
+``build`` runs the static verifier (:mod:`.verify`, ``verify="warn"``
+by default).  Several queues in flight at once are built one program
+each and fused with :func:`~.schedule.compose`; a send or recv enqueued
+with ``remote=<program>`` stays open through this queue's build and
+``compose`` matches it into a cross-program channel.
 """
 
 from __future__ import annotations
@@ -48,6 +50,25 @@ from .descriptors import (
 )
 from .effects import batch_effects, stamp_staging
 from .matching import Batch, coalesce_batch, match_batch, validate_program_order
+
+
+def _adapt_arity(fn: Callable, n_reads: int) -> Callable:
+    """Pass a kernel written for fewer arguments only the prefix it takes
+    when the queue widens an undeclared read set to every buffer."""
+    import inspect
+
+    try:
+        params = inspect.signature(fn).parameters.values()
+    except (TypeError, ValueError):
+        return fn
+    if any(p.kind == inspect.Parameter.VAR_POSITIONAL for p in params):
+        return fn
+    arity = sum(p.kind in (inspect.Parameter.POSITIONAL_ONLY,
+                           inspect.Parameter.POSITIONAL_OR_KEYWORD)
+                for p in params)
+    if arity >= n_reads:
+        return fn
+    return lambda *vals: fn(*vals[:arity])
 
 
 def _call_site() -> Optional[str]:
@@ -82,6 +103,10 @@ class STProgram:
     until: Optional[Callable[[Any], Any]] = None
 
     @property
+    def n_batches(self) -> int:
+        return len(self.batches)
+
+    @property
     def n_channels(self) -> int:
         return sum(len(b.channels) for b in self.batches)
 
@@ -106,9 +131,37 @@ class STProgram:
         return (max(u for u, _ in counts.values()),
                 max(c for _, c in counts.values()))
 
+    @property
+    def is_persistent(self) -> bool:
+        return self.n_iters > 1 or self.until is not None
+
+    @property
+    def open_links(self) -> int:
+        """Unresolved cross-program (``remote=``) descriptors: nonzero
+        means the program must go through :func:`~.schedule.compose`
+        before an engine may run it."""
+        return sum(len(b.open_sends) + len(b.open_recvs) for b in self.batches)
+
+    def require_closed(self) -> None:
+        """Raise unless every cross-program descriptor is resolved (the
+        engines call this: an open channel would hang)."""
+        if self.open_links:
+            raise ValueError(
+                f"[ST012] program {self.name!r} has {self.open_links} unresolved "
+                f"cross-program (remote=) descriptor(s): compose() it with "
+                f"its peer program(s) before running — an open channel has "
+                f"no matching side and would hang")
+
     def buffers_by_pid(self) -> Dict[int, Tuple[str, ...]]:
-        """Buffer names per program id (one program: pid 0 owns all)."""
+        """Buffer names per program id (one program: pid 0 owns all; a
+        composed schedule has one entry a sub-program)."""
         return {0: tuple(self.buffers)}
+
+    def concurrent_with(self, *others: "STProgram",
+                        name: Optional[str] = None) -> "STProgram":
+        """``compose(self, *others)`` (see :mod:`.schedule`)."""
+        from .schedule import compose  # schedule imports this module
+        return compose(self, *others, name=name)
 
     def persistent(self, n_iters: int,
                    until: Optional[Callable[[Any], Any]] = None) -> "STProgram":
@@ -197,25 +250,46 @@ class STQueue:
                                       site=_call_site()))
         self._built = None
 
-    def enqueue_send(self, buf: str, peer, tag: int, region=None) -> None:
-        """MPIX_Enqueue_send: deferred tagged send (returns immediately)."""
+    def enqueue_compute(self, fn: Callable, *,
+                        reads: Optional[Sequence[str]] = None,
+                        writes: Sequence[str] = (),
+                        name: str = "compute") -> None:
+        """Keyword form of :meth:`enqueue_kernel`.  Without ``reads=`` the
+        kernel is assumed to read every buffer declared so far and is
+        flagged ``implicit_effects`` (the ST019 warning)."""
+        implicit = reads is None
+        if implicit:
+            reads = tuple(self._buffers)
+            fn = _adapt_arity(fn, len(reads))
+        self.enqueue_kernel(fn, reads, writes, name=name)
+        if implicit:
+            self._descs[-1] = dataclasses.replace(self._descs[-1],
+                                                  implicit_effects=True)
+
+    def enqueue_send(self, buf: str, peer, tag: int, region=None,
+                     remote: Optional[str] = None) -> None:
+        """MPIX_Enqueue_send: deferred tagged send (returns immediately).
+        With ``remote=<program>`` the matching receive lives in another
+        queue's program and ``compose`` matches it."""
         self._check_live()
         self._check_buf(buf)
         self._descs.append(SendDesc(
             buf, peer, tag, threshold=self._trigger.next_threshold(),
-            region=region, site=_call_site()))
+            region=region, remote=remote, site=_call_site()))
         self._built = None
 
     def enqueue_recv(self, buf: str, peer, tag: int, region=None,
-                     mode: str = "replace") -> None:
-        """MPIX_Enqueue_recv: deferred tagged receive (returns immediately)."""
+                     mode: str = "replace", remote: Optional[str] = None) -> None:
+        """MPIX_Enqueue_recv: deferred tagged receive (returns immediately).
+        With ``remote=<program>`` the wait covering this batch gates on
+        the sending program's completion."""
         self._check_live()
         self._check_buf(buf)
         if mode not in ("replace", "add"):
             raise QueueError("recv mode must be 'replace' or 'add'")
         self._descs.append(RecvDesc(
             buf, peer, tag, threshold=self._trigger.next_threshold(),
-            region=region, mode=mode, site=_call_site()))
+            region=region, mode=mode, remote=remote, site=_call_site()))
         self._built = None
 
     def enqueue_start(self) -> None:
@@ -247,20 +321,23 @@ class STQueue:
     # -- build ---------------------------------------------------------------
 
     def build(self, name: Optional[str] = None, coalesce: bool = True,
-              verify: str = "off") -> STProgram:
+              verify: str = "warn") -> STProgram:
         """Build-time matching + validation → immutable STProgram.
 
         ``coalesce=True`` records a :class:`~.matching.CoalescePlan` on
-        every batch it can group.  ``verify`` must be ``"off"``: the
-        static verifier is not ported yet.
+        every batch it can group.  ``verify`` runs the static pass of
+        :mod:`.verify`: ``"warn"`` reports each diagnostic as an
+        ``STLintWarning``, ``"error"`` raises ``VerifyError`` on
+        error-severity ones, ``"off"`` skips it.  Open ``remote=``
+        descriptors are checked by the single-queue rules here; compose
+        re-verifies the whole schedule.
         """
-        if verify != "off":
-            raise NotImplementedError(
-                f"verify={verify!r}: the static verifier is not ported yet; "
-                "build with verify='off'")
+        from .verify import run_verify  # verify imports this module
+
         self._check_live()
         resolved = name or self.name
         if self._built is not None and self._built_key == (resolved, coalesce):
+            run_verify(self._built, verify)
             return self._built
         validate_program_order(self._descs)
         mesh_shape = dict(self.mesh.shape)
@@ -277,13 +354,26 @@ class STQueue:
             elif isinstance(d, RecvDesc):
                 pending_recvs.append(d)
             elif isinstance(d, StartDesc):
-                channels = match_batch(pending_sends, pending_recvs)
+                # remote= sends/recvs pair with another program: compose
+                # matches them
+                open_sends = [x for x in pending_sends if x.remote is not None]
+                open_recvs = [x for x in pending_recvs if x.remote is not None]
+                for o in open_sends + open_recvs:
+                    if o.remote == resolved:
+                        raise QueueError(
+                            f"remote={resolved!r} names this program itself: "
+                            f"a channel to the own queue is a plain (local) "
+                            f"send/recv pair, not a cross-program link")
+                channels = match_batch(
+                    [x for x in pending_sends if x.remote is None],
+                    [x for x in pending_recvs if x.remote is None])
                 plan = stamp_staging(
                     coalesce_batch(channels, self._buffers, mesh_shape)
                     if coalesce else None, d.batch)
                 batch = Batch(index=d.batch,
                               kernels_before=list(kernels_since_start),
-                              channels=channels, plan=plan)
+                              channels=channels, plan=plan, coalesce=coalesce,
+                              open_sends=open_sends, open_recvs=open_recvs)
                 batch.effects = batch_effects(batch)
                 batches.append(batch)
                 pending_sends, pending_recvs = [], []
@@ -299,6 +389,7 @@ class STQueue:
                                 batches=tuple(batches), mesh=self.mesh,
                                 name=resolved)
         self._built_key = (resolved, coalesce)
+        run_verify(self._built, verify)
         return self._built
 
     # -- helpers ---------------------------------------------------------------

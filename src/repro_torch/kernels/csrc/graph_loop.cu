@@ -38,6 +38,8 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <unordered_map>
+#include <vector>
 
 #if !defined(CUDART_VERSION) || CUDART_VERSION < 12040
 #error "graph_loop.cu needs CUDA 12.4 or later: conditional WHILE nodes"
@@ -240,6 +242,39 @@ int rt_graph_node_types(void* graph, int* counts, int n_types) {
   cudaError_t e = cudaSuccess;
   count_nodes(static_cast<cudaGraph_t>(graph), counts, n_types, &e);
   return e;
+}
+
+// The top-level nodes of `graph` (types[i]: cudaGraphNodeType of node i) and
+// its dependency edges as node indices (from[k] -> to[k]).  sizes[0] and
+// sizes[1] receive the counts of nodes and edges; if they exceed cap_nodes or
+// cap_edges nothing else is written and cudaErrorInvalidValue is returned, so
+// a caller asks once with no room and again with the room it was told.
+int rt_graph_edges(void* graph, int* types, int cap_nodes, int* from, int* to,
+                   int cap_edges, int* sizes) {
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  size_t n = 0, m = 0;
+  cudaError_t e = cudaGraphGetNodes(g, nullptr, &n);
+  if (e == cudaSuccess) e = cudaGraphGetEdges(g, nullptr, nullptr, &m);
+  if (e != cudaSuccess) return e;
+  sizes[0] = static_cast<int>(n);
+  sizes[1] = static_cast<int>(m);
+  if (n > static_cast<size_t>(cap_nodes) || m > static_cast<size_t>(cap_edges))
+    return cudaErrorInvalidValue;
+  std::vector<cudaGraphNode_t> nodes(n), a(m), b(m);
+  if (n > 0 && (e = cudaGraphGetNodes(g, nodes.data(), &n)) != cudaSuccess) return e;
+  if (m > 0 && (e = cudaGraphGetEdges(g, a.data(), b.data(), &m)) != cudaSuccess) return e;
+  std::unordered_map<cudaGraphNode_t, int> index;
+  for (size_t i = 0; i < n; ++i) {
+    index[nodes[i]] = static_cast<int>(i);
+    cudaGraphNodeType t;
+    if ((e = cudaGraphNodeGetType(nodes[i], &t)) != cudaSuccess) return e;
+    types[i] = static_cast<int>(t);
+  }
+  for (size_t k = 0; k < m; ++k) {
+    from[k] = index[a[k]];
+    to[k] = index[b[k]];
+  }
+  return cudaSuccess;
 }
 
 }  // extern "C"

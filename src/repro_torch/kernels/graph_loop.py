@@ -28,19 +28,21 @@ is recorded, as the other kernels' counters do).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from .build import check_launch, load_library, stream_arg
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_INVALID_VALUE = 1  # cudaErrorInvalidValue
 #: the C entry points of ``csrc/graph_loop.cu`` and their argument types
 SIGNATURES = {
     "rt_graph_loop_build": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "rt_graph_loop_launch": [_P, _P],
     "rt_graph_loop_destroy": [_P, _P],
     "rt_graph_node_types": [_P, _P, _I],
+    "rt_graph_edges": [_P, _P, _I, _P, _P, _I, _P],
 }
 #: ``cudaGraphNodeType`` values, by name
 NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_event",
@@ -143,6 +145,87 @@ def node_types(graph: torch.cuda.CUDAGraph) -> Dict[str, int]:
     check_launch("graph_loop", _lib().rt_graph_node_types(_raw(graph), counts, 32))
     return {NODE_TYPES[t] if t < len(NODE_TYPES) else f"type{t}": counts[t]
             for t in range(32) if counts[t]}
+
+
+def graph_edges(graph: torch.cuda.CUDAGraph) -> Tuple[List[str], List[Tuple[int, int]]]:
+    """The top-level nodes of a captured graph (``keep_graph=True``) by
+    type, and its dependency edges as ``(from, to)`` node indices."""
+    lib = _lib()
+    sizes = (ctypes.c_int * 2)()
+    code = lib.rt_graph_edges(_raw(graph), None, 0, None, None, 0, sizes)
+    if code and code != _INVALID_VALUE:
+        check_launch("graph_loop", code)
+    n, m = max(sizes[0], 1), max(sizes[1], 1)
+    types, a, b = (ctypes.c_int * n)(), (ctypes.c_int * m)(), (ctypes.c_int * m)()
+    check_launch("graph_loop", lib.rt_graph_edges(_raw(graph), types, n, a, b, m, sizes))
+    names = [NODE_TYPES[t] if t < len(NODE_TYPES) else f"type{t}"
+             for t in types[:sizes[0]]]
+    return names, list(zip(a[:sizes[1]], b[:sizes[1]]))
+
+
+def dag_width(n_nodes: int, edges: Sequence[Tuple[int, int]], keep: Sequence[int]) -> int:
+    """The most nodes of ``keep`` that no path of the DAG orders pairwise
+    (a largest antichain): by Dilworth's theorem, ``len(keep)`` less a
+    maximum matching of the reachability relation among them.  A graph
+    captured from one stream has width 1; from N streams, at most N."""
+    succ: List[List[int]] = [[] for _ in range(n_nodes)]
+    indeg = [0] * n_nodes
+    for a, b in edges:
+        succ[a].append(b)
+        indeg[b] += 1
+    order = [v for v in range(n_nodes) if indeg[v] == 0]
+    for v in order:
+        for w in succ[v]:
+            indeg[w] -= 1
+            if indeg[w] == 0:
+                order.append(w)
+    if len(order) != n_nodes:
+        raise ValueError("the graph has a cycle")
+    reach = [0] * n_nodes  # bit j set: a path leads from the node to node j
+    for v in reversed(order):
+        for w in succ[v]:
+            reach[v] |= reach[w] | (1 << w)
+    keep = list(keep)
+    # adj[i] bit j: keep[i] reaches keep[j] (the bipartite graph to match)
+    adj = [sum(1 << j for j, w in enumerate(keep) if (reach[v] >> w) & 1) for v in keep]
+    return len(keep) - _max_matching(adj)
+
+
+def _max_matching(adj: List[int]) -> int:
+    """Size of a maximum matching of the bipartite graph whose left node i
+    has the right nodes of bitset ``adj[i]``: augmenting paths found
+    breadth first, one search per left node (Kuhn's algorithm)."""
+    match_right: Dict[int, int] = {}  # right node -> its left node
+    match_left: Dict[int, int] = {}  # and back
+    size = 0
+    for root in range(len(adj)):
+        parent: Dict[int, int] = {}  # right node -> left node it was reached from
+        seen, frontier, end = 0, [root], None
+        while frontier and end is None:
+            nxt = []
+            for u in frontier:
+                fresh = adj[u] & ~seen
+                seen |= fresh
+                while fresh:
+                    j = (fresh & -fresh).bit_length() - 1
+                    fresh &= fresh - 1
+                    parent[j] = u
+                    if j not in match_right:
+                        end = j
+                        break
+                    nxt.append(match_right[j])
+                if end is not None:
+                    break
+            frontier = nxt
+        if end is None:
+            continue
+        while end is not None:  # flip the path: each left node takes its right node
+            u = parent[end]
+            prev = match_left.get(u)
+            match_right[end], match_left[u] = u, end
+            end = prev
+        size += 1
+    return size
 
 
 def launch_counts() -> Dict[str, int]:

@@ -126,12 +126,6 @@ def test_wait_before_start_raises():
         _queue().enqueue_wait()
 
 
-def test_verifier_not_ported_yet():
-    q = _queue()
-    with pytest.raises(NotImplementedError, match="verify"):
-        q.build(verify="warn")
-
-
 def test_persistent_guards():
     q = _queue()
     q.enqueue_recv("b", GridOffsetPeer(thalo.AXES3, (-1, 0, 0)), tag=0)

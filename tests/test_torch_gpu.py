@@ -16,11 +16,18 @@ launch equal to the eager prefill bit for bit.  The convergence loop
 (a graph conditional WHILE node set by the step kernel) is held against
 the eager CPU loop, against ``FusedEngine`` called ``n_done`` times
 (bit for bit), and its step kernel against the plain step on known
-traces.  This file imports no JAX, so it runs on a GPU
+traces.  Composed schedules (the linked N-part Faces pipeline, one CUDA
+stream a program) are held against the CPU run and the full-domain run
+bit for bit; the captured graph has one stream's width a program; a
+receiver that is slow to read its ghost planes is not overwritten by its
+neighbour's next deposit; the sanitizer gives the same bits and refuses
+a racy program before any launch.  This file imports no JAX, so it runs on a GPU
 machine without it::
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -32,12 +39,20 @@ from repro_torch.core import (
     FusedEngine,
     HostEngine,
     PersistentEngine,
+    SanitizeError,
+    build_faces_pipeline,
     build_faces_program,
     faces_step_contiguous,
     global_residual_fn,
+    merge_parts,
+    part_names,
+    run_faces_persistent,
+    run_faces_pipelined,
     run_faces_until_converged,
+    split_parts,
     to_numpy,
 )
+from repro_torch.core.descriptors import KernelDesc, WaitDesc
 from repro_torch.configs import get_config
 from repro_torch.core.halo import AXES3, DIRECTIONS, _region_for
 from repro_torch.kernels import flash_attention as fk
@@ -845,3 +860,168 @@ def test_graph_loop_refuses_what_it_does_not_take(cuda):
         graph_loop.GraphLoop(pass_a, pass_b, red.sum(), keep, red, n_done, 5)
     with pytest.raises(ValueError, match="keep"):
         graph_loop.GraphLoop(pass_a, pass_b, red.sum(), keep.int(), red, n_done, 4)
+
+
+# -- composed schedules: one CUDA stream a program ------------------------------
+
+PIPE_CFG = FacesConfig(grid=(2, 2, 1), points=(8, 5, 4), pack="kernel", damping=0.2)
+
+
+def _pipe_u0():
+    return np.random.RandomState(6).randn(*PIPE_CFG.grid, *PIPE_CFG.points).astype(np.float32)
+
+
+def _parts_init(n_parts, u0):
+    return dict(zip([f"{n}/u" for n in part_names(n_parts)], split_parts(u0, n_parts)))
+
+
+@pytest.mark.parametrize("n_parts", [2, 4])
+@pytest.mark.parametrize("mode", ["stream", "dataflow"])
+def test_linked_pipeline_on_card_equals_cpu(cuda, mode, n_parts):
+    """The linked pipeline on the card equals its CPU run and the card's
+    full-domain run bit for bit, in one dispatch and one graph launch."""
+    u0 = _pipe_u0()
+    cpu, _ = run_faces_pipelined(PIPE_CFG, make_mesh(PIPE_CFG.grid, AXES3, device="cpu"), u0,
+                                 n_iters=3, n_parts=n_parts, mode=mode)
+    mesh = make_mesh(PIPE_CFG.grid, AXES3)
+    eng = PersistentEngine(build_faces_pipeline(PIPE_CFG, mesh, n_parts, 3), mode=mode)
+    mem = eng(eng.init_buffers(_parts_init(n_parts, u0)))
+    assert eng.stats.dispatches == eng.graph_launches == 1
+    got, want = to_numpy(mem), to_numpy(cpu)
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    full, _ = run_faces_persistent(PIPE_CFG, mesh, u0, n_iters=3, mode=mode)
+    assert torch.equal(merge_parts([mem[f"{n}/u"] for n in part_names(n_parts)]), full["u"])
+
+
+@pytest.mark.parametrize("mode", ["stream", "dataflow"])
+def test_single_pass_engines_run_schedules_on_card(cuda, mode):
+    u0 = _pipe_u0()
+    mesh = make_mesh(PIPE_CFG.grid, AXES3)
+    sched, full = build_faces_pipeline(PIPE_CFG, mesh, 2), build_faces_program(PIPE_CFG, mesh)
+    engines = [(FusedEngine(sched, mode=mode), FusedEngine(full, mode=mode))]
+    if mode == "stream":
+        engines.append((HostEngine(sched), HostEngine(full)))
+    for split, whole in engines:
+        mem = split(split.init_buffers(_parts_init(2, u0)))
+        want = whole(whole.init_buffers({"u": u0}))["u"]
+        assert torch.equal(merge_parts([mem[f"{n}/u"] for n in part_names(2)]), want)
+
+
+def _graph_width(eng):
+    """Kernel-node width of one captured pass of ``eng`` (see
+    ``graph_loop.dag_width``)."""
+    eng.compile()
+    graph, _ = graph_loop.capture(lambda: eng._run_into(eng._bufs))
+    names, edges = graph_loop.graph_edges(graph)
+    return graph_loop.dag_width(len(names), edges,
+                                [i for i, t in enumerate(names) if t == "kernel"])
+
+
+@pytest.mark.parametrize("mode", ["stream", "dataflow"])
+def test_one_stream_per_program_in_the_graph(cuda, mode):
+    """A plain program's stream-mode pass is one chain of kernels; the
+    N-part schedule's is N chains wide in stream mode (a stream a
+    program), and at most 2N in dataflow mode (a comm stream each)."""
+    mesh = make_mesh(PIPE_CFG.grid, AXES3)
+    plain = _graph_width(FusedEngine(build_faces_program(PIPE_CFG, mesh), mode=mode))
+    assert plain == (1 if mode == "stream" else 2)
+    for n_parts in (2, 4):
+        width = _graph_width(FusedEngine(build_faces_pipeline(PIPE_CFG, mesh, n_parts),
+                                         mode=mode))
+        if mode == "stream":
+            assert width == n_parts
+        else:
+            assert n_parts < width <= 2 * n_parts
+
+
+def test_graph_edges_of_a_known_capture(cuda):
+    """Two streams forked from the capture stream and joined back: the
+    kernels form two chains, width 2."""
+    x = torch.zeros(64, device=cuda)
+    side = [torch.cuda.Stream(), torch.cuda.Stream()]
+
+    def work():
+        home = torch.cuda.current_stream()
+        for s in side:
+            s.wait_stream(home)
+            with torch.cuda.stream(s):
+                for _ in range(3):
+                    x.add_(1.0)
+        for s in side:
+            home.wait_stream(s)
+
+    work()
+    torch.cuda.synchronize()
+    graph, _ = graph_loop.capture(work)
+    names, edges = graph_loop.graph_edges(graph)
+    assert names.count("kernel") == 6 and len(edges) == 4
+    assert graph_loop.dag_width(len(names), edges, range(len(names))) == 2
+
+
+def test_receivers_reads_finish_before_the_next_deposit(cuda):
+    """Receive slots are written in place.  Part B's stencil first spins
+    (``torch.cuda._sleep``) and then reads ``glo``; part A reaches its next
+    iteration's ghost deposit into ``glo`` long before.  A start waits on
+    the streams it deposits into, so the run still equals the CPU's."""
+    u0 = _pipe_u0()
+
+    def slow_schedule(mesh):
+        sched = build_faces_pipeline(PIPE_CFG, mesh, 2, n_iters=4)
+        descs = list(sched.descriptors)
+        i = next(i for i, d in enumerate(descs)
+                 if isinstance(d, KernelDesc) and d.pid == 1 and d.name == "interior")
+        fn = descs[i].fn
+
+        def slow(u, glo, ghi):
+            if u.is_cuda:
+                torch.cuda._sleep(20_000_000)
+            return fn(u, glo, ghi)
+
+        descs[i] = dataclasses.replace(descs[i], fn=slow)
+        return dataclasses.replace(sched, descriptors=tuple(descs))
+
+    runs = []
+    for device in ("cpu", None):
+        eng = PersistentEngine(slow_schedule(make_mesh(PIPE_CFG.grid, AXES3, device=device)),
+                               mode="stream", double_buffer=False)
+        runs.append(to_numpy(eng(eng.init_buffers(_parts_init(2, u0)))))
+    want, got = runs
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+@pytest.mark.parametrize("mode", ["stream", "dataflow"])
+def test_sanitized_engines_on_card_equal_plain(cuda, mode):
+    u0 = _pipe_u0()
+    mesh = make_mesh(PIPE_CFG.grid, AXES3)
+    full = build_faces_program(PIPE_CFG, mesh)
+    cases = [(FusedEngine, full, {"u": u0}),
+             (PersistentEngine, full.persistent(3), {"u": u0}),
+             (FusedEngine, build_faces_pipeline(PIPE_CFG, mesh, 2), _parts_init(2, u0)),
+             (PersistentEngine, build_faces_pipeline(PIPE_CFG, mesh, 2, n_iters=3),
+              _parts_init(2, u0))]
+    for cls, prog, init in cases:
+        plain, poisoned = cls(prog, mode=mode), cls(prog, mode=mode, sanitize=True)
+        a = plain(plain.init_buffers(init))
+        b = poisoned(poisoned.init_buffers(init))
+        for name in a:
+            assert torch.equal(a[name], b[name]), (cls.__name__, name)
+
+
+def test_racy_program_refused_before_any_launch(cuda):
+    prog = build_faces_program(PIPE_CFG, make_mesh(PIPE_CFG.grid, AXES3))
+    descs = list(prog.descriptors)
+    wi = max(i for i, d in enumerate(descs) if isinstance(d, WaitDesc))
+    ki = next(i for i, d in enumerate(descs) if i > wi and isinstance(d, KernelDesc))
+    descs.insert(wi, descs.pop(ki))
+    bad = dataclasses.replace(prog, descriptors=tuple(descs))
+    torch.cuda.synchronize()
+    before = hk.launch_counts()
+    for cls in (FusedEngine, PersistentEngine, HostEngine):
+        with pytest.raises(SanitizeError, match="pending unwaited deposit"):
+            cls(bad, sanitize=True)
+    assert hk.launch_counts() == before
+    silent = FusedEngine(bad)
+    silent(silent.init_buffers({"u": _pipe_u0()}))
+    assert silent.stats.dispatches == 1

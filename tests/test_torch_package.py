@@ -2,6 +2,7 @@
 
 import ast
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -27,6 +28,15 @@ def _forbidden(module: str) -> bool:
     return top in ("jax", "jaxlib", "repro")
 
 
+def _imported(path: str):
+    """Every absolute module name ``path`` imports, at any depth."""
+    for node in ast.walk(ast.parse(open(path).read(), filename=path)):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
 def test_import_leaves_out_jax_and_repro(subproc):
     code = ("import sys, repro_torch, repro_torch.core, "
             "repro_torch.kernels.halo_pack, repro_torch.kernels.build, "
@@ -45,14 +55,17 @@ def test_import_leaves_out_jax_and_repro(subproc):
 @pytest.mark.parametrize("path", list(_port_sources()),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_sources_import_no_jax_or_repro(path):
-    tree = ast.parse(open(path).read(), filename=path)
-    bad = []
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            bad += [a.name for a in node.names if _forbidden(a.name)]
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            if node.module and _forbidden(node.module):
-                bad.append(node.module)
+    bad = [m for m in _imported(path) if _forbidden(m)]
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("path", list(_port_sources()),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_sources_import_torch_numpy_and_the_standard_library(path):
+    """The port's stated dependencies: nothing else (no scipy, which only
+    JAX brings along) may reach the card's machine."""
+    allowed = {"torch", "numpy", "repro_torch", *sys.stdlib_module_names}
+    bad = [m for m in _imported(path) if m.split(".")[0] not in allowed]
     assert not bad, f"{path} imports {bad}"
 
 
