@@ -141,13 +141,38 @@ a checkout of the repository.  Phases, each of which must pass:
    ``SanitizeError`` in every engine's constructor with no kernel
    launched, while the unsanitized engine runs it.
 
-The last lines are a ``{"kernels": [...]}`` JSON line (ten rows: the nine
-Pallas kernels' and the step kernel's, which has no Pallas counterpart
-(``"pallas_counterpart": false``); the
+14. the masked multi-queue loop on the Faces configuration of phase 2,
+   split along x into 2 and 4 linked parts, in ``stream`` and
+   ``dataflow``, each part to its own count or tolerance in ONE launch
+   of a CUDA graph (a conditional WHILE node over two passes of every
+   part, set by the schedule step of ``csrc/graph_loop.cu``, which also
+   fires each part's snapshot and restore copies): (a) tolerance 1e-2 on
+   every part, ``max_iters`` 20; (b) tolerances (1e-1, 1e-3) and (1e-1,
+   1e-2, 1e-2, 1e-3), whether the tightest part plateaus at the bound,
+   ms per iteration (CUDA events), the pass's and the freeze graphs'
+   node counts by type, and (2 parts)
+   ``sanitize=True`` equal bit for bit; (c) (b) unlinked, each part
+   equal to its own ``run_faces_until_converged`` bit for bit (field,
+   trace, ``n_done``); (d) 2 linked parts with counts 3 and 7, no
+   reductions; (e) reductions only, every count 10, equal to the
+   fixed-count composed graph bit for bit, ms per iteration beside it
+   (CUDA events).  Every solve: one dispatch and one graph launch,
+   fields, traces and ``n_done`` equal to the eager
+   ``_run_schedule_while`` run on the card's tensors bit for bit, wall
+   ms of the graph and the eager loop (host clock around synchronized
+   calls), and the four Faces kernels and the schedule step launched
+   (counters set to 0 just before the engine's compile and first call,
+   read just after); the schedule step against the plain step on known
+   traces, and its time per pass.
+
+The last lines are a ``{"kernels": [...]}`` JSON line (eleven rows: the
+nine Pallas kernels' and the two step kernels', which have no Pallas
+counterpart (``"pallas_counterpart": false``); the
 flash and SSD rows also give ``earlier_ms``: the CUDA-core kernel, the
 port's kernel before the tensor-core one, on the same input in this
 run, and the SSD row its ``kernel_route``; the rmsnorm row gives
-``decode``: its times at the decode shapes), the card's name and power limit, and ``{"ok": true, "device":
+``decode``: its times at the decode shapes; the schedule step's row
+``one_program_ms``: its loop with one program), the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -180,6 +205,8 @@ REPLACES = {
     "ssd_scan": "src/repro/kernels/ssd_scan.py:80",
     # no Pallas counterpart: the lax.while_loop of _run_persistent_while
     "graph_loop_step": "src/repro/core/engine_persistent.py:495",
+    # nor here: the lax.while_loop of _run_schedule_while and its jnp.where masks
+    "schedule_step": "src/repro/core/engine_persistent.py:599",
 }
 FACES_KERNELS = ("halo_pack", "halo_unpack_add", "pack_segments", "unpack_segments")
 # one region of each class the Faces loop unpacks, by its DIRECTIONS entry
@@ -196,6 +223,17 @@ PARTS = (2, 4)                     # x-parts of the composed runs (phase 12)
 # (tol, max_iters) of the step kernel's known-trace checks: n_done 14 and 17
 # by the tolerance, 16, 7 and 1 by the bound, 1 by a first value below tol
 STEP_CASES = ((0.6, 32), (0.5, 32), (-1.0, 16), (-1.0, 7), (-1.0, 1), (2.0, 16))
+MASK_MAX_ITERS = 20                # phase 14: the bound of cases (a) to (c)
+MASK_EQUAL_TOL = 1e-2              # case (a): every part
+MASK_TOLS = {2: (1e-1, 1e-3), 4: (1e-1, 1e-2, 1e-2, 1e-3)}   # cases (b) and (c)
+MASK_COUNTS = (3, 7)               # case (d): 2 linked parts, no reductions
+MASK_FIXED = N_ITERS               # case (e): every count, reductions only
+# (tols, counts, max_iters) of the schedule step's known-trace checks: programs
+# stopping by a tolerance, by their count, without a predicate, at the first
+# pass, and both parities of the last pass
+SCHED_STEP_CASES = (((0.6, None, 0.1), (16, 4, 9), 16), ((2.0, 0.45), (5, 16), 16),
+                    ((None,), (7,), 7), ((-1.0, -1.0), (1, 2), 2))
+SCHED_STEP_PROGRAMS = 4            # programs of the step's timing loop
 
 
 def gpu_line() -> str:
@@ -1542,6 +1580,223 @@ def run_convergence(torch, cfg, mesh, u0, card: str, hk, graph_loop):
             "step_cases": cases, "launches": launches}, row
 
 
+def check_schedule_step(torch, graph_loop):
+    """Phase 14, the step: the schedule step kernel against the plain
+    schedule step on known traces (each program's counter, kept through
+    its snapshots and restores, must equal its count), and its kernels-
+    line row: one pass of a 4-program loop replaying traces, against the
+    same feed and the plain step in a plain graph."""
+    err, cases = 0.0, []
+    for tols, counts, max_iters in SCHED_STEP_CASES:
+        traces = torch.stack([torch.linspace(1.0, 0.0, 16, device="cuda") * (k + 1)
+                              for k in range(len(counts))])
+        want_red, want_n = graph_loop.trace_schedule_plain(traces, tols, counts, max_iters)
+        loop, red, n_done, v = graph_loop.trace_schedule_loop(traces, tols, counts, max_iters)
+        loop.launch()
+        torch.cuda.synchronize()
+        err = max(err, float((red.cpu() - want_red).abs().max()))
+        require(n_done.cpu().tolist() == want_n.tolist() and torch.equal(red.cpu(), want_red),
+                f"schedule step != plain step at tols {tols}, counts {counts}: n_done "
+                f"{n_done.tolist()} vs {want_n.tolist()}")
+        require([int(t) for t in v] == want_n.tolist(), f"the freeze graphs kept "
+                f"{[int(t) for t in v]}, not the counts {want_n.tolist()}")
+        cases.append({"tols": tols, "counts": counts, "n_done": want_n.tolist()})
+    n = SCHED_STEP_PROGRAMS
+    long_traces = torch.rand(n, STEP_ITERS, device="cuda")
+    loop, _, n_done, _ = graph_loop.trace_schedule_loop(long_traces, (-1.0,) * n,
+                                                        (STEP_ITERS,) * n, STEP_ITERS)
+    iter_ms = events_ms(torch, loop.launch) / STEP_ITERS
+    require(n_done.cpu().tolist() == [STEP_ITERS] * n,
+            f"the timing loop ran {n_done.tolist()} passes")
+    # the same loop with one program: what the step's width and the IF nodes
+    # of the other programs add
+    one, _, _, _ = graph_loop.trace_schedule_loop(long_traces[:1], (-1.0,), (STEP_ITERS,),
+                                                  STEP_ITERS)
+    one_ms = events_ms(torch, one.launch) / STEP_ITERS
+    reductions = torch.zeros(n, STEP_ITERS, device="cuda")
+    count = torch.zeros(n, dtype=torch.int32, device="cuda")
+    active = torch.ones(n, dtype=torch.bool, device="cuda")
+    i = torch.zeros((), dtype=torch.int32, device="cuda")
+    limits = torch.full((n,), STEP_ITERS, dtype=torch.int32, device="cuda")
+    yes = torch.ones(n, dtype=torch.bool, device="cuda")
+
+    def plain_iter():
+        r = long_traces.gather(1, count.long().clamp(max=STEP_ITERS - 1)[:, None]).reshape(n)
+        graph_loop.schedule_step_plain(reductions, count, active, i, r, r >= -1.0, limits,
+                                       yes, yes, STEP_ITERS)
+
+    # bytes of one step: per program active, n_done, the reduction and the
+    # predicate read (13), the trace entry, n_done and active written (12);
+    # the pass counter read and written and the decision written (12)
+    t_bytes, t_ops = (25 * n + 12) / HBM_BYTES_PER_S, 3 * n / FP32_OPS_PER_S
+    row = {"name": "schedule_step", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/graph_loop.cu",
+           "replaces": REPLACES["schedule_step"], "pallas_counterpart": False,
+           "max_abs_err": err, "ms": iter_ms, "one_program_ms": one_ms,
+           "plain_ms": median_ms(torch, plain_iter, reps=5, inner=20),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+    return row, cases
+
+
+def run_masked(torch, cfg, mesh, u0, card: str, hk, graph_loop):
+    """Phase 14: the masked multi-queue loop at full width, 2 and 4 x-parts
+    in both modes: (a) equal tolerances, (b) unequal ones, (c) (b)
+    unlinked, against each part's own converged run, (d) linked fixed
+    counts 3 and 7, (e) every count 10 with reductions, against the
+    fixed-count composed graph.  Every solve is one graph launch whose
+    fields, traces and counts equal the eager loop's on the card bit for
+    bit; the counters are set to 0 just before each masked run (compile
+    and call) and read just after."""
+    from repro_torch.core import (PersistentEngine, build_faces_pipeline, global_residual_fn,
+                                  part_configs, part_names, run_faces_until_converged,
+                                  split_parts)
+    from repro_torch.core.engine_persistent import _run_schedule_while
+
+    def synced_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def solve(mode, n_parts, what, exchange=True, counts=MASK_MAX_ITERS, tols=None,
+              reduce=True, sanitize=False):
+        names = part_names(n_parts)
+        fns = {nm: global_residual_fn(c, buf=f"{nm}/u")
+               for nm, c in zip(names, part_configs(cfg, n_parts))} if reduce else None
+        eng = PersistentEngine(build_faces_pipeline(cfg, mesh, n_parts, counts, exchange,
+                                                    tols=tols),
+                               mode=mode, donate=True, reduce_fns=fns, sanitize=sanitize)
+        init = eng.init_buffers(dict(zip([f"{n}/u" for n in names],
+                                         split_parts(u0, n_parts))))
+        torch.cuda.synchronize()
+        hk.reset_launches()
+        graph_loop.reset_launches()
+        eng.compile()
+        (mem, reds, n_done), first_ms = synced_ms(lambda: eng(init))
+        counts_now = {**{n: hk.launch_counts()[n] for n in FACES_KERNELS},
+                      "schedule_step": graph_loop.launch_counts()["schedule_step"]}
+        require(all(counts_now.values()), f"{what}: a kernel of the masked path never "
+                f"launched: {counts_now}")
+        require((eng.stats.dispatches, eng.graph_launches, eng.stats.sync_points)
+                == (1, 1, 0), f"{what}: {eng.stats}, {eng.graph_launches} graph launches")
+        got = ({k: t.clone() for k, t in mem.items()}, {k: t.clone() for k, t in reds.items()},
+               {k: int(v) for k, v in n_done.items()})
+        walls = [synced_ms(lambda: eng(init))[1] for _ in range(3)]
+        # the explicit reference: the eager loop on the card's tensors
+        ref_red, ref_n = torch.zeros_like(eng._reductions), torch.zeros_like(eng._n_done)
+        eager, eager_ms = synced_ms(lambda: _run_schedule_while(
+            dict(init), sched=eng.program, mode=mode, low=eng._lowering, slots=eng._slots,
+            reduce_fns=eng.reduce_fns, reductions=ref_red, n_done=ref_n))
+        for k, sub in enumerate(eng.program.subs):
+            require(int(ref_n[k]) == got[2][sub.name], f"{what}: {sub.name} ran "
+                    f"{got[2][sub.name]} passes, the eager loop {int(ref_n[k])}")
+            if sub.name in got[1]:
+                require(torch.equal(got[1][sub.name], ref_red[k]),
+                        f"{what}: {sub.name}'s trace differs from the eager loop's")
+        for name, t in eager.items():
+            require(torch.equal(got[0][name], t), f"{what}: {name} differs from the "
+                    "eager loop's")
+        row = {"n_done": got[2], "graph_wall_ms": statistics.median(walls),
+               "first_call_wall_ms": first_ms, "eager_wall_ms": eager_ms,
+               "dispatches": 1, "graph_launches": 1, "launches": counts_now,
+               "equal_to_eager_bitwise": True}
+        del eager
+        return eng, init, got, row
+
+    def tail(reds, n):
+        return [float(x) for x in reds[max(0, n - 3):n]]
+
+    out, step_launches = {}, 0
+    for mode in ("stream", "dataflow"):
+        for n_parts in PARTS:
+            names = part_names(n_parts)
+            tag = f"{mode}/parts{n_parts}"
+            rows = {}
+            # (a) equal tolerances
+            eng, init, got, rows["a"] = solve(mode, n_parts, f"{tag} (a)",
+                                              tols=(MASK_EQUAL_TOL,) * n_parts)
+            require(all(bool(torch.isfinite(got[0][f"{n}/u"]).all()) for n in names),
+                    f"{tag} (a): non-finite field")
+            del eng, init, got
+            # (b) unequal tolerances: does the tightest part plateau at the bound?
+            tols = MASK_TOLS[n_parts]
+            eng, init, got, rows["b"] = solve(mode, n_parts, f"{tag} (b)", tols=tols)
+            tight = names[-1]
+            trace = got[1][tight]
+            n = got[2][tight]
+            rows["b"]["tightest"] = {
+                "name": tight, "tol": tols[-1], "n_done": n,
+                "ran_to_bound": n == MASK_MAX_ITERS, "last_residuals": tail(trace, n),
+                "plateau": bool(n == MASK_MAX_ITERS and abs(float(trace[n - 1])
+                                - float(trace[n - 5])) <= 1e-3 * abs(float(trace[n - 1])))}
+            rows["b"]["last_residuals"] = {k: tail(v, got[2][k]) for k, v in got[1].items()}
+            # a pass with parts frozen (restores run) beside (e)'s, where none is
+            rows["b"]["ms_per_iter"] = events_ms(torch, lambda: eng(init)) / max(got[2].values())
+            if n_parts == 2:
+                rows["b"]["pass_node_types"] = graph_loop.node_types(eng._loop.passes[0])
+                freeze = {}
+                for g in (g for f in eng._loop.freeze for g in f or ()):
+                    for kind, c in graph_loop.node_types(g).items():
+                        freeze[kind] = freeze.get(kind, 0) + c
+                rows["b"]["freeze_node_types"] = freeze
+                san = solve(mode, n_parts, f"{tag} (b) sanitized", tols=tols, sanitize=True)
+                require(san[2][2] == got[2] and all(
+                    torch.equal(san[2][0][k], t) for k, t in got[0].items()) and all(
+                    torch.equal(san[2][1][k], t) for k, t in got[1].items()),
+                    f"{tag} (b): sanitize=True changed the result")
+                rows["b"]["sanitized_equal_bitwise"] = True
+                rows["b"]["sanitized_graph_wall_ms"] = san[3]["graph_wall_ms"]
+                del san
+            del eng, init, got
+            # (c) unlinked (b): each part equals its own converged run
+            eng, init, got, rows["c"] = solve(mode, n_parts, f"{tag} (c)", exchange=False,
+                                              tols=tols)
+            for nm, pcfg, part, tol in zip(names, part_configs(cfg, n_parts),
+                                           split_parts(u0, n_parts), tols):
+                alone, res, n_alone, _ = run_faces_until_converged(
+                    pcfg, mesh, part, tol=tol, max_iters=MASK_MAX_ITERS, mode=mode)
+                require(n_alone == got[2][nm] and torch.equal(res, got[1][nm][:n_alone]),
+                        f"{tag} (c): {nm} ran {got[2][nm]} passes, its own run {n_alone}, "
+                        "or their traces differ")
+                for buf, t in alone.items():
+                    require(torch.equal(got[0][f"{nm}/{buf}"], t),
+                            f"{tag} (c): {nm}/{buf} differs from its own run")
+                del alone
+            rows["c"]["equal_to_own_runs_bitwise"] = True
+            del eng, init, got
+            # (d) linked fixed counts, no reductions
+            if n_parts == 2:
+                eng, init, got, rows["d"] = solve(mode, 2, f"{tag} (d)", counts=MASK_COUNTS,
+                                                  reduce=False)
+                require(got[2] == dict(zip(names, MASK_COUNTS)) and got[1] == {},
+                        f"{tag} (d): n_done {got[2]}")
+                del eng, init, got
+            # (e) reductions only, every count 10, against the fixed-count graph
+            eng, init, got, rows["e"] = solve(mode, n_parts, f"{tag} (e)", counts=MASK_FIXED)
+            fixed = PersistentEngine(build_faces_pipeline(cfg, mesh, n_parts, MASK_FIXED),
+                                     mode=mode, donate=True)
+            fixed.compile()
+            want = fixed(init)
+            require(all(torch.equal(got[0][k], t) for k, t in want.items()),
+                    f"{tag} (e): the masked loop differs from the fixed-count graph")
+            ms, fixed_ms = (events_ms(torch, lambda e=e: e(init)) / MASK_FIXED
+                            for e in (eng, fixed))
+            rows["e"].update({"equal_to_fixed_count_bitwise": True, "ms_per_iter": ms,
+                              "fixed_count_ms_per_iter": fixed_ms,
+                              "vs_fixed_count": ms / fixed_ms})
+            del eng, init, got, fixed, want
+            torch.cuda.empty_cache()
+            for r in rows.values():
+                step_launches += r["launches"]["schedule_step"]
+            out[tag] = rows
+    row, cases = check_schedule_step(torch, graph_loop)
+    row["launches"] = step_launches
+    return {"card": card, "grid": cfg.grid, "points": cfg.points,
+            "max_iters": MASK_MAX_ITERS, "cases": out, "step_cases": cases}, row
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1705,12 +1960,18 @@ def main() -> int:
           flush=True)
     del built
 
-    rows = rows + dense_rows + [ssd_row, step_row]
+    # phase 14: the masked multi-queue loop, each part to its own count
+    torch.cuda.empty_cache()
+    masked, sched_row = run_masked(torch, cfg, mesh, u0, gpu_line(), hk, graph_loop)
+    print(json.dumps({"masked": masked}), flush=True)
+
+    rows = rows + dense_rows + [ssd_row, step_row, sched_row]
     require(sorted(r["name"] for r in rows) == sorted(REPLACES), "a kernel row is missing")
     require(all(r["launches"] > 0 for r in rows), "a kernel was not launched on its path")
     order = ("name", "route", "kernel_route", "source", "replaces", "pallas_counterpart",
              "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "sector_bound_ms", "library_ms", "library_call", "earlier_ms", "decode")
+             "sector_bound_ms", "library_ms", "library_call", "earlier_ms", "decode",
+             "one_program_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in order if k in r} for r in rows]}))
     print(f"card: {gpu_line()}")
     print(json.dumps({"ok": True, "device": {

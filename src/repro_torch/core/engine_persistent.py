@@ -44,9 +44,24 @@ count runs here as N passes in one graph, each program on its own
 stream (:mod:`.engine_fused`), with the streams forked once before the
 first pass and joined after the last, so the programs pipeline across
 iterations; double-buffered slots (:func:`slot_buffers`) are the
-schedule's namespaced message buffers.  Different counts, predicates or
-``reduce_fns`` need the reference's masked multi-queue loop, which is
-not ported: the constructor raises ``NotImplementedError``.
+schedule's namespaced message buffers.
+
+Different counts, predicates or ``reduce_fns`` take the masked
+multi-queue loop: each program runs to its own count or predicate, and
+a call returns ``(mem, {name: reductions}, {name: n_done})``.  Every
+pass runs every program, so a frozen program's packs keep publishing
+its frozen boundary to its still-active neighbours; what the pass wrote
+into the frozen program's own buffers, its neighbours' deposits
+included, is discarded.  On a CPU device that is the eager loop
+:func:`_run_schedule_while` (the reference's ``jnp.where`` masks as
+``torch.where``, the ``(cur, alt)`` slot pairs rotating only while
+their program is active).  On the card :meth:`PersistentEngine.compile`
+builds a :class:`~repro_torch.kernels.graph_loop.ScheduleLoop`: the
+two-pass body of the convergence loop with all N programs in each pass
+(the streams fork and join inside a pass, so parts do not pipeline
+across trips), set by the schedule step kernel, which also fires, per
+program, a snapshot of its buffers on the trip where it stops and a
+restore of them after every later pass (:meth:`_freeze_cells`).
 ``sanitize=True`` adds the runtime sanitizer, as in the fused engine.
 """
 
@@ -62,11 +77,6 @@ from .engine_fused import (FusedEngine, Lowering, PassStreams, _interpret_progra
                            fresh_token_banks)
 from .queue import STProgram
 from .schedule import STSchedule
-
-MASKED_LOOP = ("the masked multi-queue loop (per-program counts, until "
-               "predicates, reduce_fns) is not ported yet: see ROADMAP.md, "
-               "'Masked schedule loop'")
-
 
 def slot_buffers(prog: STProgram) -> Tuple[str, ...]:
     """Message-slot buffers safe to double-buffer: touched by a channel,
@@ -121,12 +131,17 @@ class PersistentEngine(FusedEngine):
     loop unrolled all the way would, and the convergence body holds two
     passes whatever its value, so it changes nothing.
 
-    A composed :class:`~.schedule.STSchedule` takes its count from its
-    programs (``program.persistent(n)`` on each before ``compose``):
-    ``n_iters``, ``reduce_fn``, ``cond_fn`` and ``max_iters`` do not apply
-    (``ValueError``, as in the reference), and ``reduce_fns`` is checked
-    as the reference checks it; programs of different counts, with
-    predicates, or with ``reduce_fns`` raise ``NotImplementedError``.
+    A composed :class:`~.schedule.STSchedule` takes its counts and
+    predicates from its programs (``program.persistent(n, until=)`` on
+    each before ``compose``): ``n_iters``, ``reduce_fn``, ``cond_fn`` and
+    ``max_iters`` do not apply (``ValueError``, as in the reference), and
+    ``reduce_fns={name: fn}`` gives program ``name`` its reduction (each
+    fn sees every buffer and should read its own program's).  Programs of
+    different counts, with predicates, or with ``reduce_fns`` run the
+    masked loop (module docstring), at most the largest count of passes;
+    a call returns ``(mem, reductions, n_done)``, ``reductions[name]``
+    float32 zero-padded to that bound and ``n_done[name]`` a 0-d int32
+    tensor on the device.
     """
 
     def __init__(self, program: STProgram, n_iters: Optional[int] = None,
@@ -140,6 +155,7 @@ class PersistentEngine(FusedEngine):
         super().__init__(program, mode=mode, donate=donate, coalesce=coalesce,
                          sanitize=sanitize)
         self.reduce_fns = dict(reduce_fns or {})
+        self._masked = False
         if isinstance(program, STSchedule):
             self._init_schedule(program, n_iters, reduce_fn, cond_fn, max_iters)
         else:
@@ -193,14 +209,20 @@ class PersistentEngine(FusedEngine):
                 raise ValueError(
                     f"sub-program {s.name!r} has an until-predicate "
                     f"but no reduce_fns[{s.name!r}] to evaluate it on")
-        if (self.reduce_fns or any(s.until is not None for s in sched.subs)
-                or len({s.n_iters for s in sched.subs}) > 1):
-            raise NotImplementedError(MASKED_LOOP)
         self.cond_fn = self.reduce_fn = None
         self.n_iters = self.max_iters = max(s.n_iters for s in sched.subs)
+        # the reference's _schedule_while: the programs diverge, or traces are wanted
+        self._masked = bool(self.reduce_fns or any(s.until is not None for s in sched.subs)
+                            or len({s.n_iters for s in sched.subs}) > 1)
 
     def _allocate(self) -> None:
         super()._allocate()
+        if self._masked:
+            n = len(self.program.subs)
+            self._reductions = torch.zeros(n, self.max_iters, dtype=torch.float32,
+                                           device=self.device)
+            self._n_done = torch.zeros(n, dtype=torch.int32, device=self.device)
+            return
         if self.reduce_fn is not None:
             self._reductions = torch.zeros(self.n_iters, dtype=torch.float32,
                                            device=self.device)
@@ -216,13 +238,14 @@ class PersistentEngine(FusedEngine):
 
     def compile(self):
         """Allocate the buffers and, on a GPU, capture the graph: all
-        ``n_iters`` passes, or the convergence loop (:meth:`_build_loop`)."""
-        if self.cond_fn is None:
+        ``n_iters`` passes, the convergence loop (:meth:`_build_loop`) or
+        the masked loop (:meth:`_build_schedule_loop`)."""
+        if self.cond_fn is None and not self._masked:
             return super().compile()
         if self._bufs is None:
             self._allocate()
         if self.device.type == "cuda" and self._loop is None:
-            self._loop = self._build_loop()
+            self._loop = self._build_schedule_loop() if self._masked else self._build_loop()
         return self._loop
 
     def _loop_pass(self, bufs: Dict[str, torch.Tensor], red: torch.Tensor,
@@ -237,76 +260,167 @@ class PersistentEngine(FusedEngine):
         out = _interpret_program(bufs, prog=self.program, mode=self.mode,
                                  low=self._lowering, coalesce=self.coalesce,
                                  lanes=self._lanes, sanitize=self.sanitize)[0]
-        val = self.reduce_fn(out).to(torch.float32).reshape(())
-        red.copy_(val)
-        go = self.cond_fn(val)
-        if isinstance(go, torch.Tensor):
-            keep.copy_(go.reshape(()))
-        else:
-            keep.fill_(bool(go))
-        for name, t in (home or {}).items():
-            if out[name] is not t:
-                t.copy_(out[name])
-                out[name] = t
-        return out
+        _reduce_into(out, self.reduce_fn, self.cond_fn, red, keep)
+        return _copy_home(out, home)
 
-    def _build_loop(self) -> graph_loop.GraphLoop:
-        """Capture the loop's two passes and its selects, and build its
-        graph.  Pass A reads the engine's tensors and leaves its results
-        where it wrote them; pass B reads those and copies the carried
-        buffers back into the engine's tensors, so the field is copied
-        once a trip.  With double buffering B's slots are the second
-        physical copies (``_alt``).  After the loop, the select of the
-        last pass's parity puts its results where a call returns them:
-        the carried buffers in the engine's tensors, the slots where
-        pass A leaves them.  An eager pass on scratch copies first builds
-        and loads every kernel; the graphs, and their memory pools, live
-        as long as the :class:`~repro_torch.kernels.graph_loop.GraphLoop`."""
-        dev = self.device
-        red = torch.zeros((), dtype=torch.float32, device=dev)
-        keep = torch.zeros((), dtype=torch.bool, device=dev)
-        self._loop_pass({n: t.clone() for n, t in self._bufs.items()},
-                        red.clone(), keep.clone())
-        torch.cuda.synchronize(dev)
+    def _capture_two_passes(self, pass_fn):
+        """Capture a loop body's two passes and the selects of the last
+        pass's parity.  ``pass_fn(bufs, home)`` runs one pass on the
+        tensors ``bufs`` (:meth:`_loop_pass`).  Pass A reads the engine's
+        tensors and leaves its results where it wrote them; pass B reads
+        those and copies the carried buffers back into the engine's
+        tensors, so the field is copied once a trip.  With double
+        buffering B's slots are the second physical copies (``_alt``).
+        After the loop, the select of the last pass's parity puts its
+        results where a call returns them: the carried buffers in the
+        engine's tensors, the slots where pass A leaves them.  An eager
+        pass on scratch copies first builds and loads every kernel; the
+        graphs, and their memory pools, live as long as the loop graph
+        built from them.  Returns ``(pass_a, pass_b, out_a, out_b,
+        select_even, select_odd)``, ``out_a`` (``out_b``) where each
+        buffer sits after pass A (B)."""
+        pass_fn({n: t.clone() for n, t in self._bufs.items()}, None)
+        torch.cuda.synchronize(self.device)
         carried = {n: t for n, t in self._bufs.items() if n not in self._local}
         a = dict(self._bufs)
-        pass_a, out_a = graph_loop.capture(lambda: self._loop_pass(a, red, keep))
+        pass_a, out_a = graph_loop.capture(lambda: pass_fn(a, None))
         self._alt = {n: self._bufs[n].clone() for n in self._slots}
         b = {**out_a, **self._alt}
-        pass_b, out_b = graph_loop.capture(lambda: self._loop_pass(b, red, keep, carried))
+        pass_b, out_b = graph_loop.capture(lambda: pass_fn(b, carried))
         even = [(out_b[n], out_a[n]) for n in self._local if out_b[n] is not out_a[n]]
         odd = [(out_a[n], t) for n, t in carried.items() if out_a[n] is not t]
-        selects = [graph_loop.capture(lambda pairs=pairs: [d.copy_(s) for s, d in pairs])[0]
-                   if pairs else None for pairs in (even, odd)]
+        selects = [_capture_copies([d for _, d in pairs], [s for s, _ in pairs])
+                   for pairs in (even, odd)]
         self._pass_outs = (out_a, out_b)  # the graphs hold these tensors' addresses
         self._loop_out = {n: carried.get(n, out_a[n]) for n in self._bufs}
+        return (pass_a, pass_b, out_a, out_b, *selects)
+
+    def _build_loop(self) -> graph_loop.GraphLoop:
+        """Capture the loop's two passes and its selects
+        (:meth:`_capture_two_passes`), and build its graph."""
+        red = torch.zeros((), dtype=torch.float32, device=self.device)
+        keep = torch.zeros((), dtype=torch.bool, device=self.device)
+        pass_a, pass_b, _, _, even, odd = self._capture_two_passes(
+            lambda bufs, home: self._loop_pass(bufs, red, keep, home))
         return graph_loop.GraphLoop(pass_a, pass_b, red, keep, self._reductions,
                                     self._n_done, self.max_iters,
-                                    select_even=selects[0], select_odd=selects[1])
+                                    select_even=even, select_odd=odd)
 
-    def _launch_loop(self, mem):
-        """Copy the inputs in, run the loop, return ``(mem, reductions,
-        n_done)``.  The copies go out as one multi-tensor launch each
-        (``torch._foreach_copy_``): the host enqueues a few calls, not
-        one a buffer."""
+    def _schedule_pass(self, bufs: Dict[str, torch.Tensor], red: torch.Tensor,
+                       pred: torch.Tensor, home: Optional[Dict[str, torch.Tensor]] = None
+                       ) -> Dict[str, torch.Tensor]:
+        """One pass of every program of the schedule on the tensors
+        ``bufs``, each program's reduction into ``red[k]`` and predicate
+        into ``pred[k]``; ``home`` as in :meth:`_loop_pass`."""
+        out = _interpret_program(bufs, prog=self.program, mode=self.mode,
+                                 low=self._lowering, coalesce=self.coalesce,
+                                 lanes=self._lanes, sanitize=self.sanitize)[0]
+        _reduce_programs(out, self.program.subs, self.reduce_fns, red, pred)
+        return _copy_home(out, home)
+
+    def _freeze_cells(self, names, out_a, out_b):
+        """Where each of a program's buffers sits in the masked loop graph.
+
+        Returns ``(cells_a, cells_b)``: after pass A (B), a list of
+        ``(snapshot, source, targets)``.  Where the program stops after
+        that pass, ``snapshot <- source`` keeps its values; after every
+        later pass of that kind, ``target <- snapshot`` for each target
+        puts them back where the next pass reads them and where the
+        loop's output reads them if it ends there:
+
+        * a carried buffer: pass A leaves it in ``out_a``, which pass B
+          reads; pass B copies it home (``_bufs``), which pass A reads;
+        * a slot without double buffering: the same, except that pass B
+          leaves it in ``out_b``, which the even select copies out;
+        * a double-buffered slot: two snapshots, the copy the next pass
+          reads (``_alt`` after A, ``_bufs`` after B: the reference's
+          ``cur``) and the pass's own write (``alt``, which the loop
+          returns).
+        """
+        cells_a, cells_b = [], []
+        for n in names:
+            home = self._bufs[n]
+            if n in self._slots:
+                cur, last = torch.empty_like(home), torch.empty_like(home)
+                cells_a += [(cur, self._alt[n], [self._alt[n]]), (last, out_a[n], [out_a[n]])]
+                cells_b += [(cur, home, [home]), (last, out_b[n], [out_b[n]])]
+                continue
+            keep = torch.empty_like(home)
+            cells_a.append((keep, out_a[n], [out_a[n]]))
+            if n in self._local:
+                back = [home] + ([out_b[n]] if out_b[n] is not home else [])
+                cells_b.append((keep, out_b[n], back))
+            else:
+                cells_b.append((keep, home, [home]))
+        return cells_a, cells_b
+
+    def _build_schedule_loop(self) -> graph_loop.ScheduleLoop:
+        """Capture the masked loop's two passes (every program each) and
+        selects (:meth:`_capture_two_passes`) and each program's snapshot
+        and restore copies (:meth:`_freeze_cells`), and build its graph.
+        A program that cannot stop before the loop's bound (no predicate,
+        the largest count) is never frozen during a pass: it gets no
+        copies, and the step sets no IF handles for it."""
+        dev, subs = self.device, self.program.subs
+        red = torch.zeros(len(subs), dtype=torch.float32, device=dev)
+        pred = torch.zeros(len(subs), dtype=torch.bool, device=dev)
+        pass_a, pass_b, out_a, out_b, even, odd = self._capture_two_passes(
+            lambda bufs, home: self._schedule_pass(bufs, red, pred, home))
+        freeze, cells = [], []
+        for sub in subs:
+            if sub.until is None and sub.n_iters == self.max_iters:
+                freeze.append(None)
+                continue
+            after = self._freeze_cells(sub.buffers, out_a, out_b)
+            graphs = []
+            for pass_cells in after:
+                graphs.append(_capture_copies(
+                    [t for _, _, targets in pass_cells for t in targets],
+                    [s for s, _, targets in pass_cells for _ in targets]))
+                graphs.append(_capture_copies([s for s, _, _ in pass_cells],
+                                              [src for _, src, _ in pass_cells]))
+            freeze.append(tuple(graphs) if all(graphs) else None)
+            cells.append(after)
+        self._pass_outs += (cells,)  # the freeze graphs hold these tensors' addresses
+        return graph_loop.ScheduleLoop(
+            pass_a, pass_b, freeze, red, pred,
+            torch.ones(len(subs), dtype=torch.int32, device=dev), self._n_done,
+            self._reductions, [s.n_iters for s in subs],
+            [s.name in self.reduce_fns for s in subs], [s.until is not None for s in subs],
+            self.max_iters, select_even=even, select_odd=odd)
+
+    def _copy_in(self, mem) -> None:
+        """Compile, and copy the inputs in; with a loop graph, both slot
+        copies start equal.  The copies go out as one multi-tensor launch
+        each (``torch._foreach_copy_``): the host enqueues a few calls,
+        not one a buffer."""
         self.compile()
         moved = [n for n, t in self._bufs.items() if mem[n] is not t]
         if moved:
             torch._foreach_copy_([self._bufs[n] for n in moved], [mem[n] for n in moved])
+        if self._loop is not None and self._alt:
+            torch._foreach_copy_(list(self._alt.values()), [self._bufs[n] for n in self._alt])
+
+    def _launch_loop(self, mem):
+        """Copy the inputs in, run the convergence or masked loop, return
+        ``(mem, reductions, n_done)`` (of the masked loop: one entry a
+        program, by name, the reductions of those with ``reduce_fns``)."""
+        self._copy_in(mem)
         if self._loop is not None:
-            if self._alt:  # both slot copies start equal
-                torch._foreach_copy_(list(self._alt.values()),
-                                     [self._bufs[n] for n in self._alt])
             self._loop.launch()
             self.graph_launches += 1
             out = dict(self._loop_out)
         else:
-            out = _run_persistent_while(
-                dict(self._bufs), prog=self.program, mode=self.mode,
-                low=self._lowering, max_iters=self.max_iters, slots=self._slots,
-                reduce_fn=self.reduce_fn, cond_fn=self.cond_fn,
-                reductions=self._reductions, n_done=self._n_done,
-                coalesce=self.coalesce, lanes=self._lanes, sanitize=self.sanitize)
+            common = dict(mode=self.mode, low=self._lowering, slots=self._slots,
+                          reductions=self._reductions, n_done=self._n_done,
+                          coalesce=self.coalesce, lanes=self._lanes, sanitize=self.sanitize)
+            if self._masked:
+                out = _run_schedule_while(dict(self._bufs), sched=self.program,
+                                          reduce_fns=self.reduce_fns, **common)
+            else:
+                out = _run_persistent_while(dict(self._bufs), prog=self.program,
+                                            max_iters=self.max_iters, reduce_fn=self.reduce_fn,
+                                            cond_fn=self.cond_fn, **common)
             for name, t in self._bufs.items():
                 if out[name] is not t:
                     t.copy_(out[name])
@@ -316,16 +430,61 @@ class PersistentEngine(FusedEngine):
         if not self.donate:
             out = {n: t.clone() for n, t in out.items()}
             red, n_done = red.clone(), n_done.clone()
-        return out, red, n_done
+        if not self._masked:
+            return out, red, n_done
+        subs = self.program.subs
+        return (out, {s.name: red[k] for k, s in enumerate(subs) if s.name in self.reduce_fns},
+                {s.name: n_done[k] for k, s in enumerate(subs)})
 
     def __call__(self, mem):
-        if self.cond_fn is not None:
+        if self.cond_fn is not None or self._masked:
             return self._launch_loop(mem)
         out = self._launch(mem)
         if self.reduce_fn is None:
             return out
         red = self._reductions
         return out, (red if self.donate else red.clone())
+
+
+def _copy_home(out: Dict[str, torch.Tensor], home: Optional[Dict[str, torch.Tensor]]
+               ) -> Dict[str, torch.Tensor]:
+    """Copy each buffer of ``home`` that a pass left elsewhere back into
+    its ``home`` tensor; returns where each buffer ended."""
+    for name, t in (home or {}).items():
+        if out[name] is not t:
+            t.copy_(out[name])
+            out[name] = t
+    return out
+
+
+def _capture_copies(dsts, srcs):
+    """A captured graph of ``dst <- src`` for each pair (one multi-tensor
+    copy), or None for no pairs."""
+    if not dsts:
+        return None
+    return graph_loop.capture(lambda: torch._foreach_copy_(list(dsts), list(srcs)))[0]
+
+
+def _reduce_into(out, reduce_fn, cond_fn, red: torch.Tensor, keep: torch.Tensor) -> None:
+    """``reduce_fn`` of a pass's buffers into the 0-d ``red`` and, given
+    ``cond_fn``, the predicate on it into the 0-d ``keep``."""
+    val = reduce_fn(out).to(torch.float32).reshape(())
+    red.copy_(val)
+    if cond_fn is None:
+        return
+    go = cond_fn(val)
+    if isinstance(go, torch.Tensor):
+        keep.copy_(go.reshape(()))
+    else:
+        keep.fill_(bool(go))
+
+
+def _reduce_programs(out, subs, reduce_fns, red: torch.Tensor, pred: torch.Tensor) -> None:
+    """Each program's reduction of the pass's buffers into ``red[k]`` and,
+    if it has one, its predicate on it into ``pred[k]``."""
+    for k, sub in enumerate(subs):
+        if sub.name in reduce_fns:
+            _reduce_into(out, reduce_fns[sub.name], sub.until, red[k], pred[k])
 
 
 def _run_persistent(mem, *, prog: STProgram, mode: str, low: Lowering,
@@ -393,5 +552,67 @@ def _run_persistent_while(mem, *, prog: STProgram, mode: str, low: Lowering,
         written = {n: step.pop(n) for n in slots}
         mem = step
         cur, alt = alt, written
+    mem.update(alt)
+    return mem
+
+
+def _run_schedule_while(mem, *, sched: STSchedule, mode: str, low: Lowering,
+                        slots: Tuple[str, ...], reduce_fns: Dict[str, Callable],
+                        reductions: torch.Tensor, n_done: torch.Tensor,
+                        coalesce: bool = True, lanes=None, sanitize: bool = False):
+    """Eager loop of the reference's masked multi-queue ``while_loop``:
+    every pass runs the whole schedule, then each program's ``active``
+    flag keeps or discards its results, so a program that stopped keeps
+    the values of its last realized pass while its packs go on publishing
+    them.  Slot pairs rotate ``(cur, alt)`` only while their program is
+    active, so each program's last realized write ends in ``alt``.
+
+    ``reductions`` (float32, (N, max count)) and ``n_done`` (int32, (N,))
+    are zeroed, then written by the plain schedule step
+    (:func:`~repro_torch.kernels.graph_loop.schedule_step_plain`).  The
+    first pass runs for every program; the loop runs while any program
+    is active.  Returns the final buffers.
+    """
+    subs = sched.subs
+    max_iters = max(s.n_iters for s in subs)
+    dev = reductions.device
+    owner = {b: k for k, s in enumerate(subs) for b in s.buffers}
+    flags = lambda keys: torch.tensor(keys, dtype=torch.bool, device=dev)
+    n_iters = torch.tensor([s.n_iters for s in subs], dtype=torch.int32, device=dev)
+    reduces = flags([s.name in reduce_fns for s in subs])
+    untils = flags([s.until is not None for s in subs])
+    red = torch.zeros(len(subs), dtype=torch.float32, device=dev)
+    pred = torch.zeros(len(subs), dtype=torch.bool, device=dev)
+    active = torch.ones(len(subs), dtype=torch.bool, device=dev)
+    i = torch.zeros((), dtype=torch.int32, device=dev)
+
+    mem = dict(mem)
+    cur = {n: mem.pop(n) for n in slots}
+    alt = {n: t.clone() for n, t in cur.items()}
+    tokens, comps = fresh_token_banks(sched)
+    reductions.zero_()
+    n_done.zero_()
+    go = True
+    while go:
+        step = dict(mem)
+        step.update(cur)
+        # the pass writes some buffers in place (deposits, unpack-adds): it
+        # runs on copies, so that a stopped program's values survive it
+        step = {n: t.clone() for n, t in step.items()}
+        new, tokens, comps = _interpret_program(
+            step, prog=sched, mode=mode, low=low, tokens=tokens, comp_tokens=comps,
+            coalesce=coalesce, lanes=lanes, sanitize=sanitize)
+        _reduce_programs(new, subs, reduce_fns, red, pred)
+        act = active.clone()
+        go = bool(graph_loop.schedule_step_plain(reductions, n_done, active, i, red, pred,
+                                                 n_iters, reduces, untils, max_iters))
+        new_cur, new_alt = {}, {}
+        for n in slots:
+            a = act[owner[n]]
+            written = new.pop(n)
+            new_cur[n] = torch.where(a, alt[n], cur[n])
+            new_alt[n] = torch.where(a, written, alt[n])
+        mem = {n: torch.where(act[owner[n]], new[n], t) for n, t in mem.items()}
+        cur, alt = new_cur, new_alt
     mem.update(alt)
     return mem

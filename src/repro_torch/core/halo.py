@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -509,14 +509,17 @@ def build_faces_part_program(cfg: FacesConfig, mesh, part: int, n_parts: int,
     return q.build(name=names[part], coalesce=coalesce)
 
 
-def build_faces_pipeline(cfg: FacesConfig, mesh, n_parts: int = 2, n_iters: int = 1,
-                         exchange: bool = True, coalesce: bool = True) -> STSchedule:
+def build_faces_pipeline(cfg: FacesConfig, mesh, n_parts: int = 2, n_iters=1,
+                         exchange: bool = True, coalesce: bool = True,
+                         tols: Optional[Sequence[float]] = None) -> STSchedule:
     """The N x-parts of ``cfg``'s domain, each marked for ``n_iters``
-    passes, composed into one schedule: linked
+    passes (one count, or one a part), composed into one schedule: linked
     (:func:`build_faces_part_program`: the x-crossing halo links tie the
     split's two ends, the ghost-plane ring every adjacent pair) or, with
     ``exchange=False``, independent (:func:`build_faces_program` of each
-    part's config)."""
+    part's config).  With ``tols``, part k runs while its residual is at
+    least ``tols[k]`` (``until=lambda r: r >= tols[k]``), ``n_iters``
+    being its bound."""
     names = part_names(n_parts)
     if exchange:
         links = [(names[0], names[-1]), (names[-1], names[0])]
@@ -530,39 +533,71 @@ def build_faces_pipeline(cfg: FacesConfig, mesh, n_parts: int = 2, n_iters: int 
         links = None
         progs = [build_faces_program(c, mesh, name=nm, coalesce=coalesce)
                  for c, nm in zip(part_configs(cfg, n_parts), names)]
-    return compose(*[p.persistent(n_iters) for p in progs], links=links)
+    counts = [n_iters] * n_parts if isinstance(n_iters, int) else list(n_iters)
+    tols = [None] * n_parts if tols is None else list(tols)
+    if len(counts) != n_parts or len(tols) != n_parts:
+        raise ValueError(f"n_iters and tols need one entry per part ({n_parts}), got "
+                         f"{n_iters!r} and {tols!r}")
+    return compose(*[p.persistent(n, until=None if tol is None else
+                                  (lambda r, tol=tol: r >= tol))
+                     for p, n, tol in zip(progs, counts, tols)], links=links)
 
 
 def run_faces_pipelined(cfg: FacesConfig, mesh, u0, *, n_iters: Optional[int] = None,
-                        tols=None, max_iters: Optional[int] = None,
+                        tols: Optional[Sequence[float]] = None,
+                        max_iters: Optional[int] = None,
                         mode: str = "dataflow", double_buffer: Optional[bool] = None,
                         donate: bool = True, n_parts: int = 2, exchange: bool = True,
                         tune: bool = False):
-    """N x-split Faces queues, composed, ``n_iters`` iterations in ONE
-    graph launch, each part on its own CUDA stream.
+    """N x-split Faces queues, composed, in ONE graph launch, each part on
+    its own CUDA stream.  Two regimes:
 
-    Returns ``(mem, stats)``; part k's field is
-    ``mem[f"{part_names(n_parts)[k]}/u"]`` (:func:`merge_parts` joins
-    them).  Linked (default), the merged field is the full-domain
-    :func:`run_faces_persistent` result bit for bit; with
-    ``exchange=False`` each part is an independent solve.  ``tols=`` (per
-    part convergence, the reference's masked multi-queue loop) and
-    ``tune=`` (the cost model) are not ported yet and raise
+    * ``n_iters=N``: every part runs N iterations.  Returns ``(mem,
+      stats)``; part k's field is ``mem[f"{part_names(n_parts)[k]}/u"]``
+      (:func:`merge_parts` joins them).  Linked (default), the merged
+      field is the full-domain :func:`run_faces_persistent` result bit
+      for bit; with ``exchange=False`` each part is an independent solve.
+    * ``tols=(tol0, ..., tol{n-1})`` and ``max_iters``: each part runs
+      until its own residual (:func:`global_residual_fn` of its part
+      config) falls below its own tolerance, the device deciding (the
+      masked multi-queue loop).  Returns ``(mem, residuals, n_done,
+      stats)``, ``residuals[name]`` cut to the realized length and
+      ``n_done[name]`` ints.  With ``exchange=False`` each part equals
+      its own :func:`run_faces_until_converged` bit for bit; linked, a
+      part that stopped freezes while its neighbours go on reading its
+      frozen boundary, so the merged field is a staged solve, not the
+      full domain's.
+
+    ``tune=`` (the cost model) is not ported yet and raises
     ``NotImplementedError``.
     """
-    from .engine_persistent import MASKED_LOOP, PersistentEngine
+    from .engine_persistent import PersistentEngine
 
     if tune:
         raise NotImplementedError("tune=: the cost model and tuner are not ported "
                                   "yet: see ROADMAP.md, 'Cost model and tuner'")
-    if tols is not None or max_iters is not None:
-        raise NotImplementedError(f"tols=/max_iters=: {MASKED_LOOP}")
-    if n_iters is None:
+    if (n_iters is None) == (tols is None):
         raise ValueError("pass exactly one of n_iters= or tols=")
-    sched = build_faces_pipeline(cfg, mesh, n_parts, n_iters, exchange)
-    eng = PersistentEngine(sched, mode=mode, double_buffer=double_buffer, donate=donate)
-    init = {f"{nm}/u": p for nm, p in zip(part_names(n_parts), split_parts(u0, n_parts))}
-    return eng(eng.init_buffers(init)), eng.stats
+    if tols is not None:
+        if max_iters is None:
+            raise ValueError("tols= requires max_iters=")
+        if len(tols) != n_parts:
+            raise ValueError(f"tols needs one tolerance per part ({n_parts}), got {tols!r}")
+    names = part_names(n_parts)
+    sched = build_faces_pipeline(cfg, mesh, n_parts, n_iters if tols is None else max_iters,
+                                 exchange, tols=tols)
+    reduce_fns = None if tols is None else {
+        nm: global_residual_fn(c, buf=f"{nm}/u")
+        for nm, c in zip(names, part_configs(cfg, n_parts))}
+    eng = PersistentEngine(sched, mode=mode, double_buffer=double_buffer, donate=donate,
+                           reduce_fns=reduce_fns)
+    init = {f"{nm}/u": p for nm, p in zip(names, split_parts(u0, n_parts))}
+    if tols is None:
+        return eng(eng.init_buffers(init)), eng.stats
+    mem, reds, n_done = eng(eng.init_buffers(init))
+    n_done = {nm: int(v) for nm, v in n_done.items()}
+    reds = {nm: r[:n_done[nm]] for nm, r in reds.items()}
+    return mem, reds, n_done, eng.stats
 
 
 # --------------------------------------------------------------------------

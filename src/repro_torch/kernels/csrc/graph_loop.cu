@@ -35,6 +35,34 @@
 // the step inside the IF body writes its own decision there, and a join kernel
 // hands `flag` to the WHILE handle (each kernel sets a handle of the graph
 // that holds it).
+//
+// The masked schedule loop (replaces the lax.while_loop of _run_schedule_while,
+// src/repro/core/engine_persistent.py:504-604, which masks every buffer with
+// jnp.where each iteration) runs N composed programs, each to its own count
+// or predicate, in one launch:
+//
+//   init(active = 1, n_done = 0, reductions = 0, iter = 0) -> WHILE(loop) {
+//       pass A -> sched_step(sets pair, restore_a[k], snapshot_a[k], flag)
+//              -> IF(restore_a[k]){..} IF(snapshot_a[k]){..}  (each k)
+//              -> IF(pair){ pass B -> sched_step(sets restore_b[k],
+//                           snapshot_b[k], flag) -> IF nodes of B }
+//              -> join(loop = flag) }
+//   -> parity(iter) -> IF(even){ select_even } -> IF(odd){ select_odd }
+//
+// Every pass runs every program (a frozen program's packs keep publishing its
+// frozen boundary).  The schedule step (one warp, a thread a program, k < 32)
+// does what the reference's body does after its pass: where active[k], the
+// pass's reduction red[k] goes to reductions[k][iter]; n_done[k] += active[k];
+// keep[k] = active[k] && n_done[k] < n_iters[k] && (pred[k] if k has a
+// predicate); active <- keep; iter += 1; the loop goes on iff any(keep) &&
+// iter < max_iters.  It also sets two IF handles a program: snapshot[k] on the
+// trip where k stops (its results are copied aside) and restore[k] on every
+// trip that ran while k was frozen (the copies are put back where the next
+// pass and the final select read k's buffers), so the pass's writes into a
+// frozen program's buffers, its own and its neighbours' deposits alike, are
+// discarded.  Each handle is created in the graph that holds its IF node and
+// set by the step kernel of that graph.  Bound: per program it reads 13 bytes
+// and writes 12, so its cost is its launch, as loop_step's.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -73,19 +101,81 @@ __global__ void loop_parity(cudaGraphConditionalHandle even, int has_even,
   if (has_odd) cudaGraphSetConditional(odd, 1u - is_even);
 }
 
+constexpr int kMaxPrograms = 32;
+
+// The schedule step's arguments, passed by value (about 800 bytes).
+struct SchedStep {
+  const float* red;            // [n_programs] the pass's reductions
+  const unsigned char* pred;   // [n_programs] the pass's predicates (bool)
+  int* active;                 // [n_programs]
+  int* n_done;                 // [n_programs]
+  float* reductions;           // [n_programs][max_iters]
+  int* iter;                   // passes run by this launch
+  int* flag;                   // the loop's decision, for the join
+  int n_programs;
+  int max_iters;
+  unsigned int reduce_mask;    // bit k: program k has a reduction
+  unsigned int until_mask;     // bit k: program k has a predicate
+  unsigned int freeze_mask;    // bit k: program k has snapshot/restore bodies
+  int set_pair;
+  int n_iters[kMaxPrograms];
+  cudaGraphConditionalHandle pair;
+  cudaGraphConditionalHandle restore[kMaxPrograms];
+  cudaGraphConditionalHandle snapshot[kMaxPrograms];
+};
+
+__global__ void sched_step(SchedStep s) {
+  const int k = threadIdx.x;
+  const int i = *s.iter;
+  int keep = 0;
+  if (k < s.n_programs) {
+    const int a = s.active[k] != 0;
+    if (a && ((s.reduce_mask >> k) & 1u) && i < s.max_iters)
+      s.reductions[k * s.max_iters + i] = s.red[k];
+    const int n = s.n_done[k] + a;
+    s.n_done[k] = n;
+    keep = a && n < s.n_iters[k] && (((s.until_mask >> k) & 1u) ? s.pred[k] != 0 : 1);
+    s.active[k] = keep;
+    if ((s.freeze_mask >> k) & 1u) {
+      cudaGraphSetConditional(s.restore[k], a ? 0u : 1u);
+      cudaGraphSetConditional(s.snapshot[k], (a && !keep) ? 1u : 0u);
+    }
+  }
+  const int any = __syncthreads_or(keep);
+  if (k == 0) {
+    const int n = i + 1;
+    *s.iter = n;
+    const unsigned int go = (any && n < s.max_iters) ? 1u : 0u;
+    *s.flag = static_cast<int>(go);
+    if (s.set_pair) cudaGraphSetConditional(s.pair, go);
+  }
+}
+
+__global__ void sched_init(int* __restrict__ active, int* __restrict__ n_done,
+                           float* __restrict__ reductions, int* __restrict__ iter,
+                           int n_programs, int n_reductions) {
+  for (int t = threadIdx.x; t < n_reductions; t += blockDim.x) reductions[t] = 0.0f;
+  for (int k = threadIdx.x; k < n_programs; k += blockDim.x) {
+    active[k] = 1;
+    n_done[k] = 0;
+  }
+  if (threadIdx.x == 0) *iter = 0;
+}
+
 cudaError_t add_kernel(cudaGraphNode_t* node, cudaGraph_t graph, cudaGraphNode_t dep,
-                       void* func, void** args) {
+                       void* func, void** args, int threads = 1) {
   cudaKernelNodeParams p = {};
   p.func = func;
   p.gridDim = dim3(1, 1, 1);
-  p.blockDim = dim3(1, 1, 1);
+  p.blockDim = dim3(threads, 1, 1);
   p.sharedMemBytes = 0;
   p.kernelParams = args;
   p.extra = nullptr;
-  return cudaGraphAddKernelNode(node, graph, &dep, 1, &p);
+  return cudaGraphAddKernelNode(node, graph, &dep, dep ? 1 : 0, &p);
 }
 
-cudaError_t add_conditional(cudaGraphNode_t* node, cudaGraph_t graph, cudaGraphNode_t dep,
+cudaError_t add_conditional(cudaGraphNode_t* node, cudaGraph_t graph,
+                            const cudaGraphNode_t* deps, size_t n_deps,
                             cudaGraphConditionalHandle handle,
                             cudaGraphConditionalNodeType type, cudaGraph_t* body) {
   cudaGraphNodeParams p = {};
@@ -94,9 +184,9 @@ cudaError_t add_conditional(cudaGraphNode_t* node, cudaGraph_t graph, cudaGraphN
   p.conditional.type = type;
   p.conditional.size = 1;
 #if CUDART_VERSION >= 13000
-  cudaError_t e = cudaGraphAddNode(node, graph, &dep, nullptr, 1, &p);
+  cudaError_t e = cudaGraphAddNode(node, graph, deps, nullptr, n_deps, &p);
 #else
-  cudaError_t e = cudaGraphAddNode(node, graph, &dep, 1, &p);
+  cudaError_t e = cudaGraphAddNode(node, graph, deps, n_deps, &p);
 #endif
   if (e == cudaSuccess) *body = p.conditional.phGraph_out[0];
   return e;
@@ -126,7 +216,7 @@ cudaError_t add_select(cudaGraph_t graph, cudaGraphNode_t dep,
   if (body == nullptr) return cudaSuccess;
   cudaGraphNode_t node, child;
   cudaGraph_t if_body;
-  TRY(add_conditional(&node, graph, dep, handle, cudaGraphCondTypeIf, &if_body));
+  TRY(add_conditional(&node, graph, &dep, 1, handle, cudaGraphCondTypeIf, &if_body));
   return cudaGraphAddChildGraphNode(&child, if_body, nullptr, 0, body);
 }
 
@@ -143,12 +233,12 @@ cudaError_t build(cudaGraph_t graph, cudaGraph_t pass_a, cudaGraph_t pass_b,
   TRY(add_memset(&reset_n, graph, nullptr, n_done, 1));
   TRY(add_memset(&reset_r, graph, &reset_n, reductions, static_cast<size_t>(max_iters)));
   TRY(cudaGraphConditionalHandleCreate(&h_loop, graph, 1, cudaGraphCondAssignDefault));
-  TRY(add_conditional(&loop, graph, reset_r, h_loop, cudaGraphCondTypeWhile, &body));
+  TRY(add_conditional(&loop, graph, &reset_r, 1, h_loop, cudaGraphCondTypeWhile, &body));
   TRY(cudaGraphAddChildGraphNode(&a, body, nullptr, 0, pass_a));
   TRY(cudaGraphConditionalHandleCreate(&h_pair, body, 0, cudaGraphCondAssignDefault));
   void* args_a[] = {&h_pair, &set, &red, &keep, &reductions, &n_done, &flag, &max_iters};
   TRY(add_kernel(&step, body, a, reinterpret_cast<void*>(loop_step), args_a));
-  TRY(add_conditional(&pair, body, step, h_pair, cudaGraphCondTypeIf, &pair_body));
+  TRY(add_conditional(&pair, body, &step, 1, h_pair, cudaGraphCondTypeIf, &pair_body));
   TRY(cudaGraphAddChildGraphNode(&b, pair_body, nullptr, 0, pass_b));
   void* args_b[] = {&h_pair, &unset, &red, &keep, &reductions, &n_done, &flag, &max_iters};
   TRY(add_kernel(&step_b, pair_body, b, reinterpret_cast<void*>(loop_step), args_b));
@@ -158,6 +248,92 @@ cudaError_t build(cudaGraph_t graph, cudaGraph_t pass_a, cudaGraph_t pass_b,
   if (has_even) TRY(cudaGraphConditionalHandleCreate(&h_even, graph, 0, 0));
   if (has_odd) TRY(cudaGraphConditionalHandleCreate(&h_odd, graph, 0, 0));
   void* args_parity[] = {&h_even, &has_even, &h_odd, &has_odd, &n_done};
+  TRY(add_kernel(&parity, graph, loop, reinterpret_cast<void*>(loop_parity), args_parity));
+  TRY(add_select(graph, parity, h_even, select_even));
+  return add_select(graph, parity, h_odd, select_odd);
+}
+
+// Creates in `graph` the handles of the restore and snapshot IF nodes of each
+// program that has freeze bodies (a kernel's parameters are copied when its
+// node is added, so the handles exist before the step that sets them).
+cudaError_t create_freeze_handles(cudaGraph_t graph, SchedStep* s) {
+  for (int k = 0; k < s->n_programs; ++k) {
+    if (!((s->freeze_mask >> k) & 1u)) continue;
+    TRY(cudaGraphConditionalHandleCreate(&s->restore[k], graph, 0, cudaGraphCondAssignDefault));
+    TRY(cudaGraphConditionalHandleCreate(&s->snapshot[k], graph, 0,
+                                         cudaGraphCondAssignDefault));
+  }
+  return cudaSuccess;
+}
+
+// Adds, after `dep`, IF(restore[k]){ restore body } and IF(snapshot[k]){
+// snapshot body } for each program k that has them: freeze[4k + 2 pass + j],
+// j 0 the restore and 1 the snapshot, pass 0 for A and 1 for B (all four
+// given, checked by the entry point).  The new nodes are appended to `ends`.
+cudaError_t add_freeze_nodes(cudaGraph_t graph, cudaGraphNode_t dep,
+                             cudaGraph_t const* freeze, int pass, const SchedStep& s,
+                             std::vector<cudaGraphNode_t>* ends) {
+  for (int k = 0; k < s.n_programs; ++k) {
+    if (!((s.freeze_mask >> k) & 1u)) continue;
+    const cudaGraphConditionalHandle handles[2] = {s.restore[k], s.snapshot[k]};
+    for (int j = 0; j < 2; ++j) {
+      cudaGraph_t body = freeze[4 * k + 2 * pass + j];
+      cudaGraphNode_t node, child;
+      cudaGraph_t if_body;
+      TRY(add_conditional(&node, graph, &dep, 1, handles[j], cudaGraphCondTypeIf, &if_body));
+      TRY(cudaGraphAddChildGraphNode(&child, if_body, nullptr, 0, body));
+      ends->push_back(node);
+    }
+  }
+  return cudaSuccess;
+}
+
+// Builds the masked schedule loop's outer graph into `graph` (the caller's
+// wrapper creates it).  `s` holds the pointers, counts and masks; the handles
+// are filled in here.
+cudaError_t build_schedule(cudaGraph_t graph, cudaGraph_t pass_a, cudaGraph_t pass_b,
+                           cudaGraph_t const* freeze, cudaGraph_t select_even,
+                           cudaGraph_t select_odd, SchedStep s) {
+  cudaGraphNode_t init, loop, a, step, pair, b, step_b, join, parity;
+  cudaGraph_t body, pair_body;
+  cudaGraphConditionalHandle h_loop, h_even = 0, h_odd = 0;
+  int n_reductions = s.n_programs * s.max_iters;
+  void* args_init[] = {&s.active, &s.n_done, &s.reductions, &s.iter, &s.n_programs,
+                       &n_reductions};
+  TRY(add_kernel(&init, graph, nullptr, reinterpret_cast<void*>(sched_init), args_init, 256));
+  TRY(cudaGraphConditionalHandleCreate(&h_loop, graph, 1, cudaGraphCondAssignDefault));
+  TRY(add_conditional(&loop, graph, &init, 1, h_loop, cudaGraphCondTypeWhile, &body));
+  // pass A, its step, its freeze nodes, then the IF node of pass B after all
+  SchedStep sa = s;
+  sa.set_pair = 1;
+  TRY(cudaGraphConditionalHandleCreate(&sa.pair, body, 0, cudaGraphCondAssignDefault));
+  TRY(create_freeze_handles(body, &sa));
+  TRY(cudaGraphAddChildGraphNode(&a, body, nullptr, 0, pass_a));
+  void* args_a[] = {&sa};
+  TRY(add_kernel(&step, body, a, reinterpret_cast<void*>(sched_step), args_a, kMaxPrograms));
+  std::vector<cudaGraphNode_t> ends;
+  TRY(add_freeze_nodes(body, step, freeze, 0, sa, &ends));
+  if (ends.empty()) ends.push_back(step);
+  TRY(add_conditional(&pair, body, ends.data(), ends.size(), sa.pair, cudaGraphCondTypeIf,
+                      &pair_body));
+  // inside the pair: pass B, its step and its freeze nodes
+  SchedStep sb = s;
+  sb.set_pair = 0;
+  TRY(create_freeze_handles(pair_body, &sb));
+  TRY(cudaGraphAddChildGraphNode(&b, pair_body, nullptr, 0, pass_b));
+  void* args_b[] = {&sb};
+  TRY(add_kernel(&step_b, pair_body, b, reinterpret_cast<void*>(sched_step), args_b,
+                 kMaxPrograms));
+  std::vector<cudaGraphNode_t> ends_b;
+  TRY(add_freeze_nodes(pair_body, step_b, freeze, 1, sb, &ends_b));
+  void* args_join[] = {&h_loop, &s.flag};
+  TRY(add_kernel(&join, body, pair, reinterpret_cast<void*>(loop_join), args_join));
+  // after the loop: the select of the last pass's parity (iter odd: pass A)
+  int has_even = select_even != nullptr, has_odd = select_odd != nullptr;
+  if (!has_even && !has_odd) return cudaSuccess;
+  if (has_even) TRY(cudaGraphConditionalHandleCreate(&h_even, graph, 0, 0));
+  if (has_odd) TRY(cudaGraphConditionalHandleCreate(&h_odd, graph, 0, 0));
+  void* args_parity[] = {&h_even, &has_even, &h_odd, &has_odd, &s.iter};
   TRY(add_kernel(&parity, graph, loop, reinterpret_cast<void*>(loop_parity), args_parity));
   TRY(add_select(graph, parity, h_even, select_even));
   return add_select(graph, parity, h_odd, select_odd);
@@ -209,6 +385,62 @@ int rt_graph_loop_build(void* pass_a, void* pass_b, void* select_even, void* sel
             static_cast<const float*>(red), static_cast<const unsigned char*>(keep),
             static_cast<float*>(reductions), static_cast<int*>(n_done),
             static_cast<int*>(flag), max_iters);
+  cudaGraphExec_t exec = nullptr;
+  if (e == cudaSuccess) e = cudaGraphInstantiate(&exec, graph, 0);
+  if (e != cudaSuccess) {
+    cudaGraphDestroy(graph);
+    return e;
+  }
+  out[0] = graph;
+  out[1] = exec;
+  return cudaSuccess;
+}
+
+// The masked schedule loop.  pass_a, pass_b: raw cudaGraph_t; freeze: 4 x
+// n_programs raw cudaGraph_t (restore A, snapshot A, restore B, snapshot B of
+// each program; any may be null); select_even, select_odd may be null.  red:
+// float32 [n]; pred: bool [n]; active, n_done: int32 [n]; reductions: float32
+// [n][max_iters]; iter, flag: int32 0-d; n_iters: n host ints.  Bit k of
+// reduce_mask / until_mask: program k has a reduction / a predicate; of
+// freeze_mask: program k has freeze bodies.  out as rt_graph_loop_build's.
+int rt_schedule_loop_build(void* pass_a, void* pass_b, void** freeze, void* select_even,
+                           void* select_odd, void* red, void* pred, void* active,
+                           void* n_done, void* reductions, void* iter, void* flag,
+                           const int* n_iters, int n_programs, int max_iters,
+                           unsigned int reduce_mask, unsigned int until_mask,
+                           unsigned int freeze_mask, void** out) {
+  int installed = 0;
+  cudaError_t e = cudaDriverGetVersion(&installed);
+  if (e != cudaSuccess) return e;
+  if (installed < 12040) return cudaErrorInsufficientDriver;
+  if (max_iters < 1 || n_programs < 1 || n_programs > kMaxPrograms || pass_a == nullptr ||
+      pass_b == nullptr)
+    return cudaErrorInvalidValue;
+  SchedStep s = {};
+  s.red = static_cast<const float*>(red);
+  s.pred = static_cast<const unsigned char*>(pred);
+  s.active = static_cast<int*>(active);
+  s.n_done = static_cast<int*>(n_done);
+  s.reductions = static_cast<float*>(reductions);
+  s.iter = static_cast<int*>(iter);
+  s.flag = static_cast<int*>(flag);
+  s.n_programs = n_programs;
+  s.max_iters = max_iters;
+  s.reduce_mask = reduce_mask;
+  s.until_mask = until_mask;
+  s.freeze_mask = freeze_mask;
+  for (int k = 0; k < n_programs; ++k) {
+    s.n_iters[k] = n_iters[k];
+    for (int j = 0; j < 4 && ((freeze_mask >> k) & 1u); ++j)
+      if (freeze[4 * k + j] == nullptr) return cudaErrorInvalidValue;
+  }
+  if (n_programs < kMaxPrograms && (freeze_mask >> n_programs) != 0) return cudaErrorInvalidValue;
+  cudaGraph_t graph = nullptr;
+  if ((e = cudaGraphCreate(&graph, 0)) != cudaSuccess) return e;
+  e = build_schedule(graph, static_cast<cudaGraph_t>(pass_a), static_cast<cudaGraph_t>(pass_b),
+                     reinterpret_cast<cudaGraph_t const*>(freeze),
+                     static_cast<cudaGraph_t>(select_even), static_cast<cudaGraph_t>(select_odd),
+                     s);
   cudaGraphExec_t exec = nullptr;
   if (e == cudaSuccess) e = cudaGraphInstantiate(&exec, graph, 0);
   if (e != cudaSuccess) {

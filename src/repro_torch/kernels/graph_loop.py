@@ -23,22 +23,37 @@ The graph needs CUDA 12.4 or later, both at build and installed;
 without it building the graph raises.  ``GraphLoop.launches`` counts the step kernels
 built into graphs, two a loop (a graphed launch counts once, when it
 is recorded, as the other kernels' counters do).
+
+:class:`ScheduleLoop` is the masked multi-queue loop of a composed
+schedule (the reference's ``_run_schedule_while``): every trip runs
+every program's pass, and the schedule step kernel (one warp, a thread
+a program; :func:`schedule_step_plain` is its plain version) records
+each active program's reduction, counts its pass, decides whether it
+goes on, and sets two IF handles a program.  ``snapshot[k]`` fires on
+the trip where program k stops, and its graph copies k's buffers aside;
+``restore[k]`` fires on every later trip, and its graph copies them
+back to where the next pass and the final select read them: what a pass
+wrote into a frozen program's buffers is discarded, while its packs
+still publish the frozen boundary.  ``ScheduleLoop.launches`` counts
+its step kernels as ``GraphLoop.launches`` does.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from .build import check_launch, load_library, stream_arg
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _INVALID_VALUE = 1  # cudaErrorInvalidValue
 #: the C entry points of ``csrc/graph_loop.cu`` and their argument types
 SIGNATURES = {
     "rt_graph_loop_build": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "rt_schedule_loop_build": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                               _I, _U, _U, _U, _P],
     "rt_graph_loop_launch": [_P, _P],
     "rt_graph_loop_destroy": [_P, _P],
     "rt_graph_node_types": [_P, _P, _I],
@@ -51,6 +66,8 @@ NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_even
 #: node types a conditional body may not hold
 NOT_IN_A_BODY = ("host", "wait_event", "event_record", "ext_semaphore_signal",
                  "ext_semaphore_wait", "mem_alloc", "mem_free", "batch_mem_op")
+#: programs a schedule loop takes (a warp: a thread and a mask bit each)
+MAX_PROGRAMS = 32
 
 
 def step_plain(reductions: torch.Tensor, n_done: torch.Tensor, red: torch.Tensor,
@@ -62,6 +79,28 @@ def step_plain(reductions: torch.Tensor, n_done: torch.Tensor, red: torch.Tensor
     n_done.add_(1)
     keep = torch.as_tensor(keep, dtype=torch.bool, device=n_done.device)
     return torch.logical_and(keep.reshape(()), n_done < max_iters)
+
+
+def schedule_step_plain(reductions: torch.Tensor, n_done: torch.Tensor,
+                        active: torch.Tensor, i: torch.Tensor, red: torch.Tensor,
+                        pred: torch.Tensor, n_iters: torch.Tensor, reduces: torch.Tensor,
+                        untils: torch.Tensor, max_iters: int) -> torch.Tensor:
+    """The schedule step kernel's plain version, after a pass of N
+    programs, all in place: where ``active[k]`` and program k has a
+    reduction (``reduces[k]``), ``reductions[k, i] = red[k]``;
+    ``n_done += active``; ``active[k] = active[k] and n_done[k] <
+    n_iters[k] and (pred[k] if untils[k])``; ``i += 1``.  Returns the 0-d
+    bool ``any(active) and i < max_iters``: whether the loop runs again.
+    ``reductions`` float32 (N, max_iters); ``n_done``, ``n_iters`` int32
+    (N,); ``active``, ``pred``, ``reduces``, ``untils`` bool (N,); ``red``
+    float32 (N,); ``i`` int32 0-d."""
+    column = torch.arange(reductions.shape[1], device=reductions.device) == i
+    write = column[None, :] & (active & reduces)[:, None]
+    reductions.copy_(torch.where(write, red.to(reductions.dtype)[:, None], reductions))
+    n_done.add_(active.to(n_done.dtype))
+    active.logical_and_(n_done < n_iters).logical_and_(pred | ~untils)
+    i.add_(1)
+    return torch.logical_and(active.any(), i < max_iters)
 
 
 def _lib():
@@ -80,7 +119,26 @@ def _raw(graph: torch.cuda.CUDAGraph) -> ctypes.c_void_p:
     return ctypes.c_void_p(graph.raw_cuda_graph())
 
 
-class GraphLoop:
+class _LoopGraph:
+    """An instantiated graph of ``csrc/graph_loop.cu``: one launch a call,
+    freed with the object."""
+
+    def launch(self) -> None:
+        """Launch the loop once on the current stream (no host sync)."""
+        check_launch("graph_loop", _lib().rt_graph_loop_launch(
+            ctypes.c_void_p(self._exec), stream_arg(self._flag)))
+        self.graph_launches += 1
+
+    def __del__(self):
+        graph, exec_ = getattr(self, "_graph", None), getattr(self, "_exec", None)
+        if graph is not None or exec_ is not None:
+            try:
+                _lib().rt_graph_loop_destroy(ctypes.c_void_p(graph), ctypes.c_void_p(exec_))
+            except Exception:
+                pass  # interpreter shutdown: CUDA frees it with the context
+
+
+class GraphLoop(_LoopGraph):
     """One instantiated loop graph (see the module docstring).
 
     ``pass_a`` and ``pass_b`` (and the optional ``select_even``,
@@ -123,19 +181,81 @@ class GraphLoop:
         GraphLoop.launches += 2
         self.graph_launches = 0
 
-    def launch(self) -> None:
-        """Launch the loop once on the current stream (no host sync)."""
-        check_launch("graph_loop", _lib().rt_graph_loop_launch(
-            ctypes.c_void_p(self._exec), stream_arg(self._flag)))
-        self.graph_launches += 1
 
-    def __del__(self):
-        graph, exec_ = getattr(self, "_graph", None), getattr(self, "_exec", None)
-        if graph is not None or exec_ is not None:
-            try:
-                _lib().rt_graph_loop_destroy(ctypes.c_void_p(graph), ctypes.c_void_p(exec_))
-            except Exception:
-                pass  # interpreter shutdown: CUDA frees it with the context
+class ScheduleLoop(_LoopGraph):
+    """One instantiated masked schedule loop (see the module docstring).
+
+    ``pass_a`` and ``pass_b`` are captured passes of all N programs; each
+    leaves program k's reduction in ``red[k]`` (float32, (N,)) and its
+    predicate in ``pred[k]`` (bool, (N,)).  ``freeze[k]`` is None or the
+    four graphs ``(restore_a, snapshot_a, restore_b, snapshot_b)`` of
+    program k: after pass A (B), the restore graph runs if k was frozen
+    during the pass and the snapshot graph if k stopped after it.  The
+    loop writes ``active`` and ``n_done`` (int32, (N,)), ``reductions``
+    (float32, (N, max_iters)) and :attr:`iter` (the passes it ran, 0-d
+    int32), whose parity picks ``select_even`` or ``select_odd`` after
+    the loop.  ``n_iters`` are the programs' counts, ``reduces`` and
+    ``untils`` whether each has a reduction and a predicate.  A graph
+    holding a node type that a conditional body may not hold raises
+    ``ValueError`` before anything is built.
+    """
+
+    launches = 0
+
+    def __init__(self, pass_a, pass_b, freeze, red: torch.Tensor, pred: torch.Tensor,
+                 active: torch.Tensor, n_done: torch.Tensor, reductions: torch.Tensor,
+                 n_iters: Sequence[int], reduces: Sequence[bool], untils: Sequence[bool],
+                 max_iters: int, select_even=None, select_odd=None):
+        n = len(n_iters)
+        if not 1 <= n <= MAX_PROGRAMS:
+            raise ValueError(f"a schedule loop takes 1 to {MAX_PROGRAMS} programs, got {n}")
+        if not (len(freeze) == len(reduces) == len(untils) == n):
+            raise ValueError("freeze, reduces and untils need one entry a program")
+        if max_iters < max(n_iters) or min(n_iters) < 1:
+            raise ValueError(f"counts {list(n_iters)} must lie in 1..max_iters ({max_iters})")
+        device = n_done.device
+        if device.type != "cuda":
+            raise ValueError(f"the loop graph runs on a CUDA device, got {device}")
+        _check(red, "red", torch.float32, (n,), device)
+        _check(pred, "pred", torch.bool, (n,), device)
+        _check(active, "active", torch.int32, (n,), device)
+        _check(n_done, "n_done", torch.int32, (n,), device)
+        _check(reductions, "reductions", torch.float32, (n, max_iters), device)
+        graphs = [pass_a, pass_b, select_even, select_odd]
+        for k, f in enumerate(freeze):
+            if f is not None and (len(f) != 4 or any(g is None for g in f)):
+                raise ValueError(f"freeze[{k}]: want None or four graphs")
+            graphs += list(f or ())
+        for g in graphs:
+            if g is None:
+                continue
+            bad = set(node_types(g)) & set(NOT_IN_A_BODY)
+            if bad:
+                raise ValueError(f"a captured graph holds {sorted(bad)} nodes, which a "
+                                 f"conditional body may not hold: {node_types(g)}")
+        self.device = device
+        self.max_iters = int(max_iters)
+        self.iter = torch.zeros((), dtype=torch.int32, device=device)
+        self._flag = torch.zeros((), dtype=torch.int32, device=device)
+        self.passes = tuple(g for g in graphs if g is not None)
+        self.freeze = tuple(freeze)
+        self._held = (red, pred, active, n_done, reductions)
+        mask = lambda bits: sum(1 << k for k, b in enumerate(bits) if b)
+        raw_freeze = (ctypes.c_void_p * (4 * n))(
+            *[None if f is None else _raw(g).value for f in freeze for g in (f or (None,) * 4)])
+        counts = (ctypes.c_int * n)(*[int(c) for c in n_iters])
+        out = (ctypes.c_void_p * 2)()
+        ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+        check_launch("graph_loop", _lib().rt_schedule_loop_build(
+            _raw(pass_a), _raw(pass_b), raw_freeze,
+            ctypes.c_void_p(None) if select_even is None else _raw(select_even),
+            ctypes.c_void_p(None) if select_odd is None else _raw(select_odd),
+            ptr(red), ptr(pred), ptr(active), ptr(n_done), ptr(reductions),
+            ptr(self.iter), ptr(self._flag), counts, n, self.max_iters,
+            mask(reduces), mask(untils), mask(f is not None for f in freeze), out))
+        self._graph, self._exec = out[0], out[1]
+        ScheduleLoop.launches += 2
+        self.graph_launches = 0
 
 
 def node_types(graph: torch.cuda.CUDAGraph) -> Dict[str, int]:
@@ -230,11 +350,11 @@ def _max_matching(adj: List[int]) -> int:
 
 def launch_counts() -> Dict[str, int]:
     """Step kernels built into loop graphs since the last reset."""
-    return {"graph_loop_step": GraphLoop.launches}
+    return {"graph_loop_step": GraphLoop.launches, "schedule_step": ScheduleLoop.launches}
 
 
 def reset_launches() -> None:
-    GraphLoop.launches = 0
+    GraphLoop.launches = ScheduleLoop.launches = 0
 
 
 def capture(fn):
@@ -289,4 +409,75 @@ def trace_plain(trace: torch.Tensor, tol: float, max_iters: int):
     while keep:
         r = trace[int(n_done)]
         keep = bool(step_plain(reductions, n_done, r, r >= tol, max_iters))
+    return reductions, n_done
+
+
+def trace_schedule_loop(traces: torch.Tensor, tols: Sequence[Optional[float]],
+                        n_iters: Sequence[int], max_iters: int):
+    """A schedule loop of N programs whose passes replay known reduction
+    traces (CUDA float32, (N, at least max_iters)): on pass i program k
+    leaves ``traces[k, i]`` and ``traces[k, i] >= tols[k]`` (no predicate
+    where ``tols[k]`` is None) and adds one to a counter ``v[k]``, which
+    its freeze graphs keep once it stops: after a launch ``v[k] ==
+    n_done[k]`` if the snapshots, restores and parity selects put each
+    program's values where they belong.  Returns ``(loop, reductions,
+    n_done, v)``; what the schedule step is held against
+    :func:`trace_schedule_plain` with."""
+    dev = traces.device
+    n = len(n_iters)
+    red = torch.zeros(n, dtype=torch.float32, device=dev)
+    pred = torch.zeros(n, dtype=torch.bool, device=dev)
+    active = torch.ones(n, dtype=torch.int32, device=dev)
+    n_done = torch.zeros(n, dtype=torch.int32, device=dev)
+    reductions = torch.zeros(n, max_iters, dtype=torch.float32, device=dev)
+    tol = torch.tensor([float("-inf") if t is None else t for t in tols], device=dev)
+    home = [torch.zeros((), dtype=torch.int32, device=dev) for _ in range(n)]
+    snaps = [torch.zeros((), dtype=torch.int32, device=dev) for _ in range(n)]
+    last = traces.shape[1] - 1
+
+    def feed(values, back=None):
+        # an active program has run n_done[k] passes before this one; the
+        # step ignores what a frozen program leaves
+        red.copy_(traces.gather(1, n_done.long().clamp(max=last)[:, None]).reshape(n))
+        pred.copy_(red >= tol)
+        out = [v + 1 for v in values]
+        for h, o in zip(back or (), out):
+            h.copy_(o)
+        return out
+
+    feed(home)
+    torch.cuda.synchronize(dev)
+    pass_a, out_a = capture(lambda: feed(home))
+    pass_b, out_b = capture(lambda: feed(out_a, home))
+    copies = lambda dst, src: capture(lambda: torch._foreach_copy_(dst, src))[0]
+    freeze = [(copies([out_a[k]], [snaps[k]]), copies([snaps[k]], [out_a[k]]),
+               copies([home[k]], [snaps[k]]), copies([snaps[k]], [home[k]]))
+              for k in range(n)]
+    select_odd = copies(home, out_a)
+    loop = ScheduleLoop(pass_a, pass_b, freeze, red, pred, active, n_done, reductions,
+                        n_iters, [True] * n, [t is not None for t in tols], max_iters,
+                        select_odd=select_odd)
+    loop.inputs = (traces, tol, home, snaps, out_a, out_b)
+    return loop, reductions, n_done, home
+
+
+def trace_schedule_plain(traces: torch.Tensor, tols: Sequence[Optional[float]],
+                         n_iters: Sequence[int], max_iters: int):
+    """:func:`trace_schedule_loop`'s loop with the plain step, eagerly on
+    the CPU: ``(reductions, n_done)``."""
+    traces = traces.cpu()
+    n = len(n_iters)
+    reductions = torch.zeros(n, max_iters, dtype=torch.float32)
+    n_done = torch.zeros(n, dtype=torch.int32)
+    active = torch.ones(n, dtype=torch.bool)
+    i = torch.zeros((), dtype=torch.int32)
+    tol = torch.tensor([float("-inf") if t is None else t for t in tols])
+    untils = torch.tensor([t is not None for t in tols])
+    keep = True
+    while keep:
+        red = traces[:, int(i)]
+        keep = bool(schedule_step_plain(
+            reductions, n_done, active, i, red, red >= tol,
+            torch.tensor(list(n_iters), dtype=torch.int32), torch.ones(n, dtype=torch.bool),
+            untils, max_iters))
     return reductions, n_done

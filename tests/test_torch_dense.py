@@ -18,7 +18,9 @@ forward and 5e-3 for decode, ``tests/test_models.py``), and served
 tokens equal.  A prompt prefilled in two chunks (the second at depth
 24, the key of the prefill graph on the card) through the serve engine,
 then decoded, is held for both sizes and the mamba2 smoke model at 32
-float32 ulps of each tensor's largest value.
+float32 ulps of each tensor's largest value.  With an EOS id that the
+models emit mid-stream (four ids a size), both serve modes stop each
+slot where JAX's engine does: equal tokens and ``decode_tokens``.
 """
 
 import dataclasses
@@ -303,3 +305,33 @@ def test_serve_window_tokens_equal_jax(pair, served):
         np.testing.assert_array_equal(out["torch", mode][0], out["jax", mode][0])
     unwindowed = served["torch", True][0]
     assert (out["torch", True][0] != unwindowed).any(), "the window changed nothing"
+
+
+# EOS ids that the boosted smoke models emit mid-stream, by depth
+EOS_IDS = {2: (4, 190, 253, 281), 6: (75, 310, 340, 438)}
+
+
+@pytest.mark.parametrize("k", range(4))
+def test_eos_tokens_equal_jax(pair, k):
+    """An EOS id stops its slot where JAX's engine stops it, in both modes:
+    the port's tokens and ``decode_tokens`` equal JAX's."""
+    jm, jp, m, params = pair
+    eos = EOS_IDS[m.cfg.n_layers][k]
+    mesh = jax_make_mesh((1, 1), ("data", "model"))
+    jeng = JaxServeEngine(jm.cfg, mesh, slots=SLOTS, prompt_len=PROMPT, max_new=GEN,
+                          chunk=GEN - 1, eos_id=eos)
+    with mesh:
+        jparams = jax.device_put(jp, jeng.pre.in_shardings[0])
+    eng = ServeEngine(m.cfg, slots=SLOTS, prompt_len=PROMPT, max_new=GEN, chunk=GEN - 1,
+                      eos_id=eos, device="cpu")
+    jbatch = jax_synthetic_batch(jm.cfg, np.random.RandomState(0), SLOTS, PROMPT)
+    batch = synthetic_batch(m.cfg, np.random.RandomState(0), SLOTS, PROMPT, device="cpu")
+    for resident in (True, False):
+        jgen, jstats = jax_serve(jm.cfg, mesh, batch=SLOTS, prompt_len=PROMPT, gen_len=GEN,
+                                 params=jparams, batch_in=jbatch, engine=jeng, eos_id=eos,
+                                 device_resident=resident)
+        gen, stats = serve(m.cfg, batch=SLOTS, prompt_len=PROMPT, gen_len=GEN, params=params,
+                           batch_in=batch, engine=eng, eos_id=eos, device_resident=resident)
+        np.testing.assert_array_equal(gen, jgen)
+        assert stats["decode_tokens"] == jstats["decode_tokens"]
+        assert (gen == eos).any() and stats["decode_tokens"] < SLOTS * (GEN - 1)

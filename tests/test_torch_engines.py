@@ -11,8 +11,9 @@ Tolerances, and why:
   which moves results by up to ~2.4e-7 per iteration;
 * ``rtol=atol=1e-4`` against ``faces_oracle`` (tests/test_persistent.py),
   whose stencil sums in another order;
-* bitwise between the port's own engines and pack modes: the same ops
-  in the same order per buffer.
+* bitwise between the port's own engines and pack modes, and between
+  the host engine and the one-buffer path (``faces_step_contiguous``):
+  the same ops in the same order per buffer.
 """
 
 import numpy as np
@@ -30,6 +31,7 @@ from repro_torch.core import (
     PersistentEngine,
     build_faces_program,
     faces_oracle,
+    faces_step_contiguous,
     from_reference,
     run_faces_persistent,
     slot_buffers,
@@ -291,3 +293,23 @@ def test_engines_refuse_buffers_outside_the_rank_major_layout():
     q.enqueue_kernel(lambda w: w, ["w"], ["w"])
     with pytest.raises(NotImplementedError, match="rank-major"):
         FusedEngine(q.build())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("interior", [True, False], ids=["stencil", "no_stencil"])
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("grid", [(2, 2, 2), (1, 1, 1), (8, 1, 1), (3, 2, 1), (4, 4, 1)])
+def test_one_buffer_path_equals_the_host_engine(grid, periodic, interior, dtype):
+    """The paper's one contiguous buffer a rank (``faces_step_contiguous``:
+    ``pack_boundary``, a rank shift a segment, ONE ``unpack_boundary_add``
+    in DIRECTIONS order) equals one ``direct26`` iteration of the host
+    engine bit for bit, on the CPU's plain kernel versions."""
+    cfg = FacesConfig(grid=grid, points=(4, 3, 5), periodic=periodic,
+                      interior_compute=interior, damping=0.12, dtype=dtype)
+    u0 = _u0(cfg, seed=sum(grid))
+    host = HostEngine(_port_prog(cfg))
+    mem = host.init_buffers({"u": u0})
+    got = faces_step_contiguous(mem["u"].clone(), cfg)
+    want = host(mem)["u"]
+    assert got.dtype == want.dtype == getattr(torch, dtype)
+    assert torch.equal(got, want)

@@ -40,11 +40,14 @@ from repro_torch.core import (
     HostEngine,
     PersistentEngine,
     SanitizeError,
+    build_faces_part_program,
     build_faces_pipeline,
     build_faces_program,
+    compose,
     faces_step_contiguous,
     global_residual_fn,
     merge_parts,
+    part_configs,
     part_names,
     run_faces_persistent,
     run_faces_pipelined,
@@ -1025,3 +1028,180 @@ def test_racy_program_refused_before_any_launch(cuda):
     silent = FusedEngine(bad)
     silent(silent.init_buffers({"u": _pipe_u0()}))
     assert silent.stats.dispatches == 1
+
+
+# -- the masked schedule loop: every part to its own count or tolerance ---------
+
+MASK_CFG = FacesConfig(grid=(2, 2, 1), points=(9, 5, 4), pack="kernel", damping=0.12)
+# (n_parts, tolerances, max_iters): parts that stop at different counts, one
+# of them by the bound
+MASK_CASES = [(2, (2e-2, 1e-6), 12), (3, (5e-3, 1e-2, 1e-6), 12)]
+
+
+def _mask_u0():
+    return np.random.RandomState(8).randn(*MASK_CFG.grid, *MASK_CFG.points).astype(np.float32)
+
+
+def _masked_engine(device, n_parts, tols, max_iters, exchange=True, **kw):
+    mesh = make_mesh(MASK_CFG.grid, AXES3, device=device)
+    sched = build_faces_pipeline(MASK_CFG, mesh, n_parts, max_iters, exchange, tols=tols)
+    fns = {nm: global_residual_fn(c, buf=f"{nm}/u")
+           for nm, c in zip(part_names(n_parts), part_configs(MASK_CFG, n_parts))}
+    return PersistentEngine(sched, reduce_fns=fns, **kw)
+
+
+def _masked_run(eng, n_parts):
+    mem, reds, n_done = eng(eng.init_buffers(_parts_init(n_parts, _mask_u0())))
+    return (to_numpy(mem), {k: v.cpu().numpy() for k, v in reds.items()},
+            {k: int(v) for k, v in n_done.items()})
+
+
+@pytest.mark.parametrize("exchange", [True, False], ids=["linked", "unlinked"])
+@pytest.mark.parametrize("n_parts,tols,max_iters", MASK_CASES)
+@pytest.mark.parametrize("mode", ["stream", "dataflow"])
+def test_masked_loop_graph_equals_cpu_eager_loop(cuda, mode, n_parts, tols, max_iters,
+                                                  exchange):
+    """The masked loop's graph, one launch, stops each part where the CPU's
+    eager loop does, with every buffer equal bit for bit (the same
+    elementwise ops) and the residual traces within rtol 1e-5 (sums of
+    squares in another order); against the eager loop run on the card's
+    tensors the traces are equal too."""
+    from repro_torch.core.engine_persistent import _run_schedule_while
+
+    cpu = _masked_run(_masked_engine("cpu", n_parts, tols, max_iters, exchange, mode=mode),
+                      n_parts)
+    eng = _masked_engine(cuda, n_parts, tols, max_iters, exchange, mode=mode, donate=True)
+    init = eng.init_buffers(_parts_init(n_parts, _mask_u0()))
+    got = _masked_run(eng, n_parts)
+    assert eng.stats.dispatches == eng.graph_launches == eng._loop.graph_launches == 1
+    assert got[2] == cpu[2] and len(set(got[2].values())) > 1
+    assert max(got[2].values()) <= max_iters
+    for name in cpu[1]:
+        np.testing.assert_allclose(got[1][name], cpu[1][name], rtol=1e-5, err_msg=name)
+    for name in cpu[0]:
+        np.testing.assert_array_equal(got[0][name], cpu[0][name], err_msg=name)
+    reds = torch.zeros_like(eng._reductions)
+    n_done = torch.zeros_like(eng._n_done)
+    eager = _run_schedule_while(dict(init), sched=eng.program, mode=mode,
+                                low=eng._lowering, slots=eng._slots,
+                                reduce_fns=eng.reduce_fns, reductions=reds, n_done=n_done)
+    subs = eng.program.subs
+    for k, sub in enumerate(subs):
+        assert int(n_done[k]) == got[2][sub.name]
+        np.testing.assert_array_equal(reds[k].cpu().numpy(), got[1][sub.name])
+    for name, t in to_numpy(eager).items():
+        np.testing.assert_array_equal(got[0][name], t, err_msg=name)
+
+
+@pytest.mark.parametrize("double_buffer", [True, False])
+def test_masked_loop_mixed_counts_on_card(cuda, double_buffer):
+    """Counts 3 and 6 without reductions: each unlinked part equals its
+    own ``run_faces_persistent`` on the card bit for bit, in one launch
+    that launches no kernel eagerly on a second call.  The part of count
+    6, which cannot stop before the bound, gets no freeze graphs."""
+    mesh = make_mesh(MASK_CFG.grid, AXES3)
+    names, u0 = part_names(2), _mask_u0()
+    progs = [build_faces_program(c, mesh, name=nm).persistent(n)
+             for c, nm, n in zip(part_configs(MASK_CFG, 2), names, (3, 6))]
+    eng = PersistentEngine(compose(*progs), mode="dataflow", double_buffer=double_buffer)
+    init = eng.init_buffers(_parts_init(2, u0))
+    eng(init)
+    torch.cuda.synchronize()
+    counts = {**hk.launch_counts(), **graph_loop.launch_counts()}
+    mem, reds, n_done = eng(init)
+    assert {**hk.launch_counts(), **graph_loop.launch_counts()} == counts
+    assert reds == {} and {k: int(v) for k, v in n_done.items()} == dict(zip(names, (3, 6)))
+    assert eng.graph_launches == 2
+    assert eng._loop.freeze[0] is not None and eng._loop.freeze[1] is None
+    for nm, pcfg, part, n in zip(names, part_configs(MASK_CFG, 2), split_parts(u0, 2), (3, 6)):
+        alone, _ = run_faces_persistent(pcfg, mesh, part, n_iters=n,
+                                        double_buffer=double_buffer)
+        for buf, t in alone.items():
+            assert torch.equal(mem[f"{nm}/{buf}"], t), f"{nm}/{buf}"
+
+
+def test_masked_loop_body_holds_only_what_a_conditional_body_may(cuda):
+    """Both passes (N streams forked and joined, cross-program events) and
+    every snapshot, restore and select graph: no event, host or
+    allocation node."""
+    eng = _masked_engine(cuda, 3, MASK_CASES[1][1], 12, mode="dataflow")
+    eng.compile()
+    assert len(eng._loop.freeze) == 3 and all(len(f) == 4 for f in eng._loop.freeze)
+    for graph in eng._loop.passes:
+        kinds = graph_loop.node_types(graph)
+        assert not set(kinds) & set(graph_loop.NOT_IN_A_BODY), kinds
+    assert graph_loop.node_types(eng._loop.passes[0])["kernel"] > 0
+
+
+# programs stopping by a tolerance, by their count, without a predicate, at
+# the first pass, and every parity of the last pass
+SCHED_STEP_CASES = [((0.6, None, 0.1), (16, 4, 9), 16), ((2.0, 0.45), (5, 16), 16),
+                    ((None,), (7,), 7), ((-1.0, -1.0), (1, 2), 2)]
+
+
+@pytest.mark.parametrize("tols,n_iters,max_iters", SCHED_STEP_CASES)
+def test_schedule_step_equals_plain_step(cuda, tols, n_iters, max_iters):
+    """On known traces the loop records the same reductions and counts as
+    the plain schedule step, twice in a row, and each program's counter
+    kept through its snapshots and restores equals its count."""
+    traces = torch.stack([torch.linspace(1.0, 0.0, 16, device=cuda) * (k + 1)
+                          for k in range(len(n_iters))])
+    loop, red, n_done, v = graph_loop.trace_schedule_loop(traces, tols, n_iters, max_iters)
+    want_red, want_n = graph_loop.trace_schedule_plain(traces, tols, n_iters, max_iters)
+    for _ in range(2):
+        for t in v:
+            t.zero_()
+        loop.launch()
+        torch.cuda.synchronize()
+        assert n_done.cpu().tolist() == want_n.tolist()
+        assert torch.equal(red.cpu(), want_red)
+        assert [int(t) for t in v] == want_n.tolist()
+        assert int(loop.iter) == int(want_n.max())
+
+
+def test_receivers_reads_finish_before_the_next_deposit_in_the_masked_body(cuda):
+    """The receive-slot hazard inside the masked body: part B's stencil
+    spins before it reads ``glo``, part A's next ghost deposit must wait,
+    and a part that stopped still publishes its frozen planes."""
+    u0 = _pipe_u0()
+
+    def slow_schedule(mesh):
+        progs = [build_faces_part_program(PIPE_CFG, mesh, k, 2).persistent(n)
+                 for k, n in enumerate((2, 4))]
+        names = part_names(2)
+        links = sorted({(names[0], names[1]), (names[1], names[0])})
+        sched = compose(*progs, links=links)
+        descs = list(sched.descriptors)
+        i = next(i for i, d in enumerate(descs)
+                 if isinstance(d, KernelDesc) and d.pid == 1 and d.name == "interior")
+        fn = descs[i].fn
+
+        def slow(u, glo, ghi):
+            if u.is_cuda:
+                torch.cuda._sleep(20_000_000)
+            return fn(u, glo, ghi)
+
+        descs[i] = dataclasses.replace(descs[i], fn=slow)
+        return dataclasses.replace(sched, descriptors=tuple(descs))
+
+    runs = []
+    for device in ("cpu", None):
+        eng = PersistentEngine(slow_schedule(make_mesh(PIPE_CFG.grid, AXES3, device=device)),
+                               mode="stream", double_buffer=False)
+        mem, _, n_done = eng(eng.init_buffers(_parts_init(2, u0)))
+        assert [int(n) for n in n_done.values()] == [2, 4]
+        runs.append(to_numpy(mem))
+    want, got = runs
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+@pytest.mark.parametrize("mode", ["stream", "dataflow"])
+def test_sanitized_masked_loop_equals_plain(cuda, mode):
+    n_parts, tols, max_iters = MASK_CASES[0]
+    runs = [_masked_run(_masked_engine(cuda, n_parts, tols, max_iters, mode=mode,
+                                       sanitize=s), n_parts) for s in (False, True)]
+    assert runs[0][2] == runs[1][2]
+    for i in (0, 1):
+        for name, t in runs[0][i].items():
+            np.testing.assert_array_equal(runs[1][i][name], t, err_msg=name)

@@ -21,7 +21,8 @@ N-part Faces pipeline) against the JAX package's, on the CPU.
   bit for bit without the stencil, ``rtol=atol=1e-5`` over 3 iterations
   with it (the ROADMAP's engine-vs-engine bound), on (1,1,1) and on
   (2,2,1) through a 4-device JAX subprocess;
-* the masked multi-queue loop, ``tols=`` and ``tune=`` raise
+* the masked multi-queue loop runs (``tests/test_torch_masked.py``
+  holds it against the reference); ``tune=`` raises
   ``NotImplementedError``.
 """
 
@@ -283,23 +284,51 @@ def test_persistent_engine_checks_on_schedules():
 
 
 def test_masked_loop_requests_raise():
+    """The masked cases (different counts, a predicate, ``reduce_fns``
+    alone) run and return ``(mem, reductions, n_done)``, each program
+    equal to its own persistent run bit for bit; ``run_faces_pipelined``
+    with ``tols=`` returns ``(mem, residuals, n_done, stats)`` in one
+    dispatch.  ``tune=`` still raises ``NotImplementedError``, and a
+    missing ``n_iters``/``tols``, ``tols`` without ``max_iters`` and a
+    wrong number of tolerances raise ``ValueError``."""
     cfg = FacesConfig(grid=(1, 1, 1), points=(4, 3, 3), periodic=True)
     pa = build_faces_program(cfg, _mesh(), name="A")
     pb = build_faces_program(cfg, _mesh(), name="B")
-    for progs, kw in (((pa.persistent(2), pb.persistent(3)), {}),
-                      ((pa.persistent(2, until=lambda r: r >= 0.1), pb.persistent(2)),
-                       {"reduce_fns": {"A": lambda m: m["A/u"].abs().sum()}}),
-                      ((pa.persistent(2), pb.persistent(2)),
-                       {"reduce_fns": {"B": lambda m: m["B/u"].abs().sum()}})):
-        with pytest.raises(NotImplementedError, match="Masked schedule loop"):
-            PersistentEngine(compose(*progs), **kw)
+    size = lambda buf: lambda m: m[buf].abs().sum()
+    ua, ub = _u0(cfg, seed=1), _u0(cfg, seed=2)
+    for progs, kw, counts in (((pa.persistent(2), pb.persistent(3)), {}, (2, 3)),
+                              ((pa.persistent(2, until=lambda r: r >= 0.1), pb.persistent(2)),
+                               {"reduce_fns": {"A": size("A/u")}}, (2, 2)),
+                              ((pa.persistent(2), pb.persistent(2)),
+                               {"reduce_fns": {"B": size("B/u")}}, (2, 2))):
+        eng = PersistentEngine(compose(*progs), **kw)
+        mem, reds, n_done = eng(eng.init_buffers({"A/u": ua, "B/u": ub}))
+        assert eng.stats.dispatches == 1
+        assert {k: int(v) for k, v in n_done.items()} == dict(zip("AB", counts))
+        assert set(reds) == set(kw.get("reduce_fns", {}))
+        for name, u, n in zip("AB", (ua, ub), counts):
+            alone = PersistentEngine(build_faces_program(cfg, _mesh()).persistent(n),
+                                     reduce_fn=size("u") if name in reds else None)
+            out = alone(alone.init_buffers({"u": u}))
+            if name in reds:
+                out, red = out
+                assert reds[name].shape == (max(counts),)
+                assert torch.equal(reds[name][:n], red), name
+            for buf, t in out.items():
+                assert torch.equal(mem[f"{name}/{buf}"], t), f"{name}/{buf}"
     u0 = _u0(cfg)
-    with pytest.raises(NotImplementedError, match="Masked schedule loop"):
-        run_faces_pipelined(cfg, _mesh(), u0, tols=(1e-1, 1e-1), max_iters=8)
+    mem, reds, n_done, stats = run_faces_pipelined(cfg, _mesh(), u0, tols=(1e-1, 1e-1),
+                                                   max_iters=8)
+    assert stats.dispatches == 1 and set(n_done) == set(part_names(2))
+    assert all(reds[nm].shape == (n_done[nm],) for nm in n_done)
     with pytest.raises(NotImplementedError, match="Cost model and tuner"):
         run_faces_pipelined(cfg, _mesh(), u0, n_iters=2, tune=True)
     with pytest.raises(ValueError, match="n_iters"):
         run_faces_pipelined(cfg, _mesh(), u0)
+    with pytest.raises(ValueError, match="requires max_iters"):
+        run_faces_pipelined(cfg, _mesh(), u0, tols=(1e-1, 1e-1))
+    with pytest.raises(ValueError, match="one tolerance per part"):
+        run_faces_pipelined(cfg, _mesh(), u0, tols=(1e-1,), max_iters=8)
 
 
 def test_link_structure():
