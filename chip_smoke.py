@@ -139,7 +139,9 @@ a checkout of the repository.  Phases, each of which must pass:
    and without); the racy mutation of ``tests/test_verify.py``
    (an unpack kernel moved ahead of its wait) at full width raises
    ``SanitizeError`` in every engine's constructor with no kernel
-   launched, while the unsanitized engine runs it.
+   launched, while the unsanitized engine runs it; the program registry
+   (``repro_torch.analysis``) on the benchmark grid's 8 ranks: every
+   program lints clean and every certificate is race-free.
 
 14. the masked multi-queue loop on the Faces configuration of phase 2,
    split along x into 2 and 4 linked parts, in ``stream`` and
@@ -164,6 +166,33 @@ a checkout of the repository.  Phases, each of which must pass:
    (counters set to 0 just before the engine's compile and first call,
    read just after); the schedule step against the plain step on known
    traces, and its time per pass.
+15. the tuner on phase 12's linked 2- and 4-part pipeline at full width:
+   ``run_faces_pipelined(tune=True)`` (the reference's default space,
+   interleave {round_robin, sequential, 2} x mode {dataflow, stream}; the
+   3 cheapest predictions timed) and ``tune(certify=True)`` on the same
+   builds with all 6 timed; then the 26-layer TP chain of phase 16 over
+   mode x coalesce x double_buffer {None, False} (all 8 timed).  Each
+   candidate's predicted µs beside its measured median and the rank
+   agreement (Spearman) — no threshold: the cost model's constants are
+   the reference's CPU ones; every candidate certified, each winner one
+   dispatch and one graph launch, equal to the untuned run bit for bit
+   (the Faces kernels' counters set to 0 just before each tuned run and
+   read just after);
+16. the ring collectives at gemma3-1b's MLP widths (m 4096 = 4 slots x
+   1024 tokens, d_model 1152, d_ff 6912; weights from
+   ``torch.Generator(seed)`` scaled by 1/sqrt(fan-in)) on a one-axis
+   mesh of 4 ranks, float32: ``build_all_gather_matmul`` uni- and
+   bidirectional, ``build_matmul_reduce_scatter``, ``build_all_to_all``
+   through FusedEngine and PersistentEngine in both modes, each one
+   launch, finite and equal to the port's decomposed oracle on the card
+   bit for bit, and to its CPU run within rtol=atol=1e-5 (the
+   all-to-all bit for bit); ``build_tp_block(chain=True)`` persistent
+   over 26 layers: one dispatch, equal to 26 decomposed block
+   applications bit for bit, to 26 fused calls and to its CPU run; ms a
+   layer beside 26 eager calls of the stock composition (CUDA events).
+   No hand-written kernel is on this path (the matmuls are cuBLAS, as
+   the reference's are XLA's): every counter, set to 0 before it, reads
+   0 after it.
 
 The last lines are a ``{"kernels": [...]}`` JSON line (eleven rows: the
 nine Pallas kernels' and the two step kernels', which have no Pallas
@@ -234,6 +263,17 @@ MASK_FIXED = N_ITERS               # case (e): every count, reductions only
 SCHED_STEP_CASES = (((0.6, None, 0.1), (16, 4, 9), 16), ((2.0, 0.45), (5, 16), 16),
                     ((None,), (7,), 7), ((-1.0, -1.0), (1, 2), 2))
 SCHED_STEP_PROGRAMS = 4            # programs of the step's timing loop
+# phase 15: the tuner's spaces (the reference's default for the pipeline;
+# benchmarks/overlap_bench.py's for the TP chain)
+TUNE_SPACE = {"interleave": ["round_robin", "sequential", 2], "mode": ["dataflow", "stream"]}
+TP_SPACE = {"mode": ["stream", "dataflow"], "coalesce": [True, False],
+            "double_buffer": [None, False]}
+# phase 16: gemma3-1b's MLP (configs/gemma3_1b.py: d_model 1152, d_ff 6912) over
+# the serve phase's 4 slots x 1024 tokens, on a one-axis mesh of 4 ranks
+MLP = (4096, 1152, 6912)
+COLL_RANKS = 4
+TP_LAYERS = 26                     # gemma3-1b's depth
+COLL_TOL = 1e-5                    # card against CPU: the repo's engine-vs-engine bound
 
 
 def gpu_line() -> str:
@@ -860,7 +900,17 @@ def run_verifier(torch, cfg, mesh, u0, card: str, hk, built):
     silent(silent.init_buffers({"u": u0}))
     torch.cuda.synchronize()
     require(silent.stats.dispatches == 1, "the unsanitized engine did not run the racy program")
+    # the program registry on the benchmark grid's 8 ranks, on the card
+    from repro_torch.analysis import certificates, lint_all
+    lint = lint_all()
+    require(all(not d for _, d in lint), "a registry program does not lint clean: "
+            f"{[(n, [str(x) for x in d[:2]]) for n, d in lint if d]}")
+    certs = certificates()
+    require(all(c.race_free for _, c in certs),
+            f"racy registry programs: {[n for n, c in certs if not c.race_free]}")
     return {"card": card, "verified": len(built), "diagnostics": 0,
+            "registry": {"programs": len(lint), "clean": True, "race_free": True,
+                         "digests": {n: c.digest for n, c in certs}},
             "largest": {"name": largest.name, "descriptors": len(largest.descriptors),
                         "verify_host_ms": statistics.median(host_ms)},
             "sanitizer": sanitizer,
@@ -1797,6 +1847,292 @@ def run_masked(torch, cfg, mesh, u0, card: str, hk, graph_loop):
             "max_iters": MASK_MAX_ITERS, "cases": out, "step_cases": cases}, row
 
 
+def spearman(xs, ys):
+    """Rank correlation of two equal-length sequences (tied values share
+    their average rank); None when either is constant."""
+    def ranks(v):
+        order = sorted(range(len(v)), key=lambda i: v[i])
+        r = [0.0] * len(v)
+        i = 0
+        while i < len(order):
+            j = i
+            while j + 1 < len(order) and v[order[j + 1]] == v[order[i]]:
+                j += 1
+            for q in range(i, j + 1):
+                r[order[q]] = (i + j) / 2
+            i = j + 1
+        return r
+    rx, ry = ranks(xs), ranks(ys)
+    mx, my = sum(rx) / len(rx), sum(ry) / len(ry)
+    vx, vy = sum((a - mx) ** 2 for a in rx), sum((b - my) ** 2 for b in ry)
+    if not vx or not vy:
+        return None
+    return sum((a - mx) * (b - my) for a, b in zip(rx, ry)) / (vx * vy) ** 0.5
+
+
+def tune_rows(res) -> dict:
+    """Each candidate's predicted µs beside its measured median, the
+    winner, and the rank agreement over the timed candidates."""
+    timed = [c for c in res.candidates if c.stats is not None]
+    return {"winner": res.best.knobs.label(),
+            "candidates": [{"knobs": c.knobs.label(), "predicted_us": c.predicted_us,
+                            "measured_med_ms": c.measured_ms, "error": c.error,
+                            "certified": bool(c.certificate is not None
+                                              and c.certificate.equivalent)}
+                           for c in res.candidates],
+            "spearman": spearman([c.predicted_us for c in timed],
+                                 [c.stats["med_s"] for c in timed]) if len(timed) > 2 else None,
+            "predicted_cheapest": min(res.candidates, key=lambda c: c.predicted_us
+                                      if c.predicted_us is not None else float("inf")
+                                      ).knobs.label()}
+
+
+def mlp_inputs(torch, seed: int):
+    """x (m, k) ~ N(0, 1) and the MLP weights scaled by 1/sqrt(fan-in), from
+    ``torch.Generator(seed)`` (unscaled, the chain grows ~10^3 a layer)."""
+    m, k, f = MLP
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(m, k, generator=g), torch.randn(k, f, generator=g) / k ** 0.5,
+            torch.randn(f, k, generator=g) / f ** 0.5)
+
+
+def run_tuner(torch, cfg, mesh, u0, card: str, hk, seed: int):
+    """Phase 15: ``run_faces_pipelined(tune=True)`` on the linked 2- and
+    4-part pipeline at full width, ``tune(certify=True)`` with every
+    candidate timed on the same builds, then the TP chain of phase 16
+    tuned over mode x coalesce x double_buffer.  Winners: one dispatch,
+    one graph launch, equal to the untuned run bit for bit; every
+    candidate certified.  The counters are set to 0 just before each
+    tuned run and read just after."""
+    from repro_torch import make_mesh
+    from repro_torch.core import (PersistentEngine, build_faces_pipeline, collectives,
+                                  part_names, run_faces_pipelined, split_parts)
+    from repro_torch.launch.tune import Knobs, tune
+
+    def rerun(winner, fresh):
+        winner.stats.reset()
+        winner.graph_launches = 0
+        got = winner(fresh())
+        require((winner.stats.dispatches, winner.graph_launches) == (1, 1),
+                f"the winner took {winner.stats}, {winner.graph_launches} graph launches")
+        return got
+
+    out, launches = {}, dict.fromkeys(FACES_KERNELS, 0)
+    for n_parts in PARTS:
+        what = f"{n_parts} parts"
+        init = dict(zip([f"{n}/u" for n in part_names(n_parts)], split_parts(u0, n_parts)))
+        plain, _ = run_faces_pipelined(cfg, mesh, u0, n_iters=N_ITERS, n_parts=n_parts)
+        plain = {k: t.clone() for k, t in plain.items()}
+        torch.cuda.synchronize()
+        hk.reset_launches()
+        t0 = time.perf_counter()
+        mem, stats, tuned = run_faces_pipelined(cfg, mesh, u0, n_iters=N_ITERS,
+                                                n_parts=n_parts, tune=True)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = {n: hk.launch_counts()[n] for n in FACES_KERNELS}
+        require(all(counts.values()), f"{what}: a kernel of the tuned path never "
+                f"launched: {counts}")
+        for n in FACES_KERNELS:
+            launches[n] += counts[n]
+        require((stats.dispatches, stats.sync_points, tuned.best.engine.graph_launches)
+                == (1, 0, 1), f"{what}: the tuned solve took {stats}, "
+                f"{tuned.best.engine.graph_launches} graph launches")
+        require(all(torch.equal(mem[k], t) for k, t in plain.items()),
+                f"{what}: the tuned run differs from the untuned one")
+        row = {"run_faces_pipelined": {**tune_rows(tuned), "wall_ms": wall,
+                                       "launches": counts, "equal_to_untuned_bitwise": True}}
+        del mem, tuned
+
+        def build(knobs, n_parts=n_parts, init=init):
+            eng = PersistentEngine(build_faces_pipeline(cfg, mesh, n_parts, N_ITERS,
+                                                        interleave=knobs.interleave_policy()),
+                                   donate=True, **knobs.engine_kwargs())
+            return eng, lambda: eng.init_buffers(init)
+
+        n_cand = len(TUNE_SPACE["interleave"]) * len(TUNE_SPACE["mode"])
+        res = tune(build, TUNE_SPACE, base=Knobs(), repeats=5, measure_top=n_cand,
+                   certify=True)
+        require(all(c.error is None and c.certificate.equivalent for c in res.candidates),
+                f"{what}: a candidate was not certified: "
+                f"{[(c.knobs.label(), c.error) for c in res.candidates if c.error]}")
+        got = rerun(res.best.engine, res.best.fresh)
+        require(all(torch.equal(got[k], t) for k, t in plain.items()),
+                f"{what}: the certified winner differs from the untuned run")
+        row["certified"] = {**tune_rows(res), "winner_equal_to_untuned_bitwise": True}
+        out[f"parts{n_parts}"] = row
+        del res, got, plain
+        torch.cuda.empty_cache()
+
+    x, w1, w2 = mlp_inputs(torch, seed)
+    tp = collectives.build_tp_block(make_mesh((COLL_RANKS,), ("x",)), "x", *MLP, chain=True)
+    pprog = tp.program.persistent(TP_LAYERS)
+    args = {"x": x, "w1": w1, "w2": w2}
+
+    def build_tp(knobs):
+        eng = PersistentEngine(pprog, donate=True, **knobs.engine_kwargs())
+        return eng, lambda: eng.init_buffers(args)
+
+    eng, fresh = build_tp(Knobs())
+    untuned = eng(fresh())["out"].clone()
+    del eng
+    n_cand = 2 * 2 * 2
+    res = tune(build_tp, TP_SPACE, base=Knobs(), repeats=3, measure_top=n_cand, certify=True)
+    require(all(c.error is None and c.certificate.equivalent for c in res.candidates),
+            "TP chain: a candidate was not certified")
+    got = rerun(res.best.engine, res.best.fresh)["out"]
+    require(bool(torch.isfinite(got).all()) and torch.equal(got, untuned),
+            "TP chain: the tuned winner differs from the untuned chain")
+    out["tp_chain"] = {**tune_rows(res), "layers": TP_LAYERS, "mlp": MLP, "ranks": COLL_RANKS,
+                       "winner_equal_to_untuned_bitwise": True}
+    del res, got, untuned
+    torch.cuda.empty_cache()
+    return {"card": card, "grid": cfg.grid, "points": cfg.points, "iterations": N_ITERS,
+            "space": TUNE_SPACE, "tp_space": TP_SPACE, "cases": out, "launches": launches}
+
+
+def run_collectives(torch, card: str, seed: int):
+    """Phase 16: the collective builders at gemma3-1b's MLP widths on 4
+    ranks through FusedEngine and PersistentEngine in both modes, each
+    equal to the port's decomposed oracle on the card bit for bit and to
+    its CPU run within COLL_TOL (the all-to-all bit for bit); the
+    26-layer persistent TP chain in one dispatch equal to 26 oracle
+    applications, and its ms a layer beside 26 eager calls of the stock
+    composition (CUDA events).  No hand-written kernel is on this path:
+    the counters are set to 0 before it and must read 0 after it."""
+    from repro_torch import make_mesh
+    from repro_torch.core import FusedEngine, PersistentEngine, collectives
+    from repro_torch.kernels import flash_attention, graph_loop, halo_pack, rmsnorm, ssd_scan
+
+    kernels = (halo_pack, rmsnorm, flash_attention, ssd_scan, graph_loop)
+
+    def counts():
+        c = {}
+        for mod in kernels:
+            c.update(mod.launch_counts())
+        return c
+
+    m, k, f = MLP
+    mesh = make_mesh((COLL_RANKS,), ("x",))
+    cpu_mesh = make_mesh((COLL_RANKS,), ("x",), device="cpu")
+    x, w1, w2 = mlp_inputs(torch, seed)
+    builds = {
+        "ag_matmul": (lambda mm: collectives.build_all_gather_matmul(mm, "x", m, k, f),
+                      {"x": x, "w": w1}),
+        "ag_matmul_bidi": (lambda mm: collectives.build_all_gather_matmul(
+            mm, "x", m, k, f, bidirectional=True), {"x": x, "w": w1}),
+        "matmul_rs": (lambda mm: collectives.build_matmul_reduce_scatter(mm, "x", m, k, f),
+                      {"x": x, "w": w1}),
+        "a2a": (lambda mm: collectives.build_all_to_all(mm, "x", m, k), {"x": x}),
+    }
+    torch.cuda.synchronize()
+    for mod in kernels:
+        mod.reset_launches()
+    rows = {}
+    for name, (build, args) in builds.items():
+        cm = build(mesh)
+        dev = [args[b].cuda() for b in cm.inputs]
+        oracle = cm.reference(*dev)
+        require(bool(torch.isfinite(oracle).all()), f"{name}: non-finite oracle")
+        row = {"oracle_ms": events_ms(torch, lambda: cm.reference(*dev)),
+               "stock_ms": events_ms(torch, lambda: cm.reference_stock(*dev))}
+        for label, cls, mode in (("fused_stream", FusedEngine, "stream"),
+                                 ("fused_dataflow", FusedEngine, "dataflow"),
+                                 ("persistent_stream", PersistentEngine, "stream"),
+                                 ("persistent_dataflow", PersistentEngine, "dataflow")):
+            eng = cls(cm.program, mode=mode, donate=True)
+            init = eng.init_buffers(args)
+            got = eng(init)[cm.output]
+            require(eng.stats.dispatches == eng.graph_launches == 1,
+                    f"{name} {label}: {eng.stats}, {eng.graph_launches} graph launches")
+            require(torch.equal(got, oracle), f"{name} {label}: differs from the "
+                    "decomposed oracle")
+            row[f"{label}_ms"] = events_ms(torch, lambda: eng(init))
+            del eng, init, got
+        cpu = FusedEngine(build(cpu_mesh).program)
+        on_cpu = cpu(cpu.init_buffers(args))[cm.output]
+        err = float((oracle.cpu() - on_cpu).abs().max())
+        if name == "a2a":
+            require(torch.equal(oracle.cpu(), on_cpu), "a2a: the card differs from the CPU")
+        else:
+            require(torch.allclose(oracle.cpu(), on_cpu, rtol=COLL_TOL, atol=COLL_TOL),
+                    f"{name}: the card differs from the CPU by {err}")
+        stock = cm.reference_stock(*dev)
+        row.update({"equal_to_oracle_bitwise": True, "cpu_max_abs_err": err,
+                    "stock_max_abs_err": float((stock - oracle).abs().max()),
+                    "output_shape": tuple(oracle.shape)})
+        rows[name] = row
+        del cm, dev, oracle, cpu, on_cpu, stock
+        torch.cuda.empty_cache()
+
+    tp = collectives.build_tp_block(mesh, "x", *MLP, chain=True)
+    args = {"x": x, "w1": w1, "w2": w2}
+    dev = {b: a.cuda() for b, a in args.items()}
+    chain = {}
+    for mode in ("stream", "dataflow"):
+        pers = PersistentEngine(tp.program.persistent(TP_LAYERS), mode=mode, donate=True)
+        init = pers.init_buffers(args)
+        got = pers(init)["out"].clone()
+        require(pers.stats.dispatches == pers.graph_launches == 1,
+                f"TP chain {mode}: {pers.stats}, {pers.graph_launches} graph launches")
+        require(bool(torch.isfinite(got).all()), f"TP chain {mode}: non-finite result")
+        chain[mode] = {"ms_per_layer": events_ms(torch, lambda: pers(init)) / TP_LAYERS,
+                       "out": got}
+        if mode == "dataflow":
+            chain["profile"] = profile_calls(torch, lambda: pers(init))
+        del pers, init
+    require(torch.equal(chain["stream"]["out"], chain["dataflow"]["out"]),
+            "TP chain: the modes differ")
+    profile = chain.pop("profile")
+    want = dev["x"]
+    for _ in range(TP_LAYERS):
+        want = tp.reference(want, dev["w1"], dev["w2"])
+    got = chain["dataflow"]["out"]
+    require(torch.equal(got, want), "TP chain: differs from the decomposed layers")
+    fused = FusedEngine(tp.program, mode="dataflow", donate=True)
+    mem = fused.init_buffers(args)
+    for _ in range(TP_LAYERS):
+        mem = fused(mem)
+    require(fused.stats.dispatches == fused.graph_launches == TP_LAYERS
+            and torch.equal(mem["out"], got), "TP chain: 26 fused calls differ")
+    del fused, mem
+    launched = counts()
+    require(not any(launched.values()), f"a hand-written kernel launched on the "
+            f"collectives' path: {launched}")
+
+    def stock_chain():
+        y = dev["x"]
+        for _ in range(TP_LAYERS):
+            y = tp.reference_stock(y, dev["w1"], dev["w2"])
+        return y
+
+    stock_ms = events_ms(torch, stock_chain) / TP_LAYERS
+    stock_profile = profile_calls(torch, stock_chain)
+    stock = stock_chain()
+    t0 = time.perf_counter()
+    ctp = collectives.build_tp_block(cpu_mesh, "x", *MLP, chain=True)
+    ceng = PersistentEngine(ctp.program.persistent(TP_LAYERS))
+    on_cpu = ceng(ceng.init_buffers(args))["out"]
+    cpu_s = time.perf_counter() - t0
+    err = float((got.cpu() - on_cpu).abs().max())
+    require(torch.allclose(got.cpu(), on_cpu, rtol=COLL_TOL, atol=COLL_TOL),
+            f"TP chain: the card differs from the CPU by {err}")
+    scale = float(got.abs().max())
+    rows["tp_chain"] = {
+        "layers": TP_LAYERS, "ms_per_layer": {md: r["ms_per_layer"] for md, r in chain.items()},
+        "stock_ms_per_layer": stock_ms,
+        "vs_stock": {md: r["ms_per_layer"] / stock_ms for md, r in chain.items()},
+        "dispatches": 1, "graph_launches": 1, "equal_to_oracle_layers_bitwise": True,
+        "fused_26_calls_equal": True, "cpu_max_abs_err": err, "cpu_seconds": cpu_s,
+        "max_abs_out": scale, "cpu_err_over_max": err / scale,
+        "stock_max_abs_err": float((stock - got).abs().max()),
+        "profile_26_layers": profile, "stock_profile_26_calls": stock_profile,
+        "gflop_per_layer": 2 * 2 * m * k * f / 1e9,
+        "fp32_bound_ms_per_layer": 2 * 2 * m * k * f / FP32_OPS_PER_S * 1e3}
+    return {"card": card, "mlp": MLP, "ranks": COLL_RANKS, "cases": rows,
+            "launches": launched}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1964,6 +2300,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     masked, sched_row = run_masked(torch, cfg, mesh, u0, gpu_line(), hk, graph_loop)
     print(json.dumps({"masked": masked}), flush=True)
+
+    # phase 15: the tuner
+    torch.cuda.empty_cache()
+    print(json.dumps({"tuner": run_tuner(torch, cfg, mesh, u0, gpu_line(), hk, args.seed)}),
+          flush=True)
+
+    # phase 16: the ring collectives at gemma3-1b's MLP widths
+    torch.cuda.empty_cache()
+    print(json.dumps({"collectives": run_collectives(torch, gpu_line(), args.seed)}),
+          flush=True)
 
     rows = rows + dense_rows + [ssd_row, step_row, sched_row]
     require(sorted(r["name"] for r in rows) == sorted(REPLACES), "a kernel row is missing")

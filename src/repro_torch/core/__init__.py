@@ -1,8 +1,10 @@
 """Core ST runtime of the port: queue, matching, verifier, composition,
-engines, Faces."""
+engines, Faces, and the collectives (:mod:`.overlap`'s decomposed
+oracles, :mod:`.collectives`' ST ring programs)."""
 
 from .descriptors import (
     BufferSpec,
+    CollDesc,
     GridOffsetPeer,
     KernelDesc,
     OffsetPeer,
@@ -87,7 +89,7 @@ __all__ = [
     "InterleavePolicy", "INTERLEAVE_POLICIES",
     "FusedEngine", "HostEngine", "HostStats", "PersistentEngine", "slot_buffers",
     "OffsetPeer", "GridOffsetPeer", "PairListPeer",
-    "SendDesc", "RecvDesc", "KernelDesc", "StartDesc", "WaitDesc",
+    "SendDesc", "RecvDesc", "CollDesc", "KernelDesc", "StartDesc", "WaitDesc",
     "BufferSpec", "Batch", "Channel", "MatchError", "match_batch",
     "CoalescedChannel", "CoalescePlan", "coalesce_batch",
     "hop_decomposition", "perm_for",

@@ -13,8 +13,12 @@ engine executes the built program later.
 
 Peers are relational, as in the reference: ``OffsetPeer(axis, delta)``,
 ``GridOffsetPeer(axes, deltas)`` (the 26-neighbour Faces pattern) and
-``PairListPeer(axis, pairs)``.  Deferred collectives (``CollDesc``)
-wait for the collectives slice of the port.
+``PairListPeer(axis, pairs)``.
+
+``CollDesc`` is a deferred whole collective (``all_gather``,
+``reduce_scatter``, ``all_reduce``, ``all_to_all``, ``ppermute``) over a
+mesh axis; it fires with its batch's start like a channel, and on one
+GPU it is a gather or a sum over the rank axis.
 
 Every descriptor carries a ``pid`` (program id): 0 in a program built by
 one :class:`~.queue.STQueue`; :func:`~.schedule.compose` gives each
@@ -242,6 +246,20 @@ class RecvDesc:
 
 
 @dataclasses.dataclass
+class CollDesc:
+    """A deferred collective (beyond-paper extension)."""
+
+    op: str  # all_gather | reduce_scatter | all_reduce | all_to_all | ppermute
+    buf: str
+    out: str
+    axis: Any  # mesh axis name or tuple
+    kwargs: dict = dataclasses.field(default_factory=dict)
+    threshold: int = -1
+    pid: int = 0
+    site: Optional[str] = None
+
+
+@dataclasses.dataclass
 class StartDesc:
     batch: int  # index of the batch this start triggers
     threshold: int = -1
@@ -259,7 +277,8 @@ class WaitDesc:
 
 @dataclasses.dataclass(frozen=True)
 class BufferSpec:
-    """Global-view buffer declaration (all ranks) of a queue program."""
+    """Global-view buffer declaration (all ranks) of a queue program; see
+    :mod:`.state` for how an engine stores it."""
 
     name: str
     shape: Tuple[int, ...]

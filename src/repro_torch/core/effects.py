@@ -71,13 +71,17 @@ def stamp_staging(plan, batch_index: int):
 
 
 def batch_effects(batch) -> Tuple[Effect, ...]:
-    """One batch's declared effect set, in execution order: pack reads,
-    staging write then read, deposits."""
+    """One batch's declared effect set, in execution order: pack reads
+    (send sources, collective inputs), staging write then read, deposits
+    (recv destinations, collective outputs)."""
     pid = batch.pid
     effs: List[Effect] = [
         Effect(buf=ch.src_buf, kind="read", source="pack", pid=pid,
                region=region_key(ch.send_region), site=ch.send_site)
         for ch in batch.channels]
+    for coll in batch.colls:
+        effs.append(Effect(buf=coll.buf, kind="read", source="pack",
+                           pid=pid, site=coll.site))
     if batch.plan is not None:
         for t in batch.plan.transfers:
             if t.staging is not None:
@@ -90,6 +94,9 @@ def batch_effects(batch) -> Tuple[Effect, ...]:
             buf=ch.dst_buf, kind="accum" if ch.mode == "add" else "write",
             source="deposit", pid=pid, region=region_key(ch.recv_region),
             site=ch.recv_site))
+    for coll in batch.colls:
+        effs.append(Effect(buf=coll.out, kind="write", source="deposit",
+                           pid=pid, site=coll.site))
     return tuple(effs)
 
 
@@ -169,12 +176,16 @@ def effect_trace(prog) -> Dict[str, Tuple[Tuple, ...]]:
                     trace[ch.src_buf].append((
                         "send", ch.tag, _peer_key(ch.peer),
                         region_key(ch.send_region)))
+                for coll in batch.colls:
+                    trace[coll.buf].append(("collread", coll.op, repr(coll.axis)))
                 for ch in batch.channels:
                     if ch.dst_pid not in (None, pid):
                         continue  # cross deposit: the receiver's wait records it
                     trace[ch.dst_buf].append((
                         "deposit", ch.tag, ch.mode,
                         region_key(ch.recv_region)))
+                for coll in batch.colls:
+                    trace[coll.out].append(("collout", coll.op, repr(coll.axis)))
             elif isinstance(d, WaitDesc):
                 for gate, recs in pending_cross.items():
                     if gate[0] != pid or gate[1] > d.batch or gate in flushed:

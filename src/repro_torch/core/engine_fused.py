@@ -21,7 +21,10 @@ Descriptor lowering
   ``pack_segments`` launch, one rank permutation and, per transfer, one
   ``unpack_segments`` launch that deposits straight into the receive
   buffers (the Hopper kernels of :mod:`repro_torch.kernels.halo_pack`);
-  other deposits replay in channel order.
+  other deposits replay in channel order.  Each ``CollDesc`` of the
+  batch then gathers, sums or moves every rank's block over its group
+  along the collective's axis (:func:`_run_collective`, ``jax.lax``
+  semantics, sums in group-rank order) into its output in place.
 * ``WaitDesc``   — a join of the communication stream (``dataflow``).
 
 Modes (triggers and waits as CUDA stream order)
@@ -84,11 +87,11 @@ import numpy as np
 import torch
 
 from ..kernels.halo_pack import pack_segments, unpack_segments
-from .descriptors import KernelDesc, StartDesc, WaitDesc
+from .descriptors import CollDesc, KernelDesc, StartDesc, WaitDesc
 from .effects import cross_gate_map, resolve_gate
 from .matching import Channel
 from .queue import STProgram
-from .state import init_buffers
+from .state import init_buffers, is_rank_major, storage_shape, to_global, to_storage
 
 
 def _axes_tuple(axis) -> Tuple[str, ...]:
@@ -137,32 +140,32 @@ class Lowering:
     """Device-side constants of one program on its mesh.
 
     Everything a pass needs from the host — permutation indices, zero
-    fills, receiver masks — is built here, once, before any CUDA-graph
-    capture (a capture may not copy host data to the device).
+    fills, receiver masks, per-rank axis indices — is built here, once,
+    before any CUDA-graph capture (a capture may not copy host data to
+    the device).  ``storage[name]`` is the shape the engines hold buffer
+    ``name`` in (:mod:`.state`: rank-major buffers as their global
+    tensor, the others as the stack of their rank-local blocks).
     """
 
     def __init__(self, prog: STProgram):
-        mesh = prog.mesh
-        self.mesh = mesh
+        mesh = self.mesh = prog.mesh
         self.device = mesh.device
         self.mesh_shape = dict(mesh.shape)
         self.n_ranks = mesh.size
         self.n_rank_dims = len(mesh.axis_names)
-        for spec in prog.buffers.values():
-            k = self.n_rank_dims
-            if (tuple(spec.pspec[:k]) != mesh.axis_names
-                    or tuple(spec.shape[:k]) != mesh.axis_sizes
-                    or any(p is not None for p in spec.pspec[k:])):
-                raise NotImplementedError(
-                    f"buffer {spec.name!r}: the port holds buffers in the "
-                    f"global rank-major layout (leading dims = mesh axes "
-                    f"{mesh.axis_names} of sizes {mesh.axis_sizes}), got "
-                    f"shape {spec.shape} pspec {spec.pspec}")
+        self.specs = prog.buffers
+        self.storage = {n: storage_shape(s, mesh) for n, s in prog.buffers.items()}
+        self._rank_major = {n: is_rank_major(s, mesh) for n, s in prog.buffers.items()}
         self._routes: Dict[Tuple, Route] = {}
+        self._groups: Dict[Tuple[str, ...], Tuple] = {}
         self.plans: Dict[int, PlanConsts] = {}
         for b in prog.batches:
             for ch in b.channels:
                 self.route(_axes_tuple(ch.axis), ch.perm(self.mesh_shape))
+            for coll in b.colls:
+                self.group(_axes_tuple(coll.axis))
+                if coll.op == "ppermute":
+                    self.group_route(_axes_tuple(coll.axis), coll.kwargs["perm"])
             if b.plan is not None:
                 self.plans[b.index] = self._plan_consts(b.plan, prog, b.pid)
 
@@ -196,7 +199,7 @@ class Lowering:
             whole = (ch.mode == "replace" and ch.recv_region is None
                      and dst_count[ch.dst_buf] == 1 and hops
                      and spec.dtype == plan.transfers[hops[-1][0]].dtype
-                     and int(np.prod(spec.shape)) // self.n_ranks
+                     and int(np.prod(self.storage[ch.dst_buf])) // self.n_ranks
                      == int(np.prod(plan.shapes[ci])))
             if whole:
                 ti, off = hops[-1]
@@ -218,20 +221,82 @@ class Lowering:
         return PlanConsts(routes=routes, direct=packed, ordered=ordered,
                           n_results={q: len(ts) for q, ts in finals.items()})
 
-    def ranks(self, t: torch.Tensor) -> torch.Tensor:
-        """View a global buffer as ``(R, *local)``."""
-        return t.view(self.n_ranks, *t.shape[self.n_rank_dims:])
+    def lead(self, buf: Optional[str]) -> int:
+        """Leading entries of the reference's per-rank view of ``buf`` that
+        are unit rank dims here: a rank-major buffer's (also ``buf``
+        None), none of a stacked one's."""
+        return self.n_rank_dims if buf is None or self._rank_major[buf] else 0
 
-    def local_region(self, region) -> Tuple[slice, ...]:
-        """A region of the reference's per-rank view ``(1,..,1, *local)``
-        as a region of the ``(R, *local)`` view (rank dim first)."""
+    def ranks(self, t: torch.Tensor, buf: Optional[str] = None) -> torch.Tensor:
+        """View a stored buffer as ``(R, *local)`` (``buf`` None:
+        rank-major)."""
+        return t.view(self.n_ranks, *t.shape[max(self.lead(buf), 1):])
+
+    def local_region(self, region, buf: Optional[str] = None) -> Tuple[slice, ...]:
+        """A region of the reference's per-rank view as a region of the
+        ``(R, *local)`` view (rank dim first); for a rank-major buffer the
+        reference's view starts with a unit dim a rank axis."""
         region = tuple(region)
-        for s in region[:self.n_rank_dims]:
+        k = self.lead(buf)
+        for s in region[:k]:
             if not (isinstance(s, slice) and s.indices(1) == (0, 1, 1)):
                 raise NotImplementedError(
                     f"region {region!r}: a region must span the whole "
                     f"(unit) local extent of every rank axis")
-        return (slice(None),) + region[self.n_rank_dims:]
+        return (slice(None),) + region[k:]
+
+    def group(self, axes: Tuple[str, ...]):
+        """``(perm, inverse, (O, G))``: the rank dims reordered so that the
+        ranks of one group along ``axes`` (linearized in ``axes`` order,
+        as ``jax.lax`` collectives number them) are adjacent; O groups of
+        G ranks."""
+        if axes not in self._groups:
+            names = self.mesh.axis_names
+            for a in axes:
+                if a not in names:
+                    raise ValueError(f"mesh has no axis {a!r}")
+            others = [i for i, a in enumerate(names) if a not in axes]
+            perm = others + [names.index(a) for a in axes]
+            inv = [perm.index(i) for i in range(len(names))]
+            g = int(np.prod([self.mesh_shape[a] for a in axes], dtype=np.int64))
+            self._groups[axes] = (perm, inv, (self.n_ranks // g, g))
+        return self._groups[axes]
+
+    def grouped(self, x: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+        """``(R, *local)`` as ``(O, G, *local)`` (:meth:`group`)."""
+        perm, _, og = self.group(axes)
+        k = len(perm)
+        x = x.reshape(*self.mesh.axis_sizes, *x.shape[1:])
+        x = x.permute(*perm, *range(k, x.dim()))
+        return x.reshape(*og, *x.shape[k:])
+
+    def ungrouped(self, x: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+        """Inverse of :meth:`grouped`: ``(O, G, *local)`` to ``(R, *local)``."""
+        perm, inv, _ = self.group(axes)
+        k = len(perm)
+        x = x.reshape(*[self.mesh.axis_sizes[i] for i in perm], *x.shape[2:])
+        x = x.permute(*inv, *range(k, x.dim()))
+        return x.reshape(self.n_ranks, *x.shape[k:])
+
+    def group_route(self, axes: Tuple[str, ...], perm) -> Route:
+        """A ``ppermute`` collective's route, in group coordinates
+        (``(O, G)`` flattened group-major)."""
+        key = ("group", axes, tuple(map(tuple, perm)))
+        if key not in self._routes:
+            _, _, (o, g) = self.group(axes)
+            src = np.full(g, -1, dtype=np.int64)
+            for a, b in perm:
+                src[int(b)] = int(a)
+            full = np.array([q * g + s if s >= 0 else -1
+                             for q in range(o) for s in src], dtype=np.int64)
+            dead = np.flatnonzero(full < 0)
+            as_dev = lambda a: torch.as_tensor(a, device=self.device)
+            self._routes[key] = Route(
+                identity=bool(len(perm) == g and all(a == b for a, b in perm)),
+                index=as_dev(np.where(full < 0, 0, full)),
+                dead=as_dev(dead) if dead.size else None,
+                receivers=as_dev(full >= 0), n_receivers=int((full >= 0).sum()))
+        return self._routes[key]
 
     def permute(self, x: torch.Tensor, route: Route) -> torch.Tensor:
         """Move ``x`` (rank-major) along a route; identity is elided."""
@@ -295,6 +360,7 @@ class PassStreams:
         self.own = {pid: lane.stream or self.home for pid, lane in lanes.items()}
         self.held: Dict[Any, List[torch.Tensor]] = defaultdict(list)
         self.signals: Dict[Tuple[int, int], List[torch.cuda.Event]] = defaultdict(list)
+        self.fired: set = set()  # pids whose comm stream holds work
         for lane in lanes.values():
             if lane.stream is not None:
                 lane.stream.wait_stream(self.home)
@@ -315,6 +381,7 @@ class PassStreams:
                 t.wait_stream(self.own[q])
         if comm is not None:
             self.held[pid].extend(sources)
+            self.fired.add(pid)
         return t
 
     def signal(self, t, gate: Tuple[int, int], held: List[torch.Tensor]) -> None:
@@ -346,12 +413,16 @@ class PassStreams:
         end with all of them joined)."""
         if self.lanes is None:
             return
-        for lane in self.lanes.values():
-            for s in (lane.stream, lane.comm):
+        for pid, lane in self.lanes.items():
+            # a comm stream no start forked (a program without a batch)
+            # is not part of the work, nor of a capture
+            comm = lane.comm if pid in self.fired else None
+            for s in (lane.stream, comm):
                 if s is not None:
                     self.home.wait_stream(s)
         self.held.clear()
         self.signals.clear()
+        self.fired.clear()
 
 
 def _on(stream):
@@ -359,11 +430,12 @@ def _on(stream):
     return contextlib.nullcontext() if stream is None else torch.cuda.stream(stream)
 
 
-def _as_buffer(o: torch.Tensor, spec) -> torch.Tensor:
+def _as_buffer(o: torch.Tensor, spec, shape) -> torch.Tensor:
+    """A kernel's output for buffer ``spec``, stored as ``shape``."""
     o = o.to(spec.dtype)
-    if tuple(o.shape) != tuple(spec.shape):
+    if tuple(o.shape) != tuple(shape):
         raise ValueError(f"kernel wrote shape {tuple(o.shape)} into buffer "
-                         f"{spec.name!r} of shape {spec.shape}")
+                         f"{spec.name!r} stored as {tuple(shape)}")
     return o if o.is_contiguous() else o.contiguous()
 
 
@@ -433,7 +505,7 @@ def _interpret_program(
                 raise ValueError(f"kernel {d.name!r} returned {len(outs)} "
                                  f"values for {len(d.writes)} write buffers")
             for w, o in zip(d.writes, outs):
-                mem[w] = _as_buffer(o, prog.buffers[w])
+                mem[w] = _as_buffer(o, prog.buffers[w], low.storage[w])
                 saved.pop(w, None)  # a whole-buffer rewrite
         elif isinstance(d, StartDesc):
             batch = batches[d.batch]
@@ -441,7 +513,8 @@ def _interpret_program(
             cross = [(ch, resolve_gate(gates, cursor, d.pid, d.batch, ch))
                      for ch in batch.channels if ch.dst_pid not in (None, d.pid)]
             t = streams.trigger(d.pid, {ch.dst_pid for ch, _ in cross},
-                                [mem[ch.src_buf] for ch in batch.channels])
+                                [mem[ch.src_buf] for ch in batch.channels]
+                                + [mem[c.buf] for c in batch.colls])
             with _on(t):
                 restore = list(dict.fromkeys(
                     ch.dst_buf for ch in batch.channels
@@ -450,6 +523,12 @@ def _interpret_program(
                     torch._foreach_copy_([mem[n] for n in restore],
                                          [saved.pop(n) for n in restore])
                 done = _run_batch(mem, batch, low, coalesce)
+                for coll in batch.colls:
+                    _run_collective(mem, coll, low)
+                    saved.pop(coll.out, None)  # wholly overwritten
+            if batch.colls:
+                done = dict(done)
+                done[d.pid] = done.get(d.pid, 0) + len(batch.colls)
             for ch, gate in cross:
                 streams.signal(t, gate, [mem[ch.dst_buf]])
             for pid, n in done.items():
@@ -479,9 +558,9 @@ def _deposit_channel(mem, ch: Channel, received: torch.Tensor, low: Lowering):
     """Deposit one channel's received ``(R, *slab)`` into its destination,
     in place.  The receiver set always comes from the channel's own peer
     permutation, however the payload travelled."""
-    dst = low.ranks(mem[ch.dst_buf])
-    region = (low.local_region(ch.recv_region) if ch.recv_region is not None
-              else (slice(None),))
+    dst = low.ranks(mem[ch.dst_buf], ch.dst_buf)
+    region = (low.local_region(ch.recv_region, ch.dst_buf)
+              if ch.recv_region is not None else (slice(None),))
     received = received.to(dst.dtype)
     if ch.mode == "add":
         # ranks without a sender received zeros: neutral for add
@@ -497,9 +576,9 @@ def _deposit_channel(mem, ch: Channel, received: torch.Tensor, low: Lowering):
 
 def _run_channel(mem, ch: Channel, low: Lowering) -> torch.Tensor:
     """One matched (send, recv) pair: slice, permute, deposit."""
-    src = low.ranks(mem[ch.src_buf])
+    src = low.ranks(mem[ch.src_buf], ch.src_buf)
     if ch.send_region is not None:
-        src = src[low.local_region(ch.send_region)]
+        src = src[low.local_region(ch.send_region, ch.src_buf)]
     route = low.route(_axes_tuple(ch.axis), ch.perm(low.mesh_shape))
     received = low.permute(src, route)
     _deposit_channel(mem, ch, received, low)
@@ -523,9 +602,9 @@ def _run_coalesced_batch(mem, plan, consts: PlanConsts, low: Lowering):
         for seg in t.segments:
             if seg.hop == 0:
                 ch = plan.channels[seg.channel]
-                src = low.ranks(mem[ch.src_buf])
+                src = low.ranks(mem[ch.src_buf], ch.src_buf)
                 if ch.send_region is not None:
-                    src = src[low.local_region(ch.send_region)]
+                    src = src[low.local_region(ch.send_region, ch.src_buf)]
                 sources.append((src.reshape(n, -1), 0))
             else:  # relay: verbatim out of the previous hop's buffer
                 pt, po = plan.routes[seg.channel][seg.hop - 1]
@@ -539,7 +618,7 @@ def _run_coalesced_batch(mem, plan, consts: PlanConsts, low: Lowering):
                         offs, masks)
     for ci in consts.ordered:
         ch, hops = plan.channels[ci], plan.routes[ci]
-        shape = plan.shapes[ci][low.n_rank_dims:]  # per-rank slab, rank dims dropped
+        shape = plan.shapes[ci][low.lead(ch.src_buf):]  # per-rank slab, rank dims dropped
         if hops:
             ti, off = hops[-1]
             size = int(np.prod(shape, dtype=np.int64))
@@ -551,15 +630,93 @@ def _run_coalesced_batch(mem, plan, consts: PlanConsts, low: Lowering):
     return received
 
 
+def _rank_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over dim 1 in group-rank order (one add at a time)."""
+    acc = x[:, 0]
+    for j in range(1, x.shape[1]):
+        acc = acc + x[:, j]
+    return acc
+
+
+def _collective_blocks(op: str, x: torch.Tensor, kwargs, low: Lowering,
+                      axes: Tuple[str, ...]) -> torch.Tensor:
+    """A ``jax.lax`` collective on grouped blocks: ``x`` is ``(O, G,
+    *local)`` (:meth:`Lowering.grouped`, G ranks a group), and so is the
+    result, one output block a rank.  Sums run in group-rank order."""
+    o, g = x.shape[:2]
+    loc = tuple(x.shape[2:])
+    kw = dict(kwargs)
+
+    def everyone(y):  # one result, every rank of the group
+        return y.unsqueeze(1).expand(o, g, *y.shape[1:])
+
+    if op == "all_gather":
+        d = kw.get("dim", 0)
+        parts = x.unbind(1)
+        y = torch.cat(parts, dim=1 + d) if kw.get("tiled", True) \
+            else torch.stack(parts, dim=1 + d)
+        return everyone(y)
+    if op == "all_reduce":
+        return everyone(_rank_sum(x))
+    if op == "reduce_scatter":
+        d = kw.get("dim", 0)
+        y = _rank_sum(x)
+        if kw.get("tiled", True):
+            if loc[d] % g:
+                raise ValueError(f"reduce_scatter: dim {d} ({loc[d]}) does not "
+                                 f"divide by the group size {g}")
+            y = y.reshape(o, *loc[:d], g, loc[d] // g, *loc[d + 1:])
+        elif loc[d] != g:
+            raise ValueError(f"reduce_scatter(tiled=False): dim {d} must equal "
+                             f"the group size {g}, got {loc[d]}")
+        return y.movedim(1 + d, 1)
+    if op == "all_to_all":
+        sa, ca = kw.get("split_axis", 0), kw.get("concat_axis", 0)
+        if kw.get("tiled", True):
+            if loc[sa] % g:
+                raise ValueError(f"all_to_all: split_axis {sa} ({loc[sa]}) does "
+                                 f"not divide by the group size {g}")
+            y = x.reshape(o, g, *loc[:sa], g, loc[sa] // g, *loc[sa + 1:])
+            y = y.movedim(2 + sa, 1)  # (O, receiver, sender, *block)
+            return torch.cat(y.unbind(2), dim=2 + ca)
+        if loc[sa] != g:
+            raise ValueError(f"all_to_all(tiled=False): split_axis {sa} must "
+                             f"equal the group size {g}, got {loc[sa]}")
+        y = x.movedim(2 + sa, 1)
+        return torch.stack(y.unbind(2), dim=2 + ca)
+    if op == "ppermute":
+        route = low.group_route(axes, kw["perm"])
+        return low.permute(x.reshape(o * g, *loc), route).reshape(o, g, *loc)
+    raise ValueError(f"unknown collective {op!r}")  # validated at enqueue
+
+
+def _run_collective(mem, coll: CollDesc, low: Lowering) -> None:
+    """One deferred collective (reference ``engine_fused._run_collective``):
+    every rank's block of ``coll.buf`` gathered, summed or moved over its
+    group along ``coll.axis``, deposited into ``coll.out`` in place."""
+    axes = _axes_tuple(coll.axis)
+    x = low.grouped(low.ranks(mem[coll.buf], coll.buf), axes)
+    y = low.ungrouped(_collective_blocks(coll.op, x, coll.kwargs, low, axes), axes)
+    dst = low.ranks(mem[coll.out], coll.out)
+    if tuple(y.shape) != tuple(dst.shape):
+        raise ValueError(f"collective {coll.op} of {coll.buf!r} gives per-rank "
+                         f"blocks {tuple(y.shape[1:])}, but {coll.out!r} holds "
+                         f"{tuple(dst.shape[1:])}")
+    dst.copy_(y)
+
+
 class FusedEngine:
     """Run an STProgram as one CUDA-graph launch per call.
 
-    Buffers: the engine owns one tensor per program buffer.  A call
-    copies each given tensor into the engine's own (skipped for a tensor
-    that already is the engine's), launches the pass, and returns fresh
-    copies — or, with ``donate=True``, the engine's own tensors, which
-    the next call overwrites (``m = eng(m)`` then chains without copies).
-    The caller's tensors are never written.
+    Buffers: the engine owns one tensor per program buffer, in the
+    layout of :mod:`.state` (a buffer that is not rank-major as the
+    stack of its rank-local blocks).  A call takes each buffer in the
+    reference's global layout, copies it into the engine's own (skipped
+    for a tensor that already is the engine's), launches the pass, and
+    returns the global layout: fresh copies, or with ``donate=True`` the
+    engine's own tensors or views of them, which the next call
+    overwrites (``m = eng(m)`` then chains without copies).  The
+    caller's tensors are never written.
 
     On a GPU, :meth:`compile` runs one eager warm-up pass on scratch
     copies (it builds and loads every kernel before capture) and then
@@ -591,12 +748,44 @@ class FusedEngine:
         self._lowering = Lowering(program)
         self._lanes = make_lanes(program, mode, self.device)
         self._bufs: Optional[Dict[str, torch.Tensor]] = None
+        self._views: Dict[str, torch.Tensor] = {}
         self._graph: Optional[Any] = None
         self.graph_launches = 0
 
     def init_buffers(self, init: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
-        """Zeros (or ``init`` values) for every buffer, on the mesh device."""
+        """Zeros (or ``init`` values) for every buffer, on the mesh device,
+        in the reference's global layout."""
         return init_buffers(self.program, init)
+
+    def _sources(self, mem: Dict[str, torch.Tensor]):
+        """``(engine tensors, sources)`` to copy a call's buffers in, each
+        source in its stored form; a tensor that is the engine's own (or a
+        view it returned) is skipped."""
+        dsts, srcs = [], []
+        for name, t in self._bufs.items():
+            src = mem[name]
+            if src is t or src is self._views.get(name):
+                continue
+            dsts.append(t)
+            srcs.append(to_storage(self.program.buffers[name], self.mesh, src))
+        return dsts, srcs
+
+    def _outputs(self, bufs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A call's result in the global layout: copies, or with
+        ``donate`` the engine's own tensors (views where the layout
+        allows)."""
+        specs = self.program.buffers
+        out = {n: to_global(specs[n], self.mesh, t) for n, t in bufs.items()}
+        if self.donate:
+            # a returned view of an engine tensor is that tensor to the
+            # next call
+            same = lambda a, b: a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+            self._views = {n: v for n, v in out.items()
+                           if v is not bufs[n] and bufs[n] is self._bufs[n]
+                           and same(v, bufs[n])}
+            return out
+        return {n: t.clone(memory_format=torch.contiguous_format)
+                for n, t in out.items()}
 
     def _pass(self, mem: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         return _interpret_program(mem, prog=self.program, mode=self.mode,
@@ -610,7 +799,9 @@ class FusedEngine:
                 t.copy_(out[name])
 
     def _allocate(self) -> None:
-        self._bufs = self.init_buffers()
+        self._bufs = {n: torch.zeros(self._lowering.storage[n], dtype=spec.dtype,
+                                     device=self.device)
+                      for n, spec in self.program.buffers.items()}
 
     def compile(self):
         """Allocate the engine's buffers and, on a GPU, capture the graph."""
@@ -627,18 +818,15 @@ class FusedEngine:
 
     def _launch(self, mem: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         self.compile()
-        for name, t in self._bufs.items():
-            if mem[name] is not t:
-                t.copy_(mem[name])
+        for t, src in zip(*self._sources(mem)):
+            t.copy_(src)
         if self._graph is not None:
             self._graph.replay()
             self.graph_launches += 1
         else:
             self._run_into(self._bufs)
         self.stats.dispatches += 1
-        if self.donate:
-            return dict(self._bufs)
-        return {n: t.clone() for n, t in self._bufs.items()}
+        return self._outputs(self._bufs)
 
     def __call__(self, mem: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         return self._launch(mem)

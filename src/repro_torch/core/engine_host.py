@@ -6,7 +6,8 @@ GPU-aware MPI application does:
 
 * every compute kernel is its own dispatch;
 * every matched channel is its own dispatch (slice, permute, deposit),
-  walked one at a time like a CPU progress thread (paper §IV-B);
+  walked one at a time like a CPU progress thread (paper §IV-B), and so
+  is every deferred collective;
 * the host synchronizes with the device by its policy:
 
 ``every_op``  ``torch.cuda.synchronize()`` after every dispatch;
@@ -33,15 +34,19 @@ from typing import Any, Dict, Optional
 import torch
 
 from .descriptors import KernelDesc, StartDesc, WaitDesc
-from .engine_fused import Lowering, _as_buffer, _run_channel
+from .engine_fused import Lowering, _as_buffer, _run_channel, _run_collective
 from .queue import STProgram
-from .state import init_buffers
+from .state import init_buffers, to_global, to_storage
 
 
 @dataclasses.dataclass
 class HostStats:
     dispatches: int = 0
     sync_points: int = 0
+
+    def reset(self):
+        self.dispatches = 0
+        self.sync_points = 0
 
 
 class HostEngine:
@@ -66,8 +71,9 @@ class HostEngine:
         return init_buffers(self.program, init)
 
     def __call__(self, mem: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        prog = self.program
-        mem = {n: mem[n].clone() for n in prog.buffers}
+        prog, low = self.program, self._lowering
+        mem = {n: to_storage(spec, self.mesh, mem[n]).clone()
+               for n, spec in prog.buffers.items()}
         batches = {b.index: b for b in prog.batches}
         for d in prog.descriptors:
             if isinstance(d, KernelDesc):
@@ -75,19 +81,23 @@ class HostEngine:
                 if not isinstance(outs, (tuple, list)):
                     outs = (outs,)
                 for w, o in zip(d.writes, outs):
-                    mem[w] = _as_buffer(o, prog.buffers[w])
+                    mem[w] = _as_buffer(o, prog.buffers[w], low.storage[w])
                 self._dispatched()
             elif isinstance(d, StartDesc):
-                # the "progress thread" posts each channel on its own
+                # the "progress thread" posts each channel and collective
+                # on its own
                 batch = batches[d.batch]
                 for ch in batch.channels:
-                    _run_channel(mem, ch, self._lowering)
+                    _run_channel(mem, ch, low)
                     self._dispatched()
-                if self.sync == "batch" and batch.channels:
+                for coll in batch.colls:
+                    _run_collective(mem, coll, low)
+                    self._dispatched()
+                if self.sync == "batch" and (batch.channels or batch.colls):
                     self._block()
             elif isinstance(d, WaitDesc):
                 self._block()  # host-level MPI_Waitall
-        return mem
+        return {n: to_global(spec, self.mesh, mem[n]) for n, spec in prog.buffers.items()}
 
     def _dispatched(self) -> None:
         self.stats.dispatches += 1

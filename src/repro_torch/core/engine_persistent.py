@@ -79,14 +79,18 @@ from .queue import STProgram
 from .schedule import STSchedule
 
 def slot_buffers(prog: STProgram) -> Tuple[str, ...]:
-    """Message-slot buffers safe to double-buffer: touched by a channel,
-    and first accessed (in execution order) by a write — a replace
-    deposit counts as a write, an add deposit as a read."""
+    """Message-slot buffers safe to double-buffer: touched by a channel
+    or collective, and first accessed (in execution order) by a write — a
+    replace deposit or a collective's output counts as a write, an add
+    deposit as a read."""
     comm_bufs: Set[str] = set()
     for b in prog.batches:
         for ch in b.channels:
             comm_bufs.add(ch.src_buf)
             comm_bufs.add(ch.dst_buf)
+        for coll in b.colls:
+            comm_bufs.add(coll.buf)
+            comm_bufs.add(coll.out)
 
     first_access: Dict[str, str] = {}
     batches = {b.index: b for b in prog.batches}
@@ -100,9 +104,13 @@ def slot_buffers(prog: STProgram) -> Tuple[str, ...]:
             batch = batches[d.batch]
             for ch in batch.channels:
                 first_access.setdefault(ch.src_buf, "read")
+            for coll in batch.colls:
+                first_access.setdefault(coll.buf, "read")
             for ch in batch.channels:
                 first_access.setdefault(
                     ch.dst_buf, "read" if ch.mode == "add" else "write")
+            for coll in batch.colls:
+                first_access.setdefault(coll.out, "write")
     return tuple(sorted(b for b in comm_bufs if first_access.get(b) == "write"))
 
 
@@ -395,9 +403,9 @@ class PersistentEngine(FusedEngine):
         each (``torch._foreach_copy_``): the host enqueues a few calls,
         not one a buffer."""
         self.compile()
-        moved = [n for n, t in self._bufs.items() if mem[n] is not t]
-        if moved:
-            torch._foreach_copy_([self._bufs[n] for n in moved], [mem[n] for n in moved])
+        dsts, srcs = self._sources(mem)
+        if dsts:
+            torch._foreach_copy_(dsts, srcs)
         if self._loop is not None and self._alt:
             torch._foreach_copy_(list(self._alt.values()), [self._bufs[n] for n in self._alt])
 
@@ -427,8 +435,8 @@ class PersistentEngine(FusedEngine):
             out = dict(self._bufs)
         self.stats.dispatches += 1
         red, n_done = self._reductions, self._n_done
+        out = self._outputs(out)
         if not self.donate:
-            out = {n: t.clone() for n, t in out.items()}
             red, n_done = red.clone(), n_done.clone()
         if not self._masked:
             return out, red, n_done

@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -509,17 +509,10 @@ def build_faces_part_program(cfg: FacesConfig, mesh, part: int, n_parts: int,
     return q.build(name=names[part], coalesce=coalesce)
 
 
-def build_faces_pipeline(cfg: FacesConfig, mesh, n_parts: int = 2, n_iters=1,
-                         exchange: bool = True, coalesce: bool = True,
-                         tols: Optional[Sequence[float]] = None) -> STSchedule:
-    """The N x-parts of ``cfg``'s domain, each marked for ``n_iters``
-    passes (one count, or one a part), composed into one schedule: linked
-    (:func:`build_faces_part_program`: the x-crossing halo links tie the
-    split's two ends, the ghost-plane ring every adjacent pair) or, with
-    ``exchange=False``, independent (:func:`build_faces_program` of each
-    part's config).  With ``tols``, part k runs while its residual is at
-    least ``tols[k]`` (``until=lambda r: r >= tols[k]``), ``n_iters``
-    being its bound."""
+def _pipeline_parts(cfg: FacesConfig, mesh, n_parts: int, n_iters, exchange: bool,
+                    coalesce: bool, tols: Optional[Sequence[float]]):
+    """The N part programs of :func:`build_faces_pipeline`, each marked
+    persistent, and the links that tie them (None unlinked)."""
     names = part_names(n_parts)
     if exchange:
         links = [(names[0], names[-1]), (names[-1], names[0])]
@@ -538,9 +531,24 @@ def build_faces_pipeline(cfg: FacesConfig, mesh, n_parts: int = 2, n_iters=1,
     if len(counts) != n_parts or len(tols) != n_parts:
         raise ValueError(f"n_iters and tols need one entry per part ({n_parts}), got "
                          f"{n_iters!r} and {tols!r}")
-    return compose(*[p.persistent(n, until=None if tol is None else
-                                  (lambda r, tol=tol: r >= tol))
-                     for p, n, tol in zip(progs, counts, tols)], links=links)
+    return [p.persistent(n, until=None if tol is None else (lambda r, tol=tol: r >= tol))
+            for p, n, tol in zip(progs, counts, tols)], links
+
+
+def build_faces_pipeline(cfg: FacesConfig, mesh, n_parts: int = 2, n_iters=1,
+                         exchange: bool = True, coalesce: bool = True,
+                         tols: Optional[Sequence[float]] = None,
+                         interleave=None) -> STSchedule:
+    """The N x-parts of ``cfg``'s domain, each marked for ``n_iters``
+    passes (one count, or one a part), composed into one schedule: linked
+    (:func:`build_faces_part_program`: the x-crossing halo links tie the
+    split's two ends, the ghost-plane ring every adjacent pair) or, with
+    ``exchange=False``, independent (:func:`build_faces_program` of each
+    part's config).  With ``tols``, part k runs while its residual is at
+    least ``tols[k]`` (``until=lambda r: r >= tols[k]``), ``n_iters``
+    being its bound.  ``interleave`` is ``compose``'s segment policy."""
+    progs, links = _pipeline_parts(cfg, mesh, n_parts, n_iters, exchange, coalesce, tols)
+    return compose(*progs, links=links, interleave=interleave)
 
 
 def run_faces_pipelined(cfg: FacesConfig, mesh, u0, *, n_iters: Optional[int] = None,
@@ -548,7 +556,8 @@ def run_faces_pipelined(cfg: FacesConfig, mesh, u0, *, n_iters: Optional[int] = 
                         max_iters: Optional[int] = None,
                         mode: str = "dataflow", double_buffer: Optional[bool] = None,
                         donate: bool = True, n_parts: int = 2, exchange: bool = True,
-                        tune: bool = False):
+                        tune: bool = False, tune_space: Optional[Dict[str, Sequence]] = None,
+                        tune_repeats: int = 3, tune_measure_top: int = 3):
     """N x-split Faces queues, composed, in ONE graph launch, each part on
     its own CUDA stream.  Two regimes:
 
@@ -568,14 +577,20 @@ def run_faces_pipelined(cfg: FacesConfig, mesh, u0, *, n_iters: Optional[int] = 
       frozen boundary, so the merged field is a staged solve, not the
       full domain's.
 
-    ``tune=`` (the cost model) is not ported yet and raises
-    ``NotImplementedError``.
+    With ``tune=True`` :func:`repro_torch.launch.tune.tune` picks the
+    execution configuration before the real run: candidates over
+    ``tune_space`` (default: interleave policy × trigger mode, based on
+    the ``mode``/``double_buffer`` arguments) are priced by the cost
+    model, the ``tune_measure_top`` cheapest are timed (``tune_repeats``
+    medians each), and the winner runs.  The knobs change the schedule,
+    not the numbers, so the fields are the same solve either way.  The
+    return value grows a trailing :class:`~repro_torch.launch.tune.
+    TuneResult`: ``(mem, stats, tuned)`` / ``(mem, residuals, n_done,
+    stats, tuned)``; ``stats`` and the winner's ``graph_launches`` count
+    the real solve only.
     """
     from .engine_persistent import PersistentEngine
 
-    if tune:
-        raise NotImplementedError("tune=: the cost model and tuner are not ported "
-                                  "yet: see ROADMAP.md, 'Cost model and tuner'")
     if (n_iters is None) == (tols is None):
         raise ValueError("pass exactly one of n_iters= or tols=")
     if tols is not None:
@@ -584,20 +599,49 @@ def run_faces_pipelined(cfg: FacesConfig, mesh, u0, *, n_iters: Optional[int] = 
         if len(tols) != n_parts:
             raise ValueError(f"tols needs one tolerance per part ({n_parts}), got {tols!r}")
     names = part_names(n_parts)
-    sched = build_faces_pipeline(cfg, mesh, n_parts, n_iters if tols is None else max_iters,
-                                 exchange, tols=tols)
+    progs, links = _pipeline_parts(cfg, mesh, n_parts,
+                                   n_iters if tols is None else max_iters,
+                                   exchange, True, tols)
     reduce_fns = None if tols is None else {
         nm: global_residual_fn(c, buf=f"{nm}/u")
         for nm, c in zip(names, part_configs(cfg, n_parts))}
-    eng = PersistentEngine(sched, mode=mode, double_buffer=double_buffer, donate=donate,
-                           reduce_fns=reduce_fns)
     init = {f"{nm}/u": p for nm, p in zip(names, split_parts(u0, n_parts))}
+
+    def make_engine(interleave=None, **engine_kw):
+        kw = dict(mode=mode, double_buffer=double_buffer)
+        kw.update(engine_kw)
+        return PersistentEngine(compose(*progs, links=links, interleave=interleave),
+                                donate=donate, reduce_fns=reduce_fns, **kw)
+
+    tuned = None
+    if tune:
+        from ..launch.tune import Knobs, tune as tune_search
+
+        def build(knobs):
+            eng = make_engine(interleave=knobs.interleave_policy(),
+                              **knobs.engine_kwargs())
+            return eng, (lambda e=eng: e.init_buffers(init))
+
+        tuned = tune_search(
+            build,
+            tune_space or {"interleave": ["round_robin", "sequential", 2],
+                           "mode": ["dataflow", "stream"]},
+            base=Knobs(mode=mode, double_buffer=double_buffer),
+            repeats=tune_repeats, measure_top=tune_measure_top)
+        eng = tuned.best.engine
+        eng.stats.reset()  # the returned stats cover the real solve only
+        eng.graph_launches = 0
+    else:
+        eng = make_engine()
+
     if tols is None:
-        return eng(eng.init_buffers(init)), eng.stats
+        mem = eng(eng.init_buffers(init))
+        return (mem, eng.stats, tuned) if tune else (mem, eng.stats)
     mem, reds, n_done = eng(eng.init_buffers(init))
     n_done = {nm: int(v) for nm, v in n_done.items()}
     reds = {nm: r[:n_done[nm]] for nm, r in reds.items()}
-    return mem, reds, n_done, eng.stats
+    return ((mem, reds, n_done, eng.stats, tuned) if tune
+            else (mem, reds, n_done, eng.stats))
 
 
 # --------------------------------------------------------------------------

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .descriptors import (
+    CollDesc,
     GridOffsetPeer,
     OffsetPeer,
     PairListPeer,
@@ -169,6 +170,7 @@ class Batch:
     index: int
     kernels_before: List[Any]  # KernelDescs enqueued before this start
     channels: List[Channel]
+    colls: List[CollDesc] = dataclasses.field(default_factory=list)
     waited: bool = False
     pid: int = 0
     # Build-time coalescing plan; None when coalescing is off or declined.
@@ -367,7 +369,7 @@ def coalesce_batch(channels: Sequence[Channel], buffers,
 def validate_program_order(descs: Sequence[Any]) -> None:
     """Queue-level FIFO invariants, raised at build:
 
-    * every send/recv must be covered by a later start;
+    * every send/recv/collective must be covered by a later start;
     * a wait must follow a start;
     * thresholds are monotonically non-decreasing (DWQ contract).
     """
@@ -377,7 +379,7 @@ def validate_program_order(descs: Sequence[Any]) -> None:
     waits_seen = 0
     last_threshold = 0
     for d in descs:
-        if isinstance(d, (SendDesc, RecvDesc)):
+        if isinstance(d, (SendDesc, RecvDesc, CollDesc)):
             open_comm += 1
             open_site = d.site or open_site
             if 0 <= d.threshold < last_threshold:

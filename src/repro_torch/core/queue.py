@@ -12,6 +12,7 @@ MPIX_Enqueue_recv       ``queue.enqueue_recv(buf, peer, tag)``
 MPIX_Enqueue_start      ``queue.enqueue_start()``
 MPIX_Enqueue_wait       ``queue.enqueue_wait()``
 (kernel launch)         ``queue.enqueue_kernel(fn, reads, writes)``
+(deferred collective)   ``queue.enqueue_collective(op, buf, out, axis)``
 (§V-A contiguous        ``build(coalesce=True)`` → one
  MPI buffer)            :class:`~.matching.CoalescedChannel` per
                         ``(axis, permutation)`` group
@@ -41,6 +42,7 @@ import torch
 from .counters import CompletionCounter, TriggerCounter
 from .descriptors import (
     BufferSpec,
+    CollDesc,
     KernelDesc,
     RecvDesc,
     SendDesc,
@@ -115,11 +117,13 @@ class STProgram:
         return any(b.plan is not None for b in self.batches)
 
     def collective_counts(self) -> Dict[int, Tuple[int, int]]:
-        """Per start gate: (uncoalesced, as-lowered) transfer counts."""
+        """Per start gate: (uncoalesced, as-lowered) collective counts: one
+        per channel (or per fused transfer, as lowered) and one per
+        deferred collective."""
         return {
-            b.index: (len(b.channels),
-                      len(b.plan.transfers) if b.plan is not None
-                      else len(b.channels))
+            b.index: (len(b.channels) + len(b.colls),
+                      (len(b.plan.transfers) if b.plan is not None
+                       else len(b.channels)) + len(b.colls))
             for b in self.batches
         }
 
@@ -196,9 +200,9 @@ class STProgram:
 
     def dispatch_count_host(self) -> int:
         """Separate dispatches of the host-orchestrated engine per pass:
-        one per kernel and one per channel (paper Fig. 1)."""
+        one per kernel, channel and collective (paper Fig. 1)."""
         return (sum(isinstance(d, KernelDesc) for d in self.descriptors)
-                + self.n_channels)
+                + sum(len(b.channels) + len(b.colls) for b in self.batches))
 
     def dispatch_count_fused(self) -> int:
         """The fused engine launches one graph per pass."""
@@ -292,6 +296,23 @@ class STQueue:
             region=region, mode=mode, remote=remote, site=_call_site()))
         self._built = None
 
+    def enqueue_collective(self, op: str, buf: str, out: str, axis, **kwargs) -> None:
+        """Beyond-paper: enqueue a whole collective as one deferred op
+        (``op`` one of ``all_gather``, ``reduce_scatter``, ``all_reduce``,
+        ``all_to_all``, ``ppermute``; ``kwargs`` as ``jax.lax`` names
+        them: ``dim``, ``tiled``, ``split_axis``, ``concat_axis``,
+        ``perm``)."""
+        self._check_live()
+        self._check_buf(buf)
+        if out not in self._buffers:
+            raise QueueError(f"collective writes undeclared buffer {out!r}")
+        if op not in ("all_gather", "reduce_scatter", "all_reduce", "all_to_all", "ppermute"):
+            raise QueueError(f"unknown collective {op!r}")
+        self._descs.append(CollDesc(op, buf, out, axis, kwargs,
+                                    threshold=self._trigger.next_threshold(),
+                                    site=_call_site()))
+        self._built = None
+
     def enqueue_start(self) -> None:
         """MPIX_Enqueue_start: one trigger for every comm op enqueued
         since the previous start."""
@@ -345,6 +366,7 @@ class STQueue:
         batches: List[Batch] = []
         pending_sends: List[SendDesc] = []
         pending_recvs: List[RecvDesc] = []
+        pending_colls: List[CollDesc] = []
         kernels_since_start: List[KernelDesc] = []
         for d in self._descs:
             if isinstance(d, KernelDesc):
@@ -353,6 +375,8 @@ class STQueue:
                 pending_sends.append(d)
             elif isinstance(d, RecvDesc):
                 pending_recvs.append(d)
+            elif isinstance(d, CollDesc):
+                pending_colls.append(d)
             elif isinstance(d, StartDesc):
                 # remote= sends/recvs pair with another program: compose
                 # matches them
@@ -372,11 +396,12 @@ class STQueue:
                     if coalesce else None, d.batch)
                 batch = Batch(index=d.batch,
                               kernels_before=list(kernels_since_start),
-                              channels=channels, plan=plan, coalesce=coalesce,
+                              channels=channels, colls=list(pending_colls),
+                              plan=plan, coalesce=coalesce,
                               open_sends=open_sends, open_recvs=open_recvs)
                 batch.effects = batch_effects(batch)
                 batches.append(batch)
-                pending_sends, pending_recvs = [], []
+                pending_sends, pending_recvs, pending_colls = [], [], []
                 kernels_since_start = []
             elif isinstance(d, WaitDesc):
                 # completion counters are cumulative: a wait on batch k

@@ -70,6 +70,7 @@ from collections import defaultdict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from .descriptors import (
+    CollDesc,
     KernelDesc,
     RecvDesc,
     SendDesc,
@@ -167,7 +168,7 @@ def _segments(descs) -> List[List[Any]]:
     open_batch = False
     for d in descs:
         cur.append(d)
-        if isinstance(d, (SendDesc, RecvDesc)):
+        if isinstance(d, (SendDesc, RecvDesc, CollDesc)):
             open_batch = True
         elif isinstance(d, StartDesc):
             open_batch = False
@@ -400,6 +401,9 @@ def compose(*programs: STProgram, name: Optional[str] = None,
                 new = dataclasses.replace(d, buf=_rename[d.buf], pid=_pid)
             elif isinstance(d, RecvDesc):
                 new = dataclasses.replace(d, buf=_rename[d.buf], pid=_pid)
+            elif isinstance(d, CollDesc):
+                new = dataclasses.replace(d, buf=_rename[d.buf],
+                                          out=_rename[d.out], pid=_pid)
             elif isinstance(d, StartDesc):
                 new = dataclasses.replace(d, batch=d.batch + _lo, pid=_pid)
             elif isinstance(d, WaitDesc):
@@ -432,6 +436,7 @@ def compose(*programs: STProgram, name: Optional[str] = None,
                 index=gidx,
                 kernels_before=[rn(k) for k in b.kernels_before],
                 channels=renamed_channels,
+                colls=[rn(c) for c in b.colls],
                 waited=b.waited,
                 pid=pid,
                 plan=None,          # (re)derived below, links included

@@ -125,7 +125,7 @@ ST013  ring rotation hazard (error)
     *Meaning*: an in-place ring rotation (send and recv on the SAME
     buffer, replace mode — the descriptor spelling of
     ``buf = ppermute(buf, delta)`` used by the collective-matmul
-    programs of the reference's ``core/collectives.py``) appears more than once
+    programs of :mod:`.collectives`) appears more than once
     for one buffer inside a single start gate.  Every channel of a gate
     reads the same pre-trigger value, so the second rotation does not
     see the first's deposit: the buffer advances one hop, not two, and
@@ -221,6 +221,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from .descriptors import (
+    CollDesc,
     KernelDesc,
     RecvDesc,
     SendDesc,
@@ -415,7 +416,8 @@ def verify_program(prog) -> List[Diagnostic]:
 
     def own_completions(b) -> bool:
         """Does batch ``b`` produce completions on its OWN counter bank?"""
-        return any(ch.dst_pid is None or ch.dst_pid == b.pid for ch in b.channels)
+        return bool(b.colls) or any(
+            ch.dst_pid is None or ch.dst_pid == b.pid for ch in b.channels)
 
     # last start position per pid (ST004: comm descs after it are dead)
     last_start_pos: Dict[int, int] = {}
@@ -452,7 +454,7 @@ def verify_program(prog) -> List[Diagnostic]:
 
     for i, d in enumerate(prog.descriptors):
         pid = d.pid
-        if isinstance(d, (SendDesc, RecvDesc)):
+        if isinstance(d, (SendDesc, RecvDesc, CollDesc)):
             if d.threshold >= 0 and d.threshold < last_thr[pid]:
                 diag("ST003", pid,
                      f"threshold {d.threshold} below the program's already-"
@@ -464,11 +466,13 @@ def verify_program(prog) -> List[Diagnostic]:
                      f"{type(d).__name__} after the program's last start "
                      f"gate: no trigger covers it, it can never fire",
                      index=i, site=d.site)
-            if owner.get(d.buf, pid) != pid:
-                diag("ST009", pid,
-                     f"{type(d).__name__} touches {d.buf!r}, owned by pid "
-                     f"{owner[d.buf]} (no shared memory under "
-                     f"composition)", index=i, site=d.site)
+            bufs = (d.buf, d.out) if isinstance(d, CollDesc) else (d.buf,)
+            for buf in bufs:
+                if owner.get(buf, pid) != pid:
+                    diag("ST009", pid,
+                         f"{type(d).__name__} touches {buf!r}, owned by pid "
+                         f"{owner[buf]} (no shared memory under "
+                         f"composition)", index=i, site=d.site)
 
         elif isinstance(d, KernelDesc):
             if getattr(d, "implicit_effects", False):
@@ -532,11 +536,17 @@ def verify_program(prog) -> List[Diagnostic]:
                          f"channel deposits into {ch.dst_buf!r}, owned by "
                          f"pid {owner[ch.dst_buf]} but completed on pid "
                          f"{dpid}'s bank", index=i, site=d.site)
+            for coll in batch.colls:
+                check_read(coll.buf, pid, i, coll.site,
+                           f"batch {d.batch}'s collective")
             for ch in batch.channels:
                 gate = resolve_gate(cross_gates, gate_cursor, pid, d.batch, ch)
                 register_deposit(
                     ch.dst_buf, ch.mode, ch.recv_region, gate[0], gate[1],
                     pid, i, getattr(ch, "recv_site", None) or d.site)
+            for coll in batch.colls:
+                register_deposit(coll.out, "replace", None, pid, d.batch,
+                                 pid, i, coll.site)
 
         elif isinstance(d, WaitDesc):
             waits_count[pid] += 1
@@ -842,6 +852,9 @@ def build_happens_before(prog) -> HappensBefore:
                 effects.append(_HBEffect(
                     i, ch.src_buf, "read", "pack", d.pid, ch.send_region,
                     i, getattr(ch, "send_site", None) or d.site))
+            for coll in batch.colls:
+                effects.append(_HBEffect(i, coll.buf, "read", "pack",
+                                         d.pid, None, i, coll.site))
             # deposits live on window nodes: start -> window -> gating wait
             ch_gate: Dict[int, Optional[int]] = {}
             for ci, ch in enumerate(batch.channels):
@@ -858,6 +871,15 @@ def build_happens_before(prog) -> HappensBefore:
                     "accum" if ch.mode == "add" else "write", "deposit",
                     d.pid, ch.recv_region, i,
                     getattr(ch, "recv_site", None) or d.site))
+            for coll in batch.colls:
+                w = next_node
+                next_node += 1
+                succ[i].append(w)
+                gw = gate_wait_node(d.pid, d.batch)
+                if gw is not None:
+                    succ[w].append(gw)
+                effects.append(_HBEffect(w, coll.out, "write", "deposit",
+                                         d.pid, None, i, coll.site))
             if batch.plan is not None:
                 for ti, t in enumerate(batch.plan.transfers):
                     transfers.append(_HBTransfer(
@@ -1006,6 +1028,8 @@ def canary_buffers(prog) -> Tuple[str, ...]:
         for ch in b.channels:
             deposit_kinds[ch.dst_buf].add(
                 (ch.mode, ch.recv_region is None))
+        for coll in b.colls:
+            deposit_kinds[coll.out].add(("replace", True))
 
     first: Dict[str, str] = {}
 
@@ -1025,9 +1049,13 @@ def canary_buffers(prog) -> Tuple[str, ...]:
                 continue
             for ch in b.channels:
                 see(ch.src_buf, "read")
+            for coll in b.colls:
+                see(coll.buf, "read")
             for ch in b.channels:
                 see(ch.dst_buf,
                     "deposit" if ch.mode == "replace" else "read")
+            for coll in b.colls:
+                see(coll.out, "deposit")
 
     out = []
     for buf, kinds in deposit_kinds.items():
@@ -1086,6 +1114,9 @@ class DepositTracker:
         for ch in batch.channels:
             self._check_read(ch.src_buf, f"batch {d.batch}'s send",
                              getattr(ch, "send_site", None))
+        for coll in batch.colls:
+            self._check_read(coll.buf, f"batch {d.batch}'s collective",
+                             coll.site)
         for ch in batch.channels:
             gate = resolve_gate(self._gates, self._cursor, d.pid, d.batch, ch)
             for p in self._pending.get(ch.dst_buf, ()):
@@ -1099,6 +1130,10 @@ class DepositTracker:
                 mode=ch.mode, gate_pid=gate[0], gate_batch=gate[1],
                 region=ch.recv_region,
                 site=getattr(ch, "recv_site", None), index=None))
+        for coll in batch.colls:
+            self._pending[coll.out].append(_Pending(
+                mode="replace", gate_pid=d.pid, gate_batch=d.batch,
+                region=None, site=coll.site, index=None))
 
     def wait(self, d: WaitDesc):
         for buf in list(self._pending):

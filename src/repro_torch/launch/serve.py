@@ -13,8 +13,9 @@ hold ``prompt_len + max_new`` entries.  ``serve_window`` narrows the
 attention windows as the reference's does
 (``transformer.layer_window_theta``).  On one
 GPU there is no mesh or sharding bundle: the engine calls the model
-directly.  ``admit_decode`` and ``serve_continuous`` are not ported yet
-(``ROADMAP.md``).
+directly.  :func:`build_admission_schedule` gives the admission handoff
+as a two-queue ST schedule for the verifier; ``admit_decode`` and
+``serve_continuous`` are not ported yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -89,6 +90,53 @@ class _Graph:
         self.graph.replay()
         self.replays += 1
         return self.state, self.extras
+
+
+def build_admission_schedule(mesh=None, *, slots: int = 4, width: int = 8,
+                             verify: str = "error"):
+    """The admission composition as an explicit ST schedule (reference
+    ``repro.launch.serve.build_admission_schedule``).
+
+    Two :class:`~repro_torch.core.STQueue` programs joined by a
+    cross-program link, so the prefill → decode handoff has a lintable
+    model: ``prefill`` computes the KV for the admitted slots and *sends*
+    it; ``decode`` *receives* it into its cache slot, waits on the
+    deposit (the decode step must not read the slot before the prefill
+    deposit lands), then steps.  ``python -m repro_torch.analysis`` lints
+    it with the Faces programs.  ``mesh`` defaults to one rank on the
+    card; its buffers, ``(ranks * slots, width)`` over ``(axis, None)``,
+    are held as the stack of each rank's slots.
+    """
+    from repro_torch.core import OffsetPeer, STQueue, compose
+    from repro_torch.mesh import make_mesh
+
+    if mesh is None:
+        mesh = make_mesh((1,), ("x",))
+    ax = mesh.axis_names[0]
+    n = int(mesh.shape[ax]) * slots
+
+    qp = STQueue(mesh, name="prefill")
+    qp.buffer("prompt", (n, width), np.float32, pspec=(ax, None))
+    qp.buffer("kv", (n, width), np.float32, pspec=(ax, None))
+    qp.enqueue_kernel(torch.tanh, ["prompt"], ["kv"], name="prefill")
+    qp.enqueue_send("kv", OffsetPeer(ax, 0, periodic=True), tag=31,
+                    remote="decode")
+    qp.enqueue_start()
+    qp.enqueue_wait()
+    prefill = qp.build()
+
+    qd = STQueue(mesh, name="decode")
+    qd.buffer("cache", (n, width), np.float32, pspec=(ax, None))
+    qd.buffer("tok", (n, width), np.float32, pspec=(ax, None))
+    qd.enqueue_recv("cache", OffsetPeer(ax, 0, periodic=True), tag=31,
+                    remote="prefill")
+    qd.enqueue_start()
+    qd.enqueue_wait()
+    qd.enqueue_kernel(lambda c: torch.cumsum(c, dim=-1), ["cache"], ["tok"],
+                      name="decode")
+    decode = qd.build()
+
+    return compose(prefill, decode, name="serve_admission", verify=verify)
 
 
 class ServeEngine:

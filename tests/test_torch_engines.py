@@ -286,12 +286,27 @@ def test_region_add_and_replace_channels(coalesce):
 
 
 def test_engines_refuse_buffers_outside_the_rank_major_layout():
+    """Outside the rank-major layout a buffer is held as the stack of its
+    rank-local blocks: a replicated one runs on every engine, one copy a
+    rank, and comes back as rank 0's copy; a buffer whose sharded dim
+    does not divide by its mesh axes has no rank-local block and is
+    refused."""
     from repro_torch.core import STQueue
 
-    q = STQueue(make_mesh((2, 1, 1), AXES3, device="cpu"))
+    mesh = make_mesh((2, 1, 1), AXES3, device="cpu")
+    q = STQueue(mesh)
     q.buffer("w", (3, 3), "float32")  # replicated: no rank axes
-    q.enqueue_kernel(lambda w: w, ["w"], ["w"])
-    with pytest.raises(NotImplementedError, match="rank-major"):
+    q.enqueue_kernel(lambda w: w * 2.0, ["w"], ["w"])
+    prog = q.build()
+    w = np.arange(9, dtype=np.float32).reshape(3, 3)
+    for eng in (HostEngine(prog), FusedEngine(prog), PersistentEngine(prog.persistent(2))):
+        np.testing.assert_array_equal(to_numpy(eng(eng.init_buffers({"w": w})))["w"],
+                                      w * (4.0 if isinstance(eng, PersistentEngine) else 2.0))
+    assert FusedEngine(prog)._lowering.storage["w"] == (2, 3, 3)
+    q = STQueue(mesh)
+    q.buffer("v", (3, 3), "float32", pspec=("gx",))  # 3 rows over 2 ranks
+    q.enqueue_kernel(lambda v: v, ["v"], ["v"])
+    with pytest.raises(ValueError, match="does not divide"):
         FusedEngine(q.build())
 
 

@@ -1205,3 +1205,135 @@ def test_sanitized_masked_loop_equals_plain(cuda, mode):
     for i in (0, 1):
         for name, t in runs[0][i].items():
             np.testing.assert_array_equal(runs[1][i][name], t, err_msg=name)
+
+
+# -- the collectives and the tuner ---------------------------------------------
+
+
+def _coll_builds(mesh, n):
+    from repro_torch.core import collectives as C
+    m, k, f = 8 * n * n, 4 * n, 4 * n
+    return {"ag_matmul": C.build_all_gather_matmul(mesh, "x", 3 * n, 7, 5),
+            "ag_matmul_bidi": C.build_all_gather_matmul(mesh, "x", 3 * n, 7, 5,
+                                                        bidirectional=True),
+            "matmul_rs": C.build_matmul_reduce_scatter(mesh, "x", 3 * n, 4 * n, 5),
+            "a2a": C.build_all_to_all(mesh, "x", m, 3),
+            "tp": C.build_tp_block(mesh, "x", m, k, f)}
+
+
+def _coll_inputs(cm, seed):
+    rng = np.random.RandomState(seed)
+    out = {}
+    for b in cm.inputs:
+        shape = cm.program.buffers[b].shape
+        a = rng.randn(*shape).astype(np.float32)
+        out[b] = a / np.sqrt(shape[0]) if b.startswith("w") else a
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("mode", ["stream", "dataflow"])
+def test_collective_builders_on_card_equal_cpu(cuda, mode, n):
+    """Each collective builder on the card: one graph launch, equal to the
+    port's decomposed oracle on the card bit for bit, and to its CPU run
+    (copies bit for bit, the matmul builders at rtol=atol=1e-5)."""
+    cpu = _coll_builds(make_mesh((n,), ("x",), device="cpu"), n)
+    for name, cm in _coll_builds(make_mesh((n,), ("x",)), n).items():
+        inputs = _coll_inputs(cm, seed=n)
+        want_cpu = cpu[name]
+        ceng = FusedEngine(want_cpu.program)
+        on_cpu = ceng(ceng.init_buffers(inputs))[cm.output]
+        for eng in (FusedEngine(cm.program, mode=mode),
+                    PersistentEngine(cm.program, mode=mode)):
+            got = eng(eng.init_buffers(inputs))[cm.output]
+            assert eng.stats.dispatches == eng.graph_launches == 1
+            oracle = cm.reference(*(inputs[b] for b in cm.inputs))
+            assert torch.isfinite(got).all()
+            assert torch.equal(got, oracle), f"{name} {type(eng).__name__}"
+            if name == "a2a":
+                assert torch.equal(got.cpu(), on_cpu), name
+            else:
+                torch.testing.assert_close(got.cpu(), on_cpu, rtol=1e-5, atol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("mode", ["stream", "dataflow"])
+def test_persistent_tp_chain_one_graph_launch(cuda, mode):
+    """The 4-layer TP chain in ONE graph launch equals 4 decomposed block
+    applications on the card bit for bit, and its CPU run within
+    rtol=atol=1e-5."""
+    from repro_torch.core import collectives as C
+    n, layers = 4, 4
+    cm = C.build_tp_block(make_mesh((n,), ("x",)), "x", 8 * n * n, 4 * n, 4 * n, chain=True)
+    inputs = _coll_inputs(cm, seed=3)
+    eng = PersistentEngine(cm.program.persistent(layers), mode=mode, donate=True)
+    got = eng(eng.init_buffers(inputs))["out"]
+    assert eng.stats.dispatches == eng.graph_launches == 1
+    want = torch.as_tensor(inputs["x"], device=cuda)
+    for _ in range(layers):
+        want = cm.reference(want, inputs["w1"], inputs["w2"])
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+    ccm = C.build_tp_block(make_mesh((n,), ("x",), device="cpu"), "x", 8 * n * n, 4 * n,
+                           4 * n, chain=True)
+    ceng = PersistentEngine(ccm.program.persistent(layers), mode=mode)
+    torch.testing.assert_close(got.cpu(), ceng(ceng.init_buffers(inputs))["out"],
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_enqueue_collective_on_card_equals_cpu(cuda):
+    from repro_torch.core import STQueue
+
+    def prog(device):
+        q = STQueue(make_mesh((4,), ("x",), device=device), "colls")
+        q.buffer("a", (32, 3), np.float32, pspec=("x",))
+        q.buffer("g", (128, 3), np.float32, pspec=("x",))
+        q.buffer("s", (8, 3), np.float32, pspec=("x",))
+        q.buffer("t", (32, 3), np.float32, pspec=("x",))
+        q.buffer("r", (2, 3), np.float32, pspec=())
+        q.enqueue_collective("all_gather", "a", "g", "x", dim=0)
+        q.enqueue_collective("reduce_scatter", "a", "s", "x", dim=0)
+        q.enqueue_collective("all_to_all", "a", "t", "x", split_axis=0, concat_axis=0)
+        q.enqueue_start()
+        q.enqueue_wait()
+        q.enqueue_collective("all_reduce", "s", "r", "x")
+        q.enqueue_start()
+        q.enqueue_wait()
+        return q.build(verify="error")
+
+    a = np.random.RandomState(4).randint(-8, 8, size=(32, 3)).astype(np.float32)
+    cpu = HostEngine(prog("cpu"))
+    want = to_numpy(cpu(cpu.init_buffers({"a": a})))
+    for mode in ("stream", "dataflow"):
+        for eng in (FusedEngine(prog(None), mode=mode), PersistentEngine(prog(None), mode=mode),
+                    HostEngine(prog(None))):
+            got = to_numpy(eng(eng.init_buffers({"a": a})))
+            for k in want:
+                np.testing.assert_array_equal(got[k], want[k], err_msg=f"{mode} {k}")
+
+
+def test_tuned_pipeline_winner_takes_one_launch(cuda):
+    """A tuned 2-part pipeline: every candidate certified, the winner runs
+    the real solve in one dispatch and one graph launch, equal to the
+    untuned run bit for bit."""
+    from repro_torch.launch.tune import Knobs, tune
+
+    mesh = make_mesh(PIPE_CFG.grid, AXES3)
+    u0 = _pipe_u0()
+    mem, stats, tuned = run_faces_pipelined(PIPE_CFG, mesh, u0, n_iters=3, n_parts=2,
+                                            tune=True, tune_repeats=2)
+    assert stats.dispatches == 1 and tuned.best.engine.graph_launches == 1
+    plain, _ = run_faces_pipelined(PIPE_CFG, mesh, u0, n_iters=3, n_parts=2)
+    for k in plain:
+        assert torch.equal(mem[k], plain[k]), k
+    init = _parts_init(2, u0)
+
+    def build(knobs):
+        eng = PersistentEngine(build_faces_pipeline(PIPE_CFG, mesh, 2, 3,
+                                                    interleave=knobs.interleave_policy()),
+                               donate=True, **knobs.engine_kwargs())
+        return eng, (lambda: eng.init_buffers(init))
+
+    res = tune(build, {"interleave": ["round_robin", "sequential", 2],
+                       "mode": ["dataflow", "stream"]},
+               base=Knobs(), repeats=2, measure_top=6, certify=True)
+    assert all(c.certificate.equivalent and c.error is None for c in res.candidates)
+    assert len(res.measured) == 6 and all(c.stats["med_s"] > 0 for c in res.measured)

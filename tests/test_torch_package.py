@@ -44,7 +44,10 @@ def test_import_leaves_out_jax_and_repro(subproc):
             "repro_torch.kernels.flash_attention, repro_torch.kernels.ops, "
             "repro_torch.configs, "
             "repro_torch.models, repro_torch.models.convert, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.launch.costing, "
+            "repro_torch.launch.tune, repro_torch.core.overlap, "
+            "repro_torch.core.collectives, repro_torch.analysis, "
+            "repro_torch.analysis.programs\n"
             "assert 'jax' not in sys.modules\n"
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), sorted(sys.modules)\n")

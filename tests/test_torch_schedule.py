@@ -22,8 +22,9 @@ N-part Faces pipeline) against the JAX package's, on the CPU.
   with it (the ROADMAP's engine-vs-engine bound), on (1,1,1) and on
   (2,2,1) through a 4-device JAX subprocess;
 * the masked multi-queue loop runs (``tests/test_torch_masked.py``
-  holds it against the reference); ``tune=`` raises
-  ``NotImplementedError``.
+  holds it against the reference); ``tune=`` returns a trailing
+  ``TuneResult`` (``tests/test_torch_costing.py`` holds the tuner
+  against the reference).
 """
 
 import dataclasses
@@ -288,7 +289,7 @@ def test_masked_loop_requests_raise():
     alone) run and return ``(mem, reductions, n_done)``, each program
     equal to its own persistent run bit for bit; ``run_faces_pipelined``
     with ``tols=`` returns ``(mem, residuals, n_done, stats)`` in one
-    dispatch.  ``tune=`` still raises ``NotImplementedError``, and a
+    dispatch; with ``tune=True`` it grows a trailing ``TuneResult``.  A
     missing ``n_iters``/``tols``, ``tols`` without ``max_iters`` and a
     wrong number of tolerances raise ``ValueError``."""
     cfg = FacesConfig(grid=(1, 1, 1), points=(4, 3, 3), periodic=True)
@@ -321,8 +322,10 @@ def test_masked_loop_requests_raise():
                                                    max_iters=8)
     assert stats.dispatches == 1 and set(n_done) == set(part_names(2))
     assert all(reds[nm].shape == (n_done[nm],) for nm in n_done)
-    with pytest.raises(NotImplementedError, match="Cost model and tuner"):
-        run_faces_pipelined(cfg, _mesh(), u0, n_iters=2, tune=True)
+    *rest, tuned = run_faces_pipelined(cfg, _mesh(), u0, tols=(1e-1, 1e-1), max_iters=8,
+                                       tune=True, tune_repeats=1)
+    assert rest[2] == n_done and rest[3].dispatches == 1
+    assert tuned.best.knobs.label() in {c.knobs.label() for c in tuned.measured}
     with pytest.raises(ValueError, match="n_iters"):
         run_faces_pipelined(cfg, _mesh(), u0)
     with pytest.raises(ValueError, match="requires max_iters"):

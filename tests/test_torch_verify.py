@@ -13,9 +13,13 @@ The sanitizer: the fused and persistent engines give the same bits with
 and without ``sanitize=True`` (plain programs and composed schedules,
 both trigger modes), the canaries really are planted, a racy program
 raises ``SanitizeError`` in the constructor (before any dispatch), and
-the host engine sanitizes statically.  Not portable yet: the ST013/ST014
-lint of the collective builders (they wait for the collectives slice)
-and the analysis-registry sweep (the cost-model slice).
+the host engine sanitizes statically.
+
+The collective builders lint clean in both packages, on the degenerate
+one-rank ring and on four ranks (``tests/test_verify.py``'s ST013/ST014
+builder case), deferred collectives (``CollDesc``) are read and
+deposited as the reference's verifier has them, and every program of the
+analysis registry lints clean (the benchmark sweep).
 """
 
 import dataclasses
@@ -27,9 +31,12 @@ import pytest
 import torch
 
 import repro.core as jcore
+import repro.core.collectives as jcoll
 import repro.core.verify as jverify
 import repro_torch.core as tcore
+import repro_torch.core.collectives as tcoll
 import repro_torch.core.verify as tverify
+from jax.sharding import AbstractMesh
 from repro.core import descriptors as jdesc
 from repro.parallel import make_mesh as jax_make_mesh
 from repro_torch import make_mesh
@@ -39,12 +46,14 @@ from repro_torch.core.halo import AXES3
 
 def _pkg(port: bool):
     if port:
-        core, desc = tcore, tdesc
+        core, desc, coll = tcore, tdesc, tcoll
         mesh = lambda shape, axes: make_mesh(shape, axes, device="cpu")
+        mesh4 = lambda: make_mesh((4,), ("x",), device="cpu")
     else:
-        core, desc, mesh = jcore, jdesc, jax_make_mesh
+        core, desc, coll, mesh = jcore, jdesc, jcoll, jax_make_mesh
+        mesh4 = lambda: AbstractMesh((4,), ("x",))
     return types.SimpleNamespace(
-        core=core, d=desc,
+        core=core, d=desc, coll=coll, meshx4=mesh4,
         meshx=lambda: mesh((1,), ("x",)), mesh111=lambda: mesh((1, 1, 1), AXES3),
         vec=(1, 4) if port else (4,))
 
@@ -307,6 +316,55 @@ def m_st014(P):
     return _with_descs(prog, descs)
 
 
+def _builders(P, mesh, n):
+    C = P.coll
+    m, k, f = 8 * n * n, 4 * n, 4 * n
+    return (C.build_all_gather_matmul(mesh, "x", m, k, f),
+            C.build_all_gather_matmul(mesh, "x", m, k, f, bidirectional=True),
+            C.build_matmul_reduce_scatter(mesh, "x", m, k, f),
+            C.build_all_to_all(mesh, "x", m, k),
+            C.build_tp_block(mesh, "x", m, k, f),
+            C.build_tp_block(mesh, "x", m, k, f, chain=True))
+
+
+def m_builders_1(P):
+    progs = [cm.program for cm in _builders(P, P.meshx(), 1)]
+    return progs[-1].persistent(3)
+
+
+def m_builders_4(P):
+    return _builders(P, P.meshx4(), 4)[-1].program.persistent(3)
+
+
+def _colls(P, kernel_in_window=False, name="colls"):
+    q = P.core.STQueue(P.meshx(), name=name)
+    q.buffer("a", P.vec, np.float32, pspec=("x",))
+    q.buffer("g", P.vec, np.float32, pspec=("x",))
+    q.enqueue_collective("all_gather", "a", "g", "x", dim=0)
+    q.enqueue_start()
+    if kernel_in_window:
+        q.enqueue_kernel(lambda g: g, ["g"], ["g"], name="early")
+    q.enqueue_wait()
+    q.enqueue_kernel(lambda g: g, ["g"], ["a"], name="late")
+    return q.build(verify="off")
+
+
+def m_coll_clean(P):
+    return _colls(P)
+
+
+def m_coll_st007(P):
+    return _colls(P, kernel_in_window=True)
+
+
+def m_coll_st009(P):
+    sched = P.core.compose(_colls(P), _colls(P, name="other"), verify="off")
+    descs = list(sched.descriptors)
+    i = next(i for i, d in enumerate(descs) if isinstance(d, P.d.CollDesc))
+    descs[i] = dataclasses.replace(descs[i], out="other/g")
+    return _with_descs(sched, descs)
+
+
 def m_chain(P):
     return _linked_chain(P)
 
@@ -407,7 +465,37 @@ MUTATIONS = {
     m_st017_ordered: ((), ("ST017",)), m_st018: (("ST018",), ("ST016",)),
     m_st019: (("ST019",), ()), m_st019_declared: ((), ("ST019",)),
     m_faces_linked2: ((), ("*",)),
+    m_builders_1: ((), ("*",)), m_builders_4: ((), ("*",)),
+    m_coll_clean: ((), ("*",)), m_coll_st007: (("ST007",), ()),
+    m_coll_st009: (("ST009",), ()),
 }
+
+
+@pytest.mark.parametrize("n", [1, 4])
+def test_st013_st014_collective_builders_lint_clean(n):
+    """Every collective builder lints clean in both packages, on the
+    degenerate one-rank ring and on four ranks."""
+    for port, jax in zip(_builders(PKGS["port"], PKGS["port"].meshx() if n == 1
+                                   else PKGS["port"].meshx4(), n),
+                         _builders(PKGS["jax"], PKGS["jax"].meshx() if n == 1
+                                   else PKGS["jax"].meshx4(), n)):
+        assert not tverify.verify_program(port.program)
+        assert not jverify.verify_program(jax.program)
+
+
+def test_every_benchmark_program_lints_clean():
+    """The registry sweep of ``tests/test_verify.py::TestBenchmarkSweep``:
+    the same names as the reference's, each lint-clean."""
+    from repro.analysis import lint_all as jlint_all
+    from repro_torch.analysis import lint_all
+
+    results = lint_all(device_count=1, device="cpu")
+    names = [n for n, _ in results]
+    assert names == [n for n, _ in jlint_all(device_count=1)]
+    assert {"faces_fig8_1d", "faces_pipeline_linked_n2", "serve_admission",
+            "overlap_tp_chain"} <= set(names)
+    dirty = {n: [str(d) for d in ds] for n, ds in results if ds}
+    assert not dirty, dirty
 
 
 @pytest.mark.parametrize("case", list(MUTATIONS), ids=lambda f: f.__name__[2:])
