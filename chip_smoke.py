@@ -193,6 +193,44 @@ a checkout of the repository.  Phases, each of which must pass:
    No hand-written kernel is on this path (the matmuls are cuBLAS, as
    the reference's are XLA's): every counter, set to 0 before it, reads
    0 after it.
+17. continuous serving (4 slots, 512-token prompts, 32 tokens a request,
+   a decode chunk of 8) of (a) qwen1.5-0.5b (24 layers, d_model 1024, 16
+   query and 16 kv heads of 64, vocab 151 936), (b) glm4-9b (40 layers,
+   d_model 4096, 32 query and 2 kv heads of 128, rotary on half of each
+   head, an untied head, vocab 151 552; first served as phase 9 serves
+   gemma3-1b, resident then host-stepped, its prefill graph holding 40
+   flash launches all on the tensor-core route, graphed prefill ==
+   eager == ``forward_logits`` bit for bit) and (c) mamba2-2.7b, each
+   at full width and depth, bf16 over float32 parameters from
+   ``torch.Generator(seed)``.  A scripted mixed-depth sequence: admit
+   slots 0 and 1, one decode round, admit slots 2 and 3 while 0 and 1
+   are in flight at depth 528, decode rounds until every slot stops;
+   each admission is ONE graph launch equal bit for bit to the eager
+   admission on a copy of the same state (outputs and every cache
+   leaf), the second admission leaves the in-flight slots bit-equal to
+   an eager decode round without it (K/V, or the SSM ``conv`` and
+   ``state``), every round returns the same state buffers (no cache
+   copy between rounds), the admission graph's closing copies move no
+   more bytes than the decode graph's (the merge is in place, so no
+   cache set is copied within a round), and each slot's tokens equal
+   serving its prompt alone in the
+   same slot of an engine with as many slots, bit for bit.  Then
+   ``serve_continuous`` with 16 requests as a t=0 burst and as a
+   Poisson stream whose mean gap is one measured decode round: tok/s,
+   p50 and p99 latency, dispatches (admission and decode) and syncs (a
+   sync a dispatch, no prefill dispatch, a graph launch a round).  The
+   admission graph holds a flash launch a layer on the tensor-core
+   route (qwen, glm4) or the SSD kernel's 64 on its tensor-core route
+   (mamba2).  Flash attention and rmsnorm are held against their plain
+   versions on the served layer 0 of qwen and glm4 (one bf16 rounding;
+   rmsnorm also on a decode step's 4 rows, on the team route, at the
+   model's ``norm_eps``) and timed beside them cold, each call on a copy
+   of its inputs that the L2 no longer holds (the rows'
+   ``served_shapes``).  The kernels'
+   counters are set to 0 just before each model's path and read just
+   after its last ``serve_continuous`` (less the eager checks'
+   launches; the rows' ``phase17_launches``).  A profile of one qwen
+   admission round.
 
 The last lines are a ``{"kernels": [...]}`` JSON line (eleven rows: the
 nine Pallas kernels' and the two step kernels', which have no Pallas
@@ -200,15 +238,18 @@ counterpart (``"pallas_counterpart": false``); the
 flash and SSD rows also give ``earlier_ms``: the CUDA-core kernel, the
 port's kernel before the tensor-core one, on the same input in this
 run, and the SSD row its ``kernel_route``; the rmsnorm row gives
-``decode``: its times at the decode shapes; the schedule step's row
-``one_program_ms``: its loop with one program), the card's name and power limit, and ``{"ok": true, "device":
-{...}}``.
+``decode``: its times at the decode shapes; the flash and rmsnorm rows
+``served_shapes``: their times at phase 17's served layer 0, and those
+two and the SSD row ``phase17_launches``; the schedule step's row
+``one_program_ms``: its loop with one program), the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import os
 import statistics
@@ -274,12 +315,33 @@ MLP = (4096, 1152, 6912)
 COLL_RANKS = 4
 TP_LAYERS = 26                     # gemma3-1b's depth
 COLL_TOL = 1e-5                    # card against CPU: the repo's engine-vs-engine bound
+# phase 17: continuous serving (4 slots, 512-token prompts, 32 tokens a request,
+# a decode chunk of 8 between admissions; 16 requests a serve_continuous run)
+CONT = dict(slots=4, prompt_len=512, max_new=32, chunk=8)
+CONT_REQUESTS = 16
+GLM_SERVE = dict(batch=4, prompt_len=512, gen_len=32)      # glm4-9b, as phase 9
 
 
 def gpu_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+#: the H100's L2 cache
+L2_BYTES = 50 * 2 ** 20
+
+
+def cold_calls(torch, fn, *args):
+    """``fn(*args)`` as a call of no arguments that cycles over copies of
+    ``args`` (``args`` first) whose bytes together exceed twice the L2, so
+    that under :func:`median_ms` each call reads its inputs from HBM, not
+    from the L2 the calls before left them in."""
+    n_bytes = sum(a.numel() * a.element_size() for a in args)
+    sets = [args] + [tuple(a.clone() for a in args)
+                     for _ in range(-(-2 * L2_BYTES // n_bytes))]
+    it = itertools.cycle(sets)
+    return lambda: fn(*next(it))
 
 
 def median_ms(torch, fn, reps: int = 15, inner: int = 20) -> float:
@@ -987,8 +1049,9 @@ def serve_report(torch, cfg, eng, shape, runs, setup_s, launches) -> dict:
             f"resident dispatches {line['resident']}")
     require(line["host_stepped"]["decode_dispatches"] == steps,
             f"host-stepped dispatches {line['host_stepped']}")
-    want = {"resident": {"prefill": 1, "decode": 1, "decode_one": 0},
-            "host_stepped": {"prefill": 1, "decode": 0, "decode_one": steps}}
+    want = {"resident": {"prefill": 1, "decode": 1, "decode_one": 0, "admit_decode": 0},
+            "host_stepped": {"prefill": 1, "decode": 0, "decode_one": steps,
+                             "admit_decode": 0}}
     for mode, w in want.items():
         require(line[mode]["graph_launches"] == w,
                 f"{mode}: graph launches {line[mode]['graph_launches']} != {w} (the "
@@ -2133,6 +2196,405 @@ def run_collectives(torch, card: str, seed: int):
             "launches": launched}
 
 
+def served_shape_checks(torch, cfg, cast, tokens, fk, rk, ref):
+    """Phase 17: flash attention and rmsnorm against their plain versions on
+    the served layer 0 of a dense model (its q, k, v at ``q_offset`` 0, the
+    admission prefill's; its ``ln_attn`` input, and the 4 rows a decode
+    step gives it at the model's ``norm_eps``), within one bf16 rounding;
+    timed cold (:func:`cold_calls`) beside the plain versions and the
+    library calls, with their bounds.  Returns the flash and rmsnorm
+    entries."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import nn, transformer as tfm
+
+    p = tfm.layer_params(cast["decoder"]["segments"][0], 0)
+    _, theta = tfm.layer_window_theta(cfg, 0)
+    x = nn.apply_embedding(cast["embed"], tokens, cfg)
+    h = nn.apply_rmsnorm(p["ln_attn"], x, cfg)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    q, k, v = (t.transpose(1, 2) for t in nn.attention_qkv(
+        p["attn"], h, cfg, rope_theta=theta, positions=positions))
+    before = fk.launch_counts()
+    got = fk.flash_attention(q, k, v)
+    after = fk.launch_counts()
+    require(after["flash_attention_wgmma"] - before["flash_attention_wgmma"] == 1,
+            f"{cfg.name}: layer 0's flash did not take the tensor-core route")
+    want = ref.attention(q, k, v)
+    ok, used = bf16_close(torch, got, want)
+    err = float((got.float() - want.float()).abs().max())
+    require(ok, f"{cfg.name}: flash_attention != plain on the served layer 0 beyond one "
+            f"bf16 rounding (max abs err {err})")
+    B, Hq, S, D = q.shape
+    flops = 4 * B * Hq * D * attention_pairs(S, S, 0, None)
+    n_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    flash = kernel_row(
+        torch, "flash_attention", "flash_attention.cu", err,
+        cold_calls(torch, fk.flash_attention, q, k, v),
+        cold_calls(torch, ref.attention, q, k, v),
+        cold_calls(torch, lambda *qkv: F.scaled_dot_product_attention(
+            *qkv, is_causal=True, enable_gqa=True), q, k, v),
+        n_bytes, flops, BF16_OPS_PER_S, plain_reps=(5, 4))
+    flash = {"model": cfg.name, "q": list(q.shape), "kv": list(k.shape),
+             "group": Hq // k.shape[1], "bound_used": used,
+             **{key: flash[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")}}
+    w = p["ln_attn"]["scale"]
+    got = rk.rmsnorm(x, w, eps=cfg.norm_eps, weight_offset=1.0)
+    want = ref.rmsnorm(x, w, eps=cfg.norm_eps, weight_offset=1.0)
+    ok, used = bf16_close(torch, got, want)
+    err = float((got.float() - want.float()).abs().max())
+    require(ok, f"{cfg.name}: rmsnorm != plain on the served layer-0 input beyond one bf16 "
+            f"rounding (max abs err {err})")
+    w1 = (w.float() + 1.0).to(x.dtype)
+
+    def norm_row(x, err):
+        row = kernel_row(
+            torch, "rmsnorm", "rmsnorm.cu", err,
+            cold_calls(torch, lambda x: rk.rmsnorm(x, w, eps=cfg.norm_eps,
+                                                   weight_offset=1.0), x),
+            cold_calls(torch, lambda x: ref.rmsnorm(x, w, eps=cfg.norm_eps,
+                                                    weight_offset=1.0), x),
+            cold_calls(torch, lambda x: F.rms_norm(x, (x.shape[-1],), weight=w1,
+                                                   eps=cfg.norm_eps), x),
+            2 * x.numel() * x.element_size() + w.numel() * w.element_size(), 0,
+            FP32_OPS_PER_S)
+        rows_ = x.numel() // x.shape[-1]
+        return {"x": list(x.shape), "route": rk.route(rows_, x.shape[-1], x.dtype),
+                **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")}}
+
+    norm = {"model": cfg.name, "eps": cfg.norm_eps, "bound_used": used, **norm_row(x, err)}
+    # a decode step's input: one row a slot (the prompts' last tokens), on
+    # the team route, held at the model's eps as the served rows are
+    xd = x[:, -1].contiguous()
+    got = rk.rmsnorm(xd, w, eps=cfg.norm_eps, weight_offset=1.0)
+    want = ref.rmsnorm(xd, w, eps=cfg.norm_eps, weight_offset=1.0)
+    ok, used = bf16_close(torch, got, want)
+    err = float((got.float() - want.float()).abs().max())
+    require(ok, f"{cfg.name}: rmsnorm != plain on a decode step's {tuple(xd.shape)} input "
+            f"beyond one bf16 rounding (max abs err {err})")
+    require(rk.route(*xd.shape, xd.dtype) == "team", f"{cfg.name}: the decode rows took "
+            f"the {rk.route(*xd.shape, xd.dtype)} route")
+    norm["decode"] = {"bound_used": used, **norm_row(xd, err)}
+    return flash, norm
+
+
+def scripted_sequence(torch, eng, params, prompts):
+    """Phase 17's scripted mixed-depth sequence on ``eng`` (4 slots): admit
+    slots 0 and 1, one decode round, admit slots 2 and 3 while 0 and 1 are
+    in flight, then decode rounds until every slot stops; each round is
+    given the buffers the round before returned.  Each admission must be
+    one graph launch equal to the eager admission on a copy of the same
+    state bit for bit (every output and cache leaf); the second one's
+    in-flight slots (0 and 1) must equal, bit for bit, an eager decode
+    round from the same state without the admission (outputs and cache
+    leaves: the merge keeps them).  Returns the tokens of each slot, the
+    checks, and the kernel launches of the eager checks (which are not the
+    path's)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import PAD_TOKEN
+    from repro_torch.models.nn import tree_leaves, tree_map
+
+    slots, max_new, dev = eng.slots, eng.max_new, eng.device
+    cast = eng.cast_params(params)
+    eager_launches = dict.fromkeys(ops.launch_counts(), 0)
+
+    def clone(tree):
+        return tree_map(torch.clone, tree)
+
+    def admit_args(admit):
+        mask = np.isin(np.arange(slots), admit)
+        rows = np.where(mask[:, None], prompts, 0).astype(np.int32)
+        return ({"tokens": torch.from_numpy(rows).to(dev)}, torch.from_numpy(mask).to(dev),
+                torch.from_numpy(np.where(mask, max_new, 0).astype(np.int32)).to(dev))
+
+    def counted(fn):
+        before = ops.launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for key, n in ops.launch_counts().items():
+            eager_launches[key] += n - before[key]
+        return out
+
+    def equal(xs, ys):
+        xs, ys = tree_leaves(xs), tree_leaves(ys)
+        return len(xs) == len(ys) and all(torch.equal(x, y) for x, y in zip(xs, ys))
+
+    def in_flight(caches, *rest):
+        """Slots 0 and 1 of a state: cache leaves [L, B, ...], pos and the
+        per-slot vectors [B], out [B, chunk]."""
+        segs = [t[:, :2] for t in tree_leaves(caches["segments"])]
+        return segs + [caches["pos"][:2]] + [t[:2] for t in rest]
+
+    tokens = [[] for _ in range(slots)]
+    checks = {"admit_one_launch": [], "admit_graph_equals_eager": [],
+              "in_flight_equal_to_plain_decode": None}
+    ptrs, script = set(), [[0, 1], None, [2, 3]]
+    state = eng.init_state()
+    for r in range(64):
+        admit = script[r] if r < len(script) else None
+        if admit is None:
+            *state, out, n = eng.decode(params, *state)
+            first = None
+        else:
+            a = admit_args(admit)
+            snap = clone(tuple(state))
+            if r > 0:
+                checks["depth_at_second_admission"] = state[0]["pos"][:2].tolist()
+            launches = eng.graph_launches["admit_decode"]
+            *state, first, out, n = eng.admit_decode(params, *state, *a)
+            torch.cuda.synchronize()
+            checks["admit_one_launch"].append(
+                eng.graph_launches["admit_decode"] == launches + 1)
+            want = counted(lambda: eng._admit_decode_inner(
+                cast, *clone(snap), a[0]["tokens"], a[1], a[2]))
+            (wc, wt, wa, wr, *_), (wf, wo, wn) = want
+            checks["admit_graph_equals_eager"].append(
+                equal((*state, first, out, n), (wc, wt, wa, wr, wf, wo, wn)))
+            if r > 0:
+                (pc, pt, pa, pr), (po, pn) = counted(
+                    lambda: eng._decode_loop(cast, *clone(snap)))
+                checks["in_flight_equal_to_plain_decode"] = equal(
+                    in_flight(pc, pt, pa, pr, po, pn), in_flight(wc, wt, wa, wr, wo, wn))
+        ptrs.add(tuple(t.data_ptr() for t in tree_leaves(tuple(state))))
+        out_np, act_np = out.cpu().numpy(), state[2].cpu().numpy()
+        first_np = None if first is None else first.cpu().numpy()
+        for s in range(slots):
+            if first_np is not None and first_np[s] != PAD_TOKEN:
+                tokens[s].append(int(first_np[s]))
+            tokens[s].extend(int(t) for t in out_np[s] if t != PAD_TOKEN)
+        if r >= len(script) - 1 and not act_np.any():
+            break
+    require(all(checks["admit_one_launch"]), f"{eng.cfg.name}: an admission was not one "
+            f"graph launch")
+    require(all(checks["admit_graph_equals_eager"]), f"{eng.cfg.name}: the graphed "
+            "admit_decode differs from the eager one")
+    require(checks["in_flight_equal_to_plain_decode"], f"{eng.cfg.name}: the admission "
+            "changed the in-flight slots against a plain decode round")
+    require(len(ptrs) == 1, f"{eng.cfg.name}: a round moved the state to other buffers "
+            "(a cache copy between rounds)")
+    require(eng.prefill.calls == 0, f"{eng.cfg.name}: prefill ran as its own dispatch")
+    # the admission merges into the shared buffers in place and its decode
+    # writes the K/V there: its graph's closing copies move no more than a
+    # decode round's (pos, tok, active, rem and the SSM conv and state,
+    # which each step makes anew)
+    tail = {key[0]: g.tail_bytes for key, g in eng._graphs.items()}
+    require(tail["admit_decode"] == tail["decode"], f"{eng.cfg.name}: the admission graph "
+            f"copies {tail['admit_decode']} bytes of state, a decode round {tail['decode']}")
+    checks.update({"graph_tail_bytes": tail, "rounds": r + 1, "dispatches": eng.dispatches,
+                   "admit_dispatches": eng.admit_decode.calls,
+                   "graph_launches": eng.graph_launches, "state_buffer_sets": len(ptrs)})
+    return tokens, checks, {k: n for k, n in eager_launches.items() if n}
+
+
+def run_continuous(torch, seed: int, params, prompts, eng_c, eng_s):
+    """Phase 17 for one model: the scripted sequence on ``eng_c`` (chunk
+    8), then ``serve_continuous`` with 16 requests, as a t=0 burst and at
+    the Poisson rate whose mean gap is one measured decode round.  The
+    kernels' counters are set to 0 just before and read just after (less
+    the eager checks' launches).  Then each slot's tokens against serving
+    its prompt alone in the same slot of ``eng_s`` (as many slots, chunk
+    31), and the rounds' times."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve, serve_continuous
+    from repro_torch.models.nn import tree_map
+
+    cfg, shape = eng_c.cfg, CONT
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    tokens, checks, eager = scripted_sequence(torch, eng_c, params, prompts)
+    setup_s = time.perf_counter() - t0
+    # one round of each kind on the live buffers (every slot admitted)
+    mask = torch.ones(shape["slots"], dtype=torch.bool, device="cuda")
+    batch = {"tokens": torch.from_numpy(prompts).cuda()}
+    new_rem = torch.full((shape["slots"],), shape["max_new"], dtype=torch.int32,
+                         device="cuda")
+    live = {"s": eng_c.init_state()}
+
+    def admit_round():
+        live["s"] = eng_c.admit_decode(params, *live["s"], batch, mask, new_rem)[:4]
+
+    def decode_round():
+        live["s"] = eng_c.decode(params, *live["s"])[:4]
+
+    admit_round()
+    times = {"admit_round_ms": events_ms(torch, admit_round, calls=5),
+             "decode_round_ms": events_ms(torch, decode_round, calls=5)}
+    runs = {}
+    for name, rate in (("burst", 0.0),
+                       ("poisson", 1e3 / times["decode_round_ms"])):
+        syncs = eng_c.sync_points
+        results, stats = serve_continuous(
+            cfg, slots=shape["slots"], prompt_len=shape["prompt_len"],
+            max_new=shape["max_new"], n_requests=CONT_REQUESTS, chunk=shape["chunk"],
+            arrival_rate=rate, seed=seed, params=params, engine=eng_c)
+        stats["sync_points"] -= syncs
+        stats["arrival_rate_per_s"] = rate
+        require(stats["sync_points"] == stats["dispatches"] and
+                stats["prefill_dispatches"] == 0,
+                f"{cfg.name} {name}: {stats['sync_points']} syncs, {stats['dispatches']} "
+                f"dispatches, {stats['prefill_dispatches']} prefill dispatches")
+        require(stats["total_tokens"] == CONT_REQUESTS * shape["max_new"]
+                and len(results) == CONT_REQUESTS, f"{cfg.name} {name}: {stats}")
+        require(stats["graph_launches"]["admit_decode"] == stats["admit_dispatches"] and
+                stats["graph_launches"]["decode"] == stats["decode_dispatches"],
+                f"{cfg.name} {name}: a round was not one graph launch: {stats}")
+        runs[name] = stats
+    torch.cuda.synchronize()
+    launches = {k: n - eager.get(k, 0) for k, n in ops.launch_counts().items()}
+
+    # each slot's tokens against serving its prompt alone in that slot (the
+    # serial engine takes the weights eng_c cast: the same tensors)
+    serial, serial_params = [], eng_c.cast_params(params)
+    for s in range(shape["slots"]):
+        rows = np.zeros_like(prompts)
+        rows[s] = prompts[s]
+        gen, stats = serve(cfg, batch=shape["slots"], prompt_len=shape["prompt_len"],
+                           gen_len=shape["max_new"], params=serial_params, engine=eng_s,
+                           batch_in={"tokens": torch.from_numpy(rows).cuda()})
+        serial.append(gen[s].tolist())
+        if s == shape["slots"] - 1:
+            times["serial_prefill_ms"] = stats["prefill_s"] * 1e3
+            times["serial_decode_ms_per_token"] = stats["decode_s"] * 1e3 / (
+                shape["max_new"] - 1)
+    for s in range(shape["slots"]):
+        require(tokens[s] == serial[s], f"{cfg.name}: slot {s}'s continuous tokens differ "
+                f"from serving its prompt alone: {tokens[s]} != {serial[s]}")
+        require(all(0 <= t < cfg.vocab for t in tokens[s]), f"{cfg.name}: a token out of "
+                "the vocabulary")
+    caches = live["s"][0]
+
+    def zero_and_merge():
+        eng_c.model.select_slots(mask, tree_map(torch.zeros_like, caches), caches,
+                                 in_place=True)
+
+    times["zero_and_merge_ms"] = events_ms(torch, zero_and_merge)
+    return {"model": cfg.name, **shape, "setup_s": setup_s, "checks": checks,
+            "continuous_equals_serial_bitwise": True, "tokens_slot0": tokens[0][:8],
+            "times": times, "runs": runs, "eager_check_launches": eager,
+            "launches": launches}, admit_round
+
+
+
+def run_phase17(torch, seed: int, fk, rk, ref):
+    """Phase 17: continuous serving of qwen1.5-0.5b, glm4-9b (with phase 9's
+    resident and host-stepped serve first) and mamba2-2.7b at full width
+    and depth.  Returns the phase's line, the flash and rmsnorm entries at
+    the served shapes and the kernels' launches on the phase's paths."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ServeEngine
+
+    shape = CONT
+    out, flash, norm = {}, [], []
+    launches = {"flash_attention": 0, "rmsnorm": 0, "ssd_scan": 0}
+
+    def engines(cfg):
+        kw = dict(slots=shape["slots"], prompt_len=shape["prompt_len"],
+                  max_new=shape["max_new"])
+        return (ServeEngine(cfg, chunk=shape["chunk"], **kw),
+                ServeEngine(cfg, chunk=shape["max_new"] - 1, **kw))
+
+    def prompts(cfg):
+        return np.random.RandomState(seed + 17).randint(
+            0, cfg.vocab, (shape["slots"], shape["prompt_len"])).astype(np.int32)
+
+    def held_routes(cfg, eng, kind):
+        held = eng.captured_launches(kind)
+        want = {"flash_attention_wgmma": cfg.n_layers, "flash_attention_cuda_core": 0}
+        require({k: held.get(k, 0) for k in want} == want,
+                f"{cfg.name}: the {kind} graph holds flash launches {held}, not "
+                f"{cfg.n_layers} on the tensor-core route and none on the CUDA-core route")
+        return held
+
+    def free():
+        """An engine's dispatch wrappers hold its bound methods, a cycle:
+        collect it before the next model's weights are drawn."""
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def count(report, kernels):
+        for k in kernels:
+            require(report["launches"][k] > 0, f"{report['model']}: {k} never launched "
+                    f"on the continuous path: {report['launches']}")
+            launches[k] += report["launches"][k]
+
+    # (a) qwen1.5-0.5b
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("qwen1.5-0.5b")
+    eng_c, eng_s = engines(cfg)
+    params = eng_c.model.init(seed)
+    report, admit_round = run_continuous(torch, seed, params, prompts(cfg), eng_c, eng_s)
+    count(report, ("flash_attention", "rmsnorm"))
+    report["admit_graph_holds"] = held_routes(cfg, eng_c, "admit_decode")
+    report["profile_admit_round"] = profile_calls(torch, admit_round, calls=3)
+    report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    f, n = served_shape_checks(torch, cfg, eng_c.cast_params(params),
+                               torch.from_numpy(prompts(cfg)).cuda(), fk, rk, ref)
+    flash.append(f)
+    norm.append(n)
+    out["qwen1.5-0.5b"] = report
+    del eng_c, eng_s, params, admit_round
+    free()
+
+    # (b) glm4-9b: phase 9's serve, then the continuous path on the same weights
+    torch.cuda.reset_peak_memory_stats()
+    cfg, eng, params, batch_in, runs, setup_s, served = run_serve(
+        torch, seed, "glm4-9b", GLM_SERVE)
+    held_routes(cfg, eng, "prefill")
+    require(served["flash_attention"] > 0 and served["rmsnorm"] > 0,
+            f"a kernel never launched serving glm4: {served}")
+    serve_line = serve_report(torch, cfg, eng, GLM_SERVE, runs, setup_s, served)
+    checks = check_serving(torch, eng, params, batch_in, runs, GLM_SERVE)
+    eager = checks["eager_prefill_launches"]
+    require(eager.get("flash_attention_wgmma", 0) == cfg.n_layers and
+            not eager.get("flash_attention_cuda_core", 0),
+            f"the eager glm4 prefill took flash routes {eager}")
+    launches["flash_attention"] += served["flash_attention"]
+    launches["rmsnorm"] += served["rmsnorm"]
+    cast = eng.cast_params(params)
+    eng_c, eng_s = engines(cfg)
+    report, admit_round = run_continuous(torch, seed, cast, prompts(cfg), eng_c, eng_s)
+    count(report, ("flash_attention", "rmsnorm"))
+    report["admit_graph_holds"] = held_routes(cfg, eng_c, "admit_decode")
+    report["serve"], report["serve_checks"] = serve_line, checks
+    report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    f, n = served_shape_checks(torch, cfg, cast, torch.from_numpy(prompts(cfg)).cuda(),
+                               fk, rk, ref)
+    flash.append(f)
+    norm.append(n)
+    out["glm4-9b"] = report
+    del eng, params, batch_in, runs, cast, eng_c, eng_s, admit_round
+    free()
+
+    # (c) mamba2-2.7b
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("mamba2-2.7b")
+    eng_c, eng_s = engines(cfg)
+    params = eng_c.model.init(seed)
+    report, admit_round = run_continuous(torch, seed, params, prompts(cfg), eng_c, eng_s)
+    count(report, ("ssd_scan", "rmsnorm"))
+    held = report["admit_graph_holds"] = eng_c.captured_launches("admit_decode")
+    require(held["ssd_scan_wgmma"] == cfg.n_layers == held["ssd_scan"],
+            f"the mamba2 admit graph holds SSD launches {held}, not {cfg.n_layers} on the "
+            "tensor-core route")
+    report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["mamba2-2.7b"] = report
+    del eng_c, eng_s, params, admit_round
+    free()
+    return out, flash, norm, launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2311,13 +2773,22 @@ def main() -> int:
     print(json.dumps({"collectives": run_collectives(torch, gpu_line(), args.seed)}),
           flush=True)
 
+    # phase 17: continuous serving at full width and depth
+    torch.cuda.empty_cache()
+    cont, flash_shapes, norm_shapes, cont_launches = run_phase17(torch, args.seed, fk, rk,
+                                                                 ref)
+    print(json.dumps({"continuous": cont}), flush=True)
+    dense_rows[0]["served_shapes"], dense_rows[1]["served_shapes"] = flash_shapes, norm_shapes
+    for r in dense_rows + [ssd_row]:
+        r["phase17_launches"] = cont_launches[r["name"]]
+
     rows = rows + dense_rows + [ssd_row, step_row, sched_row]
     require(sorted(r["name"] for r in rows) == sorted(REPLACES), "a kernel row is missing")
     require(all(r["launches"] > 0 for r in rows), "a kernel was not launched on its path")
     order = ("name", "route", "kernel_route", "source", "replaces", "pallas_counterpart",
              "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "sector_bound_ms", "library_ms", "library_call", "earlier_ms", "decode",
-             "one_program_ms")
+             "served_shapes", "phase17_launches", "one_program_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in order if k in r} for r in rows]}))
     print(f"card: {gpu_line()}")
     print(json.dumps({"ok": True, "device": {

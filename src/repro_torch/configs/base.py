@@ -6,7 +6,8 @@ the reference's (``tests/test_torch_serve.py`` compares them).  The
 port imports nothing of ``repro``, so it keeps this copy.
 
 The port serves the architectures of :data:`PORTED` (``mamba2-2.7b``
-and ``gemma3-1b``); :func:`get_config` raises ``NotImplementedError``
+and the dense family: ``gemma3-1b``, ``qwen1.5-0.5b``, ``glm4-9b`` and
+``qwen1.5-110b``); :func:`get_config` raises ``NotImplementedError``
 for the others, which ``ROADMAP.md`` queues.
 """
 
@@ -179,7 +180,7 @@ ARCH_IDS = (
 )
 
 #: architectures the port runs; the rest are queued in ROADMAP.md
-PORTED = ("mamba2-2.7b", "gemma3-1b")
+PORTED = ("mamba2-2.7b", "gemma3-1b", "qwen1.5-0.5b", "glm4-9b", "qwen1.5-110b")
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -1,4 +1,5 @@
-"""Serving — port of ``repro.launch.serve`` (``ServeEngine``, ``serve``).
+"""Serving — port of ``repro.launch.serve``: ``ServeEngine``, ``serve``,
+continuous batching (``admit_decode``, ``serve_continuous``) and the CLI.
 
 The greedy-decode control loop runs device-resident: ``chunk`` decode
 steps captured into ONE CUDA graph, with the reference's per-slot
@@ -8,25 +9,39 @@ host-stepped baseline replays a one-step graph once per token.  Prefill
 is ONE graph launch too, one graph per (slots, prompt length, cache
 depth): the depth is read on the host before the graph is looked up,
 and its SSD scans, flash attention and norms take the hand-written
-kernels.  On the CPU the same functions run eagerly.  Attention caches
-hold ``prompt_len + max_new`` entries.  ``serve_window`` narrows the
-attention windows as the reference's does
-(``transformer.layer_window_theta``).  On one
-GPU there is no mesh or sharding bundle: the engine calls the model
-directly.  :func:`build_admission_schedule` gives the admission handoff
-as a two-queue ST schedule for the verifier; ``admit_decode`` and
-``serve_continuous`` are not ported yet (``ROADMAP.md``).
+kernels.  Continuous batching admits requests into freed slots between
+dispatches: ``admit_decode`` is ONE graph launch that prefills every
+slot's row at depth 0 into a zeroed cache view, merges the admitted
+slots (``Model.select_slots``) and runs the decode chunk for all active
+slots.  The decode and admission graphs share one set of state buffers,
+and the admission merges into them in place, so rounds hand the caches
+on without a copy, as the reference's donated buffers do.  On the CPU the same functions run eagerly.  Attention
+caches hold ``prompt_len + max_new`` entries.  ``serve_window`` narrows
+the attention windows as the reference's does
+(``transformer.layer_window_theta``).  On one GPU there is no mesh or
+sharding bundle: the engine calls the model directly.
+:func:`build_admission_schedule` gives the admission handoff as a
+two-queue ST schedule for the verifier.
+
+CLI (the reference's, with ``--device`` for ``--mesh``)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+        --smoke [--batch 4 --prompt-len 32 --gen 16] [--serve-window W] \
+        [--seed S] [--eos-id K] [--host-stepped] \
+        [--requests N --rate R --chunk C] [--device cpu]
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.kernels import ops
 from repro_torch.mesh import resolve_device
 from repro_torch.models import Model
@@ -35,7 +50,7 @@ from repro_torch.models.nn import tree_leaves, tree_map
 #: emission marker for a slot that was not active at a given decode step
 PAD_TOKEN = -1
 #: the engine's dispatch kinds, each a CUDA-graph launch on the card
-DISPATCH_KINDS = ("prefill", "decode", "decode_one")
+DISPATCH_KINDS = ("prefill", "decode", "decode_one", "admit_decode")
 
 
 class _Counted:
@@ -61,13 +76,17 @@ class _Graph:
     only the state it is given that is not those buffers already, replays
     (ONE launch) and returns ``(state buffers, extras)``.  The returned
     tensors are the graph's own, overwritten by the next call, as the
-    reference's donated buffers are.  ``replays`` counts the launches;
-    ``kernel_launches`` holds the hand-written kernels' launches recorded
-    into the graph (each replay runs them again)."""
+    reference's donated buffers are.  ``buffers`` (a tree shaped like
+    ``state``) gives the state buffers, so that graphs can share them;
+    by default the graph clones its own.  ``replays`` counts the
+    launches; ``kernel_launches`` holds the hand-written kernels'
+    launches recorded into the graph (each replay runs them again), and
+    ``tail_bytes`` the bytes its closing copies move: the state ``fn``
+    made anew rather than wrote in place."""
 
-    def __init__(self, fn: Callable, params, state):
+    def __init__(self, fn: Callable, params, state, buffers=None):
         self.params = params
-        self.state = tree_map(torch.clone, state)
+        self.state = tree_map(torch.clone, state) if buffers is None else buffers
         self.replays = 0
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
@@ -76,11 +95,13 @@ class _Graph:
         torch.cuda.current_stream().wait_stream(stream)
         self.graph = torch.cuda.CUDAGraph()
         before = ops.launch_counts()
+        self.tail_bytes = 0
         with torch.cuda.graph(self.graph):
             new_state, self.extras = fn(params, *self.state)
             for dst, src in zip(tree_leaves(self.state), tree_leaves(new_state)):
                 if dst is not src:
                     dst.copy_(src)
+                    self.tail_bytes += dst.numel() * dst.element_size()
         self.kernel_launches = {k: n - before[k] for k, n in ops.launch_counts().items()}
 
     def __call__(self, state):
@@ -158,14 +179,34 @@ class ServeEngine:
       its mask, so compare final caches only in runs without EOS.
     * ``decode_one(params, caches, tok)`` — one decode step as one graph
       launch: the host-stepped baseline.
+    * ``admit_decode(params, caches, tok, active, rem, batch_in, admit,
+      new_rem)`` — continuous batching's admission in ONE CUDA-graph
+      launch: every slot's row of ``batch_in`` prefilled at depth 0 into
+      a zeroed view of the caches (a recycled slot's stale K/V and SSM
+      state must not leak into its new request), the view merged into
+      the slots where ``admit`` is set (``Model.select_slots``), their
+      first token, budget and stop set, then the decode chunk over all
+      active slots.  Returns ``(caches, tok, active, rem, first, out,
+      n)``.  The view is zeroed, so its depth is 0 by construction and
+      nothing is read on the host.
+
+    ``decode`` and ``admit_decode`` capture their graphs over ONE shared
+    set of state buffers (caches, tok, active, rem), the admission merges
+    into those buffers in place and the decode writes K/V there: a serve
+    chain that passes each dispatch's outputs to the next copies no cache
+    set between or within rounds, as the reference's donated buffers
+    rotate (a graph's closing copy writes back only what a step makes
+    anew: ``pos``, tok, active, rem and the SSM ``conv`` and ``state``).
+    On the CPU the admission's merge writes into the caches it is
+    given.
 
     ``device=None`` means the current CUDA device and raises without a
     GPU; on ``device="cpu"`` the same functions run eagerly.  The first
     call of each graph is set-up: one eager warm-up pass, the capture,
     then the launch.  ``dispatches`` counts calls (a resident serve: 2,
-    one of them decode); ``graph_launches`` counts graph replays per
-    dispatch kind.  The engine casts the large weights to ``cfg.dtype``
-    once per params tree it is given.
+    one of them decode; a continuous round: 1); ``graph_launches``
+    counts graph replays per dispatch kind.  The engine casts the large
+    weights to ``cfg.dtype`` once per params tree it is given.
     """
 
     def __init__(self, cfg: ModelConfig, *, slots: int, prompt_len: int,
@@ -182,9 +223,11 @@ class ServeEngine:
         self._cast = None      # (params, params with cast weights)
         self._graphs: Dict[tuple, _Graph] = {}   # by (kind, key...)
         self._retired = dict.fromkeys(DISPATCH_KINDS, 0)  # replays of dropped graphs
+        self._slot_buffers = None   # (caches, tok, active, rem) of the decode graphs
         self.prefill = _Counted(self._prefill_fn)
         self.decode = _Counted(self._decode_fn)
         self.decode_one = _Counted(self._decode_one_fn)
+        self.admit_decode = _Counted(self._admit_decode_fn)
 
     # -- state ------------------------------------------------------------------
 
@@ -199,12 +242,14 @@ class ServeEngine:
 
     @property
     def dispatches(self) -> int:
-        return self.prefill.calls + self.decode.calls + self.decode_one.calls
+        return (self.prefill.calls + self.decode.calls + self.decode_one.calls
+                + self.admit_decode.calls)
 
     @property
     def graph_launches(self) -> Dict[str, int]:
         """CUDA-graph launches per dispatch kind (``prefill``, ``decode``,
-        ``decode_one``) since the engine was made; all 0 on the CPU."""
+        ``decode_one``, ``admit_decode``) since the engine was made; all 0
+        on the CPU."""
         out = dict(self._retired)
         for key, g in self._graphs.items():
             out[key[0]] += g.replays
@@ -230,18 +275,25 @@ class ServeEngine:
             self._graphs.clear()
         return self._cast[1]
 
-    def _graphed(self, key: tuple, fn: Callable, params, state):
+    def _graphed(self, key: tuple, fn: Callable, params, state, shared: bool = False):
         """``fn(params, *state)`` as one launch of the graph for ``key``
         (``(kind, ...)``) on the card, or eagerly on the CPU; returns
-        ``(new_state, extras)``."""
+        ``(new_state, extras)``.  ``shared``: ``state`` starts with
+        (caches, tok, active, rem), held in the engine's shared slot
+        buffers."""
         if self.device.type != "cuda":
             return fn(params, *state)
         g = self._graphs.get(key)
         if g is None or g.params is not params:
-            g = self._graphs[key] = _Graph(fn, params, state)
+            buffers = None
+            if shared:
+                if self._slot_buffers is None:
+                    self._slot_buffers = tree_map(torch.clone, tuple(state[:4]))
+                buffers = self._slot_buffers + tree_map(torch.clone, tuple(state[4:]))
+            g = self._graphs[key] = _Graph(fn, params, state, buffers)
         return g(state)
 
-    # -- the three dispatch kinds -------------------------------------------------
+    # -- the four dispatch kinds --------------------------------------------------
 
     def _prefill_fn(self, params, batch_in, caches):
         depth = self.model.prefill_depth(caches)   # host sync: before any capture
@@ -260,8 +312,42 @@ class ServeEngine:
     def _decode_fn(self, params, caches, tok, active, rem):
         (caches, tok, active, rem), (out, n) = self._graphed(
             ("decode",), self._decode_loop, self.cast_params(params),
-            (caches, tok, active, rem))
+            (caches, tok, active, rem), shared=True)
         return caches, tok, active, rem, out, n
+
+    def _admit_decode_fn(self, params, caches, tok, active, rem, batch_in, admit,
+                         new_rem):
+        tokens = batch_in["tokens"]
+        state = (caches, tok, active, rem, tokens, admit, new_rem)
+        (caches, tok, active, rem, *_), (first, out, n) = self._graphed(
+            ("admit_decode", tuple(tokens.shape)), self._admit_decode_inner,
+            self.cast_params(params), state, shared=True)
+        return caches, tok, active, rem, first, out, n
+
+    def _admit_decode_inner(self, params, caches, tok, active, rem, tokens, admit,
+                            new_rem):
+        """The admission round (reference ``_admit_decode_inner``); returns
+        ``((caches, tok, active, rem, tokens, admit, new_rem), (first,
+        out, n))``."""
+        zero = tree_map(torch.zeros_like, caches)
+        logits, pre = self.model.prefill(params, {"tokens": tokens}, zero,
+                                         serve_window=self.serve_window, depth=0)
+        # merged into the caches given: in the graph, the shared buffers
+        caches = self.model.select_slots(admit, pre, caches, in_place=True)
+        tok0 = _argmax_tok(logits)
+        first = torch.where(admit, tok0, PAD_TOKEN)
+        tok = torch.where(admit, tok0, tok)
+        # the prefill token is emission #1 of the admitted request
+        rem_admitted = new_rem - 1
+        stop = rem_admitted <= 0
+        if self.eos_id >= 0:
+            stop = stop | (tok0 == self.eos_id)
+        stop = stop | (caches["pos"] >= self.capacity)
+        active = torch.where(admit, admit & ~stop, active)
+        rem = torch.where(admit, rem_admitted, rem)
+        (caches, tok, active, rem), (out, n) = self._decode_loop(params, caches, tok,
+                                                                 active, rem)
+        return (caches, tok, active, rem, tokens, admit, new_rem), (first, out, n)
 
     def _decode_one_fn(self, params, caches, tok):
         def step(p, caches, tok):
@@ -403,3 +489,209 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen_len: int,
         "sync_points": eng.sync_points,
     }
     return gen, stats
+
+
+# --------------------------------------------------------------------------
+# continuous batching (open-loop arrival stream)
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RequestResult:
+    rid: int
+    tokens: np.ndarray        # emitted tokens (prefill token first)
+    t_arrive: float
+    t_done: float
+
+    @property
+    def latency_s(self) -> float:
+        return self.t_done - self.t_arrive
+
+
+def poisson_arrivals(n: int, rate: float, rng) -> np.ndarray:
+    """Arrival offsets (s) for an open-loop Poisson stream; rate <= 0 → a
+    t=0 burst."""
+    if rate <= 0:
+        return np.zeros(n)
+    return np.cumsum(rng.exponential(1.0 / rate, size=n))
+
+
+def serve_continuous(cfg: ModelConfig, *, slots: int, prompt_len: int, max_new: int,
+                     n_requests: int, chunk: int = 4, arrival_rate: float = 0.0,
+                     seed: int = 0, eos_id: int = -1, serve_window: int = 0,
+                     params=None, prompts=None, engine: Optional[ServeEngine] = None,
+                     device=None):
+    """Continuous-batching serve of an open-loop arrival stream.
+
+    ``n_requests`` synthetic requests arrive as a Poisson process
+    (``arrival_rate`` req/s; 0 → all at t=0), offsets on the host clock,
+    and are admitted into freed slots between dispatches.  Each round is
+    ONE dispatch — ``admit_decode`` when any slot was admitted, ``decode``
+    otherwise — then one host sync (the admission point).  The rows of
+    slots not admitted in a round are zero prompts.  Slots are recycled
+    without a copy: each round's outputs are the next round's inputs, in
+    the engine's shared graph buffers.
+
+    Returns ``(results, stats)``: a :class:`RequestResult` per request
+    (its tokens equal serving it alone) and the reference's stats —
+    ``total_s``, ``total_tokens``, ``tok_per_s``, ``p50_ms``, ``p99_ms``,
+    ``dispatches``, ``admit_dispatches``, ``decode_dispatches``,
+    ``prefill_dispatches`` and ``sync_points`` — with ``graph_launches``
+    per dispatch kind.
+    """
+    eng = engine or ServeEngine(cfg, slots=slots, prompt_len=prompt_len,
+                                max_new=max_new, chunk=chunk, eos_id=eos_id,
+                                serve_window=serve_window, device=device)
+    if (eng.slots != slots or eng.prompt_len != prompt_len or eng.max_new < max_new
+            or eng.eos_id != int(eos_id)):
+        raise ValueError("serve_continuous: the engine's slots, prompt_len, max_new "
+                         "and eos_id do not match")
+    dev = eng.device
+    rng = np.random.RandomState(seed)
+    if params is None:
+        params = eng.model.init(seed, device=dev)
+    all_prompts = (synthetic_batch(cfg, rng, n_requests, prompt_len, device=dev)
+                   if prompts is None else prompts)
+    rows = {k: v.cpu().numpy() for k, v in all_prompts.items()}
+    arrivals = poisson_arrivals(n_requests, arrival_rate, np.random.RandomState(seed + 1))
+
+    caches, tok, active, rem = eng.init_state()
+    slot_req = np.full(slots, -1)          # request id per slot
+    emitted: List[List[int]] = [[] for _ in range(n_requests)]
+    results: List[Optional[RequestResult]] = [None] * n_requests
+    next_req = n_done = 0
+    base = {"prefill": eng.prefill.calls, "admit": eng.admit_decode.calls,
+            "decode": eng.decode.calls, "dispatches": eng.dispatches,
+            "graphs": eng.graph_launches}
+    _sync(dev)
+    t0 = time.perf_counter()
+
+    while n_done < n_requests:
+        now = time.perf_counter() - t0
+        free = [s for s in range(slots) if slot_req[s] < 0]
+        admit_ids: List[Tuple[int, int]] = []   # (slot, rid)
+        while free and next_req < n_requests and arrivals[next_req] <= now:
+            admit_ids.append((free.pop(0), next_req))
+            next_req += 1
+        if not admit_ids and not (slot_req >= 0).any():
+            # idle: nothing in flight, nothing arrived yet
+            time.sleep(min(max(arrivals[next_req] - now, 0.0), 0.01))
+            continue
+
+        if admit_ids:
+            admit_np = np.zeros(slots, bool)
+            new_rem = np.zeros(slots, np.int32)
+            batch_rows = {k: np.zeros((slots,) + v.shape[1:], v.dtype)
+                          for k, v in rows.items()}
+            for s, rid in admit_ids:
+                admit_np[s] = True
+                new_rem[s] = max_new
+                slot_req[s] = rid
+                for k in rows:
+                    batch_rows[k][s] = rows[k][rid]
+            batch_in = {k: torch.from_numpy(v).to(dev) for k, v in batch_rows.items()}
+            caches, tok, active, rem, first, out, n_emit = eng.admit_decode(
+                params, caches, tok, active, rem, batch_in,
+                torch.from_numpy(admit_np).to(dev), torch.from_numpy(new_rem).to(dev))
+        else:
+            caches, tok, active, rem, out, n_emit = eng.decode(params, caches, tok,
+                                                               active, rem)
+            first = None
+
+        # ONE host sync per round: the admission point
+        out_np = out.cpu().numpy()
+        act_np = active.cpu().numpy()
+        first_np = first.cpu().numpy() if first is not None else None
+        eng.sync_points += 1
+        t_round = time.perf_counter() - t0
+
+        for s in range(slots):
+            rid = slot_req[s]
+            if rid < 0:
+                continue
+            if first_np is not None and first_np[s] != PAD_TOKEN:
+                emitted[rid].append(int(first_np[s]))
+            emitted[rid].extend(int(t) for t in out_np[s] if t != PAD_TOKEN)
+            if not act_np[s]:
+                results[rid] = RequestResult(
+                    rid=int(rid), tokens=np.asarray(emitted[rid], np.int32),
+                    t_arrive=float(arrivals[rid]), t_done=t_round)
+                slot_req[s] = -1
+                n_done += 1
+
+    t_total = time.perf_counter() - t0
+    lat = np.asarray([r.latency_s for r in results])
+    total_tokens = int(sum(len(e) for e in emitted))
+    stats = {
+        "total_s": t_total,
+        "total_tokens": total_tokens,
+        "tok_per_s": total_tokens / max(t_total, 1e-9),
+        "p50_ms": float(np.percentile(lat, 50) * 1e3),
+        "p99_ms": float(np.percentile(lat, 99) * 1e3),
+        "dispatches": eng.dispatches - base["dispatches"],
+        "admit_dispatches": eng.admit_decode.calls - base["admit"],
+        "decode_dispatches": eng.decode.calls - base["decode"],
+        "prefill_dispatches": eng.prefill.calls - base["prefill"],
+        "sync_points": eng.sync_points,
+        "graph_launches": {k: n - base["graphs"][k]
+                           for k, n in eng.graph_launches.items()},
+    }
+    return results, stats
+
+
+# --------------------------------------------------------------------------
+# CLI
+# --------------------------------------------------------------------------
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--mesh", default="1x1",
+                    help="one card holds the model: only 1x1")
+    ap.add_argument("--device", default=None,
+                    help="the device (default: the card; 'cpu' runs on the host)")
+    ap.add_argument("--serve-window", type=int, default=0,
+                    help="windowed-attention serving cap (0 = off)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--eos-id", type=int, default=-1)
+    ap.add_argument("--host-stepped", action="store_true",
+                    help="one dispatch per token (the baseline)")
+    ap.add_argument("--requests", type=int, default=0,
+                    help="continuous-batching mode: serve N requests")
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="Poisson arrival rate (req/s); 0 = t=0 burst")
+    ap.add_argument("--chunk", type=int, default=4,
+                    help="decode chunk between admission points")
+    args = ap.parse_args(argv)
+    if args.mesh != "1x1":
+        ap.error(f"--mesh {args.mesh}: the port serves on one card (1x1)")
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+
+    if args.requests:
+        results, stats = serve_continuous(
+            cfg, slots=args.batch, prompt_len=args.prompt_len, max_new=args.gen,
+            n_requests=args.requests, chunk=args.chunk, arrival_rate=args.rate,
+            seed=args.seed, eos_id=args.eos_id, serve_window=args.serve_window,
+            device=args.device)
+        print(f"served {len(results)} requests ({stats['total_tokens']} tokens)")
+        print({k: round(v, 4) if isinstance(v, float) else v for k, v in stats.items()})
+        return
+
+    gen, stats = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
+                       gen_len=args.gen, seed=args.seed, serve_window=args.serve_window,
+                       eos_id=args.eos_id, device_resident=not args.host_stepped,
+                       device=args.device)
+    print("generated tokens (first row):", gen[0][:16])
+    print({k: round(v, 4) if isinstance(v, float) else v for k, v in stats.items()})
+
+
+if __name__ == "__main__":
+    main()

@@ -1,15 +1,17 @@
 """Model facade — port of ``repro.models.model.Model`` for the dense
-(gemma3) and SSM (mamba2) paths.
+(gemma3, qwen1.5, glm4) and SSM (mamba2) paths.
 
-``init``, ``forward_logits``, ``init_caches``, ``prefill`` and
-``decode_step`` give the reference's outputs and cache tree: params
-``{"embed": {"table"}, "decoder": {"segments": [...]}, "ln_final":
-{"scale"}, "unembed": {}}`` and caches ``{"segments": [{"attn": {"k",
-"v"}} or {"ssm": {"conv", "state"}}], "pos"}``.  The SSM caches are new
-tensors out, as in the reference; the attention caches are written in
-place and returned (the reference's functional update, without copying
-the cache at every step).  ``select_slots``, ``loss`` and the frontends
-are not ported yet (``ROADMAP.md``).
+``init``, ``forward_logits``, ``init_caches``, ``prefill``,
+``decode_step``, ``cache_axes`` and ``select_slots`` give the
+reference's outputs and cache tree: params ``{"embed": {"table"},
+"decoder": {"segments": [...]}, "ln_final": {"scale"}, "unembed": {}}``
+(``{"w"}`` for an untied head) and caches ``{"segments": [{"attn":
+{"k", "v"}} or {"ssm": {"conv", "state"}}], "pos"}``.  The SSM caches
+are new tensors out, as in the reference; the attention caches are
+written in place and returned (the reference's functional update,
+without copying the cache at every step).  ``select_slots`` merges a
+prefilled cache into the admitted slots (continuous batching).
+``loss`` and the frontends are not ported yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from .nn import (
     dtype_of,
     init_embedding,
     init_rmsnorm,
+    init_unembed,
 )
 
 
@@ -35,14 +38,13 @@ from .nn import (
 #: ``nn.py``)
 _COMPUTE_DTYPE_WEIGHTS = ("in_proj", "out_proj", "table", "wq", "wk", "wv", "wo",
                           "bq", "bk", "bv", "wi", "wg")
+#: subtrees whose every leaf the forward casts at each use: the untied head
+_COMPUTE_DTYPE_SUBTREES = ("unembed",)
 
 
 class Model:
     def __init__(self, cfg: ModelConfig):
         segs = tfm.plan_segments(cfg)  # raises for what is not ported
-        if not cfg.tie_embeddings:
-            raise NotImplementedError(f"{cfg.name}: only a tied embedding is ported "
-                                      f"to repro_torch yet")
         if cfg.frontend != "none" or cfg.n_meta_tokens or cfg.pos_embedding != "rope":
             raise NotImplementedError(f"{cfg.name}: frontends, meta tokens and "
                                       f"non-rope positions are not ported yet")
@@ -71,7 +73,7 @@ class Model:
             "decoder": tfm.init_stack(gen, cfg, device=device),
             "ln_final": init_rmsnorm(cfg.d_model, dtype_of(cfg.param_dtype),
                                      device=device),
-            "unembed": {},  # tied to the embedding table
+            "unembed": init_unembed(gen, cfg, device=device),  # {} when tied
         }
 
     def abstract_init(self) -> Dict[str, Any]:
@@ -80,18 +82,20 @@ class Model:
 
     def compute_params(self, params) -> Dict[str, Any]:
         """``params`` with the weights the forward casts to ``cfg.dtype``
-        at every use (the projections and the embedding table) cast once,
-        as XLA hoists the reference's casts; the other leaves are the
-        same tensors.  The values the forward sees are unchanged."""
+        at every use (the projections, the embedding table and an untied
+        head) cast once, as XLA hoists the reference's casts; the other
+        leaves are the same tensors.  The values the forward sees are
+        unchanged."""
         dt = dtype_of(self.cfg.dtype)
 
-        def cast(tree):
+        def cast(tree, whole=False):
             if isinstance(tree, dict):
-                return {k: (v.to(dt) if k in _COMPUTE_DTYPE_WEIGHTS else cast(v))
+                return {k: (v.to(dt) if k in _COMPUTE_DTYPE_WEIGHTS and not whole
+                            else cast(v, whole or k in _COMPUTE_DTYPE_SUBTREES))
                         for k, v in tree.items()}
             if isinstance(tree, list):
-                return [cast(v) for v in tree]
-            return tree
+                return [cast(v, whole) for v in tree]
+            return tree.to(dt) if whole else tree
 
         return cast(params)
 
@@ -106,7 +110,7 @@ class Model:
         positions = torch.arange(x.shape[1], device=x.device)
         x, _ = tfm.apply_stack(params["decoder"], x, cfg, positions=positions)
         h = apply_rmsnorm(params["ln_final"], x, cfg)
-        return apply_unembed(params["embed"], h)
+        return apply_unembed(params["embed"], params["unembed"], h, cfg)
 
     # -- serving ------------------------------------------------------------------
 
@@ -120,12 +124,37 @@ class Model:
         return {"segments": tfm.init_caches(self.cfg, batch, max_len, device=device),
                 "pos": torch.zeros(pos_shape, dtype=torch.int32, device=device)}
 
+    def cache_axes(self, per_sequence: bool = False) -> Dict[str, Any]:
+        """The cache tree's logical axes, leaf for leaf: where ``batch``
+        (the slot axis) sits in each."""
+        return {"segments": tfm.cache_logical_axes(self.cfg),
+                "pos": ("batch",) if per_sequence else ()}
+
+    def select_slots(self, mask: torch.Tensor, new_caches, old_caches, *,
+                     in_place: bool = False) -> Dict[str, Any]:
+        """Per-slot cache merge: slot ``b`` takes ``new_caches`` where
+        ``mask[b]`` and keeps ``old_caches`` elsewhere (K/V, the SSM
+        ``conv`` and ``state``, ``pos``).  Each leaf's slot axis is looked
+        up in :meth:`cache_axes`, as the reference does, and the mask
+        broadcast along it; new tensors out, or with ``in_place`` the
+        merge written into ``old_caches``' leaves (which are returned),
+        as into a donated buffer."""
+        axes = self.cache_axes(per_sequence=old_caches["pos"].dim() == 1)
+
+        def sel(ax, n, o):
+            shape = [1] * n.dim()
+            shape[ax.index("batch")] = mask.shape[0]
+            return torch.where(mask.reshape(shape), n, o, out=o if in_place else None)
+
+        return _map_axes(sel, axes, new_caches, old_caches)
+
     def prefill_depth(self, caches) -> Optional[int]:
         """The depth every slot's cache sits at, read on the host (a device
         sync), for a model with attention layers (the flash kernel's
-        ``q_offset`` is a host int); None without them.  Slots at
-        different depths are continuous batching, which is not ported:
-        ``NotImplementedError``."""
+        ``q_offset`` is a host int); None without them.  A prefill into
+        slots at differing depths (a per-row ``q_offset``) is not ported:
+        ``NotImplementedError``.  Continuous batching never needs one: its
+        admission prefills into a zeroed view, every slot at depth 0."""
         return _common_depth(caches["pos"]) if self._attention else None
 
     def prefill(self, params, batch, caches, *, serve_window: int = 0,
@@ -145,7 +174,7 @@ class Model:
                                       caches=caches["segments"], cache_pos=caches["pos"],
                                       depth=depth, serve_window=serve_window)
         h = apply_rmsnorm(params["ln_final"], x, cfg)
-        logits = apply_unembed(params["embed"], h[:, -1:])[:, 0]
+        logits = apply_unembed(params["embed"], params["unembed"], h[:, -1:], cfg)[:, 0]
         return logits, {"segments": _merge_caches(caches["segments"], new_segs),
                         "pos": caches["pos"] + tokens.shape[1]}
 
@@ -160,7 +189,7 @@ class Model:
                                       caches=caches["segments"], cache_pos=pos,
                                       serve_window=serve_window)
         h = apply_rmsnorm(params["ln_final"], x, cfg)
-        logits = apply_unembed(params["embed"], h)[:, 0]
+        logits = apply_unembed(params["embed"], params["unembed"], h, cfg)[:, 0]
         out = dict(caches)
         out["segments"] = _merge_caches(caches["segments"], new_segs)
         out["pos"] = caches["pos"] + 1
@@ -172,9 +201,20 @@ def _common_depth(pos: torch.Tensor) -> int:
     values = pos.reshape(-1).tolist()
     if not values or any(v != values[0] for v in values):
         raise NotImplementedError(
-            f"prefill with the slots at different depths {values} is continuous "
-            f"batching, which is not ported yet (ROADMAP.md)")
+            f"prefill into slots at differing depths {values} (a per-row q_offset) "
+            f"is not ported (ROADMAP.md); continuous batching admits into a zeroed "
+            f"view at depth 0")
     return int(values[0])
+
+
+def _map_axes(fn, axes, *trees):
+    """``fn(axes_leaf, *leaves)`` over trees shaped like ``axes``, whose
+    leaves are tuples of axis names."""
+    if isinstance(axes, dict):
+        return {k: _map_axes(fn, a, *(t[k] for t in trees)) for k, a in axes.items()}
+    if isinstance(axes, list):
+        return [_map_axes(fn, a, *(t[i] for t in trees)) for i, a in enumerate(axes)]
+    return fn(axes, *trees)
 
 
 def _merge_caches(old_segs: List, new_segs: List) -> List:

@@ -1,10 +1,10 @@
 """Core NN building blocks of the port: the dense and SSM paths.
 
 Port of ``repro.models.nn``: parameter init, RMSNorm, token embedding
-(with gemma's ``sqrt(d_model)`` scale), the (tied) unembedding, the MLP
-(gated silu or plain tanh-gelu), NeoX RoPE and GQA attention with qkv
-bias, qk-norm, sliding windows, soft-capping and a KV cache, as plain
-functions on dicts of tensors in the reference's layout.  Weights are
+(with gemma's ``sqrt(d_model)`` scale), the tied or untied unembedding,
+the MLP (gated silu or plain tanh-gelu), NeoX RoPE and GQA attention
+with qkv bias, qk-norm, sliding windows, soft-capping and a KV cache, as
+plain functions on dicts of tensors in the reference's layout.  Weights are
 stored in ``cfg.param_dtype`` and cast to the compute dtype at each use,
 as the reference does; the cast is free when a caller has cast them once
 already (``Model.compute_params``).
@@ -95,9 +95,19 @@ def apply_embedding(p, ids: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x
 
 
-def apply_unembed(p_embed, x: torch.Tensor) -> torch.Tensor:
-    """Tied unembedding: logits against the embedding table."""
-    return x @ p_embed["table"].to(x.dtype).t()
+def apply_unembed(p_embed, p_head, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Logits: against the embedding table when tied, else against the
+    head ``p_head["w"]`` ``[d_model, vocab]``."""
+    if cfg.tie_embeddings:
+        return x @ p_embed["table"].to(x.dtype).t()
+    return x @ p_head["w"].to(x.dtype)
+
+
+def init_unembed(gen, cfg: ModelConfig, *, device):
+    if cfg.tie_embeddings:
+        return {}
+    return {"w": param(gen, (cfg.d_model, cfg.vocab), dtype_of(cfg.param_dtype),
+                       device=device)}
 
 
 def init_mlp(gen, cfg: ModelConfig, *, device, d_ff: Optional[int] = None):
@@ -311,7 +321,8 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *, window: int = 0,
         if S != 1:
             raise NotImplementedError(
                 "attention over a cache whose slots sit at different depths takes one "
-                "token at a time (continuous batching is not ported; ROADMAP.md)")
+                "token at a time: a prefill into slots at differing depths (a per-row "
+                "q_offset) is not ported (ROADMAP.md)")
         ck, cv, pos = cache["k"], cache["v"], cache["pos"]
         _cache_write_step(ck, k.to(ck.dtype), pos)
         _cache_write_step(cv, v.to(cv.dtype), pos)

@@ -195,3 +195,17 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                                      dtype=torch.float32, device=device),
             }})
     return caches
+
+
+def cache_logical_axes(cfg: ModelConfig) -> List[Dict[str, Any]]:
+    """The logical axes of :func:`init_caches`' leaves (the reference's
+    ``cache_logical_axes`` for the ported segments)."""
+    out = []
+    for seg in plan_segments(cfg):
+        if seg.kind == "attn_mlp":
+            kv = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+            out.append({"attn": {"k": kv, "v": kv}})
+        else:
+            out.append({"ssm": {"conv": ("layers", "batch", None, "act_mlp"),
+                                "state": ("layers", "batch", "act_heads", None, "state")}})
+    return out

@@ -1,4 +1,5 @@
-"""The port's dense path (gemma3-1b) against the JAX package, on the CPU.
+"""The port's dense path (gemma3-1b, qwen1.5-0.5b, glm4-9b) against the
+JAX package, on the CPU.
 
 Two sizes of the smoke model: ``gemma3-1b`` ``.smoke()`` (2 layers, both
 local with a window of 32) and the same with 6 layers, so that layer 6
@@ -21,6 +22,12 @@ then decoded, is held for both sizes and the mamba2 smoke model at 32
 float32 ulps of each tensor's largest value.  With an EOS id that the
 models emit mid-stream (four ids a size), both serve modes stop each
 slot where JAX's engine does: equal tokens and ``decode_tokens``.
+The forward, prefill and decode checks also run on the qwen1.5-0.5b and
+glm4-9b smoke models (qkv bias; glm4's partial rotary, untied head and
+small ``norm_eps``) at the init scale; the three new
+configs' full-size parameter shapes are held against JAX's
+``abstract_init()`` on the meta device (qwen1.5-110b, about 220 GB in
+bf16, is checked only this way).
 """
 
 import dataclasses
@@ -71,12 +78,17 @@ def _boost(tree, factor, name=""):
 @functools.lru_cache(maxsize=None)
 def _make_pair(arch, n_layers):
     """(jax model, jax params, port model, port params): gemma3 smoke with
-    ``n_layers`` layers and boosted matrices, or mamba2 smoke as
-    ``tests/test_torch_serve.py`` has it."""
+    ``n_layers`` layers and boosted matrices, qwen1.5-0.5b or glm4-9b smoke
+    at the init scale, or mamba2 smoke as ``tests/test_torch_serve.py``
+    has it."""
     if arch == "mamba2-2.7b":
         jcfg, cfg = jax_get_config(arch).smoke(), get_config(arch).smoke()
         jm = JaxModel(jcfg)
         jp = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0))[0])
+    elif arch != "gemma3-1b":
+        jcfg, cfg = jax_get_config(arch).smoke(), get_config(arch).smoke()
+        jm = JaxModel(jcfg)
+        jp = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(1))[0])
     else:
         jcfg, cfg = _configs(n_layers)
         jm = JaxModel(jcfg)
@@ -90,6 +102,14 @@ def _make_pair(arch, n_layers):
 def pair(request):
     """(jax model, jax params, port model, port params)."""
     return _make_pair("gemma3-1b", request.param)
+
+
+@pytest.fixture(scope="module", params=[("gemma3-1b", n) for n in LAYERS]
+                + [("qwen1.5-0.5b", None), ("glm4-9b", None)],
+                ids=[f"{n}layers" for n in LAYERS] + ["qwen1.5-0.5b", "glm4-9b"])
+def dense_pair(request):
+    """``pair``, and the qwen1.5-0.5b and glm4-9b smoke models."""
+    return _make_pair(*request.param)
 
 
 def test_layer_windows_and_thetas_equal_the_reference():
@@ -115,6 +135,54 @@ def test_full_size_parameter_shapes_equal_the_reference():
         assert str(o.dtype).split(".")[1] == str(t.dtype)
     total = sum(o.numel() for o in tree_leaves(ours))
     assert 7.9e8 <= total <= 8.0e8, total  # 302 M embedding + 26 x 18.9 M
+
+
+#: parameters of the full-size dense configs (embedding, head and layers)
+DENSE_TOTALS = {"qwen1.5-0.5b": (4.6e8, 4.7e8), "glm4-9b": (9.3e9, 9.5e9),
+                "qwen1.5-110b": (1.09e11, 1.12e11)}
+
+
+@pytest.mark.parametrize("arch", sorted(DENSE_TOTALS))
+def test_full_size_dense_parameter_shapes_equal_the_reference(arch):
+    """The three dense configs at full size, on the meta device, against
+    JAX's ``abstract_init()``: the same tree, shapes and dtypes."""
+    ours = Model(get_config(arch)).abstract_init()
+    theirs, _ = JaxModel(jax_get_config(arch)).abstract_init()
+    assert jax.tree.structure(jax.tree.map(lambda t: 0, ours)) == \
+        jax.tree.structure(jax.tree.map(lambda a: 0, theirs))
+    for o, t in zip(jax.tree.leaves(ours), jax.tree.leaves(theirs)):
+        assert o.device.type == "meta"
+        assert tuple(o.shape) == tuple(t.shape)
+        assert str(o.dtype).split(".")[1] == str(t.dtype)
+    total = sum(o.numel() for o in tree_leaves(ours))
+    lo, hi = DENSE_TOTALS[arch]
+    assert lo <= total <= hi, total
+    # qwen1.5-0.5b ties its head; glm4-9b and qwen1.5-110b do not
+    assert ("w" in ours["unembed"]) == (arch != "qwen1.5-0.5b")
+
+
+def test_untied_head_carries_across_in_convert():
+    """glm4-9b's head ``unembed/w`` [d_model, vocab] crosses in
+    ``from_reference_params``, and a tree without it is refused."""
+    _, jp, m, params = _make_pair("glm4-9b", None)
+    jp = jax.tree.map(np.asarray, jp)
+    assert tuple(params["unembed"]["w"].shape) == (m.cfg.d_model, m.cfg.vocab)
+    np.testing.assert_array_equal(params["unembed"]["w"].numpy(), jp["unembed"]["w"])
+    with pytest.raises(ValueError, match="unembed/w"):
+        from_reference_params({**jp, "unembed": {}}, m.cfg, "cpu")
+
+
+def test_compute_params_cast_the_untied_head_once():
+    """The head is cast by its subtree; no other leaf named ``w`` exists to
+    be cast by accident, and the norms stay float32."""
+    model = Model(get_config("glm4-9b"))
+    params = model.abstract_init()
+    cast = model.compute_params(params)
+    assert cast["unembed"]["w"].dtype == torch.bfloat16
+    assert cast["ln_final"]["scale"] is params["ln_final"]["scale"]
+    seg = cast["decoder"]["segments"][0]
+    assert seg["ln_attn"]["scale"] is params["decoder"]["segments"][0]["ln_attn"]["scale"]
+    assert seg["attn"]["bq"].dtype == torch.bfloat16
 
 
 def test_compute_params_cast_the_matmul_weights_once():
@@ -159,8 +227,8 @@ def test_rope_equals_the_reference_near_position_1000(theta):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
-def test_forward_logits_match_jax(pair):
-    jm, jp, m, params = pair
+def test_forward_logits_match_jax(dense_pair):
+    jm, jp, m, params = dense_pair
     toks = np.random.RandomState(2).randint(0, m.cfg.vocab, (2, PROMPT)).astype(np.int32)
     got = m.forward_logits(params, {"tokens": torch.from_numpy(toks)})
     want = jm.forward_logits(jp, {"tokens": jnp.asarray(toks)})
@@ -169,8 +237,8 @@ def test_forward_logits_match_jax(pair):
 
 
 @pytest.mark.parametrize("per_sequence", [False, True])
-def test_prefill_and_decode_match_jax(pair, per_sequence):
-    jm, jp, m, params = pair
+def test_prefill_and_decode_match_jax(dense_pair, per_sequence):
+    jm, jp, m, params = dense_pair
     rng = np.random.RandomState(3 + int(per_sequence))
     toks = rng.randint(0, m.cfg.vocab, (2, PROMPT)).astype(np.int32)
     T = PROMPT + 3
@@ -192,7 +260,7 @@ def test_prefill_refuses_slots_at_different_depths(pair):
     _, _, m, params = pair
     caches = m.init_caches(2, 8, per_sequence=True, device="cpu")
     caches["pos"] = torch.tensor([0, 3], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="continuous batching"):
+    with pytest.raises(NotImplementedError, match="differing depths"):
         m.prefill(params, {"tokens": torch.zeros((2, 4), dtype=torch.int32)}, caches)
 
 
@@ -245,7 +313,8 @@ def test_chunked_prefill_matches_jax(arch, n_layers, per_sequence, serve_window)
         assert _rel(g, w) <= CHUNKED_REL
     # on the CPU the dispatches run eagerly: no graph was launched
     assert eng.dispatches == 4
-    assert eng.graph_launches == {"prefill": 0, "decode": 0, "decode_one": 0}
+    assert eng.graph_launches == {"prefill": 0, "decode": 0, "decode_one": 0,
+                                  "admit_decode": 0}
 
 
 def _serve_both(pair, serve_window=0):

@@ -64,7 +64,7 @@ from repro_torch.kernels import halo_pack as hk
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as rk
 from repro_torch.kernels import ssd_scan as ssd
-from repro_torch.launch.serve import ServeEngine, serve, synthetic_batch
+from repro_torch.launch.serve import ServeEngine, serve, serve_continuous, synthetic_batch
 from repro_torch.models import Model
 from repro_torch.models.nn import tree_leaves, tree_map
 
@@ -717,6 +717,91 @@ def test_warm_prefill_is_one_graph_launch_equal_to_eager(cuda, arch, dtype):
         assert captured[f"flash_attention_{route}"] == cfg.n_layers
     else:
         assert captured["ssd_scan"] == cfg.n_layers
+
+
+# -- continuous batching: admission as one graph launch ----------------------
+
+
+def _continuous_params(arch, cuda):
+    cfg = get_config(arch).smoke()
+    params = (_boosted_dense_params(cfg) if arch != "mamba2-2.7b"
+              else Model(cfg).init(0, device="cpu"))
+    return cfg, tree_map(lambda t: t.to(cuda), params)
+
+
+def _admit_args(cfg, slots, prompt_len, max_new, admit, seed, cuda):
+    prompts = np.random.RandomState(seed).randint(0, cfg.vocab, (slots, prompt_len))
+    mask = np.isin(np.arange(slots), admit)
+    rows = np.where(mask[:, None], prompts, 0).astype(np.int32)
+    return ({"tokens": torch.from_numpy(rows).to(cuda)}, torch.from_numpy(mask).to(cuda),
+            torch.from_numpy(np.where(mask, max_new, 0).astype(np.int32)).to(cuda))
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma3-1b", "mamba2-2.7b"])
+def test_admit_graph_equals_eager(cuda, arch):
+    """Admit slots 0 and 1, one decode round, admit slots 2 and 3: each
+    admission is ONE graph launch equal to the eager admission on the same
+    state bit for bit (every output and cache leaf), and the admission and
+    decode graphs hand the same state buffers on (no cache copy)."""
+    cfg, params = _continuous_params(arch, cuda)
+    eng = ServeEngine(cfg, slots=4, prompt_len=40, max_new=12, chunk=4)
+    cast = eng.cast_params(params)
+    state = eng.init_state()
+    ptrs = set()
+    for step, admit in enumerate(([0, 1], None, [2, 3])):
+        if admit is None:
+            *state, _, _ = eng.decode(params, *state)
+        else:
+            args = _admit_args(cfg, 4, 40, 12, admit, step, cuda)
+            before = tree_map(torch.clone, tuple(state))
+            launches = eng.graph_launches["admit_decode"]
+            got = eng.admit_decode(params, *state, *args)
+            torch.cuda.synchronize()
+            assert eng.graph_launches["admit_decode"] == launches + 1
+            (caches, tok, active, rem, *_), (first, out, n) = eng._admit_decode_inner(
+                cast, *before, args[0]["tokens"], args[1], args[2])
+            want = (caches, tok, active, rem, first, out, n)
+            for g, w in zip(tree_leaves(got), tree_leaves(want)):
+                assert torch.equal(g, w)
+            state = got[:4]
+        ptrs.add(tuple(t.data_ptr() for t in tree_leaves(tuple(state))))
+    assert len(ptrs) == 1, "a round moved the state to other buffers"
+    assert eng.dispatches == 3 and eng.prefill.calls == 0
+    # the admission merges into the shared buffers in place: its graph's
+    # closing copies move no more than a decode round's
+    tail = {key[0]: g.tail_bytes for key, g in eng._graphs.items()}
+    assert tail["admit_decode"] == tail["decode"]
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-2.7b"])
+def test_continuous_equals_serial_on_card(cuda, arch):
+    """``serve_continuous`` (5 requests, 2 slots, chunk 3) on the card: each
+    request's tokens equal serving its prompt alone, in the same slot of an
+    engine with as many slots, bit for bit; a round is one dispatch, one
+    sync and one graph launch.  Every request runs to ``gen`` tokens (no
+    EOS), so they are admitted in pairs and request ``rid`` takes slot
+    ``rid % slots``."""
+    cfg, params = _continuous_params(arch, cuda)
+    n, slots, prompt_len, gen = 5, 2, 8, 6
+    prompts = np.random.RandomState(1).randint(0, cfg.vocab, (n, prompt_len)).astype(np.int32)
+    results, stats = serve_continuous(cfg, slots=slots, prompt_len=prompt_len, max_new=gen,
+                                      n_requests=n, chunk=3, params=params,
+                                      prompts={"tokens": torch.from_numpy(prompts).to(cuda)})
+    assert stats["prefill_dispatches"] == 0
+    assert stats["sync_points"] == stats["dispatches"]
+    assert stats["graph_launches"]["admit_decode"] == stats["admit_dispatches"]
+    assert stats["graph_launches"]["decode"] == stats["decode_dispatches"]
+    eng = ServeEngine(cfg, slots=slots, prompt_len=prompt_len, max_new=gen, chunk=gen - 1)
+    assert stats["admit_dispatches"] == -(-n // slots)
+    assert all(len(r.tokens) == gen for r in results)
+    for r in results:
+        slot = r.rid % slots
+        rows = np.zeros((slots, prompt_len), np.int32)
+        rows[slot] = prompts[r.rid]
+        alone, _ = serve(cfg, batch=slots, prompt_len=prompt_len, gen_len=gen,
+                         params=params, engine=eng,
+                         batch_in={"tokens": torch.from_numpy(rows).to(cuda)})
+        np.testing.assert_array_equal(r.tokens, alone[slot])
 
 
 # -- the convergence loop: a conditional WHILE node set by the step kernel ---
