@@ -232,9 +232,35 @@ a checkout of the repository.  Phases, each of which must pass:
    launches; the rows' ``phase17_launches``).  A profile of one qwen
    admission round.
 
-The last lines are a ``{"kernels": [...]}`` JSON line (eleven rows: the
-nine Pallas kernels' and the two step kernels', which have no Pallas
-counterpart (``"pallas_counterpart": false``); the
+18. train mamba2-2.7b at full width and depth (64 layers, d_model 2560,
+   80 SSD heads of 64, state 128, vocab 50 280; bf16 compute over
+   float32 parameters from ``torch.Generator(seed)``; AdamW with
+   float32 moments; every layer checkpointed, ``remat="block"``) on
+   batches of 4 x 512 tokens from ``SyntheticTokens`` (the cut of the
+   reference's pod-scale ``train_4k``, 256 x 4096, is printed on a line
+   of its own), under ``torch.use_deterministic_algorithms(True)``:
+   (a) 3 eager steps, every gradient leaf of step 1 present, finite and
+   not all zero; (b) the same 3 steps as ONE CUDA-graph launch
+   (``persistent_steps``), equal to (a) bit for bit in params, AdamW
+   state and metrics; (c) ``until=loss_plateau`` through the graph-loop
+   WHILE node: ``steps_done`` and the loss trace equal ``loss_plateau``
+   polled on the host over (a)'s steps; (d) the SSD backward kernel on
+   the served bf16 inputs (the model's path: dy only, and with
+   init_state and dh) against the plain VJP in float32, and on float32
+   CUDA-core cases (a short last sub-chunk, init_state, 2 groups); the
+   RMSNorm backward on the team route's training shapes and on the rows
+   route's; (e) the kernels' launches in one eager step, counters set
+   to 0 just before it: the SSD forward 128 times on the tensor-core
+   route (64 forward, 64 recompute), its backward 64 times, the RMSNorm
+   forward and backward; (f) ms a step eager and as one launch,
+   tokens/s, one step split into forward, backward and optimizer (CUDA
+   events) with its top kernels (``torch.profiler``), the recompute as
+   a no-grad run of the layer stack, and the peak memory.
+
+The last lines are a ``{"kernels": [...]}`` JSON line (thirteen rows:
+the nine Pallas kernels', the two step kernels' and the two backward
+kernels', which have no Pallas counterpart (``"pallas_counterpart":
+false``); the
 flash and SSD rows also give ``earlier_ms``: the CUDA-core kernel, the
 port's kernel before the tensor-core one, on the same input in this
 run, and the SSD row its ``kernel_route``; the rmsnorm row gives
@@ -277,6 +303,10 @@ REPLACES = {
     "graph_loop_step": "src/repro/core/engine_persistent.py:495",
     # nor here: the lax.while_loop of _run_schedule_while and its jnp.where masks
     "schedule_step": "src/repro/core/engine_persistent.py:599",
+    # the backward kernels: the reference differentiates its plain versions,
+    # the SSD scan through a custom_vjp, the model's norm by XLA's autodiff
+    "ssd_scan_bwd": "src/repro/models/ssm.py:46-49",
+    "rmsnorm_bwd": "src/repro/models/nn.py:78",
 }
 FACES_KERNELS = ("halo_pack", "halo_unpack_add", "pack_segments", "unpack_segments")
 # one region of each class the Faces loop unpacks, by its DIRECTIONS entry
@@ -320,6 +350,15 @@ COLL_TOL = 1e-5                    # card against CPU: the repo's engine-vs-engi
 CONT = dict(slots=4, prompt_len=512, max_new=32, chunk=8)
 CONT_REQUESTS = 16
 GLM_SERVE = dict(batch=4, prompt_len=512, gen_len=32)      # glm4-9b, as phase 9
+#: phase 18: 2048 tokens a step, at the served SSD shapes (S 512, chunk 128)
+TRAIN = dict(batch=4, seq=512, steps=3)
+TRAIN_CUT = ("train_4k is 256 x 4096 tokens a step across a TPU pod; one H100 trains "
+             "4 x 512 = 2048 tokens a step, whose scan has the served SSD shapes, at "
+             "full width and depth")
+#: the backward kernels against their plain VJPs: float32 reassociation over
+#: up to S x H/G terms (rtol, and a share of the leaf's largest magnitude),
+#: and one bf16 rounding of a bf16 output on top
+GRAD_RTOL, GRAD_FRAC = 2e-4, 2e-5
 
 
 def gpu_line() -> str:
@@ -1346,8 +1385,9 @@ def check_dense_kernels(torch, eng, params, batch_in, fk, rk, ref, seed: int):
     x = nn.apply_embedding(cast["embed"], tokens, cfg)
     x0 = x
     detail, flash_err, layers = {}, 0.0, {}
+    per_layer = tfm.unbind_layers(seg, cfg.n_layers)
     for li in range(6):   # layer 0 is local, layer 5 the first global one
-        p = tfm.layer_params(seg, li)
+        p = per_layer[li]
         window, theta = tfm.layer_window_theta(cfg, li)
         if li in (0, 5):
             h = nn.apply_rmsnorm(p["ln_attn"], x, cfg)
@@ -1456,7 +1496,7 @@ def check_dense_kernels(torch, eng, params, batch_in, fk, rk, ref, seed: int):
 
     # rmsnorm: the served layer-0 input and sweeps of d, rows, offset
     norm_err = 0.0
-    w = tfm.layer_params(seg, 0)["ln_attn"]["scale"]
+    w = per_layer[0]["ln_attn"]["scale"]
     cases = [(x0, w, 1.0)]
     for rows_, d in [(37, 1152), (1001, 256), (7, 2560)]:
         for off in (0.0, 1.0):
@@ -2208,7 +2248,7 @@ def served_shape_checks(torch, cfg, cast, tokens, fk, rk, ref):
 
     from repro_torch.models import nn, transformer as tfm
 
-    p = tfm.layer_params(cast["decoder"]["segments"][0], 0)
+    p = tfm.unbind_layers(cast["decoder"]["segments"][0], cfg.n_layers)[0]
     _, theta = tfm.layer_window_theta(cfg, 0)
     x = nn.apply_embedding(cast["embed"], tokens, cfg)
     h = nn.apply_rmsnorm(p["ln_attn"], x, cfg)
@@ -2594,6 +2634,365 @@ def run_phase17(torch, seed: int, fk, rk, ref):
     free()
     return out, flash, norm, launches
 
+def grad_check(torch, got, want):
+    """``got`` against the plain version's ``want`` within the backward
+    kernels' bound (GRAD_RTOL of each entry plus GRAD_FRAC of the leaf's
+    largest, plus 2^-8 of the magnitudes for a bf16 result): (share of
+    the bound used, max abs err)."""
+    g, w = got.float(), want.float()
+    bound = GRAD_RTOL * w.abs() + GRAD_FRAC * float(w.abs().max()) + 1e-30
+    if got.dtype == torch.bfloat16:
+        bound = bound + 2.0 ** -8 * (g.abs() + w.abs())
+    err = (g - w).abs()
+    require(bool(torch.isfinite(g).all()), f"a non-finite gradient of shape {tuple(g.shape)}")
+    return float((err / bound).max()), float(err.max())
+
+
+def ssd_bwd_flops_bytes(B, S, H, P, G, N, itemsize, h0: bool, chunk: int = 32):
+    """Operations of the chunked backward at the kernel's own sub-chunk
+    (``kBL`` = 32 rows in ``csrc/ssd_scan.cu``) and the bytes a call must
+    move.  Per sub-chunk of L rows: C B^T, dy x^T and the three products
+    with them over the causal triangle, L (L + 1) / 2 (3 N + 2 P) MACs; the
+    state's five L P N products (recomputed start, dh carried back, its
+    three contractions with x, B and dy) and U.H0's P N.  Bytes: x and dy
+    in, dx out; dt in, ddt out; A in, dA out; B and C in, dB and dC out;
+    with an initial state h0 and dh in, dh0 out."""
+    lens = [min(chunk, S - c0) for c0 in range(0, S, chunk)]
+    flops = 2 * B * H * sum(L * (L + 1) // 2 * (3 * N + 2 * P) + 5 * L * P * N + P * N
+                            for L in lens)
+    n_bytes = (3 * B * S * H * P * itemsize        # x, dy in; dx out
+               + 2 * B * S * H * 4 + 2 * H * 4     # dt in, ddt out; A, dA
+               + 2 * 2 * B * S * G * N * itemsize  # B, C in; dB, dC out
+               + (3 if h0 else 0) * B * H * P * N * 4)  # h0, dh in; dh0 out
+    return flops, n_bytes
+
+
+def check_backward_kernels(torch, ssd, rk, ref, seed: int):
+    """Phase 18 (d): the two backward kernels against their plain VJPs at
+    the training shapes; their kernel-table rows and the details."""
+    gen = torch.Generator("cuda").manual_seed(seed + 18)
+    B, S, H, G, P, N = TRAIN["batch"], TRAIN["seq"], 80, 1, 64, 128
+    detail = {"bound": {"rtol": GRAD_RTOL, "leaf_max_share": GRAD_FRAC,
+                        "bf16_outputs": "plus 2^-8 of |got| + |want|"}}
+    names = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+
+    def held(got, want, key):
+        used = {}
+        for name, g, w in zip(names, got, want):
+            require((g is None) == (w is None), f"ssd_scan_bwd {key}: {name} presence")
+            if g is not None:
+                used[name] = grad_check(torch, g, w)
+                require(used[name][0] <= 1.0, f"ssd_scan_bwd {key}: {name} beyond the bound "
+                        f"(share {used[name][0]:.3g})")
+        detail[key] = {k: {"bound_used": u, "max_abs_err": e} for k, (u, e) in used.items()}
+        return max(e for _, e in used.values())
+
+    x, dt, A, Bm, C, h0 = served_ssd_inputs(torch, gen, B, S, H, G)
+    dy = torch.randn(B, S, H, P, device="cuda", generator=gen).bfloat16()
+    dh = torch.randn(B, H, P, N, device="cuda", generator=gen)
+    wide = lambda *ts: [None if t is None else t.float() for t in ts]
+    # the model's path: y only (the final state unused), no init_state
+    got = ssd.ssd_scan_bwd(x, dt, A, Bm, C, dy=dy)
+    err = held(got, ref.ssd_scan_vjp(*wide(x, dt, A, Bm, C), None, dy.float(), None),
+               "served_bf16")
+    held(ssd.ssd_scan_bwd(x, dt, A, Bm, C, init_state=h0, dy=dy, dh=dh),
+         ref.ssd_scan_vjp(*wide(x, dt, A, Bm, C, h0, dy, dh)), "served_bf16_init_dh")
+    again = ssd.ssd_scan_bwd(x, dt, A, Bm, C, dy=dy)
+    require(all(torch.equal(a, b) for a, b in zip(again, got) if a is not None),
+            "ssd_scan_bwd: two runs differ")
+    for case in [(2, 45, 4, 64, 2, 128, True), (2, 100, 4, 16, 1, 16, True),
+                 (1, 33, 6, 32, 3, 64, False)]:
+        b, s_, h, p, g, n, init = case
+        xs = torch.randn(b, s_, h, p, device="cuda", generator=gen)
+        dts = torch.nn.functional.softplus(torch.randn(b, s_, h, device="cuda", generator=gen))
+        As = -torch.rand(h, device="cuda", generator=gen) - 0.5
+        Bs, Cs = (0.3 * torch.randn(b, s_, g, n, device="cuda", generator=gen) for _ in "BC")
+        hs = torch.randn(b, h, p, n, device="cuda", generator=gen) if init else None
+        dys = torch.randn(b, s_, h, p, device="cuda", generator=gen)
+        dhs = torch.randn(b, h, p, n, device="cuda", generator=gen)
+        held(ssd.ssd_scan_bwd(xs, dts, As, Bs, Cs, init_state=hs, dy=dys, dh=dhs),
+             ref.ssd_scan_vjp(xs, dts, As, Bs, Cs, hs, dys, dhs),
+             "float32_B{}_S{}_H{}_P{}_G{}_N{}_init{}".format(*case))
+
+    # the bound: the operands are bf16, so their products could run on the
+    # bf16 tensor cores (as the forward row's are bounded); the float32
+    # CUDA-core time of the same products is kept as a detail
+    flops, n_bytes = ssd_bwd_flops_bytes(B, S, H, P, G, N, 2, False)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
+    xf, Bf, Cf, dyf = wide(x, Bm, C, dy)
+    ssd_row = {
+        "name": "ssd_scan_bwd", "route": "cuda", "kernel_route": "cuda_core",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": REPLACES["ssd_scan_bwd"], "pallas_counterpart": False,
+        "max_abs_err": err,
+        "ms": median_ms(torch, lambda: ssd.ssd_scan_bwd(x, dt, A, Bm, C, dy=dy), reps=5,
+                        inner=3),
+        "plain_ms": median_ms(torch, lambda: ref.ssd_scan_vjp(xf, dt, A, Bf, Cf, None, dyf,
+                                                              None), reps=3, inner=1),
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,  # no single PyTorch call computes the scan's VJP
+    }
+    detail["ssd_flops"], detail["ssd_bytes"] = flops, n_bytes
+    detail["ssd_float32_cuda_core_bound_ms"] = max(t_bytes, flops / FP32_OPS_PER_S) * 1e3
+
+    # RMSNorm: the training shapes (team route: the block norms at d 2560,
+    # the gated norm at d 5120) and a rows-route shape, at the model's eps
+    norm = {}
+    for rows, d in ((B * S, 2560), (B * S, 5120), (4096, 1024)):
+        xn = torch.randn(rows, d, device="cuda", generator=gen).bfloat16()
+        wn = 0.1 * torch.randn(d, device="cuda", generator=gen)
+        dyn = torch.randn(rows, d, device="cuda", generator=gen).bfloat16()
+        got = rk.rmsnorm_bwd(xn, wn, dyn, eps=1e-5, weight_offset=1.0)
+        want = ref.rmsnorm_vjp(xn, wn, dyn, eps=1e-5, weight_offset=1.0)
+        key = f"{rows}x{d}_{rk.route(rows, d, xn.dtype)}"
+        used = {n_: grad_check(torch, g, w) for n_, g, w in zip(("dx", "dw"), got, want)}
+        require(all(u <= 1.0 for u, _ in used.values()),
+                f"rmsnorm_bwd {key}: beyond the bound {used}")
+        again = rk.rmsnorm_bwd(xn, wn, dyn, eps=1e-5, weight_offset=1.0)
+        require(torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]),
+                f"rmsnorm_bwd {key}: two runs differ")
+        norm[key] = {k: {"bound_used": u, "max_abs_err": e} for k, (u, e) in used.items()}
+        if d == 5120:
+            args = (xn, wn, dyn)
+    detail["rmsnorm_bwd"] = norm
+    xn, wn, dyn = args
+    # the library: F.rms_norm and autograd's backward of it, the weight
+    # (w + 1) in bf16 so that it takes PyTorch's own norm kernels; both
+    # in each captured call (a graph built outside the capture cannot be
+    # differentiated inside it), the forward alone timed too: the
+    # backward's time is the difference
+    xl = xn.detach().requires_grad_()
+    wl = (wn + 1.0).bfloat16().requires_grad_()
+
+    def lib_fwd():
+        return torch.nn.functional.rms_norm(xl, (xn.shape[-1],), weight=wl, eps=1e-5)
+
+    def lib_fwd_bwd():
+        with torch.enable_grad():
+            return torch.autograd.grad(lib_fwd(), (xl, wl), dyn)
+
+    n_bytes = 3 * xn.numel() * 2 + 2 * wn.numel() * 4
+    norm_row = kernel_row(
+        torch, "rmsnorm_bwd", "rmsnorm.cu",
+        max(v["max_abs_err"] for c in norm.values() for v in c.values()),
+        lambda: rk.rmsnorm_bwd(xn, wn, dyn, eps=1e-5, weight_offset=1.0),
+        lambda: ref.rmsnorm_vjp(xn, wn, dyn, eps=1e-5, weight_offset=1.0),
+        lib_fwd_bwd, n_bytes, 10 * xn.numel(), FP32_OPS_PER_S)
+    with torch.no_grad():
+        fwd_ms = median_ms(torch, lib_fwd)
+    norm_row["library_fwd_bwd_ms"], norm_row["library_fwd_ms"] = norm_row["library_ms"], fwd_ms
+    norm_row["library_ms"] = norm_row["library_fwd_bwd_ms"] - fwd_ms
+    norm_row["library_call"] = ("torch.autograd.grad of F.rms_norm (weight w + 1 in bf16): "
+                                "forward and backward less the forward alone")
+    norm_row["pallas_counterpart"] = False
+    norm_row["shape"] = list(xn.shape)
+    return ssd_row, norm_row, detail
+
+
+def run_phase18(torch, seed: int, ssd, rk, ref):
+    """Phase 18: train mamba2-2.7b at full width and depth (see the module
+    docstring); returns the phase's line, the two backward rows and the
+    kernels' launches in one eager step."""
+    import gc
+
+    from repro_torch import make_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as st
+    from repro_torch.models.nn import apply_embedding, tree_leaves
+    from repro_torch.models.transformer import apply_stack
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(json.dumps({"train_cut": {"model": "mamba2-2.7b", "batch": TRAIN["batch"],
+                                    "seq": TRAIN["seq"], "reference_shape": "train_4k",
+                                    "why": TRAIN_CUT}}), flush=True)
+    # deterministic algorithms for (b) and (c); cuBLAS runs on one stream
+    # (its workspace was sized by the earlier phases; the setting is what
+    # the check asks for)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    cfg = get_config("mamba2-2.7b")
+    shape = ShapeConfig("train_cut", TRAIN["seq"], TRAIN["batch"], "train")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    opt_cfg = AdamWConfig(lr=1e-3)
+    bundle = st.build_train_step(cfg, shape, mesh, opt=opt_cfg, total_steps=100)
+    source = SyntheticTokens(cfg, shape)
+    n = TRAIN["steps"]
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in source.batch(i).items()}
+               for i in range(n)]
+    stack = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    out = {"tokens_per_step": TRAIN["batch"] * TRAIN["seq"]}
+
+    def fresh():
+        params = bundle.model.init(seed)
+        return params, adamw_init(params, opt_cfg)
+
+    # (a) eager steps; step 1's gradients checked; step 2's launches
+    t0 = time.perf_counter()
+    params, opt = fresh()
+    out["init_s"] = time.perf_counter() - t0
+    out["param_count"] = sum(p.numel() for p in tree_leaves(params))
+    grads, gmet = bundle.grad_fn(params, batches[0])
+    bad = [i for i, g in enumerate(tree_leaves(grads))
+           if g is None or not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0)]
+    require(not bad, f"phase 18: gradient leaves {bad} missing, non-finite or all zero")
+    out["grad_leaves"] = len(tree_leaves(grads))
+    params, opt, omet = bundle.apply_fn(params, opt, grads)  # in place: the same trees
+    del grads
+    eager_mets = [{**gmet, **omet}]
+    step_ms = []
+    for i in (1, 2):
+        reset_all_launches()   # (e): the counts of step 2 alone
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, m = bundle.step_fn(params, opt, batches[i])
+        stop.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(stop))
+        eager_mets.append(m)
+        if i == 1:
+            launches = {k: v for k, v in ops.launch_counts().items() if v}
+    out["eager_step_launches"] = launches
+    require(launches.get("ssd_scan_wgmma") == 2 * cfg.n_layers
+            and launches.get("ssd_scan") == 2 * cfg.n_layers,
+            f"an eager step's SSD forward launches {launches}: not {2 * cfg.n_layers} "
+            f"(forward and recompute) all on the tensor-core route")
+    require(launches.get("ssd_scan_bwd") == cfg.n_layers,
+            f"an eager step's SSD backward launches {launches}: not {cfg.n_layers}")
+    require(launches.get("rmsnorm", 0) > 0 and launches.get("rmsnorm_bwd", 0) > 0,
+            f"an eager step did not run the RMSNorm forward and backward kernels: {launches}")
+    eager = {k: torch.stack([m[k] for m in eager_mets]) for k in eager_mets[0]}
+    out["loss"] = eager["loss"].tolist()
+    require(bool(torch.isfinite(eager["loss"]).all()), "phase 18: a non-finite loss")
+    out["eager_ms_per_step"] = step_ms
+    out["peak_gb_eager"] = torch.cuda.max_memory_allocated() / 1e9
+    # the host-polled plateau over (a)'s steps: eps twice the first move
+    eps = 2.0 * abs(out["loss"][1] - out["loss"][0])
+    until = st.loss_plateau(eps)
+    host_done = n
+    for i in range(1, n + 1):
+        if not bool(until({"loss": eager["loss"].cpu()}, i)):
+            host_done = i
+            break
+    t0 = time.perf_counter()
+    keep = {"state": [t.cpu() for t in tree_leaves((params, opt))],
+            "mets": {k: v.cpu() for k, v in eager.items()}}
+    out["host_copy_s"] = time.perf_counter() - t0
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the same steps as ONE graph launch
+    params, opt = fresh()
+    multi = st.persistent_steps(bundle, n, stacked=True).step_fn
+    t0 = time.perf_counter()
+    params, opt, mets = multi(params, opt, stack)
+    torch.cuda.synchronize()
+    out["graph_setup_s"] = time.perf_counter() - t0
+    require((multi.dispatches, multi.captures) == (1, 1), "phase 18: not one graph launch")
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves((params, opt)),
+                                                       keep["state"]))
+    same_m = all(torch.equal(mets[k].cpu(), keep["mets"][k]) for k in keep["mets"])
+    require(same and same_m, "phase 18: the one-launch steps differ from the eager steps")
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    multi(params, opt, stack)
+    stop.record()
+    torch.cuda.synchronize()
+    out["graph_ms_per_step"] = start.elapsed_time(stop) / n
+    out["tokens_per_s_graph"] = out["tokens_per_step"] / (out["graph_ms_per_step"] / 1e3)
+    out["tokens_per_s_eager"] = out["tokens_per_step"] / (statistics.median(step_ms) / 1e3)
+    out["peak_gb_graph"] = torch.cuda.max_memory_allocated() / 1e9
+    del multi, params, opt, mets
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the loss plateau through the WHILE node
+    params, opt = fresh()
+    loop = st.persistent_steps(bundle, n, until=until, stacked=True).step_fn
+    params, opt, mets = loop(params, opt, stack)
+    done = int(mets["steps_done"])
+    require(done == host_done < n, f"phase 18: the plateau loop ran {done} steps, host-polled "
+            f"{host_done} (eps {eps:.3g}, bound {n})")
+    require(torch.equal(mets["loss"][:done].cpu(), keep["mets"]["loss"][:done]),
+            "phase 18: the plateau loop's loss trace differs from the eager steps'")
+    out["plateau"] = {"eps": eps, "steps_done": done, "host_polled_steps_done": host_done,
+                      "bound": n, "loss": mets["loss"][:done].tolist()}
+    del loop, params, opt, mets, keep
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+
+    # (d) the backward kernels against their plain versions
+    ssd_row, norm_row, detail = check_backward_kernels(torch, ssd, rk, ref, seed)
+    out["backward_checks"] = detail
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) where a step's time goes: one eager step (deterministic off),
+    # forward / backward / optimizer by CUDA events and the top kernels
+    # from torch.profiler; the recompute inside the backward as the time
+    # of the layer stack's forward without autograd (what each
+    # checkpointed layer runs again), by CUDA events
+    from torch.profiler import ProfilerActivity, profile
+    params, opt = fresh()
+    for i in range(2):  # the second eager step timed, deterministic algorithms off
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        bundle.step_fn(params, opt, batches[i])
+        stop.record()
+        torch.cuda.synchronize()
+    out["eager_ms_per_step_nondeterministic"] = start.elapsed_time(stop)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ev[0].record()
+        live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        with torch.enable_grad():
+            loss, _ = bundle.model.loss(st._rebuild(params, live), batches[1])
+            ev[1].record()
+            grads = torch.autograd.grad(loss, live)
+        ev[2].record()
+        bundle.apply_fn(params, opt, st._rebuild(params, list(grads)))
+        ev[3].record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+               if e.device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(t for _, t, _ in kernels)
+    kernels.sort(key=lambda k: -k[1])
+    fwd, bwd, optim = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+    with torch.no_grad():
+        x_in = apply_embedding(params["embed"], batches[1]["tokens"], cfg)
+        positions = torch.arange(x_in.shape[1], device=x_in.device)
+        rec = []
+        for _ in range(2):  # the second timed
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            apply_stack(params["decoder"], x_in, cfg, positions=positions)
+            b.record()
+            torch.cuda.synchronize()
+            rec.append(a.elapsed_time(b))
+    rec = rec[-1]
+    out["profile"] = {
+        "forward_ms": fwd, "backward_ms_with_recompute": bwd, "optimizer_ms": optim,
+        "recompute_ms_no_grad_stack": rec, "backward_ms_less_recompute": bwd - rec,
+        "wall_ms": wall_ms, "device_busy_ms": busy,
+        "idle_share": max(0.0, 1 - busy / wall_ms) if kernels else None,
+        "top": [{"kernel": k[:90], "ms": t, "count": c} for k, t, c in kernels[:14]]}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["card"] = gpu_line()
+    del params, opt, grads, live, loss, x_in
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, [ssd_row, norm_row], launches
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2782,13 +3181,23 @@ def main() -> int:
     for r in dense_rows + [ssd_row]:
         r["phase17_launches"] = cont_launches[r["name"]]
 
-    rows = rows + dense_rows + [ssd_row, step_row, sched_row]
+    # phase 18: training mamba2-2.7b at full width and depth
+    train_out, bwd_rows, train_launches = run_phase18(torch, args.seed, ssd, rk, ref)
+    print(json.dumps({"train": train_out}), flush=True)
+    for r in bwd_rows:
+        r["launches"] = train_launches[r["name"]]
+    for r in dense_rows[1:] + [ssd_row]:
+        r["phase18_launches"] = train_launches[r["name"]]
+
+    rows = rows + dense_rows + [ssd_row, step_row, sched_row] + bwd_rows
     require(sorted(r["name"] for r in rows) == sorted(REPLACES), "a kernel row is missing")
     require(all(r["launches"] > 0 for r in rows), "a kernel was not launched on its path")
     order = ("name", "route", "kernel_route", "source", "replaces", "pallas_counterpart",
              "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "sector_bound_ms", "library_ms", "library_call", "earlier_ms", "decode",
-             "served_shapes", "phase17_launches", "one_program_ms")
+             "sector_bound_ms", "library_ms", "library_call", "library_fwd_bwd_ms",
+             "library_fwd_ms", "earlier_ms", "decode",
+             "served_shapes", "phase17_launches", "phase18_launches", "shape",
+             "one_program_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in order if k in r} for r in rows]}))
     print(f"card: {gpu_line()}")
     print(json.dumps({"ok": True, "device": {

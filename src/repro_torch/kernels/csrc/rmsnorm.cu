@@ -364,6 +364,122 @@ cudaError_t launch(const Args& a, int route) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The backward: rmsnorm_bwd_kernel and rmsnorm_dw_kernel.
+//
+// No Pallas kernel to replace: the reference's models differentiate the
+// plain norm (src/repro/models/nn.py:78) with XLA's autodiff.  With
+// r = rsqrt(mean(x^2) + eps), w' = w + offset and g = dy * w' (float32):
+//   dx = r * (g - x * (r^2 * mean(g * x)))       in x's dtype
+//   dw = sum over rows of dy * (x * r)           in w's dtype
+// Bound: bytes (x and dy read, dx written once; the row is read twice, the
+// second time from L1).  One CTA of 256 threads takes rows blockIdx.x,
+// blockIdx.x + gridDim.x, ...; thread t owns columns t, t + 256, ... of the
+// row, so it alone adds into those columns of the CTA's dw partial in
+// shared memory.  The two row sums meet in a fixed tree (lanes by the xor
+// butterfly, warps in order).  rmsnorm_dw_kernel then adds the CTAs'
+// partials column by column in CTA order.  No float atomics: the result is
+// the same bits on every run, in a CUDA graph or not, for any row stride;
+// the grid (so the order of the partials) is fixed by the row count alone.
+// Any d the forward takes (both routes) and any leading dimensions: the
+// wrapper flattens them into rows.
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+
+__device__ __forceinline__ float weight_at(const void* w, bool w_bf16, int j, float offset) {
+  const float v = w_bf16 ? to_float(static_cast<const __nv_bfloat16*>(w)[j])
+                         : static_cast<const float*>(w)[j];
+  return __fadd_rn(v, offset);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+    rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                       const void* __restrict__ w, bool w_bf16, T* __restrict__ dx,
+                       float* __restrict__ partial, long long rows, int d, long long x_rs,
+                       float eps, float offset) {
+  extern __shared__ float bwd_smem[];
+  float* acc = bwd_smem;           // [d]: this CTA's dw partial
+  float* red = bwd_smem + d;       // [2 buffers][2 sums][kBwdWarps]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int j = tid; j < d; j += kBwdThreads) acc[j] = 0.f;
+  int buf = 0;
+  for (long long r = blockIdx.x; r < rows; r += gridDim.x, buf ^= 1) {
+    const T* xr = x + r * x_rs;
+    const T* gr = dy + r * static_cast<long long>(d);
+    float ss = 0.f, gx = 0.f;
+    for (int j = tid; j < d; j += kBwdThreads) {
+      const float xv = to_float(xr[j]);
+      const float gv = __fmul_rn(to_float(gr[j]), weight_at(w, w_bf16, j, offset));
+      ss = __fmaf_rn(xv, xv, ss);
+      gx = __fmaf_rn(gv, xv, gx);
+    }
+    ss = warp_total(ss);
+    gx = warp_total(gx);
+    float* rb = red + buf * 2 * kBwdWarps;
+    if (lane == 0) {
+      rb[warp] = ss;
+      rb[kBwdWarps + warp] = gx;
+    }
+    // one barrier a row: the next row writes the other buffer, and the row
+    // after it cannot start before every thread has passed the next barrier
+    __syncthreads();
+    ss = 0.f;
+    gx = 0.f;
+#pragma unroll
+    for (int k = 0; k < kBwdWarps; ++k) {
+      ss = __fadd_rn(ss, rb[k]);
+      gx = __fadd_rn(gx, rb[kBwdWarps + k]);
+    }
+    const float rs = inv_rms(ss, d, eps);
+    const float c = __fmul_rn(__fmul_rn(rs, rs), __fdiv_rn(gx, static_cast<float>(d)));
+    T* dxr = dx + r * static_cast<long long>(d);
+    for (int j = tid; j < d; j += kBwdThreads) {
+      const float xv = to_float(xr[j]);
+      const float dyv = to_float(gr[j]);
+      const float gv = __fmul_rn(dyv, weight_at(w, w_bf16, j, offset));
+      dxr[j] = from_float<T>(__fmul_rn(rs, __fsub_rn(gv, __fmul_rn(xv, c))));
+      acc[j] = __fmaf_rn(dyv, __fmul_rn(xv, rs), acc[j]);
+    }
+  }
+  float* out = partial + static_cast<long long>(blockIdx.x) * d;
+  for (int j = tid; j < d; j += kBwdThreads) out[j] = acc[j];
+}
+
+// dw[j] = the CTAs' partials of column j added in CTA order, in w's dtype.
+__global__ void rmsnorm_dw_kernel(const float* __restrict__ partial, int ctas, int d, void* dw,
+                                  bool w_bf16) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= d) return;
+  float s = 0.f;
+  for (int b = 0; b < ctas; ++b) s = __fadd_rn(s, partial[static_cast<long long>(b) * d + j]);
+  if (w_bf16)
+    static_cast<__nv_bfloat16*>(dw)[j] = __float2bfloat16_rn(s);
+  else
+    static_cast<float*>(dw)[j] = s;
+}
+
+size_t bwd_smem_bytes(int d) { return (static_cast<size_t>(d) + 4 * kBwdWarps) * sizeof(float); }
+
+template <typename T>
+cudaError_t launch_bwd(const void* x, const void* dy, const void* w, bool w_bf16, void* dx,
+                       float* partial, void* dw, long long rows, int d, long long x_rs,
+                       float eps, float offset, int ctas, cudaStream_t s) {
+  // the largest d the forward takes (32 warps x 4 groups x 8): set once
+  static const cudaError_t set = cudaFuncSetAttribute(
+      rmsnorm_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bwd_smem_bytes(32 * 32 * kMaxTeamGroups * kGroup)));
+  if (set != cudaSuccess) return set;
+  rmsnorm_bwd_kernel<T><<<ctas, kBwdThreads, bwd_smem_bytes(d), s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), w, w_bf16, static_cast<T*>(dx),
+      partial, rows, d, x_rs, eps, offset);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rmsnorm_dw_kernel<<<(d + 255) / 256, 256, 0, s>>>(partial, ctas, d, dw, w_bf16);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
@@ -395,6 +511,29 @@ int rt_rmsnorm(int x_dtype, int w_dtype, const void* x, const void* w, void* y,
     err = vec ? launch<float, true>(a, route) : launch<float, false>(a, route);
   else
     err = vec ? launch<__nv_bfloat16, true>(a, route) : launch<__nv_bfloat16, false>(a, route);
+  return static_cast<int>(err);
+}
+
+// The backward (see launch_bwd): x as rt_rmsnorm's; dy and dx [rows, d]
+// contiguous of x_dtype; w [d] of w_dtype; dw [d] of w_dtype; partial
+// [ctas, d] float32 scratch, ctas in 1..rows (the wrapper's, from rows alone).
+int rt_rmsnorm_bwd(int x_dtype, int w_dtype, const void* x, const void* dy, const void* w,
+                   void* dx, void* dw, void* partial, long long rows, int d,
+                   long long x_row_stride, float eps, float offset, int ctas, void* stream) {
+  if (rows <= 0 || d <= 0) return 0;
+  if ((x_dtype != kFloat32 && x_dtype != kBFloat16) ||
+      (w_dtype != kFloat32 && w_dtype != kBFloat16) || ctas < 1 || ctas > rows ||
+      d > 32 * 32 * kMaxTeamGroups * kGroup)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wb = w_dtype == kBFloat16;
+  float* part = static_cast<float*>(partial);
+  const cudaError_t err =
+      x_dtype == kFloat32
+          ? launch_bwd<float>(x, dy, w, wb, dx, part, dw, rows, d, x_row_stride, eps, offset,
+                              ctas, s)
+          : launch_bwd<__nv_bfloat16>(x, dy, w, wb, dx, part, dw, rows, d, x_row_stride, eps,
+                                      offset, ctas, s);
   return static_cast<int>(err);
 }
 

@@ -987,6 +987,394 @@ cudaError_t launch(const Params& p, int cluster, int B, cudaStream_t s) {
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// The backward: ssd_bwd_kernel (CUDA cores), then ssd_bwd_group_sum and
+// ssd_bwd_batch_sum.
+//
+// No Pallas kernel to replace: the reference differentiates the plain scan
+// kref.ssd_scan through a custom_vjp (src/repro/models/ssm.py:46-49).  Given
+// dy [B,S,H,P] and dh_last [B,H,P,N] (either may be absent: zero) it returns
+// dx, ddt, dA, dB, dC and dh0 of (y, h_last) = scan(x, dt, A, B, C, h0).
+//
+// One CTA of 512 threads per (head, batch), float32 throughout.  The
+// sequence is cut into sub-chunks of kBL = 32 rows (the backward's own cut:
+// the gradient does not depend on the forward's chunk).  In a sub-chunk with
+// start state H0, cum_t = sum_{r<=t} A dt_r, L[t,s] = exp(cum_t - cum_s) for
+// s <= t (never formed above the diagonal) and wend_s = exp(cum_last - cum_s):
+//   y_t   = exp(cum_t) H0 C_t + sum_{s<=t} L[t,s] dt_s (C_t.B_s) x_s
+//   h_end = exp(cum_last) H0 + sum_s wend_s dt_s x_s B_s^T
+// Phase 1 walks the sub-chunks forward and writes each start state H0 to the
+// scratch hs [B,H,K,P,N] (the reference's custom_vjp recomputes its forward
+// too).  Phase 2 walks them in reverse, carrying U = dL/dh_end (P x N
+// float32) in shared memory; with M1 = L o (C B^T) and M2 = L o (dy x^T):
+//   dx_s   = dt_s (sum_t M1[t,s] dy_t + wend_s U B_s)
+//   dB_s   = dt_s (sum_t M2[t,s] C_t + wend_s U^T x_s)            per head
+//   dC_t   = exp(cum_t) H0^T dy_t + sum_s M2[t,s] dt_s B_s          per head
+//   dcum_t = sum_s Q[t,s] - sum_s Q[s,t] + exp(cum_t) dy_t.(H0 C_t) - E_t,
+//            and at the last row + exp(cum_last) U.H0 + sum_s E_s, where
+//            Q[t,s] = M1[t,s] (dy_t.x_s) dt_s, E_s = wend_s dt_s x_s^T U B_s
+//   da_s   = sum_{t>=s} dcum_t;  ddt_s = x_s.(dx_s / dt_s) + A da_s
+//   dA    += sum_s dt_s da_s                                         per (b, h)
+//   U     <- exp(cum_last) U + sum_t exp(cum_t) dy_t C_t^T   (dh0 at the end)
+// The heads of a group add their dB and dC partials, and the batch its dA
+// partials, in ssd_bwd_group_sum / ssd_bwd_batch_sum, in head (batch) order.
+// No float atomics: a CUDA-graph replay equals an eager call bit for bit.
+//
+// Bound: bytes.  At mamba2's training shapes (B 4, S 512, H 80, P 64,
+// N 128) the function moves ~66 MB (x, dy, dx in bf16 and the small rest),
+// ~20 us at the card's memory rate; its ~8.1 GMAC at 32-row sub-chunks
+// would take ~16 us on the bf16 tensor cores.  This first design does those
+// products in float32 on the CUDA cores (~240 us at their peak) and reads
+// both operands of each multiply-add from shared memory (one of them a
+// broadcast; rows padded to an odd word pitch so the lanes fall on distinct
+// banks), so shared-memory bandwidth, not the FMA rate, bounds it; it also
+// writes and reads back the start states (hs, ~170 MB).  A tensor-core
+// (wgmma) backward is ROADMAP work.
+namespace bwd {
+
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBL = 32;   // rows of a sub-chunk
+constexpr int kVecs = 8;  // per-row vectors: dt, cum, eh, wend, rowq, ddtd, E, dcum
+
+struct Args {
+  const void* x;    // [B, S, H, P], strides x_sb, x_ss, x_sh, 1
+  const float* dt;  // [B, S, H],    strides dt_sb, dt_ss, 1
+  const float* A;   // [H]
+  const void* Bm;   // [B, S, G, N], strides b_sb, b_ss, b_sg, 1
+  const void* C;    // [B, S, G, N], strides c_sb, c_ss, c_sg, 1
+  const float* h0;  // [B, H, P, N] or null
+  const void* dy;   // [B, S, H, P] contiguous, x's dtype, or null
+  const float* dh;  // [B, H, P, N] or null
+  void* dx;         // [B, S, H, P] contiguous, x's dtype
+  float* ddt;       // [B, S, H]
+  float* dA_part;   // [B, H]
+  float* dB_part;   // [B, S, H, N]
+  float* dC_part;   // [B, S, H, N]
+  float* dh0;       // [B, H, P, N]
+  float* hs;        // [B, H, K, P, N] scratch
+  int S, H, P, G, N;
+  long long x_sb, x_ss, x_sh, dt_sb, dt_ss, b_sb, b_ss, b_sg, c_sb, c_ss, c_sg;
+};
+
+// Shared memory, in floats.  Rows are padded to an odd word pitch (P | 1,
+// N | 1, kBL + 1), so lanes that read down a column fall on distinct banks.
+struct Layout {
+  int pp, pn, pl, U, H0, xs, dys, Bs, Cs, M1, M2, Q, RI, RE, TMP, vec, red, total;
+  __host__ __device__ Layout(int P, int N) {
+    pp = P | 1;
+    pn = N | 1;
+    pl = kBL + 1;
+    int o = 0;
+    U = o;   o += P * pn;
+    H0 = o;  o += P * pn;
+    xs = o;  o += kBL * pp;
+    dys = o; o += kBL * pp;
+    Bs = o;  o += kBL * pn;
+    Cs = o;  o += kBL * pn;
+    M1 = o;  o += kBL * pl;
+    M2 = o;  o += kBL * pl;
+    Q = o;   o += kBL * pl;
+    RI = o;  o += kBL * pp;
+    RE = o;  o += kBL * pp;
+    TMP = o; o += kBL * pn;
+    vec = o; o += kVecs * kBL;
+    red = o; o += kWarps + 2;
+    total = o;
+  }
+};
+
+// Rows [t0, t0 + len) of a [S, cols] source with row stride rs, widened to
+// float32 into dst (pitch `pitch`); rows len .. kBL - 1 are zero.
+template <typename T>
+__device__ __forceinline__ void load_rows(float* dst, int pitch, const T* src, long long rs,
+                                          int t0, int len, int cols) {
+  for (int i = threadIdx.x; i < kBL * cols; i += kThreads) {
+    const int t = i / cols, c = i - t * cols;
+    dst[t * pitch + c] =
+        (src != nullptr && t < len) ? to_float(src[static_cast<long long>(t0 + t) * rs + c]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_kernel(const Args a) {
+  extern __shared__ float sm[];
+  const Layout ly(a.P, a.N);
+  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int S = a.S, H = a.H, P = a.P, N = a.N, pp = ly.pp, pn = ly.pn, pl = ly.pl;
+  const int g = h / (H / a.G);
+  const int K = (S + kBL - 1) / kBL;
+  const int PN = P * N;
+  float* U = sm + ly.U;
+  float* H0 = sm + ly.H0;
+  float* xs = sm + ly.xs;
+  float* dys = sm + ly.dys;
+  float* Bs = sm + ly.Bs;
+  float* Cs = sm + ly.Cs;
+  float* M1 = sm + ly.M1;
+  float* M2 = sm + ly.M2;
+  float* Qm = sm + ly.Q;
+  float* RI = sm + ly.RI;
+  float* RE = sm + ly.RE;
+  float* TMP = sm + ly.TMP;
+  float* vdt = sm + ly.vec;
+  float* cum = vdt + kBL;
+  float* eh = cum + kBL;
+  float* wend = eh + kBL;
+  float* rowq = wend + kBL;
+  float* ddtd = rowq + kBL;
+  float* Ev = ddtd + kBL;
+  float* dcum = Ev + kBL;
+  float* red = sm + ly.red;
+
+  const T* x = static_cast<const T*>(a.x) + b * a.x_sb + h * a.x_sh;
+  const T* Bg = static_cast<const T*>(a.Bm) + b * a.b_sb + g * a.b_sg;
+  const T* Cg = static_cast<const T*>(a.C) + b * a.c_sb + g * a.c_sg;
+  const float* dt = a.dt + b * a.dt_sb + h;
+  const long long rowHP = static_cast<long long>(H) * P, rowHN = static_cast<long long>(H) * N;
+  const long long base = static_cast<long long>(b) * S * H + h;  // (b, 0, h)
+  const T* dy = a.dy != nullptr ? static_cast<const T*>(a.dy) + base * P : nullptr;
+  const long long bh = static_cast<long long>(b) * H + h;
+  const float Ah = a.A[h];
+  float* hs = a.hs + bh * K * PN;
+
+  // phase 1: the start state of every sub-chunk, forward
+  for (int i = tid; i < PN; i += kThreads) {
+    const int p = i / N, n = i - p * N;
+    H0[p * pn + n] = a.h0 != nullptr ? a.h0[bh * PN + i] : 0.f;
+  }
+  for (int k = 0; k < K; ++k) {
+    const int t0 = k * kBL, len = min(kBL, S - t0);
+    __syncthreads();  // H0 whole; the last sub-chunk's rows no longer read
+    for (int i = tid; i < PN; i += kThreads) {
+      const int p = i / N, n = i - p * N;
+      hs[static_cast<long long>(k) * PN + i] = H0[p * pn + n];
+    }
+    load_rows(xs, pp, x, a.x_ss, t0, len, P);
+    load_rows(Bs, pn, Bg, a.b_ss, t0, len, N);
+    if (tid < kBL) vdt[tid] = tid < len ? dt[static_cast<long long>(t0 + tid) * a.dt_ss] : 0.f;
+    __syncthreads();
+    if (tid == 0) {
+      float c = 0.f;
+      for (int t = 0; t < len; ++t) {
+        c += Ah * vdt[t];
+        cum[t] = c;
+      }
+      for (int s = 0; s < len; ++s) Ev[s] = expf(c - cum[s]) * vdt[s];
+      red[kWarps] = expf(c);
+    }
+    __syncthreads();
+    const float e_end = red[kWarps];
+    for (int i = tid; i < PN; i += kThreads) {
+      const int p = i / N, n = i - p * N;
+      float acc = 0.f;
+      for (int s = 0; s < len; ++s) acc = fmaf(Ev[s] * xs[s * pp + p], Bs[s * pn + n], acc);
+      H0[p * pn + n] = fmaf(e_end, H0[p * pn + n], acc);
+    }
+  }
+
+  // phase 2: the sub-chunks in reverse, carrying U
+  for (int i = tid; i < PN; i += kThreads) {
+    const int p = i / N, n = i - p * N;
+    U[p * pn + n] = a.dh != nullptr ? a.dh[bh * PN + i] : 0.f;
+  }
+  T* dx = static_cast<T*>(a.dx) + base * P;
+  float* ddt = a.ddt + base;
+  float* dBp = a.dB_part + base * N;
+  float* dCp = a.dC_part + base * N;
+  float dA_acc = 0.f;  // thread 0's
+  for (int k = K - 1; k >= 0; --k) {
+    const int t0 = k * kBL, len = min(kBL, S - t0);
+    __syncthreads();  // U updated; the last sub-chunk's rows no longer read
+    for (int i = tid; i < PN; i += kThreads) {
+      const int p = i / N, n = i - p * N;
+      H0[p * pn + n] = hs[static_cast<long long>(k) * PN + i];
+    }
+    load_rows(xs, pp, x, a.x_ss, t0, len, P);
+    load_rows(dys, pp, dy, rowHP, t0, len, P);
+    load_rows(Bs, pn, Bg, a.b_ss, t0, len, N);
+    load_rows(Cs, pn, Cg, a.c_ss, t0, len, N);
+    if (tid < kBL) vdt[tid] = tid < len ? dt[static_cast<long long>(t0 + tid) * a.dt_ss] : 0.f;
+    __syncthreads();
+    // U.H0, and the sub-chunk's decays
+    float uh = 0.f;
+    for (int i = tid; i < PN; i += kThreads) {
+      const int p = i / N, n = i - p * N;
+      uh = fmaf(U[p * pn + n], H0[p * pn + n], uh);
+    }
+    uh = warp_sum(uh);
+    if ((tid & 31) == 0) red[tid >> 5] = uh;
+    __syncthreads();
+    if (tid == 0) {
+      float s_ = 0.f;
+      for (int w = 0; w < kWarps; ++w) s_ += red[w];
+      red[kWarps] = s_;
+      float c = 0.f;
+      for (int t = 0; t < kBL; ++t) {
+        if (t < len) {
+          c += Ah * vdt[t];
+          cum[t] = c;
+          eh[t] = expf(c);
+        } else {
+          cum[t] = 0.f;
+          eh[t] = 0.f;
+        }
+      }
+      for (int s = 0; s < kBL; ++s) wend[s] = s < len ? expf(c - cum[s]) : 0.f;
+    }
+    __syncthreads();
+    // the pairs (t, s), s <= t: M1, M2, Q
+    for (int i = tid; i < kBL * kBL; i += kThreads) {
+      const int t = i / kBL, s = i - t * kBL;
+      float m1 = 0.f, m2 = 0.f, q = 0.f;
+      if (s <= t && t < len) {
+        float cb = 0.f, dxv = 0.f;
+        for (int n = 0; n < N; ++n) cb = fmaf(Cs[t * pn + n], Bs[s * pn + n], cb);
+        for (int p = 0; p < P; ++p) dxv = fmaf(dys[t * pp + p], xs[s * pp + p], dxv);
+        const float l = expf(cum[t] - cum[s]);
+        m1 = cb * l;
+        m2 = dxv * l;
+        q = m1 * dxv * vdt[s];
+      }
+      M1[t * pl + s] = m1;
+      M2[t * pl + s] = m2;
+      Qm[t * pl + s] = q;
+    }
+    __syncthreads();
+    // dx (and its two parts, for ddt and E)
+    for (int i = tid; i < kBL * P; i += kThreads) {
+      const int s = i / P, p = i - s * P;
+      float ub = 0.f, ri = 0.f;
+      for (int n = 0; n < N; ++n) ub = fmaf(U[p * pn + n], Bs[s * pn + n], ub);
+      for (int t = s; t < len; ++t) ri = fmaf(M1[t * pl + s], dys[t * pp + p], ri);
+      RI[s * pp + p] = ri;
+      RE[s * pp + p] = ub;
+      if (s < len)
+        dx[static_cast<long long>(t0 + s) * rowHP + p] = from_float<T>(vdt[s] * fmaf(wend[s], ub, ri));
+    }
+    // this head's dB
+    for (int i = tid; i < kBL * N; i += kThreads) {
+      const int s = i / N, n = i - s * N;
+      float ux = 0.f, in = 0.f;
+      for (int p = 0; p < P; ++p) ux = fmaf(U[p * pn + n], xs[s * pp + p], ux);
+      for (int t = s; t < len; ++t) in = fmaf(M2[t * pl + s], Cs[t * pn + n], in);
+      if (s < len) dBp[static_cast<long long>(t0 + s) * rowHN + n] = vdt[s] * fmaf(wend[s], ux, in);
+    }
+    // this head's dC, and the terms of dy_t.(H0 C_t)
+    for (int i = tid; i < kBL * N; i += kThreads) {
+      const int t = i / N, n = i - t * N;
+      float hd = 0.f, in = 0.f;
+      for (int p = 0; p < P; ++p) hd = fmaf(H0[p * pn + n], dys[t * pp + p], hd);
+      const int last = min(t, len - 1);
+      for (int s = 0; s <= last; ++s) in = fmaf(M2[t * pl + s] * vdt[s], Bs[s * pn + n], in);
+      const float inter = eh[t] * hd;
+      TMP[t * pn + n] = inter * Cs[t * pn + n];
+      if (t < len) dCp[static_cast<long long>(t0 + t) * rowHN + n] = inter + in;
+    }
+    if (tid < kBL) {
+      float r = 0.f;
+      for (int s = 0; s < kBL; ++s) r += Qm[tid * pl + s];
+      rowq[tid] = r;
+    }
+    __syncthreads();
+    // per row: dt's direct part, E, dcum
+    if (tid < kBL) {
+      const int s = tid;
+      float ri = 0.f, re = 0.f, y0 = 0.f;
+      for (int p = 0; p < P; ++p) {
+        ri = fmaf(xs[s * pp + p], RI[s * pp + p], ri);
+        re = fmaf(xs[s * pp + p], RE[s * pp + p], re);
+      }
+      for (int n = 0; n < N; ++n) y0 += TMP[s * pn + n];
+      ddtd[s] = fmaf(wend[s], re, ri);
+      const float e = vdt[s] * wend[s] * re;
+      Ev[s] = e;
+      dcum[s] = rowq[s] - vdt[s] * ri + y0 - e;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float es = 0.f;
+      for (int s = 0; s < len; ++s) es += Ev[s];
+      dcum[len - 1] += eh[len - 1] * red[kWarps] + es;
+      float da = 0.f;
+      for (int s = len - 1; s >= 0; --s) {
+        da += dcum[s];
+        ddt[static_cast<long long>(t0 + s) * H] = fmaf(Ah, da, ddtd[s]);
+        dA_acc = fmaf(vdt[s], da, dA_acc);
+      }
+    }
+    // U <- dL/dH0
+    const float e_last = eh[len - 1];
+    for (int i = tid; i < PN; i += kThreads) {
+      const int p = i / N, n = i - p * N;
+      float acc = 0.f;
+      for (int t = 0; t < len; ++t) acc = fmaf(eh[t] * dys[t * pp + p], Cs[t * pn + n], acc);
+      U[p * pn + n] = fmaf(e_last, U[p * pn + n], acc);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < PN; i += kThreads) {
+    const int p = i / N, n = i - p * N;
+    a.dh0[bh * PN + i] = U[p * pn + n];
+  }
+  if (tid == 0) a.dA_part[bh] = dA_acc;
+}
+
+// out[o, g, n] = sum_{j < H/G} in[o, g H/G + j, n] in head order, in T's
+// dtype: in [outer, H, N] and out [outer, G, N], contiguous.
+template <typename T>
+__global__ void ssd_bwd_group_sum(const float* __restrict__ in, T* __restrict__ out,
+                                  long long outer, int H, int G, int N) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= outer * G * N) return;
+  const int n = static_cast<int>(i % N);
+  const long long og = i / N;
+  const int g = static_cast<int>(og % G);
+  const long long o = og / G;
+  const int rep = H / G;
+  const float* src = in + (o * H + static_cast<long long>(g) * rep) * N + n;
+  float s = 0.f;
+  for (int j = 0; j < rep; ++j) s += src[static_cast<long long>(j) * N];
+  out[i] = from_float<T>(s);
+}
+
+// dA[h] = sum_b part[b, h], in batch order.
+__global__ void ssd_bwd_batch_sum(const float* __restrict__ part, float* __restrict__ out,
+                                  int batch, int H) {
+  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+  if (h >= H) return;
+  float s = 0.f;
+  for (int b = 0; b < batch; ++b) s += part[static_cast<long long>(b) * H + h];
+  out[h] = s;
+}
+
+template <typename T>
+cudaError_t launch(const Args& a, int batch, void* dB, void* dC, float* dA, cudaStream_t s) {
+  // the largest layout the wrapper passes (P 64, N 128): set once
+  static const cudaError_t set =
+      cudaFuncSetAttribute(ssd_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(Layout(kMaxP, kMaxN).total * sizeof(float)));
+  if (set != cudaSuccess) return set;
+  const size_t smem = Layout(a.P, a.N).total * sizeof(float);
+  ssd_bwd_kernel<T><<<dim3(a.H, batch), kThreads, smem, s>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long outer = static_cast<long long>(batch) * a.S;
+  const int blocks = static_cast<int>((outer * a.G * a.N + 255) / 256);
+  ssd_bwd_group_sum<T><<<blocks, 256, 0, s>>>(a.dB_part, static_cast<T*>(dB), outer, a.H, a.G, a.N);
+  ssd_bwd_group_sum<T><<<blocks, 256, 0, s>>>(a.dC_part, static_cast<T*>(dC), outer, a.H, a.G, a.N);
+  ssd_bwd_batch_sum<<<(a.H + 255) / 256, 256, 0, s>>>(a.dA_part, dA, batch, a.H);
+  return cudaGetLastError();
+}
+
+}  // namespace bwd
+
 }  // namespace
 
 extern "C" {
@@ -1054,6 +1442,49 @@ int rt_ssd_scan_wgmma(const void* x, const void* dt, const void* A, const void* 
     case 121: return tc::launch<1, 2, 1>(p, cluster, batch, s);
     case 222: return tc::launch<2, 2, 2>(p, cluster, batch, s);
     case 333: return tc::launch<3, 3, 3>(p, cluster, batch, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The backward (namespace bwd): x, dt, A, Bm, C, h0 and their strides as
+// rt_ssd_scan's; dy [B,S,H,P] contiguous of x's dtype or null; dh [B,H,P,N]
+// or null.  Writes dx [B,S,H,P] (x's dtype), ddt [B,S,H], dA [H], dB and dC
+// [B,S,G,N] (x's dtype), dh0 [B,H,P,N], all contiguous, through the float32
+// scratch dA_part [B,H], dB_part and dC_part [B,S,H,N] and hs
+// [B,H,ceil(S/32),P,N].
+int rt_ssd_scan_bwd(int dtype, const void* x, const void* dt, const void* A, const void* Bm,
+                    const void* C, const void* h0, const void* dy, const void* dh, void* dx,
+                    void* ddt, void* dA, void* dB, void* dC, void* dh0, void* dA_part,
+                    void* dB_part, void* dC_part, void* hs, int batch, int S, int H, int P,
+                    int G, int N, long long x_sb, long long x_ss, long long x_sh,
+                    long long dt_sb, long long dt_ss, long long b_sb, long long b_ss,
+                    long long b_sg, long long c_sb, long long c_ss, long long c_sg,
+                    void* stream) {
+  if (batch <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G || P <= 0 || P > kMaxP || N <= 0 ||
+      N > kMaxN || batch > 65535)
+    return cudaErrorInvalidValue;
+  const bwd::Args a{x,
+                    static_cast<const float*>(dt),
+                    static_cast<const float*>(A),
+                    Bm,
+                    C,
+                    static_cast<const float*>(h0),
+                    dy,
+                    static_cast<const float*>(dh),
+                    dx,
+                    static_cast<float*>(ddt),
+                    static_cast<float*>(dA_part),
+                    static_cast<float*>(dB_part),
+                    static_cast<float*>(dC_part),
+                    static_cast<float*>(dh0),
+                    static_cast<float*>(hs),
+                    S, H, P, G, N,
+                    x_sb, x_ss, x_sh, dt_sb, dt_ss, b_sb, b_ss, b_sg, c_sb, c_ss, c_sg};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* dAf = static_cast<float*>(dA);
+  switch (dtype) {
+    case kFloat32: return bwd::launch<float>(a, batch, dB, dC, dAf, s);
+    case kBFloat16: return bwd::launch<__nv_bfloat16>(a, batch, dB, dC, dAf, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -77,6 +77,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if use_plain(q, k, v):
         return ref.attention(q, k, v, causal=causal, scale=scale, window=window,
                              logit_softcap=logit_softcap, q_offset=q_offset)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # the kernel writes a torch.empty output through ctypes: autograd has
+        # no graph through it, and every gradient below it would be lost
+        raise NotImplementedError(
+            "flash_attention has no backward kernel yet: training the dense families "
+            "on the card waits on the ROADMAP.md queue item 'Training the dense "
+            "families' (a flash backward kernel)")
     if D not in HEAD_DIMS:
         raise ValueError(f"the flash_attention kernels take head_dim in {HEAD_DIMS}, "
                          f"got {D}")

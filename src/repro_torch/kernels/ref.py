@@ -90,6 +90,20 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
     return (y * (w.float() + weight_offset)).to(x.dtype)
 
 
+def rmsnorm_vjp(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
+                eps: float = 1e-6, weight_offset: float = 0.0):
+    """``(dx, dw)`` of :func:`rmsnorm` at ``(x, w)`` for the cotangent
+    ``dy``: ``torch.autograd.grad`` of the plain version, the oracle of the
+    hand-written backward kernel (the reference has none: XLA
+    differentiates ``src/repro/models/nn.py:78``)."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_()
+        wg = w.detach().requires_grad_()
+        y = rmsnorm(xg, wg, eps=eps, weight_offset=weight_offset)
+        dx, dw = torch.autograd.grad(y, (xg, wg), dy.to(y.dtype))
+    return dx, dw
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, scale: Optional[float] = None,
               window: Optional[int] = None,
@@ -194,3 +208,33 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         ys.append(torch.einsum("bhpn,bhn->bhp", h, Ch[:, t]))
     y = torch.stack(ys, dim=1).to(x.dtype)
     return (y, h) if return_state else y
+
+
+def ssd_scan_vjp(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                 C: torch.Tensor, init_state: Optional[torch.Tensor],
+                 dy: Optional[torch.Tensor], dh: Optional[torch.Tensor]):
+    """``(dx, ddt, dA, dBm, dC, dinit_state)`` of :func:`ssd_scan`'s
+    ``(y, final state)`` for the cotangents ``dy`` and ``dh`` (None: zero):
+    ``torch.autograd.grad`` of the sequential scan, as the reference's
+    ``custom_vjp`` differentiates ``kref.ssd_scan``
+    (``src/repro/models/ssm.py:46-49``).  ``dinit_state`` is None without
+    an ``init_state``.  The oracle of the hand-written backward kernel."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (x, dt, A, Bm, C)]
+        if init_state is not None:
+            ins.append(init_state.detach().requires_grad_())
+        y, h = ssd_scan(*ins[:5], init_state=ins[5] if init_state is not None else None,
+                        return_state=True)
+        outs, cots = [], []
+        for out, cot in ((y, dy), (h, dh)):
+            if cot is not None:
+                outs.append(out)
+                cots.append(cot.to(out.dtype))
+        if not outs:
+            grads = [torch.zeros_like(t) for t in ins]
+        else:
+            grads = list(torch.autograd.grad(outs, ins, cots, allow_unused=True))
+            grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, ins)]
+    if init_state is None:
+        grads.append(None)
+    return tuple(grads)

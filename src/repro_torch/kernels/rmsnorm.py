@@ -17,6 +17,14 @@ For CPU tensors the wrapper runs the plain version (:func:`.ref.rmsnorm`),
 and only then; for CUDA tensors it launches the kernel or raises.
 ``rmsnorm.launches`` counts the kernel launches it made (a launch
 recorded into a CUDA graph counts once, at capture).
+
+On the card the norm is differentiable through a hand-written backward
+kernel (``rt_rmsnorm_bwd`` in the same source; the reference has no
+Pallas backward: XLA differentiates its plain norm): when grad mode is on
+and x or w requires grad, :func:`rmsnorm` runs as a
+``torch.autograd.Function`` whose backward is :func:`rmsnorm_bwd`.  Its
+plain version, for tests only, is :func:`.ref.rmsnorm_vjp`; CPU tensors
+keep the plain forward, which autograd differentiates.
 """
 
 from __future__ import annotations
@@ -32,7 +40,9 @@ from .build import check_launch, load_library, stream_arg, use_plain
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 #: the C entry point of ``csrc/rmsnorm.cu`` and its argument types
-SIGNATURES = {"rt_rmsnorm": [_I, _I, _P, _P, _P, _I64, _I, _I64, _F, _F, _I, _P]}
+SIGNATURES = {"rt_rmsnorm": [_I, _I, _P, _P, _P, _I64, _I, _I64, _F, _F, _I, _P],
+              "rt_rmsnorm_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _I64, _I, _I64, _F, _F, _I,
+                                 _P]}
 
 GROUP = 8                 # elements of a group (csrc kGroup)
 ROUTES = ("rows", "team")  # the C route codes 0 and 1
@@ -40,6 +50,10 @@ ROWS_ROUTE_MIN_ROWS = 1024
 #: the most groups a lane of the rows route holds (csrc ``launch``)
 ROWS_ROUTE_MAX_LANE_GROUPS = {torch.bfloat16: 8, torch.float32: 4}
 MAX_D = 32 * 32 * 4 * GROUP   # 32 warps of a team, 4 groups a thread
+#: the most CTAs of the backward (two an SM of the H100); fewer rows take a
+#: CTA a row.  Fixed by the row count alone, so the order in which the
+#: CTAs' dw partials are added is too.
+BWD_MAX_CTAS = 264
 
 
 def _pow2ceil(n: int) -> int:
@@ -77,12 +91,24 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
     merge into one row axis (unit stride in the last); the kernel reads
     it in place.
     """
+    d = _check_shapes(x, w)
+    if use_plain(x, w):
+        return ref.rmsnorm(x, w, eps=eps, weight_offset=weight_offset)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _RMSNorm.apply(x, w, float(eps), float(weight_offset))
+    return _forward(x, w, eps, weight_offset)
+
+
+def _check_shapes(x: torch.Tensor, w: torch.Tensor) -> int:
     d = x.shape[-1] if x.dim() else 0
     if x.dim() == 0 or tuple(w.shape) != (d,):
         raise ValueError(f"rmsnorm takes x [..., d] and w [d], got {tuple(x.shape)} "
                          f"and {tuple(w.shape)}")
-    if use_plain(x, w):
-        return ref.rmsnorm(x, w, eps=eps, weight_offset=weight_offset)
+    return d
+
+
+def _rows_view(x: torch.Tensor, w: torch.Tensor, d: int) -> torch.Tensor:
+    """x as ``[rows, d]`` without a copy, after the kernels' checks."""
     if x.dtype not in _DTYPE_CODE or w.dtype not in _DTYPE_CODE:
         raise TypeError(f"the rmsnorm kernel takes float32 or bfloat16, got x "
                         f"{x.dtype} and w {w.dtype}")
@@ -96,6 +122,13 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
     if d > 1 and x2.stride(1) != 1 or not w.is_contiguous():
         raise ValueError("the rmsnorm kernel takes unit stride along d and a "
                          "contiguous w")
+    return x2
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor, eps: float,
+             weight_offset: float) -> torch.Tensor:
+    d = x.shape[-1]
+    x2 = _rows_view(x, w, d)
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     rows = x2.shape[0]
     if rows == 0:
@@ -109,12 +142,63 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
     return y
 
 
+def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *, eps: float = 1e-6,
+                weight_offset: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dx, dw)`` of :func:`rmsnorm` at ``(x, w)`` for the cotangent
+    ``dy`` (x's shape): dx in x's dtype, dw in w's, float32 arithmetic.
+
+    On the card ONE launch of the backward kernel covers every row (any
+    leading dimensions, any d the forward takes, x strided as the forward
+    reads it), then one launch adds the CTAs' dw partials in a fixed
+    order: no float atomics, so the result is the same bits every run.
+    For CPU tensors, the plain version :func:`.ref.rmsnorm_vjp`."""
+    d = _check_shapes(x, w)
+    if tuple(dy.shape) != tuple(x.shape):
+        raise ValueError(f"rmsnorm_bwd: dy has shape {tuple(dy.shape)}, want {tuple(x.shape)}")
+    if use_plain(x, w, dy):
+        return ref.rmsnorm_vjp(x, w, dy, eps=eps, weight_offset=weight_offset)
+    x2 = _rows_view(x, w, d)
+    dy2 = dy.to(x.dtype).reshape(-1, d).contiguous()
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    dw = torch.empty((d,), dtype=w.dtype, device=x.device)
+    rows = x2.shape[0]
+    if rows == 0:
+        return dx, dw.zero_()
+    ctas = min(rows, BWD_MAX_CTAS)
+    partial = torch.empty((ctas, d), dtype=torch.float32, device=x.device)
+    err = load_library("rmsnorm", SIGNATURES).rt_rmsnorm_bwd(
+        _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], x2.data_ptr(), dy2.data_ptr(),
+        w.data_ptr(), dx.data_ptr(), dw.data_ptr(), partial.data_ptr(), rows, d,
+        x2.stride(0), float(eps), float(weight_offset), ctas, stream_arg(x))
+    check_launch("rmsnorm", err)
+    rmsnorm_bwd.launches += 1
+    return dx, dw
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The kernel's forward with :func:`rmsnorm_bwd` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, weight_offset):
+        ctx.save_for_backward(x, w)
+        ctx.eps, ctx.weight_offset = eps, weight_offset
+        return _forward(x, w, eps, weight_offset)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd(x, w, dy, eps=ctx.eps, weight_offset=ctx.weight_offset)
+        return dx, dw, None, None
+
+
 rmsnorm.launches = 0
+rmsnorm_bwd.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {"rmsnorm": rmsnorm.launches}
+    return {"rmsnorm": rmsnorm.launches, "rmsnorm_bwd": rmsnorm_bwd.launches}
 
 
 def reset_launches() -> None:
     rmsnorm.launches = 0
+    rmsnorm_bwd.launches = 0

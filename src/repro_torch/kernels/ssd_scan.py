@@ -21,6 +21,15 @@ for CUDA tensors it launches its route's kernel or raises.
 ``ssd_scan.launches_wgmma`` and ``launches_cuda_core`` count each
 route's launches, ``ssd_scan.launches`` their sum (a launch recorded
 into a CUDA graph counts once, at capture).
+
+On the card the scan is differentiable through a hand-written backward
+kernel (``rt_ssd_scan_bwd`` in the same source; the reference has no
+Pallas backward, it differentiates the plain scan through a
+``custom_vjp``, ``src/repro/models/ssm.py:46-49``): when grad mode is on
+and an input requires grad, :func:`ssd_scan` runs as a
+``torch.autograd.Function`` whose forward is the route's kernel and
+whose backward is :func:`ssd_scan_bwd` (``ssd_scan_bwd.launches``).  Its
+plain version, for tests only, is :func:`.ref.ssd_scan_vjp`.
 """
 
 from __future__ import annotations
@@ -45,7 +54,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #: the C entry points of ``csrc/ssd_scan.cu`` and their argument types
 SIGNATURES = {"rt_ssd_scan": [_I] + [_P] * 8 + [_I] * 7 + [_I64] * 11 + [_P],
-              "rt_ssd_scan_wgmma": [_P] * 8 + [_I] * 6 + [_I64] * 11 + [_P]}
+              "rt_ssd_scan_wgmma": [_P] * 8 + [_I] * 6 + [_I64] * 11 + [_P],
+              "rt_ssd_scan_bwd": [_I] + [_P] * 18 + [_I] * 6 + [_I64] * 11 + [_P]}
+#: rows of a sub-chunk of the backward kernel (csrc ``bwd::kBL``)
+BWD_ROWS = 32
 
 
 def route(dtype: torch.dtype, head_dim: int, state_dim: int, chunk: int) -> str:
@@ -92,7 +104,80 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     data and strides; a view that breaks that (none on the served path)
     is copied to a contiguous tensor first.
     """
+    if not use_plain(x, dt, A, Bm, C) and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, A, Bm, C, init_state)):
+        y, h = _SSDScan.apply(x, dt, A, Bm, C, init_state, chunk)
+        return (y, h) if return_state else y
     return _scan(x, dt, A, Bm, C, init_state, chunk, return_state, None, None)
+
+
+class _SSDScan(torch.autograd.Function):
+    """The route's forward kernel with :func:`ssd_scan_bwd` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, C, init_state, chunk):
+        ctx.set_materialize_grads(False)  # an unused output's cotangent is None
+        ctx.save_for_backward(x, dt, A, Bm, C, init_state)
+        return _scan(x, dt, A, Bm, C, init_state, chunk, True, None, None)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, A, Bm, C, init_state = ctx.saved_tensors
+        grads = ssd_scan_bwd(x, dt, A, Bm, C, init_state=init_state, dy=dy, dh=dh)
+        return (*grads, None)
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                 C: torch.Tensor, *, init_state: Optional[torch.Tensor] = None,
+                 dy: Optional[torch.Tensor] = None, dh: Optional[torch.Tensor] = None):
+    """The VJP of :func:`ssd_scan`'s ``(y, final state)``: ``(dx, ddt, dA,
+    dBm, dC, dinit_state)`` for the cotangents ``dy [B,S,H,P]`` and ``dh
+    [B,H,P,N]`` (None: zero), each in its input's dtype;
+    ``dinit_state`` is None without an ``init_state``.
+
+    On the card, one launch of the backward kernel (a CTA per (batch,
+    head), float32; any shape the CUDA-core forward takes: P <= 64, N <=
+    128, G dividing H, any S) recomputes the states at every 32 rows and
+    walks them in reverse; then the per-head partials of dB and dC are
+    added over each group and dA's over the batch, in a fixed order (no
+    float atomics).  For CPU tensors, the plain version
+    :func:`.ref.ssd_scan_vjp`."""
+    _check_shapes(x, dt, A, Bm, C, init_state)
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if dy is not None and tuple(dy.shape) != (Bsz, S, H, P):
+        raise ValueError(f"ssd_scan_bwd: dy has shape {tuple(dy.shape)}, want {(Bsz, S, H, P)}")
+    if dh is not None and tuple(dh.shape) != (Bsz, H, P, N):
+        raise ValueError(f"ssd_scan_bwd: dh has shape {tuple(dh.shape)}, want {(Bsz, H, P, N)}")
+    if use_plain(*(t for t in (x, dt, A, Bm, C, init_state, dy, dh) if t is not None)):
+        return ref.ssd_scan_vjp(x, dt, A, Bm, C, init_state, dy, dh)
+    _check_inputs(x, dt, A, Bm, C, init_state)
+    if not (P <= MAX_HEAD_DIM and N <= MAX_STATE):
+        raise ValueError(f"the ssd_scan backward kernel takes P <= {MAX_HEAD_DIM}, N <= "
+                         f"{MAX_STATE}; got {P}, {N}")
+    dev, f32 = x.device, torch.float32
+    dy = None if dy is None else dy.to(x.dtype).contiguous()
+    dh = None if dh is None else dh.to(f32).contiguous()
+    dx = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=dev)
+    ddt = torch.empty((Bsz, S, H), dtype=f32, device=dev)
+    dA = torch.empty((H,), dtype=f32, device=dev)
+    dB = torch.empty((Bsz, S, G, N), dtype=x.dtype, device=dev)
+    dC = torch.empty((Bsz, S, G, N), dtype=x.dtype, device=dev)
+    dh0 = torch.empty((Bsz, H, P, N), dtype=f32, device=dev)
+    dA_part = torch.empty((Bsz, H), dtype=f32, device=dev)
+    dB_part = torch.empty((Bsz, S, H, N), dtype=f32, device=dev)
+    dC_part = torch.empty((Bsz, S, H, N), dtype=f32, device=dev)
+    hs = torch.empty((Bsz, H, -(-S // BWD_ROWS), P, N), dtype=f32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = load_library("ssd_scan", SIGNATURES).rt_ssd_scan_bwd(
+        _DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        C.data_ptr(), ptr(init_state), ptr(dy), ptr(dh), dx.data_ptr(), ddt.data_ptr(),
+        dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), dh0.data_ptr(), dA_part.data_ptr(),
+        dB_part.data_ptr(), dC_part.data_ptr(), hs.data_ptr(), Bsz, S, H, P, G, N,
+        *x.stride()[:3], *dt.stride()[:2], *Bm.stride()[:3], *C.stride()[:3], stream_arg(x))
+    check_launch("ssd_scan", err)
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, dA, dB, dC, (dh0 if init_state is not None else None)
 
 
 def ssd_scan_variant(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -108,7 +193,7 @@ def ssd_scan_variant(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return _scan(x, dt, A, Bm, C, init_state, 128, True, cluster, parts)
 
 
-def _scan(x, dt, A, Bm, C, init_state, chunk, return_state, cluster, parts):
+def _check_shapes(x, dt, A, Bm, C, init_state):
     if x.dim() != 4 or Bm.dim() != 4:
         raise ValueError("ssd_scan takes x [B,S,H,P] and Bm, C [B,S,G,N]")
     Bsz, S, H, P = x.shape
@@ -122,15 +207,10 @@ def _scan(x, dt, A, Bm, C, init_state, chunk, return_state, cluster, parts):
             raise ValueError(f"ssd_scan: {k} has shape {tuple(got[k].shape)}, want {shape}")
     if G == 0 or H % G:
         raise ValueError(f"ssd_scan: {H} heads do not split into {G} groups")
-    if use_plain(x, *got.values()):
-        return ref.ssd_scan(x, dt, A, Bm, C, init_state=init_state,
-                            return_state=return_state)
 
-    which = route(x.dtype, P, N, int(chunk))
-    chunk = min(int(chunk), S)
-    if not (0 < chunk <= MAX_CHUNK and P <= MAX_HEAD_DIM and N <= MAX_STATE):
-        raise ValueError(f"the ssd_scan kernel takes chunk <= {MAX_CHUNK}, P <= "
-                         f"{MAX_HEAD_DIM}, N <= {MAX_STATE}; got {chunk}, {P}, {N}")
+
+def _check_inputs(x, dt, A, Bm, C, init_state):
+    """The kernels' dtype and stride checks."""
     if x.dtype not in _DTYPE_CODE or Bm.dtype != x.dtype or C.dtype != x.dtype:
         raise TypeError(f"ssd_scan takes x, Bm, C of one dtype, float32 or bfloat16; "
                         f"got {x.dtype}, {Bm.dtype}, {C.dtype}")
@@ -142,6 +222,22 @@ def _scan(x, dt, A, Bm, C, init_state, chunk, return_state, cluster, parts):
             or (init_state is not None and not init_state.is_contiguous())):
         raise ValueError("ssd_scan takes unit stride in the last dimension of x, dt, "
                          "Bm and C, and contiguous A and init_state")
+
+
+def _scan(x, dt, A, Bm, C, init_state, chunk, return_state, cluster, parts):
+    _check_shapes(x, dt, A, Bm, C, init_state)
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if use_plain(*(t for t in (x, dt, A, Bm, C, init_state) if t is not None)):
+        return ref.ssd_scan(x, dt, A, Bm, C, init_state=init_state,
+                            return_state=return_state)
+
+    which = route(x.dtype, P, N, int(chunk))
+    chunk = min(int(chunk), S)
+    if not (0 < chunk <= MAX_CHUNK and P <= MAX_HEAD_DIM and N <= MAX_STATE):
+        raise ValueError(f"the ssd_scan kernel takes chunk <= {MAX_CHUNK}, P <= "
+                         f"{MAX_HEAD_DIM}, N <= {MAX_STATE}; got {chunk}, {P}, {N}")
+    _check_inputs(x, dt, A, Bm, C, init_state)
     y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
     h = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
     lib = load_library("ssd_scan", SIGNATURES)
@@ -188,14 +284,17 @@ def _tma_ok(t: torch.Tensor) -> bool:
 ssd_scan.launches = 0
 ssd_scan.launches_wgmma = 0
 ssd_scan.launches_cuda_core = 0
+ssd_scan_bwd.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return {"ssd_scan": ssd_scan.launches, "ssd_scan_wgmma": ssd_scan.launches_wgmma,
-            "ssd_scan_cuda_core": ssd_scan.launches_cuda_core}
+            "ssd_scan_cuda_core": ssd_scan.launches_cuda_core,
+            "ssd_scan_bwd": ssd_scan_bwd.launches}
 
 
 def reset_launches() -> None:
     ssd_scan.launches = 0
     ssd_scan.launches_wgmma = 0
     ssd_scan.launches_cuda_core = 0
+    ssd_scan_bwd.launches = 0

@@ -1,8 +1,19 @@
 """Launch layer of the port: serving on one GPU (continuous batching
-included), the ST cost model (:mod:`.costing`) and the schedule tuner
-(:mod:`.tune`)."""
+included), training (:mod:`.steps`, :mod:`.train`), the ST cost model
+(:mod:`.costing`) and the schedule tuner (:mod:`.tune`)."""
 from .serve import ServeEngine, build_admission_schedule, serve, serve_continuous
+from .steps import (
+    StepBundle,
+    build_persistent_train_step,
+    build_pipelined_train_step,
+    build_train_step,
+    loss_plateau,
+    persistent_steps,
+    pipelined_steps,
+)
 from .tune import Knobs, TuneResult, tune
 
 __all__ = ["ServeEngine", "build_admission_schedule", "serve", "serve_continuous",
-           "Knobs", "TuneResult", "tune"]
+           "StepBundle", "build_train_step", "build_persistent_train_step",
+           "build_pipelined_train_step", "persistent_steps", "pipelined_steps",
+           "loss_plateau", "Knobs", "TuneResult", "tune"]

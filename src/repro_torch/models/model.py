@@ -11,12 +11,14 @@ are new tensors out, as in the reference; the attention caches are
 written in place and returned (the reference's functional update,
 without copying the cache at every step).  ``select_slots`` merges a
 prefilled cache into the admitted slots (continuous batching).
-``loss`` and the frontends are not ported yet (``ROADMAP.md``).
+``loss`` is the train forward: the mean float32 cross-entropy of the
+logits against ``batch["targets"]``, returned with ``{"ce", "loss"}``.
+The frontends are not ported yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -112,6 +114,29 @@ class Model:
         h = apply_rmsnorm(params["ln_final"], x, cfg)
         return apply_unembed(params["embed"], params["unembed"], h, cfg)
 
+    # -- train forward --------------------------------------------------------------
+
+    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``(loss, {"ce", "loss"})`` of ``batch = {"tokens", "targets"}``
+        (``[B,S]`` int): the embedding, the layer stack (each layer
+        checkpointed when autograd records and ``cfg.remat == "block"``),
+        the final norm, the unembedding and :func:`_ce`, as the reference's
+        ``Model.loss`` for the ported families.  The MoE balance loss and
+        the multi-token-prediction head are not ported."""
+        cfg = self.cfg
+        if cfg.n_experts or cfg.mtp_depth:
+            raise NotImplementedError(
+                f"{cfg.name}: the MoE load-balance loss and the MTP head are not ported "
+                f"yet (ROADMAP.md, the MoE family)")
+        tokens, targets = batch["tokens"], batch["targets"]
+        x = apply_embedding(params["embed"], tokens, cfg)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, _ = tfm.apply_stack(params["decoder"], x, cfg, positions=positions)
+        h = apply_rmsnorm(params["ln_final"], x, cfg)
+        logits = apply_unembed(params["embed"], params["unembed"], h, cfg)
+        loss = _ce(logits, targets)
+        return loss, {"ce": loss, "loss": loss}
+
     # -- serving ------------------------------------------------------------------
 
     def init_caches(self, batch: int, max_len: int, per_sequence: bool = False, *,
@@ -194,6 +219,15 @@ class Model:
         out["segments"] = _merge_caches(caches["segments"], new_segs)
         out["pos"] = caches["pos"] + 1
         return logits, out
+
+
+def _ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy in float32: ``logsumexp(logits) - logits[target]``
+    (the reference's ``_ce``)."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, targets.long()[..., None])[..., 0]
+    return torch.mean(lse - gold)
 
 
 def _common_depth(pos: torch.Tensor) -> int:

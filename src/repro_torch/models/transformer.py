@@ -8,7 +8,12 @@ until ``ROADMAP.md`` brings them.  Parameters keep the reference's
 layout — stacked with a leading ``layers`` axis when
 ``cfg.scan_layers``, a list of per-layer dicts when not — and the layers
 run as a Python loop over views of them, each with its own static
-window and rope theta (``layer_window_theta``).  Caches are stacked per
+window and rope theta (``layer_window_theta``); stacked tensors are
+split once per call with ``torch.unbind`` (:func:`unbind_layers`).  When
+autograd records a no-cache forward and ``cfg.remat == "block"``, each
+layer runs under ``torch.utils.checkpoint`` (non-reentrant), as the
+reference wraps each in ``jax.checkpoint``: its activations are
+recomputed in the backward.  Caches are stacked per
 segment: attention ``k``, ``v`` ``[L,B,T,Hkv,hd]`` in ``cfg.dtype``
 (written in place, so the stacked tensors are the new caches too), ssm
 ``conv [L,B,K-1,conv_dim]`` in ``cfg.dtype`` and ``state [L,B,H,P,N]``
@@ -21,6 +26,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from . import ssm as ssm_lib
@@ -132,12 +138,38 @@ def _stack(layers: List[Dict]) -> Dict:
     return torch.stack(layers)
 
 
-def layer_params(seg_params, i: int):
-    """Layer ``i``'s parameters: an entry of the list, or views into the
-    stacked tensors."""
+def unbind_layers(seg_params, n_layers: int) -> List[Dict]:
+    """Every layer's parameters: the list itself, or views into the
+    stacked tensors split with ``torch.unbind``.  Under autograd the
+    split's backward is ONE stack of the layers' gradients, where
+    indexing each layer out of the stack would build a zero tensor of the
+    whole stack per layer."""
     if isinstance(seg_params, list):
-        return seg_params[i]
-    return tree_map(lambda a: a[i], seg_params)
+        return seg_params
+    flat: Dict[str, Any] = {}
+
+    def split(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: split(v, f"{prefix}/{k}") for k, v in tree.items()}
+        flat[prefix] = torch.unbind(tree, 0)
+        return prefix
+
+    keys = split(seg_params, "")
+
+    def pick(tree, i):
+        if isinstance(tree, dict):
+            return {k: pick(v, i) for k, v in tree.items()}
+        return flat[tree][i]
+
+    return [pick(keys, i) for i in range(n_layers)]
+
+
+def _remat(cfg: ModelConfig, caches) -> bool:
+    """Whether each layer runs under activation checkpointing: the
+    reference wraps every layer in ``jax.checkpoint`` when ``remat ==
+    "block"`` (``src/repro/models/transformer.py:249-250``); the port does
+    where it matters, when autograd records the no-cache forward."""
+    return cfg.remat == "block" and caches is None and torch.is_grad_enabled()
 
 
 def apply_stack(params, x, cfg: ModelConfig, *, positions=None,
@@ -147,15 +179,25 @@ def apply_stack(params, x, cfg: ModelConfig, *, positions=None,
     caches (``None`` without caches).  ``depth``: the host int every
     slot's cache sits at (the prefill), or None (a decode step)."""
     new_caches = []
+    remat = _remat(cfg, caches)
     for si, seg in enumerate(plan_segments(cfg)):
         seg_cache = caches[si] if caches is not None else None
         seg_new = []
+        layers = unbind_layers(params["segments"][si], seg.n_layers)
         for i in range(seg.n_layers):
             window, theta = layer_window_theta(cfg, i, serve_window)
+            if remat:
+                def block(h, p, _kind=seg.kind, _w=window, _t=theta):
+                    return apply_block(p, h, cfg, _kind, window=_w, rope_theta=_t,
+                                       positions=positions)[0]
+                x = checkpoint(block, x, layers[i], use_reentrant=False,
+                               preserve_rng_state=False)
+                seg_new.append({})
+                continue
             layer_cache = (tree_map(lambda c, _i=i: c[_i], seg_cache)
                            if seg_cache is not None else None)
-            x, nc = apply_block(layer_params(params["segments"][si], i), x, cfg, seg.kind,
-                                window=window, rope_theta=theta, positions=positions,
+            x, nc = apply_block(layers[i], x, cfg, seg.kind, window=window,
+                                rope_theta=theta, positions=positions,
                                 cache=layer_cache, cache_pos=cache_pos, depth=depth)
             seg_new.append(nc)
         if not seg_new or not seg_new[0]:

@@ -334,7 +334,7 @@ def test_ssd_wgmma_route_meets_the_served_bound(cuda, case):
     torch.cuda.synchronize()
     after = ssd.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        "ssd_scan": 1, "ssd_scan_wgmma": 1, "ssd_scan_cuda_core": 0}
+        "ssd_scan": 1, "ssd_scan_wgmma": 1, "ssd_scan_cuda_core": 0, "ssd_scan_bwd": 0}
     assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(h).all())
     assert _within_served_bound(y, h, x, dt, A, Bm, C, h0)
     if case["kind"] == "extreme":
@@ -1422,3 +1422,261 @@ def test_tuned_pipeline_winner_takes_one_launch(cuda):
                base=Knobs(), repeats=2, measure_top=6, certify=True)
     assert all(c.certificate.equivalent and c.error is None for c in res.candidates)
     assert len(res.measured) == 6 and all(c.stats["med_s"] > 0 for c in res.measured)
+
+
+# -- the backward kernels (training) ----------------------------------------
+
+def _grad_close(got: torch.Tensor, want: torch.Tensor, rtol: float, atol_frac: float) -> None:
+    """``got`` within ``rtol`` of ``want`` plus ``atol_frac`` of want's
+    largest magnitude (gradients sum over rows, batch or time, so the
+    absolute part scales with the leaf), and, for a bf16 result, one
+    rounding of the output (2^-8 of the magnitudes) on top."""
+    g, w = got.float(), want.float()
+    bound = rtol * w.abs() + atol_frac * float(w.abs().max()) + 1e-30
+    if got.dtype == torch.bfloat16:
+        bound = bound + 2.0 ** -8 * (g.abs() + w.abs())
+    assert bool(((g - w).abs() <= bound).all()), float((g - w).abs().max())
+
+
+NORM_BWD_CASES = [((2048, 2560), "contiguous"), ((2048, 5120), "contiguous"),
+                  ((37, 1152), "contiguous"), ((3, 1000), "stride+24"),
+                  ((4, 6, 37, 256), "contiguous"), ((4097, 256), "stride+3"),
+                  ((1, 5120), "contiguous")]
+
+
+@pytest.mark.parametrize("offset", [0.0, 1.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,layout", NORM_BWD_CASES)
+def test_rmsnorm_bwd_kernel_matches_plain_vjp(cuda, shape, layout, dtype, offset):
+    """dx and dw of the backward kernel against ``autograd.grad`` of the
+    plain norm on the same inputs (the rows and team routes' shapes, leading
+    dimensions, strided rows): dx at the forward's bounds (float32 rtol
+    2e-5 / atol 1e-5 of the largest dx; bf16 one rounding), dw (a sum over
+    rows) at rtol 2e-5 plus 1e-5 of its largest entry; two runs equal bit
+    for bit."""
+    extra = {"contiguous": 0, "stride+24": 24, "stride+3": 3}[layout]
+    x = _randn((*shape[:-1], shape[-1] + extra), dtype, cuda, 21)[..., :shape[-1]]
+    w = _randn((shape[-1],), torch.float32, cuda, 22)
+    dy = _randn(shape, dtype, cuda, 23)
+    before = rk.rmsnorm_bwd.launches
+    dx, dw = rk.rmsnorm_bwd(x, w, dy, eps=1e-5, weight_offset=offset)
+    assert rk.rmsnorm_bwd.launches == before + 1
+    want_dx, want_dw = ref.rmsnorm_vjp(x, w, dy, eps=1e-5, weight_offset=offset)
+    assert dx.dtype == dtype and dw.dtype == torch.float32
+    _grad_close(dx, want_dx, 2e-5, 1e-5)
+    _grad_close(dw, want_dw, 2e-5, 1e-5)
+    again = rk.rmsnorm_bwd(x, w, dy, eps=1e-5, weight_offset=offset)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+
+
+def test_rmsnorm_is_differentiable_through_the_kernels(cuda):
+    x = _randn((4, 9, 2560), torch.bfloat16, cuda, 24).requires_grad_()
+    w = _randn((2560,), torch.float32, cuda, 25).requires_grad_()
+    before = (rk.rmsnorm.launches, rk.rmsnorm_bwd.launches)
+    y = rk.rmsnorm(x, w, eps=1e-5, weight_offset=1.0)
+    dy = _randn(tuple(y.shape), torch.bfloat16, cuda, 26)
+    dx, dw = torch.autograd.grad(y, (x, w), dy)
+    assert (rk.rmsnorm.launches, rk.rmsnorm_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want_dx, want_dw = ref.rmsnorm_vjp(x.detach(), w.detach(), dy, eps=1e-5, weight_offset=1.0)
+    _grad_close(dx, want_dx, 2e-5, 1e-5)
+    _grad_close(dw, want_dw, 2e-5, 1e-5)
+
+
+# (batch, S, H, P, G, N, init_state, dtype): the served bf16 shape at a
+# shorter sequence (chip_smoke.py phase 18 runs it at S 512), and the float32
+# CUDA-core cases: a short last sub-chunk, init_state, 2 groups, the smoke
+# model's P 16 / N 16
+SSD_BWD_CASES = [
+    (1, 256, 8, 64, 1, 128, False, torch.bfloat16),
+    (2, 45, 4, 64, 2, 128, True, torch.float32),
+    (2, 100, 4, 16, 1, 16, True, torch.float32),
+    (1, 33, 6, 32, 3, 64, False, torch.float32),
+    (3, 32, 2, 8, 2, 8, True, torch.bfloat16),
+]
+
+
+def _ssd_bwd_inputs(Bsz, S, H, P, G, N, init, dtype, device, seed):
+    rs = np.random.RandomState(seed)
+    t = lambda a, dt=torch.float32: torch.from_numpy(a.astype(np.float32)).to(device, dt)
+    x = t(rs.randn(Bsz, S, H, P), dtype)
+    dt_ = t(np.log1p(np.exp(rs.randn(Bsz, S, H) - 1.0)))   # softplus, as the model's
+    A = t(-np.exp(rs.randn(H) * 0.5))
+    Bm = t(rs.randn(Bsz, S, G, N) * 0.3, dtype)
+    C = t(rs.randn(Bsz, S, G, N) * 0.3, dtype)
+    h0 = t(rs.randn(Bsz, H, P, N)) if init else None
+    dy = t(rs.randn(Bsz, S, H, P), dtype)
+    dh = t(rs.randn(Bsz, H, P, N))
+    return x, dt_, A, Bm, C, h0, dy, dh
+
+
+@pytest.mark.parametrize("case", SSD_BWD_CASES, ids=str)
+def test_ssd_bwd_kernel_matches_plain_vjp(cuda, case):
+    """The backward kernel against ``autograd.grad`` of the plain scan in
+    float32 on the same (widened) inputs: float32 results at rtol 2e-4 plus
+    2e-5 of the leaf's largest entry (sums over S, the batch and a group's
+    heads), bf16 results (dx, dB, dC of bf16 inputs) within one rounding
+    more; two runs equal bit for bit."""
+    x, dt_, A, Bm, C, h0, dy, dh = _ssd_bwd_inputs(*case, cuda, 31)
+    before = ssd.ssd_scan_bwd.launches
+    got = ssd.ssd_scan_bwd(x, dt_, A, Bm, C, init_state=h0, dy=dy, dh=dh)
+    assert ssd.ssd_scan_bwd.launches == before + 1
+    wide = [None if t is None else t.float() for t in (x, dt_, A, Bm, C, h0, dy, dh)]
+    want = ref.ssd_scan_vjp(*wide)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dh0"), got, want):
+        assert (g is None) == (w is None), name
+        if g is not None:
+            assert g.shape == w.shape, name
+            _grad_close(g, w, 2e-4, 2e-5)
+    again = ssd.ssd_scan_bwd(x, dt_, A, Bm, C, init_state=h0, dy=dy, dh=dh)
+    assert all(torch.equal(a, b) for a, b in zip(again, got) if a is not None)
+
+
+def test_ssd_scan_is_differentiable_through_the_kernels(cuda):
+    """Under autograd the route's forward kernel runs, and the backward
+    kernel gives every input's gradient; only y used (dh is None)."""
+    x, dt_, A, Bm, C, h0, dy, _ = _ssd_bwd_inputs(1, 256, 8, 64, 1, 128, True, torch.bfloat16,
+                                               cuda, 32)
+    ins = [t.requires_grad_() for t in (x, dt_, A, Bm, C, h0)]
+    before = dict(ssd.launch_counts())
+    y = ssd.ssd_scan(*ins[:5], init_state=ins[5], chunk=128)
+    grads = torch.autograd.grad(y, ins, dy)
+    after = ssd.launch_counts()
+    assert after["ssd_scan_wgmma"] == before["ssd_scan_wgmma"] + 1
+    assert after["ssd_scan_bwd"] == before["ssd_scan_bwd"] + 1
+    want = ref.ssd_scan_vjp(*[t.detach().float() for t in ins], dy.float(), None)
+    for g, w in zip(grads, want):
+        _grad_close(g, w, 2e-4, 2e-5)
+
+
+def test_flash_attention_raises_under_grad(cuda):
+    q = _randn((1, 2, 16, 64), torch.bfloat16, cuda, 33).requires_grad_()
+    k = _randn((1, 2, 16, 64), torch.bfloat16, cuda, 34)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fk.flash_attention(q, k, k)
+    with torch.no_grad():
+        fk.flash_attention(q, k, k)
+
+
+# -- training on the card ------------------------------------------------------
+
+
+@pytest.fixture
+def deterministic():
+    """Deterministic algorithms (embedding backward, gather backward) and
+    cuBLAS's workspace setting for them; restored afterwards."""
+    import os
+    old_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    old = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(old)
+    if old_env is None:
+        os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+    else:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = old_env
+
+
+def _train_setup(device, remat="block", scan_layers=True):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import steps as st
+    cfg = dataclasses.replace(get_config("mamba2-2.7b").smoke(), remat=remat,
+                              scan_layers=scan_layers)
+    shape = ShapeConfig("t", 40, 2, "train")   # 40 % 32: a short last sub-chunk
+    mesh = make_mesh((1, 1), ("data", "model"), device=device)
+    bundle = st.build_train_step(cfg, shape, mesh)
+    source = SyntheticTokens(cfg, shape)
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in source.batch(i).items()}
+               for i in range(3)]
+    return cfg, bundle, batches
+
+
+def _fresh_state(cfg, device):
+    from repro_torch.optim import AdamWConfig, adamw_init
+    params = Model(cfg).init(0, device="cpu")
+    params = tree_map(lambda t: t.to(device), params)
+    return params, adamw_init(params, AdamWConfig())
+
+
+def test_smoke_loss_and_every_gradient_on_card_match_cpu(cuda):
+    """The smoke model's loss and gradients on the card (SSD and RMSNorm
+    forward and backward kernels, layers checkpointed, stacked params
+    split by unbind) against the port on the CPU (the plain versions):
+    loss rtol 1e-5, every leaf present, finite, not all zero, within rtol
+    1e-4 plus 1e-4 of its largest entry."""
+    cfg, bundle, batches = _train_setup(cuda)
+    _, cpu_bundle, cpu_batches = _train_setup("cpu")
+    params, _ = _fresh_state(cfg, cuda)
+    before = {**rk.launch_counts(), **ssd.launch_counts()}
+    grads, met = bundle.grad_fn(params, batches[0])
+    torch.cuda.synchronize()
+    after = {**rk.launch_counts(), **ssd.launch_counts()}
+    assert after["ssd_scan_bwd"] - before["ssd_scan_bwd"] == cfg.n_layers
+    # each layer's scan runs twice: the forward and the checkpoint's recompute
+    assert after["ssd_scan"] - before["ssd_scan"] == 2 * cfg.n_layers
+    assert after["rmsnorm_bwd"] - before["rmsnorm_bwd"] == 2 * cfg.n_layers + 1
+    cpu_grads, cpu_met = cpu_bundle.grad_fn(tree_map(lambda t: t.cpu(), params), cpu_batches[0])
+    np.testing.assert_allclose(float(met["loss"]), float(cpu_met["loss"]), rtol=1e-5)
+    for g, w in zip(tree_leaves(grads), tree_leaves(cpu_grads)):
+        assert g is not None and bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0)
+        _grad_close(g.cpu(), w, 1e-4, 1e-4)
+
+
+def test_no_gradient_leaf_is_none_after_backward(cuda):
+    cfg, bundle, batches = _train_setup(cuda, remat="none", scan_layers=False)
+    params, _ = _fresh_state(cfg, cuda)
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    loss, _ = bundle.model.loss(params, batches[0])
+    loss.backward()
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all()) for p in leaves)
+
+
+@pytest.mark.parametrize("kind", ["persistent", "pipelined"])
+def test_multi_step_dispatch_is_one_graph_launch_equal_to_eager(cuda, deterministic, kind):
+    """3 steps as ONE CUDA-graph launch equal, bit for bit, to the same
+    steps run eagerly on the card (params, AdamW state, metrics); a second
+    call replays the graph."""
+    from repro_torch.launch import steps as st
+    cfg, bundle, batches = _train_setup(cuda)
+    stack = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    wrap = st.persistent_steps if kind == "persistent" else st.pipelined_steps
+    p0, o0 = _fresh_state(cfg, cuda)
+    eager_fn = wrap(bundle, 3, stacked=True).step_fn._eager
+    p_e, o_e, m_e = eager_fn(p0, o0, stack)
+    p1, o1 = _fresh_state(cfg, cuda)
+    multi = wrap(bundle, 3, stacked=True).step_fn
+    p_g, o_g, m_g = multi(p1, o1, stack)
+    torch.cuda.synchronize()
+    assert (multi.dispatches, multi.captures) == (1, 1)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves((p_e, o_e)), tree_leaves((p_g, o_g))))
+    for k in m_e:
+        assert torch.equal(m_e[k].to(cuda), m_g[k]), k
+    multi(p1, o1, stack)
+    assert (multi.dispatches, multi.captures) == (2, 1)
+    assert int(o1["step"]) == 6
+
+
+@pytest.mark.parametrize("factor", [2.0, 0.5])
+def test_plateau_graph_loop_equals_host_polled(cuda, deterministic, factor):
+    """until=loss_plateau through the graph-loop WHILE node: steps_done and
+    the loss trace equal the eager loop's with the predicate polled on the
+    host, bit for bit (eps twice or half the first loss move: it stops
+    after 2 steps, or runs to the bound of 3)."""
+    from repro_torch.launch import steps as st
+    cfg, bundle, batches = _train_setup(cuda)
+    stack = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    p0, o0 = _fresh_state(cfg, cuda)
+    _, _, m0 = st.persistent_steps(bundle, 3, stacked=True).step_fn._eager(p0, o0, stack)
+    eps = factor * abs(float(m0["loss"][1]) - float(m0["loss"][0]))
+    p_e, o_e = _fresh_state(cfg, cuda)
+    eager = st.persistent_steps(bundle, 3, until=st.loss_plateau(eps), stacked=True)
+    p_e, o_e, m_e = eager.step_fn._eager(p_e, o_e, stack)
+    p_g, o_g = _fresh_state(cfg, cuda)
+    loop = st.persistent_steps(bundle, 3, until=st.loss_plateau(eps), stacked=True).step_fn
+    p_g, o_g, m_g = loop(p_g, o_g, stack)
+    done = int(m_g["steps_done"])
+    assert done == int(m_e["steps_done"]) == (2 if factor > 1 else 3)
+    for k in ("loss", "ce", "grad_norm", "lr"):
+        assert torch.equal(m_g[k], m_e[k].to(cuda)), k
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves((p_e, o_e)), tree_leaves((p_g, o_g))))
