@@ -244,15 +244,18 @@ a checkout of the repository.  Phases, each of which must pass:
    (``persistent_steps``), equal to (a) bit for bit in params, AdamW
    state and metrics; (c) ``until=loss_plateau`` through the graph-loop
    WHILE node: ``steps_done`` and the loss trace equal ``loss_plateau``
-   polled on the host over (a)'s steps; (d) the SSD backward kernel on
-   the served bf16 inputs (the model's path: dy only, and with
-   init_state and dh) against the plain VJP in float32, and on float32
-   CUDA-core cases (a short last sub-chunk, init_state, 2 groups); the
-   RMSNorm backward on the team route's training shapes and on the rows
-   route's; (e) the kernels' launches in one eager step, counters set
-   to 0 just before it: the SSD forward 128 times on the tensor-core
-   route (64 forward, 64 recompute), its backward 64 times, the RMSNorm
-   forward and backward; (f) ms a step eager and as one launch,
+   polled on the host over (a)'s steps; (d) the SSD backward on the
+   served bf16 inputs (the model's path: dy only, and with init_state
+   and dh) on its tensor-core route, and the CUDA-core kernel on the
+   same inputs, against the plain VJP in float32; float32 CUDA-core
+   cases (a short last sub-chunk, init_state, 2 groups) and those of
+   P 64, N 128 in bf16 on the tensor-core route, with S 1100 (two
+   groups of chunks); each case's route recorded; the RMSNorm backward
+   on the team route's training shapes and on the rows route's; (e) the
+   kernels' launches in one eager step, counters set to 0 just before
+   it: the SSD forward 128 times on the tensor-core route (64 forward,
+   64 recompute), its backward 64 times on the tensor-core route, the
+   RMSNorm forward and backward; (f) ms a step eager and as one launch,
    tokens/s, one step split into forward, backward and optimizer (CUDA
    events) with its top kernels (``torch.profiler``), the recompute as
    a no-grad run of the layer stack, and the peak memory.
@@ -263,7 +266,9 @@ kernels', which have no Pallas counterpart (``"pallas_counterpart":
 false``); the
 flash and SSD rows also give ``earlier_ms``: the CUDA-core kernel, the
 port's kernel before the tensor-core one, on the same input in this
-run, and the SSD row its ``kernel_route``; the rmsnorm row gives
+run, and the SSD row its ``kernel_route``; the SSD backward row its
+``kernel_route`` and ``cuda_core_ms`` (the CUDA-core backward on the same
+input); the rmsnorm row gives
 ``decode``: its times at the decode shapes; the flash and rmsnorm rows
 ``served_shapes``: their times at phase 17's served layer 0, and those
 two and the SSD row ``phase17_launches``; the schedule step's row
@@ -2648,18 +2653,28 @@ def grad_check(torch, got, want):
     return float((err / bound).max()), float(err.max())
 
 
-def ssd_bwd_flops_bytes(B, S, H, P, G, N, itemsize, h0: bool, chunk: int = 32):
-    """Operations of the chunked backward at the kernel's own sub-chunk
-    (``kBL`` = 32 rows in ``csrc/ssd_scan.cu``) and the bytes a call must
-    move.  Per sub-chunk of L rows: C B^T, dy x^T and the three products
-    with them over the causal triangle, L (L + 1) / 2 (3 N + 2 P) MACs; the
-    state's five L P N products (recomputed start, dh carried back, its
-    three contractions with x, B and dy) and U.H0's P N.  Bytes: x and dy
-    in, dx out; dt in, ddt out; A in, dA out; B and C in, dB and dC out;
-    with an initial state h0 and dh in, dh0 out."""
-    lens = [min(chunk, S - c0) for c0 in range(0, S, chunk)]
-    flops = 2 * B * H * sum(L * (L + 1) // 2 * (3 * N + 2 * P) + 5 * L * P * N + P * N
-                            for L in lens)
+def ssd_bwd_products(B, S, H, P, N, L, scores: int = 3):
+    """Operations of the chunked backward at chunks of L rows.  Per chunk,
+    over the causal triangle, L (L + 1) / 2 (scores N + (scores - 1) P)
+    MACs: with ``scores`` 3, the function's scores B C^T and x dy^T and
+    their three products with dy, C and B; with 4, the tensor-core
+    kernel's, which also forms C B^T (for da's pairs) and dy x^T (for dC's
+    layout).  Then the five L P N state products (the increments h_inc and
+    u_inc, B U^T, x U, dy H0) and U.H0's P N.  Each product counted once,
+    not once a bf16 part."""
+    lens = [min(L, S - c0) for c0 in range(0, S, L)]
+    return 2 * B * H * sum(n * (n + 1) // 2 * (scores * N + (scores - 1) * P)
+                           + 5 * n * P * N + P * N for n in lens)
+
+
+def ssd_bwd_flops_bytes(B, S, H, P, G, N, itemsize, h0: bool):
+    """The least operations of the backward, and the bytes a call must
+    move.  Operations: :func:`ssd_bwd_products` at the chunk of 16 to 128
+    rows that needs the fewest (16: the smallest row tile of a bf16
+    tensor-core product).  Bytes: x and dy in, dx out; dt in, ddt out; A
+    in, dA out; B and C in, dB and dC out; with an initial state h0 and dh
+    in, dh0 out."""
+    flops = min(ssd_bwd_products(B, S, H, P, N, L) for L in (16, 32, 64, 128))
     n_bytes = (3 * B * S * H * P * itemsize        # x, dy in; dx out
                + 2 * B * S * H * 4 + 2 * H * 4     # dt in, ddt out; A, dA
                + 2 * 2 * B * S * G * N * itemsize  # B, C in; dB, dC out
@@ -2691,17 +2706,40 @@ def check_backward_kernels(torch, ssd, rk, ref, seed: int):
     dy = torch.randn(B, S, H, P, device="cuda", generator=gen).bfloat16()
     dh = torch.randn(B, H, P, N, device="cuda", generator=gen)
     wide = lambda *ts: [None if t is None else t.float() for t in ts]
+    route = ssd.bwd_route(x.dtype, P, N)
+    require(route == "wgmma", f"the served bf16 backward takes the {route} route")
+
+    def routed(key, fn):
+        """Run fn, recording the backward route it launched."""
+        before = ssd.launch_counts()
+        out = fn()
+        after = ssd.launch_counts()
+        taken = [r for r in ("wgmma", "cuda_core")
+                 if after[f"ssd_scan_bwd_{r}"] > before[f"ssd_scan_bwd_{r}"]]
+        require(len(taken) == 1, f"ssd_scan_bwd {key}: routes launched {taken}")
+        detail.setdefault("routes", {})[key] = taken[0]
+        return out
+
     # the model's path: y only (the final state unused), no init_state
-    got = ssd.ssd_scan_bwd(x, dt, A, Bm, C, dy=dy)
-    err = held(got, ref.ssd_scan_vjp(*wide(x, dt, A, Bm, C), None, dy.float(), None),
-               "served_bf16")
-    held(ssd.ssd_scan_bwd(x, dt, A, Bm, C, init_state=h0, dy=dy, dh=dh),
+    want = ref.ssd_scan_vjp(*wide(x, dt, A, Bm, C), None, dy.float(), None)
+    got = routed("served_bf16", lambda: ssd.ssd_scan_bwd(x, dt, A, Bm, C, dy=dy))
+    err = held(got, want, "served_bf16")
+    held(routed("served_bf16_init_dh",
+                lambda: ssd.ssd_scan_bwd(x, dt, A, Bm, C, init_state=h0, dy=dy, dh=dh)),
          ref.ssd_scan_vjp(*wide(x, dt, A, Bm, C, h0, dy, dh)), "served_bf16_init_dh")
     again = ssd.ssd_scan_bwd(x, dt, A, Bm, C, dy=dy)
     require(all(torch.equal(a, b) for a, b in zip(again, got) if a is not None),
             "ssd_scan_bwd: two runs differ")
+    # the CUDA-core kernel, the route's kernel before the tensor-core one,
+    # on the same inputs
+    held(routed("served_bf16_cuda_core",
+                lambda: ssd.ssd_scan_bwd_variant(x, dt, A, Bm, C, dy=dy, kernel="cuda_core")),
+         want, "served_bf16_cuda_core")
+    # float32 cases (the CUDA-core route) and, where the shape allows it, the
+    # same in bf16 (the tensor-core route): a short last chunk, init_state
+    # and dh, 2 groups; S 1100 spans two groups of chunks
     for case in [(2, 45, 4, 64, 2, 128, True), (2, 100, 4, 16, 1, 16, True),
-                 (1, 33, 6, 32, 3, 64, False)]:
+                 (1, 33, 6, 32, 3, 64, False), (1, 1100, 4, 64, 1, 128, True)]:
         b, s_, h, p, g, n, init = case
         xs = torch.randn(b, s_, h, p, device="cuda", generator=gen)
         dts = torch.nn.functional.softplus(torch.randn(b, s_, h, device="cuda", generator=gen))
@@ -2710,18 +2748,27 @@ def check_backward_kernels(torch, ssd, rk, ref, seed: int):
         hs = torch.randn(b, h, p, n, device="cuda", generator=gen) if init else None
         dys = torch.randn(b, s_, h, p, device="cuda", generator=gen)
         dhs = torch.randn(b, h, p, n, device="cuda", generator=gen)
-        held(ssd.ssd_scan_bwd(xs, dts, As, Bs, Cs, init_state=hs, dy=dys, dh=dhs),
-             ref.ssd_scan_vjp(xs, dts, As, Bs, Cs, hs, dys, dhs),
-             "float32_B{}_S{}_H{}_P{}_G{}_N{}_init{}".format(*case))
+        name = "B{}_S{}_H{}_P{}_G{}_N{}_init{}".format(*case)
+        if s_ < 1000:
+            held(routed("float32_" + name,
+                        lambda: ssd.ssd_scan_bwd(xs, dts, As, Bs, Cs, init_state=hs, dy=dys,
+                                                 dh=dhs)),
+                 ref.ssd_scan_vjp(xs, dts, As, Bs, Cs, hs, dys, dhs), "float32_" + name)
+        if ssd.bwd_route(torch.bfloat16, p, n) == "wgmma":
+            xb, Bb, Cb, dyb = (t.bfloat16() for t in (xs, Bs, Cs, dys))
+            held(routed("bf16_" + name,
+                        lambda: ssd.ssd_scan_bwd(xb, dts, As, Bb, Cb, init_state=hs, dy=dyb,
+                                                 dh=dhs)),
+                 ref.ssd_scan_vjp(*wide(xb, dts, As, Bb, Cb, hs, dyb, dhs)), "bf16_" + name)
 
-    # the bound: the operands are bf16, so their products could run on the
-    # bf16 tensor cores (as the forward row's are bounded); the float32
-    # CUDA-core time of the same products is kept as a detail
+    # the bound: the operands are bf16 and the products run on the bf16
+    # tensor cores; the float32 CUDA-core time of the same products is kept
+    # as a detail
     flops, n_bytes = ssd_bwd_flops_bytes(B, S, H, P, G, N, 2, False)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
     xf, Bf, Cf, dyf = wide(x, Bm, C, dy)
     ssd_row = {
-        "name": "ssd_scan_bwd", "route": "cuda", "kernel_route": "cuda_core",
+        "name": "ssd_scan_bwd", "route": "cuda", "kernel_route": route,
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": REPLACES["ssd_scan_bwd"], "pallas_counterpart": False,
         "max_abs_err": err,
@@ -2732,8 +2779,13 @@ def check_backward_kernels(torch, ssd, rk, ref, seed: int):
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,  # no single PyTorch call computes the scan's VJP
+        "cuda_core_ms": median_ms(
+            torch, lambda: ssd.ssd_scan_bwd_variant(x, dt, A, Bm, C, dy=dy, kernel="cuda_core"),
+            reps=5, inner=3),
     }
     detail["ssd_flops"], detail["ssd_bytes"] = flops, n_bytes
+    detail["ssd_kernel_flops"] = ssd_bwd_products(B, S, H, P, N, 128, scores=4)
+    detail["ssd_bytes_bound_ms"] = t_bytes * 1e3
     detail["ssd_float32_cuda_core_bound_ms"] = max(t_bytes, flops / FP32_OPS_PER_S) * 1e3
 
     # RMSNorm: the training shapes (team route: the block norms at d 2560,
@@ -2863,8 +2915,11 @@ def run_phase18(torch, seed: int, ssd, rk, ref):
             and launches.get("ssd_scan") == 2 * cfg.n_layers,
             f"an eager step's SSD forward launches {launches}: not {2 * cfg.n_layers} "
             f"(forward and recompute) all on the tensor-core route")
-    require(launches.get("ssd_scan_bwd") == cfg.n_layers,
-            f"an eager step's SSD backward launches {launches}: not {cfg.n_layers}")
+    require(launches.get("ssd_scan_bwd") == cfg.n_layers
+            and launches.get("ssd_scan_bwd_wgmma") == cfg.n_layers
+            and launches.get("ssd_scan_bwd_cuda_core", 0) == 0,
+            f"an eager step's SSD backward launches {launches}: not {cfg.n_layers} all on "
+            "the tensor-core route")
     require(launches.get("rmsnorm", 0) > 0 and launches.get("rmsnorm_bwd", 0) > 0,
             f"an eager step did not run the RMSNorm forward and backward kernels: {launches}")
     eager = {k: torch.stack([m[k] for m in eager_mets]) for k in eager_mets[0]}
@@ -3195,7 +3250,7 @@ def main() -> int:
     order = ("name", "route", "kernel_route", "source", "replaces", "pallas_counterpart",
              "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "sector_bound_ms", "library_ms", "library_call", "library_fwd_bwd_ms",
-             "library_fwd_ms", "earlier_ms", "decode",
+             "library_fwd_ms", "earlier_ms", "cuda_core_ms", "decode",
              "served_shapes", "phase17_launches", "phase18_launches", "shape",
              "one_program_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in order if k in r} for r in rows]}))

@@ -557,6 +557,18 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_
       : "l"(a), "l"(b), "r"(1));
 }
 
+// d[32] += A (64 x 16, K-major, shared) * B (16 x 64, MN-major, shared)
+__device__ __forceinline__ void wgmma_ss_n64_tb(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : TC_D32(0)
+      : "l"(a), "l"(b), "r"(1));
+}
+
 // d[32] += A (64 x 16, bf16 registers) * B (16 x 64, MN-major, shared)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
                                              uint64_t b) {
@@ -1375,6 +1387,787 @@ cudaError_t launch(const Args& a, int batch, void* dB, void* dC, float* dA, cuda
 
 }  // namespace bwd
 
+// ---------------------------------------------------------------------------
+// The tensor-core backward: ssd_bwd_wgmma_kernel, then ssd_bwd_group_sum and
+// ssd_bwd_batch_sum as above.
+//
+// It replaces no Pallas kernel either (the reference's custom_vjp,
+// src/repro/models/ssm.py:46-49): it is the route of bf16 x, B, C and dy at
+// P 64, N 128 (kernels/ssd_scan.py:bwd_route), mamba2's training shapes;
+// ssd_bwd_kernel stays the route of float32 and of every other shape.
+//
+// Bound: bytes.  At B 4, S 512, H 80 the function moves ~66 MB (19.8 us at
+// 3.35 TB/s); its products, each counted once (not once a bf16 part) at
+// the sub-chunk of 16 to 128 rows that needs the fewest, are 15.0 GFLOP
+// (16 rows; 24.3 at 128): 15.2 us at the bf16 tensor-core peak.  This
+// kernel computes more: 28.3 GFLOP at its 128-row chunks, with C B^T beside
+// B C^T for da's pairs and dy x^T beside x dy^T for the layouts.  Beyond
+// the 66 MB it writes float32 partials of dB and dC, one a head ([B, S, H,
+// N], 84 MB each at H 80), and reads them back once in ssd_bwd_group_sum;
+// and, for a sequence of more chunks than a cluster holds, 32 KB a (batch,
+// head) and group boundary (hcarry).  The start-state scratch of
+// ssd_bwd_kernel (hs) is gone.
+//
+// The chunked "state passing" form, the chunks of a (batch, head) in
+// parallel as in ssd_wgmma_kernel: one CTA of two warpgroups per 128-row
+// chunk, the CTAs of the chunks a thread-block cluster, a cluster a
+// (batch, head).  Per chunk, with cum, eh_t = exp(cum_t), wend_s = exp(cum_last -
+// cum_s), d = exp(cum_last) and L[t,s] = exp(cum_t - cum_s) for t >= s
+// (taken only there, 0 selected elsewhere):
+//   (a) TMA loads x, dy (128 x 64) and B, C (128 x 128), 96 KB; on wgmma the
+//       forward increment h_inc = (x o wend dt)^T B and its mirror u_inc =
+//       (eh o dy)^T C, both published in shared memory with cum_last;
+//   (b) one cluster barrier, then by distributed shared memory the start
+//       state H0_c by the forward's prefix combination, and U_c = dL/dh at
+//       the chunk's end by the suffix combination
+//         U_c = sum_{j>c} (prod_{c<i<j} d_i) u_inc_j + (prod_{i>c} d_i) carry,
+//       carry being dh (or zeros) for the last group of chunks, else the U
+//       the next group left in dh0.  A sequence of more chunks than the
+//       cluster holds first walks its groups forward for their end states
+//       (hcarry; x, B and h_inc only), then in reverse for everything; no
+//       CTA waits on another's result.  H0 and U go to shared memory as PH
+//       and PU bf16 parts, laid out as the forward's h parts;
+//   (c) the local gradients on wgmma (formulas of ssd_bwd_kernel), each
+//       warpgroup owning 64 rows of the chunk, the scores of every product
+//       computed in the layout that product needs and fed from registers:
+//         dx = dt o (M1^T dy + wend o (B U^T)),  M1^T = (B C^T) o L^T
+//         dB = dt o (M2^T C + wend o (x U)),     M2^T = (x dy^T) o L^T
+//         dC = eh o (dy H0) + (M2 o dt) B,       M2 = (dy x^T) o L
+//       in 32-column slices of the causal triangle, the state products
+//       first and their rows scaled in registers (exact float32) before the
+//       slices accumulate;
+//   (d) dcum and da.  Their row-sum-minus-column-sum form (ssd_bwd_kernel's)
+//       leaves dA's bound at 128-row chunks in float32 (the diagonal blocks
+//       of Q cancel), so da_s is summed directly:
+//         da_s = sum_{t>=s} y0_t + eh_last U.H0 + sum_{u<s} E_u
+//                + sum_{t>=s} sum_{u<s} Q[t,u],
+//       Q = (C B^T) o (dy x^T) o L o dt (rows t, columns u, formed beside M2),
+//       y0_t = C_t . (eh_t dy_t H0), E_u = dt_u x_u . (wend_u U B_u), taken
+//       from the accumulators; the pairs' inner prefix over u runs along a
+//       row by quad shuffles, the outer sum over t by warp shuffles and a
+//       per-warp shared row added in warp order; ddt = x.(dx/dt) + A da;
+//   (e) dB and dC leave as a head's float32 partials and are added over a
+//       group's heads in head order by ssd_bwd_group_sum; dA leaves per
+//       (batch, chunk, head) and is summed over batch and chunks in order.
+//       No float atomics: a CUDA-graph replay equals an eager call bit for
+//       bit.
+// The float32 operands of a wgmma -- x o wend dt (PW parts), eh o dy (PE),
+// the scores M1^T, M2^T, M2 o dt (PS), H0 (PH) and U (PU) -- are cut into
+// bf16 parts (take_part); the counts are template arguments, measured
+// against the checks' bounds in tests/test_torch_backward.py and
+// scripts/ssd_bwd_times.py; the wrapper's BWD_PARTS is the served choice.
+// One CTA an SM: 255 registers a thread (a few spilled) and ~169 KB of
+// shared memory (the boxes 96 KB, the state area 64 KB, so PH + PU <= 4).
+namespace tcb {
+
+using tc::kBox;
+using tc::kHalf;
+using tc::kL;
+using tc::kN;
+using tc::kP;
+using tc::kThreads;
+
+constexpr int kStatePart = 2 * kHalf;  // a bf16 [P, N] state: boxes of N columns 0-63, 64-127
+constexpr int kOffC = 0;               // C: boxes of N columns 0-63 and 64-127
+constexpr int kOffB = 2 * kBox;        // B: the same
+constexpr int kOffX = 4 * kBox;        // x, then dy, of the head
+constexpr int kOffS = 6 * kBox;        // the state area
+constexpr int kArea = 4 * kStatePart;  // 64 KB
+constexpr int kPub = 2 * kStatePart;   // where u_inc is published in it, after h_inc
+constexpr unsigned kFull = 0xffffffffu;
+
+// Shared memory, in bytes from the 1024-aligned base, past the boxes (C, B,
+// x and dy): the state area (the published float32 h_inc and u_inc, then
+// H0's PH and U's PU bf16 parts), eight float vectors of kL rows, a row of
+// kL floats a warp for da's pair sums, the loads' mbarrier, cum_last and
+// U.H0 a warp.
+template <int PH, int PU>
+struct Smem {
+  static_assert(PH + PU <= 4, "H0's and U's parts fill at most the state area");
+  static constexpr int kVec = kOffS + kArea;
+  static constexpr int kRed = kVec + 8 * kL * 4;
+  static constexpr int kMisc = kRed + 8 * kL * 4;
+  static constexpr int kTotal = kMisc + 64 + 1024;  // + the base's alignment
+};
+
+struct Params {
+  CUtensorMap tx, tdy, tb, tc;  // (64 or 128, S, H or G, B) bf16; boxes of 64 x 128 x 1 x 1
+  const float* dt;              // [B, S, H], strides dt_sb, dt_ss, 1
+  const float* A;               // [H]
+  const float* h0;              // [B, H, P, N] or null (zero state)
+  const float* dh;              // [B, H, P, N] or null (zero cotangent)
+  __nv_bfloat16* dx;            // [B, S, H, P]
+  float* ddt;                   // [B, S, H]
+  float* dB_part;               // [B, S, H, N]: a head's
+  float* dC_part;               // [B, S, H, N]
+  float* dA_part;               // [B, chunks, H]
+  float* dh0;                   // [B, H, P, N]; also U's carry between groups
+  float* hcarry;                // [B, H, groups - 1, P, N] end states, or null
+  long long dt_sb, dt_ss;
+  int S, H, G, chunks, groups, batch;
+};
+
+// dt of the chunk's rows (0 past len), cum, eh, wend and w = wend dt.
+__device__ __forceinline__ void decays(float* dts, const float* dtg, long long ss, int row0,
+                                       int len, float A, int tid) {
+  float* cum = dts + kL;
+  float* eh = cum + kL;
+  float* wend = eh + kL;
+  float* wts = wend + kL;
+  for (int t = tid; t < kL; t += kThreads)
+    dts[t] = t < len ? dtg[static_cast<long long>(row0 + t) * ss] : 0.f;
+  __syncthreads();
+  if (tid < 32) tc::chunk_cumsum(cum, dts, A, tid);
+  __syncthreads();
+  const float cl = cum[kL - 1];
+  for (int t = tid; t < kL; t += kThreads) {
+    eh[t] = expf(cum[t]);
+    wend[t] = expf(cl - cum[t]);
+    wts[t] = wend[t] * dts[t];
+  }
+  __syncthreads();
+}
+
+// A [P, N] state in the increments' register order, to shared memory:
+// float4 q of thread t at 16 (256 q + t) bytes.
+__device__ __forceinline__ void publish(uint8_t* area, const float (&v)[32], int tid) {
+  float4* out = reinterpret_cast<float4*>(area);
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    out[q * kThreads + tid] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+}
+
+// acc += sum over the ranks j = first, first + step, ... (count of them) of
+// exp(the sum of cum_last over the ranks between this CTA and j) times the
+// state rank j published at `area`, read through distributed shared memory;
+// returns the sum of cum_last over those ranks.
+__device__ __forceinline__ float combine(float (&acc)[32], uint32_t area, uint32_t clast,
+                                         int first, int step, int count, int tid) {
+  float run = 0.f;
+  for (int i = 0; i < count; ++i) {
+    const int j = first + i * step;
+    const float e = expf(run);
+    const uint32_t src = tc::map_rank(area, j);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float4 v = tc::ld_cluster4(src + 16 * (q * kThreads + tid));
+      acc[4 * q] = fmaf(e, v.x, acc[4 * q]);
+      acc[4 * q + 1] = fmaf(e, v.y, acc[4 * q + 1]);
+      acc[4 * q + 2] = fmaf(e, v.z, acc[4 * q + 2]);
+      acc[4 * q + 3] = fmaf(e, v.w, acc[4 * q + 3]);
+    }
+    run += tc::ld_cluster(tc::map_rank(clast, j));
+  }
+  return run;
+}
+
+// s = rows 64 wg .. 64 wg + 63 of the K-major box(es) at a times rows v0 ..
+// v0 + 31 of those at b, over K = 16 KS (past 64 columns, the next box).
+template <int KS>
+__device__ __forceinline__ void score(float (&s)[16], uint32_t a, uint32_t b, int wg, int v0) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) s[j] = 0.f;
+  tc::fence_regs(s);
+  tc::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+    tc::wgmma_ss_n32(s, tc::desc(a + off + wg * kHalf, 16, 1024),
+                     tc::desc(b + off + v0 * 128, 16, 1024));
+  }
+  tc::wgmma_commit();
+  tc::wgmma_wait_all();
+  tc::fence_regs(s);
+}
+
+// acc += a slice's 16 scores (cut into NP bf16 parts, from registers) times
+// rows v0 .. v0 + 31 of an MN-major box of 64 columns.  The caller fences
+// acc, commits and waits.
+template <int NP>
+__device__ __forceinline__ void slice_product(float (&acc)[32], const uint32_t (&ga)[NP][2][4],
+                                              uint32_t box, int v0) {
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    const uint64_t bd = tc::desc(box + (v0 + 16 * ks) * 128, kHalf, 1024);
+#pragma unroll
+    for (int part = 0; part < NP; ++part) tc::wgmma_rs_n64(acc, ga[part][ks], bd);
+  }
+}
+
+template <int NP>
+__device__ __forceinline__ void fragments(uint32_t (&ga)[NP][2][4], const float (&s)[16]) {
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float a = s[8 * ks + 2 * r], b = s[8 * ks + 2 * r + 1];
+#pragma unroll
+      for (int part = 0; part < NP; ++part) ga[part][ks][r] = tc::take_part(a, b);
+    }
+}
+
+__device__ __forceinline__ void scale_rows(float (&a)[32], float fa, float fb) {
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    const float f = q % 2 ? fb : fa;
+    a[2 * q] *= f;
+    a[2 * q + 1] *= f;
+  }
+}
+
+// The accumulator's rows ra and rb (64 columns) dotted with the same rows
+// and columns of a swizzled bf16 box, each summed over the quad.
+__device__ __forceinline__ void row_dots(const float (&a)[32], const uint8_t* box, int ra, int rb,
+                                         int c0, float& da, float& db) {
+  float sa = 0.f, sb = 0.f;
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    const int row = q % 2 ? rb : ra;
+    const float2 v = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(box + tc::swizzled(row, 8 * (q / 2) + c0)));
+    const float d = fmaf(a[2 * q], v.x, a[2 * q + 1] * v.y);
+    if (q % 2) sb += d; else sa += d;
+  }
+  sa += __shfl_xor_sync(kFull, sa, 1);
+  sb += __shfl_xor_sync(kFull, sb, 1);
+  sa += __shfl_xor_sync(kFull, sa, 2);
+  sb += __shfl_xor_sync(kFull, sb, 2);
+  da = sa;
+  db = sb;
+}
+
+// da's pairs over one 32-column slice of Q (rows t: this thread's ta, tb;
+// columns u, in the accumulator layout): for each column s of the slice,
+// the sum over this warp's rows t >= s of sum_{u<s} Q[t, u], to red[s] (by
+// lanes 0-3).  run_a and run_b carry each row's sum over the earlier slices.
+__device__ __forceinline__ void pair_sums(const float (&q)[16], float& run_a, float& run_b, int ta,
+                                          int tb, int v0, int c0, int lane, float* red) {
+  const int l4 = lane & 3;
+  float col[8];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float pa = q[4 * j] + q[4 * j + 1], pb = q[4 * j + 2] + q[4 * j + 3];
+    float ia = pa, ib = pb;  // inclusive scan of the pairs over the quad
+#pragma unroll
+    for (int d = 1; d < 4; d <<= 1) {
+      const float oa = __shfl_up_sync(kFull, ia, d), ob = __shfl_up_sync(kFull, ib, d);
+      if (l4 >= d) {
+        ia += oa;
+        ib += ob;
+      }
+    }
+    float ea = __shfl_up_sync(kFull, ia, 1), eb = __shfl_up_sync(kFull, ib, 1);
+    if (l4 == 0) ea = eb = 0.f;
+    const float tot_a = __shfl_sync(kFull, ia, lane | 3), tot_b = __shfl_sync(kFull, ib, lane | 3);
+    const int s0 = v0 + 8 * j + c0;
+    const float ua = run_a + ea, ub = run_b + eb;  // sum_{u < s0} of each row
+    col[2 * j] = (ta >= s0 ? ua : 0.f) + (tb >= s0 ? ub : 0.f);
+    col[2 * j + 1] = (ta > s0 ? ua + q[4 * j] : 0.f) + (tb > s0 ? ub + q[4 * j + 2] : 0.f);
+    run_a += tot_a;
+    run_b += tot_b;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    col[i] += __shfl_xor_sync(kFull, col[i], 4);
+    col[i] += __shfl_xor_sync(kFull, col[i], 8);
+    col[i] += __shfl_xor_sync(kFull, col[i], 16);
+  }
+  if (lane < 4) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      red[v0 + 8 * j + c0] = col[2 * j];
+      red[v0 + 8 * j + c0 + 1] = col[2 * j + 1];
+    }
+  }
+}
+
+// Rows ra, rb of a 64-column float32 half tile to rows of `out` (row
+// stride rs), less rows past len.
+__device__ __forceinline__ void store_half(float* out, long long rs, const float (&a)[32], int ra,
+                                           int rb, int c0, int len) {
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    const int row = q % 2 ? rb : ra;
+    if (row < len)
+      *reinterpret_cast<float2*>(out + row * rs + 8 * (q / 2) + c0) =
+          make_float2(a[2 * q], a[2 * q + 1]);
+  }
+}
+
+// Rows ra, rb of a 128-column float32 tile (lo: columns 0-63, hi: 64-127),
+// as store_half each half.
+__device__ __forceinline__ void store_rows(float* out, long long rs, const float (&lo)[32],
+                                           const float (&hi)[32], int ra, int rb, int c0,
+                                           int len) {
+  store_half(out, rs, lo, ra, rb, c0, len);
+  store_half(out + 64, rs, hi, ra, rb, c0, len);
+}
+
+// PW, PE, PS, PH, PU: bf16 parts of x o w, eh o dy, the scores, H0 and U.
+template <int PW, int PE, int PS, int PH, int PU>
+__global__ void __launch_bounds__(kThreads, 1)
+    ssd_bwd_wgmma_kernel(const __grid_constant__ Params p) {
+  using Lay = Smem<PH, PU>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
+  float* dts = reinterpret_cast<float*>(sm + Lay::kVec);
+  float* cum = dts + kL;
+  float* eh = cum + kL;     // exp(cum_t)
+  float* wend = eh + kL;    // exp(cum_last - cum_s)
+  float* wts = wend + kL;   // wend_s dt_s
+  float* y0v = wts + kL;    // y0_t = C_t . (eh_t dy_t H0)
+  float* ev = y0v + kL;     // E_s = dt_s x_s . (wend_s U B_s)
+  float* ddtd = ev + kL;    // x_s . (dx_s / dt_s)
+  float* red = reinterpret_cast<float*>(sm + Lay::kRed);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + Lay::kMisc);
+  float* clast = reinterpret_cast<float*>(sm + Lay::kMisc + 16);
+  float* uhw = reinterpret_cast<float*>(sm + Lay::kMisc + 32);
+  const uint32_t sC = tc::smem_u32(sm + kOffC), sB = tc::smem_u32(sm + kOffB);
+  const uint32_t sS = tc::smem_u32(sm + kOffS), sLast = tc::smem_u32(clast);
+
+  const int rank = blockIdx.x, K = gridDim.x;  // the cluster spans grid x
+  const int h = blockIdx.y, b = blockIdx.z, g = h / (p.H / p.G);
+  const long long bh = static_cast<long long>(b) * p.H + h;
+  const float A = p.A[h];
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32, lane = tid % 32;
+  // wgmma's accumulator layout, as in ssd_wgmma_kernel; ta and tb are this
+  // thread's rows of the chunk
+  const int r0 = ((tid % 128) / 32) * 16 + (tid % 32) / 4, c0 = 2 * (tid % 4);
+  const int ta = wg * 64 + r0, tb = ta + 8;
+  const long long PN = kP * kN;
+  auto at = [&](int q) { return (r0 + 8 * (q % 2)) * kN + wg * 64 + 8 * (q / 2) + c0; };
+  auto end_state = [&](int grp) { return p.hcarry + (bh * (p.groups - 1) + grp) * PN; };
+  uint8_t* const xb = sm + kOffX;  // x, then dy
+  const uint32_t sX = tc::smem_u32(xb), sDY = sX + kBox;
+  uint32_t phase = 0;  // of the loads' mbarrier
+
+  if (tid == 0) {
+    tc::mbar_init(full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto wait_loads = [&]() {
+    tc::mbar_wait(full, phase);
+    phase ^= 1;
+  };
+
+  // The end states of groups 0 .. groups - 2, walked forward (every chunk
+  // of those groups is whole): the CTA of a group's last chunk writes them.
+  for (int grp = 0; grp + 1 < p.groups; ++grp) {
+    const int row0 = (grp * K + rank) * kL;
+    if (tid == 0) {
+      tc::mbar_expect_tx(full, 3 * kBox);
+      tc::tma_load(&p.tb, sm + kOffB, full, 0, row0, g, b);
+      tc::tma_load(&p.tb, sm + kOffB + kBox, full, 64, row0, g, b);
+      tc::tma_load(&p.tx, sm + kOffX, full, 0, row0, h, b);
+    }
+    decays(dts, p.dt + b * p.dt_sb + h, p.dt_ss, row0, kL, A, tid);
+    wait_loads();
+    float inc[32];
+    tc::chunk_increment<PW>(inc, sB, sX, wts, wg, c0);
+    publish(sm + kOffS, inc, tid);
+    if (tid == 0) *clast = cum[kL - 1];
+    tc::cluster_sync();
+    if (rank == K - 1) {
+      float hp[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) hp[j] = 0.f;
+      const float run = combine(hp, sS, sLast, rank - 1, -1, rank, tid);
+      const float* carry = grp == 0 ? (p.h0 ? p.h0 + bh * PN : nullptr) : end_state(grp - 1);
+      if (carry != nullptr) {
+        const float e = expf(run);
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          const float2 v = __ldcg(reinterpret_cast<const float2*>(carry + at(q)));
+          hp[2 * q] = fmaf(e, v.x, hp[2 * q]);
+          hp[2 * q + 1] = fmaf(e, v.y, hp[2 * q + 1]);
+        }
+      }
+      const float d = expf(cum[kL - 1]);
+      const float* mine = reinterpret_cast<const float*>(sm + kOffS);
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const int j = 2 * q, o = 4 * ((j / 4) * kThreads + tid) + j % 4;
+        __stcg(reinterpret_cast<float2*>(end_state(grp) + at(q)),
+               make_float2(fmaf(d, hp[j], mine[o]), fmaf(d, hp[j + 1], mine[o + 1])));
+      }
+    }
+    tc::cluster_sync();
+    tc::fence_proxy_async();
+    __syncthreads();
+  }
+
+  // Every group of chunks in reverse: the exchange, then the chunk's
+  // gradients.
+  for (int grp = p.groups - 1; grp >= 0; --grp) {
+    const int c = grp * K + rank;
+    const bool active = c < p.chunks;  // uniform over the CTA
+    const int nact = min(K, p.chunks - grp * K);
+    const int row0 = c * kL;
+    const int len = active ? min(kL, p.S - row0) : 0;
+    if (active) {
+      if (tid == 0) {  // once the group before is done with the boxes
+        tc::mbar_expect_tx(full, 6 * kBox);
+        tc::tma_load(&p.tc, sm + kOffC, full, 0, row0, g, b);
+        tc::tma_load(&p.tc, sm + kOffC + kBox, full, 64, row0, g, b);
+        tc::tma_load(&p.tb, sm + kOffB, full, 0, row0, g, b);
+        tc::tma_load(&p.tb, sm + kOffB + kBox, full, 64, row0, g, b);
+        tc::tma_load(&p.tx, xb, full, 0, row0, h, b);
+        tc::tma_load(&p.tdy, xb + kBox, full, 0, row0, h, b);
+      }
+      decays(dts, p.dt + b * p.dt_sb + h, p.dt_ss, row0, len, A, tid);
+      wait_loads();
+      float inc[32];
+      tc::chunk_increment<PW>(inc, sB, sX, wts, wg, c0);
+      publish(sm + kOffS, inc, tid);
+      tc::chunk_increment<PE>(inc, sC, sDY, eh, wg, c0);
+      publish(sm + kOffS + kPub, inc, tid);
+      if (tid == 0) *clast = cum[kL - 1];
+    }
+    tc::cluster_sync();  // every increment of the group is published
+
+    float hp[32], up[32];
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) hp[j] = up[j] = 0.f;
+      float run = combine(hp, sS, sLast, rank - 1, -1, rank, tid);
+      const float* carry = grp == 0 ? (p.h0 ? p.h0 + bh * PN : nullptr) : end_state(grp - 1);
+      if (carry != nullptr) {
+        const float e = expf(run);
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          const float2 v = __ldcg(reinterpret_cast<const float2*>(carry + at(q)));
+          hp[2 * q] = fmaf(e, v.x, hp[2 * q]);
+          hp[2 * q + 1] = fmaf(e, v.y, hp[2 * q + 1]);
+        }
+      }
+      run = combine(up, sS + kPub, sLast, rank + 1, 1, nact - 1 - rank, tid);
+      const float* ucarry = grp == p.groups - 1 ? p.dh : p.dh0;
+      if (ucarry != nullptr) {
+        const float e = expf(run);
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          const float2 v = __ldcg(reinterpret_cast<const float2*>(ucarry + bh * PN + at(q)));
+          up[2 * q] = fmaf(e, v.x, up[2 * q]);
+          up[2 * q + 1] = fmaf(e, v.y, up[2 * q + 1]);
+        }
+      }
+    }
+    tc::cluster_sync();  // every read of the group's increments and carries is done
+
+    if (active) {
+      float uh = 0.f;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) uh = fmaf(up[j], hp[j], uh);
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1) uh += __shfl_xor_sync(kFull, uh, m);
+      if (lane == 0) uhw[warp] = uh;
+      // the group's first chunk: dL/dh at its start, d U + u_inc, to dh0
+      // (the earlier group's carry, or the result)
+      if (rank == 0) {
+        const float d = expf(cum[kL - 1]);
+        const float* mine = reinterpret_cast<const float*>(sm + kOffS + kPub);
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          const int j = 2 * q, o = 4 * ((j / 4) * kThreads + tid) + j % 4;
+          __stcg(reinterpret_cast<float2*>(p.dh0 + bh * PN + at(q)),
+                 make_float2(fmaf(d, up[j], mine[o]), fmaf(d, up[j + 1], mine[o + 1])));
+        }
+      }
+      __syncthreads();  // the published increments are read
+      // H0 and U as bf16 parts, each laid out as B^T's K-major boxes
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const int off = wg * kHalf + tc::swizzled(r0 + 8 * (q % 2), 8 * (q / 2) + c0);
+        float a = hp[2 * q], b2 = hp[2 * q + 1];
+#pragma unroll
+        for (int part = 0; part < PH; ++part)
+          *reinterpret_cast<uint32_t*>(sm + kOffS + part * kStatePart + off) =
+              tc::take_part(a, b2);
+        a = up[2 * q];
+        b2 = up[2 * q + 1];
+#pragma unroll
+        for (int part = 0; part < PU; ++part)
+          *reinterpret_cast<uint32_t*>(sm + kOffS + (PH + part) * kStatePart + off) =
+              tc::take_part(a, b2);
+      }
+      tc::fence_proxy_async();  // the parts are read by wgmma
+      __syncthreads();
+
+      const float dta = dts[ta], dtb = dts[tb];
+      const long long first = (static_cast<long long>(b) * p.S + row0) * p.H + h;  // (b, row0, h)
+      const long long part_rows = static_cast<long long>(p.H) * kN;  // the partials' row stride
+
+      // dx = dt o (M1^T dy + wend o (B U^T)): rows s = ta, tb
+      {
+        float acc[32];
+#pragma unroll
+        for (int j = 0; j < 32; ++j) acc[j] = 0.f;
+        tc::fence_regs(acc);
+        tc::wgmma_fence();
+#pragma unroll
+        for (int part = 0; part < PU; ++part) {
+          const uint32_t ub = sS + (PH + part) * kStatePart;
+#pragma unroll
+          for (int kk = 0; kk < kN / 16; ++kk)
+            tc::wgmma_ss_n64(acc,
+                             tc::desc(sB + (kk / 4) * kBox + wg * kHalf + (kk % 4) * 32, 16, 1024),
+                             tc::desc(ub + (kk / 4) * kHalf + (kk % 4) * 32, 16, 1024));
+        }
+        tc::wgmma_commit();
+        tc::wgmma_wait_all();
+        tc::fence_regs(acc);
+        scale_rows(acc, wend[ta], wend[tb]);
+        float ea, eb;
+        row_dots(acc, xb, ta, tb, c0, ea, eb);
+        if ((tid & 3) == 0) {
+          ev[ta] = dta * ea;
+          ev[tb] = dtb * eb;
+        }
+        for (int k = 2 * wg; k < 4; ++k) {  // the slices of columns t >= the rows
+          const int v0 = 32 * k;
+          float s[16];
+          score<kN / 16>(s, sB, sC, wg, v0);  // B C^T: rows s, columns t
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int row = (j / 2) % 2 ? tb : ta, t = v0 + 8 * (j / 4) + c0 + (j % 2);
+            s[j] = t >= row ? s[j] * __expf(cum[t] - cum[row]) : 0.f;
+          }
+          uint32_t ga[PS][2][4];
+          fragments<PS>(ga, s);
+          tc::fence_regs(acc);
+          tc::wgmma_fence();
+          slice_product<PS>(acc, ga, sDY, v0);
+          tc::wgmma_commit();
+          tc::wgmma_wait_all();
+          tc::fence_regs(acc);
+        }
+        float xa, xbv;
+        row_dots(acc, xb, ta, tb, c0, xa, xbv);
+        if ((tid & 3) == 0) {
+          ddtd[ta] = xa;
+          ddtd[tb] = xbv;
+        }
+        __nv_bfloat16* dx = p.dx + first * kP;
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          const int row = q % 2 ? tb : ta;
+          const float f = q % 2 ? dtb : dta;
+          if (row < len)
+            *reinterpret_cast<__nv_bfloat162*>(dx + row * static_cast<long long>(p.H) * kP +
+                                               8 * (q / 2) + c0) =
+                __floats2bfloat162_rn(f * acc[2 * q], f * acc[2 * q + 1]);
+        }
+      }
+
+      // dB = dt o (M2^T C + wend o (x U)): rows s, the head's partial
+      {
+        float lo[32], hi[32];
+#pragma unroll
+        for (int j = 0; j < 32; ++j) lo[j] = hi[j] = 0.f;
+        tc::fence_regs(lo);
+        tc::fence_regs(hi);
+        tc::wgmma_fence();
+#pragma unroll
+        for (int part = 0; part < PU; ++part) {
+          const uint32_t ub = sS + (PH + part) * kStatePart;
+#pragma unroll
+          for (int kk = 0; kk < kP / 16; ++kk) {
+            const uint64_t a = tc::desc(sX + wg * kHalf + kk * 32, 16, 1024);
+            tc::wgmma_ss_n64_tb(lo, a, tc::desc(ub + kk * 2048, kHalf, 1024));
+            tc::wgmma_ss_n64_tb(hi, a, tc::desc(ub + kHalf + kk * 2048, kHalf, 1024));
+          }
+        }
+        tc::wgmma_commit();
+        tc::wgmma_wait_all();
+        tc::fence_regs(lo);
+        tc::fence_regs(hi);
+        scale_rows(lo, wend[ta], wend[tb]);
+        scale_rows(hi, wend[ta], wend[tb]);
+        for (int k = 2 * wg; k < 4; ++k) {
+          const int v0 = 32 * k;
+          float s[16];
+          score<kP / 16>(s, sX, sDY, wg, v0);  // x dy^T: rows s, columns t
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int row = (j / 2) % 2 ? tb : ta, t = v0 + 8 * (j / 4) + c0 + (j % 2);
+            s[j] = t >= row ? s[j] * __expf(cum[t] - cum[row]) : 0.f;
+          }
+          uint32_t ga[PS][2][4];
+          fragments<PS>(ga, s);
+          tc::fence_regs(lo);
+          tc::fence_regs(hi);
+          tc::wgmma_fence();
+          slice_product<PS>(lo, ga, sC, v0);
+          slice_product<PS>(hi, ga, sC + kBox, v0);
+          tc::wgmma_commit();
+          tc::wgmma_wait_all();
+          tc::fence_regs(lo);
+          tc::fence_regs(hi);
+        }
+        scale_rows(lo, dta, dtb);
+        scale_rows(hi, dta, dtb);
+        store_rows(p.dB_part + first * kN, part_rows, lo, hi, ta, tb, c0, len);
+      }
+
+      // dC = eh o (dy H0) + (M2 o dt) B: rows t, as dB.  Q beside
+      // M2, and da's pair sums from it
+      {
+        float lo[32], hi[32];
+#pragma unroll
+        for (int j = 0; j < 32; ++j) lo[j] = hi[j] = 0.f;
+        tc::fence_regs(lo);
+        tc::fence_regs(hi);
+        tc::wgmma_fence();
+#pragma unroll
+        for (int part = 0; part < PH; ++part) {
+          const uint32_t hb = sS + part * kStatePart;
+#pragma unroll
+          for (int kk = 0; kk < kP / 16; ++kk) {
+            const uint64_t a = tc::desc(sDY + wg * kHalf + kk * 32, 16, 1024);
+            tc::wgmma_ss_n64_tb(lo, a, tc::desc(hb + kk * 2048, kHalf, 1024));
+            tc::wgmma_ss_n64_tb(hi, a, tc::desc(hb + kHalf + kk * 2048, kHalf, 1024));
+          }
+        }
+        tc::wgmma_commit();
+        tc::wgmma_wait_all();
+        tc::fence_regs(lo);
+        tc::fence_regs(hi);
+        scale_rows(lo, eh[ta], eh[tb]);
+        scale_rows(hi, eh[ta], eh[tb]);
+        {
+          float ya, yb, za, zb;
+          row_dots(lo, sm + kOffC, ta, tb, c0, ya, yb);
+          row_dots(hi, sm + kOffC + kBox, ta, tb, c0, za, zb);
+          if ((tid & 3) == 0) {
+            y0v[ta] = ya + za;
+            y0v[tb] = yb + zb;
+          }
+        }
+        float* wred = red + warp * kL;
+        for (int s_ = lane; s_ < kL; s_ += 32) wred[s_] = 0.f;  // columns past the rows stay 0
+        __syncwarp();
+        float run_a = 0.f, run_b = 0.f;
+        for (int k = 0; k < 2 * (wg + 1); ++k) {  // the slices of columns u <= the rows
+          const int v0 = 32 * k;
+          float s[16], q[16];
+          score<kP / 16>(s, sDY, sX, wg, v0);  // dy x^T: rows t, columns u
+          score<kN / 16>(q, sC, sB, wg, v0);   // C B^T
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int row = (j / 2) % 2 ? tb : ta, u = v0 + 8 * (j / 4) + c0 + (j % 2);
+            if (u <= row) {
+              s[j] *= __expf(cum[row] - cum[u]) * dts[u];
+              q[j] *= s[j];
+            } else {
+              s[j] = 0.f;
+              q[j] = 0.f;
+            }
+          }
+          uint32_t ga[PS][2][4];
+          fragments<PS>(ga, s);
+          tc::fence_regs(lo);
+          tc::fence_regs(hi);
+          tc::wgmma_fence();
+          slice_product<PS>(lo, ga, sB, v0);
+          slice_product<PS>(hi, ga, sB + kBox, v0);
+          tc::wgmma_commit();
+          pair_sums(q, run_a, run_b, ta, tb, v0, c0, lane, wred);  // beside the products
+          tc::wgmma_wait_all();
+          tc::fence_regs(lo);
+          tc::fence_regs(hi);
+        }
+        store_rows(p.dC_part + first * kN, part_rows, lo, hi, ta, tb, c0, len);
+      }
+      __syncthreads();  // y0, E, x.(dx/dt), the pair sums and U.H0 are written
+
+      // da, ddt and this chunk's share of dA: one warp, rows 4 lane .. + 3
+      if (warp == 0) {
+        float uh = 0.f;
+        for (int w = 0; w < 8; ++w) uh += uhw[w];
+        const float tail = eh[kL - 1] * uh;
+        float y[4], e[4], dq[4];
+        float ys = 0.f, es = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int s_ = 4 * lane + j;
+          y[j] = y0v[s_];
+          e[j] = ev[s_];
+          dq[j] = 0.f;
+          for (int w = 0; w < 8; ++w) dq[j] += red[w * kL + s_];
+          ys += y[j];
+          es += e[j];
+        }
+        float ysuf = ys, epre = es;  // inclusive suffix / prefix over the lanes
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const float oy = __shfl_down_sync(kFull, ysuf, d), oe = __shfl_up_sync(kFull, epre, d);
+          if (lane + d < 32) ysuf += oy;
+          if (lane >= d) epre += oe;
+        }
+        float yrun = __shfl_down_sync(kFull, ysuf, 1), erun = __shfl_up_sync(kFull, epre, 1);
+        if (lane == 31) yrun = 0.f;
+        if (lane == 0) erun = 0.f;
+        float da[4];
+#pragma unroll
+        for (int j = 3; j >= 0; --j) {
+          yrun += y[j];
+          da[j] = yrun;  // sum_{t >= s} y0_t
+        }
+        float dap = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int s_ = 4 * lane + j;
+          da[j] += erun + tail + dq[j];
+          erun += e[j];
+          if (s_ < len) p.ddt[first + s_ * static_cast<long long>(p.H)] = fmaf(A, da[j], ddtd[s_]);
+          dap = fmaf(dts[s_], da[j], dap);
+        }
+#pragma unroll
+        for (int m = 16; m > 0; m >>= 1) dap += __shfl_xor_sync(kFull, dap, m);
+        if (lane == 0) p.dA_part[(static_cast<long long>(b) * p.chunks + c) * p.H + h] = dap;
+      }
+    }
+    tc::fence_proxy_async();
+    __syncthreads();  // shared memory is free for the next group's loads
+  }
+}
+
+template <int PW, int PE, int PS, int PH, int PU>
+cudaError_t launch(const Params& p, int cluster, void* dB, void* dC, float* dA, cudaStream_t s) {
+  auto kernel = ssd_bwd_wgmma_kernel<PW, PE, PS, PH, PU>;
+  constexpr int smem = Smem<PH, PU>::kTotal;
+  static const cudaError_t set =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (set != cudaSuccess) return set;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, p.H, p.batch);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long outer = static_cast<long long>(p.batch) * p.S;
+  const int blocks = static_cast<int>((outer * p.G * kN + 255) / 256);
+  bwd::ssd_bwd_group_sum<__nv_bfloat16><<<blocks, 256, 0, s>>>(
+      p.dB_part, static_cast<__nv_bfloat16*>(dB), outer, p.H, p.G, kN);
+  bwd::ssd_bwd_group_sum<__nv_bfloat16><<<blocks, 256, 0, s>>>(
+      p.dC_part, static_cast<__nv_bfloat16*>(dC), outer, p.H, p.G, kN);
+  bwd::ssd_bwd_batch_sum<<<(p.H + 255) / 256, 256, 0, s>>>(p.dA_part, dA, p.batch * p.chunks,
+                                                            p.H);
+  return cudaGetLastError();
+}
+
+}  // namespace tcb
+
 }  // namespace
 
 extern "C" {
@@ -1485,6 +2278,67 @@ int rt_ssd_scan_bwd(int dtype, const void* x, const void* dt, const void* A, con
   switch (dtype) {
     case kFloat32: return bwd::launch<float>(a, batch, dB, dC, dAf, s);
     case kBFloat16: return bwd::launch<__nv_bfloat16>(a, batch, dB, dC, dAf, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The tensor-core backward (namespace tcb): bf16 x [B,S,H,64], B and C
+// [B,S,G,128] with element strides (batch, seq, head or group), unit last
+// stride, base pointers and strides 16-byte aligned (TMA); dy [B,S,H,64]
+// bf16 contiguous; dt, A, h0 (or null), dh (or null) as rt_ssd_scan_bwd's.
+// Writes dx [B,S,H,64] and dB, dC [B,S,G,128] (bf16), ddt [B,S,H], dA [H]
+// and dh0 [B,H,64,128] (float32), all contiguous, through the float32
+// scratch dA_part [B,ceil(S/128),H], dB_part and dC_part [B,S,H,128] and,
+// when the cluster holds fewer CTAs than the chunks, hcarry
+// [B,H,groups-1,64,128].  cluster: the CTAs of a (batch, head), 1 to
+// min(chunks, 8); parts: the five part counts (x o w, eh o dy,
+// scores, H0, U) as decimal digits, an instantiated variant
+// (kernels/ssd_scan.py: BWD_PARTS_VARIANTS).
+int rt_ssd_scan_bwd_wgmma(const void* x, const void* dt, const void* A, const void* Bm,
+                          const void* C, const void* h0, const void* dy, const void* dh,
+                          void* dx, void* ddt, void* dA, void* dB, void* dC, void* dh0,
+                          void* dA_part, void* dB_part, void* dC_part, void* hcarry, int batch,
+                          int S, int H, int G, int cluster, int parts, long long x_sb,
+                          long long x_ss, long long x_sh, long long dt_sb, long long dt_ss,
+                          long long b_sb, long long b_ss, long long b_sg, long long c_sb,
+                          long long c_ss, long long c_sg, void* stream) {
+  const int chunks = S > 0 ? (S + tc::kL - 1) / tc::kL : 0;
+  if (batch <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G || batch > 65535 || H > 65535 ||
+      cluster < 1 || cluster > tc::kMaxCluster || cluster > chunks || dy == nullptr)
+    return cudaErrorInvalidValue;
+  const int groups = (chunks + cluster - 1) / cluster;
+  if (groups > 1 && hcarry == nullptr) return cudaErrorInvalidValue;
+  tcb::Params p{};
+  const long long hp = static_cast<long long>(H) * tc::kP;
+  if (!tc::encode(&p.tx, x, tc::kP, S, H, batch, x_ss, x_sh, x_sb) ||
+      !tc::encode(&p.tdy, dy, tc::kP, S, H, batch, hp, tc::kP, static_cast<long long>(S) * hp) ||
+      !tc::encode(&p.tb, Bm, tc::kN, S, G, batch, b_ss, b_sg, b_sb) ||
+      !tc::encode(&p.tc, C, tc::kN, S, G, batch, c_ss, c_sg, c_sb))
+    return cudaErrorInvalidValue;
+  p.dt = static_cast<const float*>(dt);
+  p.A = static_cast<const float*>(A);
+  p.h0 = static_cast<const float*>(h0);
+  p.dh = static_cast<const float*>(dh);
+  p.dx = static_cast<__nv_bfloat16*>(dx);
+  p.ddt = static_cast<float*>(ddt);
+  p.dB_part = static_cast<float*>(dB_part);
+  p.dC_part = static_cast<float*>(dC_part);
+  p.dA_part = static_cast<float*>(dA_part);
+  p.dh0 = static_cast<float*>(dh0);
+  p.hcarry = static_cast<float*>(hcarry);
+  p.dt_sb = dt_sb;
+  p.dt_ss = dt_ss;
+  p.S = S;
+  p.H = H;
+  p.G = G;
+  p.chunks = chunks;
+  p.groups = groups;
+  p.batch = batch;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* dAf = static_cast<float*>(dA);
+  switch (parts) {
+    case 11111: return tcb::launch<1, 1, 1, 1, 1>(p, cluster, dB, dC, dAf, s);
+    case 22222: return tcb::launch<2, 2, 2, 2, 2>(p, cluster, dB, dC, dAf, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -22,14 +22,19 @@ for CUDA tensors it launches its route's kernel or raises.
 route's launches, ``ssd_scan.launches`` their sum (a launch recorded
 into a CUDA graph counts once, at capture).
 
-On the card the scan is differentiable through a hand-written backward
-kernel (``rt_ssd_scan_bwd`` in the same source; the reference has no
-Pallas backward, it differentiates the plain scan through a
-``custom_vjp``, ``src/repro/models/ssm.py:46-49``): when grad mode is on
-and an input requires grad, :func:`ssd_scan` runs as a
-``torch.autograd.Function`` whose forward is the route's kernel and
-whose backward is :func:`ssd_scan_bwd` (``ssd_scan_bwd.launches``).  Its
-plain version, for tests only, is :func:`.ref.ssd_scan_vjp`.
+On the card the scan is differentiable through hand-written backward
+kernels in the same source (the reference has no Pallas backward, it
+differentiates the plain scan through a ``custom_vjp``,
+``src/repro/models/ssm.py:46-49``): when grad mode is on and an input
+requires grad, :func:`ssd_scan` runs as a ``torch.autograd.Function``
+whose forward is the route's kernel and whose backward is
+:func:`ssd_scan_bwd`.  Its route rule, fixed by dtype, head dim and state
+dim alone (:func:`bwd_route`): bf16 at P 64, N 128 takes the tensor-core
+backward (``rt_ssd_scan_bwd_wgmma``: the chunks of a (batch, head) in
+parallel in a cluster, as the forward), float32 and every other shape the
+CUDA-core one (``rt_ssd_scan_bwd``).  ``ssd_scan_bwd.launches_wgmma`` and
+``launches_cuda_core`` count each route's launches, ``launches`` their
+sum.  Its plain version, for tests only, is :func:`.ref.ssd_scan_vjp`.
 """
 
 from __future__ import annotations
@@ -55,9 +60,16 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #: the C entry points of ``csrc/ssd_scan.cu`` and their argument types
 SIGNATURES = {"rt_ssd_scan": [_I] + [_P] * 8 + [_I] * 7 + [_I64] * 11 + [_P],
               "rt_ssd_scan_wgmma": [_P] * 8 + [_I] * 6 + [_I64] * 11 + [_P],
-              "rt_ssd_scan_bwd": [_I] + [_P] * 18 + [_I] * 6 + [_I64] * 11 + [_P]}
-#: rows of a sub-chunk of the backward kernel (csrc ``bwd::kBL``)
+              "rt_ssd_scan_bwd": [_I] + [_P] * 18 + [_I] * 6 + [_I64] * 11 + [_P],
+              "rt_ssd_scan_bwd_wgmma": [_P] * 18 + [_I] * 6 + [_I64] * 11 + [_P]}
+#: rows of a sub-chunk of the CUDA-core backward kernel (csrc ``bwd::kBL``)
 BWD_ROWS = 32
+#: bf16 parts of (x o w, eh o dy, the scores, H0, U) the tensor-core
+#: backward takes on the served path: the fewest that meet the checks'
+#: gradient bounds (tests/test_torch_backward.py, scripts/ssd_bwd_times.py)
+BWD_PARTS = (2, 2, 2, 2, 2)
+#: the variants ``csrc/ssd_scan.cu`` instantiates (rt_ssd_scan_bwd_wgmma)
+BWD_PARTS_VARIANTS = ((1, 1, 1, 1, 1), (2, 2, 2, 2, 2))
 
 
 def route(dtype: torch.dtype, head_dim: int, state_dim: int, chunk: int) -> str:
@@ -65,6 +77,16 @@ def route(dtype: torch.dtype, head_dim: int, state_dim: int, chunk: int) -> str:
     dtype (x's), head dim P, state dim N and requested chunk takes."""
     if (dtype == torch.bfloat16 and head_dim == WGMMA_HEAD_DIM and state_dim == WGMMA_STATE
             and chunk == WGMMA_CHUNK):
+        return "wgmma"
+    return "cuda_core"
+
+
+def bwd_route(dtype: torch.dtype, head_dim: int, state_dim: int) -> str:
+    """``"wgmma"`` or ``"cuda_core"``: which backward kernel a CUDA call of
+    this dtype (x's, and so dy's), head dim P and state dim N takes.  The
+    backward has its own chunk (128 rows on the tensor cores, 32 on CUDA
+    cores), whatever the forward's was."""
+    if dtype == torch.bfloat16 and head_dim == WGMMA_HEAD_DIM and state_dim == WGMMA_STATE:
         return "wgmma"
     return "cuda_core"
 
@@ -135,13 +157,16 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.T
     [B,H,P,N]`` (None: zero), each in its input's dtype;
     ``dinit_state`` is None without an ``init_state``.
 
-    On the card, one launch of the backward kernel (a CTA per (batch,
-    head), float32; any shape the CUDA-core forward takes: P <= 64, N <=
-    128, G dividing H, any S) recomputes the states at every 32 rows and
-    walks them in reverse; then the per-head partials of dB and dC are
-    added over each group and dA's over the batch, in a fixed order (no
-    float atomics).  For CPU tensors, the plain version
-    :func:`.ref.ssd_scan_vjp`."""
+    On the card, one launch of the route's kernel (:func:`bwd_route`):
+    the tensor-core kernel (bf16 at P 64, N 128; a CTA per 128-row chunk,
+    the chunks of a (batch, head) in one cluster, :func:`max_cluster` of
+    them, a longer sequence walking groups of chunks), or the CUDA-core
+    kernel (a CTA per (batch, head), float32; any shape the CUDA-core
+    forward takes: P <= 64, N <= 128, G dividing H, any S), which
+    recomputes the states at every 32 rows and walks them in reverse.
+    Then a head's partials of dB and dC are added over each group and dA's
+    over the batch (and chunks), in a fixed order (no float atomics).  x, Bm and C may be strided views, read in place.  For CPU
+    tensors, the plain version :func:`.ref.ssd_scan_vjp`."""
     _check_shapes(x, dt, A, Bm, C, init_state)
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -152,6 +177,15 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.T
     if use_plain(*(t for t in (x, dt, A, Bm, C, init_state, dy, dh) if t is not None)):
         return ref.ssd_scan_vjp(x, dt, A, Bm, C, init_state, dy, dh)
     _check_inputs(x, dt, A, Bm, C, init_state)
+    if bwd_route(x.dtype, P, N) == "wgmma":
+        return _bwd_wgmma(x, dt, A, Bm, C, init_state, dy, dh)
+    return _bwd_cuda_core(x, dt, A, Bm, C, init_state, dy, dh)
+
+
+def _bwd_cuda_core(x, dt, A, Bm, C, init_state, dy, dh):
+    """The CUDA-core backward kernel, then the group and batch sums."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
     if not (P <= MAX_HEAD_DIM and N <= MAX_STATE):
         raise ValueError(f"the ssd_scan backward kernel takes P <= {MAX_HEAD_DIM}, N <= "
                          f"{MAX_STATE}; got {P}, {N}")
@@ -176,6 +210,72 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.T
         dB_part.data_ptr(), dC_part.data_ptr(), hs.data_ptr(), Bsz, S, H, P, G, N,
         *x.stride()[:3], *dt.stride()[:2], *Bm.stride()[:3], *C.stride()[:3], stream_arg(x))
     check_launch("ssd_scan", err)
+    ssd_scan_bwd.launches_cuda_core += 1
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, dA, dB, dC, (dh0 if init_state is not None else None)
+
+
+def ssd_scan_bwd_variant(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                         Bm: torch.Tensor, C: torch.Tensor, *,
+                         init_state: Optional[torch.Tensor] = None,
+                         dy: Optional[torch.Tensor] = None, dh: Optional[torch.Tensor] = None,
+                         cluster: Optional[int] = None, parts: Optional[Tuple[int, ...]] = None,
+                         kernel: str = "wgmma"):
+    """:func:`ssd_scan_bwd` on the tensor-core route's CUDA inputs, for
+    measurements and tests (``scripts/ssd_bwd_times.py``): with another
+    cluster size (1 to :func:`max_cluster`; fewer CTAs than chunks walk
+    groups of chunks) or bf16 parts (one of :data:`BWD_PARTS_VARIANTS`),
+    or, with ``kernel="cuda_core"``, the CUDA-core kernel on them (the
+    route's kernel before the tensor-core one)."""
+    _check_shapes(x, dt, A, Bm, C, init_state)
+    if bwd_route(x.dtype, x.shape[-1], Bm.shape[-1]) != "wgmma" or use_plain(x):
+        raise ValueError("ssd_scan_bwd_variant takes the tensor-core route's CUDA inputs")
+    _check_inputs(x, dt, A, Bm, C, init_state)
+    if kernel == "cuda_core":
+        return _bwd_cuda_core(x, dt, A, Bm, C, init_state, dy, dh)
+    if kernel != "wgmma":
+        raise ValueError(f"ssd_scan_bwd_variant: kernel {kernel!r} is not wgmma or cuda_core")
+    return _bwd_wgmma(x, dt, A, Bm, C, init_state, dy, dh, cluster, parts)
+
+
+def _bwd_wgmma(x, dt, A, Bm, C, init_state, dy, dh, cluster=None, parts=None):
+    """The tensor-core backward: x, Bm and C read in place where TMA can
+    (:func:`_tma_ok`), dy contiguous (zeros when absent), every output and
+    scratch allocated here."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    dev, f32 = x.device, torch.float32
+    x, Bm, C = (t if _tma_ok(t) else t.contiguous() for t in (x, Bm, C))
+    dy = torch.zeros_like(x, memory_format=torch.contiguous_format) if dy is None else (
+        dy.to(x.dtype).contiguous())
+    dh = None if dh is None else dh.to(f32).contiguous()
+    chunks = -(-S // WGMMA_CHUNK)
+    cluster = max_cluster(S) if cluster is None else int(cluster)
+    parts = BWD_PARTS if parts is None else tuple(parts)
+    if parts not in BWD_PARTS_VARIANTS or not 1 <= cluster <= max_cluster(S):
+        raise ValueError(f"ssd_scan_bwd: parts {parts} not in {BWD_PARTS_VARIANTS}, or "
+                         f"cluster {cluster} outside 1..{max_cluster(S)}")
+    groups = -(-chunks // cluster)
+    dx = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=dev)
+    ddt = torch.empty((Bsz, S, H), dtype=f32, device=dev)
+    dA = torch.empty((H,), dtype=f32, device=dev)
+    dB = torch.empty((Bsz, S, G, N), dtype=x.dtype, device=dev)
+    dC = torch.empty((Bsz, S, G, N), dtype=x.dtype, device=dev)
+    dh0 = torch.empty((Bsz, H, P, N), dtype=f32, device=dev)
+    dA_part = torch.empty((Bsz, chunks, H), dtype=f32, device=dev)
+    dB_part = torch.empty((Bsz, S, H, N), dtype=f32, device=dev)
+    dC_part = torch.empty((Bsz, S, H, N), dtype=f32, device=dev)
+    hcarry = (torch.empty((Bsz, H, groups - 1, P, N), dtype=f32, device=dev) if groups > 1
+              else None)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = load_library("ssd_scan", SIGNATURES).rt_ssd_scan_bwd_wgmma(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), C.data_ptr(),
+        ptr(init_state), dy.data_ptr(), ptr(dh), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+        dB.data_ptr(), dC.data_ptr(), dh0.data_ptr(), dA_part.data_ptr(), dB_part.data_ptr(),
+        dC_part.data_ptr(), ptr(hcarry), Bsz, S, H, G, cluster, int("".join(map(str, parts))),
+        *_tma_strides(x), *dt.stride()[:2], *_tma_strides(Bm), *_tma_strides(C), stream_arg(x))
+    check_launch("ssd_scan", err)
+    ssd_scan_bwd.launches_wgmma += 1
     ssd_scan_bwd.launches += 1
     return dx, ddt, dA, dB, dC, (dh0 if init_state is not None else None)
 
@@ -285,12 +385,16 @@ ssd_scan.launches = 0
 ssd_scan.launches_wgmma = 0
 ssd_scan.launches_cuda_core = 0
 ssd_scan_bwd.launches = 0
+ssd_scan_bwd.launches_wgmma = 0
+ssd_scan_bwd.launches_cuda_core = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return {"ssd_scan": ssd_scan.launches, "ssd_scan_wgmma": ssd_scan.launches_wgmma,
             "ssd_scan_cuda_core": ssd_scan.launches_cuda_core,
-            "ssd_scan_bwd": ssd_scan_bwd.launches}
+            "ssd_scan_bwd": ssd_scan_bwd.launches,
+            "ssd_scan_bwd_wgmma": ssd_scan_bwd.launches_wgmma,
+            "ssd_scan_bwd_cuda_core": ssd_scan_bwd.launches_cuda_core}
 
 
 def reset_launches() -> None:
@@ -298,3 +402,5 @@ def reset_launches() -> None:
     ssd_scan.launches_wgmma = 0
     ssd_scan.launches_cuda_core = 0
     ssd_scan_bwd.launches = 0
+    ssd_scan_bwd.launches_wgmma = 0
+    ssd_scan_bwd.launches_cuda_core = 0

@@ -10,11 +10,21 @@ and ``chip_smoke.py`` hold them against their plain versions.  Here:
   reference's ``custom_vjp`` differentiates): float32, rtol 1e-5 plus
   1e-5 of the leaf's largest entry (the same arithmetic in another
   order);
-* a float64 emulation of the SSD backward kernel's arithmetic (32-row
-  sub-chunks, recomputed start states, the carried dL/dh, the per-head
-  partials summed over a group) against the plain VJP: rtol 1e-5 plus
-  1e-5 of the leaf's largest entry.  A change to the kernel's algorithm
-  must be mirrored in :func:`emulate_ssd_bwd`;
+* a float64 emulation of the CUDA-core SSD backward kernel's arithmetic
+  (32-row sub-chunks, recomputed start states, the carried dL/dh, the
+  per-head partials summed over a group) against the plain VJP: rtol 1e-5
+  plus 1e-5 of the leaf's largest entry.  A change to the kernel's
+  algorithm must be mirrored in :func:`emulate_ssd_bwd`;
+* a float32 emulation of the tensor-core SSD backward kernel's arithmetic
+  (:func:`emulate_ssd_bwd_wgmma`: chunks in parallel, the prefix and suffix
+  combinations of the states in cluster groups, da from its pairs, the
+  operands cut into bf16 parts) against the plain VJP and ``jax.vjp``
+  within the kernel's gradient bound (``chip_smoke.py``'s GRAD_RTOL 2e-4
+  plus GRAD_FRAC 2e-5 of the leaf's largest entry, one bf16 rounding more
+  for a bf16 result): in float32 without parts, and at the served widths
+  with ``ssd_scan.BWD_PARTS``, one part fewer of any operand leaving the
+  bound.  A change to that kernel's algorithm or parts must be mirrored
+  in :func:`emulate_ssd_bwd_wgmma`;
 * the wrappers on CPU tensors run the plain versions (no launch counted),
   and ``ops.rmsnorm`` / ``ops.ssd_scan`` stay differentiable by autograd.
 """
@@ -29,6 +39,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as rk
 from repro_torch.kernels import ssd_scan as ssd
+from test_torch_ssd import _split
 
 # (B, S, H, P, G, N, init_state): a short last sub-chunk, 2 groups, the
 # smoke model's P 16 / N 16 at S 32 (one sub-chunk), several sub-chunks
@@ -120,18 +131,213 @@ def emulate_ssd_bwd(x, dt, A, Bm, C, h0, dy, dh, L=ssd.BWD_ROWS):
     return dx, ddt, dA, fold(dB), fold(dC), (U if h0 is not None else None)
 
 
+def emulate_ssd_bwd_wgmma(x, dt, A, Bm, C, h0, dy, dh, chunk=128, parts=None, cluster=None):
+    """``csrc/ssd_scan.cu``'s tensor-core backward (namespace ``tcb``) in
+    float32, vectorised over (batch, head, chunk).  Per chunk of ``chunk``
+    rows, padded with zeros and dt 0: cum, the increments h_inc = (x o wend
+    dt)^T B and u_inc = (eh o dy)^T C; then, over groups of ``cluster``
+    chunks (a cluster's CTAs; default one a chunk, at most 8), each
+    chunk's start state H0 by prefix combination (groups walked forward,
+    the carry init_state) and its end cotangent U by suffix combination
+    (groups in reverse, the carry dh), dh0 the U the first chunk leaves;
+    the local gradients with the state products' rows scaled before the
+    slices add; da summed from its parts and pairs (no row-minus-column
+    cancellation).  ``parts = (x o w, eh o dy, scores, H0, U)`` cuts those
+    wgmma operands into bf16 parts first (None: float32, uncut).  Returns
+    the six gradients, dx, dB and dC in x's dtype."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2:]
+    rep = H // G
+    cut = (lambda v, n: v) if parts is None else _split
+    pw, pe, ps, ph, pu = parts or (0,) * 5
+    nc = -(-S // chunk)
+    K = min(nc, ssd.MAX_CLUSTER) if cluster is None else cluster
+
+    def chunked(t, width):  # [B, S, H, width] -> [B, H, chunks, chunk, width]
+        out = torch.zeros(Bsz, nc * chunk, H, width)
+        out[:, :S] = t.float()
+        return out.view(Bsz, nc, chunk, H, width).permute(0, 3, 1, 2, 4)
+
+    T = lambda m: m.transpose(-1, -2)  # noqa: E731
+    scale = lambda e: torch.exp(e)[..., None, None]  # noqa: E731
+    xs = chunked(x, P)
+    dys = chunked(torch.zeros_like(x) if dy is None else dy, P)
+    Bs, Cs = (chunked(t.repeat_interleave(rep, 2), N) for t in (Bm, C))
+    dts = chunked(dt[..., None], 1)[..., 0]
+    cum = torch.cumsum(A[None, :, None, None] * dts, -1)
+    last = cum[..., -1]                                          # [B, H, chunks]
+    eh, wend = torch.exp(cum), torch.exp(last[..., None] - cum)
+    h_inc = T(cut(xs * (wend * dts)[..., None], pw)) @ Bs
+    u_inc = T(cut(dys * eh[..., None], pe)) @ Cs
+    carry = torch.zeros(Bsz, H, P, N) if h0 is None else h0.float()
+    H0 = [None] * nc
+    for g0 in range(0, nc, K):
+        for c in range(g0, min(g0 + K, nc)):
+            H0[c] = scale(last[..., g0:c].sum(-1)) * carry
+            for j in range(g0, c):
+                H0[c] = H0[c] + scale(last[..., j + 1:c].sum(-1)) * h_inc[:, :, j]
+        carry = scale(last[..., c]) * H0[c] + h_inc[:, :, c]
+    carry = torch.zeros(Bsz, H, P, N) if dh is None else dh.float()
+    U = [None] * nc
+    for g0 in reversed(range(0, nc, K)):
+        end = min(g0 + K, nc)
+        for c in range(g0, end):
+            U[c] = scale(last[..., c + 1:end].sum(-1)) * carry
+            for j in range(c + 1, end):
+                U[c] = U[c] + scale(last[..., c + 1:j].sum(-1)) * u_inc[:, :, j]
+        carry = scale(last[..., g0]) * U[g0] + u_inc[:, :, g0]
+    H0, U = torch.stack(H0, 2), torch.stack(U, 2)
+    causal = torch.ones(chunk, chunk, dtype=torch.bool).tril()   # [t, s]: t >= s
+    Lm = torch.where(causal, torch.exp(torch.where(causal, cum[..., :, None] - cum[..., None, :],
+                                                   0.0)), 0.0)
+    Hc, Uc = cut(H0, ph), cut(U, pu)
+    dxa = (Bs @ T(Uc)) * wend[..., None]
+    E = dts * (xs * dxa).sum(-1)
+    dxa = dxa + cut((Bs @ T(Cs)) * T(Lm), ps) @ dys
+    ddtd = (xs * dxa).sum(-1)
+    dx = dts[..., None] * dxa
+    dBh = dts[..., None] * ((xs @ Uc) * wend[..., None] + cut((xs @ T(dys)) * T(Lm), ps) @ Cs)
+    M2dt = (dys @ T(xs)) * Lm * dts[..., None, :]                 # [t, u]
+    dCs = (dys @ Hc) * eh[..., None]
+    dCh = dCs + cut(M2dt, ps) @ Bs
+    y0 = (Cs * dCs).sum(-1)
+    Q = (Cs @ T(Bs)) * M2dt
+    pairs = ((torch.cumsum(Q, -1) - Q) * causal).sum(-2)        # sum_{t>=s} sum_{u<s} Q[t, u]
+    da = (torch.flip(torch.cumsum(torch.flip(y0, [-1]), -1), [-1])
+          + (eh[..., -1] * (U * H0).sum((-1, -2)))[..., None]
+          + torch.cumsum(E, -1) - E + pairs)
+    ddt = ddtd + A[None, :, None, None] * da
+    dA = (dts * da).sum((0, 2, 3))
+
+    def unchunk(t):  # [B, H, chunks, chunk, ...] -> [B, S, H, ...]
+        t = t.permute(0, 2, 3, 1, *range(4, t.dim()))
+        return t.reshape(Bsz, nc * chunk, H, *t.shape[4:])[:, :S]
+
+    fold = lambda t: unchunk(t).reshape(Bsz, S, G, rep, N).sum(3).to(x.dtype)  # noqa: E731
+    return (unchunk(dx).to(x.dtype), unchunk(ddt), dA, fold(dBh), fold(dCh),
+            carry if h0 is not None else None)
+
+
+def _jax_vjp(x, dt, A, Bm, C, h0, dy, dh):
+    ins = [jnp.asarray(a) for a in (x, dt, A, Bm, C)]
+    if h0 is None:
+        fn = lambda *a: jref.ssd_scan(*a, return_state=True)  # noqa: E731
+    else:
+        ins.append(jnp.asarray(h0))
+        fn = lambda *a: jref.ssd_scan(*a[:5], init_state=a[5], return_state=True)  # noqa: E731
+    _, vjp = jax.vjp(fn, *ins)
+    return vjp((jnp.asarray(dy), jnp.asarray(dh)))
+
+
+GRAD_RTOL, GRAD_FRAC = 2e-4, 2e-5  # chip_smoke.py's bound of the backward kernels
+
+
+def _bound_share(got, want):
+    """The share of the backward kernels' bound (``chip_smoke.py``
+    ``grad_check``) that ``got`` uses against ``want``."""
+    g, w = got.float(), torch.as_tensor(np.array(want)).float()
+    bound = GRAD_RTOL * w.abs() + GRAD_FRAC * float(w.abs().max()) + 1e-30
+    if got.dtype == torch.bfloat16:
+        bound = bound + 2.0 ** -8 * (g.abs() + w.abs())
+    return float(((g - w).abs() / bound).max())
+
+
+@pytest.mark.parametrize("cluster", [None, 1, 2, 3])
+@pytest.mark.parametrize("case", SSD_CASES + [(1, 300, 2, 8, 1, 16, True)], ids=str)
+def test_wgmma_backward_arithmetic_matches_plain_and_jax_vjp(case, cluster):
+    """In float32 without parts, at chunk 16 (S 45 to 300: 3 to 19 chunks,
+    so S 300 spans three groups of 8, and every case several groups of 1,
+    2 or 3: each chunk's own, even and ragged), the tensor-core backward's
+    form meets the kernel's gradient bound against the plain VJP and
+    against ``jax.vjp`` of the reference scan."""
+    x, dt, A, Bm, C, h0, dy, dh = _ssd_inputs(*case)
+    got = emulate_ssd_bwd_wgmma(*map(_t, (x, dt, A, Bm, C, h0, dy, dh)), chunk=16,
+                                cluster=cluster)
+    want = ref.ssd_scan_vjp(*map(_t, (x, dt, A, Bm, C, h0, dy, dh)))
+    jwant = _jax_vjp(x, dt, A, Bm, C, h0, dy, dh)
+    assert (got[5] is None) == (h0 is None) == (want[5] is None)
+    for g, w, jw in zip([g for g in got if g is not None], [w for w in want if w is not None],
+                        jwant):
+        assert _bound_share(g, w) <= 1 and _bound_share(g, jw) <= 1
+
+
+def _served_bwd_inputs(init, B=2, S=300, H=8, G=2, P=64, N=128, seed=0):
+    """bf16 x, B, C (views of one conv output) and dy at the served widths,
+    softplus dt, A = -e, as ``chip_smoke.py`` draws them; S 300 leaves a
+    short last chunk; with ``init``, init_state and dh too."""
+    gen = torch.Generator().manual_seed(seed)
+    wide = torch.randn(B, S, H * P + 2 * G * N, generator=gen).bfloat16()
+    x = wide[..., :H * P].reshape(B, S, H, P)
+    Bm = wide[..., H * P:H * P + G * N].reshape(B, S, G, N)
+    C = wide[..., H * P + G * N:].reshape(B, S, G, N)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=gen))
+    A = torch.full((H,), -float(np.e))
+    h0 = torch.randn(B, H, P, N, generator=gen) if init else None
+    dy = torch.randn(B, S, H, P, generator=gen).bfloat16()
+    dh = torch.randn(B, H, P, N, generator=gen) if init else None
+    return x, dt, A, Bm, C, h0, dy, dh
+
+
+@pytest.fixture(scope="module")
+def served_bwd():
+    """The served-width inputs with init_state and dh, and their plain VJP
+    on the widened values."""
+    ins = _served_bwd_inputs(True)
+    x, dt, A, Bm, C, h0, dy, dh = ins
+    return ins, ref.ssd_scan_vjp(x.float(), dt, A, Bm.float(), C.float(), h0, dy.float(), dh)
+
+
+def _shares(got, want):
+    return [_bound_share(g, w) for g, w in zip(got, want) if g is not None]
+
+
+@pytest.mark.parametrize("init", [True, False], ids=["init_dh", "dy_only"])
+def test_wgmma_backward_served_parts_meet_the_bound(served_bwd, init):
+    """bf16 inputs at P 64, N 128, two groups, a short last chunk, with
+    init_state and dh and as the model calls it (dy only): with
+    ``ssd_scan.BWD_PARTS`` every gradient meets the kernel's bound against
+    the plain VJP of the widened inputs."""
+    if init:
+        ins, want = served_bwd
+    else:
+        ins = _served_bwd_inputs(False)
+        x, dt, A, Bm, C, h0, dy, dh = ins
+        want = ref.ssd_scan_vjp(x.float(), dt, A, Bm.float(), C.float(), None, dy.float(), None)
+    got = emulate_ssd_bwd_wgmma(*ins, parts=ssd.BWD_PARTS)
+    assert all(bool(torch.isfinite(g.float()).all()) for g in got if g is not None)
+    assert max(_shares(got, want)) <= 1
+
+
+def test_one_part_fewer_of_any_operand_breaks_the_gradient_bound(served_bwd):
+    """Why every operand takes two parts: with any one of x o w, eh o dy,
+    the scores, H0 or U in a single part (a rounding of 2^-9 of each term),
+    some gradient leaves the bound (ddt, dh0, dx, ddt and dx
+    respectively, through dA's and ddt's sums); the served parts do not."""
+    ins, want = served_bwd
+    assert ssd.BWD_PARTS in ssd.BWD_PARTS_VARIANTS
+    assert max(_shares(emulate_ssd_bwd_wgmma(*ins, parts=ssd.BWD_PARTS), want)) <= 1
+    for i in range(5):
+        fewer = tuple(1 if j == i else n for j, n in enumerate(ssd.BWD_PARTS))
+        assert max(_shares(emulate_ssd_bwd_wgmma(*ins, parts=fewer), want)) > 1, fewer
+
+
+def test_ssd_bwd_route_is_a_function_of_dtype_and_shape():
+    import inspect
+    assert list(inspect.signature(ssd.bwd_route).parameters) == [
+        "dtype", "head_dim", "state_dim"]
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {(bf16, 64, 128): "wgmma",        # mamba2's training shapes
+             (f32, 64, 128): "cuda_core",     # float32 keeps CUDA cores
+             (bf16, 32, 128): "cuda_core", (bf16, 64, 64): "cuda_core",
+             (bf16, 16, 16): "cuda_core", (torch.float16, 64, 128): "cuda_core"}
+    assert {c: ssd.bwd_route(*c) for c in cases} == cases
+
+
 @pytest.mark.parametrize("case", SSD_CASES, ids=str)
 def test_ssd_plain_vjp_matches_jax_vjp(case):
     x, dt, A, Bm, C, h0, dy, dh = _ssd_inputs(*case)
     got = ref.ssd_scan_vjp(*map(_t, (x, dt, A, Bm, C, h0, dy, dh)))
-    ins = [jnp.asarray(a) for a in (x, dt, A, Bm, C)]
-    if h0 is None:
-        fn = lambda *a: jref.ssd_scan(*a, return_state=True)
-    else:
-        ins.append(jnp.asarray(h0))
-        fn = lambda *a: jref.ssd_scan(*a[:5], init_state=a[5], return_state=True)
-    _, vjp = jax.vjp(fn, *ins)
-    want = vjp((jnp.asarray(dy), jnp.asarray(dh)))
+    want = _jax_vjp(x, dt, A, Bm, C, h0, dy, dh)
     assert (got[5] is None) == (h0 is None)
     for g, w in zip([g for g in got if g is not None], want):
         _close(g, np.asarray(w))
@@ -153,9 +359,9 @@ def test_ssd_backward_kernel_arithmetic_matches_plain_vjp(case, cotangents):
 
 def test_ssd_bwd_wrapper_takes_the_plain_version_on_cpu():
     x, dt, A, Bm, C, h0, dy, dh = map(_t, _ssd_inputs(*SSD_CASES[0]))
-    before = ssd.ssd_scan_bwd.launches
+    before = ssd.launch_counts()
     got = ssd.ssd_scan_bwd(x, dt, A, Bm, C, init_state=h0, dy=dy, dh=dh)
-    assert ssd.ssd_scan_bwd.launches == before
+    assert ssd.launch_counts() == before
     want = ref.ssd_scan_vjp(x, dt, A, Bm, C, h0, dy, dh)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     with pytest.raises(ValueError, match="dy has shape"):

@@ -334,7 +334,8 @@ def test_ssd_wgmma_route_meets_the_served_bound(cuda, case):
     torch.cuda.synchronize()
     after = ssd.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        "ssd_scan": 1, "ssd_scan_wgmma": 1, "ssd_scan_cuda_core": 0, "ssd_scan_bwd": 0}
+        "ssd_scan": 1, "ssd_scan_wgmma": 1, "ssd_scan_cuda_core": 0, "ssd_scan_bwd": 0,
+        "ssd_scan_bwd_wgmma": 0, "ssd_scan_bwd_cuda_core": 0}
     assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(h).all())
     assert _within_served_bound(y, h, x, dt, A, Bm, C, h0)
     if case["kind"] == "extreme":
@@ -1485,13 +1486,17 @@ def test_rmsnorm_is_differentiable_through_the_kernels(cuda):
 # (batch, S, H, P, G, N, init_state, dtype): the served bf16 shape at a
 # shorter sequence (chip_smoke.py phase 18 runs it at S 512), and the float32
 # CUDA-core cases: a short last sub-chunk, init_state, 2 groups, the smoke
-# model's P 16 / N 16
+# model's P 16 / N 16; then the tensor-core route's (bf16, P 64, N 128): a
+# short last chunk with init_state, dh and 2 groups, and S 1100 (9 chunks:
+# more than one cluster of 8, so two groups of chunks)
 SSD_BWD_CASES = [
     (1, 256, 8, 64, 1, 128, False, torch.bfloat16),
     (2, 45, 4, 64, 2, 128, True, torch.float32),
     (2, 100, 4, 16, 1, 16, True, torch.float32),
     (1, 33, 6, 32, 3, 64, False, torch.float32),
     (3, 32, 2, 8, 2, 8, True, torch.bfloat16),
+    (2, 300, 8, 64, 2, 128, True, torch.bfloat16),
+    (1, 1100, 4, 64, 1, 128, True, torch.bfloat16),
 ]
 
 
@@ -1517,9 +1522,20 @@ def test_ssd_bwd_kernel_matches_plain_vjp(cuda, case):
     heads), bf16 results (dx, dB, dC of bf16 inputs) within one rounding
     more; two runs equal bit for bit."""
     x, dt_, A, Bm, C, h0, dy, dh = _ssd_bwd_inputs(*case, cuda, 31)
-    before = ssd.ssd_scan_bwd.launches
+    route = ssd.bwd_route(x.dtype, x.shape[3], Bm.shape[3])
+    before = ssd.launch_counts()
     got = ssd.ssd_scan_bwd(x, dt_, A, Bm, C, init_state=h0, dy=dy, dh=dh)
-    assert ssd.ssd_scan_bwd.launches == before + 1
+    after = ssd.launch_counts()
+    assert after["ssd_scan_bwd"] == before["ssd_scan_bwd"] + 1
+    assert after[f"ssd_scan_bwd_{route}"] == before[f"ssd_scan_bwd_{route}"] + 1
+    _hold_ssd_bwd(got, x, dt_, A, Bm, C, h0, dy, dh)
+    again = ssd.ssd_scan_bwd(x, dt_, A, Bm, C, init_state=h0, dy=dy, dh=dh)
+    assert all(torch.equal(a, b) for a, b in zip(again, got) if a is not None)
+
+
+def _hold_ssd_bwd(got, x, dt_, A, Bm, C, h0, dy, dh):
+    """The backward kernels' bound against the plain VJP of the widened
+    inputs (see test_ssd_bwd_kernel_matches_plain_vjp)."""
     wide = [None if t is None else t.float() for t in (x, dt_, A, Bm, C, h0, dy, dh)]
     want = ref.ssd_scan_vjp(*wide)
     for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dh0"), got, want):
@@ -1527,8 +1543,64 @@ def test_ssd_bwd_kernel_matches_plain_vjp(cuda, case):
         if g is not None:
             assert g.shape == w.shape, name
             _grad_close(g, w, 2e-4, 2e-5)
-    again = ssd.ssd_scan_bwd(x, dt_, A, Bm, C, init_state=h0, dy=dy, dh=dh)
-    assert all(torch.equal(a, b) for a, b in zip(again, got) if a is not None)
+
+
+def test_ssd_bwd_wgmma_reads_strided_views_and_any_cluster(cuda):
+    """x, B and C as slices of one conv output (the model's path) give the
+    contiguous inputs' gradients bit for bit; dy alone (no dh, no
+    init_state) meets the bound at every cluster size (1 to 3 CTAs: 3, 2
+    or 1 groups of chunks)."""
+    x, dt_, A, Bm, C, _, dy, _ = _ssd_bwd_inputs(2, 300, 8, 64, 2, 128, False, torch.bfloat16,
+                                                 cuda, 35)
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2:]
+    xbc = torch.cat([x.reshape(Bsz, S, -1), Bm.reshape(Bsz, S, -1), C.reshape(Bsz, S, -1)], -1)
+    xv = xbc[..., :H * P].reshape(Bsz, S, H, P)
+    bv = xbc[..., H * P:H * P + G * N].reshape(Bsz, S, G, N)
+    cv = xbc[..., H * P + G * N:].reshape(Bsz, S, G, N)
+    assert not xv.is_contiguous() and ssd._tma_ok(xv) and ssd._tma_ok(bv)
+    got = ssd.ssd_scan_bwd(x, dt_, A, Bm, C, dy=dy)
+    views = ssd.ssd_scan_bwd(xv, dt_, A, bv, cv, dy=dy)
+    assert all(torch.equal(a, b) for a, b in zip(views, got) if a is not None)
+    _hold_ssd_bwd(got, x, dt_, A, Bm, C, None, dy, None)
+    for cluster in (1, 2, 3):
+        _hold_ssd_bwd(ssd.ssd_scan_bwd_variant(xv, dt_, A, bv, cv, dy=dy, cluster=cluster,
+                                               parts=ssd.BWD_PARTS),
+                      x, dt_, A, Bm, C, None, dy, None)
+
+
+@pytest.mark.parametrize("cluster", [1, 3])
+def test_ssd_bwd_wgmma_groups_of_chunks_meet_the_bound(cuda, cluster):
+    """A long sequence in many groups of chunks (S 1100: 9 chunks, so 9
+    groups of 1 or 3 of 3, each group's end state and U carried through
+    global memory), 2 batches and 2 groups, with init_state and dh: within
+    the bound, and the same call twice bit for bit."""
+    x, dt_, A, Bm, C, h0, dy, dh = _ssd_bwd_inputs(2, 1100, 4, 64, 2, 128, True,
+                                                   torch.bfloat16, cuda, 37)
+    run = lambda: ssd.ssd_scan_bwd_variant(x, dt_, A, Bm, C, init_state=h0, dy=dy, dh=dh,  # noqa: E731
+                                           cluster=cluster)
+    got = run()
+    _hold_ssd_bwd(got, x, dt_, A, Bm, C, h0, dy, dh)
+    assert all(torch.equal(a, b) for a, b in zip(run(), got))
+
+
+def test_ssd_bwd_wgmma_graph_replay_equals_eager(cuda):
+    """The tensor-core backward captured in a CUDA graph and replayed gives
+    the eager call's gradients bit for bit (no float atomics)."""
+    x, dt_, A, Bm, C, h0, dy, dh = _ssd_bwd_inputs(2, 300, 8, 64, 2, 128, True, torch.bfloat16,
+                                                   cuda, 36)
+    eager = ssd.ssd_scan_bwd(x, dt_, A, Bm, C, init_state=h0, dy=dy, dh=dh)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ssd.ssd_scan_bwd(x, dt_, A, Bm, C, init_state=h0, dy=dy, dh=dh)  # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ssd.ssd_scan_bwd(x, dt_, A, Bm, C, init_state=h0, dy=dy, dh=dh)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, eager))
 
 
 def test_ssd_scan_is_differentiable_through_the_kernels(cuda):
@@ -1543,6 +1615,7 @@ def test_ssd_scan_is_differentiable_through_the_kernels(cuda):
     after = ssd.launch_counts()
     assert after["ssd_scan_wgmma"] == before["ssd_scan_wgmma"] + 1
     assert after["ssd_scan_bwd"] == before["ssd_scan_bwd"] + 1
+    assert after["ssd_scan_bwd_wgmma"] == before["ssd_scan_bwd_wgmma"] + 1
     want = ref.ssd_scan_vjp(*[t.detach().float() for t in ins], dy.float(), None)
     for g, w in zip(grads, want):
         _grad_close(g, w, 2e-4, 2e-5)
