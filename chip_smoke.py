@@ -61,8 +61,11 @@ a checkout of the repository.  Phases, each of which must pass:
 7. check the serving results: both modes emit the same tokens, the
    graphed prefill equals an eager ``Model.prefill`` bit for bit
    (logits and caches), ``forward_logits`` (the reference's no-cache
-   kernel path) equals the prefill's last-position logits bit for bit,
-   and the logits are finite;
+   kernel path) equals the prefill's last-position logits bit for bit
+   (phase 19's models, whose unembedding GEMM cuBLAS may run by another
+   algorithm at another row count, hold ``Model.hidden_states``' last
+   row unembedded as the prefill does bit for bit), and the logits are
+   finite;
 8. hold the SSD kernel against its plain version, each case on its
    route: at the served shapes in bf16 within a bound derived from bf16
    rounding, and at the same bound on bf16 cases at the served widths
@@ -259,6 +262,39 @@ a checkout of the repository.  Phases, each of which must pass:
    tokens/s, one step split into forward, backward and optimizer (CUDA
    events) with its top kernels (``torch.profiler``), the recompute as
    a no-grad run of the layer stack, and the peak memory.
+19. the hybrid, encoder-decoder and vision families: (a) hymba-1.5b (32
+   hybrid layers, d_model 1600, 25 query and 5 kv heads of 64, a window
+   of 1024 with layers 16 and 32 global, 50 SSD heads of 64 at state 16,
+   128 meta tokens, vocab 32 001) and (b) whisper-large-v3 (32 encoder
+   layers over 1500 frames of ``audio_embeds``, not causal, and 32
+   decoder layers with cross attention, d_model 1280, 20 heads of 64,
+   sinusoidal positions, vocab 51 866), each at full width and depth,
+   bf16 over float32 parameters from ``torch.Generator(seed)`` (whisper's
+   encoder and decoder matrices times 8, ``TRUNK_SCALE``, so that its
+   tokens depend on the prompt and the audio): served
+   as phase 9 serves gemma3-1b (4 slots, prompts of 512 and 64 tokens,
+   32 tokens each), the launch counts of the prefill graph and of one
+   eager prefill (counters set to 0 just before it) equal to those
+   reckoned from the config (hymba: 32 flash on the tensor-core route,
+   32 SSD scans on the CUDA-core route, 129 norms; whisper: 96 flash,
+   162 norms); the checks of phase 7, and every slot's tokens distinct
+   from every other's, served and continuous; profiles as in phase 6;
+   flash at every served shape (hymba's layer 0, whose window of 1024
+   does not bind over 640 keys: the global layers' function,
+   whisper's encoder, decoder self and cross layer 0 and a decode
+   query against the 1500 frames), the SSD scan at hymba's served
+   shape without and with an initial state (the prompt's end state),
+   rmsnorm at d 1600, 3200 (the gated norm) and 1280, each against its
+   plain version and timed cold beside it and SDPA or ``F.rms_norm``
+   (with the SSD scan's bound by ``ssd_flops_bytes`` at the bf16
+   tensor-core peak, its inputs' type); then continuous
+   serving as phase 17 does it (chunk 8: the scripted sequence, a
+   16-request burst, tokens equal to serial serving).  (c)
+   internvl2-76b: its full-size parameters on the meta device against
+   the count its config gives, and its smoke model (float32) served on
+   the card with a 16-patch vision prefix: tokens equal to the CPU's,
+   resident and host-stepped, the checks of phase 7, the capacity and
+   ``pos`` counting the prefix.
 
 The last lines are a ``{"kernels": [...]}`` JSON line (thirteen rows:
 the nine Pallas kernels', the two step kernels' and the two backward
@@ -270,8 +306,9 @@ run, and the SSD row its ``kernel_route``; the SSD backward row its
 ``kernel_route`` and ``cuda_core_ms`` (the CUDA-core backward on the same
 input); the rmsnorm row gives
 ``decode``: its times at the decode shapes; the flash and rmsnorm rows
-``served_shapes``: their times at phase 17's served layer 0, and those
-two and the SSD row ``phase17_launches``; the schedule step's row
+``served_shapes``: their times at phase 17's served layer 0 and phase
+19's served shapes (the SSD row's: hymba's), and those
+three rows ``phase17_launches`` and ``phase19_launches``; the schedule step's row
 ``one_program_ms``: its loop with one program), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -364,6 +401,16 @@ TRAIN_CUT = ("train_4k is 256 x 4096 tokens a step across a TPU pod; one H100 tr
 #: up to S x H/G terms (rtol, and a share of the leaf's largest magnitude),
 #: and one bf16 rounding of a bf16 output on top
 GRAD_RTOL, GRAD_FRAC = 2e-4, 2e-5
+#: phase 19: hymba-1.5b (128 meta tokens before each prompt) and
+#: whisper-large-v3 (1500 audio frames a slot) at full width and depth
+HYMBA_SERVE = dict(batch=4, prompt_len=512, gen_len=32)
+WHISPER_SERVE = dict(batch=4, prompt_len=64, gen_len=32)
+FAMILY_CHUNK = 8                   # the continuous decode chunk
+#: whisper's encoder and decoder matrices (``w*`` leaves) are scaled by
+#: this, as ``tests/test_torch_families.py`` scales them: at the init scale
+#: its sinusoids swamp the 0.02 token embeddings and every slot emits the
+#: same tokens, so a slot mix-up would not show
+TRUNK_SCALE = {"whisper-large-v3": 8.0}
 
 
 def gpu_line() -> str:
@@ -1024,8 +1071,26 @@ def run_verifier(torch, cfg, mesh, u0, card: str, hk, built):
                      "unsanitized_dispatches": silent.stats.dispatches}}
 
 
+def scale_trunks(params, factor: float) -> None:
+    """The encoder's and decoder's matrices (``w*`` leaves) times
+    ``factor``, in place."""
+    def walk(tree, name=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, k)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                walk(v, name)
+        elif name.startswith("w"):
+            tree.mul_(factor)
+
+    for key in ("encoder", "decoder"):
+        walk(params[key])
+
+
 def run_serve(torch, seed: int, arch: str, shape: dict):
-    """Serve ``arch`` at full size in both decode modes (phases 6 and 9).
+    """Serve ``arch`` at full size in both decode modes (phases 6, 9 and
+    19; ``TRUNK_SCALE`` scales the weights of the archs it names).
 
     One serve per mode first captures the prefill and decode graphs
     (set-up, as a server does once); then each mode serves once more.
@@ -1045,6 +1110,8 @@ def run_serve(torch, seed: int, arch: str, shape: dict):
     eng = ServeEngine(cfg, slots=shape["batch"], prompt_len=shape["prompt_len"],
                       max_new=shape["gen_len"], chunk=shape["gen_len"] - 1)
     params = eng.model.init(seed)
+    if arch in TRUNK_SCALE:
+        scale_trunks(params, TRUNK_SCALE[arch])
     batch_in = synthetic_batch(cfg, np.random.RandomState(seed), shape["batch"],
                                shape["prompt_len"])
     torch.cuda.synchronize()
@@ -1107,12 +1174,19 @@ def serve_report(torch, cfg, eng, shape, runs, setup_s, launches) -> dict:
 
 
 def check_serving(torch, eng, params, batch_in, runs, shape) -> dict:
-    """Phases 7 and 9: equal tokens in both modes; the graphed prefill
-    equal to an eager ``Model.prefill`` (logits and caches) and
-    ``forward_logits`` to the prefill's last-position logits, bit for
-    bit; finite logits.  Returns the eager prefill's kernel launches."""
+    """Phases 7, 9 and 19: equal tokens in both modes; the graphed prefill
+    equal to an eager ``Model.prefill`` (logits and caches) bit for bit;
+    the last row of ``Model.hidden_states`` (the final norm's output that
+    ``forward_logits`` unembeds), unembedded as the prefill unembeds (one
+    row a slot), equal to the prefill's logits bit for bit.
+    ``forward_logits`` itself must equal them bit for bit in bf16 with a
+    vocabulary that is a multiple of 8 (phases 7, 9 and 17); elsewhere
+    cuBLAS may pick the unembedding GEMM's algorithm by its row count
+    (an N not 16 bytes aligned, or float32), and the difference is
+    recorded.  Finite logits.  Returns the eager prefill's kernel
+    launches."""
     from repro_torch.kernels import ops
-    from repro_torch.models.nn import tree_leaves
+    from repro_torch.models.nn import apply_unembed, tree_leaves
 
     res, host = runs["resident"][0], runs["host_stepped"][0]
     require(res.shape == (shape["batch"], shape["gen_len"]), f"tokens of shape {res.shape}")
@@ -1127,6 +1201,7 @@ def check_serving(torch, eng, params, batch_in, runs, shape) -> dict:
     eager = {k: n - before[k] for k, n in ops.launch_counts().items() if n > before[k]}
     full = eng.model.forward_logits(cast, batch_in)
     last = full[:, -1]
+    h_last = eng.model.hidden_states(cast, batch_in)[:, -1:]
     torch.cuda.synchronize()
     require(bool(torch.isfinite(pre).all()) and bool(torch.isfinite(full).all()),
             "non-finite logits")
@@ -1134,12 +1209,23 @@ def check_serving(torch, eng, params, batch_in, runs, shape) -> dict:
         torch.equal(g, e) for g, e in zip(tree_leaves(graphed_caches), tree_leaves(pre_caches))),
         "the graphed prefill differs from the eager one")
     # With empty caches, prefill and forward_logits run the same kernels on
-    # the same inputs: equal bit for bit
-    require(torch.equal(pre, last), "forward_logits differs from the prefill's logits "
-            f"(max abs diff {float((pre.float() - last.float()).abs().max())})")
+    # the same inputs: the last row's final hidden state, unembedded as the
+    # prefill does, gives the prefill's logits bit for bit
+    cfg = eng.cfg
+    require(torch.equal(apply_unembed(cast["embed"], cast["unembed"], h_last, cfg)[:, 0],
+                        pre),
+            "forward_logits' last hidden state, unembedded as the prefill does, differs "
+            "from the prefill's logits")
+    logits_bitwise = torch.equal(pre, last)
+    diff = float((pre.float() - last.float()).abs().max())
+    if cfg.vocab % 8 == 0 and cfg.dtype == "bfloat16":
+        require(logits_bitwise, "forward_logits differs from the prefill's logits "
+                f"(max abs diff {diff})")
     return {"tokens_equal": True, "logits_finite": True,
             "graphed_vs_eager_prefill_bitwise": True,
-            "forward_vs_prefill_bitwise": True, "eager_prefill_launches": eager,
+            "forward_row_unembedded_vs_prefill_bitwise": True,
+            "forward_vs_prefill_bitwise": logits_bitwise,
+            "forward_vs_prefill_max_abs_diff": diff, "eager_prefill_launches": eager,
             "last_logit_abs_max": float(pre.float().abs().max())}
 
 
@@ -1308,10 +1394,10 @@ def check_ssd(torch, ssd, ref, seed: int):
             cases[key]["h_extreme_decay_bound_used"] = float(((hc - hf).abs() / tol).max())
 
     flops, n_bytes = ssd_flops_bytes(B, S, H, P, G, N, 128, 2, True)
-    # the products at the peak of the route's type: bf16 tensor cores, or
-    # float32 on CUDA cores
+    # the products at the bf16 tensor-core peak, the inputs' type, whichever
+    # route the kernel takes
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = flops / (BF16_OPS_PER_S if route == "wgmma" else FP32_OPS_PER_S)
+    t_ops = flops / BF16_OPS_PER_S
     row = {
         "name": "ssd_scan", "route": "cuda", "kernel_route": route,
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -2241,6 +2327,30 @@ def run_collectives(torch, card: str, seed: int):
             "launches": launched}
 
 
+def norm_entry(torch, rk, ref, tag, model, x, w, eps):
+    """A served-shape rmsnorm entry: within one bf16 rounding of the plain
+    version, timed cold beside it and ``F.rms_norm``."""
+    import torch.nn.functional as F
+
+    got = rk.rmsnorm(x, w, eps=eps, weight_offset=1.0)
+    want = ref.rmsnorm(x, w, eps=eps, weight_offset=1.0)
+    ok, used = bf16_close(torch, got, want)
+    err = float((got.float() - want.float()).abs().max())
+    require(ok, f"{tag}: rmsnorm != plain beyond one bf16 rounding (max abs err {err})")
+    w1 = (w.float() + 1.0).to(x.dtype)
+    row = kernel_row(
+        torch, "rmsnorm", "rmsnorm.cu", err,
+        cold_calls(torch, lambda x: rk.rmsnorm(x, w, eps=eps, weight_offset=1.0), x),
+        cold_calls(torch, lambda x: ref.rmsnorm(x, w, eps=eps, weight_offset=1.0), x),
+        cold_calls(torch, lambda x: F.rms_norm(x, (x.shape[-1],), weight=w1, eps=eps), x),
+        2 * x.numel() * x.element_size() + w.numel() * w.element_size(), 0, FP32_OPS_PER_S)
+    rows_ = x.numel() // x.shape[-1]
+    return {"model": model, "shape": tag, "x": list(x.shape),
+            "route": rk.route(rows_, x.shape[-1], x.dtype), "bound_used": used,
+            **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}}
+
+
 def served_shape_checks(torch, cfg, cast, tokens, fk, rk, ref):
     """Phase 17: flash attention and rmsnorm against their plain versions on
     the served layer 0 of a dense model (its q, k, v at ``q_offset`` 0, the
@@ -2285,48 +2395,21 @@ def served_shape_checks(torch, cfg, cast, tokens, fk, rk, ref):
              **{key: flash[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")}}
     w = p["ln_attn"]["scale"]
-    got = rk.rmsnorm(x, w, eps=cfg.norm_eps, weight_offset=1.0)
-    want = ref.rmsnorm(x, w, eps=cfg.norm_eps, weight_offset=1.0)
-    ok, used = bf16_close(torch, got, want)
-    err = float((got.float() - want.float()).abs().max())
-    require(ok, f"{cfg.name}: rmsnorm != plain on the served layer-0 input beyond one bf16 "
-            f"rounding (max abs err {err})")
-    w1 = (w.float() + 1.0).to(x.dtype)
-
-    def norm_row(x, err):
-        row = kernel_row(
-            torch, "rmsnorm", "rmsnorm.cu", err,
-            cold_calls(torch, lambda x: rk.rmsnorm(x, w, eps=cfg.norm_eps,
-                                                   weight_offset=1.0), x),
-            cold_calls(torch, lambda x: ref.rmsnorm(x, w, eps=cfg.norm_eps,
-                                                    weight_offset=1.0), x),
-            cold_calls(torch, lambda x: F.rms_norm(x, (x.shape[-1],), weight=w1,
-                                                   eps=cfg.norm_eps), x),
-            2 * x.numel() * x.element_size() + w.numel() * w.element_size(), 0,
-            FP32_OPS_PER_S)
-        rows_ = x.numel() // x.shape[-1]
-        return {"x": list(x.shape), "route": rk.route(rows_, x.shape[-1], x.dtype),
-                **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                              "bound_by", "library_ms")}}
-
-    norm = {"model": cfg.name, "eps": cfg.norm_eps, "bound_used": used, **norm_row(x, err)}
+    norm = {"eps": cfg.norm_eps,
+            **norm_entry(torch, rk, ref, "layer 0 ln_attn", cfg.name, x, w, cfg.norm_eps)}
     # a decode step's input: one row a slot (the prompts' last tokens), on
     # the team route, held at the model's eps as the served rows are
     xd = x[:, -1].contiguous()
-    got = rk.rmsnorm(xd, w, eps=cfg.norm_eps, weight_offset=1.0)
-    want = ref.rmsnorm(xd, w, eps=cfg.norm_eps, weight_offset=1.0)
-    ok, used = bf16_close(torch, got, want)
-    err = float((got.float() - want.float()).abs().max())
-    require(ok, f"{cfg.name}: rmsnorm != plain on a decode step's {tuple(xd.shape)} input "
-            f"beyond one bf16 rounding (max abs err {err})")
     require(rk.route(*xd.shape, xd.dtype) == "team", f"{cfg.name}: the decode rows took "
             f"the {rk.route(*xd.shape, xd.dtype)} route")
-    norm["decode"] = {"bound_used": used, **norm_row(xd, err)}
+    norm["decode"] = norm_entry(torch, rk, ref, "a decode step's rows", cfg.name, xd, w,
+                                cfg.norm_eps)
     return flash, norm
 
 
 def scripted_sequence(torch, eng, params, prompts):
-    """Phase 17's scripted mixed-depth sequence on ``eng`` (4 slots): admit
+    """Phases 17's and 19's scripted mixed-depth sequence on ``eng`` (4
+    slots; ``prompts`` a dict of numpy rows, a slot's a row): admit
     slots 0 and 1, one decode round, admit slots 2 and 3 while 0 and 1 are
     in flight, then decode rounds until every slot stops; each round is
     given the buffers the round before returned.  Each admission must be
@@ -2352,8 +2435,10 @@ def scripted_sequence(torch, eng, params, prompts):
 
     def admit_args(admit):
         mask = np.isin(np.arange(slots), admit)
-        rows = np.where(mask[:, None], prompts, 0).astype(np.int32)
-        return ({"tokens": torch.from_numpy(rows).to(dev)}, torch.from_numpy(mask).to(dev),
+        rows = {k: np.where(mask.reshape((-1,) + (1,) * (v.ndim - 1)), v, 0).astype(v.dtype)
+                for k, v in prompts.items()}
+        return ({k: torch.from_numpy(v).to(dev) for k, v in rows.items()},
+                torch.from_numpy(mask).to(dev),
                 torch.from_numpy(np.where(mask, max_new, 0).astype(np.int32)).to(dev))
 
     def counted(fn):
@@ -2394,8 +2479,7 @@ def scripted_sequence(torch, eng, params, prompts):
             torch.cuda.synchronize()
             checks["admit_one_launch"].append(
                 eng.graph_launches["admit_decode"] == launches + 1)
-            want = counted(lambda: eng._admit_decode_inner(
-                cast, *clone(snap), a[0]["tokens"], a[1], a[2]))
+            want = counted(lambda: eng._admit_decode_inner(cast, *clone(snap), *a))
             (wc, wt, wa, wr, *_), (wf, wo, wn) = want
             checks["admit_graph_equals_eager"].append(
                 equal((*state, first, out, n), (wc, wt, wa, wr, wf, wo, wn)))
@@ -2435,12 +2519,13 @@ def scripted_sequence(torch, eng, params, prompts):
     return tokens, checks, {k: n for k, n in eager_launches.items() if n}
 
 
-def run_continuous(torch, seed: int, params, prompts, eng_c, eng_s):
-    """Phase 17 for one model: the scripted sequence on ``eng_c`` (chunk
-    8), then ``serve_continuous`` with 16 requests, as a t=0 burst and at
-    the Poisson rate whose mean gap is one measured decode round.  The
-    kernels' counters are set to 0 just before and read just after (less
-    the eager checks' launches).  Then each slot's tokens against serving
+def run_continuous(torch, seed: int, params, prompts, eng_c, eng_s, poisson=True):
+    """Phase 17 (and 19) for one model: the scripted sequence on ``eng_c``
+    (chunk 8; ``prompts`` a dict of numpy rows, a slot's a row), then
+    ``serve_continuous`` with 16 requests, as a t=0 burst and (with
+    ``poisson``) at the Poisson rate whose mean gap is one measured
+    decode round.  The kernels' counters are set to 0 just before and
+    read just after (less the eager checks' launches).  Then each slot's tokens against serving
     its prompt alone in the same slot of ``eng_s`` (as many slots, chunk
     31), and the rounds' times."""
     import numpy as np
@@ -2449,7 +2534,9 @@ def run_continuous(torch, seed: int, params, prompts, eng_c, eng_s):
     from repro_torch.launch.serve import serve, serve_continuous
     from repro_torch.models.nn import tree_map
 
-    cfg, shape = eng_c.cfg, CONT
+    cfg = eng_c.cfg
+    shape = dict(slots=eng_c.slots, prompt_len=eng_c.prompt_len, max_new=eng_c.max_new,
+                 chunk=eng_c.chunk)
     torch.cuda.synchronize()
     reset_all_launches()
     t0 = time.perf_counter()
@@ -2457,7 +2544,7 @@ def run_continuous(torch, seed: int, params, prompts, eng_c, eng_s):
     setup_s = time.perf_counter() - t0
     # one round of each kind on the live buffers (every slot admitted)
     mask = torch.ones(shape["slots"], dtype=torch.bool, device="cuda")
-    batch = {"tokens": torch.from_numpy(prompts).cuda()}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in prompts.items()}
     new_rem = torch.full((shape["slots"],), shape["max_new"], dtype=torch.int32,
                          device="cuda")
     live = {"s": eng_c.init_state()}
@@ -2472,8 +2559,9 @@ def run_continuous(torch, seed: int, params, prompts, eng_c, eng_s):
     times = {"admit_round_ms": events_ms(torch, admit_round, calls=5),
              "decode_round_ms": events_ms(torch, decode_round, calls=5)}
     runs = {}
-    for name, rate in (("burst", 0.0),
-                       ("poisson", 1e3 / times["decode_round_ms"])):
+    rates = [("burst", 0.0)] + ([("poisson", 1e3 / times["decode_round_ms"])]
+                                if poisson else [])
+    for name, rate in rates:
         syncs = eng_c.sync_points
         results, stats = serve_continuous(
             cfg, slots=shape["slots"], prompt_len=shape["prompt_len"],
@@ -2498,11 +2586,12 @@ def run_continuous(torch, seed: int, params, prompts, eng_c, eng_s):
     # serial engine takes the weights eng_c cast: the same tensors)
     serial, serial_params = [], eng_c.cast_params(params)
     for s in range(shape["slots"]):
-        rows = np.zeros_like(prompts)
-        rows[s] = prompts[s]
+        rows = {k: np.zeros_like(v) for k, v in prompts.items()}
+        for k, v in prompts.items():
+            rows[k][s] = v[s]
         gen, stats = serve(cfg, batch=shape["slots"], prompt_len=shape["prompt_len"],
                            gen_len=shape["max_new"], params=serial_params, engine=eng_s,
-                           batch_in={"tokens": torch.from_numpy(rows).cuda()})
+                           batch_in={k: torch.from_numpy(v).cuda() for k, v in rows.items()})
         serial.append(gen[s].tolist())
         if s == shape["slots"] - 1:
             times["serial_prefill_ms"] = stats["prefill_s"] * 1e3
@@ -2522,6 +2611,7 @@ def run_continuous(torch, seed: int, params, prompts, eng_c, eng_s):
     times["zero_and_merge_ms"] = events_ms(torch, zero_and_merge)
     return {"model": cfg.name, **shape, "setup_s": setup_s, "checks": checks,
             "continuous_equals_serial_bitwise": True, "tokens_slot0": tokens[0][:8],
+            "distinct_slot_rows": len({tuple(t) for t in tokens}),
             "times": times, "runs": runs, "eager_check_launches": eager,
             "launches": launches}, admit_round
 
@@ -2550,8 +2640,8 @@ def run_phase17(torch, seed: int, fk, rk, ref):
                 ServeEngine(cfg, chunk=shape["max_new"] - 1, **kw))
 
     def prompts(cfg):
-        return np.random.RandomState(seed + 17).randint(
-            0, cfg.vocab, (shape["slots"], shape["prompt_len"])).astype(np.int32)
+        return {"tokens": np.random.RandomState(seed + 17).randint(
+            0, cfg.vocab, (shape["slots"], shape["prompt_len"])).astype(np.int32)}
 
     def held_routes(cfg, eng, kind):
         held = eng.captured_launches(kind)
@@ -2585,7 +2675,7 @@ def run_phase17(torch, seed: int, fk, rk, ref):
     report["profile_admit_round"] = profile_calls(torch, admit_round, calls=3)
     report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     f, n = served_shape_checks(torch, cfg, eng_c.cast_params(params),
-                               torch.from_numpy(prompts(cfg)).cuda(), fk, rk, ref)
+                               torch.from_numpy(prompts(cfg)["tokens"]).cuda(), fk, rk, ref)
     flash.append(f)
     norm.append(n)
     out["qwen1.5-0.5b"] = report
@@ -2614,8 +2704,8 @@ def run_phase17(torch, seed: int, fk, rk, ref):
     report["admit_graph_holds"] = held_routes(cfg, eng_c, "admit_decode")
     report["serve"], report["serve_checks"] = serve_line, checks
     report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    f, n = served_shape_checks(torch, cfg, cast, torch.from_numpy(prompts(cfg)).cuda(),
-                               fk, rk, ref)
+    f, n = served_shape_checks(torch, cfg, cast,
+                               torch.from_numpy(prompts(cfg)["tokens"]).cuda(), fk, rk, ref)
     flash.append(f)
     norm.append(n)
     out["glm4-9b"] = report
@@ -2638,6 +2728,362 @@ def run_phase17(torch, seed: int, fk, rk, ref):
     del eng_c, eng_s, params, admit_round
     free()
     return out, flash, norm, launches
+
+def expected_prefill_launches(cfg) -> dict:
+    """One eager prefill's kernel launches, reckoned from the config: per
+    layer, the norms (``attn_mlp`` 2, ``ssm`` 2 with the gated norm,
+    ``hybrid`` 4, ``dec_cross`` 3, and 2 a self or cross attention with
+    qk-norm), a flash launch a self or cross attention and an SSD launch
+    an SSM head; the final norm and the encoder's.  Flash and the SSD
+    scan by route (``kernels/*.py:route``)."""
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.nn import dtype_of
+
+    norms = {"attn_mlp": 2, "ssm": 2, "hybrid": 4, "dec_cross": 3}
+    flashes = {"attn_mlp": 1, "ssm": 0, "hybrid": 1, "dec_cross": 2}
+    scans = {"attn_mlp": 0, "ssm": 1, "hybrid": 1, "dec_cross": 0}
+    segs = tfm.plan_segments(cfg)
+    if cfg.enc_dec:
+        segs = segs + tfm.plan_segments(cfg, decoder=False)
+    n_flash = sum(s.n_layers * flashes[s.kind] for s in segs)
+    n_scan = sum(s.n_layers * scans[s.kind] for s in segs)
+    n_norm = (1 + int(cfg.enc_dec) + 2 * n_flash * int(cfg.qk_norm)
+              + sum(s.n_layers * norms[s.kind] for s in segs))
+    dt = dtype_of(cfg.dtype)
+    flash_route = fk.route(dt, cfg.resolved_head_dim())
+    scan_route = ssd.route(dt, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk)
+    out = {"flash_attention": n_flash, "rmsnorm": n_norm, "ssd_scan": n_scan}
+    for kernel, n, route in (("flash_attention", n_flash, flash_route),
+                             ("ssd_scan", n_scan, scan_route)):
+        other = "cuda_core" if route == "wgmma" else "wgmma"
+        out[f"{kernel}_{route}"], out[f"{kernel}_{other}"] = n, 0
+    return out
+
+
+def flash_entry(torch, fk, ref, tag, model, q, k, v, causal, window):
+    """A served-shape flash entry: the kernel (one launch on the
+    tensor-core route) against its plain version, timed cold beside the
+    plain version and SDPA (the same function: at these shapes a window
+    never binds where SDPA is asked).
+
+    Bound: :func:`bf16_close`'s one bf16 rounding, with its 1e-6 for
+    float32 reassociation near zero widened to the worst case of a
+    float32 sum of Skv terms, ``Skv 2^-24`` of the terms' magnitude (the
+    attention of ``|v|``; phase 8's SSD bound has the same form).  Near
+    zero an output of 1500 terms of magnitude ~0.6 moves by ~1e-6 under
+    reassociation: 4 of whisper's 7.7 M encoder outputs do, where SDPA
+    moves 44 908 beyond one rounding (``PERF.md`` §6).  How many outputs
+    lie beyond one rounding alone is recorded."""
+    import torch.nn.functional as F
+
+    before = fk.launch_counts()
+    got = fk.flash_attention(q, k, v, causal=causal, window=window)
+    after = fk.launch_counts()
+    require(after["flash_attention_wgmma"] - before["flash_attention_wgmma"] == 1,
+            f"{tag}: flash did not take the tensor-core route")
+    want = ref.attention(q, k, v, causal=causal, window=window)
+    B, Hq, Sq, D = q.shape
+    Skv = k.shape[2]
+    vabs = ref.attention(q.float(), k.float(), v.float().abs(), causal=causal,
+                         window=window)
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    rounding = 2.0 ** -8 * (g.abs() + w.abs()) + 1e-6
+    tol = rounding + Skv * 2.0 ** -24 * vabs
+    used = float((d / tol).max())
+    err = float(d.max())
+    require(bool((d <= tol).all()), f"{tag}: flash_attention != plain beyond one bf16 "
+            f"rounding and a float32 sum's (max abs err {err}, bound used {used})")
+    beyond_rounding = int((d > rounding).sum())
+    del vabs, g, w, d, rounding, tol
+    pairs = attention_pairs(Sq, Skv, Skv - Sq, window) if causal else Sq * Skv
+    library = None
+    if window is None or window >= Skv:
+        library = cold_calls(torch, lambda *qkv: F.scaled_dot_product_attention(
+            *qkv, is_causal=causal and Sq > 1, enable_gqa=True), q, k, v)
+    row = kernel_row(
+        torch, "flash_attention", "flash_attention.cu", err,
+        cold_calls(torch, lambda *qkv: fk.flash_attention(*qkv, causal=causal,
+                                                           window=window), q, k, v),
+        cold_calls(torch, lambda *qkv: ref.attention(*qkv, causal=causal, window=window),
+                   q, k, v),
+        library, 2 * (2 * q.numel() + k.numel() + v.numel()), 4 * B * Hq * D * pairs,
+        BF16_OPS_PER_S, plain_reps=(5, 4))
+    return {"model": model, "shape": tag, "q": list(q.shape), "kv": list(k.shape),
+            "group": Hq // k.shape[1], "causal": causal, "window": window,
+            "bound_used": used, "outputs_beyond_one_rounding": beyond_rounding,
+            "outputs": got.numel(),
+            **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}}
+
+
+def hymba_kernel_checks(torch, eng, params, batch_in, fk, rk, ssd, ref):
+    """Phase 19 (a): flash, the SSD scan and rmsnorm against their plain
+    versions on hymba's served layer 0 (the prefill's input: 128 meta
+    tokens and the 512-token prompts)."""
+    from repro_torch.models import nn, ssm as ssm_lib, transformer as tfm
+
+    cfg, model = eng.cfg, eng.model
+    cast = eng.cast_params(params)
+    p = tfm.unbind_layers(cast["decoder"]["segments"][0], cfg.n_layers)[0]
+    x, _ = model._decoder_input(cast, batch_in)
+    S = x.shape[1]
+    window, theta = tfm.layer_window_theta(cfg, 0)
+    h = nn.apply_rmsnorm(p["ln_attn"], x, cfg)
+    q, k, v = (t.transpose(1, 2) for t in nn.attention_qkv(
+        p["attn"], h, cfg, rope_theta=theta, positions=torch.arange(S, device="cuda")))
+    # the window of 1024 never binds over 640 keys: the global layers' function
+    flash = [flash_entry(torch, fk, ref, f"hymba layer 0 (window {window} of {S} keys: "
+                         "the global layers' function)", cfg.name, q, k, v, True, window)]
+    norm = [norm_entry(torch, rk, ref, "hymba ln_attn", cfg.name, x, p["ln_attn"]["scale"],
+                       cfg.norm_eps)]
+    # the SSD head's inputs, and the gated norm's
+    hs = nn.apply_rmsnorm(p["ln_ssm"], x, cfg)
+    z, xh, dt, A, Bm, C, _ = ssm_lib.scan_inputs(p["ssm"], hs, cfg)
+    B_, S_, H, P = xh.shape
+    G, N = Bm.shape[2:]
+    require(ssd.route(xh.dtype, P, N, cfg.ssm_chunk) == "cuda_core",
+            f"hymba's scan routes to {ssd.route(xh.dtype, P, N, cfg.ssm_chunk)}")
+    scans = []
+    y0, h_end = ssd.ssd_scan(xh, dt, A, Bm, C, chunk=cfg.ssm_chunk, return_state=True)
+    for tag, h0 in (("hymba layer 0", None),
+                    ("hymba layer 0, init_state (the prompt's end state)", h_end)):
+        before = ssd.launch_counts()
+        y, hl = ssd.ssd_scan(xh, dt, A, Bm, C, init_state=h0, chunk=cfg.ssm_chunk,
+                             return_state=True)
+        after = ssd.launch_counts()
+        require(after["ssd_scan_cuda_core"] - before["ssd_scan_cuda_core"] == 1,
+                f"{tag}: the scan did not take the CUDA-core route")
+        detail = served_ssd_bound(torch, ref, y, hl, xh, dt, A, Bm, C, h0)
+        flops, n_bytes = ssd_flops_bytes(B_, S_, H, P, G, N, cfg.ssm_chunk, 2, h0 is not None)
+        args = (xh, dt, A, Bm, C) + ((h0,) if h0 is not None else ())
+
+        def kernel(x_, dt_, A_, B__, C_, *h):
+            return ssd.ssd_scan(x_, dt_, A_, B__, C_, init_state=h[0] if h else None,
+                                chunk=cfg.ssm_chunk, return_state=True)
+
+        def plain(x_, dt_, A_, B__, C_, *h):
+            return ref.ssd_scan(x_, dt_, A_, B__, C_, init_state=h[0] if h else None,
+                                return_state=True)
+
+        # bound at the bf16 tensor-core peak (the inputs' type), not the
+        # float32 peak of the route the kernel takes
+        row = kernel_row(torch, "ssd_scan", "ssd_scan.cu", detail["y_max_abs_err"],
+                         cold_calls(torch, kernel, *args), cold_calls(torch, plain, *args),
+                         None, n_bytes, flops, BF16_OPS_PER_S, plain_reps=(3, 2))
+        scans.append({"model": cfg.name, "shape": tag, "x": list(xh.shape),
+                      "B": list(Bm.shape), "init_state": h0 is not None,
+                      "kernel_route": "cuda_core", "flops": flops, "bytes": n_bytes,
+                      "float32_ops_bound_ms": flops / FP32_OPS_PER_S * 1e3,
+                      **detail, **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
+                                                              "bound_by", "library_ms")}})
+    yg = (y0 + xh * p["ssm"]["D"][None, None, :, None].to(y0.dtype)).reshape(B_, S_, H * P)
+    g = yg * torch.nn.functional.silu(z.float()).to(yg.dtype)
+    norm.append(norm_entry(torch, rk, ref, "hymba gated norm", cfg.name, g,
+                           p["ssm"]["norm"], cfg.norm_eps))
+    return flash, norm, scans
+
+
+def whisper_kernel_checks(torch, eng, params, batch_in, fk, rk, ref):
+    """Phase 19 (b): flash and rmsnorm against their plain versions on
+    whisper's served layers: the encoder's layer 0 over the 1500 frames
+    (not causal), the decoder's layer 0 self-attention over the prompt,
+    its cross attention over the encoder output, and one decode query's."""
+    from repro_torch.models import nn, transformer as tfm
+    from repro_torch.models.frontends import apply_frontend, sinusoidal_positions
+
+    cfg, model = eng.cfg, eng.model
+    cast = eng.cast_params(params)
+    pe = tfm.unbind_layers(cast["encoder"]["segments"][0], cfg.n_enc_layers)[0]
+    pd = tfm.unbind_layers(cast["decoder"]["segments"][0], cfg.n_layers)[0]
+    xe = apply_frontend(cast["frontend"], batch_in["audio_embeds"], cfg)
+    xe = xe + sinusoidal_positions(xe.shape[1], cfg.d_model, xe.dtype, device="cuda")[None]
+    he = nn.apply_rmsnorm(pe["ln_attn"], xe, cfg)
+    qe, ke, ve = (t.transpose(1, 2) for t in nn.attention_qkv(
+        pe["attn"], he, cfg, rope_theta=None,
+        positions=torch.arange(xe.shape[1], device="cuda")))
+    flash = [flash_entry(torch, fk, ref, "whisper encoder layer 0", cfg.name, qe, ke, ve,
+                         False, None)]
+    norm = [norm_entry(torch, rk, ref, "whisper encoder ln_attn", cfg.name, xe,
+                       pe["ln_attn"]["scale"], cfg.norm_eps)]
+    enc_out = model._encode(cast, batch_in["audio_embeds"])
+    x = model._embed_tokens(cast, batch_in["tokens"])
+    pos = torch.arange(x.shape[1], device="cuda")
+    h = nn.apply_rmsnorm(pd["ln_attn"], x, cfg)
+    q, k, v = (t.transpose(1, 2) for t in nn.attention_qkv(
+        pd["attn"], h, cfg, rope_theta=None, positions=pos))
+    flash.append(flash_entry(torch, fk, ref, "whisper decoder self layer 0", cfg.name,
+                             q, k, v, True, None))
+    norm.append(norm_entry(torch, rk, ref, "whisper decoder ln_attn", cfg.name, x,
+                           pd["ln_attn"]["scale"], cfg.norm_eps))
+    a, _ = nn.apply_attention(pd["attn"], h, cfg, positions=pos)
+    hc = nn.apply_rmsnorm(pd["ln_cross"], x + a, cfg)
+    qc, kc, vc = (t.transpose(1, 2) for t in nn.attention_qkv(
+        pd["cross"], hc, cfg, rope_theta=None, positions=pos, kv_x=enc_out))
+    flash.append(flash_entry(torch, fk, ref, "whisper cross layer 0", cfg.name, qc, kc, vc,
+                             False, None))
+    flash.append(flash_entry(torch, fk, ref, "whisper cross at decode (Sq 1)", cfg.name,
+                             qc[:, :, -1:], kc, vc, False, None))
+    return flash, norm
+
+
+def internvl2_smoke(torch, seed: int):
+    """Phase 19 (c): internvl2-76b's full-size parameter shapes on the meta
+    device against a count reckoned from its config; its smoke model
+    (float32, the CUDA-core routes) served on the card with a 16-patch
+    vision prefix, resident and host-stepped, equal to the CPU's serve of
+    the same weights, the graphed prefill equal to eager and
+    ``forward_logits`` bit for bit, the capacity and ``pos`` counting the
+    prefix."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ServeEngine, serve, synthetic_batch
+    from repro_torch.models import Model
+    from repro_torch.models.nn import tree_leaves, tree_map
+
+    full = get_config("internvl2-76b")
+    shapes = Model(full).abstract_init()
+    require(all(t.device.type == "meta" for t in tree_leaves(shapes)),
+            "internvl2-76b's abstract_init allocated memory")
+    d, hd, f = full.d_model, full.resolved_head_dim(), full.d_ff
+    layer = (2 * d + d * hd * (2 * full.n_heads + 2 * full.n_kv_heads) + 3 * d * f)
+    want = (2 * full.vocab * d + d + full.n_layers * layer
+            + full.frontend_dim * d + d * d)
+    total = sum(t.numel() for t in tree_leaves(shapes))
+    require(total == want, f"internvl2-76b: {total} parameters, the config gives {want}")
+    require(tuple(shapes["frontend"]["proj_in"].shape) == (full.frontend_dim, d),
+            "internvl2-76b's vision projector shape")
+
+    cfg = full.smoke()
+    shape = dict(batch=4, prompt_len=32, gen_len=8)
+    params = Model(cfg).init(seed, device="cpu")
+    batch = synthetic_batch(cfg, np.random.RandomState(seed), 4, 32, device="cpu")
+    cpu, _ = serve(cfg, params=params, batch_in=batch, device="cpu", **shape)
+    params = tree_map(lambda t: t.cuda(), params)
+    batch = {k: v.cuda() for k, v in batch.items()}
+    eng = ServeEngine(cfg, slots=4, prompt_len=32, max_new=8, chunk=7)
+    require(eng.capacity == cfg.frontend_tokens + 32 + 8,
+            f"internvl2 smoke: capacity {eng.capacity} leaves out the vision prefix")
+    runs = {}
+    for resident in (True, False, True, False):
+        gen, stats = serve(cfg, params=params, batch_in=batch, engine=eng,
+                           device_resident=resident, **shape)
+        runs["resident" if resident else "host_stepped"] = (gen, stats, {}, {})
+    for mode, (gen, _, _, _) in runs.items():
+        require(np.array_equal(gen, cpu), f"internvl2 smoke {mode}: card tokens {gen} != "
+                f"the CPU's {cpu}")
+    checks = check_serving(torch, eng, params, batch, runs, shape)
+    held = eng.captured_launches("prefill")
+    want_held = expected_prefill_launches(cfg)
+    require({k: held.get(k, 0) for k in want_held} == want_held,
+            f"internvl2 smoke: the prefill graph holds {held}, the config gives {want_held}")
+    pos = eng.prefill(params, batch, eng.init_state()[0])[1]["pos"]
+    require(pos.tolist() == [cfg.frontend_tokens + 32] * 4, f"internvl2 smoke: pos {pos}")
+    return {"model": cfg.name, "full_size_parameters": total, **shape,
+            "capacity": eng.capacity, "prefill_graph_holds": held, "tokens_equal_cpu": True,
+            "tokens_row0": cpu[0].tolist(), "serve_checks": checks}
+
+
+def run_phase19(torch, seed: int, fk, rk, ssd, ref):
+    """Phase 19: hymba-1.5b and whisper-large-v3 served at full width and
+    depth (resident, host-stepped, continuously), the kernels at their
+    served shapes, internvl2-76b's smoke and full-size shapes.  Returns the
+    phase's line, the flash, rmsnorm and SSD served-shape entries, and the
+    kernels' launches on the phase's serving paths."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import ServeEngine, synthetic_batch
+
+    out, flash, norm, scans = {}, [], [], []
+    launches = {"flash_attention": 0, "rmsnorm": 0, "ssd_scan": 0}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for arch, shape in (("hymba-1.5b", HYMBA_SERVE), ("whisper-large-v3", WHISPER_SERVE)):
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, eng, params, batch_in, runs, setup_s, served = run_serve(torch, seed, arch,
+                                                                      shape)
+        want = expected_prefill_launches(cfg)
+        held = eng.captured_launches("prefill")
+        require({k: held.get(k, 0) for k in want} == want,
+                f"{arch}: the prefill graph holds {held}, the config gives {want}")
+        serve_line = serve_report(torch, cfg, eng, shape, runs, setup_s, served)
+        # every slot emits its own tokens, so that a slot mix-up would show in
+        # the checks against serial serving below
+        rows = {tuple(r) for r in runs["resident"][0].tolist()}
+        require(len(rows) == shape["batch"],
+                f"{arch}: {len(rows)} distinct token rows of {shape['batch']} slots")
+        # one eager prefill, the counters set to 0 just before it
+        cast = eng.cast_params(params)
+        caches = eng.init_state()[0]
+        torch.cuda.synchronize()
+        reset_all_launches()
+        eng.model.prefill(cast, batch_in, caches)
+        torch.cuda.synchronize()
+        eager = ops.launch_counts()
+        require({k: eager.get(k, 0) for k in want} == want,
+                f"{arch}: an eager prefill launched {eager}, the config gives {want}")
+        print(json.dumps({"launches_reckoned": {"model": arch, "config_gives": want,
+                                                "eager_prefill": eager}}), flush=True)
+        checks = check_serving(torch, eng, params, batch_in, runs, shape)
+        for k in launches:
+            launches[k] += served[k]
+        print_profiles(torch, eng, params, batch_in, "_" + arch.split("-")[0])
+        if cfg.hybrid:
+            f, n, sc = hymba_kernel_checks(torch, eng, params, batch_in, fk, rk, ssd, ref)
+            scans += sc
+        else:
+            f, n = whisper_kernel_checks(torch, eng, params, batch_in, fk, rk, ref)
+        flash += f
+        norm += n
+        # continuous serving on the same weights
+        kw = dict(slots=shape["batch"], prompt_len=shape["prompt_len"],
+                  max_new=shape["gen_len"])
+        eng_c = ServeEngine(cfg, chunk=FAMILY_CHUNK, **kw)
+        eng_s = ServeEngine(cfg, chunk=shape["gen_len"] - 1, **kw)
+        prompts = {k: v.cpu().numpy() for k, v in synthetic_batch(
+            cfg, np.random.RandomState(seed + 19), shape["batch"],
+            shape["prompt_len"]).items()}
+        report, _ = run_continuous(torch, seed, cast, prompts, eng_c, eng_s, poisson=False)
+        require(report["distinct_slot_rows"] == shape["batch"],
+                f"{arch}: {report['distinct_slot_rows']} distinct continuous token rows of "
+                f"{shape['batch']} slots")
+        for k in launches:
+            if want[k]:
+                require(report["launches"][k] > 0, f"{arch}: {k} never launched on the "
+                        f"continuous path: {report['launches']}")
+            launches[k] += report["launches"][k]
+        held = eng_c.captured_launches("admit_decode")
+        require(held["flash_attention_wgmma"] >= want["flash_attention"] and
+                held["ssd_scan"] >= want["ssd_scan"],
+                f"{arch}: the admission graph holds {held}")
+        report.update({"admit_graph_holds": held, "serve": serve_line,
+                       "serve_checks": checks,
+                       "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+        out[arch] = report
+        print(json.dumps({"family_summary": {
+            "model": arch, **shape,
+            "prefill_ms": serve_line["resident"]["prefill_ms"],
+            "decode_ms_per_token": {m: serve_line[m]["decode_ms_per_token"]
+                                    for m in ("resident", "host_stepped")},
+            "continuous_burst": {k: report["runs"]["burst"][k]
+                                 for k in ("tok_per_s", "p50_ms", "p99_ms")},
+            "card": gpu_line()}}), flush=True)
+        del eng, params, batch_in, runs, cast, caches, eng_c, eng_s
+    free()
+    out["internvl2-76b"] = internvl2_smoke(torch, seed)
+    free()
+    return out, flash, norm, scans, launches
+
 
 def grad_check(torch, got, want):
     """``got`` against the plain version's ``want`` within the backward
@@ -3244,6 +3690,17 @@ def main() -> int:
     for r in dense_rows[1:] + [ssd_row]:
         r["phase18_launches"] = train_launches[r["name"]]
 
+    # phase 19: the hybrid, encoder-decoder and vision families
+    torch.cuda.empty_cache()
+    families, flash19, norm19, ssd19, launches19 = run_phase19(torch, args.seed, fk, rk, ssd,
+                                                               ref)
+    print(json.dumps({"families": families}), flush=True)
+    dense_rows[0]["served_shapes"] += flash19
+    dense_rows[1]["served_shapes"] += norm19
+    ssd_row["served_shapes"] = ssd19
+    for r in dense_rows + [ssd_row]:
+        r["phase19_launches"] = launches19[r["name"]]
+
     rows = rows + dense_rows + [ssd_row, step_row, sched_row] + bwd_rows
     require(sorted(r["name"] for r in rows) == sorted(REPLACES), "a kernel row is missing")
     require(all(r["launches"] > 0 for r in rows), "a kernel was not launched on its path")
@@ -3251,7 +3708,8 @@ def main() -> int:
              "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "sector_bound_ms", "library_ms", "library_call", "library_fwd_bwd_ms",
              "library_fwd_ms", "earlier_ms", "cuda_core_ms", "decode",
-             "served_shapes", "phase17_launches", "phase18_launches", "shape",
+             "served_shapes", "phase17_launches", "phase18_launches", "phase19_launches",
+             "shape",
              "one_program_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in order if k in r} for r in rows]}))
     print(f"card: {gpu_line()}")

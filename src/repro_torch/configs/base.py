@@ -5,10 +5,12 @@ field for field, with the same defaults, so a config built here equals
 the reference's (``tests/test_torch_serve.py`` compares them).  The
 port imports nothing of ``repro``, so it keeps this copy.
 
-The port serves the architectures of :data:`PORTED` (``mamba2-2.7b``
-and the dense family: ``gemma3-1b``, ``qwen1.5-0.5b``, ``glm4-9b`` and
-``qwen1.5-110b``); :func:`get_config` raises ``NotImplementedError``
-for the others, which ``ROADMAP.md`` queues.
+The port serves the architectures of :data:`PORTED` (``mamba2-2.7b``,
+the dense family: ``gemma3-1b``, ``qwen1.5-0.5b``, ``glm4-9b`` and
+``qwen1.5-110b``, the hybrid ``hymba-1.5b``, the encoder-decoder
+``whisper-large-v3`` and the vision-language ``internvl2-76b``);
+:func:`get_config` raises ``NotImplementedError`` for the others (the
+MoE family), which ``ROADMAP.md`` queues.
 """
 
 from __future__ import annotations
@@ -180,7 +182,8 @@ ARCH_IDS = (
 )
 
 #: architectures the port runs; the rest are queued in ROADMAP.md
-PORTED = ("mamba2-2.7b", "gemma3-1b", "qwen1.5-0.5b", "glm4-9b", "qwen1.5-110b")
+PORTED = ("mamba2-2.7b", "gemma3-1b", "qwen1.5-0.5b", "glm4-9b", "qwen1.5-110b",
+          "hymba-1.5b", "whisper-large-v3", "internvl2-76b")
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -16,8 +16,11 @@ slots (``Model.select_slots``) and runs the decode chunk for all active
 slots.  The decode and admission graphs share one set of state buffers,
 and the admission merges into them in place, so rounds hand the caches
 on without a copy, as the reference's donated buffers do.  On the CPU the same functions run eagerly.  Attention
-caches hold ``prompt_len + max_new`` entries.  ``serve_window`` narrows
-the attention windows as the reference's does
+caches hold ``prefix_len + prompt_len + max_new`` entries: the prefix
+(meta tokens, vision patches) sits before the prompt, as in the
+reference.  Every dispatch takes the whole input batch into its graph:
+the tokens and a config's ``audio_embeds`` or ``vision_embeds``.
+``serve_window`` narrows the attention windows as the reference's does
 (``transformer.layer_window_theta``).  On one GPU there is no mesh or
 sharding bundle: the engine calls the model directly.
 :func:`build_admission_schedule` gives the admission handoff as a
@@ -217,7 +220,9 @@ class ServeEngine:
         self.slots, self.prompt_len, self.max_new = slots, prompt_len, max_new
         self.eos_id, self.serve_window = int(eos_id), int(serve_window)
         self.model = Model(cfg)
-        self.capacity = prompt_len + max_new
+        # the meta tokens and vision patches sit in the cache before the prompt
+        self.prefix_len = self.model._prefix_len()
+        self.capacity = self.prefix_len + prompt_len + max_new
         self.chunk = int(chunk) if chunk else max(max_new - 1, 1)
         self.sync_points = 0
         self._cast = None      # (params, params with cast weights)
@@ -297,16 +302,16 @@ class ServeEngine:
 
     def _prefill_fn(self, params, batch_in, caches):
         depth = self.model.prefill_depth(caches)   # host sync: before any capture
-        tokens = batch_in["tokens"]
 
-        def step(p, tokens, caches):
-            logits, caches = self.model.prefill(p, {"tokens": tokens}, caches,
+        def step(p, batch_in, caches):
+            logits, caches = self.model.prefill(p, batch_in, caches,
                                                 serve_window=self.serve_window,
                                                 depth=depth)
-            return (tokens, caches), logits
+            return (batch_in, caches), logits
 
-        (_, caches), logits = self._graphed(("prefill", tuple(tokens.shape), depth), step,
-                                            self.cast_params(params), (tokens, caches))
+        (_, caches), logits = self._graphed(
+            ("prefill", tuple(batch_in["tokens"].shape), depth), step,
+            self.cast_params(params), (batch_in, caches))
         return logits, caches
 
     def _decode_fn(self, params, caches, tok, active, rem):
@@ -317,20 +322,19 @@ class ServeEngine:
 
     def _admit_decode_fn(self, params, caches, tok, active, rem, batch_in, admit,
                          new_rem):
-        tokens = batch_in["tokens"]
-        state = (caches, tok, active, rem, tokens, admit, new_rem)
+        state = (caches, tok, active, rem, batch_in, admit, new_rem)
         (caches, tok, active, rem, *_), (first, out, n) = self._graphed(
-            ("admit_decode", tuple(tokens.shape)), self._admit_decode_inner,
+            ("admit_decode", tuple(batch_in["tokens"].shape)), self._admit_decode_inner,
             self.cast_params(params), state, shared=True)
         return caches, tok, active, rem, first, out, n
 
-    def _admit_decode_inner(self, params, caches, tok, active, rem, tokens, admit,
+    def _admit_decode_inner(self, params, caches, tok, active, rem, batch_in, admit,
                             new_rem):
         """The admission round (reference ``_admit_decode_inner``); returns
-        ``((caches, tok, active, rem, tokens, admit, new_rem), (first,
+        ``((caches, tok, active, rem, batch_in, admit, new_rem), (first,
         out, n))``."""
         zero = tree_map(torch.zeros_like, caches)
-        logits, pre = self.model.prefill(params, {"tokens": tokens}, zero,
+        logits, pre = self.model.prefill(params, batch_in, zero,
                                          serve_window=self.serve_window, depth=0)
         # merged into the caches given: in the graph, the shared buffers
         caches = self.model.select_slots(admit, pre, caches, in_place=True)
@@ -347,7 +351,7 @@ class ServeEngine:
         rem = torch.where(admit, rem_admitted, rem)
         (caches, tok, active, rem), (out, n) = self._decode_loop(params, caches, tok,
                                                                  active, rem)
-        return (caches, tok, active, rem, tokens, admit, new_rem), (first, out, n)
+        return (caches, tok, active, rem, batch_in, admit, new_rem), (first, out, n)
 
     def _decode_one_fn(self, params, caches, tok):
         def step(p, caches, tok):
@@ -392,11 +396,18 @@ class ServeEngine:
 
 def synthetic_batch(cfg: ModelConfig, rng, batch: int, prompt_len: int, *,
                     device=None):
-    """Synthetic prompts, token for token those of the reference for the
-    same ``numpy.random.RandomState``."""
-    tokens = rng.randint(0, cfg.vocab, (batch, prompt_len)).astype(np.int32)
-    return {"tokens": torch.from_numpy(tokens).to(resolve_device(device,
-                                                                 "synthetic_batch"))}
+    """Synthetic prompts and the config's frontend embeddings (float32
+    ``audio_embeds`` / ``vision_embeds``), value for value those of the
+    reference for the same ``numpy.random.RandomState``."""
+    out = {"tokens": rng.randint(0, cfg.vocab, (batch, prompt_len)).astype(np.int32)}
+    if cfg.enc_dec:
+        out["audio_embeds"] = rng.randn(batch, cfg.frontend_tokens,
+                                        cfg.frontend_dim).astype(np.float32)
+    if cfg.frontend == "vision":
+        out["vision_embeds"] = rng.randn(batch, cfg.frontend_tokens,
+                                         cfg.frontend_dim).astype(np.float32)
+    device = resolve_device(device, "synthetic_batch")
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
 
 
 def _sync(device: torch.device) -> None:

@@ -1,19 +1,25 @@
 """Model facade — port of ``repro.models.model.Model`` for the dense
-(gemma3, qwen1.5, glm4) and SSM (mamba2) paths.
+(gemma3, qwen1.5, glm4), SSM (mamba2), hybrid (hymba), encoder-decoder
+(whisper) and vision-language (internvl2) families.
 
-``init``, ``forward_logits``, ``init_caches``, ``prefill``,
+``init``, ``forward_logits``, ``loss``, ``init_caches``, ``prefill``,
 ``decode_step``, ``cache_axes`` and ``select_slots`` give the
 reference's outputs and cache tree: params ``{"embed": {"table"},
 "decoder": {"segments": [...]}, "ln_final": {"scale"}, "unembed": {}}``
-(``{"w"}`` for an untied head) and caches ``{"segments": [{"attn":
-{"k", "v"}} or {"ssm": {"conv", "state"}}], "pos"}``.  The SSM caches
-are new tensors out, as in the reference; the attention caches are
-written in place and returned (the reference's functional update,
-without copying the cache at every step).  ``select_slots`` merges a
-prefilled cache into the admitted slots (continuous batching).
+(``{"w"}`` for an untied head), with ``"encoder"`` and ``"ln_enc"`` for
+an encoder-decoder, ``"frontend"`` for a modality frontend and
+``"meta"`` for meta tokens; caches ``{"segments": [{"attn": {"k", "v"}}
+and/or {"ssm": {"conv", "state"}}], "pos"}``, with ``"enc_out"`` (the
+encoder output the decode steps attend to) for an encoder-decoder.  The
+decoder's sequence is the meta tokens, then the vision prefix, then the
+tokens (:meth:`Model._embed_tokens`); positions and ``pos`` count the
+prefix, and the logits of ``forward_logits`` and ``loss`` leave it out.
+The SSM caches are new tensors out, as in the reference; the attention
+caches are written in place and returned (the reference's functional
+update, without copying the cache at every step).  ``select_slots``
+merges a prefilled cache into the admitted slots (continuous batching).
 ``loss`` is the train forward: the mean float32 cross-entropy of the
 logits against ``batch["targets"]``, returned with ``{"ce", "loss"}``.
-The frontends are not ported yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.mesh import resolve_device
 from . import transformer as tfm
+from .frontends import apply_frontend, init_frontend, sinusoidal_positions, timescales
 from .nn import (
     apply_embedding,
     apply_rmsnorm,
@@ -33,13 +40,14 @@ from .nn import (
     init_embedding,
     init_rmsnorm,
     init_unembed,
+    param,
 )
 
 
 #: weights the forward casts to ``cfg.dtype`` at each use (``ssm.py``,
 #: ``nn.py``)
 _COMPUTE_DTYPE_WEIGHTS = ("in_proj", "out_proj", "table", "wq", "wk", "wv", "wo",
-                          "bq", "bk", "bv", "wi", "wg")
+                          "bq", "bk", "bv", "wi", "wg", "meta", "proj_in", "proj_out")
 #: subtrees whose every leaf the forward casts at each use: the untied head
 _COMPUTE_DTYPE_SUBTREES = ("unembed",)
 
@@ -47,15 +55,8 @@ _COMPUTE_DTYPE_SUBTREES = ("unembed",)
 class Model:
     def __init__(self, cfg: ModelConfig):
         segs = tfm.plan_segments(cfg)  # raises for what is not ported
-        if cfg.frontend != "none" or cfg.n_meta_tokens or cfg.pos_embedding != "rope":
-            raise NotImplementedError(f"{cfg.name}: frontends, meta tokens and "
-                                      f"non-rope positions are not ported yet")
-        if segs[0].kind == "ssm" and not cfg.use_ssd_kernel:
-            raise NotImplementedError(f"{cfg.name}: use_ssd_kernel=False (the plain "
-                                      f"SSD forward) is not ported; the port's scan "
-                                      f"always takes the kernel wrapper")
         self.cfg = cfg
-        self._attention = any(s.kind == "attn_mlp" for s in segs)
+        self._attention = any(s.kind in tfm.ATTENTION_KINDS for s in segs)
 
     # -- params ---------------------------------------------------------------
 
@@ -70,13 +71,22 @@ class Model:
         gen = None
         if device.type != "meta":
             gen = torch.Generator(device=device).manual_seed(int(seed))
-        return {
+        pdt = dtype_of(cfg.param_dtype)
+        params = {
             "embed": init_embedding(gen, cfg, device=device),
             "decoder": tfm.init_stack(gen, cfg, device=device),
-            "ln_final": init_rmsnorm(cfg.d_model, dtype_of(cfg.param_dtype),
-                                     device=device),
+            "ln_final": init_rmsnorm(cfg.d_model, pdt, device=device),
             "unembed": init_unembed(gen, cfg, device=device),  # {} when tied
         }
+        if cfg.enc_dec:
+            params["encoder"] = tfm.init_stack(gen, cfg, device=device, decoder=False)
+            params["ln_enc"] = init_rmsnorm(cfg.d_model, pdt, device=device)
+        if cfg.frontend != "none":
+            params["frontend"] = init_frontend(gen, cfg, device=device)
+        if cfg.n_meta_tokens:
+            params["meta"] = param(gen, (cfg.n_meta_tokens, cfg.d_model), pdt,
+                                   device=device)
+        return params
 
     def abstract_init(self) -> Dict[str, Any]:
         """Parameters on the ``meta`` device: shapes and dtypes, no memory."""
@@ -84,10 +94,11 @@ class Model:
 
     def compute_params(self, params) -> Dict[str, Any]:
         """``params`` with the weights the forward casts to ``cfg.dtype``
-        at every use (the projections, the embedding table and an untied
-        head) cast once, as XLA hoists the reference's casts; the other
-        leaves are the same tensors.  The values the forward sees are
-        unchanged."""
+        at every use (the projections, the embedding table, an untied
+        head, the meta tokens and the frontend's projectors) cast once, as
+        XLA hoists the reference's casts; the other leaves (the norms,
+        the SSM's float32 leaves, hymba's ``mix``) are the same tensors.
+        The values the forward sees are unchanged."""
         dt = dtype_of(self.cfg.dtype)
 
         def cast(tree, whole=False):
@@ -101,40 +112,93 @@ class Model:
 
         return cast(params)
 
+    # -- the encoder and the decoder's sequence ------------------------------------
+
+    def _encode(self, params, audio_embeds: torch.Tensor) -> torch.Tensor:
+        """whisper's encoder: the audio projector, sinusoidal positions,
+        the encoder's layers (not causal) and its final norm."""
+        cfg = self.cfg
+        x = apply_frontend(params["frontend"], audio_embeds, cfg)
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.dtype, device=x.device)[None]
+        x, _ = tfm.apply_stack(params["encoder"], x, cfg, decoder=False, causal=False)
+        return apply_rmsnorm(params["ln_enc"], x, cfg)
+
+    def _embed_tokens(self, params, tokens, *, prefix_embeds=None) -> torch.Tensor:
+        """The decoder's input: the meta tokens, then ``prefix_embeds``
+        (the vision prefix), then the tokens' embeddings, with sinusoidal
+        positions added where the config has them."""
+        cfg = self.cfg
+        x = apply_embedding(params["embed"], tokens, cfg)
+        parts = []
+        if cfg.n_meta_tokens:
+            parts.append(params["meta"].to(x.dtype)[None].expand(
+                x.shape[0], cfg.n_meta_tokens, cfg.d_model))
+        if prefix_embeds is not None:
+            parts.append(prefix_embeds.to(x.dtype))
+        if parts:
+            x = torch.cat(parts + [x], dim=1)
+        if cfg.pos_embedding == "sinusoidal":
+            x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.dtype,
+                                         device=x.device)[None]
+        return x
+
+    def _prefix_len(self) -> int:
+        """Rows the decoder's sequence holds before the tokens: the meta
+        tokens and the vision patches."""
+        cfg = self.cfg
+        return cfg.n_meta_tokens + (cfg.frontend_tokens if cfg.frontend == "vision" else 0)
+
+    def _decoder_input(self, params, batch):
+        """(the decoder's input, the encoder output or None) of ``batch``:
+        ``tokens``, with ``audio_embeds`` (encoder-decoder) or
+        ``vision_embeds`` (vision) where the config takes them."""
+        cfg = self.cfg
+        enc_out = self._encode(params, batch["audio_embeds"]) if cfg.enc_dec else None
+        prefix = (apply_frontend(params["frontend"], batch["vision_embeds"], cfg)
+                  if cfg.frontend == "vision" else None)
+        return self._embed_tokens(params, batch["tokens"], prefix_embeds=prefix), enc_out
+
     # -- forward ----------------------------------------------------------------
 
-    def forward_logits(self, params, batch) -> torch.Tensor:
-        """Full-sequence logits (no cache): every layer's scan takes the
-        SSD kernel, as the reference's ``cache is None`` path does, and
-        every attention layer the flash kernel."""
+    def hidden_states(self, params, batch) -> torch.Tensor:
+        """The final norm's output over the whole sequence (no cache; the
+        prefix rows kept): the decoder's input and the layer stack, each
+        layer checkpointed when autograd records and ``cfg.remat ==
+        "block"``."""
         cfg = self.cfg
-        x = apply_embedding(params["embed"], batch["tokens"], cfg)
+        x, enc_out = self._decoder_input(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, _ = tfm.apply_stack(params["decoder"], x, cfg, positions=positions)
-        h = apply_rmsnorm(params["ln_final"], x, cfg)
-        return apply_unembed(params["embed"], params["unembed"], h, cfg)
+        x, _ = tfm.apply_stack(params["decoder"], x, cfg, positions=positions,
+                               enc_out=enc_out)
+        return apply_rmsnorm(params["ln_final"], x, cfg)
+
+    def forward_logits(self, params, batch) -> torch.Tensor:
+        """Full-sequence logits of the tokens (no cache; the prefix rows
+        left out): every SSD scan takes the kernel wrapper, every
+        attention layer the flash kernel."""
+        h = self.hidden_states(params, batch)
+        return apply_unembed(params["embed"], params["unembed"], h[:, self._prefix_len():],
+                             self.cfg)
 
     # -- train forward --------------------------------------------------------------
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """``(loss, {"ce", "loss"})`` of ``batch = {"tokens", "targets"}``
-        (``[B,S]`` int): the embedding, the layer stack (each layer
-        checkpointed when autograd records and ``cfg.remat == "block"``),
-        the final norm, the unembedding and :func:`_ce`, as the reference's
-        ``Model.loss`` for the ported families.  The MoE balance loss and
-        the multi-token-prediction head are not ported."""
+        (``[B,S]`` int, with the config's embeddings): the decoder's input,
+        the layer stack (each layer checkpointed when autograd records and
+        ``cfg.remat == "block"``), the final norm, the unembedding of the
+        token rows and :func:`_ce`, as the reference's ``Model.loss`` for
+        the ported families.  The MoE balance loss and the
+        multi-token-prediction head are not ported."""
         cfg = self.cfg
         if cfg.n_experts or cfg.mtp_depth:
             raise NotImplementedError(
                 f"{cfg.name}: the MoE load-balance loss and the MTP head are not ported "
                 f"yet (ROADMAP.md, the MoE family)")
-        tokens, targets = batch["tokens"], batch["targets"]
-        x = apply_embedding(params["embed"], tokens, cfg)
-        positions = torch.arange(x.shape[1], device=x.device)
-        x, _ = tfm.apply_stack(params["decoder"], x, cfg, positions=positions)
-        h = apply_rmsnorm(params["ln_final"], x, cfg)
-        logits = apply_unembed(params["embed"], params["unembed"], h, cfg)
-        loss = _ce(logits, targets)
+        h = self.hidden_states(params, batch)
+        logits = apply_unembed(params["embed"], params["unembed"],
+                               h[:, self._prefix_len():], cfg)
+        loss = _ce(logits, batch["targets"])
         return loss, {"ce": loss, "loss": loss}
 
     # -- serving ------------------------------------------------------------------
@@ -143,17 +207,27 @@ class Model:
                     device=None) -> Dict[str, Any]:
         """Zeroed decode caches; ``per_sequence=True`` makes ``pos`` a
         [batch] vector (every slot at its own depth).  Attention caches
-        hold ``max_len`` entries; an SSM cache does not grow with it."""
+        hold ``max_len`` entries; an SSM cache does not grow with it.  An
+        encoder-decoder's also hold ``enc_out`` ``[batch, frontend_tokens,
+        d_model]`` in ``cfg.dtype``."""
+        cfg = self.cfg
         device = resolve_device(device, "Model.init_caches")
         pos_shape = (batch,) if per_sequence else ()
-        return {"segments": tfm.init_caches(self.cfg, batch, max_len, device=device),
-                "pos": torch.zeros(pos_shape, dtype=torch.int32, device=device)}
+        out = {"segments": tfm.init_caches(cfg, batch, max_len, device=device),
+               "pos": torch.zeros(pos_shape, dtype=torch.int32, device=device)}
+        if cfg.enc_dec:
+            out["enc_out"] = torch.zeros((batch, cfg.frontend_tokens, cfg.d_model),
+                                         dtype=dtype_of(cfg.dtype), device=device)
+        return out
 
     def cache_axes(self, per_sequence: bool = False) -> Dict[str, Any]:
         """The cache tree's logical axes, leaf for leaf: where ``batch``
         (the slot axis) sits in each."""
-        return {"segments": tfm.cache_logical_axes(self.cfg),
-                "pos": ("batch",) if per_sequence else ()}
+        out = {"segments": tfm.cache_logical_axes(self.cfg),
+               "pos": ("batch",) if per_sequence else ()}
+        if self.cfg.enc_dec:
+            out["enc_out"] = ("batch", None, "act_embed")
+        return out
 
     def select_slots(self, mask: torch.Tensor, new_caches, old_caches, *,
                      in_place: bool = False) -> Dict[str, Any]:
@@ -184,24 +258,30 @@ class Model:
 
     def prefill(self, params, batch, caches, *, serve_window: int = 0,
                 depth: Optional[int] = None):
-        """Write the prompt into the caches; returns (last_logits, caches).
+        """Write the prompt (and the prefix before it) into the caches;
+        returns (last_logits, caches).
 
         ``depth``: :meth:`prefill_depth` of ``caches``, read by the caller
         before a CUDA-graph capture (where a host sync is illegal); None
-        reads it here."""
+        reads it here.  Positions and the new ``pos`` count the whole
+        sequence, prefix included."""
         cfg = self.cfg
-        tokens = batch["tokens"]
         if depth is None:
             depth = self.prefill_depth(caches)
-        x = apply_embedding(params["embed"], tokens, cfg)
-        positions = torch.arange(tokens.shape[1], device=x.device) + (depth or 0)
+        x, enc_out = self._decoder_input(params, batch)
+        S = x.shape[1]
+        positions = torch.arange(S, device=x.device) + (depth or 0)
         x, new_segs = tfm.apply_stack(params["decoder"], x, cfg, positions=positions,
                                       caches=caches["segments"], cache_pos=caches["pos"],
-                                      depth=depth, serve_window=serve_window)
+                                      depth=depth, serve_window=serve_window,
+                                      enc_out=enc_out)
         h = apply_rmsnorm(params["ln_final"], x, cfg)
         logits = apply_unembed(params["embed"], params["unembed"], h[:, -1:], cfg)[:, 0]
-        return logits, {"segments": _merge_caches(caches["segments"], new_segs),
-                        "pos": caches["pos"] + tokens.shape[1]}
+        out = {"segments": _merge_caches(caches["segments"], new_segs),
+               "pos": caches["pos"] + S}
+        if cfg.enc_dec:
+            out["enc_out"] = enc_out
+        return logits, out
 
     def decode_step(self, params, caches, token, *, serve_window: int = 0):
         """One-token decode against the cache.  token: [B] int32;
@@ -209,16 +289,29 @@ class Model:
         cfg = self.cfg
         pos = caches["pos"]
         x = apply_embedding(params["embed"], token[:, None], cfg)
+        if cfg.pos_embedding == "sinusoidal":
+            # the sinusoidal embedding at the cache position(s)
+            s = _sinusoid_at(pos, cfg.d_model, x.dtype)
+            x = x + (s[None, None] if s.dim() == 1 else s[:, None])
         positions = pos[None] if pos.dim() == 0 else pos[:, None]
         x, new_segs = tfm.apply_stack(params["decoder"], x, cfg, positions=positions,
                                       caches=caches["segments"], cache_pos=pos,
-                                      serve_window=serve_window)
+                                      serve_window=serve_window,
+                                      enc_out=caches.get("enc_out"))
         h = apply_rmsnorm(params["ln_final"], x, cfg)
         logits = apply_unembed(params["embed"], params["unembed"], h, cfg)[:, 0]
         out = dict(caches)
         out["segments"] = _merge_caches(caches["segments"], new_segs)
         out["pos"] = caches["pos"] + 1
         return logits, out
+
+
+def _sinusoid_at(pos: torch.Tensor, d: int, dtype) -> torch.Tensor:
+    """The sinusoidal embedding at cache positions ``pos`` (a device
+    tensor, read on the device): a scalar gives ``[d]``, a ``[B]`` vector
+    (per-slot depths) ``[B, d]``."""
+    ang = pos.float()[..., None] / timescales(d, pos.device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 def _ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

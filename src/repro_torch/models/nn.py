@@ -1,24 +1,32 @@
-"""Core NN building blocks of the port: the dense and SSM paths.
+"""Core NN building blocks of the port: the dense, SSM, hybrid,
+encoder-decoder and vision paths.
 
 Port of ``repro.models.nn``: parameter init, RMSNorm, token embedding
 (with gemma's ``sqrt(d_model)`` scale), the tied or untied unembedding,
 the MLP (gated silu or plain tanh-gelu), NeoX RoPE and GQA attention
-with qkv bias, qk-norm, sliding windows, soft-capping and a KV cache, as
-plain functions on dicts of tensors in the reference's layout.  Weights are
-stored in ``cfg.param_dtype`` and cast to the compute dtype at each use,
-as the reference does; the cast is free when a caller has cast them once
-already (``Model.compute_params``).
+with qkv bias, qk-norm, sliding windows, soft-capping, a KV cache and
+cross attention, as plain functions on dicts of tensors in the
+reference's layout.  Weights are stored in ``cfg.param_dtype`` and cast
+to the compute dtype at each use, as the reference does; the cast is
+free when a caller has cast them once already (``Model.compute_params``).
 
 Every RMSNorm, the qk-norm included, is ``ops.rmsnorm`` (the Hopper
 kernel on the card).  Attention over more than one query — the no-cache
-forward and the prefill — is ``ops.flash_attention``; the reference's
-models compute both with jnp, and in the port the Hopper kernel is the
-GPU lowering wherever the function is the kernel's.  The one-token decode
-step keeps the reference's plain ``_sdpa`` over the full-capacity cache
-with a per-slot mask, because the kernel's ``q_offset`` is a host integer
-and per-slot depths change at every replay of a CUDA graph.  The KV cache
+forward (causal, or not in whisper's encoder) and the prefill — is
+``ops.flash_attention``; the reference's models compute both with jnp,
+and in the port the Hopper kernel is the GPU lowering wherever the
+function is the kernel's.  So is cross attention (``kv_x``: whisper's
+decoder against the encoder output), at every step, the one-token
+decode included: it is not causal, has no window and writes no cache,
+so no per-slot depth enters and the function is the kernel's.  Its K and
+V are projected from ``kv_x`` at every call, as the reference does (no
+cross-K/V cache).  The one-token decode step of self-attention keeps
+the reference's plain ``_sdpa`` over the full-capacity cache with a
+per-slot mask, because the kernel's ``q_offset`` is a host integer and
+per-slot depths change at every replay of a CUDA graph.  The KV cache
 is written in place (the reference's functional update, without a copy
-of the cache per step).
+of the cache per step).  RoPE applies only where ``cfg.pos_embedding ==
+"rope"``, and never to cross attention.
 """
 
 from __future__ import annotations
@@ -194,7 +202,7 @@ def _headwise_rms(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Ten
     return ops.rmsnorm(x, scale, eps=eps, weight_offset=1.0)
 
 
-def _attn_mask(*, T: int, window: int, q_pos: torch.Tensor,
+def _attn_mask(*, T: int, causal: bool, window: int, q_pos: torch.Tensor,
                k_valid: torch.Tensor) -> torch.Tensor:
     """Validity x causal x window mask, batch-aware: ``q_pos`` [S] or
     [B,S], ``k_valid`` scalar or [B]; returns [b?,S,T], b? in {1,B}."""
@@ -202,17 +210,18 @@ def _attn_mask(*, T: int, window: int, q_pos: torch.Tensor,
     kv = k_valid if k_valid.dim() == 1 else k_valid[None]        # [b?]
     kpos = torch.arange(T, device=qp.device)
     mask = kpos[None, None, :] < kv[:, None, None]               # [b?,1,T]
-    mask = mask & (kpos[None, None, :] <= qp[:, :, None])
+    if causal:
+        mask = mask & (kpos[None, None, :] <= qp[:, :, None])
     if window > 0:
         mask = mask & (kpos[None, None, :] > qp[:, :, None] - window)
     return mask
 
 
-def _sdpa(q, k, v, *, scale: float, window: int, softcap: float,
+def _sdpa(q, k, v, *, scale: float, causal: bool, window: int, softcap: float,
           q_pos: torch.Tensor, k_valid: torch.Tensor) -> torch.Tensor:
-    """Causal attention of q [B,S,Hq,D] over a cache k, v [B,T,Hkv,D] in
-    float32 with the per-slot mask (the reference's ``_sdpa``); the kv
-    heads are grouped, not repeated in memory."""
+    """Attention of q [B,S,Hq,D] over a cache k, v [B,T,Hkv,D] in float32
+    with the per-slot mask (the reference's ``_sdpa``); the kv heads are
+    grouped, not repeated in memory."""
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     group = Hq // Hkv
@@ -220,7 +229,7 @@ def _sdpa(q, k, v, *, scale: float, window: int, softcap: float,
     logits = torch.einsum("bskgd,btkd->bkgst", qf, k.float())
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)
-    mask = _attn_mask(T=T, window=window, q_pos=q_pos, k_valid=k_valid)
+    mask = _attn_mask(T=T, causal=causal, window=window, q_pos=q_pos, k_valid=k_valid)
     logits = logits.masked_fill(~mask[:, None, None], -1e30)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
@@ -243,17 +252,21 @@ def _cache_write_step(buf: torch.Tensor, val: torch.Tensor, pos: torch.Tensor) -
 
 def attention_qkv(p, x: torch.Tensor, cfg: ModelConfig, *,
                   rope_theta: Optional[float], positions: torch.Tensor,
-                  k_positions: Optional[torch.Tensor] = None):
-    """q ``[B,S,Hq,hd]``, k and v ``[B,S,Hkv,hd]`` of ``x [B,S,d]``: the
-    projections, qkv bias, qk-norm and RoPE (q at ``positions``, k at
-    ``k_positions``, by default ``0..S-1`` as the reference's no-cache
-    path has it)."""
+                  k_positions: Optional[torch.Tensor] = None,
+                  kv_x: Optional[torch.Tensor] = None):
+    """q ``[B,S,Hq,hd]`` of ``x [B,S,d]``, k and v ``[B,Skv,Hkv,hd]`` of
+    ``kv_x`` (cross attention) or of ``x``: the projections, qkv bias,
+    qk-norm and, where ``cfg.pos_embedding == "rope"`` and not across,
+    RoPE (q at ``positions``, k at ``k_positions``, by default ``0..S-1``
+    as the reference's no-cache path has it)."""
     B, S, d = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
     dt = x.dtype
+    src = x if kv_x is None else kv_x
+    Skv = src.shape[1]
     q = (x @ p["wq"].to(dt).reshape(d, hq * hd)).view(B, S, hq, hd)
-    k = (x @ p["wk"].to(dt).reshape(d, hkv * hd)).view(B, S, hkv, hd)
-    v = (x @ p["wv"].to(dt).reshape(d, hkv * hd)).view(B, S, hkv, hd)
+    k = (src @ p["wk"].to(dt).reshape(d, hkv * hd)).view(B, Skv, hkv, hd)
+    v = (src @ p["wv"].to(dt).reshape(d, hkv * hd)).view(B, Skv, hkv, hd)
     if "bq" in p:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -262,19 +275,20 @@ def attention_qkv(p, x: torch.Tensor, cfg: ModelConfig, *,
         q = _headwise_rms(q, p["q_norm"], cfg.norm_eps)
         k = _headwise_rms(k, p["k_norm"], cfg.norm_eps)
     theta = cfg.rope_theta if rope_theta is None else rope_theta
-    rotary_dim = int(hd * cfg.rotary_frac)
-    if rotary_dim:
+    rotary_dim = int(hd * cfg.rotary_frac) if cfg.pos_embedding == "rope" else 0
+    if rotary_dim and kv_x is None:
         q = apply_rope(q, positions, theta, rotary_dim)
         k = apply_rope(k, torch.arange(S, device=x.device) if k_positions is None
                        else k_positions, theta, rotary_dim)
     return q, k, v
 
 
-def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *, window: int = 0,
-                    rope_theta: Optional[float] = None,
+def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True,
+                    window: int = 0, rope_theta: Optional[float] = None,
                     positions: Optional[torch.Tensor] = None,
-                    cache: Optional[Dict] = None):
-    """Causal self-attention; returns ``(y, new_cache_or_None)``.
+                    cache: Optional[Dict] = None, kv_x: Optional[torch.Tensor] = None):
+    """Self-attention (``causal`` or not), or cross attention over ``kv_x``
+    ``[B,Skv,d]``; returns ``(y, new_cache_or_None)``.
 
     ``cache = {"k", "v", "pos", "depth"}``: k, v ``[B,T,Hkv,hd]``, written
     in place; ``pos`` the write position, a scalar or [B] tensor.  With
@@ -284,7 +298,10 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *, window: int = 0,
     without it (``depth=None``: one decode step, S = 1) attention is the
     plain ``_sdpa`` over the whole cache, masked per slot.  With no cache,
     ``ops.flash_attention`` over the S new entries.  ``window`` 0 is full
-    attention.
+    attention.  With ``kv_x``: ``ops.flash_attention`` of every query over
+    all of ``kv_x``'s entries, not causal, with no window, no RoPE and no
+    cache (the reference's ``kv_x`` path); ``cache`` and ``window`` are
+    not used.
     """
     B, S, _ = x.shape
     hq, hd = cfg.n_heads, cfg.resolved_head_dim()
@@ -292,16 +309,18 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *, window: int = 0,
     if positions is None:
         positions = torch.arange(S, device=x.device)
     q, k, v = attention_qkv(p, x, cfg, rope_theta=rope_theta, positions=positions,
-                            k_positions=None if cache is None else positions)
+                            k_positions=None if cache is None else positions, kv_x=kv_x)
 
     scale = cfg.attn_output_multiplier or hd ** -0.5
     softcap = cfg.attn_softcap
     new_cache = None
-    if cache is None:
+    if kv_x is not None or cache is None:
+        across = kv_x is not None
         out = ops.flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
-            scale=scale, window=window or None, logit_softcap=softcap or None)
-        out = out.transpose(1, 2)
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal and not across, scale=scale,
+            window=None if across else (window or None),
+            logit_softcap=softcap or None).transpose(1, 2)
     elif cache.get("depth") is not None:
         depth, T = cache["depth"], cache["k"].shape[1]
         if depth + S > T:
@@ -314,7 +333,7 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *, window: int = 0,
         kc = ck[:, :depth + S].to(dt)
         vc = cv[:, :depth + S].to(dt)
         out = ops.flash_attention(
-            q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2), causal=True,
+            q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2), causal=causal,
             scale=scale, window=window or None, logit_softcap=softcap or None,
             q_offset=depth).transpose(1, 2)
     else:
@@ -327,7 +346,7 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *, window: int = 0,
         _cache_write_step(ck, k.to(ck.dtype), pos)
         _cache_write_step(cv, v.to(cv.dtype), pos)
         new_cache = {"k": ck, "v": cv}
-        out = _sdpa(q, ck.to(dt), cv.to(dt), scale=scale, window=window,
+        out = _sdpa(q, ck.to(dt), cv.to(dt), scale=scale, causal=causal, window=window,
                     softcap=softcap, q_pos=positions, k_valid=pos + S)
     y = out.reshape(B, S, hq * hd) @ p["wo"].to(dt).reshape(hq * hd, -1)
     return y, new_cache

@@ -5,14 +5,15 @@ SSD scan; gated RMSNorm (``ops.rmsnorm`` of ``x · silu(z)``, the
 reference's formula); out_proj.  Whenever the scan covers more than
 one token — ``forward_logits`` (no cache) and prefill (with the cache's
 state as the initial state) — it goes through the hand-written kernel
-wrapper ``ops.ssd_scan``.  The reference
-runs its prefill through the sequential oracle ``kref.ssd_scan`` with
-``init_state``, which computes the same function
+wrapper ``ops.ssd_scan``, whatever ``cfg.use_ssd_kernel`` says.  The
+reference runs its prefill, and with ``use_ssd_kernel=False`` (hymba)
+its no-cache forward too, through the sequential oracle
+``kref.ssd_scan``, which computes the kernel's function
 (``tests/test_kernels.py:test_ssd_with_initial_state``); on the card
-the port runs no plain version on its path, so its prefill takes the
-kernel.  A one-token decode step uses the single-step recurrence
-(``_ssd_step``, the reference's ``kref.ssd_step``), which has no
-Pallas counterpart.
+the port runs no plain version on its path, so it lowers those scans
+onto the kernel, as it lowers the reference's jnp norms and attention.
+A one-token decode step uses the single-step recurrence (``_ssd_step``,
+the reference's ``kref.ssd_step``), which has no Pallas counterpart.
 """
 
 from __future__ import annotations
@@ -104,22 +105,18 @@ def _ssd_step(x, dt, A, Bm, C, state):
     return y, new
 
 
-def apply_ssm(p, xin: torch.Tensor, cfg: ModelConfig, *,
-              cache: Optional[Dict] = None) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """xin: [B,S,D] → (y [B,S,D], new_cache | None).
-
-    cache = {"conv": [B,K-1,conv_dim], "state": [B,H,P,N]} for decode.
-    """
+def scan_inputs(p, xin: torch.Tensor, cfg: ModelConfig, *,
+                conv_state: Optional[torch.Tensor] = None):
+    """The SSD scan's inputs of ``xin [B,S,D]``: ``(z, x [B,S,H,P], dt
+    [B,S,H] float32, A [H] float32, Bm and C [B,S,G,N], new conv state)``
+    (in_proj, the causal conv with ``conv_state`` prepended, softplus)."""
     B, S, _ = xin.shape
     d_inner, H, _ = ssm_dims(cfg)
     G, N, P = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
-    dt_ = xin.dtype
-
-    zxbcdt = xin @ p["in_proj"].to(dt_)
+    zxbcdt = xin @ p["in_proj"].to(xin.dtype)
     z, x, Bm, C, dt_raw = _split_proj(zxbcdt, cfg)
 
     xbc = torch.cat([x, Bm, C], dim=-1)
-    conv_state = cache["conv"] if cache is not None else None
     xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], state=conv_state)
     x = xbc[..., :d_inner]
     Bm = xbc[..., d_inner:d_inner + G * N]
@@ -127,21 +124,32 @@ def apply_ssm(p, xin: torch.Tensor, cfg: ModelConfig, *,
 
     dt_v = F.softplus(dt_raw.float() + p["dt_bias"][None, None, :])
     A = -torch.exp(p["A_log"].float())  # [H] negative
-    xh = x.reshape(B, S, H, P)
-    Bg = Bm.reshape(B, S, G, N)
-    Cg = C.reshape(B, S, G, N)
+    return (z, x.reshape(B, S, H, P), dt_v, A, Bm.reshape(B, S, G, N),
+            C.reshape(B, S, G, N), new_conv)
+
+
+def apply_ssm(p, xin: torch.Tensor, cfg: ModelConfig, *,
+              cache: Optional[Dict] = None) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """xin: [B,S,D] → (y [B,S,D], new_cache | None).
+
+    cache = {"conv": [B,K-1,conv_dim], "state": [B,H,P,N]} for decode.
+    """
+    B, S, _ = xin.shape
+    d_inner = ssm_dims(cfg)[0]
+    z, xh, dt_v, A, Bg, Cg, new_conv = scan_inputs(
+        p, xin, cfg, conv_state=cache["conv"] if cache is not None else None)
 
     if cache is not None and S == 1:
         yh, last = _ssd_step(xh[:, 0], dt_v[:, 0], A, Bg[:, 0], Cg[:, 0], cache["state"])
         y = yh[:, None]
     else:
         y, last = ops.ssd_scan(xh, dt_v, A, Bg, Cg, chunk=cfg.ssm_chunk, return_state=True,
-                           init_state=cache["state"] if cache is not None else None)
+                               init_state=cache["state"] if cache is not None else None)
 
     y = y + xh * p["D"][None, None, :, None].to(y.dtype)
     y = y.reshape(B, S, d_inner)
     y = _gated_norm(y, z, p["norm"], cfg.norm_eps)
-    out = y @ p["out_proj"].to(dt_)
+    out = y @ p["out_proj"].to(xin.dtype)
 
     new_cache = None
     if cache is not None:

@@ -1,11 +1,15 @@
-"""Layer stacks — port of the ``attn_mlp`` and ``ssm`` segments of
-``repro.models.transformer``.
+"""Layer stacks — port of ``repro.models.transformer`` for every family
+but MoE.
 
 A trunk is a list of segments, runs of structurally identical layers.
-The port has the ``attn_mlp`` kind (dense models such as gemma3) and
-the ``ssm`` kind (mamba2); the other kinds raise ``NotImplementedError``
-until ``ROADMAP.md`` brings them.  Parameters keep the reference's
-layout — stacked with a leading ``layers`` axis when
+Block kinds: ``attn_mlp`` (dense models, the vision backbone and
+whisper's encoder, which runs it not causal), ``ssm`` (mamba2),
+``hybrid`` (hymba: attention and an SSD head side by side on separately
+normed inputs, mixed by ``softmax(mix)`` in float32, then the MLP) and
+``dec_cross`` (whisper's decoder: self-attention, cross attention over
+the encoder output, MLP).  The MoE kind (``attn_moe``) raises
+``NotImplementedError`` until ``ROADMAP.md`` brings it.  Parameters keep
+the reference's layout — stacked with a leading ``layers`` axis when
 ``cfg.scan_layers``, a list of per-layer dicts when not — and the layers
 run as a Python loop over views of them, each with its own static
 window and rope theta (``layer_window_theta``); stacked tensors are
@@ -17,7 +21,7 @@ recomputed in the backward.  Caches are stacked per
 segment: attention ``k``, ``v`` ``[L,B,T,Hkv,hd]`` in ``cfg.dtype``
 (written in place, so the stacked tensors are the new caches too), ssm
 ``conv [L,B,K-1,conv_dim]`` in ``cfg.dtype`` and ``state [L,B,H,P,N]``
-in float32.
+in float32; a hybrid layer has both.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from .nn import (
     init_attention,
     init_mlp,
     init_rmsnorm,
+    param,
     tree_map,
 )
 
@@ -48,13 +53,25 @@ class Segment:
     n_layers: int
 
 
-def plan_segments(cfg: ModelConfig) -> List[Segment]:
-    if cfg.enc_dec or cfg.hybrid or cfg.n_experts > 0 or cfg.use_mla:
+#: block kinds with a self-attention layer (and a K/V cache)
+ATTENTION_KINDS = ("attn_mlp", "hybrid", "dec_cross")
+
+
+def plan_segments(cfg: ModelConfig, *, decoder: bool = True) -> List[Segment]:
+    """The trunk's segments: the decoder's, or (``decoder=False``) the
+    encoder's of an encoder-decoder config."""
+    if cfg.n_experts > 0 or cfg.use_mla:
         raise NotImplementedError(
-            f"{cfg.name}: only the attn_mlp (dense) and ssm (mamba2) segments are "
-            f"ported to repro_torch; see ROADMAP.md")
+            f"{cfg.name}: the MoE segments and MLA are not ported to repro_torch yet; "
+            f"see ROADMAP.md")
+    if cfg.enc_dec and not decoder:
+        return [Segment("attn_mlp", cfg.n_enc_layers)]
+    if cfg.enc_dec:
+        return [Segment("dec_cross", cfg.n_layers)]
     if cfg.arch_type == "ssm":
         return [Segment("ssm", cfg.n_layers)]
+    if cfg.hybrid:
+        return [Segment("hybrid", cfg.n_layers)]
     return [Segment("attn_mlp", cfg.n_layers)]
 
 
@@ -77,20 +94,26 @@ def layer_window_theta(cfg: ModelConfig, layer_idx: int,
 
 
 def init_block(gen, cfg: ModelConfig, kind: str, *, device):
+    if kind not in ("attn_mlp", "ssm", "hybrid", "dec_cross"):
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     pdt = dtype_of(cfg.param_dtype)
-    if kind == "attn_mlp":
-        return {
-            "ln_attn": init_rmsnorm(cfg.d_model, pdt, device=device),
-            "attn": init_attention(gen, cfg, device=device),
-            "ln_mlp": init_rmsnorm(cfg.d_model, pdt, device=device),
-            "mlp": init_mlp(gen, cfg, device=device),
-        }
-    if kind == "ssm":
-        return {
-            "ln_ssm": init_rmsnorm(cfg.d_model, pdt, device=device),
-            "ssm": ssm_lib.init_ssm(gen, cfg, device=device),
-        }
-    raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    p: Dict[str, Any] = {}
+    if kind != "ssm":
+        p["ln_attn"] = init_rmsnorm(cfg.d_model, pdt, device=device)
+        p["attn"] = init_attention(gen, cfg, device=device)
+    if kind == "dec_cross":
+        p["ln_cross"] = init_rmsnorm(cfg.d_model, pdt, device=device)
+        p["cross"] = init_attention(gen, cfg, device=device)
+    if kind in ("ssm", "hybrid"):
+        p["ln_ssm"] = init_rmsnorm(cfg.d_model, pdt, device=device)
+        p["ssm"] = ssm_lib.init_ssm(gen, cfg, device=device)
+    if kind == "hybrid":
+        # learned output mixing of the two parallel heads
+        p["mix"] = param(None, (2,), torch.float32, device=device, init="ones")
+    if kind != "ssm":
+        p["ln_mlp"] = init_rmsnorm(cfg.d_model, pdt, device=device)
+        p["mlp"] = init_mlp(gen, cfg, device=device)
+    return p
 
 
 def _attn_cache(cache, cache_pos, depth):
@@ -99,31 +122,47 @@ def _attn_cache(cache, cache_pos, depth):
     return {**cache["attn"], "pos": cache_pos, "depth": depth}
 
 
-def apply_block(p, x, cfg: ModelConfig, kind: str, *, window: int = 0,
-                rope_theta: Optional[float] = None, positions=None,
+def apply_block(p, x, cfg: ModelConfig, kind: str, *, causal: bool = True,
+                window: int = 0, rope_theta: Optional[float] = None, positions=None,
                 cache: Optional[Dict] = None, cache_pos=None,
-                depth: Optional[int] = None):
+                depth: Optional[int] = None, enc_out: Optional[torch.Tensor] = None):
     """Returns (y, new_cache)."""
-    if kind == "attn_mlp":
-        h = apply_rmsnorm(p["ln_attn"], x, cfg)
-        a, kv = apply_attention(p["attn"], h, cfg, window=window, rope_theta=rope_theta,
-                                positions=positions,
-                                cache=_attn_cache(cache, cache_pos, depth))
-        x = x + a
-        h = apply_rmsnorm(p["ln_mlp"], x, cfg)
-        x = x + apply_mlp(p["mlp"], h, cfg)
-        return x, ({"attn": kv} if kv is not None else {})
+    new_cache: Dict[str, Any] = {}
     if kind == "ssm":
         h = apply_rmsnorm(p["ln_ssm"], x, cfg)
         s, sc = ssm_lib.apply_ssm(p["ssm"], h, cfg,
                                   cache=cache.get("ssm") if cache else None)
         return x + s, ({"ssm": sc} if sc is not None else {})
-    raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    if kind not in ("attn_mlp", "hybrid", "dec_cross"):
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    h = apply_rmsnorm(p["ln_attn"], x, cfg)
+    a, kv = apply_attention(p["attn"], h, cfg, causal=causal, window=window,
+                            rope_theta=rope_theta, positions=positions,
+                            cache=_attn_cache(cache, cache_pos, depth))
+    if kv is not None:
+        new_cache["attn"] = kv
+    if kind == "hybrid":
+        # the SSD head on its own norm of the same input, beside attention
+        h = apply_rmsnorm(p["ln_ssm"], x, cfg)
+        s, sc = ssm_lib.apply_ssm(p["ssm"], h, cfg,
+                                  cache=cache.get("ssm") if cache else None)
+        if sc is not None:
+            new_cache["ssm"] = sc
+        mix = torch.softmax(p["mix"].float(), dim=0)
+        x = x + (mix[0] * a.float() + mix[1] * s.float()).to(x.dtype)
+    else:
+        x = x + a
+    if kind == "dec_cross":
+        h = apply_rmsnorm(p["ln_cross"], x, cfg)
+        c, _ = apply_attention(p["cross"], h, cfg, positions=positions, kv_x=enc_out)
+        x = x + c
+    h = apply_rmsnorm(p["ln_mlp"], x, cfg)
+    return x + apply_mlp(p["mlp"], h, cfg), new_cache
 
 
-def init_stack(gen, cfg: ModelConfig, *, device):
+def init_stack(gen, cfg: ModelConfig, *, device, decoder: bool = True):
     params = []
-    for seg in plan_segments(cfg):
+    for seg in plan_segments(cfg, decoder=decoder):
         layers = [init_block(gen, cfg, seg.kind, device=device)
                   for _ in range(seg.n_layers)]
         params.append(_stack(layers) if cfg.scan_layers else layers)
@@ -172,33 +211,38 @@ def _remat(cfg: ModelConfig, caches) -> bool:
     return cfg.remat == "block" and caches is None and torch.is_grad_enabled()
 
 
-def apply_stack(params, x, cfg: ModelConfig, *, positions=None,
+def apply_stack(params, x, cfg: ModelConfig, *, decoder: bool = True,
+                causal: bool = True, positions=None,
                 caches: Optional[List] = None, cache_pos=None,
-                depth: Optional[int] = None, serve_window: int = 0):
-    """Run all segments.  Returns (y, new_caches): per segment, the new
-    caches (``None`` without caches).  ``depth``: the host int every
-    slot's cache sits at (the prefill), or None (a decode step)."""
+                depth: Optional[int] = None, serve_window: int = 0,
+                enc_out: Optional[torch.Tensor] = None):
+    """Run all segments of the decoder or (``decoder=False``) the encoder.
+    Returns (y, new_caches): per segment, the new caches (``None`` without
+    caches).  ``depth``: the host int every slot's cache sits at (the
+    prefill), or None (a decode step); ``enc_out``: the encoder output the
+    ``dec_cross`` layers attend to."""
     new_caches = []
     remat = _remat(cfg, caches)
-    for si, seg in enumerate(plan_segments(cfg)):
+    for si, seg in enumerate(plan_segments(cfg, decoder=decoder)):
         seg_cache = caches[si] if caches is not None else None
         seg_new = []
         layers = unbind_layers(params["segments"][si], seg.n_layers)
         for i in range(seg.n_layers):
             window, theta = layer_window_theta(cfg, i, serve_window)
             if remat:
-                def block(h, p, _kind=seg.kind, _w=window, _t=theta):
-                    return apply_block(p, h, cfg, _kind, window=_w, rope_theta=_t,
-                                       positions=positions)[0]
-                x = checkpoint(block, x, layers[i], use_reentrant=False,
+                def block(h, p, e, _kind=seg.kind, _w=window, _t=theta):
+                    return apply_block(p, h, cfg, _kind, causal=causal, window=_w,
+                                       rope_theta=_t, positions=positions, enc_out=e)[0]
+                x = checkpoint(block, x, layers[i], enc_out, use_reentrant=False,
                                preserve_rng_state=False)
                 seg_new.append({})
                 continue
             layer_cache = (tree_map(lambda c, _i=i: c[_i], seg_cache)
                            if seg_cache is not None else None)
-            x, nc = apply_block(layers[i], x, cfg, seg.kind, window=window,
+            x, nc = apply_block(layers[i], x, cfg, seg.kind, causal=causal, window=window,
                                 rope_theta=theta, positions=positions,
-                                cache=layer_cache, cache_pos=cache_pos, depth=depth)
+                                cache=layer_cache, cache_pos=cache_pos, depth=depth,
+                                enc_out=enc_out)
             seg_new.append(nc)
         if not seg_new or not seg_new[0]:
             new_caches.append(None)
@@ -215,27 +259,30 @@ def apply_stack(params, x, cfg: ModelConfig, *, positions=None,
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                 device) -> List[Dict[str, Any]]:
-    """Per-segment stacked decode caches (zeros): attention ``k``, ``v``
-    ``[L,B,max_len,Hkv,hd]`` in ``cfg.dtype``; ssm ``conv [L,B,K-1,
-    conv_dim]`` in ``cfg.dtype`` and ``state [L,B,H,P,N]`` in float32."""
+    """Per-segment stacked decode caches (zeros) of the decoder: attention
+    ``k``, ``v`` ``[L,B,max_len,Hkv,hd]`` in ``cfg.dtype``; ssm ``conv
+    [L,B,K-1,conv_dim]`` in ``cfg.dtype`` and ``state [L,B,H,P,N]`` in
+    float32; a hybrid layer both."""
     dt = dtype_of(cfg.dtype)
     caches = []
     for seg in plan_segments(cfg):
         L = seg.n_layers
-        if seg.kind == "attn_mlp":
+        entry: Dict[str, Any] = {}
+        if seg.kind in ATTENTION_KINDS:
             shape = (L, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim())
-            caches.append({"attn": {
+            entry["attn"] = {
                 "k": torch.zeros(shape, dtype=dt, device=device),
                 "v": torch.zeros(shape, dtype=dt, device=device),
-            }})
-        else:
+            }
+        if seg.kind in ("ssm", "hybrid"):
             _, H, conv_dim = ssm_lib.ssm_dims(cfg)
-            caches.append({"ssm": {
+            entry["ssm"] = {
                 "conv": torch.zeros((L, batch, cfg.ssm_conv - 1, conv_dim), dtype=dt,
                                     device=device),
                 "state": torch.zeros((L, batch, H, cfg.ssm_head_dim, cfg.ssm_state),
                                      dtype=torch.float32, device=device),
-            }})
+            }
+        caches.append(entry)
     return caches
 
 
@@ -244,10 +291,12 @@ def cache_logical_axes(cfg: ModelConfig) -> List[Dict[str, Any]]:
     ``cache_logical_axes`` for the ported segments)."""
     out = []
     for seg in plan_segments(cfg):
-        if seg.kind == "attn_mlp":
+        entry: Dict[str, Any] = {}
+        if seg.kind in ATTENTION_KINDS:
             kv = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
-            out.append({"attn": {"k": kv, "v": kv}})
-        else:
-            out.append({"ssm": {"conv": ("layers", "batch", None, "act_mlp"),
-                                "state": ("layers", "batch", "act_heads", None, "state")}})
+            entry["attn"] = {"k": kv, "v": kv}
+        if seg.kind in ("ssm", "hybrid"):
+            entry["ssm"] = {"conv": ("layers", "batch", None, "act_mlp"),
+                            "state": ("layers", "batch", "act_heads", None, "state")}
+        out.append(entry)
     return out

@@ -12,7 +12,11 @@ same bits whatever rows, row stride and alignment it is launched with.
 The engines' CUDA graphs and the
 serve engines (mamba2 and gemma3 smoke models) are held against the CPU
 run of the same program, and a warm serve prefill must be one graph
-launch equal to the eager prefill bit for bit.  The convergence loop
+launch equal to the eager prefill bit for bit (hymba and whisper smoke
+too, with an admission beside a slot in flight; flash and the SSD scan
+also at hymba's and whisper's served shapes: not causal over 1500
+keys, a group of 5 with a window of 1024, one decode query, the SSD
+scan's CUDA-core route in bf16 at N 16 with an initial state).  The convergence loop
 (a graph conditional WHILE node set by the step kernel) is held against
 the eager CPU loop, against ``FusedEngine`` called ``n_done`` times
 (bit for bit), and its step kernel against the plain step on known
@@ -279,12 +283,12 @@ def test_ssd_kernel_never_forms_the_upper_exponent(cuda):
     assert bool(((h - hr).abs() <= 2e-4 * hr.abs() + 3e-5 + 1e-4 * habs).all())
 
 
-def _served_ssd(cuda, B, S, H, G, kind, h0, seed):
+def _served_ssd(cuda, B, S, H, G, kind, h0, seed, N=128):
     """bf16 x, B, C as views of one conv output (row stride H P + 2 G N),
-    at the served widths P 64, N 128: ``"served"`` draws dt and A as the
-    mamba2 prefill does, ``"extreme"`` the extreme decay above (dt ~ 1,
-    A = -e)."""
-    P, N = 64, 128
+    at P 64 and mamba2's N 128 (or hymba's 16): ``"served"`` draws dt
+    and A as the prefill does, ``"extreme"`` the extreme decay above (dt
+    ~ 1, A = -e)."""
+    P = 64
     gen = torch.Generator(cuda).manual_seed(seed)
     wide = torch.randn(B, S, H * P + 2 * G * N, device=cuda, generator=gen).bfloat16()
     x = wide[..., :H * P].reshape(B, S, H, P)
@@ -345,6 +349,31 @@ def test_ssd_wgmma_route_meets_the_served_bound(cuda, case):
         _, habs = ref.ssd_scan(x.float().abs(), dt, A, Bm.float().abs(), C.float().abs(),
                                return_state=True)
         assert bool(((h - hf).abs() <= 2e-4 * hf.abs() + 3e-5 + 1e-4 * habs).all())
+
+
+# bf16 at hymba's widths (P 64, N 16, chunk 128): the CUDA-core route,
+# with and without an initial state, a short last chunk
+HYMBA_SSD_CASES = [dict(B=2, S=640, H=50, G=1, kind="served", h0=True),
+                   dict(B=2, S=300, H=6, G=1, kind="served", h0=True),
+                   dict(B=1, S=200, H=4, G=1, kind="served", h0=False),
+                   dict(B=1, S=256, H=2, G=1, kind="extreme", h0=True)]
+
+
+@pytest.mark.parametrize("case", HYMBA_SSD_CASES,
+                         ids=lambda c: f"S{c['S']}H{c['H']}{c['kind']}h0{c['h0']}")
+def test_ssd_cuda_core_route_meets_the_served_bound_in_bf16(cuda, case):
+    x, dt, A, Bm, C, h0 = _served_ssd(cuda, **case, seed=case["S"] + 1, N=16)
+    assert ssd.route(x.dtype, x.shape[3], Bm.shape[3], 128) == "cuda_core"
+    before = ssd.launch_counts()
+    y, h = ssd.ssd_scan(x, dt, A, Bm, C, init_state=h0, chunk=128, return_state=True)
+    torch.cuda.synchronize()
+    after = ssd.launch_counts()
+    assert {k: after[k] - before[k] for k in ("ssd_scan", "ssd_scan_wgmma",
+                                               "ssd_scan_cuda_core")} == {
+        "ssd_scan": 1, "ssd_scan_wgmma": 0, "ssd_scan_cuda_core": 1}
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(h).all())
+    assert _within_served_bound(y, h, x, dt, A, Bm, C, h0)
 
 
 @pytest.mark.parametrize("cluster", [1, 2, 3])
@@ -557,6 +586,16 @@ FLASH_CASES = [
     dict(dtype=BF16, B=1, Hq=2, Hkv=1, Sq=50, Skv=77, D=64, causal=False),
     # bfloat16 at head_dim 32: the CUDA-core route
     dict(dtype=BF16, B=1, Hq=2, Hkv=1, Sq=64, Skv=64, D=32, window=19),
+    # the served shapes of hymba and whisper, in their [B,S,H,D] layout:
+    # whisper's cross attention (not causal, Sq != Skv, Skv 1500: a tail
+    # in the q and the kv tiles), its encoder (1500 x 1500, not causal),
+    # one decode query against the 1500 frames; hymba's 25 query heads
+    # over 5 kv heads (a group of 5) with its window of 1024
+    dict(dtype=BF16, B=2, Hq=20, Hkv=20, Sq=70, Skv=1500, D=64, causal=False, bshd=True),
+    dict(dtype=BF16, B=1, Hq=4, Hkv=4, Sq=1500, Skv=1500, D=64, causal=False, bshd=True),
+    dict(dtype=BF16, B=4, Hq=20, Hkv=20, Sq=1, Skv=1500, D=64, causal=False, bshd=True),
+    dict(dtype=BF16, B=1, Hq=25, Hkv=5, Sq=640, Skv=640, D=64, window=1024, bshd=True),
+    dict(dtype=BF16, B=2, Hq=25, Hkv=5, Sq=1200, Skv=1200, D=64, window=1024, bshd=True),
 ]
 
 
@@ -720,6 +759,68 @@ def test_warm_prefill_is_one_graph_launch_equal_to_eager(cuda, arch, dtype):
         assert captured["ssd_scan"] == cfg.n_layers
 
 
+#: hymba and whisper smoke in float32 (the CUDA-core routes) and bf16 (flash
+#: on the tensor-core route; hymba's SSD on the CUDA-core one at N 16)
+FAMILY_CASES = [("hymba-1.5b", "float32"), ("hymba-1.5b", "bfloat16"),
+                ("whisper-large-v3", "float32"), ("whisper-large-v3", "bfloat16")]
+
+
+@pytest.mark.parametrize("arch,dtype", FAMILY_CASES)
+def test_family_prefill_and_admission_graphs_equal_eager(cuda, arch, dtype):
+    """hymba (meta tokens, hybrid layers) and whisper (the encoder, cross
+    attention, ``enc_out`` in the slot buffers): a warm prefill is ONE
+    graph launch equal to an eager ``Model.prefill`` bit for bit; the
+    prefill graph holds a flash launch per attention (whisper: encoder,
+    self and cross) and hymba's an SSD launch per layer; an admission
+    beside a slot in flight is one launch equal to the eager admission,
+    and the decode graph reads ``enc_out`` from the shared buffers."""
+    from repro_torch.kernels import ops
+
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype=dtype)
+    params = tree_map(lambda t: t.to(cuda), Model(cfg).init(0, device="cpu"))
+    eng = ServeEngine(cfg, slots=4, prompt_len=24, max_new=6, chunk=2)
+    batch = synthetic_batch(cfg, np.random.RandomState(0), 4, 24)
+    eng.prefill(params, batch, eng.init_state()[0])      # set-up
+    torch.cuda.synchronize()
+    launches, counts = eng.graph_launches, ops.launch_counts()
+    logits, got = eng.prefill(params, batch, eng.init_state()[0])
+    torch.cuda.synchronize()
+    assert eng.graph_launches == {**launches, "prefill": launches["prefill"] + 1}
+    assert ops.launch_counts() == counts
+    cast = eng.cast_params(params)
+    want_logits, want = eng.model.prefill(cast, batch, eng.init_state()[0])
+    assert torch.equal(logits, want_logits)
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(g, w)
+    assert int(got["pos"][0]) == eng.prefix_len + 24
+    held = eng.captured_launches("prefill")
+    route = "wgmma" if dtype == "bfloat16" else "cuda_core"
+    flashes = cfg.n_layers + (cfg.n_enc_layers + cfg.n_layers if cfg.enc_dec else 0)
+    assert held["flash_attention"] == held[f"flash_attention_{route}"] == flashes
+    assert held["ssd_scan"] == held["ssd_scan_cuda_core"] == (
+        cfg.n_layers if cfg.hybrid else 0)
+    # an admission into slots 2 and 3 beside slots 0 and 1 in flight
+    state = eng.init_state()
+    mask0 = torch.tensor([True, True, False, False], device=cuda)
+    rem = torch.full((4,), 6, dtype=torch.int32, device=cuda)
+    state = eng.admit_decode(params, *state, batch, mask0, rem)[:4]
+    before = tree_map(torch.clone, tuple(state))
+    args = (batch, ~mask0, rem)
+    n = eng.graph_launches["admit_decode"]
+    got = eng.admit_decode(params, *state, *args)
+    torch.cuda.synchronize()
+    assert eng.graph_launches["admit_decode"] == n + 1
+    (caches, tok, active, rem_, *_), (first, out, n_) = eng._admit_decode_inner(
+        cast, *before, *args)
+    for g, w in zip(tree_leaves(got), tree_leaves((caches, tok, active, rem_, first, out,
+                                                   n_))):
+        assert torch.equal(g, w)
+    if cfg.enc_dec:
+        # the decode graph's input state holds enc_out in the shared buffers
+        dec_state = eng.decode(params, *got[:4])[0]
+        assert dec_state["enc_out"].data_ptr() == got[0]["enc_out"].data_ptr()
+
+
 # -- continuous batching: admission as one graph launch ----------------------
 
 
@@ -760,7 +861,7 @@ def test_admit_graph_equals_eager(cuda, arch):
             torch.cuda.synchronize()
             assert eng.graph_launches["admit_decode"] == launches + 1
             (caches, tok, active, rem, *_), (first, out, n) = eng._admit_decode_inner(
-                cast, *before, args[0]["tokens"], args[1], args[2])
+                cast, *before, *args)
             want = (caches, tok, active, rem, first, out, n)
             for g, w in zip(tree_leaves(got), tree_leaves(want)):
                 assert torch.equal(g, w)

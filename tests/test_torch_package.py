@@ -43,7 +43,7 @@ def test_import_leaves_out_jax_and_repro(subproc):
             "repro_torch.kernels.ssd_scan, repro_torch.kernels.rmsnorm, "
             "repro_torch.kernels.flash_attention, repro_torch.kernels.ops, "
             "repro_torch.configs, "
-            "repro_torch.models, repro_torch.models.convert, "
+            "repro_torch.models, repro_torch.models.convert, repro_torch.models.frontends, "
             "repro_torch.launch.serve, repro_torch.launch.costing, "
             "repro_torch.launch.tune, repro_torch.core.overlap, "
             "repro_torch.core.collectives, repro_torch.analysis, "

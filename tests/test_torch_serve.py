@@ -189,9 +189,18 @@ def test_serve_window_leaves_mamba2_unchanged(pair, served):
 
 
 def test_unported_config_options_are_refused():
+    """The MoE segments and MLA are not ported; ``use_ssd_kernel=False``
+    (hymba's) is: the port lowers the reference's plain scan onto the
+    kernel wrapper, so the model gives the same logits either way."""
     cfg = get_config("mamba2-2.7b").smoke()
-    with pytest.raises(NotImplementedError, match="use_ssd_kernel"):
-        Model(dataclasses.replace(cfg, use_ssd_kernel=False))
+    for option in (dict(n_experts=4, top_k=2), dict(use_mla=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Model(dataclasses.replace(get_config("qwen1.5-0.5b").smoke(), **option))
+    model = Model(cfg)
+    params = model.init(0, device="cpu")
+    batch = {"tokens": torch.arange(12, dtype=torch.int32).reshape(2, 6)}
+    assert torch.equal(Model(dataclasses.replace(cfg, use_ssd_kernel=False))
+                       .forward_logits(params, batch), model.forward_logits(params, batch))
 
 
 def test_compute_params_cast_the_projections_and_table_once():
