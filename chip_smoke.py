@@ -254,13 +254,18 @@ a checkout of the repository.  Phases, each of which must pass:
    cases (a short last sub-chunk, init_state, 2 groups) and those of
    P 64, N 128 in bf16 on the tensor-core route, with S 1100 (two
    groups of chunks); each case's route recorded; the RMSNorm backward
-   on the team route's training shapes and on the rows route's; (e) the
+   on the team route's training shapes (2048 x 2560 and 2048 x 5120) and
+   on the rows route's (4096 x 1024): against the plain VJP, two runs and
+   a CUDA-graph replay equal to eager bit for bit, each timed with its
+   bound, the plain VJP and autograd of ``F.rms_norm``, its row pass and
+   dw pass apart (``torch.profiler``); (e) the
    kernels' launches in one eager step, counters set to 0 just before
    it: the SSD forward 128 times on the tensor-core route (64 forward,
    64 recompute), its backward 64 times on the tensor-core route, the
    RMSNorm forward and backward; (f) ms a step eager and as one launch,
    tokens/s, one step split into forward, backward and optimizer (CUDA
-   events) with its top kernels (``torch.profiler``), the recompute as
+   events) with its top kernels and the RMSNorm backward's sum
+   (``torch.profiler``), the recompute as
    a no-grad run of the layer stack, and the peak memory.
 19. the hybrid, encoder-decoder and vision families: (a) hymba-1.5b (32
    hybrid layers, d_model 1600, 25 query and 5 kv heads of 64, a window
@@ -304,7 +309,8 @@ flash and SSD rows also give ``earlier_ms``: the CUDA-core kernel, the
 port's kernel before the tensor-core one, on the same input in this
 run, and the SSD row its ``kernel_route``; the SSD backward row its
 ``kernel_route`` and ``cuda_core_ms`` (the CUDA-core backward on the same
-input); the rmsnorm row gives
+input); the RMSNorm backward row its ``training_shapes`` (each shape's
+ms, row pass, dw pass, plain, library and bound); the rmsnorm row gives
 ``decode``: its times at the decode shapes; the flash and rmsnorm rows
 ``served_shapes``: their times at phase 17's served layer 0 and phase
 19's served shapes (the SSD row's: hymba's), and those
@@ -3128,6 +3134,48 @@ def ssd_bwd_flops_bytes(B, S, H, P, G, N, itemsize, h0: bool):
     return flops, n_bytes
 
 
+def norm_bwd_times(torch, rk, ref, xn, wn, dyn) -> dict:
+    """The RMSNorm backward at one shape (model eps 1e-5, weight offset
+    1): its time, the plain VJP's, autograd of ``F.rms_norm``'s backward
+    (forward and backward in each captured call, the forward alone timed
+    too: the backward's time is the difference; the weight w + 1 in bf16,
+    so that PyTorch's own norm kernels run), the bound by bytes (x and dy
+    read, dx written in bf16; w read, dw written in float32), and from
+    ``torch.profiler`` over 5 calls (:func:`profile_calls`) the device ms
+    of the row pass and of the dw pass apart.  A window this short at
+    times comes back without its kernels' records (seen on the card: the
+    launches listed, no kernel), so up to 5 windows are taken; None where
+    none saw the pass."""
+    d = xn.shape[-1]
+    call = lambda: rk.rmsnorm_bwd(xn, wn, dyn, eps=1e-5, weight_offset=1.0)  # noqa: E731
+    xl = xn.detach().requires_grad_()
+    wl = (wn + 1.0).bfloat16().requires_grad_()
+
+    def lib_fwd():
+        return torch.nn.functional.rms_norm(xl, (d,), weight=wl, eps=1e-5)
+
+    def lib_fwd_bwd():
+        with torch.enable_grad():
+            return torch.autograd.grad(lib_fwd(), (xl, wl), dyn)
+
+    out = {"ms": median_ms(torch, call),
+           "plain_ms": median_ms(torch, lambda: ref.rmsnorm_vjp(xn, wn, dyn, eps=1e-5,
+                                                                weight_offset=1.0), 5, 5),
+           "library_fwd_bwd_ms": median_ms(torch, lib_fwd_bwd),
+           "bound_ms": (3 * xn.numel() * 2 + 2 * d * 4) / HBM_BYTES_PER_S * 1e3}
+    with torch.no_grad():
+        out["library_fwd_ms"] = median_ms(torch, lib_fwd)
+    out["library_ms"] = out["library_fwd_bwd_ms"] - out["library_fwd_ms"]
+    parts = (("row_pass_ms", "rmsnorm_bwd"), ("dw_pass_ms", "rmsnorm_dw"))
+    for _ in range(5):
+        top = profile_calls(torch, call, calls=5)["top"]
+        seen = {part: [k["ms"] for k in top if name in k["kernel"]] for part, name in parts}
+        if all(seen.values()):
+            break
+    out.update({part: sum(ms) / 5 if ms else None for part, ms in seen.items()})
+    return out
+
+
 def check_backward_kernels(torch, ssd, rk, ref, seed: int):
     """Phase 18 (d): the two backward kernels against their plain VJPs at
     the training shapes; their kernel-table rows and the details."""
@@ -3234,57 +3282,58 @@ def check_backward_kernels(torch, ssd, rk, ref, seed: int):
     detail["ssd_bytes_bound_ms"] = t_bytes * 1e3
     detail["ssd_float32_cuda_core_bound_ms"] = max(t_bytes, flops / FP32_OPS_PER_S) * 1e3
 
-    # RMSNorm: the training shapes (team route: the block norms at d 2560,
-    # the gated norm at d 5120) and a rows-route shape, at the model's eps
+    # RMSNorm: the training shapes (the team route: the block and final
+    # norms at d 2560, the gated norm at d 5120) and a rows-route shape, at
+    # the model's eps: each held to the plain VJP, two runs and a graph
+    # replay equal to eager bit for bit, then timed (norm_bwd_times)
     norm = {}
     for rows, d in ((B * S, 2560), (B * S, 5120), (4096, 1024)):
         xn = torch.randn(rows, d, device="cuda", generator=gen).bfloat16()
         wn = 0.1 * torch.randn(d, device="cuda", generator=gen)
         dyn = torch.randn(rows, d, device="cuda", generator=gen).bfloat16()
-        got = rk.rmsnorm_bwd(xn, wn, dyn, eps=1e-5, weight_offset=1.0)
+        call = lambda: rk.rmsnorm_bwd(xn, wn, dyn, eps=1e-5, weight_offset=1.0)  # noqa: E731
+        got = call()
         want = ref.rmsnorm_vjp(xn, wn, dyn, eps=1e-5, weight_offset=1.0)
-        key = f"{rows}x{d}_{rk.route(rows, d, xn.dtype)}"
+        plan = rk.bwd_plan(rows, d, xn.dtype)
+        key = f"{rows}x{d}_{plan.route}"
         used = {n_: grad_check(torch, g, w) for n_, g, w in zip(("dx", "dw"), got, want)}
         require(all(u <= 1.0 for u, _ in used.values()),
                 f"rmsnorm_bwd {key}: beyond the bound {used}")
-        again = rk.rmsnorm_bwd(xn, wn, dyn, eps=1e-5, weight_offset=1.0)
+        again = call()
         require(torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]),
                 f"rmsnorm_bwd {key}: two runs differ")
-        norm[key] = {k: {"bound_used": u, "max_abs_err": e} for k, (u, e) in used.items()}
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = call()
+        graph.replay()
+        torch.cuda.synchronize()
+        require(torch.equal(replayed[0], got[0]) and torch.equal(replayed[1], got[1]),
+                f"rmsnorm_bwd {key}: a graph replay differs from eager")
+        del graph, replayed, again, want
+        norm[key] = {**{k: {"bound_used": u, "max_abs_err": e} for k, (u, e) in used.items()},
+                     "plan": plan._asdict(), **norm_bwd_times(torch, rk, ref, xn, wn, dyn)}
         if d == 5120:
-            args = (xn, wn, dyn)
+            main_key, main_shape = key, [rows, d]
     detail["rmsnorm_bwd"] = norm
-    xn, wn, dyn = args
-    # the library: F.rms_norm and autograd's backward of it, the weight
-    # (w + 1) in bf16 so that it takes PyTorch's own norm kernels; both
-    # in each captured call (a graph built outside the capture cannot be
-    # differentiated inside it), the forward alone timed too: the
-    # backward's time is the difference
-    xl = xn.detach().requires_grad_()
-    wl = (wn + 1.0).bfloat16().requires_grad_()
-
-    def lib_fwd():
-        return torch.nn.functional.rms_norm(xl, (xn.shape[-1],), weight=wl, eps=1e-5)
-
-    def lib_fwd_bwd():
-        with torch.enable_grad():
-            return torch.autograd.grad(lib_fwd(), (xl, wl), dyn)
-
-    n_bytes = 3 * xn.numel() * 2 + 2 * wn.numel() * 4
-    norm_row = kernel_row(
-        torch, "rmsnorm_bwd", "rmsnorm.cu",
-        max(v["max_abs_err"] for c in norm.values() for v in c.values()),
-        lambda: rk.rmsnorm_bwd(xn, wn, dyn, eps=1e-5, weight_offset=1.0),
-        lambda: ref.rmsnorm_vjp(xn, wn, dyn, eps=1e-5, weight_offset=1.0),
-        lib_fwd_bwd, n_bytes, 10 * xn.numel(), FP32_OPS_PER_S)
-    with torch.no_grad():
-        fwd_ms = median_ms(torch, lib_fwd)
-    norm_row["library_fwd_bwd_ms"], norm_row["library_fwd_ms"] = norm_row["library_ms"], fwd_ms
-    norm_row["library_ms"] = norm_row["library_fwd_bwd_ms"] - fwd_ms
-    norm_row["library_call"] = ("torch.autograd.grad of F.rms_norm (weight w + 1 in bf16): "
-                                "forward and backward less the forward alone")
-    norm_row["pallas_counterpart"] = False
-    norm_row["shape"] = list(xn.shape)
+    t = norm[main_key]
+    t_ops = 10 * main_shape[0] * main_shape[1] / FP32_OPS_PER_S * 1e3
+    norm_row = {
+        "name": "rmsnorm_bwd", "route": "cuda", "kernel_route": main_key.split("_")[-1],
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": REPLACES["rmsnorm_bwd"], "pallas_counterpart": False,
+        "max_abs_err": max(v["max_abs_err"] for c in norm.values() for k, v in c.items()
+                           if k in ("dx", "dw")),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": max(t["bound_ms"], t_ops),
+        "bound_by": "bytes" if t["bound_ms"] >= t_ops else "operations",
+        "library_ms": t["library_ms"], "library_fwd_bwd_ms": t["library_fwd_bwd_ms"],
+        "library_fwd_ms": t["library_fwd_ms"],
+        "library_call": ("torch.autograd.grad of F.rms_norm (weight w + 1 in bf16): "
+                         "forward and backward less the forward alone"),
+        "shape": main_shape,
+        "training_shapes": {k: {n_: v[n_] for n_ in ("ms", "row_pass_ms", "dw_pass_ms",
+                                                      "plain_ms", "library_ms", "bound_ms")}
+                            for k, v in norm.items()}}
     return ssd_row, norm_row, detail
 
 
@@ -3481,7 +3530,10 @@ def run_phase18(torch, seed: int, ssd, rk, ref):
             torch.cuda.synchronize()
             rec.append(a.elapsed_time(b))
     rec = rec[-1]
+    norm_bwd = [(t, c) for k, t, c in kernels if "rmsnorm_bwd" in k or "rmsnorm_dw" in k]
     out["profile"] = {
+        "rmsnorm_bwd_ms": sum(t for t, _ in norm_bwd),
+        "rmsnorm_bwd_kernel_launches": sum(c for _, c in norm_bwd),
         "forward_ms": fwd, "backward_ms_with_recompute": bwd, "optimizer_ms": optim,
         "recompute_ms_no_grad_stack": rec, "backward_ms_less_recompute": bwd - rec,
         "wall_ms": wall_ms, "device_busy_ms": busy,
@@ -3707,7 +3759,7 @@ def main() -> int:
     order = ("name", "route", "kernel_route", "source", "replaces", "pallas_counterpart",
              "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "sector_bound_ms", "library_ms", "library_call", "library_fwd_bwd_ms",
-             "library_fwd_ms", "earlier_ms", "cuda_core_ms", "decode",
+             "library_fwd_ms", "training_shapes", "earlier_ms", "cuda_core_ms", "decode",
              "served_shapes", "phase17_launches", "phase18_launches", "phase19_launches",
              "shape",
              "one_program_ms")

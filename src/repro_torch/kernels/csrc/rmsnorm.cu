@@ -365,119 +365,556 @@ cudaError_t launch(const Args& a, int route) {
 }
 
 // ---------------------------------------------------------------------------
-// The backward: rmsnorm_bwd_kernel and rmsnorm_dw_kernel.
+// The backward: a row pass (rmsnorm_bwd_rows_kernel or rmsnorm_bwd_team_kernel)
+// and a dw pass (rmsnorm_dw_kernel).
 //
 // No Pallas kernel to replace: the reference's models differentiate the
-// plain norm (src/repro/models/nn.py:78) with XLA's autodiff.  With
-// r = rsqrt(mean(x^2) + eps), w' = w + offset and g = dy * w' (float32):
+// plain norm (src/repro/models/nn.py:78, src/repro/kernels/ref.py:56) with
+// XLA's autodiff.  With r = rsqrt(mean(x^2) + eps), w' = w + offset and
+// g = dy * w' (float32):
 //   dx = r * (g - x * (r^2 * mean(g * x)))       in x's dtype
 //   dw = sum over rows of dy * (x * r)           in w's dtype
-// Bound: bytes (x and dy read, dx written once; the row is read twice, the
-// second time from L1).  One CTA of 256 threads takes rows blockIdx.x,
-// blockIdx.x + gridDim.x, ...; thread t owns columns t, t + 256, ... of the
-// row, so it alone adds into those columns of the CTA's dw partial in
-// shared memory.  The two row sums meet in a fixed tree (lanes by the xor
-// butterfly, warps in order).  rmsnorm_dw_kernel then adds the CTAs'
-// partials column by column in CTA order.  No float atomics: the result is
-// the same bits on every run, in a CUDA graph or not, for any row stride;
-// the grid (so the order of the partials) is fixed by the row count alone.
-// Any d the forward takes (both routes) and any leading dimensions: the
-// wrapper flattens them into rows.
+// Bound: bytes.  x and dy are read and dx written once (w read and dw
+// written once besides): at mamba2-2.7b's gated norm (2048 x 5120 bf16)
+// 63 MB, 18.8 us at 3.35 TB/s.  The design meets that as the forward does:
+// * A row is read once, as 16-byte loads of groups of 8 elements (the
+//   forward's test for them; element loads into the same registers
+//   otherwise), and stays in registers from the two row sums to the dx
+//   write.  Each thread owns the same groups of every row it takes, so it
+//   loads w + offset for them once and adds its rows' dy * (x * r) into
+//   registers.  Rows stay in flight behind the one being reduced: on the
+//   team route's 16-byte path two (one in float32) through a ring in
+//   shared memory filled by cp.async, otherwise the next row's loads are
+//   issued into registers before this row's sums.
+// * rows route (many rows, d up to 1024 bf16 / 512 float32): a warp a row,
+//   lane l holding groups l, l + 32, ...; the row sums are the lanes' sums
+//   added by the xor butterfly, no barrier.  A CTA of kBwdRowsWarps warps
+//   takes rows warp, warp + parts * kBwdRowsWarps, ...; at the end its warps'
+//   dw sums meet in shared memory and are added in warp order into the CTA's
+//   partial.
+// * team route (the rest): a team of W warps in each of C CTAs (a cluster
+//   when C > 1, for d above 8192) takes a row; thread u of the team (u =
+//   rank * 32 W + tid) holds groups u, u + 32 W C, ... (at most 2).  The
+//   row sums: each thread's in order, the lanes' by the butterfly, then the
+//   team's warps' in order (through shared memory, across the cluster by
+//   distributed shared memory), one barrier a row (two buffers, as the
+//   forward's team route).  Team p takes rows p, p + parts, ... and its
+//   dw sums are its partial.
+// * dw: the partials (`parts` of them, fixed by the wrapper from (rows, d,
+//   dtype) alone) are added in a fixed tree by rmsnorm_dw_kernel, a CTA
+//   for every 4 column quads (16 columns: 160 CTAs at d 2560, 320 at 5120):
+//   64 threads a quad each add every 64th partial in order, then the
+//   butterfly and the warps in order.  It is launched as the row pass's
+//   programmatic dependent (griddepcontrol), so its launch overlaps the
+//   row pass's last rows.
+// No float atomics: dx and dw are the same bits on every run, in a CUDA
+// graph or not, for any row stride and alignment.  tests/test_torch_backward.py
+// (emulate_rmsnorm_bwd) repeats this order of operations on the CPU.
 
-constexpr int kBwdThreads = 256;
-constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kBwdRowsWarps = 4;       // warps of a CTA of the rows route
+constexpr int kBwdTeamMaxWarps = 16;   // warps of a team's CTA
+constexpr int kBwdMaxCluster = 8;      // CTAs of a team
+constexpr int kDwThreads = 256;        // threads of a CTA of the dw pass
+constexpr int kDwQuads = 4;            // column quads of a CTA of the dw pass
+constexpr int kDwSlices = kDwThreads / kDwQuads;   // its threads a quad
 
-__device__ __forceinline__ float weight_at(const void* w, bool w_bf16, int j, float offset) {
-  const float v = w_bf16 ? to_float(static_cast<const __nv_bfloat16*>(w)[j])
-                         : static_cast<const float*>(w)[j];
-  return __fadd_rn(v, offset);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
-    rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                       const void* __restrict__ w, bool w_bf16, T* __restrict__ dx,
-                       float* __restrict__ partial, long long rows, int d, long long x_rs,
-                       float eps, float offset) {
-  extern __shared__ float bwd_smem[];
-  float* acc = bwd_smem;           // [d]: this CTA's dw partial
-  float* red = bwd_smem + d;       // [2 buffers][2 sums][kBwdWarps]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int j = tid; j < d; j += kBwdThreads) acc[j] = 0.f;
-  int buf = 0;
-  for (long long r = blockIdx.x; r < rows; r += gridDim.x, buf ^= 1) {
-    const T* xr = x + r * x_rs;
-    const T* gr = dy + r * static_cast<long long>(d);
-    float ss = 0.f, gx = 0.f;
-    for (int j = tid; j < d; j += kBwdThreads) {
-      const float xv = to_float(xr[j]);
-      const float gv = __fmul_rn(to_float(gr[j]), weight_at(w, w_bf16, j, offset));
-      ss = __fmaf_rn(xv, xv, ss);
-      gx = __fmaf_rn(gv, xv, gx);
-    }
-    ss = warp_total(ss);
-    gx = warp_total(gx);
-    float* rb = red + buf * 2 * kBwdWarps;
-    if (lane == 0) {
-      rb[warp] = ss;
-      rb[kBwdWarps + warp] = gx;
-    }
-    // one barrier a row: the next row writes the other buffer, and the row
-    // after it cannot start before every thread has passed the next barrier
-    __syncthreads();
-    ss = 0.f;
-    gx = 0.f;
+// Elements of the row groups first, first + stride, ... (NG of them, those
+// below G) of x and dy.
+template <typename T, bool VEC, int NG>
+__device__ __forceinline__ void load_row(Group<T> (&xv)[NG], Group<T> (&gv)[NG],
+                                         const T* __restrict__ xr, const T* __restrict__ gr,
+                                         int first, int stride, int G, int d) {
 #pragma unroll
-    for (int k = 0; k < kBwdWarps; ++k) {
-      ss = __fadd_rn(ss, rb[k]);
-      gx = __fadd_rn(gx, rb[kBwdWarps + k]);
-    }
-    const float rs = inv_rms(ss, d, eps);
-    const float c = __fmul_rn(__fmul_rn(rs, rs), __fdiv_rn(gx, static_cast<float>(d)));
-    T* dxr = dx + r * static_cast<long long>(d);
-    for (int j = tid; j < d; j += kBwdThreads) {
-      const float xv = to_float(xr[j]);
-      const float dyv = to_float(gr[j]);
-      const float gv = __fmul_rn(dyv, weight_at(w, w_bf16, j, offset));
-      dxr[j] = from_float<T>(__fmul_rn(rs, __fsub_rn(gv, __fmul_rn(xv, c))));
-      acc[j] = __fmaf_rn(dyv, __fmul_rn(xv, rs), acc[j]);
+  for (int i = 0; i < NG; ++i) {
+    const int g = first + stride * i;
+    if (g < G) {
+      load_group<T, VEC>(xv[i], xr + g * kGroup, d - g * kGroup);
+      load_group<T, VEC>(gv[i], gr + g * kGroup, d - g * kGroup);
     }
   }
-  float* out = partial + static_cast<long long>(blockIdx.x) * d;
-  for (int j = tid; j < d; j += kBwdThreads) out[j] = acc[j];
 }
 
-// dw[j] = the CTAs' partials of column j added in CTA order, in w's dtype.
-__global__ void rmsnorm_dw_kernel(const float* __restrict__ partial, int ctas, int d, void* dw,
-                                  bool w_bf16) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= d) return;
-  float s = 0.f;
-  for (int b = 0; b < ctas; ++b) s = __fadd_rn(s, partial[static_cast<long long>(b) * d + j]);
-  if (w_bf16)
-    static_cast<__nv_bfloat16*>(dw)[j] = __float2bfloat16_rn(s);
-  else
-    static_cast<float*>(dw)[j] = s;
+// A thread's two row sums over its groups in order: x * x and g * x.
+template <typename T, int NG>
+__device__ __forceinline__ void thread_sums(const Group<T> (&xv)[NG], const Group<T> (&gv)[NG],
+                                            const Group<float> (&wf)[NG], int first, int stride,
+                                            int G, float& ss, float& gx) {
+  ss = 0.f;
+  gx = 0.f;
+#pragma unroll
+  for (int i = 0; i < NG; ++i) {
+    if (first + stride * i >= G) continue;
+#pragma unroll
+    for (int e = 0; e < kGroup; ++e) {
+      const float xf = to_float(xv[i].v[e]);
+      ss = __fmaf_rn(xf, xf, ss);
+      gx = __fmaf_rn(__fmul_rn(to_float(gv[i].v[e]), wf[i].v[e]), xf, gx);
+    }
+  }
 }
 
-size_t bwd_smem_bytes(int d) { return (static_cast<size_t>(d) + 4 * kBwdWarps) * sizeof(float); }
+// dx of the thread's groups of a row, and dy * (x * r) added to its dw sums.
+template <typename T, bool VEC, int NG>
+__device__ __forceinline__ void row_grads(const Group<T> (&xv)[NG], const Group<T> (&gv)[NG],
+                                          const Group<float> (&wf)[NG], Group<float> (&acc)[NG],
+                                          int first, int stride, int G, int d, float rs, float c,
+                                          T* __restrict__ dxr) {
+#pragma unroll
+  for (int i = 0; i < NG; ++i) {
+    const int g = first + stride * i;
+    if (g >= G) continue;
+    Group<T> o;
+#pragma unroll
+    for (int e = 0; e < kGroup; ++e) {
+      const float xf = to_float(xv[i].v[e]), dyf = to_float(gv[i].v[e]);
+      const float gw = __fmul_rn(dyf, wf[i].v[e]);
+      o.v[e] = from_float<T>(__fmul_rn(rs, __fsub_rn(gw, __fmul_rn(xf, c))));
+      acc[i].v[e] = __fmaf_rn(dyf, __fmul_rn(xf, rs), acc[i].v[e]);
+    }
+    store_group<T, VEC>(dxr + g * kGroup, o, d - g * kGroup);
+  }
+}
 
+__device__ __forceinline__ float grad_scale(float rs, float gx, int d) {
+  return __fmul_rn(__fmul_rn(rs, rs), __fdiv_rn(gx, static_cast<float>(d)));
+}
+
+template <typename T, bool VEC, int NG>
+__device__ __forceinline__ void weights_and_zeros(Group<float> (&wf)[NG], Group<float> (&acc)[NG],
+                                                  const void* w, bool w_bf16, int first,
+                                                  int stride, int G, int d, float offset) {
+#pragma unroll
+  for (int i = 0; i < NG; ++i) {
+    const int g = first + stride * i;
+    if (g < G) load_weight<VEC>(wf[i], w, w_bf16, g, d, offset);
+#pragma unroll
+    for (int e = 0; e < kGroup; ++e) acc[i].v[e] = 0.f;
+  }
+}
+
+// The rows route.  NG: pow2ceil(ceil(G / 32)) groups a lane.  `partial` is
+// [gridDim.x, 8 G].
+template <typename T, bool VEC, int NG>
+__global__ void __launch_bounds__(32 * kBwdRowsWarps, 3)
+    rmsnorm_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                            const void* __restrict__ w, bool w_bf16, T* __restrict__ dx,
+                            float* __restrict__ partial, long long rows, int d, long long x_rs,
+                            float eps, float offset) {
+  __shared__ __align__(16) float part[kBwdRowsWarps][32 * NG * kGroup];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int G = (d + kGroup - 1) / kGroup;
+  Group<float> wf[NG], acc[NG];
+  weights_and_zeros<T, VEC, NG>(wf, acc, w, w_bf16, lane, 32, G, d, offset);
+  const long long step = static_cast<long long>(gridDim.x) * kBwdRowsWarps;
+  long long r = static_cast<long long>(blockIdx.x) * kBwdRowsWarps + warp;
+  Group<T> xv[NG], gv[NG];
+  if (r < rows) load_row<T, VEC, NG>(xv, gv, x + r * x_rs, dy + r * d, lane, 32, G, d);
+  for (; r < rows; r += step) {
+    const long long next = r + step;
+    Group<T> xn[NG], gn[NG];
+    if (next < rows) load_row<T, VEC, NG>(xn, gn, x + next * x_rs, dy + next * d, lane, 32, G, d);
+    float ss, gx;
+    thread_sums<T, NG>(xv, gv, wf, lane, 32, G, ss, gx);
+    const float rs = inv_rms(warp_total(ss), d, eps);
+    row_grads<T, VEC, NG>(xv, gv, wf, acc, lane, 32, G, d, rs, grad_scale(rs, warp_total(gx), d),
+                          dx + r * d);
+    if (next < rows) {
+#pragma unroll
+      for (int i = 0; i < NG; ++i) {
+        xv[i] = xn[i];
+        gv[i] = gn[i];
+      }
+    }
+  }
+  // the dw pass may be scheduled now (it waits for this grid's end)
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  // the CTA's partial: its warps' sums added in warp order
+#pragma unroll
+  for (int i = 0; i < NG; ++i) {
+    const int g = lane + 32 * i;
+    if (g < G) *reinterpret_cast<Group<float>*>(&part[warp][g * kGroup]) = acc[i];
+  }
+  __syncthreads();
+  float* out = partial + static_cast<long long>(blockIdx.x) * G * kGroup;
+  for (int col = threadIdx.x; col < G * kGroup; col += blockDim.x) {
+    float s = part[0][col];
+#pragma unroll
+    for (int k = 1; k < kBwdRowsWarps; ++k) s = __fadd_rn(s, part[k][col]);
+    out[col] = s;
+  }
+}
+
+// Every thread of every CTA of the cluster: writes before it (shared and
+// global) are seen by reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The address of the same shared-memory location in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// 16 bytes global -> shared, asynchronously (cp.async, not through L1).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem)), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Until at most N of this thread's commit groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The team route's ring (16-byte path): kStages rows of each thread's
+// groups in shared memory (3 in bf16: 2 to 5 measured alike at 2048 x 5120,
+// scripts/norm_bwd_times.py; 2 in float32), laid out
+// [stage][group i][x, dy][16-byte vector][thread] so that a warp's accesses
+// are consecutive.  A thread reads back only what it copied itself, so no
+// barrier guards the ring.
 template <typename T>
-cudaError_t launch_bwd(const void* x, const void* dy, const void* w, bool w_bf16, void* dx,
-                       float* partial, void* dw, long long rows, int d, long long x_rs,
-                       float eps, float offset, int ctas, cudaStream_t s) {
-  // the largest d the forward takes (32 warps x 4 groups x 8): set once
-  static const cudaError_t set = cudaFuncSetAttribute(
-      rmsnorm_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bwd_smem_bytes(32 * 32 * kMaxTeamGroups * kGroup)));
-  if (set != cudaSuccess) return set;
-  rmsnorm_bwd_kernel<T><<<ctas, kBwdThreads, bwd_smem_bytes(d), s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), w, w_bf16, static_cast<T*>(dx),
-      partial, rows, d, x_rs, eps, offset);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  rmsnorm_dw_kernel<<<(d + 255) / 256, 256, 0, s>>>(partial, ctas, d, dw, w_bf16);
+struct Ring {
+  static constexpr int kStages = sizeof(T) == 2 ? 3 : 2;   // rows in flight + 1
+  static constexpr int kVecs = sizeof(Group<T>) / 16;
+  uint4* base;
+  int tid, threads;
+  __device__ __forceinline__ uint4* at(int stage, int i, int which, int v, int NG) const {
+    return base + (((stage * NG + i) * 2 + which) * kVecs + v) * threads + tid;
+  }
+};
+
+template <typename T, int NG>
+constexpr size_t ring_bytes(int threads) {
+  return static_cast<size_t>(Ring<T>::kStages) * NG * 2 * sizeof(Group<T>) * threads;
+}
+
+// This thread's groups of x and dy of `row` (none past the last row) into
+// ring stage `stage`, as one commit group.
+template <typename T, int NG>
+__device__ __forceinline__ void fetch_row(const Ring<T>& ring, int stage, const T* x,
+                                          const T* dy, long long row, long long rows,
+                                          long long x_rs, int d, int first, int stride, int G) {
+  if (row < rows) {
+#pragma unroll
+    for (int i = 0; i < NG; ++i) {
+      const int g = first + stride * i;
+      if (g >= G) continue;
+      const uint4* src[2] = {reinterpret_cast<const uint4*>(x + row * x_rs + g * kGroup),
+                             reinterpret_cast<const uint4*>(dy + row * d + g * kGroup)};
+#pragma unroll
+      for (int which = 0; which < 2; ++which)
+#pragma unroll
+        for (int v = 0; v < Ring<T>::kVecs; ++v)
+          cp_async16(ring.at(stage, i, which, v, NG), src[which] + v);
+    }
+  }
+  cp_async_commit();
+}
+
+template <typename T, int NG>
+__device__ __forceinline__ void ring_row(Group<T> (&xv)[NG], Group<T> (&gv)[NG],
+                                         const Ring<T>& ring, int stage, int first, int stride,
+                                         int G) {
+#pragma unroll
+  for (int i = 0; i < NG; ++i) {
+    if (first + stride * i >= G) continue;
+#pragma unroll
+    for (int v = 0; v < Ring<T>::kVecs; ++v) {
+      reinterpret_cast<uint4*>(xv[i].v)[v] = *ring.at(stage, i, 0, v, NG);
+      reinterpret_cast<uint4*>(gv[i].v)[v] = *ring.at(stage, i, 1, v, NG);
+    }
+  }
+}
+
+// The team route: grid (C, parts), CTAs of W warps, a cluster of the C CTAs
+// of a team when CLUSTER.  NG: groups a thread (1 or 2).  `partial` is
+// [parts, 8 G].  VEC: the rows come through the ring (kStages - 1 rows in
+// flight behind the one being reduced; ring_bytes of dynamic shared memory),
+// otherwise through registers (the next row in flight).  Registers: at most
+// 96 a thread in bf16, so that 20 warps of teams fit an SM (the wrapper's
+// partial count puts that many there).
+template <typename T, bool VEC, int NG, bool CLUSTER>
+__global__ void __launch_bounds__(sizeof(T) == 2 ? 640 : 512, 1)
+    rmsnorm_bwd_team_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                            const void* __restrict__ w, bool w_bf16, T* __restrict__ dx,
+                            float* __restrict__ partial, long long rows, int d, long long x_rs,
+                            float eps, float offset) {
+  extern __shared__ uint4 ring_smem[];
+  __shared__ float red[2][2][kBwdTeamMaxWarps];   // [row parity][ss, gx][warp]
+  constexpr int S = Ring<T>::kStages;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, W = blockDim.x >> 5;
+  const int C = gridDim.x, rank = blockIdx.x;
+  const int nt = C * blockDim.x, u = rank * blockDim.x + tid;
+  const long long parts = gridDim.y;
+  const int G = (d + kGroup - 1) / kGroup;
+  const Ring<T> ring{ring_smem, tid, static_cast<int>(blockDim.x)};
+  Group<float> wf[NG], acc[NG];
+  weights_and_zeros<T, VEC, NG>(wf, acc, w, w_bf16, u, nt, G, d, offset);
+  long long r = blockIdx.y;
+  Group<T> xv[NG], gv[NG];
+  if constexpr (VEC) {
+#pragma unroll
+    for (int s = 0; s < S - 1; ++s)
+      fetch_row<T, NG>(ring, s, x, dy, r + s * parts, rows, x_rs, d, u, nt, G);
+  } else if (r < rows) {
+    load_row<T, VEC, NG>(xv, gv, x + r * x_rs, dy + r * d, u, nt, G, d);
+  }
+  for (int k = 0; r < rows; r += parts, ++k) {
+    const int par = k & 1;
+    const long long next = r + parts;
+    Group<T> xn[NG], gn[NG];
+    if constexpr (VEC) {
+      fetch_row<T, NG>(ring, (k + S - 1) % S, x, dy, r + (S - 1) * parts, rows, x_rs, d, u, nt,
+                       G);
+      cp_async_wait<S - 1>();
+      ring_row<T, NG>(xv, gv, ring, k % S, u, nt, G);
+    } else if (next < rows) {
+      load_row<T, VEC, NG>(xn, gn, x + next * x_rs, dy + next * d, u, nt, G, d);
+    }
+    float ss, gx;
+    thread_sums<T, NG>(xv, gv, wf, u, nt, G, ss, gx);
+    ss = warp_total(ss);
+    gx = warp_total(gx);
+    if (lane == 0) {
+      red[par][0][warp] = ss;
+      red[par][1][warp] = gx;
+    }
+    // a warp writes row k + 2's sums into this buffer only after every
+    // warp of the team has passed row k + 1's barrier, so after its reads
+    ss = 0.f;
+    gx = 0.f;
+    if constexpr (CLUSTER) {
+      cluster_sync();
+      const uint32_t base = smem_u32(&red[par][0][0]);
+      for (int c = 0; c < C; ++c) {
+        const uint32_t at = map_rank(base, c);
+        for (int j = 0; j < W; ++j) {
+          ss = __fadd_rn(ss, ld_cluster(at + 4 * j));
+          gx = __fadd_rn(gx, ld_cluster(at + 4 * (kBwdTeamMaxWarps + j)));
+        }
+      }
+    } else {
+      __syncthreads();
+      for (int j = 0; j < W; ++j) {
+        ss = __fadd_rn(ss, red[par][0][j]);
+        gx = __fadd_rn(gx, red[par][1][j]);
+      }
+    }
+    const float rs = inv_rms(ss, d, eps);
+    row_grads<T, VEC, NG>(xv, gv, wf, acc, u, nt, G, d, rs, grad_scale(rs, gx, d), dx + r * d);
+    if constexpr (!VEC) {
+      if (next < rows) {
+#pragma unroll
+        for (int i = 0; i < NG; ++i) {
+          xv[i] = xn[i];
+          gv[i] = gn[i];
+        }
+      }
+    }
+  }
+  // the dw pass may be scheduled now (it waits for this grid's end)
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  // no CTA of the team leaves while another may still read its sums
+  if constexpr (CLUSTER) cluster_sync();
+  float* out = partial + static_cast<long long>(blockIdx.y) * G * kGroup;
+#pragma unroll
+  for (int i = 0; i < NG; ++i) {
+    const int g = u + nt * i;
+    if (g < G) *reinterpret_cast<Group<float>*>(out + g * kGroup) = acc[i];
+  }
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
+}
+
+// dw, column quad by quad (4 columns): a CTA of 256 threads takes
+// kDwQuads quads; thread t adds the partials s, s + kDwSlices, ... of quad
+// t % kDwQuads in order (slice s = t / kDwQuads); a warp's 8 slices of a
+// quad meet by the butterfly (xor 4, 8, 16: the slice's bits), then the
+// CTA's 8 warps in order through shared memory; written in w's dtype.
+__global__ void __launch_bounds__(kDwThreads)
+    rmsnorm_dw_kernel(const float4* __restrict__ partial, int parts, int quads, int d,
+                      void* __restrict__ dw, bool w_bf16) {
+  __shared__ float4 warp_sums[kDwThreads / 32][kDwQuads];
+  // launched as the row pass's programmatic dependent: its partials are
+  // complete and visible after this wait
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int t = threadIdx.x, q = blockIdx.x * kDwQuads + t % kDwQuads;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (q < quads) {
+    const int first = t / kDwQuads;
+#pragma unroll 4
+    for (int p = first; p < parts; p += kDwSlices) {
+      const float4 v = partial[static_cast<long long>(p) * quads + q];
+      s = p == first ? v : add4(s, v);
+    }
+  }
+#pragma unroll
+  for (int m = kDwQuads; m < 32; m <<= 1) {
+    s.x = __fadd_rn(s.x, __shfl_xor_sync(0xffffffffu, s.x, m));
+    s.y = __fadd_rn(s.y, __shfl_xor_sync(0xffffffffu, s.y, m));
+    s.z = __fadd_rn(s.z, __shfl_xor_sync(0xffffffffu, s.z, m));
+    s.w = __fadd_rn(s.w, __shfl_xor_sync(0xffffffffu, s.w, m));
+  }
+  if ((t & 31) < kDwQuads) warp_sums[t >> 5][t & 31] = s;
+  __syncthreads();
+  if (t >= kDwQuads || q >= quads) return;
+  s = warp_sums[0][t];
+#pragma unroll
+  for (int k = 1; k < kDwThreads / 32; ++k) s = add4(s, warp_sums[k][t]);
+  const float out[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int col = 4 * q + e;
+    if (col >= d) break;
+    if (w_bf16)
+      static_cast<__nv_bfloat16*>(dw)[col] = __float2bfloat16_rn(out[e]);
+    else
+      static_cast<float*>(dw)[col] = out[e];
+  }
+}
+
+struct BwdArgs {
+  const void* x;
+  const void* dy;
+  const void* w;
+  bool w_bf16;
+  void* dx;
+  void* dw;
+  float* scratch;   // [parts, 8 G]: the dw partials
+  long long rows;
+  int d;
+  long long x_rs;
+  float eps, offset;
+  int warps, cluster, parts;
+  cudaStream_t s;
+};
+
+template <typename T, bool VEC, int NG>
+cudaError_t launch_bwd_rows(const BwdArgs& a) {
+  rmsnorm_bwd_rows_kernel<T, VEC, NG><<<a.parts, 32 * kBwdRowsWarps, 0, a.s>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.dy), a.w, a.w_bf16,
+      static_cast<T*>(a.dx), a.scratch, a.rows, a.d, a.x_rs, a.eps, a.offset);
   return cudaGetLastError();
+}
+
+// The team kernel's ring takes up to 128 KB of dynamic shared memory (16
+// warps): allowed, with the largest shared-memory carveout, once per instance.
+template <typename T, bool VEC, int NG, bool CLUSTER>
+cudaError_t allow_ring() {
+  if constexpr (VEC) {
+    auto kernel = rmsnorm_bwd_team_kernel<T, VEC, NG, CLUSTER>;
+    static const cudaError_t set = [&] {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(ring_bytes<T, NG>(32 * kBwdTeamMaxWarps)));
+      return e != cudaSuccess ? e
+                              : cudaFuncSetAttribute(
+                                    kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                    cudaSharedmemCarveoutMaxShared);
+    }();
+    return set;
+  }
+  return cudaSuccess;
+}
+
+template <typename T, bool VEC, int NG>
+cudaError_t launch_bwd_team(const BwdArgs& a) {
+  const T* x = static_cast<const T*>(a.x);
+  const T* dy = static_cast<const T*>(a.dy);
+  T* dx = static_cast<T*>(a.dx);
+  const size_t smem = VEC ? ring_bytes<T, NG>(32 * a.warps) : 0;
+  if (a.cluster == 1) {
+    const cudaError_t set = allow_ring<T, VEC, NG, false>();
+    if (set != cudaSuccess) return set;
+    rmsnorm_bwd_team_kernel<T, VEC, NG, false><<<dim3(1, a.parts), 32 * a.warps, smem, a.s>>>(
+        x, dy, a.w, a.w_bf16, dx, a.scratch, a.rows, a.d, a.x_rs, a.eps, a.offset);
+    return cudaGetLastError();
+  }
+  const cudaError_t set = allow_ring<T, VEC, NG, true>();
+  if (set != cudaSuccess) return set;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.cluster, a.parts);
+  cfg.blockDim = dim3(32 * a.warps);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, rmsnorm_bwd_team_kernel<T, VEC, NG, true>, x,
+                                             dy, a.w, a.w_bf16, dx, a.scratch, a.rows, a.d,
+                                             a.x_rs, a.eps, a.offset);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+cudaError_t launch_dw(const BwdArgs& a) {
+  const int quads = 2 * ((a.d + kGroup - 1) / kGroup);
+  // programmatic dependent launch: the dw pass's CTAs are scheduled as the
+  // row pass's finish their rows, not after its grid has drained
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((quads + kDwQuads - 1) / kDwQuads);
+  cfg.blockDim = dim3(kDwThreads);
+  cfg.stream = a.s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, rmsnorm_dw_kernel, reinterpret_cast<const float4*>(a.scratch),
+                         a.parts, quads, a.d, a.dw, a.w_bf16);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T, bool VEC>
+cudaError_t launch_bwd(const BwdArgs& a, int route) {
+  const int G = (a.d + kGroup - 1) / kGroup;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (route == kRows) {
+    // the groups a lane holds; float32 takes twice the registers
+    const int ng = pow2ceil((G + 31) / 32);
+    constexpr int kMax = sizeof(T) == 2 ? 4 : 2;
+    if (a.warps != kBwdRowsWarps || a.cluster != 1 || ng > kMax) return cudaErrorInvalidValue;
+    if (ng == 1) err = launch_bwd_rows<T, VEC, 1>(a);
+    else if (ng == 2) err = launch_bwd_rows<T, VEC, 2>(a);
+    else if constexpr (kMax == 4) err = launch_bwd_rows<T, VEC, 4>(a);
+  } else if (route == kTeam) {
+    if (a.warps < 1 || a.warps > kBwdTeamMaxWarps || a.cluster < 1 ||
+        a.cluster > kBwdMaxCluster)
+      return cudaErrorInvalidValue;
+    const int threads = 32 * a.warps * a.cluster;
+    const int ng = (G + threads - 1) / threads;
+    if (ng == 1) err = launch_bwd_team<T, VEC, 1>(a);
+    else if (ng == 2) err = launch_bwd_team<T, VEC, 2>(a);
+    else return cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return err;
+  return launch_dw(a);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -515,25 +952,31 @@ int rt_rmsnorm(int x_dtype, int w_dtype, const void* x, const void* w, void* y,
 }
 
 // The backward (see launch_bwd): x as rt_rmsnorm's; dy and dx [rows, d]
-// contiguous of x_dtype; w [d] of w_dtype; dw [d] of w_dtype; partial
-// [ctas, d] float32 scratch, ctas in 1..rows (the wrapper's, from rows alone).
+// contiguous of x_dtype; w [d] of w_dtype; dw [d] of w_dtype; scratch
+// float32, parts x 8 ceil(d / 8); route 0 rows, 1 team,
+// warps a CTA, cluster CTAs a team (1 on the rows route), parts the dw
+// partials, 1..rows (the wrapper's plan, from (rows, d, dtype) alone).
 int rt_rmsnorm_bwd(int x_dtype, int w_dtype, const void* x, const void* dy, const void* w,
-                   void* dx, void* dw, void* partial, long long rows, int d,
-                   long long x_row_stride, float eps, float offset, int ctas, void* stream) {
+                   void* dx, void* dw, void* scratch, long long rows, int d,
+                   long long x_row_stride, float eps, float offset, int route, int warps,
+                   int cluster, int parts, void* stream) {
   if (rows <= 0 || d <= 0) return 0;
   if ((x_dtype != kFloat32 && x_dtype != kBFloat16) ||
-      (w_dtype != kFloat32 && w_dtype != kBFloat16) || ctas < 1 || ctas > rows ||
-      d > 32 * 32 * kMaxTeamGroups * kGroup)
+      (w_dtype != kFloat32 && w_dtype != kBFloat16) || parts < 1 || parts > rows ||
+      parts > 65535 || d > 32 * 32 * kMaxTeamGroups * kGroup)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool wb = w_dtype == kBFloat16;
-  float* part = static_cast<float*>(partial);
-  const cudaError_t err =
-      x_dtype == kFloat32
-          ? launch_bwd<float>(x, dy, w, wb, dx, part, dw, rows, d, x_row_stride, eps, offset,
-                              ctas, s)
-          : launch_bwd<__nv_bfloat16>(x, dy, w, wb, dx, part, dw, rows, d, x_row_stride, eps,
-                                      offset, ctas, s);
+  const BwdArgs a{x, dy, w, w_dtype == kBFloat16, dx, dw, static_cast<float*>(scratch),
+                  rows, d, x_row_stride, eps, offset, warps, cluster, parts,
+                  static_cast<cudaStream_t>(stream)};
+  const long long esize = x_dtype == kFloat32 ? 4 : 2;
+  const bool vec = d % kGroup == 0 && (x_row_stride * esize) % 16 == 0 && aligned16(x) &&
+                   aligned16(dy) && aligned16(dx) && aligned16(w);
+  cudaError_t err;
+  if (x_dtype == kFloat32)
+    err = vec ? launch_bwd<float, true>(a, route) : launch_bwd<float, false>(a, route);
+  else
+    err = vec ? launch_bwd<__nv_bfloat16, true>(a, route)
+              : launch_bwd<__nv_bfloat16, false>(a, route);
   return static_cast<int>(err);
 }
 

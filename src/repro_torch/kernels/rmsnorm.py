@@ -24,13 +24,17 @@ Pallas backward: XLA differentiates its plain norm): when grad mode is on
 and x or w requires grad, :func:`rmsnorm` runs as a
 ``torch.autograd.Function`` whose backward is :func:`rmsnorm_bwd`.  Its
 plain version, for tests only, is :func:`.ref.rmsnorm_vjp`; CPU tensors
-keep the plain forward, which autograd differentiates.
+keep the plain forward, which autograd differentiates.  The backward has
+the forward's two routes, with their own limits: :func:`bwd_plan` picks
+the route, the CTA and team sizes and the number of dw partials from
+``(rows, d, dtype)`` alone, so the order in which dw is added is fixed by
+the shape.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -42,7 +46,7 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 #: the C entry point of ``csrc/rmsnorm.cu`` and its argument types
 SIGNATURES = {"rt_rmsnorm": [_I, _I, _P, _P, _P, _I64, _I, _I64, _F, _F, _I, _P],
               "rt_rmsnorm_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _I64, _I, _I64, _F, _F, _I,
-                                 _P]}
+                                 _I, _I, _I, _P]}
 
 GROUP = 8                 # elements of a group (csrc kGroup)
 ROUTES = ("rows", "team")  # the C route codes 0 and 1
@@ -50,10 +54,31 @@ ROWS_ROUTE_MIN_ROWS = 1024
 #: the most groups a lane of the rows route holds (csrc ``launch``)
 ROWS_ROUTE_MAX_LANE_GROUPS = {torch.bfloat16: 8, torch.float32: 4}
 MAX_D = 32 * 32 * 4 * GROUP   # 32 warps of a team, 4 groups a thread
-#: the most CTAs of the backward (two an SM of the H100); fewer rows take a
-#: CTA a row.  Fixed by the row count alone, so the order in which the
-#: CTAs' dw partials are added is too.
-BWD_MAX_CTAS = 264
+
+# The backward's plan (csrc ``launch_bwd``).  Its partial counts are sized
+# to the H100's 132 SMs, but fixed in this table, not read from the card.
+BWD_SMS = 132
+BWD_ROWS_WARPS = 4         # warps of a CTA of the rows route (csrc kBwdRowsWarps)
+BWD_ROWS_CTAS = 3 * BWD_SMS  # the rows route's most CTAs: three an SM
+#: the most groups a lane of the backward's rows route holds (x, dy, the
+#: next row's, w and the dw sums in registers)
+BWD_ROWS_MAX_LANE_GROUPS = {torch.bfloat16: 4, torch.float32: 2}
+BWD_TEAM_GROUPS = 2        # the most groups a thread of the team route holds
+BWD_TEAM_MAX_WARPS = 16    # warps of a team's CTA (csrc kBwdTeamMaxWarps)
+#: warps of teams an SM holds at once (96 registers a thread), and the
+#: most teams an SM is given
+BWD_TEAM_SM_WARPS, BWD_TEAM_SM_TEAMS = 20, 8
+BWD_DW_SLICES = 64         # threads of the dw pass a column quad (csrc kDwSlices)
+
+
+class BwdPlan(NamedTuple):
+    """The backward's launch on rows of width d, from (rows, d, dtype)."""
+    route: str               # "rows" or "team"
+    warps: int               # warps of a CTA
+    cluster: int             # CTAs of a team (a thread-block cluster if > 1)
+    row_threads: int         # threads that share a row: 32, or 32 warps cluster
+    groups_per_thread: int   # groups of 8 columns a thread holds (its own, every row)
+    partials: int            # dw partials: CTAs (rows route) or teams (team route)
 
 
 def _pow2ceil(n: int) -> int:
@@ -78,6 +103,28 @@ def route(rows: int, d: int, dtype: torch.dtype) -> str:
     if rows >= ROWS_ROUTE_MIN_ROWS and lane_groups <= ROWS_ROUTE_MAX_LANE_GROUPS[dtype]:
         return "rows"
     return "team"
+
+
+def bwd_plan(rows: int, d: int, dtype: torch.dtype) -> BwdPlan:
+    """The backward's plan.  ``"rows"`` (at least 1024 rows, a lane's share
+    of a row at most ``BWD_ROWS_MAX_LANE_GROUPS`` groups: d up to 1024 in
+    bf16, 512 in float32): a warp a row, CTAs of ``BWD_ROWS_WARPS`` warps,
+    a partial a CTA.  ``"team"`` otherwise: a row shared by the fewest
+    warps that hold it at ``BWD_TEAM_GROUPS`` groups a thread, in CTAs of
+    at most ``BWD_TEAM_MAX_WARPS`` warps (a cluster of them above d 8192),
+    a partial a team, as many teams as the card holds at once (fewer
+    when there are fewer rows)."""
+    groups = -(-d // GROUP)
+    lane_groups = -(-groups // 32)
+    if rows >= ROWS_ROUTE_MIN_ROWS and lane_groups <= BWD_ROWS_MAX_LANE_GROUPS[dtype]:
+        return BwdPlan("rows", BWD_ROWS_WARPS, 1, 32, lane_groups,
+                       min(-(-rows // BWD_ROWS_WARPS), BWD_ROWS_CTAS))
+    team_warps = -(-groups // (32 * BWD_TEAM_GROUPS))
+    cluster = -(-team_warps // BWD_TEAM_MAX_WARPS)
+    warps = -(-team_warps // cluster)
+    threads = 32 * warps * cluster
+    teams = BWD_SMS * min(BWD_TEAM_SM_TEAMS, max(1, BWD_TEAM_SM_WARPS // warps)) // cluster
+    return BwdPlan("team", warps, cluster, threads, -(-groups // threads), min(rows, teams))
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
@@ -147,11 +194,13 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *, eps: floa
     """``(dx, dw)`` of :func:`rmsnorm` at ``(x, w)`` for the cotangent
     ``dy`` (x's shape): dx in x's dtype, dw in w's, float32 arithmetic.
 
-    On the card ONE launch of the backward kernel covers every row (any
-    leading dimensions, any d the forward takes, x strided as the forward
-    reads it), then one launch adds the CTAs' dw partials in a fixed
-    order: no float atomics, so the result is the same bits every run.
-    For CPU tensors, the plain version :func:`.ref.rmsnorm_vjp`."""
+    On the card ONE launch of the row pass covers every row on the route
+    of :func:`bwd_plan` (any leading dimensions, any d the forward takes,
+    x strided as the forward reads it), writing dx and the dw partials;
+    then one launch adds the partials in a fixed tree: no float atomics,
+    so the result is the same bits every run.  ``rmsnorm_bwd.launches``
+    counts the call once.  For CPU tensors, the plain version
+    :func:`.ref.rmsnorm_vjp`."""
     d = _check_shapes(x, w)
     if tuple(dy.shape) != tuple(x.shape):
         raise ValueError(f"rmsnorm_bwd: dy has shape {tuple(dy.shape)}, want {tuple(x.shape)}")
@@ -164,12 +213,15 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *, eps: floa
     rows = x2.shape[0]
     if rows == 0:
         return dx, dw.zero_()
-    ctas = min(rows, BWD_MAX_CTAS)
-    partial = torch.empty((ctas, d), dtype=torch.float32, device=x.device)
+    plan = bwd_plan(rows, d, x.dtype)
+    # the dw partials, 8 ceil(d / 8) wide
+    scratch = torch.empty((plan.partials * -(-d // GROUP) * GROUP,), dtype=torch.float32,
+                          device=x.device)
     err = load_library("rmsnorm", SIGNATURES).rt_rmsnorm_bwd(
         _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], x2.data_ptr(), dy2.data_ptr(),
-        w.data_ptr(), dx.data_ptr(), dw.data_ptr(), partial.data_ptr(), rows, d,
-        x2.stride(0), float(eps), float(weight_offset), ctas, stream_arg(x))
+        w.data_ptr(), dx.data_ptr(), dw.data_ptr(), scratch.data_ptr(), rows, d,
+        x2.stride(0), float(eps), float(weight_offset), ROUTES.index(plan.route), plan.warps,
+        plan.cluster, plan.partials, stream_arg(x))
     check_launch("rmsnorm", err)
     rmsnorm_bwd.launches += 1
     return dx, dw

@@ -25,6 +25,13 @@ and ``chip_smoke.py`` hold them against their plain versions.  Here:
   with ``ssd_scan.BWD_PARTS``, one part fewer of any operand leaving the
   bound.  A change to that kernel's algorithm or parts must be mirrored
   in :func:`emulate_ssd_bwd_wgmma`;
+* a float32 emulation of the RMSNorm backward kernel's order of operations
+  (:func:`emulate_rmsnorm_bwd`: the row sums by the plan's thread layout,
+  the lanes' butterfly and the team's warps in order; dw by the plan's
+  partition of rows into partials and the dw pass's fixed tree) against
+  the plain VJP and ``jax.vjp`` at the plain VJP's bounds, on both routes,
+  a cluster of CTAs a row and more rows than partials.  A change to that
+  kernel's order or plan must be mirrored in :func:`emulate_rmsnorm_bwd`;
 * the wrappers on CPU tensors run the plain versions (no launch counted),
   and ``ops.rmsnorm`` / ``ops.ssd_scan`` stay differentiable by autograd.
 """
@@ -411,3 +418,153 @@ def test_ops_rmsnorm_is_differentiable_on_cpu():
     want = ref.rmsnorm_vjp(x.detach(), w.detach(), dy, eps=1e-5, weight_offset=1.0)
     _close(dx, want[0])
     _close(dw, want[1])
+
+
+def _fma(a, b, c):
+    """float32 ``a * b + c`` rounded once (the product is exact in float64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _butterfly(t):
+    """``warp_total`` over the last axis, in lanes of 32: lane l adds lane
+    l xor m for m 16, 8, 4, 2, 1; every lane ends with the total."""
+    lane = torch.arange(32)
+    t = t.unflatten(-1, (-1, 32))
+    for m in (16, 8, 4, 2, 1):
+        t = t + t[..., lane ^ m]
+    return t.flatten(-2)
+
+
+def emulate_rmsnorm_bwd(x, w, dy, eps, offset):
+    """``csrc/rmsnorm.cu``'s backward (``rmsnorm_bwd_rows_kernel`` /
+    ``rmsnorm_bwd_team_kernel``, then ``rmsnorm_dw_kernel``) in float32 on the plan of
+    ``rmsnorm.bwd_plan``, vectorised over rows.  Thread u of a row holds
+    groups u, u + T, ... (T the row's threads); its two sums run over them
+    in order (one fma an element), the lanes meet by the butterfly and a
+    team's warps in order.  dw: each partial adds its rows' dy * (x * r)
+    in row order (a rows-route CTA's warps each theirs, then added in warp
+    order); then, a column at a time, slice u of ``BWD_DW_SLICES`` adds
+    partials u, u + 64, ... in order, a warp's 8 slices meet by the
+    butterfly and the warps in order.  Returns (dx in x's dtype, dw in
+    w's)."""
+    d = x.shape[-1]
+    X = x.reshape(-1, d).float()
+    DY = dy.reshape(-1, d).to(x.dtype).float()
+    rows = X.shape[0]
+    plan = rk.bwd_plan(rows, d, x.dtype)
+    T, NG = plan.row_threads, plan.groups_per_thread
+    width = T * NG * rk.GROUP
+    pad = lambda t: torch.nn.functional.pad(t, (0, width - d))  # noqa: E731
+    X, DY = pad(X), pad(DY)
+    WP = pad((w.float() + offset)[None])
+    GW = DY * WP
+    by_thread = lambda t: t.view(rows, NG, T, rk.GROUP)  # noqa: E731
+    ss, gx = torch.zeros(rows, T), torch.zeros(rows, T)
+    for i in range(NG):
+        for e in range(rk.GROUP):
+            xe, ge = by_thread(X)[:, i, :, e], by_thread(GW)[:, i, :, e]
+            ss, gx = _fma(xe, xe, ss), _fma(ge, xe, gx)
+    ss, gx = _butterfly(ss)[:, ::32], _butterfly(gx)[:, ::32]   # [rows, warps of the row]
+    if plan.route == "rows":
+        ss, gx = ss[:, 0], gx[:, 0]
+    else:
+        s_tot, g_tot = torch.zeros(rows), torch.zeros(rows)
+        for k in range(ss.shape[1]):
+            s_tot, g_tot = s_tot + ss[:, k], g_tot + gx[:, k]
+        ss, gx = s_tot, g_tot
+    rs = torch.rsqrt(ss / d + eps)[:, None]
+    c = (rs * rs) * (gx / d)[:, None]
+    dx = (rs * (GW - X * c))[:, :d].to(x.dtype).reshape(x.shape)
+    XR = X * rs
+
+    def partial_sums(n):
+        """dy * (x * r) of rows u, u + n, ... added in order, for u < n."""
+        acc = torch.zeros(n, width)
+        for r0 in range(0, rows, n):
+            m = min(n, rows - r0)
+            acc[:m] = _fma(DY[r0:r0 + m], XR[r0:r0 + m], acc[:m])
+        return acc
+
+    P = plan.partials
+    if plan.route == "rows":
+        warp_acc = partial_sums(P * plan.warps).view(P, plan.warps, width)
+        part = warp_acc[:, 0]
+        for k in range(1, plan.warps):
+            part = part + warp_acc[:, k]
+    else:
+        part = partial_sums(P)
+    # a column quad's slices: slice u adds partials u, u + 64, ... in order
+    n = rk.BWD_DW_SLICES
+    slices = torch.zeros(n, width)
+    for u in range(min(n, P)):
+        slices[u] = part[u]
+        for p in range(u + n, P, n):
+            slices[u] = slices[u] + part[p]
+    # a warp's 8 slices by the butterfly (pairs differing in the slice's
+    # bit 0, then 1, then 2), then the warps in order
+    by_warp = slices.view(n // 8, 8, width)
+    idx = torch.arange(8)
+    for bit in (1, 2, 4):
+        by_warp = by_warp + by_warp[:, idx ^ bit]
+    dw = by_warp[0, 0]
+    for k in range(1, n // 8):
+        dw = dw + by_warp[k, 0]
+    return dx, dw[:d].to(w.dtype)
+
+
+# NORM_CASES, then: the rows route (1100 rows of 512 in float32: 275 CTAs of
+# 4 warps), more rows than team partials (600 rows of 256 on 1-warp teams:
+# the plan's 600; 1100 rows of 1000: 264 teams of 2 warps), and a team of a
+# cluster of 3 CTAs (d 16392)
+EMU_CASES = NORM_CASES + [((1100, 512), 1e-6, 1.0), ((600, 256), 1e-5, 0.0),
+                          ((1100, 1000), 1e-6, 1.0), ((3, 16392), 1e-6, 1.0)]
+
+
+@pytest.mark.parametrize("shape,eps,offset", EMU_CASES, ids=str)
+def test_rmsnorm_backward_kernel_arithmetic_matches_plain_and_jax_vjp(shape, eps, offset):
+    """The backward kernel's order of operations, in float32, within the
+    plain VJP's bounds (rtol 1e-5 plus 1e-5 of the leaf's largest entry)
+    of ``ref.rmsnorm_vjp`` and of ``jax.vjp`` of the reference norm."""
+    rs = np.random.RandomState(9)
+    x = rs.randn(*shape).astype(np.float32)
+    w = rs.randn(shape[-1]).astype(np.float32) * 0.1
+    dy = rs.randn(*shape).astype(np.float32)
+    dx, dw = emulate_rmsnorm_bwd(_t(x), _t(w), _t(dy), eps, offset)
+    assert dx.shape == x.shape and dw.shape == w.shape
+    want = ref.rmsnorm_vjp(_t(x), _t(w), _t(dy), eps=eps, weight_offset=offset)
+    _, vjp = jax.vjp(lambda a, b: jref.rmsnorm(a, b, eps=eps, weight_offset=offset),
+                     jnp.asarray(x), jnp.asarray(w))
+    for got, plain, jw in zip((dx, dw), want, vjp(jnp.asarray(dy))):
+        _close(got, plain)
+        _close(got, np.asarray(jw))
+
+
+def test_rmsnorm_bwd_plan_is_a_function_of_rows_d_dtype():
+    """The backward's route and partial count (so the order in which dw is
+    added) follow from (rows, d, dtype) alone; every plan covers the row
+    at its groups per thread, and the training shapes take the routes
+    and partial counts the kernel table times."""
+    import inspect
+    assert list(inspect.signature(rk.bwd_plan).parameters) == ["rows", "d", "dtype"]
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {(2048, 2560, bf16): ("team", 528), (2048, 5120, bf16): ("team", 264),
+             (4096, 1024, bf16): ("rows", 396), (4096, 1024, f32): ("team", 1056),
+             (1024, 512, f32): ("rows", 256), (1023, 512, f32): ("team", 1023),
+             (4096, 1032, bf16): ("team", 792), (1, 5120, bf16): ("team", 1),
+             (37, 1152, f32): ("team", 37), (3, rk.MAX_D, bf16): ("team", 3),
+             (2048, 8192, bf16): ("team", 132), (264, 32768, f32): ("team", 33)}
+    got = {c: rk.bwd_plan(*c) for c in cases}
+    assert {c: (p.route, p.partials) for c, p in got.items()} == cases
+    assert got == {c: rk.bwd_plan(*c) for c in cases}
+    for (rows, d, dtype), p in got.items():
+        groups = -(-d // rk.GROUP)
+        assert p.row_threads * p.groups_per_thread >= groups
+        assert 1 <= p.partials <= rows
+        if p.route == "rows":
+            assert (p.warps, p.cluster, p.row_threads) == (rk.BWD_ROWS_WARPS, 1, 32)
+            assert p.groups_per_thread <= rk.BWD_ROWS_MAX_LANE_GROUPS[dtype]
+        else:
+            assert p.row_threads == 32 * p.warps * p.cluster
+            assert p.groups_per_thread <= rk.BWD_TEAM_GROUPS
+            assert p.warps <= rk.BWD_TEAM_MAX_WARPS and p.cluster <= 8
+    assert rk.bwd_plan(3, rk.MAX_D, bf16).cluster == 4

@@ -1540,10 +1540,21 @@ def _grad_close(got: torch.Tensor, want: torch.Tensor, rtol: float, atol_frac: f
     assert bool(((g - w).abs() <= bound).all()), float((g - w).abs().max())
 
 
+# then: the rows route at its widest bf16 d (float32 takes the team route
+# there) and at float32's widest, each route's element path (a base one
+# element off; d 1000 at an odd row stride), d 1000 whole, an odd d (a
+# short last group), a row across a cluster of 4 CTAs (d MAX_D) and of 3,
+# more rows than partials on teams of one warp
 NORM_BWD_CASES = [((2048, 2560), "contiguous"), ((2048, 5120), "contiguous"),
                   ((37, 1152), "contiguous"), ((3, 1000), "stride+24"),
                   ((4, 6, 37, 256), "contiguous"), ((4097, 256), "stride+3"),
-                  ((1, 5120), "contiguous")]
+                  ((1, 5120), "contiguous"),
+                  ((4096, 1024), "contiguous"), ((2048, 512), "contiguous"),
+                  ((4096, 1024), "offset+1"), ((2048, 5120), "offset+1"),
+                  ((3, 1000), "contiguous"), ((1100, 1000), "stride+3"),
+                  ((37, 1001), "contiguous"),
+                  ((3, 32768), "contiguous"), ((5, 16392), "stride+24"),
+                  ((900, 256), "contiguous")]
 
 
 @pytest.mark.parametrize("offset", [0.0, 1.0])
@@ -1551,13 +1562,15 @@ NORM_BWD_CASES = [((2048, 2560), "contiguous"), ((2048, 5120), "contiguous"),
 @pytest.mark.parametrize("shape,layout", NORM_BWD_CASES)
 def test_rmsnorm_bwd_kernel_matches_plain_vjp(cuda, shape, layout, dtype, offset):
     """dx and dw of the backward kernel against ``autograd.grad`` of the
-    plain norm on the same inputs (the rows and team routes' shapes, leading
-    dimensions, strided rows): dx at the forward's bounds (float32 rtol
-    2e-5 / atol 1e-5 of the largest dx; bf16 one rounding), dw (a sum over
-    rows) at rtol 2e-5 plus 1e-5 of its largest entry; two runs equal bit
-    for bit."""
-    extra = {"contiguous": 0, "stride+24": 24, "stride+3": 3}[layout]
-    x = _randn((*shape[:-1], shape[-1] + extra), dtype, cuda, 21)[..., :shape[-1]]
+    plain norm on the same inputs (both routes of ``rmsnorm.bwd_plan``,
+    its 16-byte and element loads, leading dimensions, strided rows, a
+    misaligned base, a cluster of CTAs a row): dx at the forward's bounds
+    (float32 rtol 2e-5 / atol 1e-5 of the largest dx; bf16 one rounding),
+    dw (a sum over rows) at rtol 2e-5 plus 1e-5 of its largest entry; two
+    runs equal bit for bit."""
+    extra, start = {"contiguous": (0, 0), "stride+24": (24, 0), "stride+3": (3, 0),
+                    "offset+1": (8, 1)}[layout]
+    x = _randn((*shape[:-1], shape[-1] + extra), dtype, cuda, 21)[..., start:start + shape[-1]]
     w = _randn((shape[-1],), torch.float32, cuda, 22)
     dy = _randn(shape, dtype, cuda, 23)
     before = rk.rmsnorm_bwd.launches
@@ -1569,6 +1582,25 @@ def test_rmsnorm_bwd_kernel_matches_plain_vjp(cuda, shape, layout, dtype, offset
     _grad_close(dw, want_dw, 2e-5, 1e-5)
     again = rk.rmsnorm_bwd(x, w, dy, eps=1e-5, weight_offset=offset)
     assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+
+
+@pytest.mark.parametrize("shape", [(2048, 5120), (4096, 1024), (3, 32768)], ids=str)
+def test_rmsnorm_bwd_in_a_cuda_graph_equals_eager(cuda, shape):
+    """The backward captured into a CUDA graph (the team route, the rows
+    route, a cluster of CTAs a row) gives eager's dx and dw bit for bit,
+    replay after replay."""
+    x = _randn(shape, torch.bfloat16, cuda, 27)
+    w = _randn((shape[-1],), torch.float32, cuda, 28)
+    dy = _randn(shape, torch.bfloat16, cuda, 29)
+    eager = rk.rmsnorm_bwd(x, w, dy, eps=1e-5, weight_offset=1.0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rk.rmsnorm_bwd(x, w, dy, eps=1e-5, weight_offset=1.0)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], eager[0]) and torch.equal(out[1], eager[1])
 
 
 def test_rmsnorm_is_differentiable_through_the_kernels(cuda):
