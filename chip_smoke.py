@@ -299,7 +299,39 @@ a checkout of the repository.  Phases, each of which must pass:
    the count its config gives, and its smoke model (float32) served on
    the card with a 16-patch vision prefix: tokens equal to the CPU's,
    resident and host-stepped, the checks of phase 7, the capacity and
-   ``pos`` counting the prefix.
+   ``pos`` counting the prefix;
+20. the MoE family, uncut in width with bf16 parameters from
+   ``torch.Generator(seed)`` (the trunks' matrices times 8,
+   ``MOE_TRUNK_SCALE``, so that the tokens depend on attention and the
+   experts): (a) deepseek-v3-671b cut to 3 layers (``MOE_CUTS``: 1 dense,
+   then 2 of 256 routed experts, top-8 by a sigmoid router with its bias,
+   plus 1 shared; MLA with 128 heads, q/k head dim 192 and v 128; d_model
+   7168, vocab 129 280: 26.14 B parameters, 52.3 GB) and grok-1-314b cut
+   to 2 (8 experts of d_ff 32 768, top-2 by softmax; GQA 48/8 at 128,
+   soft-cap 30, output multiplier 0.0884: 11.45 B, 22.9 GB), served as
+   phase 19 serves hymba (4 slots, 512-token prompts, 32 tokens,
+   resident and host-stepped; no continuous serving, which the port
+   refuses for MoE), the prefill graph's and one eager prefill's
+   launches equal to those reckoned from the config (deepseek 3 flash
+   at (192, 128) and grok 2 at 128, all on the tensor-core route; 13
+   and 5 norms), the checks of phase 7, every slot's tokens distinct;
+   ``torch.profiler`` windows of an eager prefill and decode step split
+   into the MoE layers' routing, dispatch, expert ``bmm``s and combine,
+   flash, norms and the rest, with the idle share, and the profiles of
+   phase 6; (b) flash at each model's layer 0 (deepseek's MLA pair,
+   grok's soft-capped GQA) and rmsnorm at d 7168, 1536 and 512 (MLA's q
+   and kv norms, the kv one a strided view) and 6144, against the plain
+   versions, timed cold beside SDPA (whose kernels are named; grok's
+   soft-cap has no SDPA counterpart, so its SDPA time without the cap is
+   a detail, not the library time) and ``F.rms_norm``; (c) both full
+   sizes (671.71 B and 316.49 B by ``count_params``) on the meta
+   device, the leaves' total equal to ``count_params`` plus the leaves
+   it does not count, and both smoke models (float32) served on the
+   card, tokens equal to the CPU's; (d) ``build_moe_dispatch_program``
+   over 4 stacked ranks at deepseek's prefill widths (256 experts,
+   capacity 80, d 7168, bf16) through ``FusedEngine``, equal to the
+   plain tiled all-to-all bit for bit and giving its input back when run
+   again.
 
 The last lines are a ``{"kernels": [...]}`` JSON line (thirteen rows:
 the nine Pallas kernels', the two step kernels' and the two backward
@@ -312,9 +344,10 @@ run, and the SSD row its ``kernel_route``; the SSD backward row its
 input); the RMSNorm backward row its ``training_shapes`` (each shape's
 ms, row pass, dw pass, plain, library and bound); the rmsnorm row gives
 ``decode``: its times at the decode shapes; the flash and rmsnorm rows
-``served_shapes``: their times at phase 17's served layer 0 and phase
-19's served shapes (the SSD row's: hymba's), and those
-three rows ``phase17_launches`` and ``phase19_launches``; the schedule step's row
+``served_shapes``: their times at phase 17's served layer 0 and phases
+19's and 20's served shapes (the SSD row's: hymba's), and those
+three rows ``phase17_launches`` and ``phase19_launches``, the flash and
+rmsnorm rows ``phase20_launches``; the schedule step's row
 ``one_program_ms``: its loop with one program), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -417,6 +450,20 @@ FAMILY_CHUNK = 8                   # the continuous decode chunk
 #: its sinusoids swamp the 0.02 token embeddings and every slot emits the
 #: same tokens, so a slot mix-up would not show
 TRUNK_SCALE = {"whisper-large-v3": 8.0}
+#: phase 20: the MoE family uncut in width with bf16 parameters, 4 slots,
+#: 512-token prompts, 32 tokens; deepseek-v3 cut to 3 layers (1 dense, then 2
+#: of 256 routed experts: 26.14 B parameters, 52.3 GB) and grok-1 to 2 (11.45
+#: B, 22.9 GB), so that each fits the card's 80 GB with its graphs' pools
+MOE_SERVE = dict(batch=4, prompt_len=512, gen_len=32)
+MOE_CUTS = {"deepseek-v3-671b": dict(n_layers=3, first_k_dense=1),
+            "grok-1-314b": dict(n_layers=2)}
+#: their trunks' matrices (``w*`` leaves) are scaled as whisper's are: at the
+#: init scale every slot echoes its last prompt token, whatever attention
+#: and the experts give, so resident == host-stepped would hold vacuously
+MOE_TRUNK_SCALE = 8.0
+#: the expert-parallel dispatch at deepseek-v3's prefill widths: 4 ranks of
+#: 256 experts x capacity 80 (2048 tokens, top-8, factor 1.25) x d 7168
+MOE_DISPATCH = dict(ranks=4, experts=256, capacity=80, d_model=7168)
 
 
 def gpu_line() -> str:
@@ -1091,12 +1138,14 @@ def scale_trunks(params, factor: float) -> None:
             tree.mul_(factor)
 
     for key in ("encoder", "decoder"):
-        walk(params[key])
+        if key in params:
+            walk(params[key])
 
 
-def run_serve(torch, seed: int, arch: str, shape: dict):
-    """Serve ``arch`` at full size in both decode modes (phases 6, 9 and
-    19; ``TRUNK_SCALE`` scales the weights of the archs it names).
+def run_serve(torch, seed: int, arch: str, shape: dict, cfg=None, scale=None):
+    """Serve ``arch`` at full size (or ``cfg``, a cut of it) in both decode
+    modes (phases 6, 9, 19 and 20; ``TRUNK_SCALE``, or ``scale``, scales
+    the trunk's weights).
 
     One serve per mode first captures the prefill and decode graphs
     (set-up, as a server does once); then each mode serves once more.
@@ -1112,12 +1161,13 @@ def run_serve(torch, seed: int, arch: str, shape: dict):
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import ServeEngine, serve, synthetic_batch
 
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     eng = ServeEngine(cfg, slots=shape["batch"], prompt_len=shape["prompt_len"],
                       max_new=shape["gen_len"], chunk=shape["gen_len"] - 1)
     params = eng.model.init(seed)
-    if arch in TRUNK_SCALE:
-        scale_trunks(params, TRUNK_SCALE[arch])
+    scale = scale or TRUNK_SCALE.get(arch)
+    if scale:
+        scale_trunks(params, scale)
     batch_in = synthetic_batch(cfg, np.random.RandomState(seed), shape["batch"],
                                shape["prompt_len"])
     torch.cuda.synchronize()
@@ -1458,10 +1508,12 @@ def cuda_core_flash(torch, q, k, v, window):
     from repro_torch.kernels.build import check_launch, load_library, stream_arg
 
     B, Hq, Sq, D = q.shape
-    out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    Dv = v.shape[3]
+    out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=q.device).transpose(1, 2)
     err = load_library("flash_attention", fk.SIGNATURES).rt_flash_attention(
         1, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, k.shape[1], Sq,
-        k.shape[2], D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        k.shape[2], D, Dv, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3],
         D ** -0.5, 0.0, 1, -1 if window is None else int(window), 0, stream_arg(q))
     check_launch("flash_attention", err)
     return out
@@ -2737,28 +2789,30 @@ def run_phase17(torch, seed: int, fk, rk, ref):
 
 def expected_prefill_launches(cfg) -> dict:
     """One eager prefill's kernel launches, reckoned from the config: per
-    layer, the norms (``attn_mlp`` 2, ``ssm`` 2 with the gated norm,
-    ``hybrid`` 4, ``dec_cross`` 3, and 2 a self or cross attention with
-    qk-norm), a flash launch a self or cross attention and an SSD launch
-    an SSM head; the final norm and the encoder's.  Flash and the SSD
-    scan by route (``kernels/*.py:route``)."""
+    layer, the norms (``attn_mlp`` and ``attn_moe`` 2, ``ssm`` 2 with the
+    gated norm, ``hybrid`` 4, ``dec_cross`` 3, and 2 a self or cross
+    attention with qk-norm, 2 an MLA attention: its q and kv norms), a
+    flash launch a self or cross attention and an SSD launch an SSM head;
+    the final norm and the encoder's.  Flash (at MLA's head-dim pair where
+    the config has it) and the SSD scan by route
+    (``kernels/*.py:route``)."""
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models import transformer as tfm
     from repro_torch.models.nn import dtype_of
 
-    norms = {"attn_mlp": 2, "ssm": 2, "hybrid": 4, "dec_cross": 3}
-    flashes = {"attn_mlp": 1, "ssm": 0, "hybrid": 1, "dec_cross": 2}
-    scans = {"attn_mlp": 0, "ssm": 1, "hybrid": 1, "dec_cross": 0}
+    norms = {"attn_mlp": 2, "attn_moe": 2, "ssm": 2, "hybrid": 4, "dec_cross": 3}
+    flashes = {"attn_mlp": 1, "attn_moe": 1, "ssm": 0, "hybrid": 1, "dec_cross": 2}
+    scans = {"attn_mlp": 0, "attn_moe": 0, "ssm": 1, "hybrid": 1, "dec_cross": 0}
     segs = tfm.plan_segments(cfg)
     if cfg.enc_dec:
         segs = segs + tfm.plan_segments(cfg, decoder=False)
     n_flash = sum(s.n_layers * flashes[s.kind] for s in segs)
     n_scan = sum(s.n_layers * scans[s.kind] for s in segs)
-    n_norm = (1 + int(cfg.enc_dec) + 2 * n_flash * int(cfg.qk_norm)
+    n_norm = (1 + int(cfg.enc_dec) + 2 * n_flash * int(cfg.qk_norm or cfg.use_mla)
               + sum(s.n_layers * norms[s.kind] for s in segs))
     dt = dtype_of(cfg.dtype)
-    flash_route = fk.route(dt, cfg.resolved_head_dim())
+    flash_route = fk.route(dt, *head_dims(cfg))
     scan_route = ssd.route(dt, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk)
     out = {"flash_attention": n_flash, "rmsnorm": n_norm, "ssd_scan": n_scan}
     for kernel, n, route in (("flash_attention", n_flash, flash_route),
@@ -2768,7 +2822,37 @@ def expected_prefill_launches(cfg) -> dict:
     return out
 
 
-def flash_entry(torch, fk, ref, tag, model, q, k, v, causal, window):
+def head_dims(cfg):
+    """(q/k head dim, v head dim) of a config's attention: MLA's pair, or
+    the one head dim twice."""
+    if cfg.use_mla:
+        return cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
+    return cfg.resolved_head_dim(), cfg.resolved_head_dim()
+
+
+def sdpa_kernels(torch, fn) -> list:
+    """The names of the kernels one call of ``fn`` launches (SDPA's
+    backend shows in them).  Late in a run ``torch.profiler`` at times
+    returns a window without kernel records: up to 5 windows are tried."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    names = set()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.key[:120] for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.device_time_total > 0}
+        if names:
+            break
+    return sorted(names)
+
+
+def flash_entry(torch, fk, ref, tag, model, q, k, v, causal, window, scale=None,
+                softcap=None):
     """A served-shape flash entry: the kernel (one launch on the
     tensor-core route) against its plain version, timed cold beside the
     plain version and SDPA (the same function: at these shapes a window
@@ -2784,16 +2868,16 @@ def flash_entry(torch, fk, ref, tag, model, q, k, v, causal, window):
     lie beyond one rounding alone is recorded."""
     import torch.nn.functional as F
 
+    kw = dict(causal=causal, window=window, scale=scale, logit_softcap=softcap)
     before = fk.launch_counts()
-    got = fk.flash_attention(q, k, v, causal=causal, window=window)
+    got = fk.flash_attention(q, k, v, **kw)
     after = fk.launch_counts()
     require(after["flash_attention_wgmma"] - before["flash_attention_wgmma"] == 1,
             f"{tag}: flash did not take the tensor-core route")
-    want = ref.attention(q, k, v, causal=causal, window=window)
+    want = ref.attention(q, k, v, **kw)
     B, Hq, Sq, D = q.shape
-    Skv = k.shape[2]
-    vabs = ref.attention(q.float(), k.float(), v.float().abs(), causal=causal,
-                         window=window)
+    Skv, Dv = k.shape[2], v.shape[3]
+    vabs = ref.attention(q.float(), k.float(), v.float().abs(), **kw)
     g, w = got.float(), want.float()
     d = (g - w).abs()
     rounding = 2.0 ** -8 * (g.abs() + w.abs()) + 1e-6
@@ -2805,22 +2889,32 @@ def flash_entry(torch, fk, ref, tag, model, q, k, v, causal, window):
     beyond_rounding = int((d > rounding).sum())
     del vabs, g, w, d, rounding, tol
     pairs = attention_pairs(Sq, Skv, Skv - Sq, window) if causal else Sq * Skv
-    library = None
+
+    def sdpa(*qkv):
+        return F.scaled_dot_product_attention(*qkv, is_causal=causal and Sq > 1,
+                                              enable_gqa=True, scale=scale)
+
+    library, sdpa_names, extra = None, None, {}
     if window is None or window >= Skv:
-        library = cold_calls(torch, lambda *qkv: F.scaled_dot_product_attention(
-            *qkv, is_causal=causal and Sq > 1, enable_gqa=True), q, k, v)
+        sdpa_names = sdpa_kernels(torch, lambda: sdpa(q, k, v))
+        if softcap is None:
+            library = cold_calls(torch, sdpa, q, k, v)
+        else:
+            # SDPA has no soft-cap: not the same function, so not the library
+            # time; the time of the same call without the cap, for scale
+            extra["sdpa_without_softcap_ms"] = median_ms(torch, cold_calls(torch, sdpa,
+                                                                          q, k, v))
     row = kernel_row(
         torch, "flash_attention", "flash_attention.cu", err,
-        cold_calls(torch, lambda *qkv: fk.flash_attention(*qkv, causal=causal,
-                                                           window=window), q, k, v),
-        cold_calls(torch, lambda *qkv: ref.attention(*qkv, causal=causal, window=window),
-                   q, k, v),
-        library, 2 * (2 * q.numel() + k.numel() + v.numel()), 4 * B * Hq * D * pairs,
-        BF16_OPS_PER_S, plain_reps=(5, 4))
+        cold_calls(torch, lambda *qkv: fk.flash_attention(*qkv, **kw), q, k, v),
+        cold_calls(torch, lambda *qkv: ref.attention(*qkv, **kw), q, k, v),
+        library, 2 * (q.numel() + k.numel() + v.numel() + got.numel()),
+        2 * B * Hq * (D + Dv) * pairs, BF16_OPS_PER_S, plain_reps=(5, 4))
     return {"model": model, "shape": tag, "q": list(q.shape), "kv": list(k.shape),
-            "group": Hq // k.shape[1], "causal": causal, "window": window,
-            "bound_used": used, "outputs_beyond_one_rounding": beyond_rounding,
-            "outputs": got.numel(),
+            "v": list(v.shape), "group": Hq // k.shape[1], "causal": causal,
+            "window": window, "softcap": softcap, "bound_used": used,
+            "outputs_beyond_one_rounding": beyond_rounding, "outputs": got.numel(),
+            "sdpa_kernels": sdpa_names, **extra,
             **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")}}
 
@@ -3089,6 +3183,309 @@ def run_phase19(torch, seed: int, fk, rk, ssd, ref):
     out["internvl2-76b"] = internvl2_smoke(torch, seed)
     free()
     return out, flash, norm, scans, launches
+
+
+#: the MoE layer's parts, timed by ``torch.profiler`` ranges in phase 20
+MOE_PARTS = ("_route", "_dispatch", "_expert_ffn", "_combine")
+
+
+def moe_profile(torch, fn, calls: int = 1) -> dict:
+    """Device time of ``calls`` eager calls of ``fn`` (after one warm-up)
+    by part: the MoE layers' routing, dispatch (sort, plan, gather), expert
+    ``bmm``s and combine (each a ``torch.profiler`` range around the
+    ``models/moe.py`` function of that name, patched in for the window
+    only), flash attention and the norms (by kernel name), the rest; the
+    window's wall time and the device's idle share in it."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import moe
+
+    saved = {name: getattr(moe, name) for name in MOE_PARTS}
+
+    def ranged(name, f):
+        def call(*args, **kwargs):
+            with record_function("moe" + name):
+                return f(*args, **kwargs)
+        return call
+
+    fn()
+    torch.cuda.synchronize()
+    for name, f in saved.items():
+        setattr(moe, name, ranged(name, f))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for name, f in saved.items():
+            setattr(moe, name, f)
+    events = prof.key_averages()
+    ranges = {"moe" + name for name in MOE_PARTS}
+    # the ranges also show on the device's timeline (as annotations, not
+    # kernels); a part's time is that of the kernels launched within its
+    # range on the host
+    kernels = [(e.key, e.device_time_total / 1e3, e.count) for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
+               and e.key not in ranges]
+    busy = sum(t for _, t, _ in kernels)
+    parts = {name.strip("_"): sum(e.device_time_total / 1e3 for e in events
+                                  if e.key == "moe" + name
+                                  and e.device_type == torch.autograd.DeviceType.CPU)
+             for name in MOE_PARTS}
+    parts["flash"] = sum(t for k, t, _ in kernels if "flash" in k)
+    parts["norms"] = sum(t for k, t, _ in kernels if "rmsnorm" in k)
+    parts["other"] = busy - sum(parts.values())
+    kernels.sort(key=lambda k: -k[1])
+    return {"calls": calls, "wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1 - busy / wall_ms) if kernels else None,
+            "by_part_ms": parts,
+            "top": [{"kernel": k[:90], "ms": t, "count": c} for k, t, c in kernels[:12]]}
+
+
+def moe_cut(arch: str):
+    """``arch``'s config cut in depth (``MOE_CUTS``) with bf16 parameters."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), param_dtype="bfloat16", **MOE_CUTS[arch])
+
+
+def moe_kernel_checks(torch, eng, params, batch_in, fk, rk, ref):
+    """Phase 20 (b): flash attention and rmsnorm against their plain
+    versions on the served layer 0: deepseek-v3's MLA (q and k at 192, v
+    at 128, the strided view of the expanded K/V, scale 192^-0.5) and its
+    norms at d 7168, 1536 (q) and 512 (kv, a strided view); grok-1's GQA
+    48/8 at 128 with its soft-cap and output multiplier, and its norm at
+    d 6144."""
+    from repro_torch.models import nn, transformer as tfm
+
+    cfg, model = eng.cfg, eng.model
+    cast = eng.cast_params(params)
+    p = tfm.unbind_layers(cast["decoder"]["segments"][0], tfm.plan_segments(cfg)[0].n_layers)[0]
+    x, _ = model._decoder_input(cast, batch_in)
+    S = x.shape[1]
+    pos = torch.arange(S, device="cuda")
+    h = nn.apply_rmsnorm(p["ln_attn"], x, cfg)
+    norm = [norm_entry(torch, rk, ref, f"{cfg.name} ln_attn", cfg.name, x,
+                       p["ln_attn"]["scale"], cfg.norm_eps)]
+    if cfg.use_mla:
+        a = p["attn"]
+        q_nope, q_rope, c_kv, k_rope = nn.mla_qkv(a, h, cfg, rope_theta=None, positions=pos)
+        k, v = nn._expand_kv(a, c_kv, k_rope, cfg)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        D, Dv = head_dims(cfg)
+        flash = [flash_entry(torch, fk, ref, f"deepseek-v3 layer 0 (MLA, q/k {D}, v {Dv})",
+                             cfg.name, qq.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), True, None, scale=D ** -0.5)]
+        ckv = h @ a["wkv_a"]
+        norm += [norm_entry(torch, rk, ref, "deepseek-v3 q_norm", cfg.name, h @ a["wq_a"],
+                            a["q_norm"], cfg.norm_eps),
+                 norm_entry(torch, rk, ref, "deepseek-v3 kv_norm (a strided view)",
+                            cfg.name, ckv[..., :cfg.kv_lora_rank], a["kv_norm"],
+                            cfg.norm_eps)]
+    else:
+        q, k, v = (t.transpose(1, 2) for t in nn.attention_qkv(
+            p["attn"], h, cfg, rope_theta=None, positions=pos))
+        flash = [flash_entry(torch, fk, ref, "grok-1 layer 0 (GQA 48/8, soft-cap 30)",
+                             cfg.name, q, k, v, True, None,
+                             scale=cfg.attn_output_multiplier, softcap=cfg.attn_softcap)]
+    return flash, norm
+
+
+def moe_smoke(torch, seed: int, arch: str) -> dict:
+    """Phase 20 (c): ``arch``'s full-size parameters on the meta device,
+    counted against ``count_params`` (plus the leaves it does not count:
+    the final norm, the MTP head's norms, MLA's q and kv norms, the
+    routers' bias); its smoke model (float32) served on the card, resident
+    and host-stepped, equal to the CPU's serve of the same weights, the
+    graphed prefill equal to eager and ``forward_logits``' last row
+    unembedded bit for bit (``check_serving``)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ServeEngine, serve, synthetic_batch
+    from repro_torch.models import Model
+    from repro_torch.models.counting import count_params
+    from repro_torch.models.nn import tree_leaves, tree_map
+
+    full = get_config(arch)
+    shapes = Model(full).abstract_init()
+    require(all(t.device.type == "meta" for t in tree_leaves(shapes)),
+            f"{arch}'s abstract_init allocated memory")
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k_, v_ in tree.items():
+                yield from leaves(v_, f"{prefix}/{k_}")
+        elif isinstance(tree, list):
+            for i, v_ in enumerate(tree):
+                yield from leaves(v_, f"{prefix}/{i}")
+        else:
+            yield prefix, tree
+
+    total = sum(t.numel() for t in tree_leaves(shapes))
+    uncounted = sum(t.numel() for path, t in leaves(shapes)
+                    if path.endswith(("q_norm", "kv_norm", "router_bias"))
+                    or path == "/ln_final/scale"
+                    or (path.startswith("/mtp/") and path.endswith("scale")))
+    counted = count_params(full)
+    require(total == counted + uncounted, f"{arch}: {total} parameters on the meta device, "
+            f"count_params {counted} + {uncounted} uncounted")
+
+    cfg = full.smoke()
+    shape = dict(batch=4, prompt_len=32, gen_len=8)
+    params = Model(cfg).init(seed, device="cpu")
+    batch = synthetic_batch(cfg, np.random.RandomState(seed), 4, 32, device="cpu")
+    cpu, _ = serve(cfg, params=params, batch_in=batch, device="cpu", **shape)
+    params = tree_map(lambda t: t.cuda(), params)
+    batch = {k: v.cuda() for k, v in batch.items()}
+    eng = ServeEngine(cfg, slots=4, prompt_len=32, max_new=8, chunk=7)
+    runs = {}
+    for resident in (True, False, True, False):
+        gen, stats = serve(cfg, params=params, batch_in=batch, engine=eng,
+                           device_resident=resident, **shape)
+        runs["resident" if resident else "host_stepped"] = (gen, stats, {}, {})
+    for mode, (gen, _, _, _) in runs.items():
+        require(np.array_equal(gen, cpu), f"{arch} smoke {mode}: card tokens {gen} != "
+                f"the CPU's {cpu}")
+    checks = check_serving(torch, eng, params, batch, runs, shape)
+    held = eng.captured_launches("prefill")
+    want_held = expected_prefill_launches(cfg)
+    require({k: held.get(k, 0) for k in want_held} == want_held,
+            f"{arch} smoke: the prefill graph holds {held}, the config gives {want_held}")
+    return {"model": cfg.name, "full_size_parameters": total,
+            "full_size_count_params": counted, "uncounted_leaves": uncounted,
+            "full_size_count_params_b": round(counted / 1e9, 2), **shape,
+            "prefill_graph_holds": held, "tokens_equal_cpu": True,
+            "tokens_row0": cpu[0].tolist(), "serve_checks": checks}
+
+
+def moe_dispatch_check(torch, seed: int) -> dict:
+    """Phase 20 (d): ``build_moe_dispatch_program`` over 4 stacked ranks at
+    deepseek-v3's prefill widths (``MOE_DISPATCH``, bf16) through
+    FusedEngine, one graph launch, equal to the plain tiled all-to-all bit
+    for bit; run again on its output it gives its input back (the
+    combine).  Times of a launch and of the plain copy (CUDA events)."""
+    from repro_torch import make_mesh
+    from repro_torch.core import FusedEngine
+    from repro_torch.models.moe import build_moe_dispatch_program
+
+    n, E, C, D = (MOE_DISPATCH[k] for k in ("ranks", "experts", "capacity", "d_model"))
+    cm = build_moe_dispatch_program(make_mesh((n,), ("x",)), "x", E, C, D,
+                                    dtype=torch.bfloat16)
+    rows = n * E * C
+    gen = torch.Generator("cuda").manual_seed(seed)
+    x = torch.randn((rows, D), generator=gen, device="cuda").to(torch.bfloat16)
+
+    def plain(t):
+        return t.reshape(n, n, rows // (n * n), D).transpose(0, 1).reshape(rows, D)
+
+    eng = FusedEngine(cm.program, donate=True)
+    init = eng.init_buffers({"x": x})
+    out = eng(init)["out"].clone()
+    require(eng.stats.dispatches == eng.graph_launches == 1,
+            f"the MoE dispatch: {eng.stats}, {eng.graph_launches} graph launches")
+    require(torch.equal(out, plain(x)), "the MoE dispatch differs from the plain tiled "
+            "all-to-all")
+    back = eng(eng.init_buffers({"x": out}))["out"]
+    require(torch.equal(back, x), "the MoE dispatch run twice does not give its input back")
+    row = {"ranks": n, "experts": E, "capacity": C, "d_model": D, "dtype": "bfloat16",
+           "rows": rows, "bytes": rows * D * 2, "equal_to_plain_bitwise": True,
+           "twice_gives_input": True, "launch_ms": events_ms(torch, lambda: eng(init)),
+           "plain_ms": events_ms(torch, lambda: plain(x).contiguous()),
+           "copy_bound_ms": 2 * rows * D * 2 / HBM_BYTES_PER_S * 1e3}
+    del eng, init, out, back, x
+    return row
+
+
+def run_phase20(torch, seed: int, fk, rk, ref):
+    """Phase 20: the MoE family.  deepseek-v3-671b (MLA, 256 routed experts
+    with a sigmoid router, a shared expert) and grok-1-314b (8 experts,
+    soft-capped GQA) served uncut in width with bf16 parameters
+    (``MOE_CUTS``, ``MOE_TRUNK_SCALE``), resident and host-stepped, with
+    the checks of phases 7 and 19; flash and rmsnorm at their served
+    shapes; the smoke models on the card equal to the CPU; the full sizes
+    on the meta device; the expert-parallel dispatch program.  Returns the
+    phase's line, the flash and rmsnorm entries and the kernels' launches
+    on the serving paths."""
+    import gc
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.counting import count_params
+
+    out, flash, norm = {}, [], []
+    launches = {"flash_attention": 0, "rmsnorm": 0, "ssd_scan": 0}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for arch in MOE_CUTS:
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cut = moe_cut(arch)
+        cfg, eng, params, batch_in, runs, setup_s, served = run_serve(
+            torch, seed, arch, MOE_SERVE, cfg=cut, scale=MOE_TRUNK_SCALE)
+        want = expected_prefill_launches(cfg)
+        held = eng.captured_launches("prefill")
+        require({k: held.get(k, 0) for k in want} == want,
+                f"{arch}: the prefill graph holds {held}, the config gives {want}")
+        require(want["flash_attention_wgmma"] == cfg.n_layers,
+                f"{arch}: flash not on the tensor-core route at {head_dims(cfg)}")
+        serve_line = serve_report(torch, cfg, eng, MOE_SERVE, runs, setup_s, served)
+        rows = {tuple(r) for r in runs["resident"][0].tolist()}
+        require(len(rows) == MOE_SERVE["batch"],
+                f"{arch}: {len(rows)} distinct token rows of {MOE_SERVE['batch']} slots")
+        cast = eng.cast_params(params)
+        caches = eng.init_state()[0]
+        torch.cuda.synchronize()
+        reset_all_launches()
+        eng.model.prefill(cast, batch_in, caches)
+        torch.cuda.synchronize()
+        eager = ops.launch_counts()
+        require({k: eager.get(k, 0) for k in want} == want,
+                f"{arch}: an eager prefill launched {eager}, the config gives {want}")
+        checks = check_serving(torch, eng, params, batch_in, runs, MOE_SERVE)
+        for k in launches:
+            launches[k] += served[k]
+        caches, tok, _, _ = eng.init_state()
+        pre_caches = eng.model.prefill(cast, batch_in, caches)[1]
+        profiles = {
+            "prefill": moe_profile(torch, lambda: eng.model.prefill(cast, batch_in, caches)),
+            "decode_step": moe_profile(torch, lambda: eng.model.decode_step(cast, pre_caches,
+                                                                            tok))}
+        print(json.dumps({f"profile_moe_{arch.split('-')[0]}": profiles}), flush=True)
+        print_profiles(torch, eng, params, batch_in, "_" + arch.split("-")[0])
+        f, n = moe_kernel_checks(torch, eng, params, batch_in, fk, rk, ref)
+        flash += f
+        norm += n
+        out[arch] = {"cut": MOE_CUTS[arch], "param_dtype": "bfloat16",
+                     "trunk_scale": MOE_TRUNK_SCALE, "parameters": count_params(cfg),
+                     "parameters_b": round(count_params(cfg) / 1e9, 2),
+                     "launches_reckoned": want, "eager_prefill": eager,
+                     "serve": serve_line, "serve_checks": checks,
+                     "distinct_slot_rows": len(rows), "seconds": time.perf_counter() - t0}
+        print(json.dumps({"moe_summary": {
+            "model": arch, **MOE_SERVE, "cut": MOE_CUTS[arch],
+            "parameters_b": out[arch]["parameters_b"],
+            "prefill_ms": {m: serve_line[m]["prefill_ms"] for m in ("resident", "host_stepped")},
+            "decode_ms_per_token": {m: serve_line[m]["decode_ms_per_token"]
+                                    for m in ("resident", "host_stepped")},
+            "peak_memory_gb": serve_line["peak_memory_gb"],
+            "prefill_by_part_ms": profiles["prefill"]["by_part_ms"],
+            "decode_by_part_ms": profiles["decode_step"]["by_part_ms"],
+            "card": gpu_line()}}), flush=True)
+        del eng, params, batch_in, runs, cast, caches, pre_caches
+    free()
+    for arch in MOE_CUTS:
+        out[arch]["smoke"] = moe_smoke(torch, seed, arch)
+    free()
+    out["dispatch_program"] = moe_dispatch_check(torch, seed)
+    free()
+    return out, flash, norm, launches
 
 
 def grad_check(torch, got, want):
@@ -3753,6 +4150,19 @@ def main() -> int:
     for r in dense_rows + [ssd_row]:
         r["phase19_launches"] = launches19[r["name"]]
 
+    # phase 20: the MoE family
+    torch.cuda.empty_cache()
+    t20 = time.perf_counter()
+    moe_out, flash20, norm20, launches20 = run_phase20(torch, args.seed, fk, rk, ref)
+    moe_out["seconds"] = time.perf_counter() - t20
+    print(json.dumps({"moe": moe_out}), flush=True)
+    dense_rows[0]["served_shapes"] += flash20
+    dense_rows[1]["served_shapes"] += norm20
+    for r in dense_rows:
+        r["phase20_launches"] = launches20[r["name"]]
+    require(all(launches20[k] > 0 for k in ("flash_attention", "rmsnorm")),
+            f"phase 20: a kernel never launched serving the MoE family: {launches20}")
+
     rows = rows + dense_rows + [ssd_row, step_row, sched_row] + bwd_rows
     require(sorted(r["name"] for r in rows) == sorted(REPLACES), "a kernel row is missing")
     require(all(r["launches"] > 0 for r in rows), "a kernel was not launched on its path")
@@ -3761,7 +4171,7 @@ def main() -> int:
              "sector_bound_ms", "library_ms", "library_call", "library_fwd_bwd_ms",
              "library_fwd_ms", "training_shapes", "earlier_ms", "cuda_core_ms", "decode",
              "served_shapes", "phase17_launches", "phase18_launches", "phase19_launches",
-             "shape",
+             "phase20_launches", "shape",
              "one_program_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in order if k in r} for r in rows]}))
     print(f"card: {gpu_line()}")

@@ -5,12 +5,13 @@ field for field, with the same defaults, so a config built here equals
 the reference's (``tests/test_torch_serve.py`` compares them).  The
 port imports nothing of ``repro``, so it keeps this copy.
 
-The port serves the architectures of :data:`PORTED` (``mamba2-2.7b``,
-the dense family: ``gemma3-1b``, ``qwen1.5-0.5b``, ``glm4-9b`` and
-``qwen1.5-110b``, the hybrid ``hymba-1.5b``, the encoder-decoder
-``whisper-large-v3`` and the vision-language ``internvl2-76b``);
-:func:`get_config` raises ``NotImplementedError`` for the others (the
-MoE family), which ``ROADMAP.md`` queues.
+The port runs every architecture of ``ARCH_IDS`` (:data:`PORTED`):
+``mamba2-2.7b``, the dense family (``gemma3-1b``, ``qwen1.5-0.5b``,
+``glm4-9b``, ``qwen1.5-110b``), the MoE family (``deepseek-v3-671b``,
+``grok-1-314b``), the hybrid ``hymba-1.5b``, the encoder-decoder
+``whisper-large-v3`` and the vision-language ``internvl2-76b``;
+:func:`get_config` raises ``NotImplementedError`` for an id of
+``ARCH_IDS`` outside it.
 """
 
 from __future__ import annotations
@@ -181,9 +182,10 @@ ARCH_IDS = (
     "gemma3-1b",
 )
 
-#: architectures the port runs; the rest are queued in ROADMAP.md
+#: architectures the port runs
 PORTED = ("mamba2-2.7b", "gemma3-1b", "qwen1.5-0.5b", "glm4-9b", "qwen1.5-110b",
-          "hymba-1.5b", "whisper-large-v3", "internvl2-76b")
+          "hymba-1.5b", "whisper-large-v3", "internvl2-76b", "deepseek-v3-671b",
+          "grok-1-314b")
 
 
 def get_config(arch: str) -> ModelConfig:

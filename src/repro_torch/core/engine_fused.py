@@ -326,6 +326,17 @@ class Lane:
     comm: Optional[torch.cuda.Stream]
 
 
+def _side_stream(device) -> torch.cuda.Stream:
+    """A stream for a lane.  PyTorch hands streams out round-robin from a
+    pool of 32 a priority, and ``torch.cuda.graph`` captures on one of the
+    default-priority pool's: a default-priority lane stream is that very
+    stream once the pool's counter comes round to it (what depends on how
+    many streams the process made before), and then the fork is a no-op
+    and the overlap serialises.  High-priority streams come from a pool of
+    their own."""
+    return torch.cuda.Stream(device, priority=-1)
+
+
 def make_lanes(prog: STProgram, mode: str, device) -> Optional[Dict[int, Lane]]:
     """A lane per program on a CUDA device (None on a CPU device).  A
     plain program runs on the current stream; each program of a
@@ -333,10 +344,10 @@ def make_lanes(prog: STProgram, mode: str, device) -> Optional[Dict[int, Lane]]:
     if device.type != "cuda":
         return None
     pids = tuple(prog.buffers_by_pid())
-    comm = (lambda: torch.cuda.Stream(device)) if mode == "dataflow" else (lambda: None)
+    comm = (lambda: _side_stream(device)) if mode == "dataflow" else (lambda: None)
     if len(pids) == 1:
         return {pids[0]: Lane(None, comm())}
-    return {pid: Lane(torch.cuda.Stream(device), comm()) for pid in pids}
+    return {pid: Lane(_side_stream(device), comm()) for pid in pids}
 
 
 class PassStreams:

@@ -19,16 +19,29 @@
 // addressed through (b, h, s) strides with unit stride along D, so the
 // model's [B,S,H,D] tensors are passed as views with no transpose copy.
 //
-// Two kernels, one rule (the wrapper enforces it): bfloat16 at head_dim 64,
-// 128 or 256 runs flash_wgmma_kernel on the tensor cores; float32, and
-// head_dim 16 or 32, run flash_fwd_kernel on CUDA cores.  wgmma in TF32
-// would not hold float32's bound against the plain version (rtol 2e-4).
+// Head dims come in pairs (D, DV): q and k rows of D, v and output rows of
+// DV.  They are equal but for multi-head latent attention (deepseek-v3's
+// MLA: D 192 = 128 + 64 rope dims, DV 128; its smoke config 48 / 32), where
+// S = Q K^T runs over K = 192 (12 wgmma k-steps of 16, three 64-wide TMA
+// boxes a row) and P V at N = 128 (m64n128k16), with no padding of q, k or
+// v to a common width: the tiles, TMA boxes and shared memory of q and k
+// and those of v are sized apart (q 48 KB, the K ring 48 KB, the V ring 32
+// KB at 192 / 128).
+//
+// Two kernels, one rule (the wrapper enforces it): bfloat16 at (64, 64),
+// (128, 128), (256, 256) or (192, 128) runs flash_wgmma_kernel on the tensor
+// cores; float32, and bfloat16 at (16, 16), (32, 32) or (48, 32), run
+// flash_fwd_kernel on CUDA cores.  wgmma in TF32 would not hold float32's
+// bound against the plain version (rtol 2e-4).
 //
 // Bound, on an NVIDIA H100 80GB HBM3 at its 700 W limit (989 TFLOP/s of
 // bf16 tensor-core products, 3.35 TB/s).  At gemma3-1b's prefill (B 4, Hq
 // 4, Hkv 1, S 1024, D 256, bf16) the function needs 8.60 GFLOP on a global
 // layer (the causal triangle) and 6.45 GFLOP on a local one (window 512),
-// and moves 21 MB (6.3 us): operations bound it, 8.69 us and 6.52 us.
+// and moves 21 MB (6.3 us): operations bound it, 8.69 us and 6.52 us.  At
+// deepseek-v3's served prefill (B 4, 128 heads with no sharing of K and V, S
+// 512, D 192, DV 128) it needs 43.0 GFLOP (43.5 us) and moves 336 MB (100 us):
+// bytes bound it.
 //
 // flash_wgmma_kernel: warp-specialised, one block of 384 threads per
 // (batch, q head, 128-row q tile).
@@ -155,17 +168,18 @@ __device__ __forceinline__ void stage(float* dst, const T* src, int64_t stride, 
   }
 }
 
-template <typename T, int D, bool kVec>
+template <typename T, int D, int DV, bool kVec>
 __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(Params p) {
-  constexpr int kLd = D + kPad;
+  constexpr int kLd = D + kPad;    // q and k rows
+  constexpr int kLdV = DV + kPad;  // v rows
   constexpr int kPLd = kBK + kPad;
-  constexpr int kVecO = D / 16 < 4 ? D / 16 : 4;  // accumulator columns per group
-  constexpr int kGroups = D / (16 * kVecO);
+  constexpr int kVecO = DV / 16 < 4 ? DV / 16 : 4;  // accumulator columns per group
+  constexpr int kGroups = DV / (16 * kVecO);
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* Ks = Qs + kBQ * kLd;
   float* Vs = Ks + kBK * kLd;
-  float* Ps = Vs + kBK * kLd;
+  float* Ps = Vs + kBK * kLdV;
 
   const int tx = threadIdx.x & 15;  // score columns tx, tx + 16; output column groups
   const int ty = threadIdx.x >> 4;  // rows ty * 4 .. ty * 4 + 3
@@ -201,7 +215,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(Params p) {
       const int kv_rows = min(kBK, p.Skv - k0);
       __syncthreads();  // the previous tile's K, V, P are consumed
       stage<T, D, kVec>(Ks, k + k0 * p.kss, p.kss, kBK, kv_rows);
-      stage<T, D, kVec>(Vs, v + k0 * p.vss, p.vss, kBK, kv_rows);
+      stage<T, DV, kVec>(Vs, v + k0 * p.vss, p.vss, kBK, kv_rows);
       __syncthreads();
 
       // scores of rows ty*4+i, columns tx and tx+16
@@ -274,7 +288,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(Params p) {
           pv[i] = *reinterpret_cast<const float4*>(Ps + (ty * 4 + i) * kPLd + kk);
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
-          const float* vrow = Vs + (kk + t) * kLd + tx * kVecO;
+          const float* vrow = Vs + (kk + t) * kLdV + tx * kVecO;
 #pragma unroll
           for (int g = 0; g < kGroups; ++g) {
             float vv[kVecO];
@@ -312,15 +326,16 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(Params p) {
   }
 }
 
-constexpr size_t smem_bytes(int D) {
-  return sizeof(float) * (static_cast<size_t>(kBQ + 2 * kBK) * (D + kPad) +
+constexpr size_t smem_bytes(int D, int DV) {
+  return sizeof(float) * (static_cast<size_t>(kBQ + kBK) * (D + kPad) +
+                          static_cast<size_t>(kBK) * (DV + kPad) +
                           static_cast<size_t>(kBQ) * (kBK + kPad));
 }
 
-template <typename T, int D, bool kVec>
+template <typename T, int D, int DV, bool kVec>
 cudaError_t launch_one(const Params& p, int B, cudaStream_t s) {
-  auto kernel = flash_fwd_kernel<T, D, kVec>;
-  constexpr size_t smem = smem_bytes(D);
+  auto kernel = flash_fwd_kernel<T, D, DV, kVec>;
+  constexpr size_t smem = smem_bytes(D, DV);
   static const cudaError_t set = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (set != cudaSuccess) return set;
@@ -329,21 +344,27 @@ cudaError_t launch_one(const Params& p, int B, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 cudaError_t launch_d(const Params& p, int B, bool vec, cudaStream_t s) {
-  return vec ? launch_one<T, D, true>(p, B, s) : launch_one<T, D, false>(p, B, s);
+  return vec ? launch_one<T, D, DV, true>(p, B, s) : launch_one<T, D, DV, false>(p, B, s);
 }
 
+// (D, DV): the equal pairs, and MLA's 192 / 128 and its smoke config's 48 / 32
 template <typename T>
-cudaError_t launch_t(const Params& p, int B, int D, bool vec, cudaStream_t s) {
-  switch (D) {
-    case 16: return launch_d<T, 16>(p, B, vec, s);
-    case 32: return launch_d<T, 32>(p, B, vec, s);
-    case 64: return launch_d<T, 64>(p, B, vec, s);
-    case 128: return launch_d<T, 128>(p, B, vec, s);
-    case 256: return launch_d<T, 256>(p, B, vec, s);
-    default: return cudaErrorInvalidValue;
+cudaError_t launch_t(const Params& p, int B, int D, int DV, bool vec, cudaStream_t s) {
+  if (D == DV) {
+    switch (D) {
+      case 16: return launch_d<T, 16, 16>(p, B, vec, s);
+      case 32: return launch_d<T, 32, 32>(p, B, vec, s);
+      case 64: return launch_d<T, 64, 64>(p, B, vec, s);
+      case 128: return launch_d<T, 128, 128>(p, B, vec, s);
+      case 256: return launch_d<T, 256, 256>(p, B, vec, s);
+      default: return cudaErrorInvalidValue;
+    }
   }
+  if (D == 48 && DV == 32) return launch_d<T, 48, 32>(p, B, vec, s);
+  if (D == 192 && DV == 128) return launch_d<T, 192, 128>(p, B, vec, s);
+  return cudaErrorInvalidValue;
 }
 
 
@@ -528,12 +549,14 @@ __device__ __forceinline__ void kv_tiles(const Params& p, int row, int rows, int
   t_hi = (hi + kBN - 1) / kBN;
 }
 
-// The consumer warpgroups' part of flash_wgmma_kernel.
-template <int D>
+// The consumer warpgroups' part of flash_wgmma_kernel: q and k rows of D
+// elements, v rows (and the output's) of DV.
+template <int D, int DV>
 __device__ __forceinline__ void consume(const Params& p, uint8_t* sq, uint8_t* sk, uint8_t* sv,
                                         uint64_t* full_q, uint64_t* full_k, uint64_t* full_v,
                                         uint64_t* empty, int q0, int t_lo, int t_hi) {
-  constexpr int kTile = 64 * D * 2;
+  constexpr int kTile = 64 * D * 2;    // bytes of 64 q or k rows
+  constexpr int kTileV = 64 * DV * 2;  // bytes of 64 v rows
   const int h = blockIdx.y, b = blockIdx.z;
   // warpgroup wg owns q rows [row_w, row_w + 64); in wgmma's
   // accumulator layout this thread holds rows r0 and r0 + 8 and, in each
@@ -546,9 +569,9 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* sq, uint8_t* s
   int w_lo, w_hi;
   kv_tiles(p, row_w, min(kRows, p.Sq - row_w), w_lo, w_hi);
 
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+  for (int j = 0; j < DV / 2; ++j) o[j] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   const uint32_t qa = smem_u32(sq + wg * kTile);
   mbar_wait(full_q, 0);
@@ -623,7 +646,7 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* sq, uint8_t* s
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) o[j] *= alpha[(j / 2) % 2];
+    for (int j = 0; j < DV / 2; ++j) o[j] *= alpha[(j / 2) % 2];
 
     // P as wgmma A fragments in three bf16 parts, P = p0 + p1 + p2 to 2^-26
     // (each part rounds what the ones before left).  Step ks covers kv
@@ -646,8 +669,8 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* sq, uint8_t* s
     }
 
     // O += P V: V's 16 kv rows of a step are 16 x 128 bytes further on;
-    // the D columns span D / 64 boxes of 64 rows (leading offset kBox)
-    const uint32_t va = smem_u32(sv + s * kTile);
+    // the DV columns span DV / 64 boxes of 64 rows (leading offset kBox)
+    const uint32_t va = smem_u32(sv + s * kTileV);
     mbar_wait(&full_v[s], par);
     fence_regs(o);
     wgmma_fence();
@@ -655,7 +678,7 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* sq, uint8_t* s
     for (int ks = 0; ks < 4; ++ks) {
       const uint64_t vd = desc(va + ks * 16 * 128, kBox, 1024);
 #pragma unroll
-      for (int part = 0; part < 3; ++part) wgmma_pv<D>(o, pa[part][ks], vd);
+      for (int part = 0; part < 3; ++part) wgmma_pv<DV>(o, pa[part][ks], vd);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -677,22 +700,23 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* sq, uint8_t* s
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
     __nv_bfloat16* orow = out + q * p.oss + c0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
           __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_wgmma_kernel(const __grid_constant__ Params p) {
-  constexpr int kTile = 64 * D * 2;  // bytes of 64 rows: D / 64 boxes side by side
+  constexpr int kTile = 64 * D * 2;    // bytes of 64 q or k rows: D / 64 boxes side by side
+  constexpr int kTileV = 64 * DV * 2;  // bytes of 64 v rows: DV / 64 boxes
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzle repeats every 1024 bytes: tiles start on that boundary
   uint8_t* sq = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sk = sq + kWG * kTile;
   uint8_t* sv = sk + kStages * kTile;
-  uint64_t* full_q = reinterpret_cast<uint64_t*>(sv + kStages * kTile);
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(sv + kStages * kTileV);
   uint64_t* full_k = full_q + 1;
   uint64_t* full_v = full_k + kStages;
   uint64_t* empty = full_v + kStages;
@@ -731,31 +755,31 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_expect_tx(&full_k[s], kTile);
         for (int c = 0; c < D / 64; ++c)
           tma_load(&p.tk, sk + s * kTile + c * kBox, &full_k[s], c * 64, t * kBN, hk, b);
-        mbar_expect_tx(&full_v[s], kTile);
-        for (int c = 0; c < D / 64; ++c)
-          tma_load(&p.tv, sv + s * kTile + c * kBox, &full_v[s], c * 64, t * kBN, hk, b);
+        mbar_expect_tx(&full_v[s], kTileV);
+        for (int c = 0; c < DV / 64; ++c)
+          tma_load(&p.tv, sv + s * kTileV + c * kBox, &full_v[s], c * 64, t * kBN, hk, b);
       }
     }
   } else {
     if constexpr (kWG > 1)
       asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    consume<D>(p, sq, sk, sv, full_q, full_k, full_v, empty, q0, t_lo, t_hi);
+    consume<D, DV>(p, sq, sk, sv, full_q, full_k, full_v, empty, q0, t_lo, t_hi);
   }
 }
 
-template <int D>
+template <int D, int DV>
 constexpr int smem_bytes() {
-  return (kWG + 2 * kStages) * 64 * D * 2 + (1 + 3 * kStages) * 8 + 1024;
+  return (kWG + kStages) * 64 * D * 2 + kStages * 64 * DV * 2 + (1 + 3 * kStages) * 8 + 1024;
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch(const Params& p, int B, int Hq, cudaStream_t s) {
-  auto kernel = flash_wgmma_kernel<D>;
+  auto kernel = flash_wgmma_kernel<D, DV>;
   static const cudaError_t set = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D, DV>());
   if (set != cudaSuccess) return set;
   const dim3 grid((p.Sq + kBM - 1) / kBM, Hq, B);
-  kernel<<<grid, kThreads, smem_bytes<D>(), s>>>(p);
+  kernel<<<grid, kThreads, smem_bytes<D, DV>(), s>>>(p);
   return cudaGetLastError();
 }
 
@@ -813,10 +837,12 @@ const char* rt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q, k, v, o: element strides (batch, head, seq) each, unit stride along D;
-// o has q's shape and dtype.  window < 0: no window; softcap 0: off.
+// q, k, v, o: element strides (batch, head, seq) each, unit stride along the
+// head dim, D for q and k, Dv for v and o; o has q's dtype.  window < 0: no
+// window; softcap 0: off.
 int rt_flash_attention(int dtype, const void* q, const void* k, const void* v, void* o, int B,
-                       int Hq, int Hkv, int Sq, int Skv, int D, long long qsb, long long qsh,
+                       int Hq, int Hkv, int Sq, int Skv, int D, int Dv, long long qsb,
+                       long long qsh,
                        long long qss, long long ksb, long long ksh, long long kss,
                        long long vsb, long long vsh, long long vss, long long osb,
                        long long osh, long long oss, float scale, float softcap, int causal,
@@ -828,25 +854,26 @@ int rt_flash_attention(int dtype, const void* q, const void* k, const void* v, v
            osb, osh, oss, scale, softcap, causal, window >= 0, window < 0 ? 0 : window,
            q_offset};
   const int ch = dtype == kBFloat16 ? 8 : 4;  // elements of a 16-byte load
-  bool vec = D % ch == 0;
+  bool vec = D % ch == 0 && Dv % ch == 0;
   for (const void* ptr : {q, k, v})
     vec = vec && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
   for (long long st : {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss}) vec = vec && st % ch == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dtype) {
-    case kFloat32: err = launch_t<float>(p, B, D, vec, s); break;
-    case kBFloat16: err = launch_t<__nv_bfloat16>(p, B, D, vec, s); break;
+    case kFloat32: err = launch_t<float>(p, B, D, Dv, vec, s); break;
+    case kBFloat16: err = launch_t<__nv_bfloat16>(p, B, D, Dv, vec, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
 }
 
 // The tensor-core kernel: bf16 q, k, v, o with element strides (batch, head,
-// seq) each, unit stride along D in {64, 128, 256}, 16-byte aligned base
-// pointers and strides (TMA); arguments as rt_flash_attention's.
+// seq) each, unit stride along the head dim, (D, Dv) one of (64, 64),
+// (128, 128), (256, 256) and (192, 128), 16-byte aligned base pointers and
+// strides (TMA); arguments as rt_flash_attention's.
 int rt_flash_attention_wgmma(const void* q, const void* k, const void* v, void* o, int B,
-                             int Hq, int Hkv, int Sq, int Skv, int D, long long qsb,
+                             int Hq, int Hkv, int Sq, int Skv, int D, int Dv, long long qsb,
                              long long qsh, long long qss, long long ksb, long long ksh,
                              long long kss, long long vsb, long long vsh, long long vss,
                              long long osb, long long osh, long long oss, float scale,
@@ -859,7 +886,7 @@ int rt_flash_attention_wgmma(const void* q, const void* k, const void* v, void* 
   const int kv_rows = Skv > 0 ? Skv : 1;  // a map needs one row; none is read
   if (!tc::encode(&p.tq, q, D, Sq, Hq, B, qss, qsh, qsb) ||
       !tc::encode(&p.tk, k, D, kv_rows, Hkv, B, kss, ksh, ksb) ||
-      !tc::encode(&p.tv, v, D, kv_rows, Hkv, B, vss, vsh, vsb))
+      !tc::encode(&p.tv, v, Dv, kv_rows, Hkv, B, vss, vsh, vsb))
     return static_cast<int>(cudaErrorInvalidValue);
   p.o = static_cast<__nv_bfloat16*>(o);
   p.osb = osb;
@@ -875,12 +902,11 @@ int rt_flash_attention_wgmma(const void* q, const void* k, const void* v, void* 
   p.cap_in = softcap != 0.f ? scale / softcap : 0.f;
   p.cap_out = softcap * tc::kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return static_cast<int>(tc::launch<64>(p, B, Hq, s));
-    case 128: return static_cast<int>(tc::launch<128>(p, B, Hq, s));
-    case 256: return static_cast<int>(tc::launch<256>(p, B, Hq, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (D == 64 && Dv == 64) return static_cast<int>(tc::launch<64, 64>(p, B, Hq, s));
+  if (D == 128 && Dv == 128) return static_cast<int>(tc::launch<128, 128>(p, B, Hq, s));
+  if (D == 256 && Dv == 256) return static_cast<int>(tc::launch<256, 256>(p, B, Hq, s));
+  if (D == 192 && Dv == 128) return static_cast<int>(tc::launch<192, 128>(p, B, Hq, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

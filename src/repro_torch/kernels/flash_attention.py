@@ -7,13 +7,18 @@ reaches through ``kernels/ops.py:flash_attention``.  It is bound by
 operations (bf16 products summed in float32); the source says how each
 of its two kernels meets that and why its tiles are sized as they are.
 
-The route rule, fixed by dtype and head_dim alone:
+Head dims come in pairs ``(Dqk, Dv)``: q and k's, and v's (and the
+output's).  They are equal but for MLA's (deepseek-v3: 192 = 128 + 64
+rope, 128; its smoke config 48, 32).  The route rule, fixed by dtype and
+the pair alone:
 
-* ``bfloat16`` with head_dim in :data:`WGMMA_HEAD_DIMS` (64, 128, 256)
-  takes the tensor-core kernel (``wgmma`` products, TMA loads);
-* ``float32`` at any head_dim of :data:`HEAD_DIMS`, and ``bfloat16`` at
-  head_dim 16 or 32, take the CUDA-core kernel.  wgmma in TF32 would not
-  hold float32's bound against the plain version (rtol 2e-4 / atol 3e-5).
+* ``bfloat16`` at a pair of :data:`WGMMA_HEAD_DIMS` ((64, 64), (128,
+  128), (256, 256), (192, 128)) takes the tensor-core kernel (``wgmma``
+  products, TMA loads);
+* ``float32`` at any pair of :data:`HEAD_DIMS`, and ``bfloat16`` at
+  (16, 16), (32, 32) or (48, 32), take the CUDA-core kernel.  wgmma in
+  TF32 would not hold float32's bound against the plain version (rtol
+  2e-4 / atol 3e-5).
 
 For CPU tensors the wrapper runs the plain version (:func:`.ref.attention`),
 and only then; for CUDA tensors it launches its route's kernel or raises.
@@ -32,18 +37,22 @@ import torch
 from . import ref
 from .build import check_launch, load_library, stream_arg, use_plain
 
-HEAD_DIMS = (16, 32, 64, 128, 256)   # the CUDA-core kernel (csrc launch_t)
-WGMMA_HEAD_DIMS = (64, 128, 256)     # the tensor-core kernel, bf16 (csrc tc::launch)
+#: (Dqk, Dv) pairs of the CUDA-core kernel (csrc launch_t)
+HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (256, 256), (48, 32), (192, 128))
+#: (Dqk, Dv) pairs of the tensor-core kernel, bf16 (csrc tc::launch)
+WGMMA_HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-_ARGS = [_P] * 4 + [_I] * 6 + [_I64] * 12 + [_F, _F, _I, _I, _I, _P]
+_ARGS = [_P] * 4 + [_I] * 7 + [_I64] * 12 + [_F, _F, _I, _I, _I, _P]
 #: the C entry points of ``csrc/flash_attention.cu`` and their argument types
 SIGNATURES = {"rt_flash_attention": [_I] + _ARGS, "rt_flash_attention_wgmma": _ARGS}
 
 
-def route(dtype: torch.dtype, head_dim: int) -> str:
-    """``"wgmma"`` or ``"cuda_core"``: which kernel a CUDA call takes."""
-    return "wgmma" if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS else "cuda_core"
+def route(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = None) -> str:
+    """``"wgmma"`` or ``"cuda_core"``: which kernel a CUDA call takes at q
+    and k's ``head_dim`` and v's ``v_head_dim`` (by default the same)."""
+    pair = (head_dim, head_dim if v_head_dim is None else v_head_dim)
+    return "wgmma" if dtype == torch.bfloat16 and pair in WGMMA_HEAD_DIMS else "cuda_core"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -51,26 +60,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None,
                     logit_softcap: Optional[float] = None,
                     q_offset: int = 0) -> torch.Tensor:
-    """Attention of q ``[B,Hq,Sq,D]`` against k, v ``[B,Hkv,Skv,D]``
-    (``Hq % Hkv == 0``), query ``i`` at global position ``q_offset + i``;
-    ``causal`` and a sliding ``window`` (tokens of lookback) mask keys,
+    """Attention of q ``[B,Hq,Sq,D]`` against k ``[B,Hkv,Skv,D]`` and v
+    ``[B,Hkv,Skv,Dv]`` (``Hq % Hkv == 0``; ``Dv`` is ``D`` but for MLA's
+    pairs), query ``i`` at global position ``q_offset + i``; ``causal``
+    and a sliding ``window`` (tokens of lookback) mask keys,
     ``logit_softcap`` caps the scaled logits with ``tanh``, and a row that
-    sees no key gives zeros.  Returns ``[B,Hq,Sq,D]`` in q's dtype.
+    sees no key gives zeros.  Returns ``[B,Hq,Sq,Dv]`` in q's dtype.
 
     On the card, one launch of the route's kernel (:func:`route`); q, k
     and v may be strided views (unit stride along D), as the model's
     ``[B,S,H,D]`` tensors transposed are, and the result is a
-    ``[B,Hq,Sq,D]`` view of memory laid out ``[B,Sq,Hq,D]``, so that the
+    ``[B,Hq,Sq,Dv]`` view of memory laid out ``[B,Sq,Hq,Dv]``, so that the
     model's transpose back is free too.  The tensor-core route loads
     through TMA, so it also takes 16-byte aligned data and strides.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_attention takes q [B,Hq,Sq,D], k and v [B,Hkv,Skv,D]")
+        raise ValueError("flash_attention takes q [B,Hq,Sq,D], k [B,Hkv,Skv,D] and v "
+                         "[B,Hkv,Skv,Dv]")
     B, Hq, Sq, D = q.shape
-    Hkv, Skv = k.shape[1], k.shape[2]
-    if tuple(k.shape) != (B, Hkv, Skv, D) or tuple(v.shape) != (B, Hkv, Skv, D):
-        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v {tuple(v.shape)} "
-                         f"do not match q {tuple(q.shape)}")
+    Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if tuple(k.shape) != (B, Hkv, Skv, D):
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    if tuple(v.shape) != (B, Hkv, Skv, Dv):
+        raise ValueError(f"flash_attention: v {tuple(v.shape)} does not match k "
+                         f"{tuple(k.shape)}")
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"flash_attention: {Hq} query heads do not split into "
                          f"{Hkv} kv heads")
@@ -84,9 +98,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "flash_attention has no backward kernel yet: training the dense families "
             "on the card waits on the ROADMAP.md queue item 'Training the dense "
             "families' (a flash backward kernel)")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the flash_attention kernels take head_dim in {HEAD_DIMS}, "
-                         f"got {D}")
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"the flash_attention kernels take (head_dim, v head_dim) in "
+                         f"{HEAD_DIMS}, got {(D, Dv)}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"the flash_attention kernels take q, k, v of one dtype, "
                         f"float32 or bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -98,14 +112,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     softcap = 0.0 if logit_softcap is None else float(logit_softcap)
     if window is not None and int(window) < 0:
         raise ValueError(f"flash_attention: window must be >= 0, got {window}")
-    which = route(q.dtype, D)
+    which = route(q.dtype, D, Dv)
     if which == "wgmma":
         strides = [_tma_strides(t) for t in (q, k, v)]
     else:
         strides = [t.stride()[:3] for t in (q, k, v)]
-    out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=q.device).transpose(1, 2)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, Hkv, Sq, Skv,
-            D, *strides[0], *strides[1], *strides[2], *out.stride()[:3], scale, softcap,
+            D, Dv, *strides[0], *strides[1], *strides[2], *out.stride()[:3], scale, softcap,
             int(bool(causal)), -1 if window is None else int(window), int(q_offset),
             stream_arg(q))
     lib = load_library("flash_attention", SIGNATURES)
@@ -122,7 +136,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _tma_strides(t: torch.Tensor):
     """(batch, head, seq) element strides of a bf16 view for a TMA map:
     16-byte aligned data and strides (a dimension of size 1 is never
-    stepped, so its stride is replaced by D)."""
+    stepped, so its stride is replaced by the view's head dim)."""
     strides = [s if n > 1 else t.shape[3] for n, s in zip(t.shape[:3], t.stride()[:3])]
     if t.data_ptr() % 16 or any(s <= 0 or s % 8 for s in strides):
         raise ValueError("the flash_attention tensor-core route takes 16-byte aligned "

@@ -89,11 +89,14 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
 
     def grad_step(params, batch):
         # grads of aliases of the leaves: the caller's tensors keep their
-        # flags, and the in-place apply later needs no autograd bookkeeping
+        # flags, and the in-place apply later needs no autograd bookkeeping.
+        # A leaf the loss reaches only through indices (the MoE router's
+        # balancing bias, read by top-k) gets zeros, as from jax.grad
         live = [p.detach().requires_grad_() for p in tree_leaves(params)]
         with torch.enable_grad():
             loss, metrics = model.loss(_rebuild(params, live), batch)
-            grads = torch.autograd.grad(loss, live)
+            grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                        materialize_grads=True)
         return _rebuild(params, list(grads)), {k: v.detach() for k, v in metrics.items()}
 
     def apply_step(params, opt_state, grads):

@@ -4,8 +4,12 @@ The port keeps the reference's parameter layout (stacked with a leading
 ``layers`` axis when ``cfg.scan_layers``, a per-layer list when not), so
 a reference tree of numpy arrays — ``jax.tree.map(np.asarray,
 repro.models.Model(cfg).init(key)[0])`` — maps leaf for leaf onto the
-tree of :meth:`repro_torch.models.Model.init`.  Every leaf is checked
-against the port's own shapes and dtypes first.
+tree of :meth:`repro_torch.models.Model.init`, the MoE (``moe``: the
+router and its bias, the stacked experts, the shared expert), MLA
+(``wq_a``, ``q_norm``, ``wq_b``, ``wkv_a``, ``kv_norm``, ``wkv_b``) and
+MTP (``mtp``) leaves included, and a cache tree maps onto the port's
+(MLA's ``c_kv`` and ``k_rope`` too).  Every leaf is checked against the
+port's own shapes and dtypes first.
 """
 
 from __future__ import annotations

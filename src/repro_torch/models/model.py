@@ -1,6 +1,7 @@
 """Model facade — port of ``repro.models.model.Model`` for the dense
-(gemma3, qwen1.5, glm4), SSM (mamba2), hybrid (hymba), encoder-decoder
-(whisper) and vision-language (internvl2) families.
+(gemma3, qwen1.5, glm4), MoE (deepseek-v3 with MLA and the MTP head,
+grok-1), SSM (mamba2), hybrid (hymba), encoder-decoder (whisper) and
+vision-language (internvl2) families.
 
 ``init``, ``forward_logits``, ``loss``, ``init_caches``, ``prefill``,
 ``decode_step``, ``cache_axes`` and ``select_slots`` give the
@@ -8,8 +9,10 @@ reference's outputs and cache tree: params ``{"embed": {"table"},
 "decoder": {"segments": [...]}, "ln_final": {"scale"}, "unembed": {}}``
 (``{"w"}`` for an untied head), with ``"encoder"`` and ``"ln_enc"`` for
 an encoder-decoder, ``"frontend"`` for a modality frontend and
-``"meta"`` for meta tokens; caches ``{"segments": [{"attn": {"k", "v"}}
-and/or {"ssm": {"conv", "state"}}], "pos"}``, with ``"enc_out"`` (the
+``"meta"`` for meta tokens and ``"mtp"`` (``{"proj", "block", "ln"}``)
+for the multi-token-prediction head; caches ``{"segments": [{"attn":
+{"k", "v"}} (``{"c_kv", "k_rope"}`` with MLA) and/or {"ssm": {"conv",
+"state"}}], "pos"}``, with ``"enc_out"`` (the
 encoder output the decode steps attend to) for an encoder-decoder.  The
 decoder's sequence is the meta tokens, then the vision prefix, then the
 tokens (:meth:`Model._embed_tokens`); positions and ``pos`` count the
@@ -19,7 +22,9 @@ caches are written in place and returned (the reference's functional
 update, without copying the cache at every step).  ``select_slots``
 merges a prefilled cache into the admitted slots (continuous batching).
 ``loss`` is the train forward: the mean float32 cross-entropy of the
-logits against ``batch["targets"]``, returned with ``{"ce", "loss"}``.
+logits against ``batch["targets"]``, plus the MoE balance loss and the
+MTP head's loss where the config has them, returned with ``{"ce",
+"loss"}`` (and ``"lb_loss"``, ``"mtp_loss"``).
 """
 
 from __future__ import annotations
@@ -47,7 +52,9 @@ from .nn import (
 #: weights the forward casts to ``cfg.dtype`` at each use (``ssm.py``,
 #: ``nn.py``)
 _COMPUTE_DTYPE_WEIGHTS = ("in_proj", "out_proj", "table", "wq", "wk", "wv", "wo",
-                          "bq", "bk", "bv", "wi", "wg", "meta", "proj_in", "proj_out")
+                          "bq", "bk", "bv", "wi", "wg", "meta", "proj_in", "proj_out",
+                          "wq_a", "wq_b", "wkv_a", "wkv_b", "shared_wi", "shared_wg",
+                          "shared_wo", "proj")
 #: subtrees whose every leaf the forward casts at each use: the untied head
 _COMPUTE_DTYPE_SUBTREES = ("unembed",)
 
@@ -86,6 +93,12 @@ class Model:
         if cfg.n_meta_tokens:
             params["meta"] = param(gen, (cfg.n_meta_tokens, cfg.d_model), pdt,
                                    device=device)
+        if cfg.mtp_depth:
+            params["mtp"] = {
+                "proj": param(gen, (2 * cfg.d_model, cfg.d_model), pdt, device=device),
+                "block": tfm.init_block(gen, cfg, "attn_mlp", device=device),
+                "ln": init_rmsnorm(cfg.d_model, pdt, device=device),
+            }
         return params
 
     def abstract_init(self) -> Dict[str, Any]:
@@ -160,16 +173,17 @@ class Model:
 
     # -- forward ----------------------------------------------------------------
 
-    def hidden_states(self, params, batch) -> torch.Tensor:
+    def hidden_states(self, params, batch, *, aux=None) -> torch.Tensor:
         """The final norm's output over the whole sequence (no cache; the
         prefix rows kept): the decoder's input and the layer stack, each
         layer checkpointed when autograd records and ``cfg.remat ==
-        "block"``."""
+        "block"``.  ``aux``: a dict that receives the MoE layers' summed
+        ``lb_loss``."""
         cfg = self.cfg
         x, enc_out = self._decoder_input(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
         x, _ = tfm.apply_stack(params["decoder"], x, cfg, positions=positions,
-                               enc_out=enc_out)
+                               enc_out=enc_out, aux=aux)
         return apply_rmsnorm(params["ln_final"], x, cfg)
 
     def forward_logits(self, params, batch) -> torch.Tensor:
@@ -183,23 +197,49 @@ class Model:
     # -- train forward --------------------------------------------------------------
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """``(loss, {"ce", "loss"})`` of ``batch = {"tokens", "targets"}``
-        (``[B,S]`` int, with the config's embeddings): the decoder's input,
-        the layer stack (each layer checkpointed when autograd records and
-        ``cfg.remat == "block"``), the final norm, the unembedding of the
-        token rows and :func:`_ce`, as the reference's ``Model.loss`` for
-        the ported families.  The MoE balance loss and the
-        multi-token-prediction head are not ported."""
+        """``(loss, metrics)`` of ``batch = {"tokens", "targets"}`` (``[B,S]``
+        int, with the config's embeddings), as the reference's
+        ``Model.loss``: the decoder's input, the layer stack (each layer
+        checkpointed when autograd records and ``cfg.remat == "block"``),
+        the final norm, the unembedding of the token rows and :func:`_ce`
+        (``"ce"``); with MoE layers ``+ 0.01 lb_loss / n_layers`` (their
+        summed balance loss, ``"lb_loss"``), with an MTP head ``+ 0.3
+        mtp_loss`` (:meth:`_mtp_loss`, ``"mtp_loss"``); ``"loss"`` the
+        total."""
         cfg = self.cfg
-        if cfg.n_experts or cfg.mtp_depth:
-            raise NotImplementedError(
-                f"{cfg.name}: the MoE load-balance loss and the MTP head are not ported "
-                f"yet (ROADMAP.md, the MoE family)")
-        h = self.hidden_states(params, batch)
-        logits = apply_unembed(params["embed"], params["unembed"],
-                               h[:, self._prefix_len():], cfg)
+        aux: Dict[str, torch.Tensor] = {}
+        h = self.hidden_states(params, batch, aux=aux)
+        P = self._prefix_len()
+        h_text = h[:, P:]
+        logits = apply_unembed(params["embed"], params["unembed"], h_text, cfg)
         loss = _ce(logits, batch["targets"])
-        return loss, {"ce": loss, "loss": loss}
+        metrics = {"ce": loss}
+        if "lb_loss" in aux:
+            metrics["lb_loss"] = aux["lb_loss"]
+            loss = loss + 0.01 * aux["lb_loss"] / max(cfg.n_layers, 1)
+        if cfg.mtp_depth:
+            positions = torch.arange(P, h.shape[1], device=h.device)
+            mtp_loss = self._mtp_loss(params, h_text, batch["targets"], positions)
+            metrics["mtp_loss"] = mtp_loss
+            loss = loss + 0.3 * mtp_loss
+        metrics["loss"] = loss
+        return loss, metrics
+
+    def _mtp_loss(self, params, h: torch.Tensor, targets: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+        """DeepSeek's depth-1 multi-token prediction (the reference's
+        ``_mtp_loss``): token ``t + 2`` predicted from ``[h_t ;
+        emb(target_t)]`` through ``proj``, one dense block and a norm."""
+        cfg = self.cfg
+        p = params["mtp"]
+        emb_next = apply_embedding(params["embed"], targets, cfg)
+        hcat = torch.cat([h, emb_next.to(h.dtype)], dim=-1)
+        hm = hcat @ p["proj"].to(h.dtype)
+        hm, _ = tfm.apply_block(p["block"], hm, cfg, "attn_mlp", positions=positions)
+        hm = apply_rmsnorm(p["ln"], hm, cfg)
+        logits = apply_unembed(params["embed"], params["unembed"], hm[:, :-1], cfg)
+        # the target at depth 1 is token t + 2: the targets shifted by one
+        return _ce(logits, targets[:, 1:])
 
     # -- serving ------------------------------------------------------------------
 

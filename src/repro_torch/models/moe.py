@@ -1,0 +1,237 @@
+"""Mixture-of-Experts layer with sort-based (dropping) token dispatch —
+port of ``repro.models.moe``.
+
+Routing flavours, as in the reference:
+
+* ``softmax`` (grok-1): softmax over the router logits, top-k,
+  renormalised;
+* ``sigmoid`` (deepseek-v3): sigmoid scores, top-k on score + bias (the
+  aux-free balancing bias, a buffer), weights normalised over the
+  selected experts and scaled by ``routed_scaling``.
+
+Dispatch: the ``T·k`` assignments sort by expert (a stable sort, so
+within an expert by token); each expert takes a fixed capacity ``C =
+ceil(T·k/E · capacity_factor)`` and drops the overflow; gather, the
+batched expert FFN (``torch.bmm``), then each token's kept contributions
+weighted and added.
+
+Every step has a shape fixed by ``(T, E, k, C)`` and none reads data on
+the host, so the layer runs inside a CUDA graph and gives the same bits
+on every run:
+
+* top-k is a stable descending sort (:func:`_top_k`): ties go to the
+  lower expert index, as ``lax.top_k`` orders them, where ``torch.topk``
+  leaves the order of equal values unspecified;
+* each expert's first and last sorted assignment come from
+  ``torch.searchsorted`` on the sorted expert ids (no ``bincount``, whose
+  size and sync come from the data), each capacity slot gathers the
+  token of its sorted assignment (no scatter), and each assignment's
+  rank within its expert is its sorted position less its expert's first;
+* the combine has no float atomics (no ``index_add_`` or
+  ``scatter_add_``): each token gathers its ``k`` contributions and adds
+  them one after another in ascending expert order, the order in which
+  the reference's ``segment_sum`` meets them in the sorted assignments.
+
+``apply_moe_ep`` (the reference's expert-parallel ``shard_map`` path)
+needs a mesh context; on one card there is none, so it returns None and
+``apply_moe`` takes the gather path, as the reference does on one device.
+:func:`build_moe_dispatch_program` gives the expert-parallel dispatch as
+a stream-triggered all-to-all program (``core.collectives``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from .nn import dtype_of, param
+
+
+def init_moe(gen, cfg: ModelConfig, *, device):
+    d, f, e = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    dt = dtype_of(cfg.param_dtype)
+    kw = dict(device=device)
+    out_scale = 0.02 / math.sqrt(2 * max(cfg.n_layers, 1))
+    p = {"router": param(gen, (d, e), dt, scale=0.006, **kw),
+         "wi": param(gen, (e, d, f), dt, **kw)}
+    if cfg.act == "silu":
+        p["wg"] = param(gen, (e, d, f), dt, **kw)
+    p["wo"] = param(gen, (e, f, d), dt, scale=out_scale, **kw)
+    if cfg.router == "sigmoid":
+        # aux-free balancing bias: a buffer, not a trained weight
+        p["router_bias"] = param(None, (e,), torch.float32, init="zeros", **kw)
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        p["shared_wi"] = param(gen, (d, fs), dt, **kw)
+        p["shared_wg"] = param(gen, (d, fs), dt, **kw)
+        p["shared_wo"] = param(gen, (fs, d), dt, scale=out_scale, **kw)
+    return p
+
+
+def _top_k(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(values, indices)`` of the ``k`` largest along the last axis,
+    largest first and, among equal values, lower index first (a stable
+    descending sort), as ``jax.lax.top_k`` gives them."""
+    vals, idx = torch.sort(values, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(p, x2d: torch.Tensor, cfg: ModelConfig):
+    """x2d ``[T, D]`` → (topk_idx ``[T,k]``, topk_w ``[T,k]``, router_probs
+    ``[T,E]``), all but the indices in float32."""
+    logits = x2d.float() @ p["router"].float()
+    if cfg.router == "sigmoid":
+        scores = torch.sigmoid(logits)
+        _, idx = _top_k(scores + p["router_bias"][None, :], cfg.top_k)
+        w = torch.gather(scores, -1, idx)
+        w = w / (w.sum(-1, keepdim=True) + 1e-20)
+        w = w * cfg.routed_scaling
+        probs = scores / (scores.sum(-1, keepdim=True) + 1e-20)
+    else:
+        probs = torch.softmax(logits, dim=-1)
+        w, idx = _top_k(probs, cfg.top_k)
+        w = w / (w.sum(-1, keepdim=True) + 1e-20)
+    return idx, w, probs
+
+
+def _expert_ffn(p, xin: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """xin ``[E, C, D]`` → ``[E, C, D]``: each expert's FFN as batched
+    matrix products."""
+    dt = xin.dtype
+    h = torch.bmm(xin, p["wi"].to(dt))
+    if "wg" in p:
+        h = F.silu(torch.bmm(xin, p["wg"].to(dt))) * h
+    else:
+        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+    return torch.bmm(h, p["wo"].to(dt))
+
+
+def apply_moe_ep(p, x: torch.Tensor, cfg: ModelConfig) -> Optional[Tuple[torch.Tensor, Dict]]:
+    """The reference's expert-parallel path runs under a mesh context with a
+    ``model`` axis (experts sharded over it, a ``psum`` combine).  The port
+    runs on one card with no mesh context, where the reference's returns
+    None too: the caller takes the gather path."""
+    return None
+
+
+def dispatch_plan(idx: torch.Tensor, n_experts: int, capacity: int):
+    """The sort-based dispatch of the assignments ``idx [T, k]`` (token
+    ``t``'s ``j``-th expert is assignment ``t·k + j``): returns
+    ``(dispatch [E·C], slot [T·k], keep [T·k])``.  ``dispatch[e·C + c]``
+    is the token in expert ``e``'s capacity slot ``c``, ``T`` (the zero
+    row) where the slot is empty; ``slot[a]`` is where assignment ``a``'s
+    output lies (its expert's slot 0 when dropped) and ``keep[a]`` whether
+    it fits the capacity.  Assignments sort by expert, stably; an expert
+    keeps its first ``C``."""
+    T, k = idx.shape
+    E, C, A = n_experts, capacity, T * k
+    flat_e = idx.reshape(A)
+    se, order = torch.sort(flat_e, stable=True)
+    experts = torch.arange(E, device=idx.device, dtype=se.dtype)
+    first = torch.searchsorted(se, experts)
+    last = torch.searchsorted(se, experts, right=True)
+    # the capacity slots: sorted assignment first[e] + c, while it is e's
+    src = first[:, None] + torch.arange(C, device=idx.device)[None, :]
+    filled = src < last[:, None]
+    tokens = torch.div(order, k, rounding_mode="floor")
+    dispatch = torch.where(filled, tokens[src.clamp(max=A - 1)], T).reshape(E * C)
+    # each assignment's rank within its expert, in the original order
+    rank_sorted = torch.arange(A, device=idx.device) - first[se]
+    rank = torch.empty_like(rank_sorted).index_put_((order,), rank_sorted)
+    keep = rank < C
+    slot = flat_e * C + torch.where(keep, rank, 0)
+    return dispatch, slot, keep
+
+
+def _dispatch(x2d: torch.Tensor, idx: torch.Tensor, n_experts: int, capacity: int):
+    """The experts' capacity buffers ``xin [E, C, D]`` of ``x2d [T, D]``
+    (zeros in empty slots), with :func:`dispatch_plan`'s ``slot`` and
+    ``keep``."""
+    T, D = x2d.shape
+    dispatch, slot, keep = dispatch_plan(idx, n_experts, capacity)
+    x_pad = torch.cat([x2d, x2d.new_zeros((1, D))], dim=0)
+    return x_pad.index_select(0, dispatch).view(n_experts, capacity, D), slot, keep
+
+
+def _combine(yout: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, slot: torch.Tensor,
+             keep: torch.Tensor) -> torch.Tensor:
+    """Each token's kept expert outputs (``yout [E·C, D]`` at ``slot``),
+    weighted by ``w`` and added one after another in ascending expert
+    order, the order the reference's ``segment_sum`` meets them in the
+    sorted assignments: ``[T, D]`` in ``yout``'s dtype."""
+    T, k = idx.shape
+    D = yout.shape[-1]
+    contrib = yout.index_select(0, slot) * (w.reshape(-1) * keep).to(yout.dtype)[:, None]
+    contrib = contrib.view(T, k, D)
+    by_expert = torch.sort(idx, dim=1, stable=True)[1]
+    y = None
+    for j in range(k):
+        c = torch.gather(contrib, 1, by_expert[:, j, None, None].expand(T, 1, D))[:, 0]
+        y = c if y is None else y + c
+    return y
+
+
+def apply_moe(p, x: torch.Tensor, cfg: ModelConfig, *,
+              capacity: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
+    """x ``[B, S, D]`` → ``(y, aux)`` with ``aux = {"lb_loss",
+    "router_probs_mean", "dropped_frac"}`` (float32 tensors)."""
+    if cfg.moe_impl == "ep" and capacity is None:
+        out = apply_moe_ep(p, x, cfg)
+        if out is not None:
+            return out
+    B, S, D = x.shape
+    T = B * S
+    E = cfg.n_experts
+    x2d = x.reshape(T, D)
+    idx, w, probs = _route(p, x2d, cfg)
+    if capacity is None:
+        capacity = max(1, int(math.ceil(T * cfg.top_k / E * cfg.capacity_factor)))
+    C = capacity
+    xin, slot, keep = _dispatch(x2d, idx, E, C)
+    yout = _expert_ffn(p, xin, cfg).reshape(E * C, D)
+    y = _combine(yout, idx, w, slot, keep).reshape(B, S, D).to(x.dtype)
+
+    # shared experts (dense path, always on)
+    if "shared_wi" in p:
+        dt = x.dtype
+        h = x @ p["shared_wi"].to(dt)
+        g = x @ p["shared_wg"].to(dt)
+        y = y + (F.silu(g) * h) @ p["shared_wo"].to(dt)
+
+    # load-balance loss (Switch-style; reported for the sigmoid router too)
+    chosen = torch.zeros((T, E), dtype=torch.float32, device=x.device).scatter_(1, idx, 1.0)
+    frac_tokens = chosen.mean(0)
+    frac_probs = probs.mean(0)
+    lb_loss = E * torch.sum(frac_tokens * frac_probs)
+    aux = {"lb_loss": lb_loss, "router_probs_mean": frac_probs,
+           "dropped_frac": 1.0 - keep.float().mean()}
+    return y, aux
+
+
+def build_moe_dispatch_program(mesh, axis: str, n_experts: int, capacity: int,
+                               d_model: int, dtype=torch.float32, *, verify: str = "warn",
+                               name: str = "st_moe_dispatch"):
+    """The MoE's expert-parallel dispatch as a composable ST program: every
+    rank's sorted capacity buffer ``[E, C, D]`` (flattened to ``E·C``
+    rows, experts contiguous) sent so that expert ``e``'s block lands on
+    the rank owning it, a tiled all-to-all over the expert rows
+    (:func:`repro_torch.core.collectives.build_all_to_all`: one start
+    gate of ``n - 1`` staged trigger→wait channels).  Pure copies, so it
+    equals a plain tiled all-to-all bit for bit; the tiled all-to-all is
+    an involution, so running the program twice routes the expert outputs
+    back (the combine).  Returns a ``CollectiveMatmul`` whose ``inputs`` /
+    ``output`` buffers are the flattened dispatch rows."""
+    from repro_torch.core import collectives
+
+    n = dict(mesh.shape)[axis]
+    if n_experts % n:
+        raise ValueError(
+            f"n_experts ({n_experts}) must divide by the {axis!r} axis "
+            f"size ({n}) for expert-parallel dispatch")
+    rows = n * n_experts * capacity  # global: every rank holds E*C rows
+    return collectives.build_all_to_all(mesh, axis, rows, d_model, dtype,
+                                        verify=verify, name=name)

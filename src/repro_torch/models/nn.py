@@ -1,5 +1,5 @@
-"""Core NN building blocks of the port: the dense, SSM, hybrid,
-encoder-decoder and vision paths.
+"""Core NN building blocks of the port: the dense, MoE (MLA), SSM,
+hybrid, encoder-decoder and vision paths.
 
 Port of ``repro.models.nn``: parameter init, RMSNorm, token embedding
 (with gemma's ``sqrt(d_model)`` scale), the tied or untied unembedding,
@@ -26,7 +26,11 @@ per-slot mask, because the kernel's ``q_offset`` is a host integer and
 per-slot depths change at every replay of a CUDA graph.  The KV cache
 is written in place (the reference's functional update, without a copy
 of the cache per step).  RoPE applies only where ``cfg.pos_embedding ==
-"rope"``, and never to cross attention.
+"rope"``, and never to cross attention.  Multi-head latent attention
+(deepseek-v3's MLA, :func:`_apply_mla`) runs its no-cache forward and
+its prefill on ``ops.flash_attention`` at q/k head dim ``dn + dr`` and v
+head dim ``dv`` (K and V expanded per head from the compressed cache),
+and its one-token decode in the reference's absorbed form.
 """
 
 from __future__ import annotations
@@ -176,7 +180,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # --------------------------------------------------------------------------
 
 
-def init_attention(gen, cfg: ModelConfig, *, device):
+def init_attention(gen, cfg: ModelConfig, *, device, cross: bool = False):
+    if cfg.use_mla and not cross:
+        return _init_mla(gen, cfg, device=device)
     d = cfg.d_model
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
     dt = dtype_of(cfg.param_dtype)
@@ -303,6 +309,9 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True
     cache (the reference's ``kv_x`` path); ``cache`` and ``window`` are
     not used.
     """
+    if cfg.use_mla and kv_x is None:
+        return _apply_mla(p, x, cfg, window=window, rope_theta=rope_theta,
+                          positions=positions, cache=cache, causal=causal)
     B, S, _ = x.shape
     hq, hd = cfg.n_heads, cfg.resolved_head_dim()
     dt = x.dtype
@@ -349,4 +358,136 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *, causal: bool = True
         out = _sdpa(q, ck.to(dt), cv.to(dt), scale=scale, causal=causal, window=window,
                     softcap=softcap, q_pos=positions, k_valid=pos + S)
     y = out.reshape(B, S, hq * hd) @ p["wo"].to(dt).reshape(hq * hd, -1)
+    return y, new_cache
+
+
+# --------------------------------------------------------------------------
+# MLA (deepseek-v3)
+# --------------------------------------------------------------------------
+
+
+def _init_mla(gen, cfg: ModelConfig, *, device):
+    d, h = cfg.d_model, cfg.n_heads
+    ql, kl = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    dt = dtype_of(cfg.param_dtype)
+    kw = dict(device=device)
+    return {
+        "wq_a": param(gen, (d, ql), dt, **kw),
+        "q_norm": param(None, (ql,), dt, init="zeros", **kw),
+        "wq_b": param(gen, (ql, h, dn + dr), dt, **kw),
+        "wkv_a": param(gen, (d, kl + dr), dt, **kw),
+        "kv_norm": param(None, (kl,), dt, init="zeros", **kw),
+        "wkv_b": param(gen, (kl, h, dn + dv), dt, **kw),
+        "wo": param(gen, (h, dv, d), dt, scale=0.02 / math.sqrt(2 * max(cfg.n_layers, 1)),
+                    **kw),
+    }
+
+
+def _vecnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    return ops.rmsnorm(x, scale, eps=eps, weight_offset=1.0)
+
+
+def _expand_kv(p, c_kv: torch.Tensor, k_rope: torch.Tensor, cfg: ModelConfig):
+    """Per-head K ``[B,T,h,dn+dr]`` and V ``[B,T,h,dv]`` of the compressed
+    ``c_kv [B,T,kl]`` and the shared ``k_rope [B,T,dr]``."""
+    B, T, kl = c_kv.shape
+    h, dn = cfg.n_heads, cfg.qk_nope_head_dim
+    w = p["wkv_b"].to(c_kv.dtype)
+    kv = (c_kv @ w.reshape(kl, -1)).view(B, T, h, w.shape[-1])
+    k = torch.cat([kv[..., :dn], k_rope[:, :, None, :].expand(B, T, h, k_rope.shape[-1])],
+                  dim=-1)
+    return k, kv[..., dn:]
+
+
+def mla_qkv(p, x: torch.Tensor, cfg: ModelConfig, *, rope_theta: Optional[float],
+            positions: torch.Tensor):
+    """MLA's ``(q_nope [B,S,h,dn], q_rope [B,S,h,dr], c_kv [B,S,kl], k_rope
+    [B,S,dr])`` of ``x [B,S,d]``: queries through the low-rank ``wq_a`` /
+    ``q_norm`` / ``wq_b`` path, the compressed ``c_kv`` (``wkv_a``,
+    ``kv_norm``) and the one RoPE key every head shares, RoPE at
+    ``positions``."""
+    B, S, _ = x.shape
+    h, ql, kl = cfg.n_heads, cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    dt = x.dtype
+    theta = cfg.rope_theta if rope_theta is None else rope_theta
+    q_c = _vecnorm(x @ p["wq_a"].to(dt), p["q_norm"], cfg.norm_eps)
+    q = (q_c @ p["wq_b"].to(dt).reshape(ql, h * (dn + dr))).view(B, S, h, dn + dr)
+    q_rope = apply_rope(q[..., dn:], positions, theta, dr)
+    ckv = x @ p["wkv_a"].to(dt)
+    c_kv = _vecnorm(ckv[..., :kl], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(ckv[..., kl:][:, :, None, :], positions, theta, dr)[:, :, 0]
+    return q[..., :dn], q_rope, c_kv, k_rope
+
+
+def _apply_mla(p, x: torch.Tensor, cfg: ModelConfig, *, window: int = 0,
+               rope_theta: Optional[float] = None,
+               positions: Optional[torch.Tensor] = None, cache: Optional[Dict] = None,
+               causal: bool = True):
+    """Multi-head latent attention (the reference's ``_apply_mla``); returns
+    ``(y, new_cache_or_None)``.
+
+    Queries go through the low-rank ``wq_a`` / ``q_norm`` / ``wq_b`` path,
+    keys and values through the compressed ``c_kv`` (``wkv_a``,
+    ``kv_norm``) and one RoPE key ``k_rope`` shared by every head.  With
+    no cache, and at the prefill (``cache["depth"]`` a host int: ``c_kv``
+    and ``k_rope`` written at ``depth``), K and V are expanded per head
+    from the compressed entries (the cache's first ``depth + S`` at the
+    prefill) and attention is ``ops.flash_attention`` with q/k head dim
+    ``dn + dr`` and v head dim ``dv``, at ``q_offset = depth``.  The
+    one-token decode (``depth=None``) keeps the reference's absorbed
+    form in float32: scores in the compressed space against the ``c_kv``
+    and ``k_rope`` caches, masked per slot, as ``_sdpa`` does for the
+    other decodes."""
+    B, S, _ = x.shape
+    h, dn, dr, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    dt = x.dtype
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    q_nope, q_rope, c_kv, k_rope = mla_qkv(p, x, cfg, rope_theta=rope_theta,
+                                           positions=positions)
+    scale = (dn + dr) ** -0.5
+
+    new_cache = None
+    if cache is not None and cache.get("depth") is None:
+        if S != 1:
+            raise NotImplementedError(
+                "MLA over a cache whose slots sit at different depths takes one token at "
+                "a time (ROADMAP.md)")
+        cc, cr, pos = cache["c_kv"], cache["k_rope"], cache["pos"]
+        _cache_write_step(cc, c_kv.to(cc.dtype), pos)
+        _cache_write_step(cr, k_rope.to(cr.dtype), pos)
+        # absorbed decode: scores in the compressed space
+        w = p["wkv_b"].to(dt)
+        q_eff = torch.einsum("bshe,rhe->bshr", q_nope, w[..., :dn])
+        logits = (torch.einsum("bshr,btr->bhst", q_eff.float(), cc.float())
+                  + torch.einsum("bshe,bte->bhst", q_rope.float(), cr.float())) * scale
+        mask = _attn_mask(T=cc.shape[1], causal=causal, window=window, q_pos=positions,
+                          k_valid=pos + S)
+        probs = torch.softmax(logits.masked_fill(~mask[:, None], -1e30), dim=-1)
+        ctx = torch.einsum("bhst,btr->bshr", probs, cc.float()).to(dt)
+        out = torch.einsum("bshr,rhe->bshe", ctx, w[..., dn:])
+        new_cache = {"c_kv": cc, "k_rope": cr}
+    else:
+        q_offset = 0
+        if cache is not None:
+            depth, cc, cr = cache["depth"], cache["c_kv"], cache["k_rope"]
+            if depth + S > cc.shape[1]:
+                raise ValueError(f"prefill of {S} tokens at depth {depth} exceeds the "
+                                 f"cache's {cc.shape[1]} entries")
+            cc[:, depth:depth + S] = c_kv.to(cc.dtype)
+            cr[:, depth:depth + S] = k_rope.to(cr.dtype)
+            new_cache = {"c_kv": cc, "k_rope": cr}
+            # contiguous, so that at depth 0 the expansion is the no-cache
+            # path's product on the same values
+            c_kv = cc[:, :depth + S].to(dt).contiguous()
+            k_rope = cr[:, :depth + S].to(dt).contiguous()
+            q_offset = depth
+        k, v = _expand_kv(p, c_kv, k_rope, cfg)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        out = ops.flash_attention(
+            qq.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal,
+            scale=scale, window=window or None, q_offset=q_offset).transpose(1, 2)
+    y = out.reshape(B, S, h * dv) @ p["wo"].to(dt).reshape(h * dv, -1)
     return y, new_cache

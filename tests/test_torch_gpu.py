@@ -596,6 +596,18 @@ FLASH_CASES = [
     dict(dtype=BF16, B=4, Hq=20, Hkv=20, Sq=1, Skv=1500, D=64, causal=False, bshd=True),
     dict(dtype=BF16, B=1, Hq=25, Hkv=5, Sq=640, Skv=640, D=64, window=1024, bshd=True),
     dict(dtype=BF16, B=2, Hq=25, Hkv=5, Sq=1200, Skv=1200, D=64, window=1024, bshd=True),
+    # MLA's pair (deepseek-v3): q and k at 192, v at 128.  The tensor-core
+    # route in bf16 (a prefill, one at a depth with a ragged tail, a window,
+    # a decode query, the served layout), the CUDA-core route in float32 and
+    # at the smoke config's (48, 32)
+    dict(dtype=BF16, B=2, Hq=8, Hkv=8, Sq=130, Skv=130, D=192, Dv=128),
+    dict(dtype=BF16, B=1, Hq=4, Hkv=4, Sq=70, Skv=200, D=192, Dv=128, q_offset=130),
+    dict(dtype=BF16, B=1, Hq=4, Hkv=2, Sq=96, Skv=96, D=192, Dv=128, window=20),
+    dict(dtype=BF16, B=2, Hq=4, Hkv=4, Sq=1, Skv=300, D=192, Dv=128, q_offset=299),
+    dict(dtype=BF16, B=1, Hq=16, Hkv=16, Sq=512, Skv=512, D=192, Dv=128, bshd=True),
+    dict(B=1, Hq=2, Hkv=2, Sq=70, Skv=90, D=192, Dv=128, q_offset=20),
+    dict(B=1, Hq=4, Hkv=4, Sq=50, Skv=50, D=48, Dv=32),
+    dict(dtype=BF16, B=1, Hq=2, Hkv=1, Sq=40, Skv=40, D=48, Dv=32, window=9),
 ]
 
 
@@ -608,16 +620,18 @@ def test_flash_kernel_matches_plain(cuda, case):
     case = dict(case)
     B, Hq, Hkv, Sq, Skv, D = (case.pop(k) for k in ("B", "Hq", "Hkv", "Sq", "Skv", "D"))
     dtype, bshd = case.pop("dtype", torch.float32), case.pop("bshd", False)
+    Dv = case.pop("Dv", D)
     if bshd:   # [B,S,H,D] tensors passed as transposed views
         q = _randn((B, Sq, Hq, D), dtype, cuda, 11).transpose(1, 2)
         k = _randn((B, Skv, Hkv, D), dtype, cuda, 12).transpose(1, 2)
-        v = _randn((B, Skv, Hkv, D), dtype, cuda, 13).transpose(1, 2)
+        v = _randn((B, Skv, Hkv, Dv), dtype, cuda, 13).transpose(1, 2)
     else:
         q = _randn((B, Hq, Sq, D), dtype, cuda, 11)
         k = _randn((B, Hkv, Skv, D), dtype, cuda, 12)
-        v = _randn((B, Hkv, Skv, D), dtype, cuda, 13)
-    route = "wgmma" if dtype == BF16 and D in (64, 128, 256) else "cuda_core"
-    assert fk.route(dtype, D) == route
+        v = _randn((B, Hkv, Skv, Dv), dtype, cuda, 13)
+    wgmma = ((64, 64), (128, 128), (256, 256), (192, 128))
+    route = "wgmma" if dtype == BF16 and (D, Dv) in wgmma else "cuda_core"
+    assert fk.route(dtype, D, Dv) == route
     before = fk.launch_counts()
     got = fk.flash_attention(q, k, v, **case)
     want = ref.attention(q, k, v, **case)
@@ -635,6 +649,67 @@ def test_flash_kernel_matches_plain(cuda, case):
         assert bool((got == 0).all())
     if case.get("q_offset", 0) < 0:
         assert bool((got[:, :, :-case["q_offset"]] == 0).all())
+
+
+def test_flash_mla_pair_reads_the_model_layout(cuda):
+    """MLA's layout: k the concatenation [B,S,H,192], v the last 128 columns
+    of the expanded ``kv`` [B,S,H,256] (a strided view, no copy), both
+    passed transposed; at a depth with ``q_offset``; the result laid out
+    [B,S,H,128]."""
+    B, S, H = 2, 200, 8
+    q = _randn((B, S, H, 192), BF16, cuda, 21).transpose(1, 2)
+    k = _randn((B, S, H, 192), BF16, cuda, 22).transpose(1, 2)
+    kv = _randn((B, S, H, 256), BF16, cuda, 23)
+    v = kv[..., 128:].transpose(1, 2)
+    for sq, q_offset in ((S, 0), (60, S - 60)):
+        before = fk.launch_counts()["flash_attention_wgmma"]
+        got = fk.flash_attention(q[:, :, S - sq:], k, v, q_offset=q_offset,
+                                 scale=192 ** -0.5)
+        assert fk.launch_counts()["flash_attention_wgmma"] == before + 1
+        assert tuple(got.shape) == (B, H, sq, 128) and got.transpose(1, 2).is_contiguous()
+        want = ref.attention(q[:, :, S - sq:], k, v, q_offset=q_offset, scale=192 ** -0.5)
+        assert _bf16_close(got, want)
+
+
+def test_graphed_moe_layer_equals_eager(cuda):
+    """deepseek-v3's MoE layer (sigmoid router with a bias, a shared
+    expert) and grok-1's (softmax) in bf16 at 8 experts, top-2, 96 tokens,
+    at the default capacity and at one that drops: one CUDA-graph replay
+    equals the eager call bit for bit (no float atomics, no host reads),
+    twice, on new inputs copied into the graph's."""
+    from repro_torch.models import moe
+
+    for arch in ("deepseek-v3-671b", "grok-1-314b"):
+        cfg = dataclasses.replace(get_config(arch).smoke(), n_experts=8, dtype="bfloat16",
+                                  param_dtype="bfloat16")
+        p = moe.init_moe(torch.Generator(cuda).manual_seed(3), cfg, device=cuda)
+        if "router_bias" in p:
+            p["router_bias"].copy_(torch.linspace(-0.02, 0.02, 8, device=cuda))
+        for capacity in (None, 4):
+            x = _field((4, 24, cfg.d_model), BF16, cuda, 5)
+            eager, aux = moe.apply_moe(p, x, cfg, capacity=capacity)
+            if capacity:
+                assert float(aux["dropped_frac"]) > 0
+            static = x.clone()
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                moe.apply_moe(p, static, cfg, capacity=capacity)
+            torch.cuda.current_stream().wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out, gaux = moe.apply_moe(p, static, cfg, capacity=capacity)
+            for seed in (5, 6):
+                xi = _field((4, 24, cfg.d_model), BF16, cuda, seed)
+                want, waux = moe.apply_moe(p, xi, cfg, capacity=capacity)
+                if seed == 5:   # x's draw: eager twice gives the same bits
+                    assert torch.equal(want, eager)
+                static.copy_(xi)
+                graph.replay()
+                torch.cuda.synchronize()
+                assert torch.equal(out, want), (arch, capacity, seed)
+                for key in waux:
+                    assert torch.equal(gaux[key], waux[key]), (arch, key)
 
 
 def test_flash_kernel_reads_the_model_layout_in_bf16(cuda):
@@ -819,6 +894,52 @@ def test_family_prefill_and_admission_graphs_equal_eager(cuda, arch, dtype):
         # the decode graph's input state holds enc_out in the shared buffers
         dec_state = eng.decode(params, *got[:4])[0]
         assert dec_state["enc_out"].data_ptr() == got[0]["enc_out"].data_ptr()
+
+
+#: deepseek-v3 (MLA: flash at (48, 32), on the CUDA-core route in both dtypes)
+#: and grok-1 (flash at 64: CUDA-core in float32, tensor-core in bf16) smoke
+MOE_CASES = [("deepseek-v3-671b", "float32"), ("deepseek-v3-671b", "bfloat16"),
+             ("grok-1-314b", "float32"), ("grok-1-314b", "bfloat16")]
+
+
+@pytest.mark.parametrize("arch,dtype", MOE_CASES)
+def test_moe_prefill_graph_equals_eager_and_serves_as_the_cpu(cuda, arch, dtype):
+    """The MoE smoke models: a warm prefill is ONE graph launch equal to an
+    eager ``Model.prefill`` bit for bit (logits, MLA's ``c_kv`` and
+    ``k_rope`` or K and V) and holds a flash launch per layer; served in
+    float32, resident and host-stepped, the tokens equal the CPU's."""
+    from repro_torch.kernels import ops
+
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype=dtype)
+    cpu_params = Model(cfg).init(0, device="cpu")
+    params = tree_map(lambda t: t.to(cuda), cpu_params)
+    eng = ServeEngine(cfg, slots=4, prompt_len=24, max_new=6, chunk=5)
+    batch = synthetic_batch(cfg, np.random.RandomState(0), 4, 24)
+    eng.prefill(params, batch, eng.init_state()[0])      # set-up
+    torch.cuda.synchronize()
+    launches, counts = eng.graph_launches, ops.launch_counts()
+    logits, got = eng.prefill(params, batch, eng.init_state()[0])
+    torch.cuda.synchronize()
+    assert eng.graph_launches == {**launches, "prefill": launches["prefill"] + 1}
+    assert ops.launch_counts() == counts
+    want_logits, want = eng.model.prefill(eng.cast_params(params), batch,
+                                          eng.init_state()[0])
+    assert torch.equal(logits, want_logits)
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(g, w)
+    held = eng.captured_launches("prefill")
+    head = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim) if cfg.use_mla \
+        else (cfg.resolved_head_dim(), cfg.resolved_head_dim())
+    route = fk.route(getattr(torch, dtype), *head)
+    assert held["flash_attention"] == held[f"flash_attention_{route}"] == cfg.n_layers
+    if dtype == "float32":
+        cpu_batch = {k: v.cpu() for k, v in batch.items()}
+        shape = dict(batch=4, prompt_len=24, gen_len=6)
+        cpu, _ = serve(cfg, params=cpu_params, batch_in=cpu_batch, device="cpu", **shape)
+        for resident in (True, False):
+            gen, _ = serve(cfg, params=params, batch_in=batch, engine=eng,
+                           device_resident=resident, **shape)
+            np.testing.assert_array_equal(gen, cpu)
 
 
 # -- continuous batching: admission as one graph launch ----------------------

@@ -345,14 +345,6 @@ def test_train_cli_runs_on_cpu(capsys):
         train_main(["--arch", ARCH, "--smoke", "--device", "cpu", "--mesh", "2x1"])
 
 
-def test_loss_refuses_what_is_not_ported(mamba):
-    cfg = dataclasses.replace(mamba.cfg, mtp_depth=1)
-    model = Model(mamba.cfg)
-    model.cfg = cfg
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.loss(mamba.params(), mamba.tbatch(0))
-
-
 def test_dense_loss_and_gradients_match_jax():
     """qwen1.5-0.5b smoke: Model.loss and every gradient off the SSM path."""
     pair = Pair("qwen1.5-0.5b", batch=2, seq=16)
