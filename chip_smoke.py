@@ -331,10 +331,37 @@ a checkout of the repository.  Phases, each of which must pass:
    over 4 stacked ranks at deepseek's prefill widths (256 experts,
    capacity 80, d 7168, bf16) through ``FusedEngine``, equal to the
    plain tiled all-to-all bit for bit and giving its input back when run
-   again.
+   again;
+21. training gemma3-1b at full width and depth (26 layers, d_model 1152,
+   4 query heads and 1 kv head of 256, the window of 512 on 22 layers, 4
+   global, qk-norms, d_ff 6912, tied vocab 262 144; bf16 compute over
+   float32 parameters from ``torch.Generator(seed)``), 4 x 1024 tokens a
+   step (``DENSE_TRAIN``; the cut from ``train_4k`` printed as a
+   ``train_cut`` line): (b) 3 eager steps, every gradient leaf of the
+   first finite and not all zero, the losses finite, the kernels'
+   launches in one eager step (counters set to 0 just before it): flash
+   forward 52 times on the tensor-core route (forward and the
+   checkpoint's recompute), its backward 26 times, each RMSNorm (the
+   qk-norms included) forward twice and backward once; the same 3 steps
+   as ONE graph launch equal to the eager ones bit for bit (deterministic
+   algorithms); ms a step both ways, tokens/s, dispatches, peak memory;
+   an eager step split into forward, recompute, backward and AdamW (CUDA
+   events, the recompute as a no-grad run of the layer stack) with its
+   kernels, the flash backward's share named (``torch.profiler``); (a)
+   flash's backward against ``ref.attention_vjp`` at each of
+   ``FLASH_BWD_CASES`` within phase 18's ``GRAD_RTOL``/``GRAD_FRAC`` (one
+   bf16 rounding more for bf16 outputs), two calls equal bit for bit,
+   rows that see no key zero; timed at gemma3's global and local layers
+   beside its bound, the plain VJP and autograd of SDPA (the backward as
+   forward and backward less forward, each timed as the kernels are, in
+   captured graphs; its kernels named); the RMSNorm backward at the
+   step's shapes (the pre- and post-norms' 4096 x 1152, the q- and
+   k-norms' 16384 x 256 and 4096 x 256; eps 1e-6, weight offset 1)
+   against ``ref.rmsnorm_vjp``, two runs and a graph replay equal to
+   eager bit for bit, timed as in phase 18.
 
-The last lines are a ``{"kernels": [...]}`` JSON line (thirteen rows:
-the nine Pallas kernels', the two step kernels' and the two backward
+The last lines are a ``{"kernels": [...]}`` JSON line (fourteen rows:
+the nine Pallas kernels', the two step kernels' and the three backward
 kernels', which have no Pallas counterpart (``"pallas_counterpart":
 false``); the
 flash and SSD rows also give ``earlier_ms``: the CUDA-core kernel, the
@@ -342,12 +369,15 @@ port's kernel before the tensor-core one, on the same input in this
 run, and the SSD row its ``kernel_route``; the SSD backward row its
 ``kernel_route`` and ``cuda_core_ms`` (the CUDA-core backward on the same
 input); the RMSNorm backward row its ``training_shapes`` (each shape's
-ms, row pass, dw pass, plain, library and bound); the rmsnorm row gives
+ms, row pass, dw pass, plain, library and bound; phase 18's and, named
+``gemma3_``, phase 21's); the rmsnorm row gives
 ``decode``: its times at the decode shapes; the flash and rmsnorm rows
 ``served_shapes``: their times at phase 17's served layer 0 and phases
 19's and 20's served shapes (the SSD row's: hymba's), and those
 three rows ``phase17_launches`` and ``phase19_launches``, the flash and
-rmsnorm rows ``phase20_launches``; the schedule step's row
+rmsnorm rows ``phase20_launches``, they and the RMSNorm backward's row
+``phase21_launches``; the flash backward's row its ``local_layer`` times
+and SDPA's ``sdpa_kernels``; the schedule step's row
 ``one_program_ms``: its loop with one program), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -388,6 +418,8 @@ REPLACES = {
     # the SSD scan through a custom_vjp, the model's norm by XLA's autodiff
     "ssd_scan_bwd": "src/repro/models/ssm.py:46-49",
     "rmsnorm_bwd": "src/repro/models/nn.py:78",
+    # and attention's backward: XLA differentiates the plain _sdpa
+    "flash_attention_bwd": "src/repro/models/nn.py:258",
 }
 FACES_KERNELS = ("halo_pack", "halo_unpack_add", "pack_segments", "unpack_segments")
 # one region of each class the Faces loop unpacks, by its DIRECTIONS entry
@@ -450,6 +482,29 @@ FAMILY_CHUNK = 8                   # the continuous decode chunk
 #: its sinusoids swamp the 0.02 token embeddings and every slot emits the
 #: same tokens, so a slot mix-up would not show
 TRUNK_SCALE = {"whisper-large-v3": 8.0}
+#: phase 21: gemma3-1b at full width and depth, 4 x 1024 tokens a step
+DENSE_TRAIN = dict(batch=4, seq=1024, steps=3)
+DENSE_TRAIN_CUT = ("train_4k is 256 x 4096 tokens a step across a TPU pod; one H100 trains "
+                   "gemma3-1b at full width and depth on 4 x 1024 = 4096 tokens a step, the "
+                   "served prefill's shape: the window of 512 binds on the 22 local layers, "
+                   "the 4 global ones (5, 11, 17, 23) see all 1024 tokens")
+#: the flash backward against ref.attention_vjp: (name, dtype, B, Hq, Hkv, Sq,
+#: Skv, D, Dv, keywords): gemma3's global and local layers, grok's soft-capped
+#: GQA (48/8, its output multiplier as the scale) at a shorter S, MLA's pair,
+#: whisper's cross attention (not causal, Sq != Skv), a chunk at a depth, a
+#: float32 case, and rows that see no key (a negative q_offset)
+FLASH_BWD_CASES = (
+    ("gemma3_global", "bf16", 4, 4, 1, 1024, 1024, 256, 256, {}),
+    ("gemma3_local", "bf16", 4, 4, 1, 1024, 1024, 256, 256, {"window": 512}),
+    ("grok_softcap_gqa", "bf16", 1, 48, 8, 256, 256, 128, 128,
+     {"logit_softcap": 30.0, "scale": 0.08838834764831845}),
+    ("mla_192_128", "bf16", 1, 16, 16, 512, 512, 192, 128, {"scale": 192 ** -0.5}),
+    ("whisper_cross", "bf16", 2, 20, 20, 64, 1500, 64, 64, {"causal": False}),
+    ("q_offset", "bf16", 2, 4, 1, 256, 768, 256, 256, {"q_offset": 512, "window": 512}),
+    ("float32", "f32", 1, 4, 1, 512, 512, 256, 256, {"window": 128}),
+    ("rows_without_keys", "bf16", 1, 8, 2, 200, 200, 128, 128,
+     {"q_offset": -40, "window": 100}),
+)
 #: phase 20: the MoE family uncut in width with bf16 parameters, 4 slots,
 #: 512-token prompts, 32 tokens; deepseek-v3 cut to 3 layers (1 dense, then 2
 #: of 256 routed experts: 26.14 B parameters, 52.3 GB) and grok-1 to 2 (11.45
@@ -1514,7 +1569,8 @@ def cuda_core_flash(torch, q, k, v, window):
         1, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, k.shape[1], Sq,
         k.shape[2], D, Dv, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3],
-        D ** -0.5, 0.0, 1, -1 if window is None else int(window), 0, stream_arg(q))
+        D ** -0.5, 0.0, 1, -1 if window is None else int(window), 0, None, None,
+        stream_arg(q))
     check_launch("flash_attention", err)
     return out
 
@@ -3531,8 +3587,8 @@ def ssd_bwd_flops_bytes(B, S, H, P, G, N, itemsize, h0: bool):
     return flops, n_bytes
 
 
-def norm_bwd_times(torch, rk, ref, xn, wn, dyn) -> dict:
-    """The RMSNorm backward at one shape (model eps 1e-5, weight offset
+def norm_bwd_times(torch, rk, ref, xn, wn, dyn, eps: float) -> dict:
+    """The RMSNorm backward at one shape (the model's eps, weight offset
     1): its time, the plain VJP's, autograd of ``F.rms_norm``'s backward
     (forward and backward in each captured call, the forward alone timed
     too: the backward's time is the difference; the weight w + 1 in bf16,
@@ -3544,19 +3600,19 @@ def norm_bwd_times(torch, rk, ref, xn, wn, dyn) -> dict:
     launches listed, no kernel), so up to 5 windows are taken; None where
     none saw the pass."""
     d = xn.shape[-1]
-    call = lambda: rk.rmsnorm_bwd(xn, wn, dyn, eps=1e-5, weight_offset=1.0)  # noqa: E731
+    call = lambda: rk.rmsnorm_bwd(xn, wn, dyn, eps=eps, weight_offset=1.0)  # noqa: E731
     xl = xn.detach().requires_grad_()
     wl = (wn + 1.0).bfloat16().requires_grad_()
 
     def lib_fwd():
-        return torch.nn.functional.rms_norm(xl, (d,), weight=wl, eps=1e-5)
+        return torch.nn.functional.rms_norm(xl, (d,), weight=wl, eps=eps)
 
     def lib_fwd_bwd():
         with torch.enable_grad():
             return torch.autograd.grad(lib_fwd(), (xl, wl), dyn)
 
     out = {"ms": median_ms(torch, call),
-           "plain_ms": median_ms(torch, lambda: ref.rmsnorm_vjp(xn, wn, dyn, eps=1e-5,
+           "plain_ms": median_ms(torch, lambda: ref.rmsnorm_vjp(xn, wn, dyn, eps=eps,
                                                                 weight_offset=1.0), 5, 5),
            "library_fwd_bwd_ms": median_ms(torch, lib_fwd_bwd),
            "bound_ms": (3 * xn.numel() * 2 + 2 * d * 4) / HBM_BYTES_PER_S * 1e3}
@@ -3571,6 +3627,42 @@ def norm_bwd_times(torch, rk, ref, xn, wn, dyn) -> dict:
             break
     out.update({part: sum(ms) / 5 if ms else None for part, ms in seen.items()})
     return out
+
+
+def check_norm_bwd(torch, rk, ref, gen, shape, eps: float):
+    """The RMSNorm backward at one of a model's training shapes (x and dy
+    bf16 of ``shape``, w float32, the model's eps, weight offset 1): held
+    to the plain VJP, two runs and a graph replay equal to eager bit for
+    bit, then timed (:func:`norm_bwd_times`).  Returns the entry's key
+    (rows x d and the route of ``bwd_plan``) and the entry."""
+    d = shape[-1]
+    xn = torch.randn(*shape, device="cuda", generator=gen).bfloat16()
+    wn = 0.1 * torch.randn(d, device="cuda", generator=gen)
+    dyn = torch.randn(*shape, device="cuda", generator=gen).bfloat16()
+    call = lambda: rk.rmsnorm_bwd(xn, wn, dyn, eps=eps, weight_offset=1.0)  # noqa: E731
+    got = call()
+    want = ref.rmsnorm_vjp(xn, wn, dyn, eps=eps, weight_offset=1.0)
+    rows = xn.numel() // d
+    plan = rk.bwd_plan(rows, d, xn.dtype)
+    key = f"{rows}x{d}_{plan.route}"
+    used = {n_: grad_check(torch, g, w) for n_, g, w in zip(("dx", "dw"), got, want)}
+    require(all(u <= 1.0 for u, _ in used.values()),
+            f"rmsnorm_bwd {key}: beyond the bound {used}")
+    again = call()
+    require(torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]),
+            f"rmsnorm_bwd {key}: two runs differ")
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    require(torch.equal(replayed[0], got[0]) and torch.equal(replayed[1], got[1]),
+            f"rmsnorm_bwd {key}: a graph replay differs from eager")
+    del graph, replayed, again, want
+    return key, {**{k: {"bound_used": u, "max_abs_err": e} for k, (u, e) in used.items()},
+                 "shape": list(shape), "eps": eps, "plan": plan._asdict(),
+                 **norm_bwd_times(torch, rk, ref, xn, wn, dyn, eps)}
 
 
 def check_backward_kernels(torch, ssd, rk, ref, seed: int):
@@ -3685,31 +3777,8 @@ def check_backward_kernels(torch, ssd, rk, ref, seed: int):
     # replay equal to eager bit for bit, then timed (norm_bwd_times)
     norm = {}
     for rows, d in ((B * S, 2560), (B * S, 5120), (4096, 1024)):
-        xn = torch.randn(rows, d, device="cuda", generator=gen).bfloat16()
-        wn = 0.1 * torch.randn(d, device="cuda", generator=gen)
-        dyn = torch.randn(rows, d, device="cuda", generator=gen).bfloat16()
-        call = lambda: rk.rmsnorm_bwd(xn, wn, dyn, eps=1e-5, weight_offset=1.0)  # noqa: E731
-        got = call()
-        want = ref.rmsnorm_vjp(xn, wn, dyn, eps=1e-5, weight_offset=1.0)
-        plan = rk.bwd_plan(rows, d, xn.dtype)
-        key = f"{rows}x{d}_{plan.route}"
-        used = {n_: grad_check(torch, g, w) for n_, g, w in zip(("dx", "dw"), got, want)}
-        require(all(u <= 1.0 for u, _ in used.values()),
-                f"rmsnorm_bwd {key}: beyond the bound {used}")
-        again = call()
-        require(torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]),
-                f"rmsnorm_bwd {key}: two runs differ")
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            replayed = call()
-        graph.replay()
-        torch.cuda.synchronize()
-        require(torch.equal(replayed[0], got[0]) and torch.equal(replayed[1], got[1]),
-                f"rmsnorm_bwd {key}: a graph replay differs from eager")
-        del graph, replayed, again, want
-        norm[key] = {**{k: {"bound_used": u, "max_abs_err": e} for k, (u, e) in used.items()},
-                     "plan": plan._asdict(), **norm_bwd_times(torch, rk, ref, xn, wn, dyn)}
+        key, entry = check_norm_bwd(torch, rk, ref, gen, (rows, d), 1e-5)
+        norm[key] = entry
         if d == 5120:
             main_key, main_shape = key, [rows, d]
     detail["rmsnorm_bwd"] = norm
@@ -3944,6 +4013,312 @@ def run_phase18(torch, seed: int, ssd, rk, ref):
     return out, [ssd_row, norm_row], launches
 
 
+def flash_bwd_inputs(torch, gen, dtype, B, Hq, Hkv, Sq, Skv, D, Dv):
+    """q, k, v and dO for the flash backward in the model's layout: [B,S,H,D]
+    tensors passed as [B,H,S,D] views."""
+    def mk(S, H, d):
+        return torch.randn(B, S, H, d, device="cuda", generator=gen).to(dtype).transpose(1, 2)
+
+    return mk(Sq, Hq, D), mk(Skv, Hkv, D), mk(Skv, Hkv, Dv), mk(Sq, Hq, Dv)
+
+
+def sdpa_grad_times(torch, q, k, v, do, **kw) -> dict:
+    """Autograd of ``F.scaled_dot_product_attention`` (``enable_gqa``):
+    forward and backward, the forward alone, their difference (the
+    library's backward time), each timed as the kernels are
+    (:func:`median_ms`: calls captured into a CUDA graph, so no host time
+    counts), and the kernels a call launches (the backend)."""
+    import torch.nn.functional as F
+
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def fwd():
+        return F.scaled_dot_product_attention(*ins, enable_gqa=True, **kw)
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            return torch.autograd.grad(fwd(), ins, do)
+
+    both = median_ms(torch, fwd_bwd, reps=5, inner=5)
+    with torch.no_grad():
+        alone = median_ms(torch, fwd, reps=5, inner=5)
+    return {"ms": both - alone, "fwd_bwd_ms": both, "fwd_ms": alone,
+            "kernels": sdpa_kernels(torch, fwd_bwd)}
+
+
+def check_flash_backward(torch, fk, ref, seed: int):
+    """Phase 21 (a): the flash backward against ``ref.attention_vjp`` at
+    each of ``FLASH_BWD_CASES`` (two calls equal bit for bit; rows that see
+    no key zero), then its row of the kernels line at gemma3's global
+    layer and its times at the local one."""
+    gen = torch.Generator("cuda").manual_seed(seed + 21)
+    detail = {"bound": {"rtol": GRAD_RTOL, "leaf_max_share": GRAD_FRAC,
+                        "bf16_outputs": "plus 2^-8 of |got| + |want|"}}
+    kept, errs = {}, []
+    for name, dt, B, Hq, Hkv, Sq, Skv, D, Dv, kw in FLASH_BWD_CASES:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        q, k, v, do = flash_bwd_inputs(torch, gen, dtype, B, Hq, Hkv, Sq, Skv, D, Dv)
+        out, o32, lse = fk.forward_with_lse(q, k, v, **kw)
+        before = fk.flash_attention_bwd.launches
+        got = fk.flash_attention_bwd(q, k, v, o32, lse, do, **kw)
+        require(fk.flash_attention_bwd.launches == before + 1,
+                f"flash_attention_bwd {name}: not one counted launch")
+        want = ref.attention_vjp(*(t.float() for t in (q, k, v, do)), **kw)
+        used = {n: grad_check(torch, g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        require(all(u <= 1.0 for u, _ in used.values()),
+                f"flash_attention_bwd {name}: beyond the bound {used}")
+        again = fk.flash_attention_bwd(q, k, v, o32, lse, do, **kw)
+        require(all(torch.equal(a, b) for a, b in zip(again, got)),
+                f"flash_attention_bwd {name}: two calls differ")
+        if kw.get("q_offset", 0) < 0:
+            blind = -kw["q_offset"]
+            require(bool((got[0][:, :, :blind] == 0).all()) and bool(torch.isneginf(
+                lse[:, :, :blind]).all()), f"flash_attention_bwd {name}: rows that see no "
+                "key have a gradient or a finite L")
+        errs += [e for _, e in used.values()]
+        detail[name] = {"dtype": dt, "q": list(q.shape), "kv": list(k.shape), "Dv": Dv, **kw,
+                        **{n: {"bound_used": u, "max_abs_err": e} for n, (u, e) in used.items()}}
+        if name.startswith("gemma3_"):
+            kept[name] = (q, k, v, do, o32, lse, kw)
+        del want, again, got
+
+    # the row: gemma3's global layer; the local layer as a detail
+    times = {}
+    for name, (q, k, v, do, o32, lse, kw) in kept.items():
+        B, Hq, Sq, D = q.shape
+        Skv, Dv = k.shape[2], v.shape[3]
+        pairs = attention_pairs(Sq, Skv, 0, kw.get("window"))
+        n_ops = 2 * (3 * D + 2 * Dv) * B * Hq * pairs
+        n_bytes = 2 * 2 * (q.numel() + k.numel() + v.numel() + do.numel())
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_OPS_PER_S
+        if "window" in kw:
+            idx = torch.arange(Sq, device="cuda")
+            mask = (idx[None, :] <= idx[:, None]) & (idx[None, :] > idx[:, None] - kw["window"])
+            lib = sdpa_grad_times(torch, q, k, v, do, attn_mask=mask)
+        else:
+            lib = sdpa_grad_times(torch, q, k, v, do, is_causal=True)
+        times[name] = {
+            "ms": median_ms(torch, lambda: fk.flash_attention_bwd(q, k, v, o32, lse, do, **kw),
+                            reps=5, inner=5),
+            "plain_ms": median_ms(torch, lambda: ref.attention_vjp(q, k, v, do, **kw), 3, 2),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "gflop": n_ops / 1e9, "mbytes": n_bytes / 1e6,
+            "forward_ms": median_ms(torch, lambda: fk.forward_with_lse(q, k, v, **kw), 5, 5),
+            "library_ms": lib["ms"], "library_fwd_bwd_ms": lib["fwd_bwd_ms"],
+            "library_fwd_ms": lib["fwd_ms"], "sdpa_kernels": lib["kernels"]}
+    g = times["gemma3_global"]
+    row = {"name": "flash_attention_bwd", "route": "cuda", "kernel_route": "cuda_core",
+           "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "replaces": REPLACES["flash_attention_bwd"], "pallas_counterpart": False,
+           "max_abs_err": max(errs), "ms": g["ms"], "plain_ms": g["plain_ms"],
+           "bound_ms": g["bound_ms"], "bound_by": g["bound_by"], "library_ms": g["library_ms"],
+           "library_call": ("torch.autograd.grad of F.scaled_dot_product_attention("
+                            "is_causal=True, enable_gqa=True): forward and backward less "
+                            "the forward alone, each in captured graphs"),
+           "library_fwd_bwd_ms": g["library_fwd_bwd_ms"], "library_fwd_ms": g["library_fwd_ms"],
+           "sdpa_kernels": g["sdpa_kernels"], "shape": [4, 4, 1, 1024, 256],
+           "local_layer": times["gemma3_local"]}
+    detail["times"] = times
+    return row, detail
+
+
+def run_phase21(torch, seed: int, fk, rk, ref):
+    """Phase 21: train gemma3-1b at full width and depth (see the module
+    docstring); returns the phase's line, the flash backward's row, the
+    RMSNorm backward's entries at gemma3's training shapes and the
+    kernels' launches in one eager step."""
+    import gc
+
+    from repro_torch import make_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as st
+    from repro_torch.models.nn import apply_embedding, tree_leaves
+    from repro_torch.models.transformer import apply_stack, layer_window_theta
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    B, S, n = DENSE_TRAIN["batch"], DENSE_TRAIN["seq"], DENSE_TRAIN["steps"]
+    print(json.dumps({"train_cut": {"model": "gemma3-1b", "batch": B, "seq": S,
+                                    "reference_shape": "train_4k",
+                                    "why": DENSE_TRAIN_CUT}}), flush=True)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    cfg = get_config("gemma3-1b")
+    windows = [layer_window_theta(cfg, i)[0] for i in range(cfg.n_layers)]
+    shape = ShapeConfig("train_cut", S, B, "train")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    opt_cfg = AdamWConfig(lr=1e-3)
+    bundle = st.build_train_step(cfg, shape, mesh, opt=opt_cfg, total_steps=100)
+    source = SyntheticTokens(cfg, shape)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in source.batch(i).items()}
+               for i in range(n)]
+    stack = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    out = {"tokens_per_step": B * S, "layers": cfg.n_layers,
+           "global_layers": [i for i, w in enumerate(windows) if w == 0],
+           "window": cfg.sliding_window, "dtype": cfg.dtype, "param_dtype": cfg.param_dtype}
+    require(sum(w == 0 for w in windows) == 4 and set(windows) == {0, 512},
+            f"gemma3-1b's layer windows {windows}")
+
+    def fresh():
+        params = bundle.model.init(seed)
+        return params, adamw_init(params, opt_cfg)
+
+    # (b) eager steps; step 0's gradients checked; step 1's launches
+    t0 = time.perf_counter()
+    params, opt = fresh()
+    out["init_s"] = time.perf_counter() - t0
+    out["param_count"] = sum(p.numel() for p in tree_leaves(params))
+    grads, gmet = bundle.grad_fn(params, batches[0])
+    bad = [i for i, g in enumerate(tree_leaves(grads))
+           if g is None or not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0)]
+    require(not bad, f"phase 21: gradient leaves {bad} missing, non-finite or all zero")
+    out["grad_leaves"] = len(tree_leaves(grads))
+    params, opt, omet = bundle.apply_fn(params, opt, grads)
+    del grads
+    eager_mets = [{**gmet, **omet}]
+    step_ms = []
+    for i in range(1, n):
+        reset_all_launches()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, m = bundle.step_fn(params, opt, batches[i])
+        stop.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(stop))
+        eager_mets.append(m)
+        if i == 1:
+            launches = {k: v for k, v in ops.launch_counts().items() if v}
+    out["eager_step_launches"] = launches
+    L = cfg.n_layers
+    require(launches.get("flash_attention") == launches.get("flash_attention_wgmma") == 2 * L
+            and launches.get("flash_attention_cuda_core", 0) == 0,
+            f"an eager step's flash forward launches {launches}: not {2 * L} (forward and "
+            "recompute) all on the tensor-core route")
+    require(launches.get("flash_attention_bwd") == L,
+            f"an eager step's flash backward launches {launches}: not {L}")
+    require(launches.get("rmsnorm_bwd", 0) >= 4 * L + 1
+            and launches.get("rmsnorm") == 2 * launches["rmsnorm_bwd"] - 1,
+            f"an eager step's RMSNorm launches {launches}: not every norm (the qk-norms "
+            "included) forward twice under the checkpoint and backward once")
+    eager = {k: torch.stack([m[k] for m in eager_mets]) for k in eager_mets[0]}
+    out["loss"] = eager["loss"].tolist()
+    require(bool(torch.isfinite(eager["loss"]).all()), "phase 21: a non-finite loss")
+    out["eager_ms_per_step"] = step_ms
+    out["peak_gb_eager"] = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    keep = {"state": [t.cpu() for t in tree_leaves((params, opt))],
+            "mets": {k: v.cpu() for k, v in eager.items()}}
+    out["host_copy_s"] = time.perf_counter() - t0
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the same steps as ONE graph launch
+    params, opt = fresh()
+    multi = st.persistent_steps(bundle, n, stacked=True).step_fn
+    t0 = time.perf_counter()
+    params, opt, mets = multi(params, opt, stack)
+    torch.cuda.synchronize()
+    out["graph_setup_s"] = time.perf_counter() - t0
+    require((multi.dispatches, multi.captures) == (1, 1), "phase 21: not one graph launch")
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves((params, opt)),
+                                                       keep["state"]))
+    same_m = all(torch.equal(mets[k].cpu(), keep["mets"][k]) for k in keep["mets"])
+    require(same and same_m, "phase 21: the one-launch steps differ from the eager steps")
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    multi(params, opt, stack)
+    stop.record()
+    torch.cuda.synchronize()
+    out["graph_ms_per_step"] = start.elapsed_time(stop) / n
+    out["dispatches_per_step_graph"] = 1 / n
+    out["tokens_per_s_graph"] = out["tokens_per_step"] / (out["graph_ms_per_step"] / 1e3)
+    out["tokens_per_s_eager"] = out["tokens_per_step"] / (statistics.median(step_ms) / 1e3)
+    out["peak_gb_graph"] = torch.cuda.max_memory_allocated() / 1e9
+    del multi, params, opt, mets, keep
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+
+    # (c) where an eager step's time goes: forward / backward (with the
+    # recompute) / AdamW by CUDA events, the kernels by torch.profiler, the
+    # recompute as a no-grad run of the layer stack
+    from torch.profiler import ProfilerActivity, profile
+    params, opt = fresh()
+    bundle.step_fn(params, opt, batches[0])
+    torch.cuda.synchronize()
+    for attempt in range(5):  # a late profiler window at times has no kernel records
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ev[0].record()
+            live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+            with torch.enable_grad():
+                loss, _ = bundle.model.loss(st._rebuild(params, live), batches[1])
+                ev[1].record()
+                grads = torch.autograd.grad(loss, live)
+            ev[2].record()
+            bundle.apply_fn(params, opt, st._rebuild(params, list(grads)))
+            ev[3].record()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.device_time_total > 0
+                   and e.device_type == torch.autograd.DeviceType.CUDA]
+        del live, grads, loss
+        if kernels:
+            break
+    busy = sum(t for _, t, _ in kernels)
+    kernels.sort(key=lambda k: -k[1])
+    fwd, bwd, optim = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+    with torch.no_grad():
+        x_in = apply_embedding(params["embed"], batches[1]["tokens"], cfg)
+        positions = torch.arange(S, device=x_in.device)
+        rec = events_ms(torch, lambda: apply_stack(params["decoder"], x_in, cfg,
+                                                   positions=positions), 1)
+    flash_bwd = [(t, c) for k, t, c in kernels if "flash_bwd" in k]
+    flash_fwd = [(t, c) for k, t, c in kernels if "flash_wgmma" in k]
+    out["profile"] = {
+        "forward_ms": fwd, "backward_ms_with_recompute": bwd, "optimizer_ms": optim,
+        "recompute_ms_no_grad_stack": rec, "backward_ms_less_recompute": bwd - rec,
+        "flash_bwd_ms": sum(t for t, _ in flash_bwd),
+        "flash_bwd_kernel_launches": sum(c for _, c in flash_bwd),
+        "flash_bwd_share_of_busy": sum(t for t, _ in flash_bwd) / busy if busy else None,
+        "flash_fwd_ms": sum(t for t, _ in flash_fwd),
+        "kernel_launches": sum(c for _, _, c in kernels),
+        "wall_ms": wall_ms, "device_busy_ms": busy, "windows": attempt + 1,
+        "idle_share": max(0.0, 1 - busy / wall_ms) if kernels else None,
+        "top": [{"kernel": k[:90], "ms": t, "count": c} for k, t, c in kernels[:14]]}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt, x_in
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) the flash backward against its plain version; its kernels-line row
+    row, detail = check_flash_backward(torch, fk, ref, seed)
+    out["flash_backward_checks"] = detail
+
+    # (a) the RMSNorm backward at the step's shapes, the model's eps: the
+    # pre- and post-norms (4096 x 1152, over the rows route's width) and
+    # the q- and k-norms (16384 x 256 and 4096 x 256)
+    gen = torch.Generator("cuda").manual_seed(seed + 121)
+    hd = cfg.resolved_head_dim()
+    norms = dict(check_norm_bwd(torch, rk, ref, gen, shape, cfg.norm_eps)
+                 for shape in ((B, S, cfg.d_model), (B, S, cfg.n_heads, hd),
+                               (B, S, cfg.n_kv_heads, hd)))
+    out["rmsnorm_backward_checks"] = norms
+    out["card"] = gpu_line()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, row, norms, launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4163,6 +4538,24 @@ def main() -> int:
     require(all(launches20[k] > 0 for k in ("flash_attention", "rmsnorm")),
             f"phase 20: a kernel never launched serving the MoE family: {launches20}")
 
+    # phase 21: training gemma3-1b at full width and depth
+    t21 = time.perf_counter()
+    dense_train, flash_bwd_row, norms21, launches21 = run_phase21(torch, args.seed, fk, rk,
+                                                                  ref)
+    dense_train["seconds"] = time.perf_counter() - t21
+    print(json.dumps({"train_dense": dense_train}), flush=True)
+    flash_bwd_row["launches"] = launches21["flash_attention_bwd"]
+    bwd_rows[1]["training_shapes"].update(
+        {f"gemma3_{k}": {n_: v[n_] for n_ in ("ms", "row_pass_ms", "dw_pass_ms", "plain_ms",
+                                             "library_ms", "bound_ms")}
+         for k, v in norms21.items()})
+    bwd_rows[1]["max_abs_err"] = max(
+        [bwd_rows[1]["max_abs_err"]] + [v[n_]["max_abs_err"] for v in norms21.values()
+                                        for n_ in ("dx", "dw")])
+    for r in dense_rows + [bwd_rows[1]]:
+        r["phase21_launches"] = launches21[r["name"]]
+    bwd_rows.append(flash_bwd_row)
+
     rows = rows + dense_rows + [ssd_row, step_row, sched_row] + bwd_rows
     require(sorted(r["name"] for r in rows) == sorted(REPLACES), "a kernel row is missing")
     require(all(r["launches"] > 0 for r in rows), "a kernel was not launched on its path")
@@ -4171,7 +4564,7 @@ def main() -> int:
              "sector_bound_ms", "library_ms", "library_call", "library_fwd_bwd_ms",
              "library_fwd_ms", "training_shapes", "earlier_ms", "cuda_core_ms", "decode",
              "served_shapes", "phase17_launches", "phase18_launches", "phase19_launches",
-             "phase20_launches", "shape",
+             "phase20_launches", "phase21_launches", "shape", "sdpa_kernels", "local_layer",
              "one_program_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in order if k in r} for r in rows]}))
     print(f"card: {gpu_line()}")

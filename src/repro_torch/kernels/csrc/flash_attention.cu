@@ -1,4 +1,9 @@
-// Hopper (sm_90a) flash-attention forward, with a plain C interface.
+// Hopper (sm_90a) flash-attention forward and backward, with a plain C
+// interface.  The backward (dQ, dK, dV; no Pallas counterpart) is described
+// where its kernels begin, after the forward's CUDA-core kernel; for it the
+// forward also writes each row's log-sum-exp and, in bf16, its output in
+// float32 (serving passes null for both; the tensor-core kernel's serving
+// instance, kTrain false, has none of that code).
 //
 // Replaces flash_attention_call (src/repro/kernels/flash_attention.py:96):
 // online-softmax attention of q [B,Hq,Sq,D] against k, v [B,Hkv,Skv,D] with
@@ -138,6 +143,8 @@ struct Params {
   int64_t osb, osh, oss;
   float scale, softcap;   // softcap 0: off
   int causal, has_window, window, q_offset;
+  float* lse;             // [B,Hq,Sq] natural-log log-sum-exp of each row, or null
+  float* o32;             // [B,Hq,Sq,DV] the output in float32, or null
 };
 
 // Stage `rows` rows of D elements (row r at src + r * stride, zeros at and
@@ -311,8 +318,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(Params p) {
     }
   }
 
-  // normalise (a row that saw no key keeps zeros) and store rows < Sq
+  // normalise (a row that saw no key keeps zeros) and store rows < Sq;
+  // for the backward, each row's L = m + log(l) (-inf without a key) and
+  // the output in float32
   T* o = static_cast<T*>(p.o) + b * p.osb + h * p.osh;
+  const int64_t row0 = (static_cast<int64_t>(b) * p.Hq + h) * p.Sq + q0;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
@@ -323,6 +333,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(Params p) {
     for (int g = 0; g < kGroups; ++g)
 #pragma unroll
       for (int e = 0; e < kVecO; ++e) orow[g * 16 * kVecO + e] = from_float<T>(acc[i][g][e] * inv);
+    if (p.lse != nullptr && tx == 0) p.lse[row0 + r] = l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
+    if (p.o32 != nullptr) {
+      float* frow = p.o32 + (row0 + r) * DV + tx * kVecO;
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g)
+#pragma unroll
+        for (int e = 0; e < kVecO; ++e) frow[g * 16 * kVecO + e] = acc[i][g][e] * inv;
+    }
   }
 }
 
@@ -367,6 +385,447 @@ cudaError_t launch_t(const Params& p, int B, int D, int DV, bool vec, cudaStream
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// backward: dQ, dK, dV on CUDA cores (float32 and bf16, every (D, DV) pair)
+// ---------------------------------------------------------------------------
+//
+// No Pallas counterpart: the JAX package differentiates its plain _sdpa with
+// XLA (src/repro/models/nn.py:258).  The FlashAttention-2 backward: the
+// forward leaves each row's L = log-sum-exp of its scaled, capped logits, so
+// P = exp(t - L) is recomputed tile by tile and the [Sq, Skv] matrices never
+// reach device memory.  Three kernels on one stream:
+// - flash_bwd_dot_kernel: delta = rowsum(dO o O) in float32, a warp a row,
+//   from the float32 output (a bf16 O rounded once puts delta 2^-9 off, and
+//   rows that see few keys then carry that error into dS = P (dP - delta);
+//   the training forward writes O in float32 beside the bf16 result).
+// - flash_bwd_dkdv_kernel: a block per (batch, kv head, 32 keys).  K and V
+//   stay in shared memory; the block walks the group's Hq/Hkv query heads in
+//   ascending order and in each the 64-row query tiles that can see its keys
+//   (causal, window, q_offset), recomputing s = Q K^T and t = c tanh(s/c),
+//   P = exp(t - L), dP = dO V^T, dS = P (dP - delta) (1 - (t/c)^2) (the last
+//   factor exactly 1 without a cap), and accumulating dV += P^T dO and dK +=
+//   dS^T Q in registers (2 key rows x DV/16 and D/16 columns a thread).  The
+//   GQA sum over the group happens in the block, in a fixed order: each
+//   block writes its dK, dV rows once.
+// - flash_bwd_dq_kernel: a block per (batch, q head, 64 query rows), laid
+//   out as the forward's CUDA-core kernel, walks the kv tiles in range and
+//   accumulates dQ = scale dS K; it writes dQ once.
+// No float atomics and every sum in a fixed order: two calls give the same
+// bits, and a captured call equals the eager one.  A row that sees no key
+// (L = -inf) gets P = 0, so zero gradients, never NaN.
+//
+// Bound (NVIDIA H100 80GB HBM3, 700 W): at gemma3-1b's global layer (B 4, Hq
+// 4, Hkv 1, S 1024, D 256, bf16) the function needs five products a visible
+// (q, k) pair, 2 (3 D + 2 DV) FLOP: 21.5 GFLOP, 21.7 us on bf16 tensor cores
+// (16.1 GFLOP at the local layers' window of 512).  These kernels compute
+// seven (the dQ kernel recomputes S and dP) on CUDA cores at float32's 67
+// TFLOP/s: a tensor-core route is the next redesign.  Shared memory at D =
+// DV = 256: the dK/dV block stages K, V (32 rows), Q, dO (64 rows) and P, dS
+// (64 x 32) in float32, 213 KB; the dQ block Q, dO, K, V and dS, 204 KB: one
+// block of 8 warps an SM.
+
+constexpr int kBwdBK = 32;  // keys of a dK/dV block and of a dQ kv tile
+
+struct BwdParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* o;      // the forward's output in float32
+  const float* lse;    // [B,Hq,Sq]
+  float* delta;        // [B,Hq,Sq]
+  void* dq;
+  void* dk;
+  void* dv;
+  int Hq, Hkv, Sq, Skv, group, Dv;
+  int64_t qsb, qsh, qss;  // element strides (batch, head, seq)
+  int64_t ksb, ksh, kss;
+  int64_t vsb, vsh, vss;
+  int64_t gsb, gsh, gss;  // dout
+  int64_t osb, osh, oss;  // o
+  int64_t dqsb, dqsh, dqss;
+  int64_t dksb, dksh, dkss;
+  int64_t dvsb, dvsh, dvss;
+  float scale, softcap;   // softcap 0: off
+  int causal, has_window, window, q_offset;
+};
+
+// Accumulator columns of a thread over a row of W: tx * kVec + g * 16 kVec.
+template <int W>
+struct Cols {
+  static constexpr int kVec = W / 16 < 4 ? W / 16 : 4;
+  static constexpr int kGroups = W / (16 * kVec);
+};
+
+template <int V>
+__device__ __forceinline__ void load_cols(float (&dst)[V], const float* src) {
+  if constexpr (V == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(src);
+    dst[0] = f.x; dst[1] = f.y; dst[2] = f.z; dst[3] = f.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) dst[e] = src[e];
+  }
+}
+
+__device__ __forceinline__ bool bwd_visible(const BwdParams& p, int qpos, int kpos) {
+  return kpos < p.Skv && (!p.causal || kpos <= qpos) &&
+         (!p.has_window || kpos > qpos - p.window);
+}
+
+// s[i][j] = row ty*4+i of A . row j*16+tx of B over W columns (rows of ld floats)
+template <int W>
+__device__ __forceinline__ void tile_dots(float (&s)[4][2], const float* A, const float* Bm,
+                                          int ld, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < W; d += 4) {
+    float4 a[4], bv[2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(A + (ty * 4 + i) * ld + d);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) bv[j] = *reinterpret_cast<const float4*>(Bm + (j * 16 + tx) * ld + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        s[i][j] += a[i].x * bv[j].x + a[i].y * bv[j].y + a[i].z * bv[j].z + a[i].w * bv[j].w;
+  }
+}
+
+// P and dS of rows ty*4+i (query rows q0 + ...) and columns j*16+tx (keys
+// k0 + ...) from the scores s and dP; each row's L and delta in lse, dlt.
+__device__ __forceinline__ void probs_and_dscores(const BwdParams& p, const float (&s)[4][2],
+                                                  const float (&dp)[4][2],
+                                                  const float (&lse)[4],
+                                                  const float (&dlt)[4], int q0, int k0,
+                                                  int ty, int tx, float (&pr)[4][2],
+                                                  float (&ds)[4][2]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    const int qpos = p.q_offset + row;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int kpos = k0 + j * 16 + tx;
+      float t = s[i][j] * p.scale;
+      float dcap = 1.f;
+      if (p.softcap != 0.f) {
+        const float th = tanhf(t / p.softcap);
+        t = p.softcap * th;
+        dcap = 1.f - th * th;
+      }
+      const bool ok = row < p.Sq && bwd_visible(p, qpos, kpos) && lse[i] != -INFINITY;
+      pr[i][j] = ok ? expf(t - lse[i]) : 0.f;
+      ds[i][j] = pr[i][j] * (dp[i][j] - dlt[i]) * dcap;
+    }
+  }
+}
+
+template <typename T>
+__global__ void flash_bwd_dot_kernel(BwdParams p, int64_t rows) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (blockDim.x / 32) + warp;
+  if (row >= rows) return;
+  const int s = static_cast<int>(row % p.Sq);
+  const int h = static_cast<int>((row / p.Sq) % p.Hq);
+  const int b = static_cast<int>(row / (static_cast<int64_t>(p.Sq) * p.Hq));
+  const T* g = static_cast<const T*>(p.dout) + b * p.gsb + h * p.gsh + s * p.gss;
+  const float* o = p.o + b * p.osb + h * p.osh + s * p.oss;
+  float acc = 0.f;
+  for (int c = lane; c < p.Dv; c += 32) acc += to_float(g[c]) * o[c];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) p.delta[row] = acc;
+}
+
+template <typename T, int D, int DV, bool kVec>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkdv_kernel(BwdParams p) {
+  constexpr int kLd = D + kPad, kLdV = DV + kPad, kPLd = kBwdBK + kPad;
+  using CD = Cols<D>;
+  using CV = Cols<DV>;
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + kBwdBK * kLd;
+  float* Qs = Vs + kBwdBK * kLdV;
+  float* dOs = Qs + kBQ * kLd;
+  float* Ps = dOs + kBQ * kLdV;
+  float* dSs = Ps + kBQ * kPLd;
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  // key tile 0 first: under a causal mask it sees the most queries
+  const int b = blockIdx.z, hk = blockIdx.y, k0 = blockIdx.x * kBwdBK;
+  const int kv_rows = min(kBwdBK, p.Skv - k0);
+  stage<T, D, kVec>(Ks, static_cast<const T*>(p.k) + b * p.ksb + hk * p.ksh + k0 * p.kss, p.kss,
+                    kBwdBK, kv_rows);
+  stage<T, DV, kVec>(Vs, static_cast<const T*>(p.v) + b * p.vsb + hk * p.vsh + k0 * p.vss,
+                     p.vss, kBwdBK, kv_rows);
+
+  // query rows that can see a key of [k0, k0 + kv_rows)
+  const int64_t k_last = k0 + kv_rows - 1;
+  int64_t q_lo = 0, q_hi = p.Sq;
+  if (p.causal) q_lo = max(q_lo, static_cast<int64_t>(k0) - p.q_offset);
+  if (p.has_window) q_hi = min(q_hi, k_last + p.window - p.q_offset);
+
+  float dk[2][CD::kGroups][CD::kVec], dv[2][CV::kGroups][CV::kVec];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int g = 0; g < CD::kGroups; ++g)
+#pragma unroll
+      for (int e = 0; e < CD::kVec; ++e) dk[i][g][e] = 0.f;
+#pragma unroll
+    for (int g = 0; g < CV::kGroups; ++g)
+#pragma unroll
+      for (int e = 0; e < CV::kVec; ++e) dv[i][g][e] = 0.f;
+  }
+
+  for (int j = 0; j < p.group && q_lo < q_hi; ++j) {  // the group's heads, ascending
+    const int h = hk * p.group + j;
+    const T* q = static_cast<const T*>(p.q) + b * p.qsb + h * p.qsh;
+    const T* g = static_cast<const T*>(p.dout) + b * p.gsb + h * p.gsh;
+    const int64_t row0 = (static_cast<int64_t>(b) * p.Hq + h) * p.Sq;
+    for (int q0 = static_cast<int>(q_lo / kBQ) * kBQ; q0 < q_hi; q0 += kBQ) {
+      const int q_rows = min(kBQ, p.Sq - q0);
+      __syncthreads();  // the previous tile's Q, dO, P, dS are consumed
+      stage<T, D, kVec>(Qs, q + static_cast<int64_t>(q0) * p.qss, p.qss, kBQ, q_rows);
+      stage<T, DV, kVec>(dOs, g + static_cast<int64_t>(q0) * p.gss, p.gss, kBQ, q_rows);
+      float lse[4], dlt[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty * 4 + i;
+        lse[i] = r < q_rows ? p.lse[row0 + q0 + r] : -INFINITY;
+        dlt[i] = r < q_rows ? p.delta[row0 + q0 + r] : 0.f;
+      }
+      __syncthreads();
+
+      float s[4][2], dp[4][2], pr[4][2], ds[4][2];
+      tile_dots<D>(s, Qs, Ks, kLd, ty, tx);
+      tile_dots<DV>(dp, dOs, Vs, kLdV, ty, tx);
+      probs_and_dscores(p, s, dp, lse, dlt, q0, k0, ty, tx, pr, ds);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          Ps[(ty * 4 + i) * kPLd + jj * 16 + tx] = pr[i][jj];
+          dSs[(ty * 4 + i) * kPLd + jj * 16 + tx] = ds[i][jj];
+        }
+      __syncthreads();
+
+      // dV += P^T dO, dK += dS^T Q: key rows ty*2, ty*2+1, query rows in order
+      for (int r = 0; r < q_rows; ++r) {
+        const float2 pp = *reinterpret_cast<const float2*>(Ps + r * kPLd + ty * 2);
+        const float2 dd = *reinterpret_cast<const float2*>(dSs + r * kPLd + ty * 2);
+#pragma unroll
+        for (int gg = 0; gg < CV::kGroups; ++gg) {
+          float x[CV::kVec];
+          load_cols(x, dOs + r * kLdV + tx * CV::kVec + gg * 16 * CV::kVec);
+#pragma unroll
+          for (int e = 0; e < CV::kVec; ++e) {
+            dv[0][gg][e] += pp.x * x[e];
+            dv[1][gg][e] += pp.y * x[e];
+          }
+        }
+#pragma unroll
+        for (int gg = 0; gg < CD::kGroups; ++gg) {
+          float x[CD::kVec];
+          load_cols(x, Qs + r * kLd + tx * CD::kVec + gg * 16 * CD::kVec);
+#pragma unroll
+          for (int e = 0; e < CD::kVec; ++e) {
+            dk[0][gg][e] += dd.x * x[e];
+            dk[1][gg][e] += dd.y * x[e];
+          }
+        }
+      }
+    }
+  }
+
+  // each key row written once: dK = scale dS^T Q, dV
+  T* dkp = static_cast<T*>(p.dk) + b * p.dksb + hk * p.dksh;
+  T* dvp = static_cast<T*>(p.dv) + b * p.dvsb + hk * p.dvsh;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = ty * 2 + i;
+    if (r >= kv_rows) continue;
+    T* krow = dkp + static_cast<int64_t>(k0 + r) * p.dkss + tx * CD::kVec;
+    T* vrow = dvp + static_cast<int64_t>(k0 + r) * p.dvss + tx * CV::kVec;
+#pragma unroll
+    for (int gg = 0; gg < CD::kGroups; ++gg)
+#pragma unroll
+      for (int e = 0; e < CD::kVec; ++e)
+        krow[gg * 16 * CD::kVec + e] = from_float<T>(dk[i][gg][e] * p.scale);
+#pragma unroll
+    for (int gg = 0; gg < CV::kGroups; ++gg)
+#pragma unroll
+      for (int e = 0; e < CV::kVec; ++e) vrow[gg * 16 * CV::kVec + e] = from_float<T>(dv[i][gg][e]);
+  }
+}
+
+template <typename T, int D, int DV, bool kVec>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq_kernel(BwdParams p) {
+  constexpr int kLd = D + kPad, kLdV = DV + kPad, kPLd = kBwdBK + kPad;
+  using CD = Cols<D>;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* dOs = Qs + kBQ * kLd;
+  float* Ks = dOs + kBQ * kLdV;
+  float* Vs = Ks + kBwdBK * kLd;
+  float* dSs = Vs + kBwdBK * kLdV;
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  // the query tiles heaviest first under a causal mask
+  const int b = blockIdx.z, h = blockIdx.y, q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int hk = h / p.group;
+  const int q_rows = min(kBQ, p.Sq - q0);
+  const T* k = static_cast<const T*>(p.k) + b * p.ksb + hk * p.ksh;
+  const T* v = static_cast<const T*>(p.v) + b * p.vsb + hk * p.vsh;
+  stage<T, D, kVec>(Qs, static_cast<const T*>(p.q) + b * p.qsb + h * p.qsh + q0 * p.qss, p.qss,
+                    kBQ, q_rows);
+  stage<T, DV, kVec>(dOs, static_cast<const T*>(p.dout) + b * p.gsb + h * p.gsh + q0 * p.gss,
+                     p.gss, kBQ, q_rows);
+  const int64_t row0 = (static_cast<int64_t>(b) * p.Hq + h) * p.Sq + q0;
+  float lse[4], dlt[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty * 4 + i;
+    lse[i] = r < q_rows ? p.lse[row0 + r] : -INFINITY;
+    dlt[i] = r < q_rows ? p.delta[row0 + r] : 0.f;
+  }
+
+  // kv range this block's rows can see, as the forward's
+  const int qpos_lo = p.q_offset + q0, qpos_hi = p.q_offset + q0 + q_rows - 1;
+  int k_lo = 0, k_hi = p.Skv;
+  if (p.causal) k_hi = min(k_hi, qpos_hi + 1);
+  if (p.has_window) k_lo = max(k_lo, qpos_lo - p.window + 1);
+
+  float acc[4][CD::kGroups][CD::kVec];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int g = 0; g < CD::kGroups; ++g)
+#pragma unroll
+      for (int e = 0; e < CD::kVec; ++e) acc[i][g][e] = 0.f;
+
+  if (k_lo < k_hi) {
+    for (int k0 = (k_lo / kBwdBK) * kBwdBK; k0 < k_hi; k0 += kBwdBK) {
+      const int kv_rows = min(kBwdBK, p.Skv - k0);
+      __syncthreads();  // the previous tile's K, V, dS are consumed
+      stage<T, D, kVec>(Ks, k + static_cast<int64_t>(k0) * p.kss, p.kss, kBwdBK, kv_rows);
+      stage<T, DV, kVec>(Vs, v + static_cast<int64_t>(k0) * p.vss, p.vss, kBwdBK, kv_rows);
+      __syncthreads();
+
+      float s[4][2], dp[4][2], pr[4][2], ds[4][2];
+      tile_dots<D>(s, Qs, Ks, kLd, ty, tx);
+      tile_dots<DV>(dp, dOs, Vs, kLdV, ty, tx);
+      probs_and_dscores(p, s, dp, lse, dlt, q0, k0, ty, tx, pr, ds);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) dSs[(ty * 4 + i) * kPLd + j * 16 + tx] = ds[i][j];
+      __syncthreads();
+
+      // dQ += dS K, kv rows in order
+#pragma unroll 2
+      for (int kk = 0; kk < kBwdBK; kk += 4) {
+        float4 dv4[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          dv4[i] = *reinterpret_cast<const float4*>(dSs + (ty * 4 + i) * kPLd + kk);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float* krow = Ks + (kk + t) * kLd + tx * CD::kVec;
+#pragma unroll
+          for (int g = 0; g < CD::kGroups; ++g) {
+            float x[CD::kVec];
+            load_cols(x, krow + g * 16 * CD::kVec);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float di = t == 0 ? dv4[i].x : t == 1 ? dv4[i].y : t == 2 ? dv4[i].z : dv4[i].w;
+#pragma unroll
+              for (int e = 0; e < CD::kVec; ++e) acc[i][g][e] += di * x[e];
+            }
+          }
+        }
+      }
+    }
+  }
+
+  T* dq = static_cast<T*>(p.dq) + b * p.dqsb + h * p.dqsh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty * 4 + i;
+    if (r >= q_rows) continue;
+    T* row = dq + static_cast<int64_t>(q0 + r) * p.dqss + tx * CD::kVec;
+#pragma unroll
+    for (int g = 0; g < CD::kGroups; ++g)
+#pragma unroll
+      for (int e = 0; e < CD::kVec; ++e)
+        row[g * 16 * CD::kVec + e] = from_float<T>(acc[i][g][e] * p.scale);
+  }
+}
+
+constexpr size_t bwd_dkdv_smem(int D, int DV) {
+  return sizeof(float) * (static_cast<size_t>(kBwdBK + kBQ) * (D + kPad) +
+                          static_cast<size_t>(kBwdBK + kBQ) * (DV + kPad) +
+                          2 * static_cast<size_t>(kBQ) * (kBwdBK + kPad));
+}
+
+constexpr size_t bwd_dq_smem(int D, int DV) {
+  return sizeof(float) * (static_cast<size_t>(kBQ + kBwdBK) * (D + kPad) +
+                          static_cast<size_t>(kBQ + kBwdBK) * (DV + kPad) +
+                          static_cast<size_t>(kBQ) * (kBwdBK + kPad));
+}
+
+template <typename T, int D, int DV, bool kVec>
+cudaError_t launch_bwd_one(const BwdParams& p, int B, cudaStream_t s) {
+  auto dkdv = flash_bwd_dkdv_kernel<T, D, DV, kVec>;
+  auto dq = flash_bwd_dq_kernel<T, D, DV, kVec>;
+  constexpr size_t smem_kv = bwd_dkdv_smem(D, DV), smem_q = bwd_dq_smem(D, DV);
+  static const cudaError_t set = [&] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_kv));
+    return e != cudaSuccess ? e
+                            : cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   static_cast<int>(smem_q));
+  }();
+  if (set != cudaSuccess) return set;
+  const int64_t rows = static_cast<int64_t>(B) * p.Hq * p.Sq;
+  flash_bwd_dot_kernel<T><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(p, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (p.Skv > 0) {
+    dkdv<<<dim3((p.Skv + kBwdBK - 1) / kBwdBK, p.Hkv, B), kThreads, smem_kv, s>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  dq<<<dim3((p.Sq + kBQ - 1) / kBQ, p.Hq, B), kThreads, smem_q, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T, int D, int DV>
+cudaError_t launch_bwd_d(const BwdParams& p, int B, bool vec, cudaStream_t s) {
+  return vec ? launch_bwd_one<T, D, DV, true>(p, B, s) : launch_bwd_one<T, D, DV, false>(p, B, s);
+}
+
+// the (D, DV) pairs of launch_t
+template <typename T>
+cudaError_t launch_bwd_t(const BwdParams& p, int B, int D, int DV, bool vec, cudaStream_t s) {
+  if (D == DV) {
+    switch (D) {
+      case 16: return launch_bwd_d<T, 16, 16>(p, B, vec, s);
+      case 32: return launch_bwd_d<T, 32, 32>(p, B, vec, s);
+      case 64: return launch_bwd_d<T, 64, 64>(p, B, vec, s);
+      case 128: return launch_bwd_d<T, 128, 128>(p, B, vec, s);
+      case 256: return launch_bwd_d<T, 256, 256>(p, B, vec, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (D == 48 && DV == 32) return launch_bwd_d<T, 48, 32>(p, B, vec, s);
+  if (D == 192 && DV == 128) return launch_bwd_d<T, 192, 128>(p, B, vec, s);
+  return cudaErrorInvalidValue;
+}
+
+
 
 // ---------------------------------------------------------------------------
 // tensor-core route: bf16, head_dim 64 / 128 / 256
@@ -383,6 +842,7 @@ constexpr int kProducerRegs = 24;          // setmaxnreg: 24 x 128 + 240 x 256 =
 constexpr int kConsumerRegs = 240;         // the 168 x 384 of the launch
 constexpr int kBox = 64 * 64 * 2;         // bytes of one 64 x 64 bf16 TMA box
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   CUtensorMap tq, tk, tv;  // (D, S, H, B), boxes of 64 x 64 x 1 x 1, 128-byte swizzle
@@ -392,6 +852,9 @@ struct Params {
   int causal, window;                     // window < 0: none
   float scale_log2;                       // scale * log2 e
   float cap_in, cap_out;                  // softcap: cap_out tanh(s cap_in); cap_in 0: off
+  int Hq;
+  float* lse;                             // [B,Hq,Sq] log-sum-exp (natural log), or null
+  float* o32;                             // [B,Hq,Sq,DV] the output in float32, or null
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -551,7 +1014,7 @@ __device__ __forceinline__ void kv_tiles(const Params& p, int row, int rows, int
 
 // The consumer warpgroups' part of flash_wgmma_kernel: q and k rows of D
 // elements, v rows (and the output's) of DV.
-template <int D, int DV>
+template <int D, int DV, bool kTrain>
 __device__ __forceinline__ void consume(const Params& p, uint8_t* sq, uint8_t* sk, uint8_t* sv,
                                         uint64_t* full_q, uint64_t* full_k, uint64_t* full_v,
                                         uint64_t* empty, int q0, int t_lo, int t_hi) {
@@ -703,10 +1166,24 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* sq, uint8_t* s
     for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
           __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    // for the backward (the kTrain instances only: serving's have none of
+    // this code): L in natural-log units (m and l are kept in log2 units),
+    // -inf for a row that saw no key, and the output in float32
+    if constexpr (kTrain) {
+      const int64_t row = (static_cast<int64_t>(b) * p.Hq + h) * p.Sq + q;
+      if (c0 == 0) p.lse[row] = l[r] > 0.f ? (m[r] + log2f(l[r])) * kLn2 : -INFINITY;
+      if (p.o32 != nullptr) {
+        float* frow = p.o32 + row * DV + c0;
+#pragma unroll
+        for (int j = 0; j < DV / 8; ++j)
+          *reinterpret_cast<float2*>(frow + 8 * j) =
+              make_float2(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      }
+    }
   }
 }
 
-template <int D, int DV>
+template <int D, int DV, bool kTrain>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_wgmma_kernel(const __grid_constant__ Params p) {
   constexpr int kTile = 64 * D * 2;    // bytes of 64 q or k rows: D / 64 boxes side by side
@@ -763,7 +1240,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   } else {
     if constexpr (kWG > 1)
       asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    consume<D, DV>(p, sq, sk, sv, full_q, full_k, full_v, empty, q0, t_lo, t_hi);
+    consume<D, DV, kTrain>(p, sq, sk, sv, full_q, full_k, full_v, empty, q0, t_lo, t_hi);
   }
 }
 
@@ -772,15 +1249,23 @@ constexpr int smem_bytes() {
   return (kWG + kStages) * 64 * D * 2 + kStages * 64 * DV * 2 + (1 + 3 * kStages) * 8 + 1024;
 }
 
-template <int D, int DV>
-cudaError_t launch(const Params& p, int B, int Hq, cudaStream_t s) {
-  auto kernel = flash_wgmma_kernel<D, DV>;
+template <int D, int DV, bool kTrain>
+cudaError_t launch_k(const Params& p, int B, int Hq, cudaStream_t s) {
+  auto kernel = flash_wgmma_kernel<D, DV, kTrain>;
   static const cudaError_t set = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D, DV>());
   if (set != cudaSuccess) return set;
   const dim3 grid((p.Sq + kBM - 1) / kBM, Hq, B);
   kernel<<<grid, kThreads, smem_bytes<D, DV>(), s>>>(p);
   return cudaGetLastError();
+}
+
+// The training instance (it writes lse and o32) when lse is given, else
+// serving's, whose code has no stores of either.
+template <int D, int DV>
+cudaError_t launch(const Params& p, int B, int Hq, cudaStream_t s) {
+  return p.lse != nullptr ? launch_k<D, DV, true>(p, B, Hq, s)
+                          : launch_k<D, DV, false>(p, B, Hq, s);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -839,20 +1324,22 @@ const char* rt_error_string(int code) {
 
 // q, k, v, o: element strides (batch, head, seq) each, unit stride along the
 // head dim, D for q and k, Dv for v and o; o has q's dtype.  window < 0: no
-// window; softcap 0: off.
+// window; softcap 0: off.  lse ([B,Hq,Sq]) and o32 ([B,Hq,Sq,Dv], float32,
+// contiguous) are written when not null: the training forward asks for
+// them, serving passes null.
 int rt_flash_attention(int dtype, const void* q, const void* k, const void* v, void* o, int B,
                        int Hq, int Hkv, int Sq, int Skv, int D, int Dv, long long qsb,
                        long long qsh,
                        long long qss, long long ksb, long long ksh, long long kss,
                        long long vsb, long long vsh, long long vss, long long osb,
                        long long osh, long long oss, float scale, float softcap, int causal,
-                       int window, int q_offset, void* stream) {
+                       int window, int q_offset, float* lse, float* o32, void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
   if (Hq <= 0 || Hkv <= 0 || Hq % Hkv || Hq > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, o, Hq, Sq, Skv, Hq / Hkv, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss,
            osb, osh, oss, scale, softcap, causal, window >= 0, window < 0 ? 0 : window,
-           q_offset};
+           q_offset, lse, o32};
   const int ch = dtype == kBFloat16 ? 8 : 4;  // elements of a 16-byte load
   bool vec = D % ch == 0 && Dv % ch == 0;
   for (const void* ptr : {q, k, v})
@@ -878,7 +1365,7 @@ int rt_flash_attention_wgmma(const void* q, const void* k, const void* v, void* 
                              long long kss, long long vsb, long long vsh, long long vss,
                              long long osb, long long osh, long long oss, float scale,
                              float softcap, int causal, int window, int q_offset,
-                             void* stream) {
+                             float* lse, float* o32, void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
   if (Hq <= 0 || Hkv <= 0 || Hq % Hkv || Hq > 65535 || B > 65535 || Skv < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -901,12 +1388,54 @@ int rt_flash_attention_wgmma(const void* q, const void* k, const void* v, void* 
   p.scale_log2 = scale * tc::kLog2e;
   p.cap_in = softcap != 0.f ? scale / softcap : 0.f;
   p.cap_out = softcap * tc::kLog2e;
+  p.Hq = Hq;
+  p.lse = lse;
+  p.o32 = o32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64 && Dv == 64) return static_cast<int>(tc::launch<64, 64>(p, B, Hq, s));
   if (D == 128 && Dv == 128) return static_cast<int>(tc::launch<128, 128>(p, B, Hq, s));
   if (D == 256 && Dv == 256) return static_cast<int>(tc::launch<256, 256>(p, B, Hq, s));
   if (D == 192 && Dv == 128) return static_cast<int>(tc::launch<192, 128>(p, B, Hq, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward: dq, dk, dv (q's dtype, element strides (batch, head, seq),
+// unit stride along the head dim) of attention at q, k, v for the output's
+// cotangent dout, from the forward's float32 output o and its row
+// log-sum-exp lse ([B,Hq,Sq]); delta is a [B,Hq,Sq] float32 scratch.  Three
+// launches on the stream; other arguments as rt_flash_attention's.
+int rt_flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
+                           const void* dout, const float* o, const float* lse, float* delta,
+                           void* dq, void* dk, void* dv, int B, int Hq, int Hkv, int Sq,
+                           int Skv, int D, int Dv, long long qsb, long long qsh, long long qss,
+                           long long ksb, long long ksh, long long kss, long long vsb,
+                           long long vsh, long long vss, long long gsb, long long gsh,
+                           long long gss, long long osb, long long osh, long long oss,
+                           long long dqsb, long long dqsh, long long dqss, long long dksb,
+                           long long dksh, long long dkss, long long dvsb, long long dvsh,
+                           long long dvss, float scale, float softcap, int causal, int window,
+                           int q_offset, void* stream) {
+  if (B <= 0 || Sq <= 0) return 0;
+  if (Hq <= 0 || Hkv <= 0 || Hq % Hkv || Hq > 65535 || B > 65535 || Skv < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdParams p{q, k, v, dout, o, lse, delta, dq, dk, dv, Hq, Hkv, Sq, Skv, Hq / Hkv, Dv,
+              qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, gsb, gsh, gss, osb, osh, oss,
+              dqsb, dqsh, dqss, dksb, dksh, dkss, dvsb, dvsh, dvss, scale, softcap, causal,
+              window >= 0, window < 0 ? 0 : window, q_offset};
+  const int ch = dtype == kBFloat16 ? 8 : 4;  // elements of a 16-byte load
+  bool vec = D % ch == 0 && Dv % ch == 0;
+  for (const void* ptr : {q, k, v, dout})
+    vec = vec && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  for (long long st : {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, gsb, gsh, gss})
+    vec = vec && st % ch == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (dtype) {
+    case kFloat32: err = launch_bwd_t<float>(p, B, D, Dv, vec, s); break;
+    case kBFloat16: err = launch_bwd_t<__nv_bfloat16>(p, B, D, Dv, vec, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

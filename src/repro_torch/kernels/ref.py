@@ -139,6 +139,24 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhqk,bhkd->bhqd", probs, vr).to(q.dtype)
 
 
+def attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor, *,
+                  causal: bool = True, scale: Optional[float] = None,
+                  window: Optional[int] = None, logit_softcap: Optional[float] = None,
+                  q_offset: int = 0):
+    """``(dq, dk, dv)`` of :func:`attention` at ``(q, k, v)`` for the
+    output's cotangent ``dout``: ``torch.autograd.grad`` of the plain
+    version, in the inputs' dtypes, the oracle of the hand-written
+    backward kernels (the reference has none: XLA differentiates
+    ``_sdpa``, ``src/repro/models/nn.py:258``).  A row that sees no key
+    gives zero gradients."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = attention(*ins, causal=causal, scale=scale, window=window,
+                        logit_softcap=logit_softcap, q_offset=q_offset)
+        grads = torch.autograd.grad(out, ins, dout.to(out.dtype))
+    return tuple(grads)
+
+
 def pack_segments(sources: Sequence[Tuple[torch.Tensor, int]],
                   sizes: Sequence[int]) -> torch.Tensor:
     """Pack N member slabs into one ``(R, sum(sizes))`` staging buffer.

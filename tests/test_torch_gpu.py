@@ -7,7 +7,12 @@ kernel-vs-reference bounds (rtol 2e-4 / atol 3e-5; RMSNorm 2e-5 /
 1e-5), and in bfloat16 within one rounding of the output (2^-8 of the
 two results' magnitudes; the SSD scan within ``chip_smoke.py``'s served
 bf16 bound); flash attention's and the SSD scan's cases say which of
-their two kernels (routes) each must take.  An RMSNorm row must come out the
+their two kernels (routes) each must take.  Flash attention's backward
+is held against ``ref.attention_vjp`` within the backward kernels' bound
+on both forward routes and every mask, two calls and a graphed forward
+and backward equal eager bit for bit, and serving's forward (no
+autograd) launches once, writes no log-sum-exp and gives the training
+forward's bits.  An RMSNorm row must come out the
 same bits whatever rows, row stride and alignment it is launched with.
 The engines' CUDA graphs and the
 serve engines (mamba2 and gemma3 smoke models) are held against the CPU
@@ -1875,13 +1880,112 @@ def test_ssd_scan_is_differentiable_through_the_kernels(cuda):
         _grad_close(g, w, 2e-4, 2e-5)
 
 
-def test_flash_attention_raises_under_grad(cuda):
-    q = _randn((1, 2, 16, 64), torch.bfloat16, cuda, 33).requires_grad_()
-    k = _randn((1, 2, 16, 64), torch.bfloat16, cuda, 34)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fk.flash_attention(q, k, k)
+#: flash attention's backward, (dtype, B, Hq, Hkv, Sq, Skv, D, Dv, kwargs):
+#: both forward routes (the tensor-core one in bf16 at 64 / 128 / 256 /
+#: (192, 128)), every mask, GQA, the soft-cap, rows that see no key
+FLASH_BWD_CASES = [
+    (torch.float32, 1, 2, 2, 70, 70, 64, 64, {}),
+    (torch.float32, 2, 4, 1, 100, 100, 32, 32, dict(window=33)),
+    (torch.float32, 1, 4, 2, 40, 130, 128, 128, dict(q_offset=90, window=60)),
+    (torch.float32, 1, 2, 1, 50, 90, 16, 16, dict(causal=False)),
+    (torch.float32, 1, 2, 2, 70, 70, 48, 32, dict(scale=192 ** -0.5)),
+    (torch.float32, 1, 2, 1, 40, 40, 16, 16, dict(window=0)),
+    (BF16, 1, 4, 1, 200, 200, 256, 256, dict(window=64)),
+    (BF16, 2, 8, 2, 96, 96, 128, 128, dict(logit_softcap=15.0)),
+    (BF16, 1, 4, 4, 70, 100, 64, 64, dict(causal=False)),
+    (BF16, 1, 4, 2, 80, 80, 192, 128, dict(q_offset=-10)),
+    (BF16, 1, 2, 1, 64, 64, 32, 32, dict(window=19)),
+]
+
+
+def _flash_bwd_inputs(case, device, seed=41):
+    dtype, B, Hq, Hkv, Sq, Skv, D, Dv, kw = case
+    q = _randn((B, Sq, Hq, D), dtype, device, seed).transpose(1, 2)
+    k = _randn((B, Skv, Hkv, D), dtype, device, seed + 1).transpose(1, 2)
+    v = _randn((B, Skv, Hkv, Dv), dtype, device, seed + 2).transpose(1, 2)
+    dout = _randn((B, Sq, Hq, Dv), dtype, device, seed + 3).transpose(1, 2)
+    return q, k, v, dout, kw
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=lambda c: _case_id(
+    dict(zip(("dtype", "B", "Hq", "Hkv", "Sq", "Skv", "D", "Dv"), c[:8]), **c[8])))
+def test_flash_backward_matches_plain_vjp(cuda, case):
+    """Under autograd the route's forward kernel runs once and the backward
+    kernels once; the gradients within the backward kernels' bound of
+    ``ref.attention_vjp`` on float32 copies of the inputs (rtol 2e-4 plus
+    2e-5 of the leaf's largest entry, one bf16 rounding more in bf16), in
+    the model's [B,S,H,D] layout; rows that see no key get zeros."""
+    q, k, v, dout, kw = _flash_bwd_inputs(case, cuda)
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = fk.launch_counts()
+    out = fk.flash_attention(*ins, **kw)
+    grads = torch.autograd.grad(out, ins, dout)
+    after = fk.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    want = ref.attention_vjp(*(t.float() for t in (q, k, v, dout)), **kw)
+    for g, w, t in zip(grads, want, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        _grad_close(g, w, 2e-4, 2e-5)
     with torch.no_grad():
-        fk.flash_attention(q, k, k)
+        assert torch.equal(out, fk.flash_attention(q, k, v, **kw))
+
+
+def test_flash_backward_is_deterministic_and_graphs(cuda):
+    """Two calls give the same bits, and a CUDA graph of the forward and
+    backward (autograd inside the capture) replays the eager bits, at
+    gemma3's group of 4, D 256, a window, bf16 (the tensor-core forward)
+    and float32 (the CUDA-core one)."""
+    for dtype in (BF16, torch.float32):
+        q, k, v, dout, kw = _flash_bwd_inputs((dtype, 2, 4, 1, 160, 160, 256, 256,
+                                               dict(window=48)), cuda, seed=51)
+
+        def step():
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = fk.flash_attention(*ins, **kw)
+            return (out, *torch.autograd.grad(out, ins, dout))
+
+        first, second = step(), step()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            step()
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = step()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, first)), dtype
+
+
+def test_flash_forward_without_grad_is_unchanged(cuda):
+    """Serving's forward (no autograd) asks for no log-sum-exp: one launch,
+    no backward; its output equals the training forward's bit for bit, on
+    both routes; the training forward's L is each row's log-sum-exp (-inf
+    for a row that sees no key) and its float32 output rounds to the
+    result."""
+    for dtype, D in ((BF16, 128), (torch.float32, 64), (BF16, 32)):
+        q, k, v, _, kw = _flash_bwd_inputs((dtype, 1, 4, 2, 90, 90, D, D,
+                                            dict(q_offset=-5, window=40)), cuda, seed=61)
+        before = fk.launch_counts()
+        with torch.no_grad():
+            served = fk.flash_attention(q, k, v, **kw)
+        after = fk.launch_counts()
+        assert after["flash_attention"] == before["flash_attention"] + 1
+        assert after["flash_attention_bwd"] == before["flash_attention_bwd"]
+        out, o32, lse = fk.forward_with_lse(q, k, v, **kw)
+        assert torch.equal(out, served) and torch.equal(o32.to(dtype), out)
+        logits = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                              k.float().repeat_interleave(2, dim=1)) * D ** -0.5
+        qpos = torch.arange(90, device=cuda)[:, None] - 5
+        kpos = torch.arange(90, device=cuda)[None, :]
+        mask = (kpos <= qpos) & (kpos > qpos - 40)
+        want = torch.logsumexp(logits.masked_fill(~mask, float("-inf")), dim=-1)
+        seen = mask.any(-1)
+        assert bool((lse[:, :, ~seen] == float("-inf")).all())
+        torch.testing.assert_close(lse[:, :, seen], want[:, :, seen], rtol=1e-5, atol=1e-5)
 
 
 # -- training on the card ------------------------------------------------------

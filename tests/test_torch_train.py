@@ -21,8 +21,10 @@ computed once per module.  Bounds:
 * ``train()``'s history at rtol 1e-4, and checkpoints across packages:
   equal leaves.
 
-A qwen1.5-0.5b smoke case holds ``Model.loss`` and its gradients off the
-SSM path (attention and MLP; the plain attention on the CPU).
+qwen1.5-0.5b, gemma3-1b (past its window) and glm4-9b smoke cases hold
+``Model.loss`` and its gradients off the SSM path (attention and MLP;
+the plain attention under autograd on the CPU), at the same bounds;
+the CLI also trains gemma3-1b smoke on the CPU.
 """
 
 import dataclasses
@@ -345,9 +347,27 @@ def test_train_cli_runs_on_cpu(capsys):
         train_main(["--arch", ARCH, "--smoke", "--device", "cpu", "--mesh", "2x1"])
 
 
-def test_dense_loss_and_gradients_match_jax():
-    """qwen1.5-0.5b smoke: Model.loss and every gradient off the SSM path."""
-    pair = Pair("qwen1.5-0.5b", batch=2, seq=16)
+def test_train_cli_trains_gemma3_on_cpu(capsys):
+    train_main(["--arch", "gemma3-1b", "--smoke", "--device", "cpu", "--steps", "2",
+                "--batch", "2", "--seq", "40"])
+    out = capsys.readouterr().out
+    losses = [float(line.split("loss=")[1].split()[0]) for line in out.splitlines()
+              if line.startswith("step ")]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+
+
+#: dense smoke configs off the SSM path, (batch, seq): qwen1.5-0.5b;
+#: gemma3-1b past its smoke window of 32 (local and global layers, qk-norm,
+#: the norms' weight offset); glm4-9b (GQA)
+DENSE_CASES = {"qwen1.5-0.5b": (2, 16), "gemma3-1b": (2, 40), "glm4-9b": (2, 16)}
+
+
+@pytest.mark.parametrize("arch", list(DENSE_CASES))
+def test_dense_loss_and_gradients_match_jax(arch):
+    """Model.loss and every gradient off the SSM path, through the port's
+    attention (the plain version under autograd on the CPU)."""
+    batch, seq = DENSE_CASES[arch]
+    pair = Pair(arch, batch=batch, seq=seq)
     with pair.jmesh:
         jgrads, jmet = jax.jit(pair.jbundle.grad_fn)(pair.jparams, pair.jbatch(0))
     grads, met = pair.bundle.grad_fn(pair.params(), pair.tbatch(0))
