@@ -341,7 +341,8 @@ a checkout of the repository.  Phases, each of which must pass:
    first finite and not all zero, the losses finite, the kernels'
    launches in one eager step (counters set to 0 just before it): flash
    forward 52 times on the tensor-core route (forward and the
-   checkpoint's recompute), its backward 26 times, each RMSNorm (the
+   checkpoint's recompute), its backward 26 times on the tensor-core
+   route, each RMSNorm (the
    qk-norms included) forward twice and backward once; the same 3 steps
    as ONE graph launch equal to the eager ones bit for bit (deterministic
    algorithms); ms a step both ways, tokens/s, dispatches, peak memory;
@@ -350,9 +351,11 @@ a checkout of the repository.  Phases, each of which must pass:
    kernels, the flash backward's share named (``torch.profiler``); (a)
    flash's backward against ``ref.attention_vjp`` at each of
    ``FLASH_BWD_CASES`` within phase 18's ``GRAD_RTOL``/``GRAD_FRAC`` (one
-   bf16 rounding more for bf16 outputs), two calls equal bit for bit,
-   rows that see no key zero; timed at gemma3's global and local layers
-   beside its bound, the plain VJP and autograd of SDPA (the backward as
+   bf16 rounding more for bf16 outputs), each one counted launch of the
+   route ``route()`` gives, two calls equal bit for bit, rows that see no
+   key zero; timed at gemma3's global and local layers, grok's
+   soft-capped GQA and MLA's pair beside its bound, the CUDA-core
+   backward on the same input, the plain VJP and autograd of SDPA (the backward as
    forward and backward less forward, each timed as the kernels are, in
    captured graphs; its kernels named); the RMSNorm backward at the
    step's shapes (the pre- and post-norms' 4096 x 1152, the q- and
@@ -376,8 +379,10 @@ ms, row pass, dw pass, plain, library and bound; phase 18's and, named
 19's and 20's served shapes (the SSD row's: hymba's), and those
 three rows ``phase17_launches`` and ``phase19_launches``, the flash and
 rmsnorm rows ``phase20_launches``, they and the RMSNorm backward's row
-``phase21_launches``; the flash backward's row its ``local_layer`` times
-and SDPA's ``sdpa_kernels``; the schedule step's row
+``phase21_launches``; the flash backward's row its ``kernel_route``,
+``earlier_ms`` (the CUDA-core backward on the same input), its
+``local_layer`` times, ``other_shapes`` (grok's and MLA's) and SDPA's
+``sdpa_kernels``; the schedule step's row
 ``one_program_ms``: its loop with one program), the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -505,6 +510,8 @@ FLASH_BWD_CASES = (
     ("rows_without_keys", "bf16", 1, 8, 2, 200, 200, 128, 128,
      {"q_offset": -40, "window": 100}),
 )
+#: the cases the flash backward's row times (the first is the row's own)
+FLASH_BWD_TIMED = ("gemma3_global", "gemma3_local", "grok_softcap_gqa", "mla_192_128")
 #: phase 20: the MoE family uncut in width with bf16 parameters, 4 slots,
 #: 512-token prompts, 32 tokens; deepseek-v3 cut to 3 layers (1 dense, then 2
 #: of 256 routed experts: 26.14 B parameters, 52.3 GB) and grok-1 to 2 (11.45
@@ -4022,6 +4029,33 @@ def flash_bwd_inputs(torch, gen, dtype, B, Hq, Hkv, Sq, Skv, D, Dv):
     return mk(Sq, Hq, D), mk(Skv, Hkv, D), mk(Skv, Hkv, Dv), mk(Sq, Hq, Dv)
 
 
+def cuda_core_flash_bwd(torch, q, k, v, o32, lse, dout, causal=True, scale=None,
+                        window=None, logit_softcap=None, q_offset=0):
+    """The CUDA-core flash backward (the port's backward before the
+    tensor-core one; the route rule now gives it float32 and the small
+    pairs) on bf16 inputs, through its C entry point: its time at the
+    training shapes is the flash backward row's ``earlier_ms``."""
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels.build import check_launch, load_library, stream_arg
+
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    dq = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    dk = torch.empty((B, Skv, Hkv, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    dv = torch.empty((B, Skv, Hkv, Dv), dtype=q.dtype, device=q.device).transpose(1, 2)
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    ts = (q, k, v, dout, o32, dq, dk, dv)
+    err = load_library("flash_attention", fk.SIGNATURES).rt_flash_attention_bwd(
+        1, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), o32.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, Hq, Hkv, Sq, Skv, D, Dv, *[st for t in ts for st in t.stride()[:3]],
+        D ** -0.5 if scale is None else float(scale),
+        0.0 if logit_softcap is None else float(logit_softcap), int(bool(causal)),
+        -1 if window is None else int(window), int(q_offset), stream_arg(q))
+    check_launch("flash_attention", err)
+    return dq, dk, dv
+
+
 def sdpa_grad_times(torch, q, k, v, do, **kw) -> dict:
     """Autograd of ``F.scaled_dot_product_attention`` (``enable_gqa``):
     forward and backward, the forward alone, their difference (the
@@ -4059,10 +4093,14 @@ def check_flash_backward(torch, fk, ref, seed: int):
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         q, k, v, do = flash_bwd_inputs(torch, gen, dtype, B, Hq, Hkv, Sq, Skv, D, Dv)
         out, o32, lse = fk.forward_with_lse(q, k, v, **kw)
-        before = fk.flash_attention_bwd.launches
+        which = fk.route(dtype, D, Dv)
+        before = dict(fk.launch_counts())
         got = fk.flash_attention_bwd(q, k, v, o32, lse, do, **kw)
-        require(fk.flash_attention_bwd.launches == before + 1,
-                f"flash_attention_bwd {name}: not one counted launch")
+        after = fk.launch_counts()
+        counted = {key: after[key] - before[key] for key in after if after[key] != before[key]}
+        require(counted == {"flash_attention_bwd": 1, f"flash_attention_bwd_{which}": 1},
+                f"flash_attention_bwd {name}: not one counted launch of the {which} route: "
+                f"{counted}")
         want = ref.attention_vjp(*(t.float() for t in (q, k, v, do)), **kw)
         used = {n: grad_check(torch, g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
         require(all(u <= 1.0 for u, _ in used.values()),
@@ -4077,29 +4115,37 @@ def check_flash_backward(torch, fk, ref, seed: int):
                 "key have a gradient or a finite L")
         errs += [e for _, e in used.values()]
         detail[name] = {"dtype": dt, "q": list(q.shape), "kv": list(k.shape), "Dv": Dv, **kw,
+                        "route": which,
                         **{n: {"bound_used": u, "max_abs_err": e} for n, (u, e) in used.items()}}
-        if name.startswith("gemma3_"):
+        if name in FLASH_BWD_TIMED:
             kept[name] = (q, k, v, do, o32, lse, kw)
         del want, again, got
 
-    # the row: gemma3's global layer; the local layer as a detail
+    # the row: gemma3's global layer; the local layer, grok's and MLA's
+    # shapes as details; each beside the CUDA-core backward on its input
     times = {}
     for name, (q, k, v, do, o32, lse, kw) in kept.items():
         B, Hq, Sq, D = q.shape
         Skv, Dv = k.shape[2], v.shape[3]
-        pairs = attention_pairs(Sq, Skv, 0, kw.get("window"))
+        pairs = attention_pairs(Sq, Skv, kw.get("q_offset", 0), kw.get("window"))
         n_ops = 2 * (3 * D + 2 * Dv) * B * Hq * pairs
         n_bytes = 2 * 2 * (q.numel() + k.numel() + v.numel() + do.numel())
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_OPS_PER_S
+        sdpa_kw = {"scale": kw["scale"]} if "scale" in kw else {}
         if "window" in kw:
             idx = torch.arange(Sq, device="cuda")
-            mask = (idx[None, :] <= idx[:, None]) & (idx[None, :] > idx[:, None] - kw["window"])
-            lib = sdpa_grad_times(torch, q, k, v, do, attn_mask=mask)
+            sdpa_kw["attn_mask"] = ((idx[None, :] <= idx[:, None])
+                                    & (idx[None, :] > idx[:, None] - kw["window"]))
         else:
-            lib = sdpa_grad_times(torch, q, k, v, do, is_causal=True)
+            sdpa_kw["is_causal"] = True
+        lib = sdpa_grad_times(torch, q, k, v, do, **sdpa_kw)
         times[name] = {
+            "route": fk.route(q.dtype, D, Dv),
             "ms": median_ms(torch, lambda: fk.flash_attention_bwd(q, k, v, o32, lse, do, **kw),
                             reps=5, inner=5),
+            "earlier_ms": median_ms(
+                torch, lambda: cuda_core_flash_bwd(torch, q, k, v, o32, lse, do, **kw),
+                reps=5, inner=5),
             "plain_ms": median_ms(torch, lambda: ref.attention_vjp(q, k, v, do, **kw), 3, 2),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -4107,8 +4153,11 @@ def check_flash_backward(torch, fk, ref, seed: int):
             "forward_ms": median_ms(torch, lambda: fk.forward_with_lse(q, k, v, **kw), 5, 5),
             "library_ms": lib["ms"], "library_fwd_bwd_ms": lib["fwd_bwd_ms"],
             "library_fwd_ms": lib["fwd_ms"], "sdpa_kernels": lib["kernels"]}
+        if "logit_softcap" in kw:  # SDPA has no soft-cap: timed without it, not the function
+            times[name]["library_ms_without_cap"] = times[name].pop("library_ms")
+            times[name]["library_ms"] = None
     g = times["gemma3_global"]
-    row = {"name": "flash_attention_bwd", "route": "cuda", "kernel_route": "cuda_core",
+    row = {"name": "flash_attention_bwd", "route": "cuda", "kernel_route": g["route"],
            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
            "replaces": REPLACES["flash_attention_bwd"], "pallas_counterpart": False,
            "max_abs_err": max(errs), "ms": g["ms"], "plain_ms": g["plain_ms"],
@@ -4118,7 +4167,8 @@ def check_flash_backward(torch, fk, ref, seed: int):
                             "the forward alone, each in captured graphs"),
            "library_fwd_bwd_ms": g["library_fwd_bwd_ms"], "library_fwd_ms": g["library_fwd_ms"],
            "sdpa_kernels": g["sdpa_kernels"], "shape": [4, 4, 1, 1024, 256],
-           "local_layer": times["gemma3_local"]}
+           "earlier_ms": g["earlier_ms"], "local_layer": times["gemma3_local"],
+           "other_shapes": {n: t for n, t in times.items() if not n.startswith("gemma3_")}}
     detail["times"] = times
     return row, detail
 
@@ -4200,8 +4250,10 @@ def run_phase21(torch, seed: int, fk, rk, ref):
             and launches.get("flash_attention_cuda_core", 0) == 0,
             f"an eager step's flash forward launches {launches}: not {2 * L} (forward and "
             "recompute) all on the tensor-core route")
-    require(launches.get("flash_attention_bwd") == L,
-            f"an eager step's flash backward launches {launches}: not {L}")
+    require(launches.get("flash_attention_bwd") == launches.get("flash_attention_bwd_wgmma") == L
+            and launches.get("flash_attention_bwd_cuda_core", 0) == 0,
+            f"an eager step's flash backward launches {launches}: not {L} all on the "
+            "tensor-core route")
     require(launches.get("rmsnorm_bwd", 0) >= 4 * L + 1
             and launches.get("rmsnorm") == 2 * launches["rmsnorm_bwd"] - 1,
             f"an eager step's RMSNorm launches {launches}: not every norm (the qk-norms "
@@ -4565,7 +4617,7 @@ def main() -> int:
              "library_fwd_ms", "training_shapes", "earlier_ms", "cuda_core_ms", "decode",
              "served_shapes", "phase17_launches", "phase18_launches", "phase19_launches",
              "phase20_launches", "phase21_launches", "shape", "sdpa_kernels", "local_layer",
-             "one_program_ms")
+             "other_shapes", "one_program_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in order if k in r} for r in rows]}))
     print(f"card: {gpu_line()}")
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) flash-attention forward and backward, with a plain C
-// interface.  The backward (dQ, dK, dV; no Pallas counterpart) is described
-// where its kernels begin, after the forward's CUDA-core kernel; for it the
+// interface.  The backward (dQ, dK, dV; no Pallas counterpart; a
+// tensor-core and a CUDA-core route) is described where its kernels begin,
+// after the forward's CUDA-core kernel; for it the
 // forward also writes each row's log-sum-exp and, in bf16, its output in
 // float32 (serving passes null for both; the tensor-core kernel's serving
 // instance, kTrain false, has none of that code).
@@ -386,18 +387,78 @@ cudaError_t launch_t(const Params& p, int B, int D, int DV, bool vec, cudaStream
 }
 
 // ---------------------------------------------------------------------------
-// backward: dQ, dK, dV on CUDA cores (float32 and bf16, every (D, DV) pair)
+// backward: dQ, dK, dV; two routes, the forward's rule
 // ---------------------------------------------------------------------------
 //
 // No Pallas counterpart: the JAX package differentiates its plain _sdpa with
 // XLA (src/repro/models/nn.py:258).  The FlashAttention-2 backward: the
 // forward leaves each row's L = log-sum-exp of its scaled, capped logits, so
 // P = exp(t - L) is recomputed tile by tile and the [Sq, Skv] matrices never
-// reach device memory.  Three kernels on one stream:
+// reach device memory.  Both routes launch three kernels on one stream, the
+// first shared:
 // - flash_bwd_dot_kernel: delta = rowsum(dO o O) in float32, a warp a row,
 //   from the float32 output (a bf16 O rounded once puts delta 2^-9 off, and
 //   rows that see few keys then carry that error into dS = P (dP - delta);
 //   the training forward writes O in float32 beside the bf16 result).
+// No float atomics and every sum in a fixed order on both routes: two calls
+// give the same bits, and a captured call equals the eager one.  A row that
+// sees no key (L = -inf) gets P = 0, so zero gradients, never NaN.
+//
+// Bound (NVIDIA H100 80GB HBM3, 700 W): at gemma3-1b's global layer (B 4, Hq
+// 4, Hkv 1, S 1024, D 256, bf16) the function needs five products a visible
+// (q, k) pair, 2 (3 D + 2 DV) FLOP: 21.5 GFLOP, 21.7 us on bf16 tensor cores
+// (16.1 GFLOP at the local layers' window of 512).
+//
+// Tensor-core route (namespace tcb, after the forward's tc): bf16 at the
+// forward's wgmma pairs, the forward's machinery (TMA maps over (D, S, H, B)
+// with 64 x 64 boxes, mbarrier rings, setmaxnreg, wgmma descriptors with the
+// MN-major transpose bit).  P and dS are float32 and the tensor cores take
+// bf16, so each goes in as two bf16 parts (the second rounds what the first
+// left, 2^-17 of each term): one part leaves chip_smoke.py's gradient bound
+// 18-44x on every bf16 case, two use under half of it (the CPU emulation,
+// tests/test_torch_flash_bwd.py).
+// - flash_bwd_dkdv_wgmma_kernel: a cluster of CTAs per (batch, kv head, 64
+//   keys), the largest power of two up to 8 dividing the group (gemma3's 4:
+//   256 CTAs where one a block would give 64); CTA `rank` walks query heads
+//   rank * per .. rank * per + per - 1 of the group in order, and in each the
+//   64-row query tiles that can see its keys.  Keys are wgmma's M side, so
+//   S^T = K Q^T and dP^T = V dO^T (from shared memory, K-major) land in the
+//   accumulator layout and P^T, dS^T feed dV += P^T dO and dK += dS^T Q as
+//   register A operands, with dO and Q MN-major B operands (no transposed
+//   copies).  Warpgroup 0 owns dK (it computes S^T, dP^T, dS^T), warpgroup 1
+//   owns dV (S^T, P^T): at D 256 each accumulator is 128 registers a
+//   thread, and neither needs the other's P^T or dS^T, so nothing is
+//   exchanged through shared memory and no barrier joins them inside the
+//   walk; the cost is S^T computed twice, one product in seven.  (Splitting
+//   S^T between the warpgroups and exchanging P^T and dS^T as bf16 parts,
+//   FlashAttention-3's layout, would add 8 KB a part a matrix, 32 KB: 226
+//   KB at D 256, at the limit, and a barrier between the warpgroups every
+//   tile.)  A producer warpgroup streams Q and dO through a ring of 2
+//   stages (TMA; rows past Sq zero-filled) while one of its warps stages
+//   each tile's L (log2 units, -inf past Sq) and delta.  The per-element
+//   pass (P, dS, the mask) runs in an instance chosen per tile, with or
+//   without the soft-cap and the mask: the first build, with those
+//   branches inside its unrolled loop, took 1.45x as long at gemma3's
+//   global layer (scripts/flash_bwd_times.py).  At the end the ring takes
+//   the CTA's float32 dK and dV (64 x (D + DV) x 4 bytes, exactly its size;
+//   8-float chunks swizzled by row against bank conflicts) and each CTA
+//   sums its share of the rows over the cluster's CTAs in rank order
+//   through distributed shared memory: no global traffic, no atomics.  Key
+//   block 0, the heaviest under a causal mask, is the slowest grid axis:
+//   first.
+//   Shared memory at D 256: K, V 64 KB, the ring 128 KB: 194 KB.
+// - flash_bwd_dq_wgmma_kernel: a block per (batch, q head, 128 query rows),
+//   64 a consumer warpgroup, laid out as the forward's tensor-core kernel:
+//   q and dO rows loaded once, K and V tiles of 64 through rings (K 2
+//   stages, V 1 at D 256 to fit 227 KB, else 2; V's stage is released once
+//   dP is done).  Per tile: dP = dO V^T and S = Q K^T, dS in registers (the
+//   dK/dV kernel's S and dP recomputed: writing dS would move 33 MB at
+//   gemma3's global layer), dQ += scale dS K with K MN-major.
+// Registers: 240 a consumer thread (setmaxnreg), which holds a 64 x D float32
+// accumulator (128 at D 256), S and dP (64) and the two parts (32).
+//
+// CUDA-core route (float32 at every pair; bf16 at (16, 16), (32, 32) and
+// (48, 32)): wgmma in TF32 would not hold float32's bound.
 // - flash_bwd_dkdv_kernel: a block per (batch, kv head, 32 keys).  K and V
 //   stay in shared memory; the block walks the group's Hq/Hkv query heads in
 //   ascending order and in each the 64-row query tiles that can see its keys
@@ -410,19 +471,10 @@ cudaError_t launch_t(const Params& p, int B, int D, int DV, bool vec, cudaStream
 // - flash_bwd_dq_kernel: a block per (batch, q head, 64 query rows), laid
 //   out as the forward's CUDA-core kernel, walks the kv tiles in range and
 //   accumulates dQ = scale dS K; it writes dQ once.
-// No float atomics and every sum in a fixed order: two calls give the same
-// bits, and a captured call equals the eager one.  A row that sees no key
-// (L = -inf) gets P = 0, so zero gradients, never NaN.
-//
-// Bound (NVIDIA H100 80GB HBM3, 700 W): at gemma3-1b's global layer (B 4, Hq
-// 4, Hkv 1, S 1024, D 256, bf16) the function needs five products a visible
-// (q, k) pair, 2 (3 D + 2 DV) FLOP: 21.5 GFLOP, 21.7 us on bf16 tensor cores
-// (16.1 GFLOP at the local layers' window of 512).  These kernels compute
-// seven (the dQ kernel recomputes S and dP) on CUDA cores at float32's 67
-// TFLOP/s: a tensor-core route is the next redesign.  Shared memory at D =
-// DV = 256: the dK/dV block stages K, V (32 rows), Q, dO (64 rows) and P, dS
-// (64 x 32) in float32, 213 KB; the dQ block Q, dO, K, V and dS, 204 KB: one
-// block of 8 warps an SM.
+//   Seven products a pair on CUDA cores at float32's 67 TFLOP/s.  Shared
+//   memory at D = DV = 256: the dK/dV block stages K, V (32 rows), Q, dO (64
+//   rows) and P, dS (64 x 32) in float32, 213 KB; the dQ block Q, dO, K, V
+//   and dS, 204 KB: one block of 8 warps an SM.
 
 constexpr int kBwdBK = 32;  // keys of a dK/dV block and of a dQ kv tile
 
@@ -969,6 +1021,23 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d[96] += A (64 x 16, bf16 registers) * B (16 x 192, MN-major, shared)
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : TC_D32(0), TC_D32(32), TC_D32(64)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // d[128] += A (64 x 16, bf16 registers) * B (16 x 256, MN-major, shared)
 __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
                                               uint64_t b) {
@@ -992,11 +1061,13 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
 #undef TC_D32
 #undef TC_D8
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (D == 64) wgmma_rs_n64(o, a, b);
-  else if constexpr (D == 128) wgmma_rs_n128(o, a, b);
-  else wgmma_rs_n256(o, a, b);
+// d[N / 2] += A (64 x 16, bf16 registers) * B (16 x N, MN-major, shared)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, b);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, b);
+  else if constexpr (N == 192) wgmma_rs_n192(d, a, b);
+  else wgmma_rs_n256(d, a, b);
 }
 
 // kv tiles [t_lo, t_hi) that q rows [row, row + rows) of a head can see
@@ -1141,7 +1212,7 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* sq, uint8_t* s
     for (int ks = 0; ks < 4; ++ks) {
       const uint64_t vd = desc(va + ks * 16 * 128, kBox, 1024);
 #pragma unroll
-      for (int part = 0; part < 3; ++part) wgmma_pv<DV>(o, pa[part][ks], vd);
+      for (int part = 0; part < 3; ++part) wgmma_rs<DV>(o, pa[part][ks], vd);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -1313,6 +1384,646 @@ bool encode(CUtensorMap* map, const void* ptr, int D, int S, int H, int B, long 
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// backward on the tensor cores: bf16 at the wgmma pairs
+// ---------------------------------------------------------------------------
+// The design is described where the backward's kernels begin, above.
+namespace tcb {
+
+using tc::desc;
+using tc::fence_regs;
+using tc::kBox;
+using tc::mbar_arrive;
+using tc::mbar_expect_tx;
+using tc::mbar_init;
+using tc::mbar_wait;
+using tc::smem_u32;
+using tc::tma_load;
+using tc::wgmma_commit;
+using tc::wgmma_fence;
+using tc::wgmma_wait_all;
+
+constexpr int kRows = 64;     // keys of a dK/dV block, query rows of a tile: wgmma's M
+constexpr int kStages = 2;    // the dK/dV kernel's Q / dO ring
+constexpr int kParts = 2;     // bf16 parts of P and of dS
+constexpr int kThreads = 384; // two consumer warpgroups and the producer's
+constexpr int kMaxCluster = 8;
+
+struct Params {
+  CUtensorMap tq, tk, tv, tdo;  // (D or DV, S, H, B), boxes of 64 x 64 x 1 x 1, 128-byte swizzle
+  const float* lse;             // [B,Hq,Sq], natural log
+  const float* delta;           // [B,Hq,Sq]
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  long long dqsb, dqsh, dqss, dksb, dksh, dkss, dvsb, dvsh, dvss;
+  int Hq, Hkv, Sq, Skv, group, q_offset, causal, window;  // window < 0: none
+  int per;                      // query heads a dK/dV CTA walks: group / cluster
+  float scale, scale_log2;      // scale, scale * log2 e
+  float cap_in, cap_out;        // softcap: cap_out tanh(s cap_in); cap_in 0: off
+};
+
+__device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos) {
+  return kpos < p.Skv && (!p.causal || kpos <= qpos) && (p.window < 0 || kpos > qpos - p.window);
+}
+
+// Whether a 64 x 64 tile of query rows from q0 and keys from k0 crosses Skv,
+// the causal diagonal or the window's edge (else every pair is visible).
+__device__ __forceinline__ bool edge_tile(const Params& p, int q0, int k0) {
+  const int first = p.q_offset + q0;
+  return k0 + kRows > p.Skv || (p.causal && k0 + kRows - 1 > first) ||
+         (p.window >= 0 && k0 <= first + kRows - 1 - p.window);
+}
+
+// The logit in log2 units, and in dcap the soft-cap's derivative factor.
+template <bool kCap>
+__device__ __forceinline__ float logit2(const Params& p, float s, float& dcap) {
+  if constexpr (kCap) {
+    const float th = tanhf(s * p.cap_in);
+    dcap = 1.f - th * th;
+    return p.cap_out * th;
+  }
+  dcap = 1.f;
+  return s * p.scale_log2;
+}
+
+// The dK/dV tile's P^T = exp(t - L) of the visible pairs, into sc (kDs
+// false), or dS^T = P^T (dP^T - delta) dcap, into dp (kDs true): rows are
+// keys from k0, columns queries from q0, each column's L (log2 units) and
+// delta in sl, sd.  kEdge: the tile crosses Skv, the diagonal or the
+// window's edge (edge_tile), so each pair's mask is computed.  The
+// branches on the soft-cap and the edge stay out of the unrolled loop.
+template <bool kDs, bool kCap, bool kEdge>
+__device__ __forceinline__ void dkdv_scores(const Params& p, float (&sc)[32], float (&dp)[32],
+                                            const float* sl, const float* sd, int q0, int k0,
+                                            int r0, int c0) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int col = 8 * (j / 4) + c0 + (j % 2);
+    const int key = k0 + r0 + 8 * ((j / 2) % 2);
+    const float L2 = sl[col];
+    float dcap;
+    const float t2 = logit2<kCap>(p, sc[j], dcap);
+    const bool ok = L2 != -INFINITY && (!kEdge || visible(p, p.q_offset + q0 + col, key));
+    const float pr = ok ? exp2f(t2 - L2) : 0.f;
+    if constexpr (kDs) dp[j] = pr * (dp[j] - sd[col]) * dcap;
+    else sc[j] = pr;
+  }
+}
+
+// The dQ tile's dS = P (dP - delta) dcap into dp: rows are queries row_w +
+// r0 (+ 8), with L (log2 units) and delta in L2, dl; columns keys from k0;
+// kCap, kEdge as dkdv_scores'.
+template <bool kCap, bool kEdge>
+__device__ __forceinline__ void dq_scores(const Params& p, const float (&sc)[32], float (&dp)[32],
+                                          const float (&L2)[2], const float (&dl)[2], int row_w,
+                                          int k0, int r0, int c0) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int r = (j / 2) % 2;
+    const int key = k0 + 8 * (j / 4) + c0 + (j % 2);
+    float dcap;
+    const float t2 = logit2<kCap>(p, sc[j], dcap);
+    const bool ok =
+        L2[r] != -INFINITY && (!kEdge || visible(p, p.q_offset + row_w + r0 + 8 * r, key));
+    const float pr = ok ? exp2f(t2 - L2[r]) : 0.f;
+    dp[j] = pr * (dp[j] - dl[r]) * dcap;
+  }
+}
+
+// A 64 x 64 accumulator tile (wgmma's layout) as A fragments in kParts bf16
+// parts, x = part 0 + part 1 (each part rounds what the ones before left).
+// Step ks covers columns 16 ks .. 16 ks + 15.
+__device__ __forceinline__ void to_parts(const float (&x)[32], uint32_t (&a)[kParts][4][4]) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float u = x[8 * ks + 2 * r], w = x[8 * ks + 2 * r + 1];
+#pragma unroll
+      for (int part = 0; part < kParts; ++part) {
+        const __nv_bfloat162 v2 = __floats2bfloat162_rn(u, w);
+        const float2 f = __bfloat1622float2(v2);
+        u -= f.x;
+        w -= f.y;
+        a[part][ks][r] = *reinterpret_cast<const uint32_t*>(&v2);
+      }
+    }
+  }
+}
+
+// acc[N / 2] += (the parts' sum) x B, B a 64-row tile of N columns in
+// shared memory (N / 64 boxes) read MN-major: its rows are the product's K.
+template <int N>
+__device__ __forceinline__ void mma_parts(float (&acc)[N / 2], const uint32_t (&a)[kParts][4][4],
+                                          uint32_t b_addr) {
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const uint64_t bd = desc(b_addr + ks * 16 * 128, kBox, 1024);
+#pragma unroll
+    for (int part = 0; part < kParts; ++part) tc::wgmma_rs<N>(acc, a[part][ks], bd);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(acc);
+}
+
+// d[32] += A B^T over W columns: A and B 64-row tiles (W / 64 boxes each)
+// in shared memory, both K-major.  Committed with what follows.
+template <int W>
+__device__ __forceinline__ void mma_tile(float (&d)[32], uint32_t a_addr, uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < W / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+    tc::wgmma_ss_n64(d, desc(a_addr + off, 16, 1024), desc(b_addr + off, 16, 1024));
+  }
+}
+
+// query tiles [t_lo, t_hi) of a head that can see keys [k0, k0 + 64)
+// (the rows of flash_bwd_dkdv_kernel's range, in tiles of 64)
+__device__ __forceinline__ void query_tiles(const Params& p, int k0, int& t_lo, int& t_hi) {
+  t_lo = t_hi = 0;
+  const long long last = min(k0 + kRows, p.Skv) - 1;
+  long long lo = 0, hi = p.Sq;
+  if (p.causal) lo = max(lo, static_cast<long long>(k0) - p.q_offset);
+  if (p.window >= 0) hi = min(hi, last + p.window - p.q_offset);
+  if (lo >= hi) return;
+  t_lo = static_cast<int>(lo / kRows);
+  t_hi = static_cast<int>((hi + kRows - 1) / kRows);
+}
+
+// key tiles [t_lo, t_hi) that query rows [row, row + rows) can see
+__device__ __forceinline__ void key_tiles(const Params& p, int row, int rows, int& t_lo,
+                                          int& t_hi) {
+  t_lo = t_hi = 0;
+  if (rows <= 0) return;
+  const int first = p.q_offset + row, last = first + rows - 1;
+  const int lo = p.window >= 0 ? max(0, first - p.window + 1) : 0;
+  const int hi = p.causal ? min(p.Skv, last + 1) : p.Skv;
+  if (lo >= hi) return;
+  t_lo = lo / kRows;
+  t_hi = (hi + kRows - 1) / kRows;
+}
+
+// Every thread of every CTA of the cluster: shared-memory writes before it
+// are seen by reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float4 ld_rank4(const float* local, uint32_t rank) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(addr)
+               : "r"(smem_u32(local)), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Offset of (row, col) in a [64][W] float32 block of the ring (W a
+// multiple of 64), its 8-float chunks XOR-swizzled by the row: a warp's
+// writes in the accumulator layout (8 rows, 4 column pairs) then conflict
+// 2-way in the banks, not 8-way.
+template <int W>
+__device__ __forceinline__ int red_at(int row, int col) {
+  return row * W + (((col / 8) ^ (row % 8)) * 8 + col % 8);
+}
+
+// The shared memory of a dK/dV CTA: K and V (64 keys), a ring of Q and dO
+// tiles (64 query rows) with each row's L (log2 units) and delta.
+template <int D, int DV>
+struct DkdvSmem {
+  static constexpr int kTileQ = kRows * D * 2;   // bytes of 64 rows of q or k
+  static constexpr int kTileO = kRows * DV * 2;  // of dO or v
+  uint8_t* sk;
+  uint8_t* sv;
+  uint8_t* sq;
+  uint8_t* sdo;
+  float* sl;
+  float* sd;
+  uint64_t* full_kv;
+  uint64_t* full;
+  uint64_t* empty;
+  __device__ explicit DkdvSmem(uint8_t* raw) {
+    // 128-byte swizzle repeats every 1024 bytes: tiles start on that boundary
+    sk = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+    sv = sk + kTileQ;
+    sq = sv + kTileO;
+    sdo = sq + kStages * kTileQ;
+    sl = reinterpret_cast<float*>(sdo + kStages * kTileO);
+    sd = sl + kStages * kRows;
+    full_kv = reinterpret_cast<uint64_t*>(sd + kStages * kRows);
+    full = full_kv + 1;
+    empty = full + kStages;
+  }
+  static constexpr int bytes() {
+    return (1 + kStages) * (kTileQ + kTileO) + 2 * kStages * kRows * 4 +
+           (1 + 2 * kStages) * 8 + 1024;
+  }
+};
+
+// The dK/dV kernel's consumer warpgroup kDk (warpgroup 0: dK = dS^T Q) or
+// not (warpgroup 1: dV = P^T dO).  Per tile of the walk: S^T = K Q^T (and
+// dP^T = V dO^T for dK) on wgmma from shared memory, then P^T (and dS^T)
+// in registers, cut into bf16 parts that are the A operand of the
+// accumulating product; its float32 sum goes to `red` at the end.
+template <int D, int DV, bool kDk>
+__device__ __forceinline__ void dkdv_consume(const Params& p, const DkdvSmem<D, DV>& sm,
+                                             int k0, int t_lo, int n_t, int steps,
+                                             float* red) {
+  constexpr int N = kDk ? D : DV;
+  const int tid = threadIdx.x % 128;
+  // in wgmma's accumulator layout this thread holds rows (keys) r0 and
+  // r0 + 8 and, in each 8-column chunk j, columns (queries) 8 j + c0, + 1
+  const int r0 = (tid / 32) * 16 + (tid % 32) / 4, c0 = 2 * (tid % 4);
+  float acc[N / 2];
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) acc[j] = 0.f;
+  const uint32_t ka = smem_u32(sm.sk), va = smem_u32(sm.sv);
+  if (steps > 0) mbar_wait(sm.full_kv, 0);
+
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % kStages;
+    const int q0 = (t_lo + i % n_t) * kRows;
+    const uint32_t qa = smem_u32(sm.sq + s * DkdvSmem<D, DV>::kTileQ);
+    const uint32_t ga = smem_u32(sm.sdo + s * DkdvSmem<D, DV>::kTileO);
+    float sc[32], dp[32];  // dp: the dK warpgroup's only
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sc[j] = 0.f;
+    if constexpr (kDk) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) dp[j] = 0.f;
+    }
+    mbar_wait(&sm.full[s], (i / kStages) & 1);
+    fence_regs(sc);
+    if constexpr (kDk) fence_regs(dp);
+    wgmma_fence();
+    mma_tile<D>(sc, ka, qa);
+    if constexpr (kDk) mma_tile<DV>(dp, va, ga);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    if constexpr (kDk) fence_regs(dp);
+
+    const float* sl = sm.sl + s * kRows;
+    const float* sd = sm.sd + s * kRows;
+    const bool edge = edge_tile(p, q0, k0);
+    if (p.cap_in != 0.f) {
+      if (edge) dkdv_scores<kDk, true, true>(p, sc, dp, sl, sd, q0, k0, r0, c0);
+      else dkdv_scores<kDk, true, false>(p, sc, dp, sl, sd, q0, k0, r0, c0);
+    } else {
+      if (edge) dkdv_scores<kDk, false, true>(p, sc, dp, sl, sd, q0, k0, r0, c0);
+      else dkdv_scores<kDk, false, false>(p, sc, dp, sl, sd, q0, k0, r0, c0);
+    }
+    uint32_t a[kParts][4][4];
+    if constexpr (kDk) to_parts(dp, a);
+    else to_parts(sc, a);
+    mma_parts<N>(acc, a, kDk ? qa : ga);
+    mbar_arrive(&sm.empty[s]);
+  }
+
+  // both warpgroups are done with the ring: it takes the float32 sums,
+  // dK [64][D] then dV [64][DV]
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  float* out = kDk ? red : red + kRows * D;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(out + red_at<N>(r0 + 8 * r, 8 * j + c0)) =
+          make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+}
+
+// rows [lo, hi) of a [64][W] float32 block summed over the cluster's
+// CTAs in rank order, times `mul`, stored as bf16 rows k0 + row < Skv
+template <int W>
+__device__ __forceinline__ void cluster_sum(const float* block, int lo, int hi, int ranks,
+                                            float mul, __nv_bfloat16* dst, long long ss,
+                                            int k0, int Skv, int tid, int nthreads) {
+  constexpr int kPer = W / 4;  // float4 a row
+  for (int idx = tid; idx < (hi - lo) * kPer; idx += nthreads) {
+    const int row = lo + idx / kPer, col = (idx % kPer) * 4;
+    const float* src = block + red_at<W>(row, col);
+    float4 sum = ld_rank4(src, 0);
+    for (int r = 1; r < ranks; ++r) {
+      const float4 v = ld_rank4(src, r);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    if (k0 + row < Skv) {
+      __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(dst + (k0 + row) * ss + col);
+      o[0] = __floats2bfloat162_rn(sum.x * mul, sum.y * mul);
+      o[1] = __floats2bfloat162_rn(sum.z * mul, sum.w * mul);
+    }
+  }
+}
+
+// dK and dV: a cluster of CTAs per (batch, kv head, 64 keys), CTA `rank`
+// walking query heads h0 .. h0 + per - 1 of the group in order and in each
+// the 64-row query tiles that can see the keys; the CTAs' sums are added in
+// rank order through distributed shared memory.
+template <int D, int DV>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ Params p) {
+  using Sm = DkdvSmem<D, DV>;
+  static_assert(kStages * (Sm::kTileQ + Sm::kTileO) >= kRows * (D + DV) * 4,
+                "the ring holds the float32 sums");
+  extern __shared__ uint8_t smem_raw[];
+  const Sm sm(smem_raw);
+  const int rank = blockIdx.x, ranks = gridDim.x;  // the cluster spans grid x
+  const int hk = blockIdx.y % p.Hkv, b = blockIdx.y / p.Hkv;
+  const int k0 = blockIdx.z * kRows;  // key block 0 first: under a causal mask the heaviest
+  int t_lo, t_hi;
+  query_tiles(p, k0, t_lo, t_hi);
+  const int n_t = t_hi - t_lo, steps = p.per * n_t;
+  const int h0 = hk * p.group + rank * p.per;
+
+  if (threadIdx.x == 0) {
+    mbar_init(sm.full_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1 + 32);  // the TMA thread and the L / delta warp
+      mbar_init(&sm.empty[s], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // producer warpgroup: warp 8's first thread issues the TMA loads, warp
+    // 9 stages each tile's L and delta
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(tc::kProducerRegs));
+    const int warp = (threadIdx.x - 256) / 32, lane = threadIdx.x % 32;
+    if (warp == 0 && lane == 0 && steps > 0) {
+      mbar_expect_tx(sm.full_kv, Sm::kTileQ + Sm::kTileO);
+      for (int c = 0; c < D / 64; ++c)
+        tma_load(&p.tk, sm.sk + c * kBox, sm.full_kv, c * 64, k0, hk, b);
+      for (int c = 0; c < DV / 64; ++c)
+        tma_load(&p.tv, sm.sv + c * kBox, sm.full_kv, c * 64, k0, hk, b);
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % kStages, h = h0 + i / n_t, q0 = (t_lo + i % n_t) * kRows;
+        if (i >= kStages) mbar_wait(&sm.empty[s], (i / kStages - 1) & 1);
+        mbar_expect_tx(&sm.full[s], Sm::kTileQ + Sm::kTileO);
+        for (int c = 0; c < D / 64; ++c)
+          tma_load(&p.tq, sm.sq + s * Sm::kTileQ + c * kBox, &sm.full[s], c * 64, q0, h, b);
+        for (int c = 0; c < DV / 64; ++c)
+          tma_load(&p.tdo, sm.sdo + s * Sm::kTileO + c * kBox, &sm.full[s], c * 64, q0, h, b);
+      }
+    } else if (warp == 1) {
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % kStages, h = h0 + i / n_t, q0 = (t_lo + i % n_t) * kRows;
+        if (i >= kStages) mbar_wait(&sm.empty[s], (i / kStages - 1) & 1);
+        const long long row0 = (static_cast<long long>(b) * p.Hq + h) * p.Sq;
+        for (int r = lane; r < kRows; r += 32) {
+          const int q = q0 + r;
+          sm.sl[s * kRows + r] = q < p.Sq ? p.lse[row0 + q] * tc::kLog2e : -INFINITY;
+          sm.sd[s * kRows + r] = q < p.Sq ? p.delta[row0 + q] : 0.f;
+        }
+        mbar_arrive(&sm.full[s]);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(tc::kConsumerRegs));
+    float* red = reinterpret_cast<float*>(sm.sq);
+    if (threadIdx.x < 128) dkdv_consume<D, DV, true>(p, sm, k0, t_lo, n_t, steps, red);
+    else dkdv_consume<D, DV, false>(p, sm, k0, t_lo, n_t, steps, red);
+    cluster_sync();  // every CTA's sums are in its shared memory
+    const int lo = rank * kRows / ranks, hi = (rank + 1) * kRows / ranks;
+    cluster_sum<D>(red, lo, hi, ranks, p.scale, p.dk + b * p.dksb + hk * p.dksh, p.dkss, k0,
+                   p.Skv, threadIdx.x, 256);
+    cluster_sum<DV>(red + kRows * D, lo, hi, ranks, 1.f, p.dv + b * p.dvsb + hk * p.dvsh,
+                    p.dvss, k0, p.Skv, threadIdx.x, 256);
+    cluster_sync();  // no CTA leaves while another reads its shared memory
+    return;
+  }
+  // the producer warpgroup joins the consumers' two cluster barriers
+  cluster_sync();
+  cluster_sync();
+}
+
+// dQ: a block per (batch, q head, 128 query rows), 64 a consumer warpgroup;
+// the producer streams K (2 stages) and V (1 stage at D 256, else 2) tiles.
+// Per kv tile: dP = dO V^T and S = Q K^T on wgmma from shared memory, dS in
+// registers, dQ += dS K with dS in bf16 parts as the A operand.
+template <int D, int DV>
+struct DqSmem {
+  static constexpr int kTileQ = kRows * D * 2, kTileO = kRows * DV * 2;
+  static constexpr int kKS = 2, kVS = D == 256 ? 1 : 2;
+  uint8_t* sq;   // 2 warpgroups' q rows
+  uint8_t* sdo;  // and their dO rows
+  uint8_t* sk;
+  uint8_t* sv;
+  uint64_t* full_q;
+  uint64_t* full_k;
+  uint64_t* full_v;
+  uint64_t* empty_k;
+  uint64_t* empty_v;
+  __device__ explicit DqSmem(uint8_t* raw) {
+    sq = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+    sdo = sq + 2 * kTileQ;
+    sk = sdo + 2 * kTileO;
+    sv = sk + kKS * kTileQ;
+    full_q = reinterpret_cast<uint64_t*>(sv + kVS * kTileO);
+    full_k = full_q + 1;
+    full_v = full_k + kKS;
+    empty_k = full_v + kVS;
+    empty_v = empty_k + kKS;
+  }
+  static constexpr int bytes() {
+    return (2 + kKS) * kTileQ + (2 + kVS) * kTileO + (1 + 2 * kKS + 2 * kVS) * 8 + 1024;
+  }
+};
+
+template <int D, int DV>
+__device__ __forceinline__ void dq_consume(const Params& p, const DqSmem<D, DV>& sm, int q0,
+                                           int t_lo, int t_hi) {
+  using Sm = DqSmem<D, DV>;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int row_w = q0 + wg * kRows;
+  // rows (queries) r0 and r0 + 8; columns (keys) 8 j + c0, + 1 of chunk j
+  const int r0 = (tid / 32) * 16 + (tid % 32) / 4, c0 = 2 * (tid % 4);
+  int w_lo, w_hi;
+  key_tiles(p, row_w, min(kRows, p.Sq - row_w), w_lo, w_hi);
+  float L2[2], dl[2];
+  const long long row0 = (static_cast<long long>(b) * p.Hq + h) * p.Sq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = row_w + r0 + 8 * r;
+    L2[r] = q < p.Sq ? p.lse[row0 + q] * tc::kLog2e : -INFINITY;
+    dl[r] = q < p.Sq ? p.delta[row0 + q] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+  const uint32_t qa = smem_u32(sm.sq + wg * Sm::kTileQ), ga = smem_u32(sm.sdo + wg * Sm::kTileO);
+  mbar_wait(sm.full_q, 0);
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int i = t - t_lo, sk = i % Sm::kKS, sv = i % Sm::kVS;
+    const uint32_t pk = (i / Sm::kKS) & 1, pv = (i / Sm::kVS) & 1;
+    if (t < w_lo || t >= w_hi) {  // no row of this warpgroup sees the tile
+      mbar_wait(&sm.full_k[sk], pk);
+      mbar_wait(&sm.full_v[sv], pv);
+      mbar_arrive(&sm.empty_v[sv]);
+      mbar_arrive(&sm.empty_k[sk]);
+      continue;
+    }
+    const uint32_t ka = smem_u32(sm.sk + sk * Sm::kTileQ), va = smem_u32(sm.sv + sv * Sm::kTileO);
+    float sc[32], dp[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.f;
+    mbar_wait(&sm.full_v[sv], pv);
+    mbar_wait(&sm.full_k[sk], pk);
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
+    mma_tile<DV>(dp, ga, va);
+    mma_tile<D>(sc, qa, ka);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+    mbar_arrive(&sm.empty_v[sv]);
+
+    const int k0 = t * kRows;
+    const bool edge = edge_tile(p, row_w, k0);
+    if (p.cap_in != 0.f) {
+      if (edge) dq_scores<true, true>(p, sc, dp, L2, dl, row_w, k0, r0, c0);
+      else dq_scores<true, false>(p, sc, dp, L2, dl, row_w, k0, r0, c0);
+    } else {
+      if (edge) dq_scores<false, true>(p, sc, dp, L2, dl, row_w, k0, r0, c0);
+      else dq_scores<false, false>(p, sc, dp, L2, dl, row_w, k0, r0, c0);
+    }
+    uint32_t a[kParts][4][4];
+    to_parts(dp, a);
+    mma_parts<D>(acc, a, ka);
+    mbar_arrive(&sm.empty_k[sk]);
+  }
+
+  __nv_bfloat16* dq = p.dq + b * p.dqsb + h * p.dqsh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = row_w + r0 + 8 * r;
+    if (q >= p.Sq) continue;
+    __nv_bfloat16* row = dq + q * p.dqss + c0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * p.scale, acc[4 * j + 2 * r + 1] * p.scale);
+  }
+}
+
+template <int D, int DV>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ Params p) {
+  using Sm = DqSmem<D, DV>;
+  extern __shared__ uint8_t smem_raw[];
+  const Sm sm(smem_raw);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * 2 * kRows;  // heaviest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  int t_lo, t_hi;
+  key_tiles(p, q0, min(2 * kRows, p.Sq - q0), t_lo, t_hi);
+
+  if (threadIdx.x == 0) {
+    mbar_init(sm.full_q, 1);
+    for (int s = 0; s < Sm::kKS; ++s) {
+      mbar_init(&sm.full_k[s], 1);
+      mbar_init(&sm.empty_k[s], 256);
+    }
+    for (int s = 0; s < Sm::kVS; ++s) {
+      mbar_init(&sm.full_v[s], 1);
+      mbar_init(&sm.empty_v[s], 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(tc::kProducerRegs));
+    if (threadIdx.x == 256) {
+      const int hk = h / p.group;
+      const int q_wgs = min(2, (p.Sq - q0 + kRows - 1) / kRows);  // with rows < Sq
+      mbar_expect_tx(sm.full_q, q_wgs * (Sm::kTileQ + Sm::kTileO));
+      for (int w = 0; w < q_wgs; ++w) {
+        for (int c = 0; c < D / 64; ++c)
+          tma_load(&p.tq, sm.sq + w * Sm::kTileQ + c * kBox, sm.full_q, c * 64, q0 + w * kRows,
+                   h, b);
+        for (int c = 0; c < DV / 64; ++c)
+          tma_load(&p.tdo, sm.sdo + w * Sm::kTileO + c * kBox, sm.full_q, c * 64, q0 + w * kRows,
+                   h, b);
+      }
+      for (int t = t_lo; t < t_hi; ++t) {
+        const int i = t - t_lo, sk = i % Sm::kKS, sv = i % Sm::kVS;
+        if (i >= Sm::kKS) mbar_wait(&sm.empty_k[sk], (i / Sm::kKS - 1) & 1);
+        mbar_expect_tx(&sm.full_k[sk], Sm::kTileQ);
+        for (int c = 0; c < D / 64; ++c)
+          tma_load(&p.tk, sm.sk + sk * Sm::kTileQ + c * kBox, &sm.full_k[sk], c * 64, t * kRows,
+                   hk, b);
+        if (i >= Sm::kVS) mbar_wait(&sm.empty_v[sv], (i / Sm::kVS - 1) & 1);
+        mbar_expect_tx(&sm.full_v[sv], Sm::kTileO);
+        for (int c = 0; c < DV / 64; ++c)
+          tma_load(&p.tv, sm.sv + sv * Sm::kTileO + c * kBox, &sm.full_v[sv], c * 64, t * kRows,
+                   hk, b);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(tc::kConsumerRegs));
+    dq_consume<D, DV>(p, sm, q0, t_lo, t_hi);
+  }
+}
+
+// delta, then dK and dV (clusters of `cluster` CTAs), then dQ
+template <int D, int DV>
+cudaError_t launch(const Params& p, const BwdParams& bp, int B, int cluster, cudaStream_t s) {
+  auto dkdv = flash_bwd_dkdv_wgmma_kernel<D, DV>;
+  auto dq = flash_bwd_dq_wgmma_kernel<D, DV>;
+  constexpr int smem_kv = DkdvSmem<D, DV>::bytes(), smem_q = DqSmem<D, DV>::bytes();
+  static_assert(smem_kv <= 232448 && smem_q <= 232448, "beyond an SM's shared memory");
+  static const cudaError_t set = [&] {
+    const cudaError_t e =
+        cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+    return e != cudaSuccess
+               ? e
+               : cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+  }();
+  if (set != cudaSuccess) return set;
+  const int64_t rows = static_cast<int64_t>(B) * p.Hq * p.Sq;
+  flash_bwd_dot_kernel<__nv_bfloat16>
+      <<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(bp, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (p.Skv > 0) {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cluster, p.Hkv * B, (p.Skv + kRows - 1) / kRows);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem_kv;
+    cfg.stream = s;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if ((err = cudaLaunchKernelEx(&cfg, dkdv, p)) != cudaSuccess) return err;
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  dq<<<dim3((p.Sq + 2 * kRows - 1) / (2 * kRows), p.Hq, B), kThreads, smem_q, s>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace tcb
+
 }  // namespace
 
 
@@ -1436,6 +2147,75 @@ int rt_flash_attention_bwd(int dtype, const void* q, const void* k, const void* 
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
+}
+
+
+// The tensor-core backward: bf16 at (D, Dv) (64, 64), (128, 128), (256, 256)
+// or (192, 128); q, k, v and dout 16-byte aligned with strides in multiples
+// of 8 elements (TMA); arguments as rt_flash_attention_bwd's.  Three
+// launches on the stream: delta, dK and dV (clusters of up to 8 CTAs), dQ.
+int rt_flash_attention_bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                                 const float* o, const float* lse, float* delta, void* dq,
+                                 void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Skv,
+                                 int D, int Dv, long long qsb, long long qsh, long long qss,
+                                 long long ksb, long long ksh, long long kss, long long vsb,
+                                 long long vsh, long long vss, long long gsb, long long gsh,
+                                 long long gss, long long osb, long long osh, long long oss,
+                                 long long dqsb, long long dqsh, long long dqss, long long dksb,
+                                 long long dksh, long long dkss, long long dvsb, long long dvsh,
+                                 long long dvss, float scale, float softcap, int causal,
+                                 int window, int q_offset, void* stream) {
+  if (B <= 0 || Sq <= 0) return 0;
+  if (Hq <= 0 || Hkv <= 0 || Hq % Hkv || Hq > 65535 || B > 65535 || Skv < 0 ||
+      static_cast<long long>(Hkv) * B > 65535 || (Skv + tcb::kRows - 1) / tcb::kRows > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdParams bp{q, k, v, dout, o, lse, delta, dq, dk, dv, Hq, Hkv, Sq, Skv, Hq / Hkv, Dv,
+                     qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, gsb, gsh, gss, osb, osh, oss,
+                     dqsb, dqsh, dqss, dksb, dksh, dkss, dvsb, dvsh, dvss, scale, softcap, causal,
+                     window >= 0, window < 0 ? 0 : window, q_offset};
+  tcb::Params p{};
+  const int kv_rows = Skv > 0 ? Skv : 1;  // a map needs one row; none is read
+  if (!tc::encode(&p.tq, q, D, Sq, Hq, B, qss, qsh, qsb) ||
+      !tc::encode(&p.tk, k, D, kv_rows, Hkv, B, kss, ksh, ksb) ||
+      !tc::encode(&p.tv, v, Dv, kv_rows, Hkv, B, vss, vsh, vsb) ||
+      !tc::encode(&p.tdo, dout, Dv, Sq, Hq, B, gss, gsh, gsb))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.lse = lse;
+  p.delta = delta;
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.dqsb = dqsb;
+  p.dqsh = dqsh;
+  p.dqss = dqss;
+  p.dksb = dksb;
+  p.dksh = dksh;
+  p.dkss = dkss;
+  p.dvsb = dvsb;
+  p.dvsh = dvsh;
+  p.dvss = dvss;
+  p.Hq = Hq;
+  p.Hkv = Hkv;
+  p.Sq = Sq;
+  p.Skv = Skv;
+  p.group = Hq / Hkv;
+  p.q_offset = q_offset;
+  p.causal = causal;
+  p.window = window;
+  p.scale = scale;
+  p.scale_log2 = scale * tc::kLog2e;
+  p.cap_in = softcap != 0.f ? scale / softcap : 0.f;
+  p.cap_out = softcap * tc::kLog2e;
+  // a cluster of the largest power of two up to 8 that divides the group
+  int cluster = 1;
+  while (cluster < tcb::kMaxCluster && p.group % (2 * cluster) == 0) cluster *= 2;
+  p.per = p.group / cluster;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64 && Dv == 64) return static_cast<int>(tcb::launch<64, 64>(p, bp, B, cluster, s));
+  if (D == 128 && Dv == 128) return static_cast<int>(tcb::launch<128, 128>(p, bp, B, cluster, s));
+  if (D == 256 && Dv == 256) return static_cast<int>(tcb::launch<256, 256>(p, bp, B, cluster, s));
+  if (D == 192 && Dv == 128) return static_cast<int>(tcb::launch<192, 128>(p, bp, B, cluster, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

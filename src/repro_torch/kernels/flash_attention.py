@@ -6,7 +6,7 @@ The hand-written CUDA source ``csrc/flash_attention.cu`` (built for
 (``src/repro/kernels/flash_attention.py:96``), which the JAX package
 reaches through ``kernels/ops.py:flash_attention``.  It is bound by
 operations (bf16 products summed in float32); the source says how each
-of its two kernels meets that and why its tiles are sized as they are.
+of its kernels meets that and why its tiles are sized as they are.
 
 Head dims come in pairs ``(Dqk, Dv)``: q and k's, and v's (and the
 output's).  They are equal but for MLA's (deepseek-v3: 192 = 128 + 64
@@ -26,13 +26,15 @@ differentiable by autograd), and only then; for CUDA tensors it launches
 its route's kernel or raises.  Under autograd on the card it runs
 :class:`_FlashAttention`: the forward kernel also writes each row's
 log-sum-exp ``L`` (and, in bf16, the output in float32), and the backward
-is :func:`flash_attention_bwd`, three CUDA-core kernels of the same
-source for every pair and both dtypes (no Pallas counterpart: the JAX
-package differentiates its plain ``_sdpa`` with XLA).
+is :func:`flash_attention_bwd` (no Pallas counterpart: the JAX package
+differentiates its plain ``_sdpa`` with XLA), three kernels of the same
+source on the forward's route: on the tensor cores (bf16 at the
+:data:`WGMMA_HEAD_DIMS` pairs: dK/dV and dQ on ``wgmma`` with P and dS in
+two bf16 parts, the GQA sum in thread-block clusters), else on CUDA cores.
 ``flash_attention.launches_wgmma`` and ``launches_cuda_core`` count each
 forward route's launches, ``flash_attention.launches`` their sum, and
-``flash_attention_bwd.launches`` the backward's calls (a launch recorded
-into a CUDA graph counts once, at capture).
+``flash_attention_bwd``'s three counters the same for the backward's calls
+(a launch recorded into a CUDA graph counts once, at capture).
 """
 
 from __future__ import annotations
@@ -55,12 +57,14 @@ _ARGS = [_P] * 4 + [_I] * 7 + [_I64] * 12 + [_F, _F, _I, _I, _I, _P, _P, _P]
 _BWD_ARGS = [_I] + [_P] * 10 + [_I] * 7 + [_I64] * 24 + [_F, _F, _I, _I, _I, _P]
 #: the C entry points of ``csrc/flash_attention.cu`` and their argument types
 SIGNATURES = {"rt_flash_attention": [_I] + _ARGS, "rt_flash_attention_wgmma": _ARGS,
-              "rt_flash_attention_bwd": _BWD_ARGS}
+              "rt_flash_attention_bwd": _BWD_ARGS,
+              "rt_flash_attention_bwd_wgmma": _BWD_ARGS[1:]}
 
 
 def route(dtype: torch.dtype, head_dim: int, v_head_dim: Optional[int] = None) -> str:
-    """``"wgmma"`` or ``"cuda_core"``: which kernel a CUDA call takes at q
-    and k's ``head_dim`` and v's ``v_head_dim`` (by default the same)."""
+    """``"wgmma"`` or ``"cuda_core"``: which kernels a CUDA call takes at
+    q and k's ``head_dim`` and v's ``v_head_dim`` (by default the same),
+    in the forward and in the backward alike."""
     pair = (head_dim, head_dim if v_head_dim is None else v_head_dim)
     return "wgmma" if dtype == torch.bfloat16 and pair in WGMMA_HEAD_DIMS else "cuda_core"
 
@@ -204,10 +208,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     memory (as the forward's output is), float32 arithmetic.
 
     On the card three launches on the stream (``csrc/flash_attention.cu``:
-    delta, then dK and dV, then dQ), counted once in
-    ``flash_attention_bwd.launches``; no float atomics, so the result is
-    the same bits every run.  It takes CUDA tensors only, as
-    :func:`forward_with_lse` does."""
+    delta, then dK and dV, then dQ) of the route :func:`route` gives, the
+    forward's: the tensor-core kernels (bf16 at a pair of
+    :data:`WGMMA_HEAD_DIMS`; TMA loads, so 16-byte aligned q, k and v
+    with strides in multiples of 8, and dout made so when it is not), else
+    the CUDA-core ones.  Counted once in ``flash_attention_bwd.launches``
+    and in ``launches_wgmma`` or ``launches_cuda_core``; no float atomics,
+    so the result is the same bits every run.  It takes CUDA tensors only,
+    as :func:`forward_with_lse` does."""
     _check_shapes(q, k, v)
     B, Hq, Sq, D = q.shape
     Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[3]
@@ -223,7 +231,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_bwd takes the forward's float32 output "
                          "[B,Hq,Sq,Dv] and its contiguous float32 lse [B,Hq,Sq]")
     dout = dout.to(q.dtype)
-    if dout.stride(3) != 1:
+    which = route(q.dtype, D, Dv)
+    if dout.stride(3) != 1 or (which == "wgmma" and not _tma_ready(dout)):
         dout = dout.contiguous()
     scale = D ** -0.5 if scale is None else float(scale)
     softcap = 0.0 if logit_softcap is None else float(logit_softcap)
@@ -231,14 +240,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = torch.empty((B, Skv, Hkv, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     dv = torch.empty((B, Skv, Hkv, Dv), dtype=q.dtype, device=q.device).transpose(1, 2)
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    ts = (q, k, v, dout, o32, dq, dk, dv)
-    err = load_library("flash_attention", SIGNATURES).rt_flash_attention_bwd(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        o32.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, Hq, Hkv, Sq, Skv, D, Dv,
-        *[st for t in ts for st in t.stride()[:3]], scale, softcap, int(bool(causal)),
-        -1 if window is None else int(window), int(q_offset), stream_arg(q))
-    check_launch("flash_attention", err)
+    if which == "wgmma":
+        strides = [_tma_strides(t) for t in (q, k, v, dout)]
+    else:
+        strides = [t.stride()[:3] for t in (q, k, v, dout)]
+    strides += [t.stride()[:3] for t in (o32, dq, dk, dv)]
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), o32.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, Hq, Hkv, Sq, Skv, D, Dv, *[st for t in strides for st in t], scale, softcap,
+            int(bool(causal)), -1 if window is None else int(window), int(q_offset),
+            stream_arg(q))
+    lib = load_library("flash_attention", SIGNATURES)
+    if which == "wgmma":
+        check_launch("flash_attention", lib.rt_flash_attention_bwd_wgmma(*args))
+        flash_attention_bwd.launches_wgmma += 1
+    else:
+        check_launch("flash_attention", lib.rt_flash_attention_bwd(_DTYPE_CODE[q.dtype], *args))
+        flash_attention_bwd.launches_cuda_core += 1
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
@@ -263,33 +281,41 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
+def _tma_ready(t: torch.Tensor) -> bool:
+    """Whether a TMA map takes the view: 16-byte aligned data, and strides
+    in multiples of 8 elements along every dimension it steps."""
+    return t.data_ptr() % 16 == 0 and t.shape[3] % 8 == 0 and all(
+        s > 0 and s % 8 == 0 for n, s in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+
+
 def _tma_strides(t: torch.Tensor):
     """(batch, head, seq) element strides of a bf16 view for a TMA map:
     16-byte aligned data and strides (a dimension of size 1 is never
     stepped, so its stride is replaced by the view's head dim)."""
-    strides = [s if n > 1 else t.shape[3] for n, s in zip(t.shape[:3], t.stride()[:3])]
-    if t.data_ptr() % 16 or any(s <= 0 or s % 8 for s in strides):
+    if not _tma_ready(t):
         raise ValueError("the flash_attention tensor-core route takes 16-byte aligned "
                          f"bf16 views with strides in multiples of 8; got strides "
                          f"{tuple(t.stride())}")
-    return strides
+    return [s if n > 1 else t.shape[3] for n, s in zip(t.shape[:3], t.stride()[:3])]
 
 
 flash_attention.launches = 0
 flash_attention.launches_wgmma = 0
 flash_attention.launches_cuda_core = 0
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_wgmma = 0
+flash_attention_bwd.launches_cuda_core = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return {"flash_attention": flash_attention.launches,
             "flash_attention_wgmma": flash_attention.launches_wgmma,
             "flash_attention_cuda_core": flash_attention.launches_cuda_core,
-            "flash_attention_bwd": flash_attention_bwd.launches}
+            "flash_attention_bwd": flash_attention_bwd.launches,
+            "flash_attention_bwd_wgmma": flash_attention_bwd.launches_wgmma,
+            "flash_attention_bwd_cuda_core": flash_attention_bwd.launches_cuda_core}
 
 
 def reset_launches() -> None:
-    flash_attention.launches = 0
-    flash_attention.launches_wgmma = 0
-    flash_attention.launches_cuda_core = 0
-    flash_attention_bwd.launches = 0
+    for fn in (flash_attention, flash_attention_bwd):
+        fn.launches = fn.launches_wgmma = fn.launches_cuda_core = 0

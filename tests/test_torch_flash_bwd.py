@@ -23,7 +23,17 @@ where ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` hold them against
   inputs, delta from the float32 output holds it;
 * on CPU tensors autograd differentiates the plain version and no
   kernel is counted; the training forward and the backward, which only
-  launch kernels, refuse CPU tensors.
+  launch kernels, refuse CPU tensors;
+* :func:`emulate_flash_bwd_wgmma`, the tensor-core route's algorithm
+  (``flash_bwd_dkdv_wgmma_kernel``, ``flash_bwd_dq_wgmma_kernel``: tiles of
+  64 keys and 64 query rows, bf16 operands, P and dS cut into
+  :data:`PARTS` bf16 parts each multiplied in float32, the GQA sum over a
+  cluster's CTAs in rank order), on bf16 inputs at every
+  ``WGMMA_HEAD_DIMS`` pair against ``ref.attention_vjp`` and ``jax.vjp`` of
+  ``repro.kernels.ref.attention`` within ``chip_smoke.py``'s gradient
+  bound; one part fewer for P or for dS leaves that bound.  A change to
+  those kernels' tiles, ranges, parts or sum order must be mirrored in
+  :func:`emulate_flash_bwd_wgmma`.
 """
 
 import jax
@@ -270,3 +280,217 @@ def test_wrappers_on_cpu_run_the_plain_versions():
         fk.flash_attention_bwd(q, k, v, None, None, dout, **kw)
     with pytest.raises(ValueError, match="dout"):
         fk.flash_attention_bwd(q, k, v, None, None, dout[:, :, 1:], **kw)
+
+
+#: the tensor-core route (csrc/flash_attention.cu, namespace tcb): tiles of
+#: 64 keys and 64 query rows (wgmma's M), bf16 parts of P and of dS, the
+#: largest cluster
+TC_ROWS, PARTS, MAX_CLUSTER = 64, 2, 8
+
+# (B, Hq, Hkv, Sq, Skv, D, Dv, kwargs) at every WGMMA_HEAD_DIMS pair, bf16
+TC_CASES = {
+    "d64_causal_gqa4": (2, 4, 1, 150, 150, 64, 64, {}),
+    "d64_cross": (1, 3, 3, 70, 100, 64, 64, dict(causal=False)),
+    "d128_softcap_gqa6": (1, 12, 2, 130, 130, 128, 128,
+                          dict(logit_softcap=15.0, scale=0.08838834764831845)),
+    "d128_window": (1, 4, 2, 200, 200, 128, 128, dict(window=70)),
+    "d256_window_gqa4": (1, 4, 1, 140, 140, 256, 256, dict(window=48)),
+    "d256_q_offset": (1, 8, 1, 70, 200, 256, 256, dict(q_offset=130, window=100)),
+    "mla_192_128": (1, 4, 2, 100, 100, 192, 128, dict(scale=192 ** -0.5)),
+    "no_key_rows": (1, 8, 2, 120, 120, 128, 128, dict(q_offset=-40, window=30)),
+    "window0": (1, 2, 1, 40, 40, 64, 64, dict(window=0)),
+}
+
+
+def cluster_size(group):
+    """CTAs of a dK/dV cluster: the largest power of two up to
+    MAX_CLUSTER that divides the group (rt_flash_attention_bwd_wgmma)."""
+    c = 1
+    while c < MAX_CLUSTER and group % (2 * c) == 0:
+        c *= 2
+    return c
+
+
+def _parts(x, n):
+    """x as n bf16 parts in float32, each rounding what the ones before
+    left (the kernels' to_parts)."""
+    out = []
+    for _ in range(n):
+        part = x.bfloat16().float()
+        out.append(part)
+        x = x - part
+    return out
+
+
+def emulate_flash_bwd_wgmma(q, k, v, dout, *, causal=True, scale=None, window=None,
+                            logit_softcap=None, q_offset=0, p_parts=PARTS, ds_parts=PARTS):
+    """``(dq, dk, dv)`` by the tensor-core backward's algorithm (see the
+    module docstring) on bf16 ``q, k, v, dout``; ``p_parts`` and
+    ``ds_parts``: bf16 parts of P (dV) and of dS (dK, dQ)."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    group = Hq // Hkv
+    scale = D ** -0.5 if scale is None else scale
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, dout))
+    neg = float("-inf")
+
+    def logits(b, h, rows, keys):
+        t = (qf[b, h, rows] @ kf[b, h // group, keys].T) * scale
+        dcap = torch.ones_like(t)
+        if logit_softcap is not None:
+            th = torch.tanh(t / logit_softcap)
+            t, dcap = logit_softcap * th, 1 - th * th
+        return t, dcap, _visible(rows + q_offset, keys, Skv, causal, window)
+
+    # the training forward's L and float32 output; delta from the latter
+    L = torch.full((B, Hq, Sq), neg)
+    O = torch.zeros(B, Hq, Sq, Dv)
+    for b in range(B):
+        for h in range(Hq):
+            t, _, ok = logits(b, h, torch.arange(Sq), torch.arange(Skv))
+            L[b, h] = torch.logsumexp(t.masked_fill(~ok, neg), dim=-1)
+            P = torch.where(ok & (L[b, h] > neg)[:, None], torch.exp(t - L[b, h][:, None]), 0.0)
+            O[b, h] = P @ vf[b, h // group]
+    delta = (gf * O).sum(-1)
+
+    def tile(b, h, rows, keys):
+        t, dcap, ok = logits(b, h, rows, keys)
+        lse = L[b, h, rows][:, None]
+        P = torch.where(ok & (lse > neg), torch.exp(t - lse), 0.0)
+        dS = P * (gf[b, h, rows] @ vf[b, h // group, keys].T - delta[b, h, rows][:, None]) * dcap
+        return P, dS
+
+    # dK, dV: a cluster per (batch, kv head, 64 keys); CTA r walks its
+    # `per` heads in order; the CTAs' float32 sums added in rank order
+    c = cluster_size(group)
+    per = group // c
+    dk = torch.zeros(B, Hkv, Skv, D)
+    dv = torch.zeros(B, Hkv, Skv, Dv)
+    for b in range(B):
+        for hk in range(Hkv):
+            for k0 in range(0, Skv, TC_ROWS):
+                keys = torch.arange(k0, min(k0 + TC_ROWS, Skv))
+                lo, hi = kv_query_range(k0, len(keys), Sq, causal, window, q_offset)
+                sums = []
+                for r in range(c):
+                    ak, av = torch.zeros(len(keys), D), torch.zeros(len(keys), Dv)
+                    for h in range(hk * group + r * per, hk * group + (r + 1) * per):
+                        for q0 in range(lo // TC_ROWS * TC_ROWS, hi if lo < hi else 0, TC_ROWS):
+                            rows = torch.arange(q0, min(q0 + TC_ROWS, Sq))
+                            P, dS = tile(b, h, rows, keys)
+                            for part in _parts(P.T, p_parts):
+                                av += part @ gf[b, h, rows]
+                            for part in _parts(dS.T, ds_parts):
+                                ak += part @ qf[b, h, rows]
+                    sums.append((ak, av))
+                ak, av = sums[0]
+                for bk, bv in sums[1:]:
+                    ak, av = ak + bk, av + bv
+                dk[b, hk, k0:k0 + len(keys)] = ak * scale
+                dv[b, hk, k0:k0 + len(keys)] = av
+    # dQ: each warpgroup's 64 query rows walk the key tiles they can see
+    dq = torch.zeros(B, Hq, Sq, D)
+    for b in range(B):
+        for h in range(Hq):
+            for q0 in range(0, Sq, TC_ROWS):
+                rows = torch.arange(q0, min(q0 + TC_ROWS, Sq))
+                lo, hi = q_key_range(q0, len(rows), Skv, causal, window, q_offset)
+                acc = torch.zeros(len(rows), D)
+                for k0 in range(lo // TC_ROWS * TC_ROWS, hi if lo < hi else 0, TC_ROWS):
+                    keys = torch.arange(k0, min(k0 + TC_ROWS, Skv))
+                    for part in _parts(tile(b, h, rows, keys)[1], ds_parts):
+                        acc += part @ kf[b, h // group, keys]
+                dq[b, h, q0:q0 + len(rows)] = acc * scale
+    return tuple(t.bfloat16() for t in (dq, dk, dv))
+
+
+def _bound_used(got, want):
+    """The largest share of chip_smoke.py's gradient bound (GRAD_RTOL plus
+    GRAD_FRAC of the leaf's largest entry, plus 2^-8 of the magnitudes:
+    one bf16 rounding of the result) over the three leaves."""
+    used = 0.0
+    for g, w in zip(got, want):
+        g, w = g.float(), torch.as_tensor(np.array(w)).float()
+        bound = (GRAD_RTOL * w.abs() + GRAD_FRAC * float(w.abs().max()) + 1e-30
+                 + 2.0 ** -8 * (g.abs() + w.abs()))
+        used = max(used, float(((g - w).abs() / bound).max()))
+    return used
+
+
+def _bf16_inputs(B, Hq, Hkv, Sq, Skv, D, Dv, seed=5):
+    return tuple(torch.from_numpy(a).bfloat16()
+                 for a in _inputs(B, Hq, Hkv, Sq, Skv, D, Dv, seed=seed))
+
+
+@pytest.mark.parametrize("name", sorted(TC_CASES))
+def test_emulated_wgmma_kernels_match_plain_and_jax_vjp(name):
+    B, Hq, Hkv, Sq, Skv, D, Dv, kw = TC_CASES[name]
+    assert fk.route(torch.bfloat16, D, Dv) == "wgmma"
+    q, k, v, dout = _bf16_inputs(B, Hq, Hkv, Sq, Skv, D, Dv)
+    got = emulate_flash_bwd_wgmma(q, k, v, dout, **kw)
+    for g in got:
+        assert bool(torch.isfinite(g).all())
+    want = ref.attention_vjp(*(t.float() for t in (q, k, v, dout)), **kw)
+    assert _bound_used(got, want) <= 1.0
+    _, vjp = jax.vjp(lambda a, b, c: jref.attention(a, b, c, **kw),
+                     *(jnp.asarray(t.float().numpy()) for t in (q, k, v)))
+    assert _bound_used(got, vjp(jnp.asarray(dout.float().numpy()))) <= 1.0
+    sees = _visible(torch.arange(Sq) + kw.get("q_offset", 0), torch.arange(Skv), Skv,
+                    kw.get("causal", True), kw.get("window")).expand(Sq, Skv).any(-1)
+    assert bool((got[0][:, :, ~sees] == 0).all())
+    if name in ("no_key_rows", "window0"):
+        assert not bool(sees.all())
+
+
+@pytest.mark.parametrize("fewer", ["p", "ds"])
+def test_one_part_fewer_leaves_the_bound(fewer):
+    """With one bf16 part fewer for P (dV) or for dS (dK, dQ), at least
+    one case leaves chip_smoke.py's bound that :data:`PARTS` parts hold:
+    the count is the least that holds it."""
+    used = []
+    for name in ("d256_window_gqa4", "d128_softcap_gqa6", "mla_192_128"):
+        B, Hq, Hkv, Sq, Skv, D, Dv, kw = TC_CASES[name]
+        q, k, v, dout = _bf16_inputs(B, Hq, Hkv, Sq, Skv, D, Dv)
+        want = ref.attention_vjp(*(t.float() for t in (q, k, v, dout)), **kw)
+        parts = dict(p_parts=PARTS - (fewer == "p"), ds_parts=PARTS - (fewer == "ds"))
+        used.append(_bound_used(emulate_flash_bwd_wgmma(q, k, v, dout, **kw, **parts), want))
+    assert max(used) > 1.0, used
+
+
+@pytest.mark.parametrize("group,cluster", [(1, 1), (2, 2), (4, 4), (5, 1), (6, 2), (8, 8),
+                                           (12, 4), (16, 8), (48, 8)])
+def test_cluster_size(group, cluster):
+    """The dK/dV cluster divides the group and holds at most 8 CTAs; each
+    CTA walks group / cluster query heads."""
+    assert cluster_size(group) == cluster
+    assert group % cluster == 0 and cluster <= MAX_CLUSTER
+
+
+def test_wgmma_ranges_cover_every_visible_pair():
+    """Every visible (query, key) pair lies in the query tiles a 64-key
+    dK/dV block walks and in the key tiles a 64-row dQ warpgroup walks."""
+    for Sq, Skv, causal, window, q_offset in [(150, 150, True, None, 0), (200, 200, True, 70, 0),
+                                              (70, 200, True, 100, 130), (70, 100, False, None, 0),
+                                              (120, 120, True, 30, -40), (64, 128, True, 64, 64)]:
+        ok = _visible(torch.arange(Sq) + q_offset, torch.arange(Skv), Skv, causal, window)
+        for i, j in ok.nonzero().tolist():
+            k0 = j // TC_ROWS * TC_ROWS
+            lo, hi = kv_query_range(k0, min(TC_ROWS, Skv - k0), Sq, causal, window, q_offset)
+            assert lo // TC_ROWS * TC_ROWS <= i < hi
+            q0 = i // TC_ROWS * TC_ROWS
+            lo, hi = q_key_range(q0, min(TC_ROWS, Sq - q0), Skv, causal, window, q_offset)
+            assert lo // TC_ROWS * TC_ROWS <= j < hi
+
+
+def test_backward_routes_and_counters():
+    """The backward takes the forward's route (route() serves both), and
+    its launches are counted by route beside their sum."""
+    for D, Dv in fk.WGMMA_HEAD_DIMS:
+        assert fk.route(torch.bfloat16, D, Dv) == "wgmma"
+        assert fk.route(torch.float32, D, Dv) == "cuda_core"
+    for D, Dv in set(fk.HEAD_DIMS) - set(fk.WGMMA_HEAD_DIMS):
+        assert fk.route(torch.bfloat16, D, Dv) == "cuda_core"
+    counts = fk.launch_counts()
+    assert {"flash_attention_bwd", "flash_attention_bwd_wgmma",
+            "flash_attention_bwd_cuda_core"} <= set(counts)
+    assert "flash_attention_bwd_wgmma" in ops.launch_counts()

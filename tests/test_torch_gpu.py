@@ -9,8 +9,10 @@ two results' magnitudes; the SSD scan within ``chip_smoke.py``'s served
 bf16 bound); flash attention's and the SSD scan's cases say which of
 their two kernels (routes) each must take.  Flash attention's backward
 is held against ``ref.attention_vjp`` within the backward kernels' bound
-on both forward routes and every mask, two calls and a graphed forward
-and backward equal eager bit for bit, and serving's forward (no
+on both routes and every mask (each case counted on the route
+``route()`` gives), the tensor-core backward also against the CUDA-core
+one at ragged shapes, two calls and a graphed forward and backward equal
+eager bit for bit, and serving's forward (no
 autograd) launches once, writes no log-sum-exp and gives the training
 forward's bits.  An RMSNorm row must come out the
 same bits whatever rows, row stride and alignment it is launched with.
@@ -1923,6 +1925,10 @@ def test_flash_backward_matches_plain_vjp(cuda, case):
     after = fk.launch_counts()
     assert after["flash_attention"] == before["flash_attention"] + 1
     assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    which = fk.route(q.dtype, q.shape[3], v.shape[3])
+    other = "cuda_core" if which == "wgmma" else "wgmma"
+    assert after[f"flash_attention_bwd_{which}"] == before[f"flash_attention_bwd_{which}"] + 1
+    assert after[f"flash_attention_bwd_{other}"] == before[f"flash_attention_bwd_{other}"]
     want = ref.attention_vjp(*(t.float() for t in (q, k, v, dout)), **kw)
     for g, w, t in zip(grads, want, (q, k, v)):
         assert g.dtype == t.dtype and g.shape == t.shape
@@ -1958,6 +1964,75 @@ def test_flash_backward_is_deterministic_and_graphs(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(captured, first)), dtype
+
+
+def _cuda_core_flash_bwd(q, k, v, o32, lse, dout, causal=True, scale=None, window=None,
+                         logit_softcap=None, q_offset=0):
+    """The CUDA-core backward on bf16 inputs through its C entry point
+    (the route rule gives it only float32 and the small pairs)."""
+    from repro_torch.kernels.build import check_launch, load_library, stream_arg
+
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    dq = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    dk = torch.empty((B, Skv, Hkv, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    dv = torch.empty((B, Skv, Hkv, Dv), dtype=q.dtype, device=q.device).transpose(1, 2)
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    ts = (q, k, v, dout, o32, dq, dk, dv)
+    err = load_library("flash_attention", fk.SIGNATURES).rt_flash_attention_bwd(
+        1, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), o32.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, Hq, Hkv, Sq, Skv, D, Dv, *[st for t in ts for st in t.stride()[:3]],
+        D ** -0.5 if scale is None else float(scale),
+        0.0 if logit_softcap is None else float(logit_softcap), int(bool(causal)),
+        -1 if window is None else int(window), int(q_offset), stream_arg(q))
+    check_launch("flash_attention", err)
+    return dq, dk, dv
+
+
+#: the tensor-core backward at each of its pairs, bf16, Sq and Skv not
+#: multiples of 64: GQA with a window and a depth, the soft-cap, cross
+#: attention, rows that see no key
+FLASH_BWD_WGMMA_CASES = [
+    (BF16, 1, 8, 2, 100, 170, 256, 256, dict(q_offset=70, window=90)),
+    (BF16, 2, 6, 1, 77, 77, 128, 128, dict(logit_softcap=30.0)),
+    (BF16, 1, 5, 5, 45, 130, 64, 64, dict(causal=False)),
+    (BF16, 1, 4, 4, 150, 150, 192, 128, dict(q_offset=-30, window=50, scale=192 ** -0.5)),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_WGMMA_CASES, ids=lambda c: _case_id(
+    dict(zip(("dtype", "B", "Hq", "Hkv", "Sq", "Skv", "D", "Dv"), c[:8]), **c[8])))
+def test_flash_backward_wgmma_against_cuda_core(cuda, case):
+    """On the same input the tensor-core backward (one counted launch of
+    its route) and the CUDA-core one are each within the backward's bound
+    of the plain VJP and of each other; two calls give the same bits; a
+    call captured in a CUDA graph replays the eager bits; rows that see no
+    key get zeros."""
+    q, k, v, dout, kw = _flash_bwd_inputs(case, cuda, seed=71)
+    _, o32, lse = fk.forward_with_lse(q, k, v, **kw)
+    before = fk.launch_counts()
+    got = fk.flash_attention_bwd(q, k, v, o32, lse, dout, **kw)
+    after = fk.launch_counts()
+    assert after["flash_attention_bwd_wgmma"] == before["flash_attention_bwd_wgmma"] + 1
+    assert after["flash_attention_bwd_cuda_core"] == before["flash_attention_bwd_cuda_core"]
+    core = _cuda_core_flash_bwd(q, k, v, o32, lse, dout, **kw)
+    want = ref.attention_vjp(*(t.float() for t in (q, k, v, dout)), **kw)
+    for g, c, w in zip(got, core, want):
+        _grad_close(g, w, 2e-4, 2e-5)
+        _grad_close(c, w, 2e-4, 2e-5)
+        _grad_close(g, c.float(), 2e-4, 2e-5)
+    again = fk.flash_attention_bwd(q, k, v, o32, lse, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fk.flash_attention_bwd(q, k, v, o32, lse, dout, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(captured, got))
+    if kw.get("q_offset", 0) < 0:
+        blind = -kw["q_offset"]
+        assert bool((got[0][:, :, :blind] == 0).all())
 
 
 def test_flash_forward_without_grad_is_unchanged(cuda):
