@@ -310,8 +310,7 @@ a checkout of the repository.  Phases, each of which must pass:
    to 2 (8 experts of d_ff 32 768, top-2 by softmax; GQA 48/8 at 128,
    soft-cap 30, output multiplier 0.0884: 11.45 B, 22.9 GB), served as
    phase 19 serves hymba (4 slots, 512-token prompts, 32 tokens,
-   resident and host-stepped; no continuous serving, which the port
-   refuses for MoE), the prefill graph's and one eager prefill's
+   resident and host-stepped), the prefill graph's and one eager prefill's
    launches equal to those reckoned from the config (deepseek 3 flash
    at (192, 128) and grok 2 at 128, all on the tensor-core route; 13
    and 5 norms), the checks of phase 7, every slot's tokens distinct;
@@ -331,7 +330,15 @@ a checkout of the repository.  Phases, each of which must pass:
    over 4 stacked ranks at deepseek's prefill widths (256 experts,
    capacity 80, d 7168, bf16) through ``FusedEngine``, equal to the
    plain tiled all-to-all bit for bit and giving its input back when run
-   again;
+   again; (e) continuous serving of each cut on the weights (a) served,
+   as phase 17 does it (4 slots, 512-token prompts, 32 tokens, chunk 8:
+   the scripted sequence, each admission one graph launch equal to the
+   eager one bit for bit, then a 16-request burst; the admission graph's
+   flash launches all on the tensor-core route); an admission prefills
+   the whole batch at that call's expert capacity, so a slot's tokens
+   depend on its batch-mates, as in the reference: the tokens are not
+   held to serial serving, nor the in-flight slots to a decode round
+   without the admission (the line says why);
 21. training gemma3-1b at full width and depth (26 layers, d_model 1152,
    4 query heads and 1 kv head of 256, the window of 512 on 22 layers, 4
    global, qk-norms, d_ff 6912, tied vocab 262 144; bf16 compute over
@@ -362,6 +369,35 @@ a checkout of the repository.  Phases, each of which must pass:
    k-norms' 16384 x 256 and 4096 x 256; eps 1e-6, weight offset 1)
    against ``ref.rmsnorm_vjp``, two runs and a graph replay equal to
    eager bit for bit, timed as in phase 18.
+22. training the MoE family at full width with bf16 parameters from
+   ``torch.Generator(seed)``, 4 x 512 tokens a step (``MOE_TRAIN``; the
+   cuts from ``train_4k`` printed as ``train_cut`` lines): (a)
+   grok-1-314b cut to 1 layer (6.53 B parameters; bf16 AdamW moments):
+   3 eager steps with deterministic algorithms on, every gradient leaf
+   of the first finite and nonzero, the losses finite, an eager step's
+   launches (counters set to 0 just before it): flash forward twice
+   (forward and recompute) and its backward once on the tensor-core
+   route, the RMSNorm forward and backward counted; the eager state goes
+   to the host (two copies do not fit), then the same 3 steps as ONE
+   graph launch equal to the eager ones bit for bit (parameters, moments,
+   losses); ms a step both ways, tokens/s, dispatches, peak memory; a
+   profiled eager step (forward, backward with the recompute, AdamW;
+   kernels by family) with deterministic algorithms off; (b)
+   deepseek-v3-671b cut to 1 dense and 1 MoE layer (14.63 B; its AdamW
+   moments do not fit, so the gradient step only, ``bundle.grad_fn``):
+   the same leaf checks (the router's bias zero, as from ``jax.grad``),
+   flash at (192, 128) in the 2 layers and the MTP block, the eager
+   gradients to the host, then ONE graph launch of ``grad_fn`` equal to
+   them bit for bit; (c) for each, its MoE layer alone at the step's
+   shape [2048, D]: forward and backward twice with deterministic
+   algorithms off, equal bit for bit (output, dx, router and experts);
+   the dispatch's and the combine's backwards equal to a plain version
+   (gathers, then an explicit loop in ascending expert order) bit for
+   bit; route, dispatch, experts and combine and each backward timed by
+   CUDA events; (d) the flash backward at grok's (B 4, 48/8 heads, S
+   512, soft-cap) and MLA's (B 4, 128 heads, (192, 128)) training
+   shapes and the RMSNorm backward at d 6144, 7168, 1536 and 512
+   against their plain VJPs, timed as phase 21 times them.
 
 The last lines are a ``{"kernels": [...]}`` JSON line (fourteen rows:
 the nine Pallas kernels', the two step kernels' and the three backward
@@ -379,7 +415,9 @@ ms, row pass, dw pass, plain, library and bound; phase 18's and, named
 19's and 20's served shapes (the SSD row's: hymba's), and those
 three rows ``phase17_launches`` and ``phase19_launches``, the flash and
 rmsnorm rows ``phase20_launches``, they and the RMSNorm backward's row
-``phase21_launches``; the flash backward's row its ``kernel_route``,
+``phase21_launches``, they and both attention and norm backward rows
+``phase22_launches`` (phase 22's ``training_shapes`` named ``moe_``, its
+flash backward shapes in ``other_shapes``); the flash backward's row its ``kernel_route``,
 ``earlier_ms`` (the CUDA-core backward on the same input), its
 ``local_layer`` times, ``other_shapes`` (grok's and MLA's) and SDPA's
 ``sdpa_kernels``; the schedule step's row
@@ -393,6 +431,7 @@ import argparse
 import dataclasses
 import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -523,6 +562,22 @@ MOE_CUTS = {"deepseek-v3-671b": dict(n_layers=3, first_k_dense=1),
 #: init scale every slot echoes its last prompt token, whatever attention
 #: and the experts give, so resident == host-stepped would hold vacuously
 MOE_TRUNK_SCALE = 8.0
+#: phase 22: the MoE family trained uncut in width with bf16 parameters, 4 x
+#: 512 tokens a step; depth cut to fit the card: grok-1 to 1 layer (6.53 B;
+#: parameters, bf16 gradients and bf16 AdamW moments 52.2 GB), deepseek-v3 to
+#: 1 dense and 1 MoE layer (14.63 B; parameters and gradients 58.5 GB, its
+#: moments 58.5 GB more: the gradient step only)
+MOE_TRAIN = dict(batch=4, seq=512, steps=3)
+MOE_TRAIN_CUTS = {"grok-1-314b": dict(n_layers=1),
+                  "deepseek-v3-671b": dict(n_layers=2, first_k_dense=1)}
+MOE_TRAIN_CUT = ("train_4k is 256 x 4096 tokens a step across a TPU pod; one H100 trains "
+                 "4 x 512 = 2048 tokens a step at full width in bf16, depth cut to fit "
+                 "80 GB: grok-1 to 1 layer with bf16 AdamW moments (52.2 GB of state), "
+                 "deepseek-v3 to 1 dense + 1 MoE layer, its gradient step only (parameters "
+                 "and gradients 58.5 GB; its AdamW moments would need 58.5 GB more)")
+#: gradient leaves that jax.grad leaves at zero too: the sigmoid router's
+#: balancing bias, which the loss reaches only through top-k's indices
+ZERO_GRAD_LEAVES = ("router_bias",)
 #: the expert-parallel dispatch at deepseek-v3's prefill widths: 4 ranks of
 #: 256 experts x capacity 80 (2048 tokens, top-8, factor 1.25) x d 7168
 MOE_DISPATCH = dict(ranks=4, experts=256, capacity=80, d_model=7168)
@@ -2528,19 +2583,20 @@ def served_shape_checks(torch, cfg, cast, tokens, fk, rk, ref):
     return flash, norm
 
 
-def scripted_sequence(torch, eng, params, prompts):
-    """Phases 17's and 19's scripted mixed-depth sequence on ``eng`` (4
-    slots; ``prompts`` a dict of numpy rows, a slot's a row): admit
+def scripted_sequence(torch, eng, params, prompts, batch_independent=True):
+    """Phases 17's, 19's and 20's scripted mixed-depth sequence on ``eng``
+    (4 slots; ``prompts`` a dict of numpy rows, a slot's a row): admit
     slots 0 and 1, one decode round, admit slots 2 and 3 while 0 and 1 are
     in flight, then decode rounds until every slot stops; each round is
     given the buffers the round before returned.  Each admission must be
     one graph launch equal to the eager admission on a copy of the same
-    state bit for bit (every output and cache leaf); the second one's
-    in-flight slots (0 and 1) must equal, bit for bit, an eager decode
-    round from the same state without the admission (outputs and cache
-    leaves: the merge keeps them).  Returns the tokens of each slot, the
-    checks, and the kernel launches of the eager checks (which are not the
-    path's)."""
+    state bit for bit (every output and cache leaf); with
+    ``batch_independent`` the second one's in-flight slots (0 and 1) must
+    equal, bit for bit, an eager decode round from the same state without
+    the admission (outputs and cache leaves: the merge keeps them); a MoE
+    config's slots share their experts' capacity, so there they need not.
+    Returns the tokens of each slot, the checks, and the kernel launches
+    of the eager checks (which are not the path's)."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -2604,7 +2660,7 @@ def scripted_sequence(torch, eng, params, prompts):
             (wc, wt, wa, wr, *_), (wf, wo, wn) = want
             checks["admit_graph_equals_eager"].append(
                 equal((*state, first, out, n), (wc, wt, wa, wr, wf, wo, wn)))
-            if r > 0:
+            if r > 0 and batch_independent:
                 (pc, pt, pa, pr), (po, pn) = counted(
                     lambda: eng._decode_loop(cast, *clone(snap)))
                 checks["in_flight_equal_to_plain_decode"] = equal(
@@ -2622,8 +2678,13 @@ def scripted_sequence(torch, eng, params, prompts):
             f"graph launch")
     require(all(checks["admit_graph_equals_eager"]), f"{eng.cfg.name}: the graphed "
             "admit_decode differs from the eager one")
-    require(checks["in_flight_equal_to_plain_decode"], f"{eng.cfg.name}: the admission "
-            "changed the in-flight slots against a plain decode round")
+    if batch_independent:
+        require(checks["in_flight_equal_to_plain_decode"], f"{eng.cfg.name}: the admission "
+                "changed the in-flight slots against a plain decode round")
+    else:
+        checks["in_flight_equal_to_plain_decode"] = (
+            "not checked: the in-flight slots' tokens share the experts' capacity with the "
+            "admitted ones, in the reference too")
     require(len(ptrs) == 1, f"{eng.cfg.name}: a round moved the state to other buffers "
             "(a cache copy between rounds)")
     require(eng.prefill.calls == 0, f"{eng.cfg.name}: prefill ran as its own dispatch")
@@ -2641,14 +2702,18 @@ def scripted_sequence(torch, eng, params, prompts):
 
 
 def run_continuous(torch, seed: int, params, prompts, eng_c, eng_s, poisson=True):
-    """Phase 17 (and 19) for one model: the scripted sequence on ``eng_c``
-    (chunk 8; ``prompts`` a dict of numpy rows, a slot's a row), then
-    ``serve_continuous`` with 16 requests, as a t=0 burst and (with
+    """Phase 17 (and 19 and 20) for one model: the scripted sequence on
+    ``eng_c`` (chunk 8; ``prompts`` a dict of numpy rows, a slot's a row),
+    then ``serve_continuous`` with 16 requests, as a t=0 burst and (with
     ``poisson``) at the Poisson rate whose mean gap is one measured
     decode round.  The kernels' counters are set to 0 just before and
-    read just after (less the eager checks' launches).  Then each slot's tokens against serving
-    its prompt alone in the same slot of ``eng_s`` (as many slots, chunk
-    31), and the rounds' times."""
+    read just after (less the eager checks' launches).  Then each slot's
+    tokens against serving its prompt alone in the same slot of ``eng_s``
+    (as many slots, chunk 31), and the rounds' times.  ``eng_s`` None (a
+    MoE config: a slot's tokens depend on its batch-mates through the
+    experts' capacity, in the reference too): no serial comparison, and
+    the scripted sequence does not hold the in-flight slots to a plain
+    decode round."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -2661,7 +2726,9 @@ def run_continuous(torch, seed: int, params, prompts, eng_c, eng_s, poisson=True
     torch.cuda.synchronize()
     reset_all_launches()
     t0 = time.perf_counter()
-    tokens, checks, eager = scripted_sequence(torch, eng_c, params, prompts)
+    serial_check = eng_s is not None
+    tokens, checks, eager = scripted_sequence(torch, eng_c, params, prompts,
+                                              batch_independent=serial_check)
     setup_s = time.perf_counter() - t0
     # one round of each kind on the live buffers (every slot admitted)
     mask = torch.ones(shape["slots"], dtype=torch.bool, device="cuda")
@@ -2706,7 +2773,7 @@ def run_continuous(torch, seed: int, params, prompts, eng_c, eng_s, poisson=True
     # each slot's tokens against serving its prompt alone in that slot (the
     # serial engine takes the weights eng_c cast: the same tensors)
     serial, serial_params = [], eng_c.cast_params(params)
-    for s in range(shape["slots"]):
+    for s in range(shape["slots"] if serial_check else 0):
         rows = {k: np.zeros_like(v) for k, v in prompts.items()}
         for k, v in prompts.items():
             rows[k][s] = v[s]
@@ -2719,10 +2786,13 @@ def run_continuous(torch, seed: int, params, prompts, eng_c, eng_s, poisson=True
             times["serial_decode_ms_per_token"] = stats["decode_s"] * 1e3 / (
                 shape["max_new"] - 1)
     for s in range(shape["slots"]):
-        require(tokens[s] == serial[s], f"{cfg.name}: slot {s}'s continuous tokens differ "
-                f"from serving its prompt alone: {tokens[s]} != {serial[s]}")
-        require(all(0 <= t < cfg.vocab for t in tokens[s]), f"{cfg.name}: a token out of "
-                "the vocabulary")
+        if serial_check:
+            require(tokens[s] == serial[s], f"{cfg.name}: slot {s}'s continuous tokens "
+                    f"differ from serving its prompt alone: {tokens[s]} != {serial[s]}")
+        require(len(tokens[s]) == shape["max_new"] and all(0 <= t < cfg.vocab
+                                                           for t in tokens[s]),
+                f"{cfg.name}: slot {s}'s tokens {tokens[s]}: not {shape['max_new']} in the "
+                "vocabulary")
     caches = live["s"][0]
 
     def zero_and_merge():
@@ -2731,7 +2801,11 @@ def run_continuous(torch, seed: int, params, prompts, eng_c, eng_s, poisson=True
 
     times["zero_and_merge_ms"] = events_ms(torch, zero_and_merge)
     return {"model": cfg.name, **shape, "setup_s": setup_s, "checks": checks,
-            "continuous_equals_serial_bitwise": True, "tokens_slot0": tokens[0][:8],
+            "continuous_equals_serial_bitwise": True if serial_check else (
+                "not checked: serving a prompt alone is another batch, and a MoE config's "
+                "tokens depend on their batch-mates through the experts' capacity, in the "
+                "reference too"),
+            "tokens_slot0": tokens[0][:8],
             "distinct_slot_rows": len({tuple(t) for t in tokens}),
             "times": times, "runs": runs, "eager_check_launches": eager,
             "launches": launches}, admit_round
@@ -3357,6 +3431,19 @@ def moe_kernel_checks(torch, eng, params, batch_in, fk, rk, ref):
     return flash, norm
 
 
+def leaf_paths(tree, prefix=""):
+    """``(path, leaf)`` of a params tree, dicts and lists walked in order
+    (the order of ``tree_leaves``)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaf_paths(v, f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from leaf_paths(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
 def moe_smoke(torch, seed: int, arch: str) -> dict:
     """Phase 20 (c): ``arch``'s full-size parameters on the meta device,
     counted against ``count_params`` (plus the leaves it does not count:
@@ -3378,18 +3465,8 @@ def moe_smoke(torch, seed: int, arch: str) -> dict:
     require(all(t.device.type == "meta" for t in tree_leaves(shapes)),
             f"{arch}'s abstract_init allocated memory")
 
-    def leaves(tree, prefix=""):
-        if isinstance(tree, dict):
-            for k_, v_ in tree.items():
-                yield from leaves(v_, f"{prefix}/{k_}")
-        elif isinstance(tree, list):
-            for i, v_ in enumerate(tree):
-                yield from leaves(v_, f"{prefix}/{i}")
-        else:
-            yield prefix, tree
-
     total = sum(t.numel() for t in tree_leaves(shapes))
-    uncounted = sum(t.numel() for path, t in leaves(shapes)
+    uncounted = sum(t.numel() for path, t in leaf_paths(shapes)
                     if path.endswith(("q_norm", "kv_norm", "router_bias"))
                     or path == "/ln_final/scale"
                     or (path.startswith("/mtp/") and path.endswith("scale")))
@@ -3463,6 +3540,39 @@ def moe_dispatch_check(torch, seed: int) -> dict:
     return row
 
 
+def moe_continuous(torch, seed: int, cfg, params) -> dict:
+    """Phase 20 (e): continuous serving of a cut MoE config on the weights
+    phase 20 served (``CONT``: 4 slots, 512-token prompts, 32 tokens, chunk
+    8) through :func:`run_continuous`: the scripted mixed-depth sequence
+    (each admission one graph launch equal to the eager one bit for bit,
+    outputs and every cache leaf; one set of state buffers), then 16
+    requests as a t=0 burst.  Each admission prefills the whole batch at
+    that call's capacity, so a slot's tokens depend on its batch-mates, as
+    in the reference: they are not held to serial serving (the line says
+    why).  The admission graph's flash launches are all on the
+    tensor-core route."""
+    import numpy as np
+
+    from repro_torch.launch.serve import ServeEngine
+
+    eng_c = ServeEngine(cfg, slots=CONT["slots"], prompt_len=CONT["prompt_len"],
+                        max_new=CONT["max_new"], chunk=CONT["chunk"])
+    prompts = {"tokens": np.random.RandomState(seed + 20).randint(
+        0, cfg.vocab, (CONT["slots"], CONT["prompt_len"])).astype(np.int32)}
+    report, admit_round = run_continuous(torch, seed, params, prompts, eng_c, None,
+                                         poisson=False)
+    held = report["admit_graph_holds"] = eng_c.captured_launches("admit_decode")
+    require(held.get("flash_attention_wgmma") == cfg.n_layers
+            and not held.get("flash_attention_cuda_core"),
+            f"{cfg.name}: the admission graph holds flash launches {held}, not "
+            f"{cfg.n_layers} on the tensor-core route")
+    require(report["launches"]["flash_attention"] > 0 and report["launches"]["rmsnorm"] > 0,
+            f"{cfg.name}: a kernel never launched on the continuous path: "
+            f"{report['launches']}")
+    del eng_c, admit_round
+    return report
+
+
 def run_phase20(torch, seed: int, fk, rk, ref):
     """Phase 20: the MoE family.  deepseek-v3-671b (MLA, 256 routed experts
     with a sigmoid router, a shared expert) and grok-1-314b (8 experts,
@@ -3525,12 +3635,18 @@ def run_phase20(torch, seed: int, fk, rk, ref):
         f, n = moe_kernel_checks(torch, eng, params, batch_in, fk, rk, ref)
         flash += f
         norm += n
+        del eng, cast, caches, pre_caches
+        free()
+        cont = moe_continuous(torch, seed, cfg, params)
+        for k in ("flash_attention", "rmsnorm"):
+            launches[k] += cont["launches"][k]
         out[arch] = {"cut": MOE_CUTS[arch], "param_dtype": "bfloat16",
                      "trunk_scale": MOE_TRUNK_SCALE, "parameters": count_params(cfg),
                      "parameters_b": round(count_params(cfg) / 1e9, 2),
                      "launches_reckoned": want, "eager_prefill": eager,
                      "serve": serve_line, "serve_checks": checks,
-                     "distinct_slot_rows": len(rows), "seconds": time.perf_counter() - t0}
+                     "distinct_slot_rows": len(rows), "continuous": cont,
+                     "seconds": time.perf_counter() - t0}
         print(json.dumps({"moe_summary": {
             "model": arch, **MOE_SERVE, "cut": MOE_CUTS[arch],
             "parameters_b": out[arch]["parameters_b"],
@@ -3540,8 +3656,13 @@ def run_phase20(torch, seed: int, fk, rk, ref):
             "peak_memory_gb": serve_line["peak_memory_gb"],
             "prefill_by_part_ms": profiles["prefill"]["by_part_ms"],
             "decode_by_part_ms": profiles["decode_step"]["by_part_ms"],
+            "continuous_burst": {k: cont["runs"]["burst"][k] for k in
+                                 ("tok_per_s", "p50_ms", "p99_ms", "dispatches",
+                                  "sync_points", "admit_dispatches", "decode_dispatches")},
+            "continuous_round_ms": {k: cont["times"][k] for k in
+                                    ("admit_round_ms", "decode_round_ms")},
             "card": gpu_line()}}), flush=True)
-        del eng, params, batch_in, runs, cast, caches, pre_caches
+        del params, batch_in, runs
     free()
     for arch in MOE_CUTS:
         out[arch]["smoke"] = moe_smoke(torch, seed, arch)
@@ -4080,82 +4201,97 @@ def sdpa_grad_times(torch, q, k, v, do, **kw) -> dict:
             "kernels": sdpa_kernels(torch, fwd_bwd)}
 
 
+def flash_bwd_case(torch, fk, ref, gen, name, dt, B, Hq, Hkv, Sq, Skv, D, Dv, kw):
+    """The flash backward at one case: one counted launch of the route
+    ``route()`` gives, held to ``ref.attention_vjp`` within the backward
+    kernels' bound, two calls equal bit for bit, rows that see no key
+    zero.  Returns the case's detail, its errors and its inputs."""
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    q, k, v, do = flash_bwd_inputs(torch, gen, dtype, B, Hq, Hkv, Sq, Skv, D, Dv)
+    out, o32, lse = fk.forward_with_lse(q, k, v, **kw)
+    which = fk.route(dtype, D, Dv)
+    before = dict(fk.launch_counts())
+    got = fk.flash_attention_bwd(q, k, v, o32, lse, do, **kw)
+    after = fk.launch_counts()
+    counted = {key: after[key] - before[key] for key in after if after[key] != before[key]}
+    require(counted == {"flash_attention_bwd": 1, f"flash_attention_bwd_{which}": 1},
+            f"flash_attention_bwd {name}: not one counted launch of the {which} route: "
+            f"{counted}")
+    want = ref.attention_vjp(*(t.float() for t in (q, k, v, do)), **kw)
+    used = {n: grad_check(torch, g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    require(all(u <= 1.0 for u, _ in used.values()),
+            f"flash_attention_bwd {name}: beyond the bound {used}")
+    again = fk.flash_attention_bwd(q, k, v, o32, lse, do, **kw)
+    require(all(torch.equal(a, b) for a, b in zip(again, got)),
+            f"flash_attention_bwd {name}: two calls differ")
+    if kw.get("q_offset", 0) < 0:
+        blind = -kw["q_offset"]
+        require(bool((got[0][:, :, :blind] == 0).all()) and bool(torch.isneginf(
+            lse[:, :, :blind]).all()), f"flash_attention_bwd {name}: rows that see no "
+            "key have a gradient or a finite L")
+    detail = {"dtype": dt, "q": list(q.shape), "kv": list(k.shape), "Dv": Dv, **kw,
+              "route": which,
+              **{n: {"bound_used": u, "max_abs_err": e} for n, (u, e) in used.items()}}
+    return detail, [e for _, e in used.values()], (q, k, v, do, o32, lse, kw)
+
+
+def flash_bwd_times(torch, fk, ref, q, k, v, do, o32, lse, kw) -> dict:
+    """The flash backward's time on one input beside the CUDA-core
+    backward, the plain VJP, autograd of SDPA (the same function but for
+    a soft-cap) and its bound."""
+    B, Hq, Sq, D = q.shape
+    Skv, Dv = k.shape[2], v.shape[3]
+    pairs = attention_pairs(Sq, Skv, kw.get("q_offset", 0), kw.get("window"))
+    n_ops = 2 * (3 * D + 2 * Dv) * B * Hq * pairs
+    n_bytes = 2 * 2 * (q.numel() + k.numel() + v.numel() + do.numel())
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_OPS_PER_S
+    sdpa_kw = {"scale": kw["scale"]} if "scale" in kw else {}
+    if "window" in kw:
+        idx = torch.arange(Sq, device="cuda")
+        sdpa_kw["attn_mask"] = ((idx[None, :] <= idx[:, None])
+                                & (idx[None, :] > idx[:, None] - kw["window"]))
+    else:
+        sdpa_kw["is_causal"] = True
+    lib = sdpa_grad_times(torch, q, k, v, do, **sdpa_kw)
+    times = {
+        "route": fk.route(q.dtype, D, Dv),
+        "ms": median_ms(torch, lambda: fk.flash_attention_bwd(q, k, v, o32, lse, do, **kw),
+                        reps=5, inner=5),
+        "earlier_ms": median_ms(
+            torch, lambda: cuda_core_flash_bwd(torch, q, k, v, o32, lse, do, **kw),
+            reps=5, inner=5),
+        "plain_ms": median_ms(torch, lambda: ref.attention_vjp(q, k, v, do, **kw), 3, 2),
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "gflop": n_ops / 1e9, "mbytes": n_bytes / 1e6,
+        "forward_ms": median_ms(torch, lambda: fk.forward_with_lse(q, k, v, **kw), 5, 5),
+        "library_ms": lib["ms"], "library_fwd_bwd_ms": lib["fwd_bwd_ms"],
+        "library_fwd_ms": lib["fwd_ms"], "sdpa_kernels": lib["kernels"]}
+    if "logit_softcap" in kw:  # SDPA has no soft-cap: timed without it, not the function
+        times["library_ms_without_cap"] = times.pop("library_ms")
+        times["library_ms"] = None
+    return times
+
+
 def check_flash_backward(torch, fk, ref, seed: int):
     """Phase 21 (a): the flash backward against ``ref.attention_vjp`` at
-    each of ``FLASH_BWD_CASES`` (two calls equal bit for bit; rows that see
-    no key zero), then its row of the kernels line at gemma3's global
-    layer and its times at the local one."""
+    each of ``FLASH_BWD_CASES`` (:func:`flash_bwd_case`), then its row of
+    the kernels line at gemma3's global layer and its times at the local
+    one."""
     gen = torch.Generator("cuda").manual_seed(seed + 21)
     detail = {"bound": {"rtol": GRAD_RTOL, "leaf_max_share": GRAD_FRAC,
                         "bf16_outputs": "plus 2^-8 of |got| + |want|"}}
     kept, errs = {}, []
-    for name, dt, B, Hq, Hkv, Sq, Skv, D, Dv, kw in FLASH_BWD_CASES:
-        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
-        q, k, v, do = flash_bwd_inputs(torch, gen, dtype, B, Hq, Hkv, Sq, Skv, D, Dv)
-        out, o32, lse = fk.forward_with_lse(q, k, v, **kw)
-        which = fk.route(dtype, D, Dv)
-        before = dict(fk.launch_counts())
-        got = fk.flash_attention_bwd(q, k, v, o32, lse, do, **kw)
-        after = fk.launch_counts()
-        counted = {key: after[key] - before[key] for key in after if after[key] != before[key]}
-        require(counted == {"flash_attention_bwd": 1, f"flash_attention_bwd_{which}": 1},
-                f"flash_attention_bwd {name}: not one counted launch of the {which} route: "
-                f"{counted}")
-        want = ref.attention_vjp(*(t.float() for t in (q, k, v, do)), **kw)
-        used = {n: grad_check(torch, g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
-        require(all(u <= 1.0 for u, _ in used.values()),
-                f"flash_attention_bwd {name}: beyond the bound {used}")
-        again = fk.flash_attention_bwd(q, k, v, o32, lse, do, **kw)
-        require(all(torch.equal(a, b) for a, b in zip(again, got)),
-                f"flash_attention_bwd {name}: two calls differ")
-        if kw.get("q_offset", 0) < 0:
-            blind = -kw["q_offset"]
-            require(bool((got[0][:, :, :blind] == 0).all()) and bool(torch.isneginf(
-                lse[:, :, :blind]).all()), f"flash_attention_bwd {name}: rows that see no "
-                "key have a gradient or a finite L")
-        errs += [e for _, e in used.values()]
-        detail[name] = {"dtype": dt, "q": list(q.shape), "kv": list(k.shape), "Dv": Dv, **kw,
-                        "route": which,
-                        **{n: {"bound_used": u, "max_abs_err": e} for n, (u, e) in used.items()}}
+    for name, *case in FLASH_BWD_CASES:
+        detail[name], case_errs, inputs = flash_bwd_case(torch, fk, ref, gen, name, *case)
+        errs += case_errs
         if name in FLASH_BWD_TIMED:
-            kept[name] = (q, k, v, do, o32, lse, kw)
-        del want, again, got
+            kept[name] = inputs
+        del inputs
 
     # the row: gemma3's global layer; the local layer, grok's and MLA's
     # shapes as details; each beside the CUDA-core backward on its input
-    times = {}
-    for name, (q, k, v, do, o32, lse, kw) in kept.items():
-        B, Hq, Sq, D = q.shape
-        Skv, Dv = k.shape[2], v.shape[3]
-        pairs = attention_pairs(Sq, Skv, kw.get("q_offset", 0), kw.get("window"))
-        n_ops = 2 * (3 * D + 2 * Dv) * B * Hq * pairs
-        n_bytes = 2 * 2 * (q.numel() + k.numel() + v.numel() + do.numel())
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_OPS_PER_S
-        sdpa_kw = {"scale": kw["scale"]} if "scale" in kw else {}
-        if "window" in kw:
-            idx = torch.arange(Sq, device="cuda")
-            sdpa_kw["attn_mask"] = ((idx[None, :] <= idx[:, None])
-                                    & (idx[None, :] > idx[:, None] - kw["window"]))
-        else:
-            sdpa_kw["is_causal"] = True
-        lib = sdpa_grad_times(torch, q, k, v, do, **sdpa_kw)
-        times[name] = {
-            "route": fk.route(q.dtype, D, Dv),
-            "ms": median_ms(torch, lambda: fk.flash_attention_bwd(q, k, v, o32, lse, do, **kw),
-                            reps=5, inner=5),
-            "earlier_ms": median_ms(
-                torch, lambda: cuda_core_flash_bwd(torch, q, k, v, o32, lse, do, **kw),
-                reps=5, inner=5),
-            "plain_ms": median_ms(torch, lambda: ref.attention_vjp(q, k, v, do, **kw), 3, 2),
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "gflop": n_ops / 1e9, "mbytes": n_bytes / 1e6,
-            "forward_ms": median_ms(torch, lambda: fk.forward_with_lse(q, k, v, **kw), 5, 5),
-            "library_ms": lib["ms"], "library_fwd_bwd_ms": lib["fwd_bwd_ms"],
-            "library_fwd_ms": lib["fwd_ms"], "sdpa_kernels": lib["kernels"]}
-        if "logit_softcap" in kw:  # SDPA has no soft-cap: timed without it, not the function
-            times[name]["library_ms_without_cap"] = times[name].pop("library_ms")
-            times[name]["library_ms"] = None
+    times = {name: flash_bwd_times(torch, fk, ref, *inputs) for name, inputs in kept.items()}
     g = times["gemma3_global"]
     row = {"name": "flash_attention_bwd", "route": "cuda", "kernel_route": g["route"],
            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -4171,6 +4307,50 @@ def check_flash_backward(torch, fk, ref, seed: int):
            "other_shapes": {n: t for n, t in times.items() if not n.startswith("gemma3_")}}
     detail["times"] = times
     return row, detail
+
+
+def profile_train_step(torch, bundle, params, opt, batch) -> dict:
+    """One eager step (gradients, and AdamW unless ``opt`` is None) under
+    ``torch.profiler``: forward, backward (with the checkpoints'
+    recompute) and AdamW by CUDA events, every kernel's device time, the
+    window's wall time and the device's idle share.  A late profiler
+    window at times has no kernel records: up to 5 are taken."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps as st
+    from repro_torch.models.nn import tree_leaves
+
+    for attempt in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ev[0].record()
+            live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+            with torch.enable_grad():
+                loss, _ = bundle.model.loss(st._rebuild(params, live), batch)
+                ev[1].record()
+                grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                            materialize_grads=True)
+            ev[2].record()
+            if opt is not None:
+                bundle.apply_fn(params, opt, st._rebuild(params, list(grads)))
+            ev[3].record()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.device_time_total > 0
+                   and e.device_type == torch.autograd.DeviceType.CUDA]
+        del live, grads, loss
+        if kernels:
+            break
+    busy = sum(t for _, t, _ in kernels)
+    kernels.sort(key=lambda k: -k[1])
+    fwd, bwd, optim = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+    return {"forward_ms": fwd, "backward_ms_with_recompute": bwd,
+            "optimizer_ms": optim if opt is not None else None,
+            "wall_ms": wall_ms, "device_busy_ms": busy, "windows": attempt + 1,
+            "idle_share": max(0.0, 1 - busy / wall_ms) if kernels else None,
+            "kernel_launches": sum(c for _, _, c in kernels), "kernels": kernels}
 
 
 def run_phase21(torch, seed: int, fk, rk, ref):
@@ -4301,34 +4481,11 @@ def run_phase21(torch, seed: int, fk, rk, ref):
     # (c) where an eager step's time goes: forward / backward (with the
     # recompute) / AdamW by CUDA events, the kernels by torch.profiler, the
     # recompute as a no-grad run of the layer stack
-    from torch.profiler import ProfilerActivity, profile
     params, opt = fresh()
     bundle.step_fn(params, opt, batches[0])
     torch.cuda.synchronize()
-    for attempt in range(5):  # a late profiler window at times has no kernel records
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            ev[0].record()
-            live = [p.detach().requires_grad_() for p in tree_leaves(params)]
-            with torch.enable_grad():
-                loss, _ = bundle.model.loss(st._rebuild(params, live), batches[1])
-                ev[1].record()
-                grads = torch.autograd.grad(loss, live)
-            ev[2].record()
-            bundle.apply_fn(params, opt, st._rebuild(params, list(grads)))
-            ev[3].record()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-                   if e.device_time_total > 0
-                   and e.device_type == torch.autograd.DeviceType.CUDA]
-        del live, grads, loss
-        if kernels:
-            break
-    busy = sum(t for _, t, _ in kernels)
-    kernels.sort(key=lambda k: -k[1])
-    fwd, bwd, optim = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+    prof = profile_train_step(torch, bundle, params, opt, batches[1])
+    kernels, busy = prof.pop("kernels"), prof["device_busy_ms"]
     with torch.no_grad():
         x_in = apply_embedding(params["embed"], batches[1]["tokens"], cfg)
         positions = torch.arange(S, device=x_in.device)
@@ -4337,15 +4494,12 @@ def run_phase21(torch, seed: int, fk, rk, ref):
     flash_bwd = [(t, c) for k, t, c in kernels if "flash_bwd" in k]
     flash_fwd = [(t, c) for k, t, c in kernels if "flash_wgmma" in k]
     out["profile"] = {
-        "forward_ms": fwd, "backward_ms_with_recompute": bwd, "optimizer_ms": optim,
-        "recompute_ms_no_grad_stack": rec, "backward_ms_less_recompute": bwd - rec,
+        **prof, "recompute_ms_no_grad_stack": rec,
+        "backward_ms_less_recompute": prof["backward_ms_with_recompute"] - rec,
         "flash_bwd_ms": sum(t for t, _ in flash_bwd),
         "flash_bwd_kernel_launches": sum(c for _, c in flash_bwd),
         "flash_bwd_share_of_busy": sum(t for t, _ in flash_bwd) / busy if busy else None,
         "flash_fwd_ms": sum(t for t, _ in flash_fwd),
-        "kernel_launches": sum(c for _, _, c in kernels),
-        "wall_ms": wall_ms, "device_busy_ms": busy, "windows": attempt + 1,
-        "idle_share": max(0.0, 1 - busy / wall_ms) if kernels else None,
         "top": [{"kernel": k[:90], "ms": t, "count": c} for k, t, c in kernels[:14]]}
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del params, opt, x_in
@@ -4369,6 +4523,443 @@ def run_phase21(torch, seed: int, fk, rk, ref):
     gc.collect()
     torch.cuda.empty_cache()
     return out, row, norms, launches
+
+
+def plain_moe_backwards(torch, dxin, dy, yout, w, slot, keep):
+    """The MoE dispatch's and combine's backwards written plainly, from
+    ``dispatch_plan``'s ``slot`` and ``keep`` (in ``w``'s order): gathers,
+    then an explicit loop over each token's assignments in ascending
+    expert order (``dx``; a token's slots in ascending order are its
+    experts in ascending order), each filled slot written by its one kept
+    assignment (``dyout``) and a row product per assignment (``dw``)."""
+    T, k = w.shape
+    order = torch.sort(slot.view(T, k), dim=1, stable=True)[1]
+    dx = None
+    for j in range(k):
+        a = torch.arange(T, device=w.device) * k + order[:, j]
+        term = torch.where(keep[a, None], dxin[slot[a]], 0)
+        dx = term if dx is None else dx + term
+    kept = keep.nonzero()[:, 0]
+    dyout = torch.zeros_like(yout)
+    dyout[slot[kept]] = dy[kept // k] * w.reshape(-1)[kept, None].to(dy.dtype)
+    dw = (dy.repeat_interleave(k, 0) * yout[slot]).view(T, k, -1).sum(-1).float()
+    return dx, dyout, torch.where(keep.view(T, k), dw, 0)
+
+
+def moe_layer_check(torch, cfg, p, seed: int) -> dict:
+    """Phase 22 (c): one MoE layer alone, on its real parameters ``p`` and
+    an activation of the step's shape [2048, D] (seeded, ``cfg.dtype``).
+    Forward and backward twice with deterministic algorithms off (the mode
+    restored after): the output, dx and every trained leaf's gradient (the
+    router, the experts, the shared expert) equal bit for bit, the first
+    run's on the host while the second runs.  Then the parts one by one,
+    detached at their bounds: the dispatch's and the combine's gradients
+    against :func:`plain_moe_backwards` bit for bit, and route, dispatch,
+    experts and combine timed forward and backward, each alone
+    (:func:`events_ms`)."""
+    from repro_torch.models import moe
+    from repro_torch.models.nn import dtype_of
+
+    T, D, E = MOE_TRAIN["batch"] * MOE_TRAIN["seq"], cfg.d_model, cfg.n_experts
+    C = max(1, int(math.ceil(T * cfg.top_k / E * cfg.capacity_factor)))
+    gen = torch.Generator("cuda").manual_seed(seed + 22)
+    x = torch.randn(1, T, D, device="cuda", generator=gen).to(dtype_of(cfg.dtype))
+    dy = torch.randn(1, T, D, device="cuda", generator=gen).to(x.dtype)
+    trained = [k for k in p if k not in ZERO_GRAD_LEAVES]
+    mode = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(False)
+    try:
+        first, equal = None, {}
+        for _ in range(2):
+            live = {k: v.detach().requires_grad_(k in trained) for k, v in p.items()}
+            xl = x.detach().requires_grad_()
+            y, aux = moe.apply_moe(live, xl, cfg)
+            grads = torch.autograd.grad((y, aux["lb_loss"]), [xl] + [live[k] for k in trained],
+                                        (dy, torch.ones_like(aux["lb_loss"])))
+            got = dict(zip(["y", "x"] + trained, [y.detach(), *grads]))
+            dropped = float(aux["dropped_frac"])
+            del grads, y, aux, live, xl
+            if first is None:
+                first = {k: t.cpu() for k, t in got.items()}
+            else:
+                equal = {k: torch.equal(t.cpu(), first[k]) for k, t in got.items()}
+            del got
+        require(all(equal.values()), f"{cfg.name}: the MoE layer's forward and backward "
+                f"differ between two runs with deterministic algorithms off: {equal}")
+        del first
+
+        # the parts, detached at their bounds: each part's forward and
+        # backward timed alone (events_ms: a warm call, then the median of 3)
+        x2d, dy2d = x.view(T, D), dy.view(T, D)
+        live = {k: v.detach().requires_grad_(k in trained) for k, v in p.items()}
+        experts = [live[k] for k in ("wi", "wg", "wo") if k in live]
+        xr, xd = x2d.detach().requires_grad_(), x2d.detach().requires_grad_()
+        idx, w, _ = moe._route(live, xr, cfg)
+        xin, plan = moe._dispatch(xd, idx, E, C)
+        xin_d = xin.detach().requires_grad_()
+        yout = moe._expert_ffn(live, xin_d, cfg).reshape(E * C, D)
+        yd, wd = yout.detach().requires_grad_(), w.detach().requires_grad_()
+        y = moe._combine(yd, wd, plan)
+        dyout, dw = torch.autograd.grad(y, (yd, wd), dy2d, retain_graph=True)
+        dxin = torch.autograd.grad(yout, xin_d, dyout, retain_graph=True)[0]
+        (dx,) = torch.autograd.grad(xin, xd, dxin, retain_graph=True)
+        _, slot, keep, _ = moe.dispatch_plan(idx, E, C)
+        want = plain_moe_backwards(torch, dxin.reshape(E * C, D), dy2d, yd.detach(),
+                                   wd.detach(), slot, keep)
+        plain = {name: torch.equal(got, ref_)
+                 for name, got, ref_ in zip(("dx", "dyout", "dw"), (dx, dyout, dw), want)}
+        require(all(plain.values()), f"{cfg.name}: the dispatch's and the combine's "
+                f"backwards differ from their plain versions: {plain}")
+        del want
+        grad = torch.autograd.grad
+        parts = {
+            "route": events_ms(torch, lambda: moe._route(live, xr, cfg)),
+            "dispatch": events_ms(torch, lambda: moe._dispatch(xd, idx, E, C)),
+            "experts": events_ms(torch, lambda: moe._expert_ffn(live, xin_d, cfg)),
+            "combine": events_ms(torch, lambda: moe._combine(yd, wd, plan)),
+            "combine_bwd": events_ms(torch, lambda: grad(y, (yd, wd), dy2d,
+                                                         retain_graph=True)),
+            "experts_bwd": events_ms(torch, lambda: grad(yout, [xin_d] + experts, dyout,
+                                                         retain_graph=True)),
+            "dispatch_bwd": events_ms(torch, lambda: grad(xin, xd, dxin, retain_graph=True)),
+            "route_bwd": events_ms(torch, lambda: grad(w, (xr, live["router"]), dw,
+                                                       retain_graph=True))}
+        del live, experts, xin, xin_d, yout, yd, y, dx, dyout, dw, dxin
+    finally:
+        torch.use_deterministic_algorithms(mode)
+    return {"tokens": T, "experts": E, "top_k": cfg.top_k, "capacity": C,
+            "dropped_frac": dropped, "two_runs_equal_nondeterministic": equal,
+            "backwards_equal_plain": plain, "parts_ms": parts}
+
+
+def moe_train_setup(torch, arch: str, opt_cfg=None):
+    """``arch`` cut as ``MOE_TRAIN_CUTS`` says with bf16 parameters, its
+    train step on one card and ``SyntheticTokens`` batches of
+    ``MOE_TRAIN``'s shape (one a step, and stacked)."""
+    from repro_torch import make_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import steps as st
+
+    cfg = dataclasses.replace(get_config(arch), param_dtype="bfloat16", **MOE_TRAIN_CUTS[arch])
+    shape = ShapeConfig("train_cut", MOE_TRAIN["seq"], MOE_TRAIN["batch"], "train")
+    bundle = st.build_train_step(cfg, shape, make_mesh((1, 1), ("data", "model")),
+                                 opt=opt_cfg, total_steps=100)
+    source = SyntheticTokens(cfg, shape)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in source.batch(i).items()}
+               for i in range(MOE_TRAIN["steps"])]
+    return cfg, bundle, batches
+
+
+def moe_grads_checked(torch, cfg, grads) -> dict:
+    """Every gradient leaf finite; zero exactly in the leaves jax.grad
+    leaves at zero (``ZERO_GRAD_LEAVES``), nonzero in every other."""
+    bad, zero = [], []
+    for path, g in leaf_paths(grads):
+        at_zero = path.endswith(ZERO_GRAD_LEAVES)
+        if at_zero:
+            zero.append(path)
+        if (g is None or not bool(torch.isfinite(g).all())
+                or bool(g.abs().max() > 0) == at_zero):
+            bad.append(path)
+    require(not bad, f"{cfg.name}: gradient leaves {bad} missing, non-finite, all zero, or "
+            f"nonzero where jax.grad gives zeros")
+    return {"leaves": len(list(leaf_paths(grads))), "zero_as_in_jax": zero}
+
+
+def moe_step_launches(torch, cfg, launches) -> None:
+    """An eager step's flash and RMSNorm launches: flash forward on the
+    tensor-core route in each attention layer (twice in a checkpointed
+    layer: forward and recompute; once in the MTP head's block), its
+    backward once an attention layer on the tensor-core route, the RMSNorm
+    forward and backward both launched."""
+    layers = cfg.n_layers + cfg.mtp_depth
+    fwd = (2 if cfg.remat == "block" else 1) * cfg.n_layers + cfg.mtp_depth
+    require(launches.get("flash_attention") == launches.get("flash_attention_wgmma") == fwd
+            and not launches.get("flash_attention_cuda_core"),
+            f"{cfg.name}: an eager step's flash forward launches {launches}: not {fwd} all "
+            "on the tensor-core route")
+    require(launches.get("flash_attention_bwd") == launches.get("flash_attention_bwd_wgmma")
+            == layers and not launches.get("flash_attention_bwd_cuda_core"),
+            f"{cfg.name}: an eager step's flash backward launches {launches}: not {layers} "
+            "all on the tensor-core route")
+    require(launches.get("rmsnorm", 0) > 0 and launches.get("rmsnorm_bwd", 0) > 0,
+            f"{cfg.name}: an eager step did not run the RMSNorm forward and backward "
+            f"kernels: {launches}")
+
+
+def moe_layer_params(cfg, params):
+    """The first MoE layer's ``moe`` parameters (stacked layers split)."""
+    from repro_torch.models import transformer as tfm
+
+    for seg, plan in zip(params["decoder"]["segments"], tfm.plan_segments(cfg)):
+        if plan.kind == "attn_moe":
+            return tfm.unbind_layers(seg, plan.n_layers)[0]["moe"]
+    raise ValueError(f"{cfg.name} has no MoE layer")
+
+
+def train_grok(torch, seed: int, free):
+    """Phase 22 (a): grok-1-314b cut to 1 layer (see the module docstring);
+    returns the line and the launches of one eager step."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as st
+    from repro_torch.models.counting import count_params
+    from repro_torch.models.nn import tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    arch, n = "grok-1-314b", MOE_TRAIN["steps"]
+    opt_cfg = AdamWConfig(lr=1e-3, moment_dtype="bfloat16")
+    cfg, bundle, batches = moe_train_setup(torch, arch, opt_cfg)
+    stack = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    tokens = MOE_TRAIN["batch"] * MOE_TRAIN["seq"]
+    out = {"cut": MOE_TRAIN_CUTS[arch], "parameters": count_params(cfg),
+           "parameters_b": round(count_params(cfg) / 1e9, 2), "param_dtype": "bfloat16",
+           "moment_dtype": "bfloat16", "tokens_per_step": tokens}
+
+    def fresh():
+        params = bundle.model.init(seed)
+        return params, adamw_init(params, opt_cfg)
+
+    torch.use_deterministic_algorithms(True)
+    t0 = time.perf_counter()
+    params, opt = fresh()
+    out["init_s"] = time.perf_counter() - t0
+    grads, gmet = bundle.grad_fn(params, batches[0])
+    out["grads"] = moe_grads_checked(torch, cfg, grads)
+    params, opt, omet = bundle.apply_fn(params, opt, grads)
+    del grads
+    eager_mets, step_ms = [{**gmet, **omet}], []
+    for i in range(1, n):
+        reset_all_launches()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, m = bundle.step_fn(params, opt, batches[i])
+        stop.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(stop))
+        eager_mets.append(m)
+        if i == 1:
+            launches = {k: v for k, v in ops.launch_counts().items() if v}
+    moe_step_launches(torch, cfg, launches)
+    out["eager_step_launches"] = launches
+    eager = {k: torch.stack([m[k] for m in eager_mets]) for k in eager_mets[0]}
+    out["loss"] = eager["loss"].tolist()
+    require(bool(torch.isfinite(eager["loss"]).all()), f"{arch}: a non-finite loss")
+    out["eager_ms_per_step"] = step_ms
+    out["peak_gb_eager"] = torch.cuda.max_memory_allocated() / 1e9
+    # two copies of the state do not fit: the eager one goes to the host
+    t0 = time.perf_counter()
+    keep = {"state": [t.cpu() for t in tree_leaves((params, opt))],
+            "mets": {k: v.cpu() for k, v in eager.items()}}
+    out["host_copy_s"] = time.perf_counter() - t0
+    del params, opt, eager, eager_mets, m
+    free()
+
+    # the same steps as ONE graph launch
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = fresh()
+    multi = st.persistent_steps(bundle, n, stacked=True).step_fn
+    t0 = time.perf_counter()
+    params, opt, mets = multi(params, opt, stack)
+    torch.cuda.synchronize()
+    out["graph_setup_s"] = time.perf_counter() - t0
+    require((multi.dispatches, multi.captures) == (1, 1), f"{arch}: not one graph launch")
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves((params, opt)),
+                                                       keep["state"]))
+    same_m = all(torch.equal(mets[k].cpu(), keep["mets"][k]) for k in keep["mets"])
+    require(same and same_m, f"{arch}: the one-launch steps differ from the eager steps")
+    out["one_launch_equals_eager_bitwise"] = True
+    del keep
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    multi(params, opt, stack)
+    stop.record()
+    torch.cuda.synchronize()
+    out["graph_ms_per_step"] = start.elapsed_time(stop) / n
+    out["dispatches_per_step_graph"] = 1 / n
+    out["dispatches_per_step_eager"] = 1
+    out["tokens_per_s_graph"] = tokens / (out["graph_ms_per_step"] / 1e3)
+    out["tokens_per_s_eager"] = tokens / (statistics.median(step_ms) / 1e3)
+    out["peak_gb_graph"] = torch.cuda.max_memory_allocated() / 1e9
+    del multi, mets
+    free()
+    torch.use_deterministic_algorithms(False)
+
+    # where an eager step's time goes (deterministic algorithms off), and
+    # the MoE layer alone
+    prof = profile_train_step(torch, bundle, params, opt, batches[1])
+    kernels = prof.pop("kernels")
+    out["profile"] = {**prof, "by_kernel_family_ms": kernel_families(kernels),
+                      "top": [{"kernel": k[:90], "ms": t, "count": c}
+                              for k, t, c in kernels[:14]]}
+    out["moe_layer"] = moe_layer_check(torch, cfg, moe_layer_params(cfg, params), seed)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt
+    free()
+    return out, launches
+
+
+def grads_deepseek(torch, seed: int, free):
+    """Phase 22 (b): deepseek-v3-671b cut to 1 dense and 1 MoE layer, its
+    gradient step only (see the module docstring); returns the line and
+    the launches of one eager gradient step."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as st
+    from repro_torch.models.counting import count_params
+    from repro_torch.models.nn import tree_leaves
+
+    arch = "deepseek-v3-671b"
+    cfg, bundle, batches = moe_train_setup(torch, arch)
+    batch = batches[0]
+    out = {"cut": MOE_TRAIN_CUTS[arch], "parameters": count_params(cfg),
+           "parameters_b": round(count_params(cfg) / 1e9, 2), "param_dtype": "bfloat16",
+           "tokens_per_step": MOE_TRAIN["batch"] * MOE_TRAIN["seq"],
+           "step": "gradients only (bundle.grad_fn): the AdamW moments do not fit"}
+    torch.use_deterministic_algorithms(True)
+    t0 = time.perf_counter()
+    params = bundle.model.init(seed)
+    out["init_s"] = time.perf_counter() - t0
+    bundle.grad_fn(params, batch)   # warm: the timed call below is the second
+    torch.cuda.synchronize()
+    reset_all_launches()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    grads, met = bundle.grad_fn(params, batch)
+    stop.record()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    moe_step_launches(torch, cfg, launches)
+    out["eager_step_launches"] = launches
+    out["eager_ms_per_grad_step"] = start.elapsed_time(stop)
+    out["grads"] = moe_grads_checked(torch, cfg, grads)
+    out["metrics"] = {k: float(v) for k, v in met.items()}
+    require(all(math.isfinite(v) for v in out["metrics"].values()),
+            f"{arch}: a non-finite metric {out['metrics']}")
+    out["peak_gb_eager"] = torch.cuda.max_memory_allocated() / 1e9
+    # the graph's gradients live in its own pool: the eager ones go to the host
+    t0 = time.perf_counter()
+    keep = [g.cpu() for g in tree_leaves(grads)], {k: v.cpu() for k, v in met.items()}
+    out["host_copy_s"] = time.perf_counter() - t0
+    del grads, met
+    free()
+
+    # one graph launch of grad_fn
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    static = {k: v.clone() for k, v in batch.items()}
+    st._warm_up(bundle, params, static)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ggrads, gmet = bundle.grad_fn(params, static)
+    graph.replay()
+    torch.cuda.synchronize()
+    out["graph_setup_s"] = time.perf_counter() - t0
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(ggrads), keep[0]))
+    same_m = all(torch.equal(gmet[k].cpu(), v) for k, v in keep[1].items())
+    require(same and same_m, f"{arch}: the graphed gradient step differs from the eager one")
+    out["graph_equals_eager_bitwise"] = True
+    del keep
+    out["graph_ms_per_grad_step"] = events_ms(torch, graph.replay, calls=3)
+    out["tokens_per_s_graph"] = out["tokens_per_step"] / (out["graph_ms_per_grad_step"] / 1e3)
+    out["tokens_per_s_eager"] = out["tokens_per_step"] / (out["eager_ms_per_grad_step"] / 1e3)
+    out["peak_gb_graph"] = torch.cuda.max_memory_allocated() / 1e9
+    del graph, ggrads, gmet, static
+    free()
+    torch.use_deterministic_algorithms(False)
+
+    prof = profile_train_step(torch, bundle, params, None, batch)
+    kernels = prof.pop("kernels")
+    out["profile"] = {**prof, "by_kernel_family_ms": kernel_families(kernels),
+                      "top": [{"kernel": k[:90], "ms": t, "count": c}
+                              for k, t, c in kernels[:14]]}
+    free()
+    out["moe_layer"] = moe_layer_check(torch, cfg, moe_layer_params(cfg, params), seed)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    free()
+    return out, launches
+
+
+def kernel_families(kernels) -> dict:
+    """A profile's device ms by family: flash forward and backward, the
+    RMSNorm forward and backward, GEMMs (cuBLAS / CUTLASS), the rest."""
+    fams = {"flash_fwd": ("flash_wgmma", "flash_fwd", "flash_attention_kernel"),
+            "flash_bwd": ("flash_bwd",), "rmsnorm_bwd": ("rmsnorm_bwd", "rmsnorm_dw"),
+            "rmsnorm": ("rmsnorm",),
+            "gemm": ("gemm", "nvjet", "sm90_xmma", "cutlass", "Kernel2")}
+    out = dict.fromkeys(list(fams) + ["other"], 0.0)
+    for name, ms, _ in kernels:
+        fam = next((f for f, keys in fams.items() if any(key in name for key in keys)),
+                   "other")
+        out[fam] += ms
+    return out
+
+
+def moe_train_kernels(torch, fk, rk, ref, seed: int):
+    """Phase 22 (d): the flash backward at each model's training shape
+    (grok-1: 48/8 heads at 128 with its soft-cap and output multiplier;
+    deepseek-v3: MLA's 128 heads at (192, 128)) and the RMSNorm backward
+    at theirs (d 6144; d 7168, q_norm 1536, kv_norm 512), each held to its
+    plain VJP, then timed as phase 21 times them."""
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator("cuda").manual_seed(seed + 122)
+    B, S = MOE_TRAIN["batch"], MOE_TRAIN["seq"]
+    grok, ds = get_config("grok-1-314b"), get_config("deepseek-v3-671b")
+    cases = (("grok_train", "bf16", B, grok.n_heads, grok.n_kv_heads, S, S, 128, 128,
+              {"logit_softcap": grok.attn_softcap, "scale": grok.attn_output_multiplier}),
+             ("mla_train", "bf16", B, ds.n_heads, ds.n_heads, S, S, 192, 128,
+              {"scale": 192 ** -0.5}))
+    flash, errs = {}, []
+    for name, *case in cases:
+        detail, case_errs, inputs = flash_bwd_case(torch, fk, ref, gen, name, *case)
+        require(detail["route"] == "wgmma", f"{name}: the flash backward is not on the "
+                "tensor-core route")
+        flash[name] = {**detail, **flash_bwd_times(torch, fk, ref, *inputs)}
+        errs += case_errs
+        del inputs
+    norms = dict(check_norm_bwd(torch, rk, ref, gen, (B, S, d), cfg.norm_eps)
+                 for d, cfg in ((grok.d_model, grok), (ds.d_model, ds),
+                                (ds.q_lora_rank, ds), (ds.kv_lora_rank, ds)))
+    return flash, max(errs), norms
+
+
+def run_phase22(torch, seed: int, fk, rk, ref):
+    """Phase 22: train the MoE family at full width (see the module
+    docstring); returns the phase's line, the launches of the eager steps
+    (grok's step 1 and deepseek's gradient step, the counters set to 0
+    just before each), the flash backward's and the RMSNorm backward's
+    entries at the training shapes and the flash backward's largest
+    error there."""
+    import gc
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for arch, cut in MOE_TRAIN_CUTS.items():
+        print(json.dumps({"train_cut": {"model": arch, **cut, "batch": MOE_TRAIN["batch"],
+                                        "seq": MOE_TRAIN["seq"], "param_dtype": "bfloat16",
+                                        "reference_shape": "train_4k",
+                                        "why": MOE_TRAIN_CUT}}), flush=True)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    out = {}
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    out["grok-1-314b"], grok_launches = train_grok(torch, seed, free)
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    out["deepseek-v3-671b"], ds_launches = grads_deepseek(torch, seed, free)
+    free()
+    launches = {k: grok_launches.get(k, 0) + ds_launches.get(k, 0)
+                for k in set(grok_launches) | set(ds_launches)}
+    flash, flash_err, norms = moe_train_kernels(torch, fk, rk, ref, seed)
+    out["flash_backward_at_training_shapes"] = flash
+    out["rmsnorm_backward_at_training_shapes"] = norms
+    out["card"] = gpu_line()
+    free()
+    return out, launches, flash, flash_err, norms
 
 
 def main() -> int:
@@ -4608,6 +5199,27 @@ def main() -> int:
         r["phase21_launches"] = launches21[r["name"]]
     bwd_rows.append(flash_bwd_row)
 
+    # phase 22: training the MoE family at full width
+    t22 = time.perf_counter()
+    moe_train, launches22, flash22, flash22_err, norms22 = run_phase22(torch, args.seed, fk,
+                                                                       rk, ref)
+    moe_train["seconds"] = time.perf_counter() - t22
+    print(json.dumps({"train_moe": moe_train}), flush=True)
+    require(all(launches22.get(k, 0) > 0 for k in ("flash_attention", "rmsnorm",
+                                                   "flash_attention_bwd", "rmsnorm_bwd")),
+            f"phase 22: a kernel never launched training the MoE family: {launches22}")
+    flash_bwd_row["other_shapes"].update(flash22)
+    flash_bwd_row["max_abs_err"] = max(flash_bwd_row["max_abs_err"], flash22_err)
+    bwd_rows[1]["training_shapes"].update(
+        {f"moe_{k}": {n_: v[n_] for n_ in ("ms", "row_pass_ms", "dw_pass_ms", "plain_ms",
+                                          "library_ms", "bound_ms")}
+         for k, v in norms22.items()})
+    bwd_rows[1]["max_abs_err"] = max(
+        [bwd_rows[1]["max_abs_err"]] + [v[n_]["max_abs_err"] for v in norms22.values()
+                                        for n_ in ("dx", "dw")])
+    for r in dense_rows + bwd_rows[1:]:
+        r["phase22_launches"] = launches22.get(r["name"], 0)
+
     rows = rows + dense_rows + [ssd_row, step_row, sched_row] + bwd_rows
     require(sorted(r["name"] for r in rows) == sorted(REPLACES), "a kernel row is missing")
     require(all(r["launches"] > 0 for r in rows), "a kernel was not launched on its path")
@@ -4616,7 +5228,8 @@ def main() -> int:
              "sector_bound_ms", "library_ms", "library_call", "library_fwd_bwd_ms",
              "library_fwd_ms", "training_shapes", "earlier_ms", "cuda_core_ms", "decode",
              "served_shapes", "phase17_launches", "phase18_launches", "phase19_launches",
-             "phase20_launches", "phase21_launches", "shape", "sdpa_kernels", "local_layer",
+             "phase20_launches", "phase21_launches", "phase22_launches", "shape",
+             "sdpa_kernels", "local_layer",
              "other_shapes", "one_program_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in order if k in r} for r in rows]}))
     print(f"card: {gpu_line()}")

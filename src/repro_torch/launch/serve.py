@@ -22,10 +22,10 @@ reference.  Every dispatch takes the whole input batch into its graph:
 the tokens and a config's ``audio_embeds`` or ``vision_embeds``.
 ``serve_window`` narrows the attention windows as the reference's does
 (``transformer.layer_window_theta``).  MLA's caches (``c_kv``,
-``k_rope``) are written in place as K and V are.  Continuous batching of
-a MoE config raises ``NotImplementedError``: with capacity drops a
-token's experts depend on its batch-mates, so admitted slots cannot
-match serial serving (``ROADMAP.md``).  On one GPU there is no mesh or
+``k_rope``) are written in place as K and V are.  A MoE config's
+admission prefills the whole batch, each MoE layer's capacity taken from
+that call's tokens, as the reference's does: under capacity drops a
+slot's tokens depend on its batch-mates there too.  On one GPU there is no mesh or
 sharding bundle: the engine calls the model directly.
 :func:`build_admission_schedule` gives the admission handoff as a
 two-queue ST schedule for the verifier.
@@ -326,14 +326,6 @@ class ServeEngine:
 
     def _admit_decode_fn(self, params, caches, tok, active, rem, batch_in, admit,
                          new_rem):
-        if self.cfg.n_experts:
-            # under capacity drops a token's experts depend on the tokens
-            # routed beside it, in the reference too, so admitted slots
-            # could not give the tokens of serial serving
-            raise NotImplementedError(
-                f"{self.cfg.name}: continuous batching of a MoE config is not ported "
-                f"(ROADMAP.md): its capacity drops make a slot's tokens depend on its "
-                f"batch-mates")
         state = (caches, tok, active, rem, batch_in, admit, new_rem)
         (caches, tok, active, rem, *_), (first, out, n) = self._graphed(
             ("admit_decode", tuple(batch_in["tokens"].shape)), self._admit_decode_inner,

@@ -32,6 +32,30 @@ on every run:
   them one after another in ascending expert order, the order in which
   the reference's ``segment_sum`` meets them in the sorted assignments.
 
+The dispatch and the combine are ``torch.autograd.Function`` classes
+(:class:`_Dispatch`, :class:`_Combine`) whose backwards are gathers
+added in a fixed order, so the layer's backward gives the same bits on
+every run and in a graph, with or without
+``torch.use_deterministic_algorithms`` (autograd of ``index_select``
+would add into shared rows with float atomics).  A whole training step
+is not yet so: the embedding's lookup (``nn.apply_embedding``) is an
+``index_select`` whose backward adds with float atomics on CUDA, and
+needs deterministic mode for equal bits.
+
+* the dispatch's backward gives token ``t`` the sum of its kept slots'
+  gradients, ``dx[t] = Σ_j dxin[slot[t, j]]``, added in ascending expert
+  order: the order in which the reference's scatter-add (the autodiff of
+  ``x_pad[dispatch]``) meets a token's slots.  Empty slots give nothing;
+* the combine's backward gives each filled slot ``dy[t] · w[a]`` of the
+  one assignment ``a`` that fills it (the slot → assignment map
+  :func:`dispatch_plan` computes anyway), empty slots zero, and each
+  assignment's weight ``keep[a] · <dy[t], yout[slot[a]]>`` with the
+  product rounded in ``yout``'s dtype.
+
+The router's ``torch.gather`` of the top-k scores stays under autograd:
+its indices are a row's distinct top-k experts, so its backward never
+adds two values into one address.
+
 ``apply_moe_ep`` (the reference's expert-parallel ``shard_map`` path)
 needs a mesh context; on one card there is none, so it returns None and
 ``apply_moe`` takes the gather path, as the reference does on one device.
@@ -121,12 +145,13 @@ def apply_moe_ep(p, x: torch.Tensor, cfg: ModelConfig) -> Optional[Tuple[torch.T
 def dispatch_plan(idx: torch.Tensor, n_experts: int, capacity: int):
     """The sort-based dispatch of the assignments ``idx [T, k]`` (token
     ``t``'s ``j``-th expert is assignment ``t·k + j``): returns
-    ``(dispatch [E·C], slot [T·k], keep [T·k])``.  ``dispatch[e·C + c]``
-    is the token in expert ``e``'s capacity slot ``c``, ``T`` (the zero
-    row) where the slot is empty; ``slot[a]`` is where assignment ``a``'s
-    output lies (its expert's slot 0 when dropped) and ``keep[a]`` whether
-    it fits the capacity.  Assignments sort by expert, stably; an expert
-    keeps its first ``C``."""
+    ``(dispatch [E·C], slot [T·k], keep [T·k], source [E·C])``.
+    ``dispatch[e·C + c]`` is the token in expert ``e``'s capacity slot
+    ``c``, ``T`` (the zero row) where the slot is empty; ``slot[a]`` is
+    where assignment ``a``'s output lies (its expert's slot 0 when
+    dropped) and ``keep[a]`` whether it fits the capacity; ``source`` is
+    the assignment that fills each slot (``T·k`` where it is empty).
+    Assignments sort by expert, stably; an expert keeps its first ``C``."""
     T, k = idx.shape
     E, C, A = n_experts, capacity, T * k
     flat_e = idx.reshape(A)
@@ -137,42 +162,98 @@ def dispatch_plan(idx: torch.Tensor, n_experts: int, capacity: int):
     # the capacity slots: sorted assignment first[e] + c, while it is e's
     src = first[:, None] + torch.arange(C, device=idx.device)[None, :]
     filled = src < last[:, None]
-    tokens = torch.div(order, k, rounding_mode="floor")
-    dispatch = torch.where(filled, tokens[src.clamp(max=A - 1)], T).reshape(E * C)
+    source = torch.where(filled, order[src.clamp(max=A - 1)], A).reshape(E * C)
+    dispatch = torch.where(source < A, torch.div(source, k, rounding_mode="floor"), T)
     # each assignment's rank within its expert, in the original order
     rank_sorted = torch.arange(A, device=idx.device) - first[se]
     rank = torch.empty_like(rank_sorted).index_put_((order,), rank_sorted)
     keep = rank < C
     slot = flat_e * C + torch.where(keep, rank, 0)
-    return dispatch, slot, keep
+    return dispatch, slot, keep, source
+
+
+class _Dispatch(torch.autograd.Function):
+    """``xin [E·C, D]``: the rows of ``x2d [T, D]`` at ``dispatch``, zeros
+    in the empty slots.  Backward: each token's kept slots' gradients
+    (``slot``, ``keep`` ``[T, k]``: each token's assignments in ascending
+    expert order) gathered and added in that order, no float atomics."""
+
+    @staticmethod
+    def forward(ctx, x2d, dispatch, slot, keep):
+        T = x2d.shape[0]
+        xin = x2d.index_select(0, dispatch.clamp(max=T - 1))
+        xin.masked_fill_((dispatch == T)[:, None], 0)
+        ctx.save_for_backward(slot, keep)
+        return xin
+
+    @staticmethod
+    def backward(ctx, dxin):
+        slot, keep = ctx.saved_tensors
+        dx = None
+        for j in range(slot.shape[1]):
+            term = torch.where(keep[:, j, None], dxin.index_select(0, slot[:, j]), 0)
+            dx = term if dx is None else dx + term
+        return dx, None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """``y [T, D]``: each token's kept expert outputs (``yout [E·C, D]`` at
+    ``slot``) weighted by ``w [T, k]`` and added in ascending expert
+    order, in ``yout``'s dtype (``slot``, ``keep`` and ``by_expert``
+    ``[T, k]``: each token's assignments in that order).  Backward: a
+    gather per filled slot (its assignment from ``source``) and a row
+    product per assignment, no float atomics."""
+
+    @staticmethod
+    def forward(ctx, yout, w, slot, keep, source, by_expert):
+        wk = (torch.gather(w, 1, by_expert) * keep).to(yout.dtype)
+        y = None
+        for j in range(slot.shape[1]):
+            c = yout.index_select(0, slot[:, j]) * wk[:, j, None]
+            y = c if y is None else y + c
+        ctx.save_for_backward(yout, w, slot, keep, source, by_expert)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        yout, w, slot, keep, source, by_expert = ctx.saved_tensors
+        T, k = w.shape
+        A = T * k
+        dyout = dw = None
+        if ctx.needs_input_grad[0]:
+            a = source.clamp(max=A - 1)
+            dyout = (dy.index_select(0, torch.div(a, k, rounding_mode="floor"))
+                     * w.reshape(-1).to(dy.dtype).index_select(0, a)[:, None])
+            dyout.masked_fill_((source == A)[:, None], 0)
+        if ctx.needs_input_grad[1]:
+            rows = yout.index_select(0, slot.reshape(-1)).view(T, k, -1)
+            dw = torch.where(keep, (dy[:, None, :] * rows).sum(-1).to(w.dtype), 0)
+            # back from ascending expert order to w's: a row's inverse permutation
+            dw = torch.gather(dw, 1, torch.argsort(by_expert, dim=1))
+        return dyout, dw, None, None, None, None
 
 
 def _dispatch(x2d: torch.Tensor, idx: torch.Tensor, n_experts: int, capacity: int):
     """The experts' capacity buffers ``xin [E, C, D]`` of ``x2d [T, D]``
-    (zeros in empty slots), with :func:`dispatch_plan`'s ``slot`` and
-    ``keep``."""
-    T, D = x2d.shape
-    dispatch, slot, keep = dispatch_plan(idx, n_experts, capacity)
-    x_pad = torch.cat([x2d, x2d.new_zeros((1, D))], dim=0)
-    return x_pad.index_select(0, dispatch).view(n_experts, capacity, D), slot, keep
-
-
-def _combine(yout: torch.Tensor, idx: torch.Tensor, w: torch.Tensor, slot: torch.Tensor,
-             keep: torch.Tensor) -> torch.Tensor:
-    """Each token's kept expert outputs (``yout [E·C, D]`` at ``slot``),
-    weighted by ``w`` and added one after another in ascending expert
-    order, the order the reference's ``segment_sum`` meets them in the
-    sorted assignments: ``[T, D]`` in ``yout``'s dtype."""
+    (zeros in empty slots) and the plan the combine takes: ``(slot, keep,
+    source, by_expert)`` (:func:`dispatch_plan`), with ``slot`` and
+    ``keep`` ``[T, k]`` in the order ``by_expert`` gives each token's
+    assignments: ascending expert order."""
     T, k = idx.shape
-    D = yout.shape[-1]
-    contrib = yout.index_select(0, slot) * (w.reshape(-1) * keep).to(yout.dtype)[:, None]
-    contrib = contrib.view(T, k, D)
+    dispatch, slot, keep, source = dispatch_plan(idx, n_experts, capacity)
     by_expert = torch.sort(idx, dim=1, stable=True)[1]
-    y = None
-    for j in range(k):
-        c = torch.gather(contrib, 1, by_expert[:, j, None, None].expand(T, 1, D))[:, 0]
-        y = c if y is None else y + c
-    return y
+    slot = torch.gather(slot.view(T, k), 1, by_expert)
+    keep = torch.gather(keep.view(T, k), 1, by_expert)
+    xin = _Dispatch.apply(x2d, dispatch, slot, keep)
+    return xin.view(n_experts, capacity, x2d.shape[1]), (slot, keep, source, by_expert)
+
+
+def _combine(yout: torch.Tensor, w: torch.Tensor, plan) -> torch.Tensor:
+    """Each token's kept expert outputs (``yout [E·C, D]``), weighted by
+    ``w`` and added one after another in ascending expert order, the order
+    the reference's ``segment_sum`` meets them in the sorted assignments:
+    ``[T, D]`` in ``yout``'s dtype."""
+    return _Combine.apply(yout, w, *plan)
 
 
 def apply_moe(p, x: torch.Tensor, cfg: ModelConfig, *,
@@ -191,9 +272,10 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig, *,
     if capacity is None:
         capacity = max(1, int(math.ceil(T * cfg.top_k / E * cfg.capacity_factor)))
     C = capacity
-    xin, slot, keep = _dispatch(x2d, idx, E, C)
+    xin, plan = _dispatch(x2d, idx, E, C)
+    keep = plan[1]
     yout = _expert_ffn(p, xin, cfg).reshape(E * C, D)
-    y = _combine(yout, idx, w, slot, keep).reshape(B, S, D).to(x.dtype)
+    y = _combine(yout, w, plan).reshape(B, S, D).to(x.dtype)
 
     # shared experts (dense path, always on)
     if "shared_wi" in p:

@@ -15,6 +15,10 @@ updated, bias-corrected, and weight decay added only where
   corrections are 0-d device tensors computed from ``state["step"]``: a
   Python float computed on the host would be frozen into a captured
   graph.
+
+A leaf of more than :data:`CHUNK` elements is updated a chunk at a time
+(the same bits: the update is elementwise), so that its float32
+temporaries fit beside a full-width MoE model's state.
 """
 
 from __future__ import annotations
@@ -36,6 +40,12 @@ class AdamWConfig:
     weight_decay: float = 0.1
     clip_norm: float = 1.0
     moment_dtype: str = "float32"   # float32 | bfloat16
+
+
+#: elements of a leaf updated at a time: a float32 temporary of a chunk is
+#: 1 GiB, where one of a whole full-width expert stack (grok-1's ``wi``,
+#: 1.6 B elements) would be 6.4 GB
+CHUNK = 1 << 28
 
 
 def adamw_init(params, cfg: AdamWConfig) -> Dict[str, Any]:
@@ -71,13 +81,17 @@ def adamw_update(params, grads, state, cfg: AdamWConfig,
     bc2 = 1.0 - torch.pow(cfg.b2, step_f)
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(state["m"]), tree_leaves(state["v"])):
-        _update_leaf(p, g, m, v, cfg, scale, lr, bc1, bc2)
+        decay = bool(cfg.weight_decay) and p.dim() >= 2   # no decay on norms and biases
+        for parts in zip(p.view(-1).split(CHUNK), g.reshape(-1).split(CHUNK),
+                         m.view(-1).split(CHUNK), v.view(-1).split(CHUNK)):
+            _update_leaf(*parts, cfg, scale, lr, bc1, bc2, decay)
     return params, state, {"grad_norm": gnorm, "lr": lr}
 
 
-def _update_leaf(p, g, m, v, cfg: AdamWConfig, scale, lr, bc1, bc2) -> None:
-    """The reference's ``upd`` for one leaf, written into p, m and v, with
-    at most two leaf-sized temporaries."""
+def _update_leaf(p, g, m, v, cfg: AdamWConfig, scale, lr, bc1, bc2, decay: bool) -> None:
+    """The reference's ``upd`` for one leaf (or a chunk of one: the
+    arithmetic is elementwise), written into p, m and v, with at most
+    four float32 temporaries of its size."""
     g32 = g.float() * scale
     m32 = m.float()  # m itself when the moments are float32
     m32.mul_(cfg.b1).add_(g32 * (1 - cfg.b1))
@@ -90,7 +104,7 @@ def _update_leaf(p, g, m, v, cfg: AdamWConfig, scale, lr, bc1, bc2) -> None:
     den = torch.div(v32, bc2).sqrt_().add_(cfg.eps)
     delta = torch.div(m32, bc1, out=g32).div_(den)   # g32 is free: reuse it
     del den
-    if cfg.weight_decay and p.dim() >= 2:  # no decay on norms and biases
+    if decay:
         delta.add_(p.float() * cfg.weight_decay)
     delta.mul_(lr)
     if p.dtype == torch.float32:

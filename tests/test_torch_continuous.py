@@ -9,6 +9,15 @@ scaled by 8 in both packages, as in ``tests/test_torch_dense.py``: at the
 init scale every slot of either repeats its last prompt token, so the
 tokens would not depend on attention.  Prompts are seeded numpy draws.
 
+Two MoE smoke models, deepseek-v3-671b (MLA, a sigmoid router over 4
+experts, the MTP head) and grok-1-314b (softmax router, soft-capped GQA),
+at the init scale (their tokens are no echo there): an admission
+prefills the whole batch, so under capacity drops a slot's experts depend
+on its batch-mates, in both packages alike.  They are held to (i) without
+the EOS slot and to (iii) against JAX's tokens only: serving a prompt
+alone is another batch, so equality with serial serving is not a
+property of these configs.
+
 Asserted, for each model:
 
 (i) a scripted mixed-depth sequence — admit slots 0 and 1, one decode
@@ -59,6 +68,8 @@ from repro_torch.models.convert import caches_to_numpy, from_reference_params
 from repro_torch.models.nn import tree_leaves, tree_map
 
 ARCHS = ["qwen1.5-0.5b", "gemma3-1b", "mamba2-2.7b"]
+DENSE = ("qwen1.5-0.5b", "gemma3-1b")
+MOE_ARCHS = ["deepseek-v3-671b", "grok-1-314b"]
 #: tests/test_torch_dense.py's CHUNKED_REL: both sides compute in float32
 #: and differ by reassociation only
 CHUNKED_REL = 32 * 2.0 ** -23
@@ -80,7 +91,7 @@ def _pair(arch):
     """(jax config, jax params, port config, port params) at the smoke size."""
     jcfg, cfg = jax_get_config(arch).smoke(), get_config(arch).smoke()
     jp = jax.tree.map(np.asarray, JaxModel(jcfg).init(jax.random.PRNGKey(0))[0])
-    if arch != "mamba2-2.7b":
+    if arch in DENSE:
         jp = {**jp, "decoder": _boost(jp["decoder"], 8)}
     return jcfg, jax.tree.map(jnp.asarray, jp), cfg, from_reference_params(jp, cfg, "cpu")
 
@@ -348,3 +359,52 @@ def test_boosted_dense_tokens_are_not_an_echo(arch):
     gen, _ = serve(cfg, batch=4, prompt_len=8, gen_len=4, params=params,
                    batch_in={"tokens": torch.from_numpy(prompts)}, device="cpu")
     assert (gen != prompts[:, -1:]).any(axis=1).all()
+
+
+# -- the MoE configs -------------------------------------------------------------
+
+
+@pytest.fixture(scope="module", params=MOE_ARCHS)
+def moe_pair(request):
+    return _pair(request.param)
+
+
+def test_moe_admit_decode_equals_jax(moe_pair):
+    """(i) for the MoE configs: every round's outputs equal JAX's bit for
+    bit, the active slots' caches within ``CHUNKED_REL``; slots 0 and 1
+    are in flight when 2 and 3 come, and every slot runs to ``GEN``."""
+    rounds = _scripted(moe_pair)
+    _check_rounds(rounds)
+    assert rounds[1][1]["active"][:2].all()
+    np.testing.assert_array_equal(rounds[1][3]["pos"][:2], PROMPT + 2 * CHUNK)
+    emitted = [sum(int(r[1]["n"][s]) + int(r[1]["first"][s] != PAD_TOKEN) for r in rounds)
+               for s in range(SLOTS)]
+    assert emitted == [GEN] * SLOTS
+
+
+def test_moe_serve_continuous_equals_jax(moe_pair):
+    """(iii) for the MoE configs: 5 requests, 2 slots, chunk 3, rate 0;
+    each request's tokens equal JAX's bit for bit, and the dispatch stats
+    equal JAX's."""
+    jcfg, jp, cfg, params = moe_pair
+    n, slots, chunk, prompt, gen = 5, 2, 3, 8, 6
+    prompts = _prompts(cfg, n, prompt, seed=1)
+    mesh = jax_make_mesh((1, 1), ("data", "model"))
+    jeng = JaxServeEngine(jcfg, mesh, slots=slots, prompt_len=prompt, max_new=gen,
+                          chunk=chunk)
+    with mesh:
+        jparams = jax.device_put(jp, jeng.pre.in_shardings[0])
+    jres, jstats = jax_serve_continuous(
+        jcfg, mesh, slots=slots, prompt_len=prompt, max_new=gen, n_requests=n,
+        chunk=chunk, params=jparams, prompts={"tokens": jnp.asarray(prompts)}, engine=jeng)
+    res, stats = serve_continuous(
+        cfg, slots=slots, prompt_len=prompt, max_new=gen, n_requests=n, chunk=chunk,
+        params=params, prompts={"tokens": torch.from_numpy(prompts)}, device="cpu")
+    assert [r.rid for r in res] == [r.rid for r in jres] == list(range(n))
+    for r, jr in zip(res, jres):
+        assert r.tokens.dtype == np.int32 and len(r.tokens) == gen
+        np.testing.assert_array_equal(r.tokens, np.asarray(jr.tokens))
+    for k in ("dispatches", "admit_dispatches", "decode_dispatches",
+              "prefill_dispatches", "sync_points", "total_tokens"):
+        assert stats[k] == jstats[k], k
+    assert stats["prefill_dispatches"] == 0

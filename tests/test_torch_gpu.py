@@ -39,6 +39,8 @@ machine without it::
 """
 
 import dataclasses
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -80,6 +82,8 @@ from repro_torch.models import Model
 from repro_torch.models.nn import tree_leaves, tree_map
 
 pytestmark = pytest.mark.gpu
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 REGIONS = [
     (slice(0, 1), slice(0, 5), slice(0, 7)),
@@ -954,7 +958,7 @@ def test_moe_prefill_graph_equals_eager_and_serves_as_the_cpu(cuda, arch, dtype)
 
 def _continuous_params(arch, cuda):
     cfg = get_config(arch).smoke()
-    params = (_boosted_dense_params(cfg) if arch != "mamba2-2.7b"
+    params = (_boosted_dense_params(cfg) if arch in ("qwen1.5-0.5b", "gemma3-1b")
               else Model(cfg).init(0, device="cpu"))
     return cfg, tree_map(lambda t: t.to(cuda), params)
 
@@ -967,7 +971,8 @@ def _admit_args(cfg, slots, prompt_len, max_new, admit, seed, cuda):
             torch.from_numpy(np.where(mask, max_new, 0).astype(np.int32)).to(cuda))
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma3-1b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma3-1b", "mamba2-2.7b",
+                                  "deepseek-v3-671b", "grok-1-314b"])
 def test_admit_graph_equals_eager(cuda, arch):
     """Admit slots 0 and 1, one decode round, admit slots 2 and 3: each
     admission is ONE graph launch equal to the eager admission on the same
@@ -2096,6 +2101,64 @@ def _train_setup(device, remat="block", scan_layers=True):
     batches = [{k: torch.from_numpy(v).to(device) for k, v in source.batch(i).items()}
                for i in range(3)]
     return cfg, bundle, batches
+
+
+def _plain_moe_backwards(*args):
+    """``chip_smoke.plain_moe_backwards``: the dispatch's and the combine's
+    backwards written plainly."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    return chip_smoke.plain_moe_backwards(torch, *args)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "grok-1-314b"])
+def test_moe_layer_backward_is_deterministic_without_the_mode(cuda, arch):
+    """The MoE layer's forward and backward in bf16 at smoke width (8
+    experts, top-2, 96 tokens; at the default capacity and at one that
+    drops), run twice with ``torch.use_deterministic_algorithms(False)``:
+    the output and every gradient (x, the router, the experts) equal bit
+    for bit; the dispatch's and the combine's gradients equal their plain
+    versions bit for bit."""
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config(arch).smoke(), n_experts=8, dtype="bfloat16",
+                              param_dtype="bfloat16")
+    p = moe.init_moe(torch.Generator(cuda).manual_seed(3), cfg, device=cuda)
+    mode = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(False)
+    try:
+        for capacity in (None, 4):
+            runs = []
+            for _ in range(2):
+                live = {k: v.detach().requires_grad_(k != "router_bias") for k, v in p.items()}
+                x = _field((4, 24, cfg.d_model), BF16, cuda, 5).requires_grad_()
+                y, aux = moe.apply_moe(live, x, cfg, capacity=capacity)
+                dy = _field(tuple(y.shape), BF16, cuda, 6)
+                wrt = [x] + [v for k, v in live.items() if k != "router_bias"]
+                grads = torch.autograd.grad((y * dy).sum() + aux["lb_loss"], wrt)
+                runs.append([y.detach(), *grads])
+            if capacity:
+                assert float(aux["dropped_frac"]) > 0
+            assert all(torch.equal(a, b) for a, b in zip(*runs)), (arch, capacity)
+            # the two Functions alone against their plain backwards
+            T, E = 96, cfg.n_experts
+            x2d = _field((T, cfg.d_model), BF16, cuda, 7).requires_grad_()
+            idx, w, _ = moe._route(p, x2d.detach(), cfg)
+            C = capacity or int(np.ceil(T * cfg.top_k / E * cfg.capacity_factor))
+            xin, plan = moe._dispatch(x2d, idx, E, C)
+            dxin = _field((E * C, cfg.d_model), BF16, cuda, 8)
+            (dx,) = torch.autograd.grad(xin.reshape(E * C, -1), x2d, dxin)
+            yout = _field((E * C, cfg.d_model), BF16, cuda, 9).requires_grad_()
+            wl = w.detach().requires_grad_()
+            dy = _field((T, cfg.d_model), BF16, cuda, 10)
+            dyout, dw = torch.autograd.grad(moe._combine(yout, wl, plan), (yout, wl), dy)
+            _, slot, keep, _ = moe.dispatch_plan(idx, E, C)
+            want = _plain_moe_backwards(dxin, dy, yout.detach(), wl.detach(), slot, keep)
+            for name, got, ref_ in zip(("dx", "dyout", "dw"), (dx, dyout, dw), want):
+                assert torch.equal(got, ref_), (arch, capacity, name)
+    finally:
+        torch.use_deterministic_algorithms(mode)
 
 
 def _fresh_state(cfg, device):

@@ -30,6 +30,24 @@ configs equal; ``build_moe_dispatch_program``'s digest and collective
 counts equal the reference's, its result equals the plain tiled
 all-to-all, and it refuses indivisible experts; the full-size parameter
 shapes on the meta device equal ``abstract_init()``.
+
+The dispatch's and the combine's backwards (``moe._Dispatch``,
+``moe._Combine``): their forwards and VJPs against ``jax.vjp`` of the
+reference's expressions at both routers' (experts, top-k), at a
+capacity that drops assignments and leaves slots empty (float32 at
+``TIGHT``, bf16 at ``BF16_TOL`` with the weight gradients of unit
+scale); at unit-variance bf16 inputs, the weight gradient within its
+rounding bound of a float64 witness and nearer it than the
+reference's, which adds in bf16; the dispatch's sum equal bit for bit
+to an explicit ascending-expert-order sum on gradients another order
+rounds otherwise, the combine's to the plain per-slot and per-assignment
+products; no ``IndexSelectBackward0``, ``IndexBackward0`` or
+``IndexPutBackward0`` node in ``apply_moe``'s graph.  Both smoke models'
+3 train steps with bf16 AdamW moments, single and as one
+``persistent_steps`` dispatch, against ``repro.launch.steps`` under a
+1x1 mesh (where the reference takes ``apply_moe_ep`` at ``C_loc = C``):
+the loss trace at rtol 1e-4, the parameters at rtol = atol = 2e-3
+(``tests/test_torch_train.py``'s bounds).
 """
 
 import dataclasses
@@ -46,6 +64,8 @@ import repro.core.effects as jeffects
 from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs import SHAPES as JAX_SHAPES
 from repro.configs import get_config as jax_get_config
+from repro.configs.base import ShapeConfig as JaxShape
+from repro.launch import steps as jsteps
 from repro.launch.serve import ServeEngine as JaxServeEngine
 from repro.launch.serve import serve as jax_serve
 from repro.launch.serve import synthetic_batch as jax_synthetic_batch
@@ -53,16 +73,22 @@ from repro.models import Model as JaxModel
 from repro.models import counting as jcounting
 from repro.models import moe as jmoe
 from repro.models import nn as jnn
+from repro.optim import AdamWConfig as JaxAdamW
+from repro.optim import adamw_init as jax_adamw_init
 from repro.parallel import make_mesh as jax_make_mesh
 from repro_torch import make_mesh
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import program_digest
 from repro_torch.core import FusedEngine
+from repro_torch.data import SyntheticTokens
+from repro_torch.launch import steps
 from repro_torch.launch.serve import ServeEngine, serve, synthetic_batch
 from repro_torch.models import Model, counting, moe
 from repro_torch.models import nn
 from repro_torch.models.convert import caches_to_numpy, from_reference_params
 from repro_torch.models.nn import tree_leaves
+from repro_torch.optim import AdamWConfig, adamw_init
 
 ARCHS = ["deepseek-v3-671b", "grok-1-314b"]
 PROMPT, GEN, SLOTS = 12, 5, 4
@@ -276,11 +302,12 @@ def test_apply_moe_equals_the_reference(arch, capacity):
 def test_dispatch_plan_is_the_sorted_capacity_model():
     """Expert 1 gets 5 assignments at capacity 3: the first 3 in token
     order are kept, 2 dropped into expert 1's slot 0; an empty slot holds
-    the zero row ``T``."""
+    the zero row ``T`` and the filling assignment ``T·k``."""
     idx = torch.tensor([[1, 0], [1, 2], [2, 1], [1, 3], [1, 0]])   # T 5, k 2
-    dispatch, slot, keep = moe.dispatch_plan(idx, 4, 3)
-    T = 5
+    dispatch, slot, keep, source = moe.dispatch_plan(idx, 4, 3)
+    T, A = 5, 10
     assert dispatch.view(4, 3).tolist() == [[0, 4, T], [0, 1, 2], [1, 2, T], [3, T, T]]
+    assert source.view(4, 3).tolist() == [[1, 9, A], [0, 2, 5], [3, 4, A], [7, A, A]]
     assert keep.view(5, 2).tolist() == [[True, True], [True, True], [True, True],
                                          [False, True], [False, True]]
     assert slot.view(5, 2).tolist() == [[3, 0], [4, 6], [7, 5], [3, 9], [3, 1]]
@@ -304,6 +331,223 @@ def test_moe_equals_dense_mixture_when_capacity_ample():
     want = sum(torch.gather(dense, 1, idx[:, kk, None, None].expand(T, 1, cfg.d_model))[:, 0]
                * w[:, kk, None] for kk in range(cfg.top_k))
     torch.testing.assert_close(y.reshape(T, -1), want, rtol=1e-5, atol=1e-5)
+
+
+# -- the dispatch's and the combine's backwards ----------------------------------
+
+#: both routers' (experts, top-k), with a token count and a capacity at
+#: which some assignments drop and some slots stay empty
+FN_SHAPES = {"deepseek": (256, 8, 40, 2), "grok": (8, 2, 40, 8)}
+#: bf16: two bf16 ulps at 1
+BF16_TOL = dict(rtol=1.6e-2, atol=1.6e-2)
+
+
+def _assignments(E, k, T, seed):
+    """Each token's ``k`` distinct experts, skewed towards the low ids so
+    that some experts overflow and others stay short of the capacity."""
+    rng = np.random.RandomState(seed)
+    score = rng.rand(T, E) + np.linspace(1.0, 0.0, E)[None, :]
+    return np.argsort(-score, axis=1, kind="stable")[:, :k].astype(np.int32)
+
+
+def _reference_dispatch_combine(idx, E, C):
+    """The reference's dispatch and combine (``repro/models/moe.py``'s
+    ``apply_moe``, the sort-based dispatch through the weighted
+    ``segment_sum``) as functions of ``x2d`` and of ``(yout, w)``."""
+    T, k = idx.shape
+    flat_e = jnp.asarray(idx).reshape(T * k)
+    flat_t = jnp.repeat(jnp.arange(T), k)
+    order = jnp.argsort(flat_e, stable=True)
+    se, st = flat_e[order], flat_t[order]
+    counts = jnp.bincount(flat_e, length=E)
+    starts = jnp.cumsum(counts) - counts
+    rank = jnp.arange(T * k) - starts[se]
+    keep = rank < C
+    slot = se * C + jnp.where(keep, rank, 0)
+    slot_scatter = jnp.where(keep, slot, E * C)
+    dispatch = jnp.full((E * C + 1,), T, dtype=jnp.int32).at[
+        slot_scatter].set(jnp.where(keep, st, T))[:E * C]
+
+    def dispatch_fn(x2d):
+        x_pad = jnp.concatenate([x2d, jnp.zeros((1, x2d.shape[1]), x2d.dtype)], axis=0)
+        return x_pad[dispatch].reshape(E * C, -1)
+
+    def combine_fn(yout, w):
+        sw = w.reshape(T * k)[order]
+        y_flat = yout[slot]
+        contrib = y_flat * (sw * keep).astype(y_flat.dtype)[:, None]
+        return jax.ops.segment_sum(contrib, st, num_segments=T)
+
+    return dispatch_fn, combine_fn
+
+
+def _port_vjps(idx, E, C, x, yout, w, dxin, dy):
+    """The port's dispatch and combine VJPs: ``(xin, dx)`` and ``(y, dyout,
+    dw)``."""
+    x, yout, w = (t.clone().requires_grad_() for t in (x, yout, w))
+    xin, plan = moe._dispatch(x, idx, E, C)
+    (dx,) = torch.autograd.grad(xin.reshape(E * C, -1), x, dxin)
+    y = moe._combine(yout, w, plan)
+    dyout, dw = torch.autograd.grad(y, (yout, w), dy)
+    return xin.detach().reshape(E * C, -1), dx, y.detach(), dyout, dw
+
+
+def _both_vjps(router, dtype, D, div):
+    """The port's and the reference's (``jax.vjp``) forwards and VJPs,
+    ``{xin, dx, y, dyout, dw}`` each, on one seeded draw at both routers'
+    (experts, top-k) and a capacity that drops assignments and leaves
+    slots empty; ``yout`` and ``dy`` are unit normals over ``div``.  Also
+    the inputs as given (``idx``, ``yout``, ``dy``, ``dtype``'s values in
+    float64)."""
+    E, k, T, C = FN_SHAPES[router]
+    idx = _assignments(E, k, T, seed=E)
+    dispatch, _, keep, _ = moe.dispatch_plan(torch.from_numpy(idx).long(), E, C)
+    assert not bool(keep.all()) and bool((dispatch == T).any())   # drops and empty slots
+    rng = np.random.RandomState(k)
+    x, dxin = (rng.randn(*shape).astype(np.float32) for shape in ((T, D), (E * C, D)))
+    yout, dy = ((rng.randn(*shape) / div).astype(np.float32)
+                for shape in ((E * C, D), (T, D)))
+    w = rng.rand(T, k).astype(np.float32)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    tx, tyout, tdxin, tdy = (torch.from_numpy(a).to(tdt) for a in (x, yout, dxin, dy))
+    got = _port_vjps(torch.from_numpy(idx).long(), E, C, tx, tyout,
+                     torch.from_numpy(w), tdxin, tdy)
+    dispatch_fn, combine_fn = _reference_dispatch_combine(idx, E, C)
+    jxin, jvjp = jax.vjp(dispatch_fn, jnp.asarray(x, jdt))
+    (jdx,) = jvjp(jnp.asarray(dxin, jdt))
+    jy, jvjp = jax.vjp(combine_fn, jnp.asarray(yout, jdt), jnp.asarray(w))
+    jdyout, jdw = jvjp(jnp.asarray(dy, jdt))
+    names = ("xin", "dx", "y", "dyout", "dw")
+    for name, t in zip(names, got):
+        assert t.dtype == (torch.float32 if name == "dw" else tdt), name
+    port = {n: t.double().numpy() for n, t in zip(names, got)}
+    ref = {n: np.asarray(a, np.float64) for n, a in zip(names, (jxin, jdx, jy, jdyout, jdw))}
+    given = (idx, tyout.double().numpy(), tdy.double().numpy())
+    return port, ref, given
+
+
+@pytest.mark.parametrize("router", sorted(FN_SHAPES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dispatch_and_combine_vjps_match_jax(router, dtype):
+    """The forwards and VJPs of ``_dispatch`` and ``_combine`` against
+    ``jax.vjp`` of the reference's expressions on the same ``idx``, ``w``,
+    ``x``, ``yout`` and cotangents, at a capacity that drops assignments
+    and leaves slots empty: float32 at ``TIGHT``, bf16 at
+    ``BF16_TOL``.  ``yout`` and ``dy`` are drawn at ``D^-1/2``, so that
+    each weight's gradient, a sum of ``D`` products, is of unit scale,
+    where the bf16 bound's two ulps are; at unit variance the test
+    below holds the bf16 weight gradient to a float64 witness."""
+    D = 24
+    port, ref, _ = _both_vjps(router, dtype, D, np.sqrt(D))
+    tol = TIGHT if dtype == "float32" else BF16_TOL
+    for name in port:
+        np.testing.assert_allclose(port[name], ref[name], err_msg=name, **tol)
+
+
+#: the unit roundoffs of bf16 and float32
+U_BF16, U_F32 = 2.0 ** -8, 2.0 ** -24
+
+
+@pytest.mark.parametrize("router", sorted(FN_SHAPES))
+@pytest.mark.parametrize("D", [24, 256])
+def test_bf16_weight_gradient_at_unit_scale_against_a_float64_witness(router, D):
+    """bf16 with ``yout`` and ``dy`` at unit variance, where each weight's
+    gradient ``<dy[t], yout[slot[a]]>`` sums ``D`` products of unit scale:
+    ``xin``, ``dx``, ``y`` and ``dyout`` equal JAX's within ``BF16_TOL``.
+    ``dw`` is held to the witness, the exact sum of the same bf16 inputs'
+    products in float64.  The port rounds each product to bf16 (as
+    autograd of the reference's expression does) and adds in float32, so
+    it lies within ``u (1 + 2u) (Σ|p| + |exact|) + 2 D u32 Σ|p|`` of the
+    witness (``u``, ``u32`` the unit roundoffs).  The reference's VJP adds
+    the bf16 products in bf16 (at D 24 bit for bit a sequential bf16 sum),
+    so the two packages differ by more than ``BF16_TOL`` here, and the
+    port's total error against the witness is the smaller."""
+    port, ref, (idx, yout, dy) = _both_vjps(router, "bfloat16", D, 1.0)
+    for name in ("xin", "dx", "y", "dyout"):
+        np.testing.assert_allclose(port[name], ref[name], err_msg=name, **BF16_TOL)
+    E, k, T, C = FN_SHAPES[router]
+    _, slot, keep, _ = moe.dispatch_plan(torch.from_numpy(idx).long(), E, C)
+    slot, keep = slot.numpy(), keep.numpy()
+    products = np.repeat(dy, k, 0) * yout[slot]                  # exact in float64
+    exact = np.where(keep, products.sum(-1), 0).reshape(T, k)
+    size = np.where(keep, np.abs(products).sum(-1), 0).reshape(T, k)
+    bound = U_BF16 * (1 + 2 * U_BF16) * (size + np.abs(exact)) + 2 * D * U_F32 * size
+    err, ref_err = np.abs(port["dw"] - exact), np.abs(ref["dw"] - exact)
+    assert (err <= bound).all(), float((err / np.maximum(bound, 1e-30)).max())
+    assert err.sum() < ref_err.sum(), (err.sum(), ref_err.sum())
+
+
+def test_dispatch_backward_adds_in_ascending_expert_order():
+    """``dx[t]`` is the sum of token ``t``'s kept slots' gradients added one
+    after another in ascending expert order, bit for bit, on float32
+    gradients whose sum another order rounds otherwise (rows of 1e8,
+    1 and -1e8 magnitudes); the combine's gradients are the plain
+    per-slot and per-assignment products."""
+    E, k, T, C = 8, 4, 16, 6
+    D = 32
+    idx = _assignments(E, k, T, seed=5)
+    tidx = torch.from_numpy(idx).long()
+    rng = np.random.RandomState(6)
+    dxin = torch.from_numpy((rng.randn(E * C, D) * 10.0 ** rng.randint(-1, 9, (E * C, D)))
+                            .astype(np.float32))
+    x = torch.from_numpy(rng.randn(T, D).astype(np.float32)).requires_grad_()
+    xin, plan = moe._dispatch(x, tidx, E, C)
+    _, slot, keep, _ = moe.dispatch_plan(tidx, E, C)   # w's order, not the plan's
+    assert not bool(keep.all())
+    (dx,) = torch.autograd.grad(xin.reshape(E * C, D), x, dxin)
+    ascending, descending = torch.zeros(T, D), torch.zeros(T, D)
+    for t in range(T):
+        kept = sorted((int(idx[t, j]), int(slot[t * k + j])) for j in range(k)
+                      if keep[t * k + j])
+        for order, out in ((kept, ascending), (kept[::-1], descending)):
+            acc = None
+            for _, s in order:
+                acc = dxin[s].clone() if acc is None else acc + dxin[s]
+            if acc is not None:
+                out[t] = acc
+    assert torch.equal(dx, ascending)
+    assert not torch.equal(dx, descending)   # the inputs tell the orders apart
+    # the combine: dyout[s] = dy[t] * w[a] of the assignment filling s,
+    # dw[a] = keep[a] <dy[t], yout[slot[a]]>
+    yout = torch.from_numpy(rng.randn(E * C, D).astype(np.float32)).requires_grad_()
+    w = torch.from_numpy(rng.rand(T, k).astype(np.float32)).requires_grad_()
+    dy = torch.from_numpy(rng.randn(T, D).astype(np.float32))
+    y = moe._combine(yout, w, plan)
+    dyout, dw = torch.autograd.grad(y, (yout, w), dy)
+    want_dyout = torch.zeros(E * C, D)
+    for a in range(T * k):
+        if keep[a]:
+            want_dyout[slot[a]] = dy[a // k] * w.detach().reshape(-1)[a]
+    want_dw = torch.stack([(dy[a // k] * yout.detach()[slot[a]]).sum() if keep[a]
+                           else torch.tensor(0.0) for a in range(T * k)]).view(T, k)
+    assert torch.equal(dyout, want_dyout)
+    torch.testing.assert_close(dw, want_dw, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_graph_has_no_indexing_backward(arch):
+    """The autograd graph of ``apply_moe``'s output (a capacity that drops)
+    holds the dispatch's and the combine's Functions and no
+    ``IndexSelectBackward0``, ``IndexBackward0`` or ``IndexPutBackward0``
+    node, whose backwards add with float atomics on the card."""
+    jm, jp, m, params = _pair(arch)
+    si = 1 if m.cfg.first_k_dense else 0
+    p = {k_: v.detach().requires_grad_()
+         for k_, v in params["decoder"]["segments"][si][0]["moe"].items()}
+    x = torch.from_numpy(np.random.RandomState(13).randn(2, 8, m.cfg.d_model)
+                         .astype(np.float32)).requires_grad_()
+    y, aux = moe.apply_moe(p, x, m.cfg, capacity=1)
+    assert float(aux["dropped_frac"]) > 0
+    names, stack, seen = set(), [y.grad_fn, aux["lb_loss"].grad_fn], set()
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        names.add(type(node).__name__)
+        stack.extend(n for n, _ in node.next_functions)
+    assert {"_DispatchBackward", "_CombineBackward"} <= names
+    assert not names & {"IndexSelectBackward0", "IndexBackward0", "IndexPutBackward0"}
 
 
 # -- MLA ---------------------------------------------------------------------------
@@ -450,6 +694,68 @@ def test_loss_and_gradients_match_jax(pair):
     grads = torch.autograd.grad(loss, live, allow_unused=True, materialize_grads=True)
     it = iter(grads)
     _grads_close(nn.tree_map(lambda _: next(it), params), jax.tree.map(np.asarray, jgrads))
+
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 16, 3
+
+
+@pytest.fixture(scope="module")
+def moe_train_runs(pair):
+    """3 AdamW steps (bf16 moments) of both packages' train step on the
+    same smoke weights and ``SyntheticTokens`` batches: JAX's step by step
+    under a 1x1 mesh (where its ``apply_moe_ep`` runs, at ``C_loc = C``),
+    the port's step by step and as one ``persistent_steps`` dispatch."""
+    jm, jp, m, _ = pair
+    jshape = JaxShape("t", TRAIN_SEQ, TRAIN_BATCH, "train")
+    shape = ShapeConfig("t", TRAIN_SEQ, TRAIN_BATCH, "train")
+    jmesh = jax_make_mesh((1, 1), ("data", "model"))
+    jopt, opt = JaxAdamW(moment_dtype="bfloat16"), AdamWConfig(moment_dtype="bfloat16")
+    jbundle = jsteps.build_train_step(jm.cfg, jshape, jmesh, opt=jopt)
+    bundle = steps.build_train_step(m.cfg, shape, make_mesh((1, 1), ("data", "model"),
+                                                            device="cpu"), opt=opt)
+    batches = [SyntheticTokens(m.cfg, shape).batch(i) for i in range(TRAIN_STEPS)]
+    params_np = jax.tree.map(np.asarray, jp)
+    with jmesh:
+        step = jax.jit(jbundle.step_fn)
+        jparams, jstate, jlosses = jp, jax_adamw_init(jp, jopt), []
+        for b in batches:
+            jparams, jstate, met = step(jparams, jstate,
+                                        {k_: jnp.asarray(v) for k_, v in b.items()})
+            jlosses.append(float(met["loss"]))
+    out = {"jax": (jax.tree.map(lambda a: np.asarray(a, np.float32), jparams),
+                   np.array(jlosses))}
+    params = from_reference_params(params_np, m.cfg, "cpu")
+    state, losses = adamw_init(params, opt), []
+    for b in batches:
+        params, state, met = bundle.step_fn(params, state,
+                                            {k_: torch.from_numpy(v) for k_, v in b.items()})
+        losses.append(float(met["loss"]))
+    out["single"] = (params, np.array(losses), int(state["step"]))
+    multi = steps.persistent_steps(bundle, TRAIN_STEPS, stacked=True)
+    params = from_reference_params(params_np, m.cfg, "cpu")
+    state = adamw_init(params, opt)
+    stack = {k_: torch.from_numpy(np.stack([b[k_] for b in batches])) for k_ in batches[0]}
+    params, state, met = multi.step_fn(params, state, stack)
+    assert multi.step_fn.dispatches == 1 and int(met["steps_done"]) == TRAIN_STEPS
+    out["persistent"] = (params, met["loss"].numpy(), int(state["step"]))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["single", "persistent"])
+def test_three_train_steps_match_jax(moe_train_runs, kind):
+    """3 steps with bf16 AdamW moments, single and as one
+    ``persistent_steps`` dispatch, against ``repro.launch.steps``: the loss
+    trace at rtol 1e-4, every parameter at rtol = atol = 2e-3
+    (``tests/test_torch_train.py``'s bounds)."""
+    want_params, want_losses = moe_train_runs["jax"]
+    params, losses, n = moe_train_runs[kind]
+    assert n == TRAIN_STEPS
+    np.testing.assert_allclose(losses, want_losses, rtol=1e-4)
+    g, w = dict(_paths(params)), dict(_paths(want_params))
+    assert g.keys() == w.keys()
+    for k_ in w:
+        np.testing.assert_allclose(g[k_].detach().float().numpy(), w[k_], rtol=2e-3,
+                                   atol=2e-3, err_msg=k_)
 
 
 # -- the expert-parallel dispatch program ------------------------------------------

@@ -189,19 +189,11 @@ def test_serve_window_leaves_mamba2_unchanged(pair, served):
 
 
 def test_unported_config_options_are_refused():
-    """Continuous batching of a MoE config is not ported (its capacity
-    drops make a slot's tokens depend on its batch-mates); ``use_ssd_kernel
-    =False`` (hymba's) is: the port lowers the reference's plain scan onto
-    the kernel wrapper, so the model gives the same logits either way."""
+    """``use_ssd_kernel=False`` (hymba's) is not refused: the port lowers
+    the reference's plain scan onto the kernel wrapper, so the model gives
+    the same logits either way.  (Continuous batching of the MoE configs
+    is ported: ``tests/test_torch_continuous.py``.)"""
     cfg = get_config("mamba2-2.7b").smoke()
-    for arch in ("deepseek-v3-671b", "grok-1-314b"):
-        moe = get_config(arch).smoke()
-        eng = ServeEngine(moe, slots=2, prompt_len=4, max_new=3, device="cpu")
-        caches, tok, active, rem = eng.init_state()
-        batch = {"tokens": torch.zeros((2, 4), dtype=torch.int32)}
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.admit_decode(Model(moe).init(0, device="cpu"), caches, tok, active, rem,
-                             batch, torch.ones(2, dtype=torch.bool), rem + 3)
     model = Model(cfg)
     params = model.init(0, device="cpu")
     batch = {"tokens": torch.arange(12, dtype=torch.int32).reshape(2, 6)}

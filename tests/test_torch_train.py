@@ -232,6 +232,30 @@ def test_adamw_update_and_schedule_match_jax(mamba):
                                    want, rtol=1e-6)
 
 
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_adamw_updates_a_large_leaf_in_chunks_with_the_same_bits(monkeypatch, moment_dtype):
+    """A leaf of more than ``CHUNK`` elements is updated a chunk at a time
+    (ragged last chunk, a 2-d leaf with weight decay and a 1-d one
+    without): params and both moments equal the whole-leaf update bit
+    for bit over 3 steps."""
+    from repro_torch.optim import adamw as adamw_mod
+
+    cfg = AdamWConfig(moment_dtype=moment_dtype)
+    rng = np.random.RandomState(4)
+    params = {"w": rng.randn(7, 300).astype(np.float32), "b": rng.randn(900).astype(np.float32)}
+    grads = [{k: rng.randn(*v.shape).astype(np.float32) for k, v in params.items()}
+             for _ in range(3)]
+    runs = []
+    for chunk in (adamw_mod.CHUNK, 257):
+        monkeypatch.setattr(adamw_mod, "CHUNK", chunk)
+        p = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+        state = adamw_init(p, cfg)
+        for g in grads:
+            adamw_update(p, {k: torch.from_numpy(v) for k, v in g.items()}, state, cfg)
+        runs.append(tree_leaves((p, state)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
 def test_synthetic_batches_equal_jax():
     for arch in (ARCH, "qwen1.5-0.5b"):
         cfg, jcfg = get_config(arch).smoke(), jax_get_config(arch).smoke()
