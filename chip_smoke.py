@@ -377,18 +377,19 @@ a checkout of the repository.  Phases, each of which must pass:
    of the first finite and nonzero, the losses finite, an eager step's
    launches (counters set to 0 just before it): flash forward twice
    (forward and recompute) and its backward once on the tensor-core
-   route, the RMSNorm forward and backward counted; the eager state goes
-   to the host (two copies do not fit), then the same 3 steps as ONE
-   graph launch equal to the eager ones bit for bit (parameters, moments,
-   losses); ms a step both ways, tokens/s, dispatches, peak memory; a
+   route, the RMSNorm forward and backward counted; the eager state is
+   kept as each leaf's 128-bit fingerprint made on the card (two copies
+   do not fit; ``fingerprints``), then the same 3 steps as ONE graph
+   launch equal to the eager ones (parameters and moments by their
+   fingerprints, losses bit for bit); ms a step both ways, tokens/s, dispatches, peak memory; a
    profiled eager step (forward, backward with the recompute, AdamW;
    kernels by family) with deterministic algorithms off; (b)
    deepseek-v3-671b cut to 1 dense and 1 MoE layer (14.63 B; its AdamW
    moments do not fit, so the gradient step only, ``bundle.grad_fn``):
    the same leaf checks (the router's bias zero, as from ``jax.grad``),
    flash at (192, 128) in the 2 layers and the MTP block, the eager
-   gradients to the host, then ONE graph launch of ``grad_fn`` equal to
-   them bit for bit; (c) for each, its MoE layer alone at the step's
+   gradients' fingerprints, then ONE graph launch of ``grad_fn`` equal to
+   them (gradients by their fingerprints, metrics bit for bit); (c) for each, its MoE layer alone at the step's
    shape [2048, D]: forward and backward twice with deterministic
    algorithms off, equal bit for bit (output, dx, router and experts);
    the dispatch's and the combine's backwards equal to a plain version
@@ -398,6 +399,26 @@ a checkout of the repository.  Phases, each of which must pass:
    512, soft-cap) and MLA's (B 4, 128 heads, (192, 128)) training
    shapes and the RMSNorm backward at d 6144, 7168, 1536 and 512
    against their plain VJPs, timed as phase 21 times them.
+23. the sharding layer (``repro_torch.parallel``, ``launch/steps.py``'s
+   bundles, ``models/moe.py`` ``apply_moe_ep``, ``launch/dryrun.py``):
+   (a) gemma3-1b's prefill bundle (4 x 1024) and decode bundle (4 slots,
+   caches of 1024 + 32) at a 1x1 mesh on the card, each equal to
+   ``Model.prefill`` / ``Model.decode_step`` run eagerly bit for bit
+   (logits and caches), their flash and RMSNorm launches counted; (b)
+   phase 20's MoE cuts (the same weights, trunk scale and prompts)
+   through the prefill bundle at 1x1, whose sharding context sends every
+   MoE layer through the expert-parallel path: logits equal to the
+   gather path's bit for bit, tokens equal to phase 20's first served
+   tokens, the first MoE layer's drops reported; (c) grok-1's MoE layer
+   at full width in float32 (capacity factor 8, no drops) through
+   ``apply_moe_ep`` at a 2x2 mesh held on the card against the gather
+   path, output and gradients (input, router, experts) within 2e-4, the
+   reference's own EP-versus-gather bound; (d) the dry run of ten archs x
+   four shapes x both production meshes on the meta device, run in a CPU
+   process of its own started before phase 1 (``CUDA_VISIBLE_DEVICES``
+   empty): 80 records, each ``ok`` or skipped with the reference's
+   reason, no error; counts, the largest per-device argument GB, the
+   step TFLOP of each shape and its seconds.
 
 The last lines are a ``{"kernels": [...]}`` JSON line (fourteen rows:
 the nine Pallas kernels', the two step kernels' and the three backward
@@ -417,7 +438,8 @@ three rows ``phase17_launches`` and ``phase19_launches``, the flash and
 rmsnorm rows ``phase20_launches``, they and the RMSNorm backward's row
 ``phase21_launches``, they and both attention and norm backward rows
 ``phase22_launches`` (phase 22's ``training_shapes`` named ``moe_``, its
-flash backward shapes in ``other_shapes``); the flash backward's row its ``kernel_route``,
+flash backward shapes in ``other_shapes``), the flash and rmsnorm rows
+``phase23_launches``; the flash backward's row its ``kernel_route``,
 ``earlier_ms`` (the CUDA-core backward on the same input), its
 ``local_layer`` times, ``other_shapes`` (grok's and MLA's) and SDPA's
 ``sdpa_kernels``; the schedule step's row
@@ -578,6 +600,30 @@ MOE_TRAIN_CUT = ("train_4k is 256 x 4096 tokens a step across a TPU pod; one H10
 #: gradient leaves that jax.grad leaves at zero too: the sigmoid router's
 #: balancing bias, which the loss reaches only through top-k's indices
 ZERO_GRAD_LEAVES = ("router_bias",)
+#: phase 23: gemma3-1b's prefill bundle (4 x 1024) and decode bundle (4 slots,
+#: caches of 1024 + 32) at a 1x1 mesh; grok-1's MoE layer at full width in
+#: float32 on 2 x 256 tokens through the expert-parallel path at a 2x2 mesh
+#: against the gather path, at ample capacity, within the reference's own
+#: EP-versus-gather bound (tests/test_distributed.py:198-226)
+BUNDLE_SHAPE = dict(batch=4, seq=1024, gen=32)
+EP_MESH = (2, 2)
+EP_TOKENS = (2, 256)
+EP_CAPACITY_FACTOR = 8.0
+EP_TOL = 2e-4
+#: the dry run: ten archs x four shapes x both production meshes on the meta
+#: device, in a CPU process of its own that runs beside the card's phases
+DRY_RUN_RECORDS = 80
+DRY_RUN_CODE = """
+import json, time
+t0 = time.perf_counter()
+from repro_torch.launch import dryrun
+recs = dryrun.run_all(save=False, log=lambda m: None)
+keys = ("arch", "shape", "mesh", "status", "reason", "error", "rules",
+        "argument_bytes_per_device", "step_dot_flops", "trace_s")
+print(json.dumps({"seconds": time.perf_counter() - t0, "skips": {
+    f"{a}|{s}": r for (a, s), r in dryrun.SKIPS.items()},
+    "records": [{k: r.get(k) for k in keys} for r in recs]}))
+"""
 #: the expert-parallel dispatch at deepseek-v3's prefill widths: 4 ranks of
 #: 256 experts x capacity 80 (2048 tokens, top-8, factor 1.25) x d 7168
 MOE_DISPATCH = dict(ranks=4, experts=256, capacity=80, d_model=7168)
@@ -3641,6 +3687,7 @@ def run_phase20(torch, seed: int, fk, rk, ref):
         for k in ("flash_attention", "rmsnorm"):
             launches[k] += cont["launches"][k]
         out[arch] = {"cut": MOE_CUTS[arch], "param_dtype": "bfloat16",
+                     "first_tokens": runs["resident"][0][:, 0].tolist(),
                      "trunk_scale": MOE_TRUNK_SCALE, "parameters": count_params(cfg),
                      "parameters_b": round(count_params(cfg) / 1e9, 2),
                      "launches_reckoned": want, "eager_prefill": eager,
@@ -4699,6 +4746,36 @@ def moe_layer_params(cfg, params):
     raise ValueError(f"{cfg.name} has no MoE layer")
 
 
+#: elements of a leaf fingerprinted at a time: 8 MB int64 temporaries, which
+#: fit beside a graph's pool and a model's state (~1 GB left free)
+FINGERPRINT_CHUNK = 1 << 20
+
+
+def fingerprints(torch, leaves) -> list:
+    """Each leaf's bits as two 64-bit integers, made on the card: the sums,
+    wrapping at 2^64, of every element's bits (int16 or int32 by its
+    width) times two weights drawn from its flat index by a 64-bit linear
+    congruential step and an xor-shift of it.  Integer sums are exact in
+    any order, so a leaf gives the same pair on every run; two leaves that
+    differ in any element give the same pair only by a 2^-64-scale
+    coincidence.  Phase 22 keeps these where two copies of a model's state
+    do not fit the card (a copy to the host took 15-17 s at grok-1's 52 GB)."""
+    out = []
+    for t in leaves:
+        bits = t.detach().reshape(-1).view(
+            {2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+        acc = torch.zeros(2, dtype=torch.int64, device=t.device)
+        for off in range(0, bits.numel(), FINGERPRINT_CHUNK):
+            b = bits[off:off + FINGERPRINT_CHUNK].to(torch.int64)
+            w = torch.arange(off, off + b.numel(), dtype=torch.int64, device=t.device)
+            w.mul_(6364136223846793005).add_(1442695040888963407)
+            acc[0] += (b * w).sum()
+            w.bitwise_xor_(w >> 29)
+            acc[1] += (b * w).sum()
+        out.append((tuple(t.shape), t.dtype, *acc.tolist()))
+    return out
+
+
 def train_grok(torch, seed: int, free):
     """Phase 22 (a): grok-1-314b cut to 1 layer (see the module docstring);
     returns the line and the launches of one eager step."""
@@ -4748,11 +4825,12 @@ def train_grok(torch, seed: int, free):
     require(bool(torch.isfinite(eager["loss"]).all()), f"{arch}: a non-finite loss")
     out["eager_ms_per_step"] = step_ms
     out["peak_gb_eager"] = torch.cuda.max_memory_allocated() / 1e9
-    # two copies of the state do not fit: the eager one goes to the host
+    # two copies of the state do not fit: the eager one is kept as its
+    # leaves' fingerprints, made on the card
     t0 = time.perf_counter()
-    keep = {"state": [t.cpu() for t in tree_leaves((params, opt))],
-            "mets": {k: v.cpu() for k, v in eager.items()}}
-    out["host_copy_s"] = time.perf_counter() - t0
+    keep = {"state": fingerprints(torch, tree_leaves((params, opt))),
+            "mets": {k: v.clone() for k, v in eager.items()}}
+    out["fingerprint_s"] = time.perf_counter() - t0
     del params, opt, eager, eager_mets, m
     free()
 
@@ -4765,11 +4843,10 @@ def train_grok(torch, seed: int, free):
     torch.cuda.synchronize()
     out["graph_setup_s"] = time.perf_counter() - t0
     require((multi.dispatches, multi.captures) == (1, 1), f"{arch}: not one graph launch")
-    same = all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves((params, opt)),
-                                                       keep["state"]))
-    same_m = all(torch.equal(mets[k].cpu(), keep["mets"][k]) for k in keep["mets"])
+    same = fingerprints(torch, tree_leaves((params, opt))) == keep["state"]
+    same_m = all(torch.equal(mets[k], keep["mets"][k]) for k in keep["mets"])
     require(same and same_m, f"{arch}: the one-launch steps differ from the eager steps")
-    out["one_launch_equals_eager_bitwise"] = True
+    out["one_launch_equals_eager"] = {"metrics": "bitwise", "state": "equal fingerprints"}
     del keep
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -4837,10 +4914,11 @@ def grads_deepseek(torch, seed: int, free):
     require(all(math.isfinite(v) for v in out["metrics"].values()),
             f"{arch}: a non-finite metric {out['metrics']}")
     out["peak_gb_eager"] = torch.cuda.max_memory_allocated() / 1e9
-    # the graph's gradients live in its own pool: the eager ones go to the host
+    # the graph's gradients live in its own pool: the eager ones are kept as
+    # their fingerprints, made on the card
     t0 = time.perf_counter()
-    keep = [g.cpu() for g in tree_leaves(grads)], {k: v.cpu() for k, v in met.items()}
-    out["host_copy_s"] = time.perf_counter() - t0
+    keep = fingerprints(torch, tree_leaves(grads)), {k: v.clone() for k, v in met.items()}
+    out["fingerprint_s"] = time.perf_counter() - t0
     del grads, met
     free()
 
@@ -4855,10 +4933,10 @@ def grads_deepseek(torch, seed: int, free):
     graph.replay()
     torch.cuda.synchronize()
     out["graph_setup_s"] = time.perf_counter() - t0
-    same = all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(ggrads), keep[0]))
-    same_m = all(torch.equal(gmet[k].cpu(), v) for k, v in keep[1].items())
+    same = fingerprints(torch, tree_leaves(ggrads)) == keep[0]
+    same_m = all(torch.equal(gmet[k], v) for k, v in keep[1].items())
     require(same and same_m, f"{arch}: the graphed gradient step differs from the eager one")
-    out["graph_equals_eager_bitwise"] = True
+    out["graph_equals_eager"] = {"metrics": "bitwise", "gradients": "equal fingerprints"}
     del keep
     out["graph_ms_per_grad_step"] = events_ms(torch, graph.replay, calls=3)
     out["tokens_per_s_graph"] = out["tokens_per_step"] / (out["graph_ms_per_grad_step"] / 1e3)
@@ -4962,6 +5040,248 @@ def run_phase22(torch, seed: int, fk, rk, ref):
     return out, launches, flash, flash_err, norms
 
 
+def start_dry_run():
+    """Phase 23 (d), started first: the whole dry run in a CPU process
+    (``CUDA_VISIBLE_DEVICES`` empty, meta tensors only) beside the card's
+    phases; its JSON line is read in phase 23."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    return subprocess.Popen([sys.executable, "-c", DRY_RUN_CODE], env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def bundles_equal_eager(torch, seed: int) -> dict:
+    """Phase 23 (a): gemma3-1b's prefill bundle and decode bundle at a 1x1
+    mesh on the card, each equal to ``Model.prefill`` / ``decode_step`` run
+    eagerly on a copy of the same caches, bit for bit (logits and
+    caches); the kernels each bundle launched."""
+    import numpy as np
+
+    from repro_torch import make_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.serve import synthetic_batch
+    from repro_torch.models.nn import tree_leaves
+
+    cfg = get_config("gemma3-1b")
+    B, S, G = BUNDLE_SHAPE["batch"], BUNDLE_SHAPE["seq"], BUNDLE_SHAPE["gen"]
+    mesh = make_mesh((1, 1), ("data", "model"))
+    pre = st.build_prefill_step(cfg, ShapeConfig("prefill_cut", S, B, "prefill"), mesh)
+    dec = st.build_serve_step(cfg, ShapeConfig("decode_cut", S + G, B, "decode"), mesh)
+    model = pre.model
+    cast = model.compute_params(model.init(seed))
+    batch = synthetic_batch(cfg, np.random.RandomState(seed), B, S)
+    caches = [model.init_caches(B, S + G) for _ in range(2)]
+    out = {"model": cfg.name, "mesh": mesh.shape, "prefill": [B, S], "decode_slots": B,
+           "cache_len": S + G}
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    torch.cuda.synchronize()
+    reset_all_launches()
+    got = pre.step_fn(cast, batch, caches[0])
+    torch.cuda.synchronize()
+    out["prefill_launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+    want = model.prefill(cast, batch, caches[1])
+    require(same(got, want), "gemma3-1b: the prefill bundle differs from Model.prefill")
+    token = got[0].argmax(-1).to(torch.int32)
+    reset_all_launches()
+    got = dec.step_fn(cast, got[1], token)
+    torch.cuda.synchronize()
+    out["decode_launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+    want = model.decode_step(cast, want[1], token)
+    require(same(got, want), "gemma3-1b: the decode bundle differs from Model.decode_step")
+    require(out["prefill_launches"].get("flash_attention") == cfg.n_layers
+            and out["prefill_launches"].get("rmsnorm", 0) > 0
+            and out["decode_launches"].get("rmsnorm", 0) > 0,
+            f"gemma3-1b: the bundles' kernel launches {out}")
+    out["equal_eager_bitwise"] = True
+    return out
+
+
+def moe_cuts_through_ep(torch, seed: int, first_tokens) -> dict:
+    """Phase 23 (b): phase 20's MoE cuts (same weights, trunk scale and
+    prompts) prefilled through the prefill bundle at a 1x1 mesh, whose
+    sharding context sends each MoE layer through ``apply_moe_ep``: its
+    logits equal the gather path's (``Model.prefill`` with no context)
+    bit for bit, its tokens equal phase 20's first served tokens, and the
+    first MoE layer's expert-parallel drops are reported."""
+    import numpy as np
+
+    from repro_torch import make_mesh
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.serve import synthetic_batch
+    from repro_torch.models import moe, nn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel import sharding_ctx
+
+    out = {}
+    B, S = MOE_SERVE["batch"], MOE_SERVE["prompt_len"]
+    mesh = make_mesh((1, 1), ("data", "model"))
+    for arch in MOE_CUTS:
+        cfg = moe_cut(arch)
+        bundle = st.build_prefill_step(cfg, ShapeConfig("prefill_cut", S, B, "prefill"), mesh)
+        model = bundle.model
+        params = model.init(seed)
+        scale_trunks(params, MOE_TRUNK_SCALE)
+        cast = model.compute_params(params)
+        del params
+        batch = synthetic_batch(cfg, np.random.RandomState(seed), B, S)
+        cap = S + model._prefix_len() + MOE_SERVE["gen_len"]
+        logits_ep = bundle.step_fn(cast, batch, model.init_caches(B, cap))[0]
+        logits_gather = model.prefill(cast, batch, model.init_caches(B, cap))[0]
+        tokens = logits_ep.argmax(-1).tolist()
+        require(torch.equal(logits_ep, logits_gather),
+                f"{arch}: the EP prefill at 1x1 differs from the gather path")
+        require(tokens == first_tokens[arch],
+                f"{arch}: EP prefill tokens {tokens} != phase 20's {first_tokens[arch]}")
+        # the first MoE layer's own drops under the bundle's context
+        x = model._decoder_input(cast, batch)[0]
+        plan = tfm.plan_segments(cfg)
+        seg = next(i for i, s in enumerate(plan) if s.kind == "attn_moe")
+        p = tfm.unbind_layers(cast["decoder"]["segments"][seg], plan[seg].n_layers)[0]
+        with sharding_ctx(bundle.rules, mesh):
+            y, aux = moe.apply_moe_ep(p["moe"], nn.apply_rmsnorm(p["ln_mlp"], x, cfg), cfg)
+        out[arch] = {"cut": MOE_CUTS[arch], "tokens": tokens,
+                     "equal_gather_bitwise": True, "tokens_equal_phase20": True,
+                     "first_moe_layer_dropped_frac_at_its_input": float(aux["dropped_frac"])}
+        del cast, logits_ep, logits_gather, x, y, p
+        gc_free(torch)
+    return out
+
+
+def ep_against_gather(torch, seed: int) -> dict:
+    """Phase 23 (c): grok-1's MoE layer at full width in float32, its
+    capacity factor raised to ``EP_CAPACITY_FACTOR`` (no drops), through
+    ``apply_moe_ep`` at a 2x2 ``(data, model)`` mesh held on the card (2
+    data shards, 4 experts a model shard, the shards' partial sums added
+    in order) against the gather path: the output and the gradients of
+    ``sum(y * dy)`` (input, router, experts) within ``EP_TOL``."""
+    from repro_torch import make_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.parallel import RULES_TRAIN, sharding_ctx
+
+    cfg = dataclasses.replace(get_config("grok-1-314b"), param_dtype="float32",
+                              dtype="float32", capacity_factor=EP_CAPACITY_FACTOR)
+    gen = torch.Generator("cuda").manual_seed(seed + 123)
+    p = {k: v.requires_grad_() for k, v in moe.init_moe(gen, cfg, device="cuda").items()}
+    x = torch.randn(*EP_TOKENS, cfg.d_model, generator=gen, device="cuda",
+                    requires_grad=True)
+    dy = torch.randn(*EP_TOKENS, cfg.d_model, generator=gen, device="cuda")
+    mesh = make_mesh(EP_MESH, ("data", "model"))
+    keys = ("router", "wi", "wg", "wo")
+    res = {}
+    for name in ("gather", "ep"):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        if name == "gather":
+            y, aux = moe.apply_moe(p, x, dataclasses.replace(cfg, moe_impl="gather"))
+        else:
+            with sharding_ctx(RULES_TRAIN, mesh):
+                out = moe.apply_moe_ep(p, x, cfg)
+            require(out is not None, "apply_moe_ep did not engage at 2x2")
+            y, aux = out
+        grads = torch.autograd.grad((y * dy).sum(), [x] + [p[k] for k in keys])
+        stop.record()
+        torch.cuda.synchronize()
+        res[name] = (y.detach(), float(aux["dropped_frac"]), grads, start.elapsed_time(stop))
+        del y, aux, grads
+        gc_free(torch)
+    (yg, dg, gg, tg), (ye, de, ge, te) = res["gather"], res["ep"]
+    require(dg == 0.0 and de == 0.0, f"tokens dropped at capacity factor "
+            f"{EP_CAPACITY_FACTOR}: gather {dg}, EP {de}")
+    def close(a, b):
+        """allclose at EP_TOL and the largest error, a slice of dim 0 at a
+        time (a whole expert stack's temporaries would not fit)"""
+        ok, err = True, 0.0
+        for i in range(a.shape[0]):
+            ok = ok and torch.allclose(a[i], b[i], rtol=EP_TOL, atol=EP_TOL)
+            err = max(err, float((a[i] - b[i]).abs().max()))
+        return ok, err
+
+    ok, errs = True, {}
+    for k, a, b in zip(("y", "dx") + tuple("d" + k for k in keys), (ye,) + tuple(ge),
+                       (yg,) + tuple(gg)):
+        good, errs[k] = close(a, b)
+        ok = ok and good
+    require(ok, f"EP at 2x2 differs from the gather path beyond {EP_TOL}: {errs}")
+    return {"model": cfg.name, "dtype": "float32", "mesh": list(EP_MESH),
+            "tokens": list(EP_TOKENS), "capacity_factor": EP_CAPACITY_FACTOR,
+            "tol": EP_TOL, "max_abs_err": errs, "dropped_frac": [dg, de],
+            "forward_backward_ms": {"gather": tg, "ep": te}}
+
+
+def finish_dry_run(torch, proc) -> dict:
+    """Phase 23 (d): the dry run's result: every record ``ok`` or skipped
+    with the reference's reason, none an error; counts, the largest
+    per-device argument GB, the step TFLOP of each kind, and its seconds."""
+    out, err = proc.communicate(timeout=900)
+    require(proc.returncode == 0, f"the dry run failed (rc {proc.returncode}): {err[-3000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    recs = res["records"]
+    counts = {k: sum(r["status"] == k for r in recs) for k in ("ok", "skipped", "error")}
+    errors = [(r["arch"], r["shape"], r["mesh"], r["error"]) for r in recs
+              if r["status"] == "error"]
+    require(len(recs) == DRY_RUN_RECORDS and not errors, f"dry run: {counts}, {errors[:4]}")
+    for r in recs:
+        if r["status"] == "skipped":
+            require(r["reason"] == res["skips"][f"{r['arch']}|{r['shape']}"],
+                    f"dry run: {r['arch']} {r['shape']} skipped without the reference's "
+                    f"reason")
+    ok = [r for r in recs if r["status"] == "ok"]
+    big = max(ok, key=lambda r: r["argument_bytes_per_device"])
+    tflop = {}
+    for r in ok:
+        if r["mesh"] == "pod16x16":
+            tflop.setdefault(r["shape"], {})[r["arch"]] = r["step_dot_flops"] / 1e12
+    return {"counts": counts, "records": len(recs), "seconds": res["seconds"],
+            "trace_seconds": sum(r["trace_s"] for r in ok),
+            "largest_argument_gb_per_device": {
+                "gb": big["argument_bytes_per_device"] / 1e9,
+                "at": [big["arch"], big["shape"], big["mesh"]]},
+            "step_tflop_by_shape_pod16x16": tflop,
+            "collectives": "not derived (no SPMD partitioner on one card)"}
+
+
+def gc_free(torch) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_phase23(torch, seed: int, first_tokens, dry) -> tuple:
+    """Phase 23: the step bundles, the expert-parallel MoE path on the
+    card and the dry run (see the module docstring); returns the phase's
+    line and the kernels' launches on its paths (the bundles' and the
+    EP prefills', counters set to 0 just before (a) and read after
+    (b))."""
+    from repro_torch.kernels import ops
+
+    gc_free(torch)
+    out = {"bundles_gemma3": bundles_equal_eager(torch, seed)}
+    gc_free(torch)
+    reset_all_launches()
+    out["moe_cuts_ep"] = moe_cuts_through_ep(torch, seed, first_tokens)
+    torch.cuda.synchronize()
+    launches = dict(ops.launch_counts())
+    for k, v in out["bundles_gemma3"]["prefill_launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    for k, v in out["bundles_gemma3"]["decode_launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    gc_free(torch)
+    out["ep_against_gather_2x2"] = ep_against_gather(torch, seed)
+    gc_free(torch)
+    out["dry_run"] = finish_dry_run(torch, dry)
+    out["card"] = gpu_line()
+    return out, launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4973,6 +5293,16 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+    dry = start_dry_run()
+    try:
+        return run_phases(torch, args, dry)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+        dry.wait()
+
+
+def run_phases(torch, args, dry) -> int:
     import numpy as np
 
     from repro_torch import make_mesh
@@ -5220,6 +5550,17 @@ def main() -> int:
     for r in dense_rows + bwd_rows[1:]:
         r["phase22_launches"] = launches22.get(r["name"], 0)
 
+    # phase 23: the step bundles, expert parallelism on the card, the dry run
+    t23 = time.perf_counter()
+    first_tokens = {arch: moe_out[arch]["first_tokens"] for arch in MOE_CUTS}
+    sharded, launches23 = run_phase23(torch, args.seed, first_tokens, dry)
+    sharded["seconds"] = time.perf_counter() - t23
+    print(json.dumps({"sharding": sharded}), flush=True)
+    require(all(launches23.get(k, 0) > 0 for k in ("flash_attention", "rmsnorm")),
+            f"phase 23: a kernel never launched on the bundles' paths: {launches23}")
+    for r in dense_rows:
+        r["phase23_launches"] = launches23.get(r["name"], 0)
+
     rows = rows + dense_rows + [ssd_row, step_row, sched_row] + bwd_rows
     require(sorted(r["name"] for r in rows) == sorted(REPLACES), "a kernel row is missing")
     require(all(r["launches"] > 0 for r in rows), "a kernel was not launched on its path")
@@ -5228,7 +5569,8 @@ def main() -> int:
              "sector_bound_ms", "library_ms", "library_call", "library_fwd_bwd_ms",
              "library_fwd_ms", "training_shapes", "earlier_ms", "cuda_core_ms", "decode",
              "served_shapes", "phase17_launches", "phase18_launches", "phase19_launches",
-             "phase20_launches", "phase21_launches", "phase22_launches", "shape",
+             "phase20_launches", "phase21_launches", "phase22_launches",
+             "phase23_launches", "shape",
              "sdpa_kernels", "local_layer",
              "other_shapes", "one_program_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in order if k in r} for r in rows]}))

@@ -124,15 +124,17 @@ def load_library(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
 
 
 def use_plain(*tensors: torch.Tensor) -> bool:
-    """True for CPU tensors (the wrapper runs the plain version); False
-    for tensors on one CUDA device (it launches the kernel or raises)."""
+    """True for CPU tensors (the wrapper runs the plain version) and for
+    ``meta`` tensors (the plain version gives the shapes of a dry run and
+    computes nothing); False for tensors on one CUDA device (it launches
+    the kernel or raises)."""
     kinds = {t.device for t in tensors}
-    if all(d.type == "cpu" for d in kinds):
+    if all(d.type == "cpu" for d in kinds) or all(d.type == "meta" for d in kinds):
         return True
     if len(kinds) == 1 and next(iter(kinds)).type == "cuda":
         return False
-    raise ValueError(f"the kernels take tensors on the CPU or on one CUDA device, "
-                     f"got {sorted(map(str, kinds))}")
+    raise ValueError(f"the kernels take tensors on the CPU or on one CUDA device (or all on "
+                     f"the meta device), got {sorted(map(str, kinds))}")
 
 
 def stream_arg(t: torch.Tensor) -> ctypes.c_void_p:

@@ -228,6 +228,32 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return (y, h) if return_state else y
 
 
+def ssd_scan_shapes(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    Bm: torch.Tensor, C: torch.Tensor, *,
+                    init_state: Optional[torch.Tensor] = None,
+                    return_state: bool = False):
+    """The dry run's stand-in of :func:`ssd_scan` on ``meta`` tensors,
+    which hold no values: the same outputs (shapes, dtypes) from the same
+    inputs, and the same contractions (``h_t · C_t``: ``2·B·S·H·P·N``
+    FLOPs, and their VJPs under autograd), with the sequence folded into
+    the batch, so that a full-length trace takes a few ops a layer, not a
+    few a token.  The recurrence is a cumulative sum here, since meta
+    tensors carry no values to get wrong; any other device is refused."""
+    if any(t.device.type != "meta" for t in (x, dt, A, Bm, C)):
+        raise ValueError("ssd_scan_shapes takes meta tensors only: ssd_scan computes values")
+    H, G = x.shape[2], Bm.shape[2]
+    if H % G:
+        raise ValueError(f"{H} heads do not split into {G} groups")
+    Bh = Bm.repeat_interleave(H // G, dim=2)
+    Ch = C.repeat_interleave(H // G, dim=2).float()
+    inc = dt[..., None, None] * (x[..., None] * Bh[:, :, :, None, :])
+    h = torch.exp(A[None, None, :] * dt)[..., None, None] * torch.cumsum(inc.float(), dim=1)
+    if init_state is not None:
+        h = h + init_state.float()[:, None]
+    y = torch.einsum("bshpn,bshn->bshp", h, Ch).to(x.dtype)
+    return (y, h[:, -1]) if return_state else y
+
+
 def ssd_scan_vjp(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
                  C: torch.Tensor, init_state: Optional[torch.Tensor],
                  dy: Optional[torch.Tensor], dh: Optional[torch.Tensor]):

@@ -329,8 +329,8 @@ def _scan(x, dt, A, Bm, C, init_state, chunk, return_state, cluster, parts):
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     if use_plain(*(t for t in (x, dt, A, Bm, C, init_state) if t is not None)):
-        return ref.ssd_scan(x, dt, A, Bm, C, init_state=init_state,
-                            return_state=return_state)
+        plain = ref.ssd_scan_shapes if x.device.type == "meta" else ref.ssd_scan
+        return plain(x, dt, A, Bm, C, init_state=init_state, return_state=return_state)
 
     which = route(x.dtype, P, N, int(chunk))
     chunk = min(int(chunk), S)

@@ -1,6 +1,8 @@
 """Launch layer of the port: serving on one GPU (continuous batching
-included), training (:mod:`.steps`, :mod:`.train`), the ST cost model
-(:mod:`.costing`) and the schedule tuner (:mod:`.tune`)."""
+included), training and the prefill / decode step bundles (:mod:`.steps`,
+:mod:`.train`), the ST cost model and the model costing (:mod:`.costing`),
+the schedule tuner (:mod:`.tune`), and the meta-device dry run on the
+production meshes (:mod:`.dryrun`, :mod:`.mesh`, :mod:`.trace_analysis`)."""
 from .serve import ServeEngine, build_admission_schedule, serve, serve_continuous
 from .steps import (
     StepBundle,

@@ -26,11 +26,21 @@ Costs depend only on program structure, never on buffer or program
 names, and equal the reference's for the same build field for field:
 the constants (:data:`DEFAULT_PARAMS`) are the reference's, fitted to
 its CPU host grid, so only *orderings* are trusted — the tuner
-(:mod:`.tune`) prunes with them and medians decide.  The reference's
-model-architecture half (``run_one``, XLA compile costs) is not ported.
+(:mod:`.tune`) prunes with them and medians decide.
+
+The model-architecture half (:func:`run_one`, :func:`main`) costs every
+(arch × shape) on a production mesh from the dry run's traces
+(:mod:`.dryrun`) where the reference compiles: a model of at most 28
+layers (with the encoder's) and ``d_model`` ≤ 4096, or of at most 8, is
+traced whole ("unrolled"); a deeper one is traced at 2 and 4 pattern
+units of depth and extrapolated linearly to its depth ("calibrated"),
+the reference's rule.  Its records hold the step's dot FLOPs and the
+per-device argument and output bytes; collectives are not derived
+(:mod:`.trace_analysis`).  They go to ``artifacts/costing_torch/``.
 """
 
 import dataclasses
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -332,3 +342,138 @@ def predict_ranking(progs, **kw) -> List[Tuple[str, float]]:
     """
     out = [(name, schedule_cost(p, **kw).total_us) for name, p in progs]
     return sorted(out, key=lambda t: t[1])
+
+
+# =========================================================================
+# Model-architecture costing (dry-run companion)
+# =========================================================================
+
+ARTIFACTS = os.path.join(os.path.dirname(__file__), "..", "..", "..", "artifacts",
+                         "costing_torch")
+#: the per-layer-linear quantities of a record
+_LINEAR_KEYS = ("step_dot_flops", "argument_bytes_per_device", "output_bytes_per_device")
+
+
+def _pattern_unit(cfg) -> int:
+    """Smallest depth that preserves the layer pattern (gemma's 5:1 and
+    the like).  Sparse-global patterns with a long period (hymba: global
+    every 16) are calibrated on local-only layers, as the reference's."""
+    if cfg.global_every and cfg.global_every <= 8:
+        return cfg.global_every
+    return 1
+
+
+def _with_depth(cfg, L: int):
+    updates = dict(n_layers=L, scan_layers=False)
+    if cfg.enc_dec:
+        updates["n_enc_layers"] = L
+    if cfg.first_k_dense:
+        # calibrate the homogeneous MoE layer; the dense layers are
+        # approximated as MoE layers (overestimates <5% of depth)
+        updates["first_k_dense"] = 0
+    if cfg.mtp_depth:
+        updates["mtp_depth"] = cfg.mtp_depth  # stays outside the depth scaling
+    return dataclasses.replace(cfg, **updates)
+
+
+def _trace_costs(cfg, shape, mesh) -> Dict[str, Any]:
+    """The dry run's numbers of one bundle: its step's dot FLOPs and
+    largest dots, and the per-device argument and output bytes."""
+    from .steps import build_bundle
+    bundle = build_bundle(cfg, shape, mesh)
+    outputs, dots, _ = bundle.trace()
+    return {"step_dot_flops": dots.total_flops,
+            "argument_bytes_per_device": bundle.argument_bytes(),
+            "output_bytes_per_device": bundle.output_bytes(outputs),
+            "top_dots": dots.largest[:8]}
+
+
+def _lin(c2, c4, L2, L4, L, key):
+    per_layer = (c4[key] - c2[key]) / (L4 - L2)
+    return c2[key] + per_layer * (L - L2), per_layer
+
+
+def run_one(arch: str, shape_name: str, multi_pod: bool = False,
+            save: bool = True) -> dict:
+    import time
+    import traceback
+
+    from repro_torch.configs.base import SHAPES, get_config
+    from .dryrun import COLLECTIVES_NOT_DERIVED, SKIPS
+    from .mesh import make_production_mesh, mesh_name
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name(mesh)}
+    if (arch, shape_name) in SKIPS:
+        rec.update(status="skipped", reason=SKIPS[(arch, shape_name)])
+        _save(rec, save)
+        return rec
+    t0 = time.perf_counter()
+    try:
+        unit = _pattern_unit(cfg)
+        L = cfg.n_layers
+        eff_L = L + (cfg.n_enc_layers if cfg.enc_dec else 0)
+        if (eff_L <= 28 and cfg.d_model <= 4096) or eff_L <= 8:
+            costs = _trace_costs(dataclasses.replace(cfg, scan_layers=False), shape, mesh)
+            rec.update(status="ok", mode="unrolled", **costs)
+        else:
+            L2, L4 = 2 * unit, 4 * unit
+            c2 = _trace_costs(_with_depth(cfg, L2), shape, mesh)
+            c4 = _trace_costs(_with_depth(cfg, L4), shape, mesh)
+            per_layer = {}
+            for key in _LINEAR_KEYS:
+                rec[key], per_layer[key] = _lin(c2, c4, L2, L4, L, key)
+            rec.update(status="ok", mode=f"calibrated(L{L2},L{L4})", per_layer=per_layer,
+                       top_dots=c4["top_dots"])
+        rec["collectives"] = COLLECTIVES_NOT_DERIVED
+        rec["n_devices"] = mesh.size
+        rec["wall_s"] = time.perf_counter() - t0
+    except Exception as e:  # a failure here is a fault of the port: recorded, counted
+        rec.update(status="error", error=f"{type(e).__name__}: {e}",
+                   traceback=traceback.format_exc()[-3000:])
+    _save(rec, save)
+    return rec
+
+
+def _save(rec, save):
+    import json
+    if not save:
+        return
+    os.makedirs(ARTIFACTS, exist_ok=True)
+    with open(os.path.join(ARTIFACTS, f"{rec['arch']}__{rec['shape']}__{rec['mesh']}.json"),
+              "w") as f:
+        json.dump(rec, f, indent=1)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    from repro_torch.configs.base import ARCH_IDS, SHAPES
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--multi-pod", action="store_true")
+    args = ap.parse_args(argv)
+    archs = [args.arch] if args.arch else list(ARCH_IDS)
+    shapes = [args.shape] if args.shape else list(SHAPES)
+    results = []
+    for arch in archs:
+        for shape in shapes:
+            rec = run_one(arch, shape, args.multi_pod)
+            extra = ""
+            if rec["status"] == "ok":
+                extra = (f"mode={rec['mode']} step_flops={rec['step_dot_flops']:.3e} "
+                         f"arg={rec['argument_bytes_per_device'] / 1e9:.3f}GB/dev "
+                         f"t={rec['wall_s']:.1f}s")
+            elif rec["status"] == "error":
+                extra = rec["error"][:140]
+            print(f"[{rec['status']:7s}] {arch} {shape} {extra}", flush=True)
+            results.append(rec)
+    n_err = sum(r["status"] == "error" for r in results)
+    print(f"COSTING SUMMARY: {len(results) - n_err} ok/skip, {n_err} errors")
+    return 1 if n_err else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

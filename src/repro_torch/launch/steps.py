@@ -1,12 +1,32 @@
-"""Train step builders — port of the train half of ``repro.launch.steps``.
+"""Step builders — port of ``repro.launch.steps``.
 
-:func:`build_train_step` returns a :class:`StepBundle` whose ``step_fn``
-is one AdamW step of ``Model.loss``, split as the reference's into its
-two ST queues: ``grad_fn(params, batch) -> (grads, metrics)`` (forward
-and backward) and ``apply_fn(params, opt_state, grads) -> (params,
-opt_state, metrics)`` (clip, schedule, AdamW).  On one card there is no
-sharding: ``mesh`` must be ``1x1`` (``make_mesh((1, 1), ("data",
-"model"), device=...)``), and its device is where the step runs.
+For a (ModelConfig, ShapeConfig, Mesh) triple this module resolves every
+leaf of a step's inputs and outputs (params, optimizer state, batch,
+caches) to a spec through the logical rules (:mod:`repro_torch.parallel`)
+and returns a :class:`StepBundle`: the step callable, its ``in_specs``
+and ``out_specs``, and ``meta`` stand-ins of its inputs
+(``input_specs``), which :meth:`StepBundle.trace` runs the step over
+with every dot counted (the reference's ``lower()``; the dry run,
+:mod:`.dryrun`, reads it).  Each step runs inside ``sharding_ctx(rules,
+mesh)``, as the reference's does, so the MoE configs take the
+expert-parallel path (``models/moe.py`` ``apply_moe_ep``).
+
+* :func:`build_train_step`: one AdamW step of ``Model.loss``, split as
+  the reference's into its two ST queues: ``grad_fn(params, batch) ->
+  (grads, metrics)`` (forward and backward) and ``apply_fn(params,
+  opt_state, grads) -> (params, opt_state, metrics)`` (clip, schedule,
+  AdamW);
+* :func:`build_prefill_step`: ``Model.prefill`` into fresh caches;
+* :func:`build_serve_step`: ``Model.decode_step`` (``per_seq_pos`` for
+  per-slot depths);
+* :func:`build_bundle`: the one of the three a shape's kind names.
+
+The port runs on one card: with real tensors the mesh must be ``1x1``
+(``make_mesh((1, 1), ("data", "model"), device=...)``), and its device is
+where the step runs; a mesh on the ``meta`` device (the production
+meshes of :mod:`.mesh`) may have any shape, and its bundles are traced,
+not run.  :func:`tp_block_schedule` composes a tensor-parallel block's
+ring collectives with other ST programs.
 
 Params and optimizer state are updated IN PLACE (:mod:`repro_torch.optim`)
 and returned; a caller keeps passing the same trees.
@@ -40,7 +60,7 @@ reading it is the one host sync of a dispatch.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -49,18 +69,74 @@ from repro_torch.data.synthetic import make_batch_specs
 from repro_torch.kernels import graph_loop
 from repro_torch.mesh import Mesh
 from repro_torch.models import Model
+from repro_torch.models.model import map_axes
 from repro_torch.models.nn import tree_leaves, tree_map
-from repro_torch.optim import AdamWConfig, adamw_update, linear_warmup_cosine
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, linear_warmup_cosine
+from repro_torch.parallel import (
+    RULES_DECODE,
+    RULES_LONG_DECODE,
+    RULES_TRAIN,
+    LogicalRules,
+    logical_spec_sized,
+    shard_shape,
+    sharding_ctx,
+)
 
 #: the metrics of a train step, each a 0-d float32 tensor
 TRAIN_METRICS = ("ce", "loss", "grad_norm", "lr")
 
 
+def rules_for(shape: ShapeConfig) -> LogicalRules:
+    if shape.kind == "train" or shape.kind == "prefill":
+        return RULES_TRAIN if shape.kind == "train" else RULES_DECODE
+    return RULES_LONG_DECODE if shape.global_batch == 1 else RULES_DECODE
+
+
+def _tree_specs(tree, axes_tree, rules: LogicalRules, mesh: Mesh):
+    """Each leaf's spec, indivisible dims falling back to replicated."""
+    return map_axes(lambda ax, t: logical_spec_sized(t.shape, ax, rules, mesh),
+                    axes_tree, tree)
+
+
+def tree_bytes(tree, specs, mesh: Mesh) -> int:
+    """Bytes one device of ``mesh`` holds of ``tree`` under ``specs`` (a
+    tree of specs shaped like it; a spec ``None`` or ``()`` replicates)."""
+    def leaf(spec, t):
+        shard = shard_shape(t.shape, spec or (), mesh)
+        n = 1
+        for d in shard:
+            n *= d
+        return n * t.element_size()
+    return sum(tree_leaves(map_axes(leaf, _spec_tree(specs, tree), tree)))
+
+
+def _spec_tree(specs, tree):
+    """``specs`` with a ``None`` standing for a replicated subtree spelled
+    out leaf for leaf (``out_specs``' train metrics)."""
+    if specs is None:
+        return tree_map(lambda _: (), tree) if isinstance(tree, (dict, list)) else ()
+    if isinstance(specs, dict):
+        return {k: _spec_tree(specs[k], tree[k]) for k in tree}
+    if isinstance(specs, list):
+        return [_spec_tree(a, t) for a, t in zip(specs, tree)]
+    return specs
+
+
+def _check_mesh(mesh: Mesh) -> None:
+    if mesh.size != 1 and mesh.device.type != "meta":
+        raise ValueError(f"the port runs on one card: a bundle with real tensors takes a 1x1 "
+                         f"mesh, got {mesh.shape} (a mesh on the meta device may take any "
+                         f"shape, for a dry run)")
+
+
 @dataclasses.dataclass
 class StepBundle:
-    """A train step and what its multi-step wrappers need: the per-step
-    batch shapes (to tell a stacked batch from a broadcast one) and the
-    grad / apply split (``step_fn == apply ∘ grad``)."""
+    """A step, its specs and what its multi-step wrappers need: the
+    per-step batch shapes (to tell a stacked batch from a broadcast one)
+    and, for a train step, the grad / apply split (``step_fn == apply ∘
+    grad``).  ``in_specs`` and ``out_specs`` mirror the step's arguments
+    and results (a spec ``None``: replicated, the train metrics);
+    ``input_specs`` holds ``meta`` stand-ins of the arguments."""
 
     cfg: ModelConfig
     shape: ShapeConfig
@@ -70,6 +146,26 @@ class StepBundle:
     batch_shapes: Dict[str, Tuple[int, ...]]
     grad_fn: Optional[Callable] = None
     apply_fn: Optional[Callable] = None
+    rules: Optional[LogicalRules] = None
+    in_specs: Any = None
+    out_specs: Any = None
+    input_specs: Tuple = ()
+
+    def trace(self):
+        """Run ``step_fn`` once over the ``meta`` ``input_specs``, every
+        dot counted (the reference's ``lower()``): returns ``(outputs,
+        DotStats, seconds)`` (:func:`.trace_analysis.trace_dots`)."""
+        from .trace_analysis import trace_dots
+        return trace_dots(self.step_fn, *self.input_specs)
+
+    def argument_bytes(self) -> int:
+        """Bytes of the step's arguments one device of the mesh holds."""
+        return tree_bytes(list(self.input_specs), list(self.in_specs), self.mesh)
+
+    def output_bytes(self, outputs) -> int:
+        """Bytes of the step's ``outputs`` (of :meth:`trace`) one device
+        of the mesh holds."""
+        return tree_bytes(list(outputs), list(self.out_specs), self.mesh)
 
 
 def _rebuild(tree, leaves: List[torch.Tensor]):
@@ -77,13 +173,21 @@ def _rebuild(tree, leaves: List[torch.Tensor]):
     return tree_map(lambda _: next(it), tree)
 
 
+def _batch_specs(cfg: ModelConfig, shape: ShapeConfig, model: Model, rules, mesh):
+    """The step's ``meta`` batch and its specs."""
+    batch_axes = make_batch_specs(cfg, shape)
+    raw = model.input_specs(shape)
+    return raw, {k: logical_spec_sized(v.shape, batch_axes[k], rules, mesh)
+                 for k, v in raw.items()}
+
+
 def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
                      opt: Optional[AdamWConfig] = None,
                      total_steps: int = 10_000) -> StepBundle:
     if shape.kind != "train":
         raise ValueError(f"build_train_step takes a train shape, got {shape.kind!r}")
-    if mesh.size != 1:
-        raise ValueError(f"the port trains on one card: mesh 1x1 only, got {mesh.shape}")
+    _check_mesh(mesh)
+    rules = RULES_TRAIN
     model = Model(cfg)
     opt = opt or AdamWConfig()
 
@@ -93,7 +197,7 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
         # A leaf the loss reaches only through indices (the MoE router's
         # balancing bias, read by top-k) gets zeros, as from jax.grad
         live = [p.detach().requires_grad_() for p in tree_leaves(params)]
-        with torch.enable_grad():
+        with torch.enable_grad(), sharding_ctx(rules, mesh):
             loss, metrics = model.loss(_rebuild(params, live), batch)
             grads = torch.autograd.grad(loss, live, allow_unused=True,
                                         materialize_grads=True)
@@ -112,9 +216,91 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
         metrics.update(opt_metrics)
         return params, opt_state, metrics
 
+    params = model.abstract_init()
+    param_specs = _tree_specs(params, model.param_axes(), rules, mesh)
+    opt_specs = {"m": param_specs, "v": param_specs, "step": ()}
+    batch, batch_specs = _batch_specs(cfg, shape, model, rules, mesh)
     batch_shapes = {k: (shape.global_batch, shape.seq_len) for k in make_batch_specs(cfg, shape)}
     return StepBundle(cfg, shape, mesh, model, train_step, batch_shapes,
-                      grad_fn=grad_step, apply_fn=apply_step)
+                      grad_fn=grad_step, apply_fn=apply_step, rules=rules,
+                      in_specs=(param_specs, opt_specs, batch_specs),
+                      out_specs=(param_specs, opt_specs, None),
+                      input_specs=(params, adamw_init(params, opt), batch))
+
+
+# --------------------------------------------------------------------------
+# prefill / decode
+# --------------------------------------------------------------------------
+
+
+def _cache_specs(caches, model: Model, rules: LogicalRules, mesh: Mesh,
+                 per_seq_pos: bool = False):
+    return _tree_specs(caches, model.cache_axes(per_sequence=per_seq_pos), rules, mesh)
+
+
+def _logits_spec(cfg: ModelConfig, B: int, rules: LogicalRules, mesh: Mesh):
+    return logical_spec_sized((B, cfg.vocab), ("batch", "act_vocab"), rules, mesh)
+
+
+def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
+                       serve_window: int = 0) -> StepBundle:
+    """``Model.prefill`` of a ``[B, S]`` prompt batch into caches of ``S``
+    plus the prefix; ``step_fn(params, batch, caches) -> (last_logits,
+    caches)``.  The depth the prompt starts at is read from real caches
+    (a host sync) and is 0 on ``meta`` ones, the stand-ins' zeroed
+    caches."""
+    if shape.kind != "prefill":
+        raise ValueError(f"build_prefill_step takes a prefill shape, got {shape.kind!r}")
+    _check_mesh(mesh)
+    rules = RULES_DECODE
+    model = Model(cfg)
+    params = model.abstract_init()
+    param_specs = _tree_specs(params, model.param_axes(), rules, mesh)
+    B, S = shape.global_batch, shape.seq_len
+    caches = model.init_caches(B, S + model._prefix_len(), device="meta")
+    cache_specs = _cache_specs(caches, model, rules, mesh)
+    batch, batch_specs = _batch_specs(cfg, shape, model, rules, mesh)
+
+    def prefill_step(params, batch, caches):
+        depth = 0 if caches["pos"].device.type == "meta" else None
+        with sharding_ctx(rules, mesh):
+            return model.prefill(params, batch, caches, serve_window=serve_window,
+                                 depth=depth)
+
+    return StepBundle(cfg, shape, mesh, model, prefill_step,
+                      {k: tuple(v.shape) for k, v in batch.items()}, rules=rules,
+                      in_specs=(param_specs, batch_specs, cache_specs),
+                      out_specs=(_logits_spec(cfg, B, rules, mesh), cache_specs),
+                      input_specs=(params, batch, caches))
+
+
+def build_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
+                     serve_window: int = 0, per_seq_pos: bool = False) -> StepBundle:
+    """The decode-step bundle, ``step_fn(params, caches, token) ->
+    (logits, caches)`` against caches of ``S`` entries.  ``per_seq_pos=True``
+    sizes the caches with a ``[batch]`` position vector (each slot at its
+    own depth), as continuous batching needs."""
+    if shape.kind != "decode":
+        raise ValueError(f"build_serve_step takes a decode shape, got {shape.kind!r}")
+    _check_mesh(mesh)
+    rules = rules_for(shape)
+    model = Model(cfg)
+    params = model.abstract_init()
+    param_specs = _tree_specs(params, model.param_axes(), rules, mesh)
+    B, S = shape.global_batch, shape.seq_len
+    caches = model.init_caches(B, S, per_sequence=per_seq_pos, device="meta")
+    cache_specs = _cache_specs(caches, model, rules, mesh, per_seq_pos=per_seq_pos)
+    token = model.input_specs(shape)["token"]
+    token_spec = logical_spec_sized((B,), ("batch",), rules, mesh)
+
+    def serve_step(params, caches, token):
+        with sharding_ctx(rules, mesh):
+            return model.decode_step(params, caches, token, serve_window=serve_window)
+
+    return StepBundle(cfg, shape, mesh, model, serve_step, {"token": (B,)}, rules=rules,
+                      in_specs=(param_specs, cache_specs, token_spec),
+                      out_specs=(_logits_spec(cfg, B, rules, mesh), cache_specs),
+                      input_specs=(params, caches, token))
 
 
 def loss_plateau(eps: float = 1e-4, key: str = "loss"):
@@ -419,3 +605,45 @@ def build_pipelined_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
     dispatch via :func:`pipelined_steps`."""
     return pipelined_steps(build_train_step(cfg, shape, mesh, **kwargs),
                            n_iters, stacked=stacked)
+
+
+def build_bundle(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, **kwargs) -> StepBundle:
+    """The train, prefill or decode bundle of ``shape``'s kind; a decode of
+    ``long_500k`` takes the config's serving window, as the reference's
+    does."""
+    serve_window = cfg.serve_window if shape.name == "long_500k" else 0
+    if shape.kind == "train":
+        return build_train_step(cfg, shape, mesh, **kwargs)
+    if shape.kind == "prefill":
+        return build_prefill_step(cfg, shape, mesh, serve_window=serve_window, **kwargs)
+    return build_serve_step(cfg, shape, mesh, serve_window=serve_window, **kwargs)
+
+
+# -- collective-matmul wiring --------------------------------------------------
+
+
+def tp_block_schedule(mesh: Mesh, axis: str, m: int, k: int, f: int, *,
+                      companions: Sequence[Any] = (), dtype=torch.float32,
+                      bidirectional: bool = False, interleave: Any = "round_robin",
+                      verify: str = "error", name: Optional[str] = None):
+    """A tensor-parallel block's collectives composed INTO one schedule
+    with other queues (a halo exchange, pipeline stages): the Megatron MLP
+    ST program (:func:`repro_torch.core.collectives.build_tp_block`:
+    all-gather-matmul → relu → matmul-reduce-scatter, every ring step a
+    trigger→wait channel) fused with ``companions`` (built STPrograms)
+    by :func:`repro_torch.core.schedule.compose`, so that the whole step
+    runs as ONE dispatch.  Returns ``(schedule_or_program, tp)``, ``tp``
+    the :class:`~repro_torch.core.collectives.CollectiveMatmul` with the
+    TP program's buffer names and oracles; with no companions the bare TP
+    program.  Under composition the TP buffers are named
+    ``"{tp.program.name}/{buffer}"``."""
+    from repro_torch.core.collectives import build_tp_block
+    from repro_torch.core.schedule import compose
+
+    tp = build_tp_block(mesh, axis, m, k, f, dtype, bidirectional=bidirectional,
+                        verify="warn")
+    if not companions:
+        return tp.program, tp
+    sched = compose(tp.program, *companions, interleave=interleave, verify=verify,
+                    name=name or "tp_block_sched")
+    return sched, tp

@@ -21,11 +21,13 @@ from .nn import dtype_of, param
 def init_frontend(gen, cfg: ModelConfig, *, device):
     dt = dtype_of(cfg.param_dtype)
     if cfg.frontend == "vision":
-        return {"proj_in": param(gen, (cfg.frontend_dim, cfg.d_model), dt, device=device),
-                "proj_out": param(gen, (cfg.d_model, cfg.d_model), dt, device=device)}
+        return {"proj_in": param(gen, (cfg.frontend_dim, cfg.d_model), ("frontend", "embed"),
+                                 dt, device=device),
+                "proj_out": param(gen, (cfg.d_model, cfg.d_model), ("embed", "embed"), dt,
+                                  device=device)}
     if cfg.frontend == "audio":
-        return {"proj_in": param(gen, (cfg.frontend_dim, cfg.d_model), dt, device=device,
-                                 scale=0.01)}
+        return {"proj_in": param(gen, (cfg.frontend_dim, cfg.d_model), ("frontend", "embed"),
+                                 dt, device=device, scale=0.01)}
     return {}
 
 

@@ -33,7 +33,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.mesh import resolve_device
 from . import transformer as tfm
 from .frontends import apply_frontend, init_frontend, sinusoidal_positions, timescales
@@ -46,6 +46,7 @@ from .nn import (
     init_rmsnorm,
     init_unembed,
     param,
+    tree_map,
 )
 
 
@@ -91,11 +92,12 @@ class Model:
         if cfg.frontend != "none":
             params["frontend"] = init_frontend(gen, cfg, device=device)
         if cfg.n_meta_tokens:
-            params["meta"] = param(gen, (cfg.n_meta_tokens, cfg.d_model), pdt,
+            params["meta"] = param(gen, (cfg.n_meta_tokens, cfg.d_model), (None, "embed"), pdt,
                                    device=device)
         if cfg.mtp_depth:
             params["mtp"] = {
-                "proj": param(gen, (2 * cfg.d_model, cfg.d_model), pdt, device=device),
+                "proj": param(gen, (2 * cfg.d_model, cfg.d_model), ("embed", "embed"), pdt,
+                              device=device),
                 "block": tfm.init_block(gen, cfg, "attn_mlp", device=device),
                 "ln": init_rmsnorm(cfg.d_model, pdt, device=device),
             }
@@ -104,6 +106,31 @@ class Model:
     def abstract_init(self) -> Dict[str, Any]:
         """Parameters on the ``meta`` device: shapes and dtypes, no memory."""
         return self.init(device="meta")
+
+    def param_axes(self) -> Dict[str, Any]:
+        """The parameters' logical axes, leaf for leaf: a tuple of axis
+        names (or None) for each leaf of :meth:`abstract_init`, the
+        reference's ``abstract_init()[1]``."""
+        return tree_map(lambda t: t.logical_axes, self.abstract_init())
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+        """``meta`` stand-ins for every model input of a step of ``shape``:
+        ``tokens`` (and ``targets`` to train) ``[B, S]`` int32 with the
+        config's embeddings, or a decode step's ``token`` ``[B]``."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        meta = lambda size, dt=torch.int32: torch.empty(size, dtype=dt, device="meta")
+        if shape.kind not in ("train", "prefill"):
+            return {"token": meta((B,))}
+        specs = {"tokens": meta((B, S))}
+        if shape.kind == "train":
+            specs["targets"] = meta((B, S))
+        embeds = (B, cfg.frontend_tokens, cfg.frontend_dim)
+        if cfg.enc_dec:
+            specs["audio_embeds"] = meta(embeds, dtype_of(cfg.dtype))
+        if cfg.frontend == "vision":
+            specs["vision_embeds"] = meta(embeds, dtype_of(cfg.dtype))
+        return specs
 
     def compute_params(self, params) -> Dict[str, Any]:
         """``params`` with the weights the forward casts to ``cfg.dtype``
@@ -285,7 +312,7 @@ class Model:
             shape[ax.index("batch")] = mask.shape[0]
             return torch.where(mask.reshape(shape), n, o, out=o if in_place else None)
 
-        return _map_axes(sel, axes, new_caches, old_caches)
+        return map_axes(sel, axes, new_caches, old_caches)
 
     def prefill_depth(self, caches) -> Optional[int]:
         """The depth every slot's cache sits at, read on the host (a device
@@ -374,13 +401,13 @@ def _common_depth(pos: torch.Tensor) -> int:
     return int(values[0])
 
 
-def _map_axes(fn, axes, *trees):
+def map_axes(fn, axes, *trees):
     """``fn(axes_leaf, *leaves)`` over trees shaped like ``axes``, whose
     leaves are tuples of axis names."""
     if isinstance(axes, dict):
-        return {k: _map_axes(fn, a, *(t[k] for t in trees)) for k, a in axes.items()}
+        return {k: map_axes(fn, a, *(t[k] for t in trees)) for k, a in axes.items()}
     if isinstance(axes, list):
-        return [_map_axes(fn, a, *(t[i] for t in trees)) for i, a in enumerate(axes)]
+        return [map_axes(fn, a, *(t[i] for t in trees)) for i, a in enumerate(axes)]
     return fn(axes, *trees)
 
 

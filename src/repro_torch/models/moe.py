@@ -56,9 +56,12 @@ The router's ``torch.gather`` of the top-k scores stays under autograd:
 its indices are a row's distinct top-k experts, so its backward never
 adds two values into one address.
 
-``apply_moe_ep`` (the reference's expert-parallel ``shard_map`` path)
-needs a mesh context; on one card there is none, so it returns None and
-``apply_moe`` takes the gather path, as the reference does on one device.
+:func:`apply_moe_ep` is the reference's expert-parallel path: under a
+sharding context (:func:`repro_torch.parallel.sharding_ctx`, which the
+step bundles open) it computes on one card what every (data, model) shard
+of the reference's ``shard_map`` computes, with the same per-shard
+routing, capacity and drops, and returns None exactly where the
+reference's does (``apply_moe`` then takes the gather path).
 :func:`build_moe_dispatch_program` gives the expert-parallel dispatch as
 a stream-triggered all-to-all program (``core.collectives``).
 """
@@ -72,6 +75,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel import current_ctx
 from .nn import dtype_of, param
 
 
@@ -80,19 +84,21 @@ def init_moe(gen, cfg: ModelConfig, *, device):
     dt = dtype_of(cfg.param_dtype)
     kw = dict(device=device)
     out_scale = 0.02 / math.sqrt(2 * max(cfg.n_layers, 1))
-    p = {"router": param(gen, (d, e), dt, scale=0.006, **kw),
-         "wi": param(gen, (e, d, f), dt, **kw)}
+    p = {"router": param(gen, (d, e), ("embed", "act_expert"), dt, scale=0.006, **kw),
+         "wi": param(gen, (e, d, f), ("expert", "embed", "expert_mlp"), dt, **kw)}
     if cfg.act == "silu":
-        p["wg"] = param(gen, (e, d, f), dt, **kw)
-    p["wo"] = param(gen, (e, f, d), dt, scale=out_scale, **kw)
+        p["wg"] = param(gen, (e, d, f), ("expert", "embed", "expert_mlp"), dt, **kw)
+    p["wo"] = param(gen, (e, f, d), ("expert", "expert_mlp", "embed"), dt, scale=out_scale,
+                    **kw)
     if cfg.router == "sigmoid":
         # aux-free balancing bias: a buffer, not a trained weight
-        p["router_bias"] = param(None, (e,), torch.float32, init="zeros", **kw)
+        p["router_bias"] = param(None, (e,), ("act_expert",), torch.float32, init="zeros",
+                                 **kw)
     if cfg.n_shared_experts:
         fs = f * cfg.n_shared_experts
-        p["shared_wi"] = param(gen, (d, fs), dt, **kw)
-        p["shared_wg"] = param(gen, (d, fs), dt, **kw)
-        p["shared_wo"] = param(gen, (fs, d), dt, scale=out_scale, **kw)
+        p["shared_wi"] = param(gen, (d, fs), ("embed", "mlp"), dt, **kw)
+        p["shared_wg"] = param(gen, (d, fs), ("embed", "mlp"), dt, **kw)
+        p["shared_wo"] = param(gen, (fs, d), ("mlp", "embed"), dt, scale=out_scale, **kw)
     return p
 
 
@@ -135,11 +141,120 @@ def _expert_ffn(p, xin: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def apply_moe_ep(p, x: torch.Tensor, cfg: ModelConfig) -> Optional[Tuple[torch.Tensor, Dict]]:
-    """The reference's expert-parallel path runs under a mesh context with a
-    ``model`` axis (experts sharded over it, a ``psum`` combine).  The port
-    runs on one card with no mesh context, where the reference's returns
-    None too: the caller takes the gather path."""
-    return None
+    """The reference's expert-parallel MoE (its ``shard_map`` over the
+    mesh), every shard computed on this one device.  Under a sharding
+    context whose mesh has a ``model`` axis of size ``m``:
+
+    * the batch splits over the mesh's ``pod`` and ``data`` axes into
+      ``n_b`` data shards of ``T_loc`` tokens; each routes its own tokens
+      and gives each expert a capacity ``C_loc = ceil(T_loc·k/E·cf)``, so
+      drops are per data shard;
+    * the experts split over ``model``: ``E/m`` real experts a shard, or,
+      when ``E < m`` (grok-1: 8 experts on a 16-way axis), ``r = m/E``
+      virtual experts a real one, each with ``F/r`` of its FFN columns
+      (the elementwise gate keeps the partial outputs exact, and the
+      combine adds them);
+    * a token's output adds its contributions within a model shard in
+      ascending expert order, then the shards' partial sums in ascending
+      shard order (the reference's ``psum`` over ``model``);
+    * ``lb_loss``, ``router_probs_mean`` and ``dropped_frac`` are the
+      per-shard values averaged as the reference's ``pmean`` calls
+      average them.
+
+    All data shards go through one dispatch (expert ``e`` of shard ``b``
+    is ``b·E + e``, with capacity ``C_loc``), which gives each shard the
+    reference's local dispatch: assignments sorted by expert, stably.
+    The dispatch and the combine are :class:`_Dispatch` and
+    :class:`_Combine`, whose backwards add in a fixed order with no float
+    atomics.  Returns None without a context, a ``model`` axis, experts
+    that split over it, a batch that splits over the data shards, or an
+    FFN that splits into the virtual experts, as the reference's does."""
+    ctx = current_ctx()
+    if ctx is None:
+        return None
+    _, mesh = ctx
+    sizes = dict(mesh.shape)
+    if "model" not in sizes:
+        return None
+    m, E, k = sizes["model"], cfg.n_experts, cfg.top_k
+    if E % m and m % E:
+        return None
+    B, S, D = x.shape
+    n_b = 1
+    for a in ("pod", "data"):
+        n_b *= sizes.get(a, 1)
+    E_loc, n_rep, F = max(E // m, 1), max(m // E, 1), cfg.d_ff_expert
+    if B % n_b or F % n_rep:
+        return None
+    T, T_loc = B * S, (B // n_b) * S
+    C = max(1, int(math.ceil(T_loc * k / E * cfg.capacity_factor)))
+    x2d = x.reshape(T, D)
+    idx, w, probs = _route(p, x2d, cfg)
+    shard = torch.div(torch.arange(T, device=x.device), T_loc, rounding_mode="floor")
+    xin, (slot, keep, source, by_expert) = _dispatch(x2d, idx + shard[:, None] * E,
+                                                     n_b * E, C)
+    # each real expert's rows of every data shard, [E, n_b·C, D], and its
+    # n_rep virtual experts' copies of them (an expand: its backward sums)
+    xe = xin.view(n_b, E, C, D).transpose(0, 1).reshape(E, n_b * C, D)
+    if n_rep > 1:
+        xe = xe[:, None].expand(E, n_rep, n_b * C, D).reshape(E * n_rep, n_b * C, D)
+    yout = _expert_ffn(_virtual_experts(p, n_rep), xe, cfg).reshape(-1, D)
+    # virtual expert v = e·n_rep + i holds data shard b's slot c at row
+    # (v·n_b + b)·C + c; the real dispatch's slot s is (b·E + e)·C + c
+    e_real = torch.div(slot, C, rounding_mode="floor") % E
+    row0 = slot - (e_real + shard[:, None] * E) * C + shard[:, None] * C
+    reps = torch.arange(n_rep, device=x.device)
+    v = (e_real * n_rep)[:, :, None] + reps                      # [T, k, n_rep]
+    vslot = (v * (n_b * C) + row0[:, :, None]).reshape(T, k * n_rep)
+    vkeep = keep[:, :, None].expand(T, k, n_rep).reshape(T, k * n_rep)
+    groups = torch.div(v, E_loc, rounding_mode="floor").reshape(T, k * n_rep)
+    vsource = (source.view(n_b, E, C).transpose(0, 1)[:, None]
+               .expand(E, n_rep, n_b, C).reshape(-1))
+    y = _Combine.apply(yout, w, vslot, vkeep, vsource, by_expert, groups)
+    y = y.reshape(B, S, D).to(x.dtype)
+    if "shared_wi" in p:
+        y = y + _shared_experts(p, x)
+
+    # balance statistics of each data shard, averaged over the shards
+    chosen = torch.zeros((T, E), dtype=torch.float32, device=x.device).scatter_(1, idx, 1.0)
+    frac_tokens = chosen.view(n_b, T_loc, E).mean(1)
+    frac_probs = probs.view(n_b, T_loc, E).mean(1)
+    lb = (E * torch.sum(frac_tokens * frac_probs, -1)).mean(0)
+    # each (data, model) shard's kept share of its own assignments
+    total = chosen.view(n_b, T_loc, E).sum(1)
+    kept = total.clamp(max=C)
+    if n_rep > 1:
+        total, kept = (t[:, :, None].expand(n_b, E, n_rep).reshape(n_b, m)
+                       for t in (total, kept))
+    else:
+        total, kept = (t.view(n_b, m, E_loc).sum(-1) for t in (total, kept))
+    dropped = (1.0 - kept / total.clamp(min=1.0)).mean(1).mean(0)
+    return y, {"lb_loss": lb, "router_probs_mean": frac_probs.mean(0),
+               "dropped_frac": dropped}
+
+
+def _virtual_experts(p, n_rep: int):
+    """The expert weights as ``E·n_rep`` virtual experts, each with
+    ``F/n_rep`` of a real expert's FFN columns (the reference's
+    ``_virtualize_in`` / ``_virtualize_out``); ``p`` itself when
+    ``n_rep`` is 1."""
+    if n_rep == 1:
+        return p
+    E, D, F = p["wi"].shape
+    f = F // n_rep
+    out = {"wi": p["wi"].reshape(E, D, n_rep, f).transpose(1, 2).reshape(E * n_rep, D, f),
+           "wo": p["wo"].reshape(E * n_rep, f, D)}
+    if "wg" in p:
+        out["wg"] = p["wg"].reshape(E, D, n_rep, f).transpose(1, 2).reshape(E * n_rep, D, f)
+    return out
+
+
+def _shared_experts(p, x: torch.Tensor) -> torch.Tensor:
+    """The shared experts' dense gated FFN (always on)."""
+    dt = x.dtype
+    h = x @ p["shared_wi"].to(dt)
+    g = x @ p["shared_wg"].to(dt)
+    return (F.silu(g) * h) @ p["shared_wo"].to(dt)
 
 
 def dispatch_plan(idx: torch.Tensor, n_experts: int, capacity: int):
@@ -197,20 +312,39 @@ class _Dispatch(torch.autograd.Function):
 
 
 class _Combine(torch.autograd.Function):
-    """``y [T, D]``: each token's kept expert outputs (``yout [E·C, D]`` at
+    """``y [T, D]``: each token's kept expert outputs (``yout [rows, D]`` at
     ``slot``) weighted by ``w [T, k]`` and added in ascending expert
-    order, in ``yout``'s dtype (``slot``, ``keep`` and ``by_expert``
-    ``[T, k]``: each token's assignments in that order).  Backward: a
-    gather per filled slot (its assignment from ``source``) and a row
-    product per assignment, no float atomics."""
+    order, in ``yout``'s dtype (``slot`` and ``keep`` ``[T, k·r]``, and
+    ``by_expert`` ``[T, k]``: each token's assignments in that order; with
+    ``r`` virtual experts a real one, each assignment's ``r`` rows, which
+    share its weight).  ``groups [T, k·r]`` (the expert-parallel path:
+    each contribution's model shard, ascending) adds the contributions of
+    a group, then the groups' sums in order; None adds them one after
+    another.  Backward: a gather per filled row (its assignment from
+    ``source``) and a row product per contribution, no float atomics."""
 
     @staticmethod
-    def forward(ctx, yout, w, slot, keep, source, by_expert):
-        wk = (torch.gather(w, 1, by_expert) * keep).to(yout.dtype)
-        y = None
+    def forward(ctx, yout, w, slot, keep, source, by_expert, groups):
+        n_rep = slot.shape[1] // w.shape[1]
+        wk = torch.gather(w, 1, by_expert)
+        if n_rep > 1:
+            wk = wk[:, :, None].expand(*wk.shape, n_rep).reshape(slot.shape)
+        wk = (wk * keep).to(yout.dtype)
+        y = total = None
         for j in range(slot.shape[1]):
             c = yout.index_select(0, slot[:, j]) * wk[:, j, None]
-            y = c if y is None else y + c
+            if y is None:
+                y = c
+            elif groups is None:
+                y = y + c
+            else:
+                # a new group: its predecessor's sum joins the total
+                new = (groups[:, j] != groups[:, j - 1])[:, None]
+                total = (torch.where(new, y, 0) if total is None
+                         else torch.where(new, total + y, total))
+                y = torch.where(new, c, y + c)
+        if total is not None:
+            y = total + y
         ctx.save_for_backward(yout, w, slot, keep, source, by_expert)
         return y
 
@@ -226,11 +360,13 @@ class _Combine(torch.autograd.Function):
                      * w.reshape(-1).to(dy.dtype).index_select(0, a)[:, None])
             dyout.masked_fill_((source == A)[:, None], 0)
         if ctx.needs_input_grad[1]:
-            rows = yout.index_select(0, slot.reshape(-1)).view(T, k, -1)
+            rows = yout.index_select(0, slot.reshape(-1)).view(*slot.shape, -1)
             dw = torch.where(keep, (dy[:, None, :] * rows).sum(-1).to(w.dtype), 0)
+            if slot.shape[1] != k:   # an assignment's virtual experts, in order
+                dw = dw.view(T, k, -1).sum(-1)
             # back from ascending expert order to w's: a row's inverse permutation
             dw = torch.gather(dw, 1, torch.argsort(by_expert, dim=1))
-        return dyout, dw, None, None, None, None
+        return dyout, dw, None, None, None, None, None
 
 
 def _dispatch(x2d: torch.Tensor, idx: torch.Tensor, n_experts: int, capacity: int):
@@ -253,7 +389,7 @@ def _combine(yout: torch.Tensor, w: torch.Tensor, plan) -> torch.Tensor:
     ``w`` and added one after another in ascending expert order, the order
     the reference's ``segment_sum`` meets them in the sorted assignments:
     ``[T, D]`` in ``yout``'s dtype."""
-    return _Combine.apply(yout, w, *plan)
+    return _Combine.apply(yout, w, *plan, None)
 
 
 def apply_moe(p, x: torch.Tensor, cfg: ModelConfig, *,
@@ -277,12 +413,8 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig, *,
     yout = _expert_ffn(p, xin, cfg).reshape(E * C, D)
     y = _combine(yout, w, plan).reshape(B, S, D).to(x.dtype)
 
-    # shared experts (dense path, always on)
     if "shared_wi" in p:
-        dt = x.dtype
-        h = x @ p["shared_wi"].to(dt)
-        g = x @ p["shared_wg"].to(dt)
-        y = y + (F.silu(g) * h) @ p["shared_wo"].to(dt)
+        y = y + _shared_experts(p, x)
 
     # load-balance loss (Switch-style; reported for the sigmoid router too)
     chosen = torch.zeros((T, E), dtype=torch.float32, device=x.device).scatter_(1, idx, 1.0)

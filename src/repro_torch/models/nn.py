@@ -60,22 +60,30 @@ def tree_leaves(tree: Any) -> list:
     return out
 
 
-def param(gen: Optional[torch.Generator], shape, dtype, *, device,
+def param(gen: Optional[torch.Generator], shape, axes, dtype, *, device,
           scale: Optional[float] = None, init: str = "normal") -> torch.Tensor:
     """A parameter as the reference initialises it: ``normal × scale``
     (0.02 by default), zeros or ones.  On the ``meta`` device (shapes
-    only) nothing is drawn."""
+    only) nothing is drawn.  ``axes``, the logical axis of each dimension
+    (the reference's boxed axes), stays on the tensor as its attribute
+    ``logical_axes`` (``Model.param_axes``; a stacked parameter's lead
+    with ``"layers"``)."""
     if init not in ("normal", "zeros", "ones"):
         raise ValueError(init)
+    if len(shape) != len(axes):
+        raise ValueError(f"shape {tuple(shape)} and axes {tuple(axes)} differ in rank")
     device = torch.device(device)
     if device.type == "meta":
-        return torch.empty(shape, dtype=dtype, device=device)
-    if init == "zeros":
-        return torch.zeros(shape, dtype=dtype, device=device)
-    if init == "ones":
-        return torch.ones(shape, dtype=dtype, device=device)
-    v = torch.randn(shape, generator=gen, dtype=dtype, device=device)
-    return v.mul_(0.02 if scale is None else scale)
+        v = torch.empty(shape, dtype=dtype, device=device)
+    elif init == "zeros":
+        v = torch.zeros(shape, dtype=dtype, device=device)
+    elif init == "ones":
+        v = torch.ones(shape, dtype=dtype, device=device)
+    else:
+        v = torch.randn(shape, generator=gen, dtype=dtype, device=device)
+        v.mul_(0.02 if scale is None else scale)
+    v.logical_axes = tuple(axes)
+    return v
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -84,7 +92,7 @@ def dtype_of(name: str) -> torch.dtype:
 
 def init_rmsnorm(d: int, dtype, *, device):
     # stored at zero; applied as (scale + 1), as in the reference
-    return {"scale": param(None, (d,), dtype, device=device, init="zeros")}
+    return {"scale": param(None, (d,), ("embed",), dtype, device=device, init="zeros")}
 
 
 def apply_rmsnorm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -93,7 +101,7 @@ def apply_rmsnorm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def init_embedding(gen, cfg: ModelConfig, *, device):
-    return {"table": param(gen, (cfg.vocab, cfg.d_model),
+    return {"table": param(gen, (cfg.vocab, cfg.d_model), ("vocab", "embed"),
                            dtype_of(cfg.param_dtype), device=device)}
 
 
@@ -118,18 +126,18 @@ def apply_unembed(p_embed, p_head, x: torch.Tensor, cfg: ModelConfig) -> torch.T
 def init_unembed(gen, cfg: ModelConfig, *, device):
     if cfg.tie_embeddings:
         return {}
-    return {"w": param(gen, (cfg.d_model, cfg.vocab), dtype_of(cfg.param_dtype),
-                       device=device)}
+    return {"w": param(gen, (cfg.d_model, cfg.vocab), ("embed", "vocab"),
+                       dtype_of(cfg.param_dtype), device=device)}
 
 
 def init_mlp(gen, cfg: ModelConfig, *, device, d_ff: Optional[int] = None):
     d, f = cfg.d_model, (d_ff or cfg.d_ff)
     dt = dtype_of(cfg.param_dtype)
     out_scale = 0.02 / math.sqrt(2 * max(cfg.n_layers, 1))
-    p = {"wi": param(gen, (d, f), dt, device=device)}
+    p = {"wi": param(gen, (d, f), ("embed", "mlp"), dt, device=device)}
     if cfg.act == "silu":  # gated (swiglu)
-        p["wg"] = param(gen, (d, f), dt, device=device)
-    p["wo"] = param(gen, (f, d), dt, device=device, scale=out_scale)
+        p["wg"] = param(gen, (d, f), ("embed", "mlp"), dt, device=device)
+    p["wo"] = param(gen, (f, d), ("mlp", "embed"), dt, device=device, scale=out_scale)
     return p
 
 
@@ -188,19 +196,19 @@ def init_attention(gen, cfg: ModelConfig, *, device, cross: bool = False):
     dt = dtype_of(cfg.param_dtype)
     kw = dict(device=device)
     p = {
-        "wq": param(gen, (d, hq, hd), dt, **kw),
-        "wk": param(gen, (d, hkv, hd), dt, **kw),
-        "wv": param(gen, (d, hkv, hd), dt, **kw),
-        "wo": param(gen, (hq, hd, d), dt, scale=0.02 / math.sqrt(2 * max(cfg.n_layers, 1)),
-                    **kw),
+        "wq": param(gen, (d, hq, hd), ("embed", "heads", "head_dim"), dt, **kw),
+        "wk": param(gen, (d, hkv, hd), ("embed", "kv_heads", "head_dim"), dt, **kw),
+        "wv": param(gen, (d, hkv, hd), ("embed", "kv_heads", "head_dim"), dt, **kw),
+        "wo": param(gen, (hq, hd, d), ("heads", "head_dim", "embed"), dt,
+                    scale=0.02 / math.sqrt(2 * max(cfg.n_layers, 1)), **kw),
     }
     if cfg.qkv_bias:
-        p["bq"] = param(None, (hq, hd), dt, init="zeros", **kw)
-        p["bk"] = param(None, (hkv, hd), dt, init="zeros", **kw)
-        p["bv"] = param(None, (hkv, hd), dt, init="zeros", **kw)
+        p["bq"] = param(None, (hq, hd), ("heads", "head_dim"), dt, init="zeros", **kw)
+        p["bk"] = param(None, (hkv, hd), ("kv_heads", "head_dim"), dt, init="zeros", **kw)
+        p["bv"] = param(None, (hkv, hd), ("kv_heads", "head_dim"), dt, init="zeros", **kw)
     if cfg.qk_norm:
-        p["q_norm"] = param(None, (hd,), dt, init="zeros", **kw)
-        p["k_norm"] = param(None, (hd,), dt, init="zeros", **kw)
+        p["q_norm"] = param(None, (hd,), ("head_dim",), dt, init="zeros", **kw)
+        p["k_norm"] = param(None, (hd,), ("head_dim",), dt, init="zeros", **kw)
     return p
 
 
@@ -373,14 +381,16 @@ def _init_mla(gen, cfg: ModelConfig, *, device):
     dt = dtype_of(cfg.param_dtype)
     kw = dict(device=device)
     return {
-        "wq_a": param(gen, (d, ql), dt, **kw),
-        "q_norm": param(None, (ql,), dt, init="zeros", **kw),
-        "wq_b": param(gen, (ql, h, dn + dr), dt, **kw),
-        "wkv_a": param(gen, (d, kl + dr), dt, **kw),
-        "kv_norm": param(None, (kl,), dt, init="zeros", **kw),
-        "wkv_b": param(gen, (kl, h, dn + dv), dt, **kw),
-        "wo": param(gen, (h, dv, d), dt, scale=0.02 / math.sqrt(2 * max(cfg.n_layers, 1)),
-                    **kw),
+        "wq_a": param(gen, (d, ql), ("embed", "q_lora"), dt, **kw),
+        "q_norm": param(None, (ql,), ("q_lora",), dt, init="zeros", **kw),
+        "wq_b": param(gen, (ql, h, dn + dr), ("q_lora", "heads", "head_dim"), dt,
+                      **kw),
+        "wkv_a": param(gen, (d, kl + dr), ("embed", "kv_lora"), dt, **kw),
+        "kv_norm": param(None, (kl,), ("kv_lora",), dt, init="zeros", **kw),
+        "wkv_b": param(gen, (kl, h, dn + dv), ("kv_lora", "heads", "head_dim"), dt,
+                       **kw),
+        "wo": param(gen, (h, dv, d), ("heads", "head_dim", "embed"), dt,
+                    scale=0.02 / math.sqrt(2 * max(cfg.n_layers, 1)), **kw),
     }
 
 

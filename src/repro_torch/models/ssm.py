@@ -45,15 +45,15 @@ def init_ssm(gen, cfg: ModelConfig, *, device):
     d_in_proj = 2 * d_inner + 2 * G * N + H
     kw = dict(device=device)
     return {
-        "in_proj": param(gen, (d, d_in_proj), dt, **kw),
-        "conv_w": param(gen, (cfg.ssm_conv, conv_dim), dt,
+        "in_proj": param(gen, (d, d_in_proj), ("embed", "act_mlp"), dt, **kw),
+        "conv_w": param(gen, (cfg.ssm_conv, conv_dim), ("conv", "act_mlp"), dt,
                         scale=1.0 / math.sqrt(cfg.ssm_conv), **kw),
-        "conv_b": param(gen, (conv_dim,), dt, init="zeros", **kw),
-        "A_log": param(gen, (H,), f32, init="ones", **kw),
-        "D": param(gen, (H,), f32, init="ones", **kw),
-        "dt_bias": param(gen, (H,), f32, init="zeros", **kw),
-        "norm": param(gen, (d_inner,), dt, init="zeros", **kw),
-        "out_proj": param(gen, (d_inner, d), dt,
+        "conv_b": param(gen, (conv_dim,), ("act_mlp",), dt, init="zeros", **kw),
+        "A_log": param(gen, (H,), ("heads",), f32, init="ones", **kw),
+        "D": param(gen, (H,), ("heads",), f32, init="ones", **kw),
+        "dt_bias": param(gen, (H,), ("heads",), f32, init="zeros", **kw),
+        "norm": param(gen, (d_inner,), ("act_mlp",), dt, init="zeros", **kw),
+        "out_proj": param(gen, (d_inner, d), ("act_mlp", "embed"), dt,
                           scale=0.02 / math.sqrt(2 * max(cfg.n_layers, 1)), **kw),
     }
 

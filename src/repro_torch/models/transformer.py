@@ -28,6 +28,7 @@ in float32; a hybrid layer has both.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -35,6 +36,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel import current_ctx, sharding_ctx
 from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .nn import (
@@ -113,7 +115,7 @@ def init_block(gen, cfg: ModelConfig, kind: str, *, device):
         p["ssm"] = ssm_lib.init_ssm(gen, cfg, device=device)
     if kind == "hybrid":
         # learned output mixing of the two parallel heads
-        p["mix"] = param(None, (2,), torch.float32, device=device, init="ones")
+        p["mix"] = param(None, (2,), (None,), torch.float32, device=device, init="ones")
     if kind != "ssm":
         p["ln_mlp"] = init_rmsnorm(cfg.d_model, pdt, device=device)
     if kind == "attn_moe":
@@ -192,6 +194,8 @@ def _stack(layers: List) -> Dict:
     if isinstance(layers[0], dict):
         return {k: _stack([l.pop(k) for l in layers]) for k in list(layers[0])}
     out = torch.stack(layers)
+    if hasattr(layers[0], "logical_axes"):   # a parameter's, with the layers axis first
+        out.logical_axes = ("layers",) + layers[0].logical_axes
     layers.clear()
     return out
 
@@ -253,11 +257,15 @@ def apply_stack(params, x, cfg: ModelConfig, *, decoder: bool = True,
             window, theta = layer_window_theta(cfg, seg.first_layer + i, serve_window)
             layer_aux: Dict[str, torch.Tensor] = {}
             if remat:
-                def block(h, p, e, _kind=seg.kind, _w=window, _t=theta, _moe=moe):
+                def block(h, p, e, _kind=seg.kind, _w=window, _t=theta, _moe=moe,
+                          _ctx=current_ctx()):
+                    # the recompute runs in the backward's thread, which does
+                    # not see this thread's sharding context: it is carried
                     out_aux: Dict[str, torch.Tensor] = {}
-                    y = apply_block(p, h, cfg, _kind, causal=causal, window=_w,
-                                    rope_theta=_t, positions=positions, enc_out=e,
-                                    aux=out_aux)[0]
+                    with sharding_ctx(*_ctx) if _ctx else contextlib.nullcontext():
+                        y = apply_block(p, h, cfg, _kind, causal=causal, window=_w,
+                                        rope_theta=_t, positions=positions, enc_out=e,
+                                        aux=out_aux)[0]
                     return (y, out_aux["lb_loss"]) if _moe else y
                 out = checkpoint(block, x, layers[i], enc_out, use_reentrant=False,
                                  preserve_rng_state=False)

@@ -163,6 +163,12 @@ def test_region_validation():
 
 
 def test_wrappers_refuse_other_devices():
+    """Tensors on two devices are refused; ``meta`` tensors alone take the
+    plain version's shapes (a dry run), and compute nothing."""
     u = torch.zeros(1, 4, 4, 4, device="meta")
+    region = (slice(0, 1), slice(0, 4), slice(0, 4))
     with pytest.raises(ValueError, match="CPU or on one CUDA"):
-        hk.halo_pack(u, (slice(0, 1), slice(0, 4), slice(0, 4)))
+        hk.halo_unpack_add(torch.zeros(1, 4, 4, 4), torch.zeros(1, 1, 4, 4, device="meta"),
+                           region)
+    msg = hk.halo_pack(u, region)
+    assert msg.device.type == "meta" and tuple(msg.shape) == (1, 1, 4, 4)

@@ -48,7 +48,9 @@ def test_import_leaves_out_jax_and_repro(subproc):
             "repro_torch.launch.tune, repro_torch.core.overlap, "
             "repro_torch.core.collectives, repro_torch.analysis, "
             "repro_torch.analysis.programs, repro_torch.optim, repro_torch.data, "
-            "repro_torch.checkpoint, repro_torch.launch.steps, repro_torch.launch.train\n"
+            "repro_torch.checkpoint, repro_torch.launch.steps, repro_torch.launch.train, "
+            "repro_torch.parallel, repro_torch.launch.mesh, repro_torch.launch.dryrun, "
+            "repro_torch.launch.trace_analysis\n"
             "assert 'jax' not in sys.modules\n"
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), sorted(sys.modules)\n")
