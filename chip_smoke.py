@@ -281,14 +281,17 @@ a checkout of the repository.  Phases, each of which must pass:
    32 tokens each), the launch counts of the prefill graph and of one
    eager prefill (counters set to 0 just before it) equal to those
    reckoned from the config (hymba: 32 flash on the tensor-core route,
-   32 SSD scans on the CUDA-core route, 129 norms; whisper: 96 flash,
+   32 SSD scans on the N-16 tensor-core route, 129 norms; whisper: 96 flash,
    162 norms); the checks of phase 7, and every slot's tokens distinct
    from every other's, served and continuous; profiles as in phase 6;
    flash at every served shape (hymba's layer 0, whose window of 1024
    does not bind over 640 keys: the global layers' function,
    whisper's encoder, decoder self and cross layer 0 and a decode
    query against the 1500 frames), the SSD scan at hymba's served
-   shape without and with an initial state (the prompt's end state),
+   shape without and with an initial state (the prompt's end state) on
+   its N-16 tensor-core route, the CUDA-core kernel timed on the same
+   inputs, and every SSD launch of hymba's serving and continuous
+   admissions required on that route,
    rmsnorm at d 1600, 3200 (the gated norm) and 1280, each against its
    plain version and timed cold beside it and SDPA or ``F.rms_norm``
    (with the SSD scan's bound by ``ssd_flops_bytes`` at the bf16
@@ -419,10 +422,34 @@ a checkout of the repository.  Phases, each of which must pass:
    empty): 80 records, each ``ok`` or skipped with the reference's
    reason, no error; counts, the largest per-device argument GB, the
    step TFLOP of each shape and its seconds.
+24. training hymba-1.5b at full width and depth (32 hybrid layers,
+   d_model 1600, 25/5 attention heads of 64, 50 SSD heads of 64 at state
+   16, 128 meta tokens; bf16 compute over 1.59 B float32 parameters from
+   ``torch.Generator(seed)``), 4 x 512 tokens a step (640 rows a layer;
+   ``HYMBA_TRAIN``, the cut printed as a ``train_cut`` line), as phase 21
+   trains gemma3-1b: (b) every gradient leaf of the first eager step
+   finite and not all zero, an eager step's launches (counters set to 0
+   just before it): the SSD forward 64 times (forward and recompute) and
+   its backward 32 times, all on the N-16 tensor-core routes, none on the
+   CUDA-core ones, flash 64 and 32 on the tensor-core route, the norms
+   257 and 129; 3 eager steps equal to ONE graph launch of them bit for
+   bit (deterministic algorithms); ms a step both ways, tokens/s,
+   dispatches, peak memory; (c) a profiled eager step (forward, backward
+   with the recompute, AdamW; the SSD, flash and norm kernels' sums); (a)
+   the N-16 SSD backward against ``ref.ssd_scan_vjp`` at the step's shape
+   (dy only, and with init_state and dh), two runs equal, the CUDA-core
+   backward held and timed on the same inputs, a short last chunk and two
+   groups of chunks at smaller H; the flash backward at hymba's GQA group
+   of 5 (B 4, 25/5 heads, S 640, D 64, window 1024) and the RMSNorm
+   backward at 2560 x 1600 and 2560 x 3200 (the gated norm) against their
+   plain VJPs, timed as phase 21 times them.
 
-The last lines are a ``{"kernels": [...]}`` JSON line (fourteen rows:
-the nine Pallas kernels', the two step kernels' and the three backward
-kernels', which have no Pallas counterpart (``"pallas_counterpart":
+The last lines are a ``{"kernels": [...]}`` JSON line (sixteen rows:
+the nine Pallas kernels', the N-16 SSD route's (``ssd_scan_n16``: phase
+19's hymba prefill shape, ``cuda_core_ms`` the CUDA-core kernel on the
+same inputs, ``phase24_launches``), the two step kernels' and the four
+backward kernels' (the N-16 SSD backward's, ``ssd_scan_bwd_n16``, at
+phase 24's shape), which have no Pallas counterpart (``"pallas_counterpart":
 false``); the
 flash and SSD rows also give ``earlier_ms``: the CUDA-core kernel, the
 port's kernel before the tensor-core one, on the same input in this
@@ -439,7 +466,8 @@ rmsnorm rows ``phase20_launches``, they and the RMSNorm backward's row
 ``phase21_launches``, they and both attention and norm backward rows
 ``phase22_launches`` (phase 22's ``training_shapes`` named ``moe_``, its
 flash backward shapes in ``other_shapes``), the flash and rmsnorm rows
-``phase23_launches``; the flash backward's row its ``kernel_route``,
+``phase23_launches``, they and the flash and RMSNorm backward rows
+``phase24_launches``; the flash backward's row its ``kernel_route``,
 ``earlier_ms`` (the CUDA-core backward on the same input), its
 ``local_layer`` times, ``other_shapes`` (grok's and MLA's) and SDPA's
 ``sdpa_kernels``; the schedule step's row
@@ -476,6 +504,8 @@ REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm.py:28",
     "flash_attention": "src/repro/kernels/flash_attention.py:96",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:80",
+    # the same Pallas kernel at hymba's state width, on its own route
+    "ssd_scan_n16": "src/repro/kernels/ssd_scan.py:80",
     # no Pallas counterpart: the lax.while_loop of _run_persistent_while
     "graph_loop_step": "src/repro/core/engine_persistent.py:495",
     # nor here: the lax.while_loop of _run_schedule_while and its jnp.where masks
@@ -483,6 +513,7 @@ REPLACES = {
     # the backward kernels: the reference differentiates its plain versions,
     # the SSD scan through a custom_vjp, the model's norm by XLA's autodiff
     "ssd_scan_bwd": "src/repro/models/ssm.py:46-49",
+    "ssd_scan_bwd_n16": "src/repro/models/ssm.py:46-49",
     "rmsnorm_bwd": "src/repro/models/nn.py:78",
     # and attention's backward: XLA differentiates the plain _sdpa
     "flash_attention_bwd": "src/repro/models/nn.py:258",
@@ -554,6 +585,14 @@ DENSE_TRAIN_CUT = ("train_4k is 256 x 4096 tokens a step across a TPU pod; one H
                    "gemma3-1b at full width and depth on 4 x 1024 = 4096 tokens a step, the "
                    "served prefill's shape: the window of 512 binds on the 22 local layers, "
                    "the 4 global ones (5, 11, 17, 23) see all 1024 tokens")
+#: phase 24: hymba-1.5b trained at full width and depth
+HYMBA_TRAIN = dict(batch=4, seq=512, steps=3)
+HYMBA_TRAIN_CUT = ("train_4k is 256 x 4096 tokens a step across a TPU pod; one H100 trains "
+                   "hymba-1.5b at full width and depth on 4 x 512 tokens a step (640 rows "
+                   "a layer with the 128 meta tokens, so the window of 1024 does not bind): "
+                   "float32 parameters and AdamW moments, 1.6 B parameters, ~26 GB of state")
+#: the SSD backward's shape in that step: (B, S, H, G, N) at P 64
+HYMBA_SSD_TRAIN = (4, 640, 50, 1, 16)
 #: the flash backward against ref.attention_vjp: (name, dtype, B, Hq, Hkv, Sq,
 #: Skv, D, Dv, keywords): gemma3's global and local layers, grok's soft-capped
 #: GQA (48/8, its output multiplier as the scale) at a shorter S, MLA's pair,
@@ -1528,9 +1567,10 @@ def served_ssd_bound(torch, ref, y, h, x, dt, A, Bm, C, h0):
 
 def cuda_core_ssd(torch, x, dt, A, Bm, C, h0):
     """The CUDA-core SSD kernel (the port's kernel before the tensor-core
-    one; the route rule now gives it float32 and other shapes) on bf16
-    inputs at chunk 128, called through its C entry point: its time at
-    the served shapes is the SSD row's ``earlier_ms``."""
+    ones; the route rule now gives it float32 and other shapes) on bf16
+    inputs at chunk 128 (h0 may be None), called through its C entry
+    point: its time at the served shapes is the SSD row's ``earlier_ms``,
+    at hymba's the N-16 row's ``cuda_core_ms``."""
     from repro_torch.kernels import ssd_scan as sk
     from repro_torch.kernels.build import check_launch, load_library, stream_arg
 
@@ -1540,8 +1580,9 @@ def cuda_core_ssd(torch, x, dt, A, Bm, C, h0):
     h = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     err = load_library("ssd_scan", sk.SIGNATURES).rt_ssd_scan(
         1, x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), C.data_ptr(),
-        h0.data_ptr(), y.data_ptr(), h.data_ptr(), B, S, H, P, G, N, 128, *x.stride()[:3],
-        *dt.stride()[:2], *Bm.stride()[:3], *C.stride()[:3], stream_arg(x))
+        None if h0 is None else h0.data_ptr(), y.data_ptr(), h.data_ptr(), B, S, H, P, G, N,
+        128, *x.stride()[:3], *dt.stride()[:2], *Bm.stride()[:3], *C.stride()[:3],
+        stream_arg(x))
     check_launch("ssd_scan", err)
     return y, h
 
@@ -2998,10 +3039,10 @@ def expected_prefill_launches(cfg) -> dict:
     flash_route = fk.route(dt, *head_dims(cfg))
     scan_route = ssd.route(dt, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk)
     out = {"flash_attention": n_flash, "rmsnorm": n_norm, "ssd_scan": n_scan}
-    for kernel, n, route in (("flash_attention", n_flash, flash_route),
-                             ("ssd_scan", n_scan, scan_route)):
-        other = "cuda_core" if route == "wgmma" else "wgmma"
-        out[f"{kernel}_{route}"], out[f"{kernel}_{other}"] = n, 0
+    for kernel, n, route, routes in (("flash_attention", n_flash, flash_route,
+                                      ("wgmma", "cuda_core")),
+                                     ("ssd_scan", n_scan, scan_route, ssd.ROUTES)):
+        out.update({f"{kernel}_{r}": n if r == route else 0 for r in routes})
     return out
 
 
@@ -3105,7 +3146,10 @@ def flash_entry(torch, fk, ref, tag, model, q, k, v, causal, window, scale=None,
 def hymba_kernel_checks(torch, eng, params, batch_in, fk, rk, ssd, ref):
     """Phase 19 (a): flash, the SSD scan and rmsnorm against their plain
     versions on hymba's served layer 0 (the prefill's input: 128 meta
-    tokens and the 512-token prompts)."""
+    tokens and the 512-token prompts); the SSD scan on its N-16
+    tensor-core route, the CUDA-core kernel timed on the same inputs.
+    Returns the flash and norm entries, the SSD entries and the N-16
+    route's kernels-line row (the prefill's call, no initial state)."""
     from repro_torch.models import nn, ssm as ssm_lib, transformer as tfm
 
     cfg, model = eng.cfg, eng.model
@@ -3127,9 +3171,9 @@ def hymba_kernel_checks(torch, eng, params, batch_in, fk, rk, ssd, ref):
     z, xh, dt, A, Bm, C, _ = ssm_lib.scan_inputs(p["ssm"], hs, cfg)
     B_, S_, H, P = xh.shape
     G, N = Bm.shape[2:]
-    require(ssd.route(xh.dtype, P, N, cfg.ssm_chunk) == "cuda_core",
+    require(ssd.route(xh.dtype, P, N, cfg.ssm_chunk) == "wgmma_n16",
             f"hymba's scan routes to {ssd.route(xh.dtype, P, N, cfg.ssm_chunk)}")
-    scans = []
+    scans, n16_row = [], None
     y0, h_end = ssd.ssd_scan(xh, dt, A, Bm, C, chunk=cfg.ssm_chunk, return_state=True)
     for tag, h0 in (("hymba layer 0", None),
                     ("hymba layer 0, init_state (the prompt's end state)", h_end)):
@@ -3137,8 +3181,9 @@ def hymba_kernel_checks(torch, eng, params, batch_in, fk, rk, ssd, ref):
         y, hl = ssd.ssd_scan(xh, dt, A, Bm, C, init_state=h0, chunk=cfg.ssm_chunk,
                              return_state=True)
         after = ssd.launch_counts()
-        require(after["ssd_scan_cuda_core"] - before["ssd_scan_cuda_core"] == 1,
-                f"{tag}: the scan did not take the CUDA-core route")
+        moved = {k: v - before[k] for k, v in after.items() if v != before[k]}
+        require(moved == {"ssd_scan": 1, "ssd_scan_wgmma_n16": 1},
+                f"{tag}: the scan took {moved}, not one launch on the N-16 tensor-core route")
         detail = served_ssd_bound(torch, ref, y, hl, xh, dt, A, Bm, C, h0)
         flops, n_bytes = ssd_flops_bytes(B_, S_, H, P, G, N, cfg.ssm_chunk, 2, h0 is not None)
         args = (xh, dt, A, Bm, C) + ((h0,) if h0 is not None else ())
@@ -3151,22 +3196,30 @@ def hymba_kernel_checks(torch, eng, params, batch_in, fk, rk, ssd, ref):
             return ref.ssd_scan(x_, dt_, A_, B__, C_, init_state=h[0] if h else None,
                                 return_state=True)
 
-        # bound at the bf16 tensor-core peak (the inputs' type), not the
-        # float32 peak of the route the kernel takes
-        row = kernel_row(torch, "ssd_scan", "ssd_scan.cu", detail["y_max_abs_err"],
+        # bound at the bf16 tensor-core peak (the inputs' type)
+        row = kernel_row(torch, "ssd_scan_n16", "ssd_scan.cu", detail["y_max_abs_err"],
                          cold_calls(torch, kernel, *args), cold_calls(torch, plain, *args),
                          None, n_bytes, flops, BF16_OPS_PER_S, plain_reps=(3, 2))
+        # the CUDA-core kernel, the route's kernel before the N-16 one
+        row["cuda_core_ms"] = median_ms(torch, cold_calls(
+            torch, lambda *a: cuda_core_ssd(torch, *a[:5], a[5] if len(a) > 5 else None),
+            *args))
         scans.append({"model": cfg.name, "shape": tag, "x": list(xh.shape),
                       "B": list(Bm.shape), "init_state": h0 is not None,
-                      "kernel_route": "cuda_core", "flops": flops, "bytes": n_bytes,
+                      "kernel_route": "wgmma_n16", "flops": flops, "bytes": n_bytes,
                       "float32_ops_bound_ms": flops / FP32_OPS_PER_S * 1e3,
+                      "parts": list(ssd.PARTS_N16), "cluster": ssd.default_cluster(S_, N),
                       **detail, **{key: row[key] for key in ("ms", "plain_ms", "bound_ms",
-                                                              "bound_by", "library_ms")}})
+                                                              "bound_by", "library_ms",
+                                                              "cuda_core_ms")}})
+        if h0 is None:
+            n16_row = {**row, "kernel_route": "wgmma_n16", "shape": list(xh.shape),
+                       "state_dim": N}
     yg = (y0 + xh * p["ssm"]["D"][None, None, :, None].to(y0.dtype)).reshape(B_, S_, H * P)
     g = yg * torch.nn.functional.silu(z.float()).to(yg.dtype)
     norm.append(norm_entry(torch, rk, ref, "hymba gated norm", cfg.name, g,
                            p["ssm"]["norm"], cfg.norm_eps))
-    return flash, norm, scans
+    return flash, norm, scans, n16_row
 
 
 def whisper_kernel_checks(torch, eng, params, batch_in, fk, rk, ref):
@@ -3283,8 +3336,8 @@ def run_phase19(torch, seed: int, fk, rk, ssd, ref):
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import ServeEngine, synthetic_batch
 
-    out, flash, norm, scans = {}, [], [], []
-    launches = {"flash_attention": 0, "rmsnorm": 0, "ssd_scan": 0}
+    out, flash, norm, scans, n16_row = {}, [], [], [], None
+    launches = {"flash_attention": 0, "rmsnorm": 0, "ssd_scan": 0, "ssd_scan_wgmma_n16": 0}
 
     def free():
         gc.collect()
@@ -3320,9 +3373,16 @@ def run_phase19(torch, seed: int, fk, rk, ssd, ref):
         checks = check_serving(torch, eng, params, batch_in, runs, shape)
         for k in launches:
             launches[k] += served[k]
+        if cfg.hybrid:
+            # every SSD launch of hymba's serving on the N-16 tensor-core route
+            require(served["ssd_scan_wgmma_n16"] == served["ssd_scan"] > 0
+                    and served["ssd_scan_cuda_core"] == 0,
+                    f"{arch}: serving launched the SSD scan {served}, not all on the N-16 "
+                    "tensor-core route")
         print_profiles(torch, eng, params, batch_in, "_" + arch.split("-")[0])
         if cfg.hybrid:
-            f, n, sc = hymba_kernel_checks(torch, eng, params, batch_in, fk, rk, ssd, ref)
+            f, n, sc, n16_row = hymba_kernel_checks(torch, eng, params, batch_in, fk, rk, ssd,
+                                                    ref)
             scans += sc
         else:
             f, n = whisper_kernel_checks(torch, eng, params, batch_in, fk, rk, ref)
@@ -3349,6 +3409,13 @@ def run_phase19(torch, seed: int, fk, rk, ssd, ref):
         require(held["flash_attention_wgmma"] >= want["flash_attention"] and
                 held["ssd_scan"] >= want["ssd_scan"],
                 f"{arch}: the admission graph holds {held}")
+        if cfg.hybrid:
+            require(report["launches"]["ssd_scan_wgmma_n16"] == report["launches"]["ssd_scan"]
+                    and report["launches"]["ssd_scan_cuda_core"] == 0
+                    and held["ssd_scan_wgmma_n16"] == held["ssd_scan"]
+                    and held["ssd_scan_cuda_core"] == 0,
+                    f"{arch}: continuous serving's SSD launches {report['launches']} and the "
+                    f"admission graph's {held}: not all on the N-16 tensor-core route")
         report.update({"admit_graph_holds": held, "serve": serve_line,
                        "serve_checks": checks,
                        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
@@ -3365,7 +3432,9 @@ def run_phase19(torch, seed: int, fk, rk, ssd, ref):
     free()
     out["internvl2-76b"] = internvl2_smoke(torch, seed)
     free()
-    return out, flash, norm, scans, launches
+    require(n16_row is not None, "phase 19: no N-16 SSD row")
+    n16_row["launches"] = launches["ssd_scan_wgmma_n16"]
+    return out, flash, norm, scans, launches, n16_row
 
 
 #: the MoE layer's parts, timed by ``torch.profiler`` ranges in phase 20
@@ -3872,7 +3941,7 @@ def check_backward_kernels(torch, ssd, rk, ref, seed: int):
         before = ssd.launch_counts()
         out = fn()
         after = ssd.launch_counts()
-        taken = [r for r in ("wgmma", "cuda_core")
+        taken = [r for r in ssd.ROUTES
                  if after[f"ssd_scan_bwd_{r}"] > before[f"ssd_scan_bwd_{r}"]]
         require(len(taken) == 1, f"ssd_scan_bwd {key}: routes launched {taken}")
         detail.setdefault("routes", {})[key] = taken[0]
@@ -5040,6 +5109,273 @@ def run_phase22(torch, seed: int, fk, rk, ref):
     return out, launches, flash, flash_err, norms
 
 
+def check_ssd_bwd_n16(torch, ssd, ref, seed: int):
+    """Phase 24 (a): the N-16 tensor-core backward against the plain VJP
+    at hymba's training shape (B 4, S 640, H 50, P 64, G 1, N 16): as the
+    model calls it (dy only) and with init_state and dh, two runs equal
+    bit for bit; a short last chunk and two groups of chunks at smaller
+    H.  The CUDA-core kernel, the route's kernel before, runs on the same
+    inputs for its time and its share of the bound, which is reported and
+    not required: its dA, summed from row-minus-column differences over
+    32-row sub-chunks, leaves the bound at this shape.  Returns the N-16
+    route's kernels-line row and the details."""
+    gen = torch.Generator("cuda").manual_seed(seed + 24)
+    (B, S, H, G, N), P = HYMBA_SSD_TRAIN, 64
+    detail = {"bound": {"rtol": GRAD_RTOL, "leaf_max_share": GRAD_FRAC,
+                        "bf16_outputs": "plus 2^-8 of |got| + |want|"}}
+    names = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+    wide = lambda *ts: [None if t is None else t.float() for t in ts]  # noqa: E731
+
+    def held(key, fn, want, route, required=True):
+        before = ssd.launch_counts()
+        got = fn()
+        after = ssd.launch_counts()
+        moved = {k: v - before[k] for k, v in after.items() if v != before[k]}
+        require(moved == {"ssd_scan_bwd": 1, f"ssd_scan_bwd_{route}": 1},
+                f"ssd_scan_bwd {key}: launched {moved}, not once on the {route} route")
+        used = {}
+        for name, g, w in zip(names, got, want):
+            require((g is None) == (w is None), f"ssd_scan_bwd {key}: {name} presence")
+            if g is not None:
+                used[name] = grad_check(torch, g, w)
+                require(used[name][0] <= 1.0 or not required, f"ssd_scan_bwd {key}: {name} "
+                        f"beyond the bound (share {used[name][0]:.3g})")
+        detail[key] = {k: {"bound_used": u, "max_abs_err": e} for k, (u, e) in used.items()}
+        return got, max(e for _, e in used.values())
+
+    x, dt, A, Bm, C, h0 = served_ssd_inputs(torch, gen, B, S, H, G, P=P, N=N)
+    dy = torch.randn(B, S, H, P, device="cuda", generator=gen).bfloat16()
+    dh = torch.randn(B, H, P, N, device="cuda", generator=gen)
+    require(ssd.bwd_route(x.dtype, P, N) == "wgmma_n16", "hymba's backward does not route to "
+            f"the N-16 tensor-core kernel: {ssd.bwd_route(x.dtype, P, N)}")
+    want = ref.ssd_scan_vjp(*wide(x, dt, A, Bm, C), None, dy.float(), None)
+    got, err = held("training_bf16", lambda: ssd.ssd_scan_bwd(x, dt, A, Bm, C, dy=dy), want,
+                    "wgmma_n16")
+    held("training_bf16_init_dh",
+         lambda: ssd.ssd_scan_bwd(x, dt, A, Bm, C, init_state=h0, dy=dy, dh=dh),
+         ref.ssd_scan_vjp(*wide(x, dt, A, Bm, C, h0, dy, dh)), "wgmma_n16")
+    again = ssd.ssd_scan_bwd(x, dt, A, Bm, C, dy=dy)
+    require(all(torch.equal(a, b) for a, b in zip(again, got) if a is not None),
+            "ssd_scan_bwd at N 16: two runs differ")
+    held("training_bf16_cuda_core",
+         lambda: ssd.ssd_scan_bwd_variant(x, dt, A, Bm, C, dy=dy, kernel="cuda_core"), want,
+         "cuda_core", required=False)
+    # a short last chunk with init_state and dh; 9 chunks in two groups
+    for b, s_, h in ((2, 300, 8), (1, 1100, 4)):
+        xs, dts, As, Bs, Cs, hs = served_ssd_inputs(torch, gen, b, s_, h, 1, P=P, N=N)
+        dys = torch.randn(b, s_, h, P, device="cuda", generator=gen).bfloat16()
+        dhs = torch.randn(b, h, P, N, device="cuda", generator=gen)
+        held(f"bf16_B{b}_S{s_}_H{h}_init",
+             lambda: ssd.ssd_scan_bwd(xs, dts, As, Bs, Cs, init_state=hs, dy=dys, dh=dhs),
+             ref.ssd_scan_vjp(*wide(xs, dts, As, Bs, Cs, hs, dys, dhs)), "wgmma_n16")
+
+    flops, n_bytes = ssd_bwd_flops_bytes(B, S, H, P, G, N, 2, False)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
+    xf, Bf, Cf, dyf = wide(x, Bm, C, dy)
+    row = {
+        "name": "ssd_scan_bwd_n16", "route": "cuda", "kernel_route": "wgmma_n16",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": REPLACES["ssd_scan_bwd_n16"], "pallas_counterpart": False,
+        "max_abs_err": err,
+        "ms": median_ms(torch, lambda: ssd.ssd_scan_bwd(x, dt, A, Bm, C, dy=dy), reps=5,
+                        inner=3),
+        "plain_ms": median_ms(torch, lambda: ref.ssd_scan_vjp(xf, dt, A, Bf, Cf, None, dyf,
+                                                              None), reps=3, inner=1),
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,  # no single PyTorch call computes the scan's VJP
+        "cuda_core_ms": median_ms(
+            torch, lambda: ssd.ssd_scan_bwd_variant(x, dt, A, Bm, C, dy=dy, kernel="cuda_core"),
+            reps=5, inner=3),
+        "shape": [B, S, H, P, G, N], "parts": list(ssd.BWD_PARTS_N16),
+        "cluster": ssd.max_cluster(S),
+    }
+    detail.update({"ssd_flops": flops, "ssd_bytes": n_bytes,
+                   "ssd_kernel_flops": ssd_bwd_products(B, S, H, P, N, 128, scores=4),
+                   "ssd_bytes_bound_ms": t_bytes * 1e3,
+                   "ssd_float32_cuda_core_bound_ms": max(t_bytes, flops / FP32_OPS_PER_S) * 1e3})
+    return row, detail
+
+
+def run_phase24(torch, seed: int, fk, rk, ssd, ref):
+    """Phase 24: train hymba-1.5b at full width and depth (see the module
+    docstring); returns the phase's line, the N-16 SSD backward's row, the
+    flash backward's and the RMSNorm backward's entries at hymba's training
+    shapes and the kernels' launches in one eager step."""
+    import gc
+
+    from repro_torch import make_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as st
+    from repro_torch.models.nn import tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    B, S, n = HYMBA_TRAIN["batch"], HYMBA_TRAIN["seq"], HYMBA_TRAIN["steps"]
+    print(json.dumps({"train_cut": {"model": "hymba-1.5b", "batch": B, "seq": S,
+                                    "reference_shape": "train_4k",
+                                    "why": HYMBA_TRAIN_CUT}}), flush=True)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    cfg = get_config("hymba-1.5b")
+    shape = ShapeConfig("train_cut", S, B, "train")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    opt_cfg = AdamWConfig(lr=1e-3)
+    bundle = st.build_train_step(cfg, shape, mesh, opt=opt_cfg, total_steps=100)
+    source = SyntheticTokens(cfg, shape)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in source.batch(i).items()}
+               for i in range(n)]
+    stack = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    L = cfg.n_layers
+    out = {"tokens_per_step": B * S, "rows_per_layer": B * (S + cfg.n_meta_tokens),
+           "layers": L, "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+           "ssd": {"heads": cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim,
+                   "P": cfg.ssm_head_dim, "N": cfg.ssm_state, "chunk": cfg.ssm_chunk,
+                   "route": ssd.route(torch.bfloat16, cfg.ssm_head_dim, cfg.ssm_state,
+                                      cfg.ssm_chunk),
+                   "bwd_route": ssd.bwd_route(torch.bfloat16, cfg.ssm_head_dim,
+                                              cfg.ssm_state)}}
+
+    def fresh():
+        params = bundle.model.init(seed)
+        return params, adamw_init(params, opt_cfg)
+
+    # (b) eager steps; step 0's gradients checked; step 1's launches
+    t0 = time.perf_counter()
+    params, opt = fresh()
+    out["init_s"] = time.perf_counter() - t0
+    out["param_count"] = sum(p.numel() for p in tree_leaves(params))
+    grads, gmet = bundle.grad_fn(params, batches[0])
+    bad = [i for i, g in enumerate(tree_leaves(grads))
+           if g is None or not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0)]
+    require(not bad, f"phase 24: gradient leaves {bad} missing, non-finite or all zero")
+    out["grad_leaves"] = len(tree_leaves(grads))
+    params, opt, omet = bundle.apply_fn(params, opt, grads)
+    del grads
+    eager_mets = [{**gmet, **omet}]
+    step_ms = []
+    for i in range(1, n):
+        reset_all_launches()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, m = bundle.step_fn(params, opt, batches[i])
+        stop.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(stop))
+        eager_mets.append(m)
+        if i == 1:
+            launches = {k: v for k, v in ops.launch_counts().items() if v}
+    out["eager_step_launches"] = launches
+    require(launches.get("ssd_scan") == launches.get("ssd_scan_wgmma_n16") == 2 * L
+            and not launches.get("ssd_scan_cuda_core") and not launches.get("ssd_scan_wgmma"),
+            f"an eager step's SSD forward launches {launches}: not {2 * L} (forward and "
+            "recompute) all on the N-16 tensor-core route")
+    require(launches.get("ssd_scan_bwd") == launches.get("ssd_scan_bwd_wgmma_n16") == L
+            and not launches.get("ssd_scan_bwd_cuda_core")
+            and not launches.get("ssd_scan_bwd_wgmma"),
+            f"an eager step's SSD backward launches {launches}: not {L} all on the N-16 "
+            "tensor-core route")
+    flash_route = fk.route(torch.bfloat16, cfg.resolved_head_dim(), cfg.resolved_head_dim())
+    require(launches.get("flash_attention") == launches.get(f"flash_attention_{flash_route}")
+            == 2 * L and launches.get("flash_attention_bwd")
+            == launches.get(f"flash_attention_bwd_{flash_route}") == L,
+            f"an eager step's flash launches {launches}: not {2 * L} forward and {L} backward "
+            f"on the {flash_route} route")
+    require(launches.get("rmsnorm_bwd", 0) == 4 * L + 1
+            and launches.get("rmsnorm") == 2 * launches["rmsnorm_bwd"] - 1,
+            f"an eager step's RMSNorm launches {launches}: not the 4 norms a layer (the gated "
+            "norm included) forward twice under the checkpoint and backward once, and the "
+            "final norm")
+    eager = {k: torch.stack([m[k] for m in eager_mets]) for k in eager_mets[0]}
+    out["loss"] = eager["loss"].tolist()
+    require(bool(torch.isfinite(eager["loss"]).all()), "phase 24: a non-finite loss")
+    out["eager_ms_per_step"] = step_ms
+    out["peak_gb_eager"] = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    keep = {"state": [t.cpu() for t in tree_leaves((params, opt))],
+            "mets": {k: v.cpu() for k, v in eager.items()}}
+    out["host_copy_s"] = time.perf_counter() - t0
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the same steps as ONE graph launch
+    params, opt = fresh()
+    multi = st.persistent_steps(bundle, n, stacked=True).step_fn
+    t0 = time.perf_counter()
+    params, opt, mets = multi(params, opt, stack)
+    torch.cuda.synchronize()
+    out["graph_setup_s"] = time.perf_counter() - t0
+    require((multi.dispatches, multi.captures) == (1, 1), "phase 24: not one graph launch")
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves((params, opt)),
+                                                       keep["state"]))
+    same_m = all(torch.equal(mets[k].cpu(), keep["mets"][k]) for k in keep["mets"])
+    require(same and same_m, "phase 24: the one-launch steps differ from the eager steps")
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    multi(params, opt, stack)
+    stop.record()
+    torch.cuda.synchronize()
+    out["graph_ms_per_step"] = start.elapsed_time(stop) / n
+    out["dispatches_per_step_graph"] = 1 / n
+    out["tokens_per_s_graph"] = out["tokens_per_step"] / (out["graph_ms_per_step"] / 1e3)
+    out["tokens_per_s_eager"] = out["tokens_per_step"] / (statistics.median(step_ms) / 1e3)
+    out["peak_gb_graph"] = torch.cuda.max_memory_allocated() / 1e9
+    del multi, params, opt, mets, keep
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+
+    # (c) where an eager step's time goes
+    params, opt = fresh()
+    bundle.step_fn(params, opt, batches[0])
+    torch.cuda.synchronize()
+    prof = profile_train_step(torch, bundle, params, opt, batches[1])
+    kernels, busy = prof.pop("kernels"), prof["device_busy_ms"]
+    groups = {"ssd_bwd": ("ssd_bwd_wgmma_n16", "ssd_bwd_group_sum", "ssd_bwd_batch_sum"),
+              "ssd_fwd": ("ssd_wgmma_n16",), "flash_bwd": ("flash_bwd",),
+              "flash_fwd": ("flash_wgmma",), "rmsnorm_bwd": ("rmsnorm_bwd", "rmsnorm_dw")}
+    split = {}
+    for name, keys in groups.items():
+        hits = [(t, c) for k, t, c in kernels if any(key in k for key in keys)]
+        split[name] = {"ms": sum(t for t, _ in hits), "launches": sum(c for _, c in hits),
+                       "share_of_busy": sum(t for t, _ in hits) / busy if busy else None}
+    out["profile"] = {**prof, "by_family": split,
+                      "top": [{"kernel": k[:90], "ms": t, "count": c}
+                              for k, t, c in kernels[:14]]}
+    # an eager step dispatches each of its kernels from the host
+    out["dispatches_per_step_eager"] = prof["kernel_launches"]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) the kernels at the step's shapes against their plain versions
+    row, detail = check_ssd_bwd_n16(torch, ssd, ref, seed)
+    out["ssd_backward_checks"] = detail
+    gen = torch.Generator("cuda").manual_seed(seed + 124)
+    flash, flash_errs, inputs = flash_bwd_case(
+        torch, fk, ref, gen, "hymba_gqa5", "bf16", B, cfg.n_heads, cfg.n_kv_heads,
+        S + cfg.n_meta_tokens, S + cfg.n_meta_tokens, cfg.resolved_head_dim(),
+        cfg.resolved_head_dim(), {"window": cfg.sliding_window})
+    flash["times"] = flash_bwd_times(torch, fk, ref, *inputs)
+    del inputs
+    norms = dict(check_norm_bwd(torch, rk, ref, gen, (B, S + cfg.n_meta_tokens, d),
+                                cfg.norm_eps)
+                 for d in (cfg.d_model, cfg.ssm_expand * cfg.d_model))
+    out["flash_backward_check"] = flash
+    out["rmsnorm_backward_checks"] = norms
+    out["card"] = gpu_line()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, row, flash, max(flash_errs), norms, launches
+
+
 def start_dry_run():
     """Phase 23 (d), started first: the whole dry run in a CPU process
     (``CUDA_VISIBLE_DEVICES`` empty, meta tensors only) beside the card's
@@ -5489,8 +5825,8 @@ def run_phases(torch, args, dry) -> int:
 
     # phase 19: the hybrid, encoder-decoder and vision families
     torch.cuda.empty_cache()
-    families, flash19, norm19, ssd19, launches19 = run_phase19(torch, args.seed, fk, rk, ssd,
-                                                               ref)
+    families, flash19, norm19, ssd19, launches19, n16_row = run_phase19(
+        torch, args.seed, fk, rk, ssd, ref)
     print(json.dumps({"families": families}), flush=True)
     dense_rows[0]["served_shapes"] += flash19
     dense_rows[1]["served_shapes"] += norm19
@@ -5561,7 +5897,28 @@ def run_phases(torch, args, dry) -> int:
     for r in dense_rows:
         r["phase23_launches"] = launches23.get(r["name"], 0)
 
-    rows = rows + dense_rows + [ssd_row, step_row, sched_row] + bwd_rows
+    # phase 24: training hymba-1.5b at full width and depth
+    t24 = time.perf_counter()
+    hybrid_train, bwd_n16_row, flash24, flash24_err, norms24, launches24 = run_phase24(
+        torch, args.seed, fk, rk, ssd, ref)
+    hybrid_train["seconds"] = time.perf_counter() - t24
+    print(json.dumps({"train_hybrid": hybrid_train}), flush=True)
+    bwd_n16_row["launches"] = launches24["ssd_scan_bwd_wgmma_n16"]
+    n16_row["phase24_launches"] = launches24["ssd_scan_wgmma_n16"]
+    flash_bwd_row["other_shapes"]["hymba_gqa5"] = flash24["times"]
+    flash_bwd_row["max_abs_err"] = max(flash_bwd_row["max_abs_err"], flash24_err)
+    bwd_rows[1]["training_shapes"].update(
+        {f"hymba_{k}": {n_: v[n_] for n_ in ("ms", "row_pass_ms", "dw_pass_ms", "plain_ms",
+                                            "library_ms", "bound_ms")}
+         for k, v in norms24.items()})
+    bwd_rows[1]["max_abs_err"] = max(
+        [bwd_rows[1]["max_abs_err"]] + [v[n_]["max_abs_err"] for v in norms24.values()
+                                        for n_ in ("dx", "dw")])
+    for r in dense_rows + bwd_rows[1:]:
+        r["phase24_launches"] = launches24.get(r["name"], 0)
+
+    rows = (rows + dense_rows + [ssd_row, n16_row, step_row, sched_row] + bwd_rows
+            + [bwd_n16_row])
     require(sorted(r["name"] for r in rows) == sorted(REPLACES), "a kernel row is missing")
     require(all(r["launches"] > 0 for r in rows), "a kernel was not launched on its path")
     order = ("name", "route", "kernel_route", "source", "replaces", "pallas_counterpart",
@@ -5570,7 +5927,7 @@ def run_phases(torch, args, dry) -> int:
              "library_fwd_ms", "training_shapes", "earlier_ms", "cuda_core_ms", "decode",
              "served_shapes", "phase17_launches", "phase18_launches", "phase19_launches",
              "phase20_launches", "phase21_launches", "phase22_launches",
-             "phase23_launches", "shape",
+             "phase23_launches", "phase24_launches", "shape", "parts", "cluster",
              "sdpa_kernels", "local_layer",
              "other_shapes", "one_program_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in order if k in r} for r in rows]}))

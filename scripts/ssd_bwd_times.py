@@ -1,8 +1,8 @@
-"""Times of the port's SSD scan backward on the card at mamba2's training
-shapes, by kernel, bf16 parts and cluster size, with the share of the
-gradient bound that every variant uses.
+"""Times of the port's SSD scan backward on the card at mamba2's and
+hymba's training shapes, by kernel, bf16 parts and cluster size, with
+the share of the gradient bound that every variant uses.
 
-    PYTHONPATH=src python3 scripts/ssd_bwd_times.py [--tag NAME]
+    PYTHONPATH=src python3 scripts/ssd_bwd_times.py [--tag NAME] [--shape mamba2|hymba]
 
 It imports ``repro_torch`` from ``PYTHONPATH`` and calls only the
 wrapper's public functions, so the same script times two trees of the
@@ -10,13 +10,15 @@ package in one run (an older tree unpacked beside this one, then this
 one; compare only within one call, on one card).  A tree without the
 tensor-core backward is timed at its default only.
 
-Shapes: B 4, S 512, H 80, P 64, G 1, N 128, bf16 x, B and C as views of
-one conv output (row stride 5 376), float32 dt and A, a bf16 dy and no
-dh or init_state, as the model's backward calls it (``chip_smoke.py``
-phase 18).  For the default call, the CUDA-core kernel on the same
-inputs, and variants of the tensor-core kernel -- its operands cut into
-1 or 2 bf16 parts; 1 or 2 CTAs a cluster (fewer than the 4 chunks walk
-groups of chunks) -- the median of 10 replays of a CUDA graph of 5
+Shapes: mamba2's, B 4, S 512, H 80, P 64, G 1, N 128, bf16 x, B and C
+as views of one conv output (row stride 5 376), float32 dt and A, a bf16
+dy and no dh or init_state, as the model's backward calls it
+(``chip_smoke.py`` phase 18); hymba's, B 4, S 640 (128 meta tokens and
+512 tokens), H 50, P 64, G 1, N 16, the same way (phase 24).  For the
+default call, the CUDA-core kernel on the same inputs, and variants of
+the tensor-core kernel -- its operands cut into 1 or 2 bf16 parts; 1 or
+2 CTAs a cluster (1, 2 or 3 of hymba's 5 chunks; fewer CTAs than chunks
+walk groups of chunks) -- the median of 10 replays of a CUDA graph of 5
 calls, and the largest share of the gradient bound
 (``chip_smoke.py``'s GRAD_RTOL 2e-4 plus GRAD_FRAC 2e-5 of the leaf's
 largest entry, 2^-8 of the magnitudes more for a bf16 result) used
@@ -41,11 +43,13 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as ssd
 
 HBM_BYTES_PER_S, BF16_OPS_PER_S = 3.35e12, 989e12
-B, S, H, P, G, N = 4, 512, 80, 64, 1, 128
+P, G = 64, 1
+#: (B, S, H, N) and the cluster sizes timed beside the default
+SHAPES = {"mamba2": ((4, 512, 80, 128), (1, 2)), "hymba": ((4, 640, 50, 16), (1, 2, 3))}
 GRAD_RTOL, GRAD_FRAC = 2e-4, 2e-5
 
 
-def products(L: int, scores: int) -> int:
+def products(B: int, S: int, H: int, N: int, L: int, scores: int) -> int:
     """Operations at sub-chunks of L rows (S a multiple of L): over the
     causal triangle ``scores`` products of width N and scores - 1 of
     width P (3: the function's B C^T, x dy^T and their three products; 4:
@@ -75,7 +79,7 @@ def median_us(fn, inner: int = 5, reps: int = 10) -> float:
     return statistics.median(a.elapsed_time(b) * 1e3 / inner for a, b in windows)
 
 
-def inputs(seed: int):
+def inputs(seed: int, B: int, S: int, H: int, N: int):
     gen = torch.Generator("cuda").manual_seed(seed)
     wide = torch.randn(B, S, H * P + 2 * G * N, device="cuda", generator=gen).bfloat16()
     x = wide[..., :H * P].reshape(B, S, H, P)
@@ -90,16 +94,27 @@ def inputs(seed: int):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tag", default="")
+    parser.add_argument("--shape", choices=sorted(SHAPES), action="append")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ssd_bwd_times: needs a CUDA device")
-    x, dt, A, Bm, C, dy = inputs(0)
+    for shape in args.shape or sorted(SHAPES, reverse=True):
+        time_shape(args.tag, shape)
+    print("card: " + subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+
+
+def time_shape(tag: str, shape: str) -> None:
+    (B, S, H, N), clusters = SHAPES[shape]
+    x, dt, A, Bm, C, dy = inputs(0, B, S, H, N)
     n_bytes = 3 * B * S * H * P * 2 + 2 * B * S * H * 4 + 2 * H * 4 + 4 * B * S * G * N * 2
-    flops = min(products(L, 3) for L in (16, 32, 64, 128))
-    result = {"tag": args.tag, "shapes": {"B": B, "S": S, "H": H, "P": P, "G": G, "N": N},
+    flops = min(products(B, S, H, N, L, 3) for L in (16, 32, 64, 128))
+    result = {"tag": tag, "shape": shape,
+              "shapes": {"B": B, "S": S, "H": H, "P": P, "G": G, "N": N},
               "bytes_bound_us": n_bytes / HBM_BYTES_PER_S * 1e6,
               "bf16_ops_bound_us": flops / BF16_OPS_PER_S * 1e6,
-              "kernel_bf16_ops_us": products(128, 4) / BF16_OPS_PER_S * 1e6}
+              "kernel_bf16_ops_us": products(B, S, H, N, 128, 4) / BF16_OPS_PER_S * 1e6}
     want = ref.ssd_scan_vjp(x.float(), dt, A, Bm.float(), C.float(), None, dy.float(), None)
     bf16_out = (True, False, False, True, True)  # dx, ddt, dA, dB, dC
 
@@ -114,13 +129,16 @@ def main() -> None:
         return worst
 
     calls = {"default": lambda: ssd.ssd_scan_bwd(x, dt, A, Bm, C, dy=dy)}
-    if hasattr(ssd, "BWD_PARTS_VARIANTS"):
-        result["parts"] = list(ssd.BWD_PARTS)
-        result["route"] = ssd.bwd_route(torch.bfloat16, P, N)
+    route = ssd.bwd_route(torch.bfloat16, P, N)
+    if route in ("wgmma", "wgmma_n16"):
+        n16 = route == "wgmma_n16"
+        served = ssd.BWD_PARTS_N16 if n16 else ssd.BWD_PARTS
+        result["parts"], result["route"] = list(served), route
         calls["cuda_core"] = lambda: ssd.ssd_scan_bwd_variant(x, dt, A, Bm, C, dy=dy,
                                                               kernel="cuda_core")
-        kws = [dict(parts=parts, cluster=4) for parts in ssd.BWD_PARTS_VARIANTS]
-        kws += [dict(parts=ssd.BWD_PARTS, cluster=cluster) for cluster in (1, 2)]
+        kws = [dict(parts=parts, cluster=ssd.max_cluster(S))
+               for parts in (ssd.BWD_PARTS_N16_VARIANTS if n16 else ssd.BWD_PARTS_VARIANTS)]
+        kws += [dict(parts=served, cluster=cluster) for cluster in clusters]
         for kw in kws:
             name = "_".join(f"{k}{''.join(map(str, v)) if k == 'parts' else v}"
                             for k, v in kw.items())
@@ -146,9 +164,6 @@ def main() -> None:
             by_kernel[ev.key[:80]] = us / 5
     result["device_us_a_call_by_kernel"] = by_kernel
     print(json.dumps(result), flush=True)
-    print("card: " + subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
 
 
 if __name__ == "__main__":

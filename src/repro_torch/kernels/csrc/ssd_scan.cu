@@ -16,10 +16,12 @@
 // the exponent is positive and reaches hundreds at chunk 128, and a 0/1 mask
 // multiplied after the exp would turn inf * 0 into NaN.
 //
-// Two kernels, one rule (the wrapper's route, kernels/ssd_scan.py:route):
+// Three kernels, one rule (the wrapper's route, kernels/ssd_scan.py:route):
 // bf16 x, B and C at P 64, N 128 and chunk 128 -- the served mamba2 shapes
-// -- run ssd_wgmma_kernel on the tensor cores; float32, and every other
-// shape, run ssd_scan_kernel on CUDA cores.
+// -- run ssd_wgmma_kernel on the tensor cores; bf16 at P 64, N 16 and chunk
+// 128 -- hymba's -- run ssd_wgmma_n16_kernel (namespace n16, at the end);
+// float32, and every other shape, run ssd_scan_kernel on CUDA cores.  The
+// backward has the same three routes (bwd_route).
 //
 // ssd_scan_kernel (CUDA cores).  Per chunk of 128 rows at P = 64, N = 128
 // the four products need ~7.4 MFLOP (C B^T and G x over the causal
@@ -509,6 +511,14 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t s
          static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(1) << 62;
 }
 
+// The same for a tile in the 32-byte swizzle (layout 3): rows of 16 bf16
+// (32 bytes), 8-row atoms of 256 bytes.
+__device__ __forceinline__ uint64_t desc32(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(3) << 62;
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -582,6 +592,28 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d[8] += A (64 x 16, bf16 registers) * B (16 x 16, MN-major, shared)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : TC_D8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[8] += A (64 x 16, K-major, shared) * B (16 x 16, MN-major, shared)
+__device__ __forceinline__ void wgmma_ss_n16_tb(float (&d)[8], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 1;\n}\n"
+      : TC_D8(0)
+      : "l"(a), "l"(b), "r"(1));
+}
+
 #undef TC_D32
 #undef TC_D8
 
@@ -628,6 +660,13 @@ __device__ __forceinline__ int swizzled(int row, int col) {
   return row * 128 + ((((col >> 3) ^ (row & 7)) << 4) | ((col & 7) << 1));
 }
 
+// Byte offset of element (row, col < 16) in a 32-byte-swizzled bf16 tile
+// (rows of 32 bytes), as TMA lays it out: the two 16-byte halves of a row
+// swap in rows 4-7 of every 8.
+__device__ __forceinline__ int swizzled32(int row, int col) {
+  return row * 32 + ((((col >> 3) ^ ((row >> 2) & 1)) << 4) | ((col & 7) << 1));
+}
+
 // cum = inclusive cumsum of A dt over the chunk: one warp, four rows a lane.
 __device__ __forceinline__ void chunk_cumsum(float* cum, const float* dts, float A, int lane) {
   float v[4];
@@ -652,8 +691,10 @@ __device__ __forceinline__ void chunk_cumsum(float* cum, const float* dts, float
 // yi += G x over the 64 x 32 slice of rows 64 wg.. and columns v0 = 32 k..
 // of the chunk: S = C B^T on wgmma, G = S o L o dt in registers, then G
 // (NP bf16 parts, from registers) times x's rows v0.. (MN-major, shared).
-// Slices of 32 columns keep S and G's fragments to 16 registers each.
-template <int NP>
+// Slices of 32 columns keep S and G's fragments to 16 registers each.  NS:
+// the state width, 128 (C and B in two 128-byte-swizzled boxes, 8 k-steps)
+// or 16 (one 32-byte-swizzled box each, one k-step).
+template <int NP, int NS = kN>
 __device__ __forceinline__ void intra_slice(float (&yi)[32], uint32_t sC, uint32_t sB,
                                             uint32_t sX, const float* cum, const float* dts,
                                             int wg, int v0, int r0, int c0) {
@@ -662,10 +703,14 @@ __device__ __forceinline__ void intra_slice(float (&yi)[32], uint32_t sC, uint32
   for (int j = 0; j < 16; ++j) s[j] = 0.f;
   fence_regs(s);
   wgmma_fence();
+  if constexpr (NS == 16) {
+    wgmma_ss_n32(s, desc32(sC + wg * 64 * 32, 16, 256), desc32(sB + v0 * 32, 16, 256));
+  } else {
 #pragma unroll
-  for (int kk = 0; kk < kN / 16; ++kk) {
-    const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
-    wgmma_ss_n32(s, desc(sC + off + wg * kHalf, 16, 1024), desc(sB + off + v0 * 128, 16, 1024));
+    for (int kk = 0; kk < kN / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+      wgmma_ss_n32(s, desc(sC + off + wg * kHalf, 16, 1024), desc(sB + off + v0 * 128, 16, 1024));
+    }
   }
   wgmma_commit();
   wgmma_wait_all();
@@ -707,17 +752,19 @@ __device__ __forceinline__ void intra_slice(float (&yi)[32], uint32_t sC, uint32
 // rows p, summed over the chunk's rows u.  x o w goes
 // to wgmma from registers in NP bf16 parts, x^T's fragments read from its
 // swizzled box by ldmatrix.trans; B from shared memory as an MN-major
-// operand.
-template <int NP>
-__device__ __forceinline__ void chunk_increment(float (&hi)[32], uint32_t sB, uint32_t sX,
+// operand.  With R = 8 it forms the whole 64 x 16 increment of a state
+// of width 16 (B in one 32-byte-swizzled box; wg unused).
+template <int NP, int R>
+__device__ __forceinline__ void chunk_increment(float (&hi)[R], uint32_t sB, uint32_t sX,
                                                 const float* wts, int wg, int c0) {
+  static_assert(R == 32 || R == 8, "an n64 or n16 accumulator");
   const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
   // this lane's row of the ldmatrix: u = 16 ks + 8 (m / 2) + lane % 8 of
   // matrix m = lane / 8, columns p = 16 warp + 8 (m % 2) ..
   const int m = lane / 8;
   const int lu = 8 * (m / 2) + lane % 8, lp = 16 * warp + 8 * (m % 2);
 #pragma unroll
-  for (int j = 0; j < 32; ++j) hi[j] = 0.f;
+  for (int j = 0; j < R; ++j) hi[j] = 0.f;
   // one k-step at a time, its fragments double-buffered: the products of
   // step ks run while step ks + 1's fragments are built
   uint32_t wa[2][NP][4];
@@ -736,9 +783,15 @@ __device__ __forceinline__ void chunk_increment(float (&hi)[32], uint32_t sB, ui
       for (int part = 0; part < NP; ++part) wa[ks % 2][part][r] = take_part(a, b);
     }
     wgmma_fence();
-    const uint64_t bd = desc(sB + wg * kBox + ks * 16 * 128, kHalf, 1024);
+    if constexpr (R == 8) {
+      const uint64_t bd = desc32(sB + ks * 16 * 32, 256, 256);
 #pragma unroll
-    for (int part = 0; part < NP; ++part) wgmma_rs_n64(hi, wa[ks % 2][part], bd);
+      for (int part = 0; part < NP; ++part) wgmma_rs_n16(hi, wa[ks % 2][part], bd);
+    } else {
+      const uint64_t bd = desc(sB + wg * kBox + ks * 16 * 128, kHalf, 1024);
+#pragma unroll
+      for (int part = 0; part < NP; ++part) wgmma_rs_n64(hi, wa[ks % 2][part], bd);
+    }
     wgmma_commit();
     wgmma_wait_one();
   }
@@ -956,8 +1009,9 @@ EncodeTiled encode_tiled() {
 }
 
 // A 4-D map over (cols, S, H, B) of a bf16 tensor with element strides
-// (s, h, b), boxes of 64 columns x 128 rows, 128-byte swizzle; rows past S
-// read as zeros.
+// (s, h, b), boxes of 64 columns x 128 rows in the 128-byte swizzle; at 16
+// columns (N 16), boxes of the 16 columns (32-byte rows) in the 32-byte
+// swizzle.  Rows past S read as zeros.
 bool encode(CUtensorMap* map, const void* ptr, int cols, int S, int H, int B, long long ss,
             long long sh, long long sb) {
   const EncodeTiled fn = encode_tiled();
@@ -967,12 +1021,36 @@ bool encode(CUtensorMap* map, const void* ptr, int cols, int S, int H, int B, lo
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
                                  static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, kL, 1, 1};
+  const bool narrow = cols == 16;
+  const cuuint32_t box[4] = {narrow ? 16u : 64u, kL, 1, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-            box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            narrow ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A kernel of kThreads-thread CTAs on a (cluster, H, B) grid, the cluster
+// along x, with `smem` bytes of dynamic shared memory (the caller has
+// allowed them).
+template <typename P>
+cudaError_t launch_clusters(void (*kernel)(P), const P& p, int smem, int cluster, int H, int B,
+                            cudaStream_t s) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, H, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <int PG, int PW, int PH>
@@ -981,20 +1059,7 @@ cudaError_t launch(const Params& p, int cluster, int B, cudaStream_t s) {
   static const cudaError_t set =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (set != cudaSuccess) return set;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, p.H, B);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kSmem;
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return launch_clusters(kernel, p, kSmem, cluster, p.H, B, s);
 }
 
 }  // namespace tc
@@ -1529,19 +1594,22 @@ __device__ __forceinline__ void decays(float* dts, const float* dtg, long long s
 }
 
 // A [P, N] state in the increments' register order, to shared memory:
-// float4 q of thread t at 16 (256 q + t) bytes.
-__device__ __forceinline__ void publish(uint8_t* area, const float (&v)[32], int tid) {
+// float4 q of thread t at 16 (T q + t) bytes, T the threads that hold it
+// (both warpgroups at N 128, one at N 16).
+template <int T = kThreads, int R>
+__device__ __forceinline__ void publish(uint8_t* area, const float (&v)[R], int tid) {
   float4* out = reinterpret_cast<float4*>(area);
 #pragma unroll
-  for (int q = 0; q < 8; ++q)
-    out[q * kThreads + tid] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  for (int q = 0; q < R / 4; ++q)
+    out[q * T + tid] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
 }
 
 // acc += sum over the ranks j = first, first + step, ... (count of them) of
 // exp(the sum of cum_last over the ranks between this CTA and j) times the
 // state rank j published at `area`, read through distributed shared memory;
-// returns the sum of cum_last over those ranks.
-__device__ __forceinline__ float combine(float (&acc)[32], uint32_t area, uint32_t clast,
+// returns the sum of cum_last over those ranks.  T as publish's.
+template <int T = kThreads, int R>
+__device__ __forceinline__ float combine(float (&acc)[R], uint32_t area, uint32_t clast,
                                          int first, int step, int count, int tid) {
   float run = 0.f;
   for (int i = 0; i < count; ++i) {
@@ -1549,8 +1617,8 @@ __device__ __forceinline__ float combine(float (&acc)[32], uint32_t area, uint32
     const float e = expf(run);
     const uint32_t src = tc::map_rank(area, j);
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const float4 v = tc::ld_cluster4(src + 16 * (q * kThreads + tid));
+    for (int q = 0; q < R / 4; ++q) {
+      const float4 v = tc::ld_cluster4(src + 16 * (q * T + tid));
       acc[4 * q] = fmaf(e, v.x, acc[4 * q]);
       acc[4 * q + 1] = fmaf(e, v.y, acc[4 * q + 1]);
       acc[4 * q + 2] = fmaf(e, v.z, acc[4 * q + 2]);
@@ -1606,9 +1674,10 @@ __device__ __forceinline__ void fragments(uint32_t (&ga)[NP][2][4], const float 
     }
 }
 
-__device__ __forceinline__ void scale_rows(float (&a)[32], float fa, float fb) {
+template <int R>
+__device__ __forceinline__ void scale_rows(float (&a)[R], float fa, float fb) {
 #pragma unroll
-  for (int q = 0; q < 16; ++q) {
+  for (int q = 0; q < R / 2; ++q) {
     const float f = q % 2 ? fb : fa;
     a[2 * q] *= f;
     a[2 * q + 1] *= f;
@@ -1681,12 +1750,13 @@ __device__ __forceinline__ void pair_sums(const float (&q)[16], float& run_a, fl
   }
 }
 
-// Rows ra, rb of a 64-column float32 half tile to rows of `out` (row
-// stride rs), less rows past len.
-__device__ __forceinline__ void store_half(float* out, long long rs, const float (&a)[32], int ra,
+// Rows ra, rb of a 64-column (R 32) or 16-column (R 8) float32 tile to
+// rows of `out` (row stride rs), less rows past len.
+template <int R>
+__device__ __forceinline__ void store_half(float* out, long long rs, const float (&a)[R], int ra,
                                            int rb, int c0, int len) {
 #pragma unroll
-  for (int q = 0; q < 16; ++q) {
+  for (int q = 0; q < R / 2; ++q) {
     const int row = q % 2 ? rb : ra;
     if (row < len)
       *reinterpret_cast<float2*>(out + row * rs + 8 * (q / 2) + c0) =
@@ -2133,6 +2203,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// After a tensor-core backward of state width N: dB and dC added over a
+// group's heads, dA over the batch and the chunks, in order.
+inline cudaError_t sums(const Params& p, int N, void* dB, void* dC, float* dA, cudaStream_t s) {
+  const long long outer = static_cast<long long>(p.batch) * p.S;
+  const int blocks = static_cast<int>((outer * p.G * N + 255) / 256);
+  bwd::ssd_bwd_group_sum<__nv_bfloat16><<<blocks, 256, 0, s>>>(
+      p.dB_part, static_cast<__nv_bfloat16*>(dB), outer, p.H, p.G, N);
+  bwd::ssd_bwd_group_sum<__nv_bfloat16><<<blocks, 256, 0, s>>>(
+      p.dC_part, static_cast<__nv_bfloat16*>(dC), outer, p.H, p.G, N);
+  bwd::ssd_bwd_batch_sum<<<(p.H + 255) / 256, 256, 0, s>>>(p.dA_part, dA, p.batch * p.chunks,
+                                                            p.H);
+  return cudaGetLastError();
+}
+
 template <int PW, int PE, int PS, int PH, int PU>
 cudaError_t launch(const Params& p, int cluster, void* dB, void* dC, float* dA, cudaStream_t s) {
   auto kernel = ssd_bwd_wgmma_kernel<PW, PE, PS, PH, PU>;
@@ -2140,33 +2224,679 @@ cudaError_t launch(const Params& p, int cluster, void* dB, void* dC, float* dA, 
   static const cudaError_t set =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (set != cudaSuccess) return set;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, p.H, p.batch);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
-  if (err == cudaSuccess) err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const long long outer = static_cast<long long>(p.batch) * p.S;
-  const int blocks = static_cast<int>((outer * p.G * kN + 255) / 256);
-  bwd::ssd_bwd_group_sum<__nv_bfloat16><<<blocks, 256, 0, s>>>(
-      p.dB_part, static_cast<__nv_bfloat16*>(dB), outer, p.H, p.G, kN);
-  bwd::ssd_bwd_group_sum<__nv_bfloat16><<<blocks, 256, 0, s>>>(
-      p.dC_part, static_cast<__nv_bfloat16*>(dC), outer, p.H, p.G, kN);
-  bwd::ssd_bwd_batch_sum<<<(p.H + 255) / 256, 256, 0, s>>>(p.dA_part, dA, p.batch * p.chunks,
-                                                            p.H);
-  return cudaGetLastError();
+  const cudaError_t err = tc::launch_clusters(kernel, p, smem, cluster, p.H, p.batch, s);
+  return err != cudaSuccess ? err : sums(p, kN, dB, dC, dA, s);
 }
 
 }  // namespace tcb
+
+// ---------------------------------------------------------------------------
+// The tensor-core route at a state width of 16: bf16 x, B and C at P 64,
+// N 16 (hymba-1.5b's SSD heads), forward (chunk 128) and backward.
+//
+// ssd_wgmma_n16_kernel replaces ssd_scan_call (src/repro/kernels/ssd_scan.py:80)
+// on that route, as ssd_wgmma_kernel does at N 128; ssd_bwd_wgmma_n16_kernel is
+// the route's backward (the reference differentiates the plain scan through
+// a custom_vjp, src/repro/models/ssm.py:46-49).  The algorithms are those of
+// the N-128 kernels above (tc, tcb), the chunk-parallel "state passing" form:
+// one CTA of two warpgroups per 128-row chunk, the CTAs of a (batch, head) a
+// thread-block cluster, the states formed by prefix (and, backward, suffix)
+// combination through distributed shared memory, the same helpers and the
+// same bf16 parts.  What N 16 changes:
+//   * a row of B or C is 32 bytes: TMA loads each as one 128 x 16 box in the
+//     32-byte swizzle (4 KB), and every wgmma operand that reads them, or a
+//     [P, N] state, takes 32-byte-swizzle descriptors (desc32): C B^T is one
+//     m64n32k16 a 32-column slice, C h^T and B U^T one m64n64k16, the
+//     increments and x U, dy H0 m64n16 over k-steps of 16 rows;
+//   * a [P, N] state is 64 x 16: one warpgroup's m64n16 accumulator holds it
+//     whole (8 floats a thread), so warpgroup 0 forms the forward's
+//     increment h_inc (warpgroup 1 has twice its causal slices), and in the
+//     backward warpgroup 0 forms h_inc, warpgroup 1 u_inc; the published
+//     increments are 4 KB, not 32;
+//   * shared memory is ~37 KB a CTA forward and ~66 KB backward (x and dy
+//     in 16 KB boxes as at N 128), so two CTAs share an SM (registers).
+// Bound: bytes, forward and backward (at hymba's shapes the products are a
+// few percent of the bytes' time).  The products are exact float32 sums of
+// bf16 parts, as at N 128; the parts are template arguments and the
+// wrapper's PARTS_N16 / BWD_PARTS_N16 the served choice.
+namespace n16 {
+
+using tc::kBox;
+using tc::kHalf;
+using tc::kL;
+using tc::kP;
+using tc::kThreads;
+
+constexpr int kN = 16;
+constexpr int kWG = 128;              // threads of a warpgroup
+constexpr int kBoxS = kN * kL * 2;    // a B or C box: 128 rows of 32 bytes
+constexpr int kState = kP * kN * 2;   // a bf16 [P, N] state part: 64 rows of 32 bytes
+constexpr int kPub = kP * kN * 4;     // a float32 [P, N] state
+
+// Forward shared memory, in bytes from the 1024-aligned base.
+constexpr int kOffX = 0;                       // x; then y for its store
+constexpr int kOffC = kBox;                    // C (32-byte swizzle)
+constexpr int kOffB = kOffC + kBoxS;           // B
+constexpr int kOffPub = kOffB + kBoxS;         // h_inc, warpgroup 0's register order
+constexpr int kOffH = kOffPub + kPub;          // h_{c-1}'s bf16 parts, at most 3
+constexpr int kOffVec = kOffH + 3 * kState;    // float cum, dt, exp(cum), w: kL each
+constexpr int kOffBar = kOffVec + 4 * kL * 4;  // the loads' mbarrier, then cum_last
+constexpr int kSmem = kOffBar + 16 + 1024;     // + the base's alignment
+
+// Element (p, n) of a [P, N] state that accumulator pair q of an m64n16
+// accumulator holds (rows r0, r0 + 8; columns 8 (q / 2) + c0, + 1).
+__device__ __forceinline__ int at(int q, int r0, int c0) {
+  return (r0 + 8 * (q % 2)) * kN + 8 * (q / 2) + c0;
+}
+
+// A [P, N] state of an m64n16 accumulator as NPART bf16 parts, rows p of 32
+// bytes in the 32-byte swizzle, kState bytes apart from `dst`.
+template <int NPART>
+__device__ __forceinline__ void state_parts(uint8_t* dst, const float (&v)[8], int r0, int c0) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int off = tc::swizzled32(r0 + 8 * (q % 2), 8 * (q / 2) + c0);
+    float a = v[2 * q], b = v[2 * q + 1];
+#pragma unroll
+    for (int part = 0; part < NPART; ++part)
+      *reinterpret_cast<uint32_t*>(dst + part * kState + off) = tc::take_part(a, b);
+  }
+}
+
+// acc += e times the float32 [P, N] state at `src` (global), in the
+// accumulator's layout.
+__device__ __forceinline__ void add_state(float (&acc)[8], const float* src, float e, int r0,
+                                          int c0) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float2 v = __ldcg(reinterpret_cast<const float2*>(src + at(q, r0, c0)));
+    acc[2 * q] = fmaf(e, v.x, acc[2 * q]);
+    acc[2 * q + 1] = fmaf(e, v.y, acc[2 * q + 1]);
+  }
+}
+
+// dst = d acc + the state this thread published at `pub` (slot t), to global.
+__device__ __forceinline__ void store_state(float* dst, const float (&acc)[8], float d,
+                                            const uint8_t* pub, int t, int r0, int c0) {
+  const float* mine = reinterpret_cast<const float*>(pub);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int j = 2 * q, o = 4 * ((j / 4) * kWG + t) + j % 4;
+    __stcg(reinterpret_cast<float2*>(dst + at(q, r0, c0)),
+           make_float2(fmaf(d, acc[j], mine[o]), fmaf(d, acc[j + 1], mine[o + 1])));
+  }
+}
+
+// PG, PW, PH: bf16 parts of G, x o w and h_{c-1}.
+template <int PG, int PW, int PH>
+__global__ void __launch_bounds__(kThreads, 2)
+    ssd_wgmma_n16_kernel(const __grid_constant__ tc::Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
+  float* cum = reinterpret_cast<float*>(sm + kOffVec);
+  float* dts = cum + kL;
+  float* ecum = dts + kL;  // exp(cum_t)
+  float* wts = ecum + kL;  // exp(cum_last - cum_u) dt_u
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + kOffBar);
+  float* clast = reinterpret_cast<float*>(sm + kOffBar + 8);  // cum_last, for the cluster
+  const uint32_t sC = tc::smem_u32(sm + kOffC), sB = tc::smem_u32(sm + kOffB);
+  const uint32_t sX = tc::smem_u32(sm + kOffX), sH = tc::smem_u32(sm + kOffH);
+  const uint32_t sPub = tc::smem_u32(sm + kOffPub), sLast = tc::smem_u32(clast);
+
+  const int rank = blockIdx.x, K = gridDim.x;  // the cluster spans grid x
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (p.H / p.G);
+  const int tid = threadIdx.x, wg = tid / kWG;
+  const int r0 = ((tid % kWG) / 32) * 16 + (tid % 32) / 4, c0 = 2 * (tid % 4);
+  const float A = p.A[h];
+  const size_t state0 = (static_cast<size_t>(b) * p.H + h) * kP * kN;
+
+  if (tid == 0) {
+    tc::mbar_init(full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  for (int grp = 0; grp < p.groups; ++grp) {
+    const int c = grp * K + rank;
+    const bool active = c < p.chunks;  // uniform over the CTA
+    const int row0 = c * kL;
+    const int len = active ? min(kL, p.S - row0) : 0;
+    float yi[32], hp[8];
+    if (active) {
+      if (tid == 0) {
+        tc::tma_store_wait_read();  // the previous group's y has left x's box
+        tc::mbar_expect_tx(full, kBox + 2 * kBoxS);
+        tc::tma_load(&p.tc, sm + kOffC, full, 0, row0, g, b);
+        tc::tma_load(&p.tb, sm + kOffB, full, 0, row0, g, b);
+        tc::tma_load(&p.tx, sm + kOffX, full, 0, row0, h, b);
+      }
+      const float* dtg = p.dt + b * p.dt_sb + h;
+      for (int t = tid; t < kL; t += kThreads) dts[t] = t < len ? dtg[(row0 + t) * p.dt_ss] : 0.f;
+      __syncthreads();
+      if (tid < 32) tc::chunk_cumsum(cum, dts, A, tid);
+      __syncthreads();
+      const float cum_last = cum[kL - 1];
+      for (int t = tid; t < kL; t += kThreads) {
+        ecum[t] = expf(cum[t]);
+        wts[t] = expf(cum_last - cum[t]) * dts[t];
+      }
+      __syncthreads();
+      tc::mbar_wait(full, grp & 1);
+
+#pragma unroll
+      for (int j = 0; j < 32; ++j) yi[j] = 0.f;
+      // the causal 32-column slices of the warpgroup's rows: 2 or 4
+      for (int k = 0; k < 2 * (wg + 1); ++k)
+        tc::intra_slice<PG, kN>(yi, sC, sB, sX, cum, dts, wg, 32 * k, r0, c0);
+      if (wg == 0) {
+        float hi[8];
+        tc::chunk_increment<PW>(hi, sB, sX, wts, 0, c0);
+        tcb::publish<kWG>(sm + kOffPub, hi, tid);
+      }
+      if (tid == 0) *clast = cum_last;
+    }
+    tc::cluster_sync();  // every increment of the group is published
+
+    // h_{c-1} by prefix combination over the group's earlier ranks, then
+    // the carry (init_state or zeros, or the previous group's last state)
+    if (active && wg == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) hp[j] = 0.f;
+      const float run = tcb::combine<kWG>(hp, sPub, sLast, rank - 1, -1, rank, tid);
+      const float* carry = grp == 0 ? p.h0 : p.hout;
+      if (carry != nullptr) add_state(hp, carry + state0, expf(run), r0, c0);
+    }
+    tc::cluster_sync();  // every read of the group's increments and carry is done
+
+    if (active) {
+      if (wg == 0) {
+        // the end of the sequence or of the group: h_c = d_c h_{c-1} + h_inc_c
+        if (c == p.chunks - 1 || rank == K - 1)
+          store_state(p.hout + state0, hp, expf(cum[kL - 1]), sm + kOffPub, tid, r0, c0);
+        state_parts<PH>(sm + kOffH, hp, r0, c0);
+        tc::fence_proxy_async();  // the parts are read by wgmma
+      }
+      __syncthreads();
+      // y_state = (C h_{c-1}^T) o exp(cum_t), and y = y_intra + y_state
+      float ys[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) ys[j] = 0.f;
+      tc::fence_regs(ys);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int part = 0; part < PH; ++part)
+        tc::wgmma_ss_n64(ys, tc::desc32(sC + wg * 64 * 32, 16, 256),
+                         tc::desc32(sH + part * kState, 16, 256));
+      tc::wgmma_commit();
+      tc::wgmma_wait_all();
+      tc::fence_regs(ys);
+      // y through x's box (its last readers, the products, finished before
+      // the cluster barriers) to one TMA store, which leaves out rows past S
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const int t = wg * 64 + r0 + 8 * (q % 2);
+        const float e = ecum[t];
+        *reinterpret_cast<__nv_bfloat162*>(sm + kOffX + tc::swizzled(t, 8 * (q / 2) + c0)) =
+            __floats2bfloat162_rn(fmaf(e, ys[2 * q], yi[2 * q]),
+                                  fmaf(e, ys[2 * q + 1], yi[2 * q + 1]));
+      }
+      tc::fence_proxy_async();
+      __syncthreads();
+      if (tid == 0) tc::tma_store(&p.ty, sm + kOffX, 0, row0, h, b);
+    }
+    tc::fence_proxy_async();
+    __syncthreads();  // shared memory is free for the next group's loads
+  }
+  if (tid == 0) tc::tma_store_wait();
+}
+
+template <int PG, int PW, int PH>
+cudaError_t launch(const tc::Params& p, int cluster, int B, cudaStream_t s) {
+  auto kernel = ssd_wgmma_n16_kernel<PG, PW, PH>;
+  static const cudaError_t set =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (set != cudaSuccess) return set;
+  return tc::launch_clusters(kernel, p, kSmem, cluster, p.H, B, s);
+}
+
+// ---- the backward ----------------------------------------------------------
+
+// Backward shared memory, in bytes from the 1024-aligned base: the boxes,
+// the published float32 h_inc and u_inc, H0's PH and U's PU bf16 parts,
+// eight float vectors of kL rows, a row of kL floats a warp for da's pair
+// sums, the loads' mbarrier, cum_last and U.H0 a warp.
+constexpr int kbX = 0;                       // x
+constexpr int kbDY = kBox;                   // dy
+constexpr int kbC = 2 * kBox;                // C (32-byte swizzle)
+constexpr int kbB = kbC + kBoxS;             // B
+constexpr int kbPub = kbB + kBoxS;           // h_inc (warpgroup 0's), then u_inc (1's)
+constexpr int kbParts = kbPub + 2 * kPub;    // H0's parts, then U's: at most 4
+constexpr int kbVec = kbParts + 4 * kState;
+constexpr int kbRed = kbVec + 8 * kL * 4;
+constexpr int kbMisc = kbRed + 8 * kL * 4;
+constexpr int kbSmem = kbMisc + 64 + 1024;   // + the base's alignment
+
+// s = rows 64 wg .. of the 16-column box at a (its row 0 at a) times rows
+// v0 .. v0 + 31 of the one at b: one m64n32k16.
+__device__ __forceinline__ void score16(float (&s)[16], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) s[j] = 0.f;
+  tc::fence_regs(s);
+  tc::wgmma_fence();
+  tc::wgmma_ss_n32(s, tc::desc32(a, 16, 256), tc::desc32(b, 16, 256));
+  tc::wgmma_commit();
+  tc::wgmma_wait_all();
+  tc::fence_regs(s);
+}
+
+// acc += a slice's 16 scores (NP bf16 parts, from registers) times rows v0
+// .. v0 + 31 of a 16-column box (MN-major).  The caller fences, commits and
+// waits.
+template <int NP>
+__device__ __forceinline__ void slice_product16(float (&acc)[8], const uint32_t (&ga)[NP][2][4],
+                                                uint32_t box, int v0) {
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    const uint64_t bd = tc::desc32(box + (v0 + 16 * ks) * 32, 256, 256);
+#pragma unroll
+    for (int part = 0; part < NP; ++part) tc::wgmma_rs_n16(acc, ga[part][ks], bd);
+  }
+}
+
+// acc (rows of the warpgroup, 16 columns) += the K-major 128-byte-swizzled
+// box at a (x or dy: K = P) times the NPART bf16 parts of a [P, N] state at
+// st (MN-major).
+template <int NPART>
+__device__ __forceinline__ void state_product16(float (&acc)[8], uint32_t a, uint32_t st,
+                                                int wg) {
+#pragma unroll
+  for (int part = 0; part < NPART; ++part)
+#pragma unroll
+    for (int kk = 0; kk < kP / 16; ++kk)
+      tc::wgmma_ss_n16_tb(acc, tc::desc(a + wg * kHalf + kk * 32, 16, 1024),
+                          tc::desc32(st + part * kState + kk * 16 * 32, 256, 256));
+}
+
+// The accumulator's rows ra and rb (16 columns) dotted with the same rows
+// and columns of a 16-column box, each summed over the quad.
+__device__ __forceinline__ void row_dots16(const float (&a)[8], const uint8_t* box, int ra,
+                                           int rb, int c0, float& da, float& db) {
+  float sa = 0.f, sb = 0.f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int row = q % 2 ? rb : ra;
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+        box + tc::swizzled32(row, 8 * (q / 2) + c0)));
+    const float d = fmaf(a[2 * q], v.x, a[2 * q + 1] * v.y);
+    if (q % 2) sb += d; else sa += d;
+  }
+  sa += __shfl_xor_sync(tcb::kFull, sa, 1);
+  sb += __shfl_xor_sync(tcb::kFull, sb, 1);
+  sa += __shfl_xor_sync(tcb::kFull, sa, 2);
+  sb += __shfl_xor_sync(tcb::kFull, sb, 2);
+  da = sa;
+  db = sb;
+}
+
+// PW, PE, PS, PH, PU: bf16 parts of x o w, eh o dy, the scores, H0 and U.
+template <int PW, int PE, int PS, int PH, int PU>
+__global__ void __launch_bounds__(kThreads, 2)
+    ssd_bwd_wgmma_n16_kernel(const __grid_constant__ tcb::Params p) {
+  static_assert(PH + PU <= 4, "H0's and U's parts fill at most the parts area");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
+  float* dts = reinterpret_cast<float*>(sm + kbVec);
+  float* cum = dts + kL;
+  float* eh = cum + kL;     // exp(cum_t)
+  float* wend = eh + kL;    // exp(cum_last - cum_s)
+  float* wts = wend + kL;   // wend_s dt_s
+  float* y0v = wts + kL;    // y0_t = C_t . (eh_t dy_t H0)
+  float* ev = y0v + kL;     // E_s = dt_s x_s . (wend_s U B_s)
+  float* ddtd = ev + kL;    // x_s . (dx_s / dt_s)
+  float* red = reinterpret_cast<float*>(sm + kbRed);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + kbMisc);
+  float* clast = reinterpret_cast<float*>(sm + kbMisc + 16);
+  float* uhw = reinterpret_cast<float*>(sm + kbMisc + 32);
+  const uint32_t sC = tc::smem_u32(sm + kbC), sB = tc::smem_u32(sm + kbB);
+  const uint32_t sX = tc::smem_u32(sm + kbX), sDY = tc::smem_u32(sm + kbDY);
+  const uint32_t sPub = tc::smem_u32(sm + kbPub), sParts = tc::smem_u32(sm + kbParts);
+  const uint32_t sLast = tc::smem_u32(clast);
+  uint8_t* const xb = sm + kbX;
+
+  const int rank = blockIdx.x, K = gridDim.x;  // the cluster spans grid x
+  const int h = blockIdx.y, b = blockIdx.z, g = h / (p.H / p.G);
+  const long long bh = static_cast<long long>(b) * p.H + h;
+  const float A = p.A[h];
+  const int tid = threadIdx.x, wg = tid / kWG, t128 = tid % kWG, warp = tid / 32,
+            lane = tid % 32;
+  // wgmma's accumulator layout; ta and tb are this thread's rows of the chunk
+  const int r0 = (t128 / 32) * 16 + (tid % 32) / 4, c0 = 2 * (tid % 4);
+  const int ta = wg * 64 + r0, tb = ta + 8;
+  const long long PN = kP * kN;
+  auto end_state = [&](int grp) { return p.hcarry + (bh * (p.groups - 1) + grp) * PN; };
+  uint32_t phase = 0;  // of the loads' mbarrier
+
+  if (tid == 0) {
+    tc::mbar_init(full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto wait_loads = [&]() {
+    tc::mbar_wait(full, phase);
+    phase ^= 1;
+  };
+
+  // The end states of groups 0 .. groups - 2, walked forward (every chunk
+  // of those groups is whole): the CTA of a group's last chunk writes them.
+  for (int grp = 0; grp + 1 < p.groups; ++grp) {
+    const int row0 = (grp * K + rank) * kL;
+    if (tid == 0) {
+      tc::mbar_expect_tx(full, kBox + kBoxS);
+      tc::tma_load(&p.tb, sm + kbB, full, 0, row0, g, b);
+      tc::tma_load(&p.tx, xb, full, 0, row0, h, b);
+    }
+    tcb::decays(dts, p.dt + b * p.dt_sb + h, p.dt_ss, row0, kL, A, tid);
+    wait_loads();
+    if (wg == 0) {
+      float inc[8];
+      tc::chunk_increment<PW>(inc, sB, sX, wts, 0, c0);
+      tcb::publish<kWG>(sm + kbPub, inc, t128);
+    }
+    if (tid == 0) *clast = cum[kL - 1];
+    tc::cluster_sync();
+    if (rank == K - 1 && wg == 0) {
+      float hp[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) hp[j] = 0.f;
+      const float run = tcb::combine<kWG>(hp, sPub, sLast, rank - 1, -1, rank, t128);
+      const float* carry = grp == 0 ? (p.h0 ? p.h0 + bh * PN : nullptr) : end_state(grp - 1);
+      if (carry != nullptr) add_state(hp, carry, expf(run), r0, c0);
+      store_state(end_state(grp), hp, expf(cum[kL - 1]), sm + kbPub, t128, r0, c0);
+    }
+    tc::cluster_sync();
+    tc::fence_proxy_async();
+    __syncthreads();
+  }
+
+  // Every group of chunks in reverse: the exchange, then the chunk's
+  // gradients.
+  for (int grp = p.groups - 1; grp >= 0; --grp) {
+    const int c = grp * K + rank;
+    const bool active = c < p.chunks;  // uniform over the CTA
+    const int nact = min(K, p.chunks - grp * K);
+    const int row0 = c * kL;
+    const int len = active ? min(kL, p.S - row0) : 0;
+    if (active) {
+      if (tid == 0) {  // once the group before is done with the boxes
+        tc::mbar_expect_tx(full, 2 * kBox + 2 * kBoxS);
+        tc::tma_load(&p.tc, sm + kbC, full, 0, row0, g, b);
+        tc::tma_load(&p.tb, sm + kbB, full, 0, row0, g, b);
+        tc::tma_load(&p.tx, xb, full, 0, row0, h, b);
+        tc::tma_load(&p.tdy, sm + kbDY, full, 0, row0, h, b);
+      }
+      tcb::decays(dts, p.dt + b * p.dt_sb + h, p.dt_ss, row0, len, A, tid);
+      wait_loads();
+      float inc[8];
+      if (wg == 0)
+        tc::chunk_increment<PW>(inc, sB, sX, wts, 0, c0);  // h_inc = (x o wend dt)^T B
+      else
+        tc::chunk_increment<PE>(inc, sC, sDY, eh, 0, c0);  // u_inc = (eh o dy)^T C
+      tcb::publish<kWG>(sm + kbPub + wg * kPub, inc, t128);
+      if (tid == 0) *clast = cum[kL - 1];
+    }
+    tc::cluster_sync();  // every increment of the group is published
+
+    // H0 by prefix and U by suffix combination, each warpgroup both
+    float hp[8], up[8];
+    if (active) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) hp[j] = up[j] = 0.f;
+      float run = tcb::combine<kWG>(hp, sPub, sLast, rank - 1, -1, rank, t128);
+      const float* carry = grp == 0 ? (p.h0 ? p.h0 + bh * PN : nullptr) : end_state(grp - 1);
+      if (carry != nullptr) add_state(hp, carry, expf(run), r0, c0);
+      run = tcb::combine<kWG>(up, sPub + kPub, sLast, rank + 1, 1, nact - 1 - rank, t128);
+      const float* ucarry = grp == p.groups - 1 ? p.dh : p.dh0;
+      if (ucarry != nullptr) add_state(up, ucarry + bh * PN, expf(run), r0, c0);
+    }
+    tc::cluster_sync();  // every read of the group's increments and carries is done
+
+    if (active) {
+      if (wg == 0) {
+        float uh = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) uh = fmaf(up[j], hp[j], uh);
+#pragma unroll
+        for (int m = 16; m > 0; m >>= 1) uh += __shfl_xor_sync(tcb::kFull, uh, m);
+        if (lane == 0) uhw[warp] = uh;
+        state_parts<PH>(sm + kbParts, hp, r0, c0);
+      } else {
+        // the group's first chunk: dL/dh at its start, d U + u_inc, to dh0
+        // (the earlier group's carry, or the result)
+        if (rank == 0)
+          store_state(p.dh0 + bh * PN, up, expf(cum[kL - 1]), sm + kbPub + kPub, t128, r0, c0);
+        state_parts<PU>(sm + kbParts + PH * kState, up, r0, c0);
+      }
+      tc::fence_proxy_async();  // the parts are read by wgmma
+      __syncthreads();
+      const uint32_t sH0 = sParts, sU = sParts + PH * kState;
+
+      const float dta = dts[ta], dtb = dts[tb];
+      const long long first = (static_cast<long long>(b) * p.S + row0) * p.H + h;  // (b, row0, h)
+      const long long part_rows = static_cast<long long>(p.H) * kN;  // the partials' row stride
+
+      // dx = dt o (M1^T dy + wend o (B U^T)): rows s = ta, tb
+      {
+        float acc[32];
+#pragma unroll
+        for (int j = 0; j < 32; ++j) acc[j] = 0.f;
+        tc::fence_regs(acc);
+        tc::wgmma_fence();
+#pragma unroll
+        for (int part = 0; part < PU; ++part)
+          tc::wgmma_ss_n64(acc, tc::desc32(sB + wg * 64 * 32, 16, 256),
+                           tc::desc32(sU + part * kState, 16, 256));
+        tc::wgmma_commit();
+        tc::wgmma_wait_all();
+        tc::fence_regs(acc);
+        tcb::scale_rows(acc, wend[ta], wend[tb]);
+        float ea, eb;
+        tcb::row_dots(acc, xb, ta, tb, c0, ea, eb);
+        if ((tid & 3) == 0) {
+          ev[ta] = dta * ea;
+          ev[tb] = dtb * eb;
+        }
+        for (int k = 2 * wg; k < 4; ++k) {  // the slices of columns t >= the rows
+          const int v0 = 32 * k;
+          float s[16];
+          score16(s, sB + wg * 64 * 32, sC + v0 * 32);  // B C^T: rows s, columns t
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int row = (j / 2) % 2 ? tb : ta, t = v0 + 8 * (j / 4) + c0 + (j % 2);
+            s[j] = t >= row ? s[j] * __expf(cum[t] - cum[row]) : 0.f;
+          }
+          uint32_t ga[PS][2][4];
+          tcb::fragments<PS>(ga, s);
+          tc::fence_regs(acc);
+          tc::wgmma_fence();
+          tcb::slice_product<PS>(acc, ga, sDY, v0);
+          tc::wgmma_commit();
+          tc::wgmma_wait_all();
+          tc::fence_regs(acc);
+        }
+        float xa, xbv;
+        tcb::row_dots(acc, xb, ta, tb, c0, xa, xbv);
+        if ((tid & 3) == 0) {
+          ddtd[ta] = xa;
+          ddtd[tb] = xbv;
+        }
+        __nv_bfloat16* dx = p.dx + first * kP;
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          const int row = q % 2 ? tb : ta;
+          const float f = q % 2 ? dtb : dta;
+          if (row < len)
+            *reinterpret_cast<__nv_bfloat162*>(dx + row * static_cast<long long>(p.H) * kP +
+                                               8 * (q / 2) + c0) =
+                __floats2bfloat162_rn(f * acc[2 * q], f * acc[2 * q + 1]);
+        }
+      }
+
+      // dB = dt o (M2^T C + wend o (x U)): rows s, the head's partial
+      {
+        float lo[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) lo[j] = 0.f;
+        tc::fence_regs(lo);
+        tc::wgmma_fence();
+        state_product16<PU>(lo, sX, sU, wg);
+        tc::wgmma_commit();
+        tc::wgmma_wait_all();
+        tc::fence_regs(lo);
+        tcb::scale_rows(lo, wend[ta], wend[tb]);
+        for (int k = 2 * wg; k < 4; ++k) {
+          const int v0 = 32 * k;
+          float s[16];
+          tcb::score<kP / 16>(s, sX, sDY, wg, v0);  // x dy^T: rows s, columns t
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int row = (j / 2) % 2 ? tb : ta, t = v0 + 8 * (j / 4) + c0 + (j % 2);
+            s[j] = t >= row ? s[j] * __expf(cum[t] - cum[row]) : 0.f;
+          }
+          uint32_t ga[PS][2][4];
+          tcb::fragments<PS>(ga, s);
+          tc::fence_regs(lo);
+          tc::wgmma_fence();
+          slice_product16<PS>(lo, ga, sC, v0);
+          tc::wgmma_commit();
+          tc::wgmma_wait_all();
+          tc::fence_regs(lo);
+        }
+        tcb::scale_rows(lo, dta, dtb);
+        tcb::store_half(p.dB_part + first * kN, part_rows, lo, ta, tb, c0, len);
+      }
+
+      // dC = eh o (dy H0) + (M2 o dt) B: rows t, as dB.  Q beside M2, and
+      // da's pair sums from it
+      {
+        float lo[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) lo[j] = 0.f;
+        tc::fence_regs(lo);
+        tc::wgmma_fence();
+        state_product16<PH>(lo, sDY, sH0, wg);
+        tc::wgmma_commit();
+        tc::wgmma_wait_all();
+        tc::fence_regs(lo);
+        tcb::scale_rows(lo, eh[ta], eh[tb]);
+        {
+          float ya, yb;
+          row_dots16(lo, sm + kbC, ta, tb, c0, ya, yb);
+          if ((tid & 3) == 0) {
+            y0v[ta] = ya;
+            y0v[tb] = yb;
+          }
+        }
+        float* wred = red + warp * kL;
+        for (int s_ = lane; s_ < kL; s_ += 32) wred[s_] = 0.f;  // columns past the rows stay 0
+        __syncwarp();
+        float run_a = 0.f, run_b = 0.f;
+        for (int k = 0; k < 2 * (wg + 1); ++k) {  // the slices of columns u <= the rows
+          const int v0 = 32 * k;
+          float s[16], q[16];
+          tcb::score<kP / 16>(s, sDY, sX, wg, v0);  // dy x^T: rows t, columns u
+          score16(q, sC + wg * 64 * 32, sB + v0 * 32);  // C B^T
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int row = (j / 2) % 2 ? tb : ta, u = v0 + 8 * (j / 4) + c0 + (j % 2);
+            if (u <= row) {
+              s[j] *= __expf(cum[row] - cum[u]) * dts[u];
+              q[j] *= s[j];
+            } else {
+              s[j] = 0.f;
+              q[j] = 0.f;
+            }
+          }
+          uint32_t ga[PS][2][4];
+          tcb::fragments<PS>(ga, s);
+          tc::fence_regs(lo);
+          tc::wgmma_fence();
+          slice_product16<PS>(lo, ga, sB, v0);
+          tc::wgmma_commit();
+          tcb::pair_sums(q, run_a, run_b, ta, tb, v0, c0, lane, wred);  // beside the products
+          tc::wgmma_wait_all();
+          tc::fence_regs(lo);
+        }
+        tcb::store_half(p.dC_part + first * kN, part_rows, lo, ta, tb, c0, len);
+      }
+      __syncthreads();  // y0, E, x.(dx/dt), the pair sums and U.H0 are written
+
+      // da, ddt and this chunk's share of dA: one warp, rows 4 lane .. + 3
+      if (warp == 0) {
+        float uh = 0.f;
+        for (int w = 0; w < 4; ++w) uh += uhw[w];
+        const float tail = eh[kL - 1] * uh;
+        float y[4], e[4], dq[4];
+        float ys = 0.f, es = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int s_ = 4 * lane + j;
+          y[j] = y0v[s_];
+          e[j] = ev[s_];
+          dq[j] = 0.f;
+          for (int w = 0; w < 8; ++w) dq[j] += red[w * kL + s_];
+          ys += y[j];
+          es += e[j];
+        }
+        float ysuf = ys, epre = es;  // inclusive suffix / prefix over the lanes
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const float oy = __shfl_down_sync(tcb::kFull, ysuf, d);
+          const float oe = __shfl_up_sync(tcb::kFull, epre, d);
+          if (lane + d < 32) ysuf += oy;
+          if (lane >= d) epre += oe;
+        }
+        float yrun = __shfl_down_sync(tcb::kFull, ysuf, 1);
+        float erun = __shfl_up_sync(tcb::kFull, epre, 1);
+        if (lane == 31) yrun = 0.f;
+        if (lane == 0) erun = 0.f;
+        float da[4];
+#pragma unroll
+        for (int j = 3; j >= 0; --j) {
+          yrun += y[j];
+          da[j] = yrun;  // sum_{t >= s} y0_t
+        }
+        float dap = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int s_ = 4 * lane + j;
+          da[j] += erun + tail + dq[j];
+          erun += e[j];
+          if (s_ < len) p.ddt[first + s_ * static_cast<long long>(p.H)] = fmaf(A, da[j], ddtd[s_]);
+          dap = fmaf(dts[s_], da[j], dap);
+        }
+#pragma unroll
+        for (int m = 16; m > 0; m >>= 1) dap += __shfl_xor_sync(tcb::kFull, dap, m);
+        if (lane == 0) p.dA_part[(static_cast<long long>(b) * p.chunks + c) * p.H + h] = dap;
+      }
+    }
+    tc::fence_proxy_async();
+    __syncthreads();  // shared memory is free for the next group's loads
+  }
+}
+
+template <int PW, int PE, int PS, int PH, int PU>
+cudaError_t launch_bwd(const tcb::Params& p, int cluster, void* dB, void* dC, float* dA,
+                       cudaStream_t s) {
+  auto kernel = ssd_bwd_wgmma_n16_kernel<PW, PE, PS, PH, PU>;
+  static const cudaError_t set =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kbSmem);
+  if (set != cudaSuccess) return set;
+  const cudaError_t err = tc::launch_clusters(kernel, p, kbSmem, cluster, p.H, p.batch, s);
+  return err != cudaSuccess ? err : tcb::sums(p, kN, dB, dC, dA, s);
+}
+
+}  // namespace n16
 
 }  // namespace
 
@@ -2195,26 +2925,28 @@ int rt_ssd_scan(int dtype, const void* x, const void* dt, const void* A, const v
   }
 }
 
-// The tensor-core kernel: bf16 x [B,S,H,64] and B, C [B,S,G,128], element
-// strides (batch, seq, head or group) and unit last stride, base pointers
-// and strides 16-byte aligned (TMA); dt, A, h0, y, hout as rt_ssd_scan's,
-// chunk 128.  cluster: the CTAs of a (batch, head), 1 to min(chunks, 8);
-// parts: 100 (G parts) + 10 (x o w parts) + (h parts), an instantiated
-// variant (kernels/ssd_scan.py: PARTS_VARIANTS).
+// The tensor-core kernels: bf16 x [B,S,H,64] and B, C [B,S,G,N] at N 128
+// (ssd_wgmma_kernel) or 16 (namespace n16), element strides (batch, seq,
+// head or group) and unit last stride, base pointers and strides 16-byte
+// aligned (TMA); dt, A, h0, y, hout as rt_ssd_scan's, chunk 128.  cluster:
+// the CTAs of a (batch, head), 1 to min(chunks, 8); parts: 100 (G parts) +
+// 10 (x o w parts) + (h parts), an instantiated variant of that width
+// (kernels/ssd_scan.py: PARTS_VARIANTS, PARTS_N16_VARIANTS).
 int rt_ssd_scan_wgmma(const void* x, const void* dt, const void* A, const void* Bm,
                       const void* C, const void* h0, void* y, void* hout, int batch, int S,
-                      int H, int G, int cluster, int parts, long long x_sb, long long x_ss,
+                      int H, int G, int N, int cluster, int parts, long long x_sb, long long x_ss,
                       long long x_sh, long long dt_sb, long long dt_ss, long long b_sb,
                       long long b_ss, long long b_sg, long long c_sb, long long c_ss,
                       long long c_sg, void* stream) {
   const int chunks = S > 0 ? (S + tc::kL - 1) / tc::kL : 0;
   if (batch <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G || batch > 65535 || H > 65535 ||
-      cluster < 1 || cluster > tc::kMaxCluster || cluster > chunks)
+      cluster < 1 || cluster > tc::kMaxCluster || cluster > chunks ||
+      (N != tc::kN && N != n16::kN))
     return cudaErrorInvalidValue;
   tc::Params p{};
   if (!tc::encode(&p.tx, x, tc::kP, S, H, batch, x_ss, x_sh, x_sb) ||
-      !tc::encode(&p.tb, Bm, tc::kN, S, G, batch, b_ss, b_sg, b_sb) ||
-      !tc::encode(&p.tc, C, tc::kN, S, G, batch, c_ss, c_sg, c_sb) ||
+      !tc::encode(&p.tb, Bm, N, S, G, batch, b_ss, b_sg, b_sb) ||
+      !tc::encode(&p.tc, C, N, S, G, batch, c_ss, c_sg, c_sb) ||
       !tc::encode(&p.ty, y, tc::kP, S, H, batch, static_cast<long long>(H) * tc::kP, tc::kP,
                   static_cast<long long>(S) * H * tc::kP))
     return cudaErrorInvalidValue;
@@ -2230,6 +2962,14 @@ int rt_ssd_scan_wgmma(const void* x, const void* dt, const void* A, const void* 
   p.chunks = chunks;
   p.groups = (chunks + cluster - 1) / cluster;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N == n16::kN) {
+    switch (parts) {
+      case 111: return n16::launch<1, 1, 1>(p, cluster, batch, s);
+      case 121: return n16::launch<1, 2, 1>(p, cluster, batch, s);
+      case 222: return n16::launch<2, 2, 2>(p, cluster, batch, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   switch (parts) {
     case 111: return tc::launch<1, 1, 1>(p, cluster, batch, s);
     case 121: return tc::launch<1, 2, 1>(p, cluster, batch, s);
@@ -2282,29 +3022,30 @@ int rt_ssd_scan_bwd(int dtype, const void* x, const void* dt, const void* A, con
   }
 }
 
-// The tensor-core backward (namespace tcb): bf16 x [B,S,H,64], B and C
-// [B,S,G,128] with element strides (batch, seq, head or group), unit last
-// stride, base pointers and strides 16-byte aligned (TMA); dy [B,S,H,64]
-// bf16 contiguous; dt, A, h0 (or null), dh (or null) as rt_ssd_scan_bwd's.
-// Writes dx [B,S,H,64] and dB, dC [B,S,G,128] (bf16), ddt [B,S,H], dA [H]
-// and dh0 [B,H,64,128] (float32), all contiguous, through the float32
-// scratch dA_part [B,ceil(S/128),H], dB_part and dC_part [B,S,H,128] and,
-// when the cluster holds fewer CTAs than the chunks, hcarry
-// [B,H,groups-1,64,128].  cluster: the CTAs of a (batch, head), 1 to
-// min(chunks, 8); parts: the five part counts (x o w, eh o dy,
-// scores, H0, U) as decimal digits, an instantiated variant
-// (kernels/ssd_scan.py: BWD_PARTS_VARIANTS).
+// The tensor-core backwards (namespace tcb at N 128, n16 at N 16): bf16
+// x [B,S,H,64], B and C [B,S,G,N] with element strides (batch, seq, head or
+// group), unit last stride, base pointers and strides 16-byte aligned
+// (TMA); dy [B,S,H,64] bf16 contiguous; dt, A, h0 (or null), dh (or null)
+// as rt_ssd_scan_bwd's.  Writes dx [B,S,H,64] and dB, dC [B,S,G,N] (bf16),
+// ddt [B,S,H], dA [H] and dh0 [B,H,64,N] (float32), all contiguous, through
+// the float32 scratch dA_part [B,ceil(S/128),H], dB_part and dC_part
+// [B,S,H,N] and, when the cluster holds fewer CTAs than the chunks, hcarry
+// [B,H,groups-1,64,N].  cluster: the CTAs of a (batch, head), 1 to
+// min(chunks, 8); parts: the five part counts (x o w, eh o dy, scores, H0,
+// U) as decimal digits, an instantiated variant of that width
+// (kernels/ssd_scan.py: BWD_PARTS_VARIANTS, BWD_PARTS_N16_VARIANTS).
 int rt_ssd_scan_bwd_wgmma(const void* x, const void* dt, const void* A, const void* Bm,
                           const void* C, const void* h0, const void* dy, const void* dh,
                           void* dx, void* ddt, void* dA, void* dB, void* dC, void* dh0,
                           void* dA_part, void* dB_part, void* dC_part, void* hcarry, int batch,
-                          int S, int H, int G, int cluster, int parts, long long x_sb,
+                          int S, int H, int G, int N, int cluster, int parts, long long x_sb,
                           long long x_ss, long long x_sh, long long dt_sb, long long dt_ss,
                           long long b_sb, long long b_ss, long long b_sg, long long c_sb,
                           long long c_ss, long long c_sg, void* stream) {
   const int chunks = S > 0 ? (S + tc::kL - 1) / tc::kL : 0;
   if (batch <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G || batch > 65535 || H > 65535 ||
-      cluster < 1 || cluster > tc::kMaxCluster || cluster > chunks || dy == nullptr)
+      cluster < 1 || cluster > tc::kMaxCluster || cluster > chunks || dy == nullptr ||
+      (N != tc::kN && N != n16::kN))
     return cudaErrorInvalidValue;
   const int groups = (chunks + cluster - 1) / cluster;
   if (groups > 1 && hcarry == nullptr) return cudaErrorInvalidValue;
@@ -2312,8 +3053,8 @@ int rt_ssd_scan_bwd_wgmma(const void* x, const void* dt, const void* A, const vo
   const long long hp = static_cast<long long>(H) * tc::kP;
   if (!tc::encode(&p.tx, x, tc::kP, S, H, batch, x_ss, x_sh, x_sb) ||
       !tc::encode(&p.tdy, dy, tc::kP, S, H, batch, hp, tc::kP, static_cast<long long>(S) * hp) ||
-      !tc::encode(&p.tb, Bm, tc::kN, S, G, batch, b_ss, b_sg, b_sb) ||
-      !tc::encode(&p.tc, C, tc::kN, S, G, batch, c_ss, c_sg, c_sb))
+      !tc::encode(&p.tb, Bm, N, S, G, batch, b_ss, b_sg, b_sb) ||
+      !tc::encode(&p.tc, C, N, S, G, batch, c_ss, c_sg, c_sb))
     return cudaErrorInvalidValue;
   p.dt = static_cast<const float*>(dt);
   p.A = static_cast<const float*>(A);
@@ -2336,6 +3077,13 @@ int rt_ssd_scan_bwd_wgmma(const void* x, const void* dt, const void* A, const vo
   p.batch = batch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* dAf = static_cast<float*>(dA);
+  if (N == n16::kN) {
+    switch (parts) {
+      case 11111: return n16::launch_bwd<1, 1, 1, 1, 1>(p, cluster, dB, dC, dAf, s);
+      case 22222: return n16::launch_bwd<2, 2, 2, 2, 2>(p, cluster, dB, dC, dAf, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   switch (parts) {
     case 11111: return tcb::launch<1, 1, 1, 1, 1>(p, cluster, dB, dC, dAf, s);
     case 22222: return tcb::launch<2, 2, 2, 2, 2>(p, cluster, dB, dC, dAf, s);

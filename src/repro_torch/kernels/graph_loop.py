@@ -41,6 +41,7 @@ its step kernels as ``GraphLoop.launches`` does.
 from __future__ import annotations
 
 import ctypes
+import gc
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -360,10 +361,20 @@ def reset_launches() -> None:
 def capture(fn):
     """Capture ``fn()`` into a ``CUDAGraph(keep_graph=True)``; returns
     ``(graph, fn's result)``.  The graph is never replayed by PyTorch:
-    :class:`GraphLoop` clones it into its own."""
+    :class:`GraphLoop` clones it into its own.  Python's cyclic garbage
+    collector is off during the capture: with it on, a full run of the
+    card's tests saw this capture invalidated (error 901) at a point the
+    earlier tests' garbage decided, as a collection that destroys a CUDA
+    object inside a global-mode capture would do; with it off, none."""
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph):
-        result = fn()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            result = fn()
+    finally:
+        if enabled:
+            gc.enable()
     return graph, result
 
 

@@ -11,6 +11,10 @@ head dim, state dim and chunk alone (:func:`route`):
   the CTAs of a (batch, head) in a thread-block cluster that carries the
   float32 state from chunk to chunk through distributed shared memory.
   Bound by bytes;
+* ``bfloat16`` at P 64, N 16 and chunk 128 (hymba-1.5b's SSD heads) take
+  the tensor-core kernel of that width (``"wgmma_n16"``): the same
+  algorithm, B and C in 32-byte rows, a [P, N] state in one warpgroup's
+  accumulator.  Bound by bytes;
 * ``float32``, and every other shape, take the CUDA-core kernel: one CTA
   per (batch, head) walking its chunks in float32 FMA.  Bound by
   float32 operations.
@@ -18,9 +22,9 @@ head dim, state dim and chunk alone (:func:`route`):
 For a CPU tensor the wrapper runs the plain version
 (:func:`.ref.ssd_scan`, the sequential float32 scan), and only then;
 for CUDA tensors it launches its route's kernel or raises.
-``ssd_scan.launches_wgmma`` and ``launches_cuda_core`` count each
-route's launches, ``ssd_scan.launches`` their sum (a launch recorded
-into a CUDA graph counts once, at capture).
+``ssd_scan.launches_wgmma``, ``launches_wgmma_n16`` and
+``launches_cuda_core`` count each route's launches, ``ssd_scan.launches``
+their sum (a launch recorded into a CUDA graph counts once, at capture).
 
 On the card the scan is differentiable through hand-written backward
 kernels in the same source (the reference has no Pallas backward, it
@@ -31,8 +35,10 @@ whose forward is the route's kernel and whose backward is
 :func:`ssd_scan_bwd`.  Its route rule, fixed by dtype, head dim and state
 dim alone (:func:`bwd_route`): bf16 at P 64, N 128 takes the tensor-core
 backward (``rt_ssd_scan_bwd_wgmma``: the chunks of a (batch, head) in
-parallel in a cluster, as the forward), float32 and every other shape the
-CUDA-core one (``rt_ssd_scan_bwd``).  ``ssd_scan_bwd.launches_wgmma`` and
+parallel in a cluster, as the forward), bf16 at P 64, N 16 its counterpart
+at that width (the same entry point), float32 and every other
+shape the CUDA-core one (``rt_ssd_scan_bwd``).
+``ssd_scan_bwd.launches_wgmma``, ``launches_wgmma_n16`` and
 ``launches_cuda_core`` count each route's launches, ``launches`` their
 sum.  Its plain version, for tests only, is :func:`.ref.ssd_scan_vjp`.
 """
@@ -49,19 +55,24 @@ from .build import check_launch, load_library, stream_arg, use_plain
 
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128  # csrc kMaxChunk, kMaxP, kMaxN
 WGMMA_CHUNK, WGMMA_HEAD_DIM, WGMMA_STATE = 128, 64, 128  # csrc tc::kL, kP, kN
+WGMMA_N16_STATE = 16  # csrc n16::kN
 MAX_CLUSTER = 8  # csrc tc::kMaxCluster: CTAs of a (batch, head)
 #: bf16 parts of (G, x o w, h) the tensor-core kernel takes on the served
 #: path: the fewest that meet the checks' bounds (scripts/ssd_scan_times.py)
 PARTS = (1, 2, 1)
 #: the variants ``csrc/ssd_scan.cu`` instantiates (rt_ssd_scan_wgmma)
 PARTS_VARIANTS = ((1, 1, 1), (1, 2, 1), (2, 2, 2), (3, 3, 3))
+#: the same at N 16 (rt_ssd_scan_wgmma at N 16): one part of x o w fewer leaves
+#: the state outside the served bound there too (tests/test_torch_ssd.py)
+PARTS_N16 = (1, 2, 1)
+PARTS_N16_VARIANTS = ((1, 1, 1), (1, 2, 1), (2, 2, 2))
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #: the C entry points of ``csrc/ssd_scan.cu`` and their argument types
 SIGNATURES = {"rt_ssd_scan": [_I] + [_P] * 8 + [_I] * 7 + [_I64] * 11 + [_P],
-              "rt_ssd_scan_wgmma": [_P] * 8 + [_I] * 6 + [_I64] * 11 + [_P],
+              "rt_ssd_scan_wgmma": [_P] * 8 + [_I] * 7 + [_I64] * 11 + [_P],
               "rt_ssd_scan_bwd": [_I] + [_P] * 18 + [_I] * 6 + [_I64] * 11 + [_P],
-              "rt_ssd_scan_bwd_wgmma": [_P] * 18 + [_I] * 6 + [_I64] * 11 + [_P]}
+              "rt_ssd_scan_bwd_wgmma": [_P] * 18 + [_I] * 7 + [_I64] * 11 + [_P]}
 #: rows of a sub-chunk of the CUDA-core backward kernel (csrc ``bwd::kBL``)
 BWD_ROWS = 32
 #: bf16 parts of (x o w, eh o dy, the scores, H0, U) the tensor-core
@@ -70,24 +81,35 @@ BWD_ROWS = 32
 BWD_PARTS = (2, 2, 2, 2, 2)
 #: the variants ``csrc/ssd_scan.cu`` instantiates (rt_ssd_scan_bwd_wgmma)
 BWD_PARTS_VARIANTS = ((1, 1, 1, 1, 1), (2, 2, 2, 2, 2))
+#: the same at N 16 (rt_ssd_scan_bwd_wgmma at N 16): every operand two parts
+#: again, one fewer of any leaving the gradient bound
+#: (tests/test_torch_backward.py)
+BWD_PARTS_N16 = (2, 2, 2, 2, 2)
+BWD_PARTS_N16_VARIANTS = ((1, 1, 1, 1, 1), (2, 2, 2, 2, 2))
+#: each tensor-core route's served parts and variants, forward and backward
+_WGMMA = {"wgmma": (PARTS, PARTS_VARIANTS, BWD_PARTS, BWD_PARTS_VARIANTS),
+          "wgmma_n16": (PARTS_N16, PARTS_N16_VARIANTS, BWD_PARTS_N16, BWD_PARTS_N16_VARIANTS)}
 
 
 def route(dtype: torch.dtype, head_dim: int, state_dim: int, chunk: int) -> str:
-    """``"wgmma"`` or ``"cuda_core"``: which kernel a CUDA call of this
-    dtype (x's), head dim P, state dim N and requested chunk takes."""
-    if (dtype == torch.bfloat16 and head_dim == WGMMA_HEAD_DIM and state_dim == WGMMA_STATE
-            and chunk == WGMMA_CHUNK):
-        return "wgmma"
-    return "cuda_core"
+    """``"wgmma"``, ``"wgmma_n16"`` or ``"cuda_core"``: which kernel a CUDA
+    call of this dtype (x's), head dim P, state dim N and requested chunk
+    takes."""
+    if chunk != WGMMA_CHUNK:
+        return "cuda_core"
+    return bwd_route(dtype, head_dim, state_dim)
 
 
 def bwd_route(dtype: torch.dtype, head_dim: int, state_dim: int) -> str:
-    """``"wgmma"`` or ``"cuda_core"``: which backward kernel a CUDA call of
-    this dtype (x's, and so dy's), head dim P and state dim N takes.  The
-    backward has its own chunk (128 rows on the tensor cores, 32 on CUDA
-    cores), whatever the forward's was."""
-    if dtype == torch.bfloat16 and head_dim == WGMMA_HEAD_DIM and state_dim == WGMMA_STATE:
-        return "wgmma"
+    """``"wgmma"``, ``"wgmma_n16"`` or ``"cuda_core"``: which backward
+    kernel a CUDA call of this dtype (x's, and so dy's), head dim P and
+    state dim N takes.  The backward has its own chunk (128 rows on the
+    tensor cores, 32 on CUDA cores), whatever the forward's was."""
+    if dtype == torch.bfloat16 and head_dim == WGMMA_HEAD_DIM:
+        if state_dim == WGMMA_STATE:
+            return "wgmma"
+        if state_dim == WGMMA_N16_STATE:
+            return "wgmma_n16"
     return "cuda_core"
 
 
@@ -97,14 +119,16 @@ def max_cluster(seq_len: int) -> int:
     return min(-(-seq_len // WGMMA_CHUNK), MAX_CLUSTER)
 
 
-def default_cluster(seq_len: int) -> int:
-    """CTAs of a (batch, head) on the tensor-core route: one for every two
-    chunks, at most :data:`MAX_CLUSTER`; each CTA walks the cluster's
-    groups of chunks.  At the served S 512 (4 chunks, 1 280 CTAs of one
-    chunk or 640 of two) two chunks a CTA measured faster than one or
-    four (``scripts/ssd_scan_times.py``): the second chunk's set-up and
-    loads overlap the other CTA of its SM, with half the CTAs to place
-    in clusters."""
+def default_cluster(seq_len: int, state_dim: int = WGMMA_STATE) -> int:
+    """CTAs of a (batch, head) on a tensor-core route; each CTA walks the
+    cluster's groups of chunks.  At N 128 one for every two chunks, at
+    most :data:`MAX_CLUSTER`: at the served S 512 (4 chunks, 1 280 CTAs
+    of one chunk or 640 of two) two chunks a CTA measured faster than one
+    or four (``scripts/ssd_scan_times.py``): the second chunk's set-up
+    and loads overlap the other CTA of its SM, with half the CTAs to
+    place in clusters.  At N 16 one a chunk (:func:`max_cluster`)."""
+    if state_dim == WGMMA_N16_STATE:
+        return max_cluster(seq_len)
     return min(-(-seq_len // (2 * WGMMA_CHUNK)), MAX_CLUSTER)
 
 
@@ -158,7 +182,7 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.T
     ``dinit_state`` is None without an ``init_state``.
 
     On the card, one launch of the route's kernel (:func:`bwd_route`):
-    the tensor-core kernel (bf16 at P 64, N 128; a CTA per 128-row chunk,
+    a tensor-core kernel (bf16 at P 64, N 128 or N 16; a CTA per 128-row chunk,
     the chunks of a (batch, head) in one cluster, :func:`max_cluster` of
     them, a longer sequence walking groups of chunks), or the CUDA-core
     kernel (a CTA per (batch, head), float32; any shape the CUDA-core
@@ -177,8 +201,9 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.T
     if use_plain(*(t for t in (x, dt, A, Bm, C, init_state, dy, dh) if t is not None)):
         return ref.ssd_scan_vjp(x, dt, A, Bm, C, init_state, dy, dh)
     _check_inputs(x, dt, A, Bm, C, init_state)
-    if bwd_route(x.dtype, P, N) == "wgmma":
-        return _bwd_wgmma(x, dt, A, Bm, C, init_state, dy, dh)
+    which = bwd_route(x.dtype, P, N)
+    if which in _WGMMA:
+        return _bwd_wgmma(which, x, dt, A, Bm, C, init_state, dy, dh)
     return _bwd_cuda_core(x, dt, A, Bm, C, init_state, dy, dh)
 
 
@@ -210,8 +235,7 @@ def _bwd_cuda_core(x, dt, A, Bm, C, init_state, dy, dh):
         dB_part.data_ptr(), dC_part.data_ptr(), hs.data_ptr(), Bsz, S, H, P, G, N,
         *x.stride()[:3], *dt.stride()[:2], *Bm.stride()[:3], *C.stride()[:3], stream_arg(x))
     check_launch("ssd_scan", err)
-    ssd_scan_bwd.launches_cuda_core += 1
-    ssd_scan_bwd.launches += 1
+    _count(ssd_scan_bwd, "cuda_core")
     return dx, ddt, dA, dB, dC, (dh0 if init_state is not None else None)
 
 
@@ -221,27 +245,29 @@ def ssd_scan_bwd_variant(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          dy: Optional[torch.Tensor] = None, dh: Optional[torch.Tensor] = None,
                          cluster: Optional[int] = None, parts: Optional[Tuple[int, ...]] = None,
                          kernel: str = "wgmma"):
-    """:func:`ssd_scan_bwd` on the tensor-core route's CUDA inputs, for
-    measurements and tests (``scripts/ssd_bwd_times.py``): with another
-    cluster size (1 to :func:`max_cluster`; fewer CTAs than chunks walk
-    groups of chunks) or bf16 parts (one of :data:`BWD_PARTS_VARIANTS`),
-    or, with ``kernel="cuda_core"``, the CUDA-core kernel on them (the
+    """:func:`ssd_scan_bwd` on a tensor-core route's CUDA inputs (N 128 or
+    N 16), for measurements and tests (``scripts/ssd_bwd_times.py``): with
+    another cluster size (1 to :func:`max_cluster`; fewer CTAs than chunks
+    walk groups of chunks) or bf16 parts (one of the route's variants,
+    :data:`BWD_PARTS_VARIANTS` or :data:`BWD_PARTS_N16_VARIANTS`), or,
+    with ``kernel="cuda_core"``, the CUDA-core kernel on them (the
     route's kernel before the tensor-core one)."""
     _check_shapes(x, dt, A, Bm, C, init_state)
-    if bwd_route(x.dtype, x.shape[-1], Bm.shape[-1]) != "wgmma" or use_plain(x):
-        raise ValueError("ssd_scan_bwd_variant takes the tensor-core route's CUDA inputs")
+    which = bwd_route(x.dtype, x.shape[-1], Bm.shape[-1])
+    if which not in _WGMMA or use_plain(x):
+        raise ValueError("ssd_scan_bwd_variant takes a tensor-core route's CUDA inputs")
     _check_inputs(x, dt, A, Bm, C, init_state)
     if kernel == "cuda_core":
         return _bwd_cuda_core(x, dt, A, Bm, C, init_state, dy, dh)
     if kernel != "wgmma":
         raise ValueError(f"ssd_scan_bwd_variant: kernel {kernel!r} is not wgmma or cuda_core")
-    return _bwd_wgmma(x, dt, A, Bm, C, init_state, dy, dh, cluster, parts)
+    return _bwd_wgmma(which, x, dt, A, Bm, C, init_state, dy, dh, cluster, parts)
 
 
-def _bwd_wgmma(x, dt, A, Bm, C, init_state, dy, dh, cluster=None, parts=None):
-    """The tensor-core backward: x, Bm and C read in place where TMA can
-    (:func:`_tma_ok`), dy contiguous (zeros when absent), every output and
-    scratch allocated here."""
+def _bwd_wgmma(which, x, dt, A, Bm, C, init_state, dy, dh, cluster=None, parts=None):
+    """The tensor-core backward of route ``which``: x, Bm and C read in
+    place where TMA can (:func:`_tma_ok`), dy contiguous (zeros when
+    absent), every output and scratch allocated here."""
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     dev, f32 = x.device, torch.float32
@@ -250,10 +276,11 @@ def _bwd_wgmma(x, dt, A, Bm, C, init_state, dy, dh, cluster=None, parts=None):
         dy.to(x.dtype).contiguous())
     dh = None if dh is None else dh.to(f32).contiguous()
     chunks = -(-S // WGMMA_CHUNK)
+    served, variants = _WGMMA[which][2:]
     cluster = max_cluster(S) if cluster is None else int(cluster)
-    parts = BWD_PARTS if parts is None else tuple(parts)
-    if parts not in BWD_PARTS_VARIANTS or not 1 <= cluster <= max_cluster(S):
-        raise ValueError(f"ssd_scan_bwd: parts {parts} not in {BWD_PARTS_VARIANTS}, or "
+    parts = served if parts is None else tuple(parts)
+    if parts not in variants or not 1 <= cluster <= max_cluster(S):
+        raise ValueError(f"ssd_scan_bwd: parts {parts} not in {variants}, or "
                          f"cluster {cluster} outside 1..{max_cluster(S)}")
     groups = -(-chunks // cluster)
     dx = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=dev)
@@ -272,11 +299,11 @@ def _bwd_wgmma(x, dt, A, Bm, C, init_state, dy, dh, cluster=None, parts=None):
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), C.data_ptr(),
         ptr(init_state), dy.data_ptr(), ptr(dh), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
         dB.data_ptr(), dC.data_ptr(), dh0.data_ptr(), dA_part.data_ptr(), dB_part.data_ptr(),
-        dC_part.data_ptr(), ptr(hcarry), Bsz, S, H, G, cluster, int("".join(map(str, parts))),
+        dC_part.data_ptr(), ptr(hcarry), Bsz, S, H, G, N, cluster,
+        int("".join(map(str, parts))),
         *_tma_strides(x), *dt.stride()[:2], *_tma_strides(Bm), *_tma_strides(C), stream_arg(x))
     check_launch("ssd_scan", err)
-    ssd_scan_bwd.launches_wgmma += 1
-    ssd_scan_bwd.launches += 1
+    _count(ssd_scan_bwd, which)
     return dx, ddt, dA, dB, dC, (dh0 if init_state is not None else None)
 
 
@@ -284,12 +311,13 @@ def ssd_scan_variant(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                      Bm: torch.Tensor, C: torch.Tensor, *,
                      init_state: Optional[torch.Tensor] = None, cluster: int,
                      parts: Tuple[int, int, int]):
-    """:func:`ssd_scan` at chunk 128 on the tensor-core route with another
-    cluster size (1 to :func:`max_cluster`) or bf16 parts (one of
-    :data:`PARTS_VARIANTS`), for measurements
+    """:func:`ssd_scan` at chunk 128 on a tensor-core route (N 128 or
+    N 16) with another cluster size (1 to :func:`max_cluster`) or bf16
+    parts (one of the route's variants, :data:`PARTS_VARIANTS` or
+    :data:`PARTS_N16_VARIANTS`), for measurements
     (``scripts/ssd_scan_times.py``); returns (y, final state)."""
-    if route(x.dtype, x.shape[-1], Bm.shape[-1], 128) != "wgmma":
-        raise ValueError("ssd_scan_variant takes the tensor-core route's inputs")
+    if route(x.dtype, x.shape[-1], Bm.shape[-1], 128) not in _WGMMA:
+        raise ValueError("ssd_scan_variant takes a tensor-core route's inputs")
     return _scan(x, dt, A, Bm, C, init_state, 128, True, cluster, parts)
 
 
@@ -342,29 +370,27 @@ def _scan(x, dt, A, Bm, C, init_state, chunk, return_state, cluster, parts):
     h = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
     lib = load_library("ssd_scan", SIGNATURES)
     h0 = None if init_state is None else init_state.data_ptr()
-    if which == "wgmma":
+    if which in _WGMMA:
         x, Bm, C = (t if _tma_ok(t) else t.contiguous() for t in (x, Bm, C))
-        cluster = default_cluster(S) if cluster is None else int(cluster)
-        parts = PARTS if parts is None else tuple(parts)
-        if parts not in PARTS_VARIANTS or not 1 <= cluster <= max_cluster(S):
-            raise ValueError(f"ssd_scan: parts {parts} not in {PARTS_VARIANTS}, or cluster "
+        served, variants = _WGMMA[which][:2]
+        cluster = default_cluster(S, N) if cluster is None else int(cluster)
+        parts = served if parts is None else tuple(parts)
+        if parts not in variants or not 1 <= cluster <= max_cluster(S):
+            raise ValueError(f"ssd_scan: parts {parts} not in {variants}, or cluster "
                              f"{cluster} outside 1..{max_cluster(S)}")
         err = lib.rt_ssd_scan_wgmma(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), C.data_ptr(), h0,
-            y.data_ptr(), h.data_ptr(), Bsz, S, H, G, cluster,
+            y.data_ptr(), h.data_ptr(), Bsz, S, H, G, N, cluster,
             100 * parts[0] + 10 * parts[1] + parts[2], *_tma_strides(x), *dt.stride()[:2],
             *_tma_strides(Bm), *_tma_strides(C), stream_arg(x))
-        check_launch("ssd_scan", err)
-        ssd_scan.launches_wgmma += 1
     else:
         err = lib.rt_ssd_scan(
             _DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             C.data_ptr(), h0, y.data_ptr(), h.data_ptr(), Bsz, S, H, P, G, N, chunk,
             *x.stride()[:3], *dt.stride()[:2], *Bm.stride()[:3], *C.stride()[:3],
             stream_arg(x))
-        check_launch("ssd_scan", err)
-        ssd_scan.launches_cuda_core += 1
-    ssd_scan.launches += 1
+    check_launch("ssd_scan", err)
+    _count(ssd_scan, which)
     return (y, h) if return_state else y
 
 
@@ -381,26 +407,29 @@ def _tma_ok(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0 and all(s > 0 and s % 8 == 0 for s in _tma_strides(t))
 
 
-ssd_scan.launches = 0
-ssd_scan.launches_wgmma = 0
-ssd_scan.launches_cuda_core = 0
-ssd_scan_bwd.launches = 0
-ssd_scan_bwd.launches_wgmma = 0
-ssd_scan_bwd.launches_cuda_core = 0
+#: the routes, each with its own launch counter
+ROUTES = ("wgmma", "wgmma_n16", "cuda_core")
+
+
+def _count(fn, which: str) -> None:
+    """One launch of ``fn``'s kernel on route ``which``."""
+    setattr(fn, f"launches_{which}", getattr(fn, f"launches_{which}") + 1)
+    fn.launches += 1
 
 
 def launch_counts() -> Dict[str, int]:
-    return {"ssd_scan": ssd_scan.launches, "ssd_scan_wgmma": ssd_scan.launches_wgmma,
-            "ssd_scan_cuda_core": ssd_scan.launches_cuda_core,
-            "ssd_scan_bwd": ssd_scan_bwd.launches,
-            "ssd_scan_bwd_wgmma": ssd_scan_bwd.launches_wgmma,
-            "ssd_scan_bwd_cuda_core": ssd_scan_bwd.launches_cuda_core}
+    out = {"ssd_scan": ssd_scan.launches}
+    out.update({f"ssd_scan_{r}": getattr(ssd_scan, f"launches_{r}") for r in ROUTES})
+    out["ssd_scan_bwd"] = ssd_scan_bwd.launches
+    out.update({f"ssd_scan_bwd_{r}": getattr(ssd_scan_bwd, f"launches_{r}") for r in ROUTES})
+    return out
 
 
 def reset_launches() -> None:
-    ssd_scan.launches = 0
-    ssd_scan.launches_wgmma = 0
-    ssd_scan.launches_cuda_core = 0
-    ssd_scan_bwd.launches = 0
-    ssd_scan_bwd.launches_wgmma = 0
-    ssd_scan_bwd.launches_cuda_core = 0
+    for fn in (ssd_scan, ssd_scan_bwd):
+        fn.launches = 0
+        for r in ROUTES:
+            setattr(fn, f"launches_{r}", 0)
+
+
+reset_launches()

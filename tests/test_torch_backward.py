@@ -24,7 +24,11 @@ and ``chip_smoke.py`` hold them against their plain versions.  Here:
   for a bf16 result): in float32 without parts, and at the served widths
   with ``ssd_scan.BWD_PARTS``, one part fewer of any operand leaving the
   bound.  A change to that kernel's algorithm or parts must be mirrored
-  in :func:`emulate_ssd_bwd_wgmma`;
+  in :func:`emulate_ssd_bwd_wgmma`.  The N-16 tensor-core backward
+  (hymba's widths, P 64, N 16) runs the same arithmetic with
+  ``ssd_scan.BWD_PARTS_N16``: held the same way against the plain VJP and
+  ``jax.vjp`` at several sequence lengths, with and without init_state
+  and dh, one part fewer of any operand leaving the bound;
 * a float32 emulation of the RMSNorm backward kernel's order of operations
   (:func:`emulate_rmsnorm_bwd`: the row sums by the plan's thread layout,
   the lanes' butterfly and the team's warps in order; dw by the plan's
@@ -328,6 +332,50 @@ def test_one_part_fewer_of_any_operand_breaks_the_gradient_bound(served_bwd):
         assert max(_shares(emulate_ssd_bwd_wgmma(*ins, parts=fewer), want)) > 1, fewer
 
 
+@pytest.fixture(scope="module")
+def served_bwd_n16():
+    """hymba's widths (P 64, N 16, G 1) at B 1, H 2, S 200 (a short last
+    chunk) with init_state and dh, and their plain VJP on the widened
+    inputs."""
+    ins = _served_bwd_inputs(True, B=1, S=200, H=2, G=1, N=16, seed=16)
+    x, dt, A, Bm, C, h0, dy, dh = ins
+    return ins, ref.ssd_scan_vjp(x.float(), dt, A, Bm.float(), C.float(), h0, dy.float(), dh)
+
+
+@pytest.mark.parametrize("init", [True, False], ids=["S200_init_dh", "S256_dy_only"])
+def test_wgmma_n16_backward_served_parts_meet_the_bound(served_bwd_n16, init):
+    """bf16 inputs at hymba's widths, one CTA a chunk: with
+    ``ssd_scan.BWD_PARTS_N16`` every gradient meets the kernel's bound
+    against the plain VJP of the widened inputs, with init_state and dh
+    and a short last chunk (also against ``jax.vjp`` of the reference
+    scan) and as the model calls it (dy only, two whole chunks)."""
+    if init:
+        ins, want = served_bwd_n16
+    else:
+        ins = _served_bwd_inputs(False, B=1, S=256, H=2, G=1, N=16, seed=256)
+        x, dt, A, Bm, C, _, dy, _ = ins
+        want = ref.ssd_scan_vjp(x.float(), dt, A, Bm.float(), C.float(), None, dy.float(), None)
+    got = emulate_ssd_bwd_wgmma(*ins, parts=ssd.BWD_PARTS_N16)
+    assert all(bool(torch.isfinite(g.float()).all()) for g in got if g is not None)
+    assert max(_shares(got, want)) <= 1
+    if init:
+        jwant = _jax_vjp(*[None if t is None else t.float().numpy() for t in ins])
+        assert max(_shares(got, jwant)) <= 1
+
+
+def test_one_part_fewer_of_any_operand_breaks_the_n16_gradient_bound(served_bwd_n16):
+    """At N 16 as at N 128 every operand takes two parts: with any one of
+    x o w, eh o dy, the scores, H0 or U in a single part some gradient
+    leaves the bound (at S 200; at S 160 one part of x o w happens to
+    stay inside it); the served parts do not."""
+    ins, want = served_bwd_n16
+    assert ssd.BWD_PARTS_N16 in ssd.BWD_PARTS_N16_VARIANTS
+    assert max(_shares(emulate_ssd_bwd_wgmma(*ins, parts=ssd.BWD_PARTS_N16), want)) <= 1
+    for i in range(5):
+        fewer = tuple(1 if j == i else n for j, n in enumerate(ssd.BWD_PARTS_N16))
+        assert max(_shares(emulate_ssd_bwd_wgmma(*ins, parts=fewer), want)) > 1, fewer
+
+
 def test_ssd_bwd_route_is_a_function_of_dtype_and_shape():
     import inspect
     assert list(inspect.signature(ssd.bwd_route).parameters) == [
@@ -336,7 +384,10 @@ def test_ssd_bwd_route_is_a_function_of_dtype_and_shape():
     cases = {(bf16, 64, 128): "wgmma",        # mamba2's training shapes
              (f32, 64, 128): "cuda_core",     # float32 keeps CUDA cores
              (bf16, 32, 128): "cuda_core", (bf16, 64, 64): "cuda_core",
-             (bf16, 16, 16): "cuda_core", (torch.float16, 64, 128): "cuda_core"}
+             (bf16, 16, 16): "cuda_core", (torch.float16, 64, 128): "cuda_core",
+             (bf16, 64, 16): "wgmma_n16",     # hymba's training shapes
+             (f32, 64, 16): "cuda_core", (bf16, 32, 16): "cuda_core",
+             (torch.float16, 64, 16): "cuda_core"}
     assert {c: ssd.bwd_route(*c) for c in cases} == cases
 
 

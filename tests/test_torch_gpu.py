@@ -23,7 +23,8 @@ launch equal to the eager prefill bit for bit (hymba and whisper smoke
 too, with an admission beside a slot in flight; flash and the SSD scan
 also at hymba's and whisper's served shapes: not causal over 1500
 keys, a group of 5 with a window of 1024, one decode query, the SSD
-scan's CUDA-core route in bf16 at N 16 with an initial state).  The convergence loop
+scan on its N-16 tensor-core route (hymba's) with an initial state, its
+CUDA-core route in bf16 at N 64).  The convergence loop
 (a graph conditional WHILE node set by the step kernel) is held against
 the eager CPU loop, against ``FusedEngine`` called ``n_done`` times
 (bit for bit), and its step kernel against the plain step on known
@@ -349,8 +350,9 @@ def test_ssd_wgmma_route_meets_the_served_bound(cuda, case):
     torch.cuda.synchronize()
     after = ssd.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        "ssd_scan": 1, "ssd_scan_wgmma": 1, "ssd_scan_cuda_core": 0, "ssd_scan_bwd": 0,
-        "ssd_scan_bwd_wgmma": 0, "ssd_scan_bwd_cuda_core": 0}
+        "ssd_scan": 1, "ssd_scan_wgmma": 1, "ssd_scan_wgmma_n16": 0, "ssd_scan_cuda_core": 0,
+        "ssd_scan_bwd": 0, "ssd_scan_bwd_wgmma": 0, "ssd_scan_bwd_wgmma_n16": 0,
+        "ssd_scan_bwd_cuda_core": 0}
     assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(h).all())
     assert _within_served_bound(y, h, x, dt, A, Bm, C, h0)
     if case["kind"] == "extreme":
@@ -362,26 +364,76 @@ def test_ssd_wgmma_route_meets_the_served_bound(cuda, case):
         assert bool(((h - hf).abs() <= 2e-4 * hf.abs() + 3e-5 + 1e-4 * habs).all())
 
 
-# bf16 at hymba's widths (P 64, N 16, chunk 128): the CUDA-core route,
-# with and without an initial state, a short last chunk
+# bf16 at hymba's widths (P 64, N 16, chunk 128): the tensor-core route of
+# that width, with and without an initial state, a short last chunk, 11
+# chunks (a cluster of 8 walks two groups), the extreme decay
 HYMBA_SSD_CASES = [dict(B=2, S=640, H=50, G=1, kind="served", h0=True),
                    dict(B=2, S=300, H=6, G=1, kind="served", h0=True),
                    dict(B=1, S=200, H=4, G=1, kind="served", h0=False),
+                   dict(B=1, S=1300, H=2, G=1, kind="served", h0=True),
                    dict(B=1, S=256, H=2, G=1, kind="extreme", h0=True)]
 
 
 @pytest.mark.parametrize("case", HYMBA_SSD_CASES,
                          ids=lambda c: f"S{c['S']}H{c['H']}{c['kind']}h0{c['h0']}")
-def test_ssd_cuda_core_route_meets_the_served_bound_in_bf16(cuda, case):
+def test_ssd_wgmma_n16_route_meets_the_served_bound(cuda, case):
     x, dt, A, Bm, C, h0 = _served_ssd(cuda, **case, seed=case["S"] + 1, N=16)
+    assert ssd.route(x.dtype, x.shape[3], Bm.shape[3], 128) == "wgmma_n16"
+    before = ssd.launch_counts()
+    y, h = ssd.ssd_scan(x, dt, A, Bm, C, init_state=h0, chunk=128, return_state=True)
+    torch.cuda.synchronize()
+    after = ssd.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "ssd_scan": 1, "ssd_scan_wgmma": 0, "ssd_scan_wgmma_n16": 1, "ssd_scan_cuda_core": 0,
+        "ssd_scan_bwd": 0, "ssd_scan_bwd_wgmma": 0, "ssd_scan_bwd_wgmma_n16": 0,
+        "ssd_scan_bwd_cuda_core": 0}
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(h).all())
+    assert _within_served_bound(y, h, x, dt, A, Bm, C, h0)
+    if case["kind"] == "extreme":
+        _, hf = ref.ssd_scan(x.float(), dt, A, Bm.float(), C.float(), init_state=h0,
+                             return_state=True)
+        _, habs = ref.ssd_scan(x.float().abs(), dt, A, Bm.float().abs(), C.float().abs(),
+                               init_state=h0.abs(), return_state=True)
+        assert bool(((h - hf).abs() <= 2e-4 * hf.abs() + 3e-5 + 1e-4 * habs).all())
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 3, 5])
+def test_ssd_wgmma_n16_cluster_size_keeps_the_bound(cuda, cluster):
+    """hymba's prefill width (5 chunks) in groups of 1, 2, 3 or 5 CTAs (a
+    group's last state carried on through hout), x, B and C views of one
+    conv output: each meets the served bound."""
+    x, dt, A, Bm, C, h0 = _served_ssd(cuda, 2, 640, 6, 1, "served", True, seed=5, N=16)
+    y, h = ssd.ssd_scan_variant(x, dt, A, Bm, C, init_state=h0, cluster=cluster,
+                                parts=ssd.PARTS_N16)
+    assert _within_served_bound(y, h, x, dt, A, Bm, C, h0)
+    yc, hc = ssd.ssd_scan(x.contiguous(), dt, A, Bm.contiguous(), C.contiguous(),
+                          init_state=h0, chunk=128, return_state=True)
+    if cluster == ssd.default_cluster(640, 16):
+        assert torch.equal(y, yc) and torch.equal(h, hc)
+
+
+# bf16 at P 64, N 64 (chunk 128): the CUDA-core route in bf16, with and
+# without an initial state, a short last chunk (hymba's N 16 takes the
+# tensor-core route of that width)
+CUDA_CORE_BF16_CASES = [dict(B=2, S=640, H=50, G=1, kind="served", h0=True),
+                        dict(B=2, S=300, H=6, G=1, kind="served", h0=True),
+                        dict(B=1, S=200, H=4, G=1, kind="served", h0=False),
+                        dict(B=1, S=256, H=2, G=1, kind="extreme", h0=True)]
+
+
+@pytest.mark.parametrize("case", CUDA_CORE_BF16_CASES,
+                         ids=lambda c: f"S{c['S']}H{c['H']}{c['kind']}h0{c['h0']}")
+def test_ssd_cuda_core_route_meets_the_served_bound_in_bf16(cuda, case):
+    x, dt, A, Bm, C, h0 = _served_ssd(cuda, **case, seed=case["S"] + 1, N=64)
     assert ssd.route(x.dtype, x.shape[3], Bm.shape[3], 128) == "cuda_core"
     before = ssd.launch_counts()
     y, h = ssd.ssd_scan(x, dt, A, Bm, C, init_state=h0, chunk=128, return_state=True)
     torch.cuda.synchronize()
     after = ssd.launch_counts()
-    assert {k: after[k] - before[k] for k in ("ssd_scan", "ssd_scan_wgmma",
+    assert {k: after[k] - before[k] for k in ("ssd_scan", "ssd_scan_wgmma", "ssd_scan_wgmma_n16",
                                                "ssd_scan_cuda_core")} == {
-        "ssd_scan": 1, "ssd_scan_wgmma": 0, "ssd_scan_cuda_core": 1}
+        "ssd_scan": 1, "ssd_scan_wgmma": 0, "ssd_scan_wgmma_n16": 0, "ssd_scan_cuda_core": 1}
     assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
     assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(h).all())
     assert _within_served_bound(y, h, x, dt, A, Bm, C, h0)
@@ -846,7 +898,8 @@ def test_warm_prefill_is_one_graph_launch_equal_to_eager(cuda, arch, dtype):
 
 
 #: hymba and whisper smoke in float32 (the CUDA-core routes) and bf16 (flash
-#: on the tensor-core route; hymba's SSD on the CUDA-core one at N 16)
+#: on the tensor-core route; hymba's smoke SSD, P 16 and chunk 16, on the
+#: CUDA-core one)
 FAMILY_CASES = [("hymba-1.5b", "float32"), ("hymba-1.5b", "bfloat16"),
                 ("whisper-large-v3", "float32"), ("whisper-large-v3", "bfloat16")]
 
@@ -1754,7 +1807,9 @@ def test_rmsnorm_is_differentiable_through_the_kernels(cuda):
 # CUDA-core cases: a short last sub-chunk, init_state, 2 groups, the smoke
 # model's P 16 / N 16; then the tensor-core route's (bf16, P 64, N 128): a
 # short last chunk with init_state, dh and 2 groups, and S 1100 (9 chunks:
-# more than one cluster of 8, so two groups of chunks)
+# more than one cluster of 8, so two groups of chunks); then the N-16
+# tensor-core route's (bf16, P 64, N 16): hymba's training width, dy only,
+# and the same short-last-chunk, init_state and two-group cases
 SSD_BWD_CASES = [
     (1, 256, 8, 64, 1, 128, False, torch.bfloat16),
     (2, 45, 4, 64, 2, 128, True, torch.float32),
@@ -1763,6 +1818,10 @@ SSD_BWD_CASES = [
     (3, 32, 2, 8, 2, 8, True, torch.bfloat16),
     (2, 300, 8, 64, 2, 128, True, torch.bfloat16),
     (1, 1100, 4, 64, 1, 128, True, torch.bfloat16),
+    (1, 640, 50, 64, 1, 16, False, torch.bfloat16),
+    (2, 300, 8, 64, 2, 16, True, torch.bfloat16),
+    (1, 1100, 4, 64, 1, 16, True, torch.bfloat16),
+    (2, 100, 4, 64, 1, 16, True, torch.float32),
 ]
 
 
@@ -1850,6 +1909,48 @@ def test_ssd_bwd_wgmma_groups_of_chunks_meet_the_bound(cuda, cluster):
     assert all(torch.equal(a, b) for a, b in zip(run(), got))
 
 
+def test_ssd_bwd_wgmma_n16_views_clusters_and_graph_replay(cuda):
+    """The N-16 tensor-core backward at hymba's widths: x, B and C as
+    slices of one conv output give the contiguous inputs' gradients bit
+    for bit; every cluster size (1, 2, 3, 5 CTAs: 5 to 1 groups of chunks)
+    meets the bound; a CUDA-graph replay equals the eager call bit for
+    bit."""
+    x, dt_, A, Bm, C, h0, dy, dh = _ssd_bwd_inputs(2, 640, 6, 64, 1, 16, True, torch.bfloat16,
+                                                   cuda, 38)
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2:]
+    assert ssd.bwd_route(x.dtype, P, N) == "wgmma_n16"
+    xbc = torch.cat([x.reshape(Bsz, S, -1), Bm.reshape(Bsz, S, -1), C.reshape(Bsz, S, -1)], -1)
+    xv = xbc[..., :H * P].reshape(Bsz, S, H, P)
+    bv = xbc[..., H * P:H * P + G * N].reshape(Bsz, S, G, N)
+    cv = xbc[..., H * P + G * N:].reshape(Bsz, S, G, N)
+    assert not xv.is_contiguous() and ssd._tma_ok(xv) and ssd._tma_ok(bv) and ssd._tma_ok(cv)
+    before = ssd.launch_counts()
+    got = ssd.ssd_scan_bwd(x, dt_, A, Bm, C, init_state=h0, dy=dy, dh=dh)
+    after = ssd.launch_counts()
+    assert {k: after[k] - before[k] for k in after if "bwd" in k} == {
+        "ssd_scan_bwd": 1, "ssd_scan_bwd_wgmma": 0, "ssd_scan_bwd_wgmma_n16": 1,
+        "ssd_scan_bwd_cuda_core": 0}
+    views = ssd.ssd_scan_bwd(xv, dt_, A, bv, cv, init_state=h0, dy=dy, dh=dh)
+    assert all(torch.equal(a, b) for a, b in zip(views, got) if a is not None)
+    _hold_ssd_bwd(got, x, dt_, A, Bm, C, h0, dy, dh)
+    for cluster in (1, 2, 3, 5):
+        _hold_ssd_bwd(ssd.ssd_scan_bwd_variant(xv, dt_, A, bv, cv, init_state=h0, dy=dy, dh=dh,
+                                               cluster=cluster, parts=ssd.BWD_PARTS_N16),
+                      x, dt_, A, Bm, C, h0, dy, dh)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        ssd.ssd_scan_bwd(x, dt_, A, Bm, C, init_state=h0, dy=dy, dh=dh)  # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ssd.ssd_scan_bwd(x, dt_, A, Bm, C, init_state=h0, dy=dy, dh=dh)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, got) if a is not None)
+
+
 def test_ssd_bwd_wgmma_graph_replay_equals_eager(cuda):
     """The tensor-core backward captured in a CUDA graph and replayed gives
     the eager call's gradients bit for bit (no float atomics)."""
@@ -1882,6 +1983,25 @@ def test_ssd_scan_is_differentiable_through_the_kernels(cuda):
     assert after["ssd_scan_wgmma"] == before["ssd_scan_wgmma"] + 1
     assert after["ssd_scan_bwd"] == before["ssd_scan_bwd"] + 1
     assert after["ssd_scan_bwd_wgmma"] == before["ssd_scan_bwd_wgmma"] + 1
+    want = ref.ssd_scan_vjp(*[t.detach().float() for t in ins], dy.float(), None)
+    for g, w in zip(grads, want):
+        _grad_close(g, w, 2e-4, 2e-5)
+
+
+def test_ssd_scan_n16_is_differentiable_through_the_kernels(cuda):
+    """The same at hymba's widths: the N-16 forward kernel, then the N-16
+    backward kernel, nothing on the CUDA-core route."""
+    x, dt_, A, Bm, C, h0, dy, _ = _ssd_bwd_inputs(2, 640, 10, 64, 1, 16, True, torch.bfloat16,
+                                               cuda, 39)
+    ins = [t.requires_grad_() for t in (x, dt_, A, Bm, C, h0)]
+    before = dict(ssd.launch_counts())
+    y = ssd.ssd_scan(*ins[:5], init_state=ins[5], chunk=128)
+    grads = torch.autograd.grad(y, ins, dy)
+    after = ssd.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "ssd_scan": 1, "ssd_scan_wgmma": 0, "ssd_scan_wgmma_n16": 1, "ssd_scan_cuda_core": 0,
+        "ssd_scan_bwd": 1, "ssd_scan_bwd_wgmma": 0, "ssd_scan_bwd_wgmma_n16": 1,
+        "ssd_scan_bwd_cuda_core": 0}
     want = ref.ssd_scan_vjp(*[t.detach().float() for t in ins], dy.float(), None)
     for g, w in zip(grads, want):
         _grad_close(g, w, 2e-4, 2e-5)

@@ -19,7 +19,12 @@ is held against that plain version on the card (``chip_smoke.py`` and
   into bf16 parts): in float32 without parts, the repo's bound against
   both the plain scan and Pallas; with bf16 inputs and the served parts
   (``ssd_scan.PARTS``), the bound ``chip_smoke.py`` holds the kernel to
-  at the served shapes, against both.
+  at the served shapes, against both.  The same at hymba's widths (P 64,
+  N 16), whose tensor-core kernel (``ssd_scan.route`` ``"wgmma_n16"``)
+  runs this arithmetic with one CTA a chunk and its own parts
+  (``ssd_scan.PARTS_N16``): the served bound against the plain scan and
+  the Pallas kernel at several sequence lengths, with and without
+  init_state, and one part of x o w fewer leaving it.
 """
 
 import inspect
@@ -138,14 +143,21 @@ def test_ssd_route_is_a_function_of_dtype_and_shape():
              (f32, 64, 128, 128): "cuda_core",   # float32 keeps CUDA cores
              (bf16, 64, 128, 64): "cuda_core", (bf16, 64, 128, 32): "cuda_core",
              (bf16, 32, 128, 128): "cuda_core", (bf16, 64, 64, 128): "cuda_core",
-             (bf16, 8, 8, 8): "cuda_core", (torch.float16, 64, 128, 128): "cuda_core"}
+             (bf16, 8, 8, 8): "cuda_core", (torch.float16, 64, 128, 128): "cuda_core",
+             # hymba's served shapes: the tensor-core kernel of N 16
+             (bf16, 64, 16, 128): "wgmma_n16", (f32, 64, 16, 128): "cuda_core",
+             (bf16, 64, 16, 64): "cuda_core", (bf16, 32, 16, 128): "cuda_core",
+             (bf16, 16, 16, 16): "cuda_core", (bf16, 64, 32, 128): "cuda_core"}
     assert {c: ssd.route(*c) for c in cases} == cases
-    assert ssd.PARTS in ssd.PARTS_VARIANTS
+    assert ssd.PARTS in ssd.PARTS_VARIANTS and ssd.PARTS_N16 in ssd.PARTS_N16_VARIANTS
     # a cluster of at most one CTA a chunk and 8 a (batch, head); by
     # default one CTA for two chunks: S 512 is 2
     seqs = (1, 128, 129, 300, 512, 1024, 1025, 2048, 2049, 4096)
     assert [ssd.max_cluster(s) for s in seqs] == [1, 1, 2, 3, 4, 8, 8, 8, 8, 8]
     assert [ssd.default_cluster(s) for s in seqs] == [1, 1, 1, 2, 2, 4, 5, 8, 8, 8]
+    # at N 16, one CTA a chunk: hymba's S 640 is 5
+    assert [ssd.default_cluster(s, 16) for s in seqs] == [ssd.max_cluster(s) for s in seqs]
+    assert ssd.default_cluster(640, 16) == 5
 
 
 def _split(v: torch.Tensor, parts: int) -> torch.Tensor:
@@ -309,6 +321,59 @@ def test_one_part_of_x_w_breaks_the_served_state_bound():
                                        yr, hr, yabs, habs)
              for parts in ((1, 1, 1), ssd.PARTS)}
     assert share[(1, 1, 1)][1] > 1 >= max(share[ssd.PARTS])
+    assert share[(1, 1, 1)][0] <= 1
+
+
+# hymba's widths (P 64, N 16, G 1): a short last chunk with init_state,
+# two whole chunks without it
+N16_CASES = [dict(S=200, h0=True), dict(S=256, h0=False)]
+
+
+@pytest.mark.parametrize("kind", ["served", "extreme_decay"])
+@pytest.mark.parametrize("case", N16_CASES, ids=lambda c: f"S{c['S']}h0{c['h0']}")
+def test_n16_served_parts_meet_the_served_bound(case, kind):
+    """bf16 inputs at hymba's widths, one CTA a chunk (the N-16 route's
+    cluster, :func:`ssd_scan.default_cluster`): with ``ssd_scan.PARTS_N16``
+    the kernel's arithmetic meets the served bound against the plain scan
+    and against the Pallas kernel (interpret mode), and its state the
+    extreme-decay bound against the plain scan of the same values in
+    float32."""
+    S = case["S"]
+    x, dt, A, Bm, C, h0 = served_inputs(kind, B=1, S=S, H=2, G=1, N=16, seed=S)
+    h0 = h0 if case["h0"] else None
+    cluster = ssd.default_cluster(S, 16)
+    y, h = emulate_wgmma(x, dt, A, Bm, C, h0, parts=ssd.PARTS_N16, cluster=cluster)
+    assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(h).all())
+    f32 = (x.float(), dt, A, Bm.float(), C.float())
+    habs0 = None if h0 is None else h0.abs()
+    yabs, habs = ref.ssd_scan(x.float().abs(), dt, A, Bm.float().abs(), C.float().abs(),
+                              init_state=habs0, return_state=True)
+    yr, hr = ref.ssd_scan(x, dt, A, Bm, C, init_state=h0, return_state=True)
+    assert max(served_bound_share(y, h, yr, hr, yabs, habs)) <= 1
+    yk, hk = jops.ssd_scan(*(jnp.asarray(t.float().numpy()) for t in f32),
+                           init_state=None if h0 is None else jnp.asarray(h0.numpy()),
+                           chunk=128, return_state=True)
+    yk = torch.from_numpy(np.array(yk)).bfloat16()
+    assert max(served_bound_share(y, h, yk, torch.from_numpy(np.array(hk)), yabs,
+                                  habs)) <= 1
+    _, hf = ref.ssd_scan(*f32, init_state=h0, return_state=True)
+    assert bool(((h - hf).abs() <= 2e-4 * hf.abs() + 3e-5 + 1e-4 * habs).all())
+
+
+def test_n16_one_part_fewer_of_x_w_breaks_the_served_state_bound():
+    """At N 16 as at N 128, x o w takes two parts: in one, the state leaves
+    the served bound; G and h in one part each keep y and h inside it."""
+    x, dt, A, Bm, C, h0 = served_inputs("served", B=1, S=200, H=4, G=1, N=16)
+    yabs, habs = ref.ssd_scan(x.float().abs(), dt, A, Bm.float().abs(), C.float().abs(),
+                              init_state=h0.abs(), return_state=True)
+    yr, hr = ref.ssd_scan(x, dt, A, Bm, C, init_state=h0, return_state=True)
+    cluster = ssd.default_cluster(x.shape[1], 16)
+    share = {parts: served_bound_share(*emulate_wgmma(x, dt, A, Bm, C, h0, parts=parts,
+                                                      cluster=cluster),
+                                       yr, hr, yabs, habs)
+             for parts in ((1, 1, 1), ssd.PARTS_N16)}
+    assert ssd.PARTS_N16 == (1, 2, 1)
+    assert share[(1, 1, 1)][1] > 1 >= max(share[ssd.PARTS_N16])
     assert share[(1, 1, 1)][0] <= 1
 
 
