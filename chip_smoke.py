@@ -241,7 +241,8 @@ a checkout of the repository.  Phases, each of which must pass:
    float32 moments; every layer checkpointed, ``remat="block"``) on
    batches of 4 x 512 tokens from ``SyntheticTokens`` (the cut of the
    reference's pod-scale ``train_4k``, 256 x 4096, is printed on a line
-   of its own), under ``torch.use_deterministic_algorithms(True)``:
+   of its own), with deterministic algorithms off (``torch.
+   use_deterministic_algorithms`` is never turned on):
    (a) 3 eager steps, every gradient leaf of step 1 present, finite and
    not all zero; (b) the same 3 steps as ONE CUDA-graph launch
    (``persistent_steps``), equal to (a) bit for bit in params, AdamW
@@ -355,7 +356,7 @@ a checkout of the repository.  Phases, each of which must pass:
    route, each RMSNorm (the
    qk-norms included) forward twice and backward once; the same 3 steps
    as ONE graph launch equal to the eager ones bit for bit (deterministic
-   algorithms); ms a step both ways, tokens/s, dispatches, peak memory;
+   algorithms off); ms a step both ways, tokens/s, dispatches, peak memory;
    an eager step split into forward, recompute, backward and AdamW (CUDA
    events, the recompute as a no-grad run of the layer stack) with its
    kernels, the flash backward's share named (``torch.profiler``); (a)
@@ -376,7 +377,7 @@ a checkout of the repository.  Phases, each of which must pass:
    ``torch.Generator(seed)``, 4 x 512 tokens a step (``MOE_TRAIN``; the
    cuts from ``train_4k`` printed as ``train_cut`` lines): (a)
    grok-1-314b cut to 1 layer (6.53 B parameters; bf16 AdamW moments):
-   3 eager steps with deterministic algorithms on, every gradient leaf
+   3 eager steps, every gradient leaf
    of the first finite and nonzero, the losses finite, an eager step's
    launches (counters set to 0 just before it): flash forward twice
    (forward and recompute) and its backward once on the tensor-core
@@ -386,7 +387,7 @@ a checkout of the repository.  Phases, each of which must pass:
    launch equal to the eager ones (parameters and moments by their
    fingerprints, losses bit for bit); ms a step both ways, tokens/s, dispatches, peak memory; a
    profiled eager step (forward, backward with the recompute, AdamW;
-   kernels by family) with deterministic algorithms off; (b)
+   kernels by family); (b)
    deepseek-v3-671b cut to 1 dense and 1 MoE layer (14.63 B; its AdamW
    moments do not fit, so the gradient step only, ``bundle.grad_fn``):
    the same leaf checks (the router's bias zero, as from ``jax.grad``),
@@ -433,7 +434,7 @@ a checkout of the repository.  Phases, each of which must pass:
    its backward 32 times, all on the N-16 tensor-core routes, none on the
    CUDA-core ones, flash 64 and 32 on the tensor-core route, the norms
    257 and 129; 3 eager steps equal to ONE graph launch of them bit for
-   bit (deterministic algorithms); ms a step both ways, tokens/s,
+   bit (deterministic algorithms off); ms a step both ways, tokens/s,
    dispatches, peak memory; (c) a profiled eager step (forward, backward
    with the recompute, AdamW; the SSD, flash and norm kernels' sums); (a)
    the N-16 SSD backward against ``ref.ssd_scan_vjp`` at the step's shape
@@ -443,14 +444,52 @@ a checkout of the repository.  Phases, each of which must pass:
    of 5 (B 4, 25/5 heads, S 640, D 64, window 1024) and the RMSNorm
    backward at 2560 x 1600 and 2560 x 3200 (the gated norm) against their
    plain VJPs, timed as phase 21 times them.
+25. training qwen1.5-0.5b (24 layers, 16/16 heads of 64, a tied vocab of
+   151 936; 0.46 B parameters) and whisper-large-v3 (32 encoder and 32
+   decoder layers, 20/20 heads of 64, 1500 audio frames a sample, a tied
+   vocab of 51 866; 1.54 B) at full width and depth, and glm4-9b at full
+   width (d 4096, 32/2 heads of 128, d_ff 13 696, half the head rotary, an
+   untied vocab of 151 552) cut in depth only (``FAMILY_TRAIN``), bf16
+   compute over float32 parameters from ``torch.Generator(seed)`` and
+   float32 AdamW moments, 4 x 1024 tokens a step (whisper 4 x 448, its
+   decoder's length), each cut printed as a ``train_cut`` line, with
+   deterministic algorithms off throughout: (b) for each model every
+   gradient leaf of the first eager step finite and not all zero, the
+   losses finite, an eager step's launches (counters set to 0 just before
+   it): every attention's flash forward twice (forward and recompute) and
+   backward once on the tensor-core route, every norm forward twice and
+   backward once but the final ones, the embedding backward once; 3 eager
+   steps equal to ONE graph launch of them (parameters and moments by
+   their on-card fingerprints, metrics bit for bit); a second eager run of
+   2 steps from the same seed equal to the first's (fingerprints); ms a
+   step both ways, tokens/s, dispatches, peak memory and the memory left
+   at the eager peak, a profiled eager step (forward, backward with the
+   recompute, AdamW; flash, norm and embedding kernels' sums); (a) the
+   embedding backward (``kernels/embedding.py``: a stable sort, then each
+   id's rows added in token order) against its plain version bit for bit,
+   two calls equal, at each model's step shape on its ids, and at qwen's
+   shape on 4096 ids drawn from 16 values and on 4096 copies of one id;
+   timed beside the sort alone, the plain version, its bound (dy and ids
+   read, every row of the V x D result written) and autograd of
+   ``index_select`` (forward and backward less forward, in captured
+   graphs; its entries that differ from the kernel's counted); (b) the
+   flash backward at glm4's layer (B 4, 32/2 heads, S 1024, D 128),
+   whisper's encoder (B 4, 20/20, 1500 x 1500, not causal) and qwen's
+   layer (B 4, 16/16, S 1024, D 64) against ``ref.attention_vjp``, and the
+   RMSNorm backward at 4096 x 4096 (glm4's eps 1.5625e-7) and 6000 x 1280
+   against their plain VJPs, timed as phase 21 times them.
 
-The last lines are a ``{"kernels": [...]}`` JSON line (sixteen rows:
+Each phase's seconds are printed as it ends (``phase_seconds`` lines),
+and all of them with the total before the kernels line.
+
+The last lines are a ``{"kernels": [...]}`` JSON line (seventeen rows:
 the nine Pallas kernels', the N-16 SSD route's (``ssd_scan_n16``: phase
 19's hymba prefill shape, ``cuda_core_ms`` the CUDA-core kernel on the
-same inputs, ``phase24_launches``), the two step kernels' and the four
+same inputs, ``phase24_launches``), the two step kernels' and the five
 backward kernels' (the N-16 SSD backward's, ``ssd_scan_bwd_n16``, at
-phase 24's shape), which have no Pallas counterpart (``"pallas_counterpart":
-false``); the
+phase 24's shape; the embedding backward's, ``embedding_bwd``, at qwen's
+step shape, its other cases in ``other_shapes``), which have no Pallas
+counterpart (``"pallas_counterpart": false``); the
 flash and SSD rows also give ``earlier_ms``: the CUDA-core kernel, the
 port's kernel before the tensor-core one, on the same input in this
 run, and the SSD row its ``kernel_route``; the SSD backward row its
@@ -467,7 +506,9 @@ rmsnorm rows ``phase20_launches``, they and the RMSNorm backward's row
 ``phase22_launches`` (phase 22's ``training_shapes`` named ``moe_``, its
 flash backward shapes in ``other_shapes``), the flash and rmsnorm rows
 ``phase23_launches``, they and the flash and RMSNorm backward rows
-``phase24_launches``; the flash backward's row its ``kernel_route``,
+``phase24_launches`` and ``phase25_launches`` (phase 25's norm shapes
+named ``phase25_``, its flash shapes in ``other_shapes``); the flash
+backward's row its ``kernel_route``,
 ``earlier_ms`` (the CUDA-core backward on the same input), its
 ``local_layer`` times, ``other_shapes`` (grok's and MLA's) and SDPA's
 ``sdpa_kernels``; the schedule step's row
@@ -517,6 +558,8 @@ REPLACES = {
     "rmsnorm_bwd": "src/repro/models/nn.py:78",
     # and attention's backward: XLA differentiates the plain _sdpa
     "flash_attention_bwd": "src/repro/models/nn.py:258",
+    # and the embedding's: the VJP of jnp.take, a scatter-add in token order
+    "embedding_bwd": "src/repro/models/nn.py:94-98",
 }
 FACES_KERNELS = ("halo_pack", "halo_unpack_add", "pack_segments", "unpack_segments")
 # one region of each class the Faces loop unpacks, by its DIRECTIONS entry
@@ -597,7 +640,10 @@ HYMBA_SSD_TRAIN = (4, 640, 50, 1, 16)
 #: Skv, D, Dv, keywords): gemma3's global and local layers, grok's soft-capped
 #: GQA (48/8, its output multiplier as the scale) at a shorter S, MLA's pair,
 #: whisper's cross attention (not causal, Sq != Skv), a chunk at a depth, a
-#: float32 case, and rows that see no key (a negative q_offset)
+#: float32 case, rows that see no key (a negative q_offset); phase 25's
+#: training shapes: glm4-9b's GQA group of 16 (the dK/dV kernel's cluster of
+#: 8, 2 heads a CTA), whisper's encoder (not causal, 1500 x 1500) and
+#: qwen1.5-0.5b's layer
 FLASH_BWD_CASES = (
     ("gemma3_global", "bf16", 4, 4, 1, 1024, 1024, 256, 256, {}),
     ("gemma3_local", "bf16", 4, 4, 1, 1024, 1024, 256, 256, {"window": 512}),
@@ -609,7 +655,12 @@ FLASH_BWD_CASES = (
     ("float32", "f32", 1, 4, 1, 512, 512, 256, 256, {"window": 128}),
     ("rows_without_keys", "bf16", 1, 8, 2, 200, 200, 128, 128,
      {"q_offset": -40, "window": 100}),
+    ("glm4_gqa16", "bf16", 4, 32, 2, 1024, 1024, 128, 128, {}),
+    ("whisper_encoder", "bf16", 4, 20, 20, 1500, 1500, 64, 64, {"causal": False}),
+    ("qwen_mha", "bf16", 4, 16, 16, 1024, 1024, 64, 64, {}),
 )
+#: the cases phase 25 checks and times (phase 21 checks the others)
+PHASE25_FLASH_BWD = ("glm4_gqa16", "whisper_encoder", "qwen_mha")
 #: the cases the flash backward's row times (the first is the row's own)
 FLASH_BWD_TIMED = ("gemma3_global", "gemma3_local", "grok_softcap_gqa", "mla_192_128")
 #: phase 20: the MoE family uncut in width with bf16 parameters, 4 slots,
@@ -636,6 +687,23 @@ MOE_TRAIN_CUT = ("train_4k is 256 x 4096 tokens a step across a TPU pod; one H10
                  "80 GB: grok-1 to 1 layer with bf16 AdamW moments (52.2 GB of state), "
                  "deepseek-v3 to 1 dense + 1 MoE layer, its gradient step only (parameters "
                  "and gradients 58.5 GB; its AdamW moments would need 58.5 GB more)")
+#: phase 25: qwen1.5-0.5b, glm4-9b and whisper-large-v3 trained at full width,
+#: bf16 compute over float32 parameters and AdamW moments, 3 steps; glm4-9b cut
+#: in depth only, to the most layers that leave 10 GB of the card free at the
+#: eager peak: 8 layers peaked at 51.8 GB and each adds 204 M parameters
+#: (3.3 GB of state), so 14 (4.10 B parameters) peak near 72 GB
+FAMILY_TRAIN = {"qwen1.5-0.5b": dict(batch=4, seq=1024, cut={}),
+                "glm4-9b": dict(batch=4, seq=1024, cut=dict(n_layers=14)),
+                "whisper-large-v3": dict(batch=4, seq=448, cut={})}
+FAMILY_TRAIN_STEPS = 3
+FAMILY_TRAIN_CUT = ("train_4k is 256 x 4096 tokens a step across a TPU pod; one H100 trains "
+                    "at full width on 4 x 1024 tokens a step (whisper-large-v3: 4 x 448, its "
+                    "decoder's length, beside 4 x 1500 audio frames), float32 parameters and "
+                    "AdamW moments: qwen1.5-0.5b and whisper-large-v3 at full depth, glm4-9b "
+                    "cut in depth only (its 40 layers would need ~150 GB of state)")
+#: the embedding backward's extra inputs at qwen's step shape (4096 ids, D
+#: 1024, vocab 151 936): ids drawn from 16 values, and 4096 copies of one id
+EMB_SKEWED = (("ids_16_values", 16), ("one_id", 1))
 #: gradient leaves that jax.grad leaves at zero too: the sigmoid router's
 #: balancing bias, which the loss reaches only through top-k's indices
 ZERO_GRAD_LEAVES = ("router_bias",)
@@ -1394,9 +1462,9 @@ def run_serve(torch, seed: int, arch: str, shape: dict, cfg=None, scale=None):
 
 
 def reset_all_launches() -> None:
-    from repro_torch.kernels import flash_attention, halo_pack, rmsnorm, ssd_scan
+    from repro_torch.kernels import embedding, flash_attention, halo_pack, rmsnorm, ssd_scan
 
-    for module in (flash_attention, halo_pack, rmsnorm, ssd_scan):
+    for module in (flash_attention, halo_pack, rmsnorm, ssd_scan, embedding):
         module.reset_launches()
 
 
@@ -4069,11 +4137,10 @@ def run_phase18(torch, seed: int, ssd, rk, ref):
     print(json.dumps({"train_cut": {"model": "mamba2-2.7b", "batch": TRAIN["batch"],
                                     "seq": TRAIN["seq"], "reference_shape": "train_4k",
                                     "why": TRAIN_CUT}}), flush=True)
-    # deterministic algorithms for (b) and (c); cuBLAS runs on one stream
-    # (its workspace was sized by the earlier phases; the setting is what
-    # the check asks for)
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    torch.use_deterministic_algorithms(True)
+    # (b) and (c) hold one launch to eager bit for bit with deterministic
+    # algorithms off: no backward of the step adds with float atomics
+    require(not torch.are_deterministic_algorithms_enabled(),
+            "phase 18: deterministic algorithms are on")
     cfg = get_config("mamba2-2.7b")
     shape = ShapeConfig("train_cut", TRAIN["seq"], TRAIN["batch"], "train")
     mesh = make_mesh((1, 1), ("data", "model"))
@@ -4187,7 +4254,6 @@ def run_phase18(torch, seed: int, ssd, rk, ref):
     del loop, params, opt, mets, keep
     gc.collect()
     torch.cuda.empty_cache()
-    torch.use_deterministic_algorithms(False)
 
     # (d) the backward kernels against their plain versions
     ssd_row, norm_row, detail = check_backward_kernels(torch, ssd, rk, ref, seed)
@@ -4195,14 +4261,14 @@ def run_phase18(torch, seed: int, ssd, rk, ref):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (f) where a step's time goes: one eager step (deterministic off),
+    # (f) where a step's time goes: one eager step,
     # forward / backward / optimizer by CUDA events and the top kernels
     # from torch.profiler; the recompute inside the backward as the time
     # of the layer stack's forward without autograd (what each
     # checkpointed layer runs again), by CUDA events
     from torch.profiler import ProfilerActivity, profile
     params, opt = fresh()
-    for i in range(2):  # the second eager step timed, deterministic algorithms off
+    for i in range(2):  # the second eager step timed
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         bundle.step_fn(params, opt, batches[i])
@@ -4357,7 +4423,9 @@ def flash_bwd_times(torch, fk, ref, q, k, v, do, o32, lse, kw) -> dict:
     a soft-cap) and its bound."""
     B, Hq, Sq, D = q.shape
     Skv, Dv = k.shape[2], v.shape[3]
-    pairs = attention_pairs(Sq, Skv, kw.get("q_offset", 0), kw.get("window"))
+    causal = kw.get("causal", True)
+    pairs = (attention_pairs(Sq, Skv, kw.get("q_offset", 0), kw.get("window")) if causal
+             else Sq * Skv)
     n_ops = 2 * (3 * D + 2 * Dv) * B * Hq * pairs
     n_bytes = 2 * 2 * (q.numel() + k.numel() + v.numel() + do.numel())
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_OPS_PER_S
@@ -4367,7 +4435,7 @@ def flash_bwd_times(torch, fk, ref, q, k, v, do, o32, lse, kw) -> dict:
         sdpa_kw["attn_mask"] = ((idx[None, :] <= idx[:, None])
                                 & (idx[None, :] > idx[:, None] - kw["window"]))
     else:
-        sdpa_kw["is_causal"] = True
+        sdpa_kw["is_causal"] = causal
     lib = sdpa_grad_times(torch, q, k, v, do, **sdpa_kw)
     times = {
         "route": fk.route(q.dtype, D, Dv),
@@ -4399,6 +4467,8 @@ def check_flash_backward(torch, fk, ref, seed: int):
                         "bf16_outputs": "plus 2^-8 of |got| + |want|"}}
     kept, errs = {}, []
     for name, *case in FLASH_BWD_CASES:
+        if name in PHASE25_FLASH_BWD:
+            continue
         detail[name], case_errs, inputs = flash_bwd_case(torch, fk, ref, gen, name, *case)
         errs += case_errs
         if name in FLASH_BWD_TIMED:
@@ -4493,8 +4563,6 @@ def run_phase21(torch, seed: int, fk, rk, ref):
     print(json.dumps({"train_cut": {"model": "gemma3-1b", "batch": B, "seq": S,
                                     "reference_shape": "train_4k",
                                     "why": DENSE_TRAIN_CUT}}), flush=True)
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    torch.use_deterministic_algorithms(True)
     cfg = get_config("gemma3-1b")
     windows = [layer_window_theta(cfg, i)[0] for i in range(cfg.n_layers)]
     shape = ShapeConfig("train_cut", S, B, "train")
@@ -4592,7 +4660,6 @@ def run_phase21(torch, seed: int, fk, rk, ref):
     del multi, params, opt, mets, keep
     gc.collect()
     torch.cuda.empty_cache()
-    torch.use_deterministic_algorithms(False)
 
     # (c) where an eager step's time goes: forward / backward (with the
     # recompute) / AdamW by CUDA events, the kernels by torch.profiler, the
@@ -4665,8 +4732,7 @@ def plain_moe_backwards(torch, dxin, dy, yout, w, slot, keep):
 def moe_layer_check(torch, cfg, p, seed: int) -> dict:
     """Phase 22 (c): one MoE layer alone, on its real parameters ``p`` and
     an activation of the step's shape [2048, D] (seeded, ``cfg.dtype``).
-    Forward and backward twice with deterministic algorithms off (the mode
-    restored after): the output, dx and every trained leaf's gradient (the
+    Forward and backward twice (deterministic algorithms off): the output, dx and every trained leaf's gradient (the
     router, the experts, the shared expert) equal bit for bit, the first
     run's on the host while the second runs.  Then the parts one by one,
     detached at their bounds: the dispatch's and the combine's gradients
@@ -4682,67 +4748,62 @@ def moe_layer_check(torch, cfg, p, seed: int) -> dict:
     x = torch.randn(1, T, D, device="cuda", generator=gen).to(dtype_of(cfg.dtype))
     dy = torch.randn(1, T, D, device="cuda", generator=gen).to(x.dtype)
     trained = [k for k in p if k not in ZERO_GRAD_LEAVES]
-    mode = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(False)
-    try:
-        first, equal = None, {}
-        for _ in range(2):
-            live = {k: v.detach().requires_grad_(k in trained) for k, v in p.items()}
-            xl = x.detach().requires_grad_()
-            y, aux = moe.apply_moe(live, xl, cfg)
-            grads = torch.autograd.grad((y, aux["lb_loss"]), [xl] + [live[k] for k in trained],
-                                        (dy, torch.ones_like(aux["lb_loss"])))
-            got = dict(zip(["y", "x"] + trained, [y.detach(), *grads]))
-            dropped = float(aux["dropped_frac"])
-            del grads, y, aux, live, xl
-            if first is None:
-                first = {k: t.cpu() for k, t in got.items()}
-            else:
-                equal = {k: torch.equal(t.cpu(), first[k]) for k, t in got.items()}
-            del got
-        require(all(equal.values()), f"{cfg.name}: the MoE layer's forward and backward "
-                f"differ between two runs with deterministic algorithms off: {equal}")
-        del first
-
-        # the parts, detached at their bounds: each part's forward and
-        # backward timed alone (events_ms: a warm call, then the median of 3)
-        x2d, dy2d = x.view(T, D), dy.view(T, D)
+    first, equal = None, {}
+    for _ in range(2):
         live = {k: v.detach().requires_grad_(k in trained) for k, v in p.items()}
-        experts = [live[k] for k in ("wi", "wg", "wo") if k in live]
-        xr, xd = x2d.detach().requires_grad_(), x2d.detach().requires_grad_()
-        idx, w, _ = moe._route(live, xr, cfg)
-        xin, plan = moe._dispatch(xd, idx, E, C)
-        xin_d = xin.detach().requires_grad_()
-        yout = moe._expert_ffn(live, xin_d, cfg).reshape(E * C, D)
-        yd, wd = yout.detach().requires_grad_(), w.detach().requires_grad_()
-        y = moe._combine(yd, wd, plan)
-        dyout, dw = torch.autograd.grad(y, (yd, wd), dy2d, retain_graph=True)
-        dxin = torch.autograd.grad(yout, xin_d, dyout, retain_graph=True)[0]
-        (dx,) = torch.autograd.grad(xin, xd, dxin, retain_graph=True)
-        _, slot, keep, _ = moe.dispatch_plan(idx, E, C)
-        want = plain_moe_backwards(torch, dxin.reshape(E * C, D), dy2d, yd.detach(),
-                                   wd.detach(), slot, keep)
-        plain = {name: torch.equal(got, ref_)
-                 for name, got, ref_ in zip(("dx", "dyout", "dw"), (dx, dyout, dw), want)}
-        require(all(plain.values()), f"{cfg.name}: the dispatch's and the combine's "
-                f"backwards differ from their plain versions: {plain}")
-        del want
-        grad = torch.autograd.grad
-        parts = {
-            "route": events_ms(torch, lambda: moe._route(live, xr, cfg)),
-            "dispatch": events_ms(torch, lambda: moe._dispatch(xd, idx, E, C)),
-            "experts": events_ms(torch, lambda: moe._expert_ffn(live, xin_d, cfg)),
-            "combine": events_ms(torch, lambda: moe._combine(yd, wd, plan)),
-            "combine_bwd": events_ms(torch, lambda: grad(y, (yd, wd), dy2d,
-                                                         retain_graph=True)),
-            "experts_bwd": events_ms(torch, lambda: grad(yout, [xin_d] + experts, dyout,
-                                                         retain_graph=True)),
-            "dispatch_bwd": events_ms(torch, lambda: grad(xin, xd, dxin, retain_graph=True)),
-            "route_bwd": events_ms(torch, lambda: grad(w, (xr, live["router"]), dw,
-                                                       retain_graph=True))}
-        del live, experts, xin, xin_d, yout, yd, y, dx, dyout, dw, dxin
-    finally:
-        torch.use_deterministic_algorithms(mode)
+        xl = x.detach().requires_grad_()
+        y, aux = moe.apply_moe(live, xl, cfg)
+        grads = torch.autograd.grad((y, aux["lb_loss"]), [xl] + [live[k] for k in trained],
+                                    (dy, torch.ones_like(aux["lb_loss"])))
+        got = dict(zip(["y", "x"] + trained, [y.detach(), *grads]))
+        dropped = float(aux["dropped_frac"])
+        del grads, y, aux, live, xl
+        if first is None:
+            first = {k: t.cpu() for k, t in got.items()}
+        else:
+            equal = {k: torch.equal(t.cpu(), first[k]) for k, t in got.items()}
+        del got
+    require(all(equal.values()), f"{cfg.name}: the MoE layer's forward and backward "
+            f"differ between two runs with deterministic algorithms off: {equal}")
+    del first
+
+    # the parts, detached at their bounds: each part's forward and
+    # backward timed alone (events_ms: a warm call, then the median of 3)
+    x2d, dy2d = x.view(T, D), dy.view(T, D)
+    live = {k: v.detach().requires_grad_(k in trained) for k, v in p.items()}
+    experts = [live[k] for k in ("wi", "wg", "wo") if k in live]
+    xr, xd = x2d.detach().requires_grad_(), x2d.detach().requires_grad_()
+    idx, w, _ = moe._route(live, xr, cfg)
+    xin, plan = moe._dispatch(xd, idx, E, C)
+    xin_d = xin.detach().requires_grad_()
+    yout = moe._expert_ffn(live, xin_d, cfg).reshape(E * C, D)
+    yd, wd = yout.detach().requires_grad_(), w.detach().requires_grad_()
+    y = moe._combine(yd, wd, plan)
+    dyout, dw = torch.autograd.grad(y, (yd, wd), dy2d, retain_graph=True)
+    dxin = torch.autograd.grad(yout, xin_d, dyout, retain_graph=True)[0]
+    (dx,) = torch.autograd.grad(xin, xd, dxin, retain_graph=True)
+    _, slot, keep, _ = moe.dispatch_plan(idx, E, C)
+    want = plain_moe_backwards(torch, dxin.reshape(E * C, D), dy2d, yd.detach(),
+                               wd.detach(), slot, keep)
+    plain = {name: torch.equal(got, ref_)
+             for name, got, ref_ in zip(("dx", "dyout", "dw"), (dx, dyout, dw), want)}
+    require(all(plain.values()), f"{cfg.name}: the dispatch's and the combine's "
+            f"backwards differ from their plain versions: {plain}")
+    del want
+    grad = torch.autograd.grad
+    parts = {
+        "route": events_ms(torch, lambda: moe._route(live, xr, cfg)),
+        "dispatch": events_ms(torch, lambda: moe._dispatch(xd, idx, E, C)),
+        "experts": events_ms(torch, lambda: moe._expert_ffn(live, xin_d, cfg)),
+        "combine": events_ms(torch, lambda: moe._combine(yd, wd, plan)),
+        "combine_bwd": events_ms(torch, lambda: grad(y, (yd, wd), dy2d,
+                                                     retain_graph=True)),
+        "experts_bwd": events_ms(torch, lambda: grad(yout, [xin_d] + experts, dyout,
+                                                     retain_graph=True)),
+        "dispatch_bwd": events_ms(torch, lambda: grad(xin, xd, dxin, retain_graph=True)),
+        "route_bwd": events_ms(torch, lambda: grad(w, (xr, live["router"]), dw,
+                                                   retain_graph=True))}
+    del live, experts, xin, xin_d, yout, yd, y, dx, dyout, dw, dxin
     return {"tokens": T, "experts": E, "top_k": cfg.top_k, "capacity": C,
             "dropped_frac": dropped, "two_runs_equal_nondeterministic": equal,
             "backwards_equal_plain": plain, "parts_ms": parts}
@@ -4867,7 +4928,6 @@ def train_grok(torch, seed: int, free):
         params = bundle.model.init(seed)
         return params, adamw_init(params, opt_cfg)
 
-    torch.use_deterministic_algorithms(True)
     t0 = time.perf_counter()
     params, opt = fresh()
     out["init_s"] = time.perf_counter() - t0
@@ -4930,10 +4990,8 @@ def train_grok(torch, seed: int, free):
     out["peak_gb_graph"] = torch.cuda.max_memory_allocated() / 1e9
     del multi, mets
     free()
-    torch.use_deterministic_algorithms(False)
 
-    # where an eager step's time goes (deterministic algorithms off), and
-    # the MoE layer alone
+    # where an eager step's time goes, and the MoE layer alone
     prof = profile_train_step(torch, bundle, params, opt, batches[1])
     kernels = prof.pop("kernels")
     out["profile"] = {**prof, "by_kernel_family_ms": kernel_families(kernels),
@@ -4962,7 +5020,6 @@ def grads_deepseek(torch, seed: int, free):
            "parameters_b": round(count_params(cfg) / 1e9, 2), "param_dtype": "bfloat16",
            "tokens_per_step": MOE_TRAIN["batch"] * MOE_TRAIN["seq"],
            "step": "gradients only (bundle.grad_fn): the AdamW moments do not fit"}
-    torch.use_deterministic_algorithms(True)
     t0 = time.perf_counter()
     params = bundle.model.init(seed)
     out["init_s"] = time.perf_counter() - t0
@@ -5013,7 +5070,6 @@ def grads_deepseek(torch, seed: int, free):
     out["peak_gb_graph"] = torch.cuda.max_memory_allocated() / 1e9
     del graph, ggrads, gmet, static
     free()
-    torch.use_deterministic_algorithms(False)
 
     prof = profile_train_step(torch, bundle, params, None, batch)
     kernels = prof.pop("kernels")
@@ -5090,7 +5146,6 @@ def run_phase22(torch, seed: int, fk, rk, ref):
                                         "seq": MOE_TRAIN["seq"], "param_dtype": "bfloat16",
                                         "reference_shape": "train_4k",
                                         "why": MOE_TRAIN_CUT}}), flush=True)
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     out = {}
     free()
     torch.cuda.reset_peak_memory_stats()
@@ -5220,8 +5275,6 @@ def run_phase24(torch, seed: int, fk, rk, ssd, ref):
     print(json.dumps({"train_cut": {"model": "hymba-1.5b", "batch": B, "seq": S,
                                     "reference_shape": "train_4k",
                                     "why": HYMBA_TRAIN_CUT}}), flush=True)
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    torch.use_deterministic_algorithms(True)
     cfg = get_config("hymba-1.5b")
     shape = ShapeConfig("train_cut", S, B, "train")
     mesh = make_mesh((1, 1), ("data", "model"))
@@ -5296,10 +5349,11 @@ def run_phase24(torch, seed: int, fk, rk, ssd, ref):
     require(bool(torch.isfinite(eager["loss"]).all()), "phase 24: a non-finite loss")
     out["eager_ms_per_step"] = step_ms
     out["peak_gb_eager"] = torch.cuda.max_memory_allocated() / 1e9
+    # the eager state kept as its leaves' fingerprints, made on the card
     t0 = time.perf_counter()
-    keep = {"state": [t.cpu() for t in tree_leaves((params, opt))],
-            "mets": {k: v.cpu() for k, v in eager.items()}}
-    out["host_copy_s"] = time.perf_counter() - t0
+    keep = {"state": fingerprints(torch, tree_leaves((params, opt))),
+            "mets": {k: v.clone() for k, v in eager.items()}}
+    out["fingerprint_s"] = time.perf_counter() - t0
     del params, opt
     gc.collect()
     torch.cuda.empty_cache()
@@ -5312,9 +5366,8 @@ def run_phase24(torch, seed: int, fk, rk, ssd, ref):
     torch.cuda.synchronize()
     out["graph_setup_s"] = time.perf_counter() - t0
     require((multi.dispatches, multi.captures) == (1, 1), "phase 24: not one graph launch")
-    same = all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves((params, opt)),
-                                                       keep["state"]))
-    same_m = all(torch.equal(mets[k].cpu(), keep["mets"][k]) for k in keep["mets"])
+    same = fingerprints(torch, tree_leaves((params, opt))) == keep["state"]
+    same_m = all(torch.equal(mets[k], keep["mets"][k]) for k in keep["mets"])
     require(same and same_m, "phase 24: the one-launch steps differ from the eager steps")
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -5329,7 +5382,6 @@ def run_phase24(torch, seed: int, fk, rk, ssd, ref):
     del multi, params, opt, mets, keep
     gc.collect()
     torch.cuda.empty_cache()
-    torch.use_deterministic_algorithms(False)
 
     # (c) where an eager step's time goes
     params, opt = fresh()
@@ -5374,6 +5426,337 @@ def run_phase24(torch, seed: int, fk, rk, ssd, ref):
     gc.collect()
     torch.cuda.empty_cache()
     return out, row, flash, max(flash_errs), norms, launches
+
+
+def same_bits(torch, a, b) -> bool:
+    """``a`` and ``b`` equal bit for bit (signed zeros told apart)."""
+    view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(view), b.contiguous().view(view))
+
+
+def embedding_case(torch, ek, ref, name, dy, ids, vocab) -> dict:
+    """Phase 25 (a): the embedding backward at one input (``dy`` [T, D]
+    bf16, ``ids`` [T]): one counted launch equal to its plain version bit
+    for bit, two calls equal; timed (the wrapper: the stable sort and the
+    kernels) beside the sort alone, the plain version (CUDA events: it reads
+    its sweep count on the host), autograd of ``index_select``'s backward
+    (forward and backward less forward, each in captured graphs; it adds
+    with float atomics, so its entries that differ from the kernel's are
+    counted) and the bound: dy and ids read once, every row of the
+    [vocab, D] result written once, over the card's memory rate."""
+    before = ek.embedding_bwd.launches
+    got = ek.embedding_bwd(dy, ids, vocab)
+    require(ek.embedding_bwd.launches == before + 1,
+            f"embedding_bwd {name}: not one counted launch")
+    require(same_bits(torch, got, ref.embedding_bwd(dy, ids, vocab)),
+            f"embedding_bwd {name}: differs from its plain version")
+    require(same_bits(torch, ek.embedding_bwd(dy, ids, vocab), got),
+            f"embedding_bwd {name}: two calls differ")
+    T, D = dy.shape
+    n_bytes = (dy.numel() * dy.element_size() + ids.numel() * ids.element_size()
+               + vocab * D * dy.element_size())
+    table = torch.zeros(vocab, D, dtype=dy.dtype, device="cuda", requires_grad=True)
+    flat = ids.long()
+
+    def lib_fwd():
+        return torch.index_select(table, 0, flat)
+
+    def lib_fwd_bwd():
+        with torch.enable_grad():
+            return torch.autograd.grad(lib_fwd(), table, dy)[0]
+
+    counts = torch.unique(ids, return_counts=True)[1]
+    out = {"T": T, "D": D, "vocab": vocab, "distinct_ids": int(counts.numel()),
+           "longest_run": int(counts.max()),
+           "library_entries_differing": int((lib_fwd_bwd() != got).sum()),
+           "ms": median_ms(torch, lambda: ek.embedding_bwd(dy, ids, vocab), 10, 5),
+           "sort_ms": median_ms(torch, lambda: torch.sort(ids.int(), stable=True), 10, 5),
+           "plain_ms": events_ms(torch, lambda: ref.embedding_bwd(dy, ids, vocab)),
+           "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "mbytes": n_bytes / 1e6,
+           "library_fwd_bwd_ms": median_ms(torch, lib_fwd_bwd, 5, 5)}
+    with torch.no_grad():
+        out["library_fwd_ms"] = median_ms(torch, lib_fwd, 5, 5)
+    out["library_ms"] = out["library_fwd_bwd_ms"] - out["library_fwd_ms"]
+    del table, got
+    return out
+
+
+def family_setup(torch, arch: str):
+    """Phase 25: ``arch`` at full width (cut in depth as ``FAMILY_TRAIN``
+    says), its train step on one card and ``SyntheticTokens`` batches (one a
+    step, and stacked)."""
+    from repro_torch import make_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import steps as st
+    from repro_torch.optim import AdamWConfig
+
+    run = FAMILY_TRAIN[arch]
+    cfg = dataclasses.replace(get_config(arch), **run["cut"])
+    shape = ShapeConfig("train_cut", run["seq"], run["batch"], "train")
+    opt_cfg = AdamWConfig(lr=1e-3)
+    bundle = st.build_train_step(cfg, shape, make_mesh((1, 1), ("data", "model")),
+                                 opt=opt_cfg, total_steps=100)
+    source = SyntheticTokens(cfg, shape)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in source.batch(i).items()}
+               for i in range(FAMILY_TRAIN_STEPS)]
+    return cfg, bundle, opt_cfg, batches
+
+
+def family_step_launches(torch, cfg, launches) -> dict:
+    """An eager step's kernels, as the config gives them: every attention
+    (the encoder's, the decoder's self and cross attention) forward twice
+    (forward and the checkpoint's recompute) and backward once, all on the
+    tensor-core route; every norm forward twice and backward once but the
+    final ones (the decoder's, and the encoder's), which are not
+    checkpointed; the embedding backward once."""
+    attn = cfg.n_layers * (2 if cfg.enc_dec else 1) + (cfg.n_enc_layers if cfg.enc_dec else 0)
+    finals = 2 if cfg.enc_dec else 1
+    want = {"flash_attention": 2 * attn, "flash_attention_wgmma": 2 * attn,
+            "flash_attention_bwd": attn, "flash_attention_bwd_wgmma": attn,
+            "embedding_bwd": 1}
+    got = {k: launches.get(k, 0) for k in want}
+    require(got == want and not launches.get("flash_attention_cuda_core")
+            and not launches.get("flash_attention_bwd_cuda_core"),
+            f"{cfg.name}: an eager step's launches {launches}, not {want} (none on the "
+            "CUDA-core routes)")
+    require(launches.get("rmsnorm_bwd", 0) > 0
+            and launches.get("rmsnorm") == 2 * launches["rmsnorm_bwd"] - finals,
+            f"{cfg.name}: an eager step's RMSNorm launches {launches}: not every norm "
+            f"forward twice under the checkpoint and backward once, the {finals} final "
+            "one(s) forward once")
+    return {"attention_calls": attn, "final_norms": finals}
+
+
+def train_family(torch, seed: int, arch: str, free):
+    """Phase 25 (b) for one model (see the module docstring); returns its
+    line and the launches of its counted eager step."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as st
+    from repro_torch.models.nn import tree_leaves
+    from repro_torch.optim import adamw_init
+
+    n = FAMILY_TRAIN_STEPS
+    cfg, bundle, opt_cfg, batches = family_setup(torch, arch)
+    stack = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    run = FAMILY_TRAIN[arch]
+    tokens = run["batch"] * run["seq"]
+    print(json.dumps({"train_cut": {"model": arch, "batch": run["batch"], "seq": run["seq"],
+                                    "layers": cfg.n_layers, **run["cut"],
+                                    "reference_shape": "train_4k",
+                                    "why": FAMILY_TRAIN_CUT}}), flush=True)
+
+    def fresh():
+        params = bundle.model.init(seed)
+        return params, adamw_init(params, opt_cfg)
+
+    def step(params, opt, i, times):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, m = bundle.step_fn(params, opt, batches[i])
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+        return params, opt, m
+
+    def mode_off():
+        require(not torch.are_deterministic_algorithms_enabled(),
+                f"{arch}: deterministic algorithms are on")
+
+    out = {"tokens_per_step": tokens, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads], "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "tied": cfg.tie_embeddings, "dtype": cfg.dtype, "param_dtype": cfg.param_dtype}
+    if cfg.enc_dec:
+        out["encoder_layers"] = cfg.n_enc_layers
+        out["audio_frames"] = cfg.frontend_tokens
+    mode_off()
+
+    # n eager steps: the first step's gradients checked, the second's
+    # launches counted (counters set to 0 just before it), the state kept as
+    # fingerprints after 2 and after n steps
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt = fresh()
+    out["init_s"] = time.perf_counter() - t0
+    out["param_count"] = sum(p.numel() for p in tree_leaves(params))
+    out["parameters_b"] = out["param_count"] / 1e9
+    grads, gmet = bundle.grad_fn(params, batches[0])
+    bad = [i for i, g in enumerate(tree_leaves(grads))
+           if g is None or not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0)]
+    require(not bad, f"{arch}: gradient leaves {bad} missing, non-finite or all zero")
+    out["grad_leaves"] = len(tree_leaves(grads))
+    params, opt, omet = bundle.apply_fn(params, opt, grads)
+    del grads
+    eager_mets, step_ms = [{**gmet, **omet}], []
+    for i in range(1, n):
+        if i == 1:
+            reset_all_launches()
+        params, opt, m = step(params, opt, i, step_ms)
+        eager_mets.append(m)
+        if i == 1:
+            launches = {k: v for k, v in ops.launch_counts().items() if v}
+            two_steps = fingerprints(torch, tree_leaves((params, opt)))
+    out["eager_step_launches"] = launches
+    out["expected_launches"] = family_step_launches(torch, cfg, launches)
+    eager = {k: torch.stack([m[k] for m in eager_mets]) for k in eager_mets[0]}
+    out["loss"] = eager["loss"].tolist()
+    require(bool(torch.isfinite(eager["loss"]).all()), f"{arch}: a non-finite loss")
+    out["eager_ms_per_step"] = step_ms
+    out["peak_gb_eager"] = torch.cuda.max_memory_allocated() / 1e9
+    out["free_gb_at_eager_peak"] = (torch.cuda.get_device_properties(0).total_memory
+                                    - torch.cuda.max_memory_allocated()) / 1e9
+    t0 = time.perf_counter()
+    keep = fingerprints(torch, tree_leaves((params, opt)))
+    out["fingerprint_s"] = time.perf_counter() - t0
+    del params, opt, eager_mets, m
+    free()
+
+    # a second eager run of 2 steps from the same seed: the same bits
+    params, opt = fresh()
+    again = []
+    params, opt, _ = bundle.apply_fn(params, opt, bundle.grad_fn(params, batches[0])[0])
+    params, opt, _ = step(params, opt, 1, again)
+    mode_off()
+    require(fingerprints(torch, tree_leaves((params, opt))) == two_steps,
+            f"{arch}: two eager runs of 2 steps differ (deterministic algorithms off)")
+    out["two_eager_runs_equal"] = {"steps": 2, "state": "equal fingerprints"}
+    del params, opt
+    free()
+
+    # the same n steps as ONE graph launch
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = fresh()
+    multi = st.persistent_steps(bundle, n, stacked=True).step_fn
+    t0 = time.perf_counter()
+    params, opt, mets = multi(params, opt, stack)
+    torch.cuda.synchronize()
+    out["graph_setup_s"] = time.perf_counter() - t0
+    require((multi.dispatches, multi.captures) == (1, 1), f"{arch}: not one graph launch")
+    same = fingerprints(torch, tree_leaves((params, opt))) == keep
+    same_m = all(torch.equal(mets[k], eager[k]) for k in eager)
+    require(same and same_m, f"{arch}: the one-launch steps differ from the eager steps")
+    mode_off()
+    out["one_launch_equals_eager"] = {"metrics": "bitwise", "state": "equal fingerprints"}
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    multi(params, opt, stack)
+    stop.record()
+    torch.cuda.synchronize()
+    out["graph_ms_per_step"] = start.elapsed_time(stop) / n
+    out["dispatches_per_step_graph"] = 1 / n
+    out["tokens_per_s_graph"] = tokens / (out["graph_ms_per_step"] / 1e3)
+    out["tokens_per_s_eager"] = tokens / (statistics.median(step_ms) / 1e3)
+    out["peak_gb_graph"] = torch.cuda.max_memory_allocated() / 1e9
+    del multi, mets, keep, two_steps
+    free()
+
+    # where an eager step's time goes
+    prof = profile_train_step(torch, bundle, params, opt, batches[1])
+    kernels, busy = prof.pop("kernels"), prof["device_busy_ms"]
+    groups = {"flash_bwd": ("flash_bwd",), "flash_fwd": ("flash_wgmma",),
+              "rmsnorm_bwd": ("rmsnorm_bwd", "rmsnorm_dw"), "embedding_bwd": ("embedding_bwd",)}
+    split = {}
+    for name, keys in groups.items():
+        hits = [(t, c) for k, t, c in kernels if any(key in k for key in keys)]
+        split[name] = {"ms": sum(t for t, _ in hits), "launches": sum(c for _, c in hits),
+                       "share_of_busy": sum(t for t, _ in hits) / busy if busy else None}
+    out["profile"] = {**prof, "by_family": split,
+                      "top": [{"kernel": k[:90], "ms": t, "count": c}
+                              for k, t, c in kernels[:14]]}
+    # an eager step dispatches each of its kernels from the host
+    out["dispatches_per_step_eager"] = prof["kernel_launches"]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt
+    free()
+    return out, launches
+
+
+def run_phase25(torch, seed: int, fk, rk, ref):
+    """Phase 25: train qwen1.5-0.5b, glm4-9b (cut in depth) and
+    whisper-large-v3 at full width (see the module docstring); returns the
+    phase's line, the embedding backward's row, the flash backward's and the
+    RMSNorm backward's entries at the phase's shapes, the flash backward's
+    largest error there and the kernels' launches in the three counted
+    eager steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import embedding as ek
+
+    def free():
+        gc_free(torch)
+
+    out, launches = {}, {}
+    for arch in FAMILY_TRAIN:
+        free()
+        out[arch], got = train_family(torch, seed, arch, free)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    free()
+
+    # (a) the embedding backward at each model's step shape, on its ids
+    gen = torch.Generator("cuda").manual_seed(seed + 125)
+    emb = {}
+    for arch, run in FAMILY_TRAIN.items():
+        cfg = get_config(arch)
+        shape = ShapeConfig("train_cut", run["seq"], run["batch"], "train")
+        ids = torch.from_numpy(SyntheticTokens(cfg, shape).batch(0)["tokens"]).cuda()
+        ids = ids.reshape(-1)
+        dy = torch.randn(ids.numel(), cfg.d_model, device="cuda", generator=gen).bfloat16()
+        emb[arch] = embedding_case(torch, ek, ref, arch, dy, ids, cfg.vocab)
+        del dy, ids
+    q = FAMILY_TRAIN["qwen1.5-0.5b"]
+    cfg_q = get_config("qwen1.5-0.5b")
+    T = q["batch"] * q["seq"]
+    dy = torch.randn(T, cfg_q.d_model, device="cuda", generator=gen).bfloat16()
+    for name, values in EMB_SKEWED:
+        pool = torch.randint(0, cfg_q.vocab, (values,), device="cuda", generator=gen)
+        ids = pool[torch.randint(0, values, (T,), device="cuda", generator=gen)]
+        emb[name] = embedding_case(torch, ek, ref, name, dy, ids, cfg_q.vocab)
+    del dy, ids, pool
+    free()
+    main_case = emb["qwen1.5-0.5b"]
+    row = {"name": "embedding_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/embedding.cu",
+           "replaces": REPLACES["embedding_bwd"], "pallas_counterpart": False,
+           "launches": launches["embedding_bwd"], "phase25_launches": launches["embedding_bwd"],
+           "max_abs_err": 0.0, "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+           "bound_ms": main_case["bound_ms"], "bound_by": "bytes",
+           "library_ms": main_case["library_ms"],
+           "library_call": ("torch.autograd.grad of torch.index_select (float atomics): "
+                            "forward and backward less the forward alone, each in captured "
+                            "graphs"),
+           "library_fwd_bwd_ms": main_case["library_fwd_bwd_ms"],
+           "library_fwd_ms": main_case["library_fwd_ms"],
+           "shape": [main_case["T"], main_case["D"], main_case["vocab"]],
+           "other_shapes": {k: v for k, v in emb.items() if k != "qwen1.5-0.5b"}}
+    out["embedding_backward_checks"] = emb
+
+    # (b) the flash backward at the three models' layers, the RMSNorm
+    # backward at glm4's d 4096 (its eps) and whisper's 1280
+    gen = torch.Generator("cuda").manual_seed(seed + 25)
+    flash, errs = {}, []
+    for name, *case in FLASH_BWD_CASES:
+        if name not in PHASE25_FLASH_BWD:
+            continue
+        flash[name], case_errs, inputs = flash_bwd_case(torch, fk, ref, gen, name, *case)
+        flash[name]["times"] = flash_bwd_times(torch, fk, ref, *inputs)
+        errs += case_errs
+        del inputs
+        free()
+    glm, whisper = get_config("glm4-9b"), get_config("whisper-large-v3")
+    norms = dict(check_norm_bwd(torch, rk, ref, gen, shape, eps)
+                 for shape, eps in (((4, 1024, glm.d_model), glm.norm_eps),
+                                    ((4, whisper.frontend_tokens, whisper.d_model),
+                                     whisper.norm_eps)))
+    out["flash_backward_checks"] = flash
+    out["rmsnorm_backward_checks"] = norms
+    out["card"] = gpu_line()
+    free()
+    return out, row, flash, max(errs), norms, launches
 
 
 def start_dry_run():
@@ -5649,6 +6032,13 @@ def run_phases(torch, args, dry) -> int:
 
     card = gpu_line()
     print(f"card: {card}", flush=True)
+    t_run, phase_s = time.perf_counter(), {}
+
+    def lap(name: str) -> None:
+        """Print and keep the seconds since the last lap (or the start)."""
+        now = time.perf_counter()
+        phase_s[name] = now - (t_run + sum(phase_s.values()))
+        print(json.dumps({"phase_seconds": {name: phase_s[name]}}), flush=True)
     # phase 1: every csrc/*.cu, one nvcc each, all started together
     t0 = time.perf_counter()
     infos = build.build_all()
@@ -5657,6 +6047,8 @@ def run_phases(torch, args, dry) -> int:
                "ptxas": [l.strip() for l in i.log.splitlines()
                          if "registers" in l or "spill" in l]}
         for name, i in infos.items()}}}), flush=True)
+
+    lap("phase_1")
 
     # phase 2: the main path
     cfg = FacesConfig(grid=(2, 2, 2), points=(128, 128, 128), dtype="float32",
@@ -5668,6 +6060,8 @@ def run_phases(torch, args, dry) -> int:
     prog, fields, first, dispatches, ms, fused = run_engines(torch, cfg, mesh, u0)
     torch.cuda.synchronize()
     launches = hk.launch_counts()
+
+    lap("phase_2")
 
     # phase 3: results
     want = {"host": N_ITERS * prog.dispatch_count_host(),
@@ -5697,11 +6091,15 @@ def run_phases(torch, args, dry) -> int:
     print(json.dumps({"profile_fused_stream": profile_iterations(
         torch, fused, fused.init_buffers({"u": u0}))}), flush=True)
 
+    lap("phase_3")
+
     # phase 4: the one-buffer path
     contiguous = run_contiguous(torch, cfg, u0, first, base, hk)
     print(json.dumps({"faces_contiguous": contiguous}), flush=True)
     launches.update({n: contiguous["launches"][n]
                      for n in ("pack_boundary", "unpack_boundary_add")})
+
+    lap("phase_4")
 
     # phase 5: halo and boundary kernels against their plain versions
     rows = check_kernels(torch, prog, base, hk, ref)
@@ -5710,6 +6108,8 @@ def run_phases(torch, args, dry) -> int:
     for r in rows:
         r["launches"] = launches[r["name"]]
     del prog, fields, first, fused, base, plain
+
+    lap("phase_5")
 
     # phase 6: serve mamba2-2.7b at full width and depth
     from repro_torch.kernels import flash_attention as fk
@@ -5730,17 +6130,23 @@ def run_phases(torch, args, dry) -> int:
                                             served)}), flush=True)
     ssd_launches, norm_launches = served["ssd_scan"], served["rmsnorm"]
 
+    lap("phase_6")
+
     # phase 7: serving results, and where the time goes
     print(json.dumps({"serve_checks": check_serving(torch, eng, params, batch_in, runs,
                                                     SERVE)}), flush=True)
     print_profiles(torch, eng, params, batch_in, "")
     del eng, params, runs
 
+    lap("phase_7")
+
     # phase 8: the SSD kernel against its plain version
     row, detail = check_ssd(torch, ssd, ref, args.seed)
     row["launches"] = ssd_launches
     print(json.dumps({"ssd_scan_check": detail}), flush=True)
     ssd_row = row
+
+    lap("phase_8")
 
     # phase 9: serve gemma3-1b at full width and depth
     torch.cuda.empty_cache()
@@ -5768,6 +6174,8 @@ def run_phases(torch, args, dry) -> int:
     print(json.dumps({"serve_dense_checks": checks}), flush=True)
     print_profiles(torch, eng, params, batch_in, "_dense")
 
+    lap("phase_9")
+
     # phase 10: flash attention and rmsnorm against their plain versions
     dense_rows, detail = check_dense_kernels(torch, eng, params, batch_in, fk, rk, ref,
                                              args.seed)
@@ -5775,36 +6183,50 @@ def run_phases(torch, args, dry) -> int:
     print(json.dumps({"dense_kernel_checks": detail}), flush=True)
     del eng, params, runs
 
+    lap("phase_10")
+
     # phase 11: convergence loops, device-resident against host-polled
     from repro_torch.kernels import graph_loop
     torch.cuda.empty_cache()
     conv, step_row = run_convergence(torch, cfg, mesh, u0, gpu_line(), hk, graph_loop)
     print(json.dumps({"convergence": conv}), flush=True)
 
+    lap("phase_11")
+
     # phase 12: the linked N-part pipeline, one stream a program
     torch.cuda.empty_cache()
     pipeline, built = run_pipeline(torch, cfg, mesh, u0, gpu_line(), hk, graph_loop)
     print(json.dumps({"pipeline": pipeline}), flush=True)
+
+    lap("phase_12")
 
     # phase 13: the verifier and the sanitizer
     print(json.dumps({"verifier": run_verifier(torch, cfg, mesh, u0, gpu_line(), hk, built)}),
           flush=True)
     del built
 
+    lap("phase_13")
+
     # phase 14: the masked multi-queue loop, each part to its own count
     torch.cuda.empty_cache()
     masked, sched_row = run_masked(torch, cfg, mesh, u0, gpu_line(), hk, graph_loop)
     print(json.dumps({"masked": masked}), flush=True)
+
+    lap("phase_14")
 
     # phase 15: the tuner
     torch.cuda.empty_cache()
     print(json.dumps({"tuner": run_tuner(torch, cfg, mesh, u0, gpu_line(), hk, args.seed)}),
           flush=True)
 
+    lap("phase_15")
+
     # phase 16: the ring collectives at gemma3-1b's MLP widths
     torch.cuda.empty_cache()
     print(json.dumps({"collectives": run_collectives(torch, gpu_line(), args.seed)}),
           flush=True)
+
+    lap("phase_16")
 
     # phase 17: continuous serving at full width and depth
     torch.cuda.empty_cache()
@@ -5815,6 +6237,8 @@ def run_phases(torch, args, dry) -> int:
     for r in dense_rows + [ssd_row]:
         r["phase17_launches"] = cont_launches[r["name"]]
 
+    lap("phase_17")
+
     # phase 18: training mamba2-2.7b at full width and depth
     train_out, bwd_rows, train_launches = run_phase18(torch, args.seed, ssd, rk, ref)
     print(json.dumps({"train": train_out}), flush=True)
@@ -5822,6 +6246,8 @@ def run_phases(torch, args, dry) -> int:
         r["launches"] = train_launches[r["name"]]
     for r in dense_rows[1:] + [ssd_row]:
         r["phase18_launches"] = train_launches[r["name"]]
+
+    lap("phase_18")
 
     # phase 19: the hybrid, encoder-decoder and vision families
     torch.cuda.empty_cache()
@@ -5833,6 +6259,8 @@ def run_phases(torch, args, dry) -> int:
     ssd_row["served_shapes"] = ssd19
     for r in dense_rows + [ssd_row]:
         r["phase19_launches"] = launches19[r["name"]]
+
+    lap("phase_19")
 
     # phase 20: the MoE family
     torch.cuda.empty_cache()
@@ -5846,6 +6274,8 @@ def run_phases(torch, args, dry) -> int:
         r["phase20_launches"] = launches20[r["name"]]
     require(all(launches20[k] > 0 for k in ("flash_attention", "rmsnorm")),
             f"phase 20: a kernel never launched serving the MoE family: {launches20}")
+
+    lap("phase_20")
 
     # phase 21: training gemma3-1b at full width and depth
     t21 = time.perf_counter()
@@ -5864,6 +6294,8 @@ def run_phases(torch, args, dry) -> int:
     for r in dense_rows + [bwd_rows[1]]:
         r["phase21_launches"] = launches21[r["name"]]
     bwd_rows.append(flash_bwd_row)
+
+    lap("phase_21")
 
     # phase 22: training the MoE family at full width
     t22 = time.perf_counter()
@@ -5886,6 +6318,8 @@ def run_phases(torch, args, dry) -> int:
     for r in dense_rows + bwd_rows[1:]:
         r["phase22_launches"] = launches22.get(r["name"], 0)
 
+    lap("phase_22")
+
     # phase 23: the step bundles, expert parallelism on the card, the dry run
     t23 = time.perf_counter()
     first_tokens = {arch: moe_out[arch]["first_tokens"] for arch in MOE_CUTS}
@@ -5896,6 +6330,8 @@ def run_phases(torch, args, dry) -> int:
             f"phase 23: a kernel never launched on the bundles' paths: {launches23}")
     for r in dense_rows:
         r["phase23_launches"] = launches23.get(r["name"], 0)
+
+    lap("phase_23")
 
     # phase 24: training hymba-1.5b at full width and depth
     t24 = time.perf_counter()
@@ -5917,8 +6353,35 @@ def run_phases(torch, args, dry) -> int:
     for r in dense_rows + bwd_rows[1:]:
         r["phase24_launches"] = launches24.get(r["name"], 0)
 
+    lap("phase_24")
+
+    # phase 25: training qwen1.5-0.5b, glm4-9b (cut) and whisper-large-v3
+    t25 = time.perf_counter()
+    family_train, emb_row, flash25, flash25_err, norms25, launches25 = run_phase25(
+        torch, args.seed, fk, rk, ref)
+    family_train["seconds"] = time.perf_counter() - t25
+    print(json.dumps({"train_families": family_train}), flush=True)
+    require(all(launches25.get(k, 0) > 0 for k in ("flash_attention", "rmsnorm",
+                                                   "flash_attention_bwd", "rmsnorm_bwd",
+                                                   "embedding_bwd")),
+            f"phase 25: a kernel never launched training the three models: {launches25}")
+    flash_bwd_row["other_shapes"].update({k: v["times"] for k, v in flash25.items()})
+    flash_bwd_row["max_abs_err"] = max(flash_bwd_row["max_abs_err"], flash25_err)
+    bwd_rows[1]["training_shapes"].update(
+        {f"phase25_{k}": {n_: v[n_] for n_ in ("ms", "row_pass_ms", "dw_pass_ms", "plain_ms",
+                                              "library_ms", "bound_ms")}
+         for k, v in norms25.items()})
+    bwd_rows[1]["max_abs_err"] = max(
+        [bwd_rows[1]["max_abs_err"]] + [v[n_]["max_abs_err"] for v in norms25.values()
+                                        for n_ in ("dx", "dw")])
+    for r in dense_rows + bwd_rows[1:]:
+        r["phase25_launches"] = launches25.get(r["name"], 0)
+    lap("phase_25")
+    print(json.dumps({"phase_seconds": phase_s, "total_s": time.perf_counter() - t_run}),
+          flush=True)
+
     rows = (rows + dense_rows + [ssd_row, n16_row, step_row, sched_row] + bwd_rows
-            + [bwd_n16_row])
+            + [bwd_n16_row, emb_row])
     require(sorted(r["name"] for r in rows) == sorted(REPLACES), "a kernel row is missing")
     require(all(r["launches"] > 0 for r in rows), "a kernel was not launched on its path")
     order = ("name", "route", "kernel_route", "source", "replaces", "pallas_counterpart",
@@ -5927,7 +6390,8 @@ def run_phases(torch, args, dry) -> int:
              "library_fwd_ms", "training_shapes", "earlier_ms", "cuda_core_ms", "decode",
              "served_shapes", "phase17_launches", "phase18_launches", "phase19_launches",
              "phase20_launches", "phase21_launches", "phase22_launches",
-             "phase23_launches", "phase24_launches", "shape", "parts", "cluster",
+             "phase23_launches", "phase24_launches", "phase25_launches", "shape", "parts",
+             "cluster",
              "sdpa_kernels", "local_layer",
              "other_shapes", "one_program_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in order if k in r} for r in rows]}))

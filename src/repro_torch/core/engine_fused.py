@@ -86,6 +86,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels import graph_loop
 from ..kernels.halo_pack import pack_segments, unpack_segments
 from .descriptors import CollDesc, KernelDesc, StartDesc, WaitDesc
 from .effects import cross_gate_map, resolve_gate
@@ -821,10 +822,8 @@ class FusedEngine:
         if self.device.type == "cuda" and self._graph is None:
             self._run_into({n: t.clone() for n, t in self._bufs.items()})
             torch.cuda.synchronize(self.device)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                self._run_into(self._bufs)
-            self._graph = graph
+            self._graph = graph_loop.capture(lambda: self._run_into(self._bufs),
+                                             keep_graph=False)[0]
         return self._graph
 
     def _launch(self, mem: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -358,19 +358,21 @@ def reset_launches() -> None:
     GraphLoop.launches = ScheduleLoop.launches = 0
 
 
-def capture(fn):
-    """Capture ``fn()`` into a ``CUDAGraph(keep_graph=True)``; returns
-    ``(graph, fn's result)``.  The graph is never replayed by PyTorch:
-    :class:`GraphLoop` clones it into its own.  Python's cyclic garbage
-    collector is off during the capture: with it on, a full run of the
-    card's tests saw this capture invalidated (error 901) at a point the
+def capture(fn, *, keep_graph: bool = True, pool=None):
+    """Capture ``fn()`` into a ``CUDAGraph(keep_graph=keep_graph)`` on
+    the memory ``pool`` (a new one by default); returns ``(graph, fn's
+    result)``.  Every CUDA-graph capture of the port goes through here.
+    With ``keep_graph`` (the loops' passes) the graph is never replayed by
+    PyTorch: :class:`GraphLoop` clones it into its own.  Python's cyclic
+    garbage collector is off during the capture: with it on, a full run of
+    the card's tests saw a capture invalidated (error 901) at a point the
     earlier tests' garbage decided, as a collection that destroys a CUDA
     object inside a global-mode capture would do; with it off, none."""
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
     enabled = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, pool=pool):
             result = fn()
     finally:
         if enabled:

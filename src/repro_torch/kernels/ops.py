@@ -15,18 +15,23 @@ Two differences from the reference, both for the card's memory: the
 unpacks add into ``u`` in place and return it, and ``flash_attention``
 returns a ``[B,Hq,Sq,D]`` view of ``[B,Sq,Hq,D]`` memory.
 :func:`launch_counts` (not in ``__all__``, which mirrors the reference's
-names) gathers every kernel's launch counters.
+names) gathers every kernel's launch counters; :func:`embedding` (not in
+``__all__`` either: the reference's lookup is ``jnp.take`` in its model
+code) is the lookup whose backward is the hand-written kernel of
+:mod:`.embedding`.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+from . import embedding as _embedding
 from . import flash_attention as _flash
 from . import halo_pack as _halo
 from . import ref
 from . import rmsnorm as _rmsnorm
 from . import ssd_scan as _ssd
+from .embedding import embedding
 from .flash_attention import flash_attention
 from .halo_pack import halo_pack, halo_unpack_add, pack_boundary, unpack_boundary_add
 from .rmsnorm import rmsnorm
@@ -42,6 +47,6 @@ def launch_counts() -> Dict[str, int]:
     """Every hand-written kernel's launch count by name (flash attention
     also by route)."""
     out: Dict[str, int] = {}
-    for module in (_halo, _rmsnorm, _flash, _ssd):
+    for module in (_halo, _rmsnorm, _flash, _ssd, _embedding):
         out.update(module.launch_counts())
     return out

@@ -3,9 +3,10 @@
 Port of ``repro.kernels.ref``.  Each function here is the semantic
 ground truth of one hand-written CUDA kernel: the wrappers of
 :mod:`.halo_pack`, :mod:`.rmsnorm`, :mod:`.flash_attention` and
-:mod:`.ssd_scan` call it for CPU tensors, and ``chip_smoke.py`` holds
-each kernel against it on the card (the halo and boundary kernels bit
-for bit, the others within a stated bound).  For the halo and boundary
+:mod:`.ssd_scan` and :mod:`.embedding` call it for CPU tensors, and
+``chip_smoke.py`` holds each kernel against it on the card (the halo
+and boundary kernels and the embedding's backward bit for bit, the
+others within a stated bound).  For the halo and boundary
 kernels, tensors carry every rank: leading dimensions are rank axes,
 the last three the local ``(px, py, pz)`` block.
 """
@@ -155,6 +156,37 @@ def attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch
                         logit_softcap=logit_softcap, q_offset=q_offset)
         grads = torch.autograd.grad(out, ins, dout.to(out.dtype))
     return tuple(grads)
+
+
+def embedding_bwd(dy: torch.Tensor, ids: torch.Tensor, vocab: int) -> torch.Tensor:
+    """The table's gradient of a row lookup ``table[ids]``: ``[vocab, D]``
+    in dy's dtype, ``out[v] = Σ dy[t]`` over the positions ``t`` with
+    ``ids[t] == v``, rows no id selects zero.  Each id's rows are added in
+    ascending position, from zero, and every add is rounded to dy's
+    dtype (a float32 add for bf16), as the reference's VJP of
+    ``jnp.take`` (a scatter-add whose combiner adds in the table's
+    compute dtype, ``src/repro/models/nn.py:94-98``) adds them on the
+    CPU.  Vectorised over ids: sweep k adds the k-th occurrence of every
+    id, so an address receives one add a sweep.  On the meta device it
+    gives the shape only."""
+    D = dy.shape[-1]
+    dy, ids = dy.reshape(-1, D), ids.reshape(-1)
+    if ids.numel() != dy.shape[0]:
+        raise ValueError(f"embedding_bwd: {ids.numel()} ids for {dy.shape[0]} rows of dy")
+    out = torch.zeros((vocab, D), dtype=dy.dtype, device=dy.device)
+    if dy.device.type == "meta" or ids.numel() == 0:
+        return out
+    acc = torch.float64 if dy.dtype == torch.float64 else torch.float32
+    sorted_ids, order = torch.sort(ids.long(), stable=True)
+    pos = torch.arange(ids.numel(), device=ids.device)
+    first = torch.ones_like(sorted_ids, dtype=torch.bool)
+    first[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    for k in range(int(rank.max()) + 1):
+        sel = rank == k
+        v, t = sorted_ids[sel], order[sel]
+        out[v] = (out[v].to(acc) + dy[t].to(acc)).to(dy.dtype)
+    return out
 
 
 def pack_segments(sources: Sequence[Tuple[torch.Tensor, int]],

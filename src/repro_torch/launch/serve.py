@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, get_config
-from repro_torch.kernels import ops
+from repro_torch.kernels import graph_loop, ops
 from repro_torch.mesh import resolve_device
 from repro_torch.models import Model
 from repro_torch.models.nn import tree_leaves, tree_map
@@ -100,15 +100,18 @@ class _Graph:
         with torch.cuda.stream(stream):   # warm-up on scratch copies
             fn(params, *tree_map(torch.clone, state))
         torch.cuda.current_stream().wait_stream(stream)
-        self.graph = torch.cuda.CUDAGraph()
         before = ops.launch_counts()
         self.tail_bytes = 0
-        with torch.cuda.graph(self.graph):
-            new_state, self.extras = fn(params, *self.state)
+
+        def body():
+            new_state, extras = fn(params, *self.state)
             for dst, src in zip(tree_leaves(self.state), tree_leaves(new_state)):
                 if dst is not src:
                     dst.copy_(src)
                     self.tail_bytes += dst.numel() * dst.element_size()
+            return extras
+
+        self.graph, self.extras = graph_loop.capture(body, keep_graph=False)
         self.kernel_launches = {k: n - before[k] for k, n in ops.launch_counts().items()}
 
     def __call__(self, state):

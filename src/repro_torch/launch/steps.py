@@ -403,9 +403,8 @@ class _FixedGraph:
         for k, v in batch.items():
             self.batch[k].copy_(v)
         _warm_up(bundle, params, _batch_at(self.batch, is_stacked, 0))
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.mets = body(params, opt_state, self.batch)
+        self.graph, self.mets = graph_loop.capture(
+            lambda: body(params, opt_state, self.batch), keep_graph=False)
         self.replays = 0
 
     def __call__(self, params, opt_state, batch):
@@ -458,18 +457,9 @@ class _PlateauGraph:
                 v.masked_fill_((steps >= self.n_done).reshape(-1, *[1] * (v.dim() - 1)), 0)
 
         _warm_up(bundle, params, _batch_at(self.batch, is_stacked, 0))
-        pass_a = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(pass_a):
-            one_step()
-        pass_b = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(pass_b, pool=pass_a.pool()):
-            one_step()
-        selects = []
-        for _ in range(2):
-            g = torch.cuda.CUDAGraph(keep_graph=True)
-            with torch.cuda.graph(g, pool=pass_a.pool()):
-                finish()
-            selects.append(g)
+        pass_a, _ = graph_loop.capture(one_step)
+        pass_b, _ = graph_loop.capture(one_step, pool=pass_a.pool())
+        selects = [graph_loop.capture(finish, pool=pass_a.pool())[0] for _ in range(2)]
         for g in (pass_a, pass_b):
             bad = set(graph_loop.node_types(g)) & set(graph_loop.NOT_IN_A_BODY)
             if bad:

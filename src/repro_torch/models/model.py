@@ -386,6 +386,8 @@ def _ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     (the reference's ``_ce``)."""
     lg = logits.float()
     lse = torch.logsumexp(lg, dim=-1)
+    # one target a row: the gather's backward (a scatter-add) gives each
+    # address one add, so its result does not depend on the atomics' order
     gold = torch.gather(lg, -1, targets.long()[..., None])[..., 0]
     return torch.mean(lse - gold)
 

@@ -35,12 +35,11 @@ on every run:
 The dispatch and the combine are ``torch.autograd.Function`` classes
 (:class:`_Dispatch`, :class:`_Combine`) whose backwards are gathers
 added in a fixed order, so the layer's backward gives the same bits on
-every run and in a graph, with or without
-``torch.use_deterministic_algorithms`` (autograd of ``index_select``
-would add into shared rows with float atomics).  A whole training step
-is not yet so: the embedding's lookup (``nn.apply_embedding``) is an
-``index_select`` whose backward adds with float atomics on CUDA, and
-needs deterministic mode for equal bits.
+every run and in a graph, without ``torch.use_deterministic_algorithms``
+(autograd of ``index_select`` would add into shared rows with float
+atomics).  So does a whole training step: the embedding's lookup
+(``nn.apply_embedding``) has a hand-written backward that adds in token
+order (``kernels/embedding.py``).
 
 * the dispatch's backward gives token ``t`` the sum of its kept slots'
   gradients, ``dx[t] = Σ_j dxin[slot[t, j]]``, added in ascending expert
@@ -117,6 +116,8 @@ def _route(p, x2d: torch.Tensor, cfg: ModelConfig):
     if cfg.router == "sigmoid":
         scores = torch.sigmoid(logits)
         _, idx = _top_k(scores + p["router_bias"][None, :], cfg.top_k)
+        # the top-k indices of a row are distinct: the gather's backward
+        # (a scatter-add) gives each address one add, so no float atomics meet
         w = torch.gather(scores, -1, idx)
         w = w / (w.sum(-1, keepdim=True) + 1e-20)
         w = w * cfg.routed_scaling

@@ -106,8 +106,11 @@ def init_embedding(gen, cfg: ModelConfig, *, device):
 
 
 def apply_embedding(p, ids: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    # the table's gradient adds each id's rows in token order, rounding to
+    # the compute dtype after every add, as the reference's VJP (no float
+    # atomics on the card: ``kernels/embedding.py``)
     table = p["table"].to(dtype_of(cfg.dtype))
-    x = torch.index_select(table, 0, ids.reshape(-1)).reshape(*ids.shape, -1)
+    x = ops.embedding(table, ids.reshape(-1)).reshape(*ids.shape, -1)
     if cfg.embed_scale:
         # sqrt(d_model) rounded to the activation dtype first, as the
         # reference does (in bf16, sqrt(1152) is 34.0)

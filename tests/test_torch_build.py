@@ -151,7 +151,8 @@ def test_every_cuda_source_is_built_and_declared():
     """Every source has a wrapper module of its name that declares the C
     types of exactly the entry points the source exports."""
     names = set(build.sources())
-    assert names == {"halo_pack", "ssd_scan", "rmsnorm", "flash_attention", "graph_loop"}
+    assert names == {"halo_pack", "ssd_scan", "rmsnorm", "flash_attention", "graph_loop",
+                     "embedding"}
     for name in names:
         wrapper = importlib.import_module(f"repro_torch.kernels.{name}")
         text = build.sources()[name].read_text()

@@ -33,7 +33,11 @@ stream a program) are held against the CPU run and the full-domain run
 bit for bit; the captured graph has one stream's width a program; a
 receiver that is slow to read its ghost planes is not overwritten by its
 neighbour's next deposit; the sanitizer gives the same bits and refuses
-a racy program before any launch.  This file imports no JAX, so it runs on a GPU
+a racy program before any launch.  The embedding's backward kernel
+equals its plain version bit for bit (ragged T and D, one id or all ids
+distinct, a strided dy), replays in a graph, refuses a wrong dtype or
+stride, and qwen smoke's gradients on the card match the CPU's; the
+train steps' graph equals eager without deterministic mode.  This file imports no JAX, so it runs on a GPU
 machine without it::
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -72,6 +76,7 @@ from repro_torch.core import (
 from repro_torch.core.descriptors import KernelDesc, WaitDesc
 from repro_torch.configs import get_config
 from repro_torch.core.halo import AXES3, DIRECTIONS, _region_for
+from repro_torch.kernels import embedding as ek
 from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import graph_loop
 from repro_torch.kernels import halo_pack as hk
@@ -2022,6 +2027,8 @@ FLASH_BWD_CASES = [
     (BF16, 1, 4, 4, 70, 100, 64, 64, dict(causal=False)),
     (BF16, 1, 4, 2, 80, 80, 192, 128, dict(q_offset=-10)),
     (BF16, 1, 2, 1, 64, 64, 32, 32, dict(window=19)),
+    # glm4-9b's GQA group of 16: the dK/dV kernel's cluster of 8, 2 heads a CTA
+    (BF16, 1, 32, 2, 130, 130, 128, 128, {}),
 ]
 
 
@@ -2191,23 +2198,6 @@ def test_flash_forward_without_grad_is_unchanged(cuda):
 # -- training on the card ------------------------------------------------------
 
 
-@pytest.fixture
-def deterministic():
-    """Deterministic algorithms (embedding backward, gather backward) and
-    cuBLAS's workspace setting for them; restored afterwards."""
-    import os
-    old_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    old = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True)
-    yield
-    torch.use_deterministic_algorithms(old)
-    if old_env is None:
-        os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
-    else:
-        os.environ["CUBLAS_WORKSPACE_CONFIG"] = old_env
-
-
 def _train_setup(device, remat="block", scan_layers=True):
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import SyntheticTokens
@@ -2322,10 +2312,11 @@ def test_no_gradient_leaf_is_none_after_backward(cuda):
 
 
 @pytest.mark.parametrize("kind", ["persistent", "pipelined"])
-def test_multi_step_dispatch_is_one_graph_launch_equal_to_eager(cuda, deterministic, kind):
+def test_multi_step_dispatch_is_one_graph_launch_equal_to_eager(cuda, kind):
     """3 steps as ONE CUDA-graph launch equal, bit for bit, to the same
-    steps run eagerly on the card (params, AdamW state, metrics); a second
-    call replays the graph."""
+    steps run eagerly on the card (params, AdamW state, metrics), without
+    ``torch.use_deterministic_algorithms``; a second call replays the
+    graph."""
     from repro_torch.launch import steps as st
     cfg, bundle, batches = _train_setup(cuda)
     stack = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
@@ -2347,7 +2338,7 @@ def test_multi_step_dispatch_is_one_graph_launch_equal_to_eager(cuda, determinis
 
 
 @pytest.mark.parametrize("factor", [2.0, 0.5])
-def test_plateau_graph_loop_equals_host_polled(cuda, deterministic, factor):
+def test_plateau_graph_loop_equals_host_polled(cuda, factor):
     """until=loss_plateau through the graph-loop WHILE node: steps_done and
     the loss trace equal the eager loop's with the predicate polled on the
     host, bit for bit (eps twice or half the first loss move: it stops
@@ -2369,3 +2360,101 @@ def test_plateau_graph_loop_equals_host_polled(cuda, deterministic, factor):
     for k in ("loss", "ce", "grad_norm", "lr"):
         assert torch.equal(m_g[k], m_e[k].to(cuda)), k
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves((p_e, o_e)), tree_leaves((p_g, o_g))))
+
+
+# -- the embedding's backward ------------------------------------------------------
+
+
+# (ids, D, vocab, dtype, kind): ragged T and D (odd D takes the element
+# path, even D the paired one), one id repeated, all distinct, a few values
+EMB_CASES = [(4096, 1024, 151936, BF16, "few"), (4096, 1024, 151936, BF16, "one_id"),
+             (1792, 1280, 5000, BF16, "distinct"), (37, 7, 50, BF16, "few"),
+             (300, 130, 64, torch.float32, "few"), (1, 64, 9, torch.float32, "one_id"),
+             (4097, 4096, 1000, BF16, "few"), (0, 64, 10, BF16, "few")]
+
+
+def _emb_inputs(T, D, V, dtype, kind, device, seed=0):
+    rng = np.random.RandomState(seed)
+    ids = {"few": rng.choice(rng.randint(0, V, 16), T), "one_id": np.full(T, V - 1),
+           "distinct": rng.permutation(V)[:T]}[kind]
+    return (_randn((T, D), dtype, device, seed + 1),
+            torch.from_numpy(ids.astype(np.int64)).to(device))
+
+
+@pytest.mark.parametrize("case", EMB_CASES, ids=str)
+def test_embedding_bwd_kernel_equals_plain(cuda, case):
+    """The kernel equals its plain version bit for bit (each id's rows in
+    token order, every add rounded), every row written (zeros where no id
+    falls), with int32 ids and a row-strided dy too; two calls equal."""
+    T, D, V, dtype, kind = case
+    dy, ids = _emb_inputs(T, D, V, dtype, kind, cuda)
+    before = ek.embedding_bwd.launches
+    got = ek.embedding_bwd(dy, ids, V)
+    assert ek.embedding_bwd.launches == before + 1
+    want = ref.embedding_bwd(dy, ids, V)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(ek.embedding_bwd(dy, ids.int(), V), got)
+    wide = torch.zeros((T, D + 8), dtype=dtype, device=cuda)
+    wide[:, :D] = dy
+    assert torch.equal(ek.embedding_bwd(wide[:, :D], ids, V), got)
+
+
+def test_embedding_bwd_graph_replay_equals_eager(cuda):
+    """Sort and kernel captured into one CUDA graph (nothing read back on
+    the host): a replay on new ids and rows equals an eager call."""
+    dy, ids = _emb_inputs(4096, 1024, 151936, BF16, "few", cuda)
+    eager = ek.embedding_bwd(dy, ids, 151936)
+    graph, out = graph_loop.capture(lambda: ek.embedding_bwd(dy, ids, 151936),
+                                    keep_graph=False)
+    dy2, ids2 = _emb_inputs(4096, 1024, 151936, BF16, "few", cuda, seed=5)
+    dy.copy_(dy2)
+    ids.copy_(ids2)
+    graph.replay()
+    assert torch.equal(out, ek.embedding_bwd(dy2, ids2, 151936))
+    assert not torch.equal(out, eager)
+
+
+def test_embedding_bwd_refuses_wrong_dtype_or_stride(cuda):
+    dy, ids = _emb_inputs(64, 32, 100, BF16, "few", cuda)
+    with pytest.raises(ValueError):
+        ek.embedding_bwd(dy.half(), ids, 100)
+    with pytest.raises(ValueError):
+        ek.embedding_bwd(dy.t().contiguous().t(), ids, 100)   # column-major: stride 64
+    with pytest.raises(ValueError):
+        ek.embedding_bwd(dy, ids.float(), 100)
+    with pytest.raises(ValueError):
+        ek.embedding_bwd(dy, ids[:10], 100)
+
+
+def test_qwen_smoke_gradients_on_card_match_cpu(cuda):
+    """qwen1.5-0.5b smoke's ``Model.loss`` on tokens that repeat heavily:
+    the loss and every gradient on the card (the embedding backward kernel
+    once, the tied table's two contributions added) against the port on
+    the CPU at rtol 1e-5 (loss) and rtol 1e-4 plus 1e-4 of a leaf's
+    largest entry; two runs on the card equal bit for bit."""
+    from repro_torch.launch import steps as st
+    from repro_torch.configs.base import ShapeConfig
+    cfg = get_config("qwen1.5-0.5b").smoke()
+    shape = ShapeConfig("t", 32, 2, "train")
+    rng = np.random.RandomState(4)
+    tokens = rng.choice([1, 7, 100, cfg.vocab - 1], (2, 32)).astype(np.int32)
+    targets = rng.randint(0, cfg.vocab, (2, 32)).astype(np.int32)
+    out = {}
+    for dev in ("cpu", cuda):
+        bundle = st.build_train_step(cfg, shape, make_mesh((1, 1), ("data", "model"),
+                                                           device=dev))
+        params = tree_map(lambda t: t.to(dev), Model(cfg).init(0, device="cpu"))
+        batch = {"tokens": torch.from_numpy(tokens).to(dev),
+                 "targets": torch.from_numpy(targets).to(dev)}
+        before = ek.embedding_bwd.launches
+        out[str(dev)] = [bundle.grad_fn(params, batch) for _ in range(2 if dev == cuda else 1)]
+        if dev == cuda:
+            torch.cuda.synchronize()
+            assert ek.embedding_bwd.launches == before + 2
+    (cpu_grads, cpu_met), = out["cpu"]
+    (g1, m1), (g2, m2) = out[str(cuda)]
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g1), tree_leaves(g2)))
+    np.testing.assert_allclose(float(m1["loss"]), float(cpu_met["loss"]), rtol=1e-5)
+    for g, w in zip(tree_leaves(g1), tree_leaves(cpu_grads)):
+        assert bool(torch.isfinite(g).all())
+        _grad_close(g.cpu(), w, 1e-4, 1e-4)

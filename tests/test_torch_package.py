@@ -42,6 +42,7 @@ def test_import_leaves_out_jax_and_repro(subproc):
             "repro_torch.kernels.halo_pack, repro_torch.kernels.build, "
             "repro_torch.kernels.ssd_scan, repro_torch.kernels.rmsnorm, "
             "repro_torch.kernels.flash_attention, repro_torch.kernels.ops, "
+            "repro_torch.kernels.embedding, "
             "repro_torch.configs, "
             "repro_torch.models, repro_torch.models.convert, repro_torch.models.frontends, "
             "repro_torch.launch.serve, repro_torch.launch.costing, "
@@ -73,6 +74,41 @@ def test_sources_import_torch_numpy_and_the_standard_library(path):
     allowed = {"torch", "numpy", "repro_torch", *sys.stdlib_module_names}
     bad = [m for m in _imported(path) if m.split(".")[0] not in allowed]
     assert not bad, f"{path} imports {bad}"
+
+
+def _calls(path: str):
+    """``(dotted callee, enclosing function, call)`` of every call in ``path``."""
+    tree = ast.parse(open(path).read(), filename=path)
+
+    def walk(node, fn):
+        for child in ast.iter_child_nodes(node):
+            inner = child.name if isinstance(child, (ast.FunctionDef,
+                                                     ast.AsyncFunctionDef)) else fn
+            if isinstance(child, ast.Call):
+                yield ast.unparse(child.func), fn, child
+            yield from walk(child, inner)
+
+    yield from walk(tree, None)
+
+
+def test_every_capture_goes_through_the_guarded_helper():
+    """Every CUDA-graph capture of the port is ``graph_loop.capture``'s,
+    which turns Python's cyclic collector off while it captures
+    (``ROADMAP.md`` §3, fault 4)."""
+    sites = [(os.path.relpath(path, PORT), fn) for path in _port_sources()
+             if path.startswith(PORT) for name, fn, _ in _calls(path)
+             if name in ("torch.cuda.graph", "torch.cuda.CUDAGraph")]
+    assert sites == [("kernels/graph_loop.py", "capture")] * 2, sites
+
+
+def test_nothing_turns_deterministic_mode_on():
+    """No module of the port and no phase of ``chip_smoke.py`` turns
+    ``torch.use_deterministic_algorithms`` on: no training step needs it."""
+    on = [(path, call.lineno) for path in _port_sources() for name, _, call in _calls(path)
+          if name.endswith("use_deterministic_algorithms")
+          and not (call.args and isinstance(call.args[0], ast.Constant)
+                   and call.args[0].value is False)]
+    assert not on, on
 
 
 def test_make_mesh_defaults_to_cuda():
